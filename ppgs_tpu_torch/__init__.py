@@ -1,8 +1,9 @@
 """ppgs_tpu_torch: the PyTorch/CUDA port of ppgs_tpu for NVIDIA Hopper.
 
 Phonetic posteriorgrams on an H100: the mel frontend, the transformer
-model and the inference API, with the encoder's TPU kernels rewritten by
-hand in CUDA C++ (``kernels/csrc``). The JAX package ``ppgs_tpu`` is the
+model, the inference API and single-device training, with the encoder's
+TPU kernels (inference and training) rewritten by hand in CUDA C++
+(``kernels/csrc``). The JAX package ``ppgs_tpu`` is the
 reference this package is tested against; this package never imports it
 (nor JAX). What is ported so far, and what is still to come, is listed in
 ROADMAP.md.
@@ -20,11 +21,13 @@ from .phonemes import (
     SILENCE,
 )
 from . import convert
+from . import evaluate
 from . import kernels
 from . import load
 from . import models
 from . import ops
 from . import preprocess
+from . import train
 from .core import (
     from_audio,
     from_features,

@@ -87,3 +87,53 @@ def prepare(model):
         tensors['wqkv_folded'] = (attn.wqkv * fold).to(cd).contiguous()
         tensors['bqkv_folded'] = (attn.bqkv * fold).float().contiguous()
         layer.prepared = Prepared(tensors)
+
+
+def params_to_jax(state):
+    """The inverse of ``params_from_jax``: a Transformer state dict (or any
+    dict of tensors with its keys, such as Adam's moments) -> the JAX
+    package's flat {key: numpy array}."""
+    flat = {}
+    for key, value in state.items():
+        array = value.detach().cpu().numpy()
+        conv = key.split('.')[0]
+        if conv in _CONVS and key.endswith('.weight'):
+            array = array.transpose(2, 1, 0)
+        if key.endswith(('attn.wqkv', 'attn.bqkv')):
+            # 'layers.i.attn.' and 'w' or 'b'
+            prefix, kind = key[:-4], key[-4]
+            for name, part in zip('qkv', np.split(array, 3, axis=-1)):
+                flat[f'{prefix}{kind}{name}'] = np.ascontiguousarray(part)
+            continue
+        flat[key] = np.ascontiguousarray(array)
+    return flat
+
+
+def adam_state_to_jax(model, optimizer):
+    """A ``torch.optim.Adam``'s state for ``model`` -> the JAX package's
+    optax adam state as flat arrays: {'count': int32, 'mu': flat,
+    'nu': flat}, with the fused-QKV moments split as the parameters are.
+    A parameter without state yet (no step taken) has zero moments."""
+    mu, nu, count = {}, {}, 0
+    for name, param in model.named_parameters():
+        state = optimizer.state.get(param, {})
+        if state:
+            count = int(state['step'])
+        mu[name] = state.get('exp_avg', torch.zeros_like(param))
+        nu[name] = state.get('exp_avg_sq', torch.zeros_like(param))
+    return {'count': np.asarray(count, np.int32), 'mu': params_to_jax(mu),
+            'nu': params_to_jax(nu)}
+
+
+def adam_state_from_jax(model, optimizer, count, mu, nu):
+    """Load an optax adam state (count, and mu and nu as flat JAX-layout
+    dicts) into ``optimizer``, a ``torch.optim.Adam`` over
+    ``model.parameters()``: optax's count is Adam's step, mu and nu its
+    exp_avg and exp_avg_sq (the two updates are the same function)."""
+    mu, nu = params_from_jax(mu), params_from_jax(nu)
+    for name, param in model.named_parameters():
+        optimizer.state[param] = {
+            'step': torch.tensor(float(count)),
+            'exp_avg': mu[name].to(param.device, param.dtype).clone(),
+            'exp_avg_sq': nu[name].to(param.device, param.dtype).clone(),
+        }

@@ -31,22 +31,57 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas=-v')
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_U = ctypes.c_uint
+# A dropout site (ops/dropout.py Drop.c_args): seed_lo, seed_hi, site,
+# threshold, scale
+_DROP = (_U, _U, _U, _U, _F)
 
 # C symbol -> (source file, argtypes). Every pointer and the stream are
 # c_void_p: ctypes would pass a bare Python int as a 32-bit int.
 SIGNATURES = {
+    # q, k, v, rs, mask, out, out32, out_stride, lse, B, T, H, scale_log2,
+    # causal, *drop, stream
+    'ppgs_attention_train_fwd': ('attention_train.cu', (
+        _P, _P, _P, _L, _P, _P, _P, _L, _P, _I, _I, _I, _F, _I, *_DROP, _P)),
+    # q, k, v, rs, mask, lse, dout, do_stride, d_row, dq16, dq32, dk16,
+    # dk32, dv16, dv32, d_stride, B, T, H, scale_log2, sm_scale, causal,
+    # *drop, stream
+    'ppgs_attention_train_bwd': ('attention_train.cu', (
+        _P, _P, _P, _L, _P, _P, _P, _L, _P, _P, _P, _P, _P, _P, _P, _L,
+        _I, _I, _I, _F, _F, _I, *_DROP, _P)),
+    # x, ldx, y, ldy, out, B, T, H, is_f32, stream
+    'ppgs_row_dot': ('attention_train.cu', (_P, _L, _P, _L, _P, _I, _I, _I,
+                                            _I, _P)),
+    # g, g_is_bf16, n, rstd, gamma, dz_out, masked_out, partial, M, *drop,
+    # stream
+    'ppgs_ln_dropout_bwd': ('layer_train.cu', (
+        _P, _I, _P, _P, _P, _P, _P, _P, _I, *_DROP, _P)),
+    # in, R, N, splits, scratch, out, round_bf16, stream
+    'ppgs_colsum': ('layer_train.cu', (_P, _L, _L, _I, _P, _P, _I, _P)),
+    # x, x_is_f32, dy, w1, b1, w2, residual, dx32, dx16, hd_out, dh_out,
+    # db1_partial, M, F, *drop (hidden site), stream
+    'ppgs_ffn_train_bwd': ('ffn_train.cu', (
+        _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, *_DROP,
+        _P)),
+    # a, a_is_f32, ta, lda, b, tb, ldb, out32, out16, residual, ldc, M, N,
+    # K, splits, stream
+    'ppgs_gemm': ('gemm.cu', (_P, _I, _I, _L, _P, _I, _L, _P, _P, _P, _L,
+                              _I, _I, _I, _I, _P)),
     # x, w, b, out, M, K, N, stream
     'ppgs_qkv_proj': ('qkv_proj.cu', (_P, _P, _P, _P, _I, _I, _I, _P)),
     # q, k, v, row_stride, mask, out, out_stride, B, T, H, scale_log2,
     # causal, stream
     'ppgs_attention': ('attention.cu', (_P, _P, _P, _L, _P, _P, _L,
                                         _I, _I, _I, _F, _I, _P)),
-    # a, w, bias, x, gamma, beta, out, M, stream
-    'ppgs_out_proj_ln': ('out_proj_ln.cu', (_P, _P, _P, _P, _P, _P, _P,
-                                            _I, _P)),
-    # x, w1, b1, w2, b2, gamma, beta, out, M, F, round_input, stream
-    'ppgs_ffn_ln': ('ffn_ln.cu', (_P, _P, _P, _P, _P, _P, _P, _P,
-                                  _I, _I, _I, _P)),
+    # a, w, bias, x, gamma, beta, out, n_out, rstd, M, *drop, stream
+    'ppgs_out_proj_ln': ('out_proj_ln.cu', (_P, _P, _P, _P, _P, _P, _P, _P,
+                                            _P, _I, *_DROP, _P)),
+    # x, w1, b1, w2, b2, gamma, beta, out, n_out, rstd, y_out, M, F,
+    # round_input, seed_lo, seed_hi, site_h, site_y, threshold, scale,
+    # stream
+    'ppgs_ffn_ln': ('ffn_ln.cu', (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                  _P, _I, _I, _I, _U, _U, _U, _U, _U, _F,
+                                  _P)),
 }
 SOURCES = tuple(sorted({src for src, _ in SIGNATURES.values()}))
 
@@ -135,6 +170,12 @@ def build_all():
     for symbol in SIGNATURES:
         function(symbol)
     return time.perf_counter() - start
+
+
+def ptr(tensor):
+    """The device address of ``tensor``, or None (a null pointer) for
+    None: what an entry point takes for an output it may skip."""
+    return None if tensor is None else tensor.data_ptr()
 
 
 def require(tensor, name, dtype, device, shape=None):

@@ -66,12 +66,16 @@ __device__ __forceinline__ void load_tile_f32_as_bf16(bf16* s, int sld,
 
 // LayerNorm of one 256-wide float32 row spread over a warp, 8 values per
 // lane (lane owns columns lane*8 .. lane*8+7); two-pass moments in fp32 as
-// the JAX kernels compute them. Writes the row to out.
+// the JAX kernels compute them. Writes the row to out and, for the training
+// backward, the normalised row to n and 1/std to *rstd when they are not
+// null.
 __device__ __forceinline__ void layer_norm_row256(float v[8],
                                                   const float* gamma,
                                                   const float* beta,
-                                                  float* out) {
-  const int c0 = (threadIdx.x % 32) * 8;
+                                                  float* out,
+                                                  float* n = nullptr,
+                                                  float* rstd = nullptr) {
+  const int lane = threadIdx.x % 32, c0 = lane * 8;
   float sum = 0.f;
 #pragma unroll
   for (int e = 0; e < 8; ++e) sum += v[e];
@@ -85,10 +89,19 @@ __device__ __forceinline__ void layer_norm_row256(float v[8],
   const float inv = rsqrtf(warp_sum(sq) * (1.f / 256.f) + LN_EPS);
   float o[8];
 #pragma unroll
-  for (int e = 0; e < 8; ++e) o[e] = v[e] * inv * gamma[c0 + e] + beta[c0 + e];
+  for (int e = 0; e < 8; ++e) {
+    v[e] *= inv;
+    o[e] = v[e] * gamma[c0 + e] + beta[c0 + e];
+  }
   float4* dst = reinterpret_cast<float4*>(out + c0);
   dst[0] = make_float4(o[0], o[1], o[2], o[3]);
   dst[1] = make_float4(o[4], o[5], o[6], o[7]);
+  if (n) {
+    float4* dn = reinterpret_cast<float4*>(n + c0);
+    dn[0] = make_float4(v[0], v[1], v[2], v[3]);
+    dn[1] = make_float4(v[4], v[5], v[6], v[7]);
+  }
+  if (rstd && lane == 0) *rstd = inv;
 }
 
 }  // namespace ppgs

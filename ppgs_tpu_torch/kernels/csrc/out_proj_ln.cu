@@ -1,9 +1,12 @@
-// K3 out_proj_residual_ln: out = LN1(x + a @ Wo + bo), C = 256.
+// K3 out_proj_residual_ln: out = LN1(x + drop(a @ Wo + bo)), C = 256.
 //
 // Replaces: the per-head output projection and the first LayerNorm inside
 // ppgs_tpu/ops/encoder_layer_kernel.py _layer_body
 // (`acc += dot(oh, wo[sl])`; `r = _ln(x32 + acc + bo, g1, be1)`), run per
-// layer by encoder_stack's _stack_kernel.
+// layer by encoder_stack's _stack_kernel; and, with the keep_sa dropout
+// site on, the same step of ppgs_tpu/ops/encoder_layer_train.py
+// _fwd_compute (`od = keep_sa ? o1 / (1 - rate) : 0`, `r = LN1(x + od)`),
+// where it also saves the normalised rows and 1/std for the backward.
 //
 // Rounding follows the TPU kernel: the attention output a is bf16 (the
 // TPU rounds each head's output to the compute dtype before its product),
@@ -12,11 +15,13 @@
 //
 // Bound on an H100 at the main path's shape (M = 64,000 rows): 164 MB moved
 // (bf16 a, fp32 x in, fp32 out) against 8.4 GFLOP, so memory bound
-// (~49 us). The design gives one block whole 256-wide rows (32 of them) so
+// (~49 us); at the training shape (M = 131,072) with the statistics
+// saved, 0.47 GB (~0.14 ms). The design gives one block whole 256-wide rows (32 of them) so
 // the LayerNorm runs in the epilogue and the pre-norm sum never reaches
 // memory; Wo (128 KB) stays in L2. Plain wmma with synchronous loads.
 
 #include "common.cuh"
+#include "philox.cuh"
 
 using namespace nvcuda;
 using ppgs::bf16;
@@ -38,7 +43,8 @@ out_proj_ln_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w,
                    const float* __restrict__ x,
                    const float* __restrict__ gamma,
                    const float* __restrict__ beta, float* __restrict__ out,
-                   int M) {
+                   float* __restrict__ n_out, float* __restrict__ rstd, int M,
+                   ppgs::Dropout drop) {
   __shared__ __align__(128) unsigned char smem[SMEM];
   bf16* sA = reinterpret_cast<bf16*>(smem);
   bf16* sB = sA + BM * A_LD;
@@ -82,6 +88,7 @@ out_proj_ln_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w,
 
   // Epilogue: each warp normalises 4 whole rows, 8 columns per lane
   const int c0 = lane * 8;
+  ppgs::KeepStream keep(drop);
   for (int r = warp * 4; r < warp * 4 + 4; ++r) {
     if (r >= rows) break;
     const long long g = (long long)(row0 + r) * C + c0;
@@ -90,19 +97,31 @@ out_proj_ln_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w,
     const float xs[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
     float v[8];
 #pragma unroll
-    for (int e = 0; e < 8; ++e)
-      v[e] = xs[e] + sY[r * Y_LD + c0 + e] + bias[c0 + e];
-    ppgs::layer_norm_row256(v, gamma, beta, out + (long long)(row0 + r) * C);
+    for (int e = 0; e < 8; ++e) {
+      const float acc = sY[r * Y_LD + c0 + e];
+      v[e] = drop.threshold
+                 ? xs[e] + (keep.keep(g + e) ? (acc + bias[c0 + e]) * drop.scale
+                                             : 0.f)
+                 : xs[e] + acc + bias[c0 + e];
+    }
+    const long long row = row0 + r;
+    ppgs::layer_norm_row256(v, gamma, beta, out + row * C,
+                            n_out ? n_out + row * C : nullptr,
+                            rstd ? rstd + row : nullptr);
   }
 }
 
 }  // namespace
 
 // a (M, 256) bf16, w (256, 256) bf16, bias/gamma/beta (256) fp32,
-// x (M, 256) fp32 -> out (M, 256) fp32.
+// x (M, 256) fp32 -> out (M, 256) fp32, and n_out (M, 256) and rstd (M)
+// fp32 unless null. The dropout site (threshold 0: off) drops a @ w + bias.
 extern "C" int ppgs_out_proj_ln(const void* a, const void* w, const void* bias,
                                 const void* x, const void* gamma,
-                                const void* beta, void* out, int M,
+                                const void* beta, void* out, void* n_out,
+                                void* rstd, int M, unsigned seed_lo,
+                                unsigned seed_hi, unsigned site,
+                                unsigned threshold, float scale,
                                 void* stream) {
   if (M > 0) {
     out_proj_ln_kernel<<<(M + BM - 1) / BM, THREADS, 0,
@@ -110,7 +129,9 @@ extern "C" int ppgs_out_proj_ln(const void* a, const void* w, const void* bias,
         static_cast<const bf16*>(a), static_cast<const bf16*>(w),
         static_cast<const float*>(bias), static_cast<const float*>(x),
         static_cast<const float*>(gamma), static_cast<const float*>(beta),
-        static_cast<float*>(out), M);
+        static_cast<float*>(out), static_cast<float*>(n_out),
+        static_cast<float*>(rstd), M,
+        ppgs::make_dropout(seed_lo, seed_hi, site, threshold, scale));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -136,3 +136,28 @@ def model(checkpoint=None, representation=None, config=None, device=None):
     module.load_state_dict(convert.params_from_jax(flat), strict=True)
     convert.prepare(module)
     return module.to(device).eval().requires_grad_(False), config
+
+
+###############################################################################
+# Class weights
+###############################################################################
+
+
+def phoneme_weights(config=None, device=None):
+    """Class-balancing weights min(count)/count (ppgs/load.py:90-127), read
+    from the JAX package's asset by path, as a float32 tensor on ``device``
+    (CPU by default). Computing them from the training partition needs the
+    dataset loaders, which are not ported yet (ROADMAP.md A7)."""
+    import torch
+
+    config = config_mod.get(config)
+    path = config_mod.CLASS_WEIGHT_FILE
+    if not path.exists():
+        raise NotImplementedError(
+            f'{path} is missing, and computing the phoneme weights from '
+            f'the {config.training_dataset} partition needs the dataset '
+            f'loaders, which ppgs_tpu_torch does not port yet (ROADMAP.md '
+            f'A7)')
+    with np.load(path) as data:
+        weights = np.asarray(data['weights'], dtype=np.float32)
+    return torch.from_numpy(weights).to(device or 'cpu')

@@ -14,6 +14,12 @@ parameter file onto this state.
 
 Long inputs fold 500-frame windows with 50-frame halos into the batch
 (``chunked_forward``), exactly as the JAX package does.
+
+``forward(..., train=True, seed=...)`` is the differentiable training
+forward, with the JAX package's dispatch (``ppgs_tpu/models/transformer.py
+:198-386``): the whole-layer train kernel when T % 8 == 0 and T <= 1024,
+else the attention and FFN train kernels per layer, else plain torch; it
+reads the parameters, cast per call, never the ``prepared`` buffers.
 """
 
 import functools
@@ -22,13 +28,22 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ..config import Config
+from ..ops import dropout
 from ..ops import encoder_layer_kernel as elk
+from ..ops import encoder_layer_train as elt
 from ..ops import flash_attention as fa
 from ..ops import fused_ffn
 from ..ops.masking import mask_from_lengths
+
+# Longest window of the train kernels (the JAX package's
+# TRAIN_KERNEL_MAX_T): the whole-layer kernel takes T % 8 == 0 up to it,
+# the attention kernel any T up to it; longer windows train through plain
+# torch attention
+TRAIN_KERNEL_MAX_T = elt.MAX_T
 
 
 ###############################################################################
@@ -98,8 +113,9 @@ class Transformer(nn.Module):
             'pe', torch.from_numpy(positional_encoding(config.max_len, c)),
             persistent=False)
 
-    def forward(self, features, lengths, phys_lengths=None):
-        return forward(self, features, lengths, phys_lengths)
+    def forward(self, features, lengths, phys_lengths=None, train=False,
+                seed=None):
+        return forward(self, features, lengths, phys_lengths, train, seed)
 
 
 def init(config: Config, generator=None):
@@ -250,12 +266,135 @@ def use_kernels(config: Config, device) -> bool:
 
 
 ###############################################################################
+# Training layers
+###############################################################################
+
+
+def _attention_train(x, layer, key_mask, causal, heads, cd, kernel, drop):
+    """Train-mode self-attention on (B, T, C) with dropout on the
+    probabilities (the JAX package's train branches of ``_attention``).
+
+    The QKV and output products are plain matmuls in the compute dtype, as
+    the JAX package leaves them to XLA. ``kernel`` and T <= 1024: the
+    attention runs through ``flash_attention_train`` (any T: the JAX
+    caller's pad to a multiple of 8 is not needed). Otherwise the XLA
+    path's arithmetic: in train mode the whole softmax chain stays in the
+    compute dtype, with fp32 row sums."""
+    B, T, C = x.shape
+    d_head = C // heads
+    a = layer.attn
+    qkv = x.to(cd) @ a.wqkv.to(cd) + a.bqkv.to(cd)
+    q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
+    if kernel and T <= TRAIN_KERNEL_MAX_T:
+        out = fa.flash_attention_train(q, k, v, key_mask, heads, drop.rate,
+                                       drop.seed, causal, drop.site)
+    else:
+        def heads_first(t):
+            return t.reshape(B, T, heads, d_head).transpose(1, 2)
+
+        q4, k4, v4 = heads_first(q), heads_first(k), heads_first(v)
+        logits = (q4 @ k4.transpose(-1, -2)) * (1.0 / math.sqrt(d_head))
+        mask = key_mask[:, None, None, :]
+        if causal:
+            mask = mask & torch.ones(T, T, dtype=torch.bool,
+                                     device=x.device).tril()
+        logits = logits.masked_fill(~mask, float('-inf'))
+        logits_max = logits.amax(dim=-1, keepdim=True).detach()
+        logits_max = torch.where(torch.isfinite(logits_max), logits_max,
+                                 torch.zeros_like(logits_max))
+        unnorm = torch.exp(logits - logits_max).masked_fill(~mask, 0.0)
+        denom = unnorm.sum(dim=-1, keepdim=True, dtype=torch.float32)
+        probs = unnorm * (1.0 / denom.clamp_min(1e-30)).to(cd)
+        probs = dropout.dropout(probs, drop.seed, drop.site, drop.rate)
+        out = (probs.to(cd) @ v4).transpose(1, 2).reshape(B, T, C)
+    out = out.to(cd) @ a.wo.to(cd) + a.bo.to(cd)
+    return out.to(x.dtype)
+
+
+def _encoder_layer_train(x, layer, key_mask, causal, heads, cd, kernel,
+                         drop):
+    """One post-LN layer in train mode; ``drop`` is the Drop of the layer's
+    first site (its attention probabilities), the next three sites are the
+    attention output, the FFN hidden and the FFN output."""
+    T = x.shape[1]
+    if kernel and T % 8 == 0 and T <= TRAIN_KERNEL_MAX_T:
+        return elt.encoder_layer_train(x, key_mask, layer, heads, drop.rate,
+                                       drop.seed, causal, drop.site, cd)
+    sa = _attention_train(x, layer, key_mask, causal, heads, cd, kernel,
+                          drop)
+    sa = dropout.dropout(sa, drop.seed, drop.site + 1, drop.rate)
+    x = _layer_norm(x + sa, layer.norm1.scale, layer.norm1.bias)
+    f = layer.ffn
+    if kernel:
+        y = fused_ffn.ffn_train(x.to(cd), f.w1.to(cd), f.b1.to(cd),
+                                f.w2.to(cd), f.b2.to(cd), drop.rate,
+                                drop.seed, drop.site + 2)
+        return _layer_norm(x + y.to(x.dtype), layer.norm2.scale,
+                           layer.norm2.bias)
+    h = torch.relu(x.to(cd) @ f.w1.to(cd) + f.b1.to(cd))
+    h = dropout.dropout(h, drop.seed, drop.site + 2, drop.rate)
+    h = (h @ f.w2.to(cd) + f.b2.to(cd)).to(x.dtype)
+    h = dropout.dropout(h, drop.seed, drop.site + 3, drop.rate)
+    return _layer_norm(x + h, layer.norm2.scale, layer.norm2.bias)
+
+
+def _train_forward(model, features, lengths, seed, phys_lengths=None):
+    """The differentiable training forward (``forward(..., train=True)``)."""
+    config = model.config
+    cd = getattr(torch, config.compute_dtype)
+    T = features.shape[-1]
+    heads, rate = config.attention_heads, config.dropout
+    mask = mask_from_lengths(lengths, T)
+
+    x = conv1d_same(features, model.input_conv.weight, model.input_conv.bias)
+    x = x.transpose(1, 2) * mask[..., None]
+    x = (x + model.pe[:T]).contiguous()
+    x = dropout.dropout(x, seed, dropout.PE_SITE, rate)
+
+    kernel = use_kernels(config, x.device)
+    for i, layer in enumerate(model.layers):
+        drop = dropout.Drop(seed, dropout.site(i, 'probs'), rate)
+        args = (x, layer, mask, config.is_causal, heads, cd, kernel, drop)
+        if config.remat:
+            # Recompute the layer in the backward: activation memory of one
+            # layer instead of all (the JAX package's jax.checkpoint); the
+            # Philox masks make the recomputation exact
+            x = torch.utils.checkpoint.checkpoint(
+                _encoder_layer_train, *args, use_reentrant=False)
+        else:
+            x = _encoder_layer_train(*args)
+
+    if phys_lengths is not None:
+        phys_mask = mask_from_lengths(phys_lengths.to(lengths.dtype), T)
+        x = x * phys_mask[..., None]
+    x = conv1d_same(x.transpose(1, 2), model.output_conv.weight,
+                    model.output_conv.bias)
+    return x * mask[:, None, :]
+
+
+###############################################################################
 # Forward pass (single window)
 ###############################################################################
 
 
+def forward(model, features, lengths, phys_lengths=None, train=False,
+            seed=None):
+    """Core forward on (B, C, T) features -> (B, output_channels, T) logits.
+
+    ``train=True``: the differentiable training forward with dropout at
+    config.dropout drawn from the Philox stream of ``seed`` (an int; the
+    same seed drops the same elements on the card and on the CPU), reading
+    the parameters. Otherwise the inference forward, under no_grad, which
+    reads the ``prepared`` weights.
+    """
+    if train:
+        return _train_forward(model, features, lengths,
+                              0 if seed is None else seed, phys_lengths)
+    return _inference_forward(model, features, lengths, phys_lengths)
+
+
 @torch.no_grad()
-def forward(model, features, lengths, phys_lengths=None):
+def _inference_forward(model, features, lengths, phys_lengths=None):
     """Core forward on (B, C, T) features -> (B, output_channels, T) logits.
 
     No chunking here: T must be <= config.max_len; ``chunked_forward``

@@ -1,2 +1,3 @@
-"""Tensor ops: masking, the mel frontend, and the encoder's kernel wrappers
-(each beside its plain PyTorch version)."""
+"""Tensor ops: masking, the mel frontend, the Philox dropout stream, and the
+encoder's kernel wrappers for inference and training (each beside its plain
+PyTorch version)."""

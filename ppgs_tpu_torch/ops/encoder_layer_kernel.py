@@ -9,7 +9,10 @@ residual goes through device memory between them:
     K1 qkv_proj              qkv = bf16(bf16(x) @ Wqkv + bqkv)       (here)
     K2 attention             a   = softmax(mask(q k^T)) v per head
                              (ops/flash_attention.py)
-    K3 out_proj_residual_ln  r   = LN1(x + a @ Wo + bo)              (here)
+    K3 out_proj_residual_ln  r   = LN1(x + a @ Wo + bo)              (here;
+                             with dropout and saved LN statistics it is
+                             also the training layer's, ops/
+                             encoder_layer_train.py)
     K4 ffn_residual_ln       x   = LN2(r + relu(r @ W1 + b1) @ W2 + b2)
                              (ops/fused_ffn.py)
 
@@ -25,6 +28,7 @@ same chain through the plain versions on any device.
 import torch
 
 from .. import kernels
+from . import dropout
 from .flash_attention import attention, attention_reference
 from .fused_ffn import (ffn_residual_ln, ffn_residual_ln_reference,
                         layer_norm, matmul)
@@ -70,11 +74,12 @@ def out_proj_residual_ln_reference(a, wo, bo, x, scale, bias):
                       scale.float(), bias.float())
 
 
-def out_proj_residual_ln(a, wo, bo, x, scale, bias):
-    """K3 (``kernels/csrc/out_proj_ln.cu``): LN1(x + a @ wo + bo) with
-    a (..., 256) bf16, x (..., 256) fp32 -> fp32."""
-    if a.device.type == 'cpu':
-        return out_proj_residual_ln_reference(a, wo, bo, x, scale, bias)
+def launch_out_proj_ln(a, wo, bo, x, gamma, beta, drop=dropout.OFF,
+                       stats=False):
+    """Check the operands and launch K3 (``kernels/csrc/out_proj_ln.cu``):
+    LN1(x + drop(a @ wo + bo)) with a (..., 256) bf16, x (..., 256) fp32 on
+    the card, ``drop`` a ``dropout.Drop``. Returns (out fp32, and with
+    ``stats`` the normalised rows and 1/std (M,), else None, None)."""
     C = wo.shape[0]
     if C != 256:
         raise ValueError(f'out_proj_ln kernel takes C=256; got {C}')
@@ -84,13 +89,26 @@ def out_proj_residual_ln(a, wo, bo, x, scale, bias):
     if a.shape[-1] != C:
         raise ValueError(f'a: expected last dim {C}, got {a.shape[-1]}')
     kernels.require(wo, 'wo', torch.bfloat16, dev, (C, C))
-    for name, t in (('bo', bo), ('scale', scale), ('bias', bias)):
+    for name, t in (('bo', bo), ('gamma', gamma), ('beta', beta)):
         kernels.require(t, name, torch.float32, dev, (C,))
+    M = a.numel() // C
     out = torch.empty_like(x)
+    n = torch.empty_like(x) if stats else None
+    rstd = (torch.empty(M, dtype=torch.float32, device=dev) if stats
+            else None)
     kernels.launch('ppgs_out_proj_ln', a.data_ptr(), wo.data_ptr(),
-                   bo.data_ptr(), x.data_ptr(), scale.data_ptr(),
-                   bias.data_ptr(), out.data_ptr(), a.numel() // C,
-                   device=dev)
+                   bo.data_ptr(), x.data_ptr(), gamma.data_ptr(),
+                   beta.data_ptr(), out.data_ptr(), kernels.ptr(n),
+                   kernels.ptr(rstd), M, *drop.c_args(), device=dev)
+    return out, n, rstd
+
+
+def out_proj_residual_ln(a, wo, bo, x, scale, bias):
+    """K3 (``kernels/csrc/out_proj_ln.cu``): LN1(x + a @ wo + bo) with
+    a (..., 256) bf16, x (..., 256) fp32 -> fp32."""
+    if a.device.type == 'cpu':
+        return out_proj_residual_ln_reference(a, wo, bo, x, scale, bias)
+    out, _, _ = launch_out_proj_ln(a, wo, bo, x, scale, bias)
     out_proj_residual_ln.launches += 1
     return out
 

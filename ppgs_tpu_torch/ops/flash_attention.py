@@ -14,6 +14,9 @@ On a CPU tensor the wrappers run the plain PyTorch version; on a CUDA
 tensor they launch the kernel or raise. The packed d_head < 128 variant of
 the TPU kernel belongs to a later slice (ROADMAP.md). Bound, design and
 rounding notes are in the CUDA source.
+
+The training attention with dropout (``flash_attention_train``, the TPU's
+``flash_attention_train``) is at the end of this module.
 """
 
 import math
@@ -21,6 +24,7 @@ import math
 import torch
 
 from .. import kernels
+from . import dropout
 
 LOG2E = 1.4426950408889634
 NEG_INF = -1e30
@@ -114,3 +118,255 @@ def flash_attention_reference(q, k, v, mask, num_heads, causal=False):
     """Plain version of ``flash_attention``."""
     scale = LOG2E / math.sqrt(q.shape[-1] // num_heads)
     return attention_reference(q, k, v, mask, num_heads, scale, causal)
+
+
+###############################################################################
+# Training: attention with dropout, forward and backward (B5)
+###############################################################################
+#
+# Counterpart of ppgs_tpu/ops/flash_attention.py flash_attention_train: the
+# forward saves (o, lse), the backward recomputes the probabilities from
+# lse and regenerates the dropout mask (ops/dropout.py), so no (T, T) tensor
+# is kept between the passes. Three kernels of
+# kernels/csrc/attention_train.cu, each with its plain version below:
+# attention_train_fwd, row_dot (d_row = rowsum(dO * O) per head) and
+# attention_train_bwd. The JAX kernel pads T to a multiple of 8; these take
+# any T. ``lse`` is in log2 units (m + log2(l) of the log2-scaled scores).
+
+
+def _heads_first(t, heads):
+    B, T, C = t.shape
+    return t.reshape(B, T, heads, C // heads).transpose(1, 2).float()
+
+
+def _heads_last(t):
+    B, H, T, D = t.shape
+    return t.transpose(1, 2).reshape(B, T, H * D)
+
+
+def _valid(mask, T, causal):
+    valid = mask.bool()[:, None, None, :]
+    if causal:
+        valid = valid & torch.ones(T, T, dtype=torch.bool,
+                                   device=mask.device).tril()
+    return valid
+
+
+def attention_train_fwd_reference(q, k, v, mask, heads, scale_log2, causal,
+                                  drop, want_f32=False):
+    """Plain version of ``attention_train_fwd`` (q's dtype is the compute
+    dtype)."""
+    B, T, C = q.shape
+    cd = q.dtype
+    q4, k4, v4 = (_heads_first(t, heads) for t in (q, k, v))
+    valid = _valid(mask, T, causal)
+    s = ((q4 @ k4.transpose(-1, -2)) * scale_log2).masked_fill(~valid,
+                                                                NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    l = torch.exp2(s - m).masked_fill(~valid, 0.0).sum(dim=-1, keepdim=True)
+    live = l > 0
+    lse = torch.where(live, m + torch.log2(torch.where(live, l, 1.0)),
+                      torch.zeros_like(l))
+    pd = torch.exp2(s - lse).masked_fill(~valid, 0.0)
+    if drop.on:
+        pd = torch.where(drop.keep(pd.shape, q.device), pd * drop.scale,
+                         torch.zeros_like(pd))
+    o32 = _heads_last(pd.to(cd).float() @ v4)
+    return o32.to(cd), (o32 if want_f32 else None), lse[..., 0]
+
+
+def _attention_views(q, k, v, heads, dtype):
+    """Check q, k, v (B, T, H*128) views of one row layout and return their
+    row stride."""
+    B, T, C = q.shape
+    if C != heads * D_HEAD:
+        raise ValueError(f'attention kernels take d_head={D_HEAD}; got '
+                         f'C={C} with {heads} heads')
+    dev = q.device
+    for name, t in (('q', q), ('k', k), ('v', v)):
+        if t.dtype != dtype or t.device != dev:
+            raise ValueError(f'{name}: expected {dtype} on {dev}, got '
+                             f'{t.dtype} on {t.device}')
+        if tuple(t.shape) != (B, T, C):
+            raise ValueError(f'{name}: expected shape {(B, T, C)}, got '
+                             f'{tuple(t.shape)}')
+    rs = _row_stride(q, T)
+    if _row_stride(k, T) != rs or _row_stride(v, T) != rs:
+        raise ValueError('q, k and v must share one row stride')
+    return rs
+
+
+def attention_train_fwd(q, k, v, mask, heads, scale_log2, causal, drop,
+                        want_f32=False):
+    """Attention with dropout on the normalised probabilities
+    (``kernels/csrc/attention_train.cu``): q, k, v (B, T, H*128) bf16 views,
+    mask (B, T) bool, ``drop`` the probabilities' Drop. Returns (o bf16,
+    o fp32 or None, lse (B, H, T) fp32)."""
+    if q.device.type == 'cpu':
+        return attention_train_fwd_reference(q, k, v, mask, heads,
+                                             scale_log2, causal, drop,
+                                             want_f32)
+    B, T, C = q.shape
+    dev = q.device
+    rs = _attention_views(q, k, v, heads, torch.bfloat16)
+    kernels.require(mask, 'mask', torch.bool, dev, (B, T))
+    out = torch.empty((B, T, C), dtype=torch.bfloat16, device=dev)
+    out32 = (torch.empty((B, T, C), dtype=torch.float32, device=dev)
+             if want_f32 else None)
+    lse = torch.empty((B, heads, T), dtype=torch.float32, device=dev)
+    kernels.launch('ppgs_attention_train_fwd', q.data_ptr(), k.data_ptr(),
+                   v.data_ptr(), rs, mask.data_ptr(), out.data_ptr(),
+                   None if out32 is None else out32.data_ptr(), C,
+                   lse.data_ptr(), B, T, heads, float(scale_log2),
+                   int(causal), *drop.c_args(), device=dev)
+    attention_train_fwd.launches += 1
+    return out, out32, lse
+
+
+attention_train_fwd.launches = 0
+
+
+def row_dot_reference(x, y, heads):
+    """Plain version of ``row_dot``."""
+    B, T, C = x.shape
+    prod = x.float() * y.float()
+    return prod.reshape(B, T, heads, C // heads).sum(dim=-1).transpose(1, 2)
+
+
+def row_dot(x, y, heads):
+    """Per-head row sums of x * y over (B, T, H*128) views of one dtype
+    (fp32 or bf16) -> (B, H, T) fp32: the backward's d_row."""
+    if x.device.type == 'cpu':
+        return row_dot_reference(x, y, heads)
+    B, T, C = x.shape
+    if C != heads * D_HEAD or x.dtype != y.dtype or tuple(y.shape) != (
+            B, T, C) or x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f'row_dot kernel takes two (B, T, H*{D_HEAD}) '
+                         f'views of one dtype, fp32 or bf16')
+    ldx, ldy = _row_stride(x, T), _row_stride(y, T)
+    out = torch.empty((B, heads, T), dtype=torch.float32, device=x.device)
+    kernels.launch('ppgs_row_dot', x.data_ptr(), ldx, y.data_ptr(), ldy,
+                   out.data_ptr(), B, T, heads,
+                   int(x.dtype == torch.float32), device=x.device)
+    row_dot.launches += 1
+    return out
+
+
+row_dot.launches = 0
+
+
+def attention_train_bwd_reference(q, k, v, mask, lse, dout, d_row, heads,
+                                  scale_log2, sm_scale, causal, drop,
+                                  want_c=True, want32=False):
+    """Plain version of ``attention_train_bwd``."""
+    B, T, C = q.shape
+    cd = q.dtype
+    q4, k4, v4, do4 = (_heads_first(t, heads) for t in (q, k, v, dout))
+    valid = _valid(mask, T, causal)
+    s = (q4 @ k4.transpose(-1, -2)) * scale_log2
+    pn = torch.exp2(s - lse[..., None]).masked_fill(~valid, 0.0)
+    gp = do4 @ v4.transpose(-1, -2)
+    pd = pn
+    if drop.on:
+        keep = drop.keep(pn.shape, q.device)
+        zero = torch.zeros_like(pn)
+        gp = torch.where(keep, gp * drop.scale, zero)
+        pd = torch.where(keep, pn * drop.scale, zero)
+    dsc = (pn * (gp - d_row[..., None]) * sm_scale).to(cd).float()
+    dq = dsc @ k4
+    dk = dsc.transpose(-1, -2) @ q4
+    dv = pd.to(cd).float().transpose(-1, -2) @ do4
+    d32 = torch.cat([_heads_last(t) for t in (dq, dk, dv)], dim=-1)
+    return (d32.to(cd) if want_c else None), (d32 if want32 else None)
+
+
+def attention_train_bwd(q, k, v, mask, lse, dout, d_row, heads, scale_log2,
+                        sm_scale, causal, drop, want_c=True, want32=False):
+    """The backward of ``attention_train_fwd`` given dout (B, T, C) bf16
+    and d_row (B, H, T): returns ([dq | dk | dv] (B, T, 3C) in bf16 or
+    None, the same in fp32 or None)."""
+    if q.device.type == 'cpu':
+        return attention_train_bwd_reference(
+            q, k, v, mask, lse, dout, d_row, heads, scale_log2, sm_scale,
+            causal, drop, want_c, want32)
+    B, T, C = q.shape
+    dev = q.device
+    rs = _attention_views(q, k, v, heads, torch.bfloat16)
+    if dout.dtype != torch.bfloat16 or tuple(dout.shape) != (B, T, C):
+        raise ValueError('dout: expected a bf16 view of q\'s shape')
+    do_stride = _row_stride(dout, T)
+    kernels.require(mask, 'mask', torch.bool, dev, (B, T))
+    kernels.require(lse, 'lse', torch.float32, dev, (B, heads, T))
+    kernels.require(d_row, 'd_row', torch.float32, dev, (B, heads, T))
+    d16 = (torch.empty((B, T, 3 * C), dtype=torch.bfloat16, device=dev)
+           if want_c else None)
+    d32 = (torch.empty((B, T, 3 * C), dtype=torch.float32, device=dev)
+           if want32 else None)
+
+    def at(t, i):
+        return None if t is None else t.data_ptr() + i * C * t.element_size()
+
+    kernels.launch('ppgs_attention_train_bwd', q.data_ptr(), k.data_ptr(),
+                   v.data_ptr(), rs, mask.data_ptr(), lse.data_ptr(),
+                   dout.data_ptr(), do_stride, d_row.data_ptr(), at(d16, 0),
+                   at(d32, 0), at(d16, 1), at(d32, 1), at(d16, 2), at(d32, 2),
+                   3 * C, B, T, heads, float(scale_log2), float(sm_scale),
+                   int(causal), *drop.c_args(), device=dev)
+    attention_train_bwd.launches += 1
+    return d16, d32
+
+
+attention_train_bwd.launches = 0
+
+# The three steps, as kernels (plain versions on CPU tensors) or plain
+TRAIN_KERNELS = (attention_train_fwd, row_dot, attention_train_bwd)
+TRAIN_PLAIN = (attention_train_fwd_reference, row_dot_reference,
+               attention_train_bwd_reference)
+
+
+class _FlashTrain(torch.autograd.Function):
+    """q, k, v -> o with the forward saving (o, lse) and the backward
+    recomputing the probabilities (the JAX custom_vjp's rules)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, heads, drop, causal, ops):
+        scale_log2 = LOG2E / math.sqrt(q.shape[-1] // heads)
+        o, _, lse = ops[0](q, k, v, mask, heads, scale_log2, causal, drop)
+        ctx.save_for_backward(q, k, v, mask, o, lse)
+        ctx.cfg = (heads, drop, causal, ops)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, mask, o, lse = ctx.saved_tensors
+        heads, drop, causal, ops = ctx.cfg
+        C = q.shape[-1]
+        sm_scale = 1.0 / math.sqrt(C // heads)
+        do = do.contiguous()
+        d_row = ops[1](do, o, heads)
+        d, _ = ops[2](q, k, v, mask, lse, do, d_row, heads,
+                      LOG2E * sm_scale, sm_scale, causal, drop)
+        return (d[..., :C], d[..., C:2 * C], d[..., 2 * C:], None, None,
+                None, None, None)
+
+
+def flash_attention_train(q, k, v, mask, num_heads, dropout_rate=0.0,
+                          seed=0, causal=False, site=1):
+    """Differentiable masked multi-head attention with dropout on the
+    normalised probabilities (``ppgs_tpu/ops/flash_attention.py::
+    flash_attention_train``): q, k, v (B, T, C) in the compute dtype (views
+    of one buffer are fine), mask (B, T) bool, True = valid key. The mask
+    is drawn from the Philox stream of (seed, site). Fully masked query
+    rows give 0 and 0 gradient."""
+    drop = dropout.Drop(seed, site, float(dropout_rate))
+    return _FlashTrain.apply(q, k, v, mask, num_heads, drop, causal,
+                             TRAIN_KERNELS)
+
+
+def flash_attention_train_reference(q, k, v, mask, num_heads,
+                                    dropout_rate=0.0, seed=0, causal=False,
+                                    site=1):
+    """Plain version of ``flash_attention_train`` on any device."""
+    drop = dropout.Drop(seed, site, float(dropout_rate))
+    return _FlashTrain.apply(q, k, v, mask, num_heads, drop, causal,
+                             TRAIN_PLAIN)

@@ -33,7 +33,7 @@ def test_import_leaves_jax_and_ppgs_tpu_out():
         "    if name.split('.')[0] in ('jax', 'jaxlib', 'ppgs_tpu'):",
         '        del sys.modules[name]',
         'sys.meta_path.insert(0, Refuse())',
-        'import ppgs_tpu_torch',
+        'import ppgs_tpu_torch, ppgs_tpu_torch.train, ppgs_tpu_torch.evaluate',
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ppgs_tpu')]",
         'assert not bad, bad',
