@@ -38,16 +38,38 @@ any failure exits non-zero before the result line:
 8. times of each train kernel, its plain version, a library call and its
    bound; the three train functions whole against their plain versions and
    a library yardstick; the train step's time, audio-seconds per second and
-   peak memory, and a torch.profiler breakdown of one step.
+   peak memory, and a torch.profiler breakdown of one step;
+9. the w2v2fb slice's kernel instances against their plain versions at its
+   shapes, with seeded full-size random weights (wav2vec2-base trunk: 12
+   layers of C = 768, 12 heads of 64, F = 3072, GELU; the C = 512 head, 2
+   heads of 256): K1 at both widths, K2 at d_head 64 (64 x T = 400, one
+   wholly masked window) and 256 (128 x 500, and T = 1200 with a wholly
+   masked window), K3 and K4 at C = 768 (GELU) and 512, K4's per-layer
+   variant at C = 512, the 12-layer GELU stack whole (the TPU's
+   encoder_stack_streamed), and the conv-stack kernels (statistics, conv 1
+   from the audio, conv 2, the whole chain) at 64 x 8 s;
+10. the w2v2fb main path, ``from_audio(representation='w2v2fb')`` on 64 x
+   8 s of seeded audio, the trunk's weights read from a temporary npz that
+   ``W2V2FB_CHECKPOINT`` points at: shape, softmax columns, the exact
+   launches of each kernel and width, 4 utterances of 2 s against
+   ``device='cpu'``; then the same call with ``PPGS_TPU_CONV_STACK=1``:
+   the conv-stack kernels launched, the PPGs against the default path's;
+11. times of each w2v2fb kernel instance, its plain version, a library call
+   and its bound; the 12-layer stack against ``nn.TransformerEncoderLayer``
+   x 12 and the conv chain against the cuDNN bf16 convs; the slice's
+   audio-seconds per second and a torch.profiler breakdown.
 
-Each phase prints its seconds. Before the last line it prints one JSON
+``--slices`` (default ``mel,train,w2v2fb``) runs a subset: phases 3-5,
+6-8 and 9-11 respectively. Each phase prints its seconds. Before the last line it prints one JSON
 object with a record per kernel;
 the last line is {"ok": true, "device": {...}}. Imports nothing of JAX or
 of the JAX package.
 """
 
+import argparse
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -80,6 +102,14 @@ SPLIT_PER_LAYER = {'qkv_proj': 0, 'attention_train_fwd': 1, 'row_dot': 1,
                    'attention_train_bwd': 1, 'out_proj_ln_train': 0,
                    'ffn_train_fwd': 1, 'ffn_train_bwd': 1,
                    'ln_dropout_bwd': 1, 'gemm': 2, 'colsum': 4}
+
+# The w2v2fb slice: the JAX bench's w2v2fb line (64 x 8 s), 4 utterances
+# of 2 s against the CPU (800 frames: one tie flipped is 0.125% of them),
+# the head's per-layer path past 1024 frames
+W2V2_BATCH, W2V2_SECONDS = 64, 8
+W2V2_CPU_ROWS, W2V2_CPU_SECONDS = 4, 2
+HEAD_LONG_T = 1200
+HEAVY_REPS = 3                   # plain versions of the whole chains
 
 # Published peaks of an H100 SXM (dense bf16, HBM3), for the bounds
 PEAK_BF16_FLOPS = 989e12
@@ -189,40 +219,53 @@ def check(name, got, want, atol, rtol=0.0, rows=None, share=0.0,
     return worst
 
 
+def jitter(tree, gen, path=''):
+    """Draw a layer's biases and norm parameters at random (1 + 0.1 N for a
+    scale, 0.1 N for a bias), so that every term of the kernels is
+    exercised."""
+    for key, value in list(tree.items()):
+        if isinstance(value, dict):
+            jitter(value, gen, key)
+        elif key.startswith('b') or path.startswith('norm'):
+            noise = torch.randn(value.shape, generator=gen).numpy()
+            base = 1.0 if key == 'scale' else 0.0
+            tree[key] = (base + 0.1 * noise).astype(np.float32)
+
+
 def random_params(port, config, seed):
     """Seeded weights in the JAX package's layout: the model's init, with
-    biases and LayerNorm parameters drawn at random too, so that every term
-    of the kernels is exercised."""
+    biases and LayerNorm parameters drawn at random too."""
     gen = torch.Generator().manual_seed(seed)
     params = port.models.transformer.init(config, gen)
-
-    def jitter(tree, path=''):
-        for key, value in list(tree.items()):
-            if isinstance(value, dict):
-                jitter(value, key)
-            elif key.startswith('b') or (path.startswith('norm')):
-                noise = torch.randn(value.shape, generator=gen).numpy()
-                base = 1.0 if key == 'scale' else 0.0
-                tree[key] = (base + 0.1 * noise).astype(np.float32)
-
     for layer in params['layers']:
-        jitter(layer)
+        jitter(layer, gen)
     return params
 
 
-def library_encoder(model, config, dev):
-    """``torch.nn.TransformerEncoder`` in bf16 with the model's weights:
-    post-LN, ReLU, batch-first, every row computed (no nested tensors). It
-    is one PyTorch call for the encoder stack's function, timed as its
-    yardstick; the port never calls it."""
-    C, H = config.hidden_channels, config.attention_heads
+def random_w2v2_params(port, seed):
+    """Seeded wav2vec2-base weights in the JAX package's layout: the
+    trunk's init, with each encoder layer's biases and norms drawn at
+    random too."""
+    gen = torch.Generator().manual_seed(seed)
+    params = port.models.w2v2.init(port.models.w2v2.BASE, gen)
+    for layer in params['encoder']['layers']:
+        jitter(layer, gen)
+    return params
+
+
+def library_encoder(layers, C, H, Fh, dev, activation='relu'):
+    """``torch.nn.TransformerEncoder`` in bf16 with the layers' weights:
+    post-LN, batch-first, every row computed (no nested tensors); ReLU, or
+    GELU (exact erf: PyTorch's 'gelu'). It is one PyTorch call for the
+    encoder stack's function, timed as its yardstick; the port never calls
+    it."""
     layer = torch.nn.TransformerEncoderLayer(
-        C, H, config.ffn_channels, dropout=0.0, batch_first=True,
-        norm_first=False)
+        C, H, Fh, dropout=0.0, batch_first=True, norm_first=False,
+        activation=activation)
     encoder = torch.nn.TransformerEncoder(
-        layer, config.num_hidden_layers, enable_nested_tensor=False).to(dev)
+        layer, len(layers), enable_nested_tensor=False).to(dev)
     with torch.no_grad():
-        for dst, src in zip(encoder.layers, model.layers):
+        for dst, src in zip(encoder.layers, layers):
             pairs = (
                 (dst.self_attn.in_proj_weight, src.attn.wqkv.T),
                 (dst.self_attn.in_proj_bias, src.attn.bqkv),
@@ -248,11 +291,34 @@ def profile_from_audio(port, audio, checkpoint, card):
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
         start = time.perf_counter()
         port.from_audio(audio, checkpoint=checkpoint)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - start) * 1e3
     report_profile('from_audio', prof, wall_ms, card)
+
+
+def agree(name, got, want, want32=None):
+    """The card's PPGs against the CPU's: atol 2e-2, argmax agreement >=
+    99.5%. With ``want32`` (the same call in fp32) the agreement counts the
+    frames bf16 decides, those where ``want`` and ``want32`` pick the same
+    phoneme: random weights leave a frame now and then whose top two
+    phonemes are nearer than bf16 rounding, a tie that no kernel decides."""
+    diff = (got.float().cpu() - want).abs().max().item()
+    same = got.cpu().argmax(1) == want.argmax(1)
+    rate = same.float().mean().item()
+    note = ''
+    if want32 is not None:
+        decided = want.argmax(1) == want32.argmax(1)
+        note = (f', {decided.float().mean().item():.4f} of the frames '
+                f'decided (bf16 and fp32 agree), there')
+        rate = same[decided].float().mean().item()
+    print(f'{name}: max |card - cpu| = {diff:.3g} (atol 2e-2), argmax '
+          f'agreement {same.float().mean().item():.4f}{note} {rate:.4f} '
+          f'(>= 0.995)', flush=True)
+    if diff > 2e-2 or rate < 0.995:
+        raise AssertionError(f'{name}: the card disagrees with the cpu')
 
 
 def check_rel(name, got, want, limit):
@@ -780,7 +846,11 @@ def train_kernel_times(config, inp, err, launches, per_step, card):
             lambda: elt.out_proj_ln_train_reference(
                 inp['a16'], inp['wo'], inp['bo'], inp['x'], inp['g1'],
                 inp['be1'], drop.at(drop.site + 1)),
-            None,
+            # addmm + dropout + layer_norm (it keeps no statistics)
+            lambda: F.layer_norm(
+                inp['x'] + F.dropout(torch.addmm(
+                    inp['bo'].to(bf16), inp['a16'].view(M, C), inp['wo']),
+                    DROPOUT).view(B, T, C), (C,), inp['g1'], inp['be1']),
             (2 * M * C * C,
              M * C * 2 + M * C * 4 + C * C * 2 + 3 * C * 4 + 2 * M * C * 4
              + M * 4),
@@ -990,6 +1060,7 @@ def step_metrics(port, model, config, dev, card):
           f'(max_memory_allocated) [{card}]', flush=True)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
         start = time.perf_counter()
         step(*batch, seed=301)
         torch.cuda.synchronize()
@@ -997,57 +1068,72 @@ def step_metrics(port, model, config, dev, card):
     report_profile(f'train step {TRAIN_B} x {TRAIN_T}', prof, wall_ms, card)
 
 
+def busy_ms(intervals):
+    """The length of the union of (start, end) intervals, in their unit
+    over 1e3: the time in which at least one of them ran."""
+    total, reach = 0.0, None
+    for start, end in sorted(intervals):
+        if reach is None or start > reach:
+            total += end - start
+            reach = end
+        elif end > reach:
+            total += end - reach
+            reach = end
+    return total / 1e3
+
+
 def report_profile(label, prof, wall_ms, card):
     """Device time by kernel name from a torch.profiler run, and the share
-    of the wall time in which the card ran no kernel."""
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kernels:
+    of the wall time in which the card ran no kernel: busy time is the
+    union of the device events' intervals (events listed twice count once,
+    events that overlap on other streams count once), and raises if it
+    exceeds the wall time."""
+    events = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            events[(e.name, e.thread, e.time_range.start,
+                    e.time_range.end)] = e
+    if not events:
         print(f'{label}: device time by kernel: not measured (the profiler '
               f'saw no device activity)')
         return
     by_name = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
-    busy = sum(by_name.values())
-    print(f'profiled {label}: wall {wall_ms:.3f} ms, kernels {busy:.3f} ms '
-          f'({len(kernels)} launches), idle share '
-          f'{max(0.0, 1 - busy / wall_ms):.3f} [{card}]')
+    for (name, _, start, end) in events:
+        by_name[name] = by_name.get(name, 0.0) + (end - start) / 1e3
+    summed = sum(by_name.values())
+    busy = busy_ms((start, end) for (_, _, start, end) in events)
+    streams = len({thread for (_, thread, _, _) in events})
+    listed = sum(1 for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    print(f'profiled {label}: wall {wall_ms:.3f} ms, device busy '
+          f'{busy:.3f} ms (union of {len(events)} device events on '
+          f'{streams} streams; {listed} listed; their durations sum to '
+          f'{summed:.3f} ms), idle share {1 - busy / wall_ms:.4f} [{card}]')
+    if busy > wall_ms:
+        raise AssertionError(f'{label}: device busy time {busy:.3f} ms '
+                             f'exceeds the wall time {wall_ms:.3f} ms')
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:14]:
-        print(f'  {ms:9.3f} ms  {name[:90]}')
+        print(f'  {ms:9.3f} ms  {ms / summed:6.1%}  {name[:90]}')
+    # Where the summed durations exceed the union: each event's span that
+    # events which started before it already cover, by kernel name
+    overlap, reach = {}, None
+    for (name, _, start, end) in sorted(events, key=lambda k: k[2]):
+        if reach is not None and start < reach:
+            n, ms = overlap.get(name, (0, 0.0))
+            overlap[name] = (n + 1, ms + (min(end, reach) - start) / 1e3)
+        reach = end if reach is None else max(reach, end)
+    for name, (n, ms) in sorted(overlap.items(), key=lambda kv: -kv[1][1])[:4]:
+        print(f'  overlap {ms:9.3f} ms in {n} events started before the '
+              f'previous ended: {name[:80]}')
 
 
-def main():
-    if not torch.cuda.is_available():
-        sys.exit('chip_smoke.py needs a CUDA device; none is available')
-    sys.path.insert(0, str(Path(__file__).resolve().parent))
-    import ppgs_tpu_torch as port
-    from ppgs_tpu_torch import kernels
+def mel_phases(port, config, workdir, dev, gen, card):
+    """Phases 3-5: the mel inference kernels against their plain versions,
+    the main path, and the times; returns the kernels' JSON records."""
     from ppgs_tpu_torch.ops import encoder_layer_kernel as elk
     from ppgs_tpu_torch.ops import flash_attention as fa
     from ppgs_tpu_torch.ops import fused_ffn
 
-    dev = torch.device('cuda')
-    # Plain fp32 products and convs in full fp32 (cuDNN runs fp32 convs in
-    # TF32 by default); the entry points set the same
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-    phase('1 card')
-    card = card_line()
-    print(card, flush=True)
-    kind = torch.cuda.get_device_name(0)
-
-    phase('2 build')
-    seconds = kernels.build_all()
-    print(f'built {len(kernels.SOURCES)} kernel sources with nvcc (sm_90a) '
-          f'in {seconds:.1f} s into {kernels.build_dir()}', flush=True)
-    for src, log in sorted(kernels.build_log.items()):
-        for line in log.splitlines():
-            if 'Used' in line or 'spill' in line:
-                print(f'  {src}: {line.strip()}')
-
-    config = port.config.get()            # the mel model, bf16 compute
     C, H = config.hidden_channels, config.attention_heads
     Fh, L = config.ffn_channels, config.num_hidden_layers
     frames = port.ops.stft.frame_count(
@@ -1057,8 +1143,7 @@ def main():
     W, T = BATCH * n_blocks, config.chunk_length    # 128 windows x 500
     M = W * T
 
-    workdir = tempfile.TemporaryDirectory()
-    checkpoint = Path(workdir.name) / 'random-mel.npz'
+    checkpoint = Path(workdir) / 'random-mel.npz'
     port.load.save_params(checkpoint, random_params(port, config, SEED))
     model, _ = port.load.model(checkpoint=checkpoint, config=config,
                                device=dev)
@@ -1073,7 +1158,6 @@ def main():
          'be2': layer0.norm2.bias}
 
     phase(f'3 kernels against their plain versions ({W} windows x T={T})')
-    gen = torch.Generator(device=dev).manual_seed(SEED)
     x = torch.randn(W, T, C, generator=gen, device=dev)
     # The main path's window lengths: 500 and 450 valid frames
     win_len = torch.tensor([min(T, frames + config.chunk_overlap - i * stride)
@@ -1147,19 +1231,11 @@ def main():
                              f'{launches}')
     if tuple(ppg.shape) != (BATCH, config.output_channels, frames):
         raise AssertionError(f'from_audio shape {tuple(ppg.shape)}')
-    if ppg.device.type != 'cuda' or not torch.isfinite(ppg).all():
+    if ppg.device != audio.device or not torch.isfinite(ppg).all():
         raise AssertionError('from_audio: not finite or not on the card')
     col_err = (ppg.sum(dim=1) - 1).abs().max().item()
     if col_err > 1e-4:
         raise AssertionError(f'PPG columns do not sum to 1 ({col_err})')
-
-    def agree(name, got, want):
-        diff = (got.float().cpu() - want).abs().max().item()
-        same = (got.cpu().argmax(1) == want.argmax(1)).float().mean().item()
-        print(f'{name}: max |card - cpu| = {diff:.3g} (atol 2e-2), argmax '
-              f'agreement {same:.4f} (>= 0.995)', flush=True)
-        if diff > 2e-2 or same < 0.995:
-            raise AssertionError(f'{name}: the card disagrees with the cpu')
 
     agree('from_audio rows 0-3 against device=cpu', ppg[:4],
           port.from_audio(audio[:4].cpu(), checkpoint=checkpoint,
@@ -1259,7 +1335,7 @@ def main():
     # the same key-padding mask (the main path's windows have no wholly
     # masked row); its output is held to the kernels' on the valid rows
     # (its residual is bf16, the kernels' fp32)
-    encoder = library_encoder(model, config, dev)
+    encoder = library_encoder(model.layers, C, H, Fh, dev)
     x_bf16, pad = x.to(bf16), ~mask
 
     def library_stack():
@@ -1294,7 +1370,12 @@ def main():
           flush=True)
     profile_from_audio(port, audio, checkpoint, card)
     del audio, long_audio, model
+    return records
 
+
+def train_phases(port, config, workdir, dev, gen, card):
+    """Phases 6-8: the train kernels against their plain versions, the
+    training main path, and the times; returns the kernels' JSON records."""
     phase(f'6 train kernels against their plain versions ({TRAIN_B} windows '
           f'x T={TRAIN_T}, dropout {DROPOUT}, the same Philox masks)')
     # The train model holds the same seeded weights as parameters: train
@@ -1314,7 +1395,7 @@ def main():
     phase(f'7 train(): the mel model at full width and depth, {TRAIN_B} x '
           f'{TRAIN_T} then a resume at {TRAIN_B} x {SPLIT_T} (main path)')
     trained, train_launches, split_step, b4_steps = train_run(
-        port, config, dev, Path(workdir.name) / 'train', card)
+        port, config, dev, Path(workdir) / 'train', card)
     print(f'launches in the train() runs: {train_launches}', flush=True)
     if min(train_launches.values()) == 0:
         raise AssertionError(f'a train kernel never launched: '
@@ -1323,11 +1404,601 @@ def main():
     card_against_cpu(port, trained, config, dev)
 
     phase(f'8 train times on {card} (median of {TRAIN_REPS}, CUDA events)')
-    records += train_kernel_times(config, train_inputs, train_err,
-                                  train_launches, b4_steps[1], card)
+    records = train_kernel_times(config, train_inputs, train_err,
+                                 train_launches, b4_steps[1], card)
     composite_times(port, config, layer, train_inputs, dev, gen, card)
     del train_inputs
     step_metrics(port, trained, config, dev, card)
+    return records
+
+
+def w2v2fb_setup(port, workdir, dev):
+    """Seeded full-size random trunk and head weights in temporary npz
+    files, ``W2V2FB_CHECKPOINT`` pointed at the trunk's; returns (the
+    prepared trunk on the card, the head model, the head's config and
+    checkpoint)."""
+    import dataclasses
+
+    trunk_path = Path(workdir) / 'wav2vec2-base.npz'
+    port.load.save_params(trunk_path, random_w2v2_params(port, SEED + 7))
+    w2v2fb = port.preprocess.w2v2fb
+    w2v2fb.W2V2FB_CHECKPOINT = trunk_path
+    head_config = port.config.get('w2v2fb')
+    head_path = Path(workdir) / 'random-w2v2fb.npz'
+    port.load.save_params(head_path,
+                          random_params(port, head_config, SEED + 8))
+    wcfg = dataclasses.replace(port.models.w2v2.BASE,
+                               compute_dtype=head_config.compute_dtype)
+    trunk = w2v2fb._trunk(wcfg, dev)
+    head, _ = port.load.model(checkpoint=head_path, config=head_config,
+                              device=dev)
+    return trunk, head, head_config, head_path
+
+
+def layer_weights(layer):
+    """A layer's weights as the stack hands them to K1-K4: the prepared
+    ones of convert.prepare_layers and the fp32 parameter vectors."""
+    p = layer.prepared
+    return {'wqkv': p.wqkv_folded, 'bqkv': p.bqkv_folded, 'wo': p.wo,
+            'bo': layer.attn.bo, 'g1': layer.norm1.scale,
+            'be1': layer.norm1.bias, 'w1': p.w1, 'b1': layer.ffn.b1,
+            'w2': p.w2, 'b2': layer.ffn.b2, 'g2': layer.norm2.scale,
+            'be2': layer.norm2.bias}
+
+
+@torch.no_grad()
+def layer_kernel_checks(tag, x, mask, w, H, activation, err, inputs):
+    """K1-K4 of one layer against their plain versions on (B, T, C) x;
+    fills ``err`` and ``inputs`` under ``tag``."""
+    from ppgs_tpu_torch.ops import encoder_layer_kernel as elk
+    from ppgs_tpu_torch.ops import flash_attention as fa
+    from ppgs_tpu_torch.ops import fused_ffn
+
+    C = x.shape[-1]
+    D = C // H
+    qkv = elk.qkv_proj(x, w['wqkv'], w['bqkv'])
+    err[f'qkv_proj_{tag}'] = check(
+        f'K1 qkv_proj ({tag}, {C} -> {3 * C})', qkv,
+        elk.qkv_proj_reference(x, w['wqkv'], w['bqkv']), atol=1e-2,
+        rtol=1e-2)
+    q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
+    a = fa.attention(q, k, v, mask, H, 1.0)
+    err[f'attention_d{D}'] = check(
+        f'K2 attention (d_head {D}, {H} heads)', a,
+        fa.attention_reference(q, k, v, mask, H, 1.0), atol=5e-3)
+    dead = ~mask.any(dim=1)
+    if dead.any() and a[dead].abs().max().item() != 0:
+        raise AssertionError(f'K2 d_head {D}: a wholly masked window did '
+                             f'not give 0')
+    r = elk.out_proj_residual_ln(a, w['wo'], w['bo'], x, w['g1'], w['be1'])
+    err[f'out_proj_residual_ln_c{C}'] = check(
+        f'K3 out_proj_residual_ln (C {C})', r,
+        elk.out_proj_residual_ln_reference(a, w['wo'], w['bo'], x, w['g1'],
+                                           w['be1']), atol=1e-3)
+    ffn = (w['w1'], w['b1'], w['w2'], w['b2'], w['g2'], w['be2'])
+    y = fused_ffn.ffn_residual_ln(r, *ffn, activation=activation)
+    err[f'ffn_residual_ln_c{C}'] = check(
+        f'K4 ffn_residual_ln (C {C}, {activation})', y,
+        fused_ffn.ffn_residual_ln_reference(r, *ffn, activation=activation),
+        atol=1e-2)
+    inputs[tag] = dict(x=x, mask=mask, w=w, q=q, k=k, v=v, qkv=qkv, a=a, r=r,
+                       H=H, activation=activation)
+
+
+@torch.no_grad()
+def w2v2fb_kernel_checks(port, trunk, head, head_config, dev, gen):
+    """Phase 9: every w2v2fb kernel instance against its plain version at
+    the slice's shapes; returns (max errors, inputs for phase 11)."""
+    from ppgs_tpu_torch.ops import conv_stack
+    from ppgs_tpu_torch.ops import encoder_layer_kernel as elk
+    from ppgs_tpu_torch.ops import flash_attention as fa
+    from ppgs_tpu_torch.ops import fused_ffn
+
+    err, inputs = {}, {}
+    wcfg = trunk.config
+    samples = W2V2_SECONDS * head_config.sample_rate
+    S = samples + 2 * port.preprocess.w2v2fb.PAD
+    T = int(port.models.w2v2.feat_extract_output_lengths(S, wcfg))
+    C, H = wcfg.hidden_size, wcfg.num_heads
+    # The trunk: 64 utterances x 400 frames, the last wholly masked
+    x = torch.randn(W2V2_BATCH, T, C, generator=gen, device=dev)
+    mask = torch.ones(W2V2_BATCH, T, dtype=torch.bool, device=dev)
+    mask[-1] = False
+    layer_kernel_checks('trunk', x, mask,
+                        layer_weights(trunk.encoder.layers[0]), H, 'gelu',
+                        err, inputs)
+    x16 = x.to(torch.bfloat16)
+    layers = trunk.encoder.layers
+    got = elk.encoder_stack(x16, mask, layers, H, activation='gelu')
+    want = elk.encoder_stack_reference(x16, mask, layers, H,
+                                       activation='gelu')
+    check_rel(f'B7 the {len(layers)}-layer GELU stack (valid rows)',
+              got[mask], want[mask], 1e-2)
+    inputs['stack'] = dict(x16=x16, mask=mask)
+    del got, want
+
+    # The head: 128 windows x 500 frames of 500 and 450 valid frames
+    frames = samples // head_config.hopsize
+    stride, n_blocks = port.models.transformer.chunk_layout(
+        frames, head_config.chunk_length, head_config.chunk_overlap)
+    Tw = head_config.chunk_length
+    win_len = torch.tensor([min(Tw, frames + head_config.chunk_overlap
+                                - i * stride) for i in range(n_blocks)],
+                           device=dev)
+    hmask = port.ops.masking.mask_from_lengths(
+        win_len.repeat(W2V2_BATCH), Tw)
+    Ch, Hh = head_config.hidden_channels, head_config.attention_heads
+    xh = torch.randn(W2V2_BATCH * n_blocks, Tw, Ch, generator=gen, device=dev)
+    hw = layer_weights(head.layers[0])
+    layer_kernel_checks('head', xh, hmask, hw, Hh, 'relu', err, inputs)
+    r = inputs['head']['r']
+    ffn = (hw['w1'], hw['b1'], hw['w2'], hw['b2'], hw['g2'], hw['be2'])
+    check(f'K4 ffn_residual_ln (C {Ch}, round_input, per-layer path)',
+          fused_ffn.ffn_residual_layernorm(r[:3], *ffn),
+          fused_ffn.ffn_residual_layernorm_reference(r[:3], *ffn), atol=1e-2)
+    # The head's per-layer path past 1024 frames: 4 windows of T = 1200,
+    # ragged, one wholly masked
+    long_len = torch.tensor([HEAD_LONG_T, 1000, 37, 0], device=dev)
+    long_mask = port.ops.masking.mask_from_lengths(long_len, HEAD_LONG_T)
+    lq, lk, lv = (torch.randn(4, HEAD_LONG_T, Ch, generator=gen, device=dev)
+                  .to(torch.bfloat16) for _ in range(3))
+    out = fa.flash_attention(lq, lk, lv, long_mask, Hh)
+    check(f'K2 attention (d_head {Ch // Hh}) T={HEAD_LONG_T}', out,
+          fa.flash_attention_reference(lq, lk, lv, long_mask, Hh), atol=5e-3)
+    if not torch.equal(out[3], torch.zeros_like(out[3])):
+        raise AssertionError('a wholly masked window did not give 0')
+
+    # The conv stack (B10) at 64 x 8 s of padded audio
+    audio = (0.1 * torch.randn(W2V2_BATCH, S, generator=gen, device=dev)
+             ).to(torch.bfloat16)
+    taps = trunk.feature_prepared
+    gn = trunk.feature_encoder[0].group_norm
+    k, s = wcfg.conv_kernel, wcfg.conv_stride
+    sums = conv_stack.conv_stats(audio, taps.w0, k[0], s[0])
+    err['conv_stats'] = check(
+        'B10 conv_stats (sum, sum of squares)', sums,
+        conv_stack.conv_stats_reference(audio, taps.w0, k[0], s[0]),
+        atol=1e-3, rtol=1e-4)
+    first = (taps.w0, k[0], s[0], sums, gn.scale, gn.bias)
+    x1 = conv_stack.conv_gelu(audio, taps.w1, k[1], s[1], first)
+    err['conv_gelu_first'] = check(
+        'B10 conv_gelu (conv 0 + GroupNorm + GELU folded into conv 1)', x1,
+        conv_stack.conv_gelu_reference(audio, taps.w1, k[1], s[1], first),
+        atol=1e-3, rtol=1e-2)
+    x2 = conv_stack.conv_gelu(x1, taps.w2, k[2], s[2])
+    err['conv_gelu'] = check(
+        'B10 conv_gelu (conv 2)', x2,
+        conv_stack.conv_gelu_reference(x1, taps.w2, k[2], s[2]), atol=1e-3,
+        rtol=1e-2)
+    chain = ([getattr(taps, f'w{i}') for i in range(1, len(k))], taps.w0,
+             gn.scale, gn.bias, k, s)
+    got = conv_stack.feature_encoder_stack(audio, *chain)
+    check_rel('B10 the whole conv chain', got,
+              conv_stack.feature_encoder_stack_reference(audio, *chain),
+              1e-2)
+    inputs['conv'] = dict(audio=audio, sums=sums, first=first, x1=x1,
+                          chain=chain, k=k, s=s)
+    return err, inputs
+
+
+def set_counts(counters):
+    for fn in counters.values():
+        fn.launches = 0
+        if hasattr(fn, 'widths'):
+            fn.widths.clear()
+        if hasattr(fn, 'first'):
+            fn.first = 0
+
+
+def read_counts(counters):
+    """(launches per wrapper, with '<name>_first' for a wrapper that counts
+    its first form apart; launches per width of the wrappers that count
+    them)."""
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    launches.update({f'{name}_first': fn.first
+                     for name, fn in counters.items() if hasattr(fn, 'first')})
+    return (launches,
+            {name: dict(fn.widths) for name, fn in counters.items()
+             if hasattr(fn, 'widths')})
+
+
+def w2v2fb_main_path(port, trunk, head_config, head_path, dev, gen, card):
+    """Phase 10: from_audio(representation='w2v2fb') at 64 x 8 s, its
+    exact launches, a 2 s utterance against the CPU, and the conv-stack
+    opt-in; returns (the launches per width, the opt-in's launches, the
+    audio)."""
+    from ppgs_tpu_torch.ops import conv_stack
+    from ppgs_tpu_torch.ops import encoder_layer_kernel as elk
+    from ppgs_tpu_torch.ops import flash_attention as fa
+    from ppgs_tpu_torch.ops import fused_ffn
+
+    counters = {'qkv_proj': elk.qkv_proj, 'attention': fa.attention,
+                'out_proj_residual_ln': elk.out_proj_residual_ln,
+                'ffn_residual_ln': fused_ffn.ffn_residual_ln,
+                'conv_stats': conv_stack.conv_stats,
+                'conv_gelu': conv_stack.conv_gelu}
+    samples = W2V2_SECONDS * head_config.sample_rate
+    audio = 0.1 * torch.randn(W2V2_BATCH, 1, samples, generator=gen,
+                              device=dev)
+    call = dict(representation='w2v2fb', checkpoint=head_path)
+    set_counts(counters)
+    ppg = port.from_audio(audio, **call)
+    launches, widths = read_counts(counters)
+    print(f'launches in one w2v2fb from_audio call: {launches}, by width: '
+          f'{widths}', flush=True)
+    Lt, Lh = trunk.config.num_layers, head_config.num_hidden_layers
+    d_t = trunk.config.hidden_size // trunk.config.num_heads
+    Ch = head_config.hidden_channels
+    d_h = Ch // head_config.attention_heads
+    want = {'qkv_proj': Lt + Lh, 'attention': Lt + Lh,
+            'out_proj_residual_ln': Lt + Lh, 'ffn_residual_ln': Lt + Lh,
+            'conv_stats': 0, 'conv_gelu': 0, 'conv_gelu_first': 0}
+    Ct = trunk.config.hidden_size
+    want_widths = {'qkv_proj': {Ct: Lt, Ch: Lh},
+                   'attention': {d_t: Lt, d_h: Lh},
+                   'out_proj_residual_ln': {Ct: Lt, Ch: Lh},
+                   'ffn_residual_ln': {Ct: Lt, Ch: Lh}}
+    if launches != want or any(widths[n] != w for n, w in
+                               want_widths.items()):
+        raise AssertionError(f'w2v2fb launches {launches} {widths}, not '
+                             f'{want} {want_widths}')
+    frames = samples // head_config.hopsize
+    if tuple(ppg.shape) != (W2V2_BATCH, head_config.output_channels, frames):
+        raise AssertionError(f'w2v2fb from_audio shape {tuple(ppg.shape)}')
+    if ppg.device != audio.device or not torch.isfinite(ppg).all():
+        raise AssertionError('w2v2fb from_audio: not finite or not on the '
+                             'card')
+    col_err = (ppg.sum(dim=1) - 1).abs().max().item()
+    if col_err > 1e-4:
+        raise AssertionError(f'PPG columns do not sum to 1 ({col_err})')
+
+    short = audio[:W2V2_CPU_ROWS, :,
+                  :W2V2_CPU_SECONDS * head_config.sample_rate]
+    fp32 = head_config.replace(compute_dtype='float32')
+    agree(f'w2v2fb from_audio, {W2V2_CPU_ROWS} x {W2V2_CPU_SECONDS} s, '
+          f'against device=cpu', port.from_audio(short, **call),
+          port.from_audio(short.cpu(), device='cpu', **call),
+          port.from_audio(short.cpu(), device='cpu', config=fp32, **call))
+
+    # The conv-stack opt-in: B10 on, the rest as before
+    os.environ['PPGS_TPU_CONV_STACK'] = '1'
+    try:
+        set_counts(counters)
+        stacked = port.from_audio(audio, **call)
+        stack_launches, stack_widths = read_counts(counters)
+    finally:
+        del os.environ['PPGS_TPU_CONV_STACK']
+    print(f'launches with PPGS_TPU_CONV_STACK=1: {stack_launches}, by '
+          f'width: {stack_widths}', flush=True)
+    if (stack_launches != {**want, 'conv_stats': 1,
+                           'conv_gelu': len(trunk.config.conv_kernel) - 1,
+                           'conv_gelu_first': 1}
+            or stack_widths != widths):
+        raise AssertionError('the conv-stack opt-in did not launch B10 once '
+                             'per conv, its first form once, and K1-K4 as '
+                             'the default path')
+    # The frames bf16 decides: where the default path agrees with the same
+    # weights in fp32 (plain torch on the card)
+    ppg32 = port.from_audio(audio, config=fp32, **call)
+    diff = (stacked - ppg).abs().max().item()
+    same = stacked.argmax(1) == ppg.argmax(1)
+    decided = ppg.argmax(1) == ppg32.argmax(1)
+    rates = (same.float().mean().item(), decided.float().mean().item(),
+             same[decided].float().mean().item(),
+             (ppg - ppg32).abs().max().item())
+    print(f'PPGS_TPU_CONV_STACK=1 against the default path: max |diff| '
+          f'{diff:.3g} (atol 2e-2), argmax agreement {rates[0]:.5f}, '
+          f'{rates[2]:.5f} (>= 0.995) on the frames bf16 decides '
+          f'({rates[1]:.5f} of them: the default path and fp32 agree); the '
+          f'default path against fp32: max |diff| {rates[3]:.3g} [{card}]',
+          flush=True)
+    if diff > 2e-2 or rates[2] < 0.995:
+        raise AssertionError('the conv-stack path leaves the bf16 envelope')
+    del stacked, ppg32
+    return widths, stack_launches, audio
+
+
+def timed_record(name, src, replaces, launches, err, fns, work, card,
+                 plain_reps=REPS):
+    """Time a kernel, its plain version and a library call (or None) and
+    return the kernel's JSON record."""
+    kernel_fn, plain_fn, library_fn = fns
+    ms = time_ms(kernel_fn)
+    plain_ms = time_ms(plain_fn, plain_reps, 1)
+    library_ms = time_ms(library_fn) if library_fn else None
+    bound_ms, bound_by = bound(*work)
+    lib = f'{library_ms:.4f} ms' if library_ms is not None else 'none'
+    print(f'{name}: kernel {ms:.4f} ms, bound {bound_ms:.4f} ms '
+          f'({bound_by}), plain {plain_ms:.4f} ms, library {lib}, '
+          f'{launches} launches per main-path call [{card}]', flush=True)
+    return {'name': name, 'route': 'cuda',
+            'source': f'ppgs_tpu_torch/kernels/csrc/{src}',
+            'replaces': replaces, 'launches': launches, 'max_abs_err': err,
+            'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound_ms,
+            'bound_by': bound_by, 'library_ms': library_ms}
+
+
+@torch.no_grad()
+def layer_records(tag, inp, err, launches, replaces, card):
+    """Phase 11 for one layer shape: K1-K4's records."""
+    from ppgs_tpu_torch.ops import encoder_layer_kernel as elk
+    from ppgs_tpu_torch.ops import flash_attention as fa
+    from ppgs_tpu_torch.ops import fused_ffn
+
+    bf16 = torch.bfloat16
+    x, mask, w, H, act = (inp[k] for k in ('x', 'mask', 'w', 'H',
+                                           'activation'))
+    q, k, v, a, r = (inp[n] for n in 'qkvar')
+    B, T, C = x.shape
+    M, D, Fh = B * T, C // H, w['w1'].shape[1]
+    pairs = mask.sum(dim=1).double().sum().item() * T     # query x key
+    q4, k4, v4 = (t.view(B, T, H, D).transpose(1, 2) for t in (q, k, v))
+    sdpa_mask = mask[:, None, None, :]
+    ffn = (w['w1'], w['b1'], w['w2'], w['b2'], w['g2'], w['be2'])
+    act_fn = (F.relu if act == 'relu'
+              else lambda t: F.gelu(t, approximate='tanh'))
+    records = []
+    records.append(timed_record(
+        f'qkv_proj_{tag}', 'qkv_proj.cu', replaces,
+        launches['qkv_proj'][tag], err[f'qkv_proj_{tag}'], (
+            lambda: elk.qkv_proj(x, w['wqkv'], w['bqkv']),
+            lambda: elk.qkv_proj_reference(x, w['wqkv'], w['bqkv']),
+            lambda: torch.addmm(w['bqkv'].to(bf16), x.view(M, C).to(bf16),
+                                w['wqkv'])),
+        (2 * M * C * 3 * C, M * C * 4 + C * 3 * C * 2 + 3 * C * 4
+         + M * 3 * C * 2), card))
+    records.append(timed_record(
+        f'attention_d{D}', 'attention.cu', replaces,
+        launches['attention'][tag], err[f'attention_d{D}'], (
+            lambda: fa.attention(q, k, v, mask, H, 1.0),
+            lambda: fa.attention_reference(q, k, v, mask, H, 1.0),
+            lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, attn_mask=sdpa_mask, scale=math.log(2))),
+        (4 * pairs * C, M * 3 * C * 2 + M + M * C * 2), card))
+    records.append(timed_record(
+        f'out_proj_residual_ln_c{C}', 'out_proj_ln.cu', replaces,
+        launches['out_proj_residual_ln'][tag],
+        err[f'out_proj_residual_ln_c{C}'], (
+            lambda: elk.out_proj_residual_ln(a, w['wo'], w['bo'], x,
+                                             w['g1'], w['be1']),
+            lambda: elk.out_proj_residual_ln_reference(
+                a, w['wo'], w['bo'], x, w['g1'], w['be1']),
+            lambda: F.layer_norm(
+                x + torch.addmm(w['bo'].to(bf16), a.view(M, C), w['wo'])
+                .view(B, T, C), (C,), w['g1'], w['be1'])),
+        (2 * M * C * C, M * C * 2 + 2 * M * C * 4 + C * C * 2 + 3 * C * 4),
+        card))
+    records.append(timed_record(
+        f'ffn_residual_ln_c{C}' + ('_gelu' if act == 'gelu' else ''),
+        'ffn_ln.cu', replaces, launches['ffn_residual_ln'][tag],
+        err[f'ffn_residual_ln_c{C}'], (
+            lambda: fused_ffn.ffn_residual_ln(r, *ffn, activation=act),
+            lambda: fused_ffn.ffn_residual_ln_reference(r, *ffn,
+                                                        activation=act),
+            lambda: F.layer_norm(
+                r + torch.addmm(
+                    w['b2'].to(bf16),
+                    act_fn(torch.addmm(w['b1'].to(bf16),
+                                       r.view(M, C).to(bf16), w['w1'])),
+                    w['w2']).view(B, T, C), (C,), w['g2'], w['be2'])),
+        (4 * M * C * Fh, 2 * M * C * 4 + 2 * C * Fh * 2 + (Fh + 3 * C) * 4),
+        card))
+    return records
+
+
+@torch.no_grad()
+def w2v2fb_times(port, trunk, head_config, head_path, inputs, err,
+                 widths, stack_launches, audio, card):
+    """Phase 11: each w2v2fb kernel's time beside its plain version's, a
+    library call's and its bound; the wholes; the slice end to end.
+    ``widths``: phase 10's launches per width, which give each instance's
+    launches."""
+    from ppgs_tpu_torch.ops import conv_stack
+    from ppgs_tpu_torch.ops import encoder_layer_kernel as elk
+
+    d_t = trunk.config.hidden_size // trunk.config.num_heads
+    d_h = head_config.hidden_channels // head_config.attention_heads
+    Ct, Ch = trunk.config.hidden_size, head_config.hidden_channels
+    per_tag = {
+        'qkv_proj': {'trunk': widths['qkv_proj'][Ct],
+                     'head': widths['qkv_proj'][Ch]},
+        'attention': {'trunk': widths['attention'][d_t],
+                      'head': widths['attention'][d_h]},
+        'out_proj_residual_ln': {
+            'trunk': widths['out_proj_residual_ln'][Ct],
+            'head': widths['out_proj_residual_ln'][Ch]},
+        'ffn_residual_ln': {'trunk': widths['ffn_residual_ln'][Ct],
+                            'head': widths['ffn_residual_ln'][Ch]}}
+    records = layer_records('trunk', inputs['trunk'], err, per_tag,
+                            'ppgs_tpu/ops/encoder_layer_kernel.py:385', card)
+    records += layer_records('head', inputs['head'], err, per_tag,
+                             'ppgs_tpu/ops/encoder_layer_kernel.py:152', card)
+
+    # B10, launched by the conv-stack opt-in's call (phase 10)
+    c = inputs['conv']
+    a16, k, s, first = c['audio'], c['k'], c['s'], c['first']
+    B, S = a16.shape
+    Cc = conv_stack.CHANNELS
+    T0 = (S - k[0]) // s[0] + 1
+    T1 = (T0 - k[1]) // s[1] + 1
+    T2 = (T1 - k[2]) // s[2] + 1
+    taps = trunk.feature_prepared
+    conv0 = F.gelu(port.models.w2v2._group_norm(
+        F.conv1d(a16[:, None], taps.w0.T[:, None, :], stride=s[0]),
+        trunk.feature_encoder[0].group_norm),
+        approximate='tanh').to(torch.bfloat16)
+    w1_oik = taps.w1.view(k[1], Cc, Cc).permute(2, 1, 0).contiguous()
+    w2_oik = taps.w2.view(k[2], Cc, Cc).permute(2, 1, 0).contiguous()
+    x1 = c['x1']
+    x1_nct = x1.transpose(1, 2).contiguous()
+    records.append(timed_record(
+        'conv_stats', 'conv_stack.cu', 'ppgs_tpu/ops/conv_stack.py:109',
+        stack_launches['conv_stats'], err['conv_stats'], (
+            lambda: conv_stack.conv_stats(a16, taps.w0, k[0], s[0]),
+            lambda: conv_stack.conv_stats_reference(a16, taps.w0, k[0],
+                                                    s[0]),
+            None),
+        (2 * B * T0 * k[0] * Cc, B * S * 2 + k[0] * Cc * 2 + B * 2 * Cc * 4),
+        card, plain_reps=HEAVY_REPS))
+    records.append(timed_record(
+        'conv_gelu_first', 'conv_stack.cu', 'ppgs_tpu/ops/conv_stack.py:123',
+        stack_launches['conv_gelu_first'], err['conv_gelu_first'], (
+            lambda: conv_stack.conv_gelu(a16, taps.w1, k[1], s[1], first),
+            lambda: conv_stack.conv_gelu_reference(a16, taps.w1, k[1], s[1],
+                                                   first),
+            # conv 1 alone (cuDNN, bf16) on a stored conv-0 activation
+            lambda: F.gelu(F.conv1d(conv0, w1_oik, stride=s[1]),
+                           approximate='tanh')),
+        (2 * B * T1 * k[1] * Cc * Cc + 2 * B * T0 * k[0] * Cc,
+         B * S * 2 + k[1] * Cc * Cc * 2 + k[0] * Cc * 2 + B * T1 * Cc * 2),
+        card, plain_reps=HEAVY_REPS))
+    records.append(timed_record(
+        'conv_gelu', 'conv_stack.cu', 'ppgs_tpu/ops/conv_stack.py:123',
+        stack_launches['conv_gelu'] - stack_launches['conv_gelu_first'],
+        err['conv_gelu'], (
+            lambda: conv_stack.conv_gelu(x1, taps.w2, k[2], s[2]),
+            lambda: conv_stack.conv_gelu_reference(x1, taps.w2, k[2], s[2]),
+            lambda: F.gelu(F.conv1d(x1_nct, w2_oik, stride=s[2]),
+                           approximate='tanh')),
+        (2 * B * T2 * k[2] * Cc * Cc,
+         B * T1 * Cc * 2 + k[2] * Cc * Cc * 2 + B * T2 * Cc * 2), card,
+        plain_reps=HEAVY_REPS))
+    del conv0
+
+    # The wholes: the 12-layer GELU stack and the conv chain
+    st = inputs['stack']
+    layers = trunk.encoder.layers
+    C, H = trunk.config.hidden_size, trunk.config.num_heads
+    Fh = trunk.config.intermediate_size
+    stack_ms = time_ms(lambda: elk.encoder_stack(
+        st['x16'], st['mask'], layers, H, activation='gelu'))
+    stack_plain_ms = time_ms(lambda: elk.encoder_stack_reference(
+        st['x16'], st['mask'], layers, H, activation='gelu'), HEAVY_REPS, 1)
+    encoder = library_encoder(layers, C, H, Fh, st['x16'].device,
+                              activation='gelu')
+    pad = ~st['mask']
+    stack_library_ms = time_ms(lambda: encoder(st['x16'],
+                                               src_key_padding_mask=pad))
+    del encoder
+    # The chain's bound: each of its kernels at its own bound, per layer
+    stack_bound = len(layers) * sum(r['bound_ms'] for r in records[:4])
+    print(f'B7 the {len(layers)}-layer GELU stack ({B} x '
+          f'{st["x16"].shape[1]}): kernels {stack_ms:.4f} ms, bound '
+          f'{stack_bound:.4f} ms, plain {stack_plain_ms:.4f} ms, library '
+          f'{stack_library_ms:.4f} ms (nn.TransformerEncoderLayer(768, 12, '
+          f'3072, gelu) x {len(layers)}) [{card}]', flush=True)
+    chain = c['chain']
+    wcfg = trunk.config
+    chain_ms = time_ms(lambda: conv_stack.feature_encoder_stack(a16, *chain))
+    chain_plain_ms = time_ms(lambda: conv_stack.feature_encoder_stack_reference(
+        a16, *chain), HEAVY_REPS, 1)
+    chain_library_ms = time_ms(lambda: port.models.w2v2.feature_encoder(
+        trunk, a16, wcfg))
+    # Its bound: every conv's products (conv 0 once), the audio in and the
+    # features out
+    frames, flops = T0, 2 * B * T0 * k[0] * Cc
+    for ki, si in zip(k[1:], s[1:]):
+        frames = (frames - ki) // si + 1
+        flops += 2 * B * frames * ki * Cc * Cc
+    chain_bound, chain_by = bound(flops, B * S * 2 + B * frames * Cc * 2)
+    print(f'B10 the conv chain ({B} x {S} samples): kernels {chain_ms:.4f} '
+          f'ms, bound {chain_bound:.4f} ms ({chain_by}), plain '
+          f'{chain_plain_ms:.4f} ms, library {chain_library_ms:.4f} ms (the '
+          f'cuDNN bf16 convs, GroupNorm and GELU of '
+          f'models.w2v2.feature_encoder) [{card}]', flush=True)
+
+    call = dict(representation='w2v2fb', checkpoint=head_path)
+    for use_stack in (False, True):
+        if use_stack:
+            os.environ['PPGS_TPU_CONV_STACK'] = '1'
+        try:
+            e2e = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                port.from_audio(audio, **call)
+                torch.cuda.synchronize()
+                e2e.append(time.perf_counter() - start)
+        finally:
+            os.environ.pop('PPGS_TPU_CONV_STACK', None)
+        e2e_s = statistics.median(e2e)
+        print(f'w2v2fb from_audio {W2V2_BATCH} x {W2V2_SECONDS} s'
+              f'{" (PPGS_TPU_CONV_STACK=1)" if use_stack else ""}: '
+              f'{e2e_s * 1e3:.3f} ms, '
+              f'{W2V2_BATCH * W2V2_SECONDS / e2e_s:.1f} audio-s/s (median '
+              f'of 5) [{card}]', flush=True)
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        port.from_audio(audio, **call)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - start) * 1e3
+    report_profile('w2v2fb from_audio', prof, wall_ms, card)
+    return records
+
+
+def w2v2fb_phases(port, workdir, dev, gen, card):
+    """Phases 9-11: the w2v2fb slice; returns its kernels' JSON records."""
+    phase('9 w2v2fb kernels against their plain versions (trunk 64 x 400, '
+          'head 128 x 500, conv stack 64 x 8 s)')
+    trunk, head, head_config, head_path = w2v2fb_setup(port, workdir, dev)
+    err, inputs = w2v2fb_kernel_checks(port, trunk, head, head_config, dev,
+                                       gen)
+    del head
+    phase(f'10 from_audio(representation=w2v2fb): {W2V2_BATCH} x '
+          f'{W2V2_SECONDS} s (main path)')
+    widths, stack_launches, audio = w2v2fb_main_path(
+        port, trunk, head_config, head_path, dev, gen, card)
+    phase(f'11 w2v2fb times on {card} (median of {REPS}, CUDA events)')
+    return w2v2fb_times(port, trunk, head_config, head_path, inputs, err,
+                        widths, stack_launches, audio, card)
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument('--slices', default='mel,train,w2v2fb',
+                        help='comma-separated subset of mel,train,w2v2fb')
+    slices = set(parser.parse_args().slices.split(','))
+    if not torch.cuda.is_available():
+        sys.exit('chip_smoke.py needs a CUDA device; none is available')
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import ppgs_tpu_torch as port
+    from ppgs_tpu_torch import kernels
+
+    dev = torch.device('cuda')
+    # Plain fp32 products and convs in full fp32 (cuDNN runs fp32 convs in
+    # TF32 by default); the entry points set the same
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    phase('1 card')
+    card = card_line()
+    print(card, flush=True)
+    kind = torch.cuda.get_device_name(0)
+
+    phase('2 build')
+    seconds = kernels.build_all()
+    print(f'built {len(kernels.SOURCES)} kernel sources with nvcc (sm_90a) '
+          f'in {seconds:.1f} s into {kernels.build_dir()}', flush=True)
+    for src, log in sorted(kernels.build_log.items()):
+        for line in log.splitlines():
+            if 'Used' in line or 'spill' in line:
+                print(f'  {src}: {line.strip()}')
+
+    config = port.config.get()            # the mel model, bf16 compute
+    workdir = tempfile.TemporaryDirectory()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    records = []
+    if 'mel' in slices:
+        records += mel_phases(port, config, workdir.name, dev, gen, card)
+    if 'train' in slices:
+        records += train_phases(port, config, workdir.name, dev, gen, card)
+    if 'w2v2fb' in slices:
+        records += w2v2fb_phases(port, workdir.name, dev, gen, card)
     phase()
 
     workdir.cleanup()

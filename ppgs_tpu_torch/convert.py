@@ -10,6 +10,10 @@ relayouts are here:
 - conv weights (K, I, O) transpose to torch's (O, I, K);
 - ``prepare`` derives, once per loaded model, the compute-dtype copies the
   encoder's products read, with the softmax scale folded in for the stack.
+
+The same holds for the wav2vec2 trunk (``w2v2_params_from_jax``,
+``prepare_w2v2``), whose encoder layers have the transformer's layout and
+whose grouped positional conv (k, C/G, C) becomes torch's (C, C/G, k).
 """
 
 import math
@@ -58,10 +62,18 @@ def params_from_jax(flat):
 @torch.no_grad()
 def prepare(model):
     """Give each encoder layer of a ``models.transformer.Transformer`` its
-    ``prepared`` weights: non-persistent buffers in the config's compute
-    dtype, which move with the model and are never saved. ``load.model``
-    calls this once, before moving the model to its device; call it again
-    after changing the parameters.
+    ``prepared`` weights (``prepare_layers``) for the config's compute
+    dtype. ``load.model`` calls this once, before moving the model to its
+    device; call it again after changing the parameters."""
+    prepare_layers(model.layers, model.config.attention_heads,
+                   getattr(torch, model.config.compute_dtype))
+
+
+@torch.no_grad()
+def prepare_layers(layers, heads, cd):
+    """Give each encoder layer (``models.transformer.EncoderLayer``) its
+    ``prepared`` weights: non-persistent buffers in the compute dtype
+    ``cd``, which move with the model and are never saved.
 
     - ``wqkv``, ``bqkv``, ``wo``, ``bo``, ``w1``, ``b1``, ``w2``, ``b2``: the
       per-layer path's operands, the JAX package's casts to the compute
@@ -73,9 +85,7 @@ def prepare(model):
 
     The stack's fp32 vectors (its biases and the LayerNorms) are the
     parameters themselves."""
-    cd = getattr(torch, model.config.compute_dtype)
-    heads = model.config.attention_heads
-    for layer in model.layers:
+    for layer in layers:
         attn, ffn = layer.attn, layer.ffn
         C = attn.wo.shape[0]
         fold = torch.ones(3 * C, device=attn.wqkv.device)
@@ -87,6 +97,49 @@ def prepare(model):
         tensors['wqkv_folded'] = (attn.wqkv * fold).to(cd).contiguous()
         tensors['bqkv_folded'] = (attn.bqkv * fold).float().contiguous()
         layer.prepared = Prepared(tensors)
+
+
+def w2v2_params_from_jax(flat):
+    """Map a flat JAX wav2vec2 parameter dict (``ppgs_tpu/models/w2v2.py``
+    ``init``'s pytree, flattened as ``load.flatten_params`` does) onto the
+    state dict of ``models.w2v2.Wav2Vec2``: the feature convs' (K, I, O)
+    and the positional conv's (k, C/G, C) to torch's (O, I, K), and each
+    encoder layer's q, k and v fused as the transformer's are. Every leaf
+    is used: ``load_state_dict(strict=True)`` refuses a leftover."""
+    flat = dict(flat)
+    state = {}
+    layers = sorted({int(key.split('.')[2]) for key in flat
+                     if key.startswith('encoder.layers.')})
+    for i in layers:
+        p = f'encoder.layers.{i}.'
+        state[p + 'attn.wqkv'] = _tensor(np.concatenate(
+            [flat.pop(p + f'attn.w{n}') for n in 'qkv'], axis=1))
+        state[p + 'attn.bqkv'] = _tensor(np.concatenate(
+            [flat.pop(p + f'attn.b{n}') for n in 'qkv']))
+    for key, value in flat.items():
+        value = np.asarray(value)
+        if key.endswith('conv.weight'):
+            value = value.transpose(2, 1, 0)
+        state[key] = _tensor(value)
+    return state
+
+
+@torch.no_grad()
+def prepare_w2v2(model):
+    """The compute-dtype copies a ``models.w2v2.Wav2Vec2`` reads, for its
+    config's compute dtype: each encoder layer's ``prepared`` weights
+    (``prepare_layers``), and the feature convs as the conv-stack kernels
+    take them (``feature_prepared``: conv 0 as (k0, C), the later convs as
+    (k * C_in, C_out), the JAX (k, C_in, C_out) weight flattened)."""
+    config = model.config
+    cd = getattr(torch, config.compute_dtype)
+    prepare_layers(model.encoder.layers, config.num_heads, cd)
+    taps = {}
+    for i, layer in enumerate(model.feature_encoder):
+        weight = layer.conv.weight.detach().permute(2, 1, 0)     # (k, I, O)
+        taps[f'w{i}'] = weight.reshape(-1, weight.shape[-1]).to(
+            cd).contiguous()
+    model.feature_prepared = Prepared(taps)
 
 
 def params_to_jax(state):

@@ -131,7 +131,7 @@ def from_audio(audio, sample_rate: Union[int, float] = None,
         lengths = np.full((B,), audio.shape[-1], dtype=np.int64)
 
     features = preprocess.get(representation).from_audios(
-        audio, lengths, config=config)
+        audio, lengths, config=config, device=device)
     if full:
         feat_lengths = np.full((B,), features.shape[-1], dtype=np.int64)
     else:

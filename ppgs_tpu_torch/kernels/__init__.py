@@ -69,19 +69,26 @@ SIGNATURES = {
                               _I, _I, _I, _I, _P)),
     # x, w, b, out, M, K, N, stream
     'ppgs_qkv_proj': ('qkv_proj.cu', (_P, _P, _P, _P, _I, _I, _I, _P)),
-    # q, k, v, row_stride, mask, out, out_stride, B, T, H, scale_log2,
-    # causal, stream
+    # q, k, v, row_stride, mask, out, out_stride, B, T, H, d_head,
+    # scale_log2, causal, stream
     'ppgs_attention': ('attention.cu', (_P, _P, _P, _L, _P, _P, _L,
-                                        _I, _I, _I, _F, _I, _P)),
-    # a, w, bias, x, gamma, beta, out, n_out, rstd, M, *drop, stream
+                                        _I, _I, _I, _I, _F, _I, _P)),
+    # a, w, bias, x, gamma, beta, out, n_out, rstd, M, C, *drop, stream
     'ppgs_out_proj_ln': ('out_proj_ln.cu', (_P, _P, _P, _P, _P, _P, _P, _P,
-                                            _P, _I, *_DROP, _P)),
-    # x, w1, b1, w2, b2, gamma, beta, out, n_out, rstd, y_out, M, F,
-    # round_input, seed_lo, seed_hi, site_h, site_y, threshold, scale,
+                                            _P, _I, _I, *_DROP, _P)),
+    # x, w1, b1, w2, b2, gamma, beta, out, n_out, rstd, y_out, M, F, C,
+    # act, round_input, seed_lo, seed_hi, site_h, site_y, threshold, scale,
     # stream
     'ppgs_ffn_ln': ('ffn_ln.cu', (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                  _P, _I, _I, _I, _U, _U, _U, _U, _U, _F,
-                                  _P)),
+                                  _P, _I, _I, _I, _I, _I, _U, _U, _U, _U,
+                                  _U, _F, _P)),
+    # audio, S, w0, k0, s0, T0, B, partial, sums, tickets, stream
+    'ppgs_conv_stats': ('conv_stack.cu', (_P, _L, _P, _I, _I, _I, _I, _P,
+                                          _P, _P, _P)),
+    # x, x_batch, w, k, s, T_out, B, out, w0, k0, s0, T0, sums, gamma,
+    # beta, stream
+    'ppgs_conv_gelu': ('conv_stack.cu', (_P, _L, _P, _I, _I, _I, _I, _P, _P,
+                                         _I, _I, _I, _P, _P, _P, _P)),
 }
 SOURCES = tuple(sorted({src for src, _ in SIGNATURES.values()}))
 

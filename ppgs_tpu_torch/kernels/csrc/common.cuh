@@ -64,42 +64,51 @@ __device__ __forceinline__ void load_tile_f32_as_bf16(bf16* s, int sld,
   }
 }
 
-// LayerNorm of one 256-wide float32 row spread over a warp, 8 values per
-// lane (lane owns columns lane*8 .. lane*8+7); two-pass moments in fp32 as
-// the JAX kernels compute them. Writes the row to out and, for the training
-// backward, the normalised row to n and 1/std to *rstd when they are not
-// null.
-__device__ __forceinline__ void layer_norm_row256(float v[8],
-                                                  const float* gamma,
-                                                  const float* beta,
-                                                  float* out,
-                                                  float* n = nullptr,
-                                                  float* rstd = nullptr) {
-  const int lane = threadIdx.x % 32, c0 = lane * 8;
+// tanh-approximate GELU in fp32 (jax.nn.gelu(approximate=True), the w2v2
+// bf16 path's activation).
+__device__ __forceinline__ float gelu_tanh(float x) {
+  const float inner = 0.7978845608028654f * (x + 0.044715f * x * x * x);
+  return 0.5f * x * (1.f + tanhf(inner));
+}
+
+// LayerNorm of one C-wide float32 row spread over a warp, C/32 values per
+// lane (lane owns columns lane*C/32 .. lane*C/32 + C/32 - 1); two-pass
+// moments in fp32 as the JAX kernels compute them. Writes the row to out
+// and, for the training backward, the normalised row to n and 1/std to
+// *rstd when they are not null. C % 128 == 0.
+template <int C>
+__device__ __forceinline__ void layer_norm_row(float v[C / 32],
+                                               const float* gamma,
+                                               const float* beta, float* out,
+                                               float* n = nullptr,
+                                               float* rstd = nullptr) {
+  constexpr int VPL = C / 32;
+  static_assert(VPL % 4 == 0, "a lane's columns are written as float4");
+  const int lane = threadIdx.x % 32, c0 = lane * VPL;
   float sum = 0.f;
 #pragma unroll
-  for (int e = 0; e < 8; ++e) sum += v[e];
-  const float mean = warp_sum(sum) * (1.f / 256.f);
+  for (int e = 0; e < VPL; ++e) sum += v[e];
+  const float mean = warp_sum(sum) * (1.f / C);
   float sq = 0.f;
 #pragma unroll
-  for (int e = 0; e < 8; ++e) {
+  for (int e = 0; e < VPL; ++e) {
     v[e] -= mean;
     sq += v[e] * v[e];
   }
-  const float inv = rsqrtf(warp_sum(sq) * (1.f / 256.f) + LN_EPS);
-  float o[8];
+  const float inv = rsqrtf(warp_sum(sq) * (1.f / C) + LN_EPS);
 #pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    v[e] *= inv;
-    o[e] = v[e] * gamma[c0 + e] + beta[c0 + e];
-  }
-  float4* dst = reinterpret_cast<float4*>(out + c0);
-  dst[0] = make_float4(o[0], o[1], o[2], o[3]);
-  dst[1] = make_float4(o[4], o[5], o[6], o[7]);
-  if (n) {
-    float4* dn = reinterpret_cast<float4*>(n + c0);
-    dn[0] = make_float4(v[0], v[1], v[2], v[3]);
-    dn[1] = make_float4(v[4], v[5], v[6], v[7]);
+  for (int e = 0; e < VPL; e += 4) {
+    float o[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      v[e + j] *= inv;
+      o[j] = v[e + j] * gamma[c0 + e + j] + beta[c0 + e + j];
+    }
+    *reinterpret_cast<float4*>(out + c0 + e) =
+        make_float4(o[0], o[1], o[2], o[3]);
+    if (n)
+      *reinterpret_cast<float4*>(n + c0 + e) =
+          make_float4(v[e], v[e + 1], v[e + 2], v[e + 3]);
   }
   if (rstd && lane == 0) *rstd = inv;
 }

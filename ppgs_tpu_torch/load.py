@@ -111,7 +111,9 @@ def model(checkpoint=None, representation=None, config=None, device=None):
     if checkpoint is None:
         checkpoint = config.local_checkpoint
     if checkpoint is None:
-        name = {'mel': 'mel-800k.npz'}.get(config.representation)
+        # The converted checkpoints, under the published names
+        name = {'mel': 'mel-800k.npz', 'w2v2fb': 'w2v2fb-425k.npz'}.get(
+            config.representation)
         if name is None:
             raise ValueError(
                 f'No default checkpoints exist for representation '

@@ -39,6 +39,11 @@ from ..ops import flash_attention as fa
 from ..ops import fused_ffn
 from ..ops.masking import mask_from_lengths
 
+# (C, d_head) of the PPG transformers whose layers the card's kernels take:
+# inference (mel; the w2v2fb and w2v2fc heads) and training (mel)
+KERNEL_WIDTHS = ((256, 128), (512, 256))
+TRAIN_KERNEL_WIDTHS = ((256, 128),)
+
 # Longest window of the train kernels (the JAX package's
 # TRAIN_KERNEL_MAX_T): the whole-layer kernel takes T % 8 == 0 up to it,
 # the attention kernel any T up to it; longer windows train through plain
@@ -242,26 +247,30 @@ def _encoder_layer(x, layer, key_mask, causal, heads, compute_dtype, kernel):
     return _layer_norm(x + h, layer.norm2.scale, layer.norm2.bias)
 
 
-def use_kernels(config: Config, device) -> bool:
+def use_kernels(config: Config, device, train=False) -> bool:
     """Whether the encoder runs through the kernel wrappers: the JAX
     package's rule (``ppgs_tpu/models/transformer.py:70-76, :446-448``),
     bf16 compute with d_head a multiple of 128.
 
     The fp32 config (the strict-parity path) and bf16 at other head widths
     run plain torch, on the card too, as the JAX package runs XLA there:
-    a static choice from the config, not a fallback. A width that the rule
-    sends to a kernel but the card's kernels do not take yet (they take
-    C = 256 with d_head = 128, the mel model; not the C = 512, d_head = 256
-    of w2v2fb and w2v2fc) raises on a CUDA device: ROADMAP.md queues it."""
+    a static choice from the config, not a fallback. The card's kernels
+    take the models' widths (``KERNEL_WIDTHS``: the mel model's C = 256
+    with d_head = 128, and the w2v2fb and w2v2fc heads' C = 512 with
+    d_head = 256; the train kernels, ``train``, only the mel model's);
+    another width that the rule sends to a kernel raises on a CUDA
+    device."""
     C, heads = config.hidden_channels, config.attention_heads
     d_head = C // heads
     kernel = config.compute_dtype == 'bfloat16' and d_head % 128 == 0
+    widths = TRAIN_KERNEL_WIDTHS if train else KERNEL_WIDTHS
     if (kernel and torch.device(device).type == 'cuda'
-            and (C, d_head) != (256, fa.D_HEAD)):
+            and (C, d_head) not in widths):
         raise NotImplementedError(
-            f'The CUDA kernels take C = 256 with d_head = {fa.D_HEAD}; '
-            f'config {config.config!r} has C = {C} with d_head = {d_head}, '
-            f'which is not ported to the card yet (ROADMAP.md)')
+            f'The CUDA {"train " if train else ""}kernels take (C, d_head) '
+            f'in {widths}; config {config.config!r} has C = {C} with '
+            f'd_head = {d_head}, which is not ported to the card '
+            f'(ROADMAP.md)')
     return kernel
 
 
@@ -351,7 +360,7 @@ def _train_forward(model, features, lengths, seed, phys_lengths=None):
     x = (x + model.pe[:T]).contiguous()
     x = dropout.dropout(x, seed, dropout.PE_SITE, rate)
 
-    kernel = use_kernels(config, x.device)
+    kernel = use_kernels(config, x.device, train=True)
     for i, layer in enumerate(model.layers):
         drop = dropout.Drop(seed, dropout.site(i, 'probs'), rate)
         args = (x, layer, mask, config.is_causal, heads, cd, kernel, drop)

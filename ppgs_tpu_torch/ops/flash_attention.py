@@ -1,24 +1,28 @@
 """Masked multi-head attention on the (B, T, C) layout (K2,
 ``kernels/csrc/attention.cu``).
 
-One CUDA kernel, with an online softmax over 64-key tiles, serves the three
-places the JAX package runs attention in a TPU kernel at d_head = 128:
-``ppgs_tpu/ops/flash_attention.py`` ``_fused_kernel`` (T <= 1024) and
-``_flash_kernel`` (T > 1024), and the attention inside
-``ppgs_tpu/ops/encoder_layer_kernel.py::_layer_body``. q, k and v are read
-in place through a row stride, so the fused (B, T, 3C) QKV buffer needs no
-split and no head transpose, and any T works without padding. Fully masked
-query rows (and wholly masked windows) give exactly 0.
+One CUDA kernel, with an online softmax over 64-key tiles and one
+instance per head width (64, 128, 256), serves the places the JAX package
+runs attention in a TPU kernel: ``ppgs_tpu/ops/flash_attention.py``
+``_fused_kernel`` (T <= 1024), ``_flash_kernel`` (T > 1024) and
+``_fused_kernel_packed`` (d_head < 128: wav2vec2's 12 heads of 64, which
+the TPU packs two to a 128-lane block and the card runs one head to a
+block), and the attention inside
+``ppgs_tpu/ops/encoder_layer_kernel.py::_layer_body`` (``encoder_stack``
+and ``encoder_stack_streamed``). q, k and v are read in place through a
+row stride, so the fused (B, T, 3C) QKV buffer needs no split and no head
+transpose, and any T works without padding. Fully masked query rows (and
+wholly masked windows) give exactly 0.
 
 On a CPU tensor the wrappers run the plain PyTorch version; on a CUDA
-tensor they launch the kernel or raise. The packed d_head < 128 variant of
-the TPU kernel belongs to a later slice (ROADMAP.md). Bound, design and
-rounding notes are in the CUDA source.
+tensor they launch the kernel or raise. Bound, design and rounding notes
+are in the CUDA source.
 
 The training attention with dropout (``flash_attention_train``, the TPU's
 ``flash_attention_train``) is at the end of this module.
 """
 
+import collections
 import math
 
 import torch
@@ -28,7 +32,8 @@ from . import dropout
 
 LOG2E = 1.4426950408889634
 NEG_INF = -1e30
-D_HEAD = 128        # the kernel's head width
+D_HEADS = (64, 128, 256)    # the inference kernel's head widths
+D_HEAD = 128                # the train kernels' head width
 
 
 def attention_reference(q, k, v, mask, heads, scale_log2, causal=False):
@@ -73,15 +78,17 @@ def _row_stride(t, T):
 
 
 def attention(q, k, v, mask, heads, scale_log2, causal=False):
-    """K2: q, k, v (B, T, H*128) bf16 (views of one buffer are fine),
-    mask (B, T) bool, True = valid key. Returns a new (B, T, C) bf16 tensor.
-    ``scale_log2`` multiplies the fp32 scores before exp2: log2(e)/sqrt(d)
-    for raw q, 1 when that factor is folded into q's weights."""
+    """K2: q, k, v (B, T, H*d_head) bf16 with d_head 64, 128 or 256 (views
+    of one buffer are fine), mask (B, T) bool, True = valid key. Returns a
+    new (B, T, C) bf16 tensor. ``scale_log2`` multiplies the fp32 scores
+    before exp2: log2(e)/sqrt(d) for raw q, 1 when that factor is folded
+    into q's weights. ``attention.widths`` counts the launches per d_head."""
     if q.device.type == 'cpu':
         return attention_reference(q, k, v, mask, heads, scale_log2, causal)
     B, T, C = q.shape
-    if C != heads * D_HEAD:
-        raise ValueError(f'attention kernel takes d_head={D_HEAD}; got '
+    d_head = C // heads
+    if C != heads * d_head or d_head not in D_HEADS:
+        raise ValueError(f'attention kernel takes d_head in {D_HEADS}; got '
                          f'C={C} with {heads} heads')
     dev = q.device
     for name, t in (('q', q), ('k', k), ('v', v)):
@@ -98,12 +105,14 @@ def attention(q, k, v, mask, heads, scale_log2, causal=False):
     out = torch.empty((B, T, C), dtype=torch.bfloat16, device=dev)
     kernels.launch('ppgs_attention', q.data_ptr(), k.data_ptr(), v.data_ptr(),
                    rs, mask.data_ptr(), out.data_ptr(), C, B, T, heads,
-                   float(scale_log2), int(causal), device=dev)
+                   d_head, float(scale_log2), int(causal), device=dev)
     attention.launches += 1
+    attention.widths[d_head] += 1
     return out
 
 
 attention.launches = 0
+attention.widths = collections.Counter()
 
 
 def flash_attention(q, k, v, mask, num_heads, causal=False):

@@ -1,14 +1,16 @@
 """Fused FFN + residual + LayerNorm (K4, ``kernels/csrc/ffn_ln.cu``).
 
-    out = LN(res + relu(x @ w1 + b1) @ w2 + b2)
+    out = LN(res + act(x @ w1 + b1) @ w2 + b2)
 
-with the (M, F) hidden kept on the SM. One CUDA kernel serves two TPU
-kernels that round in one place differently (``round_input``):
+with the (M, F) hidden kept on the SM, at C = 256 (mel) and 512 (the
+w2v2fb head) with ReLU and C = 768 (the wav2vec2 trunk) with the
+tanh-approximate GELU. One CUDA kernel serves two TPU kernels that round
+in one place differently (``round_input``):
 
 - ``round_input=False``: the FFN half of
   ``ppgs_tpu/ops/encoder_layer_kernel.py::_layer_body`` (encoder_stack's
-  main path). The hidden is ``relu(bf16(bf16(x@w1) + bf16(b1)))`` and the
-  residual is the fp32 x.
+  and encoder_stack_streamed's main path). The hidden is
+  ``act(bf16(bf16(x@w1) + bf16(b1)))`` and the residual is the fp32 x.
 - ``round_input=True``: ``ppgs_tpu/ops/fused_ffn.py::_kernel``
   (``ffn_residual_layernorm``, the per-layer path). The hidden is
   ``bf16(relu(x@w1 + b1))`` and the residual is x rounded to bf16.
@@ -23,12 +25,17 @@ its forward is K4 with the dropout sites on, its backward a kernel of its
 own (``kernels/csrc/ffn_train.cu``).
 """
 
+import collections
+
 import torch
 
 from .. import kernels
 from . import backward, dropout
 
 LN_EPS = 1e-5
+# (C, activation) of each K4 instance with the LayerNorm epilogue: the
+# models' widths
+LN_WIDTHS = ((256, 'relu'), (512, 'relu'), (768, 'gelu'))
 
 
 def layer_norm(r, scale, bias):
@@ -45,33 +52,47 @@ def matmul(a, w):
     return a.float() @ w.float()
 
 
+def activate(h, activation):
+    """ReLU, or GELU with the tanh approximation (the w2v2 bf16 path's,
+    ``ppgs_tpu/models/w2v2.py::_gelu``), computed in fp32 and returned in
+    h's dtype."""
+    if activation == 'gelu':
+        return torch.nn.functional.gelu(
+            h.float(), approximate='tanh').to(h.dtype)
+    if activation == 'relu':
+        return torch.relu(h)
+    raise ValueError(f'activation {activation!r}: relu or gelu')
+
+
 def ffn_residual_ln_reference(x, w1, b1, w2, b2, scale, bias,
-                              round_input=False):
+                              round_input=False, activation='relu'):
     """Plain version of ``ffn_residual_ln`` (any device, any compute dtype:
     the dtype of w1 is the compute dtype)."""
     cd = w1.dtype
     xc = x.to(cd)
     if round_input:
-        h = torch.relu(matmul(xc, w1) + b1.float()).to(cd)
+        h = activate(matmul(xc, w1) + b1.float(), activation).to(cd)
         res = xc.float()
     else:
-        h = torch.relu(matmul(xc, w1).to(cd) + b1.to(cd))
+        h = activate(matmul(xc, w1).to(cd) + b1.to(cd), activation)
         res = x.float()
     y = matmul(h, w2)
     return layer_norm(res + y + b2.float(), scale.float(), bias.float())
 
 
 def _launch_ffn(x, w1, b1, w2, b2, ln=None, round_input=False,
-                drop_h=dropout.OFF, drop_y=dropout.OFF, stats=False):
+                drop_h=dropout.OFF, drop_y=dropout.OFF, stats=False,
+                activation='relu'):
     """Check the operands and launch K4 (``kernels/csrc/ffn_ln.cu``) on the
-    card. ``ln`` = (gamma, beta): x (..., 256) fp32, returns (LN(...) fp32,
-    and with ``stats`` the normalised rows and 1/std (M,), else None,
-    None). ``ln`` None: x (..., 256) bf16, returns (the bf16 output, None,
-    None)."""
+    card. ``ln`` = (gamma, beta): x (..., C) fp32 with (C, activation) in
+    ``LN_WIDTHS``, returns (LN(...) fp32, and with ``stats`` the
+    normalised rows and 1/std (M,), else None, None). ``ln`` None: x
+    (..., 256) bf16, ReLU, returns (the bf16 output, None, None)."""
     C, F = w1.shape
-    if C != 256 or F % 128:
-        raise ValueError(f'ffn_ln kernel takes C=256, F%128==0; got C={C}, '
-                         f'F={F}')
+    widths = LN_WIDTHS if ln else ((256, 'relu'),)
+    if (C, activation) not in widths or F % 128:
+        raise ValueError(f'ffn_ln kernel takes (C, activation) in {widths} '
+                         f'and F%128==0; got C={C}, {activation}, F={F}')
     dev = x.device
     kernels.require(x, 'x', torch.float32 if ln else torch.bfloat16, dev)
     if x.shape[-1] != C:
@@ -97,22 +118,27 @@ def _launch_ffn(x, w1, b1, w2, b2, ln=None, round_input=False,
                    ln[0].data_ptr() if ln else None,
                    ln[1].data_ptr() if ln else None, kernels.ptr(out),
                    kernels.ptr(n), kernels.ptr(rstd), kernels.ptr(y), M, F,
-                   int(round_input), lo, hi, site_h, drop_y.site, threshold,
-                   scale, device=dev)
+                   C, int(activation == 'gelu'), int(round_input), lo, hi,
+                   site_h, drop_y.site, threshold, scale, device=dev)
     return (out, n, rstd) if ln else (y, None, None)
 
 
-def ffn_residual_ln(x, w1, b1, w2, b2, scale, bias, round_input=False):
-    """K4 on (..., 256) fp32 x; returns fp32 of x's shape."""
+def ffn_residual_ln(x, w1, b1, w2, b2, scale, bias, round_input=False,
+                    activation='relu'):
+    """K4 on (..., C) fp32 x; returns fp32 of x's shape.
+    ``ffn_residual_ln.widths`` counts the launches per C."""
     if x.device.type == 'cpu':
         return ffn_residual_ln_reference(x, w1, b1, w2, b2, scale, bias,
-                                         round_input)
-    out, _, _ = _launch_ffn(x, w1, b1, w2, b2, (scale, bias), round_input)
+                                         round_input, activation)
+    out, _, _ = _launch_ffn(x, w1, b1, w2, b2, (scale, bias), round_input,
+                            activation=activation)
     ffn_residual_ln.launches += 1
+    ffn_residual_ln.widths[w1.shape[0]] += 1
     return out
 
 
 ffn_residual_ln.launches = 0
+ffn_residual_ln.widths = collections.Counter()
 
 
 def ffn_residual_layernorm(x, w1, b1, w2, b2, ln_scale, ln_bias):
@@ -195,10 +221,10 @@ def ffn_train_fwd_reference(x, w1, b1, w2, b2, drop_h, drop_y, ln=None):
 
 def ffn_train_fwd(x, w1, b1, w2, b2, drop_h, drop_y, ln=None):
     """The FFN's training forward (K4, ``kernels/csrc/ffn_ln.cu``, with
-    its dropout sites); w1 (256, F), w2 (F, 256) bf16, b1, b2 fp32, drop_h
+    its dropout sites; ReLU); w1 (C, F), w2 (F, C) bf16, b1, b2 fp32, drop_h
     and drop_y the hidden and output Drops.
 
-    ``ln`` = (gamma, beta), B4's form: x (..., 256) fp32, returns
+    ``ln`` = (gamma, beta), B4's form: x (..., C) fp32, returns
     (LN2(x + drop_y(y0)) fp32, the normalised rows, 1/std (M,)).
     ``ln`` None, ffn_train's form: x (..., 256) bf16, returns
     (drop_y(y) bf16, None, None)."""

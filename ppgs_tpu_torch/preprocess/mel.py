@@ -8,19 +8,22 @@ import numpy as np
 import torch
 
 from .. import config as config_mod
+from .. import devices
 from ..ops import stft as stft_ops
 
 
-def from_audios(audio, lengths=None, config=None):
-    """(B, 1, S) audio tensor -> (B, num_mels, T) float32 log-mel.
+def from_audios(audio, lengths=None, config=None, device=None):
+    """(B, 1, S) audio -> (B, num_mels, T) float32 log-mel on ``device``
+    (None: the card, raising without one).
 
     ``lengths``: per-row valid sample counts; the end reflection lands at
     their maximum (the true batch end), not at the padded S.
     """
+    device = devices.resolve(device)
     config = config_mod.get(config)
     valid = int(np.max(np.asarray(lengths))) if lengths is not None else None
     return stft_ops.log_mel_spectrogram(
-        audio,
+        torch.as_tensor(audio).to(device),
         sample_rate=config.sample_rate,
         num_fft=config.num_fft,
         hopsize=config.hopsize,
@@ -29,9 +32,9 @@ def from_audios(audio, lengths=None, config=None):
         valid_samples=valid)
 
 
-def from_audio(audio, config=None):
-    """(1, S) or (B, 1, S) audio tensor -> (B, num_mels, T)."""
+def from_audio(audio, config=None, device=None):
+    """(1, S) or (B, 1, S) audio -> (B, num_mels, T)."""
     audio = torch.as_tensor(audio)
     if audio.ndim == 2:
         audio = audio[None]
-    return from_audios(audio, config=config)
+    return from_audios(audio, config=config, device=device)

@@ -271,8 +271,8 @@ def train(dataset=None, directory=None, config=None, max_steps=None,
     steps, as in the JAX package."""
     config = config_mod.get(config)
     device = devices.resolve(device)
-    # raises for a width the card's kernels do not take yet
-    models.transformer.use_kernels(config, device)
+    # raises for a width the card's train kernels do not take yet
+    models.transformer.use_kernels(config, device, train=True)
     if loader_fn is None:
         raise NotImplementedError(
             f'train(dataset={dataset!r}) needs loader_fn: the dataset '

@@ -45,7 +45,7 @@ def test_frontend_with_per_row_lengths_matches_jax():
         jnp.asarray(audio), lengths,
         config=config.replace(compute_dtype='float32')))
     got = ppgs_tpu_torch.preprocess.get('mel').from_audios(
-        torch.from_numpy(audio), lengths).numpy()
+        torch.from_numpy(audio), lengths, device='cpu').numpy()
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
 
 

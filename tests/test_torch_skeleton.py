@@ -161,19 +161,28 @@ def test_load_model_defaults_to_cuda(monkeypatch, tmp_path):
 
 
 def test_unported_width_raises_on_the_card(monkeypatch):
-    """w2v2fb (C = 512, d_head = 256) takes the kernels under the JAX rule,
-    and the card's kernels do not take that width yet: asked for the card,
-    the call raises before any work instead of running plain torch."""
+    """The card's kernels take the mel model's width and the w2v2fb head's
+    (C = 512, d_head = 256). A width that the JAX rule sends to its kernels
+    and the card's kernels do not take (C = 1024, d_head = 512) raises
+    before any work, asked for the card, instead of running plain torch."""
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: True)
+    for name in ('mel', 'w2v2fb'):
+        config = ppgs_tpu_torch.config.get(name)
+        assert ppgs_tpu_torch.models.transformer.use_kernels(config, 'cuda')
+    wide = ppgs_tpu_torch.config.get('w2v2fb').replace(hidden_channels=1024)
     with pytest.raises(NotImplementedError, match='ROADMAP.md'):
         ppgs_tpu_torch.from_features(
-            np.zeros((1, 768, 10), np.float32), [10], config='w2v2fb',
+            np.zeros((1, 768, 10), np.float32), [10], config=wide,
             device='cuda')
 
 
 def test_only_the_transformer_is_ported():
+    """The transformer and the mel and w2v2fb frontends are ported; another
+    model or representation raises, naming ROADMAP.md."""
     config = ppgs_tpu_torch.config.get('convolution')
     with pytest.raises(ValueError, match='ROADMAP.md'):
         ppgs_tpu_torch.models.get(config)
+    assert (ppgs_tpu_torch.preprocess.get('w2v2fb')
+            is ppgs_tpu_torch.preprocess.w2v2fb)
     with pytest.raises(ValueError, match='ROADMAP.md'):
-        ppgs_tpu_torch.preprocess.get('w2v2fb')
+        ppgs_tpu_torch.preprocess.get('bottleneck')

@@ -116,12 +116,15 @@ def test_bf16_per_layer_path_matches_jax(tmp_path):
     ('mel', dict(compute_dtype='float32'), 'cuda', False),
     ('mel', dict(hidden_channels=64), 'cuda', False),       # d_head = 32
     ('w2v2fb', {}, 'cpu', True),                            # d_head = 256
-    ('w2v2fb', {}, 'cuda', NotImplementedError),
+    ('w2v2fb', {}, 'cuda', True),
+    ('w2v2fb', dict(hidden_channels=1024), 'cuda',           # d_head = 512
+     NotImplementedError),
     ('w2v2fc', dict(compute_dtype='float32'), 'cuda', False),
 ])
 def test_kernel_gate_follows_the_jax_rule(name, fields, device, want):
     """bf16 with d_head % 128 == 0 takes the kernels, as JAX's _use_flash
-    does; on the card, such a width the kernels do not take raises."""
+    does; on the card, such a width the kernels do not take (here
+    d_head = 512) raises."""
     config = ppgs_tpu_torch.config.get(name).replace(**fields)
     d_head = config.hidden_channels // config.attention_heads
     jax_rule = config.compute_dtype == 'bfloat16' and d_head % 128 == 0
@@ -131,6 +134,18 @@ def test_kernel_gate_follows_the_jax_rule(name, fields, device, want):
             transformer.use_kernels(config, device)
     else:
         assert transformer.use_kernels(config, device) is want is jax_rule
+
+
+def test_train_gate_keeps_the_mel_width():
+    """The train kernels take the mel model's width only: training the
+    w2v2fb head (C = 512, d_head = 256) on the card raises, naming
+    ROADMAP.md, where inference takes the kernels."""
+    config = ppgs_tpu_torch.config.get('w2v2fb')
+    assert transformer.use_kernels(config, 'cuda')
+    with pytest.raises(NotImplementedError, match='ROADMAP.md'):
+        transformer.use_kernels(config, 'cuda', train=True)
+    assert transformer.use_kernels(ppgs_tpu_torch.config.get('mel'), 'cuda',
+                                   train=True)
 
 
 def test_prepare_casts_and_folds_once(tmp_path):
