@@ -12,18 +12,21 @@ any failure exits non-zero before the result line:
    main path's shapes (128 windows x 500 frames of the mel model: C = 256,
    2 heads of 128, FFN 2048), plus the attention kernel at T = 1536 with
    and without the causal mask and a wholly masked window, the per-layer
-   FFN variant, and the whole 5-layer stack;
+   FFN variant, the whole 5-layer stack, and the fused log-mel kernel (B9)
+   at 64 x 8 s;
 4. the main path, ``from_audio`` on 64 utterances x 8 s of seeded random
    audio with seeded random weights: shape, softmax columns, every kernel
    launched, and the first rows against ``from_audio(..., device='cpu')``;
    then ``legacy_mode`` on a 12 s utterance (T = 1200 > 1024), which takes
-   the per-layer path through the attention and FFN kernels;
+   the per-layer path through the attention and FFN kernels; then the main
+   path with ``PPGS_TPU_FUSED_MEL=1``: B9 launched once, K1-K4 as before,
+   the PPGs against the default path's;
 5. times with CUDA events (warm-up, then the median of 20 runs) of each
    kernel, its plain version and a PyTorch library call computing the same
    function (``nn.TransformerEncoder`` for the whole stack), beside the
-   kernel's bound; end-to-end audio-seconds per second of ``from_audio``;
-   and the device time by kernel of one ``from_audio`` call
-   (torch.profiler) with the card's idle share;
+   kernel's bound; end-to-end audio-seconds per second of ``from_audio``
+   (with and without the fused log-mel); and the device time by kernel of
+   one ``from_audio`` call (torch.profiler) with the card's idle share;
 6. the train kernels against their plain versions at the training shape
    (256 windows x 512 frames, ragged, one wholly masked) with dropout 0.1
    and the same Philox masks on both sides, then the whole-layer function
@@ -57,10 +60,27 @@ any failure exits non-zero before the result line:
 11. times of each w2v2fb kernel instance, its plain version, a library call
    and its bound; the 12-layer stack against ``nn.TransformerEncoderLayer``
    x 12 and the conv chain against the cuDNN bf16 convs; the slice's
-   audio-seconds per second and a torch.profiler breakdown.
+   audio-seconds per second and a torch.profiler breakdown;
+12. the bottleneck slice's rel-pos attention kernel (B8) against its plain
+   version, with seeded full-size random weights (the 16-block conformer,
+   d = 144, 4 heads of 36, FFN 576; the C = 256 head): 64 x T = 800 from
+   block 0's projections with ragged rows and a wholly masked one, T =
+   2048 and T = 803; and the 16 blocks whole on the card against
+   ``device='cpu'`` on 2 rows;
+13. the bottleneck main path, ``from_audio(representation='bottleneck')``
+   on 64 x 8 s, the conformer's weights read from a temporary npz that
+   ``BOTTLENECK_CHECKPOINT`` points at: shape, softmax columns, exactly 16
+   B8 launches and 5 of each of K1-K4 at C = 256, 4 utterances of 2 s
+   against ``device='cpu'``; then a 25 s utterance (T = 2500 > 2048): no B8
+   launch, a finite output;
+14. B8's time, its plain version's, SDPA's with the shifted bias as a float
+   mask, and its bound; the conformer whole with B8 and with its plain
+   version, beside its bound and a profile of its library calls; the
+   slice's audio-seconds per second and a torch.profiler breakdown.
 
-``--slices`` (default ``mel,train,w2v2fb``) runs a subset: phases 3-5,
-6-8 and 9-11 respectively. Each phase prints its seconds. Before the last line it prints one JSON
+``--slices`` (default ``mel,train,w2v2fb,bottleneck``) runs a subset:
+phases 3-5, 6-8, 9-11 and 12-14 respectively. Each phase prints its
+seconds. Before the last line it prints one JSON
 object with a record per kernel;
 the last line is {"ok": true, "device": {...}}. Imports nothing of JAX or
 of the JAX package.
@@ -110,6 +130,21 @@ W2V2_BATCH, W2V2_SECONDS = 64, 8
 W2V2_CPU_ROWS, W2V2_CPU_SECONDS = 4, 2
 HEAD_LONG_T = 1200
 HEAVY_REPS = 3                   # plain versions of the whole chains
+
+# The bottleneck slice: the JAX bench's fourth line (64 x 8 s,
+# bench.py:407-459), 4 utterances of 2 s against the CPU, one 25 s
+# utterance past B8's 2048 frames, and B8 at a T that is no multiple of 8
+BN_BATCH, BN_SECONDS = 64, 8
+BN_CPU_ROWS, BN_CPU_SECONDS = 4, 2
+BN_LONG_SECONDS = 25
+BN_ODD_T = 803
+# B8 against its plain version: a bf16 rounding flip of p / denom moves an
+# output by about an ulp of p times |v|, and a flip of the output's own
+# rounding by one bf16 ulp of the output (2^-8 relative); the card's 16
+# blocks against the CPU's, relative L2 (bf16 products rounded by other
+# libraries in each block)
+B8_ATOL, B8_RTOL = 5e-3, 1e-2
+BN_BLOCKS_REL = 1e-2
 
 # Published peaks of an H100 SXM (dense bf16, HBM3), for the bounds
 PEAK_BF16_FLOPS = 989e12
@@ -284,19 +319,20 @@ def library_encoder(layers, C, H, Fh, dev, activation='relu'):
     return encoder.to(torch.bfloat16).eval().requires_grad_(False)
 
 
-def profile_from_audio(port, audio, checkpoint, card):
-    """Device time by kernel in one from_audio call (torch.profiler), and
-    the share of the call's wall time in which the card ran no kernel."""
+def profile_call(label, fn, card):
+    """Device time by kernel in one call of ``fn`` (torch.profiler), and
+    the share of the call's wall time in which the card ran no kernel;
+    returns the device milliseconds by kernel name."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         start = time.perf_counter()
-        port.from_audio(audio, checkpoint=checkpoint)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - start) * 1e3
-    report_profile('from_audio', prof, wall_ms, card)
+    return report_profile(label, prof, wall_ms, card)
 
 
 def agree(name, got, want, want32=None):
@@ -336,6 +372,38 @@ def check_rel(name, got, want, limit):
     if not rel <= limit:
         raise AssertionError(f'{name}: relative error {rel:.3g} > {limit}')
     return worst
+
+
+def median_seconds(fn, reps=5):
+    """Median wall seconds of ``fn`` on the host clock, each run ended by
+    a synchronise."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - start)
+    return statistics.median(times)
+
+
+def opt_in_against_default(name, got, ppg, ppg32, card):
+    """An opt-in path's PPGs against the default path's: atol 2e-2 and
+    argmax agreement >= 99.5% on the frames bf16 decides, those where the
+    default path agrees with the same weights in fp32 (``ppg32``)."""
+    diff = (got - ppg).abs().max().item()
+    same = got.argmax(1) == ppg.argmax(1)
+    decided = ppg.argmax(1) == ppg32.argmax(1)
+    rates = (same.float().mean().item(), decided.float().mean().item(),
+             same[decided].float().mean().item(),
+             (ppg - ppg32).abs().max().item())
+    print(f'{name} against the default path: max |diff| {diff:.3g} (atol '
+          f'2e-2), argmax agreement {rates[0]:.5f}, {rates[2]:.5f} (>= 0.995) '
+          f'on the frames bf16 decides ({rates[1]:.5f} of them: the default '
+          f'path and fp32 agree); the default path against fp32: max |diff| '
+          f'{rates[3]:.3g} [{card}]', flush=True)
+    if diff > 2e-2 or rates[2] < 0.995:
+        raise AssertionError(f'{name} leaves the bf16 envelope')
 
 
 def train_batch(config, B, T, seed, dev):
@@ -1029,8 +1097,6 @@ def step_metrics(port, model, config, dev, card):
     """The train step end to end (CUDA-synchronised host clock, median of
     STEP_REPS after warm-up) on both paths, audio-seconds per second, peak
     device memory, and a torch.profiler breakdown of one step."""
-    from torch.profiler import ProfilerActivity, profile
-
     optimizer = port.train.make_optimizer(model.parameters(), config)
     step = port.train.make_train_step(model, config, optimizer)
     frame_s = config.hopsize / config.sample_rate
@@ -1058,14 +1124,8 @@ def step_metrics(port, model, config, dev, card):
     print(f'train step {TRAIN_B} x {TRAIN_T}: peak device memory '
           f'{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB '
           f'(max_memory_allocated) [{card}]', flush=True)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        start = time.perf_counter()
-        step(*batch, seed=301)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - start) * 1e3
-    report_profile(f'train step {TRAIN_B} x {TRAIN_T}', prof, wall_ms, card)
+    profile_call(f'train step {TRAIN_B} x {TRAIN_T}',
+                 lambda: step(*batch, seed=301), card)
 
 
 def busy_ms(intervals):
@@ -1096,7 +1156,7 @@ def report_profile(label, prof, wall_ms, card):
     if not events:
         print(f'{label}: device time by kernel: not measured (the profiler '
               f'saw no device activity)')
-        return
+        return {}
     by_name = {}
     for (name, _, start, end) in events:
         by_name[name] = by_name.get(name, 0.0) + (end - start) / 1e3
@@ -1125,6 +1185,30 @@ def report_profile(label, prof, wall_ms, card):
     for name, (n, ms) in sorted(overlap.items(), key=lambda kv: -kv[1][1])[:4]:
         print(f'  overlap {ms:9.3f} ms in {n} events started before the '
               f'previous ended: {name[:80]}')
+    return by_name
+
+
+# Kernel-name fragments of the port's own kernels and of the libraries'
+KERNEL_GROUPS = (
+    ('B8 rel_attention', ('rel_attention_kernel',)),
+    ('K1-K4', ('qkv_proj_kernel', 'attention_kernel<', 'out_proj_ln_kernel',
+               'ffn_ln_kernel')),
+    ('cuDNN convs and cuBLAS products', ('gemm', 'conv', 'xmma', 'cutlass')),
+    ('PyTorch elementwise, copies and reductions', ('at::native',)),
+)
+
+
+def report_groups(label, by_name, card):
+    """Device milliseconds of a profiled call by group of kernels
+    (``KERNEL_GROUPS``, first match wins; the rest as 'other')."""
+    groups = {}
+    for name, ms in by_name.items():
+        group = next((g for g, keys in KERNEL_GROUPS
+                      if any(key in name for key in keys)), 'other')
+        groups[group] = groups.get(group, 0.0) + ms
+    parts = ', '.join(f'{g} {ms:.3f} ms'
+                      for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]))
+    print(f'{label}, device time by group: {parts} [{card}]', flush=True)
 
 
 def mel_phases(port, config, workdir, dev, gen, card):
@@ -1133,6 +1217,7 @@ def mel_phases(port, config, workdir, dev, gen, card):
     from ppgs_tpu_torch.ops import encoder_layer_kernel as elk
     from ppgs_tpu_torch.ops import flash_attention as fa
     from ppgs_tpu_torch.ops import fused_ffn
+    from ppgs_tpu_torch.ops import stft
 
     C, H = config.hidden_channels, config.attention_heads
     Fh, L = config.ffn_channels, config.num_hidden_layers
@@ -1214,6 +1299,26 @@ def mel_phases(port, config, workdir, dev, gen, card):
         raise AssertionError('encoder_stack: non-finite values')
     del got, want
 
+    # B9, the fused log-mel of the bf16 opt-in, at 64 x 8 s of its own
+    # seeded audio (the main path's draws stay as they were). Its limit: a
+    # bf16 rounding flip of a magnitude (sums in another order) moves it by
+    # one bf16 ulp, 2^-8 to 2^-7 of it, so a mel value (a sum of positive
+    # terms) by at most 2^-7 of itself and its log by at most 7.8e-3
+    mel_gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    samples = SECONDS * config.sample_rate
+    mel_audio = 0.1 * torch.randn(BATCH, 1, samples, generator=mel_gen,
+                                  device=dev)
+    blocks, Tm = stft._audio_to_blocks(mel_audio, config.num_fft,
+                                       config.hopsize)
+    blocks = blocks.contiguous()
+    mel_args = (Tm, config.sample_rate, config.num_fft, config.window_size,
+                config.hopsize, config.num_mels)
+    err['fused_log_mel'] = check(
+        f'B9 fused_log_mel ({BATCH} x {Tm} frames)',
+        stft.fused_log_mel(blocks, *mel_args),
+        stft.fused_log_mel_reference(blocks, *mel_args), atol=8e-3)
+    del mel_audio
+
     phase(f'4 from_audio: {BATCH} x {SECONDS} s (main path)')
     samples = SECONDS * config.sample_rate
     audio = 0.1 * torch.randn(BATCH, 1, samples, generator=gen, device=dev)
@@ -1229,13 +1334,8 @@ def mel_phases(port, config, workdir, dev, gen, card):
     if min(launches.values()) == 0:
         raise AssertionError(f'a kernel of the main path never launched: '
                              f'{launches}')
-    if tuple(ppg.shape) != (BATCH, config.output_channels, frames):
-        raise AssertionError(f'from_audio shape {tuple(ppg.shape)}')
-    if ppg.device != audio.device or not torch.isfinite(ppg).all():
-        raise AssertionError('from_audio: not finite or not on the card')
-    col_err = (ppg.sum(dim=1) - 1).abs().max().item()
-    if col_err > 1e-4:
-        raise AssertionError(f'PPG columns do not sum to 1 ({col_err})')
+    check_ppg('from_audio', ppg, audio,
+              (BATCH, config.output_channels, frames))
 
     agree('from_audio rows 0-3 against device=cpu', ppg[:4],
           port.from_audio(audio[:4].cpu(), checkpoint=checkpoint,
@@ -1257,6 +1357,24 @@ def mel_phases(port, config, workdir, dev, gen, card):
     agree('from_audio legacy_mode against device=cpu', legacy,
           port.from_audio(long_audio.cpu(), checkpoint=checkpoint,
                           device='cpu', legacy_mode=True))
+
+    phase(f'4c from_audio with PPGS_TPU_FUSED_MEL=1: {BATCH} x {SECONDS} s')
+    fused_counters = {**counters, 'fused_log_mel': stft.fused_log_mel}
+    os.environ['PPGS_TPU_FUSED_MEL'] = '1'
+    try:
+        set_counts(fused_counters)
+        fused_ppg = port.from_audio(audio, checkpoint=checkpoint)
+        fused_launches, _ = read_counts(fused_counters)
+    finally:
+        del os.environ['PPGS_TPU_FUSED_MEL']
+    print(f'launches with PPGS_TPU_FUSED_MEL=1: {fused_launches}', flush=True)
+    if fused_launches != {**launches, 'fused_log_mel': 1}:
+        raise AssertionError('the fused-mel opt-in did not launch B9 once and '
+                             'K1-K4 as the default path')
+    opt_in_against_default('PPGS_TPU_FUSED_MEL=1', fused_ppg, ppg, port.from_audio(
+        audio, checkpoint=checkpoint,
+        config=config.replace(compute_dtype='float32')), card)
+    del fused_ppg
 
     phase(f'5 times on {card} (median of {REPS}, CUDA events)')
     bf16 = torch.bfloat16
@@ -1328,6 +1446,36 @@ def mel_phases(port, config, workdir, dev, gen, card):
             'bound_ms': bound_ms, 'bound_by': bound_by,
             'library_ms': library_ms})
 
+    # B9: the library's yardstick is the cuDNN bf16 chain of the same
+    # function (the DFT as a conv, magnitude, mel product, log)
+    n_freqs = config.num_fft // 2 + 1
+    wconv = stft._conv_weight(config.num_fft, config.window_size,
+                              config.hopsize, dev).to(bf16)
+    wmel = stft._mel_weight(config.sample_rate, config.num_fft,
+                            config.num_mels, dev).to(bf16)
+
+    def library_mel():
+        spec = F.conv1d(blocks.transpose(1, 2).to(bf16), wconv).float()
+        re, im = spec[:, :n_freqs], spec[:, n_freqs:]
+        mag = torch.sqrt(re * re + im * im + 1e-6).to(bf16)
+        return torch.log(torch.clamp((wmel @ mag).float(), min=1e-5))
+
+    Mm = BATCH * Tm
+    records.append(timed_record(
+        'fused_log_mel', 'fused_mel.cu', 'ppgs_tpu/ops/stft.py:202',
+        fused_launches['fused_log_mel'], err['fused_log_mel'], (
+            lambda: stft.fused_log_mel(blocks, *mel_args),
+            lambda: stft.fused_log_mel_reference(blocks, *mel_args),
+            library_mel),
+        # the DFT over the n_fft window samples (the blocked basis rows past
+        # it are zero) and the mel product; the fp32 audio, the bases and
+        # the output
+        (2 * 2 * Mm * config.num_fft * n_freqs
+         + 2 * Mm * n_freqs * config.num_mels,
+         blocks.numel() * 4 + 2 * config.num_fft * n_freqs * 2
+         + n_freqs * config.num_mels * 2 + Mm * config.num_mels * 4),
+        card, plain_reps=HEAVY_REPS))
+
     stack_ms = time_ms(lambda: elk.encoder_stack(x, mask, model.layers, H))
     stack_plain_ms = time_ms(
         lambda: elk.encoder_stack_reference(x, mask, model.layers, H))
@@ -1357,18 +1505,24 @@ def mel_phases(port, config, workdir, dev, gen, card):
           f'library {stack_library_ms:.4f} ms (nn.TransformerEncoder) '
           f'[{card}]', flush=True)
 
-    e2e = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        start = time.perf_counter()
-        port.from_audio(audio, checkpoint=checkpoint)
-        torch.cuda.synchronize()
-        e2e.append(time.perf_counter() - start)
-    e2e_s = statistics.median(e2e)
+    e2e_s = median_seconds(lambda: port.from_audio(audio,
+                                                   checkpoint=checkpoint))
     print(f'from_audio {BATCH} x {SECONDS} s: {e2e_s * 1e3:.3f} ms, '
           f'{BATCH * SECONDS / e2e_s:.1f} audio-s/s (median of 5) [{card}]',
           flush=True)
-    profile_from_audio(port, audio, checkpoint, card)
+    profile_call('from_audio', lambda: port.from_audio(
+        audio, checkpoint=checkpoint), card)
+    os.environ['PPGS_TPU_FUSED_MEL'] = '1'
+    try:
+        e2e_s = median_seconds(lambda: port.from_audio(
+            audio, checkpoint=checkpoint))
+        print(f'from_audio {BATCH} x {SECONDS} s (PPGS_TPU_FUSED_MEL=1): '
+              f'{e2e_s * 1e3:.3f} ms, {BATCH * SECONDS / e2e_s:.1f} '
+              f'audio-s/s (median of 5) [{card}]', flush=True)
+        profile_call('from_audio (PPGS_TPU_FUSED_MEL=1)', lambda:
+                     port.from_audio(audio, checkpoint=checkpoint), card)
+    finally:
+        del os.environ['PPGS_TPU_FUSED_MEL']
     del audio, long_audio, model
     return records
 
@@ -1643,15 +1797,9 @@ def w2v2fb_main_path(port, trunk, head_config, head_path, dev, gen, card):
                                want_widths.items()):
         raise AssertionError(f'w2v2fb launches {launches} {widths}, not '
                              f'{want} {want_widths}')
-    frames = samples // head_config.hopsize
-    if tuple(ppg.shape) != (W2V2_BATCH, head_config.output_channels, frames):
-        raise AssertionError(f'w2v2fb from_audio shape {tuple(ppg.shape)}')
-    if ppg.device != audio.device or not torch.isfinite(ppg).all():
-        raise AssertionError('w2v2fb from_audio: not finite or not on the '
-                             'card')
-    col_err = (ppg.sum(dim=1) - 1).abs().max().item()
-    if col_err > 1e-4:
-        raise AssertionError(f'PPG columns do not sum to 1 ({col_err})')
+    check_ppg('w2v2fb from_audio', ppg, audio,
+              (W2V2_BATCH, head_config.output_channels,
+               samples // head_config.hopsize))
 
     short = audio[:W2V2_CPU_ROWS, :,
                   :W2V2_CPU_SECONDS * head_config.sample_rate]
@@ -1680,22 +1828,9 @@ def w2v2fb_main_path(port, trunk, head_config, head_path, dev, gen, card):
                              'the default path')
     # The frames bf16 decides: where the default path agrees with the same
     # weights in fp32 (plain torch on the card)
-    ppg32 = port.from_audio(audio, config=fp32, **call)
-    diff = (stacked - ppg).abs().max().item()
-    same = stacked.argmax(1) == ppg.argmax(1)
-    decided = ppg.argmax(1) == ppg32.argmax(1)
-    rates = (same.float().mean().item(), decided.float().mean().item(),
-             same[decided].float().mean().item(),
-             (ppg - ppg32).abs().max().item())
-    print(f'PPGS_TPU_CONV_STACK=1 against the default path: max |diff| '
-          f'{diff:.3g} (atol 2e-2), argmax agreement {rates[0]:.5f}, '
-          f'{rates[2]:.5f} (>= 0.995) on the frames bf16 decides '
-          f'({rates[1]:.5f} of them: the default path and fp32 agree); the '
-          f'default path against fp32: max |diff| {rates[3]:.3g} [{card}]',
-          flush=True)
-    if diff > 2e-2 or rates[2] < 0.995:
-        raise AssertionError('the conv-stack path leaves the bf16 envelope')
-    del stacked, ppg32
+    opt_in_against_default('PPGS_TPU_CONV_STACK=1', stacked, ppg,
+                           port.from_audio(audio, config=fp32, **call), card)
+    del stacked
     return widths, stack_launches, audio
 
 
@@ -1913,31 +2048,16 @@ def w2v2fb_times(port, trunk, head_config, head_path, inputs, err,
         if use_stack:
             os.environ['PPGS_TPU_CONV_STACK'] = '1'
         try:
-            e2e = []
-            for _ in range(5):
-                torch.cuda.synchronize()
-                start = time.perf_counter()
-                port.from_audio(audio, **call)
-                torch.cuda.synchronize()
-                e2e.append(time.perf_counter() - start)
+            e2e_s = median_seconds(lambda: port.from_audio(audio, **call))
         finally:
             os.environ.pop('PPGS_TPU_CONV_STACK', None)
-        e2e_s = statistics.median(e2e)
         print(f'w2v2fb from_audio {W2V2_BATCH} x {W2V2_SECONDS} s'
               f'{" (PPGS_TPU_CONV_STACK=1)" if use_stack else ""}: '
               f'{e2e_s * 1e3:.3f} ms, '
               f'{W2V2_BATCH * W2V2_SECONDS / e2e_s:.1f} audio-s/s (median '
               f'of 5) [{card}]', flush=True)
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        start = time.perf_counter()
-        port.from_audio(audio, **call)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - start) * 1e3
-    report_profile('w2v2fb from_audio', prof, wall_ms, card)
+    profile_call('w2v2fb from_audio', lambda: port.from_audio(audio, **call),
+                 card)
     return records
 
 
@@ -1958,10 +2078,305 @@ def w2v2fb_phases(port, workdir, dev, gen, card):
                         widths, stack_launches, audio, card)
 
 
+def random_conformer_params(port, seed):
+    """Seeded full-size conformer weights in the JAX package's layout: the
+    conformer's init, with the biases, norms and BatchNorm statistics drawn
+    at random too and the q and k projections scaled by 4, so that the
+    attention is far from uniform."""
+    gen = torch.Generator().manual_seed(seed)
+    conformer = port.models.conformer
+    params = conformer.init(conformer.BOTTLENECK, gen)
+
+    def draw(tree, path=''):
+        for key, value in tree.items():
+            if isinstance(value, dict):
+                draw(value, f'{path}.{key}')
+                continue
+            noise = torch.randn(value.shape, generator=gen).numpy()
+            if key in ('bias', 'mean'):
+                tree[key] = (0.1 * noise).astype(np.float32)
+            elif key == 'scale':
+                tree[key] = (1 + 0.1 * noise).astype(np.float32)
+            elif key == 'var':
+                tree[key] = (1 + 0.5 * np.abs(noise)).astype(np.float32)
+            elif path.endswith(('attn.q', 'attn.k')):
+                tree[key] = 4 * value
+
+    draw({'embed': params['embed'], 'after_norm': params['after_norm']})
+    for block in params['blocks']:
+        draw(block)
+    return params
+
+
+def bottleneck_setup(port, workdir, dev):
+    """Seeded full-size conformer and head weights in temporary npz files,
+    ``BOTTLENECK_CHECKPOINT`` pointed at the conformer's; returns (the
+    prepared conformer on the card, its config, the head's config and
+    checkpoint)."""
+    import dataclasses
+
+    path = Path(workdir) / 'conformer-24epoch.npz'
+    port.load.save_params(path, random_conformer_params(port, SEED + 11))
+    bottleneck = port.preprocess.bottleneck
+    bottleneck.BOTTLENECK_CHECKPOINT = path
+    head_config = port.config.get('bottleneck')
+    head_path = Path(workdir) / 'random-bottleneck.npz'
+    port.load.save_params(head_path,
+                          random_params(port, head_config, SEED + 12))
+    ccfg = dataclasses.replace(port.models.conformer.BOTTLENECK,
+                               compute_dtype=head_config.compute_dtype)
+    return bottleneck._encoder(ccfg, dev), ccfg, head_config, head_path
+
+
+@torch.no_grad()
+def bottleneck_kernel_checks(port, model, ccfg, dev, gen):
+    """Phase 12: B8 against its plain version at the slice's shapes, and
+    the 16 blocks whole against the CPU; returns (max error, B8's inputs
+    at the main path's shape for phase 14)."""
+    from ppgs_tpu_torch.ops import flash_attention as fa
+
+    conformer = port.models.conformer
+    mask_from_lengths = port.ops.masking.mask_from_lengths
+    bf16 = torch.bfloat16
+    B, H, C = BN_BATCH, ccfg.heads, ccfg.dim
+    T = BN_SECONDS * 100                               # 800 frames
+    dk = C // H
+    # Block 0's projections of a LayerNormed random input
+    block = model.blocks[0]
+    x = conformer._layer_norm(
+        torch.randn(B, T, C, generator=gen, device=dev), block.norm_mha)
+    pos_emb = torch.from_numpy(conformer.rel_pos_table(T, C))[None].to(dev)
+    q_u, k, v, q_v, pos = conformer.attention_inputs(
+        x, pos_emb, block.prepared.attn, H, bf16)
+    bias = conformer.position_term(q_v, pos)
+    # Ragged lengths, one wholly masked row
+    lengths = T - torch.randint(0, T // 2, (B,), generator=gen, device=dev)
+    lengths[0], lengths[-1] = T, 0
+    mask = mask_from_lengths(lengths, T)
+    got = fa.fused_attention_bias(q_u, k, v, bias, mask, H)
+    err = check(f'B8 rel_attention ({B} x T={T} x {H} x {dk}, block 0\'s '
+                f'projections, ragged)', got,
+                fa.fused_attention_bias_reference(q_u, k, v, bias, mask, H),
+                B8_ATOL, B8_RTOL)
+    if got[-1].abs().max().item() != 0:
+        raise AssertionError('B8: a wholly masked row did not give 0')
+    inputs = dict(q_u=q_u, k=k, v=v, bias=bias,
+                  mask=torch.ones(B, T, dtype=torch.bool, device=dev))
+    del got, x
+    # The longest T the rule sends to B8, and a T no multiple of 8
+    for Tx in (conformer.MAX_FUSED_T, BN_ODD_T):
+        q1, k1, v1 = (torch.randn(4, Tx, H, dk, generator=gen, device=dev)
+                      .to(bf16) for _ in range(3))
+        b1 = (2 * torch.randn(4, H, Tx + 1, Tx, generator=gen, device=dev)
+              ).to(bf16)
+        m1 = mask_from_lengths(torch.tensor([Tx, Tx - 5, 37, 0], device=dev),
+                               Tx)
+        out = fa.fused_attention_bias(q1, k1, v1, b1, m1, H)
+        check(f'B8 rel_attention T={Tx} (4 rows, ragged)', out,
+              fa.fused_attention_bias_reference(q1, k1, v1, b1, m1, H),
+              B8_ATOL, B8_RTOL)
+        if out[3].abs().max().item() != 0:
+            raise AssertionError('B8: a wholly masked row did not give 0')
+    # The 16 blocks whole: the card (B8) against device='cpu' (its plain
+    # version) on 2 rows of random features
+    feats = torch.randn(2, T, ccfg.input_dim, generator=gen, device=dev)
+    flens = torch.tensor([T, T - 123], device=dev)
+    cpu_model = port.preprocess.bottleneck._encoder(ccfg, torch.device('cpu'))
+    got = conformer.forward(model, feats, flens)
+    want = conformer.forward(cpu_model, feats.cpu(), flens.cpu())
+    valid = mask_from_lengths(flens, T)
+    check_rel(f'the {ccfg.num_blocks}-block conformer, card against '
+              f'device=cpu (2 x {T}, valid frames)', got[valid].cpu(),
+              want[valid.cpu()], BN_BLOCKS_REL)
+    return err, inputs
+
+
+def bottleneck_main_path(port, ccfg, head_config, head_path, dev, gen, card):
+    """Phase 13: from_audio(representation='bottleneck') at 64 x 8 s, its
+    exact launches, 4 x 2 s against the CPU, and a 25 s utterance past
+    B8's 2048 frames; returns (the launches, the audio)."""
+    from ppgs_tpu_torch.ops import encoder_layer_kernel as elk
+    from ppgs_tpu_torch.ops import flash_attention as fa
+    from ppgs_tpu_torch.ops import fused_ffn
+    from ppgs_tpu_torch.ops import stft
+
+    counters = {'rel_attention': fa.fused_attention_bias,
+                'qkv_proj': elk.qkv_proj, 'attention': fa.attention,
+                'out_proj_residual_ln': elk.out_proj_residual_ln,
+                'ffn_residual_ln': fused_ffn.ffn_residual_ln,
+                'fused_log_mel': stft.fused_log_mel}
+    sr = head_config.sample_rate
+    audio = 0.1 * torch.randn(BN_BATCH, 1, BN_SECONDS * sr, generator=gen,
+                              device=dev)
+    call = dict(representation='bottleneck', checkpoint=head_path,
+                config=head_config)
+    set_counts(counters)
+    ppg = port.from_audio(audio, **call)
+    launches, widths = read_counts(counters)
+    print(f'launches in one bottleneck from_audio call: {launches}, by '
+          f'width: {widths}', flush=True)
+    L, Ch = head_config.num_hidden_layers, head_config.hidden_channels
+    d_h = Ch // head_config.attention_heads
+    want = {'rel_attention': ccfg.num_blocks, 'qkv_proj': L, 'attention': L,
+            'out_proj_residual_ln': L, 'ffn_residual_ln': L,
+            'fused_log_mel': 0}
+    want_widths = {'qkv_proj': {Ch: L}, 'attention': {d_h: L},
+                   'out_proj_residual_ln': {Ch: L},
+                   'ffn_residual_ln': {Ch: L}}
+    if launches != want or widths != want_widths:
+        raise AssertionError(f'bottleneck launches {launches} {widths}, not '
+                             f'{want} {want_widths}')
+    frames = BN_SECONDS * sr // head_config.hopsize
+    check_ppg('bottleneck from_audio', ppg, audio,
+              (BN_BATCH, head_config.output_channels, frames))
+
+    short = audio[:BN_CPU_ROWS, :, :BN_CPU_SECONDS * sr]
+    fp32 = head_config.replace(compute_dtype='float32')
+    agree(f'bottleneck from_audio, {BN_CPU_ROWS} x {BN_CPU_SECONDS} s, '
+          f'against device=cpu', port.from_audio(short, **call),
+          port.from_audio(short.cpu(), device='cpu', **call),
+          port.from_audio(short.cpu(), device='cpu',
+                          **{**call, 'config': fp32}))
+
+    # Past B8's 2048 frames the conformer runs its plain bf16 branch
+    long_audio = 0.1 * torch.randn(1, 1, BN_LONG_SECONDS * sr, generator=gen,
+                                   device=dev)
+    set_counts(counters)
+    long_ppg = port.from_audio(long_audio, **call)
+    long_launches, _ = read_counts(counters)
+    print(f'launches in one {BN_LONG_SECONDS} s bottleneck call: '
+          f'{long_launches}', flush=True)
+    if long_launches['rel_attention'] != 0:
+        raise AssertionError('B8 launched past its 2048 frames')
+    check_ppg(f'bottleneck from_audio, 1 x {BN_LONG_SECONDS} s', long_ppg,
+              long_audio, (1, head_config.output_channels,
+                           BN_LONG_SECONDS * sr // head_config.hopsize))
+    return launches, audio
+
+
+def check_ppg(name, ppg, audio, shape):
+    """Raise unless ``ppg`` has ``shape``, lies on the audio's device, is
+    finite and its columns sum to 1."""
+    if tuple(ppg.shape) != shape:
+        raise AssertionError(f'{name} shape {tuple(ppg.shape)}, not {shape}')
+    if ppg.device != audio.device or not torch.isfinite(ppg).all():
+        raise AssertionError(f'{name}: not finite or not on the card')
+    col_err = (ppg.sum(dim=1) - 1).abs().max().item()
+    if col_err > 1e-4:
+        raise AssertionError(f'{name}: PPG columns do not sum to 1 '
+                             f'({col_err})')
+
+
+def conformer_work(ccfg, B, T):
+    """(operations, bytes of the 16 bd round trips) of the conformer on
+    B x T frames: the products and convs, and the (B, H, T + 1, T) bf16
+    position term each block writes and B8 reads."""
+    d, f, H = ccfg.dim, ccfg.ffn_dim, ccfg.heads
+    M, Fm = B * T, ccfg.input_dim
+    embed = (2 * M * Fm * d * 25 + 2 * M * Fm * d * d * 25
+             + 2 * M * d * Fm * d)
+    per_block = (2 * 2 * (2 * M * d * f)            # the two FFNs
+                 + 2 * M * d * 3 * d + 2 * M * d * d  # QKV, out
+                 + 2 * B * H * T * (T + 1) * (d // H)  # bd
+                 + 4 * B * H * T * T * (d // H)     # QK^T and PV
+                 + 2 * M * d * 2 * d + 2 * M * d * ccfg.conv_kernel
+                 + 2 * M * d * d)                   # the conv module
+    bd_bytes = 2 * B * H * (T + 1) * T * 2
+    return embed + ccfg.num_blocks * per_block, ccfg.num_blocks * bd_bytes
+
+
+@torch.no_grad()
+def bottleneck_times(port, model, ccfg, head_config, head_path, inputs, err,
+                     launches, audio, card):
+    """Phase 14: B8's time beside its plain version's, a library call's and
+    its bound; the conformer whole; the slice end to end."""
+    from ppgs_tpu_torch.ops import flash_attention as fa
+
+    conformer = port.models.conformer
+    q_u, k, v, bias, mask = (inputs[n] for n in ('q_u', 'k', 'v', 'bias',
+                                                 'mask'))
+    B, T, H, dk = q_u.shape
+    scale = 1.0 / math.sqrt(dk)
+    q4, k4, v4 = (t.transpose(1, 2) for t in (q_u, k, v))
+    # SDPA's float mask: the shifted position term times the scale (every
+    # key of the main path's rows is valid)
+    shifted = (bias[:, :, 1:].float() * scale).to(torch.bfloat16)
+    record = timed_record(
+        'rel_attention', 'rel_attention.cu',
+        'ppgs_tpu/ops/flash_attention.py:283', launches['rel_attention'], err,
+        (lambda: fa.fused_attention_bias(q_u, k, v, bias, mask, H),
+         lambda: fa.fused_attention_bias_reference(q_u, k, v, bias, mask, H),
+         lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                attn_mask=shifted,
+                                                scale=scale)),
+        # QK^T and PV over the d_k = 36 columns; the shifted bias rows,
+        # q, k, v, the mask and the output
+        (4 * B * H * T * T * dk,
+         B * H * T * T * 2 + 4 * B * T * H * dk * 2 + B * T), card,
+        plain_reps=HEAVY_REPS)
+    del shifted
+
+    # The conformer whole at 64 x 800 frames, with B8 and with its plain
+    # version in its place
+    feats = torch.randn(B, T, ccfg.input_dim, device=q_u.device)
+    flens = torch.full((B,), T, device=q_u.device)
+    whole_ms = time_ms(lambda: conformer.forward(model, feats, flens),
+                       HEAVY_REPS, 1)
+    kernel = fa.fused_attention_bias
+    fa.fused_attention_bias = fa.fused_attention_bias_reference
+    try:
+        plain_ms = time_ms(lambda: conformer.forward(model, feats, flens),
+                           HEAVY_REPS, 1)
+    finally:
+        fa.fused_attention_bias = kernel
+    flops, bd_bytes = conformer_work(ccfg, B, T)
+    ops_ms, bd_ms = flops / PEAK_BF16_FLOPS * 1e3, bd_bytes / PEAK_BYTES * 1e3
+    print(f'the {ccfg.num_blocks}-block conformer ({B} x {T}): {whole_ms:.4f} '
+          f'ms with B8, {plain_ms:.4f} ms with its plain version; bound '
+          f'{ops_ms:.4f} ms of operations ({flops / 1e12:.3f} TFLOP) + '
+          f'{bd_ms:.4f} ms for the {ccfg.num_blocks} bd round trips '
+          f'({bd_bytes / 1e9:.3f} GB) [{card}]', flush=True)
+    # Its library yardstick: no one PyTorch call computes a conformer, so
+    # the device time of its library calls (cuDNN convs, cuBLAS products)
+    # and of the rest, by kernel, in one profiled forward
+    report_groups('conformer forward', profile_call(
+        f'conformer forward {B} x {T}',
+        lambda: conformer.forward(model, feats, flens), card), card)
+    del feats
+
+    call = dict(representation='bottleneck', checkpoint=head_path,
+                config=head_config)
+    e2e_s = median_seconds(lambda: port.from_audio(audio, **call))
+    print(f'bottleneck from_audio {BN_BATCH} x {BN_SECONDS} s: '
+          f'{e2e_s * 1e3:.3f} ms, {BN_BATCH * BN_SECONDS / e2e_s:.1f} '
+          f'audio-s/s (median of 5) [{card}]', flush=True)
+    report_groups('bottleneck from_audio', profile_call(
+        'bottleneck from_audio', lambda: port.from_audio(audio, **call),
+        card), card)
+    return [record]
+
+
+def bottleneck_phases(port, workdir, dev, gen, card):
+    """Phases 12-14: the bottleneck slice; returns B8's JSON record."""
+    phase(f'12 B8 against its plain version ({BN_BATCH} x '
+          f'{BN_SECONDS * 100}, T = {port.models.conformer.MAX_FUSED_T}, '
+          f'T = {BN_ODD_T}) and the conformer whole against the CPU')
+    model, ccfg, head_config, head_path = bottleneck_setup(port, workdir, dev)
+    err, inputs = bottleneck_kernel_checks(port, model, ccfg, dev, gen)
+    phase(f'13 from_audio(representation=bottleneck): {BN_BATCH} x '
+          f'{BN_SECONDS} s (main path)')
+    launches, audio = bottleneck_main_path(port, ccfg, head_config,
+                                           head_path, dev, gen, card)
+    phase(f'14 bottleneck times on {card} (median of {REPS}, CUDA events)')
+    return bottleneck_times(port, model, ccfg, head_config, head_path,
+                            inputs, err, launches, audio, card)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument('--slices', default='mel,train,w2v2fb',
-                        help='comma-separated subset of mel,train,w2v2fb')
+    parser.add_argument('--slices', default='mel,train,w2v2fb,bottleneck',
+                        help='comma-separated subset of mel,train,w2v2fb,'
+                        'bottleneck')
     slices = set(parser.parse_args().slices.split(','))
     if not torch.cuda.is_available():
         sys.exit('chip_smoke.py needs a CUDA device; none is available')
@@ -1999,6 +2414,8 @@ def main():
         records += train_phases(port, config, workdir.name, dev, gen, card)
     if 'w2v2fb' in slices:
         records += w2v2fb_phases(port, workdir.name, dev, gen, card)
+    if 'bottleneck' in slices:
+        records += bottleneck_phases(port, workdir.name, dev, gen, card)
     phase()
 
     workdir.cleanup()

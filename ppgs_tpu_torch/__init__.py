@@ -1,9 +1,9 @@
 """ppgs_tpu_torch: the PyTorch/CUDA port of ppgs_tpu for NVIDIA Hopper.
 
-Phonetic posteriorgrams on an H100: the mel and w2v2fb (wav2vec2-base)
-frontends, the transformer model, the inference API and single-device
-training, with the encoders' TPU kernels (inference and training) and the
-wav2vec2 conv stack's rewritten by hand in CUDA C++ (``kernels/csrc``). The JAX package ``ppgs_tpu`` is the
+Phonetic posteriorgrams on an H100: the mel, w2v2fb (wav2vec2-base) and
+bottleneck (ESPnet conformer) frontends, the transformer model, the
+inference API and single-device training, with every TPU kernel of the JAX
+package rewritten by hand in CUDA C++ (``kernels/csrc``). The JAX package ``ppgs_tpu`` is the
 reference this package is tested against; this package never imports it
 (nor JAX). What is ported so far, and what is still to come, is listed in
 ROADMAP.md.

@@ -13,7 +13,10 @@ relayouts are here:
 
 The same holds for the wav2vec2 trunk (``w2v2_params_from_jax``,
 ``prepare_w2v2``), whose encoder layers have the transformer's layout and
-whose grouped positional conv (k, C/G, C) becomes torch's (C, C/G, k).
+whose grouped positional conv (k, C/G, C) becomes torch's (C, C/G, k), and
+for the conformer (``conformer_params_from_jax``, ``prepare_conformer``),
+whose module keeps the JAX layout; ``conformer_params_from_state_dict``
+converts the reference's ESPnet checkpoint to that layout without JAX.
 """
 
 import math
@@ -140,6 +143,148 @@ def prepare_w2v2(model):
         taps[f'w{i}'] = weight.reshape(-1, weight.shape[-1]).to(
             cd).contiguous()
     model.feature_prepared = Prepared(taps)
+
+
+def conformer_params_from_jax(flat):
+    """Map a flat JAX conformer parameter dict (``ppgs_tpu/models/
+    conformer.py`` ``init``'s pytree, flattened as ``load.flatten_params``
+    does) onto the state dict of ``models.conformer.Conformer``: the module
+    keeps the JAX names and layouts, so each key maps to itself.
+    ``load_state_dict(strict=True)`` refuses a leftover or missing key."""
+    return {key: _tensor(value) for key, value in flat.items()}
+
+
+@torch.no_grad()
+def prepare_conformer(model):
+    """The compute-dtype copies a ``models.conformer.Conformer`` reads, for
+    its config's compute dtype, as non-persistent buffers (``prepared``):
+    the 5x5 conv weights as torch's (O, I, KH, KW), the d -> d one
+    channels-last; each block's fused QKV (d, 3d) and bias, the position
+    projection and biases, the out-projection, both FFNs, the pointwise
+    convs as (d, 2d) and (d, d) matrices and the depthwise conv as (d, 1,
+    k). The fp32 biases and norms of the conv module are the parameters
+    themselves."""
+    from torch import nn
+
+    cd = getattr(torch, model.config.compute_dtype)
+
+    def cast(t):
+        return t.detach().to(cd).contiguous()
+
+    embed = model.embed
+    model.prepared = Prepared({
+        'conv1': cast(embed.conv1.weight.permute(3, 2, 0, 1)),
+        'conv2': embed.conv2.weight.detach().permute(3, 2, 0, 1).to(cd)
+        .contiguous(memory_format=torch.channels_last),
+        'out': cast(embed.out.weight), 'out_bias': cast(embed.out.bias)})
+    for block in model.blocks:
+        attn, conv = block.attn, block.conv
+        prepared = nn.Module()
+        prepared.attn = Prepared({
+            'wqkv': cast(torch.cat([attn.q.weight, attn.k.weight,
+                                    attn.v.weight], dim=1)),
+            'bqkv': cast(torch.cat([attn.q.bias, attn.k.bias, attn.v.bias])),
+            'wpos': cast(attn.pos.weight),
+            'pos_bias_u': cast(attn.pos_bias_u),
+            'pos_bias_v': cast(attn.pos_bias_v),
+            'wo': cast(attn.out.weight), 'bo': cast(attn.out.bias)})
+        for name in ('ff_macaron', 'ff'):
+            ffn = getattr(block, name)
+            setattr(prepared, name, Prepared({
+                'w1': cast(ffn.w1.weight), 'b1': cast(ffn.w1.bias),
+                'w2': cast(ffn.w2.weight), 'b2': cast(ffn.w2.bias)}))
+        prepared.conv = Prepared({
+            'pw1': cast(conv.pointwise1.weight[0]),
+            'dw': cast(conv.depthwise.weight.permute(2, 1, 0)),
+            'pw2': cast(conv.pointwise2.weight[0])})
+        block.prepared = prepared
+
+
+###############################################################################
+# The reference's ESPnet checkpoint -> the JAX layout (a numpy copy of
+# ppgs_tpu/convert/conformer_weights.py)
+###############################################################################
+
+
+def _esp_linear(sd, prefix, bias=True):
+    p = {'weight': sd[f'{prefix}.weight'].T}
+    if bias:
+        p['bias'] = sd[f'{prefix}.bias']
+    return p
+
+
+def _esp_norm(sd, prefix):
+    return {'scale': sd[f'{prefix}.weight'], 'bias': sd[f'{prefix}.bias']}
+
+
+def conformer_params_from_state_dict(sd, num_blocks=16):
+    """Map an ESPnet ConformerEncoder state dict of numpy arrays (no
+    'encoder.' prefix; the published ``24epoch.pth``, reference
+    build_ppg_model.py:69-85) onto the JAX package's conformer pytree:
+    Conv2d (O, I, KH, KW) -> (KH, KW, I, O), Conv1d (O, I, K) -> (K, I, O),
+    Linear (out, in) -> (in, out), BatchNorm statistics as they are. Save it
+    with ``load.save_params`` for ``preprocess.bottleneck``."""
+    def conv1d(prefix):
+        return {'weight': np.transpose(sd[f'{prefix}.weight'], (2, 1, 0)),
+                'bias': sd[f'{prefix}.bias']}
+
+    params = {
+        'embed': {
+            'conv1': {'weight': np.transpose(sd['embed.conv.0.weight'],
+                                             (2, 3, 1, 0)),
+                      'bias': sd['embed.conv.0.bias']},
+            'conv2': {'weight': np.transpose(sd['embed.conv.2.weight'],
+                                             (2, 3, 1, 0)),
+                      'bias': sd['embed.conv.2.bias']},
+            'out': _esp_linear(sd, 'embed.out.0'),
+        },
+        'after_norm': _esp_norm(sd, 'after_norm'),
+        'blocks': [],
+    }
+    for i in range(num_blocks):
+        p = f'encoders.{i}'
+        cm = f'{p}.conv_module'
+        params['blocks'].append({
+            'ff_macaron': {
+                'w1': _esp_linear(sd, f'{p}.feed_forward_macaron.w_1'),
+                'w2': _esp_linear(sd, f'{p}.feed_forward_macaron.w_2')},
+            'norm_ff_macaron': _esp_norm(sd, f'{p}.norm_ff_macaron'),
+            'attn': {
+                'q': _esp_linear(sd, f'{p}.self_attn.linear_q'),
+                'k': _esp_linear(sd, f'{p}.self_attn.linear_k'),
+                'v': _esp_linear(sd, f'{p}.self_attn.linear_v'),
+                'out': _esp_linear(sd, f'{p}.self_attn.linear_out'),
+                'pos': _esp_linear(sd, f'{p}.self_attn.linear_pos',
+                                   bias=False),
+                'pos_bias_u': sd[f'{p}.self_attn.pos_bias_u'],
+                'pos_bias_v': sd[f'{p}.self_attn.pos_bias_v']},
+            'norm_mha': _esp_norm(sd, f'{p}.norm_mha'),
+            'conv': {
+                'pointwise1': conv1d(f'{cm}.pointwise_conv1'),
+                'depthwise': conv1d(f'{cm}.depthwise_conv'),
+                'batch_norm': {'scale': sd[f'{cm}.norm.weight'],
+                               'bias': sd[f'{cm}.norm.bias'],
+                               'mean': sd[f'{cm}.norm.running_mean'],
+                               'var': sd[f'{cm}.norm.running_var']},
+                'pointwise2': conv1d(f'{cm}.pointwise_conv2')},
+            'norm_conv': _esp_norm(sd, f'{p}.norm_conv'),
+            'ff': {'w1': _esp_linear(sd, f'{p}.feed_forward.w_1'),
+                   'w2': _esp_linear(sd, f'{p}.feed_forward.w_2')},
+            'norm_ff': _esp_norm(sd, f'{p}.norm_ff'),
+            'norm_final': _esp_norm(sd, f'{p}.norm_final'),
+        })
+    return params
+
+
+def conformer_params_from_checkpoint(path, num_blocks=16):
+    """Read a ``24epoch.pth``-style checkpoint (keys prefixed 'encoder.')
+    into the JAX package's conformer pytree. The file is unpickled with
+    ``weights_only``: one that holds anything but tensors and plain
+    containers is refused."""
+    ckpt = torch.load(path, map_location='cpu', weights_only=True)
+    sd = {k.removeprefix('encoder.'): v.numpy()
+          for k, v in ckpt.items() if k.startswith('encoder.')}
+    return conformer_params_from_state_dict(sd, num_blocks)
 
 
 def params_to_jax(state):

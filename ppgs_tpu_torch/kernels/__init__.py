@@ -82,6 +82,14 @@ SIGNATURES = {
     'ppgs_ffn_ln': ('ffn_ln.cu', (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _P, _I, _I, _I, _I, _I, _U, _U, _U, _U,
                                   _U, _F, _P)),
+    # q, q_rs, k, v, kv_rs, bias, mask, out, out_rs, B, T, H, d, sm_scale,
+    # stream
+    'ppgs_rel_attention': ('rel_attention.cu', (
+        _P, _L, _P, _P, _L, _P, _P, _P, _L, _I, _I, _I, _I, _F, _P)),
+    # blocks, batch_stride, hop, T, B, basis_re, basis_im, mel_t, out,
+    # stream
+    'ppgs_fused_mel': ('fused_mel.cu', (_P, _L, _I, _I, _I, _P, _P, _P, _P,
+                                        _P)),
     # audio, S, w0, k0, s0, T0, B, partial, sums, tickets, stream
     'ppgs_conv_stats': ('conv_stack.cu', (_P, _L, _P, _I, _I, _I, _I, _P,
                                           _P, _P, _P)),

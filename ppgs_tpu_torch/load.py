@@ -5,6 +5,7 @@ Checkpoints are the JAX package's flat .npz pytrees ('layers.0.attn.wq',
 so one file serves both packages.
 """
 
+import functools
 from pathlib import Path
 
 import numpy as np
@@ -73,6 +74,25 @@ def load_flat(path):
 
 def load_params(path):
     return unflatten_params(load_flat(path))
+
+
+def require_file(path, what, script):
+    """``path`` as a string, or FileNotFoundError naming the ``script``
+    that makes it."""
+    if not Path(path).exists():
+        raise FileNotFoundError(f'{what} not found at {path}. Convert them '
+                                f'with {script} (needs network).')
+    return str(path)
+
+
+@functools.lru_cache(maxsize=8)
+def prepared_model(build, path, device, config):
+    """``build(config, flat)``'s module from the flat parameters of the npz
+    at ``path``, on ``device`` for inference. The last eight (build, path,
+    device, config) are kept, so that a frontend reads and prepares its
+    weights once."""
+    return build(config, load_flat(path)).to(device).eval().requires_grad_(
+        False)
 
 
 ###############################################################################

@@ -18,8 +18,9 @@ On a CPU tensor the wrappers run the plain PyTorch version; on a CUDA
 tensor they launch the kernel or raise. Bound, design and rounding notes
 are in the CUDA source.
 
-The training attention with dropout (``flash_attention_train``, the TPU's
-``flash_attention_train``) is at the end of this module.
+The conformer's rel-pos attention (``fused_attention_bias``, B8,
+``kernels/csrc/rel_attention.cu``) and the training attention with dropout
+(``flash_attention_train``, the TPU's ``flash_attention_train``) follow.
 """
 
 import collections
@@ -127,6 +128,97 @@ def flash_attention_reference(q, k, v, mask, num_heads, causal=False):
     """Plain version of ``flash_attention``."""
     scale = LOG2E / math.sqrt(q.shape[-1] // num_heads)
     return attention_reference(q, k, v, mask, num_heads, scale, causal)
+
+
+###############################################################################
+# Attention with an additive score bias: the conformer's rel-pos attention (B8)
+###############################################################################
+#
+# Counterpart of ppgs_tpu/ops/flash_attention.py fused_attention_bias
+# (kernel _fused_kernel_bias): softmax((q k^T + bias) / sqrt(d_k)) v with a
+# key mask, in kernels/csrc/rel_attention.cu, in its legacy_shift form: the
+# bias is the zero-column-padded, unshifted position term viewed (B, H,
+# T+1, T), whose [1:] rows are the ESPnet legacy rel_shift; the kernel
+# reads them in place. Unlike K2, p is normalised before it is rounded for
+# the PV product, as the TPU kernel does. Any T (the TPU kernel needs
+# T % 8 == 0).
+
+REL_MAX_D = 64                  # head widths the kernel zero-pads to 64
+
+
+def fused_attention_bias_reference(q, k, v, bias, mask, num_heads):
+    """Plain version of ``fused_attention_bias`` (any device; q's dtype is
+    the compute dtype): logits (q.k + shifted bias) * sm_scale in fp32,
+    masked keys -1e30, the row max clamped at -1e29, p = exp(logits - max),
+    the denominator clamped at 1e-30, p / denom in the compute dtype for the
+    PV product."""
+    B, T, H, dk = q.shape
+    bias = bias[:, :, 1:]                                 # (B, H, T, T)
+    q4, k4, v4 = (t.transpose(1, 2).float() for t in (q, k, v))
+    valid = mask.bool()[:, None, None, :]
+    logits = ((q4 @ k4.transpose(-1, -2)) + bias.float()) * (
+        1.0 / math.sqrt(dk))
+    logits = logits.masked_fill(~valid, NEG_INF)
+    row_max = logits.amax(dim=-1, keepdim=True).clamp_min(-1e29)
+    p = torch.exp(logits - row_max).masked_fill(~valid, 0.0)
+    denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    out = (p / denom).to(q.dtype).float() @ v4
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def _head_rows(t, name, shape, dev):
+    """Row stride of a (B, T, H, d) bf16 view whose heads lie contiguous in
+    8-byte aligned rows (the kernel's 4-value loads), else raise."""
+    if t.dtype != torch.bfloat16 or t.device != dev:
+        raise ValueError(f'{name}: expected bfloat16 on {dev}, got {t.dtype} '
+                         f'on {t.device}')
+    if tuple(t.shape) != shape:
+        raise ValueError(f'{name}: expected shape {shape}, got '
+                         f'{tuple(t.shape)}')
+    B, T, H, d = shape
+    rs = t.stride(1)
+    if (t.stride(3) != 1 or t.stride(2) != d or t.stride(0) != T * rs
+            or rs % 4 or t.data_ptr() % 8):
+        raise ValueError(f'{name}: rel_attention needs (B, T, H, d) views '
+                         f'with contiguous heads and 8-byte aligned rows; '
+                         f'got strides {t.stride()}')
+    return rs
+
+
+def fused_attention_bias(q, k, v, bias, mask, num_heads):
+    """B8: softmax((q k^T + shift(bias)) * sm_scale) v, sm_scale =
+    1/sqrt(d_k).
+
+    q, k, v: (B, T, H, d_k) bf16 (k and v may be views of one buffer with
+    their own row stride), d_k % 4 == 0 and d_k <= 64; bias the (B, H,
+    T + 1, T) bf16 zero-column-padded unshifted position term (the JAX
+    kernel's ``legacy_shift=True`` form); mask (B, T) bool, True = valid
+    key. Returns a new (B, T, H, d_k) tensor. On a CPU tensor it runs the
+    plain version; on a CUDA tensor it launches the kernel or raises."""
+    if q.device.type == 'cpu':
+        return fused_attention_bias_reference(q, k, v, bias, mask, num_heads)
+    B, T, H, dk = q.shape
+    dev = q.device
+    if H != num_heads or dk % 4 or not 4 <= dk <= REL_MAX_D:
+        raise ValueError(f'rel_attention kernel takes d_k % 4 == 0 up to '
+                         f'{REL_MAX_D}; got {H} heads of {dk} '
+                         f'(num_heads={num_heads})')
+    q_rs = _head_rows(q, 'q', (B, T, H, dk), dev)
+    kv_rs = _head_rows(k, 'k', (B, T, H, dk), dev)
+    if _head_rows(v, 'v', (B, T, H, dk), dev) != kv_rs:
+        raise ValueError('k and v must share one row stride')
+    kernels.require(bias, 'bias', torch.bfloat16, dev, (B, H, T + 1, T))
+    kernels.require(mask, 'mask', torch.bool, dev, (B, T))
+    out = torch.empty((B, T, H, dk), dtype=torch.bfloat16, device=dev)
+    kernels.launch('ppgs_rel_attention', q.data_ptr(), q_rs, k.data_ptr(),
+                   v.data_ptr(), kv_rs, bias.data_ptr(), mask.data_ptr(),
+                   out.data_ptr(), H * dk, B, T, H, dk, 1.0 / math.sqrt(dk),
+                   device=dev)
+    fused_attention_bias.launches += 1
+    return out
+
+
+fused_attention_bias.launches = 0
 
 
 ###############################################################################

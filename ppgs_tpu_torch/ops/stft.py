@@ -3,11 +3,12 @@
 Framing + Hann windowing + real DFT are one convolution whose filters are
 the windowed DFT basis, re-blocked so that the audio enters as hop-sized
 channels (see ``block_analysis_kernel``). The magnitude, the mel product and
-the log compression follow as plain tensor ops. Everything runs in float32
-on both the fp32 and the bf16 configs: the JAX package leaves this frontend
-to XLA, not to a kernel, and a bf16 frontend is a later question. On the
-card, TF32 must be off for the convolution (``devices.resolve`` turns it
-off), or cuDNN runs it at about three decimal digits.
+the log compression follow as plain tensor ops. This runs in float32 on
+both the fp32 and the bf16 configs, as the JAX package's production path
+runs XLA, not a kernel. On the card, TF32 must be off for the convolution
+(``devices.resolve`` turns it off), or cuDNN runs it at about three decimal
+digits. The JAX package's opt-in bf16 kernel (``PPGS_TPU_FUSED_MEL=1``) is
+B9, ``fused_log_mel``, at the end of this module.
 
 (reference: ppgs/preprocess/spectrogram.py:14-74, ppgs/preprocess/mel.py:14-76;
 JAX counterpart: ppgs_tpu/ops/stft.py)
@@ -18,6 +19,7 @@ import functools
 import numpy as np
 import torch
 
+from .. import kernels
 from . import filterbank
 
 
@@ -163,3 +165,115 @@ def log_mel_spectrogram(audio, sample_rate=16000, num_fft=1024, hopsize=160,
     basis = _mel_weight(sample_rate, num_fft, num_mels, spec.device)
     mel = torch.einsum('mf,bft->bmt', basis, spec)
     return torch.log(torch.clamp(mel, min=1e-5))
+
+
+###############################################################################
+# Fused log-mel (B9, kernels/csrc/fused_mel.cu): the bf16 opt-in
+###############################################################################
+#
+# Counterpart of ppgs_tpu/ops/stft.py _fused_log_mel: bf16 windows times
+# the cos and -sin bases, sqrt(re^2 + im^2 + 1e-6), the magnitude in bf16
+# times the mel basis, log(max(mel, 1e-5)), fp32 sums. preprocess/mel.py
+# takes it for a bf16 config when PPGS_TPU_FUSED_MEL=1, as the JAX package
+# does; otherwise the fp32 frontend above runs.
+
+FUSED_MEL_FFT, FUSED_MEL_MELS = 1024, 80    # the kernel's geometry
+_F_PAD = 576                                # 513 frequencies, zero-padded
+
+
+def mel_kernel_host(sample_rate, num_fft, window_size, hopsize, num_mels):
+    """((J*hop, F) cos basis, (J*hop, F) -sin basis, (F, M) transposed mel
+    basis), as ``ppgs_tpu/ops/stft.py::_mel_kernel_host`` builds them (its
+    mel basis zero-padded to 128 lanes): basis row j*hop + c is window
+    sample j*hop + c."""
+    basis = blocked_dft_kernel(num_fft, window_size, hopsize)  # (J, hop, 2F)
+    taps, hop, _ = basis.shape
+    n_freqs = num_fft // 2 + 1
+    flat = basis.reshape(taps * hop, 2 * n_freqs)
+    return (np.ascontiguousarray(flat[:, :n_freqs]),
+            np.ascontiguousarray(flat[:, n_freqs:]),
+            np.ascontiguousarray(mel_basis(sample_rate, num_fft, num_mels).T))
+
+
+def fused_log_mel_reference(blocks, T, sample_rate, num_fft, window_size,
+                            hopsize, num_mels):
+    """Plain version of ``fused_log_mel``: the TPU kernel's im2col windows
+    and bases, bf16-rounded, in fp32 products."""
+    basis_re, basis_im, mel_t = (
+        torch.from_numpy(a).to(blocks.device, torch.bfloat16).float()
+        for a in mel_kernel_host(sample_rate, num_fft, window_size, hopsize,
+                                 num_mels))
+    taps = basis_re.shape[0] // hopsize
+    B = blocks.shape[0]
+    idx = (torch.arange(T, device=blocks.device)[:, None]
+           + torch.arange(taps, device=blocks.device)[None])
+    windows = blocks[:, idx].reshape(B, T, taps * hopsize).to(
+        torch.bfloat16).float()
+    re, im = windows @ basis_re, windows @ basis_im
+    mag = torch.sqrt(re * re + im * im + 1e-6)
+    mel = mag.to(torch.bfloat16).float() @ mel_t
+    return torch.log(torch.clamp(mel, min=1e-5)).transpose(1, 2)
+
+
+@functools.lru_cache(maxsize=8)
+def _fused_mel_weights(sample_rate, num_fft, window_size, hopsize, device):
+    """The kernel's bf16 operands on ``device``: the cos and -sin bases as
+    (1024, 576) (window samples past n_fft dropped: their rows are zero;
+    frequencies zero-padded) and the mel basis as (576, 80)."""
+    basis_re, basis_im, mel_t = mel_kernel_host(
+        sample_rate, num_fft, window_size, hopsize, FUSED_MEL_MELS)
+
+    def padded(a, rows, cols):
+        out = np.zeros((rows, cols), np.float32)
+        out[:a.shape[0], :a.shape[1]] = a
+        return torch.from_numpy(out).to(device, torch.bfloat16)
+
+    return (padded(basis_re[:num_fft], num_fft, _F_PAD),
+            padded(basis_im[:num_fft], num_fft, _F_PAD),
+            padded(mel_t, _F_PAD, FUSED_MEL_MELS))
+
+
+def fused_log_mel(blocks, T, sample_rate, num_fft, window_size, hopsize,
+                  num_mels):
+    """B9: (B, T + taps - 1, hop) hop-blocked fp32 audio -> (B, num_mels, T)
+    fp32 log-mel (``kernels/csrc/fused_mel.cu``). The kernel takes n_fft =
+    1024, 80 mels and hop % 4 == 0; on a CPU tensor the plain version runs.
+    """
+    if blocks.device.type == 'cpu':
+        return fused_log_mel_reference(blocks, T, sample_rate, num_fft,
+                                       window_size, hopsize, num_mels)
+    dev = blocks.device
+    if (num_fft, num_mels) != (FUSED_MEL_FFT, FUSED_MEL_MELS) or (
+            hopsize % 4 or hopsize > num_fft):
+        raise ValueError(f'fused_mel kernel takes n_fft {FUSED_MEL_FFT}, '
+                         f'{FUSED_MEL_MELS} mels and a hop % 4 == 0; got '
+                         f'{num_fft}, {num_mels}, {hopsize}')
+    B = blocks.shape[0]
+    taps = -(-num_fft // hopsize)
+    kernels.require(blocks, 'blocks', torch.float32, dev,
+                    (B, T + taps - 1, hopsize))
+    if blocks.data_ptr() % 16:
+        raise ValueError('blocks: the kernel reads 16-byte aligned rows')
+    basis_re, basis_im, mel_t = _fused_mel_weights(
+        sample_rate, num_fft, window_size, hopsize, dev)
+    out = torch.empty((B, num_mels, T), dtype=torch.float32, device=dev)
+    kernels.launch('ppgs_fused_mel', blocks.data_ptr(),
+                   (T + taps - 1) * hopsize, hopsize, T, B,
+                   basis_re.data_ptr(), basis_im.data_ptr(), mel_t.data_ptr(),
+                   out.data_ptr(), device=dev)
+    fused_log_mel.launches += 1
+    return out
+
+
+fused_log_mel.launches = 0
+
+
+def fused_log_mel_spectrogram(audio, sample_rate=16000, num_fft=1024,
+                              hopsize=160, window_size=1024, num_mels=80,
+                              valid_samples=None):
+    """``log_mel_spectrogram`` through B9 (the bf16 opt-in): the same
+    reflect padding and blocking, then ``fused_log_mel``."""
+    blocks, T = _audio_to_blocks(audio.float(), num_fft, hopsize,
+                                 valid_samples)
+    return fused_log_mel(blocks.contiguous(), T, sample_rate, num_fft,
+                         window_size, hopsize, num_mels)

@@ -1,13 +1,14 @@
-from . import mel, w2v2fb
+from . import bottleneck, mel, w2v2fb
+
+_PORTED = {'mel': mel, 'w2v2fb': w2v2fb, 'bottleneck': bottleneck}
 
 
 def get(representation: str):
-    """Frontend for a representation. ``mel`` and ``w2v2fb`` are ported so
-    far; the other frontends of the JAX package are queued in ROADMAP.md."""
-    if representation == 'mel':
-        return mel
-    if representation == 'w2v2fb':
-        return w2v2fb
+    """Frontend for a representation. ``mel``, ``w2v2fb`` and ``bottleneck``
+    are ported so far; the other frontends of the JAX package are queued in
+    ROADMAP.md."""
+    if representation in _PORTED:
+        return _PORTED[representation]
     raise ValueError(
         f'Representation {representation!r} is not ported to ppgs_tpu_torch '
-        f'yet (see ROADMAP.md); mel and w2v2fb are available')
+        f'yet (see ROADMAP.md); {", ".join(_PORTED)} are available')

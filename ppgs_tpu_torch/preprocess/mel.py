@@ -1,8 +1,12 @@
 """Log-mel spectrogram frontend (reference: ppgs/preprocess/mel.py:14-76).
 
 Framing, windowed DFT, magnitude, mel projection and log compression; see
-ops/stft.py. Float32 on every config.
+ops/stft.py. Float32 on every config, unless a bf16 config opts in with
+``PPGS_TPU_FUSED_MEL=1``: then the fused bf16 kernel B9 runs
+(``ops/stft.py::fused_log_mel``), as the JAX package's opt-in does.
 """
+
+import os
 
 import numpy as np
 import torch
@@ -10,6 +14,14 @@ import torch
 from .. import config as config_mod
 from .. import devices
 from ..ops import stft as stft_ops
+
+
+def use_fused_mel(config) -> bool:
+    """The JAX package's opt-in (``ppgs_tpu/ops/stft.py:270-285``): a bf16
+    config and ``PPGS_TPU_FUSED_MEL=1``. The TPU backend check has no
+    counterpart: on the CPU the kernel's plain version runs."""
+    return (config.compute_dtype == 'bfloat16'
+            and os.environ.get('PPGS_TPU_FUSED_MEL', '0') == '1')
 
 
 def from_audios(audio, lengths=None, config=None, device=None):
@@ -22,7 +34,9 @@ def from_audios(audio, lengths=None, config=None, device=None):
     device = devices.resolve(device)
     config = config_mod.get(config)
     valid = int(np.max(np.asarray(lengths))) if lengths is not None else None
-    return stft_ops.log_mel_spectrogram(
+    spectrogram = (stft_ops.fused_log_mel_spectrogram if use_fused_mel(config)
+                   else stft_ops.log_mel_spectrogram)
+    return spectrogram(
         torch.as_tensor(audio).to(device),
         sample_rate=config.sample_rate,
         num_fft=config.num_fft,

@@ -9,8 +9,6 @@ needs the network), read through ``convert.w2v2_params_from_jax``.
 """
 
 import dataclasses
-import functools
-from pathlib import Path
 
 import numpy as np
 import torch
@@ -19,6 +17,7 @@ import torch.nn.functional as F
 from .. import config as config_mod
 from .. import convert
 from .. import devices
+from .. import load as load_mod
 from ..models import w2v2
 
 # pad = window//2 - hop//2 (reference w2v2fb/core.py:24-25,60)
@@ -29,39 +28,24 @@ PAD = WINDOW_SIZE // 2 - HOP_SIZE // 2
 W2V2FB_CHECKPOINT = config_mod.CHECKPOINT_DIR / 'wav2vec2-base.npz'
 
 
-@functools.lru_cache(maxsize=1)
-def _load(path):
-    from .. import load as load_mod
-
-    if not Path(path).exists():
-        raise FileNotFoundError(
-            f'wav2vec2-base weights not found at {path}. Convert them with '
-            f'scripts/convert_w2v2.py (requires network).')
-    return load_mod.load_flat(path)
+def _checkpoint():
+    """``W2V2FB_CHECKPOINT``, or FileNotFoundError naming the converter when
+    it is missing."""
+    return load_mod.require_file(W2V2FB_CHECKPOINT, 'wav2vec2-base weights',
+                                 'scripts/convert_w2v2.py')
 
 
-def _params():
-    """The trunk's flat JAX parameters ({key: array}) from
-    ``W2V2FB_CHECKPOINT``, read once per path."""
-    return _load(str(W2V2FB_CHECKPOINT))
-
-
-# (id of the flat parameters, device, W2V2Config) -> (parameters, trunk);
-# the parameters are held so that their id stays theirs
-_TRUNKS = {}
+def _build(config: w2v2.W2V2Config, flat):
+    model = w2v2.Wav2Vec2(config)
+    model.load_state_dict(convert.w2v2_params_from_jax(flat), strict=True)
+    convert.prepare_w2v2(model)
+    return model
 
 
 def _trunk(config: w2v2.W2V2Config, device):
     """The prepared ``Wav2Vec2`` for ``config`` on ``device``."""
-    params = _params()
-    key = (id(params), str(device), config)
-    if key not in _TRUNKS:
-        model = w2v2.Wav2Vec2(config)
-        model.load_state_dict(convert.w2v2_params_from_jax(params),
-                              strict=True)
-        convert.prepare_w2v2(model)
-        _TRUNKS[key] = (params, model.to(device).eval().requires_grad_(False))
-    return _TRUNKS[key][1]
+    return load_mod.prepared_model(_build, _checkpoint(), torch.device(device),
+                                   config)
 
 
 def nearest_upsample_indices(in_size: int, out_size: int):

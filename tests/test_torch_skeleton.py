@@ -177,12 +177,14 @@ def test_unported_width_raises_on_the_card(monkeypatch):
 
 
 def test_only_the_transformer_is_ported():
-    """The transformer and the mel and w2v2fb frontends are ported; another
-    model or representation raises, naming ROADMAP.md."""
+    """The transformer and the mel, w2v2fb and bottleneck frontends are
+    ported; another model or representation raises, naming ROADMAP.md."""
     config = ppgs_tpu_torch.config.get('convolution')
     with pytest.raises(ValueError, match='ROADMAP.md'):
         ppgs_tpu_torch.models.get(config)
     assert (ppgs_tpu_torch.preprocess.get('w2v2fb')
             is ppgs_tpu_torch.preprocess.w2v2fb)
+    assert (ppgs_tpu_torch.preprocess.get('bottleneck')
+            is ppgs_tpu_torch.preprocess.bottleneck)
     with pytest.raises(ValueError, match='ROADMAP.md'):
-        ppgs_tpu_torch.preprocess.get('bottleneck')
+        ppgs_tpu_torch.preprocess.get('w2v2fc')

@@ -2,9 +2,10 @@
 representation='w2v2fb')`` against ``ppgs_tpu.from_audio`` on the same
 weights and audio.
 
-Both packages read one JAX-init trunk npz with ``_params`` and
-``w2v2.BASE`` patched to a narrow trunk (as tests/test_structural_goldens.py
-:187-203 does for the JAX package), and one head npz. Tolerances are
+Both packages read one JAX-init trunk npz (the JAX package's ``_params``
+and the port's ``W2V2FB_CHECKPOINT`` pointed at it, ``w2v2.BASE`` patched
+to a narrow trunk in both, as tests/test_structural_goldens.py:187-203 does
+for the JAX package), and one head npz. Tolerances are
 docs/GOLDEN_PARITY.md's: fp32 PPGs at 1e-4 on each row's valid frames;
 bf16 PPGs at atol 2e-2 on them, with argmax agreement >= 99.5%.
 
@@ -66,11 +67,10 @@ def _patch(monkeypatch, tmp_path, trunk_params, jcfg):
     """Point both packages' w2v2fb frontends at one trunk npz."""
     path = tmp_path / 'trunk.npz'
     ppgs_tpu.load.save_params(path, trunk_params)
-    flat = ppgs_tpu_torch.load.load_flat(path)
     monkeypatch.setattr(jax_w2v2fb, '_params',
                         lambda: ppgs_tpu.load.load_params(path))
     monkeypatch.setattr(jax_w2v2fb.w2v2, 'BASE', jcfg)
-    monkeypatch.setattr(port_w2v2fb, '_params', lambda: flat)
+    monkeypatch.setattr(port_w2v2fb, 'W2V2FB_CHECKPOINT', path)
     monkeypatch.setattr(port_w2v2fb.w2v2, 'BASE',
                         port_w2v2fb.w2v2.W2V2Config(**dataclasses.asdict(jcfg)))
     jax_core._MODEL_CACHE.clear()
