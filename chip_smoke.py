@@ -27,9 +27,15 @@ any failure exits non-zero before the result line:
    kernel's bound; end-to-end audio-seconds per second of ``from_audio``
    (with and without the fused log-mel); and the device time by kernel of
    one ``from_audio`` call (torch.profiler) with the card's idle share;
-6. the train kernels against their plain versions at the training shape
-   (256 windows x 512 frames, ragged, one wholly masked) with dropout 0.1
-   and the same Philox masks on both sides, then the whole-layer function
+6. the gemm kernel against its plain version at small odd shapes (each
+   (ta, tb), a bf16 and an fp32 a, both block widths, ragged rows, depths
+   and splits), before anything is timed; the train kernels against their
+   plain versions at the training shape (256 windows x 512 frames, ragged,
+   one wholly masked) with dropout 0.1 and the same Philox masks on both
+   sides, with the six gemm forms of a layer's backward (dW1, dW2, dWo,
+   dWqkv split and summed, da, dx), dW1 and dWo again on 128,000 rows (a
+   ragged last split) and dW1 twice, bit for bit; then the whole-layer
+   function
    (out, dx and its 14 gradients) and the attention (with and without the
    causal mask) and FFN train functions at the per-layer path's T = 500;
 7. the training main path, ``train()`` of the mel model at full width and
@@ -38,10 +44,12 @@ any failure exits non-zero before the result line:
    takes a step at 256 x 500 (the per-layer path); the losses finite and
    falling, every train kernel launched, the launches of each step exact,
    and one step on 4 rows against ``device='cpu'`` with the same seed;
-8. times of each train kernel, its plain version, a library call and its
-   bound; the three train functions whole against their plain versions and
-   a library yardstick; the train step's time, audio-seconds per second and
-   peak memory, and a torch.profiler breakdown of one step;
+8. times of each train kernel (each gemm form apart, beside
+   torch.matmul), its plain version, a library call and its bound; the
+   three train functions whole against their plain versions and a library
+   yardstick; the train step's time, audio-seconds per second and peak
+   memory, and a torch.profiler breakdown of one step, its gemm time beside
+   the six forms' timed alone;
 9. the w2v2fb slice's kernel instances against their plain versions at its
    shapes, with seeded full-size random weights (wav2vec2-base trunk: 12
    layers of C = 768, 12 heads of 64, F = 3072, GELU; the C = 512 head, 2
@@ -554,31 +562,130 @@ def train_kernel_checks(port, config, layer, dev, gen):
           share=4e-5, outlier=6.25e-2)
 
     hd, dh = got_b[1], got_b[2]
-    da32, da16 = backward.gemm(masked.view(M, C), wo, False, True, bf16,
-                               want16=True)
-    pa32, pa16 = backward.gemm_reference(masked.view(M, C), wo, False, True,
-                                         bf16, want16=True)
-    dw1 = backward.weight_grad(r.view(M, C), dh, bf16)
-    pdw1 = backward.weight_grad(r.view(M, C), dh, bf16,
-                                backward.gemm_reference,
-                                backward.colsum_reference)
-    err['gemm'] = max(
-        check('gemm da = do Wo^T (fp32)', da32, pa32, atol=1e-3, rtol=1e-4),
-        check('gemm da (bf16)', da16, pa16, 1e-5, 1e-2, share=1e-6,
-              outlier=3.2e-2),
-        # a sum of 131,072 products: fp32 rounding in another order moves
-        # it by ~1e-3 absolute (2e-2 is 2e-4 of the typical value), and
-        # the bf16 rounding of the result then flips by an ulp now and then
-        check('gemm dW1 = r^T dh (split, rounded to bf16)', dw1, pdw1,
-              2e-2, 1e-2, share=1e-6, outlier=4.0))
-    del pa32, pa16, pdw1
-
     inputs = dict(C=C, H=H, B=B, T=T, M=M, x=x, mask=mask, q=q, k=k, v=v,
                   qkv=qkv, drop=drop, sl=sl, sm=sm, a16=a16, a32=a32, lse=lse,
-                  do=do, d_row=d_row, d32=d32, r=r, n=n, rstd=rstd, g=g,
-                  masked=masked, dz=dz, hd=hd, dh=dh, wo=wo, w1=w1, w2=w2,
-                  lengths=lengths)
+                  do=do, d_row=d_row, d16=d16, d32=d32, r=r, n=n, rstd=rstd,
+                  g=g, masked=masked, dz=dz, hd=hd, dh=dh, wo=wo, wqkv=wqkv,
+                  w1=w1, w2=w2, lengths=lengths)
+    forms = gemm_form_checks(inputs)
+    err['gemm'] = max(forms.values())
+    err.update({f'gemm {name}': e for name, e in forms.items()})
     return err, inputs
+
+
+def gemm_forms(inp, rows):
+    """The six gemm forms of a layer's backward (ops/encoder_layer_train.py)
+    on the training inputs' first ``rows`` rows: name -> (a, b, keyword
+    arguments of a data-gradient form, or None for a weight gradient
+    a^T b)."""
+    C = inp['C']
+    dy = inp['masked'].view(-1, C)[:rows]
+    dqkv = inp['d16'].view(-1, 3 * C)[:rows]
+    return {
+        'dW1': (inp['r'].view(-1, C)[:rows], inp['dh'][:rows], None),
+        'dW2': (inp['hd'][:rows], dy, None),
+        'dWo': (inp['a16'].view(-1, C)[:rows], dy, None),
+        'dWqkv': (inp['x'].view(-1, C)[:rows], dqkv, None),
+        'da': (dy, inp['wo'], dict(want16=True)),
+        'dx': (dqkv, inp['wqkv'],
+               dict(residual=inp['dz'].view(-1, C)[:rows])),
+    }
+
+
+def run_gemm_form(fn, a, b, kw):
+    """One launch of a form through ``fn`` (the kernel or its plain
+    version): a weight gradient's split partials, or a data gradient's
+    (fp32, bf16) pair."""
+    from ppgs_tpu_torch.ops import backward
+
+    if kw is None:
+        splits = backward.split_count(a.shape[1], b.shape[1], a.shape[0])
+        return fn(a, b, True, False, torch.bfloat16, splits=splits)[0]
+    return fn(a, b, False, True, torch.bfloat16, **kw)
+
+
+def gemm_small_checks(dev, gen):
+    """The gemm kernel at small odd shapes, each (ta, tb) and type of a,
+    both block widths (N % 256 and not), ragged rows, depths and splits,
+    against its plain version, before anything is timed. fp32 results:
+    sums of at most 4,100 products, atol 1e-3 rtol 1e-4; a bf16 result must
+    equal the kernel's own fp32 result rounded (one epilogue)."""
+    from ppgs_tpu_torch.ops import backward
+
+    bf16 = torch.bfloat16
+    worst = 0.0
+    for M, K, N in ((200, 72, 256), (130, 264, 384), (64, 8, 128)):
+        a = torch.randn(M, K, generator=gen, device=dev).to(bf16)
+        b = torch.randn(N, K, generator=gen, device=dev).to(bf16)
+        res = torch.randn(M, N, generator=gen, device=dev)
+        for kw in (dict(want16=True), dict(residual=res)):
+            got32, got16 = backward.gemm(a, b, False, True, bf16, **kw)
+            want32, _ = backward.gemm_reference(a, b, False, True, bf16,
+                                                **kw)
+            worst = max(worst, check(
+                f'gemm (0, 1) M={M} K={K} N={N} {sorted(kw)[0]} (fp32)',
+                got32, want32, atol=1e-3, rtol=1e-4))
+            if got16 is not None and not torch.equal(got16,
+                                                     got32.to(bf16)):
+                raise AssertionError(f'gemm (0, 1) M={M} K={K} N={N}: the '
+                                     f'bf16 result is not the fp32 one '
+                                     f'rounded')
+    for a_type in (bf16, torch.float32):
+        for K, M, N, splits in ((1000, 136, 384, 3), (77, 64, 256, 1),
+                                (4100, 256, 256, 5)):
+            a = torch.randn(K, M, generator=gen, device=dev).to(a_type)
+            b = torch.randn(K, N, generator=gen, device=dev).to(bf16)
+            worst = max(worst, check(
+                f'gemm (1, 0) {str(a_type)[6:]} a, K={K} M={M} N={N}, '
+                f'{splits} splits', backward.gemm(a, b, True, False, bf16,
+                                                  splits=splits)[0],
+                backward.gemm_reference(a, b, True, False, bf16,
+                                        splits=splits)[0],
+                atol=1e-3, rtol=1e-4))
+    return worst
+
+
+def gemm_form_checks(inp):
+    """The six forms at the training shape against their plain versions,
+    the weight gradients split and summed as the step sums them; dW1 and
+    dWo again on 128,000 rows (256 x 500: the last chunk ragged), and dW1
+    twice, bit for bit."""
+    from ppgs_tpu_torch.ops import backward
+
+    bf16, M = torch.bfloat16, inp['M']
+    err = {}
+    for rows in (M, TRAIN_B * SPLIT_T):
+        for name, (a, b, kw) in gemm_forms(inp, rows).items():
+            if rows != M and name not in ('dW1', 'dWo'):
+                continue
+            label = f'gemm {name}, {rows} rows'
+            if kw is None:
+                got = backward.weight_grad(a, b, bf16)
+                want = backward.weight_grad(a, b, bf16,
+                                            backward.gemm_reference,
+                                            backward.colsum_reference)
+                # sums of 16-131 thousand products: fp32 rounding in
+                # another order moves them by ~1e-3 absolute, and the bf16
+                # rounding of the result then flips by an ulp now and then
+                err[name] = max(err.get(name, 0.0), check(
+                    f'{label} (split, rounded to bf16)', got, want, 2e-2,
+                    1e-2, share=1e-6, outlier=4.0))
+                continue
+            got32, got16 = run_gemm_form(backward.gemm, a, b, kw)
+            want32, want16 = run_gemm_form(backward.gemm_reference, a, b,
+                                           kw)
+            err[name] = check(f'{label} (fp32)', got32, want32, atol=1e-3,
+                              rtol=1e-4)
+            if got16 is not None:
+                err[name] = max(err[name], check(
+                    f'{label} (bf16)', got16, want16, 1e-5, 1e-2,
+                    share=1e-6, outlier=3.2e-2))
+    a, b, kw = gemm_forms(inp, M)['dW1']
+    first, again = (run_gemm_form(backward.gemm, a, b, kw) for _ in range(2))
+    if not torch.equal(first, again):
+        raise AssertionError('gemm dW1: two launches differ')
+    print('gemm dW1: two launches equal bit for bit', flush=True)
+    return err
 
 
 def whole_function_checks(config, layer, dev, gen, mask):
@@ -706,6 +813,7 @@ def train_run(port, config, dev, directory, card):
     try:
         for fn in counters.values():
             fn.launches = 0
+        counters['gemm'].forms.clear()
         start = time.perf_counter()
         model = port.train.train(directory=directory, config=run_config,
                                  max_steps=TRAIN_STEPS,
@@ -830,9 +938,11 @@ def card_against_cpu(port, model, config, dev):
 
 
 @torch.no_grad()
-def train_kernel_times(config, inp, err, launches, per_step, card):
+def train_kernel_times(config, inp, err, launches, per_step, form_launches,
+                       card):
     """Each train kernel at the training shape: its time, its bound, the
-    plain version's and a library call's; returns the JSON records."""
+    plain version's and a library call's, and the gemm forms' (one record
+    each); returns (the JSON records, the gemm forms' ms summed)."""
     from ppgs_tpu_torch.ops import backward
     from ppgs_tpu_torch.ops import encoder_layer_train as elt
     from ppgs_tpu_torch.ops import flash_attention as fa
@@ -961,14 +1071,6 @@ def train_kernel_times(config, inp, err, launches, per_step, card):
              M * C * 4 + M * C * 2 + M * C * 4 + 2 * C * Fh * 2 + Fh * 4
              + M * C * 4 + Fh * 4),
             'ffn_train.cu', 'ppgs_tpu/ops/fused_ffn.py:294'),
-        'gemm': (
-            lambda: backward.gemm(r.view(M, C), dh, True, False, bf16,
-                                  splits=backward.split_count(64, M)),
-            lambda: backward.gemm_reference(r.view(M, C), dh, True, False,
-                                            bf16),
-            lambda: torch.matmul(r16.view(M, C).T, dh),
-            (2 * M * C * Fh, M * C * 4 + M * Fh * 2 + C * Fh * 4),
-            'gemm.cu', 'ppgs_tpu/ops/encoder_layer_train.py:531'),
     }
     records = []
     for name, (kernel_fn, plain_fn, library_fn, work, src, replaces) in \
@@ -990,7 +1092,73 @@ def train_kernel_times(config, inp, err, launches, per_step, card):
             'max_abs_err': err[name], 'ms': ms, 'plain_ms': plain_ms,
             'bound_ms': bound_ms, 'bound_by': bound_by,
             'library_ms': library_ms})
+    gemm_records = gemm_form_times(inp, err, form_launches, card)
+    return records + gemm_records, sum(r['ms'] for r in gemm_records)
+
+
+def gemm_form_times(inp, err, form_launches, card):
+    """Each gemm form at the training shape: the kernel's time, its
+    bound, its plain version's and torch.matmul's on the same bf16
+    operands (a weight gradient's split partials with the step's split;
+    the library call is one product); returns the JSON records."""
+    from ppgs_tpu_torch.ops import backward
+
+    bf16, records = torch.bfloat16, []
+    for name, (a, b, kw) in gemm_forms(inp, inp['M']).items():
+        a16 = a.to(bf16)
+        if kw is None:
+            M, K, N = a.shape[1], a.shape[0], b.shape[1]
+            library_fn = (lambda a16=a16, b=b: torch.matmul(a16.T, b))
+            out_bytes = M * N * 4
+        else:
+            (M, K), N = a.shape, b.shape[0]
+            library_fn = (lambda a16=a16, b=b: torch.matmul(a16, b.T))
+            out_bytes = M * N * (4 + 2 * ('want16' in kw)
+                                 + 4 * ('residual' in kw))
+        kernel_fn, plain_fn = (
+            lambda fn=fn, a=a, b=b, kw=kw: run_gemm_form(fn, a, b, kw)
+            for fn in (backward.gemm, backward.gemm_reference))
+        ms, plain_ms = (time_ms(kernel_fn, TRAIN_REPS, 2),
+                        time_ms(plain_fn, TRAIN_REPS, 2))
+        library_ms = time_ms(library_fn, TRAIN_REPS, 2)
+        bound_ms, bound_by = bound(
+            2 * M * N * K,
+            a.numel() * a.element_size() + b.numel() * 2 + out_bytes)
+        print(f'gemm {name} ({M} x {N}, depth {K}): kernel {ms:.4f} ms, '
+              f'bound {bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.4f} '
+              f'ms, torch.matmul {library_ms:.4f} ms, '
+              f'{form_launches[name]} launches in the train() runs '
+              f'[{card}]', flush=True)
+        records.append({
+            'name': f'gemm {name}', 'route': 'cuda',
+            'source': 'ppgs_tpu_torch/kernels/csrc/gemm.cu',
+            'replaces': 'ppgs_tpu/ops/encoder_layer_train.py:531',
+            'launches': form_launches[name],
+            'max_abs_err': err[f'gemm {name}'], 'ms': ms,
+            'plain_ms': plain_ms, 'bound_ms': bound_ms,
+            'bound_by': bound_by, 'library_ms': library_ms})
     return records
+
+
+def gemm_form_launches(inp, forms):
+    """Launches of each gemm form in ``forms`` (``gemm.forms`` after the
+    train() runs), on either path's rows and with either type of a (the
+    per-layer path's FFN hands dW1 a bf16 a)."""
+    from ppgs_tpu_torch.ops import backward
+
+    launches = {}
+    for name, (a, b, kw) in gemm_forms(inp, inp['M']).items():
+        launches[name] = 0
+        for rows in (inp['M'], TRAIN_B * SPLIT_T):
+            for a_type in (torch.float32, torch.bfloat16):
+                if kw is None:
+                    key = backward.gemm_form(1, a_type, a.shape[1],
+                                             b.shape[1], rows)
+                else:
+                    key = backward.gemm_form(0, a_type, rows, b.shape[0],
+                                             a.shape[1])
+                launches[name] += forms.get(key, 0)
+    return launches
 
 
 def composite_times(port, config, layer, inp, dev, gen, card):
@@ -1093,10 +1261,11 @@ def composite_times(port, config, layer, inp, dev, gen, card):
           f'(addmm/relu/dropout chain) [{card}]', flush=True)
 
 
-def step_metrics(port, model, config, dev, card):
+def step_metrics(port, model, config, dev, card, gemm_ms):
     """The train step end to end (CUDA-synchronised host clock, median of
     STEP_REPS after warm-up) on both paths, audio-seconds per second, peak
-    device memory, and a torch.profiler breakdown of one step."""
+    device memory, and a torch.profiler breakdown of one step, its gemm
+    kernels' time beside ``gemm_ms`` (the forms timed alone, per step)."""
     optimizer = port.train.make_optimizer(model.parameters(), config)
     step = port.train.make_train_step(model, config, optimizer)
     frame_s = config.hopsize / config.sample_rate
@@ -1124,8 +1293,13 @@ def step_metrics(port, model, config, dev, card):
     print(f'train step {TRAIN_B} x {TRAIN_T}: peak device memory '
           f'{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB '
           f'(max_memory_allocated) [{card}]', flush=True)
-    profile_call(f'train step {TRAIN_B} x {TRAIN_T}',
-                 lambda: step(*batch, seed=301), card)
+    by_name = profile_call(f'train step {TRAIN_B} x {TRAIN_T}',
+                           lambda: step(*batch, seed=301), card)
+    profiled = sum(ms for name, ms in by_name.items()
+                   if 'gemm_kernel<' in name)
+    print(f'train step {TRAIN_B} x {TRAIN_T}: the gemm kernel {profiled:.3f} '
+          f'ms profiled, the six forms timed alone {gemm_ms:.3f} ms per step '
+          f'({config.num_hidden_layers} layers) [{card}]', flush=True)
 
 
 def busy_ms(intervals):
@@ -1538,6 +1712,7 @@ def train_phases(port, config, workdir, dev, gen, card):
     train_model.load_state_dict(port.convert.params_from_jax(
         port.load.flatten_params(random_params(port, config, SEED))))
     layer = train_model.layers[0]
+    gemm_small_checks(dev, gen)
     train_err, train_inputs = train_kernel_checks(port, config, layer, dev,
                                                   gen)
     train_inputs.update(
@@ -1551,6 +1726,12 @@ def train_phases(port, config, workdir, dev, gen, card):
     trained, train_launches, split_step, b4_steps = train_run(
         port, config, dev, Path(workdir) / 'train', card)
     print(f'launches in the train() runs: {train_launches}', flush=True)
+    form_launches = gemm_form_launches(
+        train_inputs, port.ops.backward.gemm.forms)
+    print(f'gemm launches by form in the train() runs: {form_launches}',
+          flush=True)
+    if min(form_launches.values()) == 0:
+        raise AssertionError(f'a gemm form never launched: {form_launches}')
     if min(train_launches.values()) == 0:
         raise AssertionError(f'a train kernel never launched: '
                              f'{train_launches}')
@@ -1558,11 +1739,13 @@ def train_phases(port, config, workdir, dev, gen, card):
     card_against_cpu(port, trained, config, dev)
 
     phase(f'8 train times on {card} (median of {TRAIN_REPS}, CUDA events)')
-    records = train_kernel_times(config, train_inputs, train_err,
-                                 train_launches, b4_steps[1], card)
+    records, gemm_ms = train_kernel_times(
+        config, train_inputs, train_err, train_launches, b4_steps[1],
+        form_launches, card)
     composite_times(port, config, layer, train_inputs, dev, gen, card)
     del train_inputs
-    step_metrics(port, trained, config, dev, card)
+    step_metrics(port, trained, config, dev, card,
+                 gemm_ms * config.num_hidden_layers)
     return records
 
 

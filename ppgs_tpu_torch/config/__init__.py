@@ -190,3 +190,15 @@ def use(name: str) -> Config:
 
 def default() -> Config:
     return _default
+
+
+def require_no_frontend(config: Config):
+    """Raise for a config with a codebook frontend (encodec, dac): its
+    features are int codes that the JAX package dequantizes to latents
+    before the model (ppgs_tpu/core.py:108-114), and that frontend is not
+    ported yet (ROADMAP.md A12)."""
+    if config.frontend is not None:
+        raise NotImplementedError(
+            f'config {config.config!r}: the {config.frontend} codebook '
+            f'frontend, which dequantizes int codes to latents, is not '
+            f'ported to ppgs_tpu_torch yet (ROADMAP.md A12)')

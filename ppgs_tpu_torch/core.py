@@ -67,6 +67,7 @@ def infer(features, lengths, representation='mel', checkpoint=None,
     base_config = config_mod.get(config)
     if base_config.representation_kind == 'latents':
         return features
+    config_mod.require_no_frontend(base_config)
     model, config = _get_model(representation, checkpoint, base_config,
                                device)
 

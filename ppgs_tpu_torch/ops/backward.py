@@ -39,10 +39,32 @@ def block_sums(t, rows=PARTIAL_ROWS):
 ###############################################################################
 
 
+DEPTH_STEP = 64     # the gemm kernel's depth step: a split chunk's multiple
+BLOCK_M = 128       # the gemm kernel's block tile rows
+SMS = 132           # streaming multiprocessors of an H100 SXM
+
+
 def _k_chunk(K, splits):
-    """Rows of the depth per split: the kernel's, a multiple of 32."""
+    """Rows of the depth per split: the kernel's, a multiple of the depth
+    step (64), so that no split reads into the next one's rows."""
     per_split = -(-K // splits)
-    return -(-per_split // 32) * 32
+    return -(-per_split // DEPTH_STEP) * DEPTH_STEP
+
+
+def block_n(N):
+    """The kernel's block tile columns for an output N columns wide: 256,
+    or 128 where N % 256 != 0."""
+    return 256 if N % 256 == 0 else 128
+
+
+def split_count(M, N, depth):
+    """Depth splits of a weight-gradient product with an (M, N) output:
+    enough that tiles x splits fills one wave of the card's 132 SMs (one
+    128 x ``block_n(N)`` tile a block and SM), each split at least one depth
+    step deep, and none empty."""
+    tiles = -(-M // BLOCK_M) * -(-N // block_n(N))
+    splits = max(1, min(SMS // tiles, -(-depth // DEPTH_STEP)))
+    return -(-depth // _k_chunk(depth, splits))
 
 
 def gemm_reference(a, b, ta, tb, cd, splits=1, residual=None, want32=True,
@@ -64,6 +86,39 @@ def gemm_reference(a, b, ta, tb, cd, splits=1, residual=None, want32=True,
     return (out if want32 else None), (out.to(cd) if want16 else None)
 
 
+def gemm_shapes(a_shape, a_dtype, b_shape, ta, tb, splits=1, want16=False,
+                residual=False, addresses=()):
+    """The kernel's rule on its operands: (ta, tb) = (0, 1) or (1, 0), 2-D
+    operands of matching depth, a bf16 or (transposed only) fp32 a and a
+    bf16 b, N % 128 == 0, rows and ``addresses`` (the operands' base
+    addresses) 16-byte aligned for the TMA, and split fp32 partials only,
+    of a transposed a. Returns (M, N, K); raises ValueError
+    for what the kernel does not take."""
+    ta, tb = bool(ta), bool(tb)
+    if len(a_shape) != 2 or len(b_shape) != 2 or ta == tb:
+        raise ValueError('gemm kernel takes (ta, tb) = (0, 1) or (1, 0) and '
+                         '2-D operands')
+    if a_dtype not in (torch.bfloat16, torch.float32) or (
+            a_dtype == torch.float32 and not ta):
+        raise ValueError(f'gemm kernel takes a bf16 a, or an fp32 a only '
+                         f'transposed; got {a_dtype}, ta={int(ta)}')
+    M, K = (a_shape[1], a_shape[0]) if ta else a_shape
+    N = b_shape[0] if tb else b_shape[1]
+    if (b_shape[1] if tb else b_shape[0]) != K:
+        raise ValueError(f'gemm: depths differ, {tuple(a_shape)} and '
+                         f'{tuple(b_shape)}')
+    a_row = a_shape[1] * (4 if a_dtype == torch.float32 else 2)
+    if N % 128 or a_row % 16 or b_shape[1] * 2 % 16:
+        raise ValueError(f'gemm kernel takes N % 128 == 0 and rows of a '
+                         f'multiple of 16 bytes; got M={M} N={N} K={K}')
+    if any(address % 16 for address in addresses):
+        raise ValueError('gemm kernel takes 16-byte aligned operands')
+    if splits < 1 or (splits > 1 and (want16 or residual or not ta)):
+        raise ValueError('split gemm writes fp32 partial sums only, of a '
+                         'transposed a')
+    return M, N, K
+
+
 def gemm(a, b, ta, tb, cd, splits=1, residual=None, want32=True,
          want16=False):
     """C = op(a) op(b) with fp32 accumulation: op(a) = a.T when ``ta``,
@@ -78,48 +133,39 @@ def gemm(a, b, ta, tb, cd, splits=1, residual=None, want32=True,
     if cd != torch.bfloat16 or b.dtype != torch.bfloat16:
         raise ValueError(f'gemm kernel takes bf16 operands; got {cd}, '
                          f'{b.dtype}')
-    a_f32 = a.dtype == torch.float32
-    if (a_f32 and not ta) or (ta == tb) or a.dim() != 2 or b.dim() != 2:
-        raise ValueError('gemm kernel takes (ta, tb) = (0, 1) or (1, 0), '
-                         '2-D operands, and an fp32 a only transposed')
     dev = a.device
     kernels.require(a, 'a', a.dtype, dev)
     kernels.require(b, 'b', torch.bfloat16, dev)
-    M, K = (a.shape[1], a.shape[0]) if ta else a.shape
-    N = b.shape[0] if tb else b.shape[1]
-    if (b.shape[1] if tb else b.shape[0]) != K:
-        raise ValueError(f'gemm: depths differ, {tuple(a.shape)} and '
-                         f'{tuple(b.shape)}')
-    if N % 128 or (ta and M % 64) or (not ta and K % 32):
-        raise ValueError(f'gemm kernel takes N % 128 == 0 and M % 64 == 0 '
-                         f'(ta) or K % 32 == 0; got M={M} N={N} K={K}')
-    if splits > 1 and (want16 or residual is not None):
-        raise ValueError('split gemm writes fp32 partial sums only')
+    if residual is not None:
+        kernels.require(residual, 'residual', torch.float32, dev)
+    M, N, K = gemm_shapes(
+        a.shape, a.dtype, b.shape, ta, tb, splits, want16,
+        residual is not None,
+        [t.data_ptr() for t in (a, b, residual) if t is not None])
+    if residual is not None and residual.numel() != M * N:
+        raise ValueError('gemm: residual has the wrong size')
     out32 = (torch.empty((splits, M, N) if splits > 1 else (M, N),
                          dtype=torch.float32, device=dev)
              if want32 or splits > 1 else None)
     out16 = (torch.empty((M, N), dtype=torch.bfloat16, device=dev)
              if want16 else None)
-    if residual is not None:
-        kernels.require(residual, 'residual', torch.float32, dev)
-        if residual.numel() != M * N:
-            raise ValueError('gemm: residual has the wrong size')
-    kernels.launch('ppgs_gemm', a.data_ptr(), int(a_f32), int(ta),
-                   a.shape[1], b.data_ptr(), int(tb), b.shape[1],
+    kernels.launch('ppgs_gemm', a.data_ptr(), int(a.dtype == torch.float32),
+                   int(ta), a.shape[1], b.data_ptr(), int(tb), b.shape[1],
                    kernels.ptr(out32), kernels.ptr(out16),
-                   kernels.ptr(residual), N, M, N, K,
-                   splits, device=dev)
+                   kernels.ptr(residual), N, M, N, K, splits, device=dev)
     gemm.launches += 1
+    key = gemm_form(ta, a.dtype, M, N, K)
+    gemm.forms[key] = gemm.forms.get(key, 0) + 1
     return out32, out16
 
 
 gemm.launches = 0
+gemm.forms = {}     # launches by gemm_form
 
 
-def split_count(tiles, depth):
-    """Depth splits of a weight-gradient product: enough blocks for two
-    waves of the card's 132 SMs, each split at least 1024 rows deep."""
-    return max(1, min(-(-264 // tiles), depth // 1024))
+def gemm_form(ta, a_dtype, M, N, K):
+    """The key of ``gemm.forms``: (ta, a's type, M, N, K)."""
+    return (int(bool(ta)), str(a_dtype).replace('torch.', ''), M, N, K)
 
 
 def weight_grad(a, b, cd, gemm_fn=None, colsum_fn=None):
@@ -130,7 +176,7 @@ def weight_grad(a, b, cd, gemm_fn=None, colsum_fn=None):
     gemm_fn, colsum_fn = gemm_fn or gemm, colsum_fn or colsum
     K, M = a.shape
     N = b.shape[1]
-    splits = split_count((M // 64) * max(1, N // 128), K)
+    splits = split_count(M, N, K)
     part, _ = gemm_fn(a, b, True, False, cd, splits=splits)
     if splits == 1:
         part = part[None]

@@ -46,9 +46,21 @@ def from_audios(audio, lengths=None, config=None, device=None):
         valid_samples=valid)
 
 
-def from_audio(audio, config=None, device=None):
-    """(1, S) or (B, 1, S) audio -> (B, num_mels, T)."""
+def from_audio(audio, sample_rate=None, config=None, device=None):
+    """(1, S) or (B, 1, S) audio -> (B, num_mels, T). ``sample_rate`` is
+    taken second and ignored, as by every frontend (the audio is at
+    ``config.sample_rate``)."""
     audio = torch.as_tensor(audio)
     if audio.ndim == 2:
         audio = audio[None]
     return from_audios(audio, config=config, device=device)
+
+
+def from_file(audio_file, config=None, device=None):
+    from ..data import audio as audio_io
+
+    return from_audio(audio_io.load(audio_file), config=config, device=device)
+
+
+def from_file_to_file(audio_file, output_file, config=None, device=None):
+    np.save(output_file, from_file(audio_file, config, device).cpu().numpy())

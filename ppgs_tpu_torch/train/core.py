@@ -270,6 +270,7 @@ def train(dataset=None, directory=None, config=None, max_steps=None,
     loss and the gradient statistics are logged every ``LOG_INTERVAL``
     steps, as in the JAX package."""
     config = config_mod.get(config)
+    config_mod.require_no_frontend(config)
     device = devices.resolve(device)
     # raises for a width the card's train kernels do not take yet
     models.transformer.use_kernels(config, device, train=True)
@@ -349,6 +350,7 @@ def evaluate_partition(writer, step, model, config, loader_fn, partition,
     parameters (``convert.prepare`` rebuilds its prepared weights first:
     they are a snapshot, stale after any optimizer step). Scalars only:
     the figures wait for the plotting module (ROADMAP.md A13)."""
+    config_mod.require_no_frontend(config)
     device = next(model.parameters()).device
     convert.prepare(model)
     metrics = Metrics(config=config, device=device)

@@ -290,3 +290,21 @@ def test_load_model_has_no_default_bottleneck_checkpoint():
     with pytest.raises(ValueError, match='No default checkpoints'):
         ppgs_tpu_torch.load.model(representation='bottleneck', device='cpu')
     assert ppgs_tpu_torch.config.get('bottleneck').hidden_channels == 256
+
+
+def test_from_audio_takes_the_sample_rate_second(monkeypatch, tmp_path):
+    """preprocess.bottleneck.from_audio(audio, 16000, ...) as the JAX
+    package's (the sample rate taken second and ignored), fp32 compute."""
+    jcfg = jax_conformer.ConformerConfig(num_blocks=2)
+    _patch(monkeypatch, tmp_path,
+           jax_conformer.init(jax.random.PRNGKey(9), jcfg), jcfg)
+    jax_config = ppgs_tpu.config.get().replace(compute_dtype='float32')
+    port_config = ppgs_tpu_torch.Config(**dataclasses.asdict(jax_config))
+    audio = (0.1 * np.random.default_rng(10).standard_normal(
+        (1, 8000))).astype(np.float32)
+    want = np.asarray(jax_bottleneck.from_audio(audio, 16000,
+                                                config=jax_config))
+    got = port_bottleneck.from_audio(audio, 16000, config=port_config,
+                                     device='cpu').numpy()
+    assert got.shape == want.shape == (1, 144, 50)
+    np.testing.assert_allclose(got, want, rtol=1e-3, atol=2e-3)

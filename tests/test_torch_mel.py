@@ -1,6 +1,8 @@
 """The port's log-mel frontend against the JAX package's fp32 ('highest')
 frontend on the CPU, at the golden-parity tolerance of 1e-4."""
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -8,6 +10,8 @@ import torch
 
 import ppgs_tpu
 import ppgs_tpu_torch
+import ppgs_tpu_torch.data.audio
+import ppgs_tpu_torch.preprocess.mel
 from ppgs_tpu.ops import stft as jax_stft
 from ppgs_tpu_torch.ops import stft
 
@@ -57,3 +61,65 @@ def test_frame_count_and_dft_basis_match_jax():
                                   jax_stft.blocked_dft_kernel(1024, 1024, 160))
     np.testing.assert_array_equal(stft.mel_basis(16000, 1024, 80),
                                   jax_stft.mel_basis(16000, 1024, 80))
+
+
+def _configs():
+    jax_config = ppgs_tpu.config.get().replace(compute_dtype='float32')
+    return jax_config, ppgs_tpu_torch.Config(**dataclasses.asdict(jax_config))
+
+
+def test_from_audio_takes_the_sample_rate_second():
+    """preprocess.mel.from_audio(audio, 16000, ...) as the JAX package's
+    (the sample rate taken second and ignored)."""
+    jax_config, port_config = _configs()
+    audio = _audio(9, 1, 12345)[0]
+    want = np.asarray(ppgs_tpu.preprocess.get('mel').from_audio(
+        audio, 16000, config=jax_config))
+    got = ppgs_tpu_torch.preprocess.get('mel').from_audio(
+        audio, 16000, config=port_config, device='cpu').numpy()
+    assert got.shape == want.shape == (1, 80, 77)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_file_entry_points_match_jax(tmp_path):
+    """preprocess.mel's from_file and from_file_to_file (float32 .npy)
+    against the JAX package's."""
+    from ppgs_tpu.preprocess import mel as jax_mel
+    from ppgs_tpu_torch.preprocess import mel as port_mel
+
+    jax_config, port_config = _configs()
+    wav = tmp_path / 'speech.wav'
+    ppgs_tpu_torch.data.audio.save_wav(wav, _audio(10, 1, 9600)[0])
+    want = np.asarray(jax_mel.from_file(wav, jax_config))
+    got = port_mel.from_file(wav, port_config, device='cpu').numpy()
+    assert got.shape == want.shape == (1, 80, 60)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    jax_mel.from_file_to_file(wav, tmp_path / 'jax.npy', jax_config)
+    port_mel.from_file_to_file(wav, tmp_path / 'port.npy', port_config,
+                               device='cpu')
+    a, b = np.load(tmp_path / 'jax.npy'), np.load(tmp_path / 'port.npy')
+    assert a.dtype == b.dtype == np.float32 and a.shape == b.shape
+    np.testing.assert_allclose(b, a, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize('call', [
+    lambda audio, wav, **kw: ppgs_tpu_torch.preprocess.mel.from_audio(
+        audio, 16000, **kw),
+    lambda audio, wav, **kw: ppgs_tpu_torch.preprocess.mel.from_file(
+        wav, **kw),
+    lambda audio, wav, **kw: ppgs_tpu_torch.preprocess.mel.from_file_to_file(
+        wav, wav.with_suffix('.npy'), **kw),
+], ids=['from_audio', 'from_file', 'from_file_to_file'])
+def test_frontend_runs_on_the_card_unless_told(monkeypatch, tmp_path, call):
+    """The mel frontend's entry points run on the card by default: without
+    CUDA they raise, and with device='cpu' they run on the CPU."""
+    monkeypatch.setattr(ppgs_tpu_torch.devices.torch.cuda, 'is_available',
+                        lambda: False)
+    audio = _audio(11, 1, 4000)[0]
+    wav = tmp_path / 'speech.wav'
+    ppgs_tpu_torch.data.audio.save_wav(wav, audio)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call(audio, wav)
+    out = call(audio, wav, device='cpu')
+    if out is not None:
+        assert out.device.type == 'cpu' and out.shape == (1, 80, 25)

@@ -436,5 +436,110 @@ def test_train_wrappers_take_plain_version_on_cpu():
     assert torch.equal(
         backward.gemm(y16, wo, False, True, torch.bfloat16)[0],
         backward.gemm_reference(y16, wo, False, True, torch.bfloat16)[0])
+    assert torch.equal(    # the (1, 0) form with an fp32 a, split
+        backward.gemm(x, y16, True, False, torch.bfloat16, splits=2)[0],
+        backward.gemm_reference(x, y16, True, False, torch.bfloat16,
+                                splits=2)[0])
     assert torch.equal(backward.colsum(x), backward.colsum_reference(x))
     assert [w.launches for w in wrappers] == before
+
+
+###############################################################################
+# The gemm kernel's split rule and operand rule
+###############################################################################
+
+# The weight-gradient forms' outputs (M, N): dW1, dW2, dWo, dWqkv
+WEIGHT_FORMS = {'dW1': (C, F), 'dW2': (F, C), 'dWo': (C, C),
+                'dWqkv': (C, 3 * C)}
+ROWS = (256 * 512, 256 * 500)   # the whole-layer and per-layer paths
+
+
+@pytest.mark.parametrize('rows', ROWS)
+def test_gemm_split_partials_sum_to_the_product(rows):
+    """The plain gemm's split partials at each weight form's split: chunks
+    of a multiple of 64 rows, none empty, only the last ragged (ones count
+    each chunk's rows), and their sum is the whole product."""
+    for M, N in WEIGHT_FORMS.values():
+        splits = backward.split_count(M, N, rows)
+        chunk = backward._k_chunk(rows, splits)
+        assert chunk % 64 == 0
+        ones = torch.ones(rows, 1)
+        parts, _ = backward.gemm_reference(ones, ones, True, False,
+                                           torch.float32, splits=splits)
+        assert parts[:, 0, 0].tolist() == (
+            [chunk] * (splits - 1) + [rows - (splits - 1) * chunk])
+    gen = torch.Generator().manual_seed(0)
+    a = torch.randn(rows, 16, generator=gen)
+    b = torch.randn(rows, 32, generator=gen)
+    splits = backward.split_count(C, F, rows)
+    parts, _ = backward.gemm_reference(a, b, True, False, torch.float32,
+                                       splits=splits)
+    whole, _ = backward.gemm_reference(a, b, True, False, torch.float32)
+    assert parts.shape == (splits, 16, 32)
+    np.testing.assert_allclose(parts.sum(0).numpy(), whole.numpy(),
+                               rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize('rows', ROWS)
+def test_split_count_fills_one_wave(rows):
+    """Tiles x splits fill one wave of the 132 SMs (at least 95% of it),
+    one 128 x block_n(N) tile a block."""
+    want = {'dW1': 8, 'dW2': 8, 'dWo': 64 if rows == ROWS[0] else 65,
+            'dWqkv': 22}
+    for name, (M, N) in WEIGHT_FORMS.items():
+        tiles = -(-M // 128) * (N // backward.block_n(N))
+        splits = backward.split_count(M, N, rows)
+        assert splits == want[name], name
+        assert 0.95 * 132 <= tiles * splits <= 132, name
+
+
+def _forms(rows):
+    """The six forms' gemm_shapes arguments -> (M, N, K)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    split = {name: backward.split_count(M, N, rows)
+             for name, (M, N) in WEIGHT_FORMS.items()}
+    return [
+        (((rows, C), f32, (rows, F), 1, 0, split['dW1']), (C, F, rows)),
+        (((rows, F), bf16, (rows, C), 1, 0, split['dW2']), (F, C, rows)),
+        (((rows, C), bf16, (rows, C), 1, 0, split['dWo']), (C, C, rows)),
+        (((rows, C), f32, (rows, 3 * C), 1, 0, split['dWqkv']),
+         (C, 3 * C, rows)),
+        (((rows, C), bf16, (C, C), 0, 1, 1, True), (rows, C, C)),
+        (((rows, 3 * C), bf16, (C, 3 * C), 0, 1, 1, False, True),
+         (rows, C, 3 * C)),
+    ]
+
+
+@pytest.mark.parametrize('rows', ROWS)
+def test_gemm_shapes_take_the_six_forms(rows):
+    for args, want in _forms(rows):
+        assert backward.gemm_shapes(*args, addresses=(0, 256)) == want
+
+
+@pytest.mark.parametrize('args', [
+    ((64, 256), torch.bfloat16, (64, 256), 0, 0),        # (ta, tb) = (0, 0)
+    ((64, 256), torch.bfloat16, (64, 256), 1, 1),        # (1, 1)
+    ((256, 64), torch.float32, (128, 64), 0, 1),         # fp32 a untransposed
+    ((256, 64), torch.float16, (128, 64), 0, 1),         # an fp16 a
+    ((2, 64, 256), torch.bfloat16, (64, 256), 1, 0),     # a 3-D a
+    ((64, 256), torch.bfloat16, (72, 256), 1, 0),        # depths differ
+    ((64, 256), torch.bfloat16, (64, 200), 1, 0),        # N % 128 != 0
+    ((64, 130), torch.float32, (64, 256), 1, 0),         # 520-byte rows of a
+    ((256, 100), torch.bfloat16, (128, 100), 0, 1),      # 200-byte rows
+    ((64, 256), torch.bfloat16, (64, 256), 1, 0, 2, True),   # split, bf16
+    ((64, 256), torch.bfloat16, (64, 256), 1, 0, 2, False, True),  # + res
+    ((256, 64), torch.bfloat16, (128, 64), 0, 1, 2),     # split, untransposed
+    ((64, 256), torch.bfloat16, (64, 256), 1, 0, 0),     # no split at all
+], ids=['tt00', 'tt11', 'f32-untransposed', 'fp16', '3d', 'depths', 'n200',
+        'f32-rows', 'bf16-rows', 'split-bf16', 'split-residual',
+        'split-untransposed', 'splits-0'])
+def test_gemm_shapes_refuse_what_the_kernel_does_not_take(args):
+    with pytest.raises(ValueError):
+        backward.gemm_shapes(*args)
+
+
+def test_gemm_shapes_refuse_unaligned_addresses():
+    args = ((64, 256), torch.bfloat16, (64, 256), 1, 0)
+    assert backward.gemm_shapes(*args, addresses=(0, 16)) == (256, 256, 64)
+    with pytest.raises(ValueError, match='aligned'):
+        backward.gemm_shapes(*args, addresses=(0, 8))

@@ -298,3 +298,20 @@ def test_frontend_runs_on_the_card_unless_told(monkeypatch, tmp_path, call):
     out = call(audio, wav, device='cpu')
     if out is not None:
         assert out.device.type == 'cpu' and out.shape == (1, 48, 25)
+
+
+def test_from_audio_takes_the_sample_rate_second(monkeypatch, tmp_path):
+    """preprocess.w2v2fb.from_audio(audio, 16000, ...) as the JAX
+    package's (the sample rate taken second and ignored), fp32 compute."""
+    jcfg = jax_w2v2.W2V2Config(**TRUNKS['float32'])
+    _patch(monkeypatch, tmp_path, jax_w2v2.init(jax.random.PRNGKey(9), jcfg),
+           jcfg)
+    jax_config = ppgs_tpu.config.get().replace(compute_dtype='float32')
+    port_config = ppgs_tpu_torch.Config(**dataclasses.asdict(jax_config))
+    audio = (0.1 * np.random.default_rng(10).standard_normal(
+        (1, 8000))).astype(np.float32)
+    want = np.asarray(jax_w2v2fb.from_audio(audio, 16000, config=jax_config))
+    got = port_w2v2fb.from_audio(audio, 16000, config=port_config,
+                                 device='cpu').numpy()
+    assert got.shape == want.shape == (1, 48, 50)
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-3)
