@@ -8,9 +8,11 @@ any failure exits non-zero before the result line:
 
 1. the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels from ppgs_tpu_torch/kernels/csrc with nvcc;
-3. hold each kernel against its plain PyTorch version on the card, at the
-   main path's shapes (128 windows x 500 frames of the mel model: C = 256,
-   2 heads of 128, FFN 2048), plus the attention kernel at T = 1536 with
+3. K4 (the FFN) at odd shapes against its plain version (rows 1, 63, 64,
+   65, 127, 129, 1000; hidden widths 128, 384 and the model's; round_input
+   0 and 1); then hold each kernel against its plain PyTorch version on
+   the card, at the main path's shapes (128 windows x 500 frames of the
+   mel model: C = 256, 2 heads of 128, FFN 2048), plus the attention kernel at T = 1536 with
    and without the causal mask and a wholly masked window, the per-layer
    FFN variant, the whole 5-layer stack, and the fused log-mel kernel (B9)
    at 64 x 8 s;
@@ -29,8 +31,9 @@ any failure exits non-zero before the result line:
    one ``from_audio`` call (torch.profiler) with the card's idle share;
 6. the gemm kernel against its plain version at small odd shapes (each
    (ta, tb), a bf16 and an fp32 a, both block widths, ragged rows, depths
-   and splits), before anything is timed; the train kernels against their
-   plain versions at the training shape (256 windows x 512 frames, ragged,
+   and splits), and K4's two train forms at phase 3's odd shapes with
+   dropout off and 0.1, before anything is timed; the train kernels
+   against their plain versions at the training shape (256 windows x 512 frames, ragged,
    one wholly masked) with dropout 0.1 and the same Philox masks on both
    sides, with the six gemm forms of a layer's backward (dW1, dW2, dWo,
    dWqkv split and summed, da, dx), dW1 and dWo again on 128,000 rows (a
@@ -50,7 +53,8 @@ any failure exits non-zero before the result line:
    yardstick; the train step's time, audio-seconds per second and peak
    memory, and a torch.profiler breakdown of one step, its gemm time beside
    the six forms' timed alone;
-9. the w2v2fb slice's kernel instances against their plain versions at its
+9. K4 at C = 768 (GELU) and 512 at phase 3's odd shapes; the w2v2fb
+   slice's kernel instances against their plain versions at its
    shapes, with seeded full-size random weights (wav2vec2-base trunk: 12
    layers of C = 768, 12 heads of 64, F = 3072, GELU; the C = 512 head, 2
    heads of 256): K1 at both widths, K2 at d_head 64 (64 x T = 400, one
@@ -66,9 +70,13 @@ any failure exits non-zero before the result line:
    ``device='cpu'``; then the same call with ``PPGS_TPU_CONV_STACK=1``:
    the conv-stack kernels launched, the PPGs against the default path's;
 11. times of each w2v2fb kernel instance, its plain version, a library call
-   and its bound; the 12-layer stack against ``nn.TransformerEncoderLayer``
-   x 12 and the conv chain against the cuDNN bf16 convs; the slice's
-   audio-seconds per second and a torch.profiler breakdown;
+   and its bound (for B10's first form, beside conv 1 on a stored conv-0
+   activation, the library's route to the same function from the audio:
+   conv 0, GroupNorm, GELU, conv 1, GELU); the 12-layer stack against
+   ``nn.TransformerEncoderLayer`` x 12 and the conv chain against the
+   cuDNN bf16 convs; the slice's audio-seconds per second and a
+   torch.profiler breakdown; K4's device time per call by kernel at each
+   width (phases 5, 8 and 11);
 12. the bottleneck slice's rel-pos attention kernel (B8) against its plain
    version, with seeded full-size random weights (the 16-block conformer,
    d = 144, 4 heads of 36, FFN 576; the C = 256 head): 64 x T = 800 from
@@ -206,7 +214,7 @@ def bound(flops, nbytes):
 
 
 def check(name, got, want, atol, rtol=0.0, rows=None, share=0.0,
-          outlier=None, flips_at_zero=False):
+          outlier=None, flips_at_zero=False, quiet=False):
     """Raise unless |got - want| <= atol + rtol |want| (on ``rows`` when
     given) everywhere but in at most ``share`` of the elements, each of
     which must be within ``outlier`` of ``want`` or, with
@@ -223,7 +231,8 @@ def check(name, got, want, atol, rtol=0.0, rows=None, share=0.0,
     are deterministic), and each ``outlier`` at about twice the largest
     such flip, so that a wrong row, tile or mask cannot hide in the share.
     ``flips_at_zero`` is for a hidden unit at 0 whose relu' flips: the
-    whole gradient moves, and one side is exactly 0."""
+    whole gradient moves, and one side is exactly 0. ``quiet``: print
+    nothing (the caller prints the error)."""
     if share and outlier is None and not flips_at_zero:
         raise ValueError(f'{name}: a share needs a bound on its outliers')
     got, want = got.float(), want.float()
@@ -257,8 +266,10 @@ def check(name, got, want, atol, rtol=0.0, rows=None, share=0.0,
                 f'more than the bound {outlier} on such elements')
         allowed = (f', beyond it {over:.2e} (<= {share:g}), those at most '
                    f'{far:.3g} off (<= {outlier})')
-    print(f'{name}: max |kernel - plain| = {worst:.3g} (atol {atol}, rtol '
-          f'{rtol}{allowed}; mean |plain| {typical:.3g})', flush=True)
+    if not quiet:
+        print(f'{name}: max |kernel - plain| = {worst:.3g} (atol {atol}, '
+              f'rtol {rtol}{allowed}; mean |plain| {typical:.3g})',
+              flush=True)
     return worst
 
 
@@ -343,6 +354,30 @@ def profile_call(label, fn, card):
     return report_profile(label, prof, wall_ms, card)
 
 
+def kernel_device_ms(label, fn, card, reps=5):
+    """Print the device milliseconds per call of ``fn`` by kernel
+    (torch.profiler over ``reps`` calls after a warm-up): what one call's
+    CUDA-event time spends on the card, without the host's share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.name.replace('(anonymous namespace)::', '').removeprefix(
+                'void ').split('(')[0]
+            by_name[name] = (by_name.get(name, 0.0)
+                             + e.time_range.elapsed_us() / 1e3 / reps)
+    parts = ', '.join(f'{name} {ms:.4f} ms' for name, ms in by_name.items())
+    print(f'{label}, device time per call: {parts or "not measured"} '
+          f'[{card}]', flush=True)
+
+
 def agree(name, got, want, want32=None):
     """The card's PPGs against the CPU's: atol 2e-2, argmax agreement >=
     99.5%. With ``want32`` (the same call in fp32) the agreement counts the
@@ -365,6 +400,91 @@ def agree(name, got, want, want32=None):
         raise AssertionError(f'{name}: the card disagrees with the cpu')
 
 
+# K4 (ffn_ln.cu) at odd shapes, every form and width, before anything is
+# timed: rows about the 64-row warpgroup and 128-row tile edges and a
+# ragged 1000, hidden widths of one 128-wide tile, of three, and the model's
+K4_ODD_M = (1, 63, 64, 65, 127, 129, 1000)
+K4_ODD_F = (128, 384)
+
+
+def relative_l2(got, want):
+    got, want = got.float(), want.float()
+    if not torch.isfinite(got).all():
+        raise AssertionError('non-finite values')
+    return ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
+
+
+@torch.no_grad()
+def k4_odd_shape_checks(form, C, act, model_F, dev):
+    """K4 in one form against its plain version at ``K4_ODD_M`` rows and
+    ``K4_ODD_F`` + (model_F,) hidden widths, on seeded random weights;
+    prints the max |kernel - plain| of every case, one line per (F,
+    variant).
+
+    ``form``: 'ln', the inference LayerNorm form at round_input 0 and 1
+    (atol 1e-2, phase 3's limit); 'train_ln' (B4's: stats, dropout off and
+    0.1) and 'y_out' (B6's bf16 form, dropout off and 0.1), held as the
+    train functions are: relative L2 within 1e-3 (out, the normalised rows
+    and 1/std) or 1e-2 (the bf16 y), and y 0 wherever the plain version's
+    output mask drops."""
+    from ppgs_tpu_torch.ops import dropout, fused_ffn
+
+    bf16 = torch.bfloat16
+    # A generator of its own: the phases' own draws stay as they were
+    gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+
+    def rnd(*shape, scale=1.0, base=0.0):
+        return base + scale * torch.randn(*shape, generator=gen, device=dev)
+
+    for Fh in K4_ODD_F + (model_F,):
+        w1, w2 = (rnd(C, Fh, scale=C ** -0.5).to(bf16),
+                  rnd(Fh, C, scale=Fh ** -0.5).to(bf16))
+        b1, b2 = rnd(Fh, scale=0.1), rnd(C, scale=0.1)
+        ln = (rnd(C, scale=0.1, base=1.0), rnd(C, scale=0.1))
+        variants = ((0, 1) if form == 'ln' else (0.0, DROPOUT))
+        for variant in variants:
+            cases = []
+            for M in K4_ODD_M:
+                name = (f'K4 {form} C={C} {act} F={Fh} M={M} '
+                        f'{"round_input" if form == "ln" else "rate"}='
+                        f'{variant}')
+                if form == 'ln':
+                    x = rnd(M, C)
+                    args = (x, w1, b1, w2, b2, *ln)
+                    e = check(name, fused_ffn.ffn_residual_ln(
+                        *args, round_input=variant, activation=act),
+                        fused_ffn.ffn_residual_ln_reference(
+                            *args, round_input=variant, activation=act),
+                        atol=1e-2, quiet=True)
+                    cases.append(f'{M} {e:.3g}')
+                    continue
+                drop_h = dropout.Drop(SEED + 23, 3, variant)
+                fwd = ((rnd(M, C), w1, b1, w2, b2, drop_h, drop_h.at(4), ln)
+                       if form == 'train_ln' else
+                       (rnd(M, C).to(bf16), w1, b1, w2, b2, drop_h,
+                        drop_h.at(4)))
+                got = fused_ffn.ffn_train_fwd(*fwd)
+                want = fused_ffn.ffn_train_fwd_reference(*fwd)
+                pairs = list(zip(got, want))[:3 if form == 'train_ln' else 1]
+                limit = 1e-3 if form == 'train_ln' else 1e-2
+                rels = [relative_l2(a, b) for a, b in pairs]
+                if max(rels) > limit:
+                    raise AssertionError(f'{name}: relative L2 errors {rels} '
+                                         f'> {limit}')
+                # The output's dropped elements are 0 (a kept one may be 0
+                # too: bf16(dot) + bf16(b2) cancels exactly now and then)
+                if (form == 'y_out' and variant
+                        and got[0][~fwd[6].keep((M, C), dev)].any()):
+                    raise AssertionError(f'{name}: a dropped element is not 0')
+                e = max((a.float() - b.float()).abs().max().item()
+                        for a, b in pairs)
+                cases.append(f'{M} {e:.3g} (rel {max(rels):.2g})')
+            print(f'K4 {form} C={C} {act} F={Fh} '
+                  f'{"round_input" if form == "ln" else "rate"}={variant}: '
+                  f'max |kernel - plain| by M: {", ".join(cases)}',
+                  flush=True)
+
+
 def check_rel(name, got, want, limit):
     """Raise unless the relative L2 error |got - want| / |want| <= limit;
     return the max |diff|. For the gradients of a whole layer, where the
@@ -372,7 +492,7 @@ def check_rel(name, got, want, limit):
     got, want = got.float(), want.float()
     if not torch.isfinite(got).all():
         raise AssertionError(f'{name}: non-finite values')
-    rel = ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
+    rel = relative_l2(got, want)
     worst = (got - want).abs().max().item()
     print(f'{name}: relative L2 error {rel:.3g} (<= {limit}), max |diff| '
           f'{worst:.3g}, mean |plain| {want.abs().mean().item():.3g}',
@@ -1092,6 +1212,7 @@ def train_kernel_times(config, inp, err, launches, per_step, form_launches,
             'max_abs_err': err[name], 'ms': ms, 'plain_ms': plain_ms,
             'bound_ms': bound_ms, 'bound_by': bound_by,
             'library_ms': library_ms})
+    kernel_device_ms('K4 ffn_train_fwd', runs['ffn_train_fwd'][0], card)
     gemm_records = gemm_form_times(inp, err, form_launches, card)
     return records + gemm_records, sum(r['ms'] for r in gemm_records)
 
@@ -1366,7 +1487,7 @@ def report_profile(label, prof, wall_ms, card):
 KERNEL_GROUPS = (
     ('B8 rel_attention', ('rel_attention_kernel',)),
     ('K1-K4', ('qkv_proj_kernel', 'attention_kernel<', 'out_proj_ln_kernel',
-               'ffn_ln_kernel')),
+               'ffn_fused_kernel', 'ffn_hidden_kernel', 'ffn_out_kernel')),
     ('cuDNN convs and cuBLAS products', ('gemm', 'conv', 'xmma', 'cutlass')),
     ('PyTorch elementwise, copies and reductions', ('at::native',)),
 )
@@ -1417,6 +1538,7 @@ def mel_phases(port, config, workdir, dev, gen, card):
          'be2': layer0.norm2.bias}
 
     phase(f'3 kernels against their plain versions ({W} windows x T={T})')
+    k4_odd_shape_checks('ln', C, 'relu', Fh, dev)
     x = torch.randn(W, T, C, generator=gen, device=dev)
     # The main path's window lengths: 500 and 450 valid frames
     win_len = torch.tensor([min(T, frames + config.chunk_overlap - i * stride)
@@ -1620,6 +1742,8 @@ def mel_phases(port, config, workdir, dev, gen, card):
             'bound_ms': bound_ms, 'bound_by': bound_by,
             'library_ms': library_ms})
 
+    kernel_device_ms('K4 ffn_residual_ln', runs['ffn_residual_ln'][0], card)
+
     # B9: the library's yardstick is the cuDNN bf16 chain of the same
     # function (the DFT as a conv, magnitude, mel product, log)
     n_freqs = config.num_fft // 2 + 1
@@ -1713,6 +1837,9 @@ def train_phases(port, config, workdir, dev, gen, card):
         port.load.flatten_params(random_params(port, config, SEED))))
     layer = train_model.layers[0]
     gemm_small_checks(dev, gen)
+    for form in ('train_ln', 'y_out'):
+        k4_odd_shape_checks(form, config.hidden_channels, 'relu',
+                            config.ffn_channels, dev)
     train_err, train_inputs = train_kernel_checks(port, config, layer, dev,
                                                   gen)
     train_inputs.update(
@@ -2102,6 +2229,8 @@ def layer_records(tag, inp, err, launches, replaces, card):
                     w['w2']).view(B, T, C), (C,), w['g2'], w['be2'])),
         (4 * M * C * Fh, 2 * M * C * 4 + 2 * C * Fh * 2 + (Fh + 3 * C) * 4),
         card))
+    kernel_device_ms(f'K4 ffn_residual_ln C = {C}', lambda: fused_ffn.
+                     ffn_residual_ln(r, *ffn, activation=act), card)
     return records
 
 
@@ -2142,10 +2271,17 @@ def w2v2fb_times(port, trunk, head_config, head_path, inputs, err,
     T1 = (T0 - k[1]) // s[1] + 1
     T2 = (T1 - k[2]) // s[2] + 1
     taps = trunk.feature_prepared
-    conv0 = F.gelu(port.models.w2v2._group_norm(
-        F.conv1d(a16[:, None], taps.w0.T[:, None, :], stride=s[0]),
-        trunk.feature_encoder[0].group_norm),
-        approximate='tanh').to(torch.bfloat16)
+    w0_oik = taps.w0.T[:, None, :]
+    gn = trunk.feature_encoder[0].group_norm
+
+    def library_conv0():
+        # conv 0 (cuDNN, bf16), the fp32 GroupNorm, GELU to bf16: the first
+        # layer of models.w2v2.feature_encoder
+        return F.gelu(port.models.w2v2._group_norm(
+            F.conv1d(a16[:, None], w0_oik, stride=s[0]), gn),
+            approximate='tanh').to(torch.bfloat16)
+
+    conv0 = library_conv0()
     w1_oik = taps.w1.view(k[1], Cc, Cc).permute(2, 1, 0).contiguous()
     w2_oik = taps.w2.view(k[2], Cc, Cc).permute(2, 1, 0).contiguous()
     x1 = c['x1']
@@ -2165,12 +2301,35 @@ def w2v2fb_times(port, trunk, head_config, head_path, inputs, err,
             lambda: conv_stack.conv_gelu(a16, taps.w1, k[1], s[1], first),
             lambda: conv_stack.conv_gelu_reference(a16, taps.w1, k[1], s[1],
                                                    first),
-            # conv 1 alone (cuDNN, bf16) on a stored conv-0 activation
+            # conv 1 on a stored conv-0 activation (cuDNN, bf16)
             lambda: F.gelu(F.conv1d(conv0, w1_oik, stride=s[1]),
                            approximate='tanh')),
         (2 * B * T1 * k[1] * Cc * Cc + 2 * B * T0 * k[0] * Cc,
          B * S * 2 + k[1] * Cc * Cc * 2 + k[0] * Cc * 2 + B * T1 * Cc * 2),
         card, plain_reps=HEAVY_REPS))
+    del conv0
+
+    # The library's route to the function that conv_stats + conv_gelu's
+    # first form compute together, from the audio: the first two layers of
+    # models.w2v2.feature_encoder (conv 0 + GroupNorm + GELU, conv 1 +
+    # GELU); held to the kernels' conv-1 output so that it is that function
+    def library_first_two():
+        return F.gelu(F.conv1d(library_conv0(), w1_oik, stride=s[1]),
+                      approximate='tanh')
+
+    rel = relative_l2(library_first_two().transpose(1, 2), c['x1'])
+    chain_first_ms = time_ms(library_first_two)
+    records[-1]['library_chain_ms'] = chain_first_ms
+    print(f'conv_gelu_first: the library route to the same function (conv 0 '
+          f'+ GroupNorm + GELU + conv 1 + GELU, cuDNN bf16) '
+          f'{chain_first_ms:.4f} ms (its output within relative L2 '
+          f'{rel:.3g} of the kernels\' (<= 5e-2)), against conv 1 on a '
+          f'stored conv-0 activation {records[-1]["library_ms"]:.4f} ms and '
+          f'conv_stats + conv_gelu_first {records[-2]["ms"]:.4f} + '
+          f'{records[-1]["ms"]:.4f} ms [{card}]', flush=True)
+    if not rel <= 5e-2:
+        raise AssertionError('the library route to conv_gelu_first computes '
+                             'another function')
     records.append(timed_record(
         'conv_gelu', 'conv_stack.cu', 'ppgs_tpu/ops/conv_stack.py:123',
         stack_launches['conv_gelu'] - stack_launches['conv_gelu_first'],
@@ -2182,7 +2341,6 @@ def w2v2fb_times(port, trunk, head_config, head_path, inputs, err,
         (2 * B * T2 * k[2] * Cc * Cc,
          B * T1 * Cc * 2 + k[2] * Cc * Cc * 2 + B * T2 * Cc * 2), card,
         plain_reps=HEAVY_REPS))
-    del conv0
 
     # The wholes: the 12-layer GELU stack and the conv chain
     st = inputs['stack']
@@ -2249,6 +2407,10 @@ def w2v2fb_phases(port, workdir, dev, gen, card):
     phase('9 w2v2fb kernels against their plain versions (trunk 64 x 400, '
           'head 128 x 500, conv stack 64 x 8 s)')
     trunk, head, head_config, head_path = w2v2fb_setup(port, workdir, dev)
+    k4_odd_shape_checks('ln', trunk.config.hidden_size, 'gelu',
+                        trunk.config.intermediate_size, dev)
+    k4_odd_shape_checks('ln', head_config.hidden_channels, 'relu',
+                        head_config.ffn_channels, dev)
     err, inputs = w2v2fb_kernel_checks(port, trunk, head, head_config, dev,
                                        gen)
     del head

@@ -76,12 +76,12 @@ SIGNATURES = {
     # a, w, bias, x, gamma, beta, out, n_out, rstd, M, C, *drop, stream
     'ppgs_out_proj_ln': ('out_proj_ln.cu', (_P, _P, _P, _P, _P, _P, _P, _P,
                                             _P, _I, _I, *_DROP, _P)),
-    # x, w1, b1, w2, b2, gamma, beta, out, n_out, rstd, y_out, M, F, C,
+    # x, w1, b1, w2, b2, gamma, beta, out, n_out, rstd, y_out, h, M, F, C,
     # act, round_input, seed_lo, seed_hi, site_h, site_y, threshold, scale,
     # stream
     'ppgs_ffn_ln': ('ffn_ln.cu', (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                  _P, _I, _I, _I, _I, _I, _U, _U, _U, _U,
-                                  _U, _F, _P)),
+                                  _P, _P, _I, _I, _I, _I, _I, _U, _U, _U,
+                                  _U, _U, _F, _P)),
     # q, q_rs, k, v, kv_rs, bias, mask, out, out_rs, B, T, H, d, sm_scale,
     # stream
     'ppgs_rel_attention': ('rel_attention.cu', (

@@ -23,310 +23,908 @@
 //   hd, y = bf16(bf16(dot) + bf16(b2)), and the output
 //   keep_y ? bf16(y * bf16(1 / (1 - rate))) : 0 in bf16, no LayerNorm.
 // Products take bf16 operands and accumulate in fp32; LN statistics fp32.
-// The dropout masks are the Philox stream of philox.cuh.
+// The dropout masks are the Philox stream of philox.cuh, keyed by the flat
+// index of the element, so they do not depend on the tiling.
 //
-// Bound on an H100 at the main path's shape (M = 64,000, F = 2048):
-// 134 GFLOP against 131 MB moved, so bound by the tensor cores (~136 us);
-// at the training shape (M = 131,072) 275 GFLOP (~0.28 ms); the w2v2fb
-// head (M = 64,000, C = 512) 268 GFLOP (~0.27 ms) and the wav2vec2 trunk
-// (M = 25,600, C = 768, F = 3072) 242 GFLOP (~0.24 ms), both bound by the
-// tensor cores.
-// The design keeps the (M, F) hidden out of memory: a block owns BM whole
-// rows and walks F in 128-wide chunks; each chunk of h lives in shared
-// memory as bf16 and feeds the second product at once, whose (BM, C) sum
-// stays in registers until the epilogue. That sum is what limits the rows
-// a block can own: at C = 768 a (64, C) fp32 sum is 196 KB, 192 registers
-// a thread over 256 threads, which cannot fit beside the operands. So
-// C = 256 keeps 64 rows (8 warps as 4 x 2, 128 output columns each, as
-// before), and C = 512 and 768 take 32 rows (8 warps as 2 x 4, C/4 output
-// columns each: at most 12 accumulator fragments, 96 registers). The
-// weights stream through shared memory per block from L2. Shared memory:
-// 100 KB at C = 256, 90 KB at C = 512, 122 KB at C = 768. Plain wmma with
-// synchronous loads: right first, fast later.
+// Bound on an H100 (989 TFLOP/s bf16, 3.35 TB/s): 4 M C F operations, so
+// every width is bound by the tensor cores: the mel shape (M = 64,000,
+// C = 256, F = 2048) 134 GFLOP, ~0.136 ms; the w2v2fb head (C = 512) 268
+// GFLOP, ~0.27 ms; the wav2vec2 trunk (M = 25,600, C = 768, F = 3072) 242
+// GFLOP, ~0.24 ms; the training shape (M = 131,072) 275 GFLOP, ~0.28 ms.
+//
+// Design, on the wgmma + TMA building blocks of hopper.cuh (as gemm.cu): a
+// producer (a warpgroup of its own, or at C = 256 one consumer thread)
+// keeps a ring of stages in flight with TMA (128-byte swizzle, full and
+// empty mbarriers); two consumer warpgroups each own 64 rows of a 128-row
+// block and issue wgmma.mma_async with fp32 accumulators in registers.
+// What decides the form is the (rows x C) fp32
+// sum of the second product, which a kernel that keeps the hidden on chip
+// holds in registers for its whole walk over F:
+// - C = 256, one kernel (ffn_fused_kernel): 128 rows fit, 128 accumulator
+//   registers a consumer thread, beside the hidden chunk's 32 and its 16
+//   bf16 fragments; see the kernel's note. Every weight byte brought on
+//   chip serves the block's 128 rows, and the hidden never leaves the SM.
+// - C = 512 and 768, two launches: 128 rows would need 256 KB or 384 KB of
+//   sum against the SM's 256 KB of registers, so a fused block could own
+//   only 64 rows (a weight byte serving 64 rows unless a cluster
+//   multicast each stage) and would have to share each hidden chunk
+//   between warpgroups through shared memory. Instead:
+//   1. ffn_hidden_kernel: h = drop_h(act(x W1 + b1)) in bf16, (M, F), a
+//      128 x 256 tile a block (128 x 128 where F % 256 != 0); x is TMA'd
+//      as it is, fp32, and each consumer thread reads its m64k16 fragment
+//      from the swizzled tile and rounds it to bf16 (the RS form); W1 as
+//      stored (MN-major). Bias, activation, dropout and the rounding are
+//      applied to the accumulators in registers.
+//   2. ffn_out_kernel: y = h W2 + b2 on 128 x 256 tiles (h K-major, W2
+//      MN-major), then the residual, drop_y and the LayerNorm from the
+//      accumulators. A row spans C / 256 blocks: they are one
+//      thread-block cluster along C and trade each row's partial sums
+//      (the sum, then the centred sum of squares) through distributed
+//      shared memory, each adding the ranks' sums in rank order, so that
+//      every block normalises with the same mean and 1/std.
+//   Both launches use 128-row tiles, so every weight byte brought on chip
+//   serves 128 rows; the hidden's round trip through memory costs 2 M F x
+//   2 bytes, 0.16 ms at the w2v2fb head's shape and 0.09 ms at the
+//   trunk's on 3.35 TB/s, against the products' 0.24-0.27 ms bound.
+// The dropout masks: a Philox draw covers 4 consecutive columns, and the
+// accumulator layout gives a thread 2 adjacent columns of each 8-column
+// group for two rows (g and g + 8), so lanes t and t ^ 1 share a group:
+// each draws the group of its own row (g for even t, g + 8 for odd) and
+// they trade the two words the other needs, one draw per 4 elements.
+// Rows past M: TMA fills zeros, and no row >= M is written.
+
+#include <cooperative_groups.h>
+
+#include <type_traits>
 
 #include "common.cuh"
+#include "hopper.cuh"
 #include "philox.cuh"
 
-using namespace nvcuda;
+namespace cg = cooperative_groups;
 using ppgs::bf16;
+using namespace ppgs::hopper;
 
 namespace {
 
-constexpr int FC = 128, THREADS = 256;
-constexpr int H_LD = FC + 8;    // bf16 hidden chunk, BM x 128
-constexpr int W_LD1 = FC + 8;   // W1 chunk, 64 x 128
-constexpr int HF_LD = FC + 4;   // fp32 hidden chunk before bias + act
+constexpr int BM = 128, BK = 64;          // block tile rows, depth step
+constexpr int THREADS = 384;              // producer warpgroup + 2 consumers
+constexpr int RING_BYTES = 192 * 1024;    // the stages' shared memory
+constexpr int BOX_BYTES = 8192;           // 64 rows of 128 bytes
+constexpr int OUT_BN = 256;               // the output kernel's columns
 enum Act { RELU = 0, GELU = 1 };
 
-// The tiling and shared-memory plan of the instance for width C
-template <int C>
-struct Plan {
-  static constexpr int BM = C == 256 ? 64 : 32;   // rows per block
-  static constexpr int RG = BM / 16;              // warp row groups
-  static constexpr int CG = 8 / RG;               // warp column groups
-  static constexpr int HW = FC / CG;              // a warp's hidden columns
-  static constexpr int OW = C / CG;               // a warp's output columns
-  static constexpr int A_LD = C + 8;    // bf16(x) tile, BM x C
-  static constexpr int W_LD2 = C + 8;   // W2 chunk, 32 x C
-  static constexpr int Y_LD = C + 4;    // fp32 epilogue tile, BM x C
-  static constexpr int OFF_A = 0;
-  static constexpr int OFF_H = OFF_A + BM * A_LD * 2;
-  static constexpr int W_BYTES1 = 64 * W_LD1 * 2, W_BYTES2 = 32 * W_LD2 * 2;
-  static constexpr int OFF_W = OFF_H + BM * H_LD * 2;
-  static constexpr int OFF_HF =
-      OFF_W + (W_BYTES1 > W_BYTES2 ? W_BYTES1 : W_BYTES2);
-  static constexpr int SMEM = OFF_HF + BM * HF_LD * 4;
-  static_assert(BM * Y_LD * 4 <= OFF_HF, "epilogue tile overlaps the hidden");
-  static_assert(OFF_H % 128 == 0 && OFF_W % 128 == 0 && OFF_HF % 128 == 0,
-                "shared-memory regions must stay aligned");
+// A stage: A (BM rows, K-major, 128-byte rows: one bf16 box of 64 depth
+// columns or two fp32 boxes of 32) and B (64 depth rows, MN-major, BN / 64
+// boxes of 64 columns)
+template <bool A_F32, int BN>
+struct Ring {
+  static constexpr int A_BYTES = BM * BK * (A_F32 ? 4 : 2);
+  static constexpr int B_BYTES = BN * BK * 2;
+  static constexpr int STAGE = A_BYTES + B_BYTES;
+  static constexpr int STAGES = RING_BYTES / STAGE;     // 3, 4 or 6
+  // the ring, its barriers, the LayerNorm's row sums (2 x BM fp32), and
+  // slack to align the ring to 1024 bytes
+  static constexpr int SMEM = STAGES * STAGE + 2 * STAGES * 8 + 2 * BM * 4
+                              + 1024;
   static_assert(SMEM <= 232448, "more shared memory than a block may have");
 };
-
-template <int C, int BM>
-__device__ __forceinline__ void load_rows(bf16* s, const float* g, int rows) {
-  ppgs::load_tile_f32_as_bf16<BM, C, THREADS>(s, C + 8, g, C, rows);
-}
-template <int C, int BM>
-__device__ __forceinline__ void load_rows(bf16* s, const bf16* g, int rows) {
-  ppgs::load_tile_bf16<BM, C, THREADS>(s, C + 8, g, C, rows);
-}
 
 template <int ACT>
 __device__ __forceinline__ float activate(float v) {
   return ACT == GELU ? ppgs::gelu_tanh(v) : fmaxf(v, 0.f);
 }
 
-// TX = float: the LayerNorm epilogue (out, and n_out/rstd unless null);
-// TX = bf16: the bf16 output y_out.
-template <typename TX, int C, int ACT>
-__global__ void __launch_bounds__(THREADS)
-ffn_ln_kernel(const TX* __restrict__ x, const bf16* __restrict__ w1,
-              const float* __restrict__ b1, const bf16* __restrict__ w2,
-              const float* __restrict__ b2, const float* __restrict__ gamma,
-              const float* __restrict__ beta, float* __restrict__ out,
-              float* __restrict__ n_out, float* __restrict__ rstd,
-              bf16* __restrict__ y_out, int M, int F, int round_input,
-              ppgs::Dropout drop_h, ppgs::Dropout drop_y) {
-  using P = Plan<C>;
-  constexpr int BM = P::BM, CG = P::CG, HW = P::HW, OW = P::OW;
-  constexpr int A_LD = P::A_LD, W_LD2 = P::W_LD2, Y_LD = P::Y_LD;
-  constexpr bool LN = sizeof(TX) == 4;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sA = reinterpret_cast<bf16*>(smem + P::OFF_A);
-  bf16* sH = reinterpret_cast<bf16*>(smem + P::OFF_H);
-  bf16* sW = reinterpret_cast<bf16*>(smem + P::OFF_W);
-  float* sHf = reinterpret_cast<float*>(smem + P::OFF_HF);
-  float* sY = reinterpret_cast<float*>(smem);
+__device__ __forceinline__ unsigned char* aligned_ring(unsigned char* raw) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
+}
 
-  const int row0 = blockIdx.x * BM;
-  const int rows = min(BM, M - row0);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wr = (warp / CG) * 16;   // the warp's 16 rows
-  const int wc1 = (warp % CG) * HW;  // its hidden columns of a chunk
-  const int wc2 = (warp % CG) * OW;  // its output columns
-  const float scale_h = ppgs::round_bf16(drop_h.scale);
-  ppgs::KeepStream keep_h(drop_h), keep_y(drop_y);
-
-  load_rows<C, BM>(sA, x + (long long)row0 * C, rows);
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> y[OW / 16];
+// Producer (one thread): keep the ring full for `steps` depth steps of the
+// (m0, n0) tile
+template <bool A_F32, int BN>
+__device__ __forceinline__ void produce(const CUtensorMap* map_a,
+                                        const CUtensorMap* map_b,
+                                        unsigned char* ring, uint64_t* full,
+                                        uint64_t* empty, int steps, int m0,
+                                        int n0) {
+  using R = Ring<A_F32, BN>;
+  for (int i = 0; i < steps; ++i) {
+    const int s = i % R::STAGES, round = i / R::STAGES;
+    if (round > 0) mbar_wait(smem_addr(empty + s), (round - 1) & 1);
+    const uint32_t bar = smem_addr(full + s);
+    mbar_expect_tx(bar, R::STAGE);
+    unsigned char* sa = ring + s * R::STAGE;
+    unsigned char* sb = sa + R::A_BYTES;
+    const int k = i * BK;
+    tma_load(sa, map_a, k, m0, bar);
+    if (A_F32) tma_load(sa + BM * 128, map_a, k + 32, m0, bar);
 #pragma unroll
-  for (int j = 0; j < OW / 16; ++j) wmma::fill_fragment(y[j], 0.f);
-
-  for (int f0 = 0; f0 < F; f0 += FC) {
-    // h = bf16(x) @ W1[:, f0:f0+128], K = C in 64-deep steps
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> h[HW / 16];
-#pragma unroll
-    for (int j = 0; j < HW / 16; ++j) wmma::fill_fragment(h[j], 0.f);
-    for (int k0 = 0; k0 < C; k0 += 64) {
-      __syncthreads();
-      ppgs::load_tile_bf16<64, FC, THREADS>(
-          sW, W_LD1, w1 + (long long)k0 * F + f0, F, 64);
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < 64; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::load_matrix_sync(fa, sA + wr * A_LD + k0 + kk, A_LD);
-#pragma unroll
-        for (int j = 0; j < HW / 16; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
-              fb;
-          wmma::load_matrix_sync(fb, sW + kk * W_LD1 + wc1 + j * 16, W_LD1);
-          wmma::mma_sync(h[j], fa, fb, h[j]);
-        }
-      }
-    }
-    // Bias + activation (+ dropout) + bf16 on the warp's own 16 x HW piece
-    // of the chunk, 4 consecutive columns per lane and step: one Philox
-    // draw covers them, and the float4 reads of a quarter warp hit 32 banks
-#pragma unroll
-    for (int j = 0; j < HW / 16; ++j)
-      wmma::store_matrix_sync(sHf + wr * HF_LD + wc1 + j * 16, h[j], HF_LD,
-                              wmma::mem_row_major);
-    __syncwarp();
-    constexpr int GROUPS = HW / 4;     // float4 groups in a row's piece
-    for (int i = lane; i < 16 * GROUPS; i += 32) {
-      const int r = wr + i / GROUPS, c = wc1 + (i % GROUPS) * 4;
-      const float4 acc4 = *reinterpret_cast<const float4*>(sHf + r * HF_LD + c);
-      const float acc[4] = {acc4.x, acc4.y, acc4.z, acc4.w};
-      const unsigned long long base =
-          (unsigned long long)(row0 + r) * F + f0 + c;
-      __align__(8) bf16 h4[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float bias = b1[f0 + c + e];
-        float v = activate<ACT>(
-            round_input ? acc[e] + bias
-                        : ppgs::round_bf16(ppgs::round_bf16(acc[e]) +
-                                           ppgs::round_bf16(bias)));
-        if (drop_h.threshold)
-          v = (row0 + r < M && keep_h.keep(base + e))
-                  ? ppgs::round_bf16(v * scale_h) : 0.f;
-        h4[e] = __float2bfloat16(v);
-      }
-      *reinterpret_cast<uint2*>(sH + r * H_LD + c) =
-          *reinterpret_cast<const uint2*>(h4);
-    }
-    // y += h @ W2[f0:f0+128, :], K = 128 in four 32-deep steps; the first
-    // barrier also publishes every warp's piece of sH
-    for (int k0 = 0; k0 < FC; k0 += 32) {
-      __syncthreads();
-      ppgs::load_tile_bf16<32, C, THREADS>(
-          sW, W_LD2, w2 + (long long)(f0 + k0) * C, C, 32);
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < 32; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::load_matrix_sync(fa, sH + wr * H_LD + k0 + kk, H_LD);
-#pragma unroll
-        for (int j = 0; j < OW / 16; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
-              fb;
-          wmma::load_matrix_sync(fb, sW + kk * W_LD2 + wc2 + j * 16, W_LD2);
-          wmma::mma_sync(y[j], fa, fb, y[j]);
-        }
-      }
-    }
+    for (int j = 0; j < BN / 64; ++j)
+      tma_load(sb + j * BOX_BYTES, map_b, n0 + j * 64, k, bar);
   }
-  __syncthreads();
-#pragma unroll
-  for (int j = 0; j < OW / 16; ++j)
-    wmma::store_matrix_sync(sY + wr * Y_LD + wc2 + j * 16, y[j], Y_LD,
-                            wmma::mem_row_major);
-  __syncthreads();
+}
 
-  // Epilogue: each warp takes BM/8 whole rows, C/32 columns per lane
-  constexpr int VPL = C / 32, RPW = BM / 8;
-  const int c0 = lane * VPL;
-  const float scale_y = LN ? drop_y.scale : ppgs::round_bf16(drop_y.scale);
-  for (int r = warp * RPW; r < warp * RPW + RPW; ++r) {
-    if (r >= rows) break;
-    const long long row = row0 + r, g = row * C + c0;
-    float v[VPL];
-    if constexpr (LN) {
+// One consumer thread's m64k16 A fragment of depth step kk from an fp32
+// K-major stage (two boxes of BM rows x 32 depth columns, 128-byte
+// swizzle: the 16-byte chunk q of row r sits at chunk q ^ (r & 7)),
+// rounded to bf16: registers {a0 a1}, {a2 a3}, {a4 a5}, {a6 a7} of the
+// fragment are (row g, depth 2t..2t+1), (g + 8, 2t..), (g, 2t + 8..),
+// (g + 8, 2t + 8..) of the warp's 16 rows. Conflict-free: the 8 rows of
+// a read hit 8 different chunks.
+__device__ __forceinline__ void f32_fragment(uint32_t (&a)[4],
+                                             const float* stage, int c,
+                                             int warp, int lane, int kk) {
+  const int g = lane >> 2, t = lane & 3;
+  const float* box = stage + (kk >> 1) * (BM * 32);
 #pragma unroll
-      for (int e4 = 0; e4 < VPL; e4 += 4) {
-        const float4 x4 = *reinterpret_cast<const float4*>(x + g + e4);
-        const float xs[4] = {x4.x, x4.y, x4.z, x4.w};
+  for (int q = 0; q < 2; ++q) {       // depth 2t.. or 2t + 8..
+    const int k = 16 * (kk & 1) + 8 * q + 2 * t;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int e = e4 + j;
-          const float acc = sY[r * Y_LD + c0 + e];
-          if (drop_y.threshold) {
-            v[e] = xs[j] + (keep_y.keep(g + e)
-                                ? (acc + b2[c0 + e]) * scale_y : 0.f);
-          } else {
-            const float res = round_input ? ppgs::round_bf16(xs[j]) : xs[j];
-            v[e] = res + acc + b2[c0 + e];
-          }
-        }
-      }
-      ppgs::layer_norm_row<C>(v, gamma, beta, out + row * C,
-                              n_out ? n_out + row * C : nullptr,
-                              rstd ? rstd + row : nullptr);
-    } else {
-#pragma unroll
-      for (int e8 = 0; e8 < VPL; e8 += 8) {
-        __align__(16) bf16 o8[8];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int e = e8 + j;
-          const float y0 = ppgs::round_bf16(
-              ppgs::round_bf16(sY[r * Y_LD + c0 + e]) +
-              ppgs::round_bf16(b2[c0 + e]));
-          v[e] = drop_y.threshold
-                     ? (keep_y.keep(g + e) ? ppgs::round_bf16(y0 * scale_y)
-                                           : 0.f)
-                     : y0;
-          o8[j] = __float2bfloat16(v[e]);
-        }
-        *reinterpret_cast<uint4*>(y_out + g + e8) =
-            *reinterpret_cast<const uint4*>(o8);
-      }
+    for (int h = 0; h < 2; ++h) {     // row g or g + 8
+      const int row = 64 * c + 16 * warp + 8 * h + g;
+      const float2 v = *reinterpret_cast<const float2*>(
+          box + row * 32 + (((k >> 2) ^ (row & 7)) << 2) + (k & 3));
+      __nv_bfloat162 p = __floats2bfloat162_rn(v.x, v.y);
+      a[2 * q + h] = *reinterpret_cast<uint32_t*>(&p);
     }
   }
 }
 
-template <typename TX, int C, int ACT>
-int launch(const void* x, const void* w1, const void* b1, const void* w2,
-           const void* b2, const void* gamma, const void* beta, void* out,
-           void* n_out, void* rstd, void* y_out, int M, int F,
-           int round_input, ppgs::Dropout dh, ppgs::Dropout dy,
-           cudaStream_t stream) {
-  using P = Plan<C>;
-  auto kernel = ffn_ln_kernel<TX, C, ACT>;
+// Consumer warpgroup c: acc (its 64 rows x BN) = A B over `steps` stages
+template <bool A_F32, int BN>
+__device__ __forceinline__ void consume(float (&acc)[BN / 2],
+                                        unsigned char* ring, uint64_t* full,
+                                        uint64_t* empty, int steps, int c,
+                                        int warp, int lane) {
+  using R = Ring<A_F32, BN>;
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < steps; ++i) {
+    const int s = i % R::STAGES;
+    mbar_wait(smem_addr(full + s), (i / R::STAGES) & 1);
+    unsigned char* sa = ring + s * R::STAGE;
+    const uint32_t a_addr = smem_addr(sa), b_addr = a_addr + R::A_BYTES;
+    if constexpr (A_F32) {
+      // One depth step's fragment a product, the next one's loaded while
+      // it runs: two fragments live (registers are the limit)
+      uint32_t frag[2][4];
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        f32_fragment(frag[kk & 1], reinterpret_cast<const float*>(sa), c,
+                     warp, lane, kk);
+        fence_regs(acc);
+        wgmma_fence();
+        wgmma_rs<BN>(acc, frag[kk & 1],
+                     sw128_desc(b_addr + kk * 2048, BOX_BYTES, 1024));
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous step's product, and its fragment
+        fence_regs(frag[(kk + 1) & 1]);
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(frag[0]);
+      fence_regs(frag[1]);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(smem_addr(empty + s));
+    } else {
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        // A K-major (32 bytes of each 128-byte row a step), B MN-major (16
+        // depth rows of 128 bytes a step)
+        wgmma_ss<BN, 0, 1>(
+            acc, sw128_desc(a_addr + c * 64 * 128 + kk * 32, 16, 1024),
+            sw128_desc(b_addr + kk * 2048, BOX_BYTES, 1024));
+      wgmma_commit();
+      wgmma_wait<1>();    // the previous step's products are done
+      fence_regs(acc);
+      if (i > 0 && lane == 0)
+        mbar_arrive(smem_addr(empty + (i - 1) % R::STAGES));
+    }
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+}
+
+// Keep bits of a thread's four accumulators of 8-column group c8:
+// (r0, col), (r0, col + 1), (r1, col), (r1, col + 1), col = c8 + 2t, in an
+// (rows, ld) array. Lanes t and t ^ 1 share the Philox group of columns
+// c8 + 4 (t / 2)..: each draws its own row's (r0 for even t, r1 for odd)
+// and hands its partner the two words the partner needs.
+__device__ __forceinline__ void keep4(const ppgs::Dropout& d, long long r0,
+                                      long long r1, long long ld, int c8,
+                                      int t, bool (&keep)[4]) {
+  const bool odd = t & 1;
+  const unsigned long long group = static_cast<unsigned long long>(
+      (odd ? r1 : r0) * ld + c8 + 4 * (t >> 1)) >> 2;
+  const uint4 w = ppgs::philox4x32_10(
+      make_uint4(static_cast<uint32_t>(group),
+                 static_cast<uint32_t>(group >> 32), d.site, 0u),
+      d.seed_lo, d.seed_hi);
+  const uint32_t own0 = odd ? w.z : w.x, own1 = odd ? w.w : w.y;
+  const uint32_t got0 = __shfl_xor_sync(0xffffffffu, odd ? w.x : w.z, 1);
+  const uint32_t got1 = __shfl_xor_sync(0xffffffffu, odd ? w.y : w.w, 1);
+  keep[0] = (odd ? got0 : own0) >= d.threshold;
+  keep[1] = (odd ? got1 : own1) >= d.threshold;
+  keep[2] = (odd ? own0 : got0) >= d.threshold;
+  keep[3] = (odd ? own1 : got1) >= d.threshold;
+}
+
+// Store a thread's bf16 pairs (r0, col..col+1) and (r1, col..col+1) with
+// 8-byte stores: lanes t and t ^ 1 trade halves so that an even t holds 4
+// columns of row r0, an odd t 4 columns of row r1
+__device__ __forceinline__ void store_bf16(bf16* out, long long ld,
+                                           long long r0, long long r1,
+                                           int col, int t, uint32_t u0,
+                                           uint32_t u1, int M) {
+  const uint32_t got = __shfl_xor_sync(0xffffffffu, (t & 1) ? u0 : u1, 1);
+  const long long row = (t & 1) ? r1 : r0;
+  if (row < M) {
+    const uint2 o = (t & 1) ? make_uint2(got, u1) : make_uint2(u0, got);
+    *reinterpret_cast<uint2*>(out + row * ld + col - 2 * (t & 1)) = o;
+  }
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+__device__ __forceinline__ __nv_bfloat162 pair(float a, float b) {
+  return __floats2bfloat162_rn(a, b);
+}
+
+// Zero the halves of a bf16 pair whose keep bit is off
+__device__ __forceinline__ uint32_t keep_pair(uint32_t p, bool k0, bool k1) {
+  return p & ((k0 ? 0x0000FFFFu : 0u) | (k1 ? 0xFFFF0000u : 0u));
+}
+
+// The hidden's bias, activation, dropout and bf16 rounding on a thread's
+// four accumulators of 8-column group c8 of the (rows, F) hidden (v[e]:
+// row r0 or r1 by e / 2, column c8 + 2t + e % 2; bias: b1 at those two
+// columns), returned as the bf16 pairs of rows r0 (p0) and r1 (p1). With
+// ROUND = 0 (round_input 0) the sum is bf16(bf16(acc) + bf16(b1)): one
+// bf16x2 add of the rounded pairs, exactly that; ReLU and the dropout
+// scale (bf16 times bf16, rounded) stay in bf16x2 too, so that a pair costs
+// one conversion. GELU, and ROUND = 1, work in fp32 and round once at the
+// end.
+template <int ACT, bool ROUND>
+__device__ __forceinline__ void hidden4(uint32_t& p0, uint32_t& p1,
+                                        const float (&v)[4], float2 bias,
+                                        int c8, int t, long long r0,
+                                        long long r1, int F,
+                                        const ppgs::Dropout& drop) {
+  bool keep[4] = {true, true, true, true};
+  if (drop.threshold) keep4(drop, r0, r1, F, c8, t, keep);
+  if constexpr (ACT == RELU && !ROUND) {
+    const __nv_bfloat162 b = pair(bias.x, bias.y), zero = pair(0.f, 0.f);
+    __nv_bfloat162 h0 = __hmax2(__hadd2(pair(v[0], v[1]), b), zero);
+    __nv_bfloat162 h1 = __hmax2(__hadd2(pair(v[2], v[3]), b), zero);
+    if (drop.threshold) {
+      const float sc = ppgs::round_bf16(drop.scale);
+      h0 = __hmul2(h0, pair(sc, sc));
+      h1 = __hmul2(h1, pair(sc, sc));
+    }
+    p0 = keep_pair(bits(h0), keep[0], keep[1]);
+    p1 = keep_pair(bits(h1), keep[2], keep[3]);
+    return;
+  }
+  float w[4];
+  if constexpr (ROUND) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      w[e] = activate<ACT>(v[e] + ((e & 1) ? bias.y : bias.x));
+  } else {
+    const __nv_bfloat162 b = pair(bias.x, bias.y);
+    const float2 s0 = __bfloat1622float2(__hadd2(pair(v[0], v[1]), b));
+    const float2 s1 = __bfloat1622float2(__hadd2(pair(v[2], v[3]), b));
+    w[0] = activate<ACT>(s0.x), w[1] = activate<ACT>(s0.y);
+    w[2] = activate<ACT>(s1.x), w[3] = activate<ACT>(s1.y);
+  }
+  if (drop.threshold) {
+    const float sc = ppgs::round_bf16(drop.scale);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) w[e] *= sc;
+  }
+  p0 = keep_pair(bits(pair(w[0], w[1])), keep[0], keep[1]);
+  p1 = keep_pair(bits(pair(w[2], w[3])), keep[2], keep[3]);
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// The LayerNorm forms' epilogue on a thread's 64 x 256 accumulators (rows
+// r0, r1; columns n0 + 8j + 2t + e % 2 of the (M, C) output), in three
+// steps around the reduction of the row sums:
+// acc := res + drop_y(acc + b2); returns the row sums over the 256 columns
+__device__ __forceinline__ void residual_rows(
+    float (&acc)[128], const float* x, const float* b2, int M, int C, int n0,
+    long long r0, long long r1, int t, int round_input,
+    const ppgs::Dropout& drop, float& s0, float& s1) {
+  s0 = 0.f, s1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    const int col = n0 + 8 * j + 2 * t;
+    const float2 bias = *reinterpret_cast<const float2*>(b2 + col);
+    float2 x0 = make_float2(0.f, 0.f), x1 = x0;
+    if (r0 < M) x0 = *reinterpret_cast<const float2*>(x + r0 * C + col);
+    if (r1 < M) x1 = *reinterpret_cast<const float2*>(x + r1 * C + col);
+    const float xs[4] = {x0.x, x0.y, x1.x, x1.y};
+    bool keep[4] = {true, true, true, true};
+    if (drop.threshold) keep4(drop, r0, r1, C, n0 + 8 * j, t, keep);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float a = acc[4 * j + e], b = (e & 1) ? bias.y : bias.x;
+      acc[4 * j + e] =
+          drop.threshold
+              ? xs[e] + (keep[e] ? (a + b) * drop.scale : 0.f)
+              : (round_input ? ppgs::round_bf16(xs[e]) : xs[e]) + a + b;
+    }
+    s0 += acc[4 * j] + acc[4 * j + 1];
+    s1 += acc[4 * j + 2] + acc[4 * j + 3];
+  }
+  s0 = quad_sum(s0);
+  s1 = quad_sum(s1);
+}
+
+// acc -= the row's mean; returns the centred rows' sums of squares
+__device__ __forceinline__ void center_rows(float (&acc)[128], float mean0,
+                                            float mean1, float& q0,
+                                            float& q1) {
+  q0 = 0.f, q1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    acc[4 * j] -= mean0, acc[4 * j + 1] -= mean0;
+    acc[4 * j + 2] -= mean1, acc[4 * j + 3] -= mean1;
+    q0 += acc[4 * j] * acc[4 * j] + acc[4 * j + 1] * acc[4 * j + 1];
+    q1 += acc[4 * j + 2] * acc[4 * j + 2] + acc[4 * j + 3] * acc[4 * j + 3];
+  }
+  q0 = quad_sum(q0);
+  q1 = quad_sum(q1);
+}
+
+// out = acc / std * gamma + beta, and n_out = acc / std unless null
+__device__ __forceinline__ void store_ln(const float (&acc)[128], float inv0,
+                                         float inv1, const float* gamma,
+                                         const float* beta, float* out,
+                                         float* n_out, int M, int C, int n0,
+                                         long long r0, long long r1, int t) {
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    const int col = n0 + 8 * j + 2 * t;
+    const float2 gm = *reinterpret_cast<const float2*>(gamma + col);
+    const float2 bt = *reinterpret_cast<const float2*>(beta + col);
+    const float2 n0v = make_float2(acc[4 * j] * inv0, acc[4 * j + 1] * inv0);
+    const float2 n1v = make_float2(acc[4 * j + 2] * inv1,
+                                   acc[4 * j + 3] * inv1);
+    if (r0 < M) {
+      *reinterpret_cast<float2*>(out + r0 * C + col) =
+          make_float2(n0v.x * gm.x + bt.x, n0v.y * gm.y + bt.y);
+      if (n_out) *reinterpret_cast<float2*>(n_out + r0 * C + col) = n0v;
+    }
+    if (r1 < M) {
+      *reinterpret_cast<float2*>(out + r1 * C + col) =
+          make_float2(n1v.x * gm.x + bt.x, n1v.y * gm.y + bt.y);
+      if (n_out) *reinterpret_cast<float2*>(n_out + r1 * C + col) = n1v;
+    }
+  }
+}
+
+// The y_out form's epilogue: drop_y(bf16(bf16(acc) + bf16(b2))) in bf16
+// (a bf16x2 add of the rounded pairs; the dropout scale in bf16x2)
+__device__ __forceinline__ void store_y_out(const float (&acc)[128],
+                                            const float* b2, bf16* y_out,
+                                            int M, int C, int n0,
+                                            long long r0, long long r1, int t,
+                                            const ppgs::Dropout& drop) {
+  const float sc = ppgs::round_bf16(drop.scale);
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    const int col = n0 + 8 * j + 2 * t;
+    const float2 bias = *reinterpret_cast<const float2*>(b2 + col);
+    const __nv_bfloat162 b = pair(bias.x, bias.y);
+    __nv_bfloat162 y0 = __hadd2(pair(acc[4 * j], acc[4 * j + 1]), b);
+    __nv_bfloat162 y1 = __hadd2(pair(acc[4 * j + 2], acc[4 * j + 3]), b);
+    bool keep[4] = {true, true, true, true};
+    if (drop.threshold) {
+      keep4(drop, r0, r1, C, n0 + 8 * j, t, keep);
+      y0 = __hmul2(y0, pair(sc, sc));
+      y1 = __hmul2(y1, pair(sc, sc));
+    }
+    store_bf16(y_out, C, r0, r1, col, t, keep_pair(bits(y0), keep[0], keep[1]),
+               keep_pair(bits(y1), keep[2], keep[3]), M);
+  }
+}
+
+// C = 512 and 768, launch 1: h (M, F) bf16 = drop_h(act(x W1 + b1)), a
+// BM x BN tile a block
+template <int BN, int ACT, bool ROUND>
+__global__ void __launch_bounds__(THREADS, 1)
+ffn_hidden_kernel(const __grid_constant__ CUtensorMap map_x,
+                  const __grid_constant__ CUtensorMap map_w1,
+                  const float* __restrict__ b1, bf16* __restrict__ h, int M,
+                  int F, int C, ppgs::Dropout drop) {
+  using R = Ring<true, BN>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = aligned_ring(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + R::STAGES * R::STAGE);
+  uint64_t* empty = full + R::STAGES;
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) mbar_init_ring(full, empty, R::STAGES, 8);
+  __syncthreads();
+  if (wg == 0) {
+    if (threadIdx.x == 0)
+      produce<true, BN>(&map_x, &map_w1, ring, full, empty, C / BK, m0, n0);
+    return;
+  }
+  const int c = wg - 1, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  float acc[BN / 2];
+  consume<true, BN>(acc, ring, full, empty, C / BK, c, warp, lane);
+
+  // Register 4j + e holds row g + 8 (e / 2) of the warp's 16, column
+  // 8j + 2t + e % 2 of the tile
+  const int g = lane >> 2, t = lane & 3;
+  const long long r0 = m0 + 64 * c + 16 * warp + g, r1 = r0 + 8;
+  // b1 in batches of 8 groups, loaded together ahead of their use
+#pragma unroll
+  for (int j0 = 0; j0 < BN / 8; j0 += 8) {
+    float2 bias[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      bias[i] = *reinterpret_cast<const float2*>(b1 + n0 + 8 * (j0 + i) +
+                                                 2 * t);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int j = j0 + i;
+      const float v[4] = {acc[4 * j], acc[4 * j + 1], acc[4 * j + 2],
+                          acc[4 * j + 3]};
+      uint32_t p0, p1;
+      hidden4<ACT, ROUND>(p0, p1, v, bias[i], n0 + 8 * j, t, r0, r1, F,
+                          drop);
+      store_bf16(h, F, r0, r1, n0 + 8 * j + 2 * t, t, p0, p1, M);
+    }
+  }
+}
+
+// C = 512 and 768, launch 2: y = h W2 + b2 on a BM x 256 tile a block, then
+// out = LN2(res + drop_y(y)) over the cluster's C / 256 blocks, with the
+// normalised rows and 1/std where n_out and rstd are not null
+__global__ void __launch_bounds__(THREADS, 1)
+ffn_out_kernel(const __grid_constant__ CUtensorMap map_h,
+               const __grid_constant__ CUtensorMap map_w2,
+               const float* __restrict__ x, const float* __restrict__ b2,
+               const float* __restrict__ gamma,
+               const float* __restrict__ beta, float* __restrict__ out,
+               float* __restrict__ n_out, float* __restrict__ rstd, int M,
+               int F, int C, int round_input, ppgs::Dropout drop) {
+  using R = Ring<false, OUT_BN>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = aligned_ring(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + R::STAGES * R::STAGE);
+  uint64_t* empty = full + R::STAGES;
+  float* sums = reinterpret_cast<float*>(empty + R::STAGES);   // [2][BM]
+  const int n0 = blockIdx.x * OUT_BN, m0 = blockIdx.y * BM;
+  const int wg = threadIdx.x / 128;
+  const int c = wg - 1, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int lr0 = 64 * c + 16 * warp + g;            // the tile's rows
+  const long long r0 = m0 + lr0, r1 = r0 + 8;
+
+  if (threadIdx.x == 0) mbar_init_ring(full, empty, R::STAGES, 8);
+  __syncthreads();
+  float acc[OUT_BN / 2];
+  if (wg == 0) {
+    if (threadIdx.x == 0)
+      produce<false, OUT_BN>(&map_h, &map_w2, ring, full, empty, F / BK, m0,
+                             n0);
+  } else {
+    consume<false, OUT_BN>(acc, ring, full, empty, F / BK, c, warp, lane);
+  }
+  __syncwarp();   // the producer's warp meets the cluster barriers whole
+
+  // Every thread of every block of the cluster takes part in its three
+  // barriers; the producer warpgroup has nothing else to do
+  cg::cluster_group cluster = cg::this_cluster();
+  const int ranks = C / OUT_BN;             // the cluster's blocks
+  const float inv_c = 1.f / C;
+  float mean0 = 0.f, mean1 = 0.f;
+  if (wg != 0) {
+    float s0, s1;
+    residual_rows(acc, x, b2, M, C, n0, r0, r1, t, round_input, drop, s0,
+                  s1);
+    if (t == 0) sums[lr0] = s0, sums[lr0 + 8] = s1;
+  }
+  cluster.sync();
+  if (wg != 0) {
+    for (int r = 0; r < ranks; ++r) {
+      const float* peer = cluster.map_shared_rank(sums, r);
+      mean0 += peer[lr0];
+      mean1 += peer[lr0 + 8];
+    }
+    float q0, q1;
+    center_rows(acc, mean0 * inv_c, mean1 * inv_c, q0, q1);
+    if (t == 0) sums[BM + lr0] = q0, sums[BM + lr0 + 8] = q1;
+  }
+  cluster.sync();
+  if (wg != 0) {
+    float var0 = 0.f, var1 = 0.f;
+    for (int r = 0; r < ranks; ++r) {
+      const float* peer = cluster.map_shared_rank(sums, r);
+      var0 += peer[BM + lr0];
+      var1 += peer[BM + lr0 + 8];
+    }
+    const float inv0 = rsqrtf(var0 * inv_c + ppgs::LN_EPS);
+    const float inv1 = rsqrtf(var1 * inv_c + ppgs::LN_EPS);
+    store_ln(acc, inv0, inv1, gamma, beta, out, n_out, M, C, n0, r0, r1, t);
+    if (rstd && blockIdx.x == 0 && t == 0) {
+      if (r0 < M) rstd[r0] = inv0;
+      if (r1 < M) rstd[r1] = inv1;
+    }
+  }
+  cluster.sync();   // no block leaves while a peer reads its sums
+}
+
+// C = 256, one launch: the hidden stays on chip. A block owns BM = 128
+// rows: x's tile, rounded to bf16, stays in shared memory (64 KB, K-major,
+// swizzled as TMA would), and the block walks F in 64-column chunks, W1's
+// chunk (256 x 64) and W2's (64 x 256) arriving by TMA in a 2-stage ring.
+// Per chunk, each warpgroup (64 rows): h = x W1_f by m64n64k16 (SS); bias,
+// ReLU, dropout and the bf16 rounding on h's accumulators, which are then
+// the A fragments of y += h W2_f by m64n256k16 (RS: the accumulators of
+// two adjacent 8-column groups are a k16 A fragment); the next chunk's
+// first product is issued before the second one is waited for. y (64 x
+// 256 fp32) stays in registers, 128 a thread, beside h's 32 and the
+// fragments' 16: more than the 168 that a block of 288 or 384 threads
+// leaves a thread (a sub-partition of the SM holds a quarter of its
+// registers and three of nine warps), where ptxas spilled. So the block is
+// the two warpgroups alone, 256 threads of up to 255 registers; thread 0
+// fills the ring and thread LOADER refills it, chunk f + 2's stage as soon
+// as both warpgroups have released chunk f's. A stage also brings the
+// chunk's 64 values of b1 (a bulk copy), so that the bias reads are shared
+// memory loads issued together: read from global memory, one by one
+// between the epilogue's steps, they cost as much as the two products. The
+// last chunk is peeled from the loop, so that no branch separates a
+// chunk's second product from the next chunk's first: with the barrier
+// wait's loop between them, ptxas waited for every wgmma in flight there
+// (WARPGROUP.DEPBAR in the SASS), and the two products ran in turn.
+constexpr int FC = 64;                      // the fused form's hidden chunk
+constexpr int FUSED_C = 256;
+constexpr int FUSED_THREADS = 256;
+constexpr int LOADER = 128;                 // the thread that refills the ring
+struct Fused {
+  static constexpr int X_BYTES = BM * FUSED_C * 2;     // 4 atoms of 64 columns
+  static constexpr int W1_BYTES = FUSED_C * FC * 2;    // one 64-column box
+  static constexpr int W2_BYTES = FC * FUSED_C * 2;    // four 64-column boxes
+  static constexpr int B1_BYTES = FC * 4;              // the chunk's b1
+  static constexpr int LOADED = W1_BYTES + W2_BYTES + B1_BYTES;
+  static constexpr int STAGE = W1_BYTES + W2_BYTES + 1024;   // 1024-aligned
+  static constexpr int STAGES = 2;
+  static constexpr int SMEM = X_BYTES + STAGES * STAGE + 2 * STAGES * 8
+                              + 1024;
+  static_assert(SMEM <= 232448, "more shared memory than a block may have");
+};
+
+__device__ __forceinline__ uint4 to_bf16x8(const float* p) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  __nv_bfloat162 q[4] = {
+      __floats2bfloat162_rn(a.x, a.y), __floats2bfloat162_rn(a.z, a.w),
+      __floats2bfloat162_rn(b.x, b.y), __floats2bfloat162_rn(b.z, b.w)};
+  return *reinterpret_cast<uint4*>(q);
+}
+__device__ __forceinline__ uint4 to_bf16x8(const bf16* p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
+
+// 64 rows of x from row grow0 (the tile's row srow0) into the bf16 tile: 4
+// atoms (64 columns each) of BM rows x 128 bytes, the 16-byte chunk q of
+// row r at q ^ (r & 7); zeros past M. A warp reads one row (coalesced) and
+// writes each atom's 128 bytes of it.
+template <typename TX>
+__device__ __forceinline__ void stage_x(unsigned char* xs, const TX* x,
+                                        long long grow0, int srow0, int M,
+                                        int tid) {
+#pragma unroll 4
+  for (int i = tid; i < 64 * 32; i += 128) {
+    const int r = i / 32, q = i % 32;       // row, 8-column chunk
+    const long long grow = grow0 + r;
+    const uint4 v = grow < M ? to_bf16x8(x + grow * FUSED_C + q * 8)
+                             : make_uint4(0u, 0u, 0u, 0u);
+    const int sr = srow0 + r;
+    *reinterpret_cast<uint4*>(xs + (q / 8) * (BM * 128) + sr * 128 +
+                              (((q % 8) ^ (sr & 7)) << 4)) = v;
+  }
+}
+
+// h (the warpgroup's 64 rows x 64) = x W1_f: 16 m64n64k16 steps, x K-major
+// (32 bytes of a 128-byte row a step, an atom every 4), W1_f MN-major
+__device__ __forceinline__ void issue_hidden(float (&h)[32], uint32_t xs,
+                                             uint32_t w1) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) h[i] = 0.f;
+  fence_regs(h);
+  wgmma_fence();
+#pragma unroll
+  for (int k = 0; k < FUSED_C / 16; ++k)
+    wgmma_ss<64, 0, 1>(
+        h, sw128_desc(xs + (k / 4) * (BM * 128) + (k % 4) * 32, 16, 1024),
+        sw128_desc(w1 + k * 2048, BOX_BYTES, 1024));
+  wgmma_commit();
+}
+
+// LN: x fp32 -> out (and n_out, rstd); !LN: x bf16 -> y_out. ROUND:
+// round_input
+template <bool LN, bool ROUND>
+__global__ void __launch_bounds__(FUSED_THREADS, 1)
+ffn_fused_kernel(const __grid_constant__ CUtensorMap map_w1,
+                 const __grid_constant__ CUtensorMap map_w2,
+                 const void* __restrict__ xv, const float* __restrict__ b1,
+                 const float* __restrict__ b2,
+                 const float* __restrict__ gamma,
+                 const float* __restrict__ beta, float* __restrict__ out,
+                 float* __restrict__ n_out, float* __restrict__ rstd,
+                 bf16* __restrict__ y_out, int M, int F,
+                 ppgs::Dropout drop_h, ppgs::Dropout drop_y) {
+  using P = Fused;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* xs = aligned_ring(smem_raw);
+  unsigned char* ring = xs + P::X_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + P::STAGES * P::STAGE);
+  uint64_t* empty = full + P::STAGES;
+  const int m0 = blockIdx.x * BM;
+  const int chunks = F / FC;
+
+  // Load chunk f's W1, W2 and b1 pieces into stage f % 2
+  auto load = [&](int f) {
+    const int s = f % P::STAGES;
+    const uint32_t bar = smem_addr(full + s);
+    mbar_expect_tx(bar, P::LOADED);
+    unsigned char* w1s = ring + s * P::STAGE;
+    tma_load(w1s, &map_w1, f * FC, 0, bar);
+#pragma unroll
+    for (int j = 0; j < FUSED_C / 64; ++j)
+      tma_load(w1s + P::W1_BYTES + j * BOX_BYTES, &map_w2, j * 64, f * FC,
+               bar);
+    bulk_load(w1s + P::W1_BYTES + P::W2_BYTES, b1 + f * FC, P::B1_BYTES,
+              bar);
+  };
+  if (threadIdx.x == 0) {
+    mbar_init_ring(full, empty, P::STAGES, 8);
+    for (int f = 0; f < P::STAGES && f < chunks; ++f) load(f);
+  }
+  __syncthreads();
+
+  const int c = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+  const long long r0 = m0 + 64 * c + 16 * warp + g, r1 = r0 + 8;
+  using TX = typename std::conditional<LN, float, bf16>::type;
+  const TX* x = static_cast<const TX*>(xv);
+
+  // The warpgroup's rows of x, for the async proxy (wgmma) to read
+  stage_x(xs, x, m0 + 64 * c, 64 * c, M, threadIdx.x % 128);
+  fence_async_smem();
+  bar_sync(1 + c, 128);
+
+  const uint32_t xs_addr = smem_addr(xs) + c * 64 * 128;
+  const uint32_t ring_addr = smem_addr(ring);
+  float y[128], h[32];
+  uint32_t a[4][4];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) y[i] = 0.f;
+  // h -> the second product's A fragments: a[k] holds hidden columns
+  // 16k..16k+15, groups j = 2k (registers 0, 1) and 2k + 1 (2, 3)
+  auto fragments = [&](int f) {
+    const float* sb = reinterpret_cast<const float*>(
+        ring + (f % P::STAGES) * P::STAGE + P::W1_BYTES + P::W2_BYTES);
+    float2 bias[FC / 8];
+#pragma unroll
+    for (int j = 0; j < FC / 8; ++j)
+      bias[j] = *reinterpret_cast<const float2*>(sb + 8 * j + 2 * t);
+#pragma unroll
+    for (int j = 0; j < FC / 8; ++j) {
+      const float v[4] = {h[4 * j], h[4 * j + 1], h[4 * j + 2], h[4 * j + 3]};
+      hidden4<RELU, ROUND>(a[j / 2][2 * (j % 2)], a[j / 2][2 * (j % 2) + 1],
+                           v, bias[j], f * FC + 8 * j, t, r0, r1, F, drop_h);
+    }
+  };
+  // y += h W2_f
+  auto issue_out = [&](int f) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) fence_regs(a[k]);
+    fence_regs(y);
+    wgmma_fence();
+    const uint32_t w2 =
+        ring_addr + (f % P::STAGES) * P::STAGE + P::W1_BYTES;
+#pragma unroll
+    for (int k = 0; k < FC / 16; ++k)
+      wgmma_rs<256>(y, a[k], sw128_desc(w2 + k * 2048, BOX_BYTES, 1024));
+    wgmma_commit();
+  };
+  // Chunk f's second product is done: its stage goes back to the ring
+  auto release = [&](int f) {
+    fence_regs(y);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) fence_regs(a[k]);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(smem_addr(empty + f % P::STAGES));
+  };
+
+  mbar_wait(smem_addr(full), 0);
+  issue_hidden(h, xs_addr, ring_addr);
+  wgmma_wait<0>();
+  fence_regs(h);
+  // The last chunk is peeled, so that no branch separates a chunk's second
+  // product from the next chunk's first and the two run side by side
+  for (int f = 0; f + 1 < chunks; ++f) {
+    const int s1 = (f + 1) % P::STAGES;
+    fragments(f);
+    mbar_wait(smem_addr(full + s1), ((f + 1) / P::STAGES) & 1);
+    issue_out(f);
+    issue_hidden(h, xs_addr, ring_addr + s1 * P::STAGE);
+    wgmma_wait<1>();
+    release(f);
+    wgmma_wait<0>();
+    fence_regs(h);
+    if (threadIdx.x == LOADER && f + P::STAGES < chunks) {
+      mbar_wait(smem_addr(empty + f % P::STAGES), (f / P::STAGES) & 1);
+      load(f + P::STAGES);
+    }
+    __syncwarp();
+  }
+  fragments(chunks - 1);
+  issue_out(chunks - 1);
+  wgmma_wait<0>();
+  release(chunks - 1);
+
+  if constexpr (LN) {
+    float s0, s1, q0, q1;
+    residual_rows(y, x, b2, M, FUSED_C, 0, r0, r1, t, ROUND, drop_y, s0,
+                  s1);
+    center_rows(y, s0 * (1.f / FUSED_C), s1 * (1.f / FUSED_C), q0, q1);
+    const float inv0 = rsqrtf(q0 * (1.f / FUSED_C) + ppgs::LN_EPS);
+    const float inv1 = rsqrtf(q1 * (1.f / FUSED_C) + ppgs::LN_EPS);
+    store_ln(y, inv0, inv1, gamma, beta, out, n_out, M, FUSED_C, 0, r0, r1,
+             t);
+    if (rstd && t == 0) {
+      if (r0 < M) rstd[r0] = inv0;
+      if (r1 < M) rstd[r1] = inv1;
+    }
+  } else {
+    store_y_out(y, b2, y_out, M, FUSED_C, 0, r0, r1, t, drop_y);
+  }
+}
+
+template <typename... Params, typename... Args>
+int launch(void (*kernel)(Params...), int threads, int smem, dim3 grid,
+           unsigned cluster, cudaStream_t s, Args... args) {
   // Above 48 KB of dynamic shared memory a kernel must opt in
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, P::SMEM);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (M > 0)
-    kernel<<<(M + P::BM - 1) / P::BM, THREADS, P::SMEM, stream>>>(
-        static_cast<const TX*>(x), static_cast<const bf16*>(w1),
-        static_cast<const float*>(b1), static_cast<const bf16*>(w2),
-        static_cast<const float*>(b2), static_cast<const float*>(gamma),
-        static_cast<const float*>(beta), static_cast<float*>(out),
-        static_cast<float*>(n_out), static_cast<float*>(rstd),
-        static_cast<bf16*>(y_out), M, F, round_input, dh, dy);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int ACT, bool ROUND>
+int launch_hidden(const CUtensorMap& mx, const CUtensorMap& mw1,
+                  const float* b1, bf16* h, int M, int F, int C,
+                  ppgs::Dropout dh, int m_tiles, cudaStream_t s) {
+  if (F % 256 == 0)
+    return launch(ffn_hidden_kernel<256, ACT, ROUND>, THREADS,
+                  Ring<true, 256>::SMEM, dim3(F / 256, m_tiles), 1, s, mx,
+                  mw1, b1, h, M, F, C, dh);
+  return launch(ffn_hidden_kernel<128, ACT, ROUND>, THREADS,
+                Ring<true, 128>::SMEM, dim3(F / 128, m_tiles), 1, s, mx, mw1,
+                b1, h, M, F, C, dh);
+}
+
+template <bool LN, bool ROUND>
+int launch_fused(const CUtensorMap& mw1, const CUtensorMap& mw2,
+                 const void* x, const float* b1, const float* b2,
+                 const float* g, const float* be, float* o, float* n,
+                 float* rs, bf16* y_out, int M, int F, ppgs::Dropout dh,
+                 ppgs::Dropout dy, int m_tiles, cudaStream_t s) {
+  return launch(ffn_fused_kernel<LN, ROUND>, FUSED_THREADS, Fused::SMEM,
+                dim3(m_tiles), 1, s, mw1, mw2, x, b1, b2, g, be, o, n, rs,
+                y_out, M, F, dh, dy);
 }
 
 }  // namespace
 
-// x (M, C), w1 (C, F) bf16, b1 (F) fp32, w2 (F, C) bf16, b2 (C) fp32;
-// F % 128 == 0; act 0 = ReLU, 1 = tanh-GELU. With y_out null: x fp32,
-// gamma/beta (C) fp32 -> out (M, C) fp32, and n_out (M, C) and rstd (M)
-// fp32 unless null; (C, act) is (256, ReLU), (512, ReLU) or (768, GELU),
-// the widths of the models. With y_out (C = 256, ReLU): x
+// x (M, C), w1 (C, F) bf16, b1 (F) fp32, w2 (F, C) bf16, b2 (C) fp32, h
+// (M, F) bf16 scratch for the hidden at C = 512 and 768 (unused, may be
+// null, at C = 256); F % 128 == 0; act 0 = ReLU, 1 = tanh-GELU. With y_out
+// null: x fp32, gamma/beta (C) fp32 -> out (M, C) fp32, and n_out (M, C)
+// and rstd (M) fp32 unless null; (C, act) is (256, ReLU), (512, ReLU) or
+// (768, GELU), the widths of the models. With y_out (C = 256, ReLU): x
 // bf16 -> y_out (M, 256) bf16 (round_input, gamma, beta, out, n_out and
 // rstd unused). The hidden's dropout site is (seed, site_h), the output's
-// (seed, site_y); threshold 0 turns both off. Any other (C, act) returns
-// cudaErrorInvalidValue.
+// (seed, site_y); threshold 0 turns both off. One kernel at C = 256, two
+// on the stream (the hidden's, then the output's) at 512 and 768. Any
+// other (C, act) returns cudaErrorInvalidValue.
 extern "C" int ppgs_ffn_ln(const void* x, const void* w1, const void* b1,
                            const void* w2, const void* b2, const void* gamma,
                            const void* beta, void* out, void* n_out,
-                           void* rstd, void* y_out, int M, int F, int C,
-                           int act, int round_input, unsigned seed_lo,
+                           void* rstd, void* y_out, void* h, int M, int F,
+                           int C, int act, int round_input, unsigned seed_lo,
                            unsigned seed_hi, unsigned site_h, unsigned site_y,
                            unsigned threshold, float scale, void* stream) {
+  const bool ln = y_out == nullptr, fused = C == FUSED_C;
+  const bool width_ok =
+      ln ? (C == 256 && act == RELU) || (C == 512 && act == RELU) ||
+               (C == 768 && act == GELU)
+         : C == 256 && act == RELU;
+  const int m_tiles = (M + BM - 1) / BM;
+  if (!width_ok || F <= 0 || F % 128 || m_tiles > 65535 || (!fused && !h) ||
+      reinterpret_cast<uintptr_t>(b1) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (M <= 0) return static_cast<int>(cudaGetLastError());
   const ppgs::Dropout dh =
       ppgs::make_dropout(seed_lo, seed_hi, site_h, threshold, scale);
   const ppgs::Dropout dy =
       ppgs::make_dropout(seed_lo, seed_hi, site_y, threshold, scale);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (y_out)
-    return C == 256 && act == RELU
-               ? launch<bf16, 256, RELU>(x, w1, b1, w2, b2, nullptr, nullptr,
-                                         nullptr, nullptr, nullptr, y_out, M,
-                                         F, 0, dh, dy, s)
-               : static_cast<int>(cudaErrorInvalidValue);
-#define PPGS_FFN_LN(CW, ACT)                                               \
-  if (C == CW && act == ACT)                                               \
-    return launch<float, CW, ACT>(x, w1, b1, w2, b2, gamma, beta, out,    \
-                                  n_out, rstd, nullptr, M, F, round_input, \
-                                  dh, dy, s);
-  PPGS_FFN_LN(256, RELU)    // mel
-  PPGS_FFN_LN(512, RELU)    // the w2v2fb / w2v2fc head
-  PPGS_FFN_LN(768, GELU)    // the wav2vec2 trunk
-#undef PPGS_FFN_LN
-  return static_cast<int>(cudaErrorInvalidValue);
+  const float* b1f = static_cast<const float*>(b1);
+  const float* b2f = static_cast<const float*>(b2);
+  const float* g = static_cast<const float*>(gamma);
+  const float* be = static_cast<const float*>(beta);
+  float* o = static_cast<float*>(out);
+  float* n = static_cast<float*>(n_out);
+  float* rs = static_cast<float*>(rstd);
+  CUtensorMap mw1, mw2;
+  if (fused) {
+    // W1 in 64-column chunks of all 256 rows, W2 in 64 x 64 boxes
+    if (!encode(&mw1, w1, false, C, F, F, 64, FUSED_C) ||
+        !encode(&mw2, w2, false, F, C, C, 64, FC))
+      return static_cast<int>(cudaErrorInvalidValue);
+    bf16* y = static_cast<bf16*>(y_out);
+    if (!ln)
+      return launch_fused<false, false>(mw1, mw2, x, b1f, b2f, g, be, o, n,
+                                        rs, y, M, F, dh, dy, m_tiles, s);
+    return round_input
+               ? launch_fused<true, true>(mw1, mw2, x, b1f, b2f, g, be, o, n,
+                                          rs, y, M, F, dh, dy, m_tiles, s)
+               : launch_fused<true, false>(mw1, mw2, x, b1f, b2f, g, be, o,
+                                           n, rs, y, M, F, dh, dy, m_tiles,
+                                           s);
+  }
+  CUtensorMap mx, mh;
+  if (!encode(&mx, x, true, M, C, C, 32, BM) ||
+      !encode(&mw1, w1, false, C, F, F, 64, BK) ||
+      !encode(&mh, h, false, M, F, F, 64, BM) ||
+      !encode(&mw2, w2, false, F, C, C, 64, BK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  bf16* hb = static_cast<bf16*>(h);
+  const int err =
+      act == GELU
+          ? (round_input ? launch_hidden<GELU, true>(mx, mw1, b1f, hb, M, F,
+                                                     C, dh, m_tiles, s)
+                         : launch_hidden<GELU, false>(mx, mw1, b1f, hb, M, F,
+                                                      C, dh, m_tiles, s))
+          : (round_input ? launch_hidden<RELU, true>(mx, mw1, b1f, hb, M, F,
+                                                     C, dh, m_tiles, s)
+                         : launch_hidden<RELU, false>(mx, mw1, b1f, hb, M, F,
+                                                      C, dh, m_tiles, s));
+  if (err) return err;
+  return launch(ffn_out_kernel, THREADS, Ring<false, OUT_BN>::SMEM,
+                dim3(C / OUT_BN, m_tiles), C / OUT_BN, s, mh, mw2,
+                static_cast<const float*>(x), b2f, g, be, o, n, rs, M, F, C,
+                round_input, dy);
 }

@@ -1,0 +1,273 @@
+// Hopper building blocks shared by the kernels that feed the tensor cores
+// with TMA and wgmma (gemm.cu, ffn_ln.cu): mbarrier waits that trap rather
+// than hang, TMA tile loads, the 128-byte-swizzle shared-memory descriptor,
+// the wgmma.mma_async wrappers (A from shared memory or from registers),
+// and the host-side encoding of a TMA tensor map. Header-only; sm_90a.
+#pragma once
+
+#include <cuda.h>   // CUtensorMap and its enums; cuTensorMapEncodeTiled is
+                    // looked up at run time (no -lcuda)
+
+#include "common.cuh"
+
+namespace ppgs {
+namespace hopper {
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      " selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  return done != 0;
+}
+
+// A wait that lasts seconds traps (a launch error) rather than hanging the
+// card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try(bar, parity)) return;
+  const uint64_t start = global_ns();
+  while (!mbar_try(bar, parity))
+    if (global_ns() - start > 4000000000ull) __trap();
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+// Initialise the ring's barriers: full[s] waits for the producer's one
+// arrival (and the bytes it announces), empty[s] for `consumers` arrivals
+__device__ __forceinline__ void mbar_init_ring(uint64_t* full,
+                                               uint64_t* empty, int stages,
+                                               int consumers) {
+  for (int s = 0; s < stages; ++s) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+                 ::"r"(smem_addr(full + s)) : "memory");
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+                 ::"r"(smem_addr(empty + s)), "r"(consumers) : "memory");
+  }
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               ::"r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         int c0, int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];"
+      ::"r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0),
+      "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// A contiguous copy of `bytes` (a multiple of 16, both ends 16-byte
+// aligned) from global to shared memory, reported to the barrier
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];"
+      ::"r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(src)),
+      "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// A shared-memory matrix descriptor with the 128-byte swizzle; the tile's
+// 1024-byte atoms start 1024-byte aligned (base offset 0)
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int PENDING>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(PENDING)
+               : "memory");
+}
+// Keep the compiler from moving or reusing registers that an asynchronous
+// wgmma reads or writes
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// Make this thread's generic-proxy writes to shared memory visible to the
+// async proxy (wgmma's operand reads, TMA); a barrier after it publishes
+// them to the other threads
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// A named barrier over `count` threads (id 0 is __syncthreads')
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
+#define PPGS_R32                                                            \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "       \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "       \
+  "%28, %29, %30, %31"
+#define PPGS_R64                                                            \
+  PPGS_R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, "                \
+  "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "       \
+  "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+#define PPGS_R128                                                           \
+  PPGS_R64 ", %64, %65, %66, "                                              \
+  "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "       \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "       \
+  "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "       \
+  "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "      \
+  "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+#define PPGS_F8(i)                                                          \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),               \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define PPGS_F32 PPGS_F8(0), PPGS_F8(8), PPGS_F8(16), PPGS_F8(24)
+#define PPGS_F64                                                            \
+  PPGS_F32, PPGS_F8(32), PPGS_F8(40), PPGS_F8(48), PPGS_F8(56)
+#define PPGS_F128                                                           \
+  PPGS_F64, PPGS_F8(64), PPGS_F8(72), PPGS_F8(80), PPGS_F8(88),             \
+      PPGS_F8(96), PPGS_F8(104), PPGS_F8(112), PPGS_F8(120)
+
+// d (64 x BN fp32, BN / 2 a thread; BN 64, 128 or 256) += A (64 x 16,
+// shared memory) B (16 x BN, shared memory); TA / TB: that operand is
+// MN-major (wgmma's transpose immediates), else K-major
+template <int BN, int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[BN / 2], uint64_t da,
+                                         uint64_t db) {
+  if constexpr (BN == 256) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %130, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        "{" PPGS_R128 "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
+        : PPGS_F128
+        : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+  } else if constexpr (BN == 128) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{" PPGS_R64 "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+        : PPGS_F64
+        : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+  } else {
+    static_assert(BN == 64, "wgmma_ss takes BN 64, 128 or 256");
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{" PPGS_R32 "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+        : PPGS_F32
+        : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+  }
+}
+
+// The same with A's m64k16 fragment in registers and B MN-major
+template <int BN>
+__device__ __forceinline__ void wgmma_rs(float (&d)[BN / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (BN == 256) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %133, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        "{" PPGS_R128 "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+        : PPGS_F128
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  } else {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{" PPGS_R64 "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : PPGS_F64
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+}
+
+#undef PPGS_R32
+#undef PPGS_R64
+#undef PPGS_R128
+#undef PPGS_F8
+#undef PPGS_F32
+#undef PPGS_F64
+#undef PPGS_F128
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult status;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                         cudaEnableDefault, &status) !=
+            cudaSuccess ||
+        status != cudaDriverEntryPointSuccess)
+      p = nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &status) != cudaSuccess ||
+        status != cudaDriverEntryPointSuccess)
+      p = nullptr;
+#endif
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A 2-D row-major (rows, cols) tensor of 2- or 4-byte elements, loaded in
+// boxes of box_rows x box_cols (box_cols x element = 128 bytes) with the
+// 128-byte swizzle; zeros past its edges
+inline bool encode(CUtensorMap* map, const void* base, bool f32,
+                   long long rows, long long cols, long long ld,
+                   int box_cols, int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (!fn) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * (f32 ? 4 : 2)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t unit[2] = {1, 1};
+  return fn(map,
+            f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+            2, const_cast<void*>(base), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+}  // namespace hopper
+}  // namespace ppgs

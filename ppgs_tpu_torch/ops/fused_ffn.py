@@ -2,10 +2,13 @@
 
     out = LN(res + act(x @ w1 + b1) @ w2 + b2)
 
-with the (M, F) hidden kept on the SM, at C = 256 (mel) and 512 (the
-w2v2fb head) with ReLU and C = 768 (the wav2vec2 trunk) with the
-tanh-approximate GELU. One CUDA kernel serves two TPU kernels that round
-in one place differently (``round_input``):
+at C = 256 (mel) and 512 (the w2v2fb head) with ReLU and C = 768 (the
+wav2vec2 trunk) with the tanh-approximate GELU, on a wgmma + TMA mainloop:
+at C = 256 one kernel that keeps the (M, F) hidden on the SM; at 512 and
+768 two launches, the hidden's (bias, activation and dropout on its
+accumulators, stored as bf16 in a scratch buffer) and the output's (the
+residual and the LayerNorm on its accumulators). One entry point serves
+two TPU kernels that round in one place differently (``round_input``):
 
 - ``round_input=False``: the FFN half of
   ``ppgs_tpu/ops/encoder_layer_kernel.py::_layer_body`` (encoder_stack's
@@ -36,6 +39,17 @@ LN_EPS = 1e-5
 # (C, activation) of each K4 instance with the LayerNorm epilogue: the
 # models' widths
 LN_WIDTHS = ((256, 'relu'), (512, 'relu'), (768, 'gelu'))
+# The width whose hidden stays on chip (one kernel); the others take two
+# launches through an (M, F) bf16 hidden (kernels/csrc/ffn_ln.cu's note)
+FUSED_WIDTH = 256
+
+
+def hidden_scratch(M, F, C, device):
+    """The (M, F) bf16 buffer that K4's two launches pass the hidden
+    through at C != FUSED_WIDTH; None at FUSED_WIDTH."""
+    if C == FUSED_WIDTH:
+        return None
+    return torch.empty((M, F), dtype=torch.bfloat16, device=device)
 
 
 def layer_norm(r, scale, bias):
@@ -84,8 +98,9 @@ def _launch_ffn(x, w1, b1, w2, b2, ln=None, round_input=False,
                 drop_h=dropout.OFF, drop_y=dropout.OFF, stats=False,
                 activation='relu'):
     """Check the operands and launch K4 (``kernels/csrc/ffn_ln.cu``) on the
-    card. ``ln`` = (gamma, beta): x (..., C) fp32 with (C, activation) in
-    ``LN_WIDTHS``, returns (LN(...) fp32, and with ``stats`` the
+    card: one kernel at C = 256, two (through ``hidden_scratch``) at 512
+    and 768. ``ln`` = (gamma, beta): x (..., C) fp32 with (C, activation)
+    in ``LN_WIDTHS``, returns (LN(...) fp32, and with ``stats`` the
     normalised rows and 1/std (M,), else None, None). ``ln`` None: x
     (..., 256) bf16, ReLU, returns (the bf16 output, None, None)."""
     C, F = w1.shape
@@ -112,14 +127,16 @@ def _launch_ffn(x, w1, b1, w2, b2, ln=None, round_input=False,
             rstd = torch.empty(M, dtype=torch.float32, device=dev)
     else:
         y = torch.empty_like(x)
+    hidden = hidden_scratch(M, F, C, dev)
     lo, hi, site_h, threshold, scale = drop_h.c_args()
     kernels.launch('ppgs_ffn_ln', x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
                    w2.data_ptr(), b2.data_ptr(),
                    ln[0].data_ptr() if ln else None,
                    ln[1].data_ptr() if ln else None, kernels.ptr(out),
-                   kernels.ptr(n), kernels.ptr(rstd), kernels.ptr(y), M, F,
-                   C, int(activation == 'gelu'), int(round_input), lo, hi,
-                   site_h, drop_y.site, threshold, scale, device=dev)
+                   kernels.ptr(n), kernels.ptr(rstd), kernels.ptr(y),
+                   kernels.ptr(hidden), M, F, C, int(activation == 'gelu'),
+                   int(round_input), lo, hi, site_h, drop_y.site, threshold,
+                   scale, device=dev)
     return (out, n, rstd) if ln else (y, None, None)
 
 
