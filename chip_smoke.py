@@ -10,7 +10,10 @@ any failure exits non-zero before the result line:
 2. build the CUDA kernels from ppgs_tpu_torch/kernels/csrc with nvcc;
 3. K4 (the FFN) at odd shapes against its plain version (rows 1, 63, 64,
    65, 127, 129, 1000; hidden widths 128, 384 and the model's; round_input
-   0 and 1); then hold each kernel against its plain PyTorch version on
+   0 and 1); K2 (attention) at d_head 128 likewise (T of 1, 63, 64, 65,
+   127, 129, 500, 1536; a prefix mask and one with holes; causal off and
+   on; scale_log2 1 and log2(e)/sqrt(d); a wholly masked window exactly
+   0); then hold each kernel against its plain PyTorch version on
    the card, at the main path's shapes (128 windows x 500 frames of the
    mel model: C = 256, 2 heads of 128, FFN 2048), plus the attention kernel at T = 1536 with
    and without the causal mask and a wholly masked window, the per-layer
@@ -28,7 +31,8 @@ any failure exits non-zero before the result line:
    function (``nn.TransformerEncoder`` for the whole stack), beside the
    kernel's bound; end-to-end audio-seconds per second of ``from_audio``
    (with and without the fused log-mel); and the device time by kernel of
-   one ``from_audio`` call (torch.profiler) with the card's idle share;
+   one ``from_audio`` call (torch.profiler) with the card's idle share; K4's
+   and K2's device time per launch beside their event times;
 6. the gemm kernel against its plain version at small odd shapes (each
    (ta, tb), a bf16 and an fp32 a, both block widths, ragged rows, depths
    and splits), and K4's two train forms at phase 3's odd shapes with
@@ -53,7 +57,8 @@ any failure exits non-zero before the result line:
    yardstick; the train step's time, audio-seconds per second and peak
    memory, and a torch.profiler breakdown of one step, its gemm time beside
    the six forms' timed alone;
-9. K4 at C = 768 (GELU) and 512 at phase 3's odd shapes; the w2v2fb
+9. K4 at C = 768 (GELU) and 512, and K2 at d_head 64 (12 heads) and 256,
+   at phase 3's odd shapes; the w2v2fb
    slice's kernel instances against their plain versions at its
    shapes, with seeded full-size random weights (wav2vec2-base trunk: 12
    layers of C = 768, 12 heads of 64, F = 3072, GELU; the C = 512 head, 2
@@ -76,7 +81,7 @@ any failure exits non-zero before the result line:
    ``nn.TransformerEncoderLayer`` x 12 and the conv chain against the
    cuDNN bf16 convs; the slice's audio-seconds per second and a
    torch.profiler breakdown; K4's device time per call by kernel at each
-   width (phases 5, 8 and 11);
+   width (phases 5, 8 and 11), and K2's at each width (phases 5 and 11);
 12. the bottleneck slice's rel-pos attention kernel (B8) against its plain
    version, with seeded full-size random weights (the 16-block conformer,
    d = 144, 4 heads of 36, FFN 576; the C = 256 head): 64 x T = 800 from
@@ -103,6 +108,7 @@ of the JAX package.
 """
 
 import argparse
+import itertools
 import json
 import math
 import os
@@ -357,25 +363,52 @@ def profile_call(label, fn, card):
 def kernel_device_ms(label, fn, card, reps=5):
     """Print the device milliseconds per call of ``fn`` by kernel
     (torch.profiler over ``reps`` calls after a warm-up): what one call's
-    CUDA-event time spends on the card, without the host's share."""
+    CUDA-event time spends on the card, without the host's share. Each
+    kernel's time is the mean of the launches the trace caught, with their
+    count beside it: a trace now and then misses launches, or all of them
+    (then it is taken once more). Returns the sum of the means, one launch
+    of each kernel a call (None when no trace caught one)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            name = e.name.replace('(anonymous namespace)::', '').removeprefix(
-                'void ').split('(')[0]
-            by_name[name] = (by_name.get(name, 0.0)
-                             + e.time_range.elapsed_us() / 1e3 / reps)
-    parts = ', '.join(f'{name} {ms:.4f} ms' for name, ms in by_name.items())
+    caught = {}
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                name = e.name.replace('(anonymous namespace)::',
+                                      '').removeprefix('void ').split('(')[0]
+                total, count = caught.get(name, (0.0, 0))
+                caught[name] = (total + e.time_range.elapsed_us() / 1e3,
+                                count + 1)
+        if caught:
+            break
+    parts = ', '.join(f'{name} {total / count:.4f} ms ({count} of {reps} '
+                      f'launches caught)'
+                      for name, (total, count) in caught.items())
     print(f'{label}, device time per call: {parts or "not measured"} '
           f'[{card}]', flush=True)
+    return (sum(total / count for total, count in caught.values())
+            if caught else None)
+
+
+def k2_times(record, fn, d_head, card):
+    """K2's device time per launch beside its event time, bound and SDPA's
+    time, into its record: a gain that the host hides shows as such."""
+    record['device_ms'] = kernel_device_ms(f'K2 attention d_head {d_head}',
+                                           fn, card)
+    ms, dev_ms, lib = record['ms'], record['device_ms'], record['library_ms']
+    device = 'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'
+    factor = '' if dev_ms is None else f', device {dev_ms / lib:.2f}x'
+    print(f'K2 d_head {d_head}: event {ms:.4f} ms, device {device}, bound '
+          f'{record["bound_ms"]:.4f} ms ({record["bound_by"]}), SDPA '
+          f'{lib:.4f} ms: {ms / lib:.2f}x SDPA{factor}, '
+          f'{record["launches"]} launches per main-path call [{card}]',
+          flush=True)
 
 
 def agree(name, got, want, want32=None):
@@ -483,6 +516,68 @@ def k4_odd_shape_checks(form, C, act, model_F, dev):
                   f'{"round_input" if form == "ln" else "rate"}={variant}: '
                   f'max |kernel - plain| by M: {", ".join(cases)}',
                   flush=True)
+
+
+# K2 (attention.cu) at odd shapes, at every width, before anything is
+# timed: T about the 64-key tiles and 128-row query tiles, the main paths'
+# window and the long-input check's. Two sets of 4 windows: ragged
+# prefixes, and holes (one 64-key tile wholly masked in the first); each
+# set has a full window and a wholly masked one
+K2_ODD_T = (1, 63, 64, 65, 127, 129, 500, LONG_T)
+
+
+@torch.no_grad()
+def k2_odd_shape_checks(d_head, heads, dev):
+    """K2 at one head width against its plain version at ``K2_ODD_T``, on
+    q, k, v views of one fused buffer of N(0, 1) values: a prefix mask and
+    a mask with holes, causal off and on, ``scale_log2`` 1 (log2(e)/sqrt(d)
+    folded into q, as encoder_stack does) and log2(e)/sqrt(d) (raw q); the
+    wholly masked window exactly 0. Prints the max |kernel - plain| by T.
+
+    The limit is phase 3's atol 5e-3 plus a bf16 ulp of the output (rtol
+    2^-7): a row with a few valid keys (holes, the first rows under the
+    causal mask, a short T) gives an output near single values of v, of
+    magnitude 1-4, where one rounding flip of the output, or of a p rounded
+    to bf16 for the PV product, is 0.008-0.016; the main shapes' outputs
+    average hundreds of keys."""
+    from ppgs_tpu_torch.ops import flash_attention as fa
+
+    # A generator of its own: the phases' own draws stay as they were
+    gen = torch.Generator(device=dev).manual_seed(SEED + 43)
+    C = heads * d_head
+    scale = fa.LOG2E / math.sqrt(d_head)
+    cases = []
+    for T in K2_ODD_T:
+        raw = torch.randn(4, T, 3 * C, generator=gen, device=dev)
+        folded = raw.clone()
+        folded[..., :C] *= scale
+        keys = torch.arange(T, device=dev)
+        prefix = keys[None] < torch.tensor([max(1, 2 * T // 3), T, T, 0],
+                                           device=dev)[:, None]
+        holes = torch.rand(4, T, generator=gen, device=dev) < 0.6
+        holes[0, 64:128] = False
+        holes[2], holes[3] = True, False
+        worst = 0.0
+        for scale_log2, qkv in ((1.0, folded), (scale, raw)):
+            qkv = qkv.to(torch.bfloat16)
+            q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
+            for mask, causal in itertools.product((prefix, holes),
+                                                  (False, True)):
+                got = fa.attention(q, k, v, mask, heads, scale_log2, causal)
+                name = (f'K2 d_head {d_head} T={T} causal={causal} '
+                        f'scale_log2={scale_log2:.4g}')
+                worst = max(worst, check(
+                    name, got, fa.attention_reference(
+                        q, k, v, mask, heads, scale_log2, causal),
+                    atol=5e-3, rtol=2 ** -7, quiet=True))
+                if not torch.equal(got[3], torch.zeros_like(got[3])):
+                    raise AssertionError(f'{name}: the wholly masked window '
+                                         f'did not give 0')
+        cases.append(f'{T} {worst:.3g}')
+    print(f'K2 d_head {d_head} ({heads} heads), prefix and holed masks, '
+          f'causal off and on, scale_log2 1 and log2(e)/sqrt(d): max |kernel '
+          f'- plain| by T: {", ".join(cases)} (atol 5e-3, rtol 2^-7); the '
+          f'wholly masked window exactly 0', flush=True)
 
 
 def check_rel(name, got, want, limit):
@@ -1539,6 +1634,7 @@ def mel_phases(port, config, workdir, dev, gen, card):
 
     phase(f'3 kernels against their plain versions ({W} windows x T={T})')
     k4_odd_shape_checks('ln', C, 'relu', Fh, dev)
+    k2_odd_shape_checks(C // H, H, dev)
     x = torch.randn(W, T, C, generator=gen, device=dev)
     # The main path's window lengths: 500 and 450 valid frames
     win_len = torch.tensor([min(T, frames + config.chunk_overlap - i * stride)
@@ -1743,6 +1839,8 @@ def mel_phases(port, config, workdir, dev, gen, card):
             'library_ms': library_ms})
 
     kernel_device_ms('K4 ffn_residual_ln', runs['ffn_residual_ln'][0], card)
+    k2_times(next(r for r in records if r['name'] == 'attention'),
+             runs['attention'][0], C // H, card)
 
     # B9: the library's yardstick is the cuDNN bf16 chain of the same
     # function (the DFT as a conv, magnitude, mel product, log)
@@ -2201,6 +2299,8 @@ def layer_records(tag, inp, err, launches, replaces, card):
             lambda: F.scaled_dot_product_attention(
                 q4, k4, v4, attn_mask=sdpa_mask, scale=math.log(2))),
         (4 * pairs * C, M * 3 * C * 2 + M + M * C * 2), card))
+    k2_times(records[-1], lambda: fa.attention(q, k, v, mask, H, 1.0), D,
+             card)
     records.append(timed_record(
         f'out_proj_residual_ln_c{C}', 'out_proj_ln.cu', replaces,
         launches['out_proj_residual_ln'][tag],
@@ -2411,6 +2511,12 @@ def w2v2fb_phases(port, workdir, dev, gen, card):
                         trunk.config.intermediate_size, dev)
     k4_odd_shape_checks('ln', head_config.hidden_channels, 'relu',
                         head_config.ffn_channels, dev)
+    k2_odd_shape_checks(
+        trunk.config.hidden_size // trunk.config.num_heads,
+        trunk.config.num_heads, dev)
+    k2_odd_shape_checks(
+        head_config.hidden_channels // head_config.attention_heads,
+        head_config.attention_heads, dev)
     err, inputs = w2v2fb_kernel_checks(port, trunk, head, head_config, dev,
                                        gen)
     del head

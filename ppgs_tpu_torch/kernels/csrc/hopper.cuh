@@ -1,8 +1,9 @@
 // Hopper building blocks shared by the kernels that feed the tensor cores
-// with TMA and wgmma (gemm.cu, ffn_ln.cu): mbarrier waits that trap rather
-// than hang, TMA tile loads, the 128-byte-swizzle shared-memory descriptor,
-// the wgmma.mma_async wrappers (A from shared memory or from registers),
-// and the host-side encoding of a TMA tensor map. Header-only; sm_90a.
+// with TMA and wgmma (gemm.cu, ffn_ln.cu, attention.cu): mbarrier waits
+// that trap rather than hang, TMA tile loads (2-D and 3-D) and 3-D stores,
+// the 128-byte-swizzle shared-memory descriptor, the wgmma.mma_async
+// wrappers (A from shared memory or from registers), and the host-side
+// encoding of a TMA tensor map (2-D and 3-D). Header-only; sm_90a.
 #pragma once
 
 #include <cuda.h>   // CUtensorMap and its enums; cuTensorMapEncodeTiled is
@@ -47,6 +48,13 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
                : "memory");
 }
 
+// Initialise one barrier for `count` arrivals; the fence that ends
+// mbar_init_ring publishes it too when it comes first
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               ::"r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
 // Initialise the ring's barriers: full[s] waits for the producer's one
 // arrival (and the bytes it announces), empty[s] for `consumers` arrivals
 __device__ __forceinline__ void mbar_init_ring(uint64_t* full,
@@ -74,6 +82,38 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       ::"r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0),
       "r"(c1), "r"(bar)
       : "memory");
+}
+
+// The same from a 3-D tensor map, at coordinates (c0, c1, c2)
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];"
+      ::"r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(bar)
+      : "memory");
+}
+
+// Store a box of shared memory through a 3-D tensor map at (c0, c1, c2);
+// what falls past the map's edges is not written. bulk_commit, then
+// bulk_wait_read before the shared memory is reused or the block exits
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, int c0,
+                                             int c1, int c2,
+                                             const void* src) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(src)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
 }
 
 // A contiguous copy of `bytes` (a multiple of 16, both ends 16-byte
@@ -200,12 +240,20 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[BN / 2],
         "{" PPGS_R128 "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
         : PPGS_F128
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  } else {
+  } else if constexpr (BN == 128) {
     asm volatile(
         "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
         " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
         "{" PPGS_R64 "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
         : PPGS_F64
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  } else {
+    static_assert(BN == 64, "wgmma_rs takes BN 64, 128 or 256");
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{" PPGS_R32 "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : PPGS_F32
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
   }
 }
@@ -266,6 +314,28 @@ inline bool encode(CUtensorMap* map, const void* base, bool f32,
             2, const_cast<void*>(base), dims, strides, box, unit,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 3-D bf16 tensor of n2 slabs of n1 rows of n0 elements (rows ld1
+// elements apart, slabs ld2), loaded in boxes of box0 x box1 x 1 (box0 x 2
+// = 128 bytes) with the 128-byte swizzle; zeros past its edges
+inline bool encode_3d(CUtensorMap* map, const void* base, long long n0,
+                      long long n1, long long n2, long long ld1,
+                      long long ld2, int box0, int box1) {
+  const EncodeTiled fn = encode_tiled();
+  if (!fn) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(n0),
+                              static_cast<cuuint64_t>(n1),
+                              static_cast<cuuint64_t>(n2)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(ld1) * 2,
+                                 static_cast<cuuint64_t>(ld2) * 2};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box0),
+                             static_cast<cuuint32_t>(box1), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

@@ -1,9 +1,10 @@
 """Masked multi-head attention on the (B, T, C) layout (K2,
 ``kernels/csrc/attention.cu``).
 
-One CUDA kernel, with an online softmax over 64-key tiles and one
-instance per head width (64, 128, 256), serves the places the JAX package
-runs attention in a TPU kernel: ``ppgs_tpu/ops/flash_attention.py``
+One CUDA kernel (wgmma + TMA: S, P and O stay in registers), with an
+online softmax over 64-key tiles and one instance per head width (64, 128,
+256), serves the places the JAX package runs attention in a TPU kernel:
+``ppgs_tpu/ops/flash_attention.py``
 ``_fused_kernel`` (T <= 1024), ``_flash_kernel`` (T > 1024) and
 ``_fused_kernel_packed`` (d_head < 128: wav2vec2's 12 heads of 64, which
 the TPU packs two to a 128-lane block and the card runs one head to a
@@ -68,7 +69,8 @@ def attention_reference(q, k, v, mask, heads, scale_log2, causal=False):
 
 def _row_stride(t, T):
     """Row stride of a (B, T, width) view that the kernel can read in place
-    (unit column stride, rows evenly spaced, 16-byte aligned), else raise."""
+    (unit column stride, rows evenly spaced, 16-byte aligned: what a TMA
+    tensor map takes), else raise."""
     rs = t.stride(1)
     if (t.stride(2) != 1 or t.stride(0) != T * rs or rs % 8
             or t.data_ptr() % 16):
@@ -78,14 +80,13 @@ def _row_stride(t, T):
     return rs
 
 
-def attention(q, k, v, mask, heads, scale_log2, causal=False):
-    """K2: q, k, v (B, T, H*d_head) bf16 with d_head 64, 128 or 256 (views
-    of one buffer are fine), mask (B, T) bool, True = valid key. Returns a
-    new (B, T, C) bf16 tensor. ``scale_log2`` multiplies the fp32 scores
-    before exp2: log2(e)/sqrt(d) for raw q, 1 when that factor is folded
-    into q's weights. ``attention.widths`` counts the launches per d_head."""
-    if q.device.type == 'cpu':
-        return attention_reference(q, k, v, mask, heads, scale_log2, causal)
+def _attention_args(q, k, v, mask, heads):
+    """Check K2's operands and return (d_head, row stride); raise
+    ValueError on what the kernel does not take, before anything is
+    launched: a d_head not in ``D_HEADS``, q, k or v not bf16 of q's shape
+    and device, views the kernel cannot read in place (``_row_stride``) or
+    of different row strides, a mask that is not a contiguous (B, T)
+    bool."""
     B, T, C = q.shape
     d_head = C // heads
     if C != heads * d_head or d_head not in D_HEADS:
@@ -103,6 +104,20 @@ def attention(q, k, v, mask, heads, scale_log2, causal=False):
     if _row_stride(k, T) != rs or _row_stride(v, T) != rs:
         raise ValueError('q, k and v must share one row stride')
     kernels.require(mask, 'mask', torch.bool, dev, (B, T))
+    return d_head, rs
+
+
+def attention(q, k, v, mask, heads, scale_log2, causal=False):
+    """K2: q, k, v (B, T, H*d_head) bf16 with d_head 64, 128 or 256 (views
+    of one buffer are fine), mask (B, T) bool, True = valid key. Returns a
+    new (B, T, C) bf16 tensor. ``scale_log2`` multiplies the fp32 scores
+    before exp2: log2(e)/sqrt(d) for raw q, 1 when that factor is folded
+    into q's weights. ``attention.widths`` counts the launches per d_head."""
+    if q.device.type == 'cpu':
+        return attention_reference(q, k, v, mask, heads, scale_log2, causal)
+    d_head, rs = _attention_args(q, k, v, mask, heads)
+    B, T, C = q.shape
+    dev = q.device
     out = torch.empty((B, T, C), dtype=torch.bfloat16, device=dev)
     kernels.launch('ppgs_attention', q.data_ptr(), k.data_ptr(), v.data_ptr(),
                    rs, mask.data_ptr(), out.data_ptr(), C, B, T, heads,
