@@ -8,9 +8,10 @@ any failure exits non-zero before the result line:
 
 1. the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels from ppgs_tpu_torch/kernels/csrc with nvcc;
-3. K4 (the FFN) at odd shapes against its plain version (rows 1, 63, 64,
-   65, 127, 129, 1000; hidden widths 128, 384 and the model's; round_input
-   0 and 1); K2 (attention) at d_head 128 likewise (T of 1, 63, 64, 65,
+3. K1 (the QKV projection) at odd shapes against its plain version (rows
+   1, 63, 64, 65, 127, 128, 129, 1000, the mel model's weights); K4 (the
+   FFN) likewise (rows 1, 63, 64, 65, 127, 129, 1000; hidden widths 128,
+   384 and the model's; round_input 0 and 1); K2 (attention) at d_head 128 likewise (T of 1, 63, 64, 65,
    127, 129, 500, 1536; a prefix mask and one with holes; causal off and
    on; scale_log2 1 and log2(e)/sqrt(d); a wholly masked window exactly
    0); then hold each kernel against its plain PyTorch version on
@@ -31,12 +32,13 @@ any failure exits non-zero before the result line:
    function (``nn.TransformerEncoder`` for the whole stack), beside the
    kernel's bound; end-to-end audio-seconds per second of ``from_audio``
    (with and without the fused log-mel); and the device time by kernel of
-   one ``from_audio`` call (torch.profiler) with the card's idle share; K4's
-   and K2's device time per launch beside their event times;
+   one ``from_audio`` call (torch.profiler) with the card's idle share; K4's,
+   K2's and K1's device time per launch beside their event times;
 6. the gemm kernel against its plain version at small odd shapes (each
    (ta, tb), a bf16 and an fp32 a, both block widths, ragged rows, depths
    and splits), and K4's two train forms at phase 3's odd shapes with
-   dropout off and 0.1, before anything is timed; the train kernels
+   dropout off and 0.1, and K1 at phase 3's rows with the train layer's
+   unfolded weights, before anything is timed; K1 at the training shape; the train kernels
    against their plain versions at the training shape (256 windows x 512 frames, ragged,
    one wholly masked) with dropout 0.1 and the same Philox masks on both
    sides, with the six gemm forms of a layer's backward (dW1, dW2, dWo,
@@ -52,13 +54,14 @@ any failure exits non-zero before the result line:
    falling, every train kernel launched, the launches of each step exact,
    and one step on 4 rows against ``device='cpu'`` with the same seed;
 8. times of each train kernel (each gemm form apart, beside
-   torch.matmul), its plain version, a library call and its bound; the
+   torch.matmul; K1's train instance beside its device time), its plain
+   version, a library call and its bound; the
    three train functions whole against their plain versions and a library
    yardstick; the train step's time, audio-seconds per second and peak
    memory, and a torch.profiler breakdown of one step, its gemm time beside
    the six forms' timed alone;
-9. K4 at C = 768 (GELU) and 512, and K2 at d_head 64 (12 heads) and 256,
-   at phase 3's odd shapes; the w2v2fb
+9. K1 at (768, 2304) and (512, 1536), K4 at C = 768 (GELU) and 512, and
+   K2 at d_head 64 (12 heads) and 256, at phase 3's odd shapes; the w2v2fb
    slice's kernel instances against their plain versions at its
    shapes, with seeded full-size random weights (wav2vec2-base trunk: 12
    layers of C = 768, 12 heads of 64, F = 3072, GELU; the C = 512 head, 2
@@ -81,7 +84,8 @@ any failure exits non-zero before the result line:
    ``nn.TransformerEncoderLayer`` x 12 and the conv chain against the
    cuDNN bf16 convs; the slice's audio-seconds per second and a
    torch.profiler breakdown; K4's device time per call by kernel at each
-   width (phases 5, 8 and 11), and K2's at each width (phases 5 and 11);
+   width (phases 5, 8 and 11), and K2's and K1's at each width (phases 5,
+   8 and 11);
 12. the bottleneck slice's rel-pos attention kernel (B8) against its plain
    version, with seeded full-size random weights (the 16-block conformer,
    d = 144, 4 heads of 36, FFN 576; the C = 256 head): 64 x T = 800 from
@@ -396,17 +400,17 @@ def kernel_device_ms(label, fn, card, reps=5):
             if caught else None)
 
 
-def k2_times(record, fn, d_head, card):
-    """K2's device time per launch beside its event time, bound and SDPA's
-    time, into its record: a gain that the host hides shows as such."""
-    record['device_ms'] = kernel_device_ms(f'K2 attention d_head {d_head}',
-                                           fn, card)
+def device_times(label, record, fn, library, card):
+    """A kernel's device time per launch beside its event time, bound and
+    library call's time (``library`` names it), into its record: a gain
+    that the host hides shows as such."""
+    record['device_ms'] = kernel_device_ms(label, fn, card)
     ms, dev_ms, lib = record['ms'], record['device_ms'], record['library_ms']
     device = 'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'
     factor = '' if dev_ms is None else f', device {dev_ms / lib:.2f}x'
-    print(f'K2 d_head {d_head}: event {ms:.4f} ms, device {device}, bound '
-          f'{record["bound_ms"]:.4f} ms ({record["bound_by"]}), SDPA '
-          f'{lib:.4f} ms: {ms / lib:.2f}x SDPA{factor}, '
+    print(f'{label}: event {ms:.4f} ms, device {device}, bound '
+          f'{record["bound_ms"]:.4f} ms ({record["bound_by"]}), {library} '
+          f'{lib:.4f} ms: {ms / lib:.2f}x {library}{factor}, '
           f'{record["launches"]} launches per main-path call [{card}]',
           flush=True)
 
@@ -438,6 +442,32 @@ def agree(name, got, want, want32=None):
 # ragged 1000, hidden widths of one 128-wide tile, of three, and the model's
 K4_ODD_M = (1, 63, 64, 65, 127, 129, 1000)
 K4_ODD_F = (128, 384)
+
+
+# K1 (qkv_proj.cu) at odd shapes, each width, before anything is timed:
+# rows about its 64-row warpgroups and 128-row units, and a ragged 1000
+K1_ODD_M = (1, 63, 64, 65, 127, 128, 129, 1000)
+
+
+@torch.no_grad()
+def k1_odd_shape_checks(tag, wqkv, bqkv, dev):
+    """K1 against its plain version at ``K1_ODD_M`` rows with the given
+    weights, on its own seeded inputs (the phases' draws stay as they
+    were); atol and rtol 1e-2, phase 3's limit at the main shape."""
+    from ppgs_tpu_torch.ops import encoder_layer_kernel as elk
+
+    K, N = wqkv.shape
+    gen = torch.Generator(device=dev).manual_seed(SEED + 41 + K)
+    worst = 0.0
+    for M in K1_ODD_M:
+        x = torch.randn(M, K, generator=gen, device=dev)
+        worst = max(worst, check(
+            f'K1 qkv_proj ({tag}) M={M}', elk.qkv_proj(x, wqkv, bqkv),
+            elk.qkv_proj_reference(x, wqkv, bqkv), atol=1e-2, rtol=1e-2,
+            quiet=True))
+    print(f'K1 qkv_proj ({tag}, {K} -> {N}) at rows {K1_ODD_M}: max '
+          f'|kernel - plain| = {worst:.3g} (atol 1e-2, rtol 1e-2)',
+          flush=True)
 
 
 def relative_l2(got, want):
@@ -680,7 +710,14 @@ def train_kernel_checks(port, config, layer, dev, gen):
     sl, sm = fa.LOG2E / math.sqrt(C // H), 1 / math.sqrt(C // H)
     err = {}
 
-    qkv = port.ops.encoder_layer_kernel.qkv_proj(x, wqkv, layer.attn.bqkv)
+    elk = port.ops.encoder_layer_kernel
+    k1_odd_shape_checks('train, unfolded weights', wqkv, layer.attn.bqkv,
+                        dev)
+    qkv = elk.qkv_proj(x, wqkv, layer.attn.bqkv)
+    err['qkv_proj'] = check(
+        f'K1 qkv_proj (train, {M} rows, unfolded weights)', qkv,
+        elk.qkv_proj_reference(x, wqkv, layer.attn.bqkv), atol=1e-2,
+        rtol=1e-2)
     q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
     att = (q, k, v, mask, H, sl, False, drop)
     a16, a32, lse = fa.attention_train_fwd(*att, want_f32=True)
@@ -781,7 +818,7 @@ def train_kernel_checks(port, config, layer, dev, gen):
                   qkv=qkv, drop=drop, sl=sl, sm=sm, a16=a16, a32=a32, lse=lse,
                   do=do, d_row=d_row, d16=d16, d32=d32, r=r, n=n, rstd=rstd,
                   g=g, masked=masked, dz=dz, hd=hd, dh=dh, wo=wo, wqkv=wqkv,
-                  w1=w1, w2=w2, lengths=lengths)
+                  bqkv=layer.attn.bqkv, w1=w1, w2=w2, lengths=lengths)
     forms = gemm_form_checks(inputs)
     err['gemm'] = max(forms.values())
     err.update({f'gemm {name}': e for name, e in forms.items()})
@@ -1159,6 +1196,7 @@ def train_kernel_times(config, inp, err, launches, per_step, form_launches,
     plain version's and a library call's, and the gemm forms' (one record
     each); returns (the JSON records, the gemm forms' ms summed)."""
     from ppgs_tpu_torch.ops import backward
+    from ppgs_tpu_torch.ops import encoder_layer_kernel as elk
     from ppgs_tpu_torch.ops import encoder_layer_train as elt
     from ppgs_tpu_torch.ops import flash_attention as fa
     from ppgs_tpu_torch.ops import fused_ffn
@@ -1207,7 +1245,16 @@ def train_kernel_times(config, inp, err, launches, per_step, form_launches,
     zero_mean = torch.zeros(M, 1, device=r.device)
     d32 = inp['d32'].view(M, 3 * C)
     dh = inp['dh']
+    wqkv, bqkv = inp['wqkv'], inp['bqkv']
     runs = {
+        'qkv_proj': (
+            lambda: elk.qkv_proj(inp['x'], wqkv, bqkv),
+            lambda: elk.qkv_proj_reference(inp['x'], wqkv, bqkv),
+            lambda: torch.addmm(bqkv.to(bf16), inp['x'].view(M, C).to(bf16),
+                                wqkv),
+            (2 * M * C * 3 * C,
+             M * C * 4 + C * 3 * C * 2 + 3 * C * 4 + M * 3 * C * 2),
+            'qkv_proj.cu', 'ppgs_tpu/ops/encoder_layer_train.py:471'),
         'attention_train_fwd': (
             lambda: fa.attention_train_fwd(*att, want_f32=True),
             lambda: fa.attention_train_fwd_reference(*att, want_f32=True),
@@ -1301,13 +1348,16 @@ def train_kernel_times(config, inp, err, launches, per_step, form_launches,
               f'{per_step[name]} launches per step at T={TRAIN_T} '
               f'[{card}]', flush=True)
         records.append({
-            'name': name, 'route': 'cuda',
+            'name': 'qkv_proj_train' if name == 'qkv_proj' else name,
+            'route': 'cuda',
             'source': f'ppgs_tpu_torch/kernels/csrc/{src}',
             'replaces': replaces, 'launches': launches[name],
             'max_abs_err': err[name], 'ms': ms, 'plain_ms': plain_ms,
             'bound_ms': bound_ms, 'bound_by': bound_by,
             'library_ms': library_ms})
     kernel_device_ms('K4 ffn_train_fwd', runs['ffn_train_fwd'][0], card)
+    device_times(f'K1 qkv_proj (train, {M} rows)', records[0],
+                 runs['qkv_proj'][0], 'cast + addmm', card)
     gemm_records = gemm_form_times(inp, err, form_launches, card)
     return records + gemm_records, sum(r['ms'] for r in gemm_records)
 
@@ -1633,6 +1683,7 @@ def mel_phases(port, config, workdir, dev, gen, card):
          'be2': layer0.norm2.bias}
 
     phase(f'3 kernels against their plain versions ({W} windows x T={T})')
+    k1_odd_shape_checks('mel', w['wqkv'], w['bqkv'], dev)
     k4_odd_shape_checks('ln', C, 'relu', Fh, dev)
     k2_odd_shape_checks(C // H, H, dev)
     x = torch.randn(W, T, C, generator=gen, device=dev)
@@ -1839,8 +1890,11 @@ def mel_phases(port, config, workdir, dev, gen, card):
             'library_ms': library_ms})
 
     kernel_device_ms('K4 ffn_residual_ln', runs['ffn_residual_ln'][0], card)
-    k2_times(next(r for r in records if r['name'] == 'attention'),
-             runs['attention'][0], C // H, card)
+    by_name = {r['name']: r for r in records}
+    device_times(f'K2 attention d_head {C // H}', by_name['attention'],
+                 runs['attention'][0], 'SDPA', card)
+    device_times(f'K1 qkv_proj {C} -> {3 * C}', by_name['qkv_proj'],
+                 runs['qkv_proj'][0], 'cast + addmm', card)
 
     # B9: the library's yardstick is the cuDNN bf16 chain of the same
     # function (the DFT as a conv, magnitude, mel product, log)
@@ -2066,9 +2120,9 @@ def w2v2fb_kernel_checks(port, trunk, head, head_config, dev, gen):
     x = torch.randn(W2V2_BATCH, T, C, generator=gen, device=dev)
     mask = torch.ones(W2V2_BATCH, T, dtype=torch.bool, device=dev)
     mask[-1] = False
-    layer_kernel_checks('trunk', x, mask,
-                        layer_weights(trunk.encoder.layers[0]), H, 'gelu',
-                        err, inputs)
+    tw = layer_weights(trunk.encoder.layers[0])
+    k1_odd_shape_checks('trunk', tw['wqkv'], tw['bqkv'], dev)
+    layer_kernel_checks('trunk', x, mask, tw, H, 'gelu', err, inputs)
     x16 = x.to(torch.bfloat16)
     layers = trunk.encoder.layers
     got = elk.encoder_stack(x16, mask, layers, H, activation='gelu')
@@ -2092,6 +2146,7 @@ def w2v2fb_kernel_checks(port, trunk, head, head_config, dev, gen):
     Ch, Hh = head_config.hidden_channels, head_config.attention_heads
     xh = torch.randn(W2V2_BATCH * n_blocks, Tw, Ch, generator=gen, device=dev)
     hw = layer_weights(head.layers[0])
+    k1_odd_shape_checks('head', hw['wqkv'], hw['bqkv'], dev)
     layer_kernel_checks('head', xh, hmask, hw, Hh, 'relu', err, inputs)
     r = inputs['head']['r']
     ffn = (hw['w1'], hw['b1'], hw['w2'], hw['b2'], hw['g2'], hw['be2'])
@@ -2291,6 +2346,9 @@ def layer_records(tag, inp, err, launches, replaces, card):
                                 w['wqkv'])),
         (2 * M * C * 3 * C, M * C * 4 + C * 3 * C * 2 + 3 * C * 4
          + M * 3 * C * 2), card))
+    device_times(f'K1 qkv_proj {C} -> {3 * C}', records[-1],
+                 lambda: elk.qkv_proj(x, w['wqkv'], w['bqkv']),
+                 'cast + addmm', card)
     records.append(timed_record(
         f'attention_d{D}', 'attention.cu', replaces,
         launches['attention'][tag], err[f'attention_d{D}'], (
@@ -2299,8 +2357,8 @@ def layer_records(tag, inp, err, launches, replaces, card):
             lambda: F.scaled_dot_product_attention(
                 q4, k4, v4, attn_mask=sdpa_mask, scale=math.log(2))),
         (4 * pairs * C, M * 3 * C * 2 + M + M * C * 2), card))
-    k2_times(records[-1], lambda: fa.attention(q, k, v, mask, H, 1.0), D,
-             card)
+    device_times(f'K2 attention d_head {D}', records[-1],
+                 lambda: fa.attention(q, k, v, mask, H, 1.0), 'SDPA', card)
     records.append(timed_record(
         f'out_proj_residual_ln_c{C}', 'out_proj_ln.cu', replaces,
         launches['out_proj_residual_ln'][tag],

@@ -1,9 +1,10 @@
 // Hopper building blocks shared by the kernels that feed the tensor cores
-// with TMA and wgmma (gemm.cu, ffn_ln.cu, attention.cu): mbarrier waits
-// that trap rather than hang, TMA tile loads (2-D and 3-D) and 3-D stores,
-// the 128-byte-swizzle shared-memory descriptor, the wgmma.mma_async
-// wrappers (A from shared memory or from registers), and the host-side
-// encoding of a TMA tensor map (2-D and 3-D). Header-only; sm_90a.
+// with TMA and wgmma (gemm.cu, ffn_ln.cu, attention.cu, qkv_proj.cu):
+// mbarrier waits that trap rather than hang, TMA tile loads and stores
+// (2-D and 3-D), the 128-byte-swizzle shared-memory descriptor, the
+// wgmma.mma_async wrappers (A from shared memory or from registers), and
+// the host-side encoding of a TMA tensor map (2-D and 3-D). Header-only;
+// sm_90a.
 #pragma once
 
 #include <cuda.h>   // CUtensorMap and its enums; cuTensorMapEncodeTiled is
@@ -48,6 +49,15 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
                : "memory");
 }
 
+// Arrive on the barrier at `bar`'s offset in block `rank` of the cluster
+__device__ __forceinline__ void mbar_arrive_remote(uint32_t bar,
+                                                   uint32_t rank) {
+  asm volatile(
+      "{\n .reg .b32 ra;\n mapa.shared::cluster.u32 ra, %0, %1;\n"
+      " mbarrier.arrive.shared::cluster.b64 _, [ra];\n}\n"
+      ::"r"(bar), "r"(rank) : "memory");
+}
+
 // Initialise one barrier for `count` arrivals; the fence that ends
 // mbar_init_ring publishes it too when it comes first
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
@@ -84,6 +94,22 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// The same into the same offset of the shared memory of each block of the
+// cluster in `mask`, each block's barrier at `bar`'s offset told the bytes
+// it receives
+__device__ __forceinline__ void tma_load_multicast(void* dst,
+                                                   const CUtensorMap* map,
+                                                   int c0, int c1,
+                                                   uint32_t bar,
+                                                   uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%2, %3}], [%4], %5;"
+      ::"r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0),
+      "r"(c1), "r"(bar), "h"(mask)
+      : "memory");
+}
+
 // The same from a 3-D tensor map, at coordinates (c0, c1, c2)
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
                                             int c0, int c1, int c2,
@@ -96,9 +122,19 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
-// Store a box of shared memory through a 3-D tensor map at (c0, c1, c2);
-// what falls past the map's edges is not written. bulk_commit, then
-// bulk_wait_read before the shared memory is reused or the block exits
+// Store a box of shared memory through a 2-D tensor map at (c0, c1), or a
+// 3-D one at (c0, c1, c2); what falls past the map's edges is not written.
+// bulk_commit, then bulk_wait_read before the shared memory is reused or
+// the block exits
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, int c0,
+                                          int c1, const void* src) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3}], [%1];"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(src)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
 __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, int c0,
                                              int c1, int c2,
                                              const void* src) {

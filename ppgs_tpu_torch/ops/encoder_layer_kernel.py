@@ -45,7 +45,10 @@ from .fused_ffn import (ffn_residual_ln, ffn_residual_ln_reference,
                         layer_norm, matmul)
 
 MAX_SEQ = 1024      # windows up to this length take the stack (as on the TPU)
-OUT_PROJ_WIDTHS = (256, 512, 768)   # K3's instances: mel, w2v2fb, wav2vec2
+# K1's (K, N) and K3's C: mel and the bottleneck head, the w2v2fb head,
+# the wav2vec2 trunk
+QKV_WIDTHS = ((256, 768), (512, 1536), (768, 2304))
+OUT_PROJ_WIDTHS = (256, 512, 768)
 
 
 def qkv_proj_reference(x, wqkv, bqkv):
@@ -54,26 +57,41 @@ def qkv_proj_reference(x, wqkv, bqkv):
     return matmul(x.to(cd), wqkv).to(cd) + bqkv.to(cd)
 
 
-def qkv_proj(x, wqkv, bqkv):
-    """K1 (``kernels/csrc/qkv_proj.cu``): x (..., C) fp32, wqkv (C, 3C)
-    bf16, bqkv (3C,) fp32 -> (..., 3C) bf16. ``qkv_proj.widths`` counts
-    the launches per C."""
-    if x.device.type == 'cpu':
-        return qkv_proj_reference(x, wqkv, bqkv)
+def qkv_proj_args(x, wqkv, bqkv):
+    """Check K1's operands and return its row count; raise ValueError on
+    what the kernel does not take, before anything is launched: a (K, N)
+    not in ``QKV_WIDTHS``, x not fp32 with last dim K, wqkv not bf16,
+    bqkv not fp32 of shape (N,), any of them on another device than x or
+    not contiguous, or one not 16-byte aligned (TMA and the kernel's
+    16-byte loads)."""
+    if wqkv.dim() != 2 or tuple(wqkv.shape) not in QKV_WIDTHS:
+        raise ValueError(f'qkv_proj kernel takes wqkv (K, N) in '
+                         f'{QKV_WIDTHS}; got {tuple(wqkv.shape)}')
     K, N = wqkv.shape
-    if K % 64 or N % 128:
-        raise ValueError(f'qkv_proj kernel takes K%64==0, N%128==0; got '
-                         f'{(K, N)}')
     dev = x.device
     kernels.require(x, 'x', torch.float32, dev)
     if x.shape[-1] != K:
         raise ValueError(f'x: expected last dim {K}, got {x.shape[-1]}')
     kernels.require(wqkv, 'wqkv', torch.bfloat16, dev)
     kernels.require(bqkv, 'bqkv', torch.float32, dev, (N,))
+    for name, t in (('x', x), ('wqkv', wqkv), ('bqkv', bqkv)):
+        if t.data_ptr() % 16:
+            raise ValueError(f'{name}: expected a 16-byte aligned tensor')
+    return x.numel() // K
+
+
+def qkv_proj(x, wqkv, bqkv):
+    """K1 (``kernels/csrc/qkv_proj.cu``): x (..., K) fp32, wqkv (K, N)
+    bf16, bqkv (N,) fp32 -> (..., N) bf16, (K, N) in ``QKV_WIDTHS``.
+    ``qkv_proj.widths`` counts the launches per K."""
+    if x.device.type == 'cpu':
+        return qkv_proj_reference(x, wqkv, bqkv)
+    M = qkv_proj_args(x, wqkv, bqkv)
+    K, N = wqkv.shape
+    dev = x.device
     out = torch.empty(x.shape[:-1] + (N,), dtype=torch.bfloat16, device=dev)
     kernels.launch('ppgs_qkv_proj', x.data_ptr(), wqkv.data_ptr(),
-                   bqkv.data_ptr(), out.data_ptr(), x.numel() // K, K, N,
-                   device=dev)
+                   bqkv.data_ptr(), out.data_ptr(), M, K, N, device=dev)
     qkv_proj.launches += 1
     qkv_proj.widths[K] += 1
     return out
