@@ -38,7 +38,11 @@ any failure exits non-zero before the result line:
    (ta, tb), a bf16 and an fp32 a, both block widths, ragged rows, depths
    and splits), and K4's two train forms at phase 3's odd shapes with
    dropout off and 0.1, and K1 at phase 3's rows with the train layer's
-   unfolded weights, before anything is timed; K1 at the training shape; the train kernels
+   unfolded weights, and attention_train_bwd at T of 1, 63, 64, 65, 127,
+   128, 129, 500, 512, 1000, 1024 (ragged, holed, wholly masked and full
+   windows; causal off and on; dropout off and 0.1; bf16, fp32 and both
+   outputs; two calls bit for bit), before anything is timed; K1 at the
+   training shape; the train kernels
    against their plain versions at the training shape (256 windows x 512 frames, ragged,
    one wholly masked) with dropout 0.1 and the same Philox masks on both
    sides, with the six gemm forms of a layer's backward (dW1, dW2, dWo,
@@ -54,7 +58,9 @@ any failure exits non-zero before the result line:
    falling, every train kernel launched, the launches of each step exact,
    and one step on 4 rows against ``device='cpu'`` with the same seed;
 8. times of each train kernel (each gemm form apart, beside
-   torch.matmul; K1's train instance beside its device time), its plain
+   torch.matmul; K1's train instance beside its device time;
+   attention_train_bwd's device time by pass, dq and dk/dv, and with the
+   dropout off against 0.1, what the dropout costs it), its plain
    version, a library call and its bound; the
    three train functions whole against their plain versions and a library
    yardstick; the train step's time, audio-seconds per second and peak
@@ -610,6 +616,123 @@ def k2_odd_shape_checks(d_head, heads, dev):
           f'wholly masked window exactly 0', flush=True)
 
 
+# attention_train_bwd at odd shapes, before anything is timed: T about its
+# 64-row tiles and 128-row blocks, the per-layer and whole-layer train
+# windows, and two long ones
+ATB_ODD_T = (1, 63, 64, 65, 127, 128, 129, 500, 512, 1000, 1024)
+
+
+def check_keep_words(name, words, drop, mask, causal):
+    """The keep words of attention_train_fwd against their plain packing
+    (``keep_words_reference``) on the valid pairs, bit for bit: the kernel
+    writes the bits of those only (0 for the masked keys of a tile it
+    walks, nothing for the tiles past the causal diagonal). Returns the
+    count of pairs compared."""
+    from ppgs_tpu_torch.ops import flash_attention as fa
+
+    B, H, T, _ = words.shape
+    shift = torch.arange(32, device=words.device)
+
+    def bits(w):
+        return (((w.long()[..., None] >> shift) & 1)
+                .reshape(B, H, T, -1)[..., :T].bool())
+
+    valid = fa._valid(mask, T, causal).expand(B, H, T, T)
+    want = fa.keep_words_reference(drop, B, H, T, words.device)
+    if not torch.equal(bits(words)[valid], bits(want)[valid]):
+        raise AssertionError(f'{name}: the keep words differ from Philox\'s '
+                             f'bits on a valid pair')
+    return int(valid.sum().item())
+
+
+@torch.no_grad()
+def attention_bwd_odd_shape_checks(dev):
+    """attention_train_bwd against its plain version at ``ATB_ODD_T``, 4
+    windows of 2 heads of 128 on N(0, 1) q, k, v and dO (views of fused
+    buffers) with lse and d_row from the plain forward: masks ragged,
+    holed (one whole 64-key tile masked where T reaches it), wholly masked
+    and full, one window each; causal off and on; dropout off and 0.1;
+    want_c / want32 bf16 only, fp32 only and both. The wholly masked window
+    exactly 0, the bf16 output the kernel's own fp32 output rounded, and two
+    calls on the same inputs equal bit for bit. The backward reads the keep
+    words of the forward kernel, held first against Philox's bits
+    (``check_keep_words``); the plain backward draws its own. Limits:
+    ``train_kernel_checks``' for this kernel: fp32 atol 2e-3 rtol 1e-2 in
+    every case; bf16 atol 1e-3 rtol 1e-2 but for a share 1e-6 of rounding
+    flips each within 8e-3, the share taken of the bf16 elements of all the
+    cases together (a case at small T holds fewer than 10^6 elements).
+    Prints the max |kernel - plain| by T."""
+    from ppgs_tpu_torch.ops import dropout
+    from ppgs_tpu_torch.ops import flash_attention as fa
+
+    # A generator of its own: the phases' own draws stay as they were
+    gen = torch.Generator(device=dev).manual_seed(SEED + 47)
+    H, D = 2, fa.D_HEAD
+    C = H * D
+    sl, sm = fa.LOG2E / math.sqrt(D), 1 / math.sqrt(D)
+    cases, got16, want16, pairs = [], [], [], 0
+    for T in ATB_ODD_T:
+        qkv = torch.randn(4, T, 3 * C, generator=gen, device=dev).to(
+            torch.bfloat16)
+        do = torch.randn(4, T, 2 * C, generator=gen, device=dev).to(
+            torch.bfloat16)[..., C:]
+        q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
+        keys = torch.arange(T, device=dev)
+        mask = torch.stack([keys < max(1, 2 * T // 3),
+                            torch.rand(T, generator=gen, device=dev) < 0.6,
+                            torch.zeros(T, dtype=torch.bool, device=dev),
+                            torch.ones(T, dtype=torch.bool, device=dev)])
+        mask[1, 64:128] = False
+        worst = 0.0
+        for causal, rate in itertools.product((False, True), (0.0, DROPOUT)):
+            drop = dropout.Drop(SEED + 19, dropout.site(1, 'probs'), rate)
+            o, o32, lse, _ = fa.attention_train_fwd_reference(
+                q, k, v, mask, H, sl, causal, drop, want_f32=True)
+            keep = fa.attention_train_fwd(q, k, v, mask, H, sl, causal,
+                                          drop)[3]
+            if keep is not None:
+                pairs += check_keep_words(f'attention_train_fwd T={T}', keep,
+                                          drop, mask, causal)
+            d_row = fa.row_dot_reference(do, o32, H).contiguous()
+            args = (q, k, v, mask, lse, keep, do, d_row, H, sl, sm, causal,
+                    drop)
+            w16, w32 = fa.attention_train_bwd_reference(*args, want32=True)
+            name = f'attention_train_bwd T={T} causal={causal} rate={rate}'
+            for want_c, want32 in ((True, False), (False, True),
+                                   (True, True)):
+                got = fa.attention_train_bwd(*args, want_c=want_c,
+                                             want32=want32)
+                if got[1] is not None:
+                    worst = max(worst, check(name, got[1], w32, atol=2e-3,
+                                             rtol=1e-2, quiet=True))
+                if got[0] is not None:
+                    got16.append(got[0].flatten())
+                    want16.append(w16.flatten())
+                    worst = max(worst, (got[0].float() - w16.float()).abs()
+                                .max().item())
+                if any(out is not None and out[2].any() for out in got):
+                    raise AssertionError(f'{name}: the wholly masked window '
+                                         f'did not give 0')
+            again = fa.attention_train_bwd(*args, want32=True)
+            if not (torch.equal(got[0], again[0])
+                    and torch.equal(got[1], again[1])):
+                raise AssertionError(f'{name}: two calls differ')
+            if not torch.equal(got[0], got[1].to(torch.bfloat16)):
+                raise AssertionError(f'{name}: the bf16 output is not the '
+                                     f'fp32 one rounded')
+        cases.append(f'{T} {worst:.3g}')
+    check(f'attention_train_bwd at T = {ATB_ODD_T[0]} ... {ATB_ODD_T[-1]}, '
+          f'bf16, {sum(t.numel() for t in got16)} elements', torch.cat(got16),
+          torch.cat(want16), 1e-3, 1e-2, share=1e-6, outlier=8e-3)
+    print(f'attention_train_bwd (4 windows, {H} heads of {D}), ragged, '
+          f'holed, wholly masked and full windows, causal off and on, '
+          f'dropout off and {DROPOUT}, bf16 / fp32 / both: max |kernel - '
+          f'plain| by T: {", ".join(cases)} (fp32 atol 2e-3 rtol 1e-2 in '
+          f'each case); the wholly masked window exactly 0; bf16 the fp32 '
+          f'rounded; two calls equal bit for bit; the forward\'s keep words '
+          f'equal to Philox\'s bits on all {pairs} valid pairs', flush=True)
+
+
 def check_rel(name, got, want, limit):
     """Raise unless the relative L2 error |got - want| / |want| <= limit;
     return the max |diff|. For the gradients of a whole layer, where the
@@ -720,8 +843,9 @@ def train_kernel_checks(port, config, layer, dev, gen):
         rtol=1e-2)
     q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
     att = (q, k, v, mask, H, sl, False, drop)
-    a16, a32, lse = fa.attention_train_fwd(*att, want_f32=True)
-    p16, p32, plse = fa.attention_train_fwd_reference(*att, want_f32=True)
+    a16, a32, lse, keep = fa.attention_train_fwd(*att, want_f32=True)
+    p16, p32, plse, _ = fa.attention_train_fwd_reference(*att,
+                                                         want_f32=True)
     err['attention_train_fwd'] = max(
         check('attention_train_fwd o (bf16)', a16, p16, 1e-3, 1e-2,
               share=1e-6, outlier=8e-3),
@@ -730,6 +854,9 @@ def train_kernel_checks(port, config, layer, dev, gen):
     if a16[-1].abs().max().item() != 0:
         raise AssertionError('the wholly masked window did not give 0')
     del p16, p32, plse
+    print(f'attention_train_fwd keep words: equal to Philox\'s bits on all '
+          f'{check_keep_words("attention_train_fwd", keep, drop, mask, False)}'
+          f' valid pairs', flush=True)
 
     do = torch.randn(B, T, C, generator=gen, device=dev)
     d_row = fa.row_dot(do, a32, H)
@@ -738,7 +865,8 @@ def train_kernel_checks(port, config, layer, dev, gen):
                            rtol=1e-4)
     check('row_dot (bf16)', fa.row_dot(do.to(bf16), a16, H),
           fa.row_dot_reference(do.to(bf16), a16, H), atol=1e-3, rtol=1e-4)
-    bwd = (q, k, v, mask, lse, do.to(bf16), d_row, H, sl, sm, False, drop)
+    bwd = (q, k, v, mask, lse, keep, do.to(bf16), d_row, H, sl, sm, False,
+           drop)
     d16, d32 = fa.attention_train_bwd(*bwd, want32=True)
     w16, w32 = fa.attention_train_bwd_reference(*bwd, want32=True)
     err['attention_train_bwd'] = max(
@@ -816,7 +944,8 @@ def train_kernel_checks(port, config, layer, dev, gen):
     hd, dh = got_b[1], got_b[2]
     inputs = dict(C=C, H=H, B=B, T=T, M=M, x=x, mask=mask, q=q, k=k, v=v,
                   qkv=qkv, drop=drop, sl=sl, sm=sm, a16=a16, a32=a32, lse=lse,
-                  do=do, d_row=d_row, d16=d16, d32=d32, r=r, n=n, rstd=rstd,
+                  keep=keep, do=do, d_row=d_row, d16=d16, d32=d32, r=r, n=n,
+                  rstd=rstd,
                   g=g, masked=masked, dz=dz, hd=hd, dh=dh, wo=wo, wqkv=wqkv,
                   bqkv=layer.attn.bqkv, w1=w1, w2=w2, lengths=lengths)
     forms = gemm_form_checks(inputs)
@@ -1217,8 +1346,8 @@ def train_kernel_times(config, inp, err, launches, per_step, form_launches,
 
     sdpa_mask = mask[:, None, None, :]
     att = (q, k, v, mask, H, inp['sl'], False, drop)
-    bwd = (q, k, v, mask, inp['lse'], do16, inp['d_row'], H, inp['sl'],
-           inp['sm'], False, drop)
+    bwd = (q, k, v, mask, inp['lse'], inp['keep'], do16, inp['d_row'], H,
+           inp['sl'], inp['sm'], False, drop)
     qs, ks, vs = (heads(t).detach().requires_grad_() for t in (q, k, v))
     with torch.enable_grad():       # the library calls' backward graphs
         sdpa_out = F.scaled_dot_product_attention(
@@ -1278,7 +1407,7 @@ def train_kernel_times(config, inp, err, launches, per_step, form_launches,
                                         retain_graph=True),
             (10 * pairs * D,
              4 * M * C * 2 + 2 * M * H * 4 + M + M * 3 * C * 6),
-            'attention_train.cu', 'ppgs_tpu/ops/flash_attention.py:625'),
+            'attention_train_bwd.cu', 'ppgs_tpu/ops/flash_attention.py:625'),
         'out_proj_ln_train': (
             lambda: elt.out_proj_ln_train(
                 inp['a16'], inp['wo'], inp['bo'], inp['x'], inp['g1'],
@@ -1358,8 +1487,53 @@ def train_kernel_times(config, inp, err, launches, per_step, form_launches,
     kernel_device_ms('K4 ffn_train_fwd', runs['ffn_train_fwd'][0], card)
     device_times(f'K1 qkv_proj (train, {M} rows)', records[0],
                  runs['qkv_proj'][0], 'cast + addmm', card)
+    attention_bwd_times(records[list(runs).index('attention_train_bwd')],
+                        bwd, card)
     gemm_records = gemm_form_times(inp, err, form_launches, card)
     return records + gemm_records, sum(r['ms'] for r in gemm_records)
+
+
+def attention_bwd_times(record, bwd, card):
+    """attention_train_bwd at the training shape: its device time per
+    launch by pass (dq, dk/dv) beside its event time and SDPA's backward,
+    then ``keep_bits_probe``."""
+    from ppgs_tpu_torch.ops import flash_attention as fa
+
+    device_times('attention_train_bwd (dq and dk/dv passes)', record,
+                 lambda: fa.attention_train_bwd(*bwd, want32=True),
+                 'SDPA backward', card)
+    keep_bits_probe(bwd, card)
+
+
+def keep_bits_probe(bwd, card):
+    """attention_train_bwd on ``bwd`` (its arguments, the dropout last) as
+    given and with the dropout off (threshold 0), in turns (on, off, off,
+    on): CUDA-event medians and the profiler's device time per launch by
+    kernel. The gap is what the dropout costs the backward (reading the
+    forward's keep words, or drawing the bits where a backward draws
+    them). Prints and returns them."""
+    from ppgs_tpu_torch.ops import dropout
+    from ppgs_tpu_torch.ops import flash_attention as fa
+
+    drop = bwd[-1]
+    runs = {'on': bwd,
+            'off': bwd[:-1] + (dropout.Drop(drop.seed, drop.site, 0.0),)}
+
+    def run(key):
+        return lambda: fa.attention_train_bwd(*runs[key], want32=True)
+
+    event = {'on': [], 'off': []}
+    for key in ('on', 'off', 'off', 'on'):
+        event[key].append(time_ms(run(key), TRAIN_REPS, 2))
+    device = {key: kernel_device_ms(
+        f'attention_train_bwd, dropout {drop.rate if key == "on" else 0}',
+        run(key), card) for key in runs}
+    gap = statistics.mean(event['on']) - statistics.mean(event['off'])
+    print(f'attention_train_bwd keep bits: event {event["on"]} ms at '
+          f'dropout {drop.rate}, {event["off"]} ms off: {gap:.4f} ms; '
+          f'device {device["on"]} / {device["off"]} ms [{card}]',
+          flush=True)
+    return {'event_ms': event, 'device_ms': device, 'keep_bits_ms': gap}
 
 
 def gemm_form_times(inp, err, form_launches, card):
@@ -1992,6 +2166,7 @@ def train_phases(port, config, workdir, dev, gen, card):
     for form in ('train_ln', 'y_out'):
         k4_odd_shape_checks(form, config.hidden_channels, 'relu',
                             config.ffn_channels, dev)
+    attention_bwd_odd_shape_checks(dev)
     train_err, train_inputs = train_kernel_checks(port, config, layer, dev,
                                                   gen)
     train_inputs.update(

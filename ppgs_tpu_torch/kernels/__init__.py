@@ -39,16 +39,17 @@ _DROP = (_U, _U, _U, _U, _F)
 # C symbol -> (source file, argtypes). Every pointer and the stream are
 # c_void_p: ctypes would pass a bare Python int as a 32-bit int.
 SIGNATURES = {
-    # q, k, v, rs, mask, out, out32, out_stride, lse, B, T, H, scale_log2,
-    # causal, *drop, stream
+    # q, k, v, rs, mask, out, out32, out_stride, lse, keep, B, T, H,
+    # scale_log2, causal, *drop, stream
     'ppgs_attention_train_fwd': ('attention_train.cu', (
-        _P, _P, _P, _L, _P, _P, _P, _L, _P, _I, _I, _I, _F, _I, *_DROP, _P)),
-    # q, k, v, rs, mask, lse, dout, do_stride, d_row, dq16, dq32, dk16,
-    # dk32, dv16, dv32, d_stride, B, T, H, scale_log2, sm_scale, causal,
-    # *drop, stream
-    'ppgs_attention_train_bwd': ('attention_train.cu', (
-        _P, _P, _P, _L, _P, _P, _P, _L, _P, _P, _P, _P, _P, _P, _P, _L,
-        _I, _I, _I, _F, _F, _I, *_DROP, _P)),
+        _P, _P, _P, _L, _P, _P, _P, _L, _P, _P, _I, _I, _I, _F, _I, *_DROP,
+        _P)),
+    # q, k, v, rs, mask, lse, keep, dout, do_stride, d_row, dq16, dq32,
+    # dk16, dk32, dv16, dv32, d_stride, B, T, H, scale_log2, sm_scale,
+    # causal, drop_scale, stream
+    'ppgs_attention_train_bwd': ('attention_train_bwd.cu', (
+        _P, _P, _P, _L, _P, _P, _P, _P, _L, _P, _P, _P, _P, _P, _P, _P, _L,
+        _I, _I, _I, _F, _F, _I, _F, _P)),
     # x, ldx, y, ldy, out, B, T, H, is_f32, stream
     'ppgs_row_dot': ('attention_train.cu', (_P, _L, _P, _L, _P, _I, _I, _I,
                                             _I, _P)),

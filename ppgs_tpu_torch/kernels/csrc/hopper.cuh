@@ -1,5 +1,6 @@
 // Hopper building blocks shared by the kernels that feed the tensor cores
-// with TMA and wgmma (gemm.cu, ffn_ln.cu, attention.cu, qkv_proj.cu):
+// with TMA and wgmma (gemm.cu, ffn_ln.cu, attention.cu, qkv_proj.cu,
+// attention_train_bwd.cu):
 // mbarrier waits that trap rather than hang, TMA tile loads and stores
 // (2-D and 3-D), the 128-byte-swizzle shared-memory descriptor, the
 // wgmma.mma_async wrappers (A from shared memory or from registers), and
@@ -353,23 +354,28 @@ inline bool encode(CUtensorMap* map, const void* base, bool f32,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// A 3-D bf16 tensor of n2 slabs of n1 rows of n0 elements (rows ld1
-// elements apart, slabs ld2), loaded in boxes of box0 x box1 x 1 (box0 x 2
-// = 128 bytes) with the 128-byte swizzle; zeros past its edges
+// A 3-D bf16 (or, with f32, fp32) tensor of n2 slabs of n1 rows of n0
+// elements (rows ld1 elements apart, slabs ld2), loaded in boxes of box0 x
+// box1 x 1 (box0 x element = 128 bytes) with the 128-byte swizzle; zeros
+// past its edges
 inline bool encode_3d(CUtensorMap* map, const void* base, long long n0,
                       long long n1, long long n2, long long ld1,
-                      long long ld2, int box0, int box1) {
+                      long long ld2, int box0, int box1, bool f32 = false) {
   const EncodeTiled fn = encode_tiled();
   if (!fn) return false;
+  const cuuint64_t size = f32 ? 4 : 2;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(n0),
                               static_cast<cuuint64_t>(n1),
                               static_cast<cuuint64_t>(n2)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(ld1) * 2,
-                                 static_cast<cuuint64_t>(ld2) * 2};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(ld1) * size,
+                                 static_cast<cuuint64_t>(ld2) * size};
   const cuuint32_t box[3] = {static_cast<cuuint32_t>(box0),
                              static_cast<cuuint32_t>(box1), 1};
   const cuuint32_t unit[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+  return fn(map,
+            f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+            3, const_cast<void*>(base),
             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

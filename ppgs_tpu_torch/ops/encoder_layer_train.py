@@ -114,7 +114,7 @@ class _LayerTrain(torch.autograd.Function):
                                     for w in (wqkv, wo, w1, w2))
         qkv = ops['qkv'](x, wqkv_c, bqkv)
         q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
-        a16, a32, lse = ops['attn_fwd'](
+        a16, a32, lse, keep = ops['attn_fwd'](
             q, k, v, mask, heads, fa.LOG2E / math.sqrt(C // heads), causal,
             drop, want_f32=True)
         r, n1, s1 = ops['out_ln'](a16, wo_c, bo, x, g1, be1,
@@ -122,15 +122,15 @@ class _LayerTrain(torch.autograd.Function):
         out, n2, s2 = ops['ffn_fwd'](r, w1_c, b1, w2_c, b2,
                                      drop.at(drop.site + 2),
                                      drop.at(drop.site + 3), ln=(g2, be2))
-        ctx.save_for_backward(x, mask, qkv, a16, a32, lse, r, n1, s1, n2, s2,
-                              wqkv_c, wo_c, w1_c, w2_c, b1, g1, g2)
+        ctx.save_for_backward(x, mask, qkv, a16, a32, lse, keep, r, n1, s1,
+                              n2, s2, wqkv_c, wo_c, w1_c, w2_c, b1, g1, g2)
         ctx.cfg = cfg
         return out
 
     @staticmethod
     def backward(ctx, g):
-        (x, mask, qkv, a16, a32, lse, r, n1, s1, n2, s2, wqkv_c, wo_c, w1_c,
-         w2_c, b1, g1, g2) = ctx.saved_tensors
+        (x, mask, qkv, a16, a32, lse, keep, r, n1, s1, n2, s2, wqkv_c, wo_c,
+         w1_c, w2_c, b1, g1, g2) = ctx.saved_tensors
         heads, causal, cd, drop, ops = ctx.cfg
         B, T, C = x.shape
         M = B * T
@@ -163,7 +163,7 @@ class _LayerTrain(torch.autograd.Function):
         sm_scale = 1.0 / math.sqrt(C // heads)
         q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
         dqkv_c, dqkv32 = ops['attn_bwd'](
-            q, k, v, mask, lse, da16.reshape(B, T, C), d_row, heads,
+            q, k, v, mask, lse, keep, da16.reshape(B, T, C), d_row, heads,
             fa.LOG2E * sm_scale, sm_scale, causal, drop, want32=True)
         dbqkv = colsum(dqkv32.reshape(M, 3 * C))
         dx, _ = gemm(dqkv_c.reshape(M, 3 * C), wqkv_c, False, True, cd,

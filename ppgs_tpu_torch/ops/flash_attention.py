@@ -243,11 +243,14 @@ fused_attention_bias.launches = 0
 # Counterpart of ppgs_tpu/ops/flash_attention.py flash_attention_train: the
 # forward saves (o, lse), the backward recomputes the probabilities from
 # lse and regenerates the dropout mask (ops/dropout.py), so no (T, T) tensor
-# is kept between the passes. Three kernels of
-# kernels/csrc/attention_train.cu, each with its plain version below:
-# attention_train_fwd, row_dot (d_row = rowsum(dO * O) per head) and
-# attention_train_bwd. The JAX kernel pads T to a multiple of 8; these take
-# any T. ``lse`` is in log2 units (m + log2(l) of the log2-scaled scores).
+# is kept between the passes; the kernels keep the forward's dropout bits
+# for the backward (16.8 MB a layer at 256 x 512), the plain versions draw
+# them again. Three kernels, each with its plain version below:
+# attention_train_fwd and row_dot (d_row = rowsum(dO * O) per head) in
+# kernels/csrc/attention_train.cu, and attention_train_bwd (a dq pass and a
+# dk/dv pass on wgmma + TMA) in kernels/csrc/attention_train_bwd.cu. The
+# JAX kernel pads T to a multiple of 8; these take any T. ``lse`` is in
+# log2 units (m + log2(l) of the log2-scaled scores).
 
 
 def _heads_first(t, heads):
@@ -271,7 +274,8 @@ def _valid(mask, T, causal):
 def attention_train_fwd_reference(q, k, v, mask, heads, scale_log2, causal,
                                   drop, want_f32=False):
     """Plain version of ``attention_train_fwd`` (q's dtype is the compute
-    dtype)."""
+    dtype). Its keep words are None: the plain backward draws the keep
+    bits from ``drop`` itself."""
     B, T, C = q.shape
     cd = q.dtype
     q4, k4, v4 = (_heads_first(t, heads) for t in (q, k, v))
@@ -288,7 +292,30 @@ def attention_train_fwd_reference(q, k, v, mask, heads, scale_log2, causal,
         pd = torch.where(drop.keep(pd.shape, q.device), pd * drop.scale,
                          torch.zeros_like(pd))
     o32 = _heads_last(pd.to(cd).float() @ v4)
-    return o32.to(cd), (o32 if want_f32 else None), lse[..., 0]
+    return o32.to(cd), (o32 if want_f32 else None), lse[..., 0], None
+
+
+def keep_words_shape(B, heads, T):
+    """The shape of the keep words that ``attention_train_fwd`` hands the
+    backward: 2 ceil(T / 64) int32 words per query row, bit k of word w
+    for key 32 w + k."""
+    return (B, heads, T, 2 * ((T + 63) // 64))
+
+
+def keep_words_reference(drop, B, heads, T, device=None):
+    """Plain version of the keep words: ``drop.keep`` of the (B, heads, T,
+    T) probabilities packed as ``keep_words_shape`` says, the bits past T
+    0. The kernel's words hold the bits of the valid pairs only (key
+    valid, not above the causal diagonal) and 0 elsewhere, or nothing for
+    tiles past the diagonal."""
+    shape = keep_words_shape(B, heads, T)
+    bits = torch.zeros((*shape[:3], shape[3] * 32), dtype=torch.int64,
+                       device=device)
+    bits[..., :T] = drop.keep((B, heads, T, T), device).long()
+    words = (bits.view(*shape, 32)
+             << torch.arange(32, device=device)).sum(dim=-1)
+    return torch.where(words >= 2 ** 31, words - 2 ** 32,
+                       words).to(torch.int32)
 
 
 def _attention_views(q, k, v, heads, dtype):
@@ -317,7 +344,8 @@ def attention_train_fwd(q, k, v, mask, heads, scale_log2, causal, drop,
     """Attention with dropout on the normalised probabilities
     (``kernels/csrc/attention_train.cu``): q, k, v (B, T, H*128) bf16 views,
     mask (B, T) bool, ``drop`` the probabilities' Drop. Returns (o bf16,
-    o fp32 or None, lse (B, H, T) fp32)."""
+    o fp32 or None, lse (B, H, T) fp32, the keep words for the backward
+    (``keep_words_shape`` int32) or None when the dropout is off)."""
     if q.device.type == 'cpu':
         return attention_train_fwd_reference(q, k, v, mask, heads,
                                              scale_log2, causal, drop,
@@ -330,13 +358,15 @@ def attention_train_fwd(q, k, v, mask, heads, scale_log2, causal, drop,
     out32 = (torch.empty((B, T, C), dtype=torch.float32, device=dev)
              if want_f32 else None)
     lse = torch.empty((B, heads, T), dtype=torch.float32, device=dev)
+    keep = (torch.empty(keep_words_shape(B, heads, T), dtype=torch.int32,
+                        device=dev) if drop.on else None)
     kernels.launch('ppgs_attention_train_fwd', q.data_ptr(), k.data_ptr(),
                    v.data_ptr(), rs, mask.data_ptr(), out.data_ptr(),
-                   None if out32 is None else out32.data_ptr(), C,
-                   lse.data_ptr(), B, T, heads, float(scale_log2),
-                   int(causal), *drop.c_args(), device=dev)
+                   kernels.ptr(out32), C, lse.data_ptr(), kernels.ptr(keep),
+                   B, T, heads, float(scale_log2), int(causal),
+                   *drop.c_args(), device=dev)
     attention_train_fwd.launches += 1
-    return out, out32, lse
+    return out, out32, lse, keep
 
 
 attention_train_fwd.launches = 0
@@ -371,10 +401,11 @@ def row_dot(x, y, heads):
 row_dot.launches = 0
 
 
-def attention_train_bwd_reference(q, k, v, mask, lse, dout, d_row, heads,
-                                  scale_log2, sm_scale, causal, drop,
+def attention_train_bwd_reference(q, k, v, mask, lse, keep, dout, d_row,
+                                  heads, scale_log2, sm_scale, causal, drop,
                                   want_c=True, want32=False):
-    """Plain version of ``attention_train_bwd``."""
+    """Plain version of ``attention_train_bwd``; it draws the keep bits from
+    ``drop`` and leaves ``keep`` unread."""
     B, T, C = q.shape
     cd = q.dtype
     q4, k4, v4, do4 = (_heads_first(t, heads) for t in (q, k, v, dout))
@@ -396,24 +427,53 @@ def attention_train_bwd_reference(q, k, v, mask, lse, dout, d_row, heads,
     return (d32.to(cd) if want_c else None), (d32 if want32 else None)
 
 
-def attention_train_bwd(q, k, v, mask, lse, dout, d_row, heads, scale_log2,
-                        sm_scale, causal, drop, want_c=True, want32=False):
-    """The backward of ``attention_train_fwd`` given dout (B, T, C) bf16
-    and d_row (B, H, T): returns ([dq | dk | dv] (B, T, 3C) in bf16 or
-    None, the same in fp32 or None)."""
-    if q.device.type == 'cpu':
-        return attention_train_bwd_reference(
-            q, k, v, mask, lse, dout, d_row, heads, scale_log2, sm_scale,
-            causal, drop, want_c, want32)
+def _train_bwd_args(q, k, v, mask, lse, keep, dout, d_row, heads, drop):
+    """Check ``attention_train_bwd``'s operands and return (the row stride
+    of q, k and v, dout's); raise ValueError on what the kernel does not
+    take, before anything is launched: a d_head other than 128, q, k, v or
+    dout not bf16 of q's shape and device, views the kernel's TMA maps
+    cannot read in place (``_row_stride``), q, k and v of different row
+    strides, a mask that is not a contiguous (B, T) bool, lse or d_row not
+    contiguous (B, H, T) fp32, with the dropout on keep words that are not
+    the forward's contiguous ``keep_words_shape`` int32."""
     B, T, C = q.shape
     dev = q.device
     rs = _attention_views(q, k, v, heads, torch.bfloat16)
-    if dout.dtype != torch.bfloat16 or tuple(dout.shape) != (B, T, C):
-        raise ValueError('dout: expected a bf16 view of q\'s shape')
+    if dout.dtype != torch.bfloat16 or dout.device != dev:
+        raise ValueError(f'dout: expected bfloat16 on {dev}, got '
+                         f'{dout.dtype} on {dout.device}')
+    if tuple(dout.shape) != (B, T, C):
+        raise ValueError(f'dout: expected shape {(B, T, C)}, got '
+                         f'{tuple(dout.shape)}')
     do_stride = _row_stride(dout, T)
     kernels.require(mask, 'mask', torch.bool, dev, (B, T))
     kernels.require(lse, 'lse', torch.float32, dev, (B, heads, T))
     kernels.require(d_row, 'd_row', torch.float32, dev, (B, heads, T))
+    if drop.on:
+        if keep is None:
+            raise ValueError('keep: the forward\'s keep words are needed '
+                             'with the dropout on')
+        kernels.require(keep, 'keep', torch.int32, dev,
+                        keep_words_shape(B, heads, T))
+    return rs, do_stride
+
+
+def attention_train_bwd(q, k, v, mask, lse, keep, dout, d_row, heads,
+                        scale_log2, sm_scale, causal, drop, want_c=True,
+                        want32=False):
+    """The backward of ``attention_train_fwd`` given its lse and keep words,
+    dout (B, T, C) bf16 and d_row (B, H, T): returns ([dq | dk | dv] (B, T,
+    3C) in bf16 or None, the same in fp32 or None). On the card two
+    deterministic launches, a dq pass and a dk/dv pass
+    (``kernels/csrc/attention_train_bwd.cu``)."""
+    if q.device.type == 'cpu':
+        return attention_train_bwd_reference(
+            q, k, v, mask, lse, keep, dout, d_row, heads, scale_log2,
+            sm_scale, causal, drop, want_c, want32)
+    B, T, C = q.shape
+    dev = q.device
+    rs, do_stride = _train_bwd_args(q, k, v, mask, lse, keep, dout, d_row,
+                                    heads, drop)
     d16 = (torch.empty((B, T, 3 * C), dtype=torch.bfloat16, device=dev)
            if want_c else None)
     d32 = (torch.empty((B, T, 3 * C), dtype=torch.float32, device=dev)
@@ -424,10 +484,11 @@ def attention_train_bwd(q, k, v, mask, lse, dout, d_row, heads, scale_log2,
 
     kernels.launch('ppgs_attention_train_bwd', q.data_ptr(), k.data_ptr(),
                    v.data_ptr(), rs, mask.data_ptr(), lse.data_ptr(),
-                   dout.data_ptr(), do_stride, d_row.data_ptr(), at(d16, 0),
-                   at(d32, 0), at(d16, 1), at(d32, 1), at(d16, 2), at(d32, 2),
-                   3 * C, B, T, heads, float(scale_log2), float(sm_scale),
-                   int(causal), *drop.c_args(), device=dev)
+                   kernels.ptr(keep if drop.on else None), dout.data_ptr(),
+                   do_stride, d_row.data_ptr(), at(d16, 0), at(d32, 0),
+                   at(d16, 1), at(d32, 1), at(d16, 2), at(d32, 2), 3 * C, B,
+                   T, heads, float(scale_log2), float(sm_scale), int(causal),
+                   float(drop.scale), device=dev)
     attention_train_bwd.launches += 1
     return d16, d32
 
@@ -447,20 +508,21 @@ class _FlashTrain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, mask, heads, drop, causal, ops):
         scale_log2 = LOG2E / math.sqrt(q.shape[-1] // heads)
-        o, _, lse = ops[0](q, k, v, mask, heads, scale_log2, causal, drop)
-        ctx.save_for_backward(q, k, v, mask, o, lse)
+        o, _, lse, keep = ops[0](q, k, v, mask, heads, scale_log2, causal,
+                                 drop)
+        ctx.save_for_backward(q, k, v, mask, o, lse, keep)
         ctx.cfg = (heads, drop, causal, ops)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, mask, o, lse = ctx.saved_tensors
+        q, k, v, mask, o, lse, keep = ctx.saved_tensors
         heads, drop, causal, ops = ctx.cfg
         C = q.shape[-1]
         sm_scale = 1.0 / math.sqrt(C // heads)
         do = do.contiguous()
         d_row = ops[1](do, o, heads)
-        d, _ = ops[2](q, k, v, mask, lse, do, d_row, heads,
+        d, _ = ops[2](q, k, v, mask, lse, keep, do, d_row, heads,
                       LOG2E * sm_scale, sm_scale, causal, drop)
         return (d[..., :C], d[..., C:2 * C], d[..., 2 * C:], None, None,
                 None, None, None)

@@ -406,11 +406,11 @@ def test_train_wrappers_take_plain_version_on_cpu():
     q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
     mask = torch.ones(B, T, dtype=torch.bool)
     args = (q, k, v, mask, H, 0.1, False, drop)
-    o, _, lse = fa.attention_train_fwd(*args)
+    o, _, lse, keep = fa.attention_train_fwd(*args)
     assert torch.equal(o, fa.attention_train_fwd_reference(*args)[0])
     d_row = fa.row_dot(o, o, H)
     assert torch.equal(d_row, fa.row_dot_reference(o, o, H))
-    bargs = (q, k, v, mask, lse, o, d_row, H, 0.1, 0.07, False, drop)
+    bargs = (q, k, v, mask, lse, keep, o, d_row, H, 0.1, 0.07, False, drop)
     assert torch.equal(fa.attention_train_bwd(*bargs)[0],
                        fa.attention_train_bwd_reference(*bargs)[0])
     x = torch.randn(B * T, C, generator=gen)
