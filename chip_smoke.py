@@ -38,11 +38,13 @@ any failure exits non-zero before the result line:
    (ta, tb), a bf16 and an fp32 a, both block widths, ragged rows, depths
    and splits), and K4's two train forms at phase 3's odd shapes with
    dropout off and 0.1, and K1 at phase 3's rows with the train layer's
-   unfolded weights, and attention_train_bwd at T of 1, 63, 64, 65, 127,
-   128, 129, 500, 512, 1000, 1024 (ragged, holed, wholly masked and full
-   windows; causal off and on; dropout off and 0.1; bf16, fp32 and both
-   outputs; two calls bit for bit), before anything is timed; K1 at the
-   training shape; the train kernels
+   unfolded weights, and attention_train_fwd and attention_train_bwd at T
+   of 1, 63, 64, 65, 127, 128, 129, 500, 512, 1000, 1024 (ragged, holed,
+   wholly masked and full windows; causal off and on; dropout off and 0.1;
+   the forward with and without its fp32 o, its keep words against
+   Philox's bits; the backward's bf16, fp32 and both outputs; two calls bit
+   for bit), before anything is timed; K1 at the training shape; the train
+   kernels
    against their plain versions at the training shape (256 windows x 512 frames, ragged,
    one wholly masked) with dropout 0.1 and the same Philox masks on both
    sides, with the six gemm forms of a layer's backward (dW1, dW2, dWo,
@@ -58,9 +60,10 @@ any failure exits non-zero before the result line:
    falling, every train kernel launched, the launches of each step exact,
    and one step on 4 rows against ``device='cpu'`` with the same seed;
 8. times of each train kernel (each gemm form apart, beside
-   torch.matmul; K1's train instance beside its device time;
-   attention_train_bwd's device time by pass, dq and dk/dv, and with the
-   dropout off against 0.1, what the dropout costs it), its plain
+   torch.matmul; K1's train instance and attention_train_fwd beside their
+   device time; attention_train_bwd's device time by pass, dq and dk/dv;
+   both attention kernels with the dropout off against 0.1, what the
+   dropout costs them), its plain
    version, a library call and its bound; the
    three train functions whole against their plain versions and a library
    yardstick; the train step's time, audio-seconds per second and peak
@@ -616,18 +619,17 @@ def k2_odd_shape_checks(d_head, heads, dev):
           f'wholly masked window exactly 0', flush=True)
 
 
-# attention_train_bwd at odd shapes, before anything is timed: T about its
-# 64-row tiles and 128-row blocks, the per-layer and whole-layer train
-# windows, and two long ones
+# attention_train_fwd and attention_train_bwd at odd shapes, before
+# anything is timed: T about their 64-row tiles and 128-row blocks, the
+# per-layer and whole-layer train windows, and two long ones
 ATB_ODD_T = (1, 63, 64, 65, 127, 128, 129, 500, 512, 1000, 1024)
 
 
 def check_keep_words(name, words, drop, mask, causal):
     """The keep words of attention_train_fwd against their plain packing
-    (``keep_words_reference``) on the valid pairs, bit for bit: the kernel
-    writes the bits of those only (0 for the masked keys of a tile it
-    walks, nothing for the tiles past the causal diagonal). Returns the
-    count of pairs compared."""
+    (``keep_words_reference``) masked to the valid pairs, bit for bit: the
+    kernel writes the bits of those only, and 0 for every other pair and
+    past T. Returns the count of valid pairs."""
     from ppgs_tpu_torch.ops import flash_attention as fa
 
     B, H, T, _ = words.shape
@@ -635,33 +637,38 @@ def check_keep_words(name, words, drop, mask, causal):
 
     def bits(w):
         return (((w.long()[..., None] >> shift) & 1)
-                .reshape(B, H, T, -1)[..., :T].bool())
+                .reshape(B, H, T, -1).bool())
 
     valid = fa._valid(mask, T, causal).expand(B, H, T, T)
-    want = fa.keep_words_reference(drop, B, H, T, words.device)
-    if not torch.equal(bits(words)[valid], bits(want)[valid]):
+    want = bits(fa.keep_words_reference(drop, B, H, T, words.device))
+    got = bits(words)
+    if (not torch.equal(got[..., :T], want[..., :T] & valid)
+            or got[..., T:].any()):
         raise AssertionError(f'{name}: the keep words differ from Philox\'s '
-                             f'bits on a valid pair')
+                             f'bits on the valid pairs, 0 elsewhere')
     return int(valid.sum().item())
 
 
 @torch.no_grad()
-def attention_bwd_odd_shape_checks(dev):
-    """attention_train_bwd against its plain version at ``ATB_ODD_T``, 4
-    windows of 2 heads of 128 on N(0, 1) q, k, v and dO (views of fused
-    buffers) with lse and d_row from the plain forward: masks ragged,
-    holed (one whole 64-key tile masked where T reaches it), wholly masked
-    and full, one window each; causal off and on; dropout off and 0.1;
-    want_c / want32 bf16 only, fp32 only and both. The wholly masked window
-    exactly 0, the bf16 output the kernel's own fp32 output rounded, and two
-    calls on the same inputs equal bit for bit. The backward reads the keep
-    words of the forward kernel, held first against Philox's bits
-    (``check_keep_words``); the plain backward draws its own. Limits:
-    ``train_kernel_checks``' for this kernel: fp32 atol 2e-3 rtol 1e-2 in
-    every case; bf16 atol 1e-3 rtol 1e-2 but for a share 1e-6 of rounding
-    flips each within 8e-3, the share taken of the bf16 elements of all the
-    cases together (a case at small T holds fewer than 10^6 elements).
-    Prints the max |kernel - plain| by T."""
+def attention_train_odd_shape_checks(dev):
+    """attention_train_fwd and attention_train_bwd against their plain
+    versions at ``ATB_ODD_T``, 4 windows of 2 heads of 128 on N(0, 1) q, k,
+    v and dO (views of fused buffers): masks ragged, holed (one whole
+    64-key tile masked where T reaches it), wholly masked and full, one
+    window each; causal off and on; dropout off and 0.1. The forward with
+    want_f32 off and on (both callers' forms): its bf16 o, fp32 o and lse,
+    its keep words equal to Philox's bits on the valid pairs and 0
+    elsewhere (``check_keep_words``). The backward, on lse and d_row from
+    the plain forward and the kernel forward's keep words (the plain
+    backward draws its own), with want_c / want32 bf16 only, fp32 only and
+    both. For both kernels: the wholly masked window exactly 0, the bf16
+    output the kernel's own fp32 output rounded, two calls on the same
+    inputs equal bit for bit. Limits: ``train_kernel_checks``' for each
+    kernel: fp32 atol 2e-3 rtol 1e-2 and lse atol 1e-4 in every case; bf16
+    atol 1e-3 rtol 1e-2 but for a share 1e-6 of rounding flips each within
+    8e-3, the share taken of each kernel's bf16 elements of all the cases
+    together (a case at small T holds fewer than 10^6 elements). Prints the
+    max |kernel - plain| by T."""
     from ppgs_tpu_torch.ops import dropout
     from ppgs_tpu_torch.ops import flash_attention as fa
 
@@ -670,7 +677,13 @@ def attention_bwd_odd_shape_checks(dev):
     H, D = 2, fa.D_HEAD
     C = H * D
     sl, sm = fa.LOG2E / math.sqrt(D), 1 / math.sqrt(D)
-    cases, got16, want16, pairs = [], [], [], 0
+    cases, fwd_cases, pairs = [], [], 0
+    pooled = {'attention_train_fwd': ([], []), 'attention_train_bwd': ([], [])}
+
+    def same(name, a, b):
+        if not all(x is y or torch.equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f'{name}: two calls differ')
+
     for T in ATB_ODD_T:
         qkv = torch.randn(4, T, 3 * C, generator=gen, device=dev).to(
             torch.bfloat16)
@@ -683,16 +696,40 @@ def attention_bwd_odd_shape_checks(dev):
                             torch.zeros(T, dtype=torch.bool, device=dev),
                             torch.ones(T, dtype=torch.bool, device=dev)])
         mask[1, 64:128] = False
-        worst = 0.0
+        worst = fwd_worst = 0.0
         for causal, rate in itertools.product((False, True), (0.0, DROPOUT)):
             drop = dropout.Drop(SEED + 19, dropout.site(1, 'probs'), rate)
             o, o32, lse, _ = fa.attention_train_fwd_reference(
                 q, k, v, mask, H, sl, causal, drop, want_f32=True)
-            keep = fa.attention_train_fwd(q, k, v, mask, H, sl, causal,
-                                          drop)[3]
-            if keep is not None:
-                pairs += check_keep_words(f'attention_train_fwd T={T}', keep,
-                                          drop, mask, causal)
+            name = f'attention_train_fwd T={T} causal={causal} rate={rate}'
+            att = (q, k, v, mask, H, sl, causal, drop)
+            for want_f32 in (False, True):
+                got = fa.attention_train_fwd(*att, want_f32=want_f32)
+                same(name, got, fa.attention_train_fwd(*att,
+                                                       want_f32=want_f32))
+                pooled['attention_train_fwd'][0].append(got[0].flatten())
+                pooled['attention_train_fwd'][1].append(o.flatten())
+                fwd_worst = max(
+                    fwd_worst,
+                    (got[0].float() - o.float()).abs().max().item(),
+                    check(name, got[2], lse, atol=1e-4, quiet=True))
+                if want_f32:
+                    fwd_worst = max(fwd_worst, check(
+                        name, got[1], o32, atol=2e-3, rtol=1e-2, quiet=True))
+                    if not torch.equal(got[0], got[1].to(torch.bfloat16)):
+                        raise AssertionError(f'{name}: the bf16 o is not the '
+                                             f'fp32 o rounded')
+                if got[0][2].any() or got[2][2].any() or (
+                        want_f32 and got[1][2].any()):
+                    raise AssertionError(f'{name}: the wholly masked window '
+                                         f'did not give 0')
+                keep = got[3]
+                if (keep is None) != (rate == 0):
+                    raise AssertionError(f'{name}: keep words given with '
+                                         f'the dropout off, or none with it '
+                                         f'on')
+                if keep is not None:
+                    pairs += check_keep_words(name, keep, drop, mask, causal)
             d_row = fa.row_dot_reference(do, o32, H).contiguous()
             args = (q, k, v, mask, lse, keep, do, d_row, H, sl, sm, causal,
                     drop)
@@ -706,31 +743,37 @@ def attention_bwd_odd_shape_checks(dev):
                     worst = max(worst, check(name, got[1], w32, atol=2e-3,
                                              rtol=1e-2, quiet=True))
                 if got[0] is not None:
-                    got16.append(got[0].flatten())
-                    want16.append(w16.flatten())
+                    pooled['attention_train_bwd'][0].append(got[0].flatten())
+                    pooled['attention_train_bwd'][1].append(w16.flatten())
                     worst = max(worst, (got[0].float() - w16.float()).abs()
                                 .max().item())
                 if any(out is not None and out[2].any() for out in got):
                     raise AssertionError(f'{name}: the wholly masked window '
                                          f'did not give 0')
-            again = fa.attention_train_bwd(*args, want32=True)
-            if not (torch.equal(got[0], again[0])
-                    and torch.equal(got[1], again[1])):
-                raise AssertionError(f'{name}: two calls differ')
+            same(name, got, fa.attention_train_bwd(*args, want32=True))
             if not torch.equal(got[0], got[1].to(torch.bfloat16)):
                 raise AssertionError(f'{name}: the bf16 output is not the '
                                      f'fp32 one rounded')
         cases.append(f'{T} {worst:.3g}')
-    check(f'attention_train_bwd at T = {ATB_ODD_T[0]} ... {ATB_ODD_T[-1]}, '
-          f'bf16, {sum(t.numel() for t in got16)} elements', torch.cat(got16),
-          torch.cat(want16), 1e-3, 1e-2, share=1e-6, outlier=8e-3)
-    print(f'attention_train_bwd (4 windows, {H} heads of {D}), ragged, '
+        fwd_cases.append(f'{T} {fwd_worst:.3g}')
+    for kernel, (got16, want16) in pooled.items():
+        check(f'{kernel} at T = {ATB_ODD_T[0]} ... {ATB_ODD_T[-1]}, bf16, '
+              f'{sum(t.numel() for t in got16)} elements', torch.cat(got16),
+              torch.cat(want16), 1e-3, 1e-2, share=1e-6, outlier=8e-3)
+    print(f'attention_train_fwd (4 windows, {H} heads of {D}), ragged, '
           f'holed, wholly masked and full windows, causal off and on, '
-          f'dropout off and {DROPOUT}, bf16 / fp32 / both: max |kernel - '
-          f'plain| by T: {", ".join(cases)} (fp32 atol 2e-3 rtol 1e-2 in '
-          f'each case); the wholly masked window exactly 0; bf16 the fp32 '
-          f'rounded; two calls equal bit for bit; the forward\'s keep words '
-          f'equal to Philox\'s bits on all {pairs} valid pairs', flush=True)
+          f'dropout off and {DROPOUT}, want_f32 off and on: max |kernel - '
+          f'plain| of o and lse by T: {", ".join(fwd_cases)} (fp32 o atol '
+          f'2e-3 rtol 1e-2, lse atol 1e-4 in each case); the wholly masked '
+          f'window exactly 0; bf16 the fp32 rounded; two calls equal bit for '
+          f'bit; the keep words equal to Philox\'s bits on all {pairs} valid '
+          f'pairs and 0 elsewhere', flush=True)
+    print(f'attention_train_bwd (4 windows, {H} heads of {D}), the same '
+          f'windows, causal off and on, dropout off and {DROPOUT}, bf16 / '
+          f'fp32 / both: max |kernel - plain| by T: {", ".join(cases)} (fp32 '
+          f'atol 2e-3 rtol 1e-2 in each case); the wholly masked window '
+          f'exactly 0; bf16 the fp32 rounded; two calls equal bit for bit',
+          flush=True)
 
 
 def check_rel(name, got, want, limit):
@@ -837,10 +880,14 @@ def train_kernel_checks(port, config, layer, dev, gen):
     k1_odd_shape_checks('train, unfolded weights', wqkv, layer.attn.bqkv,
                         dev)
     qkv = elk.qkv_proj(x, wqkv, layer.attn.bqkv)
+    # A product near a rounding boundary of [4, 8) flips by its bf16 ulp,
+    # 0.0312, before the bias is added; where the bias cancels it to an
+    # output near 1, that is beyond rtol (both sides round the product,
+    # then add the bf16 bias: JAX's dot_cd form)
     err['qkv_proj'] = check(
         f'K1 qkv_proj (train, {M} rows, unfolded weights)', qkv,
-        elk.qkv_proj_reference(x, wqkv, layer.attn.bqkv), atol=1e-2,
-        rtol=1e-2)
+        elk.qkv_proj_reference(x, wqkv, layer.attn.bqkv), 1e-2, 1e-2,
+        share=2e-8, outlier=6.25e-2)
     q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
     att = (q, k, v, mask, H, sl, False, drop)
     a16, a32, lse, keep = fa.attention_train_fwd(*att, want_f32=True)
@@ -1390,8 +1437,11 @@ def train_kernel_times(config, inp, err, launches, per_step, form_launches,
             lambda: F.scaled_dot_product_attention(
                 heads(q), heads(k), heads(v), attn_mask=sdpa_mask,
                 dropout_p=DROPOUT),
+            # q, k, v and the mask in; o in bf16 and fp32, lse and the keep
+            # words out
             (4 * pairs * D,
-             3 * M * C * 2 + M + M * C * 6 + M * H * 4),
+             3 * M * C * 2 + M + M * C * 6 + M * H * 4
+             + 4 * math.prod(fa.keep_words_shape(B, H, T))),
             'attention_train.cu', 'ppgs_tpu/ops/flash_attention.py:576'),
         'row_dot': (
             lambda: fa.row_dot(do, inp['a32'], H),
@@ -1487,6 +1537,12 @@ def train_kernel_times(config, inp, err, launches, per_step, form_launches,
     kernel_device_ms('K4 ffn_train_fwd', runs['ffn_train_fwd'][0], card)
     device_times(f'K1 qkv_proj (train, {M} rows)', records[0],
                  runs['qkv_proj'][0], 'cast + addmm', card)
+    device_times('attention_train_fwd',
+                 records[list(runs).index('attention_train_fwd')],
+                 runs['attention_train_fwd'][0], 'SDPA with dropout', card)
+    keep_bits_probe('attention_train_fwd',
+                    lambda *a: fa.attention_train_fwd(*a, want_f32=True), att,
+                    card)
     attention_bwd_times(records[list(runs).index('attention_train_bwd')],
                         bwd, card)
     gemm_records = gemm_form_times(inp, err, form_launches, card)
@@ -1499,40 +1555,40 @@ def attention_bwd_times(record, bwd, card):
     then ``keep_bits_probe``."""
     from ppgs_tpu_torch.ops import flash_attention as fa
 
+    def run(*args):
+        return fa.attention_train_bwd(*args, want32=True)
+
     device_times('attention_train_bwd (dq and dk/dv passes)', record,
-                 lambda: fa.attention_train_bwd(*bwd, want32=True),
-                 'SDPA backward', card)
-    keep_bits_probe(bwd, card)
+                 lambda: run(*bwd), 'SDPA backward', card)
+    keep_bits_probe('attention_train_bwd', run, bwd, card)
 
 
-def keep_bits_probe(bwd, card):
-    """attention_train_bwd on ``bwd`` (its arguments, the dropout last) as
-    given and with the dropout off (threshold 0), in turns (on, off, off,
-    on): CUDA-event medians and the profiler's device time per launch by
-    kernel. The gap is what the dropout costs the backward (reading the
-    forward's keep words, or drawing the bits where a backward draws
-    them). Prints and returns them."""
+def keep_bits_probe(name, fn, args, card):
+    """``fn`` (the kernel ``name``) on ``args`` (its arguments, the dropout
+    last) as given and with the dropout off (threshold 0), in turns (on,
+    off, off, on): CUDA-event medians and the profiler's device time per
+    launch by kernel. The gap is what the dropout costs the kernel: drawing
+    the keep bits and writing their words (the forward), or reading them
+    (the backward). Prints and returns them."""
     from ppgs_tpu_torch.ops import dropout
-    from ppgs_tpu_torch.ops import flash_attention as fa
 
-    drop = bwd[-1]
-    runs = {'on': bwd,
-            'off': bwd[:-1] + (dropout.Drop(drop.seed, drop.site, 0.0),)}
+    drop = args[-1]
+    runs = {'on': args,
+            'off': args[:-1] + (dropout.Drop(drop.seed, drop.site, 0.0),)}
 
     def run(key):
-        return lambda: fa.attention_train_bwd(*runs[key], want32=True)
+        return lambda: fn(*runs[key])
 
     event = {'on': [], 'off': []}
     for key in ('on', 'off', 'off', 'on'):
         event[key].append(time_ms(run(key), TRAIN_REPS, 2))
     device = {key: kernel_device_ms(
-        f'attention_train_bwd, dropout {drop.rate if key == "on" else 0}',
-        run(key), card) for key in runs}
+        f'{name}, dropout {drop.rate if key == "on" else 0}', run(key), card)
+        for key in runs}
     gap = statistics.mean(event['on']) - statistics.mean(event['off'])
-    print(f'attention_train_bwd keep bits: event {event["on"]} ms at '
-          f'dropout {drop.rate}, {event["off"]} ms off: {gap:.4f} ms; '
-          f'device {device["on"]} / {device["off"]} ms [{card}]',
-          flush=True)
+    print(f'{name} keep bits: event {event["on"]} ms at dropout '
+          f'{drop.rate}, {event["off"]} ms off: {gap:.4f} ms; device '
+          f'{device["on"]} / {device["off"]} ms [{card}]', flush=True)
     return {'event_ms': event, 'device_ms': device, 'keep_bits_ms': gap}
 
 
@@ -2166,7 +2222,7 @@ def train_phases(port, config, workdir, dev, gen, card):
     for form in ('train_ln', 'y_out'):
         k4_odd_shape_checks(form, config.hidden_channels, 'relu',
                             config.ffn_channels, dev)
-    attention_bwd_odd_shape_checks(dev)
+    attention_train_odd_shape_checks(dev)
     train_err, train_inputs = train_kernel_checks(port, config, layer, dev,
                                                   gen)
     train_inputs.update(

@@ -119,27 +119,6 @@ struct Plan {
 
 constexpr float MINUS_INF = -__builtin_huge_valf();
 
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
-  __nv_bfloat162 p = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<uint32_t*>(&p);
-}
-
 template <int D>
 __global__ void __launch_bounds__(THREADS, Plan<D>::BLOCKS)
 attention_kernel(const __grid_constant__ CUtensorMap map_q,

@@ -106,17 +106,6 @@ struct Plan {
   static_assert(SMEM <= 232448, "more shared memory than a block may have");
 };
 
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
-  __nv_bfloat162 p = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<uint32_t*>(&p);
-}
-
 // What the two passes share: the shared-memory plan, the ring and its
 // release, and the epilogue
 template <int D>
@@ -207,64 +196,6 @@ struct Block {
            c * TILE * 128;
   }
 };
-
-// Stage a 64 x D fp32 accumulator (register 4j + e: row g + 8 (e / 2) of
-// the warp's 16, column 8j + 2t + e % 2) as D / 32 boxes of 64 rows x 32
-// fp32 columns, 128-byte swizzled (the 16-byte chunk q of row r at q ^ (r
-// & 7)), box n at box(n)
-template <int D, typename Box>
-__device__ __forceinline__ void stage_f32(const float (&acc)[D / 2],
-                                          Box box, int warp, int g, int t) {
-  const int row = (16 * warp + g) * 128;
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    unsigned char* p = box(j / 4) + row +
-                       (((2 * (j % 4) + (t >> 1)) ^ g) << 4) + 8 * (t & 1);
-    *reinterpret_cast<float2*>(p) = make_float2(acc[4 * j], acc[4 * j + 1]);
-    *reinterpret_cast<float2*>(p + 8 * 128) =
-        make_float2(acc[4 * j + 2], acc[4 * j + 3]);
-  }
-}
-
-// The same in bf16, D / 64 boxes of 64 rows x 64 columns
-template <int D, typename Box>
-__device__ __forceinline__ void stage_bf16(const float (&acc)[D / 2],
-                                           Box box, int warp, int g, int t) {
-  const int row = (16 * warp + g) * 128;
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    unsigned char* p = box(j / 8) + row + (((j % 8) ^ g) << 4) + 4 * t;
-    *reinterpret_cast<uint32_t*>(p) = pack_bf16(acc[4 * j], acc[4 * j + 1]);
-    *reinterpret_cast<uint32_t*>(p + 8 * 128) =
-        pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
-  }
-}
-
-// Publish a warpgroup's staged boxes and write them by TMA stores at
-// (col0 + n * width, row, window); the shared memory is free again on
-// return. wg_lead: the warpgroup's thread 0
-template <typename Box>
-__device__ __forceinline__ void store_boxes(const CUtensorMap* map, int n,
-                                            int width, Box box, int col0,
-                                            int row, int window, int c,
-                                            bool wg_lead, int T) {
-  fence_async_smem();
-  bar_sync(1 + c, 128);
-  if (wg_lead && row < T) {
-    for (int i = 0; i < n; ++i)
-      tma_store_3d(map, col0 + i * width, row, window, box(i));
-    bulk_commit();
-    bulk_wait_read();
-  }
-  bar_sync(1 + c, 128);
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) r[i] = 0.f;
-  fence_regs(r);
-}
 
 // The S-like product of one warpgroup: acc (64 x 64, zeroed before the
 // wgmma fence) += A (its 64 resident rows) B^T (a streamed tile), both

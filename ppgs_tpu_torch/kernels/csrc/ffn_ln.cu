@@ -330,11 +330,6 @@ __device__ __forceinline__ void hidden4(uint32_t& p0, uint32_t& p1,
   p1 = keep_pair(bits(pair(w[2], w[3])), keep[2], keep[3]);
 }
 
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
 // The LayerNorm forms' epilogue on a thread's 64 x 256 accumulators (rows
 // r0, r1; columns n0 + 8j + 2t + e % 2 of the (M, C) output), in three
 // steps around the reduction of the row sums:

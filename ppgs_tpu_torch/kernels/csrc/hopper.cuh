@@ -1,10 +1,11 @@
 // Hopper building blocks shared by the kernels that feed the tensor cores
 // with TMA and wgmma (gemm.cu, ffn_ln.cu, attention.cu, qkv_proj.cu,
-// attention_train_bwd.cu):
+// attention_train.cu, attention_train_bwd.cu):
 // mbarrier waits that trap rather than hang, TMA tile loads and stores
 // (2-D and 3-D), the 128-byte-swizzle shared-memory descriptor, the
-// wgmma.mma_async wrappers (A from shared memory or from registers), and
-// the host-side encoding of a TMA tensor map (2-D and 3-D). Header-only;
+// wgmma.mma_async wrappers (A from shared memory or from registers), the
+// attention kernels' quad reductions and swizzled output staging, and the
+// host-side encoding of a TMA tensor map (2-D and 3-D). Header-only;
 // sm_90a.
 #pragma once
 
@@ -302,6 +303,92 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[BN / 2],
 #undef PPGS_F32
 #undef PPGS_F64
 #undef PPGS_F128
+
+// --- The attention kernels' softmax and epilogue (attention.cu,
+// attention_train.cu, attention_train_bwd.cu). An m64nN accumulator holds,
+// in register 4j + e, row g + 8 (e / 2) of the warp's 16 rows and column
+// 8j + 2t + e % 2 (lane = 4g + t).
+
+// exp2 in fp32 (relative error ~2^-22; denormal results flushed to 0)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Reductions over the four lanes of a quad: one accumulator row
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Two fp32 values as the bf16 pair of an A fragment (a in the low half)
+__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
+  __nv_bfloat162 p = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<uint32_t*>(&p);
+}
+
+// Zero an accumulator before the wgmma fence
+template <int N>
+__device__ __forceinline__ void zero(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) r[i] = 0.f;
+  fence_regs(r);
+}
+
+// Stage columns 8 J0 .. 8 J1 - 1 of a 64 x D fp32 accumulator as boxes of
+// 64 rows x 32 fp32 columns, 128-byte swizzled (the 16-byte chunk q of row
+// r at q ^ (r & 7)), box n at box(n) holding columns 8 J0 + 32 n onwards
+template <int D, int J0 = 0, int J1 = D / 8, typename Box>
+__device__ __forceinline__ void stage_f32(const float (&acc)[D / 2],
+                                          Box box, int warp, int g, int t) {
+  const int row = (16 * warp + g) * 128;
+#pragma unroll
+  for (int j = J0; j < J1; ++j) {
+    unsigned char* p = box((j - J0) / 4) + row +
+                       (((2 * (j % 4) + (t >> 1)) ^ g) << 4) + 8 * (t & 1);
+    *reinterpret_cast<float2*>(p) = make_float2(acc[4 * j], acc[4 * j + 1]);
+    *reinterpret_cast<float2*>(p + 8 * 128) =
+        make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+}
+
+// The same in bf16, D / 64 boxes of 64 rows x 64 columns
+template <int D, typename Box>
+__device__ __forceinline__ void stage_bf16(const float (&acc)[D / 2],
+                                           Box box, int warp, int g, int t) {
+  const int row = (16 * warp + g) * 128;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    unsigned char* p = box(j / 8) + row + (((j % 8) ^ g) << 4) + 4 * t;
+    *reinterpret_cast<uint32_t*>(p) = pack_bf16(acc[4 * j], acc[4 * j + 1]);
+    *reinterpret_cast<uint32_t*>(p + 8 * 128) =
+        pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+}
+
+// Publish warpgroup c's staged boxes and write them by TMA stores at
+// (col0 + n * width, row, window) of a 3-D map, none past row T; the
+// shared memory is free again on return. wg_lead: the warpgroup's thread 0
+template <typename Box>
+__device__ __forceinline__ void store_boxes(const CUtensorMap* map, int n,
+                                            int width, Box box, int col0,
+                                            int row, int window, int c,
+                                            bool wg_lead, int T) {
+  fence_async_smem();
+  bar_sync(1 + c, 128);
+  if (wg_lead && row < T) {
+    for (int i = 0; i < n; ++i)
+      tma_store_3d(map, col0 + i * width, row, window, box(i));
+    bulk_commit();
+    bulk_wait_read();
+  }
+  bar_sync(1 + c, 128);
+}
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
                                  cuuint32_t, void*, const cuuint64_t*,

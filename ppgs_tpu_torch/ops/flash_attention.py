@@ -36,6 +36,7 @@ LOG2E = 1.4426950408889634
 NEG_INF = -1e30
 D_HEADS = (64, 128, 256)    # the inference kernel's head widths
 D_HEAD = 128                # the train kernels' head width
+TRAIN_MAX_T = 1024          # the train forward kernel's longest window
 
 
 def attention_reference(q, k, v, mask, heads, scale_log2, causal=False):
@@ -306,8 +307,7 @@ def keep_words_reference(drop, B, heads, T, device=None):
     """Plain version of the keep words: ``drop.keep`` of the (B, heads, T,
     T) probabilities packed as ``keep_words_shape`` says, the bits past T
     0. The kernel's words hold the bits of the valid pairs only (key
-    valid, not above the causal diagonal) and 0 elsewhere, or nothing for
-    tiles past the diagonal."""
+    valid, not above the causal diagonal) and 0 elsewhere."""
     shape = keep_words_shape(B, heads, T)
     bits = torch.zeros((*shape[:3], shape[3] * 32), dtype=torch.int64,
                        device=device)
@@ -339,21 +339,37 @@ def _attention_views(q, k, v, heads, dtype):
     return rs
 
 
+def _train_fwd_args(q, k, v, mask, heads):
+    """Check ``attention_train_fwd``'s operands and return the row stride of
+    q, k and v; raise ValueError on what the kernel does not take, before
+    anything is launched: a d_head other than 128, q, k or v not bf16 of
+    q's shape and device, views its TMA maps cannot read in place
+    (``_row_stride``) or of different row strides, a mask that is not a
+    contiguous (B, T) bool, T past ``TRAIN_MAX_T``."""
+    B, T, C = q.shape
+    rs = _attention_views(q, k, v, heads, torch.bfloat16)
+    kernels.require(mask, 'mask', torch.bool, q.device, (B, T))
+    if T > TRAIN_MAX_T:
+        raise ValueError(f'attention_train_fwd kernel takes T <= '
+                         f'{TRAIN_MAX_T}; got T={T}')
+    return rs
+
+
 def attention_train_fwd(q, k, v, mask, heads, scale_log2, causal, drop,
                         want_f32=False):
     """Attention with dropout on the normalised probabilities
     (``kernels/csrc/attention_train.cu``): q, k, v (B, T, H*128) bf16 views,
-    mask (B, T) bool, ``drop`` the probabilities' Drop. Returns (o bf16,
-    o fp32 or None, lse (B, H, T) fp32, the keep words for the backward
-    (``keep_words_shape`` int32) or None when the dropout is off)."""
+    T <= ``TRAIN_MAX_T``, mask (B, T) bool, ``drop`` the probabilities'
+    Drop. Returns (o bf16, o fp32 or None, lse (B, H, T) fp32, the keep
+    words for the backward (``keep_words_shape`` int32) or None when the
+    dropout is off)."""
     if q.device.type == 'cpu':
         return attention_train_fwd_reference(q, k, v, mask, heads,
                                              scale_log2, causal, drop,
                                              want_f32)
     B, T, C = q.shape
     dev = q.device
-    rs = _attention_views(q, k, v, heads, torch.bfloat16)
-    kernels.require(mask, 'mask', torch.bool, dev, (B, T))
+    rs = _train_fwd_args(q, k, v, mask, heads)
     out = torch.empty((B, T, C), dtype=torch.bfloat16, device=dev)
     out32 = (torch.empty((B, T, C), dtype=torch.float32, device=dev)
              if want_f32 else None)

@@ -66,6 +66,8 @@ def main():
         # alone before
         saved = fwd[2:]
         result = cs.keep_bits_probe(
+            'attention_train_bwd',
+            lambda *a: fa.attention_train_bwd(*a, want32=True),
             (q, k, v, mask, *saved, do.to(torch.bfloat16), d_row, H, sl, sm,
              False, drop), card)
     print(json.dumps({'root': str(root), **result}), flush=True)

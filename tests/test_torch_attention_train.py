@@ -2,11 +2,13 @@
 flash_attention.py``: ``attention_train_fwd_reference``, ``row_dot_reference``,
 ``attention_train_bwd_reference``) against the JAX package's
 ``flash_attention_train`` and its custom_vjp in interpret mode, on the CPU,
-at rate 0; and the backward wrapper's argument checks, which run before
-anything is launched.
+at rate 0; the plain forward's contract (bf16 o the fp32 o rounded, a
+wholly masked window 0); and the forward and backward wrappers' argument
+checks, which run before anything is launched.
 
-The CUDA kernels run only on a card: chip_smoke.py holds the backward
-(``kernels/csrc/attention_train_bwd.cu``) against this same plain version
+The CUDA kernels run only on a card: chip_smoke.py holds the forward
+(``kernels/csrc/attention_train.cu``) and the backward
+(``kernels/csrc/attention_train_bwd.cu``) against these same plain versions
 there, at these T, masks and causal settings, with dropout off and 0.1.
 Tolerance: fp32 at rtol and atol 1e-4, the envelope of
 tests/test_torch_train_kernels.py::test_flash_attention_train_matches_jax_kernel.
@@ -92,6 +94,34 @@ def test_train_references_match_jax_kernel(T, causal):
                                    err_msg=name)
     # the wholly masked window: no output and no gradient
     assert not d32[2].any() and not o[2].any()
+
+
+@pytest.mark.parametrize('causal', [False, True])
+@pytest.mark.parametrize('T', T_EDGES)
+def test_train_fwd_reference_contract(T, causal):
+    """What chip_smoke.py holds the forward kernel to besides the values:
+    the bf16 o is the fp32 o rounded, the wholly masked window gives o = 0
+    and lse = 0, and without want_f32 the wrapper (its plain version on a
+    CPU tensor) gives the same o and lse and no fp32 o; with the dropout
+    off and at 0.1 (the plain forward draws no keep words: the plain
+    backward draws its own)."""
+    q, k, v, _, mask = _inputs(T + 1, T)
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    tm = torch.from_numpy(mask)
+    sl = fa.LOG2E / math.sqrt(D)
+    for rate in (0.0, 0.1):
+        drop = dropout.Drop(3, 1, rate)
+        o, o32, lse, keep = fa.attention_train_fwd_reference(
+            tq, tk, tv, tm, H, sl, causal, drop, want_f32=True)
+        assert keep is None
+        assert o.dtype == torch.bfloat16 and o32.dtype == torch.float32
+        assert tuple(lse.shape) == (4, H, T)
+        assert torch.equal(o, o32.to(torch.bfloat16))
+        assert not o32[2].any() and not lse[2].any()
+        assert torch.isfinite(o32).all() and lse[3].abs().min() > 0
+        got = fa.attention_train_fwd(tq, tk, tv, tm, H, sl, causal, drop)
+        assert got[1] is None and got[3] is None
+        assert torch.equal(got[0], o) and torch.equal(got[2], lse)
 
 
 _DROP = dropout.Drop(1, 1, 0.1)
@@ -189,3 +219,45 @@ def test_keep_words_reference_packs_drop_keep(T):
     bits = bits.reshape(B, H, T, -1).bool()
     assert torch.equal(bits[..., :T], drop.keep((B, H, T, T)))
     assert not bits[..., T:].any()
+
+
+def test_train_fwd_args_take_fused_views():
+    q, k, v, mask = _args()[:4]
+    assert fa._train_fwd_args(q, k, v, mask, H) == 3 * C
+    separate = [torch.zeros(2, 70, C, dtype=torch.bfloat16) for _ in range(3)]
+    assert fa._train_fwd_args(*separate, mask, H) == C
+    wide = _args(T=fa.TRAIN_MAX_T)
+    assert fa._train_fwd_args(*wide[:4], H) == 3 * C
+
+
+def _fwd(args):
+    return args[:4]
+
+
+@pytest.mark.parametrize('args,heads,match', [
+    (_fwd(_a), 4, 'd_head=128'),                             # d_head 64
+    (_fwd(_a), 1, 'd_head=128'),                             # d_head 256
+    (_fwd(_args(dtype=torch.float32)), H, 'q: expected torch.bfloat16'),
+    (_fwd(_replace(_a, 1, _a[1].float())), H, 'k: expected torch.bfloat16'),
+    (_fwd(_replace(_a, 2, _a[2][:, :69])), H, 'v: expected shape'),
+    (_fwd(_replace(_a, 0, _q16)), H, 'one row stride'),      # rs C vs 3C
+    (_fwd(_args(extra=1, offset=1)), H, '16-byte aligned'),  # base + 2 bytes
+    (_fwd(_args(extra=4)), H, '16-byte aligned'),            # rs % 8 == 4
+    (_fwd(_replace(_a, 0, _q16.transpose(0, 1).contiguous().transpose(0, 1))),
+     H, '16-byte aligned'),                                  # windows apart
+    (_fwd(_replace(_a, 0, torch.zeros(2, 70, 2 * C, dtype=torch.bfloat16)
+                   [..., ::2])), H, '16-byte aligned'),      # column stride 2
+    (_fwd(_replace(_a, 3, torch.ones(2, 69, dtype=torch.bool))), H,
+     'mask: expected shape'),
+    (_fwd(_replace(_a, 3, _a[3].to(torch.uint8))), H, 'mask: expected'),
+    (_fwd(_replace(_a, 3, torch.ones(70, 2, dtype=torch.bool).T)), H,
+     'mask: expected a contiguous'),
+    (_fwd(_args(T=fa.TRAIN_MAX_T + 8)), H, 'T <= 1024'),      # past the limit
+])
+def test_train_fwd_args_refuse_what_the_kernel_does_not_take(args, heads,
+                                                             match):
+    """A head width, dtype, shape, row stride, alignment, mask layout or T
+    that the forward kernel does not take raises before anything is
+    launched (the checks need no card)."""
+    with pytest.raises(ValueError, match=match):
+        fa._train_fwd_args(*args, heads)
