@@ -37,8 +37,11 @@ any failure exits non-zero before the result line:
 6. the gemm kernel against its plain version at small odd shapes (each
    (ta, tb), a bf16 and an fp32 a, both block widths, ragged rows, depths
    and splits), and K4's two train forms at phase 3's odd shapes with
-   dropout off and 0.1, and K1 at phase 3's rows with the train layer's
-   unfolded weights, and attention_train_fwd and attention_train_bwd at T
+   dropout off and 0.1 (the hidden's keep words against Philox's bits),
+   ffn_train_bwd at K4's rows and hidden widths 128, 384 and 2048 (fp32 x
+   with the residual and bf16 x; dropout off and 0.1; the training shape's
+   limits over the cases pooled), and K1 at phase 3's rows with the train
+   layer's unfolded weights, and attention_train_fwd and attention_train_bwd at T
    of 1, 63, 64, 65, 127, 128, 129, 500, 512, 1000, 1024 (ragged, holed,
    wholly masked and full windows; causal off and on; dropout off and 0.1;
    the forward with and without its fp32 o, its keep words against
@@ -47,8 +50,10 @@ any failure exits non-zero before the result line:
    kernels
    against their plain versions at the training shape (256 windows x 512 frames, ragged,
    one wholly masked) with dropout 0.1 and the same Philox masks on both
-   sides, with the six gemm forms of a layer's backward (dW1, dW2, dWo,
-   dWqkv split and summed, da, dx), dW1 and dWo again on 128,000 rows (a
+   sides (K4's hidden keep words against Philox's bits; ffn_train_bwd
+   reading them, its plain version drawing its own), with the six gemm
+   forms of a layer's backward (dW1, dW2, dWo, dWqkv split and summed, da,
+   dx), dW1 and dWo again on 128,000 rows (a
    ragged last split) and dW1 twice, bit for bit; then the whole-layer
    function
    (out, dx and its 14 gradients) and the attention (with and without the
@@ -62,6 +67,7 @@ any failure exits non-zero before the result line:
 8. times of each train kernel (each gemm form apart, beside
    torch.matmul; K1's train instance and attention_train_fwd beside their
    device time; attention_train_bwd's device time by pass, dq and dk/dv;
+   ffn_train_bwd's device time;
    both attention kernels with the dropout off against 0.1, what the
    dropout costs them), its plain
    version, a library call and its bound; the
@@ -498,7 +504,9 @@ def k4_odd_shape_checks(form, C, act, model_F, dev):
     0.1) and 'y_out' (B6's bf16 form, dropout off and 0.1), held as the
     train functions are: relative L2 within 1e-3 (out, the normalised rows
     and 1/std) or 1e-2 (the bf16 y), and y 0 wherever the plain version's
-    output mask drops."""
+    output mask drops; with the dropout on, the hidden's keep words equal
+    to Philox's bits on every row (``check_hidden_words``), none at rate
+    0."""
     from ppgs_tpu_torch.ops import dropout, fused_ffn
 
     bf16 = torch.bfloat16
@@ -537,6 +545,10 @@ def k4_odd_shape_checks(form, C, act, model_F, dev):
                         drop_h.at(4)))
                 got = fused_ffn.ffn_train_fwd(*fwd)
                 want = fused_ffn.ffn_train_fwd_reference(*fwd)
+                if variant:
+                    check_hidden_words(name, got[3], drop_h)
+                elif got[3] is not None:
+                    raise AssertionError(f'{name}: keep words at rate 0')
                 pairs = list(zip(got, want))[:3 if form == 'train_ln' else 1]
                 limit = 1e-3 if form == 'train_ln' else 1e-2
                 rels = [relative_l2(a, b) for a, b in pairs]
@@ -617,6 +629,115 @@ def k2_odd_shape_checks(d_head, heads, dev):
           f'causal off and on, scale_log2 1 and log2(e)/sqrt(d): max |kernel '
           f'- plain| by T: {", ".join(cases)} (atol 5e-3, rtol 2^-7); the '
           f'wholly masked window exactly 0', flush=True)
+
+
+def check_hidden_words(name, words, drop):
+    """K4's hidden keep words (``ffn_train_fwd``'s fourth output) against
+    their plain packing (``fused_ffn.keep_words_reference``) bit for bit on
+    every row: Philox's bits of the (M, F) hidden."""
+    from ppgs_tpu_torch.ops import fused_ffn
+
+    M, W = words.shape
+    if not torch.equal(words, fused_ffn.keep_words_reference(
+            drop, M, 32 * W, words.device)):
+        raise AssertionError(f'{name}: the hidden\'s keep words differ from '
+                             f'Philox\'s bits')
+
+
+# ffn_train_bwd at odd shapes, before anything is timed: K4's rows, hidden
+# widths of one 128-column unit, of three and the model's
+FFN_BWD_ODD_F = (128, 384, 2048)
+# (atol, rtol, share, outlier bound) of each output, train_kernel_checks'
+# at the training shape: a relu' flip moves dh by its whole value and a
+# block's db1 sum by the same, and dx's row by dh times W1's row
+# (``with_relu_flips`` carries the admitted ones over to the plain side
+# before dx and the partial sums are held)
+FFN_BWD_LIMITS = {
+    'dx (fp32 + residual)': (1e-3, 1e-3, 5e-5, dict(outlier=6.1e-2)),
+    'hd': (1e-3, 1e-2, 1e-6, dict(outlier=3.2e-2)),
+    'dh': (1e-3, 1e-2, 1e-6, dict(flips_at_zero=True)),
+    'db1 partial sums': (1e-2, 1e-3, 2e-6, dict(outlier=1.2)),
+    'dx (bf16)': (1e-3, 1e-2, 4e-5, dict(outlier=6.25e-2)),
+}
+
+
+def with_relu_flips(want, got, w1):
+    """The plain version's ffn_train_bwd outputs (dx, hd, dh, partials)
+    with the relu' flips that the dh check admits (an element 0 on exactly
+    one side) carried over from the kernel's side: each such element's got
+    - want added to dx's row through W1 (dx + delta W1^T, rounded again for
+    a bf16 dx) and to its 64-row block's partial sum. What remains of a
+    difference is the order of the sums and the bf16 roundings, which the
+    limits hold; a flip no longer takes a whole dx row or block sum past
+    them."""
+    from ppgs_tpu_torch.ops import backward
+
+    dx, hd, dh, partial = want
+    flip = (got[2] == 0) != (dh == 0)
+    if not flip.any():
+        return want
+    delta = torch.where(flip, got[2].float() - dh.float(), 0.0)
+    dx = (dx.float() + (delta @ w1.float().T).view(dx.shape)).to(dx.dtype)
+    return dx, hd, dh, partial + backward.block_sums(delta)
+
+
+@torch.no_grad()
+def ffn_bwd_odd_shape_checks(dev):
+    """ffn_train_bwd against its plain version at ``K4_ODD_M`` rows and
+    ``FFN_BWD_ODD_F`` hidden widths, dropout off and 0.1 (the keep words
+    ``keep_words_reference``'s), both forms (fp32 x with the residual, bf16
+    x), on seeded random weights. Each output is held to
+    ``FFN_BWD_LIMITS`` with the share taken of its elements of all the
+    cases together (a case of a few rows holds too few for a share of
+    1e-6), dx and the partial sums after ``with_relu_flips``; two calls
+    equal bit for bit. Prints the max |kernel - plain| by F and form."""
+    from ppgs_tpu_torch.ops import dropout, fused_ffn
+
+    bf16 = torch.bfloat16
+    # A generator of its own: the phases' own draws stay as they were
+    gen = torch.Generator(device=dev).manual_seed(SEED + 53)
+
+    def rnd(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=gen, device=dev)
+
+    pooled = {name: ([], []) for name in FFN_BWD_LIMITS}
+    C = 256
+    for Fh in FFN_BWD_ODD_F:
+        w1, w2 = (rnd(C, Fh, scale=C ** -0.5).to(bf16),
+                  rnd(Fh, C, scale=Fh ** -0.5).to(bf16))
+        b1 = rnd(Fh, scale=0.1)
+        for form in ('fp32', 'bf16'):
+            worst = {}
+            for M, rate in itertools.product(K4_ODD_M, (0.0, DROPOUT)):
+                drop = dropout.Drop(SEED + 29, 3, rate)
+                keep = (fused_ffn.keep_words_reference(drop, M, Fh, dev)
+                        if rate else None)
+                x, dy, res = rnd(M, C), rnd(M, C).to(bf16), rnd(M, C)
+                args = ((x, dy, w1, b1, w2, drop, keep, res) if form == 'fp32'
+                        else (x.to(bf16), dy, w1, b1, w2, drop, keep))
+                got = fused_ffn.ffn_train_bwd(*args)
+                again = fused_ffn.ffn_train_bwd(*args)
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    raise AssertionError(f'ffn_train_bwd M={M} F={Fh} '
+                                         f'{form}: two calls differ')
+                want = with_relu_flips(
+                    fused_ffn.ffn_train_bwd_reference(*args), got, w1)
+                names = ('dx (fp32 + residual)' if form == 'fp32'
+                         else 'dx (bf16)', 'hd', 'dh', 'db1 partial sums')
+                for name, a, b in zip(names, got, want):
+                    pooled[name][0].append(a.float().flatten())
+                    pooled[name][1].append(b.float().flatten())
+                    e = (a.float() - b.float()).abs().max().item()
+                    worst[M] = max(worst.get(M, 0.0), e)
+            print(f'ffn_train_bwd F={Fh} x {form}, dropout off and '
+                  f'{DROPOUT}: max |kernel - plain| by M: '
+                  f'{", ".join(f"{m} {e:.3g}" for m, e in worst.items())}',
+                  flush=True)
+    for name, (got, want) in pooled.items():
+        atol, rtol, share, bound_on = FFN_BWD_LIMITS[name]
+        check(f'ffn_train_bwd {name}, rows {K4_ODD_M}, F {FFN_BWD_ODD_F}, '
+              f'pooled', torch.cat(got), torch.cat(want), atol, rtol,
+              share=share, **bound_on)
 
 
 # attention_train_fwd and attention_train_bwd at odd shapes, before
@@ -950,8 +1071,8 @@ def train_kernel_checks(port, config, layer, dev, gen):
 
     drop_h, drop_y = drop.at(drop.site + 2), drop.at(drop.site + 3)
     fwd = (r, w1, ffn.b1, w2, ffn.b2, drop_h, drop_y, (n2.scale, n2.bias))
-    out, n_2, rstd2 = fused_ffn.ffn_train_fwd(*fwd)
-    pout, pn2, prstd2 = fused_ffn.ffn_train_fwd_reference(*fwd)
+    out, n_2, rstd2, hkeep = fused_ffn.ffn_train_fwd(*fwd)
+    pout, pn2, prstd2, _ = fused_ffn.ffn_train_fwd_reference(*fwd)
     err['ffn_train_fwd'] = max(
         check('ffn_train_fwd out (LN2 epilogue)', out, pout, 1e-3, 1e-3,
               share=1e-6, outlier=2e-3),
@@ -959,6 +1080,9 @@ def train_kernel_checks(port, config, layer, dev, gen):
               outlier=2e-3),
         check('ffn_train_fwd rstd', rstd2, prstd2, atol=1e-3, rtol=1e-3))
     del pout, pn2, prstd2
+    check_hidden_words('ffn_train_fwd', hkeep, drop_h)
+    print(f'ffn_train_fwd keep words: equal to Philox\'s bits on all {M} '
+          f'rows', flush=True)
     r16 = r.to(bf16)
     plain_fwd = (r16, w1, ffn.b1, w2, ffn.b2, drop_h, drop_y)
     check('ffn_train_fwd y (bf16 epilogue)',
@@ -967,33 +1091,34 @@ def train_kernel_checks(port, config, layer, dev, gen):
           share=5e-5, outlier=4.7e-2)
 
     dy = masked
-    fb = (r, dy, w1, ffn.b1, w2, drop_h, dz)
-    got_b, want_b = (fused_ffn.ffn_train_bwd(*fb),
-                     fused_ffn.ffn_train_bwd_reference(*fb))
+    # The backward reads K4's words; its plain version draws the bits
+    fb = (r, dy, w1, ffn.b1, w2, drop_h, hkeep, dz)
+    got_b = fused_ffn.ffn_train_bwd(*fb)
+    want_b = with_relu_flips(
+        fused_ffn.ffn_train_bwd_reference(*fb[:6], None, dz), got_b, w1)
     names = ('dx (fp32 + residual)', 'hd', 'dh', 'db1 partial sums')
-    # (atol, rtol, share, outlier bound): a relu' flip moves dh by its
-    # whole value and a block's db1 sum by the same
-    limits = ((1e-3, 1e-3, 5e-5, dict(outlier=6.1e-2)),
-              (1e-3, 1e-2, 1e-6, dict(outlier=3.2e-2)),
-              (1e-3, 1e-2, 1e-6, dict(flips_at_zero=True)),
-              (1e-2, 1e-3, 2e-6, dict(outlier=1.2)))
-    err['ffn_train_bwd'] = max(
-        check(f'ffn_train_bwd {name}', a, b, atol, rtol, share=share,
-              **bound_on)
-        for name, a, b, (atol, rtol, share, bound_on) in zip(
-            names, got_b, want_b, limits))
+
+    def held(name, a, b):
+        atol, rtol, share, bound_on = FFN_BWD_LIMITS[name]
+        return check(f'ffn_train_bwd {name}', a, b, atol, rtol, share=share,
+                     **bound_on)
+
+    err['ffn_train_bwd'] = max(held(name, a, b) for name, a, b in zip(
+        names, got_b, want_b))
     del want_b
-    fb16 = (r16, dy, w1, ffn.b1, w2, drop_h)
-    check('ffn_train_bwd dx (bf16)', fused_ffn.ffn_train_bwd(*fb16)[0],
-          fused_ffn.ffn_train_bwd_reference(*fb16)[0], 1e-3, 1e-2,
-          share=4e-5, outlier=6.25e-2)
+    fb16 = (r16, dy, w1, ffn.b1, w2, drop_h, hkeep)
+    got16 = fused_ffn.ffn_train_bwd(*fb16)
+    held('dx (bf16)', got16[0], with_relu_flips(
+        fused_ffn.ffn_train_bwd_reference(*fb16[:6], None), got16, w1)[0])
+    del got16
 
     hd, dh = got_b[1], got_b[2]
     inputs = dict(C=C, H=H, B=B, T=T, M=M, x=x, mask=mask, q=q, k=k, v=v,
                   qkv=qkv, drop=drop, sl=sl, sm=sm, a16=a16, a32=a32, lse=lse,
                   keep=keep, do=do, d_row=d_row, d16=d16, d32=d32, r=r, n=n,
                   rstd=rstd,
-                  g=g, masked=masked, dz=dz, hd=hd, dh=dh, wo=wo, wqkv=wqkv,
+                  g=g, masked=masked, dz=dz, hd=hd, dh=dh, hkeep=hkeep,
+                  wo=wo, wqkv=wqkv,
                   bqkv=layer.attn.bqkv, w1=w1, w2=w2, lengths=lengths)
     forms = gemm_form_checks(inputs)
     err['gemm'] = max(forms.values())
@@ -1402,7 +1527,7 @@ def train_kernel_times(config, inp, err, launches, per_step, form_launches,
     ffn = (r, inp['w1'], inp['ffn_b1'], inp['w2'], inp['ffn_b2'],
            *layer_drops, (inp['g2'], inp['be2']))
     ffn_bwd = (r, inp['masked'], inp['w1'], inp['ffn_b1'], inp['w2'],
-               layer_drops[0], inp['dz'])
+               layer_drops[0], inp['hkeep'], inp['dz'])
     w1t, w2t = inp['w1'].T, inp['w2'].T
     rl = r16.view(M, C).detach().requires_grad_()
 
@@ -1505,12 +1630,12 @@ def train_kernel_times(config, inp, err, launches, per_step, form_launches,
             lambda: fused_ffn.ffn_train_bwd_reference(*ffn_bwd),
             lambda: torch.autograd.grad(chain_out, rl, chain_cot,
                                         retain_graph=True),
-            # the function's products and bytes: x, dy, the residual, the
-            # weights and b1 in, dx and db1 out (the hd and dh it writes
-            # for the weight-gradient GEMMs are the split's cost, not B6's)
+            # x, dy, the residual, the weights, b1 and the keep words in;
+            # dx, hd, dh and the db1 partial rows out
             (6 * M * C * Fh,
              M * C * 4 + M * C * 2 + M * C * 4 + 2 * C * Fh * 2 + Fh * 4
-             + M * C * 4 + Fh * 4),
+             + M * Fh // 8 + M * C * 4 + 2 * M * Fh * 2
+             + -(-M // 64) * Fh * 4),
             'ffn_train.cu', 'ppgs_tpu/ops/fused_ffn.py:294'),
     }
     records = []
@@ -1535,6 +1660,8 @@ def train_kernel_times(config, inp, err, launches, per_step, form_launches,
             'bound_ms': bound_ms, 'bound_by': bound_by,
             'library_ms': library_ms})
     kernel_device_ms('K4 ffn_train_fwd', runs['ffn_train_fwd'][0], card)
+    device_times('ffn_train_bwd', records[list(runs).index('ffn_train_bwd')],
+                 runs['ffn_train_bwd'][0], 'its library route', card)
     device_times(f'K1 qkv_proj (train, {M} rows)', records[0],
                  runs['qkv_proj'][0], 'cast + addmm', card)
     device_times('attention_train_fwd',
@@ -2222,6 +2349,7 @@ def train_phases(port, config, workdir, dev, gen, card):
     for form in ('train_ln', 'y_out'):
         k4_odd_shape_checks(form, config.hidden_channels, 'relu',
                             config.ffn_channels, dev)
+    ffn_bwd_odd_shape_checks(dev)
     attention_train_odd_shape_checks(dev)
     train_err, train_inputs = train_kernel_checks(port, config, layer, dev,
                                                   gen)

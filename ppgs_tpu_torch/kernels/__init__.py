@@ -59,10 +59,10 @@ SIGNATURES = {
         _P, _I, _P, _P, _P, _P, _P, _P, _I, *_DROP, _P)),
     # in, R, N, splits, scratch, out, round_bf16, stream
     'ppgs_colsum': ('layer_train.cu', (_P, _L, _L, _I, _P, _P, _I, _P)),
-    # x, x_is_f32, dy, w1, b1, w2, residual, dx32, dx16, hd_out, dh_out,
-    # db1_partial, M, F, *drop (hidden site), stream
+    # x, x_is_f32, dy, w1t, b1, w2, words, residual, dx32, dx16, hd_out,
+    # dh_out, db1_partial, M, F, scale, stream
     'ppgs_ffn_train_bwd': ('ffn_train.cu', (
-        _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, *_DROP,
+        _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F,
         _P)),
     # a, a_is_f32, ta, lda, b, tb, ldb, out32, out16, residual, ldc, M, N,
     # K, splits, stream
@@ -77,12 +77,12 @@ SIGNATURES = {
     # a, w, bias, x, gamma, beta, out, n_out, rstd, M, C, *drop, stream
     'ppgs_out_proj_ln': ('out_proj_ln.cu', (_P, _P, _P, _P, _P, _P, _P, _P,
                                             _P, _I, _I, *_DROP, _P)),
-    # x, w1, b1, w2, b2, gamma, beta, out, n_out, rstd, y_out, h, M, F, C,
-    # act, round_input, seed_lo, seed_hi, site_h, site_y, threshold, scale,
-    # stream
+    # x, w1, b1, w2, b2, gamma, beta, out, n_out, rstd, y_out, h,
+    # keep_out, M, F, C, act, round_input, seed_lo, seed_hi, site_h,
+    # site_y, threshold, scale, stream
     'ppgs_ffn_ln': ('ffn_ln.cu', (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                  _P, _P, _I, _I, _I, _I, _I, _U, _U, _U,
-                                  _U, _U, _F, _P)),
+                                  _P, _P, _P, _I, _I, _I, _I, _I, _U, _U,
+                                  _U, _U, _U, _F, _P)),
     # q, q_rs, k, v, kv_rs, bias, mask, out, out_rs, B, T, H, d, sm_scale,
     # stream
     'ppgs_rel_attention': ('rel_attention.cu', (

@@ -70,7 +70,12 @@
 // accumulator layout gives a thread 2 adjacent columns of each 8-column
 // group for two rows (g and g + 8), so lanes t and t ^ 1 share a group:
 // each draws the group of its own row (g for even t, g + 8 for odd) and
-// they trade the two words the other needs, one draw per 4 elements.
+// they trade the two words the other needs, one draw per 4 elements. The
+// train forms (C = 256) also write the hidden's keep bits for the backward
+// (ffn_train.cu), which then draws none: int32 words of shape (M, F / 32),
+// bit k of word w for column 32 w + k; a quad's four lanes OR their bits
+// into a row's words and each stores one (the WORDS instances; the
+// inference instances are compiled without it).
 // Rows past M: TMA fills zeros, and no row >= M is written.
 
 #include <cooperative_groups.h>
@@ -282,7 +287,8 @@ __device__ __forceinline__ uint32_t keep_pair(uint32_t p, bool k0, bool k1) {
 // The hidden's bias, activation, dropout and bf16 rounding on a thread's
 // four accumulators of 8-column group c8 of the (rows, F) hidden (v[e]:
 // row r0 or r1 by e / 2, column c8 + 2t + e % 2; bias: b1 at those two
-// columns), returned as the bf16 pairs of rows r0 (p0) and r1 (p1). With
+// columns; keep: their keep bits, keep4's), returned as the bf16 pairs of
+// rows r0 (p0) and r1 (p1). With
 // ROUND = 0 (round_input 0) the sum is bf16(bf16(acc) + bf16(b1)): one
 // bf16x2 add of the rounded pairs, exactly that; ReLU and the dropout
 // scale (bf16 times bf16, rounded) stay in bf16x2 too, so that a pair costs
@@ -291,11 +297,8 @@ __device__ __forceinline__ uint32_t keep_pair(uint32_t p, bool k0, bool k1) {
 template <int ACT, bool ROUND>
 __device__ __forceinline__ void hidden4(uint32_t& p0, uint32_t& p1,
                                         const float (&v)[4], float2 bias,
-                                        int c8, int t, long long r0,
-                                        long long r1, int F,
+                                        const bool (&keep)[4],
                                         const ppgs::Dropout& drop) {
-  bool keep[4] = {true, true, true, true};
-  if (drop.threshold) keep4(drop, r0, r1, F, c8, t, keep);
   if constexpr (ACT == RELU && !ROUND) {
     const __nv_bfloat162 b = pair(bias.x, bias.y), zero = pair(0.f, 0.f);
     __nv_bfloat162 h0 = __hmax2(__hadd2(pair(v[0], v[1]), b), zero);
@@ -477,9 +480,10 @@ ffn_hidden_kernel(const __grid_constant__ CUtensorMap map_x,
       const int j = j0 + i;
       const float v[4] = {acc[4 * j], acc[4 * j + 1], acc[4 * j + 2],
                           acc[4 * j + 3]};
+      bool keep[4] = {true, true, true, true};
+      if (drop.threshold) keep4(drop, r0, r1, F, n0 + 8 * j, t, keep);
       uint32_t p0, p1;
-      hidden4<ACT, ROUND>(p0, p1, v, bias[i], n0 + 8 * j, t, r0, r1, F,
-                          drop);
+      hidden4<ACT, ROUND>(p0, p1, v, bias[i], keep, drop);
       store_bf16(h, F, r0, r1, n0 + 8 * j + 2 * t, t, p0, p1, M);
     }
   }
@@ -603,38 +607,6 @@ struct Fused {
   static_assert(SMEM <= 232448, "more shared memory than a block may have");
 };
 
-__device__ __forceinline__ uint4 to_bf16x8(const float* p) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  __nv_bfloat162 q[4] = {
-      __floats2bfloat162_rn(a.x, a.y), __floats2bfloat162_rn(a.z, a.w),
-      __floats2bfloat162_rn(b.x, b.y), __floats2bfloat162_rn(b.z, b.w)};
-  return *reinterpret_cast<uint4*>(q);
-}
-__device__ __forceinline__ uint4 to_bf16x8(const bf16* p) {
-  return *reinterpret_cast<const uint4*>(p);
-}
-
-// 64 rows of x from row grow0 (the tile's row srow0) into the bf16 tile: 4
-// atoms (64 columns each) of BM rows x 128 bytes, the 16-byte chunk q of
-// row r at q ^ (r & 7); zeros past M. A warp reads one row (coalesced) and
-// writes each atom's 128 bytes of it.
-template <typename TX>
-__device__ __forceinline__ void stage_x(unsigned char* xs, const TX* x,
-                                        long long grow0, int srow0, int M,
-                                        int tid) {
-#pragma unroll 4
-  for (int i = tid; i < 64 * 32; i += 128) {
-    const int r = i / 32, q = i % 32;       // row, 8-column chunk
-    const long long grow = grow0 + r;
-    const uint4 v = grow < M ? to_bf16x8(x + grow * FUSED_C + q * 8)
-                             : make_uint4(0u, 0u, 0u, 0u);
-    const int sr = srow0 + r;
-    *reinterpret_cast<uint4*>(xs + (q / 8) * (BM * 128) + sr * 128 +
-                              (((q % 8) ^ (sr & 7)) << 4)) = v;
-  }
-}
-
 // h (the warpgroup's 64 rows x 64) = x W1_f: 16 m64n64k16 steps, x K-major
 // (32 bytes of a 128-byte row a step, an atom every 4), W1_f MN-major
 __device__ __forceinline__ void issue_hidden(float (&h)[32], uint32_t xs,
@@ -652,8 +624,8 @@ __device__ __forceinline__ void issue_hidden(float (&h)[32], uint32_t xs,
 }
 
 // LN: x fp32 -> out (and n_out, rstd); !LN: x bf16 -> y_out. ROUND:
-// round_input
-template <bool LN, bool ROUND>
+// round_input. WORDS: write the hidden's keep words to `words`
+template <bool LN, bool ROUND, bool WORDS>
 __global__ void __launch_bounds__(FUSED_THREADS, 1)
 ffn_fused_kernel(const __grid_constant__ CUtensorMap map_w1,
                  const __grid_constant__ CUtensorMap map_w2,
@@ -662,8 +634,8 @@ ffn_fused_kernel(const __grid_constant__ CUtensorMap map_w1,
                  const float* __restrict__ gamma,
                  const float* __restrict__ beta, float* __restrict__ out,
                  float* __restrict__ n_out, float* __restrict__ rstd,
-                 bf16* __restrict__ y_out, int M, int F,
-                 ppgs::Dropout drop_h, ppgs::Dropout drop_y) {
+                 bf16* __restrict__ y_out, uint32_t* __restrict__ words,
+                 int M, int F, ppgs::Dropout drop_h, ppgs::Dropout drop_y) {
   using P = Fused;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* xs = aligned_ring(smem_raw);
@@ -700,7 +672,7 @@ ffn_fused_kernel(const __grid_constant__ CUtensorMap map_w1,
   const TX* x = static_cast<const TX*>(xv);
 
   // The warpgroup's rows of x, for the async proxy (wgmma) to read
-  stage_x(xs, x, m0 + 64 * c, 64 * c, M, threadIdx.x % 128);
+  stage_rows<BM, FUSED_C>(xs, x, m0 + 64 * c, 64 * c, M, threadIdx.x % 128);
   fence_async_smem();
   bar_sync(1 + c, 128);
 
@@ -719,11 +691,36 @@ ffn_fused_kernel(const __grid_constant__ CUtensorMap map_w1,
 #pragma unroll
     for (int j = 0; j < FC / 8; ++j)
       bias[j] = *reinterpret_cast<const float2*>(sb + 8 * j + 2 * t);
+    // The chunk's keep bits as the words of rows r0 and r1: FC = 64
+    // columns, two words a row, a thread's bits of group j at 8 (j % 4) +
+    // 2t of word j / 4
+    uint32_t w[2][2] = {{0u, 0u}, {0u, 0u}};
 #pragma unroll
     for (int j = 0; j < FC / 8; ++j) {
       const float v[4] = {h[4 * j], h[4 * j + 1], h[4 * j + 2], h[4 * j + 3]};
+      bool keep[4] = {true, true, true, true};
+      if (drop_h.threshold) keep4(drop_h, r0, r1, F, f * FC + 8 * j, t, keep);
       hidden4<RELU, ROUND>(a[j / 2][2 * (j % 2)], a[j / 2][2 * (j % 2) + 1],
-                           v, bias[j], f * FC + 8 * j, t, r0, r1, F, drop_h);
+                           v, bias[j], keep, drop_h);
+      if constexpr (WORDS) {
+        const int shift = 8 * (j % 4) + 2 * t;
+        w[0][j / 4] |= (uint32_t(keep[0]) | uint32_t(keep[1]) << 1) << shift;
+        w[1][j / 4] |= (uint32_t(keep[2]) | uint32_t(keep[3]) << 1) << shift;
+      }
+    }
+    if constexpr (WORDS) {
+      // OR over the quad; lane t stores word t % 2 of row r0 (t < 2) or r1
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        uint32_t& u = w[e / 2][e % 2];
+        u |= __shfl_xor_sync(0xffffffffu, u, 1);
+        u |= __shfl_xor_sync(0xffffffffu, u, 2);
+      }
+      const long long row = t < 2 ? r0 : r1;
+      const uint32_t word = t == 0 ? w[0][0] : t == 1 ? w[0][1]
+                          : t == 2 ? w[1][0] : w[1][1];
+      if (row < M)
+        words[row * (F / 32) + f * (FC / 32) + (t % 2)] = word;
     }
   };
   // y += h W2_f
@@ -830,15 +827,16 @@ int launch_hidden(const CUtensorMap& mx, const CUtensorMap& mw1,
                 b1, h, M, F, C, dh);
 }
 
-template <bool LN, bool ROUND>
+template <bool LN, bool ROUND, bool WORDS = false>
 int launch_fused(const CUtensorMap& mw1, const CUtensorMap& mw2,
                  const void* x, const float* b1, const float* b2,
                  const float* g, const float* be, float* o, float* n,
-                 float* rs, bf16* y_out, int M, int F, ppgs::Dropout dh,
-                 ppgs::Dropout dy, int m_tiles, cudaStream_t s) {
-  return launch(ffn_fused_kernel<LN, ROUND>, FUSED_THREADS, Fused::SMEM,
-                dim3(m_tiles), 1, s, mw1, mw2, x, b1, b2, g, be, o, n, rs,
-                y_out, M, F, dh, dy);
+                 float* rs, bf16* y_out, uint32_t* words, int M, int F,
+                 ppgs::Dropout dh, ppgs::Dropout dy, int m_tiles,
+                 cudaStream_t s) {
+  return launch(ffn_fused_kernel<LN, ROUND, WORDS>, FUSED_THREADS,
+                Fused::SMEM, dim3(m_tiles), 1, s, mw1, mw2, x, b1, b2, g, be,
+                o, n, rs, y_out, words, M, F, dh, dy);
 }
 
 }  // namespace
@@ -851,15 +849,19 @@ int launch_fused(const CUtensorMap& mw1, const CUtensorMap& mw2,
 // (768, GELU), the widths of the models. With y_out (C = 256, ReLU): x
 // bf16 -> y_out (M, 256) bf16 (round_input, gamma, beta, out, n_out and
 // rstd unused). The hidden's dropout site is (seed, site_h), the output's
-// (seed, site_y); threshold 0 turns both off. One kernel at C = 256, two
-// on the stream (the hidden's, then the output's) at 512 and 768. Any
-// other (C, act) returns cudaErrorInvalidValue.
+// (seed, site_y); threshold 0 turns both off. keep_out (M, F / 32) int32,
+// or null: the hidden's keep words (the train forms at C = 256,
+// round_input 0, threshold != 0). One kernel at C = 256, two on the
+// stream (the hidden's, then the output's) at 512 and 768. Any other (C,
+// act), or keep_out where it cannot be written, returns
+// cudaErrorInvalidValue.
 extern "C" int ppgs_ffn_ln(const void* x, const void* w1, const void* b1,
                            const void* w2, const void* b2, const void* gamma,
                            const void* beta, void* out, void* n_out,
-                           void* rstd, void* y_out, void* h, int M, int F,
-                           int C, int act, int round_input, unsigned seed_lo,
-                           unsigned seed_hi, unsigned site_h, unsigned site_y,
+                           void* rstd, void* y_out, void* h, void* keep_out,
+                           int M, int F, int C, int act, int round_input,
+                           unsigned seed_lo, unsigned seed_hi,
+                           unsigned site_h, unsigned site_y,
                            unsigned threshold, float scale, void* stream) {
   const bool ln = y_out == nullptr, fused = C == FUSED_C;
   const bool width_ok =
@@ -868,7 +870,8 @@ extern "C" int ppgs_ffn_ln(const void* x, const void* w1, const void* b1,
          : C == 256 && act == RELU;
   const int m_tiles = (M + BM - 1) / BM;
   if (!width_ok || F <= 0 || F % 128 || m_tiles > 65535 || (!fused && !h) ||
-      reinterpret_cast<uintptr_t>(b1) % 16)
+      reinterpret_cast<uintptr_t>(b1) % 16 ||
+      (keep_out && (!fused || round_input || !threshold)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (M <= 0) return static_cast<int>(cudaGetLastError());
   const ppgs::Dropout dh =
@@ -890,15 +893,25 @@ extern "C" int ppgs_ffn_ln(const void* x, const void* w1, const void* b1,
         !encode(&mw2, w2, false, F, C, C, 64, FC))
       return static_cast<int>(cudaErrorInvalidValue);
     bf16* y = static_cast<bf16*>(y_out);
+    uint32_t* words = static_cast<uint32_t*>(keep_out);
+    if (words)
+      return ln ? launch_fused<true, false, true>(mw1, mw2, x, b1f, b2f, g,
+                                                  be, o, n, rs, y, words, M,
+                                                  F, dh, dy, m_tiles, s)
+                : launch_fused<false, false, true>(mw1, mw2, x, b1f, b2f, g,
+                                                   be, o, n, rs, y, words, M,
+                                                   F, dh, dy, m_tiles, s);
     if (!ln)
       return launch_fused<false, false>(mw1, mw2, x, b1f, b2f, g, be, o, n,
-                                        rs, y, M, F, dh, dy, m_tiles, s);
+                                        rs, y, nullptr, M, F, dh, dy,
+                                        m_tiles, s);
     return round_input
                ? launch_fused<true, true>(mw1, mw2, x, b1f, b2f, g, be, o, n,
-                                          rs, y, M, F, dh, dy, m_tiles, s)
+                                          rs, y, nullptr, M, F, dh, dy,
+                                          m_tiles, s)
                : launch_fused<true, false>(mw1, mw2, x, b1f, b2f, g, be, o,
-                                           n, rs, y, M, F, dh, dy, m_tiles,
-                                           s);
+                                           n, rs, y, nullptr, M, F, dh, dy,
+                                           m_tiles, s);
   }
   CUtensorMap mx, mh;
   if (!encode(&mx, x, true, M, C, C, 32, BM) ||

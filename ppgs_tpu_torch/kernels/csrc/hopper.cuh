@@ -1,12 +1,12 @@
 // Hopper building blocks shared by the kernels that feed the tensor cores
 // with TMA and wgmma (gemm.cu, ffn_ln.cu, attention.cu, qkv_proj.cu,
-// attention_train.cu, attention_train_bwd.cu):
+// attention_train.cu, attention_train_bwd.cu, ffn_train.cu):
 // mbarrier waits that trap rather than hang, TMA tile loads and stores
 // (2-D and 3-D), the 128-byte-swizzle shared-memory descriptor, the
 // wgmma.mma_async wrappers (A from shared memory or from registers), the
-// attention kernels' quad reductions and swizzled output staging, and the
-// host-side encoding of a TMA tensor map (2-D and 3-D). Header-only;
-// sm_90a.
+// staging of rows as a swizzled bf16 operand tile, the attention kernels'
+// quad reductions and swizzled output staging, and the host-side encoding
+// of a TMA tensor map (2-D and 3-D). Header-only; sm_90a.
 #pragma once
 
 #include <cuda.h>   // CUtensorMap and its enums; cuTensorMapEncodeTiled is
@@ -209,7 +209,14 @@ __device__ __forceinline__ void fence_async_smem() {
 __device__ __forceinline__ void bar_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
 }
+// Arrive at it without waiting: what this thread wrote before is visible
+// to the threads that bar_sync on it
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
 
+#define PPGS_R16                                                            \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
 #define PPGS_R32                                                            \
   "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "       \
   "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "       \
@@ -228,6 +235,7 @@ __device__ __forceinline__ void bar_sync(int id, int count) {
 #define PPGS_F8(i)                                                          \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),               \
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define PPGS_F16 PPGS_F8(0), PPGS_F8(8)
 #define PPGS_F32 PPGS_F8(0), PPGS_F8(8), PPGS_F8(16), PPGS_F8(24)
 #define PPGS_F64                                                            \
   PPGS_F32, PPGS_F8(32), PPGS_F8(40), PPGS_F8(48), PPGS_F8(56)
@@ -235,7 +243,7 @@ __device__ __forceinline__ void bar_sync(int id, int count) {
   PPGS_F64, PPGS_F8(64), PPGS_F8(72), PPGS_F8(80), PPGS_F8(88),             \
       PPGS_F8(96), PPGS_F8(104), PPGS_F8(112), PPGS_F8(120)
 
-// d (64 x BN fp32, BN / 2 a thread; BN 64, 128 or 256) += A (64 x 16,
+// d (64 x BN fp32, BN / 2 a thread; BN 32, 64, 128 or 256) += A (64 x 16,
 // shared memory) B (16 x BN, shared memory); TA / TB: that operand is
 // MN-major (wgmma's transpose immediates), else K-major
 template <int BN, int TA, int TB>
@@ -255,13 +263,20 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[BN / 2], uint64_t da,
         "{" PPGS_R64 "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
         : PPGS_F64
         : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
-  } else {
-    static_assert(BN == 64, "wgmma_ss takes BN 64, 128 or 256");
+  } else if constexpr (BN == 64) {
     asm volatile(
         "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
         " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
         "{" PPGS_R32 "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
         : PPGS_F32
+        : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+  } else {
+    static_assert(BN == 32, "wgmma_ss takes BN 32, 64, 128 or 256");
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{" PPGS_R16 "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+        : PPGS_F16
         : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
   }
 }
@@ -296,13 +311,50 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[BN / 2],
   }
 }
 
+#undef PPGS_R16
 #undef PPGS_R32
 #undef PPGS_R64
 #undef PPGS_R128
 #undef PPGS_F8
+#undef PPGS_F16
 #undef PPGS_F32
 #undef PPGS_F64
 #undef PPGS_F128
+
+__device__ __forceinline__ uint4 to_bf16x8(const float* p) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  __nv_bfloat162 q[4] = {
+      __floats2bfloat162_rn(a.x, a.y), __floats2bfloat162_rn(a.z, a.w),
+      __floats2bfloat162_rn(b.x, b.y), __floats2bfloat162_rn(b.z, b.w)};
+  return *reinterpret_cast<uint4*>(q);
+}
+__device__ __forceinline__ uint4 to_bf16x8(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
+
+// 64 rows of a (M, COLS) fp32 or bf16 array from row grow0 into rows
+// srow0.. of a K-major bf16 operand tile of TILE_ROWS rows (COLS / 64
+// atoms of TILE_ROWS x 128 bytes, the 16-byte chunk q of row r at
+// q ^ (r & 7), as a 128-byte-swizzled TMA load lays it out), rounded to
+// bf16; zeros past M. 128 threads (tid 0..127); a warp reads one row
+// (coalesced) and writes each atom's 128 bytes of it.
+template <int TILE_ROWS, int COLS, typename T>
+__device__ __forceinline__ void stage_rows(unsigned char* tile, const T* src,
+                                           long long grow0, int srow0, int M,
+                                           int tid) {
+  constexpr int CHUNKS = COLS / 8;          // 8-column chunks of a row
+#pragma unroll 4
+  for (int i = tid; i < 64 * CHUNKS; i += 128) {
+    const int r = i / CHUNKS, q = i % CHUNKS;
+    const long long grow = grow0 + r;
+    const uint4 v = grow < M ? to_bf16x8(src + grow * COLS + q * 8)
+                             : make_uint4(0u, 0u, 0u, 0u);
+    const int sr = srow0 + r;
+    *reinterpret_cast<uint4*>(tile + (q / 8) * (TILE_ROWS * 128) + sr * 128 +
+                              (((q % 8) ^ (sr & 7)) << 4)) = v;
+  }
+}
 
 // --- The attention kernels' softmax and epilogue (attention.cu,
 // attention_train.cu, attention_train_bwd.cu). An m64nN accumulator holds,
@@ -419,11 +471,13 @@ inline EncodeTiled encode_tiled() {
 }
 
 // A 2-D row-major (rows, cols) tensor of 2- or 4-byte elements, loaded in
-// boxes of box_rows x box_cols (box_cols x element = 128 bytes) with the
-// 128-byte swizzle; zeros past its edges
+// boxes of box_rows x box_cols (box_cols x element = 128 bytes, or the
+// width of another swizzle) with the 128-byte swizzle unless `swizzle`
+// says otherwise; zeros past its edges
 inline bool encode(CUtensorMap* map, const void* base, bool f32,
                    long long rows, long long cols, long long ld,
-                   int box_cols, int box_rows) {
+                   int box_cols, int box_rows,
+                   CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiled fn = encode_tiled();
   if (!fn) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
@@ -436,7 +490,7 @@ inline bool encode(CUtensorMap* map, const void* base, bool f32,
             f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
                 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
             2, const_cast<void*>(base), dims, strides, box, unit,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -19,7 +19,9 @@ FFN hidden) is recomputed:
 
     forward   qkv_proj (K1, unfolded weights), attention_train_fwd,
               out_proj_ln_train (K3 with its dropout site),
-              ffn_train_fwd (K4 with its two dropout sites and LN2)
+              ffn_train_fwd (K4 with its two dropout sites and LN2; it
+              writes the hidden's keep words, as attention_train_fwd
+              writes those of the probabilities)
     backward  ln_dropout_bwd (LN2, keep_y), ffn_train_bwd, gemm (dW1,
               dW2), ln_dropout_bwd (LN1, keep_sa), gemm (da, dWo), row_dot,
               attention_train_bwd, gemm (dx, dWqkv), colsum for every sum
@@ -119,18 +121,20 @@ class _LayerTrain(torch.autograd.Function):
             drop, want_f32=True)
         r, n1, s1 = ops['out_ln'](a16, wo_c, bo, x, g1, be1,
                                   drop.at(drop.site + 1))
-        out, n2, s2 = ops['ffn_fwd'](r, w1_c, b1, w2_c, b2,
-                                     drop.at(drop.site + 2),
-                                     drop.at(drop.site + 3), ln=(g2, be2))
+        out, n2, s2, hkeep = ops['ffn_fwd'](r, w1_c, b1, w2_c, b2,
+                                            drop.at(drop.site + 2),
+                                            drop.at(drop.site + 3),
+                                            ln=(g2, be2))
         ctx.save_for_backward(x, mask, qkv, a16, a32, lse, keep, r, n1, s1,
-                              n2, s2, wqkv_c, wo_c, w1_c, w2_c, b1, g1, g2)
+                              n2, s2, hkeep, wqkv_c, wo_c, w1_c, w2_c, b1, g1,
+                              g2)
         ctx.cfg = cfg
         return out
 
     @staticmethod
     def backward(ctx, g):
-        (x, mask, qkv, a16, a32, lse, keep, r, n1, s1, n2, s2, wqkv_c, wo_c,
-         w1_c, w2_c, b1, g1, g2) = ctx.saved_tensors
+        (x, mask, qkv, a16, a32, lse, keep, r, n1, s1, n2, s2, hkeep, wqkv_c,
+         wo_c, w1_c, w2_c, b1, g1, g2) = ctx.saved_tensors
         heads, causal, cd, drop, ops = ctx.cfg
         B, T, C = x.shape
         M = B * T
@@ -146,7 +150,8 @@ class _LayerTrain(torch.autograd.Function):
         dg2, dbe2, db2 = colsum(part).reshape(3, C)
         # FFN backward, recomputing the hidden: dr = dz2 + bf16(dh) W1^T
         dr, hd, dh, db1_part = ops['ffn_bwd'](
-            r, dy0c, w1_c, b1, w2_c, drop.at(drop.site + 2), residual=dz2)
+            r, dy0c, w1_c, b1, w2_c, drop.at(drop.site + 2), hkeep,
+            residual=dz2)
         db1 = colsum(db1_part)
         dw1 = weight_grad(r, dh)
         dw2 = weight_grad(hd, dy0c)

@@ -102,7 +102,9 @@ def _launch_ffn(x, w1, b1, w2, b2, ln=None, round_input=False,
     and 768. ``ln`` = (gamma, beta): x (..., C) fp32 with (C, activation)
     in ``LN_WIDTHS``, returns (LN(...) fp32, and with ``stats`` the
     normalised rows and 1/std (M,), else None, None). ``ln`` None: x
-    (..., 256) bf16, ReLU, returns (the bf16 output, None, None)."""
+    (..., 256) bf16, ReLU, returns (the bf16 output, None, None). Last, the
+    hidden's keep words (``keep_words_shape`` int32) where ``drop_h`` drops
+    it (the train forms), else None."""
     C, F = w1.shape
     widths = LN_WIDTHS if ln else ((256, 'relu'),)
     if (C, activation) not in widths or F % 128:
@@ -128,16 +130,18 @@ def _launch_ffn(x, w1, b1, w2, b2, ln=None, round_input=False,
     else:
         y = torch.empty_like(x)
     hidden = hidden_scratch(M, F, C, dev)
+    keep = (torch.empty(keep_words_shape(M, F), dtype=torch.int32,
+                        device=dev) if drop_h.on else None)
     lo, hi, site_h, threshold, scale = drop_h.c_args()
     kernels.launch('ppgs_ffn_ln', x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
                    w2.data_ptr(), b2.data_ptr(),
                    ln[0].data_ptr() if ln else None,
                    ln[1].data_ptr() if ln else None, kernels.ptr(out),
                    kernels.ptr(n), kernels.ptr(rstd), kernels.ptr(y),
-                   kernels.ptr(hidden), M, F, C, int(activation == 'gelu'),
-                   int(round_input), lo, hi, site_h, drop_y.site, threshold,
-                   scale, device=dev)
-    return (out, n, rstd) if ln else (y, None, None)
+                   kernels.ptr(hidden), kernels.ptr(keep), M, F, C,
+                   int(activation == 'gelu'), int(round_input), lo, hi,
+                   site_h, drop_y.site, threshold, scale, device=dev)
+    return (out, n, rstd, keep) if ln else (y, None, None, keep)
 
 
 def ffn_residual_ln(x, w1, b1, w2, b2, scale, bias, round_input=False,
@@ -147,8 +151,8 @@ def ffn_residual_ln(x, w1, b1, w2, b2, scale, bias, round_input=False,
     if x.device.type == 'cpu':
         return ffn_residual_ln_reference(x, w1, b1, w2, b2, scale, bias,
                                          round_input, activation)
-    out, _, _ = _launch_ffn(x, w1, b1, w2, b2, (scale, bias), round_input,
-                            activation=activation)
+    out, _, _, _ = _launch_ffn(x, w1, b1, w2, b2, (scale, bias),
+                               round_input, activation=activation)
     ffn_residual_ln.launches += 1
     ffn_residual_ln.widths[w1.shape[0]] += 1
     return out
@@ -182,9 +186,40 @@ def ffn_residual_layernorm_reference(x, w1, b1, w2, b2, ln_scale, ln_bias):
 # and of the FFN half of ppgs_tpu/ops/encoder_layer_train.py, which ends in
 # the second LayerNorm instead (``ln``). Two kernels, each with its plain
 # version below: the forward (K4, kernels/csrc/ffn_ln.cu, with its dropout
-# sites on), and the backward (kernels/csrc/ffn_train.cu) that recomputes
-# the hidden and writes hd and bf16(dh) for the weight-gradient products
-# (ops/backward.py). The JAX kernel takes M % 512 == 0; these take any M.
+# sites on), which also writes the hidden's keep bits as int32 words, and
+# the backward (kernels/csrc/ffn_train.cu) that recomputes the hidden,
+# reads those words (it draws no Philox) and writes hd and bf16(dh) for
+# the weight-gradient products (ops/backward.py). The JAX kernel takes
+# M % 512 == 0; these take any M.
+
+
+def keep_words_shape(M, F):
+    """The shape of the hidden's keep words that ``ffn_train_fwd`` hands the
+    backward: F / 32 int32 words a row, bit k of word w for column
+    32 w + k."""
+    return (M, F // 32)
+
+
+def _pack_words(keep):
+    """(M, F) bool -> ``keep_words_shape`` int32."""
+    M, F = keep.shape
+    words = (keep.long().view(M, F // 32, 32)
+             << torch.arange(32, device=keep.device)).sum(dim=-1)
+    return torch.where(words >= 2 ** 31, words - 2 ** 32,
+                       words).to(torch.int32)
+
+
+def _unpack_words(words, F):
+    """``keep_words_shape`` int32 -> (M, F) bool."""
+    shift = torch.arange(32, device=words.device)
+    return ((words.long()[..., None] >> shift) & 1).reshape(
+        words.shape[0], F).bool()
+
+
+def keep_words_reference(drop, M, F, device=None):
+    """Plain version of the hidden's keep words: ``drop.keep((M, F))``
+    packed as ``keep_words_shape`` says."""
+    return _pack_words(drop.keep((M, F), device))
 
 
 def _round(t, cd):
@@ -206,15 +241,17 @@ def _scale_in(drop, cd):
 
 def ffn_train_fwd_reference(x, w1, b1, w2, b2, drop_h, drop_y, ln=None):
     """Plain version of ``ffn_train_fwd`` (w1's dtype is the compute
-    dtype)."""
+    dtype); its keep words are ``keep_words_reference``'s."""
     cd = w1.dtype
     C, F = w1.shape
     x2 = x.reshape(-1, C).float()
     M = x2.shape[0]
     h = _hidden(_round(x2, cd), w1, b1, cd)
+    words = None
     if drop_h.on:
-        h = torch.where(drop_h.keep((M, F), x.device),
-                        _round(h * _scale_in(drop_h, cd), cd),
+        keep = drop_h.keep((M, F), x.device)
+        words = _pack_words(keep)
+        h = torch.where(keep, _round(h * _scale_in(drop_h, cd), cd),
                         torch.zeros_like(h))
     acc = h @ w2.float()
     if ln is not None:
@@ -227,13 +264,13 @@ def ffn_train_fwd_reference(x, w1, b1, w2, b2, drop_h, drop_y, ln=None):
         rstd = torch.rsqrt((zc * zc).mean(dim=-1, keepdim=True) + LN_EPS)
         n = zc * rstd
         out = n * ln[0] + ln[1]
-        return out.reshape(x.shape), n.reshape(x.shape), rstd[:, 0]
+        return out.reshape(x.shape), n.reshape(x.shape), rstd[:, 0], words
     y = _round(_round(acc, cd) + _round(b2.float(), cd), cd)
     if drop_y.on:
         y = torch.where(drop_y.keep((M, C), x.device),
                         _round(y * _scale_in(drop_y, cd), cd),
                         torch.zeros_like(y))
-    return y.to(cd).reshape(x.shape), None, None
+    return y.to(cd).reshape(x.shape), None, None, words
 
 
 def ffn_train_fwd(x, w1, b1, w2, b2, drop_h, drop_y, ln=None):
@@ -242,9 +279,10 @@ def ffn_train_fwd(x, w1, b1, w2, b2, drop_h, drop_y, ln=None):
     and drop_y the hidden and output Drops.
 
     ``ln`` = (gamma, beta), B4's form: x (..., C) fp32, returns
-    (LN2(x + drop_y(y0)) fp32, the normalised rows, 1/std (M,)).
+    (LN2(x + drop_y(y0)) fp32, the normalised rows, 1/std (M,), keep).
     ``ln`` None, ffn_train's form: x (..., 256) bf16, returns
-    (drop_y(y) bf16, None, None)."""
+    (drop_y(y) bf16, None, None, keep). keep: the hidden's keep bits for
+    ``ffn_train_bwd`` (``keep_words_shape`` int32), None at rate 0."""
     if x.device.type == 'cpu':
         return ffn_train_fwd_reference(x, w1, b1, w2, b2, drop_h, drop_y, ln)
     result = _launch_ffn(x, w1, b1, w2, b2, ln, False, drop_h, drop_y,
@@ -256,8 +294,11 @@ def ffn_train_fwd(x, w1, b1, w2, b2, drop_h, drop_y, ln=None):
 ffn_train_fwd.launches = 0
 
 
-def ffn_train_bwd_reference(x, dy, w1, b1, w2, drop_h, residual=None):
-    """Plain version of ``ffn_train_bwd``."""
+def ffn_train_bwd_reference(x, dy, w1, b1, w2, drop_h, keep,
+                            residual=None):
+    """Plain version of ``ffn_train_bwd``: it reads the keep bits from
+    ``keep`` (the forward's words) or, given None, draws them from
+    ``drop_h``."""
     cd = w1.dtype
     C, F = w1.shape
     x2 = x.reshape(-1, C).float()
@@ -266,7 +307,8 @@ def ffn_train_bwd_reference(x, dy, w1, b1, w2, drop_h, residual=None):
     dhd = dy.reshape(M, C).float() @ w2.float().T
     hd = h
     if drop_h.on:
-        keep = drop_h.keep((M, F), x.device)
+        keep = (drop_h.keep((M, F), x.device) if keep is None
+                else _unpack_words(keep, F))
         zero = torch.zeros_like(h)
         hd = torch.where(keep, _round(h * _scale_in(drop_h, cd), cd), zero)
         dhd = torch.where(keep, dhd * drop_h.scale, zero)
@@ -278,14 +320,16 @@ def ffn_train_bwd_reference(x, dy, w1, b1, w2, drop_h, residual=None):
             backward.block_sums(dh))
 
 
-def ffn_train_bwd(x, dy, w1, b1, w2, drop_h, residual=None):
+def ffn_train_bwd(x, dy, w1, b1, w2, drop_h, keep, residual=None):
     """The FFN's backward up to its input (``kernels/csrc/ffn_train.cu``):
     x as the forward took it, dy (..., 256) bf16 the gradient of the
-    dropped output, already masked; recomputes the hidden and its mask.
-    Returns (dx: fp32 plus ``residual`` for an fp32 x, bf16 for a bf16 x;
-    hd and bf16(dh), (M, F) bf16; db1 partial sums (ceil(M/64), F))."""
+    dropped output, already masked, keep the forward's keep words (None at
+    rate 0); recomputes the hidden. Returns (dx: fp32 plus ``residual`` for
+    an fp32 x, bf16 for a bf16 x; hd and bf16(dh), (M, F) bf16; db1 partial
+    sums (ceil(M/64), F))."""
     if x.device.type == 'cpu':
-        return ffn_train_bwd_reference(x, dy, w1, b1, w2, drop_h, residual)
+        return ffn_train_bwd_reference(x, dy, w1, b1, w2, drop_h, keep,
+                                       residual)
     C, F = w1.shape
     if C != 256 or F % 128:
         raise ValueError(f'ffn_train kernel takes C=256, F%128==0; got '
@@ -303,19 +347,27 @@ def ffn_train_bwd(x, dy, w1, b1, w2, drop_h, residual=None):
     if residual is not None:
         kernels.require(residual, 'residual', torch.float32, dev, x.shape)
     M = x.numel() // C
+    if drop_h.on:
+        if keep is None:
+            raise ValueError('keep: the forward\'s keep words are needed '
+                             'with the dropout on')
+        kernels.require(keep, 'keep', torch.int32, dev, keep_words_shape(M, F))
     dx = torch.empty(x.shape, dtype=torch.float32 if x_f32
                      else torch.bfloat16, device=dev)
     hd = torch.empty((M, F), dtype=torch.bfloat16, device=dev)
     dh = torch.empty((M, F), dtype=torch.bfloat16, device=dev)
     partial = torch.empty((-(-M // backward.PARTIAL_ROWS), F),
                           dtype=torch.float32, device=dev)
+    # W1 transposed: its (F, 256) rows are the operand form of both of the
+    # kernel's products with it (the source's note)
+    w1t = w1.t().contiguous()
     kernels.launch('ppgs_ffn_train_bwd', x.data_ptr(), int(x_f32),
-                   dy.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                   None if residual is None else residual.data_ptr(),
-                   dx.data_ptr() if x_f32 else None,
+                   dy.data_ptr(), w1t.data_ptr(), b1.data_ptr(),
+                   w2.data_ptr(), kernels.ptr(keep if drop_h.on else None),
+                   kernels.ptr(residual), dx.data_ptr() if x_f32 else None,
                    None if x_f32 else dx.data_ptr(), hd.data_ptr(),
                    dh.data_ptr(), partial.data_ptr(), M, F,
-                   *drop_h.c_args(), device=dev)
+                   float(drop_h.scale), device=dev)
     ffn_train_bwd.launches += 1
     return dx, hd, dh, partial
 
@@ -336,14 +388,15 @@ class _FFNTrain(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w1, b1, w2, b2, drop_h, drop_y, ops):
-        y, _, _ = ops[0](x, w1, b1.float(), w2, b2.float(), drop_h, drop_y)
-        ctx.save_for_backward(x, w1, b1, w2)
+        y, _, _, keep = ops[0](x, w1, b1.float(), w2, b2.float(), drop_h,
+                               drop_y)
+        ctx.save_for_backward(x, w1, b1, w2, keep)
         ctx.cfg = (drop_h, drop_y, ops)
         return y
 
     @staticmethod
     def backward(ctx, gy):
-        x, w1, b1, w2 = ctx.saved_tensors
+        x, w1, b1, w2, keep = ctx.saved_tensors
         drop_h, drop_y, ops = ctx.cfg
         _, ffn_bwd, ln_bwd, gemm_fn, colsum_fn = ops
         cd, C = x.dtype, x.shape[-1]
@@ -352,7 +405,8 @@ class _FFNTrain(torch.autograd.Function):
         _, gc, partial = ln_bwd(gy.contiguous(), None, None, None, drop_y,
                                 cd, want_dz=False)
         db2 = colsum_fn(partial, round_to=cd)[2 * C:]
-        dx, hd, dh, db1_part = ffn_bwd(x, gc, w1, b1.float(), w2, drop_h)
+        dx, hd, dh, db1_part = ffn_bwd(x, gc, w1, b1.float(), w2, drop_h,
+                                       keep)
         db1 = colsum_fn(db1_part, round_to=cd)
         dw1 = backward.weight_grad(x, dh, cd, gemm_fn, colsum_fn)
         dw2 = backward.weight_grad(hd, gc.reshape(hd.shape[0], C), cd, gemm_fn,

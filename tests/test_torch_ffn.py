@@ -126,7 +126,7 @@ def test_train_ln_form_at_rate_0_matches_jax_kernel_at_tile_edges(M, dtype,
     want = _jax_ffn_ln(x, w1, b1, w2, b2, g, beta, dtype)
     td = getattr(torch, dtype)
     off = dropout.OFF
-    out, n, rstd = fused_ffn.ffn_train_fwd_reference(
+    out, n, rstd, keep = fused_ffn.ffn_train_fwd_reference(
         torch.from_numpy(x), torch.from_numpy(w1).to(td),
         torch.from_numpy(b1), torch.from_numpy(w2).to(td),
         torch.from_numpy(b2), off, off,
@@ -135,6 +135,7 @@ def test_train_ln_form_at_rate_0_matches_jax_kernel_at_tile_edges(M, dtype,
     torch.testing.assert_close(out, n * torch.from_numpy(g)
                                + torch.from_numpy(beta))
     assert rstd.shape == (M,) and bool((rstd > 0).all())
+    assert keep is None        # no keep words at rate 0
 
 
 @pytest.mark.parametrize('dtype,tol', DTYPES)
@@ -151,9 +152,9 @@ def test_y_out_form_at_rate_0_matches_jax_kernel_at_tile_edges(M, dtype,
             jnp.float32))[:M]
     td = getattr(torch, dtype)
     off = dropout.OFF
-    got, _, _ = fused_ffn.ffn_train_fwd_reference(
+    got, _, _, keep = fused_ffn.ffn_train_fwd_reference(
         *(torch.from_numpy(a).to(td) for a in (x, w1, b1, w2, b2)), off, off)
-    assert got.dtype == td and got.shape == (M, C)
+    assert got.dtype == td and got.shape == (M, C) and keep is None
     np.testing.assert_allclose(got.float().numpy(), want, rtol=tol, atol=tol)
 
 

@@ -418,12 +418,15 @@ def test_train_wrappers_take_plain_version_on_cpu():
     w2 = torch.randn(256, C, generator=gen).to(torch.bfloat16)
     b1, b2 = torch.zeros(256), torch.zeros(C)
     fargs = (x.to(torch.bfloat16), w1, b1, w2, b2, drop, drop.at(2))
-    assert torch.equal(fused_ffn.ffn_train_fwd(*fargs)[0],
-                       fused_ffn.ffn_train_fwd_reference(*fargs)[0])
+    y, _, _, hkeep = fused_ffn.ffn_train_fwd(*fargs)
+    want_y, _, _, want_keep = fused_ffn.ffn_train_fwd_reference(*fargs)
+    assert torch.equal(y, want_y) and torch.equal(hkeep, want_keep)
     y16 = x.to(torch.bfloat16)
-    assert torch.equal(
-        fused_ffn.ffn_train_bwd(y16, y16, w1, b1, w2, drop)[0],
-        fused_ffn.ffn_train_bwd_reference(y16, y16, w1, b1, w2, drop)[0])
+    for got, want in zip(
+            fused_ffn.ffn_train_bwd(y16, y16, w1, b1, w2, drop, hkeep),
+            fused_ffn.ffn_train_bwd_reference(y16, y16, w1, b1, w2, drop,
+                                              hkeep)):
+        assert torch.equal(got, want)
     ones = torch.ones(C)
     wo = w1[:, :C].contiguous()
     assert torch.equal(
