@@ -9,7 +9,8 @@ any failure exits non-zero before the result line:
 1. the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels from ppgs_tpu_torch/kernels/csrc with nvcc;
 3. K1 (the QKV projection) at odd shapes against its plain version (rows
-   1, 63, 64, 65, 127, 128, 129, 1000, the mel model's weights); K4 (the
+   1, 63, 64, 65, 127, 128, 129, 1000, the mel model's weights); K3 (the
+   output projection and LN1) at C = 256 on K1's rows, seeded weights; K4 (the
    FFN) likewise (rows 1, 63, 64, 65, 127, 129, 1000; hidden widths 128,
    384 and the model's; round_input 0 and 1); K2 (attention) at d_head 128 likewise (T of 1, 63, 64, 65,
    127, 129, 500, 1536; a prefix mask and one with holes; causal off and
@@ -33,7 +34,7 @@ any failure exits non-zero before the result line:
    kernel's bound; end-to-end audio-seconds per second of ``from_audio``
    (with and without the fused log-mel); and the device time by kernel of
    one ``from_audio`` call (torch.profiler) with the card's idle share; K4's,
-   K2's and K1's device time per launch beside their event times;
+   K3's, K2's and K1's device time per launch beside their event times;
 6. the gemm kernel against its plain version at small odd shapes (each
    (ta, tb), a bf16 and an fp32 a, both block widths, ragged rows, depths
    and splits), and K4's two train forms at phase 3's odd shapes with
@@ -41,7 +42,9 @@ any failure exits non-zero before the result line:
    ffn_train_bwd at K4's rows and hidden widths 128, 384 and 2048 (fp32 x
    with the residual and bf16 x; dropout off and 0.1; the training shape's
    limits over the cases pooled), and K1 at phase 3's rows with the train
-   layer's unfolded weights, and attention_train_fwd and attention_train_bwd at T
+   layer's unfolded weights, K3's train form there (dropout off and 0.1,
+   the normalised rows and 1/std, its mask the plain one's bit for bit),
+   and attention_train_fwd and attention_train_bwd at T
    of 1, 63, 64, 65, 127, 128, 129, 500, 512, 1000, 1024 (ragged, holed,
    wholly masked and full windows; causal off and on; dropout off and 0.1;
    the forward with and without its fp32 o, its keep words against
@@ -50,7 +53,8 @@ any failure exits non-zero before the result line:
    kernels
    against their plain versions at the training shape (256 windows x 512 frames, ragged,
    one wholly masked) with dropout 0.1 and the same Philox masks on both
-   sides (K4's hidden keep words against Philox's bits; ffn_train_bwd
+   sides (K3's mask bit for bit; K4's hidden keep words against Philox's
+   bits; ffn_train_bwd
    reading them, its plain version drawing its own), with the six gemm
    forms of a layer's backward (dW1, dW2, dWo, dWqkv split and summed, da,
    dx), dW1 and dWo again on 128,000 rows (a
@@ -65,8 +69,8 @@ any failure exits non-zero before the result line:
    falling, every train kernel launched, the launches of each step exact,
    and one step on 4 rows against ``device='cpu'`` with the same seed;
 8. times of each train kernel (each gemm form apart, beside
-   torch.matmul; K1's train instance and attention_train_fwd beside their
-   device time; attention_train_bwd's device time by pass, dq and dk/dv;
+   torch.matmul; K1's and K3's train instances and attention_train_fwd
+   beside their device time; attention_train_bwd's device time by pass, dq and dk/dv;
    ffn_train_bwd's device time;
    both attention kernels with the dropout off against 0.1, what the
    dropout costs them), its plain
@@ -75,8 +79,9 @@ any failure exits non-zero before the result line:
    yardstick; the train step's time, audio-seconds per second and peak
    memory, and a torch.profiler breakdown of one step, its gemm time beside
    the six forms' timed alone;
-9. K1 at (768, 2304) and (512, 1536), K4 at C = 768 (GELU) and 512, and
-   K2 at d_head 64 (12 heads) and 256, at phase 3's odd shapes; the w2v2fb
+9. K1 at (768, 2304) and (512, 1536), K3 at C = 768 and 512, K4 at C =
+   768 (GELU) and 512, and K2 at d_head 64 (12 heads) and 256, at phase
+   3's odd shapes; the w2v2fb
    slice's kernel instances against their plain versions at its
    shapes, with seeded full-size random weights (wav2vec2-base trunk: 12
    layers of C = 768, 12 heads of 64, F = 3072, GELU; the C = 512 head, 2
@@ -99,8 +104,8 @@ any failure exits non-zero before the result line:
    ``nn.TransformerEncoderLayer`` x 12 and the conv chain against the
    cuDNN bf16 convs; the slice's audio-seconds per second and a
    torch.profiler breakdown; K4's device time per call by kernel at each
-   width (phases 5, 8 and 11), and K2's and K1's at each width (phases 5,
-   8 and 11);
+   width (phases 5, 8 and 11), and K3's, K2's and K1's at each width
+   (phases 5, 8 and 11);
 12. the bottleneck slice's rel-pos attention kernel (B8) against its plain
    version, with seeded full-size random weights (the 16-block conformer,
    d = 144, 4 heads of 36, FFN 576; the C = 256 head): 64 x T = 800 from
@@ -483,6 +488,92 @@ def k1_odd_shape_checks(tag, wqkv, bqkv, dev):
     print(f'K1 qkv_proj ({tag}, {K} -> {N}) at rows {K1_ODD_M}: max '
           f'|kernel - plain| = {worst:.3g} (atol 1e-2, rtol 1e-2)',
           flush=True)
+
+
+def k3_keep_mask(M, C, drop, dev):
+    """K3's train form on inputs that show its dropout mask: a = 0, x = 0,
+    bo = 1, gamma = 1 and beta = 0, so that each row's sum is the dropout
+    scale where kept and 0 where dropped, and its LayerNorm > 0 exactly
+    where kept (a row wholly kept or wholly dropped, 0.9^C likely, would
+    read as dropped); returns that mask, (M, C) bool."""
+    from ppgs_tpu_torch.ops import encoder_layer_train as elt
+
+    zeros = torch.zeros(M, C, device=dev)
+    ones = torch.ones(C, device=dev)
+    r, _, _ = elt.out_proj_ln_train(
+        zeros.to(torch.bfloat16), torch.zeros(C, C, dtype=torch.bfloat16,
+                                              device=dev),
+        ones, zeros, ones, torch.zeros(C, device=dev), drop)
+    return r > 0
+
+
+def check_k3_mask(name, M, C, drop, dev):
+    """Raise unless K3's dropout mask (``k3_keep_mask``) is the plain
+    version's, bit for bit."""
+    got, want = k3_keep_mask(M, C, drop, dev), drop.keep((M, C), dev)
+    if not torch.equal(got, want):
+        raise AssertionError(f'{name}: the kernel dropped '
+                             f'{int((got != want).sum())} elements the plain '
+                             f'version kept or the reverse')
+
+
+# K3 (out_proj_ln.cu) at odd shapes, each width and the train form, before
+# anything is timed: K1's rows, about the 64-row warpgroups and 128-row
+# tiles, and a ragged 1000
+@torch.no_grad()
+def k3_odd_shape_checks(widths, train, dev):
+    """K3 against its plain version at ``K1_ODD_M`` rows on seeded random
+    weights: the inference form at each C of ``widths`` and, with
+    ``train``, the train form at C = 256 with dropout off and 0.1, its
+    normalised rows and 1/std too, and with the dropout on its mask
+    against the plain version's, bit for bit (``check_k3_mask``). The
+    limits are the train form's at the training shape: atol 1e-4 on the
+    output and the normalised rows, atol and rtol 1e-5 on 1/std. Prints
+    the max |kernel - plain| by M, one line a form."""
+    from ppgs_tpu_torch.ops import dropout
+    from ppgs_tpu_torch.ops import encoder_layer_kernel as elk
+    from ppgs_tpu_torch.ops import encoder_layer_train as elt
+
+    # A generator of its own: the phases' own draws stay as they were
+    gen = torch.Generator(device=dev).manual_seed(SEED + 47)
+
+    def rnd(*shape, scale=1.0, base=0.0):
+        return base + scale * torch.randn(*shape, generator=gen, device=dev)
+
+    forms = [(C, None) for C in widths] + (
+        [(256, 0.0), (256, DROPOUT)] if train else [])
+    for C, rate in forms:
+        wo = rnd(C, C, scale=C ** -0.5).to(torch.bfloat16)
+        vectors = (rnd(C, scale=0.1), rnd(C, scale=0.1, base=1.0),
+                   rnd(C, scale=0.1))
+        form = 'inference' if rate is None else f'train, rate {rate}'
+        cases = []
+        for M in K1_ODD_M:
+            a, x = rnd(M, C, scale=0.5).to(torch.bfloat16), rnd(M, C)
+            name = f'K3 C={C} {form} M={M}'
+            if rate is None:
+                args = (a, wo, vectors[0], x, *vectors[1:])
+                e = check(name, elk.out_proj_residual_ln(*args),
+                          elk.out_proj_residual_ln_reference(*args),
+                          atol=1e-4, quiet=True)
+            else:
+                drop = dropout.Drop(SEED + 19, 5, rate)
+                args = (a, wo, vectors[0], x, *vectors[1:], drop)
+                got = elt.out_proj_ln_train(*args)
+                want = elt.out_proj_ln_train_reference(*args)
+                e = max(check(f'{name} r', got[0], want[0], atol=1e-4,
+                              quiet=True),
+                        check(f'{name} n', got[1], want[1], atol=1e-4,
+                              quiet=True),
+                        check(f'{name} rstd', got[2], want[2], atol=1e-5,
+                              rtol=1e-5, quiet=True))
+                if rate:
+                    check_k3_mask(name, M, C, drop, dev)
+            cases.append(f'{M} {e:.3g}')
+        mask = ', the dropout mask the plain one\'s bit for bit' if rate else ''
+        print(f'K3 out_proj_ln C={C} {form} at rows {K1_ODD_M}: max |kernel '
+              f'- plain| by M: {", ".join(cases)} (atol 1e-4; 1/std atol '
+              f'and rtol 1e-5){mask}', flush=True)
 
 
 def relative_l2(got, want):
@@ -1000,6 +1091,7 @@ def train_kernel_checks(port, config, layer, dev, gen):
     elk = port.ops.encoder_layer_kernel
     k1_odd_shape_checks('train, unfolded weights', wqkv, layer.attn.bqkv,
                         dev)
+    k3_odd_shape_checks((), True, dev)
     qkv = elk.qkv_proj(x, wqkv, layer.attn.bqkv)
     # A product near a rounding boundary of [4, 8) flips by its bf16 ulp,
     # 0.0312, before the bias is added; where the bias cancels it to an
@@ -1053,6 +1145,9 @@ def train_kernel_checks(port, config, layer, dev, gen):
         check('out_proj_ln_train n', n, pn, atol=1e-4),
         check('out_proj_ln_train rstd', rstd, prstd, atol=1e-5, rtol=1e-5))
     del pr, pn, prstd
+    check_k3_mask('out_proj_ln_train', M, C, out_ln[-1], dev)
+    print(f'out_proj_ln_train: its dropout mask is the plain version\'s, bit '
+          f'for bit, on all {M} rows', flush=True)
 
     g = torch.randn(B, T, C, generator=gen, device=dev)
     lnb = (g, n, rstd, n1.scale, drop.at(drop.site + 1), bf16)
@@ -1664,6 +1759,9 @@ def train_kernel_times(config, inp, err, launches, per_step, form_launches,
                  runs['ffn_train_bwd'][0], 'its library route', card)
     device_times(f'K1 qkv_proj (train, {M} rows)', records[0],
                  runs['qkv_proj'][0], 'cast + addmm', card)
+    device_times('K3 out_proj_ln_train',
+                 records[list(runs).index('out_proj_ln_train')],
+                 runs['out_proj_ln_train'][0], 'its library route', card)
     device_times('attention_train_fwd',
                  records[list(runs).index('attention_train_fwd')],
                  runs['attention_train_fwd'][0], 'SDPA with dropout', card)
@@ -2041,6 +2139,7 @@ def mel_phases(port, config, workdir, dev, gen, card):
 
     phase(f'3 kernels against their plain versions ({W} windows x T={T})')
     k1_odd_shape_checks('mel', w['wqkv'], w['bqkv'], dev)
+    k3_odd_shape_checks((C,), False, dev)
     k4_odd_shape_checks('ln', C, 'relu', Fh, dev)
     k2_odd_shape_checks(C // H, H, dev)
     x = torch.randn(W, T, C, generator=gen, device=dev)
@@ -2248,6 +2347,9 @@ def mel_phases(port, config, workdir, dev, gen, card):
 
     kernel_device_ms('K4 ffn_residual_ln', runs['ffn_residual_ln'][0], card)
     by_name = {r['name']: r for r in records}
+    device_times(f'K3 out_proj_residual_ln C = {C}',
+                 by_name['out_proj_residual_ln'],
+                 runs['out_proj_residual_ln'][0], 'addmm + layer_norm', card)
     device_times(f'K2 attention d_head {C // H}', by_name['attention'],
                  runs['attention'][0], 'SDPA', card)
     device_times(f'K1 qkv_proj {C} -> {3 * C}', by_name['qkv_proj'],
@@ -2731,6 +2833,10 @@ def layer_records(tag, inp, err, launches, replaces, card):
                 .view(B, T, C), (C,), w['g1'], w['be1'])),
         (2 * M * C * C, M * C * 2 + 2 * M * C * 4 + C * C * 2 + 3 * C * 4),
         card))
+    device_times(f'K3 out_proj_residual_ln C = {C}', records[-1],
+                 lambda: elk.out_proj_residual_ln(a, w['wo'], w['bo'], x,
+                                                  w['g1'], w['be1']),
+                 'addmm + layer_norm', card)
     records.append(timed_record(
         f'ffn_residual_ln_c{C}' + ('_gelu' if act == 'gelu' else ''),
         'ffn_ln.cu', replaces, launches['ffn_residual_ln'][tag],
@@ -2924,6 +3030,8 @@ def w2v2fb_phases(port, workdir, dev, gen, card):
     phase('9 w2v2fb kernels against their plain versions (trunk 64 x 400, '
           'head 128 x 500, conv stack 64 x 8 s)')
     trunk, head, head_config, head_path = w2v2fb_setup(port, workdir, dev)
+    k3_odd_shape_checks((trunk.config.hidden_size,
+                         head_config.hidden_channels), False, dev)
     k4_odd_shape_checks('ln', trunk.config.hidden_size, 'gelu',
                         trunk.config.intermediate_size, dev)
     k4_odd_shape_checks('ln', head_config.hidden_channels, 'relu',

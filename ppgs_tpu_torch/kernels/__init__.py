@@ -74,9 +74,10 @@ SIGNATURES = {
     # scale_log2, causal, stream
     'ppgs_attention': ('attention.cu', (_P, _P, _P, _L, _P, _P, _L,
                                         _I, _I, _I, _I, _F, _I, _P)),
-    # a, w, bias, x, gamma, beta, out, n_out, rstd, M, C, *drop, stream
+    # a, w, bias, x, gamma, beta, out, n_out, rstd, M, C, clusters, *drop,
+    # stream
     'ppgs_out_proj_ln': ('out_proj_ln.cu', (_P, _P, _P, _P, _P, _P, _P, _P,
-                                            _P, _I, _I, *_DROP, _P)),
+                                            _P, _I, _I, _I, *_DROP, _P)),
     # x, w1, b1, w2, b2, gamma, beta, out, n_out, rstd, y_out, h,
     # keep_out, M, F, C, act, round_input, seed_lo, seed_hi, site_h,
     # site_y, threshold, scale, stream

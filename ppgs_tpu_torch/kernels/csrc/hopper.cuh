@@ -1,6 +1,7 @@
 // Hopper building blocks shared by the kernels that feed the tensor cores
 // with TMA and wgmma (gemm.cu, ffn_ln.cu, attention.cu, qkv_proj.cu,
-// attention_train.cu, attention_train_bwd.cu, ffn_train.cu):
+// attention_train.cu, attention_train_bwd.cu, ffn_train.cu, and
+// out_proj_ln.cu through residual_ln.cuh):
 // mbarrier waits that trap rather than hang, TMA tile loads and stores
 // (2-D and 3-D), the 128-byte-swizzle shared-memory descriptor, the
 // wgmma.mma_async wrappers (A from shared memory or from registers), the

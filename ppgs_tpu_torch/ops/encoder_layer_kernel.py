@@ -107,26 +107,50 @@ def out_proj_residual_ln_reference(a, wo, bo, x, scale, bias):
                       scale.float(), bias.float())
 
 
-def launch_out_proj_ln(a, wo, bo, x, gamma, beta, drop=dropout.OFF,
-                       stats=False):
-    """Check the operands and launch K3 (``kernels/csrc/out_proj_ln.cu``):
-    LN1(x + drop(a @ wo + bo)) with a (..., C) bf16, x (..., C) fp32 on
-    the card, C in ``OUT_PROJ_WIDTHS``, ``drop`` a ``dropout.Drop``.
-    Returns (out fp32, and with ``stats`` the normalised rows and 1/std
-    (M,), else None, None)."""
-    C = wo.shape[0]
+def out_proj_ln_args(a, wo, bo, x, gamma, beta):
+    """Check K3's operands and return its row count; raise ValueError on
+    what the kernel does not take, before anything is launched: a C not in
+    ``OUT_PROJ_WIDTHS``, a not bf16 with last dim C, x not fp32 of a's
+    shape, wo not bf16 (C, C), bo, gamma or beta not fp32 (C,), any of
+    them on another device than a or not contiguous, or one not 16-byte
+    aligned (TMA and the kernel's vector loads)."""
+    C = wo.shape[0] if wo.dim() == 2 else None
     if C not in OUT_PROJ_WIDTHS:
         raise ValueError(f'out_proj_ln kernel takes C in {OUT_PROJ_WIDTHS}; '
-                         f'got {C}')
+                         f'got wo {tuple(wo.shape)}')
     dev = a.device
     kernels.require(a, 'a', torch.bfloat16, dev)
-    kernels.require(x, 'x', torch.float32, dev, a.shape)
     if a.shape[-1] != C:
         raise ValueError(f'a: expected last dim {C}, got {a.shape[-1]}')
+    kernels.require(x, 'x', torch.float32, dev, a.shape)
     kernels.require(wo, 'wo', torch.bfloat16, dev, (C, C))
     for name, t in (('bo', bo), ('gamma', gamma), ('beta', beta)):
         kernels.require(t, name, torch.float32, dev, (C,))
-    M = a.numel() // C
+    for name, t in (('a', a), ('wo', wo), ('bo', bo), ('x', x),
+                    ('gamma', gamma), ('beta', beta)):
+        if t.data_ptr() % 16:
+            raise ValueError(f'{name}: expected a 16-byte aligned tensor')
+    return a.numel() // C
+
+
+def out_proj_ln_plan(M, C):
+    """K3's launch plan: (the kernel's instance (its C), blocks of a
+    cluster (C / 256, each a 256-column slice of the rows), row tiles of
+    128, clusters in the grid: one a tile)."""
+    tiles = -(-M // 128)
+    return C, C // 256, tiles, tiles
+
+
+def launch_out_proj_ln(a, wo, bo, x, gamma, beta, drop=dropout.OFF,
+                       stats=False):
+    """Check the operands (``out_proj_ln_args``) and launch K3
+    (``kernels/csrc/out_proj_ln.cu``) on its plan (``out_proj_ln_plan``):
+    LN1(x + drop(a @ wo + bo)) with a (..., C) bf16, x (..., C) fp32 on
+    the card, ``drop`` a ``dropout.Drop``. Returns (out fp32, and with
+    ``stats`` the normalised rows and 1/std (M,), else None, None)."""
+    M = out_proj_ln_args(a, wo, bo, x, gamma, beta)
+    dev = a.device
+    C, _, _, clusters = out_proj_ln_plan(M, wo.shape[0])
     out = torch.empty_like(x)
     n = torch.empty_like(x) if stats else None
     rstd = (torch.empty(M, dtype=torch.float32, device=dev) if stats
@@ -134,7 +158,8 @@ def launch_out_proj_ln(a, wo, bo, x, gamma, beta, drop=dropout.OFF,
     kernels.launch('ppgs_out_proj_ln', a.data_ptr(), wo.data_ptr(),
                    bo.data_ptr(), x.data_ptr(), gamma.data_ptr(),
                    beta.data_ptr(), out.data_ptr(), kernels.ptr(n),
-                   kernels.ptr(rstd), M, C, *drop.c_args(), device=dev)
+                   kernels.ptr(rstd), M, C, clusters, *drop.c_args(),
+                   device=dev)
     return out, n, rstd
 
 
