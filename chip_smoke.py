@@ -89,8 +89,13 @@ any failure exits non-zero before the result line:
    wholly masked window) and 256 (128 x 500, and T = 1200 with a wholly
    masked window), K3 and K4 at C = 768 (GELU) and 512, K4's per-layer
    variant at C = 512, the 12-layer GELU stack whole (the TPU's
-   encoder_stack_streamed), and the conv-stack kernels (statistics, conv 1
-   from the audio, conv 2, the whole chain) at 64 x 8 s;
+   encoder_stack_streamed); the conv-stack kernels (B10) first at odd
+   shapes (conv_gelu at k = 3 and 2, B = 1 and 3, output rows of 1, 63,
+   64, 65, 127, 128, 129, 400 and 1001; its first form from audio with
+   conv 1 at those rows, conv 0's last block reading past the audio; the
+   whole chain at 1 s, 2.5 s and 8 s + 37 samples), then at 64 x 8 s
+   (statistics, conv 0's activation, conv 1 from the audio, conv 2, the
+   whole chain);
 10. the w2v2fb main path, ``from_audio(representation='w2v2fb')`` on 64 x
    8 s of seeded audio, the trunk's weights read from a temporary npz that
    ``W2V2FB_CHECKPOINT`` points at: shape, softmax columns, the exact
@@ -100,7 +105,9 @@ any failure exits non-zero before the result line:
 11. times of each w2v2fb kernel instance, its plain version, a library call
    and its bound (for B10's first form, beside conv 1 on a stored conv-0
    activation, the library's route to the same function from the audio:
-   conv 0, GroupNorm, GELU, conv 1, GELU); the 12-layer stack against
+   conv 0, GroupNorm, GELU, conv 1, GELU); each of B10's six convs by
+   device time and CUDA events beside its bound and cuDNN's conv + GELU
+   at that shape; the 12-layer stack against
    ``nn.TransformerEncoderLayer`` x 12 and the conv chain against the
    cuDNN bf16 convs; the slice's audio-seconds per second and a
    torch.profiler breakdown; K4's device time per call by kernel at each
@@ -2088,6 +2095,8 @@ KERNEL_GROUPS = (
     ('B8 rel_attention', ('rel_attention_kernel',)),
     ('K1-K4', ('qkv_proj_kernel', 'attention_kernel<', 'out_proj_ln_kernel',
                'ffn_fused_kernel', 'ffn_hidden_kernel', 'ffn_out_kernel')),
+    ('B10 conv stack', ('conv_stats_kernel', 'conv0_gelu_kernel',
+                        'conv_gelu_kernel')),
     ('cuDNN convs and cuBLAS products', ('gemm', 'conv', 'xmma', 'cutlass')),
     ('PyTorch elementwise, copies and reductions', ('at::native',)),
 )
@@ -2562,6 +2571,76 @@ def layer_kernel_checks(tag, x, mask, w, H, activation, err, inputs):
                        H=H, activation=activation)
 
 
+# B10 (conv_stack.cu) at odd shapes, before anything is timed: conv_gelu's
+# output rows about its 128-row tiles and one odd length past several;
+# conv 1's (the first form's) likewise, conv 0's last 128-frame block
+# reading past the audio; the whole chain at 1 s, 2.5 s and 8 s + 37
+# samples of audio
+B10_ODD_T = (1, 63, 64, 65, 127, 128, 129, 400, 1001)
+B10_CHAIN_SAMPLES = (16_000, 40_000, 128_037)
+
+
+@torch.no_grad()
+def b10_odd_shape_checks(taps, gn, kernel, stride, dev):
+    """conv_gelu's plain form at k = 3 and 2 (s = 2, the trunk's convs 2
+    and 5), B = 1 and 3, ``B10_ODD_T`` output rows (T_in one row past the
+    least where T_out is odd); its first form (conv0_gelu, then the
+    product) from audio whose conv 1 has those rows (2 samples past the
+    least for odd T_out), B = 1 and 3; and the whole chain at
+    ``B10_CHAIN_SAMPLES``, B = 2; each against its plain version at phase
+    9's main-shape limits (atol 1e-3 rtol 1e-2; the chain relative L2
+    1e-2), on its own seeded inputs."""
+    from ppgs_tpu_torch.ops import conv_stack
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 83)
+    C = conv_stack.CHANNELS
+    k0, s0, k1, s1 = kernel[0], stride[0], kernel[1], stride[1]
+    for name, w, k in (('conv 2', taps.w2, kernel[2]),
+                       ('conv 5', taps.w5, kernel[5])):
+        worst = 0.0
+        for B, T_out in itertools.product((1, 3), B10_ODD_T):
+            T_in = 2 * (T_out - 1) + k + T_out % 2
+            x = (0.5 * torch.randn(B, T_in, C, generator=gen, device=dev)
+                 ).to(torch.bfloat16)
+            worst = max(worst, check(
+                f'B10 conv_gelu {name} B={B} T_out={T_out}',
+                conv_stack.conv_gelu(x, w, k, 2),
+                conv_stack.conv_gelu_reference(x, w, k, 2), atol=1e-3,
+                rtol=1e-2, quiet=True))
+        print(f'B10 conv_gelu (k = {k}, s = 2, {name}\'s weights) at B = 1, '
+              f'3 and T_out {B10_ODD_T}: max |kernel - plain| {worst:.3g} '
+              f'(atol 1e-3 rtol 1e-2 in each case)', flush=True)
+    worst = 0.0
+    for B, T1 in itertools.product((1, 3), B10_ODD_T):
+        T0 = s1 * (T1 - 1) + k1
+        S = s0 * (T0 - 1) + k0 + 2 * (T1 % 2)
+        audio = (0.1 * torch.randn(B, S, generator=gen, device=dev)
+                 ).to(torch.bfloat16)
+        sums = conv_stack.conv_stats(audio, taps.w0, k0, s0)
+        first = (taps.w0, k0, s0, sums, gn.scale, gn.bias)
+        got = conv_stack.conv_gelu(audio, taps.w1, k1, s1, first)
+        if got.shape != (B, T1, C):
+            raise AssertionError(f'B10 first form: shape {tuple(got.shape)}, '
+                                 f'not {(B, T1, C)}')
+        worst = max(worst, check(
+            f'B10 conv_gelu first form B={B} T_out={T1}', got,
+            conv_stack.conv_gelu_reference(audio, taps.w1, k1, s1, first),
+            atol=1e-3, rtol=1e-2, quiet=True))
+    print(f'B10 conv_gelu first form (conv0_gelu, then conv 1) at B = 1, 3 '
+          f'and T_out {B10_ODD_T}, conv 0\'s last block reading past the '
+          f'audio: max |kernel - plain| {worst:.3g} (atol 1e-3 rtol 1e-2 in '
+          f'each case)', flush=True)
+    chain = ([getattr(taps, f'w{i}') for i in range(1, len(kernel))],
+             taps.w0, gn.scale, gn.bias, kernel, stride)
+    for S in B10_CHAIN_SAMPLES:
+        audio = (0.1 * torch.randn(2, S, generator=gen, device=dev)
+                 ).to(torch.bfloat16)
+        check_rel(f'B10 the whole conv chain, 2 x {S} samples',
+                  conv_stack.feature_encoder_stack(audio, *chain),
+                  conv_stack.feature_encoder_stack_reference(audio, *chain),
+                  1e-2)
+
+
 @torch.no_grad()
 def w2v2fb_kernel_checks(port, trunk, head, head_config, dev, gen):
     """Phase 9: every w2v2fb kernel instance against its plain version at
@@ -2632,15 +2711,21 @@ def w2v2fb_kernel_checks(port, trunk, head, head_config, dev, gen):
     taps = trunk.feature_prepared
     gn = trunk.feature_encoder[0].group_norm
     k, s = wcfg.conv_kernel, wcfg.conv_stride
+    b10_odd_shape_checks(taps, gn, k, s, dev)
     sums = conv_stack.conv_stats(audio, taps.w0, k[0], s[0])
     err['conv_stats'] = check(
         'B10 conv_stats (sum, sum of squares)', sums,
         conv_stack.conv_stats_reference(audio, taps.w0, k[0], s[0]),
         atol=1e-3, rtol=1e-4)
     first = (taps.w0, k[0], s[0], sums, gn.scale, gn.bias)
+    err['conv0_gelu'] = check(
+        'B10 conv0_gelu (conv 0 + GroupNorm + GELU: conv 1\'s input)',
+        conv_stack.conv0_gelu(audio, *first),
+        conv_stack.conv0_gelu_reference(audio, *first), atol=1e-3,
+        rtol=1e-2)
     x1 = conv_stack.conv_gelu(audio, taps.w1, k[1], s[1], first)
     err['conv_gelu_first'] = check(
-        'B10 conv_gelu (conv 0 + GroupNorm + GELU folded into conv 1)', x1,
+        'B10 conv_gelu first form (conv0_gelu, then conv 1)', x1,
         conv_stack.conv_gelu_reference(audio, taps.w1, k[1], s[1], first),
         atol=1e-3, rtol=1e-2)
     x2 = conv_stack.conv_gelu(x1, taps.w2, k[2], s[2])
@@ -2695,6 +2780,7 @@ def w2v2fb_main_path(port, trunk, head_config, head_path, dev, gen, card):
                 'out_proj_residual_ln': elk.out_proj_residual_ln,
                 'ffn_residual_ln': fused_ffn.ffn_residual_ln,
                 'conv_stats': conv_stack.conv_stats,
+                'conv0_gelu': conv_stack.conv0_gelu,
                 'conv_gelu': conv_stack.conv_gelu}
     samples = W2V2_SECONDS * head_config.sample_rate
     audio = 0.1 * torch.randn(W2V2_BATCH, 1, samples, generator=gen,
@@ -2711,7 +2797,8 @@ def w2v2fb_main_path(port, trunk, head_config, head_path, dev, gen, card):
     d_h = Ch // head_config.attention_heads
     want = {'qkv_proj': Lt + Lh, 'attention': Lt + Lh,
             'out_proj_residual_ln': Lt + Lh, 'ffn_residual_ln': Lt + Lh,
-            'conv_stats': 0, 'conv_gelu': 0, 'conv_gelu_first': 0}
+            'conv_stats': 0, 'conv0_gelu': 0, 'conv_gelu': 0,
+            'conv_gelu_first': 0}
     Ct = trunk.config.hidden_size
     want_widths = {'qkv_proj': {Ct: Lt, Ch: Lh},
                    'attention': {d_t: Lt, d_h: Lh},
@@ -2743,13 +2830,13 @@ def w2v2fb_main_path(port, trunk, head_config, head_path, dev, gen, card):
         del os.environ['PPGS_TPU_CONV_STACK']
     print(f'launches with PPGS_TPU_CONV_STACK=1: {stack_launches}, by '
           f'width: {stack_widths}', flush=True)
-    if (stack_launches != {**want, 'conv_stats': 1,
+    if (stack_launches != {**want, 'conv_stats': 1, 'conv0_gelu': 1,
                            'conv_gelu': len(trunk.config.conv_kernel) - 1,
                            'conv_gelu_first': 1}
             or stack_widths != widths):
         raise AssertionError('the conv-stack opt-in did not launch B10 once '
-                             'per conv, its first form once, and K1-K4 as '
-                             'the default path')
+                             'per conv, conv0_gelu and the first form once, '
+                             'and K1-K4 as the default path')
     # The frames bf16 decides: where the default path agrees with the same
     # weights in fp32 (plain torch on the card)
     opt_in_against_default('PPGS_TPU_CONV_STACK=1', stacked, ppg,
@@ -2858,6 +2945,64 @@ def layer_records(tag, inp, err, launches, replaces, card):
 
 
 @torch.no_grad()
+def conv_device_times(a16, taps, first, kernel, stride, records,
+                      library_conv0, card):
+    """Each of B10's six conv_gelu launches on the main path's chain (64 x
+    8 s): its device time per call (the profiler) and event time, its
+    bound, and cuDNN's bf16 conv + GELU at that shape (conv 1's on a
+    stored conv-0 activation from ``library_conv0``, as in its record) by
+    both clocks. The records of conv 1 (the first form) and conv 2 get
+    their device times and cuDNN's."""
+    from ppgs_tpu_torch.ops import conv_stack
+
+    C = conv_stack.CHANNELS
+    B, S = a16.shape
+    T0 = (S - kernel[0]) // stride[0] + 1
+    k0 = first[1]
+    x, T = a16, T0
+    for i in range(1, len(kernel)):
+        k, s = kernel[i], stride[i]
+        w = getattr(taps, f'w{i}')
+        T_out = (T - k) // s + 1
+        if i == 1:
+            def fn(x=x, w=w, k=k, s=s):
+                return conv_stack.conv_gelu(x, w, k, s, first)
+            x_nct = library_conv0()
+            flops = 2 * B * T_out * k * C * C + 2 * B * T0 * k0 * C
+            nbytes = B * S * 2 + k * C * C * 2 + k0 * C * 2 + B * T_out * C * 2
+        else:
+            def fn(x=x, w=w, k=k, s=s):
+                return conv_stack.conv_gelu(x, w, k, s)
+            x_nct = x.transpose(1, 2).contiguous()
+            flops = 2 * B * T_out * k * C * C
+            nbytes = B * T * C * 2 + k * C * C * 2 + B * T_out * C * 2
+        w_oik = w.view(k, C, C).permute(2, 1, 0).contiguous()
+
+        def cudnn(x_nct=x_nct, w_oik=w_oik, s=s):
+            return F.gelu(F.conv1d(x_nct, w_oik, stride=s),
+                          approximate='tanh')
+
+        ms, cudnn_ms = time_ms(fn), time_ms(cudnn)
+        dev_ms = kernel_device_ms(f'B10 conv {i} (conv_gelu)', fn, card)
+        cudnn_dev = kernel_device_ms(f'B10 conv {i}, cuDNN conv + GELU',
+                                     cudnn, card)
+        bound_ms, bound_by = bound(flops, nbytes)
+        dev = 'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'
+        lib = 'not measured' if cudnn_dev is None else f'{cudnn_dev:.4f} ms'
+        print(f'B10 conv {i} ({B} x {T_out} rows, k = {k}, s = {s}'
+              f'{", the first form" if i == 1 else ""}): event {ms:.4f} ms, '
+              f'device {dev}, bound {bound_ms:.4f} ms ({bound_by}); cuDNN '
+              f'conv + GELU event {cudnn_ms:.4f} ms, device {lib}: '
+              f'{ms / cudnn_ms:.2f}x [{card}]', flush=True)
+        if i <= len(records):
+            records[i - 1]['device_ms'] = dev_ms
+            records[i - 1]['library_device_ms'] = cudnn_dev
+        del x_nct, w_oik
+        x, T = fn(), T_out
+    del x
+
+
+@torch.no_grad()
 def w2v2fb_times(port, trunk, head_config, head_path, inputs, err,
                  widths, stack_launches, audio, card):
     """Phase 11: each w2v2fb kernel's time beside its plain version's, a
@@ -2918,6 +3063,19 @@ def w2v2fb_times(port, trunk, head_config, head_path, inputs, err,
             None),
         (2 * B * T0 * k[0] * Cc, B * S * 2 + k[0] * Cc * 2 + B * 2 * Cc * 4),
         card, plain_reps=HEAVY_REPS))
+    stats_record = records[-1]
+    # conv 1's input, stored (no one library call computes it: cuDNN's
+    # conv 0, the GroupNorm and GELU are three)
+    records.append(timed_record(
+        'conv0_gelu', 'conv_stack.cu', 'ppgs_tpu/ops/conv_stack.py:123',
+        stack_launches['conv0_gelu'], err['conv0_gelu'], (
+            lambda: conv_stack.conv0_gelu(a16, *first),
+            lambda: conv_stack.conv0_gelu_reference(a16, *first), None),
+        (2 * B * T0 * k[0] * Cc, B * S * 2 + k[0] * Cc * 2 + B * 2 * Cc * 4
+         + 2 * Cc * 4 + B * T0 * Cc * 2), card, plain_reps=HEAVY_REPS))
+    records[-1]['device_ms'] = kernel_device_ms(
+        'B10 conv0_gelu', lambda: conv_stack.conv0_gelu(a16, *first), card)
+    conv0_record = records[-1]
     records.append(timed_record(
         'conv_gelu_first', 'conv_stack.cu', 'ppgs_tpu/ops/conv_stack.py:123',
         stack_launches['conv_gelu_first'], err['conv_gelu_first'], (
@@ -2948,8 +3106,9 @@ def w2v2fb_times(port, trunk, head_config, head_path, inputs, err,
           f'{chain_first_ms:.4f} ms (its output within relative L2 '
           f'{rel:.3g} of the kernels\' (<= 5e-2)), against conv 1 on a '
           f'stored conv-0 activation {records[-1]["library_ms"]:.4f} ms and '
-          f'conv_stats + conv_gelu_first {records[-2]["ms"]:.4f} + '
-          f'{records[-1]["ms"]:.4f} ms [{card}]', flush=True)
+          f'conv_stats + conv_gelu_first {stats_record["ms"]:.4f} + '
+          f'{records[-1]["ms"]:.4f} ms (conv0_gelu {conv0_record["ms"]:.4f} '
+          f'of it) [{card}]', flush=True)
     if not rel <= 5e-2:
         raise AssertionError('the library route to conv_gelu_first computes '
                              'another function')
@@ -2964,6 +3123,9 @@ def w2v2fb_times(port, trunk, head_config, head_path, inputs, err,
         (2 * B * T2 * k[2] * Cc * Cc,
          B * T1 * Cc * 2 + k[2] * Cc * Cc * 2 + B * T2 * Cc * 2), card,
         plain_reps=HEAVY_REPS))
+
+    conv_device_times(a16, taps, first, k, s, records[-2:], library_conv0,
+                      card)
 
     # The wholes: the 12-layer GELU stack and the conv chain
     st = inputs['stack']

@@ -95,10 +95,13 @@ SIGNATURES = {
     # audio, S, w0, k0, s0, T0, B, partial, sums, tickets, stream
     'ppgs_conv_stats': ('conv_stack.cu', (_P, _L, _P, _I, _I, _I, _I, _P,
                                           _P, _P, _P)),
-    # x, x_batch, w, k, s, T_out, B, out, w0, k0, s0, T0, sums, gamma,
-    # beta, stream
-    'ppgs_conv_gelu': ('conv_stack.cu', (_P, _L, _P, _I, _I, _I, _I, _P, _P,
-                                         _I, _I, _I, _P, _P, _P, _P)),
+    # audio, S, w0, k0, s0, T0, B, tiles, window, sums, gamma, beta, act,
+    # stream
+    'ppgs_conv0_gelu': ('conv_stack.cu', (_P, _L, _P, _I, _I, _I, _I, _I, _I,
+                                          _P, _P, _P, _P, _P)),
+    # x, x_batch, w, k, s, T_out, B, tiles, blocks, out, stream
+    'ppgs_conv_gelu': ('conv_stack.cu', (_P, _L, _P, _I, _I, _I, _I, _I, _I,
+                                         _P, _P)),
 }
 SOURCES = tuple(sorted({src for src, _ in SIGNATURES.values()}))
 
