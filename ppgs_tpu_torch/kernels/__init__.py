@@ -57,8 +57,8 @@ SIGNATURES = {
     # stream
     'ppgs_ln_dropout_bwd': ('layer_train.cu', (
         _P, _I, _P, _P, _P, _P, _P, _P, _I, *_DROP, _P)),
-    # in, R, N, splits, scratch, out, round_bf16, stream
-    'ppgs_colsum': ('layer_train.cu', (_P, _L, _L, _I, _P, _P, _I, _P)),
+    # in, R, N, splits, chunk, scratch, out, round_bf16, stream
+    'ppgs_colsum': ('layer_train.cu', (_P, _L, _L, _I, _L, _P, _P, _I, _P)),
     # x, x_is_f32, dy, w1t, b1, w2, words, residual, dx32, dx16, hd_out,
     # dh_out, db1_partial, M, F, scale, stream
     'ppgs_ffn_train_bwd': ('ffn_train.cu', (
@@ -88,10 +88,10 @@ SIGNATURES = {
     # stream
     'ppgs_rel_attention': ('rel_attention.cu', (
         _P, _L, _P, _P, _L, _P, _P, _P, _L, _I, _I, _I, _I, _F, _P)),
-    # blocks, batch_stride, hop, T, B, basis_re, basis_im, mel_t, out,
+    # blocks, batch_stride, hop, T, B, frames, pitch, basis, mel, out,
     # stream
-    'ppgs_fused_mel': ('fused_mel.cu', (_P, _L, _I, _I, _I, _P, _P, _P, _P,
-                                        _P)),
+    'ppgs_fused_mel': ('fused_mel.cu', (_P, _L, _I, _I, _I, _I, _I, _P, _P,
+                                        _P, _P)),
     # audio, S, w0, k0, s0, T0, B, partial, sums, tickets, stream
     'ppgs_conv_stats': ('conv_stack.cu', (_P, _L, _P, _I, _I, _I, _I, _P,
                                           _P, _P, _P)),

@@ -1,5 +1,5 @@
-// Shared helpers of the encoder kernels: bf16 tile loads into shared
-// memory and warp reductions. Header-only; every kernel source includes it
+// Shared helpers of the encoder kernels: bf16 rounding, GELU, LayerNorm
+// rows and warp reductions. Header-only; every kernel source includes it
 // and is compiled on its own (see ppgs_tpu_torch/kernels/__init__.py).
 #pragma once
 
@@ -25,43 +25,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 // Round to bf16 and back: the TPU kernels' cast to the compute dtype.
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));
-}
-
-// Copy a ROWS x COLS bf16 tile from global memory (row stride ld elements)
-// into shared memory (row stride sld), 16 bytes per thread and step. Rows at
-// or past row_limit read as zeros. COLS % 8 == 0; g, ld and sld keep every
-// row 16-byte aligned.
-template <int ROWS, int COLS, int THREADS>
-__device__ __forceinline__ void load_tile_bf16(bf16* s, int sld, const bf16* g,
-                                               long long ld, int row_limit) {
-  constexpr int PER_ROW = COLS / 8;
-#pragma unroll 4
-  for (int i = threadIdx.x; i < ROWS * PER_ROW; i += THREADS) {
-    const int r = i / PER_ROW, c = (i % PER_ROW) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r < row_limit) v = *reinterpret_cast<const uint4*>(g + r * ld + c);
-    *reinterpret_cast<uint4*>(s + r * sld + c) = v;
-  }
-}
-
-// The same from a float32 tile, rounded to bf16 on the way (the TPU
-// kernels' x.astype(compute_dtype) before a product); 16 bytes read per
-// thread and step.
-template <int ROWS, int COLS, int THREADS>
-__device__ __forceinline__ void load_tile_f32_as_bf16(bf16* s, int sld,
-                                                      const float* g,
-                                                      long long ld,
-                                                      int row_limit) {
-  constexpr int PER_ROW = COLS / 4;
-#pragma unroll 4
-  for (int i = threadIdx.x; i < ROWS * PER_ROW; i += THREADS) {
-    const int r = i / PER_ROW, c = (i % PER_ROW) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < row_limit) v = *reinterpret_cast<const float4*>(g + r * ld + c);
-    __nv_bfloat162* d = reinterpret_cast<__nv_bfloat162*>(s + r * sld + c);
-    d[0] = __floats2bfloat162_rn(v.x, v.y);
-    d[1] = __floats2bfloat162_rn(v.z, v.w);
-  }
 }
 
 // tanh-approximate GELU in fp32 (jax.nn.gelu(approximate=True), the w2v2

@@ -1,7 +1,7 @@
 // Hopper building blocks shared by the kernels that feed the tensor cores
 // with TMA and wgmma (gemm.cu, ffn_ln.cu, attention.cu, qkv_proj.cu,
-// attention_train.cu, attention_train_bwd.cu, ffn_train.cu, and
-// out_proj_ln.cu through residual_ln.cuh):
+// attention_train.cu, attention_train_bwd.cu, ffn_train.cu, conv_stack.cu,
+// fused_mel.cu, and out_proj_ln.cu through residual_ln.cuh):
 // mbarrier waits that trap rather than hang, TMA tile loads and stores
 // (2-D and 3-D), the 128-byte-swizzle shared-memory descriptor, the
 // wgmma.mma_async wrappers (A from shared memory or from registers), the
@@ -222,6 +222,8 @@ __device__ __forceinline__ void bar_arrive(int id, int count) {
   "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "       \
   "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "       \
   "%28, %29, %30, %31"
+#define PPGS_R40                                                            \
+  PPGS_R32 ", %32, %33, %34, %35, %36, %37, %38, %39"
 #define PPGS_R64                                                            \
   PPGS_R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, "                \
   "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "       \
@@ -238,6 +240,7 @@ __device__ __forceinline__ void bar_arrive(int id, int count) {
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 #define PPGS_F16 PPGS_F8(0), PPGS_F8(8)
 #define PPGS_F32 PPGS_F8(0), PPGS_F8(8), PPGS_F8(16), PPGS_F8(24)
+#define PPGS_F40 PPGS_F32, PPGS_F8(32)
 #define PPGS_F64                                                            \
   PPGS_F32, PPGS_F8(32), PPGS_F8(40), PPGS_F8(48), PPGS_F8(56)
 #define PPGS_F128                                                           \
@@ -282,43 +285,60 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[BN / 2], uint64_t da,
   }
 }
 
-// The same with A's m64k16 fragment in registers and B MN-major
-template <int BN>
+// The same with A's m64k16 fragment in registers; TB: B is MN-major (as
+// stored row-major (K, N)), else K-major; accumulate false: d = A B, its
+// old value ignored. BN 80 is for the mel product of fused_mel.cu (80 mel
+// bands)
+template <int BN, int TB = 1>
 __device__ __forceinline__ void wgmma_rs(float (&d)[BN / 2],
-                                         const uint32_t (&a)[4],
-                                         uint64_t db) {
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         bool accumulate = true) {
+  const int scale_d = accumulate ? 1 : 0;
   if constexpr (BN == 256) {
     asm volatile(
         "{\n .reg .pred p;\n setp.ne.b32 p, %133, 0;\n"
         " wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-        "{" PPGS_R128 "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+        "{" PPGS_R128 "}, {%128, %129, %130, %131}, %132, p, 1, 1, %134;\n}\n"
         : PPGS_F128
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+          "n"(TB));
   } else if constexpr (BN == 128) {
     asm volatile(
         "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
         " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{" PPGS_R64 "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        "{" PPGS_R64 "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
         : PPGS_F64
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+          "n"(TB));
+  } else if constexpr (BN == 80) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %45, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+        "{" PPGS_R40 "}, {%40, %41, %42, %43}, %44, p, 1, 1, %46;\n}\n"
+        : PPGS_F40
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+          "n"(TB));
   } else {
-    static_assert(BN == 64, "wgmma_rs takes BN 64, 128 or 256");
+    static_assert(BN == 64, "wgmma_rs takes BN 64, 80, 128 or 256");
     asm volatile(
         "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
         " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{" PPGS_R32 "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        "{" PPGS_R32 "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
         : PPGS_F32
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+          "n"(TB));
   }
 }
 
 #undef PPGS_R16
 #undef PPGS_R32
+#undef PPGS_R40
 #undef PPGS_R64
 #undef PPGS_R128
 #undef PPGS_F8
 #undef PPGS_F16
 #undef PPGS_F32
+#undef PPGS_F40
 #undef PPGS_F64
 #undef PPGS_F128
 

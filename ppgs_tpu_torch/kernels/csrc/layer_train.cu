@@ -15,6 +15,15 @@
 // Bounds on an H100 at the training shape (M = 131,072 rows): each kernel
 // moves 2-4 (M, 256) fp32 arrays (0.13 GB each) for at most 0.3 GFLOP, so
 // both are memory bound (~0.1-0.15 ms); the designs read each input once.
+// colsum's largest launch, dbqkv's (M, 768) fp32 (403 MB), is 0.120 ms at
+// 3.35 TB/s. So that the loads keep the memory busy, its first pass splits
+// the rows into enough ranges that the blocks fill one wave of 132 SMs x 8
+// blocks (ops/backward.py colsum_plan: 352 at that shape), each thread
+// reads 16 bytes a row and keeps four rows in flight; its second pass
+// spreads the splits' partial sums over blocks of 32 columns x 32 row
+// lanes, not one block per 256 columns.
+
+#include <type_traits>
 
 #include "common.cuh"
 #include "philox.cuh"
@@ -125,18 +134,112 @@ ln_dropout_bwd_kernel(const TG* __restrict__ g, const float* __restrict__ n,
 
 // ------------------------------------------------------------ colsum
 
-// out[j] = sum over rows r0 <= r < r1 of in[r, j], one thread per column,
-// rows taken in order.
-__global__ void __launch_bounds__(256)
+// out[col0 ..] = column sums of rows r0 <= r < r1 of in (R, N), r0 = y
+// chunk, r1 = min(R, r0 + chunk) (y = blockIdx.y: one split). A block
+// takes UNITS units of VEC columns (VEC 4: one 16-byte load a row) in
+// LANES row lanes of UNITS threads: lane l sums rows r0 + l, r0 + l +
+// LANES, ... into 4 accumulators in turn (four loads in flight), added as
+// (a0 + a1) + (a2 + a3); then the lanes' sums are added in lane order
+// (one lane: written as they are). The order is fixed, so the sums are the
+// same from run to run.
+template <int VEC, int UNITS, int LANES>
+__global__ void __launch_bounds__(UNITS * LANES)
 colsum_kernel(const float* __restrict__ in, long long R, long long N,
               long long chunk, float* __restrict__ out, int round_bf16) {
-  const long long j = (long long)blockIdx.x * 256 + threadIdx.x;
-  if (j >= N) return;
-  const long long r0 = (long long)blockIdx.y * chunk;
-  const long long r1 = min(R, r0 + chunk);
-  float s = 0.f;
-  for (long long r = r0; r < r1; ++r) s += in[r * N + j];
-  out[(long long)blockIdx.y * N + j] = round_bf16 ? ppgs::round_bf16(s) : s;
+  using V = typename std::conditional<VEC == 4, float4, float>::type;
+  constexpr int COLS = UNITS * VEC;
+  const int unit = threadIdx.x % UNITS, lane = threadIdx.x / UNITS;
+  const long long col0 = static_cast<long long>(blockIdx.x) * COLS;
+  const long long col = col0 + static_cast<long long>(unit) * VEC;
+  const long long r0 = static_cast<long long>(blockIdx.y) * chunk;
+  const long long rows = min(R, r0 + chunk) - r0;
+  float acc[4][VEC] = {};
+  if (col < N) {
+    const int n = rows > lane ? static_cast<int>((rows - lane + LANES - 1) /
+                                                 LANES)
+                              : 0;
+    const V* p = reinterpret_cast<const V*>(in + (r0 + lane) * N + col);
+    const long long step = LANES * N / VEC;   // in V elements
+    auto add = [&](float (&a)[VEC], const V& v) {
+      const float* f = reinterpret_cast<const float*>(&v);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) a[e] += f[e];
+    };
+    int i = 0;
+#pragma unroll 2
+    for (; i + 4 <= n; i += 4) {
+      const V v0 = p[0], v1 = p[step], v2 = p[2 * step], v3 = p[3 * step];
+      add(acc[0], v0);
+      add(acc[1], v1);
+      add(acc[2], v2);
+      add(acc[3], v3);
+      p += 4 * step;
+    }
+    // the last n % 4 rows, to accumulators 0, 1, 2 in turn
+    if (i < n) add(acc[0], p[0]);
+    if (i + 1 < n) add(acc[1], p[step]);
+    if (i + 2 < n) add(acc[2], p[2 * step]);
+  }
+  if constexpr (LANES == 1) {
+    if (col >= N) return;
+    float s[VEC];
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      s[e] = (acc[0][e] + acc[1][e]) + (acc[2][e] + acc[3][e]);
+      if (round_bf16) s[e] = ppgs::round_bf16(s[e]);
+    }
+    *reinterpret_cast<V*>(out + blockIdx.y * N + col) =
+        *reinterpret_cast<const V*>(s);
+  } else {
+    __shared__ float part[LANES][COLS];
+#pragma unroll
+    for (int e = 0; e < VEC; ++e)
+      part[lane][unit * VEC + e] = (acc[0][e] + acc[1][e]) +
+                                   (acc[2][e] + acc[3][e]);
+    __syncthreads();
+    for (int j = threadIdx.x; j < COLS; j += UNITS * LANES) {
+      if (col0 + j >= N) break;
+      float s = 0.f;
+#pragma unroll
+      for (int l = 0; l < LANES; ++l) s += part[l][j];
+      out[blockIdx.y * N + col0 + j] = round_bf16 ? ppgs::round_bf16(s) : s;
+    }
+  }
+}
+
+// One pass over `splits` ranges of `chunk` rows: 256 threads a block in 1,
+// 2 or 4 row lanes (each lane at least 8 rows) or, for the second pass
+// (wide false), 8 units in 32 row lanes
+template <int VEC, int UNITS, int LANES>
+cudaError_t colsum_launch(const float* in, long long R, long long N,
+                          long long chunk, int splits, float* out,
+                          int round_bf16, cudaStream_t s) {
+  const unsigned blocks = static_cast<unsigned>(
+      (N + UNITS * VEC - 1) / (UNITS * VEC));
+  colsum_kernel<VEC, UNITS, LANES><<<dim3(blocks, splits), UNITS * LANES, 0,
+                                     s>>>(in, R, N, chunk, out, round_bf16);
+  return cudaGetLastError();
+}
+
+// The first pass's row lanes: 4 from LANES4_ROWS rows a split, 2 from
+// LANES2_ROWS, else 1 (scripts/torch_mel_probe.py times other choices)
+constexpr long long LANES4_ROWS = 32, LANES2_ROWS = 16;
+
+template <int VEC>
+cudaError_t colsum_pass(const float* in, long long R, long long N,
+                        long long chunk, int splits, float* out,
+                        int round_bf16, bool wide, cudaStream_t s) {
+  if (!wide)
+    return colsum_launch<VEC, 8, 32>(in, R, N, chunk, splits, out,
+                                     round_bf16, s);
+  if (chunk >= LANES4_ROWS)
+    return colsum_launch<VEC, 64, 4>(in, R, N, chunk, splits, out,
+                                     round_bf16, s);
+  if (chunk >= LANES2_ROWS)
+    return colsum_launch<VEC, 128, 2>(in, R, N, chunk, splits, out,
+                                      round_bf16, s);
+  return colsum_launch<VEC, 256, 1>(in, R, N, chunk, splits, out,
+                                    round_bf16, s);
 }
 
 }  // namespace
@@ -171,29 +274,35 @@ extern "C" int ppgs_ln_dropout_bwd(
 }
 
 // out (N) = column sums of in (R, N) fp32, rounded to bf16 (and kept in
-// fp32) when round_bf16. splits > 1 first sums `splits` row ranges of
-// ceil(R / splits) rows into scratch (splits, N), then those in order.
+// fp32) when round_bf16. splits and chunk: the caller's plan
+// (ops/backward.py colsum_plan), `splits` row ranges of `chunk` rows, none
+// empty (but the one of R = 0), the last ending at R; splits > 1 first
+// sums each range into scratch (splits, N), then those in split order.
+// 16-byte loads where N % 4 == 0 and every pointer is 16-byte aligned.
 extern "C" int ppgs_colsum(const void* in, long long R, long long N,
-                           int splits, void* scratch, void* out,
-                           int round_bf16, void* stream) {
-  if (N > 0) {
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const unsigned col_blocks = static_cast<unsigned>((N + 255) / 256);
-    if (splits > 1) {
-      const long long chunk = (R + splits - 1) / splits;
-      colsum_kernel<<<dim3(col_blocks, splits), 256, 0, s>>>(
-          static_cast<const float*>(in), R, N, chunk,
-          static_cast<float*>(scratch), 0);
-      cudaError_t err = cudaGetLastError();
-      if (err != cudaSuccess) return static_cast<int>(err);
-      colsum_kernel<<<dim3(col_blocks, 1), 256, 0, s>>>(
-          static_cast<const float*>(scratch), splits, N, splits,
-          static_cast<float*>(out), round_bf16);
-    } else {
-      colsum_kernel<<<dim3(col_blocks, 1), 256, 0, s>>>(
-          static_cast<const float*>(in), R, N, R > 0 ? R : 1,
-          static_cast<float*>(out), round_bf16);
-    }
-  }
-  return static_cast<int>(cudaGetLastError());
+                           int splits, long long chunk, void* scratch,
+                           void* out, int round_bf16, void* stream) {
+  if (R < 0 || N < 0 || splits < 1 || chunk < 1 ||
+      (R > 0 && (splits - 1) * chunk >= R) || splits * chunk < R ||
+      (splits > 1 && !scratch))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (N == 0) return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* x = static_cast<const float*>(in);
+  float* part = static_cast<float*>(splits > 1 ? scratch : out);
+  const bool vec =
+      N % 4 == 0 &&
+      ((reinterpret_cast<uintptr_t>(in) | reinterpret_cast<uintptr_t>(out) |
+        reinterpret_cast<uintptr_t>(scratch)) & 15) == 0;
+  const int first_round = splits > 1 ? 0 : round_bf16;
+  cudaError_t err =
+      vec ? colsum_pass<4>(x, R, N, chunk, splits, part, first_round, true, s)
+          : colsum_pass<1>(x, R, N, chunk, splits, part, first_round, true, s);
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  float* y = static_cast<float*>(out);
+  err = vec ? colsum_pass<4>(part, splits, N, splits, 1, y, round_bf16,
+                             false, s)
+            : colsum_pass<1>(part, splits, N, splits, 1, y, round_bf16,
+                             false, s);
+  return static_cast<int>(err);
 }

@@ -188,8 +188,33 @@ def weight_grad(a, b, cd, gemm_fn=None, colsum_fn=None):
 ###############################################################################
 
 
+# colsum's first pass: 256 columns a block where it splits the rows (64
+# threads of 4 columns in 4 row lanes), 8 blocks an SM, a split at least 64
+# rows (16 a lane)
+COLSUM_COLUMNS, COLSUM_MIN_ROWS, COLSUM_WAVE = 256, 64, SMS * 8
+
+
+def colsum_plan(R, N):
+    """(splits, chunk) of ``colsum`` over an (R, N) tensor: ``splits``
+    ranges of ``chunk`` rows, range s rows [s chunk, min(R, (s + 1)
+    chunk)), each non-empty, in order, together every row once. Enough
+    splits that splits x column blocks fills one wave of the card (132
+    SMs x 8 blocks), each at least COLSUM_MIN_ROWS rows; one (a single
+    pass) when R is short."""
+    col_blocks = -(-N // COLSUM_COLUMNS)
+    splits = max(1, min(-(-COLSUM_WAVE // max(col_blocks, 1)),
+                        R // COLSUM_MIN_ROWS))
+    chunk = max(1, -(-R // splits))
+    return -(-R // chunk) or 1, chunk
+
+
 def colsum_reference(t, round_to=None):
-    """Plain version of ``colsum``."""
+    """Plain version of ``colsum``: ``t.sum(0)``. The kernel adds the same
+    terms in another fixed order (each split of ``colsum_plan`` as 1, 2 or
+    4 interleaved row lanes by its rows, each lane's rows into 4
+    accumulators in turn, those added as (a0 + a1) + (a2 + a3), the lanes
+    in order; then the splits' sums in 32 lanes the same way), so the two
+    agree to fp32 rounding."""
     out = t.float().sum(dim=0)
     return out.to(round_to).float() if round_to is not None else out
 
@@ -205,11 +230,11 @@ def colsum(t, round_to=None):
     if round_to not in (None, torch.bfloat16):
         raise ValueError(f'colsum rounds to bf16 only; got {round_to}')
     R, N = t.shape
-    splits = max(1, min(512, R // 256))
+    out = torch.empty(N, dtype=torch.float32, device=dev)
+    splits, chunk = colsum_plan(R, N)
     scratch = (torch.empty((splits, N), dtype=torch.float32, device=dev)
                if splits > 1 else None)
-    out = torch.empty(N, dtype=torch.float32, device=dev)
-    kernels.launch('ppgs_colsum', t.data_ptr(), R, N, splits,
+    kernels.launch('ppgs_colsum', t.data_ptr(), R, N, splits, chunk,
                    kernels.ptr(scratch), out.data_ptr(),
                    int(round_to is not None), device=dev)
     colsum.launches += 1

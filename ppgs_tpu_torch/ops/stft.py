@@ -215,22 +215,54 @@ def fused_log_mel_reference(blocks, T, sample_rate, num_fft, window_size,
     return torch.log(torch.clamp(mel, min=1e-5)).transpose(1, 2)
 
 
+def interleave_bases(basis_re, basis_im):
+    """The (K, 576) cos and -sin bases (frequencies zero-padded to 576)
+    as one (K, 1152) array, interleaved by 8 columns: columns 16j .. 16j +
+    7 hold the cos terms of frequencies 8j .. 8j + 7, columns 16j + 8 ..
+    16j + 15 their -sin terms. So an accumulator of the kernel holds re and
+    im of the same frequencies."""
+    rows = basis_re.shape[0]
+    pair = np.zeros((rows, _F_PAD // 8, 2, 8), np.float32)
+    for half, basis in enumerate((basis_re, basis_im)):
+        padded = np.zeros((rows, _F_PAD), np.float32)
+        padded[:, :basis.shape[1]] = basis
+        pair[:, :, half] = padded.reshape(rows, _F_PAD // 8, 8)
+    return pair.reshape(rows, 2 * _F_PAD)
+
+
 @functools.lru_cache(maxsize=8)
 def _fused_mel_weights(sample_rate, num_fft, window_size, hopsize, device):
-    """The kernel's bf16 operands on ``device``: the cos and -sin bases as
-    (1024, 576) (window samples past n_fft dropped: their rows are zero;
-    frequencies zero-padded) and the mel basis as (576, 80)."""
+    """The kernel's bf16 operands on ``device``: the cos and -sin bases
+    interleaved by ``interleave_bases`` as (1024, 1152) (window samples past
+    n_fft dropped: their rows are zero) and the mel basis as (80, 576),
+    zero past the 513 frequencies."""
     basis_re, basis_im, mel_t = mel_kernel_host(
         sample_rate, num_fft, window_size, hopsize, FUSED_MEL_MELS)
+    mel = np.zeros((FUSED_MEL_MELS, _F_PAD), np.float32)
+    mel[:, :mel_t.shape[0]] = mel_t.T
+    return tuple(torch.from_numpy(a).to(device, torch.bfloat16) for a in (
+        interleave_bases(basis_re[:num_fft], basis_im[:num_fft]), mel))
 
-    def padded(a, rows, cols):
-        out = np.zeros((rows, cols), np.float32)
-        out[:a.shape[0], :a.shape[1]] = a
-        return torch.from_numpy(out).to(device, torch.bfloat16)
 
-    return (padded(basis_re[:num_fft], num_fft, _F_PAD),
-            padded(basis_im[:num_fft], num_fft, _F_PAD),
-            padded(mel_t, _F_PAD, FUSED_MEL_MELS))
+# The kernel's shared memory at 128 frames: 1024 bytes of alignment, a
+# 4-stage ring of 16 KB basis stages, two 10 KB mel slots, 128 bytes of
+# barriers and 40 fp32 mel sums a thread (256), then the stretch; at most
+# 232,448 bytes a block
+_SMEM_MAX = 232448
+_SMEM_FIXED = 1024 + 4 * 16384 + 2 * 10240 + 128 + 40 * 256 * 4
+
+
+def fused_mel_plan(hopsize, num_fft=FUSED_MEL_FFT):
+    """(frames a block, the stretch's row pitch in samples) of the B9
+    kernel at ``hopsize``. A block's 128 windows (64 when they do not fit
+    beside the rings, hop >= 396) are one stretch of the blocked stream, its
+    rows of hop samples padded to a pitch of 8 mod 16 (hop 160: 168) so that
+    8 frames a row apart lie in 8 bank groups. The C entry point refuses any
+    other plan."""
+    pitch = hopsize + (24 - hopsize % 16) % 16
+    taps = -(-num_fft // hopsize)
+    fits = _SMEM_FIXED + (128 + taps - 1) * pitch * 2 <= _SMEM_MAX
+    return (128 if fits else 64), pitch
 
 
 def fused_log_mel(blocks, T, sample_rate, num_fft, window_size, hopsize,
@@ -254,13 +286,14 @@ def fused_log_mel(blocks, T, sample_rate, num_fft, window_size, hopsize,
                     (B, T + taps - 1, hopsize))
     if blocks.data_ptr() % 16:
         raise ValueError('blocks: the kernel reads 16-byte aligned rows')
-    basis_re, basis_im, mel_t = _fused_mel_weights(
-        sample_rate, num_fft, window_size, hopsize, dev)
+    basis, mel = _fused_mel_weights(sample_rate, num_fft, window_size,
+                                    hopsize, dev)
+    frames, pitch = fused_mel_plan(hopsize)
     out = torch.empty((B, num_mels, T), dtype=torch.float32, device=dev)
     kernels.launch('ppgs_fused_mel', blocks.data_ptr(),
-                   (T + taps - 1) * hopsize, hopsize, T, B,
-                   basis_re.data_ptr(), basis_im.data_ptr(), mel_t.data_ptr(),
-                   out.data_ptr(), device=dev)
+                   (T + taps - 1) * hopsize, hopsize, T, B, frames, pitch,
+                   basis.data_ptr(), mel.data_ptr(), out.data_ptr(),
+                   device=dev)
     fused_log_mel.launches += 1
     return out
 

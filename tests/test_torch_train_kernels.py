@@ -546,3 +546,53 @@ def test_gemm_shapes_refuse_unaligned_addresses():
     assert backward.gemm_shapes(*args, addresses=(0, 16)) == (256, 256, 64)
     with pytest.raises(ValueError, match='aligned'):
         backward.gemm_shapes(*args, addresses=(0, 8))
+
+
+###############################################################################
+# colsum's split plan and its plain version
+###############################################################################
+
+STEP = 256 * 512
+# colsum's shapes in a 256 x 512 step (dbqkv, the ln_dropout_bwd and db1
+# partials, the weight gradients' split partials) and the plan's edges
+COLSUM_SHAPES = [(1, 768), (255, 768), (256, 768), (STEP, 3 * C),
+                 (STEP // 64, 3 * C), (STEP // 64, F)] + [
+    (backward.split_count(M, N, STEP), M * N)
+    for M, N in WEIGHT_FORMS.values()]
+
+
+@pytest.mark.parametrize('R,N', COLSUM_SHAPES)
+def test_colsum_plan_covers_every_row_once(R, N):
+    """colsum's split ranges take every row once, in order, none empty;
+    several only where each has COLSUM_MIN_ROWS rows or more, and together
+    with the column blocks they fill at most one wave (132 SMs x 8)."""
+    splits, chunk = backward.colsum_plan(R, N)
+    ranges = [range(s * chunk, min(R, (s + 1) * chunk))
+              for s in range(splits)]
+    assert all(len(r) for r in ranges)
+    assert [row for r in ranges for row in r] == list(range(R))
+    col_blocks = -(-N // 256)
+    if splits > 1:
+        assert chunk >= backward.COLSUM_MIN_ROWS
+        assert (splits - 1) * col_blocks < 132 * 8
+    if (R, N) == (STEP, 3 * C):          # dbqkv: one full wave
+        assert (splits, chunk) == (352, 373) and splits * col_blocks == 1056
+
+
+def test_colsum_plan_of_no_rows():
+    assert backward.colsum_plan(0, 768) == (1, 1)
+
+
+@pytest.mark.parametrize('R,N', [(1, 5), (255, 768), (2048, 8), (8, 4096)])
+def test_colsum_reference_is_the_column_sum(R, N):
+    """The plain version is t.sum(0), and with round_to its bf16 rounding
+    kept in fp32."""
+    gen = torch.Generator().manual_seed(R + N)
+    t = torch.randn(R, N, generator=gen)
+    assert torch.equal(backward.colsum_reference(t), t.sum(0))
+    np.testing.assert_allclose(backward.colsum_reference(t).numpy(),
+                               t.double().sum(0).numpy(), rtol=1e-5,
+                               atol=1e-4)
+    rounded = backward.colsum_reference(t, torch.bfloat16)
+    assert rounded.dtype == torch.float32
+    assert torch.equal(rounded, t.sum(0).to(torch.bfloat16).float())
