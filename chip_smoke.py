@@ -119,22 +119,27 @@ any failure exits non-zero before the result line:
    torch.profiler breakdown; K4's device time per call by kernel at each
    width (phases 5, 8 and 11), and K3's, K2's and K1's at each width
    (phases 5, 8 and 11);
-12. the bottleneck slice's rel-pos attention kernel (B8) against its plain
+12. the bottleneck slice's rel-pos attention kernel (B8, which forms the
+   shifted position term from q_v and pos itself) against its plain
    version, with seeded full-size random weights (the 16-block conformer,
    d = 144, 4 heads of 36, FFN 576; the C = 256 head): 64 x T = 800 from
-   block 0's projections with ragged rows and a wholly masked one, T =
-   2048 and T = 803; and the 16 blocks whole on the card against
+   block 0's projections with ragged rows and a wholly masked one; random
+   operands at T = 1, 63, 64, 65, 129 (the band's edges and diagonal
+   tiles), 803 and 2048, k and v views of one fused buffer, one draw
+   peaked (q x 4); and the 16 blocks whole on the card against
    ``device='cpu'`` on 2 rows;
 13. the bottleneck main path, ``from_audio(representation='bottleneck')``
    on 64 x 8 s, the conformer's weights read from a temporary npz that
    ``BOTTLENECK_CHECKPOINT`` points at: shape, softmax columns, exactly 16
-   B8 launches and 5 of each of K1-K4 at C = 256, 4 utterances of 2 s
-   against ``device='cpu'``; then a 25 s utterance (T = 2500 > 2048): no B8
-   launch, a finite output;
-14. B8's time, its plain version's, SDPA's with the shifted bias as a float
-   mask, and its bound; the conformer whole with B8 and with its plain
-   version, beside its bound and a profile of its library calls; the
-   slice's audio-seconds per second and a torch.profiler breakdown.
+   B8 launches, no ``position_term`` call, and 5 of each of K1-K4 at C =
+   256, 4 utterances of 2 s against ``device='cpu'``; then a 25 s
+   utterance (T = 2500 > 2048): no B8 launch, a finite output;
+14. B8's time (CUDA events and device time), its plain version's, the
+   library route's (the position term by cuBLAS, the shifted slice times
+   the scale, SDPA with it as a bf16 mask, timed whole) and its bound; the
+   conformer whole with B8 and with its plain version, beside its bound and
+   a profile of its library calls; the slice's audio-seconds per second,
+   its peak memory and a torch.profiler breakdown.
 
 ``--slices`` (default ``mel,train,w2v2fb,bottleneck``) runs a subset:
 phases 3-5, 6-8, 9-11 and 12-14 respectively. Each phase prints its
@@ -192,11 +197,16 @@ HEAVY_REPS = 3                   # plain versions of the whole chains
 
 # The bottleneck slice: the JAX bench's fourth line (64 x 8 s,
 # bench.py:407-459), 4 utterances of 2 s against the CPU, one 25 s
-# utterance past B8's 2048 frames, and B8 at a T that is no multiple of 8
+# utterance past B8's 2048 frames, and B8 at the T about its band's edges
+# and diagonal tiles (1-129), a T that is no multiple of 8 and its longest
 BN_BATCH, BN_SECONDS = 64, 8
 BN_CPU_ROWS, BN_CPU_SECONDS = 4, 2
 BN_LONG_SECONDS = 25
-BN_ODD_T = 803
+BN_ODD_T = (1, 63, 64, 65, 129, 803, 2048)
+# and at the other head widths its entry takes, (heads, d_k): its k16
+# steps 1, 2, 4 and 4, the odd heads of the first three at column 4 of
+# their boxes, on BN_WIDTH_T frames
+BN_WIDTHS, BN_WIDTH_T = ((4, 12), (4, 28), (4, 60), (2, 64)), 203
 # B8 against its plain version: a bf16 rounding flip of p / denom moves an
 # output by about an ulp of p times |v|, and a flip of the output's own
 # rounding by one bf16 ulp of the output (2^-8 relative); the card's 16
@@ -3411,9 +3421,10 @@ def bottleneck_setup(port, workdir, dev):
 
 @torch.no_grad()
 def bottleneck_kernel_checks(port, model, ccfg, dev, gen):
-    """Phase 12: B8 against its plain version at the slice's shapes, and
-    the 16 blocks whole against the CPU; returns (max error, B8's inputs
-    at the main path's shape for phase 14)."""
+    """Phase 12: B8 against its plain version at the slice's shapes and
+    about its band's edges, and the 16 blocks whole against the CPU;
+    returns (max error, B8's inputs at the main path's shape for phase
+    14)."""
     from ppgs_tpu_torch.ops import flash_attention as fa
 
     conformer = port.models.conformer
@@ -3422,39 +3433,59 @@ def bottleneck_kernel_checks(port, model, ccfg, dev, gen):
     B, H, C = BN_BATCH, ccfg.heads, ccfg.dim
     T = BN_SECONDS * 100                               # 800 frames
     dk = C // H
-    # Block 0's projections of a LayerNormed random input
+    # Block 0's projections of a LayerNormed random input, q_v and pos in
+    # the layouts B8 reads (the memory behind attention_inputs' views)
     block = model.blocks[0]
     x = conformer._layer_norm(
         torch.randn(B, T, C, generator=gen, device=dev), block.norm_mha)
     pos_emb = torch.from_numpy(conformer.rel_pos_table(T, C))[None].to(dev)
     q_u, k, v, q_v, pos = conformer.attention_inputs(
         x, pos_emb, block.prepared.attn, H, bf16)
-    bias = conformer.position_term(q_v, pos)
+    q_v, pos = q_v.transpose(1, 2), pos[0].transpose(0, 1)
     # Ragged lengths, one wholly masked row
     lengths = T - torch.randint(0, T // 2, (B,), generator=gen, device=dev)
     lengths[0], lengths[-1] = T, 0
     mask = mask_from_lengths(lengths, T)
-    got = fa.fused_attention_bias(q_u, k, v, bias, mask, H)
+    got = fa.rel_attention(q_u, k, v, q_v, pos, mask, H)
     err = check(f'B8 rel_attention ({B} x T={T} x {H} x {dk}, block 0\'s '
                 f'projections, ragged)', got,
-                fa.fused_attention_bias_reference(q_u, k, v, bias, mask, H),
+                fa.rel_attention_reference(q_u, k, v, q_v, pos, mask, H),
                 B8_ATOL, B8_RTOL)
     if got[-1].abs().max().item() != 0:
         raise AssertionError('B8: a wholly masked row did not give 0')
-    inputs = dict(q_u=q_u, k=k, v=v, bias=bias,
+    inputs = dict(q_u=q_u, k=k, v=v, q_v=q_v, pos=pos,
                   mask=torch.ones(B, T, dtype=torch.bool, device=dev))
     del got, x
-    # The longest T the rule sends to B8, and a T no multiple of 8
-    for Tx in (conformer.MAX_FUSED_T, BN_ODD_T):
-        q1, k1, v1 = (torch.randn(4, Tx, H, dk, generator=gen, device=dev)
-                      .to(bf16) for _ in range(3))
-        b1 = (2 * torch.randn(4, H, Tx + 1, Tx, generator=gen, device=dev)
-              ).to(bf16)
-        m1 = mask_from_lengths(torch.tensor([Tx, Tx - 5, 37, 0], device=dev),
-                               Tx)
-        out = fa.fused_attention_bias(q1, k1, v1, b1, m1, H)
-        check(f'B8 rel_attention T={Tx} (4 rows, ragged)', out,
-              fa.fused_attention_bias_reference(q1, k1, v1, b1, m1, H),
+    # Random operands, k and v views of one fused buffer as in the slice:
+    # T about the band's edges and the diagonal tiles, a T no multiple of
+    # 8, the longest T the rule sends to B8, one draw peaked as the slice's
+    # weights make it (q x 4), one with two whole key tiles masked inside a
+    # row (the tile after them forms its band's half A anew), and the other
+    # head widths
+    cases = ([(Tx, 1, H, dk, False) for Tx in BN_ODD_T]
+             + [(BN_ODD_T[-1], 4, H, dk, False),
+                (BN_ODD_T[-2], 1, H, dk, True)]
+             + [(BN_WIDTH_T, 1, Hx, d, False) for Hx, d in BN_WIDTHS])
+    for Tx, peak, Hx, d, hole in cases:
+        Cx = Hx * d
+        qkv = torch.randn(4, Tx, 3 * Cx, generator=gen, device=dev)
+        qkv[..., :Cx] *= peak
+        qkv = qkv.to(bf16)
+        q1 = qkv[..., :Cx].contiguous().view(4, Tx, Hx, d)
+        k1, v1 = (qkv[..., i * Cx:(i + 1) * Cx].unflatten(-1, (Hx, d))
+                  for i in (1, 2))
+        qv1 = (peak * torch.randn(4, Tx, Hx, d, generator=gen, device=dev)
+               ).to(bf16)
+        pos1 = torch.randn(Tx, Hx, d, generator=gen, device=dev).to(bf16)
+        lens = torch.tensor([Tx, max(Tx - 5, 1), min(37, Tx), 0], device=dev)
+        m1 = mask_from_lengths(lens, Tx)
+        if hole:
+            m1[1, 64:192] = False
+        out = fa.rel_attention(q1, k1, v1, qv1, pos1, m1, Hx)
+        check(f'B8 rel_attention T={Tx} ({Hx} heads of {d}, 4 rows, '
+              f'ragged, random{", peaked" if peak > 1 else ""}'
+              f'{", keys 64-191 of row 1 masked" if hole else ""})', out,
+              fa.rel_attention_reference(q1, k1, v1, qv1, pos1, m1, Hx),
               B8_ATOL, B8_RTOL)
         if out[3].abs().max().item() != 0:
             raise AssertionError('B8: a wholly masked row did not give 0')
@@ -3481,7 +3512,7 @@ def bottleneck_main_path(port, ccfg, head_config, head_path, dev, gen, card):
     from ppgs_tpu_torch.ops import fused_ffn
     from ppgs_tpu_torch.ops import stft
 
-    counters = {'rel_attention': fa.fused_attention_bias,
+    counters = {'rel_attention': fa.rel_attention,
                 'qkv_proj': elk.qkv_proj, 'attention': fa.attention,
                 'out_proj_residual_ln': elk.out_proj_residual_ln,
                 'ffn_residual_ln': fused_ffn.ffn_residual_ln,
@@ -3492,10 +3523,15 @@ def bottleneck_main_path(port, ccfg, head_config, head_path, dev, gen, card):
     call = dict(representation='bottleneck', checkpoint=head_path,
                 config=head_config)
     set_counts(counters)
+    fa.position_term.calls = 0
     ppg = port.from_audio(audio, **call)
     launches, widths = read_counts(counters)
     print(f'launches in one bottleneck from_audio call: {launches}, by '
-          f'width: {widths}', flush=True)
+          f'width: {widths}; position_term calls: '
+          f'{fa.position_term.calls}', flush=True)
+    if fa.position_term.calls:
+        raise AssertionError('the card\'s path formed the (B, H, T + 1, T) '
+                             'position term')
     L, Ch = head_config.num_hidden_layers, head_config.hidden_channels
     d_h = Ch // head_config.attention_heads
     want = {'rel_attention': ccfg.num_blocks, 'qkv_proj': L, 'attention': L,
@@ -3549,9 +3585,8 @@ def check_ppg(name, ppg, audio, shape):
 
 
 def conformer_work(ccfg, B, T):
-    """(operations, bytes of the 16 bd round trips) of the conformer on
-    B x T frames: the products and convs, and the (B, H, T + 1, T) bf16
-    position term each block writes and B8 reads."""
+    """Operations of the conformer on B x T frames: the products and convs,
+    the position term's products among them (which B8 forms inside)."""
     d, f, H = ccfg.dim, ccfg.ffn_dim, ccfg.heads
     M, Fm = B * T, ccfg.input_dim
     embed = (2 * M * Fm * d * 25 + 2 * M * Fm * d * d * 25
@@ -3562,40 +3597,47 @@ def conformer_work(ccfg, B, T):
                  + 4 * B * H * T * T * (d // H)     # QK^T and PV
                  + 2 * M * d * 2 * d + 2 * M * d * ccfg.conv_kernel
                  + 2 * M * d * d)                   # the conv module
-    bd_bytes = 2 * B * H * (T + 1) * T * 2
-    return embed + ccfg.num_blocks * per_block, ccfg.num_blocks * bd_bytes
+    return embed + ccfg.num_blocks * per_block
 
 
 @torch.no_grad()
 def bottleneck_times(port, model, ccfg, head_config, head_path, inputs, err,
                      launches, audio, card):
-    """Phase 14: B8's time beside its plain version's, a library call's and
-    its bound; the conformer whole; the slice end to end."""
+    """Phase 14: B8's time beside its plain version's, the library route's
+    and its bound; the conformer whole; the slice end to end and its peak
+    memory."""
     from ppgs_tpu_torch.ops import flash_attention as fa
 
     conformer = port.models.conformer
-    q_u, k, v, bias, mask = (inputs[n] for n in ('q_u', 'k', 'v', 'bias',
-                                                 'mask'))
+    q_u, k, v, q_v, pos, mask = (inputs[n] for n in ('q_u', 'k', 'v', 'q_v',
+                                                     'pos', 'mask'))
     B, T, H, dk = q_u.shape
     scale = 1.0 / math.sqrt(dk)
-    q4, k4, v4 = (t.transpose(1, 2) for t in (q_u, k, v))
-    # SDPA's float mask: the shifted position term times the scale (every
-    # key of the main path's rows is valid)
-    shifted = (bias[:, :, 1:].float() * scale).to(torch.bfloat16)
+    q4, k4, v4, qv4 = (t.transpose(1, 2) for t in (q_u, k, v, q_v))
+    pos_z = F.pad(pos.transpose(0, 1)[None], (0, 0, 1, 0))
+
+    def library_route():
+        # The position term by cuBLAS, its shifted slice times the scale as
+        # SDPA's bf16 mask (every key of the main path's rows is valid)
+        bd = (qv4 @ pos_z.transpose(-1, -2)).view(B, H, T + 1, T)
+        shifted = (bd[:, :, 1:].float() * scale).to(torch.bfloat16)
+        return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=shifted,
+                                              scale=scale)
+
     record = timed_record(
         'rel_attention', 'rel_attention.cu',
-        'ppgs_tpu/ops/flash_attention.py:283', launches['rel_attention'], err,
-        (lambda: fa.fused_attention_bias(q_u, k, v, bias, mask, H),
-         lambda: fa.fused_attention_bias_reference(q_u, k, v, bias, mask, H),
-         lambda: F.scaled_dot_product_attention(q4, k4, v4,
-                                                attn_mask=shifted,
-                                                scale=scale)),
-        # QK^T and PV over the d_k = 36 columns; the shifted bias rows,
-        # q, k, v, the mask and the output
-        (4 * B * H * T * T * dk,
-         B * H * T * T * 2 + 4 * B * T * H * dk * 2 + B * T), card,
+        'ppgs_tpu/ops/flash_attention.py:341', launches['rel_attention'], err,
+        (lambda: fa.rel_attention(q_u, k, v, q_v, pos, mask, H),
+         lambda: fa.rel_attention_reference(q_u, k, v, q_v, pos, mask, H),
+         library_route),
+        # QK^T, the position term and PV over the d_k = 36 columns; q_u,
+        # k, v, q_v, the output, pos and the mask
+        (6 * B * H * T * T * dk,
+         5 * B * T * H * dk * 2 + T * H * dk * 2 + B * T), card,
         plain_reps=HEAVY_REPS)
-    del shifted
+    device_times('B8 rel_attention', record,
+                 lambda: fa.rel_attention(q_u, k, v, q_v, pos, mask, H),
+                 'the library route', card)
 
     # The conformer whole at 64 x 800 frames, with B8 and with its plain
     # version in its place
@@ -3603,20 +3645,18 @@ def bottleneck_times(port, model, ccfg, head_config, head_path, inputs, err,
     flens = torch.full((B,), T, device=q_u.device)
     whole_ms = time_ms(lambda: conformer.forward(model, feats, flens),
                        HEAVY_REPS, 1)
-    kernel = fa.fused_attention_bias
-    fa.fused_attention_bias = fa.fused_attention_bias_reference
+    kernel = fa.rel_attention
+    fa.rel_attention = fa.rel_attention_reference
     try:
         plain_ms = time_ms(lambda: conformer.forward(model, feats, flens),
                            HEAVY_REPS, 1)
     finally:
-        fa.fused_attention_bias = kernel
-    flops, bd_bytes = conformer_work(ccfg, B, T)
-    ops_ms, bd_ms = flops / PEAK_BF16_FLOPS * 1e3, bd_bytes / PEAK_BYTES * 1e3
+        fa.rel_attention = kernel
+    flops = conformer_work(ccfg, B, T)
     print(f'the {ccfg.num_blocks}-block conformer ({B} x {T}): {whole_ms:.4f} '
           f'ms with B8, {plain_ms:.4f} ms with its plain version; bound '
-          f'{ops_ms:.4f} ms of operations ({flops / 1e12:.3f} TFLOP) + '
-          f'{bd_ms:.4f} ms for the {ccfg.num_blocks} bd round trips '
-          f'({bd_bytes / 1e9:.3f} GB) [{card}]', flush=True)
+          f'{flops / PEAK_BF16_FLOPS * 1e3:.4f} ms of operations '
+          f'({flops / 1e12:.3f} TFLOP) [{card}]', flush=True)
     # Its library yardstick: no one PyTorch call computes a conformer, so
     # the device time of its library calls (cuDNN convs, cuBLAS products)
     # and of the rest, by kernel, in one profiled forward
@@ -3631,6 +3671,16 @@ def bottleneck_times(port, model, ccfg, head_config, head_path, inputs, err,
     print(f'bottleneck from_audio {BN_BATCH} x {BN_SECONDS} s: '
           f'{e2e_s * 1e3:.3f} ms, {BN_BATCH * BN_SECONDS / e2e_s:.1f} '
           f'audio-s/s (median of 5) [{card}]', flush=True)
+    # The call's own peak: what it allocates above what the run holds
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    port.from_audio(audio, **call)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
+    print(f'bottleneck from_audio {BN_BATCH} x {BN_SECONDS} s: peak device '
+          f'memory of the call {peak / 2 ** 30:.4f} GiB above the '
+          f'{held / 2 ** 30:.4f} GiB held [{card}]', flush=True)
     report_groups('bottleneck from_audio', profile_call(
         'bottleneck from_audio', lambda: port.from_audio(audio, **call),
         card), card)
@@ -3640,8 +3690,9 @@ def bottleneck_times(port, model, ccfg, head_config, head_path, inputs, err,
 def bottleneck_phases(port, workdir, dev, gen, card):
     """Phases 12-14: the bottleneck slice; returns B8's JSON record."""
     phase(f'12 B8 against its plain version ({BN_BATCH} x '
-          f'{BN_SECONDS * 100}, T = {port.models.conformer.MAX_FUSED_T}, '
-          f'T = {BN_ODD_T}) and the conformer whole against the CPU')
+          f'{BN_SECONDS * 100}, T = {", ".join(map(str, BN_ODD_T))}; '
+          f'd_k = {", ".join(str(d) for _, d in BN_WIDTHS)}) and the '
+          f'conformer whole against the CPU')
     model, ccfg, head_config, head_path = bottleneck_setup(port, workdir, dev)
     err, inputs = bottleneck_kernel_checks(port, model, ccfg, dev, gen)
     phase(f'13 from_audio(representation=bottleneck): {BN_BATCH} x '

@@ -84,10 +84,11 @@ SIGNATURES = {
     'ppgs_ffn_ln': ('ffn_ln.cu', (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _P, _P, _P, _I, _I, _I, _I, _I, _U, _U,
                                   _U, _U, _U, _F, _P)),
-    # q, q_rs, k, v, kv_rs, bias, mask, out, out_rs, B, T, H, d, sm_scale,
-    # stream
+    # q_u, q_rs, k, v, kv_rs, q_v, qv_rs, pos, pos_rs, mask, out, out_rs,
+    # B, T, H, d, scale_log2, stream
     'ppgs_rel_attention': ('rel_attention.cu', (
-        _P, _L, _P, _P, _L, _P, _P, _P, _L, _I, _I, _I, _I, _F, _P)),
+        _P, _L, _P, _P, _L, _P, _L, _P, _L, _P, _P, _L, _I, _I, _I, _I, _F,
+        _P)),
     # blocks, batch_stride, hop, T, B, frames, pitch, basis, mel, out,
     # stream
     'ppgs_fused_mel': ('fused_mel.cu', (_P, _L, _I, _I, _I, _I, _I, _P, _P,

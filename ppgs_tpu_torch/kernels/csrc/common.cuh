@@ -5,7 +5,6 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace ppgs {
@@ -13,7 +12,6 @@ namespace ppgs {
 using bf16 = __nv_bfloat16;
 
 constexpr float LN_EPS = 1e-5f;
-constexpr float NEG_INF = -1e30f;   // the JAX kernels' mask fill
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll

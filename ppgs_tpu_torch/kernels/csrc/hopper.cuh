@@ -218,6 +218,9 @@ __device__ __forceinline__ void bar_arrive(int id, int count) {
 
 #define PPGS_R16                                                            \
   "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+#define PPGS_R24                                                            \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
+  "%16, %17, %18, %19, %20, %21, %22, %23"
 #define PPGS_R32                                                            \
   "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "       \
   "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "       \
@@ -239,6 +242,7 @@ __device__ __forceinline__ void bar_arrive(int id, int count) {
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),               \
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 #define PPGS_F16 PPGS_F8(0), PPGS_F8(8)
+#define PPGS_F24 PPGS_F8(0), PPGS_F8(8), PPGS_F8(16)
 #define PPGS_F32 PPGS_F8(0), PPGS_F8(8), PPGS_F8(16), PPGS_F8(24)
 #define PPGS_F40 PPGS_F32, PPGS_F8(32)
 #define PPGS_F64                                                            \
@@ -249,31 +253,34 @@ __device__ __forceinline__ void bar_arrive(int id, int count) {
 
 // d (64 x BN fp32, BN / 2 a thread; BN 32, 64, 128 or 256) += A (64 x 16,
 // shared memory) B (16 x BN, shared memory); TA / TB: that operand is
-// MN-major (wgmma's transpose immediates), else K-major
+// MN-major (wgmma's transpose immediates), else K-major; accumulate false:
+// d = A B, its old value ignored
 template <int BN, int TA, int TB>
 __device__ __forceinline__ void wgmma_ss(float (&d)[BN / 2], uint64_t da,
-                                         uint64_t db) {
+                                         uint64_t db,
+                                         bool accumulate = true) {
+  const int scale_d = accumulate ? 1 : 0;
   if constexpr (BN == 256) {
     asm volatile(
         "{\n .reg .pred p;\n setp.ne.b32 p, %130, 0;\n"
         " wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
         "{" PPGS_R128 "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
         : PPGS_F128
-        : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
   } else if constexpr (BN == 128) {
     asm volatile(
         "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
         " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
         "{" PPGS_R64 "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
         : PPGS_F64
-        : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
   } else if constexpr (BN == 64) {
     asm volatile(
         "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
         " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
         "{" PPGS_R32 "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
         : PPGS_F32
-        : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
   } else {
     static_assert(BN == 32, "wgmma_ss takes BN 32, 64, 128 or 256");
     asm volatile(
@@ -281,14 +288,14 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[BN / 2], uint64_t da,
         " wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
         "{" PPGS_R16 "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
         : PPGS_F16
-        : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
   }
 }
 
 // The same with A's m64k16 fragment in registers; TB: B is MN-major (as
 // stored row-major (K, N)), else K-major; accumulate false: d = A B, its
 // old value ignored. BN 80 is for the mel product of fused_mel.cu (80 mel
-// bands)
+// bands), BN 48 for rel_attention.cu's PV (a head of 36 at column 0 or 4)
 template <int BN, int TB = 1>
 __device__ __forceinline__ void wgmma_rs(float (&d)[BN / 2],
                                          const uint32_t (&a)[4], uint64_t db,
@@ -318,8 +325,16 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[BN / 2],
         : PPGS_F40
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
           "n"(TB));
+  } else if constexpr (BN == 48) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %29, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+        "{" PPGS_R24 "}, {%24, %25, %26, %27}, %28, p, 1, 1, %30;\n}\n"
+        : PPGS_F24
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+          "n"(TB));
   } else {
-    static_assert(BN == 64, "wgmma_rs takes BN 64, 80, 128 or 256");
+    static_assert(BN == 64, "wgmma_rs takes BN 48, 64, 80, 128 or 256");
     asm volatile(
         "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
         " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
@@ -331,12 +346,14 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[BN / 2],
 }
 
 #undef PPGS_R16
+#undef PPGS_R24
 #undef PPGS_R32
 #undef PPGS_R40
 #undef PPGS_R64
 #undef PPGS_R128
 #undef PPGS_F8
 #undef PPGS_F16
+#undef PPGS_F24
 #undef PPGS_F32
 #undef PPGS_F40
 #undef PPGS_F64

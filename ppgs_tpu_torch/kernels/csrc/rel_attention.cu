@@ -1,302 +1,607 @@
 // B8 rel_attention: the conformer's relative-position attention,
-// softmax((q_u k^T + shift(bd)) / sqrt(d_k)) v with a key mask, the
-// position term bd read in place from its zero-column-padded buffer.
+// softmax((q_u k^T + shift(bf16(q_v pos^T))) / sqrt(d_k)) v with a key
+// mask, the shifted position term made inside the kernel from q_v and pos.
 //
 // Replaces: ppgs_tpu/ops/flash_attention.py fused_attention_bias (kernel
-// _fused_kernel_bias), which models/conformer.py runs in each of the 16
-// blocks of the bottleneck frontend (bf16, T <= 2048).
+// _fused_kernel_bias, pallas_call at :373) and the einsum that
+// ppgs_tpu/models/conformer.py runs before it to form the term: the TPU
+// kernel is handed the zero-column-padded (B, H, T + 1, T) term, since a
+// TPU program could not skew it in VMEM. The 16 blocks of the bottleneck
+// frontend run it (bf16, T <= 2048).
 //
-// The function is the TPU kernel's, in its order: logits = (q_u.k in fp32 +
-// bias in fp32) * sm_scale; masked keys -1e30; the row max clamped at
-// -1e29; p = exp(logits - max), 0 at masked keys; the denominator clamped
-// at 1e-30; p / denom rounded to bf16 BEFORE the PV product (K2 scales by
-// 1/l after it). A wholly masked row gives 0.
+// The function is the TPU kernel's, in its order: the position term is
+// each dot product's fp32 sum rounded once to bf16 (as JAX's einsum
+// returns it), added to q_u.k in fp32; logits = that sum * sm_scale;
+// masked keys -1e30; the row max clamped at -1e29; p = exp(logits - max),
+// 0 at masked keys; the denominator clamped at 1e-30; p / denom rounded to
+// bf16 BEFORE the PV product. A wholly masked row gives 0. The kernel
+// works in log2 units (log2 e folded into the scale) and takes p / denom
+// as exp2(z - m - log2(denom)): one ex2.approx a logit a pass.
 //
-// The shift (the legacy ESPnet rel_shift). Head (b, h)'s bias is the
-// (T, T + 1) product q_v . [0; pos]^T viewed as (T + 1, T): shifted
-// element (i, j) is element (i + 1) * T + j of that buffer, its [1:] row
-// slice. The kernel reads those addresses; no shifted tensor exists.
+// The shift in closed form (the legacy ESPnet rel_shift; bd[a, c] = q_v[a]
+// . pos[c]): shifted element (i, j) of a head is bd[i, T - 1 - i + j]
+// where j <= i, 0 where j = i + 1, and bd[i + 1, j - i - 2] where j >= i +
+// 2. For the 64 rows of a warpgroup from i0 and the 64 keys of a tile from
+// j0, both parts read a band of 127 positions with one skew: row r, key c
+// reads band column x = 63 - r + c. The lower part's band starts at
+// position T - i0 - 64 + j0 and takes q_v rows i0 ..; the upper part's at
+// j0 - i0 - 65, with rows i0 + 1 ... Band columns 0-63 (half A) serve the
+// pairs c <= r of the diagonal tile and columns 64-127 (half B) the pairs
+// c >= r + 1, so on the diagonal tile (j0 = i0) half A is the lower part's
+// and half B the upper part's, whose column 64 is position -1: the zero of
+// j = i + 1 comes from TMA's zero fill, as does every position below 0 or
+// at T and above, and q_v row T. Tiles before the diagonal take both
+// halves from the lower part, tiles after it from the upper part (the
+// tile after the diagonal reads position -1 for its one pair j = i + 1).
+// No pair needs a select. Half A of key tile t + 1 is half B of tile t
+// (the same positions and q_v rows, below), so a tile whose predecessor
+// was formed takes its half A from that tile's bf16 words: one m64n64 band
+// product a tile beside QK^T.
 //
-// The heads. d_k = 36 fits neither the 16-deep MMA step nor 16-byte
-// loads: head h starts 72 h bytes into a 288-byte row. The kernel reads
-// q, k and v in place with 8-byte loads (4 bf16; any d_k % 4 == 0 up to
-// 64) and zero-pads each head to 64 columns in shared memory, as the TPU
-// pads to 64 lanes. The wrapper packs nothing: a padded copy of q, k and v
-// would add their bytes twice to a kernel bound by bytes. sm_scale uses the
-// true d_k.
+// The heads. d_k = 36 is no multiple of 16 columns or 16 bytes: head h
+// starts 72 h bytes into a 288-byte row. The kernel reads every operand in
+// place through 64-column TMA boxes (2-D tensor maps over (H d_k, B T)
+// through the row strides; k and v are views of the fused QKV product,
+// 864-byte rows). A box's first column must lie on 16 bytes (TMA takes no
+// other: an illegal instruction on the card), so head h's boxes start at
+// column h d_k rounded down to 8, and the head sits at column off = (h d_k)
+// mod 8 (0 or 4) of them, off + d_k <= 64; the neighbouring heads' columns,
+// or TMA's zeros past column H d_k, come along. Columns 0 .. off - 1 and
+// off + d_k .. 16 ceil(d_k / 16) - 1 of the resident q_u and q_v tiles are
+// zeroed once, so the streamed K and pos columns outside the head multiply
+// zeros, and the products stop at a depth of 16 ceil(d_k / 16) (48 at d_k
+// = 36: three k16 steps). PV's extra output columns are dropped: the output
+// is written from registers, the pairs of the head's columns, as a
+// 64-column TMA box would overwrite the neighbouring heads.
 //
-// Design (right first, not fast): one block per (batch b, head h, 64-query
-// tile), four warps of 16 query rows, 64-key tiles, wmma 16x16x16. Since
-// p is normalised before PV, the softmax takes two passes over the keys:
-// pass 1 computes each row's max and denominator online; pass 2 recomputes
-// the logits, rounds p / denom to bf16 and accumulates PV in registers.
-// Each warp walks its 16 rows one at a time, 32 lanes over 64 keys, so the
-// bias row is read coalesced (any T: no alignment is assumed) and each
-// row's max and sum are warp reductions. Any T works (the last tiles are
-// masked); the TPU kernel needs T % 8 == 0.
+// Design, on hopper.cuh: one block per (192 query rows, head, utterance), three
+// warpgroups of 64 rows (384 threads, one block an SM; 12 warps keep a thread
+// to 168 registers), no producer warp. The resident tiles arrive once by TMA:
+// q_u, q_v (rows q0 ..) and q_v from row q0 + 1 (the upper part's rows: a
+// one-row offset breaks the 128-byte swizzle's phase, so it is a tile of its
+// own). The pos boxes: the warpgroups' bands are 64 positions apart and a band
+// moves 64 positions a key tile, so one sequence of 64-row pos boxes serves the
+// block: box m is the lower part's (positions T - q0 - 192 + 64 m ..) while m
+// <= td0 + 2, td0 = q0 / 64 the first warpgroup's diagonal tile, else the upper
+// part's (64 m - q0 - 193 ..); key tile t's half A of warpgroup c is box t + 2
+// - c, its half B box t + 3 - c, with the q_v tile of the same part: half A of
+// tile t + 1 is half B of tile t. Each box is read by four tiles, so it is
+// loaded once a pass: the ring (6 stages of 24 KB) carries, per pass, items u =
+// 0 .. tiles + 2, item u pos box u and, from u = 3, key tile u - 3's K (and in
+// pass 2 its V). A warp holds four items at once (the boxes of tile t are items
+// t .. t + 3) and frees item t after tile t; the last of the 12 warps to free a
+// stage refills it, so the ring is walked and freed in order by every warp.
+// - Per tile and warpgroup: S = q_u K^T and the half-B band by SS wgmma
+//   (m64n64, three k16 steps each), the half-A elements added to S while
+//   half B's product runs. Half A's bf16 words are the last tile's half B,
+//   kept in registers (16 a thread), or after a tile not formed (the first
+//   of a pass, one past a wholly masked tile) a product of their own. A
+//   row's band lies in its own quad of lanes, so the skew read (S element
+//   (r, c) takes band column 63 - r + c) is one shuffle an element within
+//   the quad (Skew below), the registers it reads chosen at compile time
+//   per warp; only the groups of 8 columns a row reads are rounded to bf16
+//   pairs. No band touches shared memory: a first form that staged it there
+//   and read it back skewed spent most of its time on it (PERF.md section
+//   6).
+// - Pass 1: the row max (from the -1e29 floor) and denominator, online.
+//   Pass 2: S and the band again, p / denom packed into the A fragments of
+//   O += P V (RS wgmma, V the MN-major B operand); O in registers.
+// - The window's mask is read once, as one 64-bit word a key tile; the
+//   tiles past its last valid key are not walked, a tile with no valid key
+//   is skipped, and a wholly masked window loads nothing and writes zeros.
 //
-// Bound on an H100 at 64 x 8 s (B = 64, T = 800, H = 4, d_k = 36), per
-// launch: the bias, 64 * 4 * 801 * 800 * 2 = 328 MB, plus q, k, v and out,
-// 59 MB, over 3.35 TB/s is 0.116 ms; the products, 2.4e10 FLOP, take
-// 0.024 ms at 989 TFLOP/s: bound by bytes. Pass 2 reads each bias tile
-// again; a block's 64 bias rows (102 KB at T = 800) were read in pass 1 a
-// few microseconds before, so most of that second read comes from L2.
-// The redesign (ROADMAP.md) computes bd inside the kernel from q_v and the
-// shared pos (H x T x 36), so that the 328 MB are never written or read.
-//
-// Shared memory: Q, K and V tiles of 64 x 72 bf16 (27 KB), per warp 16 x
-// 68 fp32 scores and 16 x 72 bf16 probabilities: 53 KB.
+// Bound on an H100 (989 TFLOP/s bf16, 3.35 TB/s) at 64 x 8 s (B = 64, T =
+// 800, H = 4, d_k = 36), per launch: QK^T, the position term and PV, 6 B H
+// T^2 d_k = 3.54e10 FLOP, 0.0358 ms; q_u, k, v, q_v and out (5 x 14.7 MB),
+// pos (0.23 MB) and the mask, 74 MB, 0.022 ms: bound by operations. The
+// exponentials, 2 x 1.64e8 a launch at 16 a clock an SM, take about 0.09
+// ms, a floor the roofline does not show; the band's bf16 conversions run
+// on the same 16-a-clock unit. What holds it back on the card
+// (scripts/torch_rel_attention_probe.py builds this source beside a
+// loads-only walk and variants less one part of the work; PERF.md section
+// 6): each tile's chain of products, waits, the skew and the softmax, which
+// three warpgroups an SM overlap only in part; the skew's selects,
+// shuffles, extractions and adds cost most (a third of the kernel), then
+// pass 2's PV and the band product; the loads-only walk is under half of
+// it. Keeping half B for the next tile saves 7% against forming half A
+// again (PERF.md section 6).
 
 #include "common.cuh"
+#include "hopper.cuh"
 
-using namespace nvcuda;
+using namespace ppgs::hopper;
 using ppgs::bf16;
 
 namespace {
 
-constexpr int BQ = 64, BKV = 64, WARPS = 4, THREADS = WARPS * 32;
-constexpr int DP = 64;             // heads zero-padded to 64 columns
-constexpr int QKV_LD = DP + 8;     // bf16 Q/K/V tiles
-constexpr int S_LD = BKV + 4;      // fp32 scores, per warp 16 x 64
-constexpr int P_LD = BKV + 8;      // bf16 probabilities, per warp 16 x 64
-constexpr float MAX_FLOOR = -1e29f;  // the TPU kernel's row-max clamp
+constexpr int WGS = 3;                       // warpgroups a block
+constexpr int BQ = 64 * WGS, BK = 64;        // query rows a block, keys a tile
+constexpr int THREADS = 128 * WGS;
+constexpr int WARPS = THREADS / 32;
+constexpr int DP = 64;                       // a head's box: 64 bf16, 128 B
+constexpr int MAX_T = 2048, MAX_TILES = MAX_T / BK;
+constexpr int STAGES = 6;
+constexpr bool LIVE = true;                  // false: loads only (the probe)
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float MAX_FLOOR = -1e29f * LOG2E;  // the row-max clamp, log2 units
 constexpr float DENOM_FLOOR = 1e-30f;
+constexpr float MINUS_INF = -__builtin_huge_valf();
 
-constexpr int OFF_Q = 0;
-constexpr int OFF_K = OFF_Q + BQ * QKV_LD * 2;
-constexpr int OFF_V = OFF_K + BKV * QKV_LD * 2;
-constexpr int OFF_S = OFF_V + BKV * QKV_LD * 2;
-constexpr int OFF_P = OFF_S + WARPS * 16 * S_LD * 4;
-constexpr int OFF_VALID = OFF_P + WARPS * 16 * P_LD * 2;
-constexpr int SMEM = OFF_VALID + BKV;
-static_assert(OFF_K % 128 == 0 && OFF_V % 128 == 0 && OFF_S % 128 == 0 &&
-                  OFF_P % 128 == 0 && OFF_VALID % 128 == 0,
+constexpr int BOX = BK * 128;                // 64 rows of a 128-byte box
+constexpr int Q_TILE = BQ * 128;
+// A stage: a pos box, the K tile, the V tile (pass 2)
+constexpr int ST_POS = 0, ST_K = BOX, ST_V = 2 * BOX, STAGE = 3 * BOX;
+constexpr int OFF_QU = 0, OFF_QV = Q_TILE, OFF_QV1 = 2 * Q_TILE;
+constexpr int OFF_RING = 3 * Q_TILE;
+constexpr int OFF_VALID = OFF_RING + STAGES * STAGE;
+constexpr int OFF_BARS = OFF_VALID + MAX_TILES * 8;
+constexpr int SMEM = OFF_BARS + (2 * STAGES + 1) * 8 + STAGES * 4 + 1024;
+static_assert(OFF_RING % 1024 == 0 && STAGE % 1024 == 0,
               "shared-memory regions must stay aligned");
+static_assert(SMEM <= 232448, "more shared memory than a block may have");
 
-__device__ __forceinline__ float warp_max(float v) {
+// acc (64 x 64 fp32) = 64 rows of a K-major tile at a times 64 rows of a
+// K-major box at b, over KS steps of 16 columns (the first overwrites acc)
+template <int KS>
+__device__ __forceinline__ void product(float (&acc)[BK / 2], uint32_t a,
+                                        uint32_t b) {
 #pragma unroll
-  for (int offset = 16; offset > 0; offset >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, offset));
-  return v;
+  for (int kk = 0; kk < KS; ++kk)
+    wgmma_ss<BK, 0, 0>(acc, sw128_desc(a + kk * 32, 16, 1024),
+                       sw128_desc(b + kk * 32, 16, 1024), kk > 0);
 }
 
-// ROWS x d bf16 from global memory (row stride ld elements, rows 8-byte
-// aligned) into a shared tile of row stride QKV_LD, 4 values per thread
-// and step. Rows at or past row_limit read as zeros; columns d .. DP - 1
-// are not touched (they are zeroed once, at the start).
-template <int ROWS>
-__device__ __forceinline__ void load_heads(bf16* s, const bf16* g,
-                                           long long ld, int d,
-                                           int row_limit) {
-  const int per_row = d / 4;
-  for (int i = threadIdx.x; i < ROWS * per_row; i += THREADS) {
-    const int r = i / per_row, c = (i % per_row) * 4;
-    uint2 v = make_uint2(0u, 0u);
-    if (r < row_limit) v = *reinterpret_cast<const uint2*>(g + r * ld + c);
-    *reinterpret_cast<uint2*>(s + r * QKV_LD + c) = v;
-  }
-}
-
-// The K and V tiles of keys [k0, k0 + 64) and their mask bytes
-__device__ __forceinline__ void load_keys(bf16* sK, bf16* sV,
-                                          uint8_t* s_valid, const bf16* k,
-                                          const bf16* v, long long kv_rs,
-                                          const uint8_t* mask,
-                                          long long batch_row, long long head,
-                                          int k0, int T, int d, bool with_v) {
-  const int limit = min(BKV, T - k0);
-  load_heads<BKV>(sK, k + (batch_row + k0) * kv_rs + head, kv_rs, d, limit);
-  if (with_v)
-    load_heads<BKV>(sV, v + (batch_row + k0) * kv_rs + head, kv_rs, d, limit);
-  for (int i = threadIdx.x; i < BKV; i += THREADS)
-    s_valid[i] = (i < limit) ? mask[batch_row + k0 + i] : 0;
-}
-
-// S = Q K^T for the warp's 16 query rows against the 64 keys of the tile,
-// over the first kd (d rounded up to 16) columns of the padded heads
-__device__ __forceinline__ void scores(const bf16* sQ, const bf16* sK,
-                                       float* sS, int warp, int kd) {
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> s[4];
+// The skew read by shuffles. Row g of warp w (its 64-row band in two
+// m64n64 halves: register 4j + e of lane 4g + t holds row 16w + g + 8(e /
+// 2), column 64 half + 8j + 2t + e % 2) takes band column 63 - r + c = 8J +
+// sigma + 2t + e for key c = 8j + 2t + e, J = 7 - 2w (6 - 2w for row g +
+// 8), sigma = 7 - g: element (j, e) lies in group J + j, or J + j + 1 past
+// the pair's end, of lane t + (sigma + e) / 2 of the quad, element (sigma +
+// e) % 2 of its bf16 pair. One shuffle an element: each lane sends the
+// pair its receiver takes (the receiver's choice of group is the sender's
+// to make, as the quad shares sigma), the receiver keeps its element.
+struct Skew {
+  int src[2];          // the lane read, for e = 0, 1
+  uint32_t sel[2];     // __byte_perm selector: that element to fp32
+  bool next[2];        // as a sender: the receiver's pair is in the next group
+  __device__ __forceinline__ explicit Skew(int lane) {
+    const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int n = 0; n < 4; ++n) wmma::fill_fragment(s[n], 0.f);
-#pragma unroll
-  for (int kk = 0; kk < DP; kk += 16) {
-    if (kk >= kd) break;
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-    wmma::load_matrix_sync(fa, sQ + warp * 16 * QKV_LD + kk, QKV_LD);
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-      wmma::load_matrix_sync(fb, sK + n * 16 * QKV_LD + kk, QKV_LD);
-      wmma::mma_sync(s[n], fa, fb, s[n]);
+    for (int e = 0; e < 2; ++e) {
+      const int q = 7 - g + e, step = q >> 1;
+      src[e] = (lane & ~3) | ((t + step) & 3);
+      sel[e] = q & 1 ? 0x3244u : 0x1044u;
+      next[e] = q + 2 * ((t - step) & 3) >= 8;
     }
   }
+};
+
+// Only the groups of 8 band columns a row reads, J .. J + 8 (J = 7 - 2W -
+// rho), are rounded to bf16 pairs (a conversion is as slow as an ex2):
+// word g of half A (wa[rho][g], g = J .. 7) and word g - 8 of half B hold
+// columns 8g + 2t, 8g + 2t + 1 of the half's row 16W + g + 8 rho, each
+// rounded once.
+
+// Half A's words of warp W from its accumulator bd
+template <int W>
+__device__ __forceinline__ void pack_half_a(uint32_t (&wa)[2][8],
+                                            const float (&bd)[BK / 2]) {
 #pragma unroll
-  for (int n = 0; n < 4; ++n)
-    wmma::store_matrix_sync(sS + n * 16, s[n], S_LD, wmma::mem_row_major);
+  for (int rho = 0; rho < 2; ++rho)
+#pragma unroll
+    for (int g = 7 - 2 * W - rho; g < 8; ++g)
+      wa[rho][g] = pack_bf16(bd[4 * g + 2 * rho], bd[4 * g + 2 * rho + 1]);
 }
 
-__global__ void __launch_bounds__(THREADS)
-rel_attention_kernel(const bf16* __restrict__ q, long long q_rs,
-                     const bf16* __restrict__ k, const bf16* __restrict__ v,
-                     long long kv_rs, const bf16* __restrict__ bias,
+// Add to sc the band elements of warp W whose pair of groups (J + j, J + j
+// + 1) lies in half A (PART 0, from the words wa) or reaches half B (PART
+// 1, from its accumulator bd, group 7 from wa). PART 1 then leaves in wa
+// half B's words of groups J .. 7, the next tile's half A.
+template <int W, int PART>
+__device__ __forceinline__ void skew_add(float (&sc)[BK / 2],
+                                         const float (&bd)[BK / 2],
+                                         uint32_t (&wa)[2][8],
+                                         const Skew& k) {
+#pragma unroll
+  for (int rho = 0; rho < 2; ++rho) {
+    const int J = 7 - 2 * W - rho;
+    uint32_t w[16];
+#pragma unroll
+    for (int g = J; g <= J + 8; ++g) {
+      const int r = 4 * (g & 7) + 2 * rho;
+      if (g < 8) w[g] = wa[rho][g];
+      else if (PART == 1) w[g] = pack_bf16(bd[r], bd[r + 1]);
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int lo = J + j, hi = lo + 1;
+      if ((PART == 0) != (hi <= 7)) continue;
+      const uint32_t first = w[lo], second = w[hi];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const uint32_t got = __shfl_sync(
+            0xffffffffu, k.next[e] ? second : first, k.src[e]);
+        sc[4 * j + 2 * rho + e] +=
+            __uint_as_float(__byte_perm(got, 0, k.sel[e]));
+      }
+    }
+    if (PART == 1) {
+      wa[rho][J] = w[J + 8];
+#pragma unroll
+      for (int g = J + 1; g < 8; ++g)
+        wa[rho][g] = pack_bf16(bd[4 * g + 2 * rho], bd[4 * g + 2 * rho + 1]);
+    }
+  }
+}
+
+// warp-uniform switches: the register indices are constants
+__device__ __forceinline__ void pack_half_a(int warp, uint32_t (&wa)[2][8],
+                                            const float (&bd)[BK / 2]) {
+  switch (warp) {
+    case 0: pack_half_a<0>(wa, bd); break;
+    case 1: pack_half_a<1>(wa, bd); break;
+    case 2: pack_half_a<2>(wa, bd); break;
+    default: pack_half_a<3>(wa, bd); break;
+  }
+}
+
+template <int PART>
+__device__ __forceinline__ void skew_add(int warp, float (&sc)[BK / 2],
+                                         const float (&bd)[BK / 2],
+                                         uint32_t (&wa)[2][8],
+                                         const Skew& k) {
+  switch (warp) {
+    case 0: skew_add<0, PART>(sc, bd, wa, k); break;
+    case 1: skew_add<1, PART>(sc, bd, wa, k); break;
+    case 2: skew_add<2, PART>(sc, bd, wa, k); break;
+    default: skew_add<3, PART>(sc, bd, wa, k); break;
+  }
+}
+
+// KS: the products' k16 steps, ceil(d / 16); the head's columns of a box
+// (off + d <= 16 KS) are the first NO of PV's output
+template <int KS, int NO = KS == 3 ? 48 : DP>
+__global__ void __launch_bounds__(THREADS, 1)
+rel_attention_kernel(const __grid_constant__ CUtensorMap map_qu,
+                     const __grid_constant__ CUtensorMap map_k,
+                     const __grid_constant__ CUtensorMap map_v,
+                     const __grid_constant__ CUtensorMap map_qv,
+                     const __grid_constant__ CUtensorMap map_pos,
                      const uint8_t* __restrict__ mask,
-                     bf16* __restrict__ out, long long out_rs, int T, int H,
-                     int d, float sm_scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem + OFF_Q);
-  bf16* sK = reinterpret_cast<bf16*>(smem + OFF_K);
-  bf16* sV = reinterpret_cast<bf16*>(smem + OFF_V);
-  uint8_t* s_valid = smem + OFF_VALID;
+                     bf16* __restrict__ out, long long out_rs, int T, int d,
+                     float scale2) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* tile_valid = reinterpret_cast<uint64_t*>(sm + OFF_VALID);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + OFF_BARS);
+  uint64_t* empty = full + STAGES;
+  uint64_t* q_bar = empty + STAGES;
+  int* released = reinterpret_cast<int*>(q_bar + 1);
 
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* sS = reinterpret_cast<float*>(smem + OFF_S) + warp * 16 * S_LD;
-  bf16* sP = reinterpret_cast<bf16*>(smem + OFF_P) + warp * 16 * P_LD;
-  const long long head = (long long)h * d;
-  const long long batch_row = (long long)b * T;
-  // Row i of the shifted bias of head (b, h): row i + 1 of its (T + 1, T)
-  // buffer
-  const bf16* bias_head = bias + ((long long)(b * H + h) * (T + 1) + 1) * T;
-  const int kd = (d + 15) / 16 * 16;
-  const int n_tiles = (T + BKV - 1) / BKV;
+  // The head's first column, its boxes' (on 16 bytes) and its place there
+  const int col0 = h * d, box0 = col0 & ~7, off = col0 - box0;
+  // The utterance's first row in the (B T)-row maps. Its rows past T are
+  // the next utterance's: the key mask zeroes their p, their q rows give
+  // outputs that are not stored, and the upper part reads q_v row T only
+  // for keys past T
+  const int row0 = b * T;
+  const int key_tiles = (T + BK - 1) / BK;
+  const int warp_id = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const uint8_t* mrow = mask + static_cast<long long>(b) * T;
 
-  // Zero the Q, K and V tiles once: the head padding stays zero
-  for (int i = threadIdx.x; i < (OFF_S - OFF_Q) / 16; i += THREADS)
-    reinterpret_cast<uint4*>(smem + OFF_Q)[i] = make_uint4(0u, 0u, 0u, 0u);
+  // The window's valid keys, a word a key tile (bit k: key 64 i + k)
+  for (int i = warp_id; i < key_tiles; i += WARPS) {
+    const int key = i * BK + lane;
+    const uint64_t bits =
+        __ballot_sync(0xffffffffu, key < T && mrow[key] != 0) |
+        static_cast<uint64_t>(
+            __ballot_sync(0xffffffffu, key + 32 < T && mrow[key + 32] != 0))
+            << 32;
+    if (lane == 0) tile_valid[i] = bits;
+  }
+  if (threadIdx.x == 0) {
+    mbar_init(q_bar, 1);
+    mbar_init_ring(full, empty, STAGES, WARPS);
+    for (int i = 0; i < STAGES; ++i) released[i] = 0;
+  }
   __syncthreads();
-  load_heads<BQ>(sQ, q + (batch_row + q0) * q_rs + head, q_rs, d,
-                 min(BQ, T - q0));
+  // The key tiles walked, up to the window's last valid key; twice
+  int tiles = 0;
+  for (int i = 0; i < key_tiles; ++i)
+    if (tile_valid[i]) tiles = i + 1;
+  const int td0 = q0 / BK;      // the first warpgroup's diagonal tile
 
-  // The logits of row r of the warp at keys lane and lane + 32 of the tile
-  // starting at k0 (-1e30 where masked, past T, or for a row past T)
-  auto logits = [&](int r, int k0, float& s0, float& s1, bool& ok0,
-                    bool& ok1) {
-    const int qrow = q0 + warp * 16 + r;
-    ok0 = qrow < T && s_valid[lane];
-    ok1 = qrow < T && s_valid[lane + 32];
-    const float* srow = sS + r * S_LD;
-    const bf16* brow = bias_head + (long long)qrow * T + k0;
-    s0 = ok0 ? (srow[lane] + __bfloat162float(brow[lane])) * sm_scale
-             : ppgs::NEG_INF;
-    s1 = ok1 ? (srow[lane + 32] + __bfloat162float(brow[lane + 32])) *
-                   sm_scale
-             : ppgs::NEG_INF;
+  // Items a pass: pos boxes 0 .. tiles + WGS - 1, and from item WGS on key
+  // tile u - WGS
+  const int per_pass = tiles > 0 ? tiles + WGS : 0;
+  const int items = 2 * per_pass;
+  // Item n (item u = n % per_pass of pass n / per_pass) into stage n %
+  // STAGES
+  auto load = [&](int n) {
+    const int s = n % STAGES;
+    const bool pass2 = n >= per_pass;
+    const int u = pass2 ? n - per_pass : n, tt = u - WGS;
+    const uint32_t bar = smem_addr(full + s);
+    unsigned char* st = sm + OFF_RING + s * STAGE;
+    mbar_expect_tx(bar, (tt < 0 ? 1 : pass2 ? 3 : 2) * BOX);
+    const int row = u <= td0 + WGS - 1 ? T - q0 - BQ + BK * u
+                                       : BK * u - q0 - BQ - 1;
+    tma_load(st + ST_POS, &map_pos, box0, row, bar);
+    if (tt >= 0) {
+      tma_load(st + ST_K, &map_k, box0, row0 + tt * BK, bar);
+      if (pass2) tma_load(st + ST_V, &map_v, box0, row0 + tt * BK, bar);
+    }
   };
-
-  // Pass 1: each row's max (from the -1e29 floor) and denominator, online
-  float m[16], l[16];
-#pragma unroll
-  for (int r = 0; r < 16; ++r) {
-    m[r] = MAX_FLOOR;
-    l[r] = 0.f;
+  if (threadIdx.x == 0 && tiles > 0) {
+    const uint32_t qb = smem_addr(q_bar);
+    mbar_expect_tx(qb, 3 * Q_TILE);
+    tma_load(sm + OFF_QU, &map_qu, box0, row0 + q0, qb);
+    tma_load(sm + OFF_QV, &map_qv, box0, row0 + q0, qb);
+    tma_load(sm + OFF_QV1, &map_qv, box0, row0 + q0 + 1, qb);
+    for (int n = 0; n < STAGES && n < items; ++n) load(n);
   }
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * BKV;
-    __syncthreads();
-    load_keys(sK, sV, s_valid, k, v, kv_rs, mask, batch_row, head, k0, T, d,
-              false);
-    __syncthreads();
-    scores(sQ, sK, sS, warp, kd);
-    __syncwarp();
-#pragma unroll
-    for (int r = 0; r < 16; ++r) {
-      float s0, s1;
-      bool ok0, ok1;
-      logits(r, k0, s0, s1, ok0, ok1);
-      const float m_new = fmaxf(m[r], warp_max(fmaxf(s0, s1)));
-      float p = (ok0 ? expf(s0 - m_new) : 0.f) + (ok1 ? expf(s1 - m_new) : 0.f);
-      l[r] = l[r] * expf(m[r] - m_new) + ppgs::warp_sum(p);
-      m[r] = m_new;
-    }
-    __syncwarp();
-  }
-#pragma unroll
-  for (int r = 0; r < 16; ++r) l[r] = fmaxf(l[r], DENOM_FLOOR);
 
-  // Pass 2: p / denom in bf16, O = P V accumulated in registers
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> o[DP / 16];
-#pragma unroll
-  for (int n = 0; n < DP / 16; ++n) wmma::fill_fragment(o[n], 0.f);
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * BKV;
-    __syncthreads();
-    load_keys(sK, sV, s_valid, k, v, kv_rs, mask, batch_row, head, k0, T, d,
-              true);
-    __syncthreads();
-    scores(sQ, sK, sS, warp, kd);
-    __syncwarp();
-#pragma unroll
-    for (int r = 0; r < 16; ++r) {
-      float s0, s1;
-      bool ok0, ok1;
-      logits(r, k0, s0, s1, ok0, ok1);
-      const float p0 = ok0 ? expf(s0 - m[r]) : 0.f;
-      const float p1 = ok1 ? expf(s1 - m[r]) : 0.f;
-      sP[r * P_LD + lane] = __float2bfloat16(p0 / l[r]);
-      sP[r * P_LD + lane + 32] = __float2bfloat16(p1 / l[r]);
+  // Warpgroup c owns the block's rows 64c .. 64c + 63; a thread rows r0,
+  // r0 + 8 of them (lane = 4g + t)
+  const int c = warp_id / 4, warp = warp_id % 4;
+  const int g = lane >> 2, t = lane & 3;
+  const int i0 = q0 + 64 * c, td = td0 + c;
+  const bool wg_live = LIVE && i0 < T;
+  const uint32_t qu = smem_addr(sm + OFF_QU) + c * 64 * 128;
+  const uint32_t qv = smem_addr(sm + OFF_QV) + c * 64 * 128;
+  const uint32_t qv1 = smem_addr(sm + OFF_QV1) + c * 64 * 128;
+  const uint32_t ring = smem_addr(sm + OFF_RING);
+  const Skew skew(lane);
+
+  if (tiles > 0) {
+    mbar_wait(smem_addr(q_bar), 0);
+    // Columns 0 .. off - 1 and off + d .. 16 KS - 1 of the warpgroup's rows
+    // of the three resident tiles to zero, 4 columns (8 bytes) at a time
+    // (16-byte chunk q of row r sits at q ^ (r & 7))
+    for (int i = threadIdx.x % 128; i < 3 * 64; i += 128) {
+      unsigned char* row =
+          sm + (i / 64) * Q_TILE + (64 * c + i % 64) * 128;
+      for (int col = 0; col < 16 * KS; col += 4)
+        if (col < off || col >= off + d)
+          *reinterpret_cast<uint2*>(row + (((col / 8) ^ (i % 8)) << 4) +
+                                    (col % 8) * 2) = make_uint2(0u, 0u);
     }
+    fence_async_smem();
+    bar_sync(1 + c, 128);
+  }
+
+  auto stage_of = [&](int n) { return ring + (n % STAGES) * STAGE; };
+  auto wait_full = [&](int n) {
+    mbar_wait(smem_addr(full + n % STAGES), (n / STAGES) & 1);
+  };
+  // A warp is done with item n's stage; the last of the warps to free it
+  // refills it
+  auto release = [&](int n) {
+    const int s = n % STAGES;
     __syncwarp();
-#pragma unroll
-    for (int kk = 0; kk < BKV; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::load_matrix_sync(fa, sP + kk, P_LD);
-#pragma unroll
-      for (int n = 0; n < DP / 16; ++n) {
-        if (n * 16 >= kd) break;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fb, sV + kk * QKV_LD + n * 16, QKV_LD);
-        wmma::mma_sync(o[n], fa, fb, o[n]);
+    if (lane == 0) {
+      mbar_arrive(smem_addr(empty + s));
+      if (n + STAGES < items &&
+          atomicAdd(released + s, 1) % WARPS == WARPS - 1) {
+        mbar_wait(smem_addr(empty + s), (n / STAGES) & 1);
+        load(n + STAGES);
       }
     }
     __syncwarp();
-  }
+  };
 
-  // The warp's 16 output rows through its score buffer, 4 bf16 a lane
+  // Half A's bf16 words (the last tile's half B) between tiles
+  uint32_t wa[2][8];
+
+  // sc = q_u K^T + the shifted position term of key tile tt, whose items
+  // start at item n (its pos boxes in items n .. n + WGS, its K and V in
+  // item n + WGS), the keys its tile word marks invalid at -inf. The band
+  // halves come from the lower part (q_v) before the diagonal, the upper
+  // part (q_v from row i0 + 1) after it. Half A's words are in wa if tile
+  // tt - 1 was formed (kept), else made here
+  auto logits = [&](float (&sc)[BK / 2], int tt, int n, uint64_t valid,
+                    bool kept) {
+    if (!kept) {
+      float bd[BK / 2];
+      fence_regs(bd);
+      wgmma_fence();
+      product<KS>(bd, tt <= td ? qv : qv1,
+                  stage_of(n + WGS - 1 - c) + ST_POS);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(bd);
+      pack_half_a(warp, wa, bd);
+    }
+    // Half B's product runs while half A's elements are added
+    float bd2[BK / 2];
+    fence_regs(sc);
+    fence_regs(bd2);
+    wgmma_fence();
+    product<KS>(sc, qu, stage_of(n + WGS) + ST_K);
+    wgmma_commit();
+    product<KS>(bd2, tt < td ? qv : qv1, stage_of(n + WGS - c) + ST_POS);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(sc);
+    skew_add<0>(warp, sc, bd2, wa, skew);
+    wgmma_wait<0>();
+    fence_regs(bd2);
+    skew_add<1>(warp, sc, bd2, wa, skew);
+    if (valid != ~0ull) {
+      const uint64_t bits = valid >> (2 * t);
 #pragma unroll
-  for (int n = 0; n < DP / 16; ++n)
-    wmma::store_matrix_sync(sS + n * 16, o[n], S_LD, wmma::mem_row_major);
-  __syncwarp();
-  const int c = lane * 4;
-  for (int r = 0; r < 16; ++r) {
-    const int qrow = q0 + warp * 16 + r;
-    if (qrow >= T || c >= d) continue;
-    const float* orow = sS + r * S_LD + c;
-    __align__(8) bf16 o4[4];
+      for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) o4[e] = __float2bfloat16(orow[e]);
-    *reinterpret_cast<uint2*>(out + (batch_row + qrow) * out_rs + head + c) =
-        *reinterpret_cast<const uint2*>(o4);
+        for (int e = 0; e < 4; ++e)
+          if (!((bits >> (8 * j + e % 2)) & 1u)) sc[4 * j + e] = MINUS_INF;
+    }
+  };
+
+  // Pass 1: the row max m (from the floor) and sum l of exp2(z - m), online
+  float m0 = MAX_FLOOR, m1 = MAX_FLOOR, l0 = 0.f, l1 = 0.f;
+  int formed = -2;                  // the last key tile formed (half B in wa)
+  for (int n = 0; n < WGS && tiles > 0; ++n) wait_full(n);
+  for (int tt = 0; tt < tiles; ++tt) {
+    const uint64_t valid = tile_valid[tt];
+    wait_full(tt + WGS);
+    if (wg_live && valid) {
+      float sc[BK / 2];
+      logits(sc, tt, tt, valid, formed == tt - 1);
+      formed = tt;
+      release(tt);
+      float x0 = MINUS_INF, x1 = MINUS_INF;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        x0 = fmaxf(x0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+        x1 = fmaxf(x1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+      }
+      const float n0 = fmaxf(m0, quad_max(x0) * scale2);
+      const float n1 = fmaxf(m1, quad_max(x1) * scale2);
+      float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        ps0 += exp2_approx(fmaf(sc[4 * j], scale2, -n0)) +
+               exp2_approx(fmaf(sc[4 * j + 1], scale2, -n0));
+        ps1 += exp2_approx(fmaf(sc[4 * j + 2], scale2, -n1)) +
+               exp2_approx(fmaf(sc[4 * j + 3], scale2, -n1));
+      }
+      l0 = l0 * exp2_approx(m0 - n0) + ps0;
+      l1 = l1 * exp2_approx(m1 - n1) + ps1;
+      m0 = n0, m1 = n1;
+    } else {
+      release(tt);
+    }
   }
+  for (int n = tiles; n < per_pass; ++n) release(n);
+  // p / denom = exp2(z - lse), lse = m + log2(max(l, 1e-30))
+  const float lse0 = m0 + log2f(fmaxf(quad_sum(l0), DENOM_FLOOR));
+  const float lse1 = m1 + log2f(fmaxf(quad_sum(l1), DENOM_FLOOR));
+
+  // Pass 2: O = sum over the keys of bf16(p / denom) v, over the NO
+  // columns that hold the head
+  float o[NO / 2];
+#pragma unroll
+  for (int e = 0; e < NO / 2; ++e) o[e] = 0.f;
+  const int base = per_pass;
+  formed = -2;
+  for (int n = base; n < base + WGS && tiles > 0; ++n) wait_full(n);
+  for (int tt = 0; tt < tiles; ++tt) {
+    const int n = base + tt;
+    const uint64_t valid = tile_valid[tt];
+    wait_full(n + WGS);
+    if (wg_live && valid) {
+      float sc[BK / 2];
+      logits(sc, tt, n, valid, formed == tt - 1);
+      formed = tt;
+      // a[k] holds keys 16k .. 16k + 15: groups j = 2k (registers 0, 1)
+      // and 2k + 1 (2, 3)
+      uint32_t a[BK / 16][4];
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        a[j / 2][2 * (j % 2)] =
+            pack_bf16(exp2_approx(fmaf(sc[4 * j], scale2, -lse0)),
+                      exp2_approx(fmaf(sc[4 * j + 1], scale2, -lse0)));
+        a[j / 2][2 * (j % 2) + 1] =
+            pack_bf16(exp2_approx(fmaf(sc[4 * j + 2], scale2, -lse1)),
+                      exp2_approx(fmaf(sc[4 * j + 3], scale2, -lse1)));
+      }
+#pragma unroll
+      for (int k = 0; k < BK / 16; ++k) fence_regs(a[k]);
+      fence_regs(o);
+      wgmma_fence();
+      const uint32_t v_addr = stage_of(n + WGS) + ST_V;
+#pragma unroll
+      for (int k = 0; k < BK / 16; ++k)
+        wgmma_rs<NO>(o, a[k], sw128_desc(v_addr + k * 2048, BK * 128, 1024));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+#pragma unroll
+      for (int k = 0; k < BK / 16; ++k) fence_regs(a[k]);
+    }
+    release(n);
+  }
+  for (int n = base + tiles; n < base + per_pass; ++n) release(n);
+
+  // The head's columns of the output (box columns off .. off + d - 1), a
+  // pair of bf16 a store, rows below T
+  if (i0 < T) {
+    const int r0 = i0 + 16 * warp + g, r1 = r0 + 8;
+    bf16* out0 = out + (static_cast<long long>(b) * T + r0) * out_rs + box0;
+    bf16* out1 = out0 + 8 * out_rs;
+#pragma unroll
+    for (int j = 0; j < NO / 8; ++j) {
+      const int col = 8 * j + 2 * t;
+      if (col < off || col >= off + d) continue;
+      if (r0 < T)
+        *reinterpret_cast<uint32_t*>(out0 + col) =
+            pack_bf16(o[4 * j], o[4 * j + 1]);
+      if (r1 < T)
+        *reinterpret_cast<uint32_t*>(out1 + col) =
+            pack_bf16(o[4 * j + 2], o[4 * j + 3]);
+    }
+  }
+}
+
+template <int KS>
+int launch(const CUtensorMap* maps, const void* mask, void* out,
+           long long out_rs, int B, int T, int H, int d, float scale2,
+           cudaStream_t stream) {
+  // Above 48 KB of dynamic shared memory a kernel must opt in, once
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      rel_attention_kernel<KS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid((T + BQ - 1) / BQ, H, B);
+  rel_attention_kernel<KS><<<grid, THREADS, SMEM, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4],
+      static_cast<const uint8_t*>(mask), static_cast<bf16*>(out), out_rs, T,
+      d, scale2);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q: bf16 (B, T, H*d) with row stride q_rs elements; k, v: the same with
-// row stride kv_rs (views of one buffer are fine); every row 8-byte
-// aligned. bias: bf16 (B, H, T + 1, T) contiguous, the zero-column-padded
-// unshifted position term. mask: (B, T) bytes, nonzero = valid key. out:
-// bf16 (B, T, ...) with row stride out_rs. d % 4 == 0 and d <= 64, else
-// cudaErrorInvalidValue.
-extern "C" int ppgs_rel_attention(const void* q, long long q_rs,
+// q_u, q_v: bf16 (B, T, H*d) with row strides q_rs, qv_rs, utterances T
+// rows apart; k, v: the same with row stride kv_rs (views of one buffer are
+// fine); pos: bf16 (T, H*d)
+// with row stride pos_rs, shared by the batch; mask: (B, T) bytes, nonzero
+// = valid key; out: bf16 (B, T, ...) with row stride out_rs, 4-byte
+// aligned pairs. TMA: 16-byte aligned bases, row strides multiples of 8
+// elements. scale2 = log2(e) / sqrt(d). d % 4 == 0 and d <= 64, T <= 2048,
+// else cudaErrorInvalidValue.
+extern "C" int ppgs_rel_attention(const void* q_u, long long q_rs,
                                   const void* k, const void* v,
-                                  long long kv_rs, const void* bias,
-                                  const void* mask, void* out,
-                                  long long out_rs, int B, int T, int H,
-                                  int d, float sm_scale, void* stream) {
-  if (d < 4 || d > DP || d % 4)
+                                  long long kv_rs, const void* q_v,
+                                  long long qv_rs, const void* pos,
+                                  long long pos_rs, const void* mask,
+                                  void* out, long long out_rs, int B, int T,
+                                  int H, int d, float scale2, void* stream) {
+  if (d < 4 || d > DP || d % 4 || T > MAX_T)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      rel_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (B > 0 && T > 0) {
-    dim3 grid((T + BQ - 1) / BQ, H, B);
-    rel_attention_kernel<<<grid, THREADS, SMEM,
-                           static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const bf16*>(q), q_rs, static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), kv_rs, static_cast<const bf16*>(bias),
-        static_cast<const uint8_t*>(mask), static_cast<bf16*>(out),
-        out_rs, T, H, d, sm_scale);
+  if (B <= 0 || T <= 0) return static_cast<int>(cudaGetLastError());
+  const long long cols = static_cast<long long>(H) * d;
+  // 2-D maps over the B T rows (a 3-D map with a dimension of one row read
+  // the wrong rows on the card)
+  const long long rows = static_cast<long long>(B) * T;
+  CUtensorMap maps[5] = {};
+  if (!encode(&maps[0], q_u, false, rows, cols, q_rs, DP, BQ) ||
+      !encode(&maps[1], k, false, rows, cols, kv_rs, DP, BK) ||
+      !encode(&maps[2], v, false, rows, cols, kv_rs, DP, BK) ||
+      !encode(&maps[3], q_v, false, rows, cols, qv_rs, DP, BQ) ||
+      !encode(&maps[4], pos, false, T, cols, pos_rs, DP, BK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch ((d + 15) / 16) {
+    case 1:
+      return launch<1>(maps, mask, out, out_rs, B, T, H, d, scale2, s);
+    case 2:
+      return launch<2>(maps, mask, out, out_rs, B, T, H, d, scale2, s);
+    case 3:
+      return launch<3>(maps, mask, out, out_rs, B, T, H, d, scale2, s);
+    default:
+      return launch<4>(maps, mask, out, out_rs, B, T, H, d, scale2, s);
   }
-  return static_cast<int>(cudaGetLastError());
 }

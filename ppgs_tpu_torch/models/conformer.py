@@ -22,11 +22,13 @@ flat keys are its state-dict keys (``convert.conformer_params_from_jax``);
 read.
 
 The attention follows the JAX dispatch: a bf16 config with T <= 2048 (and
-d_k <= 64) runs the fused bias attention B8 (``ops/flash_attention.py::
-fused_attention_bias``: the kernel on the card, its plain version on the
-CPU); longer inputs and every fp32 config run the counterparts of the JAX
-package's XLA branches in plain PyTorch, the bf16 one with its own rounding
-(bf16 scores, fp32 row statistics, bf16 unnormalised p). The 5x5 convs,
+d_k <= 64) runs the fused rel-pos attention B8 (``ops/flash_attention.py::
+rel_attention``: the kernel on the card, which forms the shifted position
+term from q_v and pos itself where JAX hands its kernel the term, and its
+plain version on the CPU); longer inputs and every fp32 config run the
+counterparts of the JAX package's XLA branches in plain PyTorch, the bf16
+one with its own rounding (bf16 scores, fp32 row statistics, bf16
+unnormalised p). The 5x5 convs,
 the depthwise conv and the products run as PyTorch calls (cuDNN, cuBLAS),
 as the JAX package leaves them to XLA. In bf16 a cuDNN conv or a cuBLAS
 product rounds its output to bf16 before the fp32 bias, where JAX keeps
@@ -281,15 +283,7 @@ def attention_inputs(x, pos_emb, w, heads, cd):
     return q_u, k, v, q_v, pos
 
 
-def position_term(q_v, pos):
-    """The legacy-shift bias of B8, (B, H, T + 1, T): the zero-column-padded,
-    unshifted q_v . pos^T, a plain product in the compute dtype. The zero
-    column comes from a zero row prepended to pos, so no copy makes it, and
-    the (T, T + 1) result viewed (T + 1, T) is what the kernel shifts by
-    reading its rows 1 .. T."""
-    B, H, T, _ = q_v.shape
-    pos_z = F.pad(pos, (0, 0, 1, 0))                      # (1, H, T + 1, d_k)
-    return (q_v @ pos_z.transpose(-1, -2)).view(B, H, T + 1, T)
+position_term = fa.position_term        # B8's plain version forms it
 
 
 def _rel_attention(x, pos_emb, w, mask, heads, cd):
@@ -302,8 +296,10 @@ def _rel_attention(x, pos_emb, w, mask, heads, cd):
                 else torch.ones(B, T, dtype=torch.bool, device=x.device))
     q_u, k, v, q_v, pos = attention_inputs(x, pos_emb, w, heads, cd)
     if use_fused_rel_attention(T, d_k, cd):
-        out = fa.fused_attention_bias(q_u, k, v, position_term(q_v, pos),
-                                      key_mask, heads)
+        # B8 reads q_v and pos through the (B, T, H, d_k) and (T, H, d_k)
+        # layouts of their memory and forms the shifted position term itself
+        out = fa.rel_attention(q_u, k, v, q_v.transpose(1, 2),
+                               pos[0].transpose(0, 1), key_mask, heads)
         return (out.reshape(B, T, C) @ w.wo + w.bo).to(x.dtype)
 
     q_u, k4, v4 = (t.transpose(1, 2) for t in (q_u, k, v))

@@ -19,7 +19,7 @@ On a CPU tensor the wrappers run the plain PyTorch version; on a CUDA
 tensor they launch the kernel or raise. Bound, design and rounding notes
 are in the CUDA source.
 
-The conformer's rel-pos attention (``fused_attention_bias``, B8,
+The conformer's rel-pos attention (``rel_attention``, B8,
 ``kernels/csrc/rel_attention.cu``) and the training attention with dropout
 (``flash_attention_train``, the TPU's ``flash_attention_train``) follow.
 """
@@ -147,27 +147,49 @@ def flash_attention_reference(q, k, v, mask, num_heads, causal=False):
 
 
 ###############################################################################
-# Attention with an additive score bias: the conformer's rel-pos attention (B8)
+# The conformer's rel-pos attention (B8)
 ###############################################################################
 #
 # Counterpart of ppgs_tpu/ops/flash_attention.py fused_attention_bias
-# (kernel _fused_kernel_bias): softmax((q k^T + bias) / sqrt(d_k)) v with a
-# key mask, in kernels/csrc/rel_attention.cu, in its legacy_shift form: the
-# bias is the zero-column-padded, unshifted position term viewed (B, H,
-# T+1, T), whose [1:] rows are the ESPnet legacy rel_shift; the kernel
-# reads them in place. Unlike K2, p is normalised before it is rounded for
-# the PV product, as the TPU kernel does. Any T (the TPU kernel needs
-# T % 8 == 0).
+# (kernel _fused_kernel_bias) in its legacy_shift form, together with the
+# einsum that ppgs_tpu/models/conformer.py runs before it to form the
+# position term: softmax((q_u k^T + rel_shift(q_v pos^T)) / sqrt(d_k)) v
+# with a key mask, in kernels/csrc/rel_attention.cu. The JAX package hands
+# the TPU kernel the zero-column-padded, unshifted term (B, H, T + 1, T);
+# the card's kernel forms the shifted term inside from q_v and pos, so it
+# is never written. Unlike K2, p is normalised before it is rounded for the
+# PV product, as the TPU kernel does. Any T up to 2048 (the TPU kernel
+# needs T % 8 == 0).
 
-REL_MAX_D = 64                  # head widths the kernel zero-pads to 64
+REL_MAX_D = 64                  # head widths the kernel's 64-column boxes hold
+REL_MAX_T = 2048                # the kernel's longest window
+
+
+def position_term(q_v, pos):
+    """The legacy-shift bias of the JAX kernel's ``legacy_shift`` form, (B,
+    H, T + 1, T), from q_v (B, H, T, d_k) and pos (1, H, T, d_k): the
+    zero-column-padded, unshifted q_v . pos^T, a plain product in the
+    compute dtype. The zero column comes from a zero row prepended to pos,
+    so no copy makes it, and the (T, T + 1) result viewed (T + 1, T) is
+    shifted by reading its rows 1 .. T. ``position_term.calls`` counts the
+    calls: the card's path makes none."""
+    B, H, T, _ = q_v.shape
+    position_term.calls += 1
+    pos_z = torch.nn.functional.pad(pos, (0, 0, 1, 0))   # (1, H, T + 1, d_k)
+    return (q_v @ pos_z.transpose(-1, -2)).view(B, H, T + 1, T)
+
+
+position_term.calls = 0
 
 
 def fused_attention_bias_reference(q, k, v, bias, mask, num_heads):
-    """Plain version of ``fused_attention_bias`` (any device; q's dtype is
-    the compute dtype): logits (q.k + shifted bias) * sm_scale in fp32,
-    masked keys -1e30, the row max clamped at -1e29, p = exp(logits - max),
-    the denominator clamped at 1e-30, p / denom in the compute dtype for the
-    PV product."""
+    """The bias form of B8's function, softmax((q k^T + shift(bias)) *
+    sm_scale) v, sm_scale = 1/sqrt(d_k) (any device; q's dtype is the
+    compute dtype): bias the (B, H, T + 1, T) zero-column-padded unshifted
+    position term (the JAX kernel's ``legacy_shift=True`` form), logits in
+    fp32, masked keys -1e30, the row max clamped at -1e29, p = exp(logits -
+    max), the denominator clamped at 1e-30, p / denom in the compute dtype
+    for the PV product."""
     B, T, H, dk = q.shape
     bias = bias[:, :, 1:]                                 # (B, H, T, T)
     q4, k4, v4 = (t.transpose(1, 2).float() for t in (q, k, v))
@@ -182,59 +204,77 @@ def fused_attention_bias_reference(q, k, v, bias, mask, num_heads):
     return out.transpose(1, 2).to(q.dtype)
 
 
-def _head_rows(t, name, shape, dev):
-    """Row stride of a (B, T, H, d) bf16 view whose heads lie contiguous in
-    8-byte aligned rows (the kernel's 4-value loads), else raise."""
+def rel_attention_reference(q_u, k, v, q_v, pos, mask, num_heads):
+    """Plain version of ``rel_attention`` (any device): the position term
+    by ``position_term``, then ``fused_attention_bias_reference``."""
+    bias = position_term(q_v.transpose(1, 2), pos.transpose(0, 1)[None])
+    return fused_attention_bias_reference(q_u, k, v, bias, mask, num_heads)
+
+
+def _tma_rows(t, name, shape, dev):
+    """The element step between the rows of the (rows, H d) matrix that a
+    (B, T, H, d) or (T, H, d) view flattens to, the heads contiguous in
+    rows a TMA tensor map can read in place (16-byte aligned base, the step
+    a multiple of 8 elements), else raise. A dimension of size 1 carries any
+    stride, so the step is that of the innermost row dimension of size > 1
+    (H d for a single row)."""
     if t.dtype != torch.bfloat16 or t.device != dev:
         raise ValueError(f'{name}: expected bfloat16 on {dev}, got {t.dtype} '
                          f'on {t.device}')
     if tuple(t.shape) != shape:
         raise ValueError(f'{name}: expected shape {shape}, got '
                          f'{tuple(t.shape)}')
-    B, T, H, d = shape
-    rs = t.stride(1)
-    if (t.stride(3) != 1 or t.stride(2) != d or t.stride(0) != T * rs
-            or rs % 4 or t.data_ptr() % 8):
-        raise ValueError(f'{name}: rel_attention needs (B, T, H, d) views '
-                         f'with contiguous heads and 8-byte aligned rows; '
+    H, d = shape[-2:]
+    rows = [(n, st) for n, st in zip(shape[:-2], t.stride()[:-2]) if n > 1]
+    rs = rows[-1][1] if rows else H * d
+    if (t.stride(-1) != 1 or (H > 1 and t.stride(-2) != d) or rs % 8
+            or t.data_ptr() % 16
+            or (len(rows) == 2 and rows[0][1] != rows[1][0] * rs)):
+        raise ValueError(f'{name}: rel_attention needs heads contiguous in '
+                         f'16-byte aligned rows, row stride a multiple of 8; '
                          f'got strides {t.stride()}')
     return rs
 
 
-def fused_attention_bias(q, k, v, bias, mask, num_heads):
-    """B8: softmax((q k^T + shift(bias)) * sm_scale) v, sm_scale =
-    1/sqrt(d_k).
+def rel_attention(q_u, k, v, q_v, pos, mask, num_heads):
+    """B8: softmax((q_u k^T + rel_shift(bf16(q_v pos^T))) * sm_scale) v,
+    sm_scale = 1/sqrt(d_k), the legacy ESPnet rel_shift.
 
-    q, k, v: (B, T, H, d_k) bf16 (k and v may be views of one buffer with
-    their own row stride), d_k % 4 == 0 and d_k <= 64; bias the (B, H,
-    T + 1, T) bf16 zero-column-padded unshifted position term (the JAX
-    kernel's ``legacy_shift=True`` form); mask (B, T) bool, True = valid
-    key. Returns a new (B, T, H, d_k) tensor. On a CPU tensor it runs the
-    plain version; on a CUDA tensor it launches the kernel or raises."""
-    if q.device.type == 'cpu':
-        return fused_attention_bias_reference(q, k, v, bias, mask, num_heads)
-    B, T, H, dk = q.shape
-    dev = q.device
+    q_u, k, v, q_v: (B, T, H, d_k) bf16 (k and v may be views of one buffer
+    with their own row stride), d_k % 4 == 0 and d_k <= 64, T <= 2048; pos:
+    (T, H, d_k) bf16, the projected positions, shared by the batch; mask
+    (B, T) bool, True = valid key. Returns a new (B, T, H, d_k) tensor. On a
+    CPU tensor it runs the plain version; on a CUDA tensor it launches the
+    kernel, which forms the shifted position term itself, or raises."""
+    if q_u.device.type == 'cpu':
+        return rel_attention_reference(q_u, k, v, q_v, pos, mask, num_heads)
+    B, T, H, dk = q_u.shape
+    dev = q_u.device
     if H != num_heads or dk % 4 or not 4 <= dk <= REL_MAX_D:
         raise ValueError(f'rel_attention kernel takes d_k % 4 == 0 up to '
                          f'{REL_MAX_D}; got {H} heads of {dk} '
                          f'(num_heads={num_heads})')
-    q_rs = _head_rows(q, 'q', (B, T, H, dk), dev)
-    kv_rs = _head_rows(k, 'k', (B, T, H, dk), dev)
-    if _head_rows(v, 'v', (B, T, H, dk), dev) != kv_rs:
+    if T > REL_MAX_T:
+        raise ValueError(f'rel_attention kernel takes T <= {REL_MAX_T}; '
+                         f'got {T}')
+    shape = (B, T, H, dk)
+    q_rs = _tma_rows(q_u, 'q_u', shape, dev)
+    kv_rs = _tma_rows(k, 'k', shape, dev)
+    if _tma_rows(v, 'v', shape, dev) != kv_rs:
         raise ValueError('k and v must share one row stride')
-    kernels.require(bias, 'bias', torch.bfloat16, dev, (B, H, T + 1, T))
+    qv_rs = _tma_rows(q_v, 'q_v', shape, dev)
+    pos_rs = _tma_rows(pos, 'pos', (T, H, dk), dev)
     kernels.require(mask, 'mask', torch.bool, dev, (B, T))
-    out = torch.empty((B, T, H, dk), dtype=torch.bfloat16, device=dev)
-    kernels.launch('ppgs_rel_attention', q.data_ptr(), q_rs, k.data_ptr(),
-                   v.data_ptr(), kv_rs, bias.data_ptr(), mask.data_ptr(),
-                   out.data_ptr(), H * dk, B, T, H, dk, 1.0 / math.sqrt(dk),
-                   device=dev)
-    fused_attention_bias.launches += 1
+    out = torch.empty(shape, dtype=torch.bfloat16, device=dev)
+    kernels.launch('ppgs_rel_attention', q_u.data_ptr(), q_rs, k.data_ptr(),
+                   v.data_ptr(), kv_rs, q_v.data_ptr(), qv_rs,
+                   pos.data_ptr(), pos_rs, mask.data_ptr(), out.data_ptr(),
+                   H * dk, B, T, H, dk, LOG2E / math.sqrt(dk), device=dev)
+    rel_attention.launches += 1
     return out
 
 
-fused_attention_bias.launches = 0
+rel_attention.launches = 0
 
 
 ###############################################################################

@@ -187,8 +187,8 @@ def test_from_audio_matches_jax(monkeypatch, tmp_path, compute_dtype,
         want32 = np.asarray(ppgs_tpu.from_audio(
             audio, config=config.replace(compute_dtype='float32'), **call))
     calls = []
-    kernel = port_bottleneck.conformer.fa.fused_attention_bias
-    monkeypatch.setattr(port_bottleneck.conformer.fa, 'fused_attention_bias',
+    kernel = port_bottleneck.conformer.fa.rel_attention
+    monkeypatch.setattr(port_bottleneck.conformer.fa, 'rel_attention',
                         lambda *a, **k: calls.append(1) or kernel(*a, **k))
     got = ppgs_tpu_torch.from_audio(audio, config=port_config, device='cpu',
                                     **call).numpy()

@@ -1,5 +1,5 @@
 """The port's conformer (``ppgs_tpu_torch/models/conformer.py``) and its
-fused rel-pos attention B8 (``ops/flash_attention.py::fused_attention_bias``)
+fused rel-pos attention B8 (``ops/flash_attention.py::rel_attention``)
 against the JAX package on the CPU.
 
 Both packages read one JAX-init parameter file, its biases, norms and
@@ -109,11 +109,11 @@ def _bias_inputs(seed, B, T, H=4, dk=36):
     (64, [64, 23]),                 # ragged, every window live
 ])
 def test_fused_attention_bias_matches_jax_kernel(T, lengths):
-    """B8's plain version against the Pallas kernel (legacy_shift=True) in
-    interpret mode, on bf16 inputs: both sum in fp32 and round p / denom to
-    bf16 before PV, so the bf16 outputs differ by rounding flips of one ulp
-    of p at most: atol 1e-2 on outputs of typical size 0.3, and relative
-    L2 <= 2^-8."""
+    """B8's bias-form plain version against the Pallas kernel
+    (legacy_shift=True) in interpret mode, on bf16 inputs: both sum in
+    fp32 and round p / denom to bf16 before PV, so the bf16 outputs differ
+    by rounding flips of one ulp of p at most: atol 1e-2 on outputs of
+    typical size 0.3, and relative L2 <= 2^-8."""
     B = len(lengths)
     q, k, v, bias = _bias_inputs(T, B, T)
     mask = np.arange(T)[None] < np.asarray(lengths)[:, None]
@@ -123,7 +123,8 @@ def test_fused_attention_bias_matches_jax_kernel(T, lengths):
         np.float32)
     tq, tk, tv, tb = (torch.from_numpy(a).to(torch.bfloat16)
                       for a in (q, k, v, bias))
-    got = fa.fused_attention_bias(tq, tk, tv, tb, torch.from_numpy(mask), 4)
+    got = fa.fused_attention_bias_reference(tq, tk, tv, tb,
+                                            torch.from_numpy(mask), 4)
     assert got.dtype == torch.bfloat16 and got.shape == (B, T, 4, 36)
     got = got.float().numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-2)
@@ -179,8 +180,8 @@ def test_rel_attention_matches_jax(tmp_path, monkeypatch, compute_dtype,
         jnp.asarray(x), jnp.asarray(pos), jparams['blocks'][0]['attn'],
         jnp.asarray(mask), 4, cd, None), np.float32)
     calls = []
-    kernel = fa.fused_attention_bias
-    monkeypatch.setattr(fa, 'fused_attention_bias',
+    kernel = fa.rel_attention
+    monkeypatch.setattr(fa, 'rel_attention',
                         lambda *a, **k: calls.append(1) or kernel(*a, **k))
     # The rule picks the fused branch for bf16 at this T; the bf16 branch
     # of T > 2048 runs here with the limit lowered below T
@@ -276,8 +277,8 @@ def test_forward_matches_jax_bf16_chip_path(tmp_path, monkeypatch):
     want = np.asarray(forward(jparams, jnp.asarray(feats),
                               jnp.asarray(lengths)))
     calls = []
-    kernel = fa.fused_attention_bias
-    monkeypatch.setattr(fa, 'fused_attention_bias',
+    kernel = fa.rel_attention
+    monkeypatch.setattr(fa, 'rel_attention',
                         lambda *a, **k: calls.append(1) or kernel(*a, **k))
     got = conformer.forward(model, torch.from_numpy(feats),
                             torch.from_numpy(lengths)).numpy()
