@@ -96,12 +96,15 @@ any failure exits non-zero before the result line:
    masked window), K3 and K4 at C = 768 (GELU) and 512, K4's per-layer
    variant at C = 512, the 12-layer GELU stack whole (the TPU's
    encoder_stack_streamed); the conv-stack kernels (B10) first at odd
-   shapes (conv_gelu at k = 3 and 2, B = 1 and 3, output rows of 1, 63,
-   64, 65, 127, 128, 129, 400 and 1001; its first form from audio with
-   conv 1 at those rows, conv 0's last block reading past the audio; the
-   whole chain at 1 s, 2.5 s and 8 s + 37 samples), then at 64 x 8 s
-   (statistics, conv 0's activation, conv 1 from the audio, conv 2, the
-   whole chain);
+   shapes (conv_stats and conv0_gelu at B = 1 and 3, 1 ... 1000 frames,
+   (k0, s0) = (10, 5), (16, 3) and (1, 1), a normal draw and a loud one
+   with a DC offset, conv_stats against an fp64 oracle too; conv_gelu at
+   k = 3 and 2, B = 1 and 3, output rows of 1, 63, 64, 65, 127, 128, 129,
+   400 and 1001; its first form from audio with conv 1 at those rows,
+   conv 0's last block reading past the audio; the whole chain at 1 s,
+   2.5 s and 8 s + 37 samples), then at 64 x 8 s (statistics, twice and
+   against fp64, conv 0's activation with its GELU guard's share, conv 1
+   from the audio, conv 2, the whole chain);
 10. the w2v2fb main path, ``from_audio(representation='w2v2fb')`` on 64 x
    8 s of seeded audio, the trunk's weights read from a temporary npz that
    ``W2V2FB_CHECKPOINT`` points at: shape, softmax columns, the exact
@@ -109,8 +112,10 @@ any failure exits non-zero before the result line:
    ``device='cpu'``; then the same call with ``PPGS_TPU_CONV_STACK=1``:
    the conv-stack kernels launched, the PPGs against the default path's;
 11. times of each w2v2fb kernel instance, its plain version, a library call
-   and its bound (for B10's first form, beside conv 1 on a stored conv-0
-   activation, the library's route to the same function from the audio:
+   and its bound (conv_stats and conv0_gelu by device time too, beside
+   the library's routes to them; for B10's first form, beside conv 1 on a
+   stored conv-0 activation, the library's route to the same function
+   from the audio:
    conv 0, GroupNorm, GELU, conv 1, GELU); each of B10's six convs by
    device time and CUDA events beside its bound and cuDNN's conv + GELU
    at that shape; the 12-layer stack against
@@ -218,6 +223,8 @@ BN_BLOCKS_REL = 1e-2
 # Published peaks of an H100 SXM (dense bf16, HBM3), for the bounds
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+# and its fp64 tensor cores (NVIDIA's data sheet), for conv_stats' Gram
+PEAK_FP64_FLOPS = 67e12
 
 
 _phase = {'name': None, 'start': None}
@@ -2731,6 +2738,78 @@ def layer_kernel_checks(tag, x, mask, w, H, activation, err, inputs):
 # samples of audio
 B10_ODD_T = (1, 63, 64, 65, 127, 128, 129, 400, 1001)
 B10_CHAIN_SAMPLES = (16_000, 40_000, 128_037)
+# conv_stats and conv0_gelu alone: conv-0 frames about conv0_gelu's 64-row
+# steps and 128-frame blocks (and conv_stats' groups of 4), conv 0 at
+# wav2vec2's (k0, s0), a wider one that takes rows 8.. of the Gram matrix
+# from rows 8 - s0.. twice over, two with strides past 8 whose rows 8.. are
+# summed as they are (conv_stats' second product), and one tap; a normal
+# draw and a loud one with a DC offset (0.9 + 0.05 N: a direct fp32 sum of
+# squares loses digits there)
+B10_STATS_T0 = (1, 255, 256, 257, 1000)
+B10_STATS_CONV0 = ((10, 5), (16, 3), (16, 9), (12, 10), (1, 1))
+
+
+def stats_fp64(audio, w0, k0, s0):
+    """conv 0's per-channel sum and sum of squares summed directly in fp64
+    (no Gram matrix), one utterance at a time: the oracle of conv_stats."""
+    w = w0.double()
+    out = []
+    for a in audio:
+        x = a.double().unfold(-1, k0, s0) @ w
+        out.append(torch.stack([x.sum(0), (x * x).sum(0)]))
+    return torch.stack(out)
+
+
+@torch.no_grad()
+def b10_conv0_checks(gn, dev):
+    """conv_stats at B = 1 and 3, ``B10_STATS_T0`` frames and
+    ``B10_STATS_CONV0``, normal and loud, against its plain version and
+    the fp64 oracle at atol 1e-3 rtol 1e-4 (phase 9's limit); conv0_gelu
+    on those statistics against its plain version at atol 1e-3 rtol 1e-2,
+    pooling the share of outputs that its GELU guard left to tanhf and the
+    share whose bits differ from the plain version's."""
+    from ppgs_tpu_torch.ops import conv_stack
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 89)
+    C = conv_stack.CHANNELS
+    worst = {'plain': 0.0, 'fp64': 0.0, 'conv0': 0.0}
+    guarded = apart = outputs = 0
+    for (k0, s0), B, T0, loud in itertools.product(
+            B10_STATS_CONV0, (1, 3), B10_STATS_T0, (False, True)):
+        S = s0 * (T0 - 1) + k0 + 2
+        noise = torch.randn(B, S, generator=gen, device=dev)
+        audio = (0.9 + 0.05 * noise if loud else 0.1 * noise).to(
+            torch.bfloat16)
+        w0 = (0.3 * torch.randn(k0, C, generator=gen, device=dev)).to(
+            torch.bfloat16)
+        name = f'k0={k0} s0={s0} B={B} T0={T0}{" loud" if loud else ""}'
+        sums = conv_stack.conv_stats(audio, w0, k0, s0)
+        worst['plain'] = max(worst['plain'], check(
+            f'B10 conv_stats {name}', sums,
+            conv_stack.conv_stats_reference(audio, w0, k0, s0), atol=1e-3,
+            rtol=1e-4, quiet=True))
+        worst['fp64'] = max(worst['fp64'], check(
+            f'B10 conv_stats {name} against fp64', sums,
+            stats_fp64(audio, w0, k0, s0), atol=1e-3, rtol=1e-4, quiet=True))
+        first = (w0, k0, s0, sums, gn.scale, gn.bias)
+        act, count = conv_stack.conv0_gelu_counted(audio, *first)
+        plain = conv_stack.conv0_gelu_reference(audio, *first)
+        worst['conv0'] = max(worst['conv0'], check(
+            f'B10 conv0_gelu {name}', act, plain, atol=1e-3, rtol=1e-2,
+            quiet=True))
+        guarded += count.item()
+        apart += (act != plain).sum().item()
+        outputs += act.numel()
+    print(f'B10 conv_stats at (k0, s0) {B10_STATS_CONV0}, B = 1, 3, T0 '
+          f'{B10_STATS_T0}, normal and loud (DC offset): max |kernel - '
+          f'plain| {worst["plain"]:.3g}, max |kernel - fp64| '
+          f'{worst["fp64"]:.3g} (atol 1e-3 rtol 1e-4 in each case)',
+          flush=True)
+    print(f'B10 conv0_gelu on those statistics: max |kernel - plain| '
+          f'{worst["conv0"]:.3g} (atol 1e-3 rtol 1e-2 in each case); its '
+          f'GELU guard left {guarded / outputs:.3e} of the {outputs} outputs '
+          f'to tanhf; {apart / outputs:.3e} differ from the plain version\'s '
+          f'bits', flush=True)
 
 
 @torch.no_grad()
@@ -2745,6 +2824,7 @@ def b10_odd_shape_checks(taps, gn, kernel, stride, dev):
     1e-2), on its own seeded inputs."""
     from ppgs_tpu_torch.ops import conv_stack
 
+    b10_conv0_checks(gn, dev)
     gen = torch.Generator(device=dev).manual_seed(SEED + 83)
     C = conv_stack.CHANNELS
     k0, s0, k1, s1 = kernel[0], stride[0], kernel[1], stride[1]
@@ -2870,12 +2950,24 @@ def w2v2fb_kernel_checks(port, trunk, head, head_config, dev, gen):
         'B10 conv_stats (sum, sum of squares)', sums,
         conv_stack.conv_stats_reference(audio, taps.w0, k[0], s[0]),
         atol=1e-3, rtol=1e-4)
+    check('B10 conv_stats against fp64', sums,
+          stats_fp64(audio, taps.w0, k[0], s[0]), atol=1e-3, rtol=1e-4)
+    if not torch.equal(sums, conv_stack.conv_stats(audio, taps.w0, k[0],
+                                                   s[0])):
+        raise AssertionError('B10 conv_stats: a second call on the same '
+                             'audio differs from the first')
     first = (taps.w0, k[0], s[0], sums, gn.scale, gn.bias)
+    act, count = conv_stack.conv0_gelu_counted(audio, *first)
+    plain = conv_stack.conv0_gelu_reference(audio, *first)
     err['conv0_gelu'] = check(
-        'B10 conv0_gelu (conv 0 + GroupNorm + GELU: conv 1\'s input)',
-        conv_stack.conv0_gelu(audio, *first),
-        conv_stack.conv0_gelu_reference(audio, *first), atol=1e-3,
-        rtol=1e-2)
+        'B10 conv0_gelu (conv 0 + GroupNorm + GELU: conv 1\'s input)', act,
+        plain, atol=1e-3, rtol=1e-2)
+    guard_share = count.item() / act.numel()
+    apart = (act != plain).float().mean().item()
+    print(f'B10 conv0_gelu: its GELU guard left {guard_share:.3e} of the '
+          f'outputs to tanhf; {apart:.3e} differ from the plain version\'s '
+          f'bits', flush=True)
+    del act, plain
     x1 = conv_stack.conv_gelu(audio, taps.w1, k[1], s[1], first)
     err['conv_gelu_first'] = check(
         'B10 conv_gelu first form (conv0_gelu, then conv 1)', x1,
@@ -3207,28 +3299,60 @@ def w2v2fb_times(port, trunk, head_config, head_path, inputs, err,
     w2_oik = taps.w2.view(k[2], Cc, Cc).permute(2, 1, 0).contiguous()
     x1 = c['x1']
     x1_nct = x1.transpose(1, 2).contiguous()
+    # conv_stats' bound: the audio read once (its Gram route's fp64
+    # products, 2 B T0 (k0 (k0 + 1) / 2 + k0) FLOP, take less at the fp64
+    # tensor peak); the direct route's bound counted conv 0's operations
+    stats_flops = 2 * B * T0 * (k[0] * (k[0] + 1) // 2 + k[0])
+    direct_ms = bound(2 * B * T0 * k[0] * Cc, 0)[0]
+
+    def library_stats():
+        # cuDNN's bf16 conv 0, then the sums over the frames
+        x = F.conv1d(a16[:, None], w0_oik, stride=s[0]).float()
+        return torch.stack([x.sum(-1), (x * x).sum(-1)], 1)
+
     records.append(timed_record(
         'conv_stats', 'conv_stack.cu', 'ppgs_tpu/ops/conv_stack.py:109',
         stack_launches['conv_stats'], err['conv_stats'], (
             lambda: conv_stack.conv_stats(a16, taps.w0, k[0], s[0]),
             lambda: conv_stack.conv_stats_reference(a16, taps.w0, k[0],
                                                     s[0]),
-            None),
-        (2 * B * T0 * k[0] * Cc, B * S * 2 + k[0] * Cc * 2 + B * 2 * Cc * 4),
+            library_stats),
+        (stats_flops * PEAK_BF16_FLOPS / PEAK_FP64_FLOPS,
+         B * S * 2 + k[0] * Cc * 2 + B * 2 * Cc * 4),
         card, plain_reps=HEAVY_REPS))
     stats_record = records[-1]
-    # conv 1's input, stored (no one library call computes it: cuDNN's
-    # conv 0, the GroupNorm and GELU are three)
+    device_times('B10 conv_stats', stats_record,
+                 lambda: conv_stack.conv_stats(a16, taps.w0, k[0], s[0]),
+                 'cuDNN conv 0 + sums', card)
+    stats_record['library_device_ms'] = kernel_device_ms(
+        'B10 conv_stats library route (cuDNN conv 0 + sums)', library_stats,
+        card)
+    print(f'conv_stats: bound {stats_record["bound_ms"]:.4f} ms (the audio\'s '
+          f'bytes) [{direct_ms:.4f} ms: the direct route\'s operations, conv 0 '
+          f'formed, which the Gram route does not need] [{card}]', flush=True)
+
+    def library_gn_gelu():
+        # cuDNN's bf16 conv 0, group_norm, GELU and the cast
+        x = F.conv1d(a16[:, None], w0_oik, stride=s[0]).float()
+        return F.gelu(F.group_norm(x, Cc, gn.scale, gn.bias, 1e-5),
+                      approximate='tanh').to(torch.bfloat16)
+
+    # conv 1's input, stored
     records.append(timed_record(
         'conv0_gelu', 'conv_stack.cu', 'ppgs_tpu/ops/conv_stack.py:123',
         stack_launches['conv0_gelu'], err['conv0_gelu'], (
             lambda: conv_stack.conv0_gelu(a16, *first),
-            lambda: conv_stack.conv0_gelu_reference(a16, *first), None),
+            lambda: conv_stack.conv0_gelu_reference(a16, *first),
+            library_gn_gelu),
         (2 * B * T0 * k[0] * Cc, B * S * 2 + k[0] * Cc * 2 + B * 2 * Cc * 4
          + 2 * Cc * 4 + B * T0 * Cc * 2), card, plain_reps=HEAVY_REPS))
-    records[-1]['device_ms'] = kernel_device_ms(
-        'B10 conv0_gelu', lambda: conv_stack.conv0_gelu(a16, *first), card)
     conv0_record = records[-1]
+    device_times('B10 conv0_gelu', conv0_record,
+                 lambda: conv_stack.conv0_gelu(a16, *first),
+                 'cuDNN conv 0 + group_norm + GELU + cast', card)
+    conv0_record['library_device_ms'] = kernel_device_ms(
+        'B10 conv0_gelu library route (cuDNN conv 0 + group_norm + GELU + '
+        'cast)', library_gn_gelu, card)
     records.append(timed_record(
         'conv_gelu_first', 'conv_stack.cu', 'ppgs_tpu/ops/conv_stack.py:123',
         stack_launches['conv_gelu_first'], err['conv_gelu_first'], (

@@ -93,13 +93,13 @@ SIGNATURES = {
     # stream
     'ppgs_fused_mel': ('fused_mel.cu', (_P, _L, _I, _I, _I, _I, _I, _P, _P,
                                         _P, _P)),
-    # audio, S, w0, k0, s0, T0, B, partial, sums, tickets, stream
-    'ppgs_conv_stats': ('conv_stack.cu', (_P, _L, _P, _I, _I, _I, _I, _P,
+    # audio, S, w0, k0, s0, T0, B, tiles, partial, sums, tickets, stream
+    'ppgs_conv_stats': ('conv_stack.cu', (_P, _L, _P, _I, _I, _I, _I, _I, _P,
                                           _P, _P, _P)),
     # audio, S, w0, k0, s0, T0, B, tiles, window, sums, gamma, beta, act,
-    # stream
+    # guarded, stream
     'ppgs_conv0_gelu': ('conv_stack.cu', (_P, _L, _P, _I, _I, _I, _I, _I, _I,
-                                          _P, _P, _P, _P, _P)),
+                                          _P, _P, _P, _P, _P, _P)),
     # x, x_batch, w, k, s, T_out, B, tiles, blocks, out, stream
     'ppgs_conv_gelu': ('conv_stack.cu', (_P, _L, _P, _I, _I, _I, _I, _I, _I,
                                          _P, _P)),

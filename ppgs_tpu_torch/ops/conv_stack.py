@@ -12,9 +12,11 @@ JAX package); without it ``models.w2v2.feature_encoder`` runs plain convs.
 Three kernels, each with its plain version below:
 
 - ``conv_stats``: conv 0's per-channel sum and sum of squares over all
-  its frames (the TPU's ``_stats_kernel``);
+  its frames (the TPU's ``_stats_kernel``), through the patches' fp64 Gram
+  matrix: no conv-0 output is formed;
 - ``conv0_gelu``: conv 1's input, bf16(gelu(GroupNorm(conv 0))) of the
-  audio;
+  audio, conv 0 on the tensor cores and tanhf's bf16 kept by a guarded
+  fast GELU (``gelu_guard_safe``);
 - ``conv_gelu``: one strided conv with GELU as an implicit GEMM on wgmma +
   TMA, in row tiles that stay inside an utterance (``conv_gelu_plan``);
   its first form is conv 1 from the audio, ``conv0_gelu`` then the
@@ -39,7 +41,25 @@ CHANNELS = 512       # the kernels' width (wav2vec2's conv_dim)
 MAX_TAPS = 3         # conv_gelu's taps (wav2vec2's convs 1-6 have 3 or 2)
 BLOCK_ROWS = 128     # conv_gelu's output rows a block (conv_stack.cu BM)
 CONV0_FRAMES = 128   # conv0_gelu's frames a block (conv_stack.cu C0_FRAMES)
-CONV0_SMEM = 48 * 1024    # conv0_gelu's audio window, 16 samples past it
+STATS_FRAMES = 4608  # conv_stats' frames a block at most (conv_stack.cu)
+STATS_SAMPLES = 24576     # and the samples it stages at most
+STATS_WARPS = 8      # its warps, each on groups of STATS_K frames
+STATS_K = 8          # the frames of one fp64 product (m16n8k8)
+STATS_GRAM = MAX_K0 * MAX_K0 + MAX_K0   # a block's partial sums: G, then A
+
+# conv0_gelu's GELU (conv_stack.cu gelu_pair) is the fast form f = x / (1 +
+# 2^z), z = -2 log2(e) sqrt(2 / pi) (x + 0.044715 x^3), by ex2.approx and
+# rcp.approx, where tanhf's form 0.5 x (1 + tanhf(u)) lies within (6 |x| +
+# 12 |f|) 2^-24 of it. In units of 2^-24, tanhf's form lies within 3.07 |x|
+# + 1 |G| of the exact function G (u's 7 roundings through sech^2(u) |u| <=
+# 0.448, tanhf's 2 ulp, 1 + t, the product), the fast form within 2.27 |x|
+# + 10.94 |G| (z's 8 roundings through ln 2 |z|, ex2.approx, 1 + e,
+# rcp.approx, the product). The guard keeps f where f - m and f + m round
+# to the same bf16, with m twice that bound, and takes tanhf's form
+# elsewhere: the output is tanhf's bf16 either way.
+GELU_ERR_ABS = 6 * 2.0 ** -24
+GELU_ERR_REL = 12 * 2.0 ** -24
+GUARD_ABS, GUARD_REL = 2 * GELU_ERR_ABS, 2 * GELU_ERR_REL
 
 
 def supported(config) -> bool:
@@ -68,30 +88,47 @@ def conv_stats_reference(audio, w0, k0, s0):
 def conv_stats(audio, w0, k0, s0):
     """Conv 0's per-channel sum and sum of squares over all its frames
     (``kernels/csrc/conv_stack.cu``): audio (B, S) bf16, w0 (k0, C) bf16
-    -> (B, 2, C) fp32."""
+    -> (B, 2, C) fp32. The kernel sums the patches' A = sum_f p_f and
+    Gram matrix G = sum_f p_f p_f^T in fp64 (bf16 products are exact) and
+    contracts them with w0 (sum = w . A, sum of squares = w^T G w), each
+    rounded once to fp32."""
     if audio.device.type == 'cpu':
         return conv_stats_reference(audio, w0, k0, s0)
     B, S = audio.shape
     dev = audio.device
     kernels.require(audio, 'audio', torch.bfloat16, dev)
     kernels.require(w0, 'w0', torch.bfloat16, dev, (k0, CHANNELS))
-    if not 1 <= k0 <= MAX_K0 or S < k0:
-        raise ValueError(f'conv_stats kernel takes 1 <= k0 <= {MAX_K0} and '
-                         f'S >= k0; got k0={k0}, S={S}')
-    T0 = (S - k0) // s0 + 1
-    tiles = -(-T0 // 256)
-    partial = torch.empty((B, tiles, 2, CHANNELS), dtype=torch.float32,
+    plan = conv_stats_plan(S, k0, s0)
+    partial = torch.empty((B, plan['tiles'], STATS_GRAM), dtype=torch.float64,
                           device=dev)
     tickets = torch.zeros(B, dtype=torch.int32, device=dev)
     sums = torch.empty((B, 2, CHANNELS), dtype=torch.float32, device=dev)
     kernels.launch('ppgs_conv_stats', audio.data_ptr(), S, w0.data_ptr(), k0,
-                   s0, T0, B, partial.data_ptr(), sums.data_ptr(),
-                   tickets.data_ptr(), device=dev)
+                   s0, plan['T0'], B, plan['tiles'], partial.data_ptr(),
+                   sums.data_ptr(), tickets.data_ptr(), device=dev)
     conv_stats.launches += 1
     return sums
 
 
 conv_stats.launches = 0
+
+
+def conv_stats_plan(S, k0, s0):
+    """How ``conv_stats`` cuts its work: a grid of (tiles, B) blocks, block
+    (i, b) staging the samples of conv-0 frames i frames .. (i + 1) frames
+    - 1 of utterance b (below T0; frames = as many as STATS_FRAMES and
+    STATS_SAMPLES allow) and summing them; its warp w takes the groups of
+    STATS_K frames from STATS_K w on, STATS_K STATS_WARPS apart
+    (``tests/test_torch_conv_stack.py`` replays the walk). Returns a dict:
+    T0, frames and tiles, which the wrapper passes to the kernel, whose
+    entry point refuses another. Raises ValueError for what the kernel
+    does not take."""
+    if not 1 <= k0 <= MAX_K0 or s0 < 1 or S < k0:
+        raise ValueError(f'conv_stats kernel takes 1 <= k0 <= {MAX_K0}, s0 '
+                         f'>= 1 and S >= k0; got k0={k0}, s0={s0}, S={S}')
+    T0 = (S - k0) // s0 + 1
+    frames = min(STATS_FRAMES, (STATS_SAMPLES - MAX_K0) // s0 + 1)
+    return {'T0': T0, 'frames': frames, 'tiles': -(-T0 // frames)}
 
 
 def conv_gelu_plan(B, T_in, k, s):
@@ -119,18 +156,16 @@ def conv_gelu_plan(B, T_in, k, s):
 
 def conv0_gelu_plan(S, k0, s0):
     """How ``conv0_gelu`` cuts its work: a grid of (tiles, B) blocks, block
-    (i, b) making conv-0 frames f0 = i CONV0_FRAMES .. of utterance b from
-    at most ``window`` samples from s0 f0 on (zeros past S). Returns a
-    dict: T0, tiles and window, which the wrapper passes to the kernel,
-    whose entry point refuses any others. Raises ValueError for what the
-    kernel does not take."""
+    (i, b) making conv-0 frames f0 = i CONV0_FRAMES .. of utterance b (in
+    steps of 64 rows and 64 columns) from the ``window`` samples from s0 f0
+    on, row r tap k reading sample s0 r + k (none past the frames' last,
+    s0 (T0 - 1) + k0 - 1 < S). Returns a dict: T0, tiles and window,
+    which the wrapper passes to the kernel, whose entry point refuses any
+    others. Raises ValueError for what the kernel does not take."""
     if not 1 <= k0 <= MAX_K0 or s0 < 1:
         raise ValueError(f'conv0_gelu kernel takes 1 <= k0 <= {MAX_K0} and '
                          f's0 >= 1; got k0={k0}, s0={s0}')
     window = s0 * (CONV0_FRAMES - 1) + k0
-    if 4 * (window + 16) > CONV0_SMEM:
-        raise ValueError(f'conv0_gelu: a window of {window} samples (k0='
-                         f'{k0}, s0={s0}) does not fit its shared memory')
     T0 = max((S - k0) // s0 + 1, 0)
     tiles = -(-T0 // CONV0_FRAMES)
     return {'T0': T0, 'tiles': tiles, 'window': window}
@@ -138,6 +173,18 @@ def conv0_gelu_plan(S, k0, s0):
 
 def _gelu_bf16(x):
     return torch.nn.functional.gelu(x, approximate='tanh').to(torch.bfloat16)
+
+
+def gelu_guard_safe(x, fast):
+    """Where ``conv0_gelu`` keeps its fast GELU value ``fast`` of the fp32
+    pre-activation ``x`` (the kernel's guard, in fp32 as it computes it):
+    where fast - m and fast + m, m = GUARD_ABS |x| + GUARD_REL |fast|,
+    round to the same bf16 bits, so that every value within m of ``fast``,
+    tanhf's among them, rounds to them too."""
+    x, fast = x.float(), fast.float()
+    m = GUARD_ABS * x.abs() + GUARD_REL * fast.abs()
+    bits = lambda v: v.to(torch.bfloat16).view(torch.int16)  # noqa: E731
+    return bits(fast + m) == bits(fast - m)
 
 
 def _conv_gelu(x, w, k, s):
@@ -164,6 +211,22 @@ def conv0_gelu(audio, w0, k0, s0, sums, gamma, beta):
     S) with w0 (k0, C) bf16, stride s0, the statistics ``sums`` (B, 2, C)
     from ``conv_stats`` and the GroupNorm's gamma and beta (C) fp32 ->
     (B, T0, C) bf16 (``kernels/csrc/conv_stack.cu``)."""
+    return _conv0_gelu(audio, w0, k0, s0, sums, gamma, beta, None)
+
+
+def conv0_gelu_counted(audio, w0, k0, s0, sums, gamma, beta):
+    """``conv0_gelu``, and an int64 tensor (1,) on the card that counts the
+    outputs whose GELU the kernel took by tanhf (its guard; pairs of
+    columns, so even); None on the CPU, where the plain version runs."""
+    if audio.device.type == 'cpu':
+        return conv0_gelu_reference(audio, w0, k0, s0, sums, gamma,
+                                    beta), None
+    guarded = torch.zeros(1, dtype=torch.int64, device=audio.device)
+    return _conv0_gelu(audio, w0, k0, s0, sums, gamma, beta,
+                       guarded), guarded
+
+
+def _conv0_gelu(audio, w0, k0, s0, sums, gamma, beta, guarded):
     if audio.device.type == 'cpu':
         return conv0_gelu_reference(audio, w0, k0, s0, sums, gamma, beta)
     dev = audio.device
@@ -182,7 +245,9 @@ def conv0_gelu(audio, w0, k0, s0, sums, gamma, beta):
     kernels.launch('ppgs_conv0_gelu', audio.data_ptr(), S, w0.data_ptr(), k0,
                    s0, plan['T0'], B, plan['tiles'], plan['window'],
                    sums.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-                   act.data_ptr(), device=dev)
+                   act.data_ptr(),
+                   None if guarded is None else guarded.data_ptr(),
+                   device=dev)
     conv0_gelu.launches += 1
     return act
 
