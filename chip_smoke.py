@@ -144,10 +144,30 @@ any failure exits non-zero before the result line:
    the scale, SDPA with it as a bf16 mask, timed whole) and its bound; the
    conformer whole with B8 and with its plain version, beside its bound and
    a profile of its library calls; the slice's audio-seconds per second,
-   its peak memory and a torch.profiler breakdown.
+   its peak memory and a torch.profiler breakdown;
+15. the api slice's main path (no kernel of its own): 16 seeded wav files
+   of 0.3-20 s, the mel model's seeded weights (phase 4's) as a
+   JAX-layout .npz and as the reference architecture's .pt state dict:
+   ``from_files_to_files`` on the card, each output ``from_file``'s bit
+   for bit, K1-K4 launched; the .pt route the .npz route's bit for bit;
+   two files (11.3 s, 20 s) against ``device='cpu'``; ``python -m
+   ppgs_tpu_torch --input_paths <dir> --checkpoint <npz>`` as a
+   subprocess, its <stem>-ppg.npy files the API's bit for bit; the loop's
+   audio-seconds per second and the CLI's wall;
+16. the convolution model through ``from_audio`` and the spectrogram
+   frontend at 64 x 8 s with seeded weights and audio, 4 x 2 s of each
+   against ``device='cpu'`` at fp32 1e-4; both walls;
+17. ``distance`` (normalize on and off, each reduction), ``interpolate``,
+   ``sparsify`` (constant 0.02, percentile 0.85, topk 3), every edit and
+   ``grid.sample`` / ``constant`` / ``of_length`` on phase 15's PPGs and a
+   seeded 64 x 40 x 800 batch, each against the same function on CPU
+   copies (spans, argmax selections, changed frames and kept classes
+   exactly; values at 1e-6, the distance at rtol 1e-4); ``sparsify``'s
+   percentile on 64 x 40 x 8000 (past 2^24 elements); the distance and
+   sparsify timed by CUDA events.
 
-``--slices`` (default ``mel,train,w2v2fb,bottleneck``) runs a subset:
-phases 3-5, 6-8, 9-11 and 12-14 respectively. Each phase prints its
+``--slices`` (default ``mel,train,w2v2fb,bottleneck,api``) runs a subset:
+phases 3-5, 6-8, 9-11, 12-14 and 15-17 respectively. Each phase prints its
 seconds. Before the last line it prints one JSON
 object with a record per kernel;
 the last line is {"ok": true, "device": {...}}. Imports nothing of JAX or
@@ -3828,11 +3848,408 @@ def bottleneck_phases(port, workdir, dev, gen, card):
                             inputs, err, launches, audio, card)
 
 
+# The api slice: 16 files of 0.3-20 s (7 past the 500-frame window, so
+# chunked_forward runs), two of them against the CPU; the convolution
+# model and the spectrogram at 64 x 8 s, 4 x 2 s against the CPU; the
+# algebra and edits on the files' PPGs and a 64 x 40 x 800 batch, and the
+# percentile once on 64 x 40 x 8000 (20.5 M elements, past 2^24)
+API_SECONDS = (0.3, 0.7, 1.2, 1.9, 2.6, 3.3, 4.1, 4.9, 5.6, 6.4, 7.7, 9.0,
+               11.3, 13.8, 16.6, 20.0)
+API_CPU_FILES = (12, 15)            # 11.3 s and 20 s: 1130 and 2000 frames
+CONV_BATCH, CONV_SECONDS = 64, 8
+CONV_CPU_ROWS, CONV_CPU_SECONDS = 4, 2
+ALG_B, ALG_T, ALG_LONG_T = 64, 800, 8000
+# The algebra on the card against the CPU: elementwise results at atol
+# 1e-6. The distance in fp64 at atol 1e-6, rtol 1e-8; in fp32 at rtol
+# 1e-4, its per-frame values ('none') at atol 1e-3: the sqrt of a
+# divergence term near 0 turns an ulp of the term into its square root
+# (2^-12 of the term's scale), so two fp32 orders of the same sums differ
+# by ~1e-4 a frame on near-uniform PPGs (5.73e-5 seen in the first run).
+# Sparsified PPGs at rtol 2e-5 too: the softmax sums the dropped classes'
+# 1e-8 terms into the kept mass S >= 1/40, which a sum in another order
+# loses (up to 40 * 1e-8 / S = 1.6e-5 of a value).
+ALG_ATOL, SPARSE_RTOL = 1e-6, 2e-5
+DISTANCE_RTOL, DISTANCE_FRAME_ATOL, DISTANCE64_RTOL = 1e-4, 1e-3, 1e-8
+
+
+def card_cpu(name, got, want, atol, rtol=0.0, quiet=False):
+    """Raise unless |got - want| <= atol + rtol |want| everywhere (``got``
+    from the card, ``want`` from the CPU); return the largest difference
+    and, unless ``quiet``, print it."""
+    got, want = got.detach().double().cpu(), want.detach().double()
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise AssertionError(f'{name}: shape {tuple(got.shape)} against '
+                             f'{tuple(want.shape)}, or non-finite values')
+    err = (got - want).abs()
+    worst = err.max().item() if err.numel() else 0.0
+    if not quiet:
+        print(f'{name}: max |card - cpu| = {worst:.3g} (atol {atol}, rtol '
+              f'{rtol})', flush=True)
+    if (err > atol + rtol * want.abs()).any():
+        raise AssertionError(f'{name}: the card disagrees with the cpu')
+    return worst
+
+
+def reference_state_dict(params, config):
+    """The reference architecture's state dict (ppgs/model/transformer.py:
+    ``input_layer``, ``model`` an ``nn.TransformerEncoder`` of
+    ``nn.TransformerEncoderLayer``, ``output_layer``) holding ``params``,
+    JAX-layout transformer weights: a .pt checkpoint as the published ones
+    are laid out."""
+    C, k = config.hidden_channels, config.kernel_size
+    reference = torch.nn.Module()
+    reference.input_layer = torch.nn.Conv1d(config.input_channels, C, k)
+    reference.model = torch.nn.TransformerEncoder(
+        torch.nn.TransformerEncoderLayer(C, config.attention_heads,
+                                         config.ffn_channels),
+        config.num_hidden_layers, enable_nested_tensor=False)
+    reference.output_layer = torch.nn.Conv1d(C, config.output_channels, k)
+
+    def t(array):
+        return torch.from_numpy(np.ascontiguousarray(array))
+
+    state = {}
+    for name, conv in (('input_layer', 'input_conv'),
+                       ('output_layer', 'output_conv')):
+        state[f'{name}.weight'] = t(params[conv]['weight'].transpose(2, 1, 0))
+        state[f'{name}.bias'] = t(params[conv]['bias'])
+    for i, layer in enumerate(params['layers']):
+        p, a, f = f'model.layers.{i}.', layer['attn'], layer['ffn']
+        state[p + 'self_attn.in_proj_weight'] = t(np.concatenate(
+            [a[f'w{n}'].T for n in 'qkv']))
+        state[p + 'self_attn.in_proj_bias'] = t(np.concatenate(
+            [a[f'b{n}'] for n in 'qkv']))
+        state[p + 'self_attn.out_proj.weight'] = t(a['wo'].T)
+        state[p + 'self_attn.out_proj.bias'] = t(a['bo'])
+        state[p + 'linear1.weight'] = t(f['w1'].T)
+        state[p + 'linear1.bias'] = t(f['b1'])
+        state[p + 'linear2.weight'] = t(f['w2'].T)
+        state[p + 'linear2.bias'] = t(f['b2'])
+        for norm in ('norm1', 'norm2'):
+            state[f'{p}{norm}.weight'] = t(layer[norm]['scale'])
+            state[f'{p}{norm}.bias'] = t(layer[norm]['bias'])
+    reference.load_state_dict(state, strict=True)
+    return reference.state_dict()
+
+
+def api_files(port, config, workdir, card):
+    """Phase 15: from_files_to_files and the CLI on 16 seeded wav files,
+    from the .npz and the .pt of one set of seeded weights; returns the
+    files' PPGs (on the card)."""
+    from ppgs_tpu_torch.ops import encoder_layer_kernel as elk
+    from ppgs_tpu_torch.ops import flash_attention as fa
+    from ppgs_tpu_torch.ops import fused_ffn
+
+    workdir = Path(workdir)
+    params = random_params(port, config, SEED)       # phase 4's weights
+    npz, pt = workdir / 'api-mel.npz', workdir / 'api-mel.pt'
+    port.load.save_params(npz, params)
+    torch.save({'model': reference_state_dict(params, config)}, pt)
+    wav_dir = workdir / 'api-wavs'
+    wav_dir.mkdir()
+    rng = np.random.default_rng(SEED + 15)
+    wavs = []
+    for i, seconds in enumerate(API_SECONDS):
+        wavs.append(wav_dir / f'utt{i:02d}.wav')
+        port.data.audio.save_wav(wavs[-1], (0.1 * rng.standard_normal(
+            (1, int(seconds * config.sample_rate)))).astype(np.float32))
+    outs = [workdir / f'{w.stem}.npy' for w in wavs]
+    pt_outs = [workdir / f'{w.stem}-pt.npy' for w in wavs]
+
+    counters = {'qkv_proj': elk.qkv_proj, 'attention': fa.attention,
+                'out_proj_residual_ln': elk.out_proj_residual_ln,
+                'ffn_residual_ln': fused_ffn.ffn_residual_ln}
+    set_counts(counters)
+    port.from_files_to_files(wavs, outs, checkpoint=npz)
+    launches, _ = read_counts(counters)
+    print(f'launches in one from_files_to_files call ({len(wavs)} files): '
+          f'{launches}', flush=True)
+    if min(launches.values()) == 0:
+        raise AssertionError(f'a kernel of the main path never launched: '
+                             f'{launches}')
+
+    ppgs = []
+    for wav, out, seconds in zip(wavs, outs, API_SECONDS):
+        got = torch.from_numpy(np.load(out))
+        frames = port.ops.stft.frame_count(int(seconds * config.sample_rate),
+                                           config.num_fft, config.hopsize)
+        want = port.from_file(wav, checkpoint=npz)
+        if (tuple(got.shape) != (config.output_channels, frames)
+                or not torch.equal(got, want.cpu())):
+            raise AssertionError(f'{out.name}: from_files_to_files is not '
+                                 f'from_file on the card bit for bit')
+        ppgs.append(want)
+    print(f'from_files_to_files: each of the {len(wavs)} outputs equals '
+          f'from_file bit for bit', flush=True)
+    port.from_files_to_files(wavs, pt_outs, checkpoint=pt)
+    for out, pt_out in zip(outs, pt_outs):
+        if not np.array_equal(np.load(out), np.load(pt_out)):
+            raise AssertionError(f'{pt_out.name}: the .pt route is not the '
+                                 f'.npz route bit for bit')
+    print('from_files_to_files from the .pt checkpoint: bit for bit the '
+          '.npz route', flush=True)
+    for i in API_CPU_FILES:
+        agree(f'{wavs[i].name} ({API_SECONDS[i]} s) against device=cpu',
+              ppgs[i][None],
+              port.from_file(wavs[i], checkpoint=npz, device='cpu')[None],
+              port.from_file(wavs[i], checkpoint=npz, device='cpu',
+                             config=config.replace(
+                                 compute_dtype='float32'))[None])
+
+    cli = [sys.executable, '-m', 'ppgs_tpu_torch', '--input_paths',
+           str(wav_dir), '--checkpoint', str(npz)]
+    start = time.perf_counter()
+    result = subprocess.run(cli, cwd=Path(__file__).resolve().parent,
+                            capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - start
+    if result.returncode:
+        raise AssertionError(f'python -m ppgs_tpu_torch exited '
+                             f'{result.returncode}:\n{result.stderr}')
+    for wav, out in zip(wavs, outs):
+        written = wav.with_name(wav.stem + '-ppg.npy')
+        if not np.array_equal(np.load(written), np.load(out)):
+            raise AssertionError(f'{written.name}: the CLI is not the API '
+                                 f'bit for bit')
+    print(f'python -m ppgs_tpu_torch wrote {len(wavs)} <stem>-ppg.npy '
+          f'files, each the API\'s bit for bit', flush=True)
+
+    audio_s = sum(API_SECONDS)
+    loop_s = median_seconds(
+        lambda: port.from_files_to_files(wavs, outs, checkpoint=npz), reps=3)
+    print(f'from_files_to_files on {len(wavs)} files ({audio_s:.1f} audio-s): '
+          f'{loop_s * 1e3:.3f} ms (median of 3), {audio_s / loop_s:.1f} '
+          f'audio-s/s [{card}]', flush=True)
+    print(f'the CLI (a new process: start, model load, {len(wavs)} files): '
+          f'{cli_s:.3f} s wall [{card}]', flush=True)
+    return ppgs
+
+
+def api_models(port, workdir, dev, gen, card):
+    """Phase 16: the convolution model through from_audio and the
+    spectrogram frontend, each at 64 x 8 s on the card and 4 x 2 s against
+    the CPU; returns the convolution model's PPGs."""
+    conv_config = port.config.get('convolution')
+    npz = Path(workdir) / 'api-convolution.npz'
+    port.load.save_params(npz, port.models.convolution.init(
+        conv_config, torch.Generator().manual_seed(SEED + 16)))
+    samples = CONV_SECONDS * conv_config.sample_rate
+    audio = 0.1 * torch.randn(CONV_BATCH, 1, samples, generator=gen,
+                              device=dev)
+    small = audio[:CONV_CPU_ROWS, :, :CONV_CPU_SECONDS
+                  * conv_config.sample_rate].contiguous()
+    frames = port.ops.stft.frame_count(samples, conv_config.num_fft,
+                                       conv_config.hopsize)
+
+    def conv_call():
+        return port.from_audio(audio, checkpoint=npz, config=conv_config)
+
+    ppg = conv_call()
+    check_ppg('convolution from_audio', ppg, audio,
+              (CONV_BATCH, conv_config.output_channels, frames))
+    card_cpu(f'convolution from_audio {CONV_CPU_ROWS} x {CONV_CPU_SECONDS} s',
+             port.from_audio(small, checkpoint=npz, config=conv_config),
+             port.from_audio(small.cpu(), checkpoint=npz, config=conv_config,
+                             device='cpu'), atol=1e-4, rtol=1e-4)
+    conv_s = median_seconds(conv_call)
+
+    spectrogram = port.preprocess.get('spectrogram')
+    mags = spectrogram.from_audios(audio)
+    if (tuple(mags.shape) != (CONV_BATCH, conv_config.num_fft // 2 + 1,
+                              frames)
+            or mags.device != audio.device or not torch.isfinite(mags).all()):
+        raise AssertionError(f'spectrogram: shape {tuple(mags.shape)}, not '
+                             f'finite or not on the card')
+    card_cpu(f'spectrogram {CONV_CPU_ROWS} x {CONV_CPU_SECONDS} s',
+             spectrogram.from_audios(small),
+             spectrogram.from_audios(small.cpu(), device='cpu'),
+             atol=1e-4, rtol=1e-4)
+    spec_s = median_seconds(lambda: spectrogram.from_audios(audio))
+    audio_s = CONV_BATCH * CONV_SECONDS
+    print(f'convolution from_audio {CONV_BATCH} x {CONV_SECONDS} s: '
+          f'{conv_s * 1e3:.3f} ms (median of 5), {audio_s / conv_s:.1f} '
+          f'audio-s/s; spectrogram: {spec_s * 1e3:.3f} ms (median of 5) '
+          f'[{card}]', flush=True)
+    return ppg
+
+
+def kept(out):
+    """The classes a sparsified frame kept: a dropped class comes out as
+    1e-8 / S <= 5e-7 (S, the kept mass, is above 0.02 at these
+    thresholds), a kept one at least as its probability, above 1e-6 in
+    these PPGs."""
+    return out > 1e-6
+
+
+def held(tally, who, label, got, want, atol, rtol=0.0):
+    """``card_cpu`` on ``who``'s ``label``, quietly; ``tally`` keeps the
+    largest difference and the count of each (label, atol, rtol)."""
+    worst = card_cpu(f'{who} {label}', got, want, atol, rtol, quiet=True)
+    top, count = tally.get((label, atol, rtol), (0.0, 0))
+    tally[label, atol, rtol] = (max(top, worst), count + 1)
+
+
+def sparsify_checks(tally, name, ppg):
+    """sparsify by each method on the card against the CPU: the kept
+    classes exactly, the values at ALG_ATOL and SPARSE_RTOL."""
+    from ppgs_tpu_torch.ops import algebra
+
+    for method, threshold in (('constant', 0.02), ('percentile', 0.85),
+                              ('topk', 3)):
+        got = algebra.sparsify(ppg, method, threshold)
+        want = algebra.sparsify(ppg.cpu(), method, threshold)
+        if not torch.equal(kept(got).cpu(), kept(want)):
+            raise AssertionError(f'{name} sparsify {method}: the kept '
+                                 f'classes differ from the cpu\'s')
+        held(tally, name, f'sparsify {method} {threshold} (kept classes '
+             f'exact)', got, want, ALG_ATOL, SPARSE_RTOL)
+
+
+def edit_checks(tally, name, ppg):
+    """Every edit and the grid functions on a (40, T) PPG on the card
+    against the same on its CPU copy: argmax spans and the frames an edit
+    changed exactly, the values at ALG_ATOL; the grids within an ulp of
+    T - 1."""
+    from ppgs_tpu_torch import edit
+    from ppgs_tpu_torch.edit import grid
+    from ppgs_tpu_torch.phonemes import PHONEMES
+
+    cpu = ppg.cpu()
+    runs = torch.unique_consecutive(cpu.argmax(0))
+    pattern = [PHONEMES[int(i)] for i in runs[:2]]
+    targets = [PHONEMES[(int(i) + 7) % len(PHONEMES)] for i in runs[:2]]
+    spans = edit.regex_find(ppg, pattern)
+    if not spans or spans != edit.regex_find(cpu, pattern):
+        raise AssertionError(f'{name} regex_find {pattern}: {spans} on the '
+                             f'card, other spans on the cpu')
+    cases = (('reallocate', ('aa', 'iy')), ('reallocate', ('s', 'z', 0.01)),
+             ('swap', ('f', 'v')), ('shift', ('sh', 0.3)),
+             ('shift', ('m', -0.1)), ('regex', (pattern, targets)),
+             ('regex', (pattern, targets, True)))
+    for (fn, args), label in zip(cases, (
+            "reallocate('aa', 'iy')", "reallocate('s', 'z', 0.01)",
+            "swap('f', 'v')", "shift('sh', 0.3)", "shift('m', -0.1)",
+            'regex (swap the first two runs)',
+            'regex (reallocate the first two runs)')):
+        got = getattr(edit, fn)(ppg, *args)
+        want = getattr(edit, fn)(cpu, *args)
+        if not torch.equal((got != ppg).any(0).cpu(), (want != cpu).any(0)):
+            raise AssertionError(f'{name} {fn}{args}: it changed other '
+                                 f'frames on the card')
+        held(tally, name, f'{label} (changed frames exact)', got, want,
+             ALG_ATOL)
+    if not torch.equal(ppg.cpu(), cpu):
+        raise AssertionError(f'{name}: an edit wrote its input')
+    T = ppg.shape[-1]
+    ulp = float(np.spacing(np.float32(T - 1)))
+    for label, g, g_cpu in (
+            ('of_length 2T - 1', grid.of_length(ppg, 2 * T - 1),
+             grid.of_length(cpu, 2 * T - 1)),
+            ('constant 0.8', grid.constant(ppg, 0.8),
+             grid.constant(cpu, 0.8)),
+            ('constant 1.25', grid.constant(ppg, 1.25),
+             grid.constant(cpu, 1.25))):
+        held(tally, name, f'grid {label} (within an ulp of T - 1)', g, g_cpu,
+             ulp)
+        held(tally, name, f'grid.sample on the {label} grid',
+             grid.sample(ppg, g), grid.sample(cpu, g.cpu()), ALG_ATOL)
+
+
+def api_algebra(ppgs, dev, gen, card):
+    """Phase 17: distance, interpolate, sparsify, the edits and the grids
+    on the card against the CPU, on phase 15's PPGs and a seeded 64 x 40 x
+    800 batch; sparsify's percentile on 64 x 40 x 8000; the distance and
+    sparsify timed."""
+    from ppgs_tpu_torch.edit import grid
+    from ppgs_tpu_torch.ops import algebra
+
+    def batch(T):
+        logits = 3 * torch.randn(ALG_B, 40, T, generator=gen, device=dev)
+        return torch.softmax(logits, dim=1)
+
+    x, y = batch(ALG_T), batch(ALG_T)
+    tally = {}
+    # Each file's PPG beside the next one's resampled to its length
+    pairs = [(f'file {i}', p, grid.sample(q, grid.of_length(q, p.shape[-1])))
+             for i, (p, q) in enumerate(zip(ppgs, ppgs[1:] + ppgs[:1]))]
+    pairs.append((f'batch {ALG_B} x 40 x {ALG_T}', x, y))
+    for name, p, q in pairs:
+        for normalize, reduction in itertools.product(
+                (True, False), ('mean', 'sum', 'none')):
+            label = f'distance normalize={normalize} {reduction}'
+            p64, q64 = p.double(), q.double()
+            held(tally, name, f'{label} (fp64)',
+                 algebra.distance(p64, q64, reduction, normalize),
+                 algebra.distance(p64.cpu(), q64.cpu(), reduction,
+                                  normalize), ALG_ATOL, DISTANCE64_RTOL)
+            held(tally, name, label,
+                 algebra.distance(p, q, reduction, normalize),
+                 algebra.distance(p.cpu(), q.cpu(), reduction, normalize),
+                 DISTANCE_FRAME_ATOL if reduction == 'none' else ALG_ATOL,
+                 DISTANCE_RTOL)
+        t = torch.rand(p.shape[-1], generator=gen, device=dev)
+        for label, interp, interp_cpu in (('0.3', 0.3, 0.3),
+                                          ('per frame', t, t.cpu())):
+            held(tally, name, f'interpolate {label}',
+                 algebra.interpolate(p, q, interp),
+                 algebra.interpolate(p.cpu(), q.cpu(), interp_cpu), ALG_ATOL)
+        sparsify_checks(tally, name, p)
+    for i in API_CPU_FILES:
+        edit_checks(tally, f'file {i}', ppgs[i])
+    # The batch's frames laid end to end as one (40, 51,200) PPG
+    edit_checks(tally, f'batch frames (40, {ALG_B * ALG_T})',
+                x.permute(1, 0, 2).reshape(40, -1))
+    for (label, atol, rtol), (worst, count) in tally.items():
+        print(f'{label}: max |card - cpu| = {worst:.3g} over {count} PPGs '
+              f'(atol {atol:.3g}, rtol {rtol})', flush=True)
+    long = batch(ALG_LONG_T)
+    out = algebra.sparsify(long, 'percentile', 0.85)
+    col = (out.sum(dim=1) - 1).abs().max().item()
+    if not torch.isfinite(out).all() or col > 1e-4:
+        raise AssertionError(f'sparsify percentile on {tuple(long.shape)}: '
+                             f'not finite or columns off 1 by {col}')
+    want = algebra.sparsify(long[:1].cpu(), 'percentile', 0.85)
+    if not torch.equal(kept(out[:1]).cpu(), kept(want)):
+        raise AssertionError('sparsify percentile on the long batch: the '
+                             'kept classes of row 0 differ from the cpu\'s')
+    card_cpu(f'sparsify percentile 0.85 on {tuple(long.shape)} '
+             f'({long.numel():,} elements), row 0', out[:1], want, ALG_ATOL,
+             SPARSE_RTOL)
+    del long, out
+
+    for label, fn in (
+            ('distance normalize=True mean',
+             lambda: algebra.distance(x, y)),
+            ('distance normalize=False none',
+             lambda: algebra.distance(x, y, 'none', False)),
+            ('sparsify percentile 0.85', lambda: algebra.sparsify(x)),
+            ('sparsify topk 3', lambda: algebra.sparsify(x, 'topk', 3)),
+            ('sparsify constant 0.02',
+             lambda: algebra.sparsify(x, 'constant', 0.02))):
+        print(f'{label} on {ALG_B} x 40 x {ALG_T}: {time_ms(fn):.4f} ms '
+              f'(median of {REPS}, CUDA events) [{card}]', flush=True)
+
+
+def api_phases(port, config, workdir, dev, gen, card):
+    """Phases 15-17: the api slice (no kernel of its own: the file loop
+    runs K1-K4)."""
+    phase(f'15 from_files_to_files and the CLI: {len(API_SECONDS)} files of '
+          f'{API_SECONDS[0]}-{API_SECONDS[-1]} s, from .npz and .pt (main '
+          f'path)')
+    ppgs = api_files(port, config, workdir, card)
+    phase(f'16 the convolution model and the spectrogram: {CONV_BATCH} x '
+          f'{CONV_SECONDS} s')
+    api_models(port, workdir, dev, gen, card)
+    phase(f'17 algebra and editing: the files\' PPGs, {ALG_B} x 40 x '
+          f'{ALG_T}, percentile on {ALG_B} x 40 x {ALG_LONG_T}')
+    api_algebra(ppgs, dev, gen, card)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument('--slices', default='mel,train,w2v2fb,bottleneck',
+    parser.add_argument('--slices',
+                        default='mel,train,w2v2fb,bottleneck,api',
                         help='comma-separated subset of mel,train,w2v2fb,'
-                        'bottleneck')
+                        'bottleneck,api')
     slices = set(parser.parse_args().slices.split(','))
     if not torch.cuda.is_available():
         sys.exit('chip_smoke.py needs a CUDA device; none is available')
@@ -3872,6 +4289,8 @@ def main():
         records += w2v2fb_phases(port, workdir.name, dev, gen, card)
     if 'bottleneck' in slices:
         records += bottleneck_phases(port, workdir.name, dev, gen, card)
+    if 'api' in slices:
+        api_phases(port, config, workdir.name, dev, gen, card)
     phase()
 
     workdir.cleanup()

@@ -17,6 +17,11 @@ whose grouped positional conv (k, C/G, C) becomes torch's (C, C/G, k), and
 for the conformer (``conformer_params_from_jax``, ``prepare_conformer``),
 whose module keeps the JAX layout; ``conformer_params_from_state_dict``
 converts the reference's ESPnet checkpoint to that layout without JAX.
+The reference's own ``.pt`` checkpoints of the transformer and the
+convolution model map to the JAX layout here too
+(``transformer_params_from_state_dict``,
+``convolution_params_from_state_dict``), and the convolution model's npz
+onto its module (``convolution_params_from_jax``).
 """
 
 import math
@@ -60,6 +65,17 @@ def params_from_jax(flat):
     if flat:
         raise ValueError(f'Unmapped JAX parameters: {sorted(flat)}')
     return state
+
+
+def convolution_params_from_jax(flat):
+    """Map a flat JAX convolution-model parameter dict (``conv1``,
+    ``conv2``, ``conv3``, each (K, I, O) with its bias) onto the state dict
+    of ``models.convolution.Convolution``: the weights to torch's (O, I,
+    K). ``load_state_dict(strict=True)`` refuses a leftover or missing
+    key."""
+    return {key: _tensor(np.asarray(value).transpose(2, 1, 0)
+                         if key.endswith('.weight') else value)
+            for key, value in flat.items()}
 
 
 @torch.no_grad()
@@ -335,3 +351,66 @@ def adam_state_from_jax(model, optimizer, count, mu, nu):
             'exp_avg': mu[name].to(param.device, param.dtype).clone(),
             'exp_avg_sq': nu[name].to(param.device, param.dtype).clone(),
         }
+
+
+###############################################################################
+# The reference's .pt checkpoints -> the JAX layout (a numpy copy of
+# ppgs_tpu/convert/torch_weights.py)
+###############################################################################
+
+
+def load_torch_checkpoint(path):
+    """A reference ``.pt`` checkpoint as a flat {name: numpy array}, its
+    state dict taken from under 'model' when it is nested there. The file
+    is unpickled with ``weights_only``: one that holds anything but
+    tensors and plain containers is refused."""
+    state_dict = torch.load(path, map_location='cpu', weights_only=True)
+    if 'model' in state_dict:
+        state_dict = state_dict['model']
+    return {k: v.detach().cpu().numpy() for k, v in state_dict.items()}
+
+
+def _reference_conv(sd, prefix):
+    return {'weight': np.transpose(sd[f'{prefix}.weight'], (2, 1, 0)),
+            'bias': sd[f'{prefix}.bias']}
+
+
+def transformer_params_from_state_dict(sd, num_layers=5):
+    """Map the reference Transformer's state dict (numpy arrays) onto the
+    JAX package's pytree: Conv1d (O, I, K) -> (K, I, O), the packed
+    in-projection (3C, C) -> wq, wk, wv each (C, C) transposed, Linear
+    (out, in) -> (in, out)."""
+    params = {'input_conv': _reference_conv(sd, 'input_layer'),
+              'output_conv': _reference_conv(sd, 'output_layer'),
+              'layers': []}
+    for i in range(num_layers):
+        p = f'model.layers.{i}'
+        in_w = sd[f'{p}.self_attn.in_proj_weight']
+        in_b = sd[f'{p}.self_attn.in_proj_bias']
+        d = in_w.shape[1]
+        wq, wk, wv = in_w[:d], in_w[d:2 * d], in_w[2 * d:]
+        bq, bk, bv = in_b[:d], in_b[d:2 * d], in_b[2 * d:]
+        params['layers'].append({
+            'attn': {'wq': wq.T, 'wk': wk.T, 'wv': wv.T,
+                     'wo': sd[f'{p}.self_attn.out_proj.weight'].T,
+                     'bq': bq, 'bk': bk, 'bv': bv,
+                     'bo': sd[f'{p}.self_attn.out_proj.bias']},
+            'norm1': {'scale': sd[f'{p}.norm1.weight'],
+                      'bias': sd[f'{p}.norm1.bias']},
+            'norm2': {'scale': sd[f'{p}.norm2.weight'],
+                      'bias': sd[f'{p}.norm2.bias']},
+            'ffn': {'w1': sd[f'{p}.linear1.weight'].T,
+                    'b1': sd[f'{p}.linear1.bias'],
+                    'w2': sd[f'{p}.linear2.weight'].T,
+                    'b2': sd[f'{p}.linear2.bias']},
+        })
+    return params
+
+
+def convolution_params_from_state_dict(sd):
+    """Map the reference Convolution model's state dict (an
+    ``nn.Sequential`` whose convs are entries 0, 2 and 4) onto the JAX
+    package's pytree."""
+    return {'conv1': _reference_conv(sd, '0'),
+            'conv2': _reference_conv(sd, '2'),
+            'conv3': _reference_conv(sd, '4')}

@@ -11,7 +11,7 @@ port drops that bucketing and runs at the true T. The outputs agree (the
 padded frames were masked there), which tests/test_torch_slice.py checks
 at frame counts that are not multiples of the stride.
 
-Not ported yet (ROADMAP.md): from_files_to_files with workers,
+Not ported yet (ROADMAP.md): from_files_to_files with workers (A7),
 from_dataloader, and the context- and data-parallel branches.
 """
 
@@ -79,7 +79,11 @@ def infer(features, lengths, representation='mel', checkpoint=None,
     keep = torch.arange(T, device=device) < phys
     features = features * keep
 
-    if not legacy_mode and T > config.chunk_length:
+    if config.model != 'transformer':
+        # The convolution model takes the features as they are: no
+        # chunking (ppgs_tpu/core.py:121-125)
+        logits = model(features, lengths)
+    elif not legacy_mode and T > config.chunk_length:
         logits = transformer_model.chunked_forward(
             model, features, lengths, true_frames=phys)
     else:
@@ -175,9 +179,43 @@ def from_file_to_file(audio_file, output_file, representation: str = None,
     np.save(output_file, result.cpu().numpy())
 
 
+def from_files_to_files(audio_files, output_files, representation=None,
+                        checkpoint=None, num_workers: int = 0,
+                        max_frames: int = None, legacy_mode: bool = False,
+                        config=None, device=None):
+    """Infer PPGs from audio files and save each as .npy, one file at a
+    time (reference ppgs/core.py:207-272, ``num_workers=0``).
+    ``max_frames`` batches the worker path only, as in the JAX package.
+    The worker path (frame-budget batches from the data loader) waits for
+    the port of the data pipeline: ``num_workers > 0`` raises."""
+    if num_workers > 0:
+        raise NotImplementedError(
+            'from_files_to_files(num_workers > 0) batches through the data '
+            'loader, which ppgs_tpu_torch does not port yet (ROADMAP.md A7); '
+            'pass num_workers=0')
+    device = devices.resolve(device)
+    config = config_mod.get(config)
+    representation = representation or config.representation
+    for audio_file, output_file in zip(audio_files, output_files):
+        from_file_to_file(audio_file, output_file, representation,
+                          checkpoint, legacy_mode, config, device)
+
+
 def resample(audio, sample_rate, target_rate=None):
     """Audio resampling (reference ppgs/core.py:600-609), on the host."""
     from .data import audio as audio_io
 
     target_rate = target_rate or config_mod.default().sample_rate
     return audio_io.resample(np.asarray(audio), sample_rate, target_rate)
+
+
+def representation_file_extension(config=None):
+    """Cache filename suffix for the config's representation (reference
+    ppgs/core.py:612-621), with .npy instead of .pt."""
+    config = config_mod.get(config)
+    if (config.representation == config.best_representation
+            and config.representation_kind == 'ppg'):
+        return '-ppg.npy'
+    if config.representation_kind == 'ppg':
+        return f'-{config.representation}-ppg.npy'
+    return f'-{config.representation}.npy'

@@ -2,7 +2,8 @@
 
 Checkpoints are the JAX package's flat .npz pytrees ('layers.0.attn.wq',
 ...), read and written in the same key layout (``ppgs_tpu/load.py:34-73``),
-so one file serves both packages.
+so one file serves both packages; ``model`` also reads the reference's .pt
+checkpoints.
 """
 
 import functools
@@ -103,12 +104,13 @@ def prepared_model(build, path, device, config):
 def model(checkpoint=None, representation=None, config=None, device=None):
     """Load a model for inference (ppgs/load.py:33-81) -> (model, config).
 
-    ``checkpoint`` is a JAX-package .npz; the reference's .pt checkpoints
-    are converted to .npz with the JAX package's
-    scripts/convert_checkpoint.py (their direct loading is not ported yet).
-    ``device``: None means 'cuda' and raises without a CUDA device
-    (``devices.resolve``). The model comes back with its encoder weights
-    prepared for its compute dtype (``convert.prepare``).
+    ``checkpoint`` is a JAX-package .npz, or a reference .pt checkpoint
+    converted as it is read (``convert.load_torch_checkpoint``, unpickled
+    with ``weights_only``). The module is ``config.model``'s: the
+    transformer or the convolution model. ``device``: None means 'cuda' and
+    raises without a CUDA device (``devices.resolve``). A transformer comes
+    back with its encoder weights prepared for its compute dtype
+    (``convert.prepare``).
     """
     from . import models
 
@@ -125,8 +127,10 @@ def model(checkpoint=None, representation=None, config=None, device=None):
         config = matches[0]
     models.get(config)      # raises for a model that is not ported
     device = devices.resolve(device)
-    # raises for a width the card's kernels do not take yet
-    models.transformer.use_kernels(config, device)
+    transformer = config.model == 'transformer'
+    if transformer:
+        # raises for a width the card's kernels do not take yet
+        models.transformer.use_kernels(config, device)
 
     if checkpoint is None:
         checkpoint = config.local_checkpoint
@@ -144,19 +148,27 @@ def model(checkpoint=None, representation=None, config=None, device=None):
                 f'Checkpoint {checkpoint} not found. Convert the published '
                 f'reference checkpoint with scripts/convert_checkpoint.py')
     checkpoint = Path(checkpoint)
-    if checkpoint.suffix != '.npz':
-        raise ValueError(
-            f'{checkpoint}: ppgs_tpu_torch reads .npz parameter files only; '
-            f'convert .pt checkpoints with scripts/convert_checkpoint.py')
-
-    flat = load_flat(checkpoint)
-    # Training checkpoints nest model params next to optimizer state
-    if any(key.startswith('params.') for key in flat):
-        flat = {key[len('params.'):]: value for key, value in flat.items()
-                if key.startswith('params.')}
-    module = models.transformer.Transformer(config)
-    module.load_state_dict(convert.params_from_jax(flat), strict=True)
-    convert.prepare(module)
+    if checkpoint.suffix == '.pt':
+        sd = convert.load_torch_checkpoint(checkpoint)
+        params = (convert.transformer_params_from_state_dict(
+            sd, num_layers=config.num_hidden_layers) if transformer
+            else convert.convolution_params_from_state_dict(sd))
+        flat = flatten_params(params)
+    else:
+        flat = load_flat(checkpoint)
+        # Training checkpoints nest model params next to optimizer state
+        if any(key.startswith('params.') for key in flat):
+            flat = {key[len('params.'):]: value
+                    for key, value in flat.items()
+                    if key.startswith('params.')}
+    if transformer:
+        module = models.transformer.Transformer(config)
+        module.load_state_dict(convert.params_from_jax(flat), strict=True)
+        convert.prepare(module)
+    else:
+        module = models.convolution.Convolution(config)
+        module.load_state_dict(convert.convolution_params_from_jax(flat),
+                               strict=True)
     return module.to(device).eval().requires_grad_(False), config
 
 

@@ -1,12 +1,13 @@
-from . import bottleneck, mel, w2v2fb
+from . import bottleneck, mel, spectrogram, w2v2fb
 
-_PORTED = {'mel': mel, 'w2v2fb': w2v2fb, 'bottleneck': bottleneck}
+_PORTED = {'mel': mel, 'w2v2fb': w2v2fb, 'bottleneck': bottleneck,
+           'spectrogram': spectrogram}
 
 
 def get(representation: str):
-    """Frontend for a representation. ``mel``, ``w2v2fb`` and ``bottleneck``
-    are ported so far; the other frontends of the JAX package are queued in
-    ROADMAP.md."""
+    """Frontend for a representation. ``mel``, ``w2v2fb``, ``bottleneck``
+    and ``spectrogram`` are ported so far; the other frontends of the JAX
+    package are queued in ROADMAP.md."""
     if representation in _PORTED:
         return _PORTED[representation]
     raise ValueError(

@@ -177,13 +177,19 @@ def test_unported_width_raises_on_the_card(monkeypatch):
 
 
 def test_only_the_transformer_is_ported():
-    """The transformer and the mel, w2v2fb and bottleneck frontends are
-    ported; another model or representation raises, naming ROADMAP.md."""
-    config = ppgs_tpu_torch.config.get('convolution')
-    with pytest.raises(ValueError, match='ROADMAP.md'):
-        ppgs_tpu_torch.models.get(config)
+    """The transformer and convolution models and the mel, w2v2fb,
+    bottleneck and spectrogram frontends are ported; another model (the
+    wav2vec2 ones) or representation raises, naming ROADMAP.md."""
+    for name in ('w2v2fc-pretrained', 'w2v2ft'):
+        with pytest.raises(ValueError, match='ROADMAP.md'):
+            ppgs_tpu_torch.models.get(ppgs_tpu_torch.config.get(name))
+    assert ppgs_tpu_torch.models.get(
+        ppgs_tpu_torch.config.get('convolution'))[1] is (
+        ppgs_tpu_torch.models.convolution.forward)
     assert (ppgs_tpu_torch.preprocess.get('w2v2fb')
             is ppgs_tpu_torch.preprocess.w2v2fb)
+    assert (ppgs_tpu_torch.preprocess.get('spectrogram')
+            is ppgs_tpu_torch.preprocess.spectrogram)
     assert (ppgs_tpu_torch.preprocess.get('bottleneck')
             is ppgs_tpu_torch.preprocess.bottleneck)
     with pytest.raises(ValueError, match='ROADMAP.md'):
