@@ -164,10 +164,39 @@ any failure exits non-zero before the result line:
    copies (spans, argmax selections, changed frames and kept classes
    exactly; values at 1e-6, the distance at rtol 1e-4); ``sparsify``'s
    percentile on 64 x 40 x 8000 (past 2^24 elements); the distance and
-   sparsify timed by CUDA events.
+   sparsify timed by CUDA events;
+18. the data slice (no kernel of its own), in a temporary root that the
+   port's CACHE_DIR, PARTITION_DIR, CLASS_WEIGHT_FILE, EVAL_DIR and
+   RUNS_DIR point at: a seeded corpus named commonvoice (400 wav files of
+   0.5-10 s, tones and noise, each with a TextGrid of seeded phoneme
+   intervals over the 40 phonemes); the native WAV reader built from the
+   port's source and its samples the Python reader's; ``partition.datasets``
+   against the seeded 80/10/10 split recomputed; ``load.phoneme_weights``
+   computed and held to a numpy bincount of the train partition;
+   ``preprocess.datasets(mel)`` on the card, every cache (80, frames)
+   float16, the first batches' caches against the same batches with
+   ``device='cpu'`` within one float16 ulp;
+19. ``train('commonvoice')`` of the mel model at full width and depth with
+   its default loaders (dropout 0.1): 12 steps with the step-0 evaluation
+   and a checkpoint, a resume for 2 whose batches continue an
+   uninterrupted run's, and a run in 5 length buckets (batches of T =
+   300-900, the per-layer path); each step's path and exact launches;
+   ``evaluate.datasets`` on the test partition with batched_test_eval on
+   and off: counts equal, float sums within rtol 1e-6, its JSON files and
+   tensors.npz written, K1-K4 launched;
+20. ``from_files_to_files(num_workers=4)`` over the 400 files with phase
+   4's seeded weights: one (40, frames) output each, K1-K4 launched; the
+   first batch's longest file and 7 others against ``from_dataloader``
+   with ``device='cpu'`` on that batch (bf16 envelope); its audio-s/s
+   beside the file loop's (``num_workers=0``), a torch.profiler breakdown
+   of one ``from_dataloader`` batch with the idle share, the phase's peak
+   device memory.
 
-``--slices`` (default ``mel,train,w2v2fb,bottleneck,api``) runs a subset:
-phases 3-5, 6-8, 9-11, 12-14 and 15-17 respectively. Each phase prints its
+At the end of every run the sha256 of every file under
+``ppgs_tpu/assets/`` is the one read before phase 1.
+
+``--slices`` (default ``mel,train,w2v2fb,bottleneck,api,data``) runs a
+subset: phases 3-5, 6-8, 9-11, 12-14, 15-17 and 18-20 respectively. Each phase prints its
 seconds. Before the last line it prints one JSON
 object with a record per kernel;
 the last line is {"ok": true, "device": {...}}. Imports nothing of JAX or
@@ -175,6 +204,7 @@ of the JAX package.
 """
 
 import argparse
+import hashlib
 import itertools
 import json
 import math
@@ -4244,18 +4274,592 @@ def api_phases(port, config, workdir, dev, gen, card):
     api_algebra(ppgs, dev, gen, card)
 
 
+###############################################################################
+# The data slice (phases 18-20)
+###############################################################################
+
+# A seeded corpus named commonvoice: 400 wav files of 0.5-10 s (~35 min),
+# each with a TextGrid of seeded phoneme intervals
+DATA_FILES, DATA_SECONDS = 400, (0.5, 10.0)
+# train() from it: 12 steps (4 epochs of 3 batches at the mel config's
+# 150,000 frames), then a resume for 2; every batch's longest utterance is
+# past 9 s, so T = 1000 (the whole-layer path). A second run with the
+# train partition in 5 length-sorted buckets takes batches of T = 300-900
+# (T % 8 != 0: the per-layer path) and one of 1000
+DATA_STEPS, DATA_RESUME = 12, 2
+DATA_BUCKETS, DATA_BUCKET_STEPS = 5, 5
+DATA_CPU = 8                     # caches and files held against the CPU
+DATA_WORKERS = 4
+DATA_REPS = 3
+DATA_DIRS = ('CACHE_DIR', 'PARTITION_DIR', 'CLASS_WEIGHT_FILE', 'EVAL_DIR',
+             'RUNS_DIR')
+
+
+def assets_digest():
+    """The sha256 of every file under ppgs_tpu/assets/ (read as bytes)."""
+    root = Path(__file__).resolve().parent / 'ppgs_tpu' / 'assets'
+    return {str(path.relative_to(root)):
+            hashlib.sha256(path.read_bytes()).hexdigest()
+            for path in sorted(root.rglob('*')) if path.is_file()}
+
+
+def data_alignment(port, duration, rng):
+    """Seeded phoneme intervals over [0, duration] (the 40 phonemes,
+    silence among them), in words of 1-4 phonemes."""
+    textgrid = port.data.textgrid
+    cuts = np.sort(rng.uniform(0, duration, max(1, int(duration / 0.08))))
+    edges = np.concatenate([[0.0], cuts, [duration]])
+    labels = rng.integers(0, len(port.PHONEMES), len(edges) - 1)
+    phones = [textgrid.Phoneme(port.PHONEMES[label], float(a), float(b))
+              for label, a, b in zip(labels, edges[:-1], edges[1:])]
+    words, i = [], 0
+    while i < len(phones):
+        n = int(rng.integers(1, 5))
+        words.append(textgrid.Word(f'w{i}', phones[i:i + n]))
+        i += n
+    return textgrid.Alignment(words)
+
+
+def data_corpus(port, config, cache):
+    """Write the corpus; returns {stem: samples}."""
+    rng = np.random.default_rng(SEED + 18)
+    seconds = rng.uniform(*DATA_SECONDS, DATA_FILES)
+    cache.mkdir(parents=True)
+    samples = {}
+    for i, s in enumerate(seconds):
+        stem, n = f'cv{i:04d}', int(s * config.sample_rate)
+        t = np.arange(n) / config.sample_rate
+        tones = rng.uniform(80, 4000, 3)[:, None]
+        gains = rng.uniform(0.02, 0.2, 3)[:, None]
+        phases = rng.uniform(0, 2 * np.pi, 3)[:, None]
+        audio = ((gains * np.sin(2 * np.pi * tones * t + phases)).sum(0)
+                 + 0.02 * rng.standard_normal(n))
+        port.data.audio.save_wav(cache / f'{stem}.wav',
+                                 audio[None].astype(np.float32),
+                                 config.sample_rate)
+        data_alignment(port, n / config.sample_rate, rng).save(
+            cache / f'{stem}.TextGrid')
+        samples[stem] = n
+    return samples
+
+
+def data_native_reader(port, cache):
+    """The port's native WAV reader built from its own source, and its
+    samples those of the Python reader."""
+    start = time.perf_counter()
+    if not port.native.available():
+        raise AssertionError('the native WAV reader did not build')
+    print(f'native WAV reader: {port.native.library_path()} (g++, '
+          f'{time.perf_counter() - start:.1f} s)', flush=True)
+    files = sorted(cache.glob('*.wav'))[:DATA_CPU]
+    arena, lengths = port.data.audio.load_batch(files, num_threads=4)
+    for row, n, f in zip(arena, lengths, files):
+        samples, _ = port.data.audio.load_wav(f)
+        if (n != samples.shape[-1] or not np.array_equal(row[0, :n], samples[0])
+                or not np.array_equal(port.native.wav_read(f)[0],
+                                      samples[0])):
+            raise AssertionError(f'{f.name}: the native reader differs from '
+                                 f'the Python reader')
+    print(f'native wav_read and load_batch on {len(files)} files: the Python '
+          f'reader\'s samples exactly', flush=True)
+
+
+def data_partitions_and_weights(port, config, cache, samples):
+    """partition.datasets against the seeded shuffle recomputed, and the
+    computed phoneme weights against a numpy bincount of the train
+    partition's framewise targets; returns the partition."""
+    import random
+
+    port.partition.datasets(['commonvoice'])
+    got = port.load.partition('commonvoice')
+    stems = sorted(samples)
+    random.seed(config.random_seed)
+    random.shuffle(stems)
+    left, right = int(0.8 * len(stems)), int(0.9 * len(stems))
+    want = {'train': sorted(stems[:left]), 'valid': sorted(stems[left:right]),
+            'test': sorted(stems[right:])}
+    if got != want:
+        raise AssertionError('partition.datasets is not the seeded 80/10/10 '
+                             'split')
+    print(f'partition.datasets: train / valid / test = '
+          f'{[len(got[p]) for p in ("train", "valid", "test")]}, the seeded '
+          f'split recomputed', flush=True)
+
+    weights = port.load.phoneme_weights(config).numpy()
+    counts = np.zeros(config.output_channels, np.int64)
+    hop = config.hopsize / config.sample_rate
+    for stem in got['train']:
+        alignment = port.data.textgrid.Alignment(cache / f'{stem}.TextGrid')
+        phones = list(alignment.phonemes())
+        frames = samples[stem] // config.hopsize
+        times = np.linspace(hop / 2, (frames - 1) * hop + hop / 2, frames)
+        times[-1] = alignment.duration()
+        at = np.minimum(np.searchsorted([p.end for p in phones], times,
+                                        side='right'), len(phones) - 1)
+        labels = np.array([port.PHONEME_TO_INDEX_MAPPING[p.phoneme]
+                           for p in phones])
+        counts += np.bincount(labels[at], minlength=config.output_channels)
+    want = (counts.min() / np.maximum(counts, 1)).astype(np.float32)
+    with np.load(port.config.CLASS_WEIGHT_FILE) as saved:
+        written = saved['weights']
+    if not (np.array_equal(weights, want) and np.array_equal(written, want)):
+        raise AssertionError('load.phoneme_weights differs from a bincount '
+                             'of the train partition')
+    print(f'load.phoneme_weights: computed from {counts.sum():,} train '
+          f'frames and written, equal to a numpy bincount (min weight '
+          f'{want.min():.4f})', flush=True)
+    return got
+
+
+# Caches of the card against the CPU's: the fp32 frontends agree within
+# MEL_ATOL, and a float16 save rounds each side once, so a value may be
+# one float16 ulp apart beyond that; near 0 (a mel energy near 1) an ulp
+# is far below MEL_ATOL
+MEL_ATOL = 1e-4
+
+
+def fp16_apart(got, want):
+    """|got - want| of two float16 arrays as (its largest value, the
+    largest in float16 ulps of want, the share of values more than one ulp
+    apart, the most any value exceeds one ulp + MEL_ATOL)."""
+    want32 = want.astype(np.float32)
+    err = np.abs(got.astype(np.float32) - want32)
+    ulp = np.spacing(np.abs(want)).astype(np.float32)
+    return (float(err.max()), float((err / ulp).max()),
+            float((err > ulp).mean()), float((err - ulp - MEL_ATOL).max()))
+
+
+def data_caches(port, config, root, cache, samples, card):
+    """preprocess.datasets on the card; every cache's shape and dtype; the
+    first batches (>= DATA_CPU files) against the same batches through
+    preprocess.from_dataloader with device='cpu', at one fp16 ulp."""
+    start = time.perf_counter()
+    port.preprocess.datasets(['commonvoice'], ['mel'], config)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    for stem, n in samples.items():
+        cached = np.load(cache / f'{stem}-mel.npy')
+        if (cached.shape != (config.num_mels, n // config.hopsize)
+                or cached.dtype != np.float16
+                or not np.isfinite(cached).all()):
+            raise AssertionError(f'{stem}-mel.npy: {cached.shape} '
+                                 f'{cached.dtype}, or not finite')
+    audio_s = sum(samples.values()) / config.sample_rate
+    print(f'preprocess.datasets(mel) on the card: {len(samples)} caches '
+          f'(80, frames) float16, {wall:.3f} s wall, {audio_s / wall:.1f} '
+          f'audio-s/s [{card}]', flush=True)
+
+    features = ['audio', 'length', 'audio_file']
+    files = port.data.Dataset('commonvoice', None, features,
+                              config=config).audio_files
+    loader = port.data.loader(files, features=features, num_workers=0,
+                              max_frames=config.max_preprocess_frames,
+                              config=config)
+    batches = []
+    for batch in loader.batch_sampler:
+        batches.append(batch)
+        if sum(map(len, batches)) >= DATA_CPU:
+            break
+    cpu = root / 'cpu-caches'
+    cpu.mkdir()
+    port.preprocess.from_dataloader(
+        port.data.Loader(loader.dataset, batches, port.data.Collate(features),
+                         num_workers=0),
+        {str(f): cpu / f.stem for f in files}, ['mel'], config=config,
+        device='cpu')
+    got = np.concatenate([np.load(cache / f'{files[i].stem}-mel.npy')
+                          for i in itertools.chain(*batches)], -1)
+    want = np.concatenate([np.load(cpu / f'{files[i].stem}-mel.npy')
+                           for i in itertools.chain(*batches)], -1)
+    err, ulps, share, over = fp16_apart(got, want)
+    print(f'{sum(map(len, batches))} caches of the first {len(batches)} '
+          f'batches against device=cpu on the same batches ({got.size:,} '
+          f'values): max |card - cpu| {err:.3g}, {ulps:.3g} float16 ulps; '
+          f'{share:.3g} of the values more than one ulp apart; every value '
+          f'within one ulp + {MEL_ATOL}', flush=True)
+    if over > 0:
+        raise AssertionError(f'a cache value of the card is {over:.3g} past '
+                             f'one float16 ulp + {MEL_ATOL} from the cpu\'s')
+
+
+def recording_steps(core, steps, counters):
+    """Make ``core.make_train_step`` hand out steps that record (T, the
+    batch's lengths, the train kernels' launches in the step, the loss);
+    returns the original, to be put back."""
+    original = core.make_train_step
+
+    def make_train_step(*args, **kwargs):
+        step = original(*args, **kwargs)
+
+        def recorded(features, targets, lengths, *rest, **kw):
+            before = {n: f.launches for n, f in counters.items()}
+            train_loss, stats = step(features, targets, lengths, *rest, **kw)
+            steps.append((features.shape[-1], tuple(lengths.tolist()),
+                          {n: f.launches - before[n]
+                           for n, f in counters.items()},
+                          float(train_loss)))
+            return train_loss, stats
+        return recorded
+
+    core.make_train_step = make_train_step
+    return original
+
+
+def check_data_steps(port, config, label, steps):
+    """Each step's launches exactly those of its path (the whole-layer
+    kernel takes T % 8 == 0 up to its longest T); the losses finite.
+    Returns the steps on each path."""
+    L = config.num_hidden_layers
+    longest = port.models.transformer.TRAIN_KERNEL_MAX_T
+    paths = {'whole-layer': 0, 'per-layer': 0}
+    for i, (T, lengths, launches, loss) in enumerate(steps):
+        path = ('whole-layer' if T % 8 == 0 and T <= longest
+                else 'per-layer')
+        paths[path] += 1
+        per_layer = B4_PER_LAYER if path == 'whole-layer' else SPLIT_PER_LAYER
+        want = {name: L * n for name, n in per_layer.items()}
+        print(f'  {label} step {i}: {len(lengths)} x T={T} ({path}), loss '
+              f'{loss:.5f}', flush=True)
+        if launches != want or not math.isfinite(loss):
+            raise AssertionError(f'{label} step {i} (T={T}, {path}): '
+                                 f'launches {launches}, not {want}, or loss '
+                                 f'{loss}')
+    return paths
+
+
+def data_batch_order(port, config, count):
+    """The train loader's first ``count`` (or more) batches, as their
+    lengths, epoch after epoch, and the batches in each epoch."""
+    loader = port.data.loader('commonvoice', 'train', config=config)
+    lengths = loader.dataset.lengths
+    order, sizes = [], []
+    for epoch in itertools.count():
+        if len(order) >= count:
+            break
+        loader.batch_sampler.set_epoch(epoch)
+        batches = list(loader.batch_sampler)
+        sizes.append(len(batches))
+        order += [tuple(lengths[i] for i in b) for b in batches]
+    return order, sizes
+
+
+def data_train(port, config, root, card):
+    """Phase 19, training: train('commonvoice') with its default loaders on
+    the card, a resume, and a run in length buckets (the per-layer path);
+    returns the first run's last checkpoint."""
+    counters = train_counters()
+    core = port.train.core
+    steps = []
+    run = root / 'runs' / 'mel'
+    original = recording_steps(core, steps, counters)
+    try:
+        start = time.perf_counter()
+        port.train.train('commonvoice', run, config=config,
+                         max_steps=DATA_STEPS)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - start
+        first_steps = list(steps)
+        start = time.perf_counter()
+        port.train.train('commonvoice', run, config=config,
+                         max_steps=DATA_STEPS + DATA_RESUME)
+        torch.cuda.synchronize()
+        resumed = time.perf_counter() - start
+        resumed_steps = steps[DATA_STEPS:]
+        del steps[:]
+        bucket_config = config.replace(buckets=DATA_BUCKETS)
+        start = time.perf_counter()
+        port.train.train('commonvoice', root / 'runs' / 'buckets',
+                         config=bucket_config, max_steps=DATA_BUCKET_STEPS)
+        torch.cuda.synchronize()
+        bucketed = time.perf_counter() - start
+        bucket_steps = list(steps)
+    finally:
+        core.make_train_step = original
+
+    frames = sum(sum(lengths) for _, lengths, _, _ in first_steps)
+    print(f'train(\'commonvoice\') with the default loaders: {DATA_STEPS} '
+          f'steps ({frames:,} frames, {frames / 100:.1f} audio-s) with an '
+          f'evaluation at step 0 and a checkpoint, {first:.3f} s wall; the '
+          f'resume ({DATA_RESUME} steps) {resumed:.3f} s; {DATA_BUCKETS} '
+          f'buckets ({DATA_BUCKET_STEPS} steps) {bucketed:.3f} s [{card}]',
+          flush=True)
+    paths = check_data_steps(port, config, 'run',
+                             first_steps + resumed_steps)
+    bucket_paths = check_data_steps(port, config, 'buckets', bucket_steps)
+    total = {p: paths[p] + bucket_paths[p] for p in paths}
+    print(f'train steps by path: the run {paths}, the bucketed run '
+          f'{bucket_paths}; in all {total}', flush=True)
+    if min(total.values()) == 0:
+        raise AssertionError(f'a train path took no step: {total}')
+
+    records = [json.loads(line) for line in
+               (run / 'metrics.jsonl').read_text().splitlines()]
+    valid = [r for r in records if 'valid/loss' in r]
+    if ([r['step'] for r in valid] != [0]
+            or not math.isfinite(valid[0]['valid/loss'])):
+        raise AssertionError(f'the valid evaluation is not at step 0 alone, '
+                             f'or not finite: {valid}')
+    meta = json.loads((run / f'{DATA_STEPS:08d}.json').read_text())
+    order, sizes = data_batch_order(port, config, DATA_STEPS + DATA_RESUME)
+    print(f'valid/loss at step 0: {valid[0]["valid/loss"]:.5f}; '
+          f'{DATA_STEPS:08d}.npz at epoch {meta["epoch"]}; batches per '
+          f'epoch {sizes}', flush=True)
+    taken = [lengths for _, lengths, _, _ in first_steps + resumed_steps]
+    boundary = DATA_STEPS in itertools.accumulate(sizes)
+    if not boundary or taken != order[:DATA_STEPS + DATA_RESUME]:
+        raise AssertionError('the run and its resume did not take the '
+                             'batches of an uninterrupted run (or the first '
+                             'run did not end on an epoch)')
+    print(f'the resume\'s first batch is batch {DATA_STEPS} of an '
+          f'uninterrupted run (epoch {meta["epoch"]}\'s first), and all '
+          f'{len(taken)} batches are the loader\'s epoch by epoch',
+          flush=True)
+    return core.latest_checkpoint(run)
+
+
+def inference_counters():
+    from ppgs_tpu_torch.ops import encoder_layer_kernel as elk
+    from ppgs_tpu_torch.ops import flash_attention as fa
+    from ppgs_tpu_torch.ops import fused_ffn
+
+    return {'qkv_proj': elk.qkv_proj, 'attention': fa.attention,
+            'out_proj_residual_ln': elk.out_proj_residual_ln,
+            'ffn_residual_ln': fused_ffn.ffn_residual_ln}
+
+
+# Batched against batch-1 evaluation on the card. In fp32 (plain PyTorch)
+# the logits agree to fp32 rounding: the counts exactly, the float sums
+# within rtol 1e-6. In bf16 (K1-K4) cuDNN picks its bf16 convs' algorithm
+# by batch size, so a logit may round an ulp the other way: the loss and
+# JSD sums within EVAL_BF16_RTOL, and the true positives may move by the
+# frames whose top two phonemes bf16 does not separate (at most
+# EVAL_BF16_FLIPS of the frames, the bf16 argmax envelope)
+EVAL_BF16_RTOL, EVAL_BF16_FLIPS = 1e-4, 5e-3
+
+
+def eval_apart(name, got, want, exact_floats, rtol):
+    """(the largest relative difference of the float sums compared, the
+    true positives that moved); raises unless the target counts are equal
+    and the floats (all of them when ``exact_floats``, else the loss and
+    the JSD) agree within ``rtol``."""
+    if set(got) != set(want):
+        raise AssertionError(f'{name}: other keys batched')
+    worst, moved = 0.0, 0.0
+    for key, value in want.items():
+        if key.startswith('Count/'):
+            if got[key] != value:
+                raise AssertionError(f'{name} {key}: {got[key]} batched, '
+                                     f'{value} batch-1')
+        elif key.startswith('Total/'):
+            moved += abs(got[key] - value)
+        elif exact_floats or key in ('loss', 'JSD'):
+            err = abs(got[key] - value)
+            worst = max(worst, err / max(abs(value), 1e-30))
+            if err > rtol * abs(value) + 1e-9:
+                raise AssertionError(f'{name} {key}: {got[key]} batched, '
+                                     f'{value} batch-1')
+    return worst, moved
+
+
+def data_evaluate(port, config, checkpoint, card):
+    """Phase 19, evaluation: evaluate.datasets on the test partition with
+    batched_test_eval on and off, in bf16 (K1-K4 launched) and fp32; the
+    JSON files and tensors.npz written."""
+    counters = inference_counters()
+    for dtype in ('float32', 'bfloat16'):
+        results = {}
+        for batched in (True, False):
+            set_counts(counters)
+            start = time.perf_counter()
+            results[batched] = port.evaluate.datasets(
+                ['commonvoice'], checkpoint=checkpoint,
+                config=config.replace(batched_test_eval=batched,
+                                      compute_dtype=dtype))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - start
+            launches, _ = read_counts(counters)
+            if dtype == 'bfloat16' and min(launches.values()) == 0:
+                raise AssertionError(f'evaluate.datasets: a kernel never '
+                                     f'launched: {launches}')
+            print(f'evaluate.datasets ({dtype}, batched_test_eval='
+                  f'{batched}): {wall:.3f} s wall, launches {launches} '
+                  f'[{card}]', flush=True)
+        fp32 = dtype == 'float32'
+        frames = sum(v for k, v in results[False]['aggregate'].items()
+                     if k.startswith('Count/'))
+        for name in ('commonvoice', 'aggregate'):
+            worst, moved = eval_apart(
+                f'{dtype} {name}', results[True][name], results[False][name],
+                fp32, 1e-6 if fp32 else EVAL_BF16_RTOL)
+            limit = 0 if fp32 else EVAL_BF16_FLIPS * frames
+            if moved > limit:
+                raise AssertionError(f'{dtype} {name}: {moved} true '
+                                     f'positives moved batched (<= {limit})')
+        overall = results[True]['aggregate']
+        print(f'{dtype}: batched against batch-1 on {frames:.0f} frames: '
+              f'target counts equal, {moved:.0f} true positives moved (<= '
+              f'{limit:.0f}), float sums within {worst:.3g} relative (<= '
+              f'{1e-6 if fp32 else EVAL_BF16_RTOL}{"" if fp32 else ", loss and JSD"}); '
+              f'accuracy {overall["Accuracy"]:.4f}, loss {overall["loss"]:.5f}, '
+              f'JSD {overall["JSD"]:.5f}', flush=True)
+    eval_dir = port.config.EVAL_DIR / config.config
+    for path in (eval_dir / 'commonvoice.json', eval_dir / 'overall.json',
+                 eval_dir / 'commonvoice' / 'tensors.npz',
+                 eval_dir / 'overall' / 'tensors.npz'):
+        if not path.exists():
+            raise AssertionError(f'{path} was not written')
+    print('the JSON files and tensors.npz written', flush=True)
+
+
+def data_workers(port, config, root, cache, samples, card):
+    """Phase 20: from_files_to_files(num_workers=4) over every file on the
+    card; the outputs' shapes; the first batch's longest file and 7 others
+    against device='cpu' on the same batch geometry; the throughput beside
+    the file loop; a profile of one from_dataloader batch."""
+    checkpoint = root / 'random-mel.npz'
+    port.load.save_params(checkpoint, random_params(port, config, SEED))
+    files = sorted(cache.glob('*.wav'))
+    outs = root / 'ppgs'
+    outs.mkdir()
+    counters = inference_counters()
+    set_counts(counters)
+    start = time.perf_counter()
+    port.from_files_to_files(files, [outs / f'{f.stem}.npy' for f in files],
+                             checkpoint=checkpoint, num_workers=DATA_WORKERS,
+                             config=config)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - start
+    launches, _ = read_counts(counters)
+    if min(launches.values()) == 0:
+        raise AssertionError(f'a kernel of the worker path never launched: '
+                             f'{launches}')
+    for f in files:
+        ppg = np.load(outs / f'{f.stem}.npy')
+        frames = samples[f.stem] // config.hopsize
+        if (ppg.shape != (config.output_channels, frames)
+                or not np.isfinite(ppg).all()
+                or np.abs(ppg.sum(0) - 1).max() > 1e-4):
+            raise AssertionError(f'{f.stem}.npy: shape {ppg.shape}, not '
+                                 f'({config.output_channels}, {frames}), '
+                                 f'or not a softmax')
+    print(f'from_files_to_files(num_workers={DATA_WORKERS}) on {len(files)} '
+          f'files: one (40, frames) output each, {first:.3f} s wall with the '
+          f'model load, launches {launches} [{card}]', flush=True)
+
+    features = ['audio', 'length', 'audio_file']
+    loader = port.data.loader(files, features=features, num_workers=0,
+                              max_frames=config.max_inference_frames,
+                              config=config)
+    batches = list(loader.batch_sampler)
+    lengths = loader.dataset.lengths
+    longest = max(batches[0], key=lambda i: lengths[i])
+    chosen = [longest] + [i for i in batches[0] if i != longest][
+        :DATA_CPU - 1]
+    cpu = {}
+    for dtype in ('bfloat16', 'float32'):
+        directory = root / f'cpu-{dtype}'
+        directory.mkdir()
+        port.from_dataloader(
+            port.data.Loader(loader.dataset, [chosen],
+                             port.data.Collate(features), num_workers=0),
+            {str(f): directory / f'{f.stem}.npy' for f in files},
+            checkpoint=checkpoint,
+            config=config.replace(compute_dtype=dtype), device='cpu')
+        cpu[dtype] = torch.cat([torch.from_numpy(np.load(
+            directory / f'{files[i].stem}.npy')) for i in chosen], -1)[None]
+    card_ppgs = torch.cat([torch.from_numpy(np.load(
+        outs / f'{files[i].stem}.npy')) for i in chosen], -1)[None]
+    agree(f'{len(chosen)} files of the first batch ({len(batches[0])} files, '
+          f'its longest among them) against device=cpu on that batch',
+          card_ppgs, cpu['bfloat16'], cpu['float32'])
+
+    audio_s = sum(samples.values()) / config.sample_rate
+    loop_outs = root / 'loop'
+    loop_outs.mkdir()
+    timed = {}
+    for workers in (DATA_WORKERS, 0):
+        target = outs if workers else loop_outs
+        timed[workers] = median_seconds(lambda: port.from_files_to_files(
+            files, [target / f'{f.stem}.npy' for f in files],
+            checkpoint=checkpoint, num_workers=workers, config=config),
+            reps=DATA_REPS)
+    print(f'{len(files)} files ({audio_s:.1f} audio-s), median of '
+          f'{DATA_REPS}: num_workers={DATA_WORKERS} '
+          f'{timed[DATA_WORKERS]:.3f} s, {audio_s / timed[DATA_WORKERS]:.1f} '
+          f'audio-s/s; the file loop (num_workers=0) {timed[0]:.3f} s, '
+          f'{audio_s / timed[0]:.1f} audio-s/s; '
+          f'{timed[0] / timed[DATA_WORKERS]:.2f}x [{card}]', flush=True)
+
+    batch = next(iter(port.data.Loader(loader.dataset, batches[:1],
+                                       port.data.Collate(features),
+                                       num_workers=0)))
+    frames = int(batch[1].sum()) // config.hopsize
+    by_name = profile_call(
+        f'from_dataloader, one collated batch ({len(batches[0])} files, '
+        f'{frames:,} frames, saves included)',
+        lambda: port.from_dataloader(
+            [batch], {str(f): outs / f'{f.stem}.npy' for f in files},
+            checkpoint=checkpoint, config=config), card)
+    report_groups('from_dataloader batch', by_name, card)
+
+
+def data_phases(port, workdir, card):
+    """Phases 18-20: the data slice (no kernel of its own: its training
+    runs the train kernels, its inference K1-K4)."""
+    config = port.config.get('mel')
+    root = Path(workdir) / 'data'
+    saved = {name: getattr(port.config, name) for name in DATA_DIRS}
+    for name, path in (('CACHE_DIR', 'cache'), ('PARTITION_DIR', 'partitions'),
+                       ('CLASS_WEIGHT_FILE', 'phoneme_weights.npz'),
+                       ('EVAL_DIR', 'eval'), ('RUNS_DIR', 'runs')):
+        setattr(port.config, name, root / path)
+    os.environ.pop('PPGS_NOTIFICATION_URL', None)   # no message is sent
+    cache = root / 'cache' / 'commonvoice'
+    try:
+        phase(f'18 corpus, partitions, weights and caches: {DATA_FILES} '
+              f'seeded wav files of {DATA_SECONDS[0]}-{DATA_SECONDS[1]} s')
+        start = time.perf_counter()
+        samples = data_corpus(port, config, cache)
+        audio_s = sum(samples.values()) / config.sample_rate
+        print(f'corpus: {len(samples)} wav files and TextGrids, '
+              f'{audio_s:.1f} audio-s, written in '
+              f'{time.perf_counter() - start:.1f} s', flush=True)
+        data_native_reader(port, cache)
+        data_partitions_and_weights(port, config, cache, samples)
+        data_caches(port, config, root, cache, samples, card)
+
+        phase(f'19 train(\'commonvoice\') with its default loaders: '
+              f'{DATA_STEPS} steps, a resume for {DATA_RESUME}, '
+              f'{DATA_BUCKETS} buckets; evaluate.datasets')
+        checkpoint = data_train(port, config, root, card)
+        data_evaluate(port, config, checkpoint, card)
+
+        phase(f'20 from_files_to_files(num_workers={DATA_WORKERS}) on the '
+              f'{DATA_FILES} files (main path)')
+        torch.cuda.reset_peak_memory_stats()
+        data_workers(port, config, root, cache, samples, card)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f'peak device memory of phase 20: {peak:.4f} GiB [{card}]',
+              flush=True)
+    finally:
+        for name, value in saved.items():
+            setattr(port.config, name, value)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('--slices',
-                        default='mel,train,w2v2fb,bottleneck,api',
+                        default='mel,train,w2v2fb,bottleneck,api,data',
                         help='comma-separated subset of mel,train,w2v2fb,'
-                        'bottleneck,api')
+                        'bottleneck,api,data')
     slices = set(parser.parse_args().slices.split(','))
     if not torch.cuda.is_available():
         sys.exit('chip_smoke.py needs a CUDA device; none is available')
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     import ppgs_tpu_torch as port
     from ppgs_tpu_torch import kernels
+
+    digest = assets_digest()       # the JAX package's assets, read only
 
     dev = torch.device('cuda')
     # Plain fp32 products and convs in full fp32 (cuDNN runs fp32 convs in
@@ -4291,7 +4895,13 @@ def main():
         records += bottleneck_phases(port, workdir.name, dev, gen, card)
     if 'api' in slices:
         api_phases(port, config, workdir.name, dev, gen, card)
+    if 'data' in slices:
+        data_phases(port, workdir.name, card)
     phase()
+    if assets_digest() != digest:
+        raise AssertionError('a file under ppgs_tpu/assets/ changed')
+    print(f'ppgs_tpu/assets/: the sha256 of its {len(digest)} files '
+          f'unchanged', flush=True)
 
     workdir.cleanup()
     print(json.dumps({'kernels': records}))

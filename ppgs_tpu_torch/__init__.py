@@ -3,7 +3,9 @@
 Phonetic posteriorgrams on an H100: the mel, w2v2fb (wav2vec2-base),
 bottleneck (ESPnet conformer) and spectrogram frontends, the transformer
 and convolution models, the inference API and its CLI (``python -m
-ppgs_tpu_torch``), PPG algebra and editing, and single-device training,
+ppgs_tpu_torch``), PPG algebra and editing, the data pipeline (datasets,
+samplers, the loader, partitions, feature caching), single-device training
+and evaluation,
 with every TPU kernel of the JAX package rewritten by hand in CUDA C++
 (``kernels/csrc``). The JAX package ``ppgs_tpu`` is the
 reference this package is tested against; this package never imports it
@@ -31,10 +33,13 @@ from . import data
 from . import evaluate
 from . import kernels
 from . import load
+from . import native
+from . import partition
 from . import preprocess
 from . import train
 from .core import (
     from_audio,
+    from_dataloader,
     from_features,
     from_file,
     from_file_to_file,

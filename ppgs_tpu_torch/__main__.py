@@ -25,7 +25,7 @@ def parse_args(argv=None):
     parser.add_argument('--config', default=None,
                         help='Named config (mel, w2v2fb, ...)')
     parser.add_argument('--num-workers', type=int, default=0,
-                        help='Data loader workers; only 0 is ported')
+                        help='Data loader workers (0: a file at a time)')
     parser.add_argument('--max-frames', type=int, default=None,
                         help='Maximum frames per inference batch '
                              '(num_workers > 0 path)')

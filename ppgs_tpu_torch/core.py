@@ -11,10 +11,17 @@ port drops that bucketing and runs at the true T. The outputs agree (the
 padded frames were masked there), which tests/test_torch_slice.py checks
 at frame counts that are not multiples of the stride.
 
-Not ported yet (ROADMAP.md): from_files_to_files with workers (A7),
-from_dataloader, and the context- and data-parallel branches.
+File batches (``from_files_to_files(num_workers > 0)``,
+``from_dataloader``) go through the data loader (``data/loader.py``): its
+thread reads and collates numpy batches, the card runs the frontend and
+the model on the main thread, one copy to the host a batch, and a thread
+pool saves the outputs. Not ported yet (ROADMAP.md A14): the context- and
+data-parallel branches (on one card the data-parallel branch is the
+identity).
 """
 
+import concurrent.futures
+from pathlib import Path
 from typing import Dict, Union
 
 import numpy as np
@@ -183,22 +190,94 @@ def from_files_to_files(audio_files, output_files, representation=None,
                         checkpoint=None, num_workers: int = 0,
                         max_frames: int = None, legacy_mode: bool = False,
                         config=None, device=None):
-    """Infer PPGs from audio files and save each as .npy, one file at a
-    time (reference ppgs/core.py:207-272, ``num_workers=0``).
-    ``max_frames`` batches the worker path only, as in the JAX package.
-    The worker path (frame-budget batches from the data loader) waits for
-    the port of the data pipeline: ``num_workers > 0`` raises."""
-    if num_workers > 0:
-        raise NotImplementedError(
-            'from_files_to_files(num_workers > 0) batches through the data '
-            'loader, which ppgs_tpu_torch does not port yet (ROADMAP.md A7); '
-            'pass num_workers=0')
+    """Infer PPGs from audio files and save each as .npy (reference
+    ppgs/core.py:207-272).
+
+    ``num_workers=0``: a file at a time. Otherwise frame-budget batches of
+    at most ``max_frames`` (default ``config.max_inference_frames``) from
+    the data loader, with ``num_workers // 2`` (at least 1) loader and save
+    threads, through ``from_dataloader``; a file's PPGs then depend on the
+    batch it lands in (its padding and window geometry), as in the JAX
+    package."""
     device = devices.resolve(device)
     config = config_mod.get(config)
     representation = representation or config.representation
+    if num_workers == 0:
+        for audio_file, output_file in zip(audio_files, output_files):
+            from_file_to_file(audio_file, output_file, representation,
+                              checkpoint, legacy_mode, config, device)
+        return
+
+    from .data import loader as data_loader
+
+    dataloader = data_loader(
+        [Path(f) for f in audio_files],
+        features=['audio', 'length', 'audio_file'],
+        num_workers=max(1, num_workers // 2),
+        max_frames=max_frames or config.max_inference_frames,
+        config=config)
+    # Duplicate audio paths fan out to all their outputs
+    mapping = {}
     for audio_file, output_file in zip(audio_files, output_files):
-        from_file_to_file(audio_file, output_file, representation,
-                          checkpoint, legacy_mode, config, device)
+        mapping.setdefault(str(audio_file), []).append(output_file)
+    from_dataloader(
+        dataloader, mapping, representation=representation,
+        checkpoint=checkpoint, save_workers=max(1, num_workers // 2),
+        legacy_mode=legacy_mode, config=config, device=device)
+
+
+MAX_PENDING_SAVES = 100     # saves in flight before the loop waits
+
+
+def from_dataloader(dataloader, output_files: Dict,
+                    representation: str = None, checkpoint=None,
+                    save_workers: int = 1, legacy_mode: bool = False,
+                    config=None, device=None):
+    """Infer PPGs for every batch of a dataloader yielding (audio, length,
+    audio_file) and save one .npy per utterance (reference
+    ppgs/core.py:280-391).
+
+    ``output_files`` maps an audio filename to an output filename or a
+    list of them. The frontend and the model run on ``device`` (None: the
+    card, raising without one) on the padded batch, with the batch's
+    longest true frame count as the model's extent, as in the JAX package;
+    the PPGs come to the host once a batch, and a pool of ``save_workers``
+    threads writes each row truncated to its frames."""
+    device = devices.resolve(device)
+    config = config_mod.get(config)
+    representation = representation or config.representation
+    frontend = preprocess.get(representation)
+
+    pending = []
+    with concurrent.futures.ThreadPoolExecutor(max(1, save_workers)) as pool:
+        for audios, lengths, batch_files in dataloader:
+            lengths = np.asarray(lengths)
+            features = frontend.from_audios(
+                torch.from_numpy(np.asarray(audios)).to(device), lengths,
+                config=config, device=device)
+            feat_lengths = np.minimum(lengths // config.hopsize,
+                                      features.shape[-1])
+            result = from_features(
+                features, feat_lengths, representation=representation,
+                checkpoint=checkpoint, legacy_mode=legacy_mode,
+                config=config, extent=int(np.max(feat_lengths)),
+                device=device)
+            host = result.cpu().numpy()
+            for i, audio_file in enumerate(batch_files):
+                outs = output_files[str(audio_file)]
+                if not isinstance(outs, (list, tuple)):
+                    outs = [outs]
+                for out in outs:
+                    pending.append(pool.submit(
+                        np.save, out, host[i, :, :int(feat_lengths[i])]))
+            while len(pending) > MAX_PENDING_SAVES:
+                done, not_done = concurrent.futures.wait(
+                    pending, return_when=concurrent.futures.FIRST_COMPLETED)
+                for future in done:
+                    future.result()
+                pending = list(not_done)
+        for future in pending:
+            future.result()
 
 
 def resample(audio, sample_rate, target_rate=None):

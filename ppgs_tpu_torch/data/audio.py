@@ -1,9 +1,9 @@
 """Host-side audio I/O: WAV loading, saving and resampling.
 
-A copy of what ``from_file`` needs from the JAX package's ``data/audio.py``:
-WAV via the stdlib ``wave`` module and numpy, resampling via scipy's
-polyphase filter, mp3 through ffmpeg when it is on PATH. The native batch
-reader is not ported yet (ROADMAP.md).
+A copy of the JAX package's ``data/audio.py``: WAV through the port's
+native reader (``native/``, C++ bound by ctypes) when it builds, else the
+stdlib ``wave`` module and numpy; resampling via scipy's polyphase filter;
+mp3 through ffmpeg when it is on PATH.
 """
 
 import shutil
@@ -65,14 +65,49 @@ def resample(audio, sample_rate, target_rate=16000):
 
 
 def load(file, target_rate=16000):
-    """Load audio from disk as (1, samples) float32 at target_rate."""
+    """Load audio from disk as (1, samples) float32 at target_rate.
+
+    WAV decoding uses the native runtime when it is available and falls
+    back to the pure-Python reader."""
     path = Path(file)
     if path.suffix.lower() == '.mp3':
         audio, rate = load_mp3(path)
     else:
-        audio, rate = load_wav(path)
+        from .. import native
+
+        result = native.wav_read(path) if native.available() else None
+        if result is not None:
+            samples, rate = result
+            audio = samples[None]
+        else:
+            audio, rate = load_wav(path)
     # Mix down to mono (first channel, matching the JAX package)
     return resample(audio[:1], rate, target_rate)
+
+
+def load_batch(files, target_rate=16000, num_threads=0):
+    """Decode many WAVs concurrently (native, without the GIL) into a
+    padded (B, 1, max_samples) arena; returns (arena, lengths). Falls back
+    to a sequential Python decode."""
+    from .. import native
+
+    if native.available():
+        infos = [native.wav_info(f) for f in files]
+        if all(i is not None for i in infos):
+            rates = {i[1] for i in infos}
+            max_samples = max(i[0] for i in infos)
+            arena, lengths, _ = native.wav_read_batch(
+                files, max_samples, num_threads)
+            if (lengths >= 0).all() and rates == {target_rate}:
+                return arena[:, None, :], lengths
+    audios = [load(f, target_rate) for f in files]
+    max_samples = max(a.shape[-1] for a in audios)
+    arena = np.zeros((len(audios), 1, max_samples), dtype=np.float32)
+    lengths = np.zeros(len(audios), dtype=np.int64)
+    for i, a in enumerate(audios):
+        arena[i, 0, :a.shape[-1]] = a[0]
+        lengths[i] = a.shape[-1]
+    return arena, lengths
 
 
 def save_wav(path, audio, sample_rate=16000):
@@ -87,3 +122,12 @@ def save_wav(path, audio, sample_rate=16000):
         f.setsampwidth(2)
         f.setframerate(sample_rate)
         f.writeframes(pcm.tobytes())
+
+
+def info_num_samples(path, target_rate=16000):
+    """Number of samples at target_rate without decoding (WAV only)."""
+    with wave.open(str(path), 'rb') as f:
+        n, rate = f.getnframes(), f.getframerate()
+    if rate == target_rate:
+        return n
+    return int(round(n * target_rate / rate))

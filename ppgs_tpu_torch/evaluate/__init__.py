@@ -1,4 +1,6 @@
-"""Evaluation: the metric accumulators (``metrics``); the evaluation
-entry points are not ported yet (ROADMAP.md A9)."""
+"""Evaluation: the metric accumulators (``metrics``) and the evaluation of
+datasets' test partitions (``datasets``)."""
 
 from . import metrics
+from .core import datasets
+from .metrics import Metrics

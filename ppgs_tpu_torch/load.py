@@ -173,25 +173,42 @@ def model(checkpoint=None, representation=None, config=None, device=None):
 
 
 ###############################################################################
-# Class weights
+# Partitions and class weights
 ###############################################################################
 
 
+def partition(dataset):
+    """Load the partition dict of a dataset (ppgs/load.py:84-87) from
+    ``config.PARTITION_DIR``."""
+    import json
+
+    with open(config_mod.PARTITION_DIR / f'{dataset}.json') as file:
+        return json.load(file)
+
+
 def phoneme_weights(config=None, device=None):
-    """Class-balancing weights min(count)/count (ppgs/load.py:90-127), read
-    from the JAX package's asset by path, as a float32 tensor on ``device``
-    (CPU by default). Computing them from the training partition needs the
-    dataset loaders, which are not ported yet (ROADMAP.md A7)."""
+    """Class-balancing weights min(count)/count (ppgs/load.py:90-127) as a
+    float32 tensor on ``device`` (CPU by default), read from
+    ``config.CLASS_WEIGHT_FILE``. When that file is missing they are
+    counted over the framewise targets of the training partition, as in
+    the JAX package, and written there."""
     import torch
 
     config = config_mod.get(config)
     path = config_mod.CLASS_WEIGHT_FILE
-    if not path.exists():
-        raise NotImplementedError(
-            f'{path} is missing, and computing the phoneme weights from '
-            f'the {config.training_dataset} partition needs the dataset '
-            f'loaders, which ppgs_tpu_torch does not port yet (ROADMAP.md '
-            f'A7)')
-    with np.load(path) as data:
-        weights = np.asarray(data['weights'], dtype=np.float32)
+    if path.exists():
+        with np.load(path) as data:
+            weights = np.asarray(data['weights'], dtype=np.float32)
+    else:
+        from .data import Dataset
+
+        dataset = Dataset(config.training_dataset, 'train',
+                          features=['phonemes', 'length'], config=config)
+        counts = np.zeros(config.output_channels, dtype=np.int64)
+        for i in range(len(dataset)):
+            phonemes, length = dataset[i]
+            valid = np.asarray(phonemes)[:int(length)]
+            counts += np.bincount(valid, minlength=config.output_channels)
+        weights = (counts.min() / np.maximum(counts, 1)).astype(np.float32)
+        np.savez(path, weights=weights)
     return torch.from_numpy(weights).to(device or 'cpu')

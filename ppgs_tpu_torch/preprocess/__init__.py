@@ -1,4 +1,12 @@
 from . import bottleneck, mel, spectrogram, w2v2fb
+from .core import (
+    datasets,
+    from_audio,
+    from_audios,
+    from_dataloader,
+    from_files_to_files,
+    save_masked,
+)
 
 _PORTED = {'mel': mel, 'w2v2fb': w2v2fb, 'bottleneck': bottleneck,
            'spectrogram': spectrogram}

@@ -11,9 +11,12 @@ The train step's forward is ``models.transformer.forward(..., train=True,
 seed=...)``: the train kernels on the card, their plain versions on the
 CPU, with dropout drawn from the Philox stream of a per-step seed.
 
-Not ported here (ROADMAP.md): meshes and multi-device parallelism (A14),
-the orbax backend, the codebook frontend inside the step (A12), the
-dataset loaders (A7; ``train`` needs a ``loader_fn``) and the CLI (A13).
+Without a ``loader_fn`` the batches come from the data loader over the
+dataset's cached features (``data/loader.py``, the JAX package's batches
+index for index, the sampler re-seeded each epoch). Not ported here
+(ROADMAP.md): meshes and multi-device parallelism (A14), the orbax backend
+(A8), the codebook frontend inside the step (A12) and the figures of the
+evaluation pass (A13).
 """
 
 import json
@@ -30,6 +33,7 @@ from .. import devices
 from .. import load as load_mod
 from .. import models
 from ..evaluate.metrics import Metrics
+from ..utils import notify as _notify_mod
 from . import checkpoint as ckpt
 
 LOG_INTERVAL = 100      # steps between logs of the loss and gradient stats
@@ -255,15 +259,18 @@ def _to_device(batch, device):
                                                      torch.int64)))
 
 
+@_notify_mod.notify('train')
 def train(dataset=None, directory=None, config=None, max_steps=None,
           loader_fn=None, device=None):
     """Train a model (reference ppgs/train/core.py:18-281) on one device;
     returns the trained model.
 
     ``loader_fn(partition) -> iterable of (features, targets, lengths)``
-    supplies the batches ('train' and 'valid'); the dataset loaders are not
-    ported (ROADMAP.md A7), so it is required. ``device``: None means
-    'cuda' and raises without one. Resumes from the latest checkpoint in
+    supplies the batches ('train' and 'valid') when given; otherwise they
+    come from the data loader over ``dataset``'s cached features
+    (``config.training_dataset`` when None), its train sampler set to each
+    epoch as in the JAX package. ``device``: None means 'cuda' and raises
+    without one, before any file is read. Resumes from the latest checkpoint in
     ``directory``; the per-step dropout seeds come from a torch.Generator
     seeded by config.random_seed and advanced past the steps already
     taken, so a resumed run draws what an uninterrupted one would. The
@@ -274,14 +281,22 @@ def train(dataset=None, directory=None, config=None, max_steps=None,
     device = devices.resolve(device)
     # raises for a width the card's train kernels do not take yet
     models.transformer.use_kernels(config, device, train=True)
-    if loader_fn is None:
-        raise NotImplementedError(
-            f'train(dataset={dataset!r}) needs loader_fn: the dataset '
-            f'loaders are not ported to ppgs_tpu_torch yet (ROADMAP.md A7)')
     _check_backend(config.checkpoint_backend)
     directory = Path(directory or config_mod.RUNS_DIR / config.config)
     directory.mkdir(parents=True, exist_ok=True)
     steps = max_steps or config.steps
+
+    train_sampler = None
+    if loader_fn is None:
+        from ..data import loader as data_loader
+
+        loaders = {partition: data_loader(
+            dataset or config.training_dataset, partition, config=config)
+            for partition in ('train', 'valid')}
+        train_sampler = loaders['train'].batch_sampler
+
+        def loader_fn(partition):
+            return iter(loaders[partition])
 
     model = init_model(config, device)
     optimizer = make_optimizer(model.parameters(), config)
@@ -313,6 +328,8 @@ def train(dataset=None, directory=None, config=None, max_steps=None,
 
     try:
         while step < steps:
+            if train_sampler is not None:
+                train_sampler.set_epoch(epoch)
             for batch in loader_fn('train'):
                 features, targets, lengths = _to_device(batch, device)
                 log_step = step % LOG_INTERVAL == 0

@@ -282,17 +282,44 @@ def test_cli_writes_what_jax_cli_writes(tmp_path, monkeypatch):
 
 
 def test_refusals(tmp_path, monkeypatch, small_checkpoint):
-    """The worker path waits for the data loader (A7); without a card the
-    file loop raises unless the CPU is named, before any file is read."""
-    wavs = write_wavs(tmp_path, (0.5,), seed=11)
-    _, port_config = configs(**SMALL)
-    with pytest.raises(NotImplementedError, match='A7'):
-        ppgs_tpu_torch.from_files_to_files(
-            wavs, [tmp_path / 'out.npy'], checkpoint=small_checkpoint,
-            num_workers=2, config=port_config, device='cpu')
-    with pytest.raises(NotImplementedError, match='A7'):
-        port_cli.main(['--input_paths', str(wavs[0]), '--num-workers', '2',
-                       '--device', 'cpu'])
+    """The worker path batches through the data loader as JAX's does: the
+    API's and the CLI's outputs match JAX's (the CLI with the convolution
+    config). Without a card the file loop raises unless the CPU is named,
+    before any file is read."""
+    for module in (ppgs_tpu.config, ppgs_tpu_torch.config):
+        monkeypatch.setattr(module, '_default', module._default)
+    wavs = write_wavs(tmp_path / 'jax', (0.5, 1.3, 0.8), seed=11)
+    shutil.copytree(tmp_path / 'jax', tmp_path / 'port')
+    jax_config, port_config = configs(**SMALL)
+    outs = {name: [tmp_path / f'{name}{i}.npy' for i in range(len(wavs))]
+            for name in ('jax', 'port')}
+    ppgs_tpu.from_files_to_files(wavs, outs['jax'],
+                                 checkpoint=small_checkpoint, num_workers=2,
+                                 max_frames=150, config=jax_config)
+    ppgs_tpu_torch.from_files_to_files(
+        wavs, outs['port'], checkpoint=small_checkpoint, num_workers=2,
+        max_frames=150, config=port_config, device='cpu')
+    for got, want in zip(outs['port'], outs['jax']):
+        got, want = np.load(got), np.load(want)
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got, want, **TOL)
+    conv = tmp_path / 'conv.npz'
+    ppgs_tpu.load.save_params(conv, jax_convolution.init(
+        jax.random.PRNGKey(9), ppgs_tpu.config.get('convolution')))
+    args = ['--num-workers', '2', '--checkpoint', str(conv), '--config',
+            'convolution']
+    monkeypatch.setattr(sys, 'argv', ['ppgs_tpu', '--input_paths',
+                                      str(tmp_path / 'jax'), *args])
+    jax_cli.main()
+    port_cli.main(['--input_paths', str(tmp_path / 'port'), *args,
+                   '--device', 'cpu'])
+    for wav in wavs:
+        got = np.load(tmp_path / 'port' / f'{wav.stem}-ppg.npy')
+        want = np.load(wav.with_name(wav.stem + '-ppg.npy'))
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got, want, **TOL)
+    wavs = wavs[:1]
+    (tmp_path / 'out.npy').unlink(missing_ok=True)
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match='CUDA'):
         ppgs_tpu_torch.from_files_to_files(

@@ -4,6 +4,7 @@ kernel paths (plain versions here, JAX in interpret mode), checkpoints in
 both directions, the evaluation pass and the metrics."""
 
 import dataclasses
+import importlib
 import json
 
 import jax
@@ -28,6 +29,8 @@ from ppgs_tpu_torch.ops import encoder_layer_train as elt
 from ppgs_tpu_torch.ops import flash_attention as fa
 from ppgs_tpu_torch.ops import fused_ffn
 from ppgs_tpu_torch.train import core as train_core
+
+from torch_corpus import point_configs, write_corpus
 
 TINY = ppgs_tpu.Config(
     num_hidden_layers=2, hidden_channels=64, ffn_channels=128,
@@ -402,13 +405,42 @@ def test_evaluate_partition_reads_the_trained_parameters(tmp_path):
                                                       abs=1e-7), key
 
 
-def test_train_writes_logs_and_checkpoints_and_resumes(tmp_path):
+def _jax_loader_fn(config):
+    """loader_fn over the JAX package's loaders of 'commonvoice', its train
+    sampler set to each epoch in turn."""
+    loaders = {p: importlib.import_module('ppgs_tpu.data.loader').loader(
+        'commonvoice', p, config=config) for p in ('train', 'valid')}
+    epochs = iter(range(1 << 30))
+
+    def loader_fn(partition):
+        if partition == 'train':
+            loaders['train'].batch_sampler.set_epoch(next(epochs))
+        return iter(loaders[partition])
+    return loader_fn
+
+
+def test_train_writes_logs_and_checkpoints_and_resumes(tmp_path,
+                                                       monkeypatch):
     config = _port_config(TINY).replace(evaluation_interval=2,
                                         checkpoint_interval=2)
     loader_fn = _loader()
-    with pytest.raises(NotImplementedError, match='A7'):
-        train_core.train('commonvoice', tmp_path, config, max_steps=1,
-                         device='cpu')
+    # The default loaders over a dataset's caches: the same run, bit for
+    # bit, as one fed the JAX package's loaders
+    point_configs(monkeypatch, tmp_path / 'corpus')
+    write_corpus(tmp_path / 'corpus', 'commonvoice',
+                 (0.3, 0.45, 0.6, 0.35, 0.5, 0.4, 0.55, 0.25, 0.62, 0.33),
+                 seed=2, mel_cache=True)
+    ppgs_tpu.partition.datasets(['commonvoice'])
+    from_data = config.replace(max_len=512, max_training_frames=300)
+    by_default = train_core.train('commonvoice', tmp_path / 'default',
+                                  from_data, max_steps=3, device='cpu')
+    by_jax = train_core.train(
+        directory=tmp_path / 'jax-loader', config=from_data, max_steps=3,
+        loader_fn=_jax_loader_fn(ppgs_tpu.Config(
+            **dataclasses.asdict(from_data))), device='cpu')
+    for (name, got), want in zip(by_default.state_dict().items(),
+                                 by_jax.state_dict().values()):
+        assert torch.equal(got, want), name
     with pytest.raises(RuntimeError, match='CUDA'):
         train_core.train(directory=tmp_path, config=config, max_steps=1,
                          loader_fn=loader_fn)
