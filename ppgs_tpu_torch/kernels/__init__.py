@@ -39,30 +39,30 @@ _DROP = (_U, _U, _U, _U, _F)
 # C symbol -> (source file, argtypes). Every pointer and the stream are
 # c_void_p: ctypes would pass a bare Python int as a 32-bit int.
 SIGNATURES = {
-    # q, k, v, rs, mask, out, out32, out_stride, lse, keep, B, T, H,
+    # q, k, v, rs, mask, out, out32, out_stride, lse, keep, B, T, H, d,
     # scale_log2, causal, *drop, stream
     'ppgs_attention_train_fwd': ('attention_train.cu', (
-        _P, _P, _P, _L, _P, _P, _P, _L, _P, _P, _I, _I, _I, _F, _I, *_DROP,
-        _P)),
+        _P, _P, _P, _L, _P, _P, _P, _L, _P, _P, _I, _I, _I, _I, _F, _I,
+        *_DROP, _P)),
     # q, k, v, rs, mask, lse, keep, dout, do_stride, d_row, dq16, dq32,
-    # dk16, dk32, dv16, dv32, d_stride, B, T, H, scale_log2, sm_scale,
+    # dk16, dk32, dv16, dv32, d_stride, B, T, H, d, scale_log2, sm_scale,
     # causal, drop_scale, stream
     'ppgs_attention_train_bwd': ('attention_train_bwd.cu', (
         _P, _P, _P, _L, _P, _P, _P, _P, _L, _P, _P, _P, _P, _P, _P, _P, _L,
-        _I, _I, _I, _F, _F, _I, _F, _P)),
-    # x, ldx, y, ldy, out, B, T, H, is_f32, stream
+        _I, _I, _I, _I, _F, _F, _I, _F, _P)),
+    # x, ldx, y, ldy, out, B, T, H, d, is_f32, stream
     'ppgs_row_dot': ('attention_train.cu', (_P, _L, _P, _L, _P, _I, _I, _I,
-                                            _I, _P)),
-    # g, g_is_bf16, n, rstd, gamma, dz_out, masked_out, partial, M, *drop,
-    # stream
+                                            _I, _I, _P)),
+    # g, g_is_bf16, n, rstd, gamma, dz_out, masked_out, partial, M, C,
+    # *drop, stream
     'ppgs_ln_dropout_bwd': ('layer_train.cu', (
-        _P, _I, _P, _P, _P, _P, _P, _P, _I, *_DROP, _P)),
+        _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, *_DROP, _P)),
     # in, R, N, splits, chunk, scratch, out, round_bf16, stream
     'ppgs_colsum': ('layer_train.cu', (_P, _L, _L, _I, _L, _P, _P, _I, _P)),
     # x, x_is_f32, dy, w1t, b1, w2, words, residual, dx32, dx16, hd_out,
-    # dh_out, db1_partial, M, F, scale, stream
+    # dh_out, db1_partial, M, F, C, scale, stream
     'ppgs_ffn_train_bwd': ('ffn_train.cu', (
-        _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F,
+        _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
         _P)),
     # a, a_is_f32, ta, lda, b, tb, ldb, out32, out16, residual, ldc, M, N,
     # K, splits, stream

@@ -1,8 +1,8 @@
 // Attention for training: masked multi-head attention with dropout on the
 // normalised probabilities (the forward), and the row products its
 // backward needs (row_dot); read in place from (B, T, C) layouts, d_head =
-// 128, the port's only train width (the forward is templated on it). The
-// backward itself is attention_train_bwd.cu.
+// 128 (the mel model) or 256 (the w2v2fb and w2v2fc heads), one template
+// instance each. The backward itself is attention_train_bwd.cu.
 //
 // Replaces: ppgs_tpu/ops/flash_attention.py flash_attention_train
 // (_train_fwd_kernel, pallas_call at :576) and the attention forward
@@ -33,10 +33,19 @@
 // (10 rounds of two 32-bit multiplies, high and low) per group of four
 // pairs, about 25 M calls a launch.
 //
+// At d_head 256 (the w2v2fb head: 256 windows x T = 512, 2 heads of 256)
+// the two products are 4 x pairs x 256 = 0.10 TFLOP (0.10 ms) against
+// 0.82 GB moved: 0.245 ms, bound by the bytes.
+//
 // Design: K2's (attention.cu) on the blocks of hopper.cuh. One block per
 // (128 query rows, head, window); WGS = 2 consumer warpgroups of 64 rows,
-// 256 threads, two blocks an SM (ptxas then keeps a thread to 128
-// registers and spills a few bytes). Q arrives once by TMA; K, and in the
+// 256 threads, two blocks an SM at d_head 128 (ptxas then keeps a thread to
+// 128 registers and spills a few bytes) and one at 256, as K2 holds it: O
+// is 64 x 256 fp32 a warpgroup, 128 registers a thread beside S's 32 and
+// the fragments' 16, and Q (64 KB) with two 64 KB stages and the keep
+// words fills 209 KB of shared memory (ptxas: 194, 235 and 251 registers
+// a thread without dropout, with it, and with it at T % 4 != 0; no
+// spills). Q arrives once by TMA; K, and in the
 // second pass K and V, arrive as 64-key tiles through 3-D tensor maps (d,
 // T, window: a head's columns through the fused-QKV row stride, zeros past
 // T) into a ring of two 32 KB stages with full and empty mbarriers: thread
@@ -114,7 +123,7 @@ static_assert(PASS1_TILES == 1 || PASS1_TILES == 2, "a stage holds 2 tiles");
 template <int D>
 struct Plan {
   static constexpr int STAGES = 2;
-  static constexpr int BLOCKS = 4 / WGS;            // blocks an SM holds
+  static constexpr int BLOCKS = D == 256 ? 1 : 4 / WGS;   // blocks an SM
   static constexpr int ATOMS = D / ATOM;
   static constexpr int Q_BYTES = BQ * D * 2;
   static constexpr int KV_BYTES = BKV * D * 2;
@@ -125,10 +134,14 @@ struct Plan {
                                          / 16 * 16;
   static constexpr int smem(int words) { return KEEP + BQ * words * 4 + 1024; }
 };
-static_assert(Plan<128>::smem(2 * MAX_TILES) <= 232448,
-              "more shared memory than a block may have");
-static_assert(Plan<128>::BLOCKS * (Plan<128>::smem(16) + 1024) <= 233472,
-              "at T = 512 the blocks an SM should hold do not fit");
+template <int D>
+constexpr bool plan_fits() {
+  return Plan<D>::smem(2 * MAX_TILES) <= 232448 &&
+         Plan<D>::BLOCKS * (Plan<D>::smem(16) + 1024) <= 233472;
+}
+static_assert(plan_fits<128>() && plan_fits<256>(),
+              "more shared memory than a block may have, or at T = 512 the "
+              "blocks an SM should hold do not fit");
 
 constexpr float MINUS_INF = -__builtin_huge_valf();
 
@@ -516,9 +529,10 @@ fwd_kernel(const __grid_constant__ CUtensorMap map_q,
   const bool lead = threadIdx.x % 128 == 0;
   if (want32) {
     stage_f32<D, 0, D / 16>(o, box, warp, g, t);
-    store_boxes(&map_o32, 2, 32, box, col0, wg_row, b, c, lead, T);
+    store_boxes(&map_o32, P::ATOMS, 32, box, col0, wg_row, b, c, lead, T);
     stage_f32<D, D / 16, D / 8>(o, box, warp, g, t);
-    store_boxes(&map_o32, 2, 32, box, col0 + D / 2, wg_row, b, c, lead, T);
+    store_boxes(&map_o32, P::ATOMS, 32, box, col0 + D / 2, wg_row, b, c,
+                lead, T);
   }
   stage_bf16<D>(o, box, warp, g, t);
   store_boxes(&map_o16, P::ATOMS, ATOM, box, col0, wg_row, b, c, lead, T);
@@ -545,28 +559,27 @@ int launch_fwd(const CUtensorMap* maps, const void* mask, void* lse,
 
 // ------------------------------------------------------------- row_dot
 
-constexpr int D_HEAD = 128;
-
-// out[(b*H + h)*T + t] = sum_d x[row, h*128 + d] y[row, h*128 + d]: one
-// warp per (row, head), four columns per lane.
+// out[(b*H + h)*T + t] = sum_d x[row, h*D + d] y[row, h*D + d]: one warp
+// per (row, head), D / 32 columns per lane.
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(bf16 v) { return __bfloat162float(v); }
 
-template <typename T_>
+template <typename T_, int D>
 __global__ void __launch_bounds__(256)
 row_dot_kernel(const T_* __restrict__ x, long long ldx,
                const T_* __restrict__ y, long long ldy,
                float* __restrict__ out, long long rows, int T, int H) {
+  constexpr int PER_LANE = D / 32;
   const long long pair = (long long)blockIdx.x * 8 + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (pair >= rows * H) return;
   const long long r = pair / H;
   const int h = static_cast<int>(pair % H);
-  const T_* xr = x + r * ldx + h * D_HEAD + lane * 4;
-  const T_* yr = y + r * ldy + h * D_HEAD + lane * 4;
+  const T_* xr = x + r * ldx + h * D + lane * PER_LANE;
+  const T_* yr = y + r * ldy + h * D + lane * PER_LANE;
   float s = 0.f;
 #pragma unroll
-  for (int e = 0; e < 4; ++e) s += to_float(xr[e]) * to_float(yr[e]);
+  for (int e = 0; e < PER_LANE; ++e) s += to_float(xr[e]) * to_float(yr[e]);
   s = ppgs::warp_sum(s);
   if (lane == 0) {
     const long long b = r / T, t = r % T;
@@ -574,32 +587,32 @@ row_dot_kernel(const T_* __restrict__ x, long long ldx,
   }
 }
 
-}  // namespace
+template <typename T_>
+cudaError_t launch_row_dot(const void* x, long long ldx, const void* y,
+                           long long ldy, void* out, long long rows, int T,
+                           int H, int d, cudaStream_t s) {
+  const unsigned blocks = static_cast<unsigned>((rows * H + 7) / 8);
+  const T_* xs = static_cast<const T_*>(x);
+  const T_* ys = static_cast<const T_*>(y);
+  float* o = static_cast<float*>(out);
+  if (d == 256)
+    row_dot_kernel<T_, 256><<<blocks, 256, 0, s>>>(xs, ldx, ys, ldy, o, rows,
+                                                   T, H);
+  else
+    row_dot_kernel<T_, 128><<<blocks, 256, 0, s>>>(xs, ldx, ys, ldy, o, rows,
+                                                   T, H);
+  return cudaGetLastError();
+}
 
-// q, k, v: bf16 (B, T, H*128) views with row stride rs; mask (B, T) bytes,
-// nonzero = valid key; out (B, T, H*128) bf16 and out32 (the same layout in
-// fp32, or null) with row stride out_stride; lse (B, H, T) fp32; keep (B,
-// H, T, 2 ceil(T / 64)) uint32, the keep bits for the backward (bit k of
-// word w of a query row: key 32 w + k valid and kept), needed when the
-// dropout is on (threshold != 0). scale_log2 = log2(e)/sqrt(d). TMA:
-// 16-byte aligned bases, rs and out_stride multiples of 8 elements.
-// T <= 1024; any other returns cudaErrorInvalidValue.
-extern "C" int ppgs_attention_train_fwd(
-    const void* q, const void* k, const void* v, long long rs,
-    const void* mask, void* out, void* out32, long long out_stride,
-    void* lse, void* keep, int B, int T, int H, float scale_log2, int causal,
-    unsigned seed_lo, unsigned seed_hi, unsigned site, unsigned threshold,
-    float scale, void* stream) {
-  constexpr int D = 128;
-  const ppgs::Dropout drop =
-      ppgs::make_dropout(seed_lo, seed_hi, site, threshold, scale);
-  if (T > MAX_T || (drop.threshold && !keep))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (B <= 0 || T <= 0) return static_cast<int>(cudaGetLastError());
+template <int D>
+int launch_width(const void* q, const void* k, const void* v, long long rs,
+                 const void* mask, void* out, void* out32, long long os,
+                 void* lse, void* keep, int B, int T, int H,
+                 float scale_log2, int causal, const ppgs::Dropout& drop,
+                 cudaStream_t s) {
   // (columns, T, window) views: q in boxes of 128 rows, k and v of 64, the
   // outputs in boxes of 64 rows of 128 bytes
   const long long cols = static_cast<long long>(H) * D;
-  const long long os = out_stride;
   CUtensorMap maps[5] = {};
   if (!encode_3d(&maps[0], q, cols, T, B, rs, T * rs, ATOM, BQ) ||
       !encode_3d(&maps[1], k, cols, T, B, rs, T * rs, ATOM, BKV) ||
@@ -608,7 +621,6 @@ extern "C" int ppgs_attention_train_fwd(
       (out32 && !encode_3d(&maps[4], out32, cols, T, B, os, T * os, 32, 64,
                            true)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int want32 = out32 != nullptr;
   if (!drop.threshold)
     return launch_fwd<D, false, true>(maps, mask, lse, keep, B, T, H,
@@ -620,23 +632,48 @@ extern "C" int ppgs_attention_train_fwd(
                                     scale_log2, causal, drop, want32, s);
 }
 
-// out (B, H, T) fp32 = per-head row sums of x * y over (B*T, H*128) rows
-// with strides ldx, ldy; is_f32: both fp32, else both bf16.
+}  // namespace
+
+// q, k, v: bf16 (B, T, H*d) views with row stride rs, d = d_head 128 or
+// 256; mask (B, T) bytes, nonzero = valid key; out (B, T, H*d) bf16 and
+// out32 (the same layout in fp32, or null) with row stride out_stride; lse
+// (B, H, T) fp32; keep (B, H, T, 2 ceil(T / 64)) uint32, the keep bits for
+// the backward (bit k of word w of a query row: key 32 w + k valid and
+// kept), needed when the dropout is on (threshold != 0). scale_log2 =
+// log2(e)/sqrt(d). TMA: 16-byte aligned bases, rs and out_stride
+// multiples of 8 elements. T <= 1024 and d 128 or 256; any other returns
+// cudaErrorInvalidValue.
+extern "C" int ppgs_attention_train_fwd(
+    const void* q, const void* k, const void* v, long long rs,
+    const void* mask, void* out, void* out32, long long out_stride,
+    void* lse, void* keep, int B, int T, int H, int d, float scale_log2,
+    int causal, unsigned seed_lo, unsigned seed_hi, unsigned site,
+    unsigned threshold, float scale, void* stream) {
+  const ppgs::Dropout drop =
+      ppgs::make_dropout(seed_lo, seed_hi, site, threshold, scale);
+  if (T > MAX_T || (drop.threshold && !keep) || (d != 128 && d != 256))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B <= 0 || T <= 0) return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return d == 256
+             ? launch_width<256>(q, k, v, rs, mask, out, out32, out_stride,
+                                 lse, keep, B, T, H, scale_log2, causal, drop,
+                                 s)
+             : launch_width<128>(q, k, v, rs, mask, out, out32, out_stride,
+                                 lse, keep, B, T, H, scale_log2, causal, drop,
+                                 s);
+}
+
+// out (B, H, T) fp32 = per-head row sums of x * y over (B*T, H*d) rows
+// with strides ldx, ldy, d = 128 or 256; is_f32: both fp32, else both bf16.
 extern "C" int ppgs_row_dot(const void* x, long long ldx, const void* y,
                             long long ldy, void* out, int B, int T, int H,
-                            int is_f32, void* stream) {
+                            int d, int is_f32, void* stream) {
+  if (d != 128 && d != 256) return static_cast<int>(cudaErrorInvalidValue);
   const long long rows = (long long)B * T;
-  if (rows > 0) {
-    const unsigned blocks = static_cast<unsigned>((rows * H + 7) / 8);
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (is_f32)
-      row_dot_kernel<float><<<blocks, 256, 0, s>>>(
-          static_cast<const float*>(x), ldx, static_cast<const float*>(y),
-          ldy, static_cast<float*>(out), rows, T, H);
-    else
-      row_dot_kernel<bf16><<<blocks, 256, 0, s>>>(
-          static_cast<const bf16*>(x), ldx, static_cast<const bf16*>(y), ldy,
-          static_cast<float*>(out), rows, T, H);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (rows <= 0) return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      is_f32 ? launch_row_dot<float>(x, ldx, y, ldy, out, rows, T, H, d, s)
+             : launch_row_dot<bf16>(x, ldx, y, ldy, out, rows, T, H, d, s));
 }

@@ -1,8 +1,8 @@
 // The backward of attention for training (masked multi-head attention with
 // dropout on the normalised probabilities), read in place from (B, T, C)
 // layouts: two deterministic kernels, a dq pass and a dk/dv pass, on
-// wgmma + TMA (the blocks of hopper.cuh). d_head = 128, the port's only
-// train width; the kernels are templated on it.
+// wgmma + TMA (the blocks of hopper.cuh). d_head = 128 (the mel model) or
+// 256 (the w2v2fb and w2v2fc heads), one template instance each.
 //
 // Replaces: ppgs_tpu/ops/flash_attention.py _train_bwd_kernel (the
 // backward of flash_attention_train, pallas_call at :625) and the
@@ -33,7 +33,9 @@
 // operations): the dq pass could add its dq to fp32 atomics, whose order,
 // and so the result, changes from run to run, or write per-key-block dq
 // partials, about 0.5 GB more at this shape. Two calls on the same inputs
-// give the same bits.
+// give the same bits. At d_head 256 (the w2v2fb head, 256 windows x T =
+// 512, 2 heads of 256) the five products are 10 x pairs x 256 = 0.26
+// TFLOP (0.26 ms) against 1.75 GB moved: 0.52 ms, bound by the bytes.
 //
 // Design. Both kernels are K2's (attention.cu) on the same operand forms:
 // one block per (128 rows, head, window), two consumer warpgroups of 64
@@ -64,6 +66,17 @@
 //   writes zeros. lse, d_row and the keep words of a query tile reach each
 //   warp through a slot of its own, fetched a tile ahead (any T: no TMA
 //   alignment needed).
+// - d_head 256: dK and dV of 64 x 256 fp32 would be 256 registers a thread,
+//   and dQ beside S and dP past 200. So a block accumulates one DV = 128
+//   column half of its output (grid.y = heads x 2 halves): it computes S
+//   and dP at the full depth of 256, and its output products take their B
+//   operand from the half's two atoms of the streamed tile. That is the
+//   d_head 128 instance's register footprint, at twice its S and dP
+//   products. Its resident operands (2 x 64 KB) and a stage of two 64-row
+//   operands (64 KB) leave room for one stage only (199 KB of shared
+//   memory in all), so a tile's loads do not overlap the previous tile's
+//   products. ptxas: 154 and 164 registers a thread in the dq pass, 232
+//   and 242 in the dk/dv pass, without and with dropout; no spills.
 // - The keep bits come from the forward: the dq pass reads a row's two
 //   words of a key tile, a tile ahead, with the mask bytes; the dk/dv pass
 //   the word holding its warp's 16 keys for each of the tile's 64 queries,
@@ -92,10 +105,12 @@ constexpr int ATOM = 64;       // bf16 columns of a 128-byte swizzle atom
 template <int D>
 struct Plan {
   static constexpr int ATOMS = D / ATOM;
+  static constexpr int DV = D > 128 ? 128 : D;   // output columns a block
+  static constexpr int PARTS = D / DV;
   static constexpr int RES = ROWS * D * 2;       // a resident operand
   static constexpr int OPND = TILE * D * 2;      // a streamed operand
   static constexpr int STAGE = 2 * OPND;
-  static constexpr int STAGES = 4;
+  static constexpr int STAGES = D > 128 ? 1 : 4;
   static constexpr int RING = 2 * RES;
   static constexpr int ROWV = RING + STAGES * STAGE;   // 8 warps' slots
   static constexpr int BARS = ROWV + 8 * 3 * TILE * 4;
@@ -242,8 +257,13 @@ dq_kernel(const __grid_constant__ CUtensorMap map_q,
   using P = Plan<D>;
   extern __shared__ unsigned char smem_raw[];
   Block<D> blk(smem_raw);
-  const int q0 = blockIdx.x * ROWS, h = blockIdx.y, b = blockIdx.z;
+  constexpr int DV = P::DV;
+  const int q0 = blockIdx.x * ROWS, b = blockIdx.z;
+  const int h = blockIdx.y / P::PARTS, part = blockIdx.y % P::PARTS;
   const int col0 = h * D, bh = b * H + h;
+  // The block's output columns, and their atoms in a streamed tile
+  const int out0 = col0 + part * DV;
+  const uint32_t part_off = part * (DV / ATOM) * TILE * 128;
   const uint8_t* mrow = mask + static_cast<long long>(b) * T;
 
   // The window's last valid key: the tiles past it are not loaded
@@ -285,9 +305,9 @@ dq_kernel(const __grid_constant__ CUtensorMap map_q,
   const uint32_t do_addr = q_addr + P::RES;
   const uint32_t ring_addr = smem_addr(blk.ring);
 
-  float dq[D / 2];
+  float dq[DV / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+  for (int i = 0; i < DV / 2; ++i) dq[i] = 0.f;
 
   // This lane's mask bytes of a tile (keys + lane and + 32 + lane) and
   // the keep words of its rows r0, r1 there, read a tile ahead of their use
@@ -371,7 +391,7 @@ dq_kernel(const __grid_constant__ CUtensorMap map_q,
       for (int k = 0; k < TILE / 16; ++k) fence_regs(a[k]);
       fence_regs(dq);
       wgmma_fence();
-      frag_by_tile<D>(dq, a, k_addr);
+      frag_by_tile<DV>(dq, a, k_addr + part_off);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(dq);
@@ -386,12 +406,12 @@ dq_kernel(const __grid_constant__ CUtensorMap map_q,
   auto box = [&](int n) { return blk.chunk(c, n); };
   const bool lead = threadIdx.x % 128 == 0;
   if (want32) {
-    stage_f32<D>(dq, box, warp, g, t);
-    store_boxes(&map_dq32, D / 32, 32, box, col0, wg_row, b, c, lead, T);
+    stage_f32<DV>(dq, box, warp, g, t);
+    store_boxes(&map_dq32, DV / 32, 32, box, out0, wg_row, b, c, lead, T);
   }
   if (want16) {
-    stage_bf16<D>(dq, box, warp, g, t);
-    store_boxes(&map_dq16, D / 64, 64, box, col0, wg_row, b, c, lead, T);
+    stage_bf16<DV>(dq, box, warp, g, t);
+    store_boxes(&map_dq16, DV / 64, 64, box, out0, wg_row, b, c, lead, T);
   }
 }
 
@@ -416,8 +436,13 @@ dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
   using P = Plan<D>;
   extern __shared__ unsigned char smem_raw[];
   Block<D> blk(smem_raw);
-  const int k0b = blockIdx.x * ROWS, h = blockIdx.y, b = blockIdx.z;
+  constexpr int DV = P::DV;
+  const int k0b = blockIdx.x * ROWS, b = blockIdx.z;
+  const int h = blockIdx.y / P::PARTS, part = blockIdx.y % P::PARTS;
   const int col0 = h * D, bh = b * H + h;
+  // The block's output columns, and their atoms in a streamed tile
+  const int out0 = col0 + part * DV;
+  const uint32_t part_off = part * (DV / ATOM) * TILE * 128;
   const uint8_t* mrow = mask + static_cast<long long>(b) * T;
 
   // Warpgroup c owns keys wg_key..wg_key+63; a thread key rows kr0, kr1
@@ -462,9 +487,9 @@ dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
   const int keep_words = 2 * ((T + TILE - 1) / TILE);
   const int keep_shift = (warp_key & 16) + g;
 
-  float dk[D / 2], dv[D / 2];
+  float dk[DV / 2], dv[DV / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dk[i] = 0.f, dv[i] = 0.f;
+  for (int i = 0; i < DV / 2; ++i) dk[i] = 0.f, dv[i] = 0.f;
 
   // This lane's lse, d_row and keep words of a tile (queries + 2 lane, + 2
   // lane + 1), read a tile ahead of their use
@@ -561,8 +586,8 @@ dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
       fence_regs(dv);
       fence_regs(dk);
       wgmma_fence();
-      frag_by_tile<D>(dv, apd, do_addr);
-      frag_by_tile<D>(dk, ads, q_addr);
+      frag_by_tile<DV>(dv, apd, do_addr + part_off);
+      frag_by_tile<DV>(dk, ads, q_addr + part_off);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(dv);
@@ -583,20 +608,20 @@ dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
   auto box_v = [&](int n) { return blk.chunk(c, P::ATOMS + n); };
   const bool lead = threadIdx.x % 128 == 0;
   if (want32) {
-    stage_f32<D>(dk, box, warp, g, t);
-    store_boxes(&map_dk32, D / 32, 32, box, col0, wg_key, b, c, lead, T);
-    stage_f32<D>(dv, box, warp, g, t);
-    store_boxes(&map_dv32, D / 32, 32, box, col0, wg_key, b, c, lead, T);
+    stage_f32<DV>(dk, box, warp, g, t);
+    store_boxes(&map_dk32, DV / 32, 32, box, out0, wg_key, b, c, lead, T);
+    stage_f32<DV>(dv, box, warp, g, t);
+    store_boxes(&map_dv32, DV / 32, 32, box, out0, wg_key, b, c, lead, T);
   }
   if (want16) {
-    stage_bf16<D>(dk, box, warp, g, t);
-    stage_bf16<D>(dv, box_v, warp, g, t);
+    stage_bf16<DV>(dk, box, warp, g, t);
+    stage_bf16<DV>(dv, box_v, warp, g, t);
     fence_async_smem();
     bar_sync(1 + c, 128);
     if (lead && wg_key < T) {
-      for (int n = 0; n < P::ATOMS; ++n) {
-        tma_store_3d(&map_dk16, col0 + n * ATOM, wg_key, b, box(n));
-        tma_store_3d(&map_dv16, col0 + n * ATOM, wg_key, b, box_v(n));
+      for (int n = 0; n < DV / ATOM; ++n) {
+        tma_store_3d(&map_dk16, out0 + n * ATOM, wg_key, b, box(n));
+        tma_store_3d(&map_dv16, out0 + n * ATOM, wg_key, b, box_v(n));
       }
       bulk_commit();
       bulk_wait_read();
@@ -623,7 +648,7 @@ int launch(const CUtensorMap* in, const CUtensorMap* out, const void* mask,
   static const cudaError_t attr_k = allow_smem(dkdv_kernel<D, DROP>, P::SMEM);
   if (attr_q != cudaSuccess) return static_cast<int>(attr_q);
   if (attr_k != cudaSuccess) return static_cast<int>(attr_k);
-  const dim3 grid((T + ROWS - 1) / ROWS, H, B);
+  const dim3 grid((T + ROWS - 1) / ROWS, H * P::PARTS, B);
   const uint8_t* m = static_cast<const uint8_t*>(mask);
   const float* l = static_cast<const float*>(lse);
   const float* d = static_cast<const float*>(d_row);
@@ -639,25 +664,13 @@ int launch(const CUtensorMap* in, const CUtensorMap* out, const void* mask,
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// q, k, v: bf16 (B, T, H*128) views with row stride rs; mask (B, T) bytes,
-// nonzero = valid key; lse and d_row (B, H, T) fp32; keep: the forward's
-// keep bits, B x H x T x 2 ceil(T / 64) uint32 (ppgs_attention_train_fwd),
-// or null when the dropout is off; drop_scale = 1 / (1 - rate); dout (B,
-// T, H*128) bf16 with row stride do_stride; dq, dk, dv written as bf16
-// and/or fp32 (null skips; dq16, dk16, dv16 all null or none, likewise
-// the fp32 ones) with row stride d_stride. TMA: 16-byte aligned bases, rs,
-// do_stride and d_stride multiples of 8 elements.
-extern "C" int ppgs_attention_train_bwd(
-    const void* q, const void* k, const void* v, long long rs,
-    const void* mask, const void* lse, const void* keep, const void* dout,
-    long long do_stride, const void* d_row, void* dq16, void* dq32,
-    void* dk16, void* dk32, void* dv16, void* dv32, long long d_stride,
-    int B, int T, int H, float scale_log2, float sm_scale, int causal,
-    float drop_scale, void* stream) {
-  constexpr int D = 128;
-  if (B <= 0 || T <= 0) return static_cast<int>(cudaGetLastError());
+template <int D>
+int launch_width(const void* q, const void* k, const void* v, long long rs,
+                 const void* mask, const void* lse, const void* keep,
+                 const void* dout, long long do_stride, const void* d_row,
+                 void* const (&outs)[6], long long d_stride, int B, int T,
+                 int H, float scale_log2, float sm_scale, int causal,
+                 float drop_scale, cudaStream_t s) {
   // (columns, T, window) views: the inputs in 64 x 64 boxes, the outputs
   // in boxes of 64 rows of 128 bytes
   const long long cols = static_cast<long long>(H) * D;
@@ -668,18 +681,13 @@ extern "C" int ppgs_attention_train_bwd(
     if (!encode_3d(&in[i], bases[i], cols, T, B, ld, T * ld, ATOM, TILE))
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  void* outs[6] = {dq16, dq32, dk16, dk32, dv16, dv32};
   for (int i = 0; i < 6; ++i) {
     const bool f32 = i % 2 == 1;
     if (outs[i] && !encode_3d(&out[i], outs[i], cols, T, B, d_stride,
                               T * d_stride, f32 ? 32 : ATOM, TILE, f32))
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int want16 = dq16 != nullptr, want32 = dq32 != nullptr;
-  if ((dk16 != nullptr) != want16 || (dv16 != nullptr) != want16 ||
-      (dk32 != nullptr) != want32 || (dv32 != nullptr) != want32)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int want16 = outs[0] != nullptr, want32 = outs[1] != nullptr;
   if (keep)
     return launch<D, true>(in, out, mask, lse, keep, d_row, B, T, H,
                            scale_log2, sm_scale, causal, drop_scale, want16,
@@ -687,4 +695,39 @@ extern "C" int ppgs_attention_train_bwd(
   return launch<D, false>(in, out, mask, lse, keep, d_row, B, T, H,
                           scale_log2, sm_scale, causal, drop_scale, want16,
                           want32, s);
+}
+
+}  // namespace
+
+// q, k, v: bf16 (B, T, H*d) views with row stride rs, d = d_head 128 or
+// 256; mask (B, T) bytes, nonzero = valid key; lse and d_row (B, H, T)
+// fp32; keep: the forward's keep bits, B x H x T x 2 ceil(T / 64) uint32
+// (ppgs_attention_train_fwd), or null when the dropout is off; drop_scale
+// = 1 / (1 - rate); dout (B, T, H*d) bf16 with row stride do_stride; dq,
+// dk, dv written as bf16 and/or fp32 (null skips; dq16, dk16, dv16 all
+// null or none, likewise the fp32 ones) with row stride d_stride. TMA:
+// 16-byte aligned bases, rs, do_stride and d_stride multiples of 8
+// elements. Any other d returns cudaErrorInvalidValue.
+extern "C" int ppgs_attention_train_bwd(
+    const void* q, const void* k, const void* v, long long rs,
+    const void* mask, const void* lse, const void* keep, const void* dout,
+    long long do_stride, const void* d_row, void* dq16, void* dq32,
+    void* dk16, void* dk32, void* dv16, void* dv32, long long d_stride,
+    int B, int T, int H, int d, float scale_log2, float sm_scale,
+    int causal, float drop_scale, void* stream) {
+  if (d != 128 && d != 256) return static_cast<int>(cudaErrorInvalidValue);
+  void* const outs[6] = {dq16, dq32, dk16, dk32, dv16, dv32};
+  const bool want16 = dq16 != nullptr, want32 = dq32 != nullptr;
+  if ((dk16 != nullptr) != want16 || (dv16 != nullptr) != want16 ||
+      (dk32 != nullptr) != want32 || (dv32 != nullptr) != want32)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B <= 0 || T <= 0) return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return d == 256
+             ? launch_width<256>(q, k, v, rs, mask, lse, keep, dout,
+                                 do_stride, d_row, outs, d_stride, B, T, H,
+                                 scale_log2, sm_scale, causal, drop_scale, s)
+             : launch_width<128>(q, k, v, rs, mask, lse, keep, dout,
+                                 do_stride, d_row, outs, d_stride, B, T, H,
+                                 scale_log2, sm_scale, causal, drop_scale, s);
 }

@@ -1,7 +1,8 @@
 // K4 ffn_residual_ln: out = LN2(res + drop_y(drop_h(act(bf16(x) @ W1 + b1))
 // @ W2 + b2)), C = 256, 512 or 768, any F % 128 == 0, act ReLU or the
 // tanh-approximate GELU; and, for an FFN that ends without the LayerNorm
-// (C = 256, ReLU), y = drop_y(drop_h(relu(x @ W1 + b1)) @ W2 + b2) in bf16.
+// (C = 256 or 512, ReLU), y = drop_y(drop_h(relu(x @ W1 + b1)) @ W2 + b2) in
+// bf16.
 //
 // Replaces four TPU kernels' FFNs, which differ in their rounding points:
 // - the FFN half of ppgs_tpu/ops/encoder_layer_kernel.py _layer_body
@@ -30,7 +31,8 @@
 // every width is bound by the tensor cores: the mel shape (M = 64,000,
 // C = 256, F = 2048) 134 GFLOP, ~0.136 ms; the w2v2fb head (C = 512) 268
 // GFLOP, ~0.27 ms; the wav2vec2 trunk (M = 25,600, C = 768, F = 3072) 242
-// GFLOP, ~0.24 ms; the training shape (M = 131,072) 275 GFLOP, ~0.28 ms.
+// GFLOP, ~0.24 ms; the training shape (M = 131,072) 275 GFLOP, ~0.28 ms,
+// and at the w2v2fb head's width (C = 512) 550 GFLOP, ~0.56 ms.
 //
 // Design, on the wgmma + TMA building blocks of hopper.cuh (as gemm.cu): a
 // producer (a warpgroup of its own, or at C = 256 one consumer thread)
@@ -50,13 +52,16 @@
 //   multicast each stage) and would have to share each hidden chunk
 //   between warpgroups through shared memory. Instead:
 //   1. ffn_hidden_kernel: h = drop_h(act(x W1 + b1)) in bf16, (M, F), a
-//      128 x 256 tile a block (128 x 128 where F % 256 != 0); x is TMA'd
-//      as it is, fp32, and each consumer thread reads its m64k16 fragment
-//      from the swizzled tile and rounds it to bf16 (the RS form); W1 as
-//      stored (MN-major). Bias, activation, dropout and the rounding are
-//      applied to the accumulators in registers.
+//      128 x 256 tile a block (128 x 128 where F % 256 != 0); an fp32 x is
+//      TMA'd as it is, and each consumer thread reads its m64k16 fragment
+//      from the swizzled tile and rounds it to bf16 (the RS form); a bf16
+//      x (ffn_train's form) is the SS form's K-major A; W1 as stored
+//      (MN-major). Bias, activation, dropout and the rounding are applied
+//      to the accumulators in registers; the train forms also write the
+//      hidden's keep words here (WORDS).
 //   2. ffn_out_kernel: y = h W2 + b2 on 128 x 256 tiles (h K-major, W2
-//      MN-major), then the residual, drop_y and the LayerNorm from the
+//      MN-major), then either ffn_train's bf16 y (y_out, no LayerNorm: a
+//      block a tile) or the residual, drop_y and the LayerNorm from the
 //      accumulators. A row spans C / 256 blocks: they are one
 //      thread-block cluster along C and trade each row's partial sums
 //      (the sum, then the centred sum of squares) through distributed
@@ -71,11 +76,16 @@
 // group for two rows (g and g + 8), so lanes t and t ^ 1 share a group:
 // each draws the group of its own row (g for even t, g + 8 for odd) and
 // they trade the two words the other needs, one draw per 4 elements. The
-// train forms (C = 256) also write the hidden's keep bits for the backward
+// train forms (C = 256 in the fused kernel, C = 512 in the hidden's
+// launch) also write the hidden's keep bits for the backward
 // (ffn_train.cu), which then draws none: int32 words of shape (M, F / 32),
 // bit k of word w for column 32 w + k; a quad's four lanes OR their bits
 // into a row's words and each stores one (the WORDS instances; the
-// inference instances are compiled without it).
+// inference instances are compiled without it). The hidden launch's train
+// instances (fp32 x with the words, bf16 x with and without them) take
+// 113-168 registers a thread and the output launch's y_out form 168, as
+// the others, with no spills; the bf16-x hidden's ring holds four 48 KB
+// stages (194 KB), the fp32-x one three of 64 KB.
 // Rows past M: TMA fills zeros, and no row >= M is written.
 
 #include <type_traits>
@@ -172,6 +182,34 @@ __device__ __forceinline__ void hidden4(uint32_t& p0, uint32_t& p1,
   p1 = keep_pair(bits(pair(w[2], w[3])), keep[2], keep[3]);
 }
 
+// Add the keep bits of a thread's 8-column group j of a 64-column chunk
+// to its rows' two words (w[0]: row r0, w[1]: row r1)
+__device__ __forceinline__ void add_keep_bits(uint32_t (&w)[2][2], int j,
+                                              int t, const bool (&keep)[4]) {
+  const int shift = 8 * (j % 4) + 2 * t;
+  w[0][j / 4] |= (uint32_t(keep[0]) | uint32_t(keep[1]) << 1) << shift;
+  w[1][j / 4] |= (uint32_t(keep[2]) | uint32_t(keep[3]) << 1) << shift;
+}
+
+// A 64-column chunk's keep words of rows r0 and r1 (w from
+// add_keep_bits), ORed over the quad; lane t stores word t % 2 of row r0
+// (t < 2) or r1 at column word `word0` of the (M, F / 32) words
+__device__ __forceinline__ void store_keep_words(uint32_t (&w)[2][2],
+                                                 uint32_t* words, long long r0,
+                                                 long long r1, int M, int F,
+                                                 int word0, int t) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    uint32_t& u = w[e / 2][e % 2];
+    u |= __shfl_xor_sync(0xffffffffu, u, 1);
+    u |= __shfl_xor_sync(0xffffffffu, u, 2);
+  }
+  const long long row = t < 2 ? r0 : r1;
+  const uint32_t word = t == 0 ? w[0][0] : t == 1 ? w[0][1]
+                      : t == 2 ? w[1][0] : w[1][1];
+  if (row < M) words[row * (F / 32) + word0 + (t % 2)] = word;
+}
+
 // The y_out form's epilogue: drop_y(bf16(bf16(acc) + bf16(b2))) in bf16
 // (a bf16x2 add of the rounded pairs; the dropout scale in bf16x2)
 __device__ __forceinline__ void store_y_out(const float (&acc)[128],
@@ -199,14 +237,16 @@ __device__ __forceinline__ void store_y_out(const float (&acc)[128],
 }
 
 // C = 512 and 768, launch 1: h (M, F) bf16 = drop_h(act(x W1 + b1)), a
-// BM x BN tile a block
-template <int BN, int ACT, bool ROUND>
+// BM x BN tile a block; X_F32: x fp32 (rounded in the RS form), else bf16;
+// WORDS: write the hidden's keep words to `words`
+template <int BN, int ACT, bool ROUND, bool X_F32, bool WORDS>
 __global__ void __launch_bounds__(THREADS, 1)
 ffn_hidden_kernel(const __grid_constant__ CUtensorMap map_x,
                   const __grid_constant__ CUtensorMap map_w1,
-                  const float* __restrict__ b1, bf16* __restrict__ h, int M,
-                  int F, int C, ppgs::Dropout drop) {
-  using R = Ring<true, BN>;
+                  const float* __restrict__ b1, bf16* __restrict__ h,
+                  uint32_t* __restrict__ words, int M, int F, int C,
+                  ppgs::Dropout drop) {
+  using R = Ring<X_F32, BN>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ring = aligned_ring(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + R::STAGES * R::STAGE);
@@ -218,12 +258,13 @@ ffn_hidden_kernel(const __grid_constant__ CUtensorMap map_x,
   __syncthreads();
   if (wg == 0) {
     if (threadIdx.x == 0)
-      produce<true, BN>(&map_x, &map_w1, ring, full, empty, C / BK, m0, n0);
+      produce<X_F32, BN>(&map_x, &map_w1, ring, full, empty, C / BK, m0,
+                         n0);
     return;
   }
   const int c = wg - 1, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
   float acc[BN / 2];
-  consume<true, BN>(acc, ring, full, empty, C / BK, c, warp, lane);
+  consume<X_F32, BN>(acc, ring, full, empty, C / BK, c, warp, lane);
 
   // Register 4j + e holds row g + 8 (e / 2) of the warp's 16, column
   // 8j + 2t + e % 2 of the tile
@@ -237,6 +278,8 @@ ffn_hidden_kernel(const __grid_constant__ CUtensorMap map_x,
     for (int i = 0; i < 8; ++i)
       bias[i] = *reinterpret_cast<const float2*>(b1 + n0 + 8 * (j0 + i) +
                                                  2 * t);
+    // The batch's 64 columns: two keep words a row
+    uint32_t w[2][2] = {{0u, 0u}, {0u, 0u}};
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const int j = j0 + i;
@@ -244,24 +287,30 @@ ffn_hidden_kernel(const __grid_constant__ CUtensorMap map_x,
                           acc[4 * j + 3]};
       bool keep[4] = {true, true, true, true};
       if (drop.threshold) keep4(drop, r0, r1, F, n0 + 8 * j, t, keep);
+      if constexpr (WORDS) add_keep_bits(w, i, t, keep);
       uint32_t p0, p1;
       hidden4<ACT, ROUND>(p0, p1, v, bias[i], keep, drop);
       store_bf16(h, F, r0, r1, n0 + 8 * j + 2 * t, t, p0, p1, M);
     }
+    if constexpr (WORDS)
+      store_keep_words(w, words, r0, r1, M, F, (n0 + 8 * j0) / 32, t);
   }
 }
 
 // C = 512 and 768, launch 2: y = h W2 + b2 on a BM x 256 tile a block, then
-// out = LN2(res + drop_y(y)) over the cluster's C / 256 blocks, with the
-// normalised rows and 1/std where n_out and rstd are not null
+// (LN) out = LN2(res + drop_y(y)) over the cluster's C / 256 blocks, with
+// the normalised rows and 1/std where n_out and rstd are not null, or (!LN,
+// one block a cluster) ffn_train's y_out = drop_y(bf16(bf16(y) + bf16(b2)))
+template <bool LN>
 __global__ void __launch_bounds__(THREADS, 1)
 ffn_out_kernel(const __grid_constant__ CUtensorMap map_h,
                const __grid_constant__ CUtensorMap map_w2,
                const float* __restrict__ x, const float* __restrict__ b2,
                const float* __restrict__ gamma,
                const float* __restrict__ beta, float* __restrict__ out,
-               float* __restrict__ n_out, float* __restrict__ rstd, int M,
-               int F, int C, int round_input, ppgs::Dropout drop) {
+               float* __restrict__ n_out, float* __restrict__ rstd,
+               bf16* __restrict__ y_out, int M, int F, int C,
+               int round_input, ppgs::Dropout drop) {
   using R = Ring<false, OUT_BN>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ring = aligned_ring(smem_raw);
@@ -282,8 +331,13 @@ ffn_out_kernel(const __grid_constant__ CUtensorMap map_h,
     if (threadIdx.x == 0)
       produce<false, OUT_BN>(&map_h, &map_w2, ring, full, empty, F / BK, m0,
                              n0);
+    if constexpr (!LN) return;
   } else {
     consume<false, OUT_BN>(acc, ring, full, empty, F / BK, c, warp, lane);
+  }
+  if constexpr (!LN) {
+    store_y_out(acc, b2, y_out, M, C, n0, r0, r0 + 8, t, drop);
+    return;
   }
   __syncwarp();   // the producer's warp meets the cluster barriers whole
 
@@ -429,26 +483,10 @@ ffn_fused_kernel(const __grid_constant__ CUtensorMap map_w1,
       if (drop_h.threshold) keep4(drop_h, r0, r1, F, f * FC + 8 * j, t, keep);
       hidden4<RELU, ROUND>(a[j / 2][2 * (j % 2)], a[j / 2][2 * (j % 2) + 1],
                            v, bias[j], keep, drop_h);
-      if constexpr (WORDS) {
-        const int shift = 8 * (j % 4) + 2 * t;
-        w[0][j / 4] |= (uint32_t(keep[0]) | uint32_t(keep[1]) << 1) << shift;
-        w[1][j / 4] |= (uint32_t(keep[2]) | uint32_t(keep[3]) << 1) << shift;
-      }
+      if constexpr (WORDS) add_keep_bits(w, j, t, keep);
     }
-    if constexpr (WORDS) {
-      // OR over the quad; lane t stores word t % 2 of row r0 (t < 2) or r1
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        uint32_t& u = w[e / 2][e % 2];
-        u |= __shfl_xor_sync(0xffffffffu, u, 1);
-        u |= __shfl_xor_sync(0xffffffffu, u, 2);
-      }
-      const long long row = t < 2 ? r0 : r1;
-      const uint32_t word = t == 0 ? w[0][0] : t == 1 ? w[0][1]
-                          : t == 2 ? w[1][0] : w[1][1];
-      if (row < M)
-        words[row * (F / 32) + f * (FC / 32) + (t % 2)] = word;
-    }
+    if constexpr (WORDS)
+      store_keep_words(w, words, r0, r1, M, F, f * (FC / 32), t);
   };
   // y += h W2_f
   auto issue_out = [&](int f) {
@@ -517,17 +555,17 @@ ffn_fused_kernel(const __grid_constant__ CUtensorMap map_w1,
   }
 }
 
-template <int ACT, bool ROUND>
+template <int ACT, bool ROUND, bool X_F32 = true, bool WORDS = false>
 int launch_hidden(const CUtensorMap& mx, const CUtensorMap& mw1,
-                  const float* b1, bf16* h, int M, int F, int C,
-                  ppgs::Dropout dh, int m_tiles, cudaStream_t s) {
+                  const float* b1, bf16* h, uint32_t* words, int M, int F,
+                  int C, ppgs::Dropout dh, int m_tiles, cudaStream_t s) {
   if (F % 256 == 0)
-    return launch(ffn_hidden_kernel<256, ACT, ROUND>, THREADS,
-                  Ring<true, 256>::SMEM, dim3(F / 256, m_tiles), 1, s, mx,
-                  mw1, b1, h, M, F, C, dh);
-  return launch(ffn_hidden_kernel<128, ACT, ROUND>, THREADS,
-                Ring<true, 128>::SMEM, dim3(F / 128, m_tiles), 1, s, mx, mw1,
-                b1, h, M, F, C, dh);
+    return launch(ffn_hidden_kernel<256, ACT, ROUND, X_F32, WORDS>, THREADS,
+                  Ring<X_F32, 256>::SMEM, dim3(F / 256, m_tiles), 1, s, mx,
+                  mw1, b1, h, words, M, F, C, dh);
+  return launch(ffn_hidden_kernel<128, ACT, ROUND, X_F32, WORDS>, THREADS,
+                Ring<X_F32, 128>::SMEM, dim3(F / 128, m_tiles), 1, s, mx,
+                mw1, b1, h, words, M, F, C, dh);
 }
 
 template <bool LN, bool ROUND, bool WORDS = false>
@@ -549,11 +587,11 @@ int launch_fused(const CUtensorMap& mw1, const CUtensorMap& mw2,
 // null, at C = 256); F % 128 == 0; act 0 = ReLU, 1 = tanh-GELU. With y_out
 // null: x fp32, gamma/beta (C) fp32 -> out (M, C) fp32, and n_out (M, C)
 // and rstd (M) fp32 unless null; (C, act) is (256, ReLU), (512, ReLU) or
-// (768, GELU), the widths of the models. With y_out (C = 256, ReLU): x
-// bf16 -> y_out (M, 256) bf16 (round_input, gamma, beta, out, n_out and
-// rstd unused). The hidden's dropout site is (seed, site_h), the output's
-// (seed, site_y); threshold 0 turns both off. keep_out (M, F / 32) int32,
-// or null: the hidden's keep words (the train forms at C = 256,
+// (768, GELU), the widths of the models. With y_out (C = 256 or 512,
+// ReLU, round_input 0): x bf16 -> y_out (M, C) bf16 (gamma, beta, out,
+// n_out and rstd unused). The hidden's dropout site is (seed, site_h), the
+// output's (seed, site_y); threshold 0 turns both off. keep_out (M, F /
+// 32) int32, or null: the hidden's keep words (the train forms: ReLU,
 // round_input 0, threshold != 0). One kernel at C = 256, two on the
 // stream (the hidden's, then the output's) at 512 and 768. Any other (C,
 // act), or keep_out where it cannot be written, returns
@@ -570,11 +608,11 @@ extern "C" int ppgs_ffn_ln(const void* x, const void* w1, const void* b1,
   const bool width_ok =
       ln ? (C == 256 && act == RELU) || (C == 512 && act == RELU) ||
                (C == 768 && act == GELU)
-         : C == 256 && act == RELU;
+         : (C == 256 || C == 512) && act == RELU && !round_input;
   const int m_tiles = (M + BM - 1) / BM;
   if (!width_ok || F <= 0 || F % 128 || m_tiles > 65535 || (!fused && !h) ||
       reinterpret_cast<uintptr_t>(b1) % 16 ||
-      (keep_out && (!fused || round_input || !threshold)))
+      (keep_out && (act != RELU || round_input || !threshold)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (M <= 0) return static_cast<int>(cudaGetLastError());
   const ppgs::Dropout dh =
@@ -616,26 +654,43 @@ extern "C" int ppgs_ffn_ln(const void* x, const void* w1, const void* b1,
                                            n, rs, y, nullptr, M, F, dh, dy,
                                            m_tiles, s);
   }
+  // x: fp32 in two 32-column boxes a depth step (the LayerNorm forms),
+  // bf16 in one of 64 (y_out)
   CUtensorMap mx, mh;
-  if (!encode(&mx, x, true, M, C, C, 32, BM) ||
+  if (!encode(&mx, x, ln, M, C, C, ln ? 32 : 64, BM) ||
       !encode(&mw1, w1, false, C, F, F, 64, BK) ||
       !encode(&mh, h, false, M, F, F, 64, BM) ||
       !encode(&mw2, w2, false, F, C, C, 64, BK))
     return static_cast<int>(cudaErrorInvalidValue);
   bf16* hb = static_cast<bf16*>(h);
-  const int err =
-      act == GELU
-          ? (round_input ? launch_hidden<GELU, true>(mx, mw1, b1f, hb, M, F,
-                                                     C, dh, m_tiles, s)
-                         : launch_hidden<GELU, false>(mx, mw1, b1f, hb, M, F,
-                                                      C, dh, m_tiles, s))
-          : (round_input ? launch_hidden<RELU, true>(mx, mw1, b1f, hb, M, F,
-                                                     C, dh, m_tiles, s)
-                         : launch_hidden<RELU, false>(mx, mw1, b1f, hb, M, F,
-                                                      C, dh, m_tiles, s));
+  uint32_t* words = static_cast<uint32_t*>(keep_out);
+  int err;
+  if (!ln)
+    err = words ? launch_hidden<RELU, false, false, true>(
+                      mx, mw1, b1f, hb, words, M, F, C, dh, m_tiles, s)
+                : launch_hidden<RELU, false, false>(mx, mw1, b1f, hb, words,
+                                                    M, F, C, dh, m_tiles, s);
+  else if (words)
+    err = launch_hidden<RELU, false, true, true>(mx, mw1, b1f, hb, words, M,
+                                                 F, C, dh, m_tiles, s);
+  else if (act == GELU)
+    err = round_input ? launch_hidden<GELU, true>(mx, mw1, b1f, hb, words, M,
+                                                  F, C, dh, m_tiles, s)
+                      : launch_hidden<GELU, false>(mx, mw1, b1f, hb, words,
+                                                   M, F, C, dh, m_tiles, s);
+  else
+    err = round_input ? launch_hidden<RELU, true>(mx, mw1, b1f, hb, words, M,
+                                                  F, C, dh, m_tiles, s)
+                      : launch_hidden<RELU, false>(mx, mw1, b1f, hb, words,
+                                                   M, F, C, dh, m_tiles, s);
   if (err) return err;
-  return launch(ffn_out_kernel, THREADS, Ring<false, OUT_BN>::SMEM,
-                dim3(C / OUT_BN, m_tiles), C / OUT_BN, s, mh, mw2,
-                static_cast<const float*>(x), b2f, g, be, o, n, rs, M, F, C,
-                round_input, dy);
+  const float* xf = static_cast<const float*>(x);
+  bf16* yb = static_cast<bf16*>(y_out);
+  if (!ln)
+    return launch(ffn_out_kernel<false>, THREADS, Ring<false, OUT_BN>::SMEM,
+                  dim3(C / OUT_BN, m_tiles), 1, s, mh, mw2, xf, b2f, g, be,
+                  o, n, rs, yb, M, F, C, round_input, dy);
+  return launch(ffn_out_kernel<true>, THREADS, Ring<false, OUT_BN>::SMEM,
+                dim3(C / OUT_BN, m_tiles), C / OUT_BN, s, mh, mw2, xf, b2f, g,
+                be, o, n, rs, yb, M, F, C, round_input, dy);
 }

@@ -1,11 +1,12 @@
-// The FFN's training backward up to its input, C = 256, any F % 128 == 0,
-// any M; the forward is K4 (ffn_ln.cu) with its dropout sites on.
+// The FFN's training backward up to its input, C = 256 (the mel model) or
+// 512 (the w2v2fb and w2v2fc heads), any F % 128 == 0, any M; the forward
+// is K4 (ffn_ln.cu) with its dropout sites on.
 //
 // Replaces: the backward of ppgs_tpu/ops/fused_ffn.py ffn_train
 // (_ffn_train_bwd_kernel) and the FFN half of the backward of
 // ppgs_tpu/ops/encoder_layer_train.py (_bwd_kernel after LN2).
 //
-// What it computes, with the TPU kernels' rounding points: dy (M, 256)
+// What it computes, with the TPU kernels' rounding points: dy (M, C)
 // bf16 is the gradient of the FFN's output, already masked and rounded
 // (the LayerNorm backward or the dropout replay before it makes it), and
 // for every hidden column
@@ -29,7 +30,9 @@
 // ms; bytes: x (fp32), dy, the residual, the words and the weights in,
 // dx, hd, dh and the db1 partials out, 1.60 GB, 0.476 ms. So the bytes
 // bound it, and 1.07 GB of them are hd and dh, the price of leaving the
-// weight gradients to the GEMMs.
+// weight gradients to the GEMMs. At C = 512 (the w2v2fb head, the same M
+// and F) the products are 6 M 512 F = 825 GFLOP, 0.834 ms, against 2.08
+// GB, 0.62 ms: bound by the operations.
 //
 // Design, on the wgmma + TMA building blocks of hopper.cuh, after K4's
 // fused C = 256 kernel: a block owns 128 rows, two consumer warpgroups of
@@ -78,11 +81,18 @@
 // Rows past M: the staged tiles hold zeros there (so dhd and dh are 0),
 // TMA stores clip them, and no row >= M is written.
 //
-// C = 512 (the w2v2fb head) would not fit this form: its dx sum, 128 x 512
-// fp32, is twice the registers that two warpgroups have. It needs 64-row
-// blocks with a cluster multicasting each weight stage to two of them, or
-// a split of dx along C (each block recomputing h and dh for half of C's
-// columns, or reading them).
+// C = 512 does not fit this form: its dx sum, 128 x 512 fp32, is twice the
+// registers that two warpgroups have, and x and dy of 128 rows would be
+// 256 KB. So a block owns 64 rows (x and dy, 64 KB each), both warpgroups
+// compute that block's h and dhd for a chunk (the same products), and
+// warpgroup c sums dx's columns 256 c .. 256 c + 255 (128 registers a
+// thread, as at 256), its B operand the chunk's W1^T boxes of those
+// columns; warpgroup 0 alone writes hd, dh and the db1 partial row. A
+// stage of W1^T and W2 pieces at depth 512 is 65 KB, so one fits beside x
+// and dy: the chunks run in turn, a chunk's loads after the previous
+// chunk's products (the loop at C = 256 overlaps them). 212 KB of shared
+// memory; ptxas: 200 and 254 registers a thread (bf16 and fp32 x), no
+// spills.
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -92,19 +102,23 @@ using namespace ppgs::hopper;
 
 namespace {
 
-constexpr int C = 256, BM = 128, FC = 32;
+constexpr int FC = 32;
 constexpr int THREADS = 256;            // two consumer warpgroups
 constexpr int LOADER = 128;             // the thread that refills the ring
-constexpr int STAGES = 2;
+constexpr int DXC = 256;                // dx columns a warpgroup sums
 // Computes the function; false gives a loads-only walk that streams every
 // stage, stages x and dy and writes the outputs but multiplies nothing
 // (scripts/torch_ffn_bwd_probe.py times it)
 constexpr bool LIVE = true;
 
+template <int C>
 struct Smem {
-  static constexpr int TILE = BM * C * 2;          // x or dy: 4 atoms
+  static constexpr bool WIDE = C > DXC;           // C = 512: 64-row blocks
+  static constexpr int BM = WIDE ? 64 : 128;       // a block's rows
+  static constexpr int STAGES = WIDE ? 1 : 2;
+  static constexpr int TILE = BM * C * 2;          // x or dy: C / 64 atoms
   static constexpr int BOX = FC * 128;             // 32 rows x 64 columns
-  static constexpr int W_BYTES = FC * C * 2;       // 4 boxes
+  static constexpr int W_BYTES = FC * C * 2;       // C / 64 boxes
   static constexpr int B1_BYTES = FC * 4;
   static constexpr int LOADED = 2 * W_BYTES + B1_BYTES;
   static constexpr int STAGE = 2 * W_BYTES + 1024;  // W1^T, W2, b1
@@ -125,16 +139,19 @@ struct Smem {
 
 // acc (the warpgroup's 64 rows x FC) = A B over depth C: A the resident
 // tile's rows (K-major), B the stage's FC rows of W1^T or W2 (K-major)
+template <int C>
 __device__ __forceinline__ void issue_narrow(float (&acc)[FC / 2],
                                              uint32_t a, uint32_t b) {
+  using S = Smem<C>;
 #pragma unroll
   for (int k = 0; k < C / 16; ++k)
     wgmma_ss<FC, 0, 0>(
-        acc, sw128_desc(a + (k / 4) * (BM * 128) + (k % 4) * 32, 16, 1024),
-        sw128_desc(b + (k / 4) * Smem::BOX + (k % 4) * 32, 16, 1024));
+        acc,
+        sw128_desc(a + (k / 4) * (S::BM * 128) + (k % 4) * 32, 16, 1024),
+        sw128_desc(b + (k / 4) * S::BOX + (k % 4) * 32, 16, 1024));
 }
 
-template <typename TX, bool RESIDUAL>
+template <int C, typename TX, bool RESIDUAL>
 __global__ void __launch_bounds__(THREADS, 1)
 ffn_bwd_kernel(const __grid_constant__ CUtensorMap map_w1t,
                const __grid_constant__ CUtensorMap map_w2,
@@ -146,7 +163,9 @@ ffn_bwd_kernel(const __grid_constant__ CUtensorMap map_w1t,
                const float* __restrict__ residual, float* __restrict__ dx32,
                bf16* __restrict__ dx16, float* __restrict__ db1_partial,
                int M, int F, float scale) {
-  using S = Smem;
+  using S = Smem<C>;
+  constexpr bool WIDE = S::WIDE;
+  constexpr int BM = S::BM, STAGES = S::STAGES;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -178,33 +197,53 @@ ffn_bwd_kernel(const __grid_constant__ CUtensorMap map_w1t,
   const int c = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4;
   const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
   const int wr = 16 * warp + g;                 // the warpgroup's row
-  const long long r0 = m0 + 64 * c + wr, r1 = r0 + 8;
+  // The warpgroup's rows: its own 64 (C = 256) or the block's (C = 512)
+  const int row_off = WIDE ? 0 : 64 * c;
+  const long long r0 = m0 + row_off + wr, r1 = r0 + 8;
   const bool dropped = words != nullptr;
   const float sc16 = ppgs::round_bf16(scale);
+  // Warpgroup 0 writes hd, dh and db1's partial row of the block's rows at
+  // C = 512; at 256 each warpgroup those of its own rows
+  const bool writer = !WIDE || c == 0;
 
-  // The warpgroup's rows of x and dy, for the async proxy to read
-  stage_rows<BM, C>(sm + S::X, x, m0 + 64 * c, 64 * c, M, threadIdx.x % 128);
-  stage_rows<BM, C>(sm + S::DY, dy, m0 + 64 * c, 64 * c, M,
-                    threadIdx.x % 128);
-  fence_async_smem();
-  bar_sync(1 + c, 128);
+  // The warpgroup's rows of x and dy (at C = 512 warpgroup 0 x's, 1 dy's),
+  // for the async proxy to read
+  if constexpr (WIDE) {
+    if (c == 0)
+      stage_rows<BM, C>(sm + S::X, x, m0, 0, M, threadIdx.x % 128);
+    else
+      stage_rows<BM, C>(sm + S::DY, dy, m0, 0, M, threadIdx.x % 128);
+    fence_async_smem();
+    __syncthreads();
+  } else {
+    stage_rows<BM, C>(sm + S::X, x, m0 + 64 * c, 64 * c, M,
+                      threadIdx.x % 128);
+    stage_rows<BM, C>(sm + S::DY, dy, m0 + 64 * c, 64 * c, M,
+                      threadIdx.x % 128);
+    fence_async_smem();
+    bar_sync(1 + c, 128);
+  }
 
-  const uint32_t x_addr = smem_addr(sm + S::X) + c * 64 * 128;
-  const uint32_t dy_addr = smem_addr(sm + S::DY) + c * 64 * 128;
+  const uint32_t x_addr = smem_addr(sm + S::X) + row_off * 128;
+  const uint32_t dy_addr = smem_addr(sm + S::DY) + row_off * 128;
   const uint32_t ring_addr = smem_addr(ring);
+  // dx's columns of the warpgroup, and their boxes in a W1^T piece
+  const int dx_col0 = WIDE ? DXC * c : 0;
+  const uint32_t dx_box = (dx_col0 / 64) * S::BOX;
   // The warp's staging boxes (1024-byte aligned, so that the swizzle's
   // row bits are the box's)
   unsigned char* hd_box = sm + S::HD + c * S::OUT + warp * S::WARP_OUT;
   unsigned char* dh_box = sm + S::DH + c * S::OUT + warp * S::WARP_OUT;
   float* sums = reinterpret_cast<float*>(sm + S::SUMS) + c * 2 * 4 * FC;
-  const long long prow = 2ll * blockIdx.x + c;  // the db1 partial row
-  const bool store_rows = m0 + 64 * c < M;
-  const int wrow = m0 + 64 * c + 16 * warp;     // the warp's first row
+  // the db1 partial row (one a 64 rows)
+  const long long prow = WIDE ? blockIdx.x : 2ll * blockIdx.x + c;
+  const bool store_rows = m0 + row_off < M;
+  const int wrow = m0 + row_off + 16 * warp;    // the warp's first row
 
-  float dx[128], h[FC / 2], d[FC / 2];
+  float dx[DXC / 2], h[FC / 2], d[FC / 2];
   uint32_t a[FC / 16][4];
 #pragma unroll
-  for (int i = 0; i < 128; ++i) dx[i] = 0.f;
+  for (int i = 0; i < DXC / 2; ++i) dx[i] = 0.f;
   // The keep words of chunk f for rows r0 and r1, read a chunk ahead
   uint32_t kw0 = 0u, kw1 = 0u;
   auto read_words = [&](int f, uint32_t& w0, uint32_t& w1) {
@@ -222,14 +261,14 @@ ffn_bwd_kernel(const __grid_constant__ CUtensorMap map_w1t,
     fence_regs(d);
     wgmma_fence();
     if (LIVE) {
-      issue_narrow(h, x_addr, st);
-      issue_narrow(d, dy_addr, st + S::W_BYTES);
+      issue_narrow<C>(h, x_addr, st);
+      issue_narrow<C>(d, dy_addr, st + S::W_BYTES);
     }
     wgmma_commit();
   };
   // dx += bf16(dh_f) W1_f^T: a[k] holds the chunk's columns 16k..16k+15
   auto issue_dx = [&](int f) {
-    const uint32_t w1t = ring_addr + (f % STAGES) * S::STAGE;
+    const uint32_t w1t = ring_addr + (f % STAGES) * S::STAGE + dx_box;
 #pragma unroll
     for (int k = 0; k < FC / 16; ++k) fence_regs(a[k]);
     fence_regs(dx);
@@ -237,7 +276,7 @@ ffn_bwd_kernel(const __grid_constant__ CUtensorMap map_w1t,
     if (LIVE) {
 #pragma unroll
       for (int k = 0; k < FC / 16; ++k)
-        wgmma_rs<C>(dx, a[k], sw128_desc(w1t + k * 2048, S::BOX, 1024));
+        wgmma_rs<DXC>(dx, a[k], sw128_desc(w1t + k * 2048, S::BOX, 1024));
     }
     wgmma_commit();
   };
@@ -298,6 +337,7 @@ ffn_bwd_kernel(const __grid_constant__ CUtensorMap map_w1t,
       sum[j][0] = dh[0] + dh[2];
       sum[j][1] = dh[1] + dh[3];
     }
+    if (!writer) return;
     // Column sums over the warp's 16 rows by a butterfly over the 8 lanes
     // of one t: at each step a lane keeps half of its values and adds its
     // partner's sums of them, so that lane g ends with value g, column
@@ -357,40 +397,60 @@ ffn_bwd_kernel(const __grid_constant__ CUtensorMap map_w1t,
     }
   };
 
-  mbar_wait(smem_addr(full), 0);
-  issue_hidden(0);
-  wgmma_wait<0>();
-  fence_regs(h);
-  fence_regs(d);
-  // The last chunk is peeled, so that no branch separates chunk f's dx
-  // product from chunk f + 1's products and they run side by side
-  for (int f = 0; f + 1 < chunks; ++f) {
-    const int s1 = (f + 1) % STAGES;
-    elementwise(f);
-    mbar_wait(smem_addr(full + s1), ((f + 1) / STAGES) & 1);
-    issue_dx(f);
-    issue_hidden(f + 1);
-    wgmma_wait<1>();
-    release(f);
+  if constexpr (WIDE) {
+    // One stage: chunk f's products, then chunk f + 1's loads
+    for (int f = 0; f < chunks; ++f) {
+      mbar_wait(smem_addr(full), f & 1);
+      issue_hidden(f);
+      wgmma_wait<0>();
+      fence_regs(h);
+      fence_regs(d);
+      elementwise(f);
+      issue_dx(f);
+      wgmma_wait<0>();
+      release(f);
+      if (threadIdx.x == LOADER && f + 1 < chunks) {
+        mbar_wait(smem_addr(empty), f & 1);
+        load(f + 1);
+      }
+      __syncwarp();
+    }
+  } else {
+    mbar_wait(smem_addr(full), 0);
+    issue_hidden(0);
     wgmma_wait<0>();
     fence_regs(h);
     fence_regs(d);
-    if (threadIdx.x == LOADER && f + STAGES < chunks) {
-      mbar_wait(smem_addr(empty + f % STAGES), (f / STAGES) & 1);
-      load(f + STAGES);
+    // The last chunk is peeled, so that no branch separates chunk f's dx
+    // product from chunk f + 1's products and they run side by side
+    for (int f = 0; f + 1 < chunks; ++f) {
+      const int s1 = (f + 1) % STAGES;
+      elementwise(f);
+      mbar_wait(smem_addr(full + s1), ((f + 1) / STAGES) & 1);
+      issue_dx(f);
+      issue_hidden(f + 1);
+      wgmma_wait<1>();
+      release(f);
+      wgmma_wait<0>();
+      fence_regs(h);
+      fence_regs(d);
+      if (threadIdx.x == LOADER && f + STAGES < chunks) {
+        mbar_wait(smem_addr(empty + f % STAGES), (f / STAGES) & 1);
+        load(f + STAGES);
+      }
+      __syncwarp();
     }
-    __syncwarp();
+    elementwise(chunks - 1);
+    issue_dx(chunks - 1);
+    wgmma_wait<0>();
+    release(chunks - 1);
   }
-  elementwise(chunks - 1);
-  issue_dx(chunks - 1);
-  wgmma_wait<0>();
-  release(chunks - 1);
 
   // dx (+ the residual) from the accumulators: register 4j + e is row r0
-  // or r1 (e / 2), column 8j + 2t + e % 2
+  // or r1 (e / 2), column dx_col0 + 8j + 2t + e % 2
 #pragma unroll
-  for (int j = 0; j < C / 8; ++j) {
-    const int col = 8 * j + 2 * t;
+  for (int j = 0; j < DXC / 8; ++j) {
+    const int col = dx_col0 + 8 * j + 2 * t;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const long long row = r ? r1 : r0;
@@ -410,17 +470,18 @@ ffn_bwd_kernel(const __grid_constant__ CUtensorMap map_w1t,
   if (lane == 0) bulk_wait_read();   // the staging outlives its stores
 }
 
-template <typename TX, bool RESIDUAL>
+template <int C, typename TX, bool RESIDUAL>
 int launch(const CUtensorMap& mw1t, const CUtensorMap& mw2,
            const CUtensorMap& mhd, const CUtensorMap& mdh, const void* x,
            const void* dy, const void* b1, const void* words,
            const void* residual, void* dx32, void* dx16, void* partial,
            int M, int F, float scale, cudaStream_t s) {
-  auto kernel = ffn_bwd_kernel<TX, RESIDUAL>;
+  using S = Smem<C>;
+  auto kernel = ffn_bwd_kernel<C, TX, RESIDUAL>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem::BYTES);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<(M + BM - 1) / BM, THREADS, Smem::BYTES, s>>>(
+  kernel<<<(M + S::BM - 1) / S::BM, THREADS, S::BYTES, s>>>(
       mw1t, mw2, mhd, mdh, static_cast<const TX*>(x),
       static_cast<const bf16*>(dy), static_cast<const float*>(b1),
       static_cast<const uint32_t*>(words),
@@ -429,25 +490,12 @@ int launch(const CUtensorMap& mw1t, const CUtensorMap& mw2,
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// x (M, 256): fp32 (x_is_f32 = 1, rounded to bf16 as staged) with residual
-// (M, 256) fp32 and dx32 (M, 256) fp32 = dx + residual; or bf16 with dx16
-// (M, 256) bf16 (residual and dx32 null). dy (M, 256) bf16, masked and
-// rounded; w1t (F, 256) bf16, W1 transposed; b1 (F) fp32, 16-byte
-// aligned; w2 (F, 256) bf16. words (M, F / 32) int32, the hidden's keep
-// words from K4's train form, or null for no dropout; scale 1 / (1 -
-// rate). hd_out, dh_out (M, F) bf16; db1_partial (ceil(M / 64), F) fp32.
-// F % 128 == 0; anything else returns cudaErrorInvalidValue.
-extern "C" int ppgs_ffn_train_bwd(
-    const void* x, int x_is_f32, const void* dy, const void* w1t,
-    const void* b1, const void* w2, const void* words, const void* residual,
-    void* dx32, void* dx16, void* hd_out, void* dh_out, void* db1_partial,
-    int M, int F, float scale, void* stream) {
-  if (F <= 0 || F % 128 || reinterpret_cast<uintptr_t>(b1) % 16 ||
-      (x_is_f32 ? !residual || !dx32 : !dx16))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (M <= 0) return static_cast<int>(cudaGetLastError());
+template <int C>
+int launch_width(const void* x, int x_is_f32, const void* dy,
+                 const void* w1t, const void* b1, const void* w2,
+                 const void* words, const void* residual, void* dx32,
+                 void* dx16, void* hd_out, void* dh_out, void* db1_partial,
+                 int M, int F, float scale, cudaStream_t s) {
   CUtensorMap mw1t, mw2, mhd, mdh;
   if (!encode(&mw1t, w1t, false, F, C, C, 64, FC) ||
       !encode(&mw2, w2, false, F, C, C, 64, FC) ||
@@ -456,12 +504,41 @@ extern "C" int ppgs_ffn_train_bwd(
       !encode(&mdh, dh_out, false, M, F, F, FC, 16,
               CU_TENSOR_MAP_SWIZZLE_64B))
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return x_is_f32
-             ? launch<float, true>(mw1t, mw2, mhd, mdh, x, dy, b1, words,
-                                   residual, dx32, nullptr, db1_partial, M,
-                                   F, scale, s)
-             : launch<bf16, false>(mw1t, mw2, mhd, mdh, x, dy, b1, words,
-                                   nullptr, nullptr, dx16, db1_partial, M, F,
-                                   scale, s);
+             ? launch<C, float, true>(mw1t, mw2, mhd, mdh, x, dy, b1, words,
+                                      residual, dx32, nullptr, db1_partial,
+                                      M, F, scale, s)
+             : launch<C, bf16, false>(mw1t, mw2, mhd, mdh, x, dy, b1, words,
+                                      nullptr, nullptr, dx16, db1_partial, M,
+                                      F, scale, s);
+}
+
+}  // namespace
+
+// x (M, C), C = 256 or 512: fp32 (x_is_f32 = 1, rounded to bf16 as
+// staged) with residual (M, C) fp32 and dx32 (M, C) fp32 = dx + residual;
+// or bf16 with dx16 (M, C) bf16 (residual and dx32 null). dy (M, C) bf16,
+// masked and rounded; w1t (F, C) bf16, W1 transposed; b1 (F) fp32,
+// 16-byte aligned; w2 (F, C) bf16. words (M, F / 32) int32, the hidden's
+// keep words from K4's train form, or null for no dropout; scale 1 / (1 -
+// rate). hd_out, dh_out (M, F) bf16; db1_partial (ceil(M / 64), F) fp32.
+// F % 128 == 0; anything else returns cudaErrorInvalidValue.
+extern "C" int ppgs_ffn_train_bwd(
+    const void* x, int x_is_f32, const void* dy, const void* w1t,
+    const void* b1, const void* w2, const void* words, const void* residual,
+    void* dx32, void* dx16, void* hd_out, void* dh_out, void* db1_partial,
+    int M, int F, int C, float scale, void* stream) {
+  if (F <= 0 || F % 128 || (C != 256 && C != 512) ||
+      reinterpret_cast<uintptr_t>(b1) % 16 ||
+      (x_is_f32 ? !residual || !dx32 : !dx16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (M <= 0) return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return C == 512
+             ? launch_width<512>(x, x_is_f32, dy, w1t, b1, w2, words,
+                                 residual, dx32, dx16, hd_out, dh_out,
+                                 db1_partial, M, F, scale, s)
+             : launch_width<256>(x, x_is_f32, dy, w1t, b1, w2, words,
+                                 residual, dx32, dx16, hd_out, dh_out,
+                                 db1_partial, M, F, scale, s);
 }

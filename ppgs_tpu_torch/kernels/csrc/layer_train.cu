@@ -1,6 +1,7 @@
-// The row-wise pieces of the training layer's backward, C = 256: the
-// LayerNorm backward with a dropout epilogue, and a deterministic column
-// sum. (The forward's out-projection + dropout + LN1 is K3, out_proj_ln.cu.)
+// The row-wise pieces of the training layer's backward: the LayerNorm
+// backward with a dropout epilogue at C = 256 or 512 (a template instance
+// each), and a deterministic column sum. (The forward's out-projection +
+// dropout + LN1 is K3, out_proj_ln.cu.)
 //
 // Replaces, in ppgs_tpu/ops/encoder_layer_train.py: the LN2 and LN1
 // backward of _bwd_kernel (`_ln_bwd`, dgamma, dbeta) with the dropout
@@ -13,8 +14,12 @@
 // run.
 //
 // Bounds on an H100 at the training shape (M = 131,072 rows): each kernel
-// moves 2-4 (M, 256) fp32 arrays (0.13 GB each) for at most 0.3 GFLOP, so
-// both are memory bound (~0.1-0.15 ms); the designs read each input once.
+// moves 2-4 (M, 256) fp32 arrays (0.13 GB each; twice that at C = 512) for
+// at most 0.3 GFLOP (0.6), so both are memory bound (~0.1-0.15 ms; ~0.2-0.3
+// at 512); the designs read each input once. ln_dropout_bwd at C = 512: a
+// lane takes 16 columns of a row, 128 registers a thread and 48 KB of
+// static shared memory for the block's partial sums (at 256: 94-100 and
+// 24 KB), no spills.
 // colsum's largest launch, dbqkv's (M, 768) fp32 (403 MB), is 0.120 ms at
 // 3.35 TB/s. So that the loads keep the memory busy, its first pass splits
 // the rows into enough ranges that the blocks fill one wave of 132 SMs x 8
@@ -32,7 +37,7 @@ using ppgs::bf16;
 
 namespace {
 
-constexpr int C = 256, THREADS = 256;
+constexpr int THREADS = 256;
 
 // ------------------------------- LayerNorm backward + dropout, per row
 
@@ -60,68 +65,81 @@ __device__ __forceinline__ void load8<bf16>(const bf16* p, float v[8]) {
 // For each row: dz = LNbackward(g) (or dz = g without n), then
 // masked = keep ? dz / (1 - rate) : 0. Writes dz (fp32, if asked) and
 // bf16(masked) (if asked), and per-block column partials
-// [sum g*n | sum g | sum masked] (3 x 256 per block).
-template <typename TG>
+// [sum g*n | sum g | sum masked] (3 x C per block). A warp takes a row at
+// a time, a lane 8 columns of each 256 (H = C / 256 pieces: element 8 k + e
+// of a lane is column 256 k + 8 lane + e)
+template <typename TG, int C>
 __global__ void __launch_bounds__(THREADS)
 ln_dropout_bwd_kernel(const TG* __restrict__ g, const float* __restrict__ n,
                       const float* __restrict__ rstd,
                       const float* __restrict__ gamma,
                       float* __restrict__ dz_out, bf16* __restrict__ masked_out,
                       float* __restrict__ partial, int M, ppgs::Dropout drop) {
+  constexpr int H = C / 256, V = 8 * H;   // a lane's pieces and columns
   __shared__ float s_part[THREADS / 32][3 * C];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, c0 = lane * 8;
-  float acc_gn[8] = {}, acc_g[8] = {}, acc_m[8] = {};
+  float acc_gn[V] = {}, acc_g[V] = {}, acc_m[V] = {};
   ppgs::KeepStream stream(drop);
   const int row_first = blockIdx.x * LB_ROWS + warp * (LB_ROWS / 8);
   for (int i = 0; i < LB_ROWS / 8; ++i) {
     const int r = row_first + i;
     if (r >= M) break;
     const long long base = (long long)r * C + c0;
-    float gv[8], dz[8];
-    load8<TG>(g + base, gv);
-    if (n) {
-      float nv[8], dyg[8], s1 = 0.f, s2 = 0.f;
-      load8<float>(n + base, nv);
+    float gv[V], dz[V];
 #pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        dyg[e] = gv[e] * gamma[c0 + e];
+    for (int k = 0; k < H; ++k) load8<TG>(g + base + 256 * k, gv + 8 * k);
+    if (n) {
+      float nv[V], dyg[V], s1 = 0.f, s2 = 0.f;
+#pragma unroll
+      for (int k = 0; k < H; ++k)
+        load8<float>(n + base + 256 * k, nv + 8 * k);
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        dyg[e] = gv[e] * gamma[c0 + 256 * (e / 8) + e % 8];
         s1 += dyg[e];
         s2 += dyg[e] * nv[e];
         acc_gn[e] += gv[e] * nv[e];
       }
-      const float m1 = ppgs::warp_sum(s1) * (1.f / 256.f);
-      const float m2 = ppgs::warp_sum(s2) * (1.f / 256.f);
+      const float m1 = ppgs::warp_sum(s1) * (1.f / C);
+      const float m2 = ppgs::warp_sum(s2) * (1.f / C);
       const float s = rstd[r];
 #pragma unroll
-      for (int e = 0; e < 8; ++e) dz[e] = (dyg[e] - m1 - nv[e] * m2) * s;
+      for (int e = 0; e < V; ++e) dz[e] = (dyg[e] - m1 - nv[e] * m2) * s;
     } else {
 #pragma unroll
-      for (int e = 0; e < 8; ++e) dz[e] = gv[e];
+      for (int e = 0; e < V; ++e) dz[e] = gv[e];
     }
-    __align__(16) bf16 mc[8];
+    __align__(16) bf16 mc[V];
 #pragma unroll
-    for (int e = 0; e < 8; ++e) {
+    for (int e = 0; e < V; ++e) {
       acc_g[e] += gv[e];
+      const long long index = base + 256 * (e / 8) + e % 8;
       const float m = drop.threshold
-                          ? (stream.keep(base + e) ? dz[e] * drop.scale : 0.f)
+                          ? (stream.keep(index) ? dz[e] * drop.scale : 0.f)
                           : dz[e];
       acc_m[e] += m;
       mc[e] = __float2bfloat16(m);
     }
-    if (dz_out) {
-      float4* d = reinterpret_cast<float4*>(dz_out + base);
-      d[0] = make_float4(dz[0], dz[1], dz[2], dz[3]);
-      d[1] = make_float4(dz[4], dz[5], dz[6], dz[7]);
+#pragma unroll
+    for (int k = 0; k < H; ++k) {
+      if (dz_out) {
+        float4* d = reinterpret_cast<float4*>(dz_out + base + 256 * k);
+        d[0] = make_float4(dz[8 * k], dz[8 * k + 1], dz[8 * k + 2],
+                           dz[8 * k + 3]);
+        d[1] = make_float4(dz[8 * k + 4], dz[8 * k + 5], dz[8 * k + 6],
+                           dz[8 * k + 7]);
+      }
+      if (masked_out)
+        *reinterpret_cast<uint4*>(masked_out + base + 256 * k) =
+            *reinterpret_cast<const uint4*>(mc + 8 * k);
     }
-    if (masked_out)
-      *reinterpret_cast<uint4*>(masked_out + base) =
-          *reinterpret_cast<const uint4*>(mc);
   }
 #pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    s_part[warp][c0 + e] = acc_gn[e];
-    s_part[warp][C + c0 + e] = acc_g[e];
-    s_part[warp][2 * C + c0 + e] = acc_m[e];
+  for (int e = 0; e < V; ++e) {
+    const int col = c0 + 256 * (e / 8) + e % 8;
+    s_part[warp][col] = acc_gn[e];
+    s_part[warp][C + col] = acc_g[e];
+    s_part[warp][2 * C + col] = acc_m[e];
   }
   __syncthreads();
   for (int j = threadIdx.x; j < 3 * C; j += THREADS) {
@@ -242,33 +260,48 @@ cudaError_t colsum_pass(const float* in, long long R, long long N,
                                     round_bf16, s);
 }
 
+template <int C>
+void launch_ln_dropout_bwd(const void* g, int g_is_bf16, const void* n,
+                           const void* rstd, const void* gamma, void* dz_out,
+                           void* masked_out, void* partial, int M,
+                           const ppgs::Dropout& d, cudaStream_t s) {
+  const unsigned blocks = (M + LB_ROWS - 1) / LB_ROWS;
+  const float* nf = static_cast<const float*>(n);
+  const float* rf = static_cast<const float*>(rstd);
+  const float* gf = static_cast<const float*>(gamma);
+  float* dz = static_cast<float*>(dz_out);
+  bf16* mo = static_cast<bf16*>(masked_out);
+  float* p = static_cast<float*>(partial);
+  if (g_is_bf16)
+    ln_dropout_bwd_kernel<bf16, C><<<blocks, THREADS, 0, s>>>(
+        static_cast<const bf16*>(g), nf, rf, gf, dz, mo, p, M, d);
+  else
+    ln_dropout_bwd_kernel<float, C><<<blocks, THREADS, 0, s>>>(
+        static_cast<const float*>(g), nf, rf, gf, dz, mo, p, M, d);
+}
+
 }  // namespace
 
-// g (M, 256) fp32 (g_is_bf16 = 0) or bf16; n (M, 256) and rstd (M) fp32,
-// or n = null for no LayerNorm; gamma (256). dz_out (M, 256) fp32 or null,
-// masked_out (M, 256) bf16 or null; partial (ceil(M/64), 3, 256) fp32.
+// g (M, C) fp32 (g_is_bf16 = 0) or bf16, C = 256 or 512; n (M, C) and rstd
+// (M) fp32, or n = null for no LayerNorm; gamma (C). dz_out (M, C) fp32 or
+// null, masked_out (M, C) bf16 or null; partial (ceil(M/64), 3, C) fp32.
+// Any other C returns cudaErrorInvalidValue.
 extern "C" int ppgs_ln_dropout_bwd(
     const void* g, int g_is_bf16, const void* n, const void* rstd,
     const void* gamma, void* dz_out, void* masked_out, void* partial, int M,
-    unsigned seed_lo, unsigned seed_hi, unsigned site, unsigned threshold,
-    float scale, void* stream) {
+    int C, unsigned seed_lo, unsigned seed_hi, unsigned site,
+    unsigned threshold, float scale, void* stream) {
+  if (C != 256 && C != 512) return static_cast<int>(cudaErrorInvalidValue);
   if (M > 0) {
     const ppgs::Dropout d =
         ppgs::make_dropout(seed_lo, seed_hi, site, threshold, scale);
-    const unsigned blocks = (M + LB_ROWS - 1) / LB_ROWS;
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (g_is_bf16)
-      ln_dropout_bwd_kernel<bf16><<<blocks, THREADS, 0, s>>>(
-          static_cast<const bf16*>(g), static_cast<const float*>(n),
-          static_cast<const float*>(rstd), static_cast<const float*>(gamma),
-          static_cast<float*>(dz_out), static_cast<bf16*>(masked_out),
-          static_cast<float*>(partial), M, d);
+    if (C == 512)
+      launch_ln_dropout_bwd<512>(g, g_is_bf16, n, rstd, gamma, dz_out,
+                                 masked_out, partial, M, d, s);
     else
-      ln_dropout_bwd_kernel<float><<<blocks, THREADS, 0, s>>>(
-          static_cast<const float*>(g), static_cast<const float*>(n),
-          static_cast<const float*>(rstd), static_cast<const float*>(gamma),
-          static_cast<float*>(dz_out), static_cast<bf16*>(masked_out),
-          static_cast<float*>(partial), M, d);
+      launch_ln_dropout_bwd<256>(g, g_is_bf16, n, rstd, gamma, dz_out,
+                                 masked_out, partial, M, d, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

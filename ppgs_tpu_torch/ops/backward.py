@@ -272,18 +272,23 @@ def ln_dropout_bwd_reference(g, n, rstd, gamma, drop, cd, want_dz=True):
             masked.to(cd).reshape(g.shape), partial)
 
 
+# The LayerNorm backward kernel's widths (kernels/csrc/layer_train.cu)
+LN_BWD_WIDTHS = (256, 512)
+
+
 def ln_dropout_bwd(g, n, rstd, gamma, drop, cd, want_dz=True):
-    """Per row of g (..., 256): dz = the LayerNorm backward of g given the
-    normalised rows n and 1/std rstd (dz = g when n is None), and
+    """Per row of g (..., C), C in ``LN_BWD_WIDTHS``: dz = the LayerNorm
+    backward of g given the normalised rows n and 1/std rstd (dz = g when n
+    is None), and
     masked = keep ? dz / (1 - rate) : 0 for the Drop ``drop``. Returns
-    (dz fp32 or None, masked in cd, partial (ceil(M/64), 3 * 256) fp32 of
+    (dz fp32 or None, masked in cd, partial (ceil(M/64), 3 * C) fp32 of
     per-block column sums [g * n | g | masked], for ``colsum``)."""
     if g.device.type == 'cpu':
         return ln_dropout_bwd_reference(g, n, rstd, gamma, drop, cd, want_dz)
     C = g.shape[-1]
-    if C != 256 or cd != torch.bfloat16:
-        raise ValueError(f'ln_dropout_bwd kernel takes C=256 and bf16; got '
-                         f'C={C}, {cd}')
+    if C not in LN_BWD_WIDTHS or cd != torch.bfloat16:
+        raise ValueError(f'ln_dropout_bwd kernel takes C in {LN_BWD_WIDTHS} '
+                         f'and bf16; got C={C}, {cd}')
     dev = g.device
     if g.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f'g: expected fp32 or bf16, got {g.dtype}')
@@ -302,7 +307,7 @@ def ln_dropout_bwd(g, n, rstd, gamma, drop, cd, want_dz=True):
                    int(g.dtype == torch.bfloat16), kernels.ptr(n),
                    kernels.ptr(rstd), kernels.ptr(gamma), kernels.ptr(dz),
                    masked.data_ptr(),
-                   partial.data_ptr(), M, *drop.c_args(), device=dev)
+                   partial.data_ptr(), M, C, *drop.c_args(), device=dev)
     ln_dropout_bwd.launches += 1
     return dz, masked, partial
 

@@ -73,7 +73,7 @@ def out_proj_ln_train_reference(a, wo, bo, x, gamma, beta, drop):
 
 def out_proj_ln_train(a, wo, bo, x, gamma, beta, drop):
     """r = LN1(x + drop(a @ wo + bo)) (K3, ``kernels/csrc/out_proj_ln.cu``,
-    with its dropout site): a (..., 256) bf16, x (..., 256) fp32, ``drop``
+    with its dropout site): a (..., C) bf16, x (..., C) fp32, ``drop``
     the attention output's Drop. Returns (r, the normalised rows, 1/std
     (M,)), fp32."""
     if a.device.type == 'cpu':
@@ -197,8 +197,9 @@ def encoder_layer_train(x, mask, layer, heads, dropout_rate=0.0, seed=0,
     optimizer step is seen at once (the model's ``prepared`` buffers are
     not read). mask: (B, T), True = valid key. The dropout sites are
     ``site`` .. ``site + 3`` of the Philox stream of ``seed``. On the card
-    the kernels take bf16 with C = 256 and d_head = 128 and raise on
-    anything else."""
+    the kernels take bf16 with (C, d_head) = (256, 128) (the mel model) or
+    (512, 256) (the w2v2fb and w2v2fc heads) and raise on anything
+    else."""
     return _layer(x, mask, layer, heads, dropout_rate, seed, causal, site,
                   compute_dtype, KERNELS)
 

@@ -35,7 +35,7 @@ from . import dropout
 LOG2E = 1.4426950408889634
 NEG_INF = -1e30
 D_HEADS = (64, 128, 256)    # the inference kernel's head widths
-D_HEAD = 128                # the train kernels' head width
+TRAIN_D_HEADS = (128, 256)  # the train kernels' head widths
 TRAIN_MAX_T = 1024          # the train forward kernel's longest window
 
 
@@ -358,13 +358,22 @@ def keep_words_reference(drop, B, heads, T, device=None):
                        words).to(torch.int32)
 
 
+def train_d_head(C, heads):
+    """The head width of (B, T, C) train operands with ``heads`` heads;
+    raise ValueError unless the train kernels take it
+    (``TRAIN_D_HEADS``)."""
+    d = C // heads
+    if C != heads * d or d not in TRAIN_D_HEADS:
+        raise ValueError(f'attention train kernels take d_head in '
+                         f'{TRAIN_D_HEADS}; got C={C} with {heads} heads')
+    return d
+
+
 def _attention_views(q, k, v, heads, dtype):
-    """Check q, k, v (B, T, H*128) views of one row layout and return their
-    row stride."""
+    """Check q, k, v (B, T, H*d) views of one row layout, d in
+    ``TRAIN_D_HEADS``, and return their row stride."""
     B, T, C = q.shape
-    if C != heads * D_HEAD:
-        raise ValueError(f'attention kernels take d_head={D_HEAD}; got '
-                         f'C={C} with {heads} heads')
+    train_d_head(C, heads)
     dev = q.device
     for name, t in (('q', q), ('k', k), ('v', v)):
         if t.dtype != dtype or t.device != dev:
@@ -382,8 +391,8 @@ def _attention_views(q, k, v, heads, dtype):
 def _train_fwd_args(q, k, v, mask, heads):
     """Check ``attention_train_fwd``'s operands and return the row stride of
     q, k and v; raise ValueError on what the kernel does not take, before
-    anything is launched: a d_head other than 128, q, k or v not bf16 of
-    q's shape and device, views its TMA maps cannot read in place
+    anything is launched: a d_head not in ``TRAIN_D_HEADS``, q, k or v not
+    bf16 of q's shape and device, views its TMA maps cannot read in place
     (``_row_stride``) or of different row strides, a mask that is not a
     contiguous (B, T) bool, T past ``TRAIN_MAX_T``."""
     B, T, C = q.shape
@@ -398,7 +407,8 @@ def _train_fwd_args(q, k, v, mask, heads):
 def attention_train_fwd(q, k, v, mask, heads, scale_log2, causal, drop,
                         want_f32=False):
     """Attention with dropout on the normalised probabilities
-    (``kernels/csrc/attention_train.cu``): q, k, v (B, T, H*128) bf16 views,
+    (``kernels/csrc/attention_train.cu``): q, k, v (B, T, H*d) bf16 views, d
+    in ``TRAIN_D_HEADS``,
     T <= ``TRAIN_MAX_T``, mask (B, T) bool, ``drop`` the probabilities'
     Drop. Returns (o bf16, o fp32 or None, lse (B, H, T) fp32, the keep
     words for the backward (``keep_words_shape`` int32) or None when the
@@ -419,7 +429,7 @@ def attention_train_fwd(q, k, v, mask, heads, scale_log2, causal, drop,
     kernels.launch('ppgs_attention_train_fwd', q.data_ptr(), k.data_ptr(),
                    v.data_ptr(), rs, mask.data_ptr(), out.data_ptr(),
                    kernels.ptr(out32), C, lse.data_ptr(), kernels.ptr(keep),
-                   B, T, heads, float(scale_log2), int(causal),
+                   B, T, heads, C // heads, float(scale_log2), int(causal),
                    *drop.c_args(), device=dev)
     attention_train_fwd.launches += 1
     return out, out32, lse, keep
@@ -436,19 +446,21 @@ def row_dot_reference(x, y, heads):
 
 
 def row_dot(x, y, heads):
-    """Per-head row sums of x * y over (B, T, H*128) views of one dtype
-    (fp32 or bf16) -> (B, H, T) fp32: the backward's d_row."""
+    """Per-head row sums of x * y over (B, T, H*d) views of one dtype (fp32
+    or bf16), d in ``TRAIN_D_HEADS`` -> (B, H, T) fp32: the backward's
+    d_row."""
     if x.device.type == 'cpu':
         return row_dot_reference(x, y, heads)
     B, T, C = x.shape
-    if C != heads * D_HEAD or x.dtype != y.dtype or tuple(y.shape) != (
+    d = train_d_head(C, heads)
+    if x.dtype != y.dtype or tuple(y.shape) != (
             B, T, C) or x.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f'row_dot kernel takes two (B, T, H*{D_HEAD}) '
-                         f'views of one dtype, fp32 or bf16')
+        raise ValueError(f'row_dot kernel takes two (B, T, H*{d}) views of '
+                         f'one dtype, fp32 or bf16')
     ldx, ldy = _row_stride(x, T), _row_stride(y, T)
     out = torch.empty((B, heads, T), dtype=torch.float32, device=x.device)
     kernels.launch('ppgs_row_dot', x.data_ptr(), ldx, y.data_ptr(), ldy,
-                   out.data_ptr(), B, T, heads,
+                   out.data_ptr(), B, T, heads, d,
                    int(x.dtype == torch.float32), device=x.device)
     row_dot.launches += 1
     return out
@@ -486,8 +498,8 @@ def attention_train_bwd_reference(q, k, v, mask, lse, keep, dout, d_row,
 def _train_bwd_args(q, k, v, mask, lse, keep, dout, d_row, heads, drop):
     """Check ``attention_train_bwd``'s operands and return (the row stride
     of q, k and v, dout's); raise ValueError on what the kernel does not
-    take, before anything is launched: a d_head other than 128, q, k, v or
-    dout not bf16 of q's shape and device, views the kernel's TMA maps
+    take, before anything is launched: a d_head not in ``TRAIN_D_HEADS``,
+    q, k, v or dout not bf16 of q's shape and device, views the kernel's TMA maps
     cannot read in place (``_row_stride``), q, k and v of different row
     strides, a mask that is not a contiguous (B, T) bool, lse or d_row not
     contiguous (B, H, T) fp32, with the dropout on keep words that are not
@@ -543,7 +555,8 @@ def attention_train_bwd(q, k, v, mask, lse, keep, dout, d_row, heads,
                    kernels.ptr(keep if drop.on else None), dout.data_ptr(),
                    do_stride, d_row.data_ptr(), at(d16, 0), at(d32, 0),
                    at(d16, 1), at(d32, 1), at(d16, 2), at(d32, 2), 3 * C, B,
-                   T, heads, float(scale_log2), float(sm_scale), int(causal),
+                   T, heads, C // heads, float(scale_log2), float(sm_scale),
+                   int(causal),
                    float(drop.scale), device=dev)
     attention_train_bwd.launches += 1
     return d16, d32

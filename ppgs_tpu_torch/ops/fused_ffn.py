@@ -37,8 +37,11 @@ from . import backward, dropout
 
 LN_EPS = 1e-5
 # (C, activation) of each K4 instance with the LayerNorm epilogue: the
-# models' widths
+# models' widths; and those of its bf16-output form (ffn_train's forward)
 LN_WIDTHS = ((256, 'relu'), (512, 'relu'), (768, 'gelu'))
+Y_OUT_WIDTHS = ((256, 'relu'), (512, 'relu'))
+# The FFN backward kernel's widths (kernels/csrc/ffn_train.cu)
+TRAIN_BWD_WIDTHS = (256, 512)
 # The width whose hidden stays on chip (one kernel); the others take two
 # launches through an (M, F) bf16 hidden (kernels/csrc/ffn_ln.cu's note)
 FUSED_WIDTH = 256
@@ -102,11 +105,12 @@ def _launch_ffn(x, w1, b1, w2, b2, ln=None, round_input=False,
     and 768. ``ln`` = (gamma, beta): x (..., C) fp32 with (C, activation)
     in ``LN_WIDTHS``, returns (LN(...) fp32, and with ``stats`` the
     normalised rows and 1/std (M,), else None, None). ``ln`` None: x
-    (..., 256) bf16, ReLU, returns (the bf16 output, None, None). Last, the
+    (..., C) bf16 with (C, activation) in ``Y_OUT_WIDTHS``, returns (the
+    bf16 output, None, None). Last, the
     hidden's keep words (``keep_words_shape`` int32) where ``drop_h`` drops
     it (the train forms), else None."""
     C, F = w1.shape
-    widths = LN_WIDTHS if ln else ((256, 'relu'),)
+    widths = LN_WIDTHS if ln else Y_OUT_WIDTHS
     if (C, activation) not in widths or F % 128:
         raise ValueError(f'ffn_ln kernel takes (C, activation) in {widths} '
                          f'and F%128==0; got C={C}, {activation}, F={F}')
@@ -280,7 +284,7 @@ def ffn_train_fwd(x, w1, b1, w2, b2, drop_h, drop_y, ln=None):
 
     ``ln`` = (gamma, beta), B4's form: x (..., C) fp32, returns
     (LN2(x + drop_y(y0)) fp32, the normalised rows, 1/std (M,), keep).
-    ``ln`` None, ffn_train's form: x (..., 256) bf16, returns
+    ``ln`` None, ffn_train's form: x (..., C) bf16, returns
     (drop_y(y) bf16, None, None, keep). keep: the hidden's keep bits for
     ``ffn_train_bwd`` (``keep_words_shape`` int32), None at rate 0."""
     if x.device.type == 'cpu':
@@ -322,7 +326,8 @@ def ffn_train_bwd_reference(x, dy, w1, b1, w2, drop_h, keep,
 
 def ffn_train_bwd(x, dy, w1, b1, w2, drop_h, keep, residual=None):
     """The FFN's backward up to its input (``kernels/csrc/ffn_train.cu``):
-    x as the forward took it, dy (..., 256) bf16 the gradient of the
+    x as the forward took it, C in ``TRAIN_BWD_WIDTHS``, dy (..., C) bf16 the
+    gradient of the
     dropped output, already masked, keep the forward's keep words (None at
     rate 0); recomputes the hidden. Returns (dx: fp32 plus ``residual`` for
     an fp32 x, bf16 for a bf16 x; hd and bf16(dh), (M, F) bf16; db1 partial
@@ -331,9 +336,9 @@ def ffn_train_bwd(x, dy, w1, b1, w2, drop_h, keep, residual=None):
         return ffn_train_bwd_reference(x, dy, w1, b1, w2, drop_h, keep,
                                        residual)
     C, F = w1.shape
-    if C != 256 or F % 128:
-        raise ValueError(f'ffn_train kernel takes C=256, F%128==0; got '
-                         f'C={C}, F={F}')
+    if C not in TRAIN_BWD_WIDTHS or F % 128:
+        raise ValueError(f'ffn_train kernel takes C in {TRAIN_BWD_WIDTHS}, '
+                         f'F%128==0; got C={C}, F={F}')
     dev = x.device
     x_f32 = x.dtype == torch.float32
     if x_f32 != (residual is not None):
@@ -358,7 +363,7 @@ def ffn_train_bwd(x, dy, w1, b1, w2, drop_h, keep, residual=None):
     dh = torch.empty((M, F), dtype=torch.bfloat16, device=dev)
     partial = torch.empty((-(-M // backward.PARTIAL_ROWS), F),
                           dtype=torch.float32, device=dev)
-    # W1 transposed: its (F, 256) rows are the operand form of both of the
+    # W1 transposed: its (F, C) rows are the operand form of both of the
     # kernel's products with it (the source's note)
     w1t = w1.t().contiguous()
     kernels.launch('ppgs_ffn_train_bwd', x.data_ptr(), int(x_f32),
@@ -366,7 +371,7 @@ def ffn_train_bwd(x, dy, w1, b1, w2, drop_h, keep, residual=None):
                    w2.data_ptr(), kernels.ptr(keep if drop_h.on else None),
                    kernels.ptr(residual), dx.data_ptr() if x_f32 else None,
                    None if x_f32 else dx.data_ptr(), hd.data_ptr(),
-                   dh.data_ptr(), partial.data_ptr(), M, F,
+                   dh.data_ptr(), partial.data_ptr(), M, F, C,
                    float(drop_h.scale), device=dev)
     ffn_train_bwd.launches += 1
     return dx, hd, dh, partial

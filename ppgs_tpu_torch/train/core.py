@@ -280,7 +280,7 @@ def train(dataset=None, directory=None, config=None, max_steps=None,
     config_mod.require_no_frontend(config)
     device = devices.resolve(device)
     # raises for a width the card's train kernels do not take yet
-    models.transformer.use_kernels(config, device, train=True)
+    models.transformer.use_kernels(config, device)
     _check_backend(config.checkpoint_backend)
     directory = Path(directory or config_mod.RUNS_DIR / config.config)
     directory.mkdir(parents=True, exist_ok=True)

@@ -48,12 +48,12 @@ VARIANTS = {
     'stages3_blocks1': (
         ('static constexpr int STAGES = 2;',
          'static constexpr int STAGES = 3;'),
-        ('static constexpr int BLOCKS = 4 / WGS;',
+        ('static constexpr int BLOCKS = D == 256 ? 1 : 4 / WGS;',
          'static constexpr int BLOCKS = 1;')),
     'stages4_blocks1': (
         ('static constexpr int STAGES = 2;',
          'static constexpr int STAGES = 4;'),
-        ('static constexpr int BLOCKS = 4 / WGS;',
+        ('static constexpr int BLOCKS = D == 256 ? 1 : 4 / WGS;',
          'static constexpr int BLOCKS = 1;')),
     'draw_in_pass1': (PASS1,),
     'pass1_one_tile': (ONE_TILE,),
@@ -168,7 +168,7 @@ def main():
         err = functions[name](
             q.data_ptr(), k.data_ptr(), v.data_ptr(), rs, mask.data_ptr(),
             o16.data_ptr(), o32.data_ptr(), C, lse.data_ptr(),
-            keep.data_ptr() if drop.on else None, B, T, H, sl, 0,
+            keep.data_ptr() if drop.on else None, B, T, H, D, sl, 0,
             *drop.c_args(), stream)
         if err:
             raise RuntimeError(f'{name}: launch failed with error {err}')

@@ -158,6 +158,7 @@ def main():
         stream = torch.cuda.current_stream().cuda_stream
         common = (out['hd'].data_ptr(), out['dh'].data_ptr(),
                   out['partial'].data_ptr(), M, Fh)
+        width = () if name == 'parent' else (C,)
         if name == 'parent':
             err = functions[name](
                 xf.data_ptr(), int(form == 'fp32'), dy.data_ptr(),
@@ -173,7 +174,7 @@ def main():
                 words.data_ptr() if drop.on else None,
                 None if resf is None else resf.data_ptr(),
                 None if dx32 is None else dx32.data_ptr(),
-                None if dx16 is None else dx16.data_ptr(), *common,
+                None if dx16 is None else dx16.data_ptr(), *common, *width,
                 float(drop.scale), stream)
         if err:
             raise RuntimeError(f'{name}: launch failed with error {err}')

@@ -10,7 +10,9 @@ The CUDA kernels run only on a card: chip_smoke.py holds the forward
 (``kernels/csrc/attention_train.cu``) and the backward
 (``kernels/csrc/attention_train_bwd.cu``) against these same plain versions
 there, at these T, masks and causal settings, with dropout off and 0.1.
-Tolerance: fp32 at rtol and atol 1e-4, the envelope of
+The plain versions are held at both train head widths (2 heads of 128: the
+mel model; 2 heads of 256: the w2v2fb and w2v2fc heads), the argument
+checks at 128. Tolerance: fp32 at rtol and atol 1e-4, the envelope of
 tests/test_torch_train_kernels.py::test_flash_attention_train_matches_jax_kernel.
 """
 
@@ -27,14 +29,23 @@ from ppgs_tpu.ops import flash_attention as jax_fa
 from ppgs_tpu_torch.ops import dropout
 from ppgs_tpu_torch.ops import flash_attention as fa
 
-H, D = 2, fa.D_HEAD             # the train kernels' head width
+H, D = 2, 128                   # the mel model's heads
 C = H * D
 # T about the kernels' 64-row tiles and 128-row blocks, and the per-layer
 # path's window
 T_EDGES = (1, 63, 64, 65, 127, 129, 500)
 
 
-def _inputs(seed, T):
+def _cases():
+    """(T, causal, d_head) over ``T_EDGES``, causal off and on and both
+    train head widths; the d_head 256 cases' ids end in -d256."""
+    return [pytest.param(T, causal, d, id=f'{T}-{causal}' +
+                         ('' if d == D else f'-d{d}'))
+            for d in fa.TRAIN_D_HEADS for causal in (False, True)
+            for T in T_EDGES]
+
+
+def _inputs(seed, T, C=C):
     """q, k, v, dO (4, T, C) fp32 and a (4, T) mask: a ragged prefix, a mask
     with holes (one whole 64-key tile masked where T reaches it), a wholly
     masked window, and a full one."""
@@ -70,17 +81,17 @@ def _jax_train(q, k, v, do, mask, causal):
     return [np.asarray(a)[:, :T] for a in (out, *grads)]
 
 
-@pytest.mark.parametrize('causal', [False, True])
-@pytest.mark.parametrize('T', T_EDGES)
-def test_train_references_match_jax_kernel(T, causal):
+@pytest.mark.parametrize('T,causal,d_head', _cases())
+def test_train_references_match_jax_kernel(T, causal, d_head):
     """o from the forward's plain version, then dq, dk, dv from the
     backward's on its lse and d_row (the steps of ``_FlashTrain``); lse
     itself is not compared: the port's is in log2 units and 0 on a row with
     no valid key, JAX's natural-log and near -1e29 there."""
-    q, k, v, do, mask = _inputs(T, T)
+    C = H * d_head
+    q, k, v, do, mask = _inputs(T, T, C)
     want = _jax_train(q, k, v, do, mask, causal)
     tq, tk, tv, tdo, tm = (torch.from_numpy(a) for a in (q, k, v, do, mask))
-    sm = 1.0 / math.sqrt(D)
+    sm = 1.0 / math.sqrt(d_head)
     drop = dropout.Drop(0, 1, 0.0)
     o, _, lse, keep = fa.attention_train_fwd_reference(
         tq, tk, tv, tm, H, fa.LOG2E * sm, causal, drop)
@@ -96,19 +107,18 @@ def test_train_references_match_jax_kernel(T, causal):
     assert not d32[2].any() and not o[2].any()
 
 
-@pytest.mark.parametrize('causal', [False, True])
-@pytest.mark.parametrize('T', T_EDGES)
-def test_train_fwd_reference_contract(T, causal):
+@pytest.mark.parametrize('T,causal,d_head', _cases())
+def test_train_fwd_reference_contract(T, causal, d_head):
     """What chip_smoke.py holds the forward kernel to besides the values:
     the bf16 o is the fp32 o rounded, the wholly masked window gives o = 0
     and lse = 0, and without want_f32 the wrapper (its plain version on a
     CPU tensor) gives the same o and lse and no fp32 o; with the dropout
     off and at 0.1 (the plain forward draws no keep words: the plain
     backward draws its own)."""
-    q, k, v, _, mask = _inputs(T + 1, T)
+    q, k, v, _, mask = _inputs(T + 1, T, H * d_head)
     tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
     tm = torch.from_numpy(mask)
-    sl = fa.LOG2E / math.sqrt(D)
+    sl = fa.LOG2E / math.sqrt(d_head)
     for rate in (0.0, 0.1):
         drop = dropout.Drop(3, 1, rate)
         o, o32, lse, keep = fa.attention_train_fwd_reference(
@@ -127,23 +137,26 @@ def test_train_fwd_reference_contract(T, causal):
 _DROP = dropout.Drop(1, 1, 0.1)
 
 
-def _args(B=2, T=70, extra=0, offset=0, dtype=torch.bfloat16, do_extra=0):
+def _args(B=2, T=70, extra=0, offset=0, dtype=torch.bfloat16, do_extra=0,
+          heads=H, C=C):
     """The backward's operands as the whole-layer path passes them: q, k, v
     views of one (B, T, 3C + extra) buffer from column ``offset``, a valid
     mask, lse, the keep words, dout (a view of a (B, T, C + do_extra)
-    buffer) and d_row."""
+    buffer) and d_row, for ``heads`` heads."""
     buf = torch.zeros(B, T, 3 * C + extra, dtype=dtype)
     q, k, v = (buf[..., offset + i * C:offset + (i + 1) * C]
                for i in range(3))
     dout = torch.zeros(B, T, C + do_extra, dtype=torch.bfloat16)[..., :C]
-    rows = torch.zeros(B, H, T)
-    keep = torch.zeros(fa.keep_words_shape(B, H, T), dtype=torch.int32)
+    rows = torch.zeros(B, heads, T)
+    keep = torch.zeros(fa.keep_words_shape(B, heads, T), dtype=torch.int32)
     return (q, k, v, torch.ones(B, T, dtype=torch.bool), rows, keep, dout,
             rows.clone())
 
 
 def test_train_bwd_args_take_fused_views():
     assert fa._train_bwd_args(*_args(), H, _DROP) == (3 * C, C)
+    # the w2v2fb head's width: 2 heads of 256
+    assert fa._train_bwd_args(*_args(C=512), H, _DROP) == (3 * 512, 512)
     assert fa._train_bwd_args(*_args(do_extra=8), H, _DROP) == (3 * C, C + 8)
     # with the dropout off the keep words are not read
     no_keep = _replace(_args(), 5, None)
@@ -162,8 +175,8 @@ _keep = _a[5]
 
 
 @pytest.mark.parametrize('args,heads,match', [
-    (_a, 4, 'd_head=128'),                                   # d_head 64
-    (_a, 1, 'd_head=128'),                                   # d_head 256
+    (_args(heads=4), 4, r'd_head in \(128, 256\)'),        # d_head 64
+    (_args(heads=8), 8, r'd_head in \(128, 256\)'),        # d_head 32
     (_args(dtype=torch.float32), H, 'q: expected torch.bfloat16'),
     (_replace(_a, 1, _a[1].float()), H, 'k: expected torch.bfloat16'),
     (_replace(_a, 2, _a[2][:, :69]), H, 'v: expected shape'),
@@ -228,6 +241,8 @@ def test_train_fwd_args_take_fused_views():
     assert fa._train_fwd_args(*separate, mask, H) == C
     wide = _args(T=fa.TRAIN_MAX_T)
     assert fa._train_fwd_args(*wide[:4], H) == 3 * C
+    head = _args(C=512)
+    assert fa._train_fwd_args(*head[:4], H) == 3 * 512
 
 
 def _fwd(args):
@@ -235,8 +250,8 @@ def _fwd(args):
 
 
 @pytest.mark.parametrize('args,heads,match', [
-    (_fwd(_a), 4, 'd_head=128'),                             # d_head 64
-    (_fwd(_a), 1, 'd_head=128'),                             # d_head 256
+    (_fwd(_a), 4, r'd_head in \(128, 256\)'),              # d_head 64
+    (_fwd(_a), 8, r'd_head in \(128, 256\)'),              # d_head 32
     (_fwd(_args(dtype=torch.float32)), H, 'q: expected torch.bfloat16'),
     (_fwd(_replace(_a, 1, _a[1].float())), H, 'k: expected torch.bfloat16'),
     (_fwd(_replace(_a, 2, _a[2][:, :69])), H, 'v: expected shape'),

@@ -6,7 +6,8 @@ The kernels run only on a card (chip_smoke.py holds K4's words to Philox's
 bits there, and the backward kernel to its plain version); here the plain
 versions: the packing against ``Drop.keep`` bit for bit, and the plain
 backward given the words against the same function drawing them, bit for
-bit, in both of its forms (fp32 x with the residual, bf16 x).
+bit, in both of its forms (fp32 x with the residual, bf16 x), at both
+train widths (C = 256: the mel model; 512: the w2v2fb and w2v2fc heads).
 """
 
 import math
@@ -22,7 +23,15 @@ DROP = dropout.Drop(11, 3, 0.1)
 ODD_M = (1, 63, 65, 129)
 
 
-def _operands(M, F, seed=0):
+def _widths(*cases):
+    """``cases`` (tuples of arguments) at each train width, C last: the
+    C = 512 cases' ids end in -C512."""
+    return [pytest.param(*case, width, id='-'.join(map(str, case)) + (
+        '' if width == C else f'-C{width}'))
+            for width in fused_ffn.TRAIN_BWD_WIDTHS for case in cases]
+
+
+def _operands(M, F, seed=0, C=C):
     """x fp32, dy bf16, w1, b1, w2 (bf16 weights), a residual: seeded numpy
     draws."""
     rng = np.random.default_rng(seed)
@@ -56,12 +65,12 @@ def test_keep_words_pack_the_hidden_mask(M, F):
     np.testing.assert_array_equal(_bits(words, F), DROP.keep((M, F)).numpy())
 
 
-@pytest.mark.parametrize('ln', [False, True])
-def test_train_fwd_reference_returns_the_keep_words(ln):
+@pytest.mark.parametrize('ln,C', _widths((False,), (True,)))
+def test_train_fwd_reference_returns_the_keep_words(ln, C):
     """The plain forward's fourth output is the hidden's keep words in both
     forms (B4's LayerNorm form, ffn_train's bf16 form), None at rate 0."""
     M, F = 65, 384
-    x, _, w1, b1, w2, _ = _operands(M, F)
+    x, _, w1, b1, w2, _ = _operands(M, F, C=C)
     b2 = torch.zeros(C)
     args = ((x, w1, b1, w2, b2) if ln else
             (x.to(torch.bfloat16), w1, b1, w2, b2))
@@ -74,13 +83,14 @@ def test_train_fwd_reference_returns_the_keep_words(ln):
     assert none is None
 
 
-@pytest.mark.parametrize('form', ['fp32', 'bf16'])
-@pytest.mark.parametrize('M,F', [(1, 128), (65, 384), (129, 128)])
-def test_bwd_reference_given_the_words_equals_drawing_them(M, F, form):
+@pytest.mark.parametrize('M,F,form,C', _widths(
+    *((M, F, form) for form in ('fp32', 'bf16')
+      for M, F in ((1, 128), (65, 384), (129, 128)))))
+def test_bwd_reference_given_the_words_equals_drawing_them(M, F, form, C):
     """``ffn_train_bwd_reference`` given the forward's words returns what
     it returns drawing the bits itself (keep None), bit for bit: dx, hd,
     bf16(dh) and the db1 partial sums."""
-    x, dy, w1, b1, w2, res = _operands(M, F, seed=M)
+    x, dy, w1, b1, w2, res = _operands(M, F, seed=M, C=C)
     if form == 'bf16':
         x, res = x.to(torch.bfloat16), None
     words = fused_ffn.keep_words_reference(DROP, M, F)
@@ -94,13 +104,13 @@ def test_bwd_reference_given_the_words_equals_drawing_them(M, F, form):
         assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize('form', ['fp32', 'bf16'])
-def test_bwd_reference_reads_the_words_it_is_given(form):
+@pytest.mark.parametrize('form,C', _widths(('fp32',), ('bf16',)))
+def test_bwd_reference_reads_the_words_it_is_given(form, C):
     """Words that keep nothing give hd = bf16(dh) = 0, db1 = 0 and dx = the
     residual (or 0): the plain backward takes its bits from the words, not
     from the Drop, when it has them."""
     M, F = 63, 128
-    x, dy, w1, b1, w2, res = _operands(M, F, seed=3)
+    x, dy, w1, b1, w2, res = _operands(M, F, seed=3, C=C)
     if form == 'bf16':
         x, res = x.to(torch.bfloat16), None
     none_kept = torch.zeros(fused_ffn.keep_words_shape(M, F),

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 import ppgs_tpu
+from ppgs_tpu import load as jax_load
 from ppgs_tpu.evaluate.metrics import Metrics as JaxMetrics
 from ppgs_tpu.models import transformer as jax_transformer
 from ppgs_tpu.ops import encoder_layer_train as jax_elt
@@ -308,6 +309,86 @@ def test_bf16_train_forward_matches_jax(monkeypatch, T):
         cos = g @ w / (np.linalg.norm(g) * norm)
         assert cos > 0.998, (key, cos)
         assert abs(np.linalg.norm(g) - norm) <= 0.01 * norm, key
+
+
+def _grads_agree(got, want, floor):
+    """Per tensor, as test_bf16_train_forward_matches_jax holds them: cos >
+    0.998 and norm within 1%, skipping tensors whose norm is below
+    ``floor`` (the key biases: softmax is shift-invariant in them)."""
+    for key, w in want.items():
+        g, w = got[key].ravel(), np.asarray(w, np.float32).ravel()
+        norm = np.linalg.norm(w)
+        if norm < floor:
+            continue
+        cos = g @ w / (np.linalg.norm(g) * norm)
+        assert cos > 0.998, (key, cos)
+        assert abs(np.linalg.norm(g) - norm) <= 0.01 * norm, key
+
+
+@pytest.mark.parametrize('T', [64, 60])
+def test_w2v2fb_train_step_matches_jax(monkeypatch, tmp_path, T):
+    """The head-training slice as a whole: one train step of the w2v2fb
+    config (input 768, C = 512, 2 heads of 256, F = 2048, bf16; depth cut
+    to 2 layers, dropout 0) from the same npz parameters on both sides, on
+    w2v2fb-like features: T = 64 takes the whole-layer path, T = 60 the
+    per-layer path (the JAX train kernels in interpret mode, the port's
+    plain versions, each layer through the path's functions). The loss
+    within 1e-3 relative (measured 5e-5), and the gradients Adam received
+    (its first moment / 0.1) per tensor as
+    test_bf16_train_forward_matches_jax holds them (here from the mean
+    loss, so the skipping floor is 1e-4: measured norms 4e-5 to 6e-5 for
+    the key biases, >= 3e-3 for every other tensor)."""
+    config = ppgs_tpu.config.get('w2v2fb').replace(num_hidden_layers=2,
+                                                   dropout=0.0)
+    path = tmp_path / 'head.npz'
+    jax_load.save_params(path, jax_transformer.init(jax.random.PRNGKey(2),
+                                                    config))
+    params = jax_load.load_params(path)
+    model = train_core.init_model(_port_config(config), 'cpu')
+    model.load_state_dict(convert.params_from_jax(port.load.load_flat(path)))
+
+    rng = np.random.default_rng(6)
+    B = 2
+    lengths = np.array([T, T - 10])
+    features = rng.standard_normal((B, config.input_channels, T)).astype(
+        np.float32)
+    targets = rng.integers(0, 40, size=(B, T)).astype(np.int64)
+    for i, n in enumerate(lengths):
+        features[i, :, n:] = 0
+        targets[i, n:] = -100
+
+    def interpret(module, name):
+        original = getattr(module, name)
+        monkeypatch.setattr(module, name, lambda *a, **k: original(
+            *a, **{**k, 'interpret': True}))
+
+    interpret(jax_elt, 'encoder_layer_train')
+    interpret(jax_fa, 'flash_attention_train')
+    monkeypatch.setattr(jax_transformer, '_use_flash', lambda d: True)
+    optimizer = jax_train.make_optimizer(config)
+    step_fn = jax_train.make_train_step(config, optimizer)
+    _, opt_state, want_loss, _ = step_fn(
+        params, optimizer.init(params), jnp.asarray(features),
+        jnp.asarray(targets), jnp.asarray(lengths), jax.random.PRNGKey(1),
+        with_stats=True)
+
+    calls = []
+    _spy(monkeypatch, elt, 'encoder_layer_train', calls)
+    _spy(monkeypatch, fa, 'flash_attention_train', calls)
+    _spy(monkeypatch, fused_ffn, 'ffn_train', calls)
+    port_opt = train_core.make_optimizer(model.parameters(), config)
+    step = train_core.make_train_step(model, _port_config(config), port_opt)
+    got_loss, _ = step(torch.from_numpy(features), torch.from_numpy(targets),
+                       torch.from_numpy(lengths), seed=0)
+    assert sorted(set(calls)) == (['encoder_layer_train'] if T % 8 == 0 else
+                                  ['ffn_train', 'flash_attention_train'])
+    assert len(calls) == (2 if T % 8 == 0 else 4)
+    np.testing.assert_allclose(float(got_loss), float(want_loss), rtol=1e-3)
+    got = _as_jax_flat(model, [p.grad for p in model.parameters()])
+    want = port.load.flatten_params(jax.device_get(jax.tree.map(
+        lambda m: m / 0.1, opt_state[0].mu)))
+    assert sorted(got) == sorted(want)
+    _grads_agree(got, want, 1e-4)
 
 
 ###############################################################################

@@ -137,15 +137,16 @@ def test_kernel_gate_follows_the_jax_rule(name, fields, device, want):
 
 
 def test_train_gate_keeps_the_mel_width():
-    """The train kernels take the mel model's width only: training the
-    w2v2fb head (C = 512, d_head = 256) on the card raises, naming
-    ROADMAP.md, where inference takes the kernels."""
-    config = ppgs_tpu_torch.config.get('w2v2fb')
-    assert transformer.use_kernels(config, 'cuda')
+    """The train kernels take the mel model's width and the w2v2fb and
+    w2v2fc heads' (C = 512, d_head = 256) on the card; a width still not
+    ported (C = 1024 with 2 heads: d_head = 512) raises, naming
+    ROADMAP.md."""
+    for name in ('mel', 'w2v2fb', 'w2v2fc'):
+        assert transformer.use_kernels(ppgs_tpu_torch.config.get(name),
+                                       'cuda')
+    wide = ppgs_tpu_torch.config.get('w2v2fb').replace(hidden_channels=1024)
     with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-        transformer.use_kernels(config, 'cuda', train=True)
-    assert transformer.use_kernels(ppgs_tpu_torch.config.get('mel'), 'cuda',
-                                   train=True)
+        transformer.use_kernels(wide, 'cuda')
 
 
 def test_prepare_casts_and_folds_once(tmp_path):
