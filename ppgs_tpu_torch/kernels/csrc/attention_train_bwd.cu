@@ -39,15 +39,15 @@
 //
 // Design. Both kernels are K2's (attention.cu) on the same operand forms:
 // one block per (128 rows, head, window), two consumer warpgroups of 64
-// rows, 256 threads and one block an SM (ptxas: 160 and 171 registers a
+// rows, 256 threads and one block an SM (ptxas: 164 and 175 registers a
 // thread in the dq pass, 239 and 247 in the dk/dv pass, without and with
-// dropout; no spills). A block's own rows arrive once by TMA and stay; the other
-// side streams past in 64-row tiles through a ring of STAGES stages with
-// full and empty mbarriers: thread 0 fills it, and the last of the eight
-// warps to release a stage refills it. 3-D tensor maps (d, T, window)
-// read a head's columns through the row stride and zero-fill rows past T;
-// every row and key past T is also masked by index (with lse = 0 a zero
-// row would give pn = 1).
+// dropout; no spills). A block's own rows arrive once by TMA and stay;
+// the other side streams past in 64-row tiles through a ring of STAGES
+// stages with full and empty mbarriers: thread 0 fills it, and the last of
+// the eight warps to release a stage refills it. 3-D tensor maps (d, T,
+// window) read a head's columns through the row stride and zero-fill rows
+// past T; every row and key past T is also masked by index (with lse = 0
+// a zero row would give pn = 1).
 // - dq pass: Q and dO of 128 queries resident; K and V tiles stream. Per
 //   tile and warpgroup S = Q K^T and dP = dO V^T by SS wgmma (both operands
 //   K-major) into registers; ds, rounded to bf16, is packed from the
@@ -66,17 +66,29 @@
 //   writes zeros. lse, d_row and the keep words of a query tile reach each
 //   warp through a slot of its own, fetched a tile ahead (any T: no TMA
 //   alignment needed).
-// - d_head 256: dK and dV of 64 x 256 fp32 would be 256 registers a thread,
-//   and dQ beside S and dP past 200. So a block accumulates one DV = 128
-//   column half of its output (grid.y = heads x 2 halves): it computes S
-//   and dP at the full depth of 256, and its output products take their B
-//   operand from the half's two atoms of the streamed tile. That is the
-//   d_head 128 instance's register footprint, at twice its S and dP
-//   products. Its resident operands (2 x 64 KB) and a stage of two 64-row
-//   operands (64 KB) leave room for one stage only (199 KB of shared
-//   memory in all), so a tile's loads do not overlap the previous tile's
-//   products. ptxas: 154 and 164 registers a thread in the dq pass, 232
-//   and 242 in the dk/dv pass, without and with dropout; no spills.
+// - d_head 256 (the w2v2fb head): the dq pass is the same, whole: dQ of 64
+//   x 256 fp32 a warpgroup (128 registers) beside S and dP, 234 and 244
+//   registers a thread, no spills. Q and dO (128 KB) leave room for three
+//   32 KB slots, not two stages of K and V: K tiles take two slots by
+//   parity and V tiles one, dP is issued before S, and V's slot is
+//   refilled with the next tile's V once dP is done, while S, ds and dQ
+//   run (230 KB of shared memory). dK and dV of 64 x 256 fp32 would be
+//   256 registers a thread, so the dk/dv pass splits the products instead
+//   of the output's columns (dkdv_split_kernel): a block owns 64 keys;
+//   warpgroup 1 computes S^T = K Q^T, pn and pd, and dV += Pd^T dO;
+//   warpgroup 0 computes dP^T = V dO^T, reads pn from a 16 KB tile that
+//   warpgroup 1 writes (named barriers both ways), and dK += dS^T Q. Each
+//   product is issued once (a 128-column half a block, as before, issued
+//   S and dP twice: 1.5x the products, and streamed every Q/dO tile twice).
+//   K and V of 64 keys (64 KB) leave room for two 64 KB stages of Q and
+//   dO; dK and dV are staged for their TMA stores in the ring (fp32) and
+//   the K and V tiles (bf16), both forms stored at once. 215 KB of
+//   shared memory; ptxas 241 and 251 registers, no spills. Both passes'
+//   outputs equal the half-split form's bit for bit (the same k16 steps in
+//   the same order). Measured on an H100 (scripts/
+//   torch_attention_bwd_probe.py, PERF.md section 6): dq 0.50 ms and dk/dv
+//   0.81 (0.89 and 1.09 split by halves), their loads-only walks 0.36 and
+//   0.56: the stream takes most of each.
 // - The keep bits come from the forward: the dq pass reads a row's two
 //   words of a key tile, a tile ahead, with the mask bytes; the dk/dv pass
 //   the word holding its warp's 16 keys for each of the tile's 64 queries,
@@ -105,15 +117,16 @@ constexpr int ATOM = 64;       // bf16 columns of a 128-byte swizzle atom
 template <int D>
 struct Plan {
   static constexpr int ATOMS = D / ATOM;
-  static constexpr int DV = D > 128 ? 128 : D;   // output columns a block
-  static constexpr int PARTS = D / DV;
   static constexpr int RES = ROWS * D * 2;       // a resident operand
   static constexpr int OPND = TILE * D * 2;      // a streamed operand
-  static constexpr int STAGE = 2 * OPND;
-  static constexpr int STAGES = D > 128 ? 1 : 4;
+  // d_head 128: stages of two tiles (K and V, or Q and dO); 256 (the dq
+  // pass only): slots of one tile, two for K and one for V
+  static constexpr bool SPLIT = D > 128;
+  static constexpr int STAGE = SPLIT ? OPND : 2 * OPND;
+  static constexpr int STAGES = SPLIT ? 3 : 4;
   static constexpr int RING = 2 * RES;
   static constexpr int ROWV = RING + STAGES * STAGE;   // 8 warps' slots
-  static constexpr int BARS = ROWV + 8 * 3 * TILE * 4;
+  static constexpr int BARS = ROWV + (SPLIT ? 0 : 8 * 3 * TILE * 4);
   // full[], empty[], the resident operands' barrier, the release counters,
   // the last valid key, and slack to align to 1024 bytes
   static constexpr int SMEM =
@@ -187,21 +200,40 @@ struct Block {
     }
   }
 
-  // A warp is done with tile i's stage; the last of the eight warps to
-  // release it refills it with tile i + STAGES (returns true for that lane
-  // 0, which then calls load_stage)
-  __device__ __forceinline__ bool release(int i, int tiles, int lane) {
-    const int s = i % P::STAGES;
+  // Thread 0: rows row0..row0 + 63 of one operand into slot s (SPLIT)
+  __device__ __forceinline__ void load_slot(int s, const CUtensorMap* a,
+                                            int col0, int row0, int window) {
+    const uint32_t bar = smem_addr(full + s);
+    mbar_expect_tx(bar, P::OPND);
+    unsigned char* st = ring + s * P::STAGE;
+#pragma unroll
+    for (int j = 0; j < P::ATOMS; ++j)
+      tma_load_3d(st + j * TILE * 128, a, col0 + j * ATOM, row0, window, bar);
+  }
+
+  // A warp is done with the round-th fill of slot s; when `more`, the last
+  // of the eight warps to release it waits for the others and returns true
+  // (its lane 0), to refill it
+  __device__ __forceinline__ bool release_slot(int s, int round, bool more,
+                                               int lane) {
     bool refill = false;
     __syncwarp();
     if (lane == 0) {
       mbar_arrive(smem_addr(empty + s));
-      if (i + P::STAGES < tiles && atomicAdd(released + s, 1) % 8 == 7) {
-        mbar_wait(smem_addr(empty + s), (i / P::STAGES) & 1);
+      if (more && atomicAdd(released + s, 1) % 8 == 7) {
+        mbar_wait(smem_addr(empty + s), round & 1);
         refill = true;
       }
     }
     return refill;
+  }
+
+  // A warp is done with tile i's stage; the last of the eight warps to
+  // release it refills it with tile i + STAGES (returns true for that lane
+  // 0, which then calls load_stage)
+  __device__ __forceinline__ bool release(int i, int tiles, int lane) {
+    return release_slot(i % P::STAGES, i / P::STAGES, i + P::STAGES < tiles,
+                        lane);
   }
 
   // Warpgroup c's 8 KB chunks of the resident tiles: its 64 rows of each
@@ -213,15 +245,16 @@ struct Block {
 };
 
 // The S-like product of one warpgroup: acc (64 x 64, zeroed before the
-// wgmma fence) += A (its 64 resident rows) B^T (a streamed tile), both
-// K-major over d
-template <int D>
+// wgmma fence) += A (its 64 rows of a resident tile of RES_ROWS) B^T (a
+// streamed tile), both K-major over d
+template <int D, int RES_ROWS = ROWS>
 __device__ __forceinline__ void rows_by_tile(float (&acc)[TILE / 2],
                                              uint32_t a, uint32_t b) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
     wgmma_ss<TILE, 0, 0>(
-        acc, sw128_desc(a + (kk / 4) * (ROWS * 128) + (kk % 4) * 32, 16, 1024),
+        acc,
+        sw128_desc(a + (kk / 4) * (RES_ROWS * 128) + (kk % 4) * 32, 16, 1024),
         sw128_desc(b + (kk / 4) * (TILE * 128) + (kk % 4) * 32, 16, 1024));
 }
 
@@ -257,13 +290,8 @@ dq_kernel(const __grid_constant__ CUtensorMap map_q,
   using P = Plan<D>;
   extern __shared__ unsigned char smem_raw[];
   Block<D> blk(smem_raw);
-  constexpr int DV = P::DV;
-  const int q0 = blockIdx.x * ROWS, b = blockIdx.z;
-  const int h = blockIdx.y / P::PARTS, part = blockIdx.y % P::PARTS;
+  const int q0 = blockIdx.x * ROWS, b = blockIdx.z, h = blockIdx.y;
   const int col0 = h * D, bh = b * H + h;
-  // The block's output columns, and their atoms in a streamed tile
-  const int out0 = col0 + part * DV;
-  const uint32_t part_off = part * (DV / ATOM) * TILE * 128;
   const uint8_t* mrow = mask + static_cast<long long>(b) * T;
 
   // The window's last valid key: the tiles past it are not loaded
@@ -286,7 +314,14 @@ dq_kernel(const __grid_constant__ CUtensorMap map_q,
   };
   if (threadIdx.x == 0 && tiles > 0) {
     blk.load_resident(&map_q, &map_do, col0, q0, b);
-    for (int i = 0; i < P::STAGES && i < tiles; ++i) load(i);
+    if constexpr (P::SPLIT) {
+      // K tiles into slots 0 and 1 by parity, V tiles into slot 2
+      for (int i = 0; i < 2 && i < tiles; ++i)
+        blk.load_slot(i, &map_k, col0, i * TILE, b);
+      blk.load_slot(2, &map_v, col0, 0, b);
+    } else {
+      for (int i = 0; i < P::STAGES && i < tiles; ++i) load(i);
+    }
   }
 
   // Warpgroup c owns queries 64c..64c+63 of the block; a thread rows r0,
@@ -305,9 +340,9 @@ dq_kernel(const __grid_constant__ CUtensorMap map_q,
   const uint32_t do_addr = q_addr + P::RES;
   const uint32_t ring_addr = smem_addr(blk.ring);
 
-  float dq[DV / 2];
+  float dq[D / 2];
 #pragma unroll
-  for (int i = 0; i < DV / 2; ++i) dq[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
 
   // This lane's mask bytes of a tile (keys + lane and + 32 + lane) and
   // the keep words of its rows r0, r1 there, read a tile ahead of their use
@@ -329,8 +364,57 @@ dq_kernel(const __grid_constant__ CUtensorMap map_q,
     mbar_wait(smem_addr(blk.res_bar), 0);
   }
 
+  // ds = pn (gp - d_row), rounded with sm_scale into the A fragments of
+  // dQ += dS K from the tile's S and dP: a[k] holds keys 16k..16k+15,
+  // groups j = 2k (registers 0, 1) and 2k + 1 (2, 3)
+  auto ds_frags = [&](const float (&sc)[TILE / 2],
+                      const float (&dp)[TILE / 2], uint32_t (&a)[TILE / 16][4],
+                      uint64_t valid, int k0, uint2 kw0, uint2 kw1) {
+    const bool full_tile = valid == ~0ull && r1 < T &&
+                           !(causal && k0 + TILE - 1 > wg_row + 16 * warp);
+    const uint64_t bits = valid >> (2 * t);
+#pragma unroll
+    for (int j = 0; j < TILE / 8; ++j) {
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = e < 2 ? r0 : r1, key = k0 + 8 * j + 2 * t + e % 2;
+        const bool ok = full_tile ||
+                        (((bits >> (8 * j + e % 2)) & 1u) && row < T &&
+                         !(causal && key > row));
+        const float pn =
+            ok ? exp2_approx(fmaf(sc[4 * j + e], scale_log2,
+                                  e < 2 ? -lse0 : -lse1))
+               : 0.f;
+        float gp = dp[4 * j + e];
+        if constexpr (DROP) {
+          const uint2 w = e < 2 ? kw0 : kw1;
+          const bool keep =
+              ((j < 4 ? w.x : w.y) >> (8 * (j % 4) + 2 * t + e % 2)) & 1u;
+          gp = keep ? gp * drop_scale : 0.f;
+        }
+        v[e] = pn * (gp - (e < 2 ? drow0 : drow1)) * sm_scale;
+      }
+      a[j / 2][2 * (j % 2)] = pack_bf16(v[0], v[1]);
+      a[j / 2][2 * (j % 2) + 1] = pack_bf16(v[2], v[3]);
+    }
+  };
+  // dQ += dS K (K the tile at k_addr)
+  auto dq_product = [&](uint32_t (&a)[TILE / 16][4], uint32_t k_addr) {
+#pragma unroll
+    for (int k = 0; k < TILE / 16; ++k) fence_regs(a[k]);
+    fence_regs(dq);
+    wgmma_fence();
+    frag_by_tile<D>(dq, a, k_addr);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq);
+#pragma unroll
+    for (int k = 0; k < TILE / 16; ++k) fence_regs(a[k]);
+  };
+
   for (int i = 0; i < tiles; ++i) {
-    const int s = i % P::STAGES, k0 = i * TILE;
+    const int k0 = i * TILE;
     // The tile's valid keys, bit k for key k0 + k (the same in every warp)
     const uint64_t valid =
         __ballot_sync(0xffffffffu, nb0 != 0) |
@@ -339,79 +423,95 @@ dq_kernel(const __grid_constant__ CUtensorMap map_q,
     if (i + 1 < tiles) fetch(i + 1);
     const bool live =
         valid != 0 && wg_row < T && !(causal && k0 > wg_row + 63);
-    mbar_wait(smem_addr(blk.full + s), (i / P::STAGES) & 1);
-    if (live) {
-      const uint32_t k_addr = ring_addr + s * P::STAGE;
-      const uint32_t v_addr = k_addr + P::OPND;
+    if constexpr (P::SPLIT) {
+      // dP first, so that the V slot is refilled with tile i + 1 while S,
+      // ds and dQ run; the K slot of tile i with tile i + 2 after dQ
+      const int ks = i & 1;
+      const uint32_t k_addr = ring_addr + ks * P::STAGE;
+      const uint32_t v_addr = ring_addr + 2 * P::STAGE;
+      mbar_wait(smem_addr(blk.full + ks), (i >> 1) & 1);
+      mbar_wait(smem_addr(blk.full + 2), i & 1);
       float sc[TILE / 2], dp[TILE / 2];
-      zero(sc);
-      zero(dp);
-      wgmma_fence();
-      rows_by_tile<D>(sc, q_addr, k_addr);
-      rows_by_tile<D>(dp, do_addr, v_addr);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(sc);
-      fence_regs(dp);
-
-      // ds = pn (gp - d_row), rounded with sm_scale into the A fragments of
-      // dQ += dS K: a[k] holds keys 16k..16k+15, groups j = 2k (registers
-      // 0, 1) and 2k + 1 (2, 3)
-      const bool full_tile = valid == ~0ull && r1 < T &&
-                             !(causal && k0 + TILE - 1 > wg_row + 16 * warp);
-      const uint64_t bits = valid >> (2 * t);
-      uint32_t a[TILE / 16][4];
-#pragma unroll
-      for (int j = 0; j < TILE / 8; ++j) {
-        float v[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int row = e < 2 ? r0 : r1, key = k0 + 8 * j + 2 * t + e % 2;
-          const bool ok = full_tile ||
-                          (((bits >> (8 * j + e % 2)) & 1u) && row < T &&
-                           !(causal && key > row));
-          const float pn =
-              ok ? exp2_approx(fmaf(sc[4 * j + e], scale_log2,
-                                    e < 2 ? -lse0 : -lse1))
-                 : 0.f;
-          float gp = dp[4 * j + e];
-          if constexpr (DROP) {
-            const uint2 w = e < 2 ? kw0 : kw1;
-            const bool keep =
-                ((j < 4 ? w.x : w.y) >> (8 * (j % 4) + 2 * t + e % 2)) & 1u;
-            gp = keep ? gp * drop_scale : 0.f;
-          }
-          v[e] = pn * (gp - (e < 2 ? drow0 : drow1)) * sm_scale;
-        }
-        a[j / 2][2 * (j % 2)] = pack_bf16(v[0], v[1]);
-        a[j / 2][2 * (j % 2) + 1] = pack_bf16(v[2], v[3]);
+      if (live) {
+        zero(sc);
+        zero(dp);
+        wgmma_fence();
+        rows_by_tile<D>(dp, do_addr, v_addr);
+        wgmma_commit();
+        rows_by_tile<D>(sc, q_addr, k_addr);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(dp);
       }
-
-#pragma unroll
-      for (int k = 0; k < TILE / 16; ++k) fence_regs(a[k]);
-      fence_regs(dq);
-      wgmma_fence();
-      frag_by_tile<DV>(dq, a, k_addr + part_off);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(dq);
-#pragma unroll
-      for (int k = 0; k < TILE / 16; ++k) fence_regs(a[k]);
+      if (blk.release_slot(2, i, i + 1 < tiles, lane))
+        blk.load_slot(2, &map_v, col0, (i + 1) * TILE, b);
+      __syncwarp();
+      if (live) {
+        wgmma_wait<0>();
+        fence_regs(sc);
+        uint32_t a[TILE / 16][4];
+        ds_frags(sc, dp, a, valid, k0, kw0, kw1);
+        dq_product(a, k_addr);
+      }
+      if (blk.release_slot(ks, i >> 1, i + 2 < tiles, lane))
+        blk.load_slot(ks, &map_k, col0, (i + 2) * TILE, b);
+      __syncwarp();
+    } else {
+      const int s = i % P::STAGES;
+      mbar_wait(smem_addr(blk.full + s), (i / P::STAGES) & 1);
+      if (live) {
+        const uint32_t k_addr = ring_addr + s * P::STAGE;
+        const uint32_t v_addr = k_addr + P::OPND;
+        float sc[TILE / 2], dp[TILE / 2];
+        zero(sc);
+        zero(dp);
+        wgmma_fence();
+        rows_by_tile<D>(sc, q_addr, k_addr);
+        rows_by_tile<D>(dp, do_addr, v_addr);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sc);
+        fence_regs(dp);
+        uint32_t a[TILE / 16][4];
+        ds_frags(sc, dp, a, valid, k0, kw0, kw1);
+        dq_product(a, k_addr);
+      }
+      if (blk.release(i, tiles, lane)) load(i + P::STAGES);
+      __syncwarp();
     }
-    if (blk.release(i, tiles, lane)) load(i + P::STAGES);
-    __syncwarp();
   }
 
-  // dq out of the warpgroup's rows of the Q and dO tiles
+  // dq out of the warpgroup's rows of the Q and dO tiles; at d_head 256
+  // the bf16 form at once out of the ring, free once both warpgroups are
+  // done
   auto box = [&](int n) { return blk.chunk(c, n); };
   const bool lead = threadIdx.x % 128 == 0;
-  if (want32) {
-    stage_f32<DV>(dq, box, warp, g, t);
-    store_boxes(&map_dq32, DV / 32, 32, box, out0, wg_row, b, c, lead, T);
-  }
-  if (want16) {
-    stage_bf16<DV>(dq, box, warp, g, t);
-    store_boxes(&map_dq16, DV / 64, 64, box, out0, wg_row, b, c, lead, T);
+  if constexpr (P::SPLIT) {
+    __syncthreads();
+    auto box16 = [&](int n) { return blk.ring + c * 32768 + n * 8192; };
+    if (want32) stage_f32<D>(dq, box, warp, g, t);
+    if (want16) stage_bf16<D>(dq, box16, warp, g, t);
+    fence_async_smem();
+    bar_sync(1 + c, 128);
+    if (lead && wg_row < T) {
+      if (want32)
+        for (int n = 0; n < D / 32; ++n)
+          tma_store_3d(&map_dq32, col0 + 32 * n, wg_row, b, box(n));
+      if (want16)
+        for (int n = 0; n < D / 64; ++n)
+          tma_store_3d(&map_dq16, col0 + 64 * n, wg_row, b, box16(n));
+      bulk_commit();
+      bulk_wait_read();   // the staging outlives its stores
+    }
+  } else {
+    if (want32) {
+      stage_f32<D>(dq, box, warp, g, t);
+      store_boxes(&map_dq32, D / 32, 32, box, col0, wg_row, b, c, lead, T);
+    }
+    if (want16) {
+      stage_bf16<D>(dq, box, warp, g, t);
+      store_boxes(&map_dq16, D / 64, 64, box, col0, wg_row, b, c, lead, T);
+    }
   }
 }
 
@@ -436,13 +536,8 @@ dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
   using P = Plan<D>;
   extern __shared__ unsigned char smem_raw[];
   Block<D> blk(smem_raw);
-  constexpr int DV = P::DV;
-  const int k0b = blockIdx.x * ROWS, b = blockIdx.z;
-  const int h = blockIdx.y / P::PARTS, part = blockIdx.y % P::PARTS;
+  const int k0b = blockIdx.x * ROWS, b = blockIdx.z, h = blockIdx.y;
   const int col0 = h * D, bh = b * H + h;
-  // The block's output columns, and their atoms in a streamed tile
-  const int out0 = col0 + part * DV;
-  const uint32_t part_off = part * (DV / ATOM) * TILE * 128;
   const uint8_t* mrow = mask + static_cast<long long>(b) * T;
 
   // Warpgroup c owns keys wg_key..wg_key+63; a thread key rows kr0, kr1
@@ -487,9 +582,9 @@ dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
   const int keep_words = 2 * ((T + TILE - 1) / TILE);
   const int keep_shift = (warp_key & 16) + g;
 
-  float dk[DV / 2], dv[DV / 2];
+  float dk[D / 2], dv[D / 2];
 #pragma unroll
-  for (int i = 0; i < DV / 2; ++i) dk[i] = 0.f, dv[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) dk[i] = 0.f, dv[i] = 0.f;
 
   // This lane's lse, d_row and keep words of a tile (queries + 2 lane, + 2
   // lane + 1), read a tile ahead of their use
@@ -586,8 +681,8 @@ dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
       fence_regs(dv);
       fence_regs(dk);
       wgmma_fence();
-      frag_by_tile<DV>(dv, apd, do_addr + part_off);
-      frag_by_tile<DV>(dk, ads, q_addr + part_off);
+      frag_by_tile<D>(dv, apd, do_addr);
+      frag_by_tile<D>(dk, ads, q_addr);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(dv);
@@ -608,24 +703,313 @@ dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
   auto box_v = [&](int n) { return blk.chunk(c, P::ATOMS + n); };
   const bool lead = threadIdx.x % 128 == 0;
   if (want32) {
-    stage_f32<DV>(dk, box, warp, g, t);
-    store_boxes(&map_dk32, DV / 32, 32, box, out0, wg_key, b, c, lead, T);
-    stage_f32<DV>(dv, box, warp, g, t);
-    store_boxes(&map_dv32, DV / 32, 32, box, out0, wg_key, b, c, lead, T);
+    stage_f32<D>(dk, box, warp, g, t);
+    store_boxes(&map_dk32, D / 32, 32, box, col0, wg_key, b, c, lead, T);
+    stage_f32<D>(dv, box, warp, g, t);
+    store_boxes(&map_dv32, D / 32, 32, box, col0, wg_key, b, c, lead, T);
   }
   if (want16) {
-    stage_bf16<DV>(dk, box, warp, g, t);
-    stage_bf16<DV>(dv, box_v, warp, g, t);
+    stage_bf16<D>(dk, box, warp, g, t);
+    stage_bf16<D>(dv, box_v, warp, g, t);
     fence_async_smem();
     bar_sync(1 + c, 128);
     if (lead && wg_key < T) {
-      for (int n = 0; n < DV / ATOM; ++n) {
-        tma_store_3d(&map_dk16, out0 + n * ATOM, wg_key, b, box(n));
-        tma_store_3d(&map_dv16, out0 + n * ATOM, wg_key, b, box_v(n));
+      for (int n = 0; n < D / ATOM; ++n) {
+        tma_store_3d(&map_dk16, col0 + n * ATOM, wg_key, b, box(n));
+        tma_store_3d(&map_dv16, col0 + n * ATOM, wg_key, b, box_v(n));
       }
       bulk_commit();
       bulk_wait_read();
     }
+  }
+}
+
+// ------------------------------------------- dk, dv pass at d_head 256
+
+// Shared memory of the d_head 256 dk/dv pass: K and V of 64 keys
+// resident, a ring of Q/dO tiles, the pn tile handed from the dV side to
+// the dK side (32 fp32 a thread), and each warp's slot as dkdv_kernel's
+struct Split {
+  static constexpr int D = 256, ATOMS = D / ATOM;
+  static constexpr int RES = TILE * D * 2;        // K or V: 32 KB
+  static constexpr int OPND = TILE * D * 2;       // Q or dO tile
+  static constexpr int STAGE = 2 * OPND;
+  static constexpr int STAGES = 2;
+  static constexpr int RING = 2 * RES;
+  static constexpr int PN = RING + STAGES * STAGE;
+  static constexpr int ROWV = PN + 128 * (TILE / 2) * 4;
+  static constexpr int BARS = ROWV + 8 * 3 * TILE * 4;
+  // full[], empty[], the resident operands' barrier, the release counters
+  static constexpr int SMEM =
+      BARS + (2 * STAGES + 1) * 8 + STAGES * 4 + 1024;
+  static_assert(SMEM <= 232448, "more shared memory than a block may have");
+};
+
+// Named barriers of the split pass (1 and 2 are store_boxes'): the pn
+// tile written by the dV side (PN_FULL) and read by the dK side (PN_FREE)
+constexpr int PN_FULL = 3, PN_FREE = 4;
+
+// The dk/dv pass at d_head 256: a block owns 64 keys, and its two
+// warpgroups split the products instead of the output's columns:
+// warpgroup 1 computes S^T = K Q^T, pn and pd, and dV += Pd^T dO (64 x 256
+// fp32, 128 registers a thread); warpgroup 0 computes dP^T = V dO^T, takes
+// pn from warpgroup 1 through shared memory, and dK += dS^T Q. Each product
+// is issued once.
+template <bool DROP>
+__global__ void __launch_bounds__(THREADS, 1)
+dkdv_split_kernel(const __grid_constant__ CUtensorMap map_q,
+                  const __grid_constant__ CUtensorMap map_k,
+                  const __grid_constant__ CUtensorMap map_v,
+                  const __grid_constant__ CUtensorMap map_do,
+                  const __grid_constant__ CUtensorMap map_dk16,
+                  const __grid_constant__ CUtensorMap map_dk32,
+                  const __grid_constant__ CUtensorMap map_dv16,
+                  const __grid_constant__ CUtensorMap map_dv32,
+                  const uint8_t* __restrict__ mask,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ d_row,
+                  const uint32_t* __restrict__ keep_in, int T, int H,
+                  float scale_log2, float sm_scale, int causal,
+                  float drop_scale, int want16, int want32) {
+  using P = Split;
+  constexpr int D = P::D, STAGES = P::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* res = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* ring = res + P::RING;
+  uint64_t* full = reinterpret_cast<uint64_t*>(res + P::BARS);
+  uint64_t* empty = full + STAGES;
+  uint64_t* res_bar = empty + STAGES;
+  int* released = reinterpret_cast<int*>(res_bar + 1);
+  const int k0b = blockIdx.x * TILE, b = blockIdx.z, h = blockIdx.y;
+  const int col0 = h * D, bh = b * H + h;
+  const uint8_t* mrow = mask + static_cast<long long>(b) * T;
+
+  // Warpgroup c (0: dK, 1: dV) over the block's 64 keys; a thread key rows
+  // kr0, kr1 and query columns 8j + 2t + {0, 1} of the S-like tiles
+  const int c = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+  const int warp_key = k0b + 16 * warp;
+  const int kr0 = warp_key + g, kr1 = kr0 + 8;
+  // The block's valid keys, bit k for key k0b + k
+  const int m0 = k0b + lane, m1 = m0 + 32;
+  const uint64_t kvalid =
+      __ballot_sync(0xffffffffu, m0 < T && mrow[m0] != 0) |
+      (static_cast<uint64_t>(
+           __ballot_sync(0xffffffffu, m1 < T && mrow[m1] != 0))
+       << 32);
+  const bool kv0 = (kvalid >> (16 * warp + g)) & 1u;
+  const bool kv1 = (kvalid >> (16 * warp + g + 8)) & 1u;
+
+  if (threadIdx.x == 0) {
+    mbar_init(res_bar, 1);
+    mbar_init_ring(full, empty, STAGES, 8);
+    for (int s = 0; s < STAGES; ++s) released[s] = 0;
+  }
+  __syncthreads();
+  // A block with no valid key loads nothing and writes zeros
+  const int first = causal ? k0b / TILE : 0;
+  const int tiles = kvalid != 0 ? (T + TILE - 1) / TILE - first : 0;
+
+  // Tile i (queries (first + i) * 64..) of Q and dO into stage i % STAGES
+  auto load = [&](int i) {
+    const int s = i % STAGES;
+    const uint32_t bar = smem_addr(full + s);
+    mbar_expect_tx(bar, P::STAGE);
+    unsigned char* st = ring + s * P::STAGE;
+#pragma unroll
+    for (int j = 0; j < P::ATOMS; ++j) {
+      tma_load_3d(st + j * TILE * 128, &map_q, col0 + j * ATOM,
+                  (first + i) * TILE, b, bar);
+      tma_load_3d(st + P::OPND + j * TILE * 128, &map_do, col0 + j * ATOM,
+                  (first + i) * TILE, b, bar);
+    }
+  };
+  if (threadIdx.x == 0 && tiles > 0) {
+    const uint32_t bar = smem_addr(res_bar);
+    mbar_expect_tx(bar, 2 * P::RES);
+#pragma unroll
+    for (int j = 0; j < P::ATOMS; ++j) {
+      tma_load_3d(res + j * TILE * 128, &map_k, col0 + j * ATOM, k0b, b, bar);
+      tma_load_3d(res + P::RES + j * TILE * 128, &map_v, col0 + j * ATOM, k0b,
+                  b, bar);
+    }
+    for (int i = 0; i < STAGES && i < tiles; ++i) load(i);
+  }
+
+  // The dV side multiplies K, the dK side V
+  const uint32_t kv_addr = smem_addr(res) + (c == 1 ? 0 : P::RES);
+  const uint32_t ring_addr = smem_addr(ring);
+  const long long row_base = static_cast<long long>(bh) * T;
+  float* slot = reinterpret_cast<float*>(res + P::ROWV) +
+                (threadIdx.x / 32) * 3 * TILE;
+  uint32_t* slot_keep = reinterpret_cast<uint32_t*>(slot + 2 * TILE);
+  const int keep_words = 2 * ((T + TILE - 1) / TILE);
+  const int keep_shift = (warp_key & 16) + g;
+  // The pn tile: value i of thread x at pn_buf[i * 128 + x]
+  float* pn_buf = reinterpret_cast<float*>(res + P::PN) + threadIdx.x % 128;
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  float nl0 = 0.f, nl1 = 0.f, nd0 = 0.f, nd1 = 0.f;
+  uint32_t nk0 = 0u, nk1 = 0u;
+  auto fetch = [&](int i) {
+    const int qi = (first + i) * TILE + 2 * lane;
+    nl0 = qi < T ? lse[row_base + qi] : 0.f;
+    nd0 = qi < T ? d_row[row_base + qi] : 0.f;
+    nl1 = qi + 1 < T ? lse[row_base + qi + 1] : 0.f;
+    nd1 = qi + 1 < T ? d_row[row_base + qi + 1] : 0.f;
+    if constexpr (DROP) {
+      const uint32_t* kw = keep_in + (row_base + qi) * keep_words +
+                           warp_key / 32;
+      nk0 = qi < T ? kw[0] : 0u;
+      nk1 = qi + 1 < T ? kw[keep_words] : 0u;
+    }
+  };
+  if (tiles > 0) {
+    fetch(0);
+    mbar_wait(smem_addr(res_bar), 0);
+  }
+
+  bool handed = false;        // the dV side has written a pn tile
+  for (int i = 0; i < tiles; ++i) {
+    const int s = i % STAGES, q0 = (first + i) * TILE;
+    *reinterpret_cast<float2*>(slot + 2 * lane) = make_float2(nl0, nl1);
+    *reinterpret_cast<float2*>(slot + TILE + 2 * lane) =
+        make_float2(nd0, nd1);
+    if constexpr (DROP)
+      *reinterpret_cast<uint2*>(slot_keep + 2 * lane) = make_uint2(nk0, nk1);
+    __syncwarp();
+    if (i + 1 < tiles) fetch(i + 1);
+    // The same for both warpgroups: they own the same keys
+    const bool live = !(causal && q0 + TILE - 1 < k0b);
+    mbar_wait(smem_addr(full + s), (i / STAGES) & 1);
+    if (live) {
+      const uint32_t q_addr = ring_addr + s * P::STAGE;
+      const uint32_t do_addr = q_addr + P::OPND;
+      float sl[TILE / 2];
+      zero(sl);
+      wgmma_fence();
+      // S^T = K Q^T (dV side) or dP^T = V dO^T (dK side)
+      rows_by_tile<D, TILE>(sl, kv_addr, c == 1 ? q_addr : do_addr);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sl);
+
+      const bool full_tile = kv0 && kv1 && q0 + TILE <= T &&
+                             !(causal && warp_key + 15 > q0);
+      uint32_t frag[TILE / 16][4];
+      if (c == 1) {
+        // pn, handed to the dK side, and pd into the A fragments of dV +=
+        // Pd^T dO
+        if (handed) bar_sync(PN_FREE, 256);
+#pragma unroll
+        for (int j = 0; j < TILE / 8; ++j) {
+          const float2 l2 =
+              *reinterpret_cast<const float2*>(slot + 8 * j + 2 * t);
+          uint2 k2 = make_uint2(~0u, ~0u);
+          if constexpr (DROP)
+            k2 = *reinterpret_cast<const uint2*>(slot_keep + 8 * j + 2 * t);
+          float pv[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qi = q0 + 8 * j + 2 * t + e % 2;
+            const int key = e < 2 ? kr0 : kr1;
+            const bool ok = full_tile || ((e < 2 ? kv0 : kv1) && qi < T &&
+                                          !(causal && key > qi));
+            const float l = e % 2 ? l2.y : l2.x;
+            const float pn =
+                ok ? exp2_approx(fmaf(sl[4 * j + e], scale_log2, -l)) : 0.f;
+            float pd = pn;
+            if constexpr (DROP) {
+              const bool keep =
+                  ((e % 2 ? k2.y : k2.x) >> (keep_shift + 8 * (e / 2))) & 1u;
+              pd = keep ? pn * drop_scale : 0.f;
+            }
+            pn_buf[(4 * j + e) * 128] = pn;
+            pv[e] = pd;
+          }
+          frag[j / 2][2 * (j % 2)] = pack_bf16(pv[0], pv[1]);
+          frag[j / 2][2 * (j % 2) + 1] = pack_bf16(pv[2], pv[3]);
+        }
+        bar_arrive(PN_FULL, 256);
+        handed = true;
+      } else {
+        // ds = pn (gp - d_row), rounded with sm_scale, into the A
+        // fragments of dK += dS^T Q
+        bar_sync(PN_FULL, 256);
+#pragma unroll
+        for (int j = 0; j < TILE / 8; ++j) {
+          const float2 d2 =
+              *reinterpret_cast<const float2*>(slot + TILE + 8 * j + 2 * t);
+          uint2 k2 = make_uint2(~0u, ~0u);
+          if constexpr (DROP)
+            k2 = *reinterpret_cast<const uint2*>(slot_keep + 8 * j + 2 * t);
+          float sv[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float dr = e % 2 ? d2.y : d2.x;
+            const float pn = pn_buf[(4 * j + e) * 128];
+            float gp = sl[4 * j + e];
+            if constexpr (DROP) {
+              const bool keep =
+                  ((e % 2 ? k2.y : k2.x) >> (keep_shift + 8 * (e / 2))) & 1u;
+              gp = keep ? gp * drop_scale : 0.f;
+            }
+            sv[e] = pn * (gp - dr) * sm_scale;
+          }
+          frag[j / 2][2 * (j % 2)] = pack_bf16(sv[0], sv[1]);
+          frag[j / 2][2 * (j % 2) + 1] = pack_bf16(sv[2], sv[3]);
+        }
+        if (i + 1 < tiles) bar_arrive(PN_FREE, 256);
+      }
+
+#pragma unroll
+      for (int k = 0; k < TILE / 16; ++k) fence_regs(frag[k]);
+      fence_regs(acc);
+      wgmma_fence();
+      frag_by_tile<D>(acc, frag, c == 1 ? do_addr : q_addr);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+#pragma unroll
+      for (int k = 0; k < TILE / 16; ++k) fence_regs(frag[k]);
+    }
+    // The last of the eight warps to release a stage refills it
+    __syncwarp();
+    if (lane == 0) {
+      mbar_arrive(smem_addr(empty + s));
+      if (i + STAGES < tiles && atomicAdd(released + s, 1) % 8 == 7) {
+        mbar_wait(smem_addr(empty + s), (i / STAGES) & 1);
+        load(i + STAGES);
+      }
+    }
+    __syncwarp();
+  }
+
+  // dK (warpgroup 0) or dV (1) out by TMA stores of both forms at once:
+  // fp32 boxes of 32 columns from the ring's first 64 KB or next, bf16
+  // boxes of 64 from the K or V tile
+  __syncthreads();
+  auto box32 = [&](int n) { return ring + c * 65536 + n * 8192; };
+  auto box16 = [&](int n) { return res + c * P::RES + n * 8192; };
+  if (want32) stage_f32<D>(acc, box32, warp, g, t);
+  if (want16) stage_bf16<D>(acc, box16, warp, g, t);
+  fence_async_smem();
+  bar_sync(1 + c, 128);
+  if (threadIdx.x % 128 == 0 && k0b < T) {
+    const CUtensorMap* out32 = c == 0 ? &map_dk32 : &map_dv32;
+    const CUtensorMap* out16 = c == 0 ? &map_dk16 : &map_dv16;
+    if (want32)
+      for (int n = 0; n < D / 32; ++n)
+        tma_store_3d(out32, col0 + 32 * n, k0b, b, box32(n));
+    if (want16)
+      for (int n = 0; n < D / 64; ++n)
+        tma_store_3d(out16, col0 + 64 * n, k0b, b, box16(n));
+    bulk_commit();
+    bulk_wait_read();   // the staging outlives its stores
   }
 }
 
@@ -645,10 +1029,8 @@ int launch(const CUtensorMap* in, const CUtensorMap* out, const void* mask,
   using P = Plan<D>;
   // Above 48 KB of dynamic shared memory a kernel must opt in, once
   static const cudaError_t attr_q = allow_smem(dq_kernel<D, DROP>, P::SMEM);
-  static const cudaError_t attr_k = allow_smem(dkdv_kernel<D, DROP>, P::SMEM);
   if (attr_q != cudaSuccess) return static_cast<int>(attr_q);
-  if (attr_k != cudaSuccess) return static_cast<int>(attr_k);
-  const dim3 grid((T + ROWS - 1) / ROWS, H * P::PARTS, B);
+  const dim3 grid((T + ROWS - 1) / ROWS, H, B);
   const uint8_t* m = static_cast<const uint8_t*>(mask);
   const float* l = static_cast<const float*>(lse);
   const float* d = static_cast<const float*>(d_row);
@@ -658,9 +1040,23 @@ int launch(const CUtensorMap* in, const CUtensorMap* out, const void* mask,
       scale_log2, sm_scale, causal, drop_scale, want16, want32);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  dkdv_kernel<D, DROP><<<grid, THREADS, P::SMEM, stream>>>(
-      in[0], in[1], in[2], in[3], out[2], out[3], out[4], out[5], m, l, d,
-      bits, T, H, scale_log2, sm_scale, causal, drop_scale, want16, want32);
+  if constexpr (D == 256) {
+    static const cudaError_t attr_k =
+        allow_smem(dkdv_split_kernel<DROP>, Split::SMEM);
+    if (attr_k != cudaSuccess) return static_cast<int>(attr_k);
+    dkdv_split_kernel<DROP>
+        <<<dim3((T + TILE - 1) / TILE, H, B), THREADS, Split::SMEM, stream>>>(
+            in[0], in[1], in[2], in[3], out[2], out[3], out[4], out[5], m, l,
+            d, bits, T, H, scale_log2, sm_scale, causal, drop_scale, want16,
+            want32);
+  } else {
+    static const cudaError_t attr_k =
+        allow_smem(dkdv_kernel<D, DROP>, P::SMEM);
+    if (attr_k != cudaSuccess) return static_cast<int>(attr_k);
+    dkdv_kernel<D, DROP><<<grid, THREADS, P::SMEM, stream>>>(
+        in[0], in[1], in[2], in[3], out[2], out[3], out[4], out[5], m, l, d,
+        bits, T, H, scale_log2, sm_scale, causal, drop_scale, want16, want32);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

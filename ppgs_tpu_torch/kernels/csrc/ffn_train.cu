@@ -81,18 +81,53 @@
 // Rows past M: the staged tiles hold zeros there (so dhd and dh are 0),
 // TMA stores clip them, and no row >= M is written.
 //
-// C = 512 does not fit this form: its dx sum, 128 x 512 fp32, is twice the
-// registers that two warpgroups have, and x and dy of 128 rows would be
-// 256 KB. So a block owns 64 rows (x and dy, 64 KB each), both warpgroups
-// compute that block's h and dhd for a chunk (the same products), and
-// warpgroup c sums dx's columns 256 c .. 256 c + 255 (128 registers a
-// thread, as at 256), its B operand the chunk's W1^T boxes of those
-// columns; warpgroup 0 alone writes hd, dh and the db1 partial row. A
-// stage of W1^T and W2 pieces at depth 512 is 65 KB, so one fits beside x
-// and dy: the chunks run in turn, a chunk's loads after the previous
-// chunk's products (the loop at C = 256 overlaps them). 212 KB of shared
-// memory; ptxas: 200 and 254 registers a thread (bf16 and fp32 x), no
-// spills.
+// C = 512 (the w2v2fb and w2v2fc heads) takes three launches. In one,
+// dx's sum (64 x 512 fp32 a 64-row block: every register of two
+// warpgroups) and x and dy (128 KB) left room for one 65 KB weight stage,
+// so each chunk's loads waited for the previous chunk's products, and both
+// warpgroups issued h and dhd: 4.60 ms on an H100, 1.73x its library
+// route. Without dx, a block holds 128 rows, and h and dhd need not share
+// one: so the hidden passes split them.
+// - The hd pass (hidden_kernel<TX, 0>) computes h = x W1_f, hp =
+//   relu(bf16(bf16(h) + bf16(b1))), hd (the keep words' bits) and a mask,
+//   bit set where hp > 0 and kept; the dh pass (hidden_kernel<bf16, 1>)
+//   computes dhd = dy W2_f^T, dh from it and the mask, bf16(dh) and db1's
+//   partial rows. The mask crosses between them through a scratch of M F
+//   / 32 words in the accumulators' own layout (a word a thread a row tile
+//   and chunk), 34 MB each way at the training shape.
+// - A pass: 128 rows a block, x or dy resident (128 KB, rounded to bf16 as
+//   staged), F in chunks of HC = 64 hidden columns. The two consumer
+//   warpgroups take the chunks in turn, each over all 128 rows (two m64n64
+//   accumulators, 64 registers), so that one's elementwise pass runs beside
+//   the other's products; each has a ring of 8 KB slices (64 hidden rows x
+//   64 depth columns of W1^T or W2; 4 a ring on the hd side, 3 on the dh
+//   side, as shared memory allows) filled by a producer warp of its own
+//   (320 threads). Each product is issued once: 2 M 512 F MACs a pass.
+//   hd and bf16(dh) leave by TMA stores from 128-byte-swizzled boxes of 16
+//   rows (two a warp, 32 KB); db1's partial rows come from the C = 256
+//   form's butterfly, one level deeper, and the four warps' sums added in
+//   order, so they equal the one-launch form's bit for bit, as hd, dh and
+//   dx do (the same k16 steps in the same order).
+// - The dx pass (dx_kernel) computes dx = bf16(dh) W1^T from the dh the dh
+//   pass wrote (+ the fp32 residual, or rounded to bf16): 128 x 256 tiles,
+//   depth F in 64-deep stages of 48 KB, 4 of them, a producer warpgroup and
+//   two consumer warpgroups (gemm.cu's form).
+// Bound (the training shape): the dx pass reads dh again (+0.54 GB) and
+// the mask crosses (+0.07 GB), 2.69 GB in all (0.80 ms), against the same
+// 825 GFLOP (0.834 ms): still bound by the operations. Measured on an H100
+// (scripts/torch_ffn_bwd_probe.py, PERF.md section 6): the hd pass 0.80
+// ms, the dh pass 0.69, the dx pass 0.51 (fp32 x, dropout 0.1); their
+// loads-only walks 0.54, 0.42 and 0.51. ptxas: 168 registers (hd pass, dx
+// pass; 204 allowed), 128 (dh pass), no spills. Measured no faster: the
+// products split by warpgroup inside one 64-row pass (h by one, dhd by the
+// other, the mask handed over; 3.43 ms: each slice's ring protocol cost
+// as much as its four products); 8 KB slices refilled by the consumers'
+// last warp (1.35-1.83 ms a pass); a 2-block cluster sharing each slice
+// by TMA multicast (+5%: the L2 stream does not set the pace); the outputs
+// stored from registers to give the rings the staging's 32 KB (+30%); the
+// dx pass in 128 x 128 tiles two blocks an SM (+25%) or with its residual
+// prefetched into L2 (+35%); the blocks walking the chunks from chunk b %
+// (F / 64) on, so as not to read the same slices at once (no faster).
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -113,9 +148,8 @@ constexpr bool LIVE = true;
 
 template <int C>
 struct Smem {
-  static constexpr bool WIDE = C > DXC;           // C = 512: 64-row blocks
-  static constexpr int BM = WIDE ? 64 : 128;       // a block's rows
-  static constexpr int STAGES = WIDE ? 1 : 2;
+  static constexpr int BM = 128;                   // a block's rows
+  static constexpr int STAGES = 2;
   static constexpr int TILE = BM * C * 2;          // x or dy: C / 64 atoms
   static constexpr int BOX = FC * 128;             // 32 rows x 64 columns
   static constexpr int W_BYTES = FC * C * 2;       // C / 64 boxes
@@ -164,7 +198,6 @@ ffn_bwd_kernel(const __grid_constant__ CUtensorMap map_w1t,
                bf16* __restrict__ dx16, float* __restrict__ db1_partial,
                int M, int F, float scale) {
   using S = Smem<C>;
-  constexpr bool WIDE = S::WIDE;
   constexpr int BM = S::BM, STAGES = S::STAGES;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = reinterpret_cast<unsigned char*>(
@@ -197,46 +230,28 @@ ffn_bwd_kernel(const __grid_constant__ CUtensorMap map_w1t,
   const int c = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4;
   const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
   const int wr = 16 * warp + g;                 // the warpgroup's row
-  // The warpgroup's rows: its own 64 (C = 256) or the block's (C = 512)
-  const int row_off = WIDE ? 0 : 64 * c;
+  const int row_off = 64 * c;                   // the warpgroup's rows
   const long long r0 = m0 + row_off + wr, r1 = r0 + 8;
   const bool dropped = words != nullptr;
   const float sc16 = ppgs::round_bf16(scale);
-  // Warpgroup 0 writes hd, dh and db1's partial row of the block's rows at
-  // C = 512; at 256 each warpgroup those of its own rows
-  const bool writer = !WIDE || c == 0;
 
-  // The warpgroup's rows of x and dy (at C = 512 warpgroup 0 x's, 1 dy's),
-  // for the async proxy to read
-  if constexpr (WIDE) {
-    if (c == 0)
-      stage_rows<BM, C>(sm + S::X, x, m0, 0, M, threadIdx.x % 128);
-    else
-      stage_rows<BM, C>(sm + S::DY, dy, m0, 0, M, threadIdx.x % 128);
-    fence_async_smem();
-    __syncthreads();
-  } else {
-    stage_rows<BM, C>(sm + S::X, x, m0 + 64 * c, 64 * c, M,
-                      threadIdx.x % 128);
-    stage_rows<BM, C>(sm + S::DY, dy, m0 + 64 * c, 64 * c, M,
-                      threadIdx.x % 128);
-    fence_async_smem();
-    bar_sync(1 + c, 128);
-  }
+  // The warpgroup's rows of x and dy, for the async proxy to read
+  stage_rows<BM, C>(sm + S::X, x, m0 + 64 * c, 64 * c, M, threadIdx.x % 128);
+  stage_rows<BM, C>(sm + S::DY, dy, m0 + 64 * c, 64 * c, M,
+                    threadIdx.x % 128);
+  fence_async_smem();
+  bar_sync(1 + c, 128);
 
   const uint32_t x_addr = smem_addr(sm + S::X) + row_off * 128;
   const uint32_t dy_addr = smem_addr(sm + S::DY) + row_off * 128;
   const uint32_t ring_addr = smem_addr(ring);
-  // dx's columns of the warpgroup, and their boxes in a W1^T piece
-  const int dx_col0 = WIDE ? DXC * c : 0;
-  const uint32_t dx_box = (dx_col0 / 64) * S::BOX;
   // The warp's staging boxes (1024-byte aligned, so that the swizzle's
   // row bits are the box's)
   unsigned char* hd_box = sm + S::HD + c * S::OUT + warp * S::WARP_OUT;
   unsigned char* dh_box = sm + S::DH + c * S::OUT + warp * S::WARP_OUT;
   float* sums = reinterpret_cast<float*>(sm + S::SUMS) + c * 2 * 4 * FC;
   // the db1 partial row (one a 64 rows)
-  const long long prow = WIDE ? blockIdx.x : 2ll * blockIdx.x + c;
+  const long long prow = 2ll * blockIdx.x + c;
   const bool store_rows = m0 + row_off < M;
   const int wrow = m0 + row_off + 16 * warp;    // the warp's first row
 
@@ -268,7 +283,7 @@ ffn_bwd_kernel(const __grid_constant__ CUtensorMap map_w1t,
   };
   // dx += bf16(dh_f) W1_f^T: a[k] holds the chunk's columns 16k..16k+15
   auto issue_dx = [&](int f) {
-    const uint32_t w1t = ring_addr + (f % STAGES) * S::STAGE + dx_box;
+    const uint32_t w1t = ring_addr + (f % STAGES) * S::STAGE;
 #pragma unroll
     for (int k = 0; k < FC / 16; ++k) fence_regs(a[k]);
     fence_regs(dx);
@@ -337,7 +352,6 @@ ffn_bwd_kernel(const __grid_constant__ CUtensorMap map_w1t,
       sum[j][0] = dh[0] + dh[2];
       sum[j][1] = dh[1] + dh[3];
     }
-    if (!writer) return;
     // Column sums over the warp's 16 rows by a butterfly over the 8 lanes
     // of one t: at each step a lane keeps half of its values and adds its
     // partner's sums of them, so that lane g ends with value g, column
@@ -397,60 +411,40 @@ ffn_bwd_kernel(const __grid_constant__ CUtensorMap map_w1t,
     }
   };
 
-  if constexpr (WIDE) {
-    // One stage: chunk f's products, then chunk f + 1's loads
-    for (int f = 0; f < chunks; ++f) {
-      mbar_wait(smem_addr(full), f & 1);
-      issue_hidden(f);
-      wgmma_wait<0>();
-      fence_regs(h);
-      fence_regs(d);
-      elementwise(f);
-      issue_dx(f);
-      wgmma_wait<0>();
-      release(f);
-      if (threadIdx.x == LOADER && f + 1 < chunks) {
-        mbar_wait(smem_addr(empty), f & 1);
-        load(f + 1);
-      }
-      __syncwarp();
-    }
-  } else {
-    mbar_wait(smem_addr(full), 0);
-    issue_hidden(0);
+  mbar_wait(smem_addr(full), 0);
+  issue_hidden(0);
+  wgmma_wait<0>();
+  fence_regs(h);
+  fence_regs(d);
+  // The last chunk is peeled, so that no branch separates chunk f's dx
+  // product from chunk f + 1's products and they run side by side
+  for (int f = 0; f + 1 < chunks; ++f) {
+    const int s1 = (f + 1) % STAGES;
+    elementwise(f);
+    mbar_wait(smem_addr(full + s1), ((f + 1) / STAGES) & 1);
+    issue_dx(f);
+    issue_hidden(f + 1);
+    wgmma_wait<1>();
+    release(f);
     wgmma_wait<0>();
     fence_regs(h);
     fence_regs(d);
-    // The last chunk is peeled, so that no branch separates chunk f's dx
-    // product from chunk f + 1's products and they run side by side
-    for (int f = 0; f + 1 < chunks; ++f) {
-      const int s1 = (f + 1) % STAGES;
-      elementwise(f);
-      mbar_wait(smem_addr(full + s1), ((f + 1) / STAGES) & 1);
-      issue_dx(f);
-      issue_hidden(f + 1);
-      wgmma_wait<1>();
-      release(f);
-      wgmma_wait<0>();
-      fence_regs(h);
-      fence_regs(d);
-      if (threadIdx.x == LOADER && f + STAGES < chunks) {
-        mbar_wait(smem_addr(empty + f % STAGES), (f / STAGES) & 1);
-        load(f + STAGES);
-      }
-      __syncwarp();
+    if (threadIdx.x == LOADER && f + STAGES < chunks) {
+      mbar_wait(smem_addr(empty + f % STAGES), (f / STAGES) & 1);
+      load(f + STAGES);
     }
-    elementwise(chunks - 1);
-    issue_dx(chunks - 1);
-    wgmma_wait<0>();
-    release(chunks - 1);
+    __syncwarp();
   }
+  elementwise(chunks - 1);
+  issue_dx(chunks - 1);
+  wgmma_wait<0>();
+  release(chunks - 1);
 
   // dx (+ the residual) from the accumulators: register 4j + e is row r0
-  // or r1 (e / 2), column dx_col0 + 8j + 2t + e % 2
+  // or r1 (e / 2), column 8j + 2t + e % 2
 #pragma unroll
   for (int j = 0; j < DXC / 8; ++j) {
-    const int col = dx_col0 + 8 * j + 2 * t;
+    const int col = 8 * j + 2 * t;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const long long row = r ? r1 : r0;
@@ -468,6 +462,483 @@ ffn_bwd_kernel(const __grid_constant__ CUtensorMap map_w1t,
     }
   }
   if (lane == 0) bulk_wait_read();   // the staging outlives its stores
+}
+
+// ----------------------------------------------------------- C = 512
+
+constexpr int WC = 512;          // the width
+constexpr int HC = 64;           // hidden columns a chunk
+constexpr int KS = WC / 64;      // depth slices of a chunk's product
+constexpr int SLICE = HC * 128;  // 64 hidden rows x 64 depth columns
+constexpr int HTHREADS = 320;    // two consumer warpgroups, two producers
+
+// A hidden pass's shared memory: its resident tile (x or dy, 128 rows),
+// a ring of STAGES slices a warpgroup (as many as fit), a warp's two
+// staging boxes of 16 rows x 128 bytes, and (the dh side) each
+// warpgroup's column sums by warp
+template <int SIDE>
+struct Wide {
+  static constexpr int STAGES = SIDE == 0 ? 4 : 3;
+  static constexpr int TILE = 128 * WC * 2;        // 8 atoms of 128 rows
+  static constexpr int RING = TILE;                // [2][STAGES]
+  static constexpr int OUT = RING + 2 * STAGES * SLICE;   // [8][2] boxes
+  static constexpr int SUMS = OUT + 8 * 2 * 2048;  // [2][2][2][4][HC]
+  static constexpr int BARS = SUMS + (SIDE == 1 ? 2 * 2 * 2 * 4 * HC * 4 : 0);
+  static constexpr int BYTES = BARS + 2 * 2 * STAGES * 8 + 1024;
+  static_assert(BYTES <= 232448, "more shared memory than a block may have");
+  static_assert(RING % 1024 == 0 && OUT % 1024 == 0,
+                "tiles must keep their swizzle atoms aligned");
+};
+
+// A hidden pass at C = 512: 128 rows a block, F in chunks of HC, the
+// chunks taken in turn by the two consumer warpgroups (warpgroup c chunks
+// c, c + 2, ..., over all 128 rows, so that one warpgroup's elementwise
+// pass runs beside the other's products), each fed
+// by a ring of its own that a producer warp of its own fills. SIDE 0
+// computes h = x W1_f and writes hd and the mask (two words a thread a
+// chunk: bit 4j + e of word u for its register 4j + e of row tile u, hp
+// > 0 and kept); SIDE 1 computes dhd = dy W2_f^T and, with the mask,
+// writes bf16(dh) and db1's partial rows
+template <typename TX, int SIDE>
+__global__ void __launch_bounds__(HTHREADS, 1)
+hidden_kernel(const __grid_constant__ CUtensorMap map_w,
+              const __grid_constant__ CUtensorMap map_out,
+              const TX* __restrict__ a, const float* __restrict__ b1,
+              const uint32_t* __restrict__ words,
+              uint32_t* __restrict__ mask, float* __restrict__ db1_partial,
+              int M, int F, float scale) {
+  using S = Wide<SIDE>;
+  constexpr int WSTAGES = S::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int warp_id = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // Warpgroup c (0, 1) or, for warps 8 and 9, the warpgroup it feeds
+  const int c = warp_id < 8 ? warp_id / 4 : warp_id - 8;
+  unsigned char* ring = sm + S::RING + c * WSTAGES * SLICE;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + S::BARS) +
+                   c * 2 * WSTAGES;
+  uint64_t* empty = full + WSTAGES;
+  const int m0 = blockIdx.x * 128;
+  const int chunks = F / HC;
+
+  if (threadIdx.x == 0)
+    for (int r = 0; r < 2; ++r)
+      mbar_init_ring(full + r * 2 * WSTAGES, empty + r * 2 * WSTAGES,
+                     WSTAGES, 4);
+  if (warp_id < 8) {
+    // The warpgroup's 64 rows of x or dy, for the async proxy to read
+    stage_rows<128, WC>(sm, a, m0 + 64 * c, 64 * c, M, threadIdx.x % 128);
+    fence_async_smem();
+  }
+  __syncthreads();
+
+  if (warp_id >= 8) {
+    // Producer: the ring's slices in the order its warpgroup walks them
+    if (lane != 0) return;
+    int n = 0;
+    for (int f = c; f < chunks; f += 2)
+      for (int k = 0; k < KS; ++k, ++n) {
+        const int s = n % WSTAGES, round = n / WSTAGES;
+        if (round > 0) mbar_wait(smem_addr(empty + s), (round - 1) & 1);
+        const uint32_t bar = smem_addr(full + s);
+        mbar_expect_tx(bar, SLICE);
+        tma_load(ring + s * SLICE, &map_w, k * 64, f * HC, bar);
+      }
+    return;
+  }
+
+  const int warp = warp_id % 4, g = lane >> 2, t = lane & 3;
+  const uint32_t a_addr = smem_addr(sm);
+  const uint32_t ring_addr = smem_addr(ring);
+  // Row tile u (0, 1): the block's rows 64u..; the thread's rows in it
+  const long long r0 = m0 + 16 * warp + g;
+  unsigned char* boxes = sm + S::OUT + warp_id * 4096;   // two a warp
+  const bool dropped = words != nullptr;
+  // The thread's two mask words of chunk f
+  auto mask_words = [&](int f) {
+    return reinterpret_cast<uint2*>(mask) +
+           (static_cast<long long>(blockIdx.x) * chunks + f) * 128 +
+           threadIdx.x % 128;
+  };
+
+  // acc[u] (row tile u's 64 rows x HC) = its resident rows times chunk
+  // f's 64 rows of W1^T or W2, both K-major, over depth 512; n counts the
+  // ring's slices
+  float acc[2][HC / 2];
+  int n = 0;
+  auto product = [&]() {
+    zero(acc[0]);
+    zero(acc[1]);
+#pragma unroll 1
+    for (int k = 0; k < KS; ++k, ++n) {
+      const int s = n % WSTAGES;
+      mbar_wait(smem_addr(full + s), (n / WSTAGES) & 1);
+      const uint32_t b = ring_addr + s * SLICE;
+      wgmma_fence();
+      if (LIVE) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int u = 0; u < 2; ++u)
+            wgmma_ss<HC, 0, 0>(
+                acc[u],
+                sw128_desc(a_addr + k * 16384 + u * 8192 + kk * 32, 16,
+                           1024),
+                sw128_desc(b + kk * 32, 16, 1024));
+      }
+      wgmma_commit();
+      if (k > 0) {
+        wgmma_wait<1>();
+        fence_regs(acc[0]);
+        fence_regs(acc[1]);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(smem_addr(empty + (n - 1) % WSTAGES));
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(acc[0]);
+    fence_regs(acc[1]);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(smem_addr(empty + (n - 1) % WSTAGES));
+  };
+  // Stage the warp's 16 rows x HC of row tile u, register pair p[j][r]
+  // (row g + 8r, columns 8j + 2t..), in its 128-byte-swizzled box and
+  // store it at column f * HC (the box's store of two chunks before has
+  // read it: bulk_wait_read before the first)
+  auto store = [&](uint32_t (&p)[HC / 8][2], int u, int f) {
+    unsigned char* box = boxes + u * 2048;
+#pragma unroll
+    for (int j = 0; j < HC / 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = g + 8 * r;
+        *reinterpret_cast<uint32_t*>(box + row * 128 +
+                                     ((j ^ (row & 7)) << 4) + 4 * t) =
+            p[j][r];
+      }
+    fence_async_smem();
+    __syncwarp();
+    const int wrow = m0 + 64 * u + 16 * warp;
+    if (lane == 0 && wrow < M) {
+      tma_store(&map_out, f * HC, wrow, box);
+      bulk_commit();
+    }
+  };
+
+  if constexpr (SIDE == 0) {
+    // hp, hd and the mask; the keep words read a chunk ahead
+    const float sc16 = ppgs::round_bf16(scale);
+    const int wpr = F / 32;                     // keep words a row
+    uint2 kw[2][2] = {};                        // [row tile][r]
+    auto read_words = [&](int f) {
+      if (!dropped) return;
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const long long row = r0 + 64 * u + 8 * r;
+          kw[u][r] = row < M ? *reinterpret_cast<const uint2*>(
+                                   words + row * wpr + 2 * f)
+                             : make_uint2(0u, 0u);
+        }
+    };
+    if (c < chunks) read_words(c);
+#pragma unroll 1
+    for (int f = c; f < chunks; f += 2) {
+      product();
+      uint2 w[2][2];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) w[u][0] = kw[u][0], w[u][1] = kw[u][1];
+      if (f + 2 < chunks) read_words(f + 2);
+      if (lane == 0) bulk_wait_read();
+      __syncwarp();
+      __nv_bfloat162 bias[HC / 8];
+#pragma unroll
+      for (int j = 0; j < HC / 8; ++j) {
+        const float2 v = __ldg(
+            reinterpret_cast<const float2*>(b1 + f * HC + 8 * j + 2 * t));
+        bias[j] = __floats2bfloat162_rn(v.x, v.y);
+      }
+      uint32_t bits[2] = {0u, 0u};
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        uint32_t hd_pair[HC / 8][2];
+#pragma unroll
+        for (int j = 0; j < HC / 8; ++j) {
+          const __nv_bfloat162 b = bias[j];
+          const __nv_bfloat162 zero2 = __floats2bfloat162_rn(0.f, 0.f);
+          const int bit = 8 * (j % 4) + 2 * t;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const __nv_bfloat162 hp = __hmax2(
+                __hadd2(__floats2bfloat162_rn(acc[u][4 * j + 2 * r],
+                                              acc[u][4 * j + 2 * r + 1]),
+                        b),
+                zero2);
+            const float2 hv = __bfloat1622float2(hp);
+            uint32_t hd_bits = *reinterpret_cast<const uint32_t*>(&hp);
+            bool k0 = true, k1 = true;
+            if (dropped) {
+              const uint32_t wd = j < 4 ? w[u][r].x : w[u][r].y;
+              k0 = (wd >> bit) & 1u;
+              k1 = (wd >> (bit + 1)) & 1u;
+              __nv_bfloat162 s =
+                  __hmul2(hp, __floats2bfloat162_rn(sc16, sc16));
+              hd_bits = *reinterpret_cast<uint32_t*>(&s) &
+                        ((k0 ? 0x0000FFFFu : 0u) | (k1 ? 0xFFFF0000u : 0u));
+            }
+            hd_pair[j][r] = hd_bits;
+            bits[u] |= static_cast<uint32_t>(k0 && hv.x > 0.f)
+                       << (4 * j + 2 * r);
+            bits[u] |= static_cast<uint32_t>(k1 && hv.y > 0.f)
+                       << (4 * j + 2 * r + 1);
+          }
+        }
+        store(hd_pair, u, f);
+      }
+      *mask_words(f) = make_uint2(bits[0], bits[1]);
+    }
+  } else {
+    // dh from dhd and the mask, bf16(dh) stored, db1's partial rows of the
+    // block's two 64-row tiles; the mask words read a chunk ahead
+    float* sums = reinterpret_cast<float*>(sm + S::SUMS) + c * 4 * 4 * HC;
+    uint2 next = c < chunks ? *mask_words(c) : make_uint2(0u, 0u);
+#pragma unroll 1
+    for (int f = c; f < chunks; f += 2) {
+      product();
+      float* buf = sums + ((f / 2) & 1) * 2 * 4 * HC;   // by turn parity
+      const uint32_t bits[2] = {next.x, next.y};
+      if (f + 2 < chunks) next = *mask_words(f + 2);
+      if (lane == 0) bulk_wait_read();
+      __syncwarp();
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        uint32_t dh_pair[HC / 8][2];
+        float sum[HC / 8][2];
+#pragma unroll
+        for (int j = 0; j < HC / 8; ++j) {
+          float dh[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float v =
+                dropped ? acc[u][4 * j + e] * scale : acc[u][4 * j + e];
+            dh[e] = (bits[u] >> (4 * j + e)) & 1u ? v : 0.f;
+          }
+          dh_pair[j][0] = pack_bf16(dh[0], dh[1]);
+          dh_pair[j][1] = pack_bf16(dh[2], dh[3]);
+          sum[j][0] = dh[0] + dh[2];
+          sum[j][1] = dh[1] + dh[3];
+        }
+        store(dh_pair, u, f);
+        // Column sums over the warp's 16 rows by a butterfly over the 8
+        // lanes of one t (the C = 256 form's, one level deeper): lane g
+        // ends with columns 8g + 2t and 8g + 2t + 1, that is 2 lane and 2
+        // lane + 1
+        float w4[4][2], w2[2][2], w1[2];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const bool up = g & 4;
+            w4[i][e] = (up ? sum[4 + i][e] : sum[i][e]) +
+                       __shfl_xor_sync(0xffffffffu,
+                                       up ? sum[i][e] : sum[4 + i][e], 16);
+          }
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const bool up = g & 2;
+            w2[i][e] = (up ? w4[2 + i][e] : w4[i][e]) +
+                       __shfl_xor_sync(0xffffffffu,
+                                       up ? w4[i][e] : w4[2 + i][e], 8);
+          }
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const bool up = g & 1;
+          w1[e] = (up ? w2[1][e] : w2[0][e]) +
+                  __shfl_xor_sync(0xffffffffu, up ? w2[0][e] : w2[1][e], 4);
+        }
+        *reinterpret_cast<float2*>(buf + (u * 4 + warp) * HC + 2 * lane) =
+            make_float2(w1[0], w1[1]);
+      }
+      // The four warps' sums meet in the buffer of the turn's parity, one
+      // barrier a parity; warp 0 adds them in order and writes the two
+      // partial rows (a warp cannot pass the warpgroup's next products
+      // before warp 0 has read these)
+      const int bar = 1 + 2 * c + ((f / 2) & 1);
+      if (warp != 0) {
+        bar_arrive(bar, 128);
+      } else {
+        bar_sync(bar, 128);
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const float* tile = buf + u * 4 * HC;
+          float2 total = *reinterpret_cast<const float2*>(tile + 2 * lane);
+#pragma unroll
+          for (int w = 1; w < 4; ++w) {
+            const float2 p =
+                *reinterpret_cast<const float2*>(tile + w * HC + 2 * lane);
+            total.x += p.x, total.y += p.y;
+          }
+          if (m0 + 64 * u < M)
+            *reinterpret_cast<float2*>(
+                db1_partial + (2ll * blockIdx.x + u) * F + f * HC +
+                2 * lane) = total;
+        }
+      }
+    }
+  }
+  if (lane == 0) bulk_wait_read();   // the staging outlives its stores
+}
+
+// Pass 2 at C = 512: dx = bf16(dh) W1^T (+ the residual, or rounded to
+// bf16), 128 x 256 tiles over depth F, gemm.cu's warp-specialised form
+constexpr int DX_BM = 128, DX_BN = 256, DX_STAGES = 4;
+constexpr int DX_A = DX_BM * 128;               // 128 rows x 64 depth
+constexpr int DX_B = 64 * DX_BN * 2;            // 64 depth rows x 256
+constexpr int DX_STAGE = DX_A + DX_B;
+constexpr int DX_SMEM = DX_STAGES * DX_STAGE + 2 * DX_STAGES * 8 + 1024;
+static_assert(DX_SMEM <= 232448, "more shared memory than a block may have");
+
+template <bool RESIDUAL>
+__global__ void __launch_bounds__(384, 1)
+dx_kernel(const __grid_constant__ CUtensorMap map_dh,
+          const __grid_constant__ CUtensorMap map_w1t,
+          const float* __restrict__ residual, float* __restrict__ dx32,
+          bf16* __restrict__ dx16, int M, int F) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + DX_STAGES * DX_STAGE);
+  uint64_t* empty = full + DX_STAGES;
+  const int n0 = blockIdx.x * DX_BN, m0 = blockIdx.y * DX_BM;
+  const int steps = F / 64, wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) mbar_init_ring(full, empty, DX_STAGES, 8);
+  __syncthreads();
+
+  if (wg == 0) {
+    // Producer: one thread keeps the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    if (threadIdx.x != 0) return;
+    for (int i = 0; i < steps; ++i) {
+      const int s = i % DX_STAGES, round = i / DX_STAGES;
+      if (round > 0) mbar_wait(smem_addr(empty + s), (round - 1) & 1);
+      const uint32_t bar = smem_addr(full + s);
+      mbar_expect_tx(bar, DX_STAGE);
+      unsigned char* sa = ring + s * DX_STAGE;
+      tma_load(sa, &map_dh, i * 64, m0, bar);          // K-major rows
+#pragma unroll
+      for (int j = 0; j < DX_BN / 64; ++j)              // MN-major boxes
+        tma_load(sa + DX_A + j * 8192, &map_w1t, n0 + j * 64, i * 64, bar);
+    }
+    return;
+  }
+
+  // Consumers: warpgroup c = wg - 1 owns rows 64c..64c+63 of the tile
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+  const int c = wg - 1, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  float acc[DX_BN / 2];
+#pragma unroll
+  for (int i = 0; i < DX_BN / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < steps; ++i) {
+    const int s = i % DX_STAGES;
+    mbar_wait(smem_addr(full + s), (i / DX_STAGES) & 1);
+    const uint32_t a_addr = smem_addr(ring + s * DX_STAGE);
+    const uint32_t b_addr = a_addr + DX_A;
+    fence_regs(acc);
+    wgmma_fence();
+    if (LIVE) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss<DX_BN, 0, 1>(
+            acc, sw128_desc(a_addr + c * 64 * 128 + kk * 32, 16, 1024),
+            sw128_desc(b_addr + kk * 2048, 8192, 1024));
+    }
+    wgmma_commit();
+    wgmma_wait<1>();    // the previous step's products are done
+    fence_regs(acc);
+    if (i > 0 && lane == 0)
+      mbar_arrive(smem_addr(empty + (i - 1) % DX_STAGES));
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  // Register 4j + e: row g + 8 (e / 2) of the warp's 16, column 8j + 2t +
+  // e % 2 of the tile
+  const int g = lane >> 2, t = lane & 3;
+  const long long row0 = m0 + 64 * c + 16 * warp + g;
+#pragma unroll
+  for (int j = 0; j < DX_BN / 8; ++j) {
+    const int col = n0 + 8 * j + 2 * t;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const long long row = row0 + 8 * r;
+      if (row >= M) continue;
+      float2 v = make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+      if constexpr (RESIDUAL) {
+        const float2 res =
+            *reinterpret_cast<const float2*>(residual + row * WC + col);
+        v.x += res.x, v.y += res.y;
+        *reinterpret_cast<float2*>(dx32 + row * WC + col) = v;
+      } else {
+        *reinterpret_cast<uint32_t*>(dx16 + row * WC + col) =
+            pack_bf16(v.x, v.y);
+      }
+    }
+  }
+}
+
+template <typename TX, bool RESIDUAL>
+int launch_wide(const void* x, const void* dy, const void* w1t,
+                const void* b1, const void* w2, const void* words,
+                const void* residual, void* dx32, void* dx16, void* hd_out,
+                void* dh_out, void* db1_partial, void* mask, int M, int F,
+                float scale, cudaStream_t s) {
+  CUtensorMap mw1t, mw2, mhd, mdh, mdh_in, mw1t_mn;
+  if (!encode(&mw1t, w1t, false, F, WC, WC, 64, HC) ||
+      !encode(&mw2, w2, false, F, WC, WC, 64, HC) ||
+      !encode(&mhd, hd_out, false, M, F, F, HC, 16) ||
+      !encode(&mdh, dh_out, false, M, F, F, HC, 16) ||
+      !encode(&mdh_in, dh_out, false, M, F, F, 64, DX_BM) ||
+      !encode(&mw1t_mn, w1t, false, F, WC, WC, 64, 64))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto hd_pass = hidden_kernel<TX, 0>;
+  auto dh_pass = hidden_kernel<bf16, 1>;
+  auto dx_pass = dx_kernel<RESIDUAL>;
+  static const cudaError_t attr[3] = {
+      cudaFuncSetAttribute(hd_pass,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           Wide<0>::BYTES),
+      cudaFuncSetAttribute(dh_pass,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           Wide<1>::BYTES),
+      cudaFuncSetAttribute(dx_pass,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           DX_SMEM)};
+  for (const cudaError_t err : attr)
+    if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (M + 127) / 128;
+  const uint32_t* w = static_cast<const uint32_t*>(words);
+  uint32_t* bits = static_cast<uint32_t*>(mask);
+  const float* bias = static_cast<const float*>(b1);
+  float* partial = static_cast<float*>(db1_partial);
+  hd_pass<<<blocks, HTHREADS, Wide<0>::BYTES, s>>>(
+      mw1t, mhd, static_cast<const TX*>(x), bias, w, bits, partial, M, F,
+      scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dh_pass<<<blocks, HTHREADS, Wide<1>::BYTES, s>>>(
+      mw2, mdh, static_cast<const bf16*>(dy), bias, w, bits, partial, M, F,
+      scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dx_pass<<<dim3(WC / DX_BN, (M + DX_BM - 1) / DX_BM), 384, DX_SMEM, s>>>(
+      mdh_in, mw1t_mn, static_cast<const float*>(residual),
+      static_cast<float*>(dx32), static_cast<bf16*>(dx16), M, F);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int C, typename TX, bool RESIDUAL>
@@ -515,30 +986,37 @@ int launch_width(const void* x, int x_is_f32, const void* dy,
 
 }  // namespace
 
-// x (M, C), C = 256 or 512: fp32 (x_is_f32 = 1, rounded to bf16 as
-// staged) with residual (M, C) fp32 and dx32 (M, C) fp32 = dx + residual;
-// or bf16 with dx16 (M, C) bf16 (residual and dx32 null). dy (M, C) bf16,
-// masked and rounded; w1t (F, C) bf16, W1 transposed; b1 (F) fp32,
-// 16-byte aligned; w2 (F, C) bf16. words (M, F / 32) int32, the hidden's
-// keep words from K4's train form, or null for no dropout; scale 1 / (1 -
-// rate). hd_out, dh_out (M, F) bf16; db1_partial (ceil(M / 64), F) fp32.
-// F % 128 == 0; anything else returns cudaErrorInvalidValue.
+// x (M, C), C = 256 (one launch) or 512 (three): fp32 (x_is_f32 = 1,
+// rounded to bf16 as staged) with residual (M, C) fp32 and dx32 (M, C)
+// fp32 = dx + residual; or bf16 with dx16 (M, C) bf16 (residual and dx32
+// null). dy (M, C) bf16, masked and rounded; w1t (F, C) bf16, W1
+// transposed; b1 (F) fp32, 16-byte aligned; w2 (F, C) bf16. words (M, F /
+// 32) int32, the hidden's keep words from K4's train form, or null for no
+// dropout; scale 1 / (1 - rate). hd_out, dh_out (M, F) bf16; db1_partial
+// (ceil(M / 64), F) fp32. mask: at C = 512 the hidden passes' scratch,
+// ceil(M / 128) x F / 64 x 256 uint32 words; unused at 256. F % 128 == 0;
+// anything else returns cudaErrorInvalidValue.
 extern "C" int ppgs_ffn_train_bwd(
     const void* x, int x_is_f32, const void* dy, const void* w1t,
     const void* b1, const void* w2, const void* words, const void* residual,
     void* dx32, void* dx16, void* hd_out, void* dh_out, void* db1_partial,
-    int M, int F, int C, float scale, void* stream) {
-  if (F <= 0 || F % 128 || (C != 256 && C != 512) ||
+    void* mask, int M, int F, int C, float scale, void* stream) {
+  if (F <= 0 || F % 128 || (C != 256 && C != 512) || (C == 512 && !mask) ||
       reinterpret_cast<uintptr_t>(b1) % 16 ||
       (x_is_f32 ? !residual || !dx32 : !dx16))
     return static_cast<int>(cudaErrorInvalidValue);
   if (M <= 0) return static_cast<int>(cudaGetLastError());
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return C == 512
-             ? launch_width<512>(x, x_is_f32, dy, w1t, b1, w2, words,
-                                 residual, dx32, dx16, hd_out, dh_out,
-                                 db1_partial, M, F, scale, s)
-             : launch_width<256>(x, x_is_f32, dy, w1t, b1, w2, words,
-                                 residual, dx32, dx16, hd_out, dh_out,
-                                 db1_partial, M, F, scale, s);
+  if (C == 512)
+    return x_is_f32 ? launch_wide<float, true>(x, dy, w1t, b1, w2, words,
+                                               residual, dx32, nullptr, hd_out,
+                                               dh_out, db1_partial, mask, M,
+                                               F, scale, s)
+                    : launch_wide<bf16, false>(x, dy, w1t, b1, w2, words,
+                                               nullptr, nullptr, dx16, hd_out,
+                                               dh_out, db1_partial, mask, M,
+                                               F, scale, s);
+  return launch_width<256>(x, x_is_f32, dy, w1t, b1, w2, words, residual,
+                           dx32, dx16, hd_out, dh_out, db1_partial, M, F,
+                           scale, s);
 }

@@ -204,6 +204,15 @@ def keep_words_shape(M, F):
     return (M, F // 32)
 
 
+def bwd_mask_words(M, F, C):
+    """The int32 words of ``ffn_train_bwd``'s scratch at width C: at 512
+    its hd pass hands the dh pass a bit for each hidden element of each
+    128-row block, two words a thread of the warpgroup that takes a chunk
+    of 64 columns (bit 4j + e of word u: its accumulator register 4j + e
+    of row tile u, kept and relu'd on); none at 256 (one launch)."""
+    return -(-M // 128) * 128 * F // 32 if C == 512 else 0
+
+
 def _pack_words(keep):
     """(M, F) bool -> ``keep_words_shape`` int32."""
     M, F = keep.shape
@@ -325,13 +334,14 @@ def ffn_train_bwd_reference(x, dy, w1, b1, w2, drop_h, keep,
 
 
 def ffn_train_bwd(x, dy, w1, b1, w2, drop_h, keep, residual=None):
-    """The FFN's backward up to its input (``kernels/csrc/ffn_train.cu``):
-    x as the forward took it, C in ``TRAIN_BWD_WIDTHS``, dy (..., C) bf16 the
-    gradient of the
-    dropped output, already masked, keep the forward's keep words (None at
-    rate 0); recomputes the hidden. Returns (dx: fp32 plus ``residual`` for
-    an fp32 x, bf16 for a bf16 x; hd and bf16(dh), (M, F) bf16; db1 partial
-    sums (ceil(M/64), F))."""
+    """The FFN's backward up to its input (``kernels/csrc/ffn_train.cu``:
+    one launch at C = 256, three at 512, which hand a mask over through a
+    scratch of ``bwd_mask_words``): x as the forward took it, C in
+    ``TRAIN_BWD_WIDTHS``, dy (..., C) bf16 the gradient of the dropped
+    output, already masked, keep the forward's keep words (None at rate 0);
+    recomputes the hidden. Returns (dx: fp32 plus ``residual`` for an fp32
+    x, bf16 for a bf16 x; hd and bf16(dh), (M, F) bf16; db1 partial sums
+    (ceil(M/64), F))."""
     if x.device.type == 'cpu':
         return ffn_train_bwd_reference(x, dy, w1, b1, w2, drop_h, keep,
                                        residual)
@@ -363,6 +373,8 @@ def ffn_train_bwd(x, dy, w1, b1, w2, drop_h, keep, residual=None):
     dh = torch.empty((M, F), dtype=torch.bfloat16, device=dev)
     partial = torch.empty((-(-M // backward.PARTIAL_ROWS), F),
                           dtype=torch.float32, device=dev)
+    words = bwd_mask_words(M, F, C)
+    mask = torch.empty(words, dtype=torch.int32, device=dev) if words else None
     # W1 transposed: its (F, C) rows are the operand form of both of the
     # kernel's products with it (the source's note)
     w1t = w1.t().contiguous()
@@ -371,8 +383,8 @@ def ffn_train_bwd(x, dy, w1, b1, w2, drop_h, keep, residual=None):
                    w2.data_ptr(), kernels.ptr(keep if drop_h.on else None),
                    kernels.ptr(residual), dx.data_ptr() if x_f32 else None,
                    None if x_f32 else dx.data_ptr(), hd.data_ptr(),
-                   dh.data_ptr(), partial.data_ptr(), M, F, C,
-                   float(drop_h.scale), device=dev)
+                   dh.data_ptr(), partial.data_ptr(), kernels.ptr(mask), M,
+                   F, C, float(drop_h.scale), device=dev)
     ffn_train_bwd.launches += 1
     return dx, hd, dh, partial
 

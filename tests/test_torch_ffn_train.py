@@ -120,3 +120,41 @@ def test_bwd_reference_reads_the_words_it_is_given(form, C):
     assert not hd.any() and not dh.any() and not part.any()
     assert torch.equal(dx.float(), res if res is not None
                        else torch.zeros(M, C))
+
+
+def _mask_cells(M, F):
+    """Replay of the mask scratch's layout at C = 512 (ffn_train.cu's hd
+    and dh passes): word 2 x + u of chunk f's 256 words of block b belongs
+    to thread x of the warpgroup that walks chunk f, row tile u; its bit
+    4j + e is that thread's accumulator register 4j + e: row 128 b + 64 u +
+    16 (x // 32) + (x % 32) // 4 + 8 (e // 2), column 64 f + 8 j + 2 (x %
+    4) + e % 2. Returns the (row, column) of every bit, in scratch
+    order."""
+    blocks, chunks = -(-M // 128), F // 64
+    b, f, x, u, j, e = np.meshgrid(
+        np.arange(blocks), np.arange(chunks), np.arange(128), np.arange(2),
+        np.arange(8), np.arange(4), indexing='ij')
+    lane = x % 32
+    row = 128 * b + 64 * u + 16 * (x // 32) + lane // 4 + 8 * (e // 2)
+    col = 64 * f + 8 * j + 2 * (lane % 4) + e % 2
+    return row.ravel(), col.ravel()
+
+
+@pytest.mark.parametrize('M,F', [(1, 128), (127, 128), (129, 384),
+                                 (1000, 2048), (131072, 2048)])
+def test_bwd_mask_scratch_holds_a_bit_for_every_hidden_element(M, F):
+    """``bwd_mask_words`` sizes the scratch that the hd pass hands the dh
+    pass at C = 512: 256 words a block of 128 rows a chunk of 64 hidden
+    columns, one bit for each (row, column) of every block's rows (rows past
+    M included: the passes' zero rows), none at C = 256 (one launch)."""
+    assert fused_ffn.bwd_mask_words(M, F, 256) == 0
+    words = fused_ffn.bwd_mask_words(M, F, 512)
+    blocks = -(-M // 128)
+    assert words == blocks * (F // 64) * 256
+    assert words * 32 == blocks * 128 * F >= M * F
+    if M * F <= 1000 * 2048:
+        row, col = _mask_cells(M, F)
+        assert row.size == words * 32
+        cells = row * F + col
+        assert np.unique(cells).size == cells.size
+        assert cells.min() == 0 and cells.max() == blocks * 128 * F - 1
