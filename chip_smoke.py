@@ -194,8 +194,10 @@ any failure exits non-zero before the result line:
 21. the head-training slice (the w2v2fb and w2v2fc heads: C = 512, 2
    heads of 256, FFN 2048): the train kernels' instances at that width
    against their plain versions at odd shapes before anything is timed:
-   K4's two train forms (phase 6's rows and hidden widths 128, 384 and
-   2048, dropout off and 0.1, the hidden's keep words against Philox's
+   K4's two train forms (phase 6's rows, and rows 2597, 16447 and 40000,
+   whose units outnumber the persistent hidden launch's blocks and end in
+   a wave that is not full and a row block past M; hidden widths 128, 384
+   and 2048, dropout off and 0.1, the hidden's keep words against Philox's
    bits), ffn_train_bwd likewise, attention_train_fwd and
    attention_train_bwd at phase 6's T, windows, causal settings and rates
    (keep words against Philox's bits, two calls bit for bit), and
@@ -206,8 +208,10 @@ any failure exits non-zero before the result line:
    masks on both sides; K1 and K3's train form at odd rows first), B4,
    B5 and B6 as wholes forward and backward, one step on 4 rows against
    ``device='cpu'``; then each kernel's times (phase 8's), B4-B6 beside
-   their library routes, and the train step's ms, audio-s/s, peak memory
-   and profile at 256 x 512 and 256 x 500;
+   their library routes (K4's two train forms and attention_train_fwd
+   each by CUDA events and device time beside its bound and library
+   route), and the train step's ms, audio-s/s, peak memory and profile at
+   256 x 512 and 256 x 500;
 23. the slice's main path: ``preprocess.datasets(w2v2fb)`` on a seeded
    corpus of 160 wav files (phase 18's recipe) with the seeded
    wav2vec2-base trunk at ``W2V2FB_CHECKPOINT``, every cache (768, frames)
@@ -570,6 +574,11 @@ def agree(name, got, want, want32=None):
 # ragged 1000, hidden widths of one 128-wide tile, of three, and the model's
 K4_ODD_M = (1, 63, 64, 65, 127, 129, 1000)
 K4_ODD_F = (128, 384)
+# and, for the train forms at C = 512, whose hidden launch is a persistent
+# walk over units of 128 rows x 128 hidden columns (ops/fused_ffn.py
+# hidden_walk): more units than the card holds blocks, in ranges that end
+# in a last wave that is not full, and a last row block past M
+K4_WALK_M = (2597, 16447, 40000)
 
 
 # K1 (qkv_proj.cu) at odd shapes, each width, before anything is timed:
@@ -694,10 +703,10 @@ def relative_l2(got, want):
 
 @torch.no_grad()
 def k4_odd_shape_checks(form, C, act, model_F, dev):
-    """K4 in one form against its plain version at ``K4_ODD_M`` rows and
-    ``K4_ODD_F`` + (model_F,) hidden widths, on seeded random weights;
-    prints the max |kernel - plain| of every case, one line per (F,
-    variant).
+    """K4 in one form against its plain version at ``K4_ODD_M`` rows (and
+    ``K4_WALK_M`` for the train forms at C = 512) and ``K4_ODD_F`` +
+    (model_F,) hidden widths, on seeded random weights; prints the max
+    |kernel - plain| of every case, one line per (F, variant).
 
     ``form``: 'ln', the inference LayerNorm form at round_input 0 and 1
     (atol 1e-2, phase 3's limit); 'train_ln' (B4's: stats, dropout off and
@@ -716,6 +725,7 @@ def k4_odd_shape_checks(form, C, act, model_F, dev):
     def rnd(*shape, scale=1.0, base=0.0):
         return base + scale * torch.randn(*shape, generator=gen, device=dev)
 
+    rows = K4_ODD_M + (K4_WALK_M if form != 'ln' and C == 512 else ())
     for Fh in K4_ODD_F + (model_F,):
         w1, w2 = (rnd(C, Fh, scale=C ** -0.5).to(bf16),
                   rnd(Fh, C, scale=Fh ** -0.5).to(bf16))
@@ -724,7 +734,7 @@ def k4_odd_shape_checks(form, C, act, model_F, dev):
         variants = ((0, 1) if form == 'ln' else (0.0, DROPOUT))
         for variant in variants:
             cases = []
-            for M in K4_ODD_M:
+            for M in rows:
                 name = (f'K4 {form} C={C} {act} F={Fh} M={M} '
                         f'{"round_input" if form == "ln" else "rate"}='
                         f'{variant}')
@@ -1974,7 +1984,10 @@ def train_kernel_times(config, inp, err, launches, per_step, form_launches,
             'max_abs_err': err[name], 'ms': ms, 'plain_ms': plain_ms,
             'bound_ms': bound_ms, 'bound_by': bound_by,
             'library_ms': library_ms})
-    kernel_device_ms('K4 ffn_train_fwd', runs['ffn_train_fwd'][0], card)
+    device_times('K4 ffn_train_fwd (B4\'s form: fp32 x, the LayerNorm)',
+                 records[list(runs).index('ffn_train_fwd')],
+                 runs['ffn_train_fwd'][0], 'its library route', card)
+    k4_y_out_times(inp, layer_drops, card)
     device_times('ffn_train_bwd', records[list(runs).index('ffn_train_bwd')],
                  runs['ffn_train_bwd'][0], 'its library route', card)
     device_times(f'K1 qkv_proj (train, {M} rows)', records[0],
@@ -1996,6 +2009,39 @@ def train_kernel_times(config, inp, err, launches, per_step, form_launches,
     colsum_step_times(config, inp['colsum'], card)
     gemm_records = gemm_form_times(inp, err, form_launches, card, tag)
     return records + gemm_records, sum(r['ms'] for r in gemm_records)
+
+
+def k4_y_out_times(inp, drops, card):
+    """K4's other train form at the training shape, ffn_train's (B6: bf16
+    x and output, no LayerNorm): CUDA-event and device time by launch,
+    beside its bound and its library route (addmm, ReLU, dropout, addmm,
+    dropout in bf16)."""
+    from ppgs_tpu_torch.ops import fused_ffn
+
+    bf16 = torch.bfloat16
+    C, M = inp['C'], inp['M']
+    Fh = inp['w1'].shape[1]
+    x16 = inp['r'].to(bf16)
+    args = (x16, inp['w1'], inp['ffn_b1'], inp['w2'], inp['ffn_b2'], *drops)
+    w1t, w2t = inp['w1'].T, inp['w2'].T
+    b1, b2 = inp['ffn_b1'].to(bf16), inp['ffn_b2'].to(bf16)
+
+    def library():
+        h = F.dropout(F.relu(F.linear(x16, w1t, b1)), DROPOUT)
+        return F.dropout(F.linear(h, w2t, b2), DROPOUT)
+
+    ms = time_ms(lambda: fused_ffn.ffn_train_fwd(*args), TRAIN_REPS, 2)
+    library_ms = time_ms(library, TRAIN_REPS, 2)
+    # x in, the weights and biases, y and the hidden's keep words out
+    bound_ms, bound_by = bound(
+        4 * M * C * Fh, 2 * M * C * 2 + 2 * C * Fh * 2 + (Fh + C) * 4
+        + M * Fh // 8)
+    device = kernel_device_ms('K4 ffn_train_fwd (B6\'s form: bf16 x and y)',
+                              lambda: fused_ffn.ffn_train_fwd(*args), card)
+    dev = 'not measured' if device is None else f'{device:.4f} ms'
+    print(f'K4 ffn_train_fwd (B6\'s form) C={C}: event {ms:.4f} ms, device '
+          f'{dev}, bound {bound_ms:.4f} ms ({bound_by}), library route '
+          f'{library_ms:.4f} ms: {ms / library_ms:.2f}x [{card}]', flush=True)
 
 
 def attention_bwd_times(record, bwd, card):

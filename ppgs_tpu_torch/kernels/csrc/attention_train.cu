@@ -95,6 +95,23 @@
 // rows, half the L2 stream of K and V; no faster, with 2 or 3 stages: the
 // stream is not the limit), 3 or 4 stages with one block an SM (16-23%
 // slower: no second block overlaps a block's prologue and epilogue).
+//
+// At d_head 256 (one block an SM) the probe's loads-only walk takes
+// 0.31-0.33 ms, 1.3x the byte bound; the products and the softmax add
+// about 0.17 ms and the keep bits 0.10, as if nothing overlapped. There
+// the keep bits are drawn in pass 1 (DRAW256_IN_PASS2), under its two
+// tiles' products: 1-2% faster than in pass 2, the same bits. Each of
+// these kept the bits and was no faster (probe, dropout 0.1, device ms
+// against the pass-2 form's 0.586-0.595 in the same call): blocks 2i and
+// 2i + 1 a cluster sharing each K and V tile by TMA multicast with a ring
+// of four single tiles (0.631); blocks of 64 rows, two an SM, in such
+// pairs (0.632; one an SM 0.962); pass 1 with two tiles' scores in flight
+// (0.661: ptxas serialised the products, C7514); pass 1's product from Q
+// in registers (0.598); the two warpgroups' score products in turns
+// through named barriers (0.698); o staged all at once in the idle ring
+// with one wait (0.621); and a ring of four single tiles with pass 1
+// pipelined and pass 2 issuing tile i + 1's scores before tile i's PV
+// (1.056 with the dropout, 0.593 without against 0.484).
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -113,6 +130,7 @@ constexpr int MAX_T = 1024;         // keys a window at most
 constexpr int MAX_TILES = MAX_T / BKV;
 // The plan's choices, each timed against its alternative (see above)
 constexpr bool DRAW_IN_PASS2 = true;   // which pass draws the keep bits
+constexpr bool DRAW256_IN_PASS2 = false;   // and at d_head 256
 constexpr int PASS1_TILES = 2;         // K tiles a stage holds in pass 1
 static_assert(PASS1_TILES == 1 || PASS1_TILES == 2, "a stage holds 2 tiles");
 
@@ -124,6 +142,7 @@ template <int D>
 struct Plan {
   static constexpr int STAGES = 2;
   static constexpr int BLOCKS = D == 256 ? 1 : 4 / WGS;   // blocks an SM
+  static constexpr bool DRAW2 = D == 256 ? DRAW256_IN_PASS2 : DRAW_IN_PASS2;
   static constexpr int ATOMS = D / ATOM;
   static constexpr int Q_BYTES = BQ * D * 2;
   static constexpr int KV_BYTES = BKV * D * 2;
@@ -379,7 +398,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap map_q,
     wgmma_fence();
     scores<D>(sc, q_addr, k_addr);
     wgmma_commit();
-    if constexpr (DROP && !DRAW_IN_PASS2) draw(i, valid);
+    if constexpr (DROP && !P::DRAW2) draw(i, valid);
     wgmma_wait<0>();
     fence_regs(sc);
 
@@ -453,7 +472,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap map_q,
       wgmma_fence();
       scores<D>(sc, q_addr, k_addr);
       wgmma_commit();
-      if constexpr (DROP && DRAW_IN_PASS2) draw(i, valid);
+      if constexpr (DROP && P::DRAW2) draw(i, valid);
       __syncwarp();
       // rows r0, r1's keep bits of the tile, shifted to this lane's keys
       uint64_t kw0 = ~0ull, kw1 = ~0ull;

@@ -57,8 +57,9 @@
 //      from the swizzled tile and rounds it to bf16 (the RS form); a bf16
 //      x (ffn_train's form) is the SS form's K-major A; W1 as stored
 //      (MN-major). Bias, activation, dropout and the rounding are applied
-//      to the accumulators in registers; the train forms also write the
-//      hidden's keep words here (WORDS).
+//      to the accumulators in registers. The train forms at C = 512 (the
+//      hidden's keep words written) take hidden_train_kernel instead,
+//      below.
 //   2. ffn_out_kernel: y = h W2 + b2 on 128 x 256 tiles (h K-major, W2
 //      MN-major), then either ffn_train's bf16 y (y_out, no LayerNorm: a
 //      block a tile) or the residual, drop_y and the LayerNorm from the
@@ -79,13 +80,61 @@
 // train forms (C = 256 in the fused kernel, C = 512 in the hidden's
 // launch) also write the hidden's keep bits for the backward
 // (ffn_train.cu), which then draws none: int32 words of shape (M, F / 32),
-// bit k of word w for column 32 w + k; a quad's four lanes OR their bits
-// into a row's words and each stores one (the WORDS instances; the
-// inference instances are compiled without it). The hidden launch's train
-// instances (fp32 x with the words, bf16 x with and without them) take
-// 113-168 registers a thread and the output launch's y_out form 168, as
-// the others, with no spills; the bf16-x hidden's ring holds four 48 KB
-// stages (194 KB), the fp32-x one three of 64 KB.
+// bit k of word w for column 32 w + k; in the fused kernel a quad's four
+// lanes OR their bits into a row's words and each stores one (its WORDS
+// instances; the inference instances are compiled without it).
+//
+// The C = 512 train forms' hidden launch (hidden_train_kernel; fp32 x with
+// the LayerNorm's launch after it, B4's form, or bf16 x with the y_out
+// launch, ffn_train's). What the probes showed of the two-launch form
+// (scripts/torch_ffn_fwd_probe.py on an H100, the training shape 131,072
+// x 512, F = 2048): its hidden launch took 1.19-1.32 ms, of which a walk
+// without the epilogue took 0.37-0.47 and the Philox draws, issued in the
+// epilogue after the products, 0.28; every 128 x 256 tile fetched its x
+// again (8 times a row block) beside W1, and nothing overlapped a tile's
+// epilogue. The design here:
+// - a persistent grid (a block an SM) walks units of 128 rows x 128
+//   hidden columns in contiguous ranges, row block by row block (K1's
+//   walk, qkv_proj.cu): a row block's x is staged once, rounded to bf16,
+//   into 128 KB of resident slabs (the RS form's bits: the same bf16
+//   values in the same k16 order), and W1 streams past it in 16 KB items
+//   through a ring of four slots, kept full by a producer warp;
+// - two consumer warpgroups (64 rows each) issue SS m64n128k16 products
+//   from the resident x; the epilogue stages the unit's h in two swizzled
+//   boxes a warpgroup and writes them by TMA stores, which drain while the
+//   next unit's products run;
+// - the keep bits are drawn by three warps of their own (the producer's
+//   warpgroup), a unit ahead of the consumers: 8 Philox calls a word, two
+//   words in flight a thread, stored straight into the keep words; a
+//   consumer reads its rows' four words of a unit before the unit's
+//   products (they arrive meanwhile). A pair of barriers keeps the draws
+//   at most a unit ahead.
+// Every output (h, the keep words, and through the output launch out, the
+// normalised rows and 1/std or y_out) is the two-launch form's bit for
+// bit. The probe's variants of this kernel: a loads-only walk (LIVE: no
+// products, no draws) 0.37-0.41 ms, a walk without the draws (PHILOX)
+// 0.55-0.61, without the epilogue (EPILOGUE) about the draws' time; the
+// whole 0.85-0.99. The draws add about 0.3 ms wherever they run, as they
+// did in the epilogue: the multiplies of Philox and the products' walk
+// do not overlap on this card. Tried and dropped (each timed against
+// this form in one call): the draws inside the main loop between a step's
+// products and its wait (0.92-0.95 ms), setmaxnreg for the consumers
+// (ptxas keeps the launch's 168-register cap for all code), seven draw
+// warps in a fourth warpgroup (0.85-0.90, with 300 bytes of spills at 128
+// registers), a Philox group a thread with shuffles in place of words
+// (1.05), h staged in the ring's last two slots so that the ring holds
+// six (0.95: the stream is no faster with more slots in flight), and W1
+// shared by a two-block cluster through TMA multicast (0.93-0.99).
+// The output launch keeps PR 7's form. Its B4 form takes 0.84-0.90 ms, of
+// which the LayerNorm epilogue, run in lockstep waves at one block an SM,
+// is 0.62 (a walk without it 0.25; without the residual reads 0.78,
+// without the normalised rows' stores 0.74, without the output dropout's
+// draws 0.85). Tried and dropped: the residual brought by TMA into the
+// slots that the last depth steps free, and out and then n written over
+// it and stored by TMA, so that a block's writes drain behind the next
+// block's products (0.96 ms; 1.14 with the per-pair addresses kept in
+// registers, 750 bytes of spills); and, for the y_out form, y staged in
+// the idle ring and stored by TMA (no faster: 0.50).
 // Rows past M: TMA fills zeros, and no row >= M is written.
 
 #include <type_traits>
@@ -99,6 +148,11 @@ using namespace ppgs::residual_ln;
 namespace {
 
 constexpr int THREADS = 384;              // producer warpgroup + 2 consumers
+// The probes' switches (scripts/torch_ffn_fwd_probe.py): the new
+// hidden launch's products, both launches' epilogues, the keep bits' draws
+constexpr bool LIVE = true;
+constexpr bool EPILOGUE = true;
+constexpr bool PHILOX = true;
 enum Act { RELU = 0, GELU = 1 };
 
 template <int ACT>
@@ -236,16 +290,15 @@ __device__ __forceinline__ void store_y_out(const float (&acc)[128],
   }
 }
 
-// C = 512 and 768, launch 1: h (M, F) bf16 = drop_h(act(x W1 + b1)), a
-// BM x BN tile a block; X_F32: x fp32 (rounded in the RS form), else bf16;
-// WORDS: write the hidden's keep words to `words`
-template <int BN, int ACT, bool ROUND, bool X_F32, bool WORDS>
+// C = 512 and 768, launch 1 of the inference forms (and of the train
+// forms at rate 0): h (M, F) bf16 = drop_h(act(x W1 + b1)), a BM x BN tile
+// a block; X_F32: x fp32 (rounded in the RS form), else bf16
+template <int BN, int ACT, bool ROUND, bool X_F32>
 __global__ void __launch_bounds__(THREADS, 1)
 ffn_hidden_kernel(const __grid_constant__ CUtensorMap map_x,
                   const __grid_constant__ CUtensorMap map_w1,
-                  const float* __restrict__ b1, bf16* __restrict__ h,
-                  uint32_t* __restrict__ words, int M, int F, int C,
-                  ppgs::Dropout drop) {
+                  const float* __restrict__ b1, bf16* __restrict__ h, int M,
+                  int F, int C, ppgs::Dropout drop) {
   using R = Ring<X_F32, BN>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ring = aligned_ring(smem_raw);
@@ -278,8 +331,6 @@ ffn_hidden_kernel(const __grid_constant__ CUtensorMap map_x,
     for (int i = 0; i < 8; ++i)
       bias[i] = *reinterpret_cast<const float2*>(b1 + n0 + 8 * (j0 + i) +
                                                  2 * t);
-    // The batch's 64 columns: two keep words a row
-    uint32_t w[2][2] = {{0u, 0u}, {0u, 0u}};
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const int j = j0 + i;
@@ -287,13 +338,10 @@ ffn_hidden_kernel(const __grid_constant__ CUtensorMap map_x,
                           acc[4 * j + 3]};
       bool keep[4] = {true, true, true, true};
       if (drop.threshold) keep4(drop, r0, r1, F, n0 + 8 * j, t, keep);
-      if constexpr (WORDS) add_keep_bits(w, i, t, keep);
       uint32_t p0, p1;
       hidden4<ACT, ROUND>(p0, p1, v, bias[i], keep, drop);
       store_bf16(h, F, r0, r1, n0 + 8 * j + 2 * t, t, p0, p1, M);
     }
-    if constexpr (WORDS)
-      store_keep_words(w, words, r0, r1, M, F, (n0 + 8 * j0) / 32, t);
   }
 }
 
@@ -336,16 +384,386 @@ ffn_out_kernel(const __grid_constant__ CUtensorMap map_h,
     consume<false, OUT_BN>(acc, ring, full, empty, F / BK, c, warp, lane);
   }
   if constexpr (!LN) {
-    store_y_out(acc, b2, y_out, M, C, n0, r0, r0 + 8, t, drop);
+    if constexpr (EPILOGUE)
+      store_y_out(acc, b2, y_out, M, C, n0, r0, r0 + 8, t, drop);
     return;
   }
   __syncwarp();   // the producer's warp meets the cluster barriers whole
 
   // Every thread of every block of the cluster takes part in the
   // epilogue's barriers; the producer warpgroup has nothing else to do
-  residual_ln(acc, wg != 0, sums, x, b2, gamma, beta, out, n_out, rstd, M, C,
-              n0, lr0, r0, t, round_input, drop, blockIdx.x == 0);
+  if constexpr (EPILOGUE)
+    residual_ln(acc, wg != 0, sums, x, b2, gamma, beta, out, n_out, rstd, M,
+                C, n0, lr0, r0, t, round_input, drop, blockIdx.x == 0);
   cg::this_cluster().sync();   // no block leaves while a peer reads its sums
+}
+
+// C = 512's train forms (the hidden's keep words written), launch 1:
+// hidden_train_kernel, persistent, x resident, the keep bits drawn by
+// warps of their own (see the note at the top). A unit is 128 rows x 128
+// hidden columns.
+constexpr int UM = 128, UN = 128;
+constexpr int DK = 64;                      // depth of a W1 item
+constexpr int SLOT = DK * UN * 2;           // a W1 item, or a box of x: 16 KB
+constexpr int OBOX = 64 * 128;              // a 64 x 64 bf16 box of h, 8 KB
+constexpr int TRAIN_C = 512;
+// Two consumer warpgroups and a third: its first warp keeps the ring
+// full, its other three draw the keep bits
+constexpr int HT_THREADS = 3 * 128;
+constexpr int DRAW_WARPS = 3;
+constexpr int SMEM_MAX = 232448;
+
+template <bool X_F32>
+struct HPlan {
+  static constexpr int STEPS = TRAIN_C / DK;          // W1 items a unit
+  static constexpr int SLAB = UM * 128;               // 64 columns of x, bf16
+  static constexpr int X_BYTES = STEPS * SLAB;        // x, resident: 128 KB
+  static constexpr int XPER = X_F32 ? 2 : 1;          // x boxes a depth step
+  static constexpr int OUT_BYTES = 2 * 2 * OBOX;      // two boxes a warpgroup
+  // the ring takes what is left, less 1024 bytes of alignment slack and
+  // 256 for its barriers
+  static constexpr int STAGES =
+      (SMEM_MAX - 1280 - X_BYTES - OUT_BYTES) / SLOT;
+  // the ring's full and empty barriers, the keep words' ready and
+  // consumed barriers
+  static constexpr int SMEM =
+      X_BYTES + OUT_BYTES + STAGES * (SLOT + 16) + 16 + 1024;
+  static_assert(STAGES >= 2 && STAGES * 16 <= 256 && SMEM <= SMEM_MAX,
+                "the plan does not fit a block's shared memory");
+};
+
+// A block's units [u0, u1) of `units` (row block u / nt, column tile u %
+// nt), the ranges balanced to one unit; odd blocks walk theirs backwards,
+// so that two that share a row block at their ends read its x at about
+// the same time (from L2 once). ops/fused_ffn.py hidden_walk replays it.
+struct HWalk {
+  int u0, u1, nt;
+  bool back;
+  __device__ HWalk(int units, int nt_) : nt(nt_) {
+    const long long b = blockIdx.x, g = gridDim.x;
+    u0 = static_cast<int>(b * units / g);
+    u1 = static_cast<int>((b + 1) * units / g);
+    back = (b & 1) != 0;
+  }
+  __device__ int count() const { return u1 - u0; }
+  __device__ int at(int i) const { return back ? u1 - 1 - i : u0 + i; }
+  __device__ int row(int i) const { return at(i) / nt; }
+  __device__ int col(int i) const { return at(i) % nt * UN; }
+  // the unit starts a row block: its x comes through the ring first
+  __device__ bool first(int i) const {
+    return i == 0 || row(i) != row(i - 1);
+  }
+};
+
+// Consumer warpgroup c's rows of a box of x into slab `slab` of the
+// resident x: an fp32 box (32 columns a row) rounded to bf16 into half h
+// of the slab, or a bf16 box (64 columns) copied; both in the 128-byte
+// swizzle (the 16-byte chunk q of row r at q ^ (r & 7)) that TMA writes
+// and wgmma reads. fp32: thread i of the warpgroup takes row 64c + i % 64,
+// chunks i / 64 and i / 64 + 2, eight rows a phase (conflict-free); bf16:
+// 16-byte chunks in order
+template <bool X_F32>
+__device__ __forceinline__ void stage_x(const unsigned char* box,
+                                        unsigned char* slab, int h, int c) {
+  const int i = threadIdx.x % 128;
+  if constexpr (X_F32) {
+    const int row = 64 * c + i % 64, sw = row & 7;
+    const unsigned char* src = box + row * 128;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int q = i / 64 + 2 * e;              // bf16 chunk of the half
+      const float4 v0 =
+          *reinterpret_cast<const float4*>(src + (((2 * q) ^ sw) << 4));
+      const float4 v1 =
+          *reinterpret_cast<const float4*>(src + (((2 * q + 1) ^ sw) << 4));
+      *reinterpret_cast<uint4*>(slab + row * 128 +
+                                (((4 * h + q) ^ sw) << 4)) =
+          make_uint4(bits(pair(v0.x, v0.y)), bits(pair(v0.z, v0.w)),
+                     bits(pair(v1.x, v1.y)), bits(pair(v1.z, v1.w)));
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int at = (64 * c * 8 + i + 128 * e) * 16;
+      *reinterpret_cast<uint4*>(slab + at) =
+          *reinterpret_cast<const uint4*>(box + at);
+    }
+  }
+}
+
+// Each consumer warp frees a slot
+__device__ __forceinline__ void release_slot(uint64_t* empty, int s,
+                                             int lane) {
+  if (lane == 0) mbar_arrive(smem_addr(empty + s));
+}
+
+// Consumer warpgroup c's products of one unit into acc; FIRST: the unit
+// starts a row block, and the x of each depth step arrives just before its
+// W1 item
+template <bool X_F32, bool FIRST>
+__device__ __forceinline__ void hidden_mainloop(
+    float (&acc)[UN / 2], unsigned char* xs, unsigned char* ring,
+    uint64_t* full, uint64_t* empty, int& it, int c, int lane) {
+  using P = HPlan<X_F32>;
+  const uint32_t x_addr = smem_addr(xs) + c * 64 * 128;
+#pragma unroll
+  for (int e = 0; e < UN / 2; ++e) acc[e] = 0.f;
+  int prev = 0;
+#pragma unroll
+  for (int k = 0; k < P::STEPS; ++k) {
+    if constexpr (FIRST) {
+      // Free the last W1 item first and each x slot as soon as it is read
+      if (k > 0) {
+        wgmma_wait<0>();
+        fence_regs(acc);
+        release_slot(empty, prev, lane);
+      }
+#pragma unroll
+      for (int h = 0; h < P::XPER; ++h, ++it) {
+        const int s = it % P::STAGES;
+        mbar_wait(smem_addr(full + s), (it / P::STAGES) & 1);
+        stage_x<X_F32>(ring + s * SLOT, xs + k * P::SLAB, h, c);
+        fence_async_smem();     // the writes, for wgmma's reads
+        bar_sync(1 + c, 128);
+        release_slot(empty, s, lane);
+      }
+    }
+    const int s = it % P::STAGES;
+    mbar_wait(smem_addr(full + s), (it / P::STAGES) & 1);
+    const uint32_t b_addr = smem_addr(ring + s * SLOT);
+    fence_regs(acc);
+    wgmma_fence();
+    if constexpr (LIVE) {
+#pragma unroll
+      for (int kk = 0; kk < DK / 16; ++kk)
+        // A K-major (32 bytes of each 128-byte row a k16 step), B MN-major
+        // (16 depth rows of 128 bytes a step, the two 64-column boxes SLOT
+        // / 2 apart)
+        wgmma_ss<UN, 0, 1>(acc,
+                           sw128_desc(x_addr + k * P::SLAB + kk * 32, 16,
+                                      1024),
+                           sw128_desc(b_addr + kk * 2048, SLOT / 2, 1024));
+    }
+    wgmma_commit();
+    if constexpr (!FIRST) {
+      wgmma_wait<1>();          // the previous step's products are done
+      fence_regs(acc);
+      if (k > 0) release_slot(empty, prev, lane);
+    }
+    prev = s;
+    ++it;
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  release_slot(empty, prev, lane);
+}
+
+// h (M, F) bf16 = drop_h(relu(bf16(bf16(x W1) + bf16(b1)))) and its keep
+// words, C = 512; X_F32: x fp32 (B4's form), else bf16 (ffn_train's)
+template <bool X_F32>
+__global__ void __launch_bounds__(HT_THREADS, 1)
+hidden_train_kernel(const __grid_constant__ CUtensorMap map_w1,
+                    const __grid_constant__ CUtensorMap map_x,
+                    const __grid_constant__ CUtensorMap map_h,
+                    const float* __restrict__ b1,
+                    uint32_t* __restrict__ words, int M, int F,
+                    ppgs::Dropout drop) {
+  using P = HPlan<X_F32>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* xs = aligned_ring(smem_raw);
+  unsigned char* staging = xs + P::X_BYTES;
+  unsigned char* ring = staging + P::OUT_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + P::STAGES * SLOT);
+  uint64_t* empty = full + P::STAGES;
+  uint64_t* ready = empty + P::STAGES;    // a unit's keep words written
+  uint64_t* consumed = ready + 1;         // and read by every consumer warp
+
+  const int nt = F / UN, wpr = F / 32;
+  const bool drawn = LIVE && PHILOX && drop.threshold && words;
+  const HWalk walk((M + UM - 1) / UM * nt, nt);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(ready, DRAW_WARPS);
+    mbar_init(consumed, 8);
+    mbar_init_ring(full, empty, P::STAGES, 8);   // every consumer warp frees
+  }
+  __syncthreads();
+
+  if (warp == 8) {
+    if (lane == 0) {
+      // Producer: the ring's items in the order the consumers walk them
+      int it = 0;
+      auto slot = [&]() {
+        const int s = it % P::STAGES, round = it / P::STAGES;
+        if (round > 0) mbar_wait(smem_addr(empty + s), (round - 1) & 1);
+        mbar_expect_tx(smem_addr(full + s), SLOT);
+        ++it;
+        return s;
+      };
+      for (int i = 0; i < walk.count(); ++i) {
+        const int m0 = walk.row(i) * UM, n0 = walk.col(i);
+        const bool first = walk.first(i);
+        for (int k = 0; k < P::STEPS; ++k) {
+          if (first) {
+#pragma unroll
+            for (int h = 0; h < P::XPER; ++h) {
+              const int s = slot();
+              tma_load(ring + s * SLOT, &map_x,
+                       X_F32 ? (2 * k + h) * 32 : k * DK, m0,
+                       smem_addr(full + s));
+            }
+          }
+          const int s = slot();
+          unsigned char* dst = ring + s * SLOT;
+          tma_load(dst, &map_w1, n0, k * DK, smem_addr(full + s));
+          tma_load(dst + SLOT / 2, &map_w1, n0 + 64, k * DK,
+                   smem_addr(full + s));
+        }
+      }
+    }
+  } else if (warp > 8) {
+    // The keep bits, while the consumers' products run: each unit's words
+    // (four a row, 32 columns of 8 Philox groups each) into `words`, then
+    // `ready`; no further than one unit ahead of the consumers' reads
+    // (which come before the unit's products), so that a wait on `ready`
+    // never meets a later phase of the same parity
+    const int tid = threadIdx.x - 9 * 32;
+    for (int i = 0; i < walk.count(); ++i) {
+      const int m0 = walk.row(i) * UM, n0 = walk.col(i);
+      if (drawn) {
+        // two words in flight a thread (16 Philox calls), so that the
+        // multiplies' latency is hidden
+#pragma unroll 2
+        for (int n = 0; n < (UM * (UN / 32) + DRAW_WARPS * 32 - 1) /
+                                (DRAW_WARPS * 32); ++n) {
+          const int w = tid + n * DRAW_WARPS * 32;
+          const long long row = m0 + w / (UN / 32);
+          const int q = w % (UN / 32);
+          if (w >= UM * (UN / 32) || row >= M) continue;
+          const unsigned long long g0 =
+              static_cast<unsigned long long>(row * F + n0 + 32 * q) >> 2;
+          uint32_t word = 0u;
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const unsigned long long gr = g0 + e;
+            const uint4 r = ppgs::philox4x32_10(
+                make_uint4(static_cast<uint32_t>(gr),
+                           static_cast<uint32_t>(gr >> 32), drop.site, 0u),
+                drop.seed_lo, drop.seed_hi);
+            word |= (uint32_t(r.x >= drop.threshold) |
+                     uint32_t(r.y >= drop.threshold) << 1 |
+                     uint32_t(r.z >= drop.threshold) << 2 |
+                     uint32_t(r.w >= drop.threshold) << 3)
+                    << (4 * e);
+          }
+          words[row * wpr + n0 / 32 + q] = word;
+        }
+      }
+      __threadfence_block();
+      __syncwarp();
+      if (i > 0) mbar_wait(smem_addr(consumed), (i - 1) & 1);
+      if (lane == 0) mbar_arrive(smem_addr(ready));
+    }
+  } else {
+    // Consumers: warpgroup c owns rows 64c..64c+63 of the block's. A
+    // thread holds rows lr and lr + 8, columns 8j + 2t and 8j + 2t + 1
+    // (j < 16), of its warp's 16 rows
+    const int c = warp / 4, g = lane >> 2, t = lane & 3;
+    const int lr = 16 * (warp % 4) + g;
+    const bool lead = threadIdx.x % 128 == 0;
+    unsigned char* stg = staging + c * 2 * OBOX;
+    float acc[UN / 2];
+    int it = 0;
+    for (int i = 0; i < walk.count(); ++i) {
+      const int n0 = walk.col(i);
+      const int wg_row = walk.row(i) * UM + 64 * c;
+      const long long r0 = wg_row + lr, r1 = r0 + 8;
+      // The unit's keep words of rows r0 and r1 (all kept with the dropout
+      // off), read before its products so that they arrive meanwhile: bit
+      // 8 (j % 4) + 2t + e of word j / 4 for register 4j + e
+      mbar_wait(smem_addr(ready), i & 1);
+      uint4 kw0 = make_uint4(~0u, ~0u, ~0u, ~0u), kw1 = kw0;
+      if (drawn) {
+        if (r0 < M)
+          kw0 = __ldcg(reinterpret_cast<const uint4*>(words + r0 * wpr) +
+                       n0 / 128);
+        if (r1 < M)
+          kw1 = __ldcg(reinterpret_cast<const uint4*>(words + r1 * wpr) +
+                       n0 / 128);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(smem_addr(consumed));
+      if (walk.first(i))
+        hidden_mainloop<X_F32, true>(acc, xs, ring, full, empty, it, c,
+                                     lane);
+      else
+        hidden_mainloop<X_F32, false>(acc, xs, ring, full, empty, it, c,
+                                      lane);
+      if constexpr (!EPILOGUE) {
+        // the products' sums stay live, so that they are not taken out
+        float sum = 0.f;
+#pragma unroll
+        for (int e = 0; e < UN / 2; ++e) sum += acc[e];
+        if (sum == -1.2345e-30f && words) words[0] = kw0.x ^ kw1.y;
+        continue;
+      }
+      // Epilogue: bias, ReLU, dropout and the bf16 rounding into the
+      // warpgroup's two boxes, swizzled as TMA reads them (conflict-free),
+      // then a TMA store a box, which writes no row past M; the last
+      // unit's stores have read the boxes by then
+      if (lead) bulk_wait_read();
+      bar_sync(1 + c, 128);
+#pragma unroll
+      for (int j = 0; j < UN / 8; ++j) {
+        const float2 bias = __ldg(reinterpret_cast<const float2*>(
+            b1 + n0 + 8 * j + 2 * t));
+        const int at_bit = 8 * (j % 4) + 2 * t;
+        const uint32_t a0 = (j / 4 == 0 ? kw0.x : j / 4 == 1 ? kw0.y
+                             : j / 4 == 2 ? kw0.z : kw0.w) >> at_bit;
+        const uint32_t a1 = (j / 4 == 0 ? kw1.x : j / 4 == 1 ? kw1.y
+                             : j / 4 == 2 ? kw1.z : kw1.w) >> at_bit;
+        const bool keep[4] = {(a0 & 1u) != 0, (a0 & 2u) != 0,
+                              (a1 & 1u) != 0, (a1 & 2u) != 0};
+        const float v[4] = {acc[4 * j], acc[4 * j + 1], acc[4 * j + 2],
+                            acc[4 * j + 3]};
+        uint32_t p0, p1;
+        hidden4<RELU, false>(p0, p1, v, bias, keep, drop);
+        unsigned char* at =
+            stg + (j / 8) * OBOX + lr * 128 + (((j % 8) ^ g) << 4) + 4 * t;
+        *reinterpret_cast<uint32_t*>(at) = p0;
+        *reinterpret_cast<uint32_t*>(at + 8 * 128) = p1;   // (lr + 8) & 7 == g
+      }
+      fence_async_smem();
+      bar_sync(1 + c, 128);
+      if (lead && wg_row < M) {
+        tma_store(&map_h, n0, wg_row, stg);
+        tma_store(&map_h, n0 + 64, wg_row, stg + OBOX);
+        bulk_commit();
+      }
+    }
+    if (lead) bulk_wait_read();
+  }
+}
+
+// Launch hidden_train_kernel on a persistent grid: as many blocks as the
+// card holds at once (one an SM), none without a unit
+template <bool X_F32>
+int launch_hidden_train(const CUtensorMap& mw1, const CUtensorMap& mx,
+                        const CUtensorMap& mh, const float* b1,
+                        uint32_t* words, int M, int F, ppgs::Dropout dh,
+                        cudaStream_t s) {
+  int dev = 0, blocks = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&blocks, cudaDevAttrMultiProcessorCount,
+                                 dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long units = static_cast<long long>((M + UM - 1) / UM) *
+                          (F / UN);
+  return launch(hidden_train_kernel<X_F32>, HT_THREADS, HPlan<X_F32>::SMEM,
+                dim3(static_cast<unsigned>(units < blocks ? units : blocks)),
+                1, s, mw1, mx, mh, b1, words, M, F, dh);
 }
 
 // C = 256, one launch: the hidden stays on chip. A block owns BM = 128
@@ -555,17 +973,17 @@ ffn_fused_kernel(const __grid_constant__ CUtensorMap map_w1,
   }
 }
 
-template <int ACT, bool ROUND, bool X_F32 = true, bool WORDS = false>
+template <int ACT, bool ROUND, bool X_F32 = true>
 int launch_hidden(const CUtensorMap& mx, const CUtensorMap& mw1,
-                  const float* b1, bf16* h, uint32_t* words, int M, int F,
-                  int C, ppgs::Dropout dh, int m_tiles, cudaStream_t s) {
+                  const float* b1, bf16* h, int M, int F, int C,
+                  ppgs::Dropout dh, int m_tiles, cudaStream_t s) {
   if (F % 256 == 0)
-    return launch(ffn_hidden_kernel<256, ACT, ROUND, X_F32, WORDS>, THREADS,
+    return launch(ffn_hidden_kernel<256, ACT, ROUND, X_F32>, THREADS,
                   Ring<X_F32, 256>::SMEM, dim3(F / 256, m_tiles), 1, s, mx,
-                  mw1, b1, h, words, M, F, C, dh);
-  return launch(ffn_hidden_kernel<128, ACT, ROUND, X_F32, WORDS>, THREADS,
+                  mw1, b1, h, M, F, C, dh);
+  return launch(ffn_hidden_kernel<128, ACT, ROUND, X_F32>, THREADS,
                 Ring<X_F32, 128>::SMEM, dim3(F / 128, m_tiles), 1, s, mx,
-                mw1, b1, h, words, M, F, C, dh);
+                mw1, b1, h, M, F, C, dh);
 }
 
 template <bool LN, bool ROUND, bool WORDS = false>
@@ -664,25 +1082,28 @@ extern "C" int ppgs_ffn_ln(const void* x, const void* w1, const void* b1,
     return static_cast<int>(cudaErrorInvalidValue);
   bf16* hb = static_cast<bf16*>(h);
   uint32_t* words = static_cast<uint32_t*>(keep_out);
+  CUtensorMap mhs;     // h in boxes of 64 rows, for the train forms' stores
+  if (words && (C != TRAIN_C || !encode(&mhs, h, false, M, F, F, 64, 64)))
+    return static_cast<int>(cudaErrorInvalidValue);
   int err;
-  if (!ln)
-    err = words ? launch_hidden<RELU, false, false, true>(
-                      mx, mw1, b1f, hb, words, M, F, C, dh, m_tiles, s)
-                : launch_hidden<RELU, false, false>(mx, mw1, b1f, hb, words,
-                                                    M, F, C, dh, m_tiles, s);
-  else if (words)
-    err = launch_hidden<RELU, false, true, true>(mx, mw1, b1f, hb, words, M,
-                                                 F, C, dh, m_tiles, s);
+  if (words)
+    err = ln ? launch_hidden_train<true>(mw1, mx, mhs, b1f, words, M, F,
+                                         dh, s)
+             : launch_hidden_train<false>(mw1, mx, mhs, b1f, words, M, F, dh,
+                                          s);
+  else if (!ln)
+    err = launch_hidden<RELU, false, false>(mx, mw1, b1f, hb, M, F, C, dh,
+                                            m_tiles, s);
   else if (act == GELU)
-    err = round_input ? launch_hidden<GELU, true>(mx, mw1, b1f, hb, words, M,
-                                                  F, C, dh, m_tiles, s)
-                      : launch_hidden<GELU, false>(mx, mw1, b1f, hb, words,
-                                                   M, F, C, dh, m_tiles, s);
+    err = round_input ? launch_hidden<GELU, true>(mx, mw1, b1f, hb, M, F, C,
+                                                  dh, m_tiles, s)
+                      : launch_hidden<GELU, false>(mx, mw1, b1f, hb, M, F, C,
+                                                   dh, m_tiles, s);
   else
-    err = round_input ? launch_hidden<RELU, true>(mx, mw1, b1f, hb, words, M,
-                                                  F, C, dh, m_tiles, s)
-                      : launch_hidden<RELU, false>(mx, mw1, b1f, hb, words,
-                                                   M, F, C, dh, m_tiles, s);
+    err = round_input ? launch_hidden<RELU, true>(mx, mw1, b1f, hb, M, F, C,
+                                                  dh, m_tiles, s)
+                      : launch_hidden<RELU, false>(mx, mw1, b1f, hb, M, F, C,
+                                                   dh, m_tiles, s);
   if (err) return err;
   const float* xf = static_cast<const float*>(x);
   bf16* yb = static_cast<bf16*>(y_out);

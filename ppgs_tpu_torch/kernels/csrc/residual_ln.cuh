@@ -26,6 +26,8 @@ constexpr int BM = 128, BK = 64;          // block tile rows, depth step
 constexpr int RING_BYTES = 192 * 1024;    // the stages' shared memory
 constexpr int BOX_BYTES = 8192;           // 64 rows of 128 bytes
 constexpr int OUT_BN = 256;               // a LayerNorm tile's columns
+// The products of `consume` (a probe's loads-only walk sets it false)
+constexpr bool RING_LIVE = true;
 
 // A stage: A (BM rows, K-major, 128-byte rows: one bf16 box of 64 depth
 // columns or two fp32 boxes of 32) and B (64 depth rows, MN-major, BN / 64
@@ -135,8 +137,9 @@ __device__ __forceinline__ void consume(float (&acc)[BN / 2],
                      warp, lane, kk);
         fence_regs(acc);
         wgmma_fence();
-        wgmma_rs<BN>(acc, frag[kk & 1],
-                     sw128_desc(b_addr + kk * 2048, BOX_BYTES, 1024));
+        if constexpr (RING_LIVE)
+          wgmma_rs<BN>(acc, frag[kk & 1],
+                       sw128_desc(b_addr + kk * 2048, BOX_BYTES, 1024));
         wgmma_commit();
         wgmma_wait<1>();  // the previous step's product, and its fragment
         fence_regs(frag[(kk + 1) & 1]);
@@ -154,7 +157,7 @@ __device__ __forceinline__ void consume(float (&acc)[BN / 2],
       for (int kk = 0; kk < BK / 16; ++kk)
         // A K-major (32 bytes of each 128-byte row a step), B MN-major (16
         // depth rows of 128 bytes a step)
-        wgmma_ss<BN, 0, 1>(
+        if constexpr (RING_LIVE) wgmma_ss<BN, 0, 1>(
             acc, sw128_desc(a_addr + c * 64 * 128 + kk * 32, 16, 1024),
             sw128_desc(b_addr + kk * 2048, BOX_BYTES, 1024));
       wgmma_commit();

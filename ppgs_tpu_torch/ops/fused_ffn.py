@@ -213,6 +213,49 @@ def bwd_mask_words(M, F, C):
     return -(-M // 128) * 128 * F // 32 if C == 512 else 0
 
 
+# K4's hidden launch in its train forms at C = 512 (kernels/csrc/ffn_ln.cu
+# hidden_train_kernel) is persistent: as many blocks as the card has SMs
+# walk units of 128 rows x 128 hidden columns, each block its contiguous
+# range of them (row block by row block, so that a block's x is staged
+# once a row block and stays resident), W1 streaming through a ring of 16
+# KB slots. These mirror its plan and its walk, which the CPU tests hold.
+HIDDEN_UNIT = 128                  # a unit's rows, and its hidden columns
+HIDDEN_TRAIN_WIDTH = 512
+_SMEM_MAX = 232448
+
+
+def hidden_train_plan(x_f32, C=HIDDEN_TRAIN_WIDTH):
+    """hidden_train_kernel's shared memory (``HPlan``): x resident in bf16
+    (C / 64 slabs of 128 rows x 64 columns), the two consumer warpgroups'
+    two 64 x 64 output boxes, and a ring of 16 KB slots (a W1 item, or a
+    box of x: an fp32 x takes two a depth step) in what is left of a
+    block's 227 KB. Raises ValueError at a width it is not built for."""
+    if C != HIDDEN_TRAIN_WIDTH:
+        raise ValueError(f'the hidden launch\'s train form is built for C = '
+                         f'{HIDDEN_TRAIN_WIDTH}, not {C}')
+    slot, x_bytes, out_bytes = 16384, C // 64 * 128 * 128, 2 * 2 * 8192
+    stages = (_SMEM_MAX - 1280 - x_bytes - out_bytes) // slot
+    return {'stages': stages, 'x_slots': 2 if x_f32 else 1,
+            'smem': x_bytes + out_bytes + stages * (slot + 16) + 16 + 1024}
+
+
+def hidden_walk(M, F, blocks):
+    """The units that each block of hidden_train_kernel's grid walks, in
+    order, as (row block, first hidden column) pairs (``HWalk``): M rows in
+    blocks of 128, F / 128 column tiles; the grid is ``blocks`` (the card's
+    SMs), or the units if fewer. The ranges are contiguous and balanced to
+    one unit; odd blocks walk theirs backwards."""
+    nt = F // HIDDEN_UNIT
+    units = -(-M // HIDDEN_UNIT) * nt
+    grid = min(blocks, units)
+    walks = []
+    for b in range(grid):
+        u0, u1 = b * units // grid, (b + 1) * units // grid
+        order = range(u1 - 1, u0 - 1, -1) if b & 1 else range(u0, u1)
+        walks.append([(u // nt, u % nt * HIDDEN_UNIT) for u in order])
+    return walks
+
+
 def _pack_words(keep):
     """(M, F) bool -> ``keep_words_shape`` int32."""
     M, F = keep.shape

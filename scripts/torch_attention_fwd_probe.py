@@ -2,26 +2,32 @@
 """Time variants of the port's attention_train_fwd kernel on one CUDA card.
 
     python3 scripts/torch_attention_fwd_probe.py [--parent DIR] [--reps N]
-        [--variants this,draw_in_pass1,...]
+        [--d-heads 128,256] [--variants this,draw_in_pass1,...]
 
 Builds ``ppgs_tpu_torch/kernels/csrc/attention_train.cu`` as it is and as
 the variants below (``--variants``, all by default; each a text
-substitution: stages and blocks an SM, pass 1 drawing the keep bits, pass
+substitution: stages and blocks an SM, pass 1 drawing the keep bits (at
+d_head 128; ``draw256_in_pass2``: pass 2 drawing them at d_head 256), pass
 1 with one K tile a stage instead of two, blocks of 4 warpgroups (256
 rows), a loads-only walk that streams every tile, writes the outputs and
-computes nothing), and, with ``--parent``, the
-same file of another checkout (such as an unpacked ``git archive`` of an
-older commit; its C entry point must take the same arguments), each with
-nvcc into ``runs/fwd_probe/`` (gitignored), and prints ptxas's registers,
-spills and warnings. On chip_smoke.py's training shape (256 windows x T =
-512, 2 heads of 128, ragged windows, one wholly masked, the fp32 output)
-it checks every variant that computes the function against this
-checkout's build (bit for bit; the parent to within chip_smoke.py's
-limits), then times each with dropout 0.1 and off (threshold 0), in turns
-(the variants in order, then reversed): CUDA-event medians of ``--reps``
-runs and the profiler's device time per launch, beside
-scaled_dot_product_attention with dropout. Prints the card's name and
-power limit, then one JSON line. Imports nothing of JAX.
+computes nothing; a variant whose plan does not fit a width fails to
+build, so name the ones that fit with ``--variants``: at d_head 256
+``this,loads_only,draw256_in_pass2,draw_in_pass1,pass1_one_tile``), and,
+with ``--parent``,
+the same file of another checkout (such as an unpacked ``git archive`` of
+an older commit; its C entry point must take the same arguments), each
+with nvcc into ``runs/fwd_probe/`` (gitignored), and prints ptxas's
+registers, spills and warnings. At each head width of ``--d-heads``, on
+chip_smoke.py's training shape (256 windows x T = 512, 2 heads, ragged
+windows, one wholly masked, the fp32 output) it checks every variant that
+computes the function against this checkout's build bit for bit, and the
+parent likewise (an older form that differs is held to chip_smoke.py's
+limits instead, and the difference printed), then times each with dropout
+0.1 and off (threshold 0), in turns (the variants in order, then
+reversed): CUDA-event medians of ``--reps`` runs and the profiler's device
+time per launch, beside scaled_dot_product_attention with dropout. Prints
+the card's name and power limit, then one JSON line. Imports nothing of
+JAX.
 """
 
 import argparse
@@ -64,8 +70,8 @@ VARIANTS = {
         ('static constexpr int STAGES = 2;',
          'static constexpr int STAGES = 3;')),
     'loads_only': ((LIVE, 'const bool live = false;'),),
-    'wgs4_loads_only': (('constexpr int WGS = 2;', 'constexpr int WGS = 4;'),
-                        (LIVE, 'const bool live = false;')),
+    'draw256_in_pass2': (('constexpr bool DRAW256_IN_PASS2 = false;',
+                          'constexpr bool DRAW256_IN_PASS2 = true;'),),
 }
 
 
@@ -117,6 +123,8 @@ def main():
     parser.add_argument('--parent', default=None,
                         help='another checkout whose forward is timed too')
     parser.add_argument('--reps', type=int, default=10)
+    parser.add_argument('--d-heads', default='128',
+                        help='comma-separated head widths (128, 256)')
     parser.add_argument('--variants', default=','.join(VARIANTS),
                         help='comma-separated subset of ' + ','.join(VARIANTS))
     args = parser.parse_args()
@@ -127,8 +135,6 @@ def main():
         sys.exit('torch_attention_fwd_probe.py needs a CUDA device')
     sys.path.insert(0, str(REPO))
     import chip_smoke as cs
-    from ppgs_tpu_torch.ops import dropout
-    from ppgs_tpu_torch.ops import flash_attention as fa
 
     card = cs.card_line()
     print(card, flush=True)
@@ -137,7 +143,21 @@ def main():
                       REPO / 'runs' / 'fwd_probe')
 
     dev = torch.device('cuda')
-    B, T, H, D = cs.TRAIN_B, cs.TRAIN_T, 2, 128
+    result = {'card': card, 'event_ms': {}, 'device_ms': {},
+              'parent_equal': {}}
+    for D in (int(d) for d in args.d_heads.split(',')):
+        probe_width(D, functions, result, args.reps, card, dev)
+    print(json.dumps(result), flush=True)
+
+
+def probe_width(D, functions, result, reps, card, dev):
+    """Check and time every build at head width D (see the module's
+    note), into ``result``."""
+    import chip_smoke as cs
+    from ppgs_tpu_torch.ops import dropout
+    from ppgs_tpu_torch.ops import flash_attention as fa
+
+    B, T, H = cs.TRAIN_B, cs.TRAIN_T, 2
     C = H * D
     gen = torch.Generator(device=dev).manual_seed(cs.SEED + 53)
     lengths = T - torch.randint(0, T // 2, (B,), generator=gen, device=dev)
@@ -171,7 +191,7 @@ def main():
             keep.data_ptr() if drop.on else None, B, T, H, D, sl, 0,
             *drop.c_args(), stream)
         if err:
-            raise RuntimeError(f'{name}: launch failed with error {err}')
+            raise RuntimeError(f'{name} d{D}: launch failed with error {err}')
 
     with torch.no_grad():
         want = {}
@@ -187,41 +207,49 @@ def main():
                 run(name, key)
                 torch.cuda.synchronize()
                 got = outs[key]
+                equal = all(torch.equal(a, b) for a, b in zip(got, want[key]))
                 if name == 'parent':
-                    cs.check(f'parent o (fp32) {key}', got[1], want[key][1],
-                             atol=2e-3, rtol=1e-2)
-                    cs.check(f'parent lse {key}', got[2], want[key][2],
-                             atol=1e-4)
-                elif not all(torch.equal(a, b)
-                             for a, b in zip(got, want[key])):
-                    raise SystemExit(f'{name} differs from this checkout\'s '
-                                     f'build with the dropout {key}')
-        print('every variant but the loads-only ones equals this build bit '
-              'for bit '
-              '(the parent within its limits)', flush=True)
+                    result['parent_equal'][f'd{D} {key}'] = equal
+                    same = [torch.equal(a, b) for a, b in zip(got, want[key])]
+                    print(f'd{D} parent, dropout {key}: bit for bit {same} '
+                          f'(o16, o32, lse, keep words)', flush=True)
+                    if not equal:
+                        cs.check(f'parent o (fp32) d{D} {key}', got[1],
+                                 want[key][1], atol=2e-3, rtol=1e-2)
+                        cs.check(f'parent lse d{D} {key}', got[2],
+                                 want[key][2], atol=1e-4)
+                elif not equal:
+                    raise SystemExit(f'd{D} {name} differs from this '
+                                     f'checkout\'s build with the dropout '
+                                     f'{key}')
+        print(f'd{D}: every variant but the loads-only ones equals this '
+              f'build bit for bit', flush=True)
 
         heads = [t.view(B, T, H, D).transpose(1, 2) for t in (q, k, v)]
         sdpa_mask = mask[:, None, None, :]
-        event = {f'{name} {key}': [] for name in functions for key in drops}
-        event['sdpa dropout'] = []
+        event = {f'd{D} {name} {key}': [] for name in functions
+                 for key in drops}
+        event[f'd{D} sdpa dropout'] = []
         order = list(functions)
         for name in order + order[::-1]:
             for key in drops:
-                event[f'{name} {key}'].append(cs.time_ms(
-                    lambda: run(name, key), args.reps, 2))
+                event[f'd{D} {name} {key}'].append(cs.time_ms(
+                    lambda: run(name, key), reps, 2))
         for _ in range(2):
-            event['sdpa dropout'].append(cs.time_ms(
+            event[f'd{D} sdpa dropout'].append(cs.time_ms(
                 lambda: F.scaled_dot_product_attention(
                     *heads, attn_mask=sdpa_mask, dropout_p=cs.DROPOUT),
-                args.reps, 2))
-        device = {f'{name} {key}': cs.kernel_device_ms(
-            f'{name}, dropout {drops[key].rate}', lambda: run(name, key),
+                reps, 2))
+        device = {f'd{D} {name} {key}': cs.kernel_device_ms(
+            f'd{D} {name}, dropout {drops[key].rate}', lambda: run(name, key),
             card) for name in functions for key in drops}
     for label, times in event.items():
         print(f'{label}: event {times} ms, device {device.get(label)} ms '
               f'[{card}]', flush=True)
-    print(json.dumps({'card': card, 'event_ms': event, 'device_ms': device}),
-          flush=True)
+    result['event_ms'].update(event)
+    result['device_ms'].update(device)
+    del qkv, outs
+    torch.cuda.empty_cache()
 
 
 if __name__ == '__main__':

@@ -158,3 +158,76 @@ def test_bwd_mask_scratch_holds_a_bit_for_every_hidden_element(M, F):
         cells = row * F + col
         assert np.unique(cells).size == cells.size
         assert cells.min() == 0 and cells.max() == blocks * 128 * F - 1
+
+
+@pytest.mark.parametrize('M,F,blocks', [
+    (1, 128, 132), (127, 384, 132), (129, 2048, 7), (1000, 2048, 132),
+    (1000, 384, 5), (2597, 2048, 132), (131072, 2048, 132),
+    (131072 - 65, 2048, 131)])
+def test_hidden_walk_takes_every_unit_once(M, F, blocks):
+    """K4's persistent hidden launch (C = 512 train forms): the blocks'
+    walks cover every (row block, column tile) of M rows and F hidden
+    columns once, in ranges balanced to one unit (a last wave that is not
+    full takes the shorter ranges), each row block in one contiguous run
+    of a walk (its x staged once there), M not a multiple of 128 included
+    (the last block's rows past M are TMA's zeros)."""
+    walks = fused_ffn.hidden_walk(M, F, blocks)
+    rows, tiles = -(-M // 128), F // 128
+    units = [u for walk in walks for u in walk]
+    assert len(units) == len(set(units)) == rows * tiles
+    assert set(units) == {(r, 128 * c) for r in range(rows)
+                          for c in range(tiles)}
+    lengths = [len(walk) for walk in walks]
+    assert len(walks) == min(blocks, rows * tiles)
+    assert max(lengths) - min(lengths) <= 1
+    for walk in walks:
+        rows = [r for r, _ in walk]
+        runs = [r for i, r in enumerate(rows) if i == 0 or r != rows[i - 1]]
+        assert len(runs) == len(set(runs))
+
+
+@pytest.mark.parametrize('x_f32', [True, False])
+def test_hidden_train_plan_fits_a_block(x_f32):
+    """hidden_train_kernel's shared memory: x resident (128 KB of bf16 at C
+    = 512), the output boxes, and at least two ring slots, within a block's
+    227 KB; an fp32 x takes two slots a depth step, a bf16 one one."""
+    plan = fused_ffn.hidden_train_plan(x_f32)
+    assert plan['stages'] >= 2
+    assert plan['smem'] <= 232448
+    assert plan['x_slots'] == (2 if x_f32 else 1)
+
+
+@pytest.mark.parametrize('C', [256, 768, 1024])
+def test_hidden_train_plan_refuses_other_widths(C):
+    """The persistent hidden launch is built for C = 512 alone (C = 256 is
+    the fused kernel's; 768 has no train form)."""
+    with pytest.raises(ValueError):
+        fused_ffn.hidden_train_plan(True, C)
+
+
+def _train_operands(M, C, F, x_dtype=torch.float32):
+    """x, w1, b1, w2, b2 of K4's train forms, zeros of the kernel's types
+    (the shapes are what the checks read)."""
+    return (torch.zeros(M, C, dtype=x_dtype),
+            torch.zeros(C, F, dtype=torch.bfloat16), torch.zeros(F),
+            torch.zeros(F, C, dtype=torch.bfloat16), torch.zeros(C))
+
+
+@pytest.mark.parametrize('C,F,ln,x_dtype,match', [
+    (512, 200, True, torch.float32, 'F%128'),
+    (512, 2048, True, torch.bfloat16, 'x: expected'),
+    (512, 2048, False, torch.float32, 'x: expected'),
+    (768, 3072, False, torch.bfloat16, 'ffn_ln kernel takes'),
+    (384, 2048, True, torch.float32, 'ffn_ln kernel takes')])
+def test_train_launch_refuses_what_the_kernels_do_not_take(C, F, ln, x_dtype,
+                                                          match):
+    """K4's train forms refuse, before any launch, a hidden width that is
+    not a multiple of 128, an x of the other form's type (B4's fp32, B6's
+    bf16), and a width without a train instance (768 has no bf16 output,
+    384 no instance at all)."""
+    x, w1, b1, w2, b2 = _train_operands(3, C, F, x_dtype)
+    ln_args = (torch.ones(C), torch.zeros(C)) if ln else None
+    drop = dropout.Drop(1, 3, 0.1)
+    with pytest.raises(ValueError, match=match):
+        fused_ffn._launch_ffn(x, w1, b1, w2, b2, ln_args, False, drop,
+                              drop.at(4), stats=True)
