@@ -220,13 +220,51 @@ any failure exits non-zero before the result line:
    and a checkpoint, a resume for 2, and an epoch in 8 length buckets
    (T = 300, 500, 700, 900 on the per-layer path); each step's path and
    exact launches, every train kernel launched; ``evaluate.datasets`` on
-   the test partition (phase 19's checks).
+   the test partition (phase 19's checks);
+24. the w2v2 slice (wav2vec2's 100 Hz trunk: conv 6 at stride 1, T = 800
+   frames a 8 s row), seeded full-size weights of the Charsiu W2V2FC model
+   (``W2V2FC_CHECKPOINT`` pointed at them), the W2V2 model and the w2v2fc
+   head in temporary npz files: ``conv_gelu`` at (k, s) = (2, 1) at B = 1
+   and 3 and T_in one row past phase 9's odd output rows, then on the
+   100 Hz chain's conv-5 output (64 x 801) and the chain whole; K1-K4 on
+   the trunk's 64 x 800 rows (K2 at d_head 64 and T = 800 with full, W2V2
+   half-length, ragged and wholly masked windows); B7 whole at 64 x 800
+   under the full and the W2V2 half-length key mask; each against its
+   plain version before anything is timed; then each instance's time by
+   CUDA events and device time beside its bound, its plain version and
+   its library route, B7 and the 100 Hz chain whole;
+25. ``from_audio(config='w2v2fc')`` on 64 x 8 s (the w2v2fc frontend, then
+   the C = 512 head), by default and with ``PPGS_TPU_CONV_STACK=1`` (B10,
+   conv 6 at s = 1), the W2V2 model (``config='w2v2ft'``) and W2V2FC
+   (``'w2v2fc-pretrained'``) through ``from_features`` on the audio: each
+   call's exact launches by width (and by stride for B10), shapes and
+   softmax columns, 4 utterances of 2 s against ``device='cpu'`` and the
+   opt-in against the default path at the bf16 gates (atol 2e-2; argmax
+   agreement >= 99.5% on the frames bf16 decides, ``agree_decided``), the
+   w2v2fc head's output conv scaled x4 so that its PPGs are not near
+   uniform; each path's wall,
+   audio-s/s, peak memory and profile (idle share, device time by group);
+   ``from_audio`` under ``w2v2fc-pretrained`` and ``w2v2ft`` raising
+   ValueError as the JAX package does;
+26. the W2V2 model's train step (``config='w2v2ft'``, plain PyTorch with
+   its dropout, spec-augment and LayerDrop, the feature convs frozen) at
+   full width and depth: the batch of 8 s rows that fits 90% of the
+   card's free memory, sized by 4- and 8-row steps (printed beside the
+   config's 150,000-frame budget), 3 steps: losses finite, the frozen convs bit for
+   bit, every other parameter moved, step ms, audio-s/s, peak memory and
+   a profile; one step at every rate 0 in fp32 on 2 rows against
+   ``device='cpu'`` (loss, gradients, the parameters after Adam); two runs
+   from one seed bit for bit (cuDNN deterministic); then
+   ``preprocess.datasets(w2v2fc)`` on a seeded 40-file corpus and 2 steps
+   of ``train(config='w2v2fc')`` from the caches, each step's launches
+   exact.
 
 At the end of every run the sha256 of every file under
 ``ppgs_tpu/assets/`` is the one read before phase 1.
 
-``--slices`` (default ``mel,train,w2v2fb,bottleneck,api,data,head_train``)
-runs a subset: phases 3-5, 6-8, 9-11, 12-14, 15-17, 18-20 and 21-23
+``--slices`` (default
+``mel,train,w2v2fb,bottleneck,api,data,head_train,w2v2``) runs a subset:
+phases 3-5, 6-8, 9-11, 12-14, 15-17, 18-20, 21-23 and 24-26
 respectively. Each phase prints its
 seconds. Before the last line it prints one JSON
 object with a record per kernel;
@@ -235,6 +273,8 @@ of the JAX package.
 """
 
 import argparse
+import collections
+import dataclasses
 import hashlib
 import itertools
 import json
@@ -3172,8 +3212,9 @@ def w2v2fb_kernel_checks(port, trunk, head, head_config, dev, gen):
 def set_counts(counters):
     for fn in counters.values():
         fn.launches = 0
-        if hasattr(fn, 'widths'):
-            fn.widths.clear()
+        for name in ('widths', 'strides'):
+            if hasattr(fn, name):
+                getattr(fn, name).clear()
         if hasattr(fn, 'first'):
             fn.first = 0
 
@@ -4425,6 +4466,17 @@ DATA_DIRS = ('CACHE_DIR', 'PARTITION_DIR', 'CLASS_WEIGHT_FILE', 'EVAL_DIR',
              'RUNS_DIR')
 
 
+def point_data_dirs(port, root):
+    """Point the port's data directories (DATA_DIRS) into ``root`` and send
+    no notification; returns their values, which the caller puts back."""
+    saved = {name: getattr(port.config, name) for name in DATA_DIRS}
+    for name, path in zip(DATA_DIRS, ('cache', 'partitions',
+                                      'phoneme_weights.npz', 'eval', 'runs')):
+        setattr(port.config, name, root / path)
+    os.environ.pop('PPGS_NOTIFICATION_URL', None)   # no message is sent
+    return saved
+
+
 def assets_digest():
     """The sha256 of every file under ppgs_tpu/assets/ (read as bytes)."""
     root = Path(__file__).resolve().parent / 'ppgs_tpu' / 'assets'
@@ -4938,12 +4990,7 @@ def data_phases(port, workdir, card):
     runs the train kernels, its inference K1-K4)."""
     config = port.config.get('mel')
     root = Path(workdir) / 'data'
-    saved = {name: getattr(port.config, name) for name in DATA_DIRS}
-    for name, path in (('CACHE_DIR', 'cache'), ('PARTITION_DIR', 'partitions'),
-                       ('CLASS_WEIGHT_FILE', 'phoneme_weights.npz'),
-                       ('EVAL_DIR', 'eval'), ('RUNS_DIR', 'runs')):
-        setattr(port.config, name, root / path)
-    os.environ.pop('PPGS_NOTIFICATION_URL', None)   # no message is sent
+    saved = point_data_dirs(port, root)
     cache = root / 'cache' / 'commonvoice'
     try:
         phase(f'18 corpus, partitions, weights and caches: {DATA_FILES} '
@@ -5029,13 +5076,13 @@ def ln_dropout_bwd_odd_shape_checks(C, dev):
           f'dropped elements 0; two calls bit for bit', flush=True)
 
 
-def head_corpus_caches(port, config, root, card):
-    """Phase 23's data: the seeded corpus (HEAD_FILES files), its
-    partitions, and preprocess.datasets(w2v2fb) on the card with the
-    seeded trunk; every cache (768, frames), finite. Returns the corpus'
-    {stem: samples}."""
+def head_corpus_caches(port, config, root, card, files=HEAD_FILES):
+    """Phases 23 and 26's data: the seeded corpus of ``files`` files, its
+    partitions, and preprocess.datasets of config's representation
+    (w2v2fb, w2v2fc) on the card with the seeded trunk; every cache (768,
+    frames), finite. Returns the corpus' {stem: samples}."""
     cache = root / 'cache' / 'commonvoice'
-    samples = data_corpus(port, config, cache, HEAD_FILES)
+    samples = data_corpus(port, config, cache, files)
     port.partition.datasets(['commonvoice'])
     start = time.perf_counter()
     port.preprocess.datasets(['commonvoice'], [config.representation],
@@ -5167,13 +5214,8 @@ def head_train_phases(port, workdir, dev, card):
           f'buckets; evaluate.datasets (main path)')
     root = Path(workdir) / 'head_train'
     w2v2fb = port.preprocess.w2v2fb
-    saved = {name: getattr(port.config, name) for name in DATA_DIRS}
+    saved = point_data_dirs(port, root)
     saved_trunk = w2v2fb.W2V2FB_CHECKPOINT
-    for name, path in (('CACHE_DIR', 'cache'), ('PARTITION_DIR', 'partitions'),
-                       ('CLASS_WEIGHT_FILE', 'phoneme_weights.npz'),
-                       ('EVAL_DIR', 'eval'), ('RUNS_DIR', 'runs')):
-        setattr(port.config, name, root / path)
-    os.environ.pop('PPGS_NOTIFICATION_URL', None)   # no message is sent
     try:
         root.mkdir(parents=True)
         trunk_path = root / 'wav2vec2-base.npz'
@@ -5203,13 +5245,722 @@ def head_train_phases(port, workdir, dev, card):
     return records
 
 
+# The w2v2 slice: wav2vec2's 100 Hz trunk (the w2v2fc frontend, the W2V2
+# and W2V2FC models) at the w2v2fb slice's 64 x 8 s, T = 800 frames; its
+# stride-1 conv 6 (B10) at odd shapes, B = 1 and 3, about its 128-row
+# tiles; the W2V2 model's train step (config w2v2ft) at the largest batch
+# of 8 s rows that fits W2V2_FT_MEMORY_SHARE of the card's free memory,
+# sized by steps of W2V2_FT_PROBE_B and twice as many rows (the peak's
+# slope and intercept), W2V2_FT_STEPS steps; the same
+# step at every rate 0 on W2V2_FT_CPU_ROWS rows of W2V2_FT_CPU_SECONDS
+# against the CPU (fp32), and two runs of W2V2_FT_REPLAY_STEPS steps on
+# W2V2_FT_REPLAY_B rows from one seed; then the head trained from w2v2fc
+# caches of a W2V2FC_FILES-file corpus for W2V2FC_STEPS steps
+W2V2_FT_STEPS, W2V2_FT_PROBE_B = 3, 4
+W2V2_FT_MEMORY_SHARE = 0.9
+W2V2_FT_CPU_ROWS, W2V2_FT_CPU_SECONDS = 2, 2
+W2V2_FT_REPLAY_B, W2V2_FT_REPLAY_STEPS = 8, 2
+W2V2FC_FILES, W2V2FC_STEPS = 40, 2
+# The w2v2fc head's output conv scaled so that its seeded PPGs are not
+# near uniform (at the init's scale the largest is ~0.07, and any hidden
+# state gives probabilities within the atol of each other); by 4 the
+# largest is ~0.26 and bf16's rounding moves a probability by ~0.005
+# (against 2e-2). W2V2's and W2V2FC's heads, on the trunk's LayerNorm'd
+# states, are that peaked at the init's scale. Scaling the logits scales
+# their margins and their rounding alike, so the argmax gate counts only
+# the frames bf16 decides (``agree_decided``)
+W2V2_HEAD_SCALE = 4.0
+# The rate-0 step against the CPU (fp32 on both): the loss at rtol 1e-4,
+# each gradient by relative L2 within 1e-3 (sums in other orders over
+# 95 M parameters; a gradient that is 0 in exact arithmetic, the key
+# bias's, against a millionth of the largest), the parameters after Adam
+# within 1e-6, but for at
+# most 1e-4 of them within 2 lr (a gradient whose sign the two sums give
+# differently: Adam's first update is about lr sign(g))
+FT_CPU_GRAD_REL, FT_CPU_PARAM_ATOL, FT_CPU_PARAM_SHARE = 1e-3, 1e-6, 1e-4
+
+
+# The share of frames that bf16 must decide for the argmax gate to count
+DECIDED_SHARE = 0.5
+
+
+def agree_decided(name, got, want, want32, card):
+    """The bf16 gates of the slice's PPGs: max |got - want| <= 2e-2 and
+    argmax agreement >= 99.5% on the frames that bf16 decides: those where
+    ``want`` (bf16) and ``want32`` (the same call in fp32) pick the same
+    phoneme and ``want32``'s top two lie more than twice the largest |want
+    - want32| apart (the reach of bf16's rounding in this call), so that
+    no bf16 computation within that reach flips them. With random weights
+    about half a percent of the frames where bf16 and fp32 merely happen
+    to agree (``agree``'s count) lie nearer than that: in two runs of this
+    slice the card's and the CPU's bf16 roundings flipped 4 and 5 of some
+    795 such frames (max |diff| 4.4e-3), ties that no kernel decides."""
+    got, want, want32 = (t.float().cpu() for t in (got, want, want32))
+    diff = (got - want).abs().max().item()
+    reach = (want - want32).abs().max().item()
+    top2 = want32.topk(2, dim=1).values
+    decided = ((want.argmax(1) == want32.argmax(1))
+               & (top2[:, 0] - top2[:, 1] > 2 * reach))
+    same = got.argmax(1) == want.argmax(1)
+    share = decided.float().mean().item()
+    rate = same[decided].float().mean().item()
+    print(f'{name}: max |diff| {diff:.3g} (atol 2e-2); argmax agreement '
+          f'{same.float().mean().item():.5f}, on the frames bf16 decides '
+          f'({share:.4f} of them: bf16 and fp32 agree, their top two over '
+          f'2 x {reach:.3g} apart) {rate:.5f} (>= 0.995) [{card}]',
+          flush=True)
+    if diff > 2e-2 or rate < 0.995 or share < DECIDED_SHARE:
+        raise AssertionError(f'{name} leaves the bf16 envelope')
+
+
+def random_w2v2_model_params(port, config_name, seed):
+    """Seeded weights of the W2V2 ('w2v2ft') or W2V2FC
+    ('w2v2fc-pretrained') model in the JAX package's layout: its init,
+    with each trunk layer's biases and norms drawn at random too."""
+    gen = torch.Generator().manual_seed(seed)
+    config = port.config.get(config_name)
+    params = port.models.get(config)[0](config, gen)
+    for layer in params['w2v2']['encoder']['layers']:
+        jitter(layer, gen)
+    return params
+
+
+def w2v2_setup(port, workdir, dev):
+    """Seeded full-size weights in temporary npz files: the Charsiu W2V2FC
+    model (``W2V2FC_CHECKPOINT`` pointed at it: the w2v2fc frontend and
+    w2v2fc-pretrained read it), the W2V2 model and the w2v2fc head (its
+    output conv scaled by W2V2_HEAD_SCALE).
+    Returns (the prepared bf16 100 Hz trunk on the card, {name: path})."""
+    paths = {'charsiu': Path(workdir) / 'charsiu-w2v2-fc.npz',
+             'w2v2ft': Path(workdir) / 'w2v2ft.npz',
+             'head': Path(workdir) / 'random-w2v2fc.npz'}
+    port.load.save_params(paths['charsiu'], random_w2v2_model_params(
+        port, 'w2v2fc-pretrained', SEED + 91))
+    port.load.save_params(paths['w2v2ft'], random_w2v2_model_params(
+        port, 'w2v2ft', SEED + 92))
+    head = random_params(port, port.config.get('w2v2fc'), SEED + 93)
+    head['output_conv']['weight'] *= W2V2_HEAD_SCALE
+    port.load.save_params(paths['head'], head)
+    port.preprocess.w2v2fc.W2V2FC_CHECKPOINT = paths['charsiu']
+    wcfg = port.models.w2v2_ppg.w2v2_100hz_config('bfloat16')
+    return port.preprocess.w2v2fc._trunk(wcfg, dev), paths
+
+
+@torch.no_grad()
+def conv_s1_odd_shape_checks(w, dev):
+    """conv_gelu at (k, s) = (2, 1) (conv 6 of the 100 Hz trunk, its
+    weights) at B = 1 and 3 and ``B10_ODD_T`` output rows, T_in = T_out +
+    1 (odd and even), each tap's map reading rows s t + j up to the last
+    input row, against its plain version at phase 9's limits."""
+    from ppgs_tpu_torch.ops import conv_stack
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 94)
+    C, worst = conv_stack.CHANNELS, 0.0
+    for B, T_out in itertools.product((1, 3), B10_ODD_T):
+        x = (0.5 * torch.randn(B, T_out + 1, C, generator=gen, device=dev)
+             ).to(torch.bfloat16)
+        got = conv_stack.conv_gelu(x, w, 2, 1)
+        if got.shape != (B, T_out, C):
+            raise AssertionError(f'conv_gelu (2, 1): shape '
+                                 f'{tuple(got.shape)}, not {(B, T_out, C)}')
+        worst = max(worst, check(
+            f'B10 conv_gelu (2, 1) B={B} T_in={T_out + 1}', got,
+            conv_stack.conv_gelu_reference(x, w, 2, 1), atol=1e-3,
+            rtol=1e-2, quiet=True))
+    print(f'B10 conv_gelu (k = 2, s = 1, conv 6\'s weights) at B = 1, 3 and '
+          f'T_in = T_out + 1 for T_out {B10_ODD_T}: max |kernel - plain| '
+          f'{worst:.3g} (atol 1e-3 rtol 1e-2 in each case)', flush=True)
+
+
+@torch.no_grad()
+def w2v2_kernel_checks(port, trunk, dev, gen):
+    """Phase 24's checks: B10's stride-1 conv and chain, K1-K4 on the
+    trunk's 64 x 800 rows (K2 at T = 800 with full, W2V2 half-length,
+    ragged and wholly masked windows), B7 whole under the full and the
+    W2V2 key mask; returns (max errors, inputs for the times)."""
+    from ppgs_tpu_torch.ops import conv_stack
+    from ppgs_tpu_torch.ops import encoder_layer_kernel as elk
+
+    err, inputs = {}, {}
+    wcfg = trunk.config
+    pad = port.models.w2v2_ppg.PADDING
+    S = W2V2_SECONDS * 16000 + 2 * pad
+    T = int(port.models.w2v2.feat_extract_output_lengths(S, wcfg))
+    half = int(port.models.w2v2.feat_extract_output_lengths(
+        S, port.models.w2v2_ppg._mask_config(wcfg)))
+    C, H = wcfg.hidden_size, wcfg.num_heads
+    print(f'the 100 Hz trunk at {W2V2_BATCH} x {W2V2_SECONDS} s: {S} padded '
+          f'samples -> T = {T} frames; the W2V2 key mask covers {half}',
+          flush=True)
+
+    # B10 at the 100 Hz strides: conv 6 at (2, 1) alone, then on the
+    # chain's conv-5 output, and the chain whole
+    taps = trunk.feature_prepared
+    gn = trunk.feature_encoder[0].group_norm
+    k, s = wcfg.conv_kernel, wcfg.conv_stride
+    conv_s1_odd_shape_checks(taps.w6, dev)
+    audio = (0.1 * torch.randn(W2V2_BATCH, S, generator=gen, device=dev)
+             ).to(torch.bfloat16)
+    sums = conv_stack.conv_stats(audio, taps.w0, k[0], s[0])
+    first = (taps.w0, k[0], s[0], sums, gn.scale, gn.bias)
+    x = conv_stack.conv_gelu(audio, taps.w1, k[1], s[1], first)
+    for i in range(2, 6):
+        x = conv_stack.conv_gelu(x, getattr(taps, f'w{i}'), k[i], s[i])
+    x5 = x
+    err['conv_gelu_s1'] = check(
+        f'B10 conv_gelu (2, 1) on conv 5\'s output {tuple(x5.shape)}',
+        conv_stack.conv_gelu(x5, taps.w6, k[6], s[6]),
+        conv_stack.conv_gelu_reference(x5, taps.w6, k[6], s[6]), atol=1e-3,
+        rtol=1e-2)
+    chain = ([getattr(taps, f'w{i}') for i in range(1, len(k))], taps.w0,
+             gn.scale, gn.bias, k, s)
+    feats = conv_stack.feature_encoder_stack(audio, *chain)
+    if feats.shape != (W2V2_BATCH, T, conv_stack.CHANNELS):
+        raise AssertionError(f'B10 chain at 100 Hz: {tuple(feats.shape)}')
+    check_rel('B10 the whole conv chain at 100 Hz (conv 6 at s = 1)', feats,
+              conv_stack.feature_encoder_stack_reference(audio, *chain),
+              1e-2)
+    inputs['conv'] = dict(audio=audio, x5=x5, chain=chain, k=k, s=s)
+    del feats, x
+
+    # K1-K4 on the trunk's rows: windows full, W2V2 half-length, ragged
+    # and wholly masked
+    lengths = torch.full((W2V2_BATCH,), T, device=dev)
+    lengths[W2V2_BATCH // 2:] = half
+    lengths[-2], lengths[-1] = 537, 0
+    mask = port.ops.masking.mask_from_lengths(lengths, T)
+    xt = torch.randn(W2V2_BATCH, T, C, generator=gen, device=dev)
+    layer_kernel_checks('trunk800', xt, mask, layer_weights(
+        trunk.encoder.layers[0]), H, 'gelu', err, inputs)
+
+    # B7 whole (the TPU's encoder_stack_streamed) under the full key mask
+    # and the W2V2 model's half-length one: every query row counts
+    layers = trunk.encoder.layers
+    x16 = xt.to(torch.bfloat16)
+    for name, m in (('full', torch.ones_like(mask)),
+                    (f'W2V2 half-length ({half} keys)',
+                     port.ops.masking.mask_from_lengths(
+                         torch.full_like(lengths, half), T))):
+        got = elk.encoder_stack(x16, m, layers, H, activation='gelu')
+        check_rel(f'B7 the {len(layers)}-layer GELU stack {W2V2_BATCH} x {T}, '
+                  f'{name} key mask', got, elk.encoder_stack_reference(
+                      x16, m, layers, H, activation='gelu'), 1e-2)
+        inputs.setdefault('stack', dict(x16=x16, masks={}))['masks'][name] = m
+    return err, inputs
+
+
+@torch.no_grad()
+def w2v2_kernel_times(port, trunk, inputs, err, card):
+    """Phase 24's times: K1-K4 at the trunk's 64 x 800 rows and conv_gelu
+    at (2, 1), each by CUDA events and device time beside its bound, its
+    plain version and its library route; B7 and the 100 Hz chain whole.
+    Returns the records (their launches filled in by phase 25)."""
+    from ppgs_tpu_torch.ops import conv_stack
+    from ppgs_tpu_torch.ops import encoder_layer_kernel as elk
+
+    none = collections.defaultdict(lambda: {'trunk800': None})
+    records = layer_records('trunk800', inputs['trunk800'], err, none,
+                            'ppgs_tpu/ops/encoder_layer_kernel.py:496', card)
+    for record in records:
+        if not record['name'].endswith('trunk800'):
+            record['name'] += '_t800'
+
+    c = inputs['conv']
+    x5, taps = c['x5'], trunk.feature_prepared
+    B, T5, Cc = x5.shape
+    T6 = T5 - 1
+    x5_nct = x5.transpose(1, 2).contiguous()
+    w6_oik = taps.w6.view(2, Cc, Cc).permute(2, 1, 0).contiguous()
+
+    def kernel():
+        return conv_stack.conv_gelu(x5, taps.w6, 2, 1)
+
+    records.append(timed_record(
+        'conv_gelu_s1', 'conv_stack.cu', 'ppgs_tpu/ops/conv_stack.py:229',
+        None, err['conv_gelu_s1'], (
+            kernel, lambda: conv_stack.conv_gelu_reference(x5, taps.w6, 2, 1),
+            lambda: F.gelu(F.conv1d(x5_nct, w6_oik, stride=1),
+                           approximate='tanh')),
+        (2 * B * T6 * 2 * Cc * Cc,
+         B * T5 * Cc * 2 + 2 * Cc * Cc * 2 + B * T6 * Cc * 2), card,
+        plain_reps=HEAVY_REPS))
+    device_times(f'B10 conv_gelu (2, 1), {B} x {T5} -> {T6}', records[-1],
+                 kernel, 'cuDNN conv + GELU', card)
+    records[-1]['library_device_ms'] = kernel_device_ms(
+        'B10 conv_gelu (2, 1) library route (cuDNN conv + GELU)',
+        lambda: F.gelu(F.conv1d(x5_nct, w6_oik, stride=1),
+                       approximate='tanh'), card)
+    del x5_nct, w6_oik
+
+    chain, a16 = c['chain'], c['audio']
+    chain_ms = time_ms(lambda: conv_stack.feature_encoder_stack(a16, *chain))
+    chain_library_ms = time_ms(lambda: port.models.w2v2.feature_encoder(
+        trunk, a16, trunk.config))
+    print(f'B10 the 100 Hz conv chain ({B} x {a16.shape[1]} samples): kernels '
+          f'{chain_ms:.4f} ms, library {chain_library_ms:.4f} ms (the cuDNN '
+          f'bf16 convs, GroupNorm and GELU of models.w2v2.feature_encoder) '
+          f'[{card}]', flush=True)
+
+    st, layers = inputs['stack'], trunk.encoder.layers
+    wcfg = trunk.config
+    stack_bound = len(layers) * sum(r['bound_ms'] for r in records[:4])
+    encoder = library_encoder(layers, wcfg.hidden_size, wcfg.num_heads,
+                              wcfg.intermediate_size, st['x16'].device,
+                              activation='gelu')
+    for name, m in st['masks'].items():
+        ms = time_ms(lambda: elk.encoder_stack(st['x16'], m, layers,
+                                               wcfg.num_heads,
+                                               activation='gelu'))
+        plain_ms = time_ms(lambda: elk.encoder_stack_reference(
+            st['x16'], m, layers, wcfg.num_heads, activation='gelu'),
+            HEAVY_REPS, 1)
+        library_ms = time_ms(lambda: encoder(st['x16'],
+                                             src_key_padding_mask=~m))
+        print(f'B7 the {len(layers)}-layer GELU stack ({B} x '
+              f'{st["x16"].shape[1]}, {name} key mask): kernels {ms:.4f} ms, '
+              f'bound {stack_bound:.4f} ms, plain {plain_ms:.4f} ms, library '
+              f'{library_ms:.4f} ms (nn.TransformerEncoderLayer(768, 12, '
+              f'3072, gelu) x {len(layers)}) [{card}]', flush=True)
+    kernel_device_ms(f'B7 the GELU stack {B} x {st["x16"].shape[1]}, by '
+                     f'kernel', lambda: elk.encoder_stack(
+                         st['x16'], st['masks']['full'], layers,
+                         wcfg.num_heads, activation='gelu'), card)
+    del encoder
+    return records
+
+
+def w2v2_counters():
+    from ppgs_tpu_torch.ops import conv_stack
+
+    return {**inference_counters(), 'conv_stats': conv_stack.conv_stats,
+            'conv0_gelu': conv_stack.conv0_gelu,
+            'conv_gelu': conv_stack.conv_gelu}
+
+
+def counted_call(counters, fn):
+    """(fn()'s result, the launches of the call, by width, and conv_gelu's
+    launches by stride), the counts set to 0 just before."""
+    set_counts(counters)
+    out = fn()
+    launches, widths = read_counts(counters)
+    return out, launches, widths, dict(counters['conv_gelu'].strides)
+
+
+def path_metrics(label, fn, audio_s, card):
+    """A path's wall (median of 5), audio-s/s, its peak memory above what
+    the run holds, and a profile of one call (idle share, device time by
+    kernel and by group)."""
+    wall = median_seconds(fn)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    print(f'{label}: {wall * 1e3:.3f} ms (median of 5), '
+          f'{audio_s / wall:.1f} audio-s/s, peak {peak:.3f} GiB above the '
+          f'{held / 2 ** 30:.3f} GiB held [{card}]', flush=True)
+    report_groups(label, profile_call(label, fn, card), card)
+
+
+def w2v2_inference(port, trunk, paths, dev, gen, card):
+    """Phase 25: paths 1 (from_audio(config='w2v2fc'), by default and
+    opted in to B10) and 2 (W2V2 and W2V2FC through from_features) at
+    64 x 8 s, each with its exact launches and against the CPU; the two
+    from_audio configs that the JAX package refuses. Returns the launches
+    of the default call by width, and conv_gelu's by stride in the
+    opted-in call."""
+    Lt = trunk.config.num_layers
+    counters = w2v2_counters()
+    samples = W2V2_SECONDS * 16000
+    audio = 0.1 * torch.randn(W2V2_BATCH, 1, samples, generator=gen,
+                              device=dev)
+    lengths = np.full(W2V2_BATCH, samples)
+    frames = samples // 160
+    shape = (W2V2_BATCH, 40, frames)
+    head_config = port.config.get('w2v2fc')
+    Ch, Lh = head_config.hidden_channels, head_config.num_hidden_layers
+    d_h = Ch // head_config.attention_heads
+    fp32 = head_config.replace(compute_dtype='float32')
+    call = dict(config=head_config, checkpoint=paths['head'])
+
+    def from_audio(a=audio, **kw):
+        return port.from_audio(a, 16000, **{**call, **kw})
+
+    ppg, launches, widths, _ = counted_call(counters, from_audio)
+    print(f'launches in one w2v2fc from_audio call: {launches}, by width: '
+          f'{widths}', flush=True)
+    want = {'qkv_proj': Lt + Lh, 'attention': Lt + Lh,
+            'out_proj_residual_ln': Lt + Lh, 'ffn_residual_ln': Lt + Lh,
+            'conv_stats': 0, 'conv0_gelu': 0, 'conv_gelu': 0,
+            'conv_gelu_first': 0}
+    want_widths = {'qkv_proj': {768: Lt, Ch: Lh}, 'attention': {64: Lt,
+                                                                d_h: Lh},
+                   'out_proj_residual_ln': {768: Lt, Ch: Lh},
+                   'ffn_residual_ln': {768: Lt, Ch: Lh}}
+    if launches != want or widths != want_widths:
+        raise AssertionError(f'w2v2fc launches {launches} {widths}, not '
+                             f'{want} {want_widths}')
+    check_ppg('w2v2fc from_audio', ppg, audio, shape)
+    rows = audio[:W2V2_CPU_ROWS, :, :W2V2_CPU_SECONDS * 16000]
+    agree_decided(f'w2v2fc from_audio, {W2V2_CPU_ROWS} x {W2V2_CPU_SECONDS} '
+                  f's, against device=cpu', from_audio(rows),
+                  from_audio(rows.cpu(), device='cpu'),
+                  from_audio(rows.cpu(), device='cpu', config=fp32), card)
+
+    os.environ['PPGS_TPU_CONV_STACK'] = '1'
+    try:
+        stacked, stack_launches, stack_widths, strides = counted_call(
+            counters, from_audio)
+    finally:
+        del os.environ['PPGS_TPU_CONV_STACK']
+    print(f'launches with PPGS_TPU_CONV_STACK=1: {stack_launches}, conv_gelu '
+          f'by stride {strides}', flush=True)
+    if (stack_launches != {**want, 'conv_stats': 1, 'conv0_gelu': 1,
+                           'conv_gelu': 6, 'conv_gelu_first': 1}
+            or stack_widths != widths or strides != {2: 5, 1: 1}):
+        raise AssertionError('the conv-stack opt-in did not launch B10 once '
+                             'per conv (conv 6 at s = 1), and K1-K4 as the '
+                             'default path')
+    agree_decided('w2v2fc PPGS_TPU_CONV_STACK=1 against the default path',
+                  stacked, ppg, from_audio(config=fp32), card)
+    del stacked
+
+    audio_s = W2V2_BATCH * W2V2_SECONDS
+    path_metrics(f'w2v2fc from_audio {W2V2_BATCH} x {W2V2_SECONDS} s',
+                 from_audio, audio_s, card)
+    os.environ['PPGS_TPU_CONV_STACK'] = '1'
+    try:
+        path_metrics(f'w2v2fc from_audio {W2V2_BATCH} x {W2V2_SECONDS} s '
+                     f'(PPGS_TPU_CONV_STACK=1)', from_audio, audio_s, card)
+    finally:
+        del os.environ['PPGS_TPU_CONV_STACK']
+
+    # Path 2: the raw-audio models on the audio itself
+    trunk_only = {n: (Lt if n in inference_counters() else 0) for n in want}
+    trunk_widths = {n: {768: Lt} if n != 'attention' else {64: Lt}
+                    for n in want_widths}
+    for model, name, kw in (('W2V2', 'w2v2ft',
+                             dict(checkpoint=paths['w2v2ft'])),
+                            ('W2V2FC', 'w2v2fc-pretrained', {})):
+        config = port.config.get(name)
+
+        def from_features(a=audio, n=lengths, **over):
+            return port.from_features(a, n, **{'config': config, **kw,
+                                               **over})
+
+        ppg, got, got_widths, _ = counted_call(counters, from_features)
+        print(f'launches in one {model} from_features call: {got}, by '
+              f'width: {got_widths}', flush=True)
+        if got != trunk_only or got_widths != trunk_widths:
+            raise AssertionError(f'{model} launches {got} {got_widths}, not '
+                                 f'{trunk_only} {trunk_widths}')
+        check_ppg(f'{model} from_features', ppg, audio, shape)
+        n = np.full(W2V2_CPU_ROWS, rows.shape[-1])
+        agree_decided(
+            f'{model} from_features, {W2V2_CPU_ROWS} x {W2V2_CPU_SECONDS} s, '
+            f'against device=cpu', from_features(rows, n),
+            from_features(rows.cpu(), n, device='cpu'),
+            from_features(rows.cpu(), n, device='cpu',
+                          config=config.replace(compute_dtype='float32')),
+            card)
+        path_metrics(f'{model} from_features {W2V2_BATCH} x {W2V2_SECONDS} s',
+                     from_features, audio_s, card)
+
+    # The two configs whose from_audio the JAX package refuses
+    for name, match in (('w2v2fc-pretrained', 'squeeze'),
+                        ('w2v2ft', 'Unknown representation wav')):
+        try:
+            port.from_audio(audio[:1], 16000, config=name)
+        except ValueError as error:
+            if match not in str(error):
+                raise
+            print(f'from_audio(config={name!r}) raises ValueError as the JAX '
+                  f'package does: {error}', flush=True)
+        else:
+            raise AssertionError(f'from_audio(config={name!r}) ran; the JAX '
+                                 f'package raises')
+    return widths, strides
+
+
+def ft_batch(B, seconds, seed, dev):
+    """A w2v2ft batch made on the card: (B, 1, S) audio, ragged sample
+    counts (the first row whole, the rest zero past theirs), targets at
+    100 Hz with -100 past each row's frames."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    S = seconds * 16000
+    lengths = S - 160 * torch.randint(0, S // 640, (B,), generator=gen,
+                                      device=dev)
+    lengths[0] = S
+    audio = 0.1 * torch.randn(B, 1, S, generator=gen, device=dev)
+    audio *= (torch.arange(S, device=dev) < lengths[:, None])[:, None]
+    frames = S // 160
+    targets = torch.randint(0, 40, (B, frames), generator=gen, device=dev)
+    targets = targets.masked_fill(
+        torch.arange(frames, device=dev) >= (lengths // 160)[:, None], -100)
+    return audio, targets, lengths
+
+
+def ft_model(port, config, dev):
+    """The W2V2 model at config's rates with seeded random weights (the
+    trunk's init, not pretrained, as the JAX package's train starts)."""
+    return port.train.core.init_model(
+        config, dev, torch.Generator().manual_seed(SEED + 95))
+
+
+def ft_steps(port, model, config, batch, seeds):
+    """Take a step of ``batch`` for each seed; returns (losses, seconds
+    each, CUDA-synchronised)."""
+    core = port.train.core
+    step = core.make_train_step(model, config, core.make_optimizer(
+        model.parameters(), config))
+    losses, seconds = [], []
+    for seed in seeds:
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        loss, _ = step(*batch, seed=seed)
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - start)
+    return losses, seconds
+
+
+def ft_cpu_check(port, config, dev, card):
+    """One step at every rate 0 (dropout, LayerDrop, spec-augment), fp32,
+    on W2V2_FT_CPU_ROWS rows against the same step with device='cpu': the
+    loss, every gradient and the parameters after Adam."""
+    config = config.replace(compute_dtype='float32')
+    batch = ft_batch(W2V2_FT_CPU_ROWS, W2V2_FT_CPU_SECONDS, SEED + 96, dev)
+    results = []
+    for device in (dev, torch.device('cpu')):
+        model = ft_model(port, config, device)
+        model.w2v2.config = dataclasses.replace(
+            model.w2v2.config, hidden_dropout=0.0, activation_dropout=0.0,
+            attention_dropout=0.0, feat_proj_dropout=0.0, layerdrop=0.0,
+            apply_spec_augment=False)
+        grads = {}
+        core = port.train.core
+        optimizer = core.make_optimizer(model.parameters(), config)
+        step = core.make_train_step(model, config, optimizer)
+        original = optimizer.step
+
+        def keep_grads(*a, **k):
+            grads.update({n: p.grad.detach().cpu().clone()
+                          for n, p in model.named_parameters()})
+            return original(*a, **k)
+
+        optimizer.step = keep_grads
+        loss, _ = step(*(t.to(device) for t in batch), seed=5)
+        results.append((float(loss), grads, {
+            n: p.detach().cpu() for n, p in model.named_parameters()}))
+        del model, optimizer
+    (loss, grads, params), (loss_cpu, grads_cpu, params_cpu) = results
+    if not abs(loss - loss_cpu) <= 1e-4 * abs(loss_cpu):
+        raise AssertionError(f'w2v2ft rate-0 step: loss {loss} on the card, '
+                             f'{loss_cpu} on the cpu')
+    norms = {n: grads_cpu[n].norm().item() for n in grads}
+    floor = 1e-6 * max(norms.values())
+    worst = max((grads[n] - grads_cpu[n]).norm().item() / max(norms[n], floor)
+                for n in grads if norms[n])
+    zero = [n for n in grads if not norms[n]]
+    if worst > FT_CPU_GRAD_REL or any(grads[n].any() for n in zero):
+        raise AssertionError(f'w2v2ft rate-0 step: a gradient {worst:.3g} '
+                             f'apart (relative L2), or one of {zero} not 0')
+    lr = config.learning_rate
+    card_p = torch.cat([params[n].flatten() for n in params])
+    cpu_p = torch.cat([params_cpu[n].flatten() for n in params])
+    diff = check('w2v2ft rate-0 step: the parameters after Adam', card_p,
+                 cpu_p, FT_CPU_PARAM_ATOL, share=FT_CPU_PARAM_SHARE,
+                 outlier=2 * lr + 1e-6, quiet=True)
+    print(f'w2v2ft step at every rate 0, fp32, {W2V2_FT_CPU_ROWS} x '
+          f'{W2V2_FT_CPU_SECONDS} s, card against device=cpu: loss {loss:.6f} '
+          f'/ {loss_cpu:.6f}, gradients within relative L2 {worst:.3g} (<= '
+          f'{FT_CPU_GRAD_REL}; {len(zero)} tensors 0 on both: {zero[:3]}...), '
+          f'parameters after Adam max |diff| {diff:.3g} (atol '
+          f'{FT_CPU_PARAM_ATOL}, at most {FT_CPU_PARAM_SHARE} of them within '
+          f'2 lr) [{card}]', flush=True)
+
+
+def w2v2_training(port, dev, card):
+    """Phase 26: the W2V2 model's train step under config w2v2ft at full
+    width and depth: the batch that fits, its steps (finite losses, the
+    frozen convs bit for bit, every other parameter moved), time, audio-s/s
+    and peak memory; the rate-0 step against the CPU; a replay."""
+    config = port.config.get('w2v2ft')
+    L = port.models.w2v2.BASE.num_layers
+    model = ft_model(port, config, dev)
+    ft_steps(port, model, config, ft_batch(W2V2_FT_PROBE_B, W2V2_SECONDS,
+                                           SEED + 97, dev), (1,))
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()     # the model and Adam's state
+    peaks = []
+    for rows in (W2V2_FT_PROBE_B, 2 * W2V2_FT_PROBE_B):
+        probe = ft_batch(rows, W2V2_SECONDS, SEED + 97, dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ft_steps(port, model, config, probe, (2,))
+        peaks.append(torch.cuda.max_memory_allocated() - held)
+        del probe
+    per_row = (peaks[1] - peaks[0]) / W2V2_FT_PROBE_B
+    fixed = peaks[0] - W2V2_FT_PROBE_B * per_row
+    del model
+    torch.cuda.empty_cache()
+    frames = W2V2_SECONDS * 100
+    budget_rows = config.max_training_frames // frames
+    free, total = torch.cuda.mem_get_info()
+    fit = int((W2V2_FT_MEMORY_SHARE * free - held - fixed) / per_row)
+    B = max(W2V2_FT_PROBE_B, min(fit, budget_rows) // 4 * 4)
+    print(f'w2v2ft step: {per_row / 2 ** 30:.3f} GiB a row of {W2V2_SECONDS} '
+          f's at the peak and {fixed / 2 ** 30:.3f} GiB besides (steps of '
+          f'{W2V2_FT_PROBE_B} and {2 * W2V2_FT_PROBE_B} rows), the model and '
+          f'Adam\'s state {held / 2 ** 30:.3f} GiB; {free / 2 ** 30:.1f} GiB '
+          f'free of {total / 2 ** 30:.1f}: {fit} rows fit '
+          f'{W2V2_FT_MEMORY_SHARE} of it; the config\'s budget '
+          f'({config.max_training_frames:,} frames) is {budget_rows} rows: '
+          f'the step runs {B} x {W2V2_SECONDS} s ({B * frames:,} frames, '
+          f'a cut of the budget) [{card}]', flush=True)
+
+    model = ft_model(port, config, dev)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    batch = ft_batch(B, W2V2_SECONDS, SEED + 98, dev)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    seeds = list(range(11, 11 + W2V2_FT_STEPS))
+    losses, seconds = ft_steps(port, model, config, batch, seeds)
+    peak = torch.cuda.max_memory_allocated()
+    print(f'w2v2ft steps {B} x {W2V2_SECONDS} s: losses {losses}; step ms '
+          f'{[round(t * 1e3, 3) for t in seconds]} (the first with Adam\'s '
+          f'state made), {B * W2V2_SECONDS / statistics.median(seconds):.1f} '
+          f'audio-s/s at the median; peak {peak / 2 ** 30:.3f} GiB '
+          f'(max_memory_allocated; {held / 2 ** 30:.3f} held before) '
+          f'[{card}]', flush=True)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f'w2v2ft: a loss is not finite: {losses}')
+    frozen = [n for n in before if n.startswith('w2v2.feature_encoder.')]
+    changed = [n for n in frozen if not torch.equal(
+        before[n], dict(model.named_parameters())[n])]
+    if changed or not frozen:
+        raise AssertionError(f'w2v2ft: frozen convs changed: {changed}')
+    dropped = [i for i in range(L) if not any(
+        port.models.w2v2.layer_kept(seed, i, model.w2v2.config.layerdrop)
+        for seed in seeds)]
+    still = [n for n, p in model.named_parameters()
+             if n not in frozen and torch.equal(before[n], p)
+             and not any(n.startswith(f'w2v2.encoder.layers.{i}.')
+                         for i in dropped)]
+    print(f'w2v2ft: the {len(frozen)} frozen conv tensors bit for bit as they '
+          f'were; every other parameter moved ({len(before) - len(frozen)} '
+          f'tensors; layers LayerDrop skipped in every step: {dropped})',
+          flush=True)
+    if still:
+        raise AssertionError(f'w2v2ft: parameters that did not move: {still}')
+    profile_call(f'w2v2ft step {B} x {W2V2_SECONDS} s',
+                 lambda: ft_steps(port, model, config, batch, (99,)), card)
+    del model, before, batch
+    torch.cuda.empty_cache()
+
+    ft_cpu_check(port, config, dev, card)
+
+    # Replay: two runs from one seed, cuDNN's deterministic algorithms (its
+    # conv weight gradients may otherwise sum in another order)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = []
+        batch = ft_batch(W2V2_FT_REPLAY_B, W2V2_SECONDS, SEED + 99, dev)
+        for _ in range(2):
+            model = ft_model(port, config, dev)
+            losses, _ = ft_steps(port, model, config, batch,
+                                 range(21, 21 + W2V2_FT_REPLAY_STEPS))
+            runs.append((losses, [p.detach().clone()
+                                  for p in model.parameters()]))
+            del model
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    (l1, p1), (l2, p2) = runs
+    if l1 != l2 or not all(torch.equal(a, b) for a, b in zip(p1, p2)):
+        raise AssertionError('w2v2ft: two runs from one seed differ')
+    print(f'w2v2ft: two runs of {W2V2_FT_REPLAY_STEPS} steps on '
+          f'{W2V2_FT_REPLAY_B} rows from one seed (every draw on; cuDNN '
+          f'deterministic) equal bit for bit: losses {l1}', flush=True)
+    del runs, batch
+    torch.cuda.empty_cache()
+
+
+def w2v2fc_head_training(port, workdir, card):
+    """Path 4: preprocess.datasets(w2v2fc) on a seeded corpus through the
+    seeded Charsiu trunk, then train(config='w2v2fc') from those caches,
+    each step's path and launches exact."""
+    config = port.config.get('w2v2fc')
+    root = Path(workdir) / 'w2v2fc_train'
+    saved = point_data_dirs(port, root)
+    counters = train_counters()
+    core, steps = port.train.core, []
+    try:
+        root.mkdir(parents=True)
+        head_corpus_caches(port, config, root, card, W2V2FC_FILES)
+        set_counts(counters)
+        counters['gemm'].forms.clear()
+        original = recording_steps(core, steps, counters)
+        try:
+            start = time.perf_counter()
+            port.train.train('commonvoice', root / 'runs' / 'w2v2fc',
+                             config=config, max_steps=W2V2FC_STEPS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - start
+        finally:
+            core.make_train_step = original
+        launches, _ = read_counts(counters)
+    finally:
+        for name, value in saved.items():
+            setattr(port.config, name, value)
+    print(f'train(\'commonvoice\', config=\'w2v2fc\') from the w2v2fc caches: '
+          f'{len(steps)} steps with the step-0 evaluation, {wall:.3f} s '
+          f'[{card}]', flush=True)
+    if len(steps) != W2V2FC_STEPS:
+        raise AssertionError(f'the run took {len(steps)} steps')
+    check_data_steps(port, config, 'w2v2fc', steps)
+    print(f'the train kernels\' launches in the run: {launches}', flush=True)
+    if min(launches.values()) == 0:
+        raise AssertionError(f'a train kernel never launched: {launches}')
+
+
+def w2v2_phases(port, workdir, dev, card):
+    """Phases 24-26: the w2v2 slice; returns its kernels' JSON records."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 90)
+    phase(f'24 the 100 Hz trunk\'s kernel instances against their plain '
+          f'versions ({W2V2_BATCH} x T = 800; conv 6 at s = 1) and their times '
+          f'on {card}')
+    trunk, paths = w2v2_setup(port, workdir, dev)
+    err, inputs = w2v2_kernel_checks(port, trunk, dev, gen)
+    records = w2v2_kernel_times(port, trunk, inputs, err, card)
+    del inputs
+    torch.cuda.empty_cache()
+    phase(f'25 from_audio(config=w2v2fc), W2V2 and W2V2FC through '
+          f'from_features: {W2V2_BATCH} x {W2V2_SECONDS} s (main paths)')
+    widths, strides = w2v2_inference(port, trunk, paths, dev, gen, card)
+    for record, (name, width) in zip(records, (
+            ('qkv_proj', 768), ('attention', 64),
+            ('out_proj_residual_ln', 768), ('ffn_residual_ln', 768))):
+        record['launches'] = widths[name][width]
+    records[4]['launches'] = strides[1]
+    print(f'the new instances\' launches in phase 25\'s calls: '
+          f'{[(r["name"], r["launches"]) for r in records]}', flush=True)
+    phase(f'26 the W2V2 train step (config w2v2ft) and train(config=w2v2fc) '
+          f'from w2v2fc caches')
+    w2v2_training(port, dev, card)
+    w2v2fc_head_training(port, workdir, card)
+    return records
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('--slices',
                         default='mel,train,w2v2fb,bottleneck,api,data,'
-                        'head_train',
+                        'head_train,w2v2',
                         help='comma-separated subset of mel,train,w2v2fb,'
-                        'bottleneck,api,data,head_train')
+                        'bottleneck,api,data,head_train,w2v2')
     slices = set(parser.parse_args().slices.split(','))
     if not torch.cuda.is_available():
         sys.exit('chip_smoke.py needs a CUDA device; none is available')
@@ -5260,6 +6011,8 @@ def main():
         data_phases(port, workdir.name, card)
     if 'head_train' in slices:
         records += head_train_phases(port, workdir.name, dev, card)
+    if 'w2v2' in slices:
+        records += w2v2_phases(port, workdir.name, dev, card)
     phase()
     if assets_digest() != digest:
         raise AssertionError('a file under ppgs_tpu/assets/ changed')

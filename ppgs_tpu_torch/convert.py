@@ -13,7 +13,8 @@ relayouts are here:
 
 The same holds for the wav2vec2 trunk (``w2v2_params_from_jax``,
 ``prepare_w2v2``), whose encoder layers have the transformer's layout and
-whose grouped positional conv (k, C/G, C) becomes torch's (C, C/G, k), and
+whose grouped positional conv (k, C/G, C) becomes torch's (C, C/G, k), for
+the W2V2 and W2V2FC models around it (``w2v2_ppg_params_from_jax``), and
 for the conformer (``conformer_params_from_jax``, ``prepare_conformer``),
 whose module keeps the JAX layout; ``conformer_params_from_state_dict``
 converts the reference's ESPnet checkpoint to that layout without JAX.
@@ -21,7 +22,11 @@ The reference's own ``.pt`` checkpoints of the transformer and the
 convolution model map to the JAX layout here too
 (``transformer_params_from_state_dict``,
 ``convolution_params_from_state_dict``), and the convolution model's npz
-onto its module (``convolution_params_from_jax``).
+onto its module (``convolution_params_from_jax``). ``model_params_from_jax``
+and ``model_params_to_jax`` pick a model's mapping, both ways, for the
+checkpoints and Adam state of training. transformers' Wav2Vec2Model state
+dicts map to the JAX layout here too (``w2v2_params_from_state_dict``, a
+numpy copy of ``ppgs_tpu/convert/w2v2_weights.py``).
 """
 
 import math
@@ -159,6 +164,110 @@ def prepare_w2v2(model):
         taps[f'w{i}'] = weight.reshape(-1, weight.shape[-1]).to(
             cd).contiguous()
     model.feature_prepared = Prepared(taps)
+
+
+def w2v2_params_to_jax(state):
+    """The inverse of ``w2v2_params_from_jax``: a ``Wav2Vec2`` state dict
+    (or any dict of tensors with its keys) -> the JAX package's flat
+    {key: numpy array}."""
+    flat = {}
+    for key, value in state.items():
+        array = value.detach().cpu().numpy()
+        if key.endswith(('attn.wqkv', 'attn.bqkv')):
+            _split_qkv(flat, key, array)
+            continue
+        if key.endswith('conv.weight'):
+            array = array.transpose(2, 1, 0)
+        flat[key] = np.ascontiguousarray(array)
+    return flat
+
+
+def _split_qkv(flat, key, array):
+    """A fused 'attn.wqkv' / 'attn.bqkv' array -> its q, k and v leaves."""
+    prefix, kind = key[:-4], key[-4]            # '...attn.', 'w' or 'b'
+    for name, part in zip('qkv', np.split(array, 3, axis=-1)):
+        flat[f'{prefix}{kind}{name}'] = np.ascontiguousarray(part)
+
+
+def w2v2_ppg_params_from_jax(flat, conv_head):
+    """Map a flat JAX W2V2 (``conv_head``) or W2V2FC parameter dict
+    (``ppgs_tpu/models/w2v2_ppg.py``'s ``init`` / ``fc_init`` pytree:
+    'w2v2.*' the trunk, 'head.*' the head) onto the state dict of
+    ``models.w2v2_ppg.W2V2`` / ``W2V2FC``: the trunk as
+    ``w2v2_params_from_jax`` maps it, the conv head's (K, I, O) to torch's
+    (O, I, K), the linear head as it is."""
+    trunk = {key[len('w2v2.'):]: value for key, value in flat.items()
+             if key.startswith('w2v2.')}
+    state = {f'w2v2.{key}': value
+             for key, value in w2v2_params_from_jax(trunk).items()}
+    for key, value in flat.items():
+        if key.startswith('head.'):
+            value = np.asarray(value)
+            if conv_head and key == 'head.weight':
+                value = value.transpose(2, 1, 0)
+            state[key] = _tensor(value)
+        elif not key.startswith('w2v2.'):
+            raise ValueError(f'Unmapped JAX parameter: {key}')
+    return state
+
+
+def w2v2_ppg_params_to_jax(state, conv_head):
+    """The inverse of ``w2v2_ppg_params_from_jax``."""
+    trunk = {key[len('w2v2.'):]: value for key, value in state.items()
+             if key.startswith('w2v2.')}
+    flat = {f'w2v2.{key}': value
+            for key, value in w2v2_params_to_jax(trunk).items()}
+    for key, value in state.items():
+        if not key.startswith('w2v2.'):
+            array = value.detach().cpu().numpy()
+            if conv_head and key == 'head.weight':
+                array = array.transpose(2, 1, 0)
+            flat[key] = np.ascontiguousarray(array)
+    return flat
+
+
+def convolution_params_to_jax(state):
+    """The inverse of ``convolution_params_from_jax``."""
+    return {key: np.ascontiguousarray(
+        value.detach().cpu().numpy().transpose(2, 1, 0)
+        if key.endswith('.weight') else value.detach().cpu().numpy())
+        for key, value in state.items()}
+
+
+def model_params_from_jax(config, flat):
+    """The state dict of config.model's module (``models.build``) from a
+    flat JAX parameter dict."""
+    if config.model == 'transformer':
+        return params_from_jax(flat)
+    if config.model == 'convolution':
+        return convolution_params_from_jax(flat)
+    if config.model in ('Wav2Vec2.0', 'W2V2FC'):
+        return w2v2_ppg_params_from_jax(flat, config.model == 'Wav2Vec2.0')
+    raise ValueError(f'Model {config.model} is not defined')
+
+
+def model_params_to_jax(config, state):
+    """The flat JAX parameter dict of config.model from its module's state
+    dict (or any dict of tensors with its keys, such as Adam's moments)."""
+    if config.model == 'transformer':
+        return params_to_jax(state)
+    if config.model == 'convolution':
+        return convolution_params_to_jax(state)
+    if config.model in ('Wav2Vec2.0', 'W2V2FC'):
+        return w2v2_ppg_params_to_jax(state, config.model == 'Wav2Vec2.0')
+    raise ValueError(f'Model {config.model} is not defined')
+
+
+def prepare_model(model):
+    """The compute-dtype copies that config.model's module reads in
+    inference: a transformer's (``prepare``), a W2V2 or W2V2FC trunk's
+    (``prepare_w2v2``); the convolution model has none. Call it again after
+    changing the parameters."""
+    model_name = model.config.model
+    if model_name == 'transformer':
+        prepare(model)
+    elif model_name in ('Wav2Vec2.0', 'W2V2FC'):
+        prepare_w2v2(model.w2v2)
 
 
 def conformer_params_from_jax(flat):
@@ -314,10 +423,7 @@ def params_to_jax(state):
         if conv in _CONVS and key.endswith('.weight'):
             array = array.transpose(2, 1, 0)
         if key.endswith(('attn.wqkv', 'attn.bqkv')):
-            # 'layers.i.attn.' and 'w' or 'b'
-            prefix, kind = key[:-4], key[-4]
-            for name, part in zip('qkv', np.split(array, 3, axis=-1)):
-                flat[f'{prefix}{kind}{name}'] = np.ascontiguousarray(part)
+            _split_qkv(flat, key, array)
             continue
         flat[key] = np.ascontiguousarray(array)
     return flat
@@ -326,8 +432,10 @@ def params_to_jax(state):
 def adam_state_to_jax(model, optimizer):
     """A ``torch.optim.Adam``'s state for ``model`` -> the JAX package's
     optax adam state as flat arrays: {'count': int32, 'mu': flat,
-    'nu': flat}, with the fused-QKV moments split as the parameters are.
-    A parameter without state yet (no step taken) has zero moments."""
+    'nu': flat}, in the layout of the model's parameters
+    (``model_params_to_jax``: the fused-QKV moments split as the
+    parameters are). A parameter without state yet (no step taken) has
+    zero moments."""
     mu, nu, count = {}, {}, 0
     for name, param in model.named_parameters():
         state = optimizer.state.get(param, {})
@@ -335,8 +443,9 @@ def adam_state_to_jax(model, optimizer):
             count = int(state['step'])
         mu[name] = state.get('exp_avg', torch.zeros_like(param))
         nu[name] = state.get('exp_avg_sq', torch.zeros_like(param))
-    return {'count': np.asarray(count, np.int32), 'mu': params_to_jax(mu),
-            'nu': params_to_jax(nu)}
+    return {'count': np.asarray(count, np.int32),
+            'mu': model_params_to_jax(model.config, mu),
+            'nu': model_params_to_jax(model.config, nu)}
 
 
 def adam_state_from_jax(model, optimizer, count, mu, nu):
@@ -344,7 +453,8 @@ def adam_state_from_jax(model, optimizer, count, mu, nu):
     dicts) into ``optimizer``, a ``torch.optim.Adam`` over
     ``model.parameters()``: optax's count is Adam's step, mu and nu its
     exp_avg and exp_avg_sq (the two updates are the same function)."""
-    mu, nu = params_from_jax(mu), params_from_jax(nu)
+    mu = model_params_from_jax(model.config, mu)
+    nu = model_params_from_jax(model.config, nu)
     for name, param in model.named_parameters():
         optimizer.state[param] = {
             'step': torch.tensor(float(count)),
@@ -414,3 +524,122 @@ def convolution_params_from_state_dict(sd):
     return {'conv1': _reference_conv(sd, '0'),
             'conv2': _reference_conv(sd, '2'),
             'conv3': _reference_conv(sd, '4')}
+
+
+###############################################################################
+# transformers' Wav2Vec2Model -> the JAX layout (a numpy copy of
+# ppgs_tpu/convert/w2v2_weights.py)
+###############################################################################
+
+
+def _hf_linear(sd, prefix):
+    return {'weight': sd[f'{prefix}.weight'].T, 'bias': sd[f'{prefix}.bias']}
+
+
+def w2v2_params_from_state_dict(sd, num_feat_layers=7, num_layers=12):
+    """Map a transformers Wav2Vec2Model state dict (numpy arrays) onto the
+    JAX package's wav2vec2 pytree: feature convs (O, I, K) -> (K, I, O),
+    the weight-normed positional conv (weight_g, weight_v, dim = 2, or its
+    parametrizations) to its effective weight g v / |v| over (O, I) ->
+    (K, I, O), Linear (out, in) -> (in, out). A dict without
+    masked_spec_embed (some exports omit it) gets HF's init mean, 0.5.
+    Save it with ``load.save_params`` for ``preprocess.w2v2fb``."""
+    params = {'feature_encoder': []}
+    for i in range(num_feat_layers):
+        prefix = f'feature_extractor.conv_layers.{i}'
+        layer = {'conv': {
+            'weight': np.transpose(sd[f'{prefix}.conv.weight'], (2, 1, 0))}}
+        if f'{prefix}.layer_norm.weight' in sd:
+            layer['group_norm'] = {'scale': sd[f'{prefix}.layer_norm.weight'],
+                                   'bias': sd[f'{prefix}.layer_norm.bias']}
+        params['feature_encoder'].append(layer)
+
+    params['feature_projection'] = {
+        'norm': {'scale': sd['feature_projection.layer_norm.weight'],
+                 'bias': sd['feature_projection.layer_norm.bias']},
+        'projection': _hf_linear(sd, 'feature_projection.projection'),
+    }
+    if 'masked_spec_embed' in sd:
+        params['masked_spec_embed'] = sd['masked_spec_embed']
+    else:
+        hidden = sd['feature_projection.projection.weight'].shape[0]
+        params['masked_spec_embed'] = np.full((hidden,), 0.5,
+                                              dtype=np.float32)
+
+    base = 'encoder.pos_conv_embed.conv'
+    if f'{base}.parametrizations.weight.original0' in sd:
+        g = sd[f'{base}.parametrizations.weight.original0']
+        v = sd[f'{base}.parametrizations.weight.original1']
+    else:
+        g = sd[f'{base}.weight_g']
+        v = sd[f'{base}.weight_v']
+    norm = np.sqrt((v ** 2).sum(axis=(0, 1), keepdims=True))
+    weight = g * v / norm                     # (O, I_g, K)
+    params['encoder'] = {
+        'pos_conv': {'weight': np.transpose(weight, (2, 1, 0)),
+                     'bias': sd[f'{base}.bias']},
+        'norm': {'scale': sd['encoder.layer_norm.weight'],
+                 'bias': sd['encoder.layer_norm.bias']},
+        'layers': [],
+    }
+    for i in range(num_layers):
+        p = f'encoder.layers.{i}'
+        attn = {}
+        for n, name in zip('qkvo', ('q_proj', 'k_proj', 'v_proj',
+                                    'out_proj')):
+            attn[f'w{n}'] = sd[f'{p}.attention.{name}.weight'].T
+            attn[f'b{n}'] = sd[f'{p}.attention.{name}.bias']
+        params['encoder']['layers'].append({
+            'attn': attn,
+            'norm1': {'scale': sd[f'{p}.layer_norm.weight'],
+                      'bias': sd[f'{p}.layer_norm.bias']},
+            'ffn': {
+                'w1': sd[f'{p}.feed_forward.intermediate_dense.weight'].T,
+                'b1': sd[f'{p}.feed_forward.intermediate_dense.bias'],
+                'w2': sd[f'{p}.feed_forward.output_dense.weight'].T,
+                'b2': sd[f'{p}.feed_forward.output_dense.bias'],
+            },
+            'norm2': {'scale': sd[f'{p}.final_layer_norm.weight'],
+                      'bias': sd[f'{p}.final_layer_norm.bias']},
+        })
+    return params
+
+
+def w2v2_params_from_pretrained(name='facebook/wav2vec2-base'):
+    """Download and convert published weights (needs the network and the
+    transformers package, imported here only)."""
+    import transformers
+
+    model = transformers.Wav2Vec2Model.from_pretrained(name)
+    sd = {k: v.detach().numpy() for k, v in model.state_dict().items()}
+    return w2v2_params_from_state_dict(sd)
+
+
+def w2v2_config_from_hf(hf_config, **overrides):
+    """A ``models.w2v2.W2V2Config`` from a transformers Wav2Vec2Config, so
+    that a hub checkpoint's train-mode hyperparameters (dropouts,
+    LayerDrop, spec-augment) replace the transformers defaults."""
+    from .models.w2v2 import W2V2Config
+
+    return W2V2Config(
+        conv_dim=tuple(hf_config.conv_dim),
+        conv_kernel=tuple(hf_config.conv_kernel),
+        conv_stride=tuple(hf_config.conv_stride),
+        hidden_size=hf_config.hidden_size,
+        num_layers=hf_config.num_hidden_layers,
+        num_heads=hf_config.num_attention_heads,
+        intermediate_size=hf_config.intermediate_size,
+        num_conv_pos_embeddings=hf_config.num_conv_pos_embeddings,
+        num_conv_pos_embedding_groups=(
+            hf_config.num_conv_pos_embedding_groups),
+        layer_norm_eps=hf_config.layer_norm_eps,
+        hidden_dropout=hf_config.hidden_dropout,
+        activation_dropout=hf_config.activation_dropout,
+        attention_dropout=hf_config.attention_dropout,
+        feat_proj_dropout=hf_config.feat_proj_dropout,
+        layerdrop=hf_config.layerdrop,
+        apply_spec_augment=hf_config.apply_spec_augment,
+        mask_time_prob=hf_config.mask_time_prob,
+        mask_time_length=hf_config.mask_time_length,
+        mask_time_min_masks=getattr(hf_config, 'mask_time_min_masks', 2),
+        **overrides)

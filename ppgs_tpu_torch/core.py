@@ -87,8 +87,9 @@ def infer(features, lengths, representation='mel', checkpoint=None,
     features = features * keep
 
     if config.model != 'transformer':
-        # The convolution model takes the features as they are: no
-        # chunking (ppgs_tpu/core.py:121-125)
+        # The raw-audio models (Wav2Vec2.0, W2V2FC: (B, 1, S) audio and
+        # sample counts) and the convolution model take the inputs as they
+        # are: no chunking (ppgs_tpu/core.py:121-125)
         logits = model(features, lengths)
     elif not legacy_mode and T > config.chunk_length:
         logits = transformer_model.chunked_forward(

@@ -587,7 +587,11 @@ dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
   for (int i = 0; i < D / 2; ++i) dk[i] = 0.f, dv[i] = 0.f;
 
   // This lane's lse, d_row and keep words of a tile (queries + 2 lane, + 2
-  // lane + 1), read a tile ahead of their use
+  // lane + 1), read a tile ahead of their use. A row holds the words of
+  // 64 ceil(T / 64) keys: where that count is odd, warpgroup 1 of the last
+  // block holds keys past them (none valid) and reads no word, which would
+  // lie past the row (past the buffer, for the last row)
+  const bool keys_in_row = warp_key / 32 < keep_words;
   float nl0 = 0.f, nl1 = 0.f, nd0 = 0.f, nd1 = 0.f;
   uint32_t nk0 = 0u, nk1 = 0u;
   auto fetch = [&](int i) {
@@ -599,8 +603,8 @@ dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
     if constexpr (DROP) {
       const uint32_t* kw = keep_in + (row_base + qi) * keep_words +
                            warp_key / 32;
-      nk0 = qi < T ? kw[0] : 0u;
-      nk1 = qi + 1 < T ? kw[keep_words] : 0u;
+      nk0 = keys_in_row && qi < T ? kw[0] : 0u;
+      nk1 = keys_in_row && qi + 1 < T ? kw[keep_words] : 0u;
     }
   };
   if (tiles > 0) {

@@ -104,13 +104,17 @@ def prepared_model(build, path, device, config):
 def model(checkpoint=None, representation=None, config=None, device=None):
     """Load a model for inference (ppgs/load.py:33-81) -> (model, config).
 
-    ``checkpoint`` is a JAX-package .npz, or a reference .pt checkpoint
-    converted as it is read (``convert.load_torch_checkpoint``, unpickled
-    with ``weights_only``). The module is ``config.model``'s: the
-    transformer or the convolution model. ``device``: None means 'cuda' and
-    raises without a CUDA device (``devices.resolve``). A transformer comes
-    back with its encoder weights prepared for its compute dtype
-    (``convert.prepare``).
+    ``checkpoint`` is a JAX-package .npz, or a reference .pt checkpoint of
+    the transformer or the convolution model, converted as it is read
+    (``convert.load_torch_checkpoint``, unpickled with ``weights_only``).
+    The module is ``config.model``'s (``models.build``): the transformer,
+    the convolution model, W2V2 or W2V2FC. Without a checkpoint, W2V2FC
+    reads the converted Charsiu weights (``preprocess.w2v2fc.
+    W2V2FC_CHECKPOINT``; the reference returns the pretrained model, no
+    PPG checkpoint), raising FileNotFoundError naming the converter when
+    they are missing. ``device``: None means 'cuda' and raises without a
+    CUDA device (``devices.resolve``). The module comes back with its
+    compute-dtype copies prepared (``convert.prepare_model``).
     """
     from . import models
 
@@ -125,15 +129,20 @@ def model(checkpoint=None, representation=None, config=None, device=None):
                 f'No registered config uses representation '
                 f'{representation!r}; supply a config explicitly')
         config = matches[0]
-    models.get(config)      # raises for a model that is not ported
+    models.get(config)      # raises for an unknown model
     device = devices.resolve(device)
-    transformer = config.model == 'transformer'
-    if transformer:
+    if config.model == 'transformer':
         # raises for a width the card's kernels do not take yet
         models.transformer.use_kernels(config, device)
 
     if checkpoint is None:
         checkpoint = config.local_checkpoint
+    if checkpoint is None and config.model == 'W2V2FC':
+        from .preprocess import w2v2fc
+
+        checkpoint = require_file(w2v2fc.W2V2FC_CHECKPOINT,
+                                  'Charsiu weights',
+                                  'scripts/convert_w2v2.py --charsiu')
     if checkpoint is None:
         # The converted checkpoints, under the published names
         name = {'mel': 'mel-800k.npz', 'w2v2fb': 'w2v2fb-425k.npz'}.get(
@@ -149,9 +158,15 @@ def model(checkpoint=None, representation=None, config=None, device=None):
                 f'reference checkpoint with scripts/convert_checkpoint.py')
     checkpoint = Path(checkpoint)
     if checkpoint.suffix == '.pt':
+        if config.model not in ('transformer', 'convolution'):
+            raise ValueError(
+                f'.pt checkpoints are read for the transformer and the '
+                f'convolution model, not {config.model!r}: convert it to '
+                f'an npz')
         sd = convert.load_torch_checkpoint(checkpoint)
         params = (convert.transformer_params_from_state_dict(
-            sd, num_layers=config.num_hidden_layers) if transformer
+            sd, num_layers=config.num_hidden_layers)
+            if config.model == 'transformer'
             else convert.convolution_params_from_state_dict(sd))
         flat = flatten_params(params)
     else:
@@ -161,14 +176,10 @@ def model(checkpoint=None, representation=None, config=None, device=None):
             flat = {key[len('params.'):]: value
                     for key, value in flat.items()
                     if key.startswith('params.')}
-    if transformer:
-        module = models.transformer.Transformer(config)
-        module.load_state_dict(convert.params_from_jax(flat), strict=True)
-        convert.prepare(module)
-    else:
-        module = models.convolution.Convolution(config)
-        module.load_state_dict(convert.convolution_params_from_jax(flat),
-                               strict=True)
+    module = models.build(config)
+    module.load_state_dict(convert.model_params_from_jax(config, flat),
+                           strict=True)
+    convert.prepare_model(module)
     return module.to(device).eval().requires_grad_(False), config
 
 

@@ -31,8 +31,8 @@ class Convolution(nn.Module):
         self.conv2 = nn.Conv1d(c, c, k)
         self.conv3 = nn.Conv1d(c, c_out, k)
 
-    def forward(self, features, lengths=None):
-        return forward(self, features, lengths)
+    def forward(self, features, lengths=None, train=False, seed=None):
+        return forward(self, features, lengths, train, seed)
 
 
 def init(config: Config, generator=None):
@@ -59,9 +59,11 @@ def init(config: Config, generator=None):
             'conv3': conv(c, c_out)}
 
 
-def forward(model, features, lengths=None):
+def forward(model, features, lengths=None, train=False, seed=None):
     """(B, C, T) features -> (B, output_channels, T) logits, in fp32.
-    ``lengths`` is unused, as in the reference."""
+    ``lengths``, ``train`` and ``seed`` are unused, as in the reference (the
+    model has no dropout)."""
+    del lengths, train, seed
     x = features.float()
     x = torch.relu(conv1d_same(x, model.conv1.weight, model.conv1.bias))
     x = torch.relu(conv1d_same(x, model.conv2.weight, model.conv2.bias))

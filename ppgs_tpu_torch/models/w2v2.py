@@ -1,8 +1,9 @@
-"""wav2vec 2.0 (base) in PyTorch, inference: feature encoder + transformer
-encoder.
+"""wav2vec 2.0 (base) in PyTorch: feature encoder + transformer encoder.
 
-Counterpart of ``ppgs_tpu/models/w2v2.py`` for the w2v2fb frontend
-(``preprocess/w2v2fb.py``): frozen facebook/wav2vec2-base, semantics of
+Counterpart of ``ppgs_tpu/models/w2v2.py`` for its three consumers: the
+w2v2fb frontend (``preprocess/w2v2fb.py``: frozen facebook/wav2vec2-base),
+the w2v2fc frontend and the W2V2 / W2V2FC models (``models/w2v2_ppg.py``:
+the 100 Hz trunk, ``W2V2Config.with_final_stride(1)``). Semantics of
 transformers' Wav2Vec2Model (post-LN, do_stable_layer_norm=False). The
 public layouts are the JAX package's: audio (B, S), hidden states
 (B, T', C). Parameters live in ``nn.Module``s in the JAX package's
@@ -19,11 +20,24 @@ feature convs, the positional conv and the projection are plain PyTorch,
 as the JAX package leaves them to XLA; ``PPGS_TPU_CONV_STACK=1`` runs the
 feature convs through the conv-stack kernels (``ops/conv_stack.py``).
 
-Not ported yet (ROADMAP.md): train mode (dropout, LayerDrop,
-spec-augment), the 100 Hz ``mask_config`` variant of the W2V2 model.
+``forward(..., train=True, seed=...)`` is the JAX package's train mode
+(the reference's HF model in .train() with freeze_feature_extractor()):
+the feature encoder frozen (under no_grad, JAX's stop_gradient), then
+the feature projection's dropout, spec-augment and the encoder's dropout
+sites and LayerDrop, each drawn from the Philox stream of ``seed`` at
+its own site (``ops/dropout.py::w2v2_site``). As in the JAX package, that
+path reaches no kernel: plain PyTorch with autograd, the XLA path's
+operations, reading the parameters. A forward whose parameters want
+gradients takes the same differentiable path without the draws.
+
+``_spec_augment`` follows the JAX package, not transformers'
+``_compute_mask_indices``: the span count comes from the padded T, the
+starts are drawn uniformly over each row's valid starts, and spans may
+overlap.
 """
 
 import dataclasses
+import math
 from typing import Tuple
 
 import numpy as np
@@ -32,6 +46,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import conv_stack
+from ..ops import dropout
 from ..ops import encoder_layer_kernel as elk
 from ..ops import fused_ffn
 from ..ops.masking import mask_from_lengths
@@ -57,9 +72,8 @@ class W2V2Config:
     layer_norm_eps: float = 1e-5
     compute_dtype: str = 'float32'
 
-    # Train-mode regularization (transformers Wav2Vec2Config defaults), kept
-    # so that the two packages' configs have the same fields; the port's
-    # inference forward does not read them
+    # Train-mode regularization (transformers Wav2Vec2Config defaults),
+    # read by the train forward
     hidden_dropout: float = 0.1
     activation_dropout: float = 0.1
     attention_dropout: float = 0.1
@@ -69,6 +83,12 @@ class W2V2Config:
     mask_time_prob: float = 0.05
     mask_time_length: int = 10
     mask_time_min_masks: int = 2
+
+    def with_final_stride(self, stride: int) -> 'W2V2Config':
+        """The reference's 100 Hz variant: last conv stride 2 -> stride
+        (ppgs/model/w2v2.py:26)."""
+        return dataclasses.replace(
+            self, conv_stride=self.conv_stride[:-1] + (stride,))
 
 
 BASE = W2V2Config()
@@ -132,8 +152,10 @@ class Wav2Vec2(nn.Module):
             transformer.EncoderLayer(d, config.intermediate_size)
             for _ in range(config.num_layers))
 
-    def forward(self, audio, lengths=None):
-        return forward(self, audio, lengths)
+    def forward(self, audio, lengths=None, mask_config=None, train=False,
+                seed=None):
+        return forward(self, audio, lengths, mask_config=mask_config,
+                       train=train, seed=seed)
 
 
 def init(config: W2V2Config = BASE, generator=None):
@@ -322,24 +344,171 @@ def encoder(model, hidden, attention_mask=None, config: W2V2Config = BASE):
     return hidden
 
 
-@torch.no_grad()
-def forward(model, audio, lengths=None, config: W2V2Config = None):
+###############################################################################
+# Train mode: the JAX package's XLA path, differentiable
+###############################################################################
+
+
+def _spec_augment(hidden, valid_mask, seed, embed, config: W2V2Config):
+    """The JAX package's time masking (``ppgs_tpu/models/w2v2.py:271-299``):
+    num = max(mask_time_min_masks, round(mask_time_prob T / length)) spans
+    of mask_time_length frames a row, from the padded T, each start drawn
+    uniformly over the row's valid starts [0, max(valid - length, 1)), the
+    spans' frames overwritten with ``embed``. Rows of T <= length are left
+    as they are."""
+    B, T, _ = hidden.shape
+    length = config.mask_time_length
+    num = max(config.mask_time_min_masks,
+              int(config.mask_time_prob * T / length + 0.5))
+    if T <= length:
+        return hidden
+    device = hidden.device
+    lengths = (valid_mask.sum(-1) if valid_mask is not None
+               else torch.full((B,), T, device=device))
+    hi = torch.clamp(lengths.to(torch.int64) - length, min=1)[:, None]
+    draws = dropout.bits(B * num, seed, dropout.w2v2_site('spec_augment'),
+                         device).view(B, num)
+    starts = (draws * hi) >> 32                             # (B, num)
+    t = torch.arange(T, device=device)[None, None, :]
+    spans = (t >= starts[..., None]) & (t < starts[..., None] + length)
+    time_mask = spans.any(dim=1)                            # (B, T)
+    return torch.where(time_mask[..., None], embed.to(hidden.dtype), hidden)
+
+
+def layer_kept(seed, layer, rate):
+    """Whether LayerDrop keeps encoder layer ``layer`` in the step of
+    ``seed``: its one draw against ``rate`` (on the host, a pure function of
+    the seed, so the step neither waits for the card nor depends on it)."""
+    if rate <= 0:
+        return True
+    draw = int(dropout.bits(1, seed, dropout.w2v2_site('layerdrop', layer))[0])
+    return draw >= dropout.threshold(rate)
+
+
+def _attention_train(x, attn, mask, heads, cd, seed, rate, site):
+    """Self-attention on (B, T, C) with dropout on the probabilities, as the
+    JAX package's XLA ``_attention``: q, k and v in the compute dtype, the
+    logits rounded to it, an fp32 softmax with the key mask before the max
+    (a wholly masked row gives 0), the probabilities dropped in fp32 and
+    rounded for the product with v. The max is taken out of the autograd
+    graph: the softmax does not depend on it, and the backward then keeps
+    no copy of the logits."""
+    B, T, C = x.shape
+    d = C // heads
+    qkv = x.to(cd) @ attn.wqkv.to(cd) + attn.bqkv.to(cd)
+
+    def heads_first(t):
+        return t.reshape(B, T, heads, d).transpose(1, 2)
+
+    q, k, v = (heads_first(qkv[..., i * C:(i + 1) * C]) for i in range(3))
+    logits = (q @ k.transpose(-1, -2)).float() * (1.0 / math.sqrt(d))
+    if mask is not None:
+        logits = logits.masked_fill(~mask[:, None, None, :], float('-inf'))
+    with torch.no_grad():
+        top = logits.amax(dim=-1, keepdim=True)
+        top = torch.where(torch.isfinite(top), top, 0.0)
+    unnorm = torch.exp(logits - top)
+    probs = unnorm / unnorm.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    if seed is not None:
+        probs = dropout.dropout(probs, seed, site, rate)
+    out = (probs.to(cd) @ v).transpose(1, 2).reshape(B, T, C)
+    return (out @ attn.wo.to(cd) + attn.bo.to(cd)).to(x.dtype)
+
+
+def _encoder_train(model, hidden, mask, config: W2V2Config, seed):
+    """The encoder on (B, T, C) as the JAX package's XLA path (the residual
+    in the compute dtype, fp32 LayerNorm statistics), differentiable; with
+    ``seed`` (not None) the train mode's dropout sites and LayerDrop. A
+    layer that LayerDrop skips is not computed: its output is its input,
+    and its parameters get no gradient (zero in JAX's tree)."""
+    cd = _compute_dtype(config)
+    p = model.encoder
+    eps = config.layer_norm_eps
+    hidden = hidden.to(cd)
+    if mask is not None:
+        hidden = hidden * mask[..., None].to(cd)
+    hidden = hidden + _pos_conv(hidden, p.pos_conv, config).to(cd)
+    hidden = _layer_norm(hidden, p.norm, eps)
+
+    def drop(x, kind, layer, rate):
+        if seed is None:
+            return x
+        return dropout.dropout(x, seed, dropout.w2v2_site(kind, layer), rate)
+
+    hidden = drop(hidden, 'pos_conv', None, config.hidden_dropout)
+    for i, layer in enumerate(p.layers):
+        if seed is not None and not layer_kept(seed, i, config.layerdrop):
+            continue
+        a = _attention_train(
+            hidden, layer.attn, mask, config.num_heads, cd, seed,
+            config.attention_dropout, dropout.w2v2_site('probs', i))
+        a = drop(a, 'attention', i, config.hidden_dropout)
+        res = _layer_norm(hidden + a, layer.norm1, eps)
+        f = layer.ffn
+        h = _gelu(res.to(cd) @ f.w1.to(cd) + f.b1.to(cd))
+        h = drop(h, 'activation', i, config.activation_dropout)
+        h = (h @ f.w2.to(cd) + f.b2.to(cd)).to(res.dtype)
+        h = drop(h, 'output', i, config.hidden_dropout)
+        hidden = _layer_norm(res + h, layer.norm2, eps)
+    return hidden
+
+
+def _wants_grad(model):
+    return (torch.is_grad_enabled()
+            and model.feature_projection.projection.weight.requires_grad)
+
+
+def forward(model, audio, lengths=None, config: W2V2Config = None,
+            mask_config: W2V2Config = None, train=False, seed=None):
     """Full wav2vec2: (B, S) audio -> (B, T', hidden) last hidden state in
     the compute dtype.
 
     ``lengths``: valid sample counts (a tensor); converted to a
     feature-level attention mask as transformers'
-    _get_feature_vector_attention_mask does."""
+    _get_feature_vector_attention_mask does, with ``mask_config``'s
+    convs when given (the W2V2 model's stride-2 mask on its 100 Hz trunk,
+    ``models/w2v2_ppg.py::_mask_config``).
+
+    ``train`` with a ``seed`` (an int): the train mode's feature-projection
+    dropout, spec-augment, encoder dropout and LayerDrop, drawn from the
+    Philox stream of ``seed``. Train mode, and a forward whose parameters
+    want gradients, take the differentiable path (plain PyTorch, the JAX
+    package's XLA operations); otherwise the inference path, under no_grad
+    (the four-kernel stack where ``use_stack`` says so). The feature
+    encoder is frozen in both."""
     config = config or model.config
-    cd = _compute_dtype(config)
+    train = train and seed is not None
     features = feature_encoder(model, audio, config)
+    mask = None
+    if lengths is not None:
+        out_lengths = feat_extract_output_lengths(lengths,
+                                                  mask_config or config)
+        mask = mask_from_lengths(out_lengths, features.shape[1])
+    if not (train or _wants_grad(model)):
+        return _inference(model, features, mask, config)
+
+    cd = _compute_dtype(config)
+    fp = model.feature_projection
+    hidden = _layer_norm(features, fp.norm, config.layer_norm_eps)
+    hidden = (hidden.to(cd) @ fp.projection.weight.to(cd)
+              + fp.projection.bias.to(cd))
+    if train:
+        hidden = dropout.dropout(hidden, seed,
+                                 dropout.w2v2_site('projection'),
+                                 config.feat_proj_dropout)
+        if config.apply_spec_augment and config.mask_time_prob > 0:
+            hidden = _spec_augment(hidden, mask, seed,
+                                   model.masked_spec_embed, config)
+    return _encoder_train(model, hidden, mask, config,
+                          seed if train else None)
+
+
+@torch.no_grad()
+def _inference(model, features, mask, config: W2V2Config):
+    """The inference forward from the feature encoder's output."""
+    cd = _compute_dtype(config)
     fp = model.feature_projection
     hidden = _layer_norm(features, fp.norm, config.layer_norm_eps)
     hidden = (fused_ffn.matmul(hidden.to(cd), fp.projection.weight.to(cd))
               .to(cd) + fp.projection.bias.to(cd))
-    mask = None
-    if lengths is not None:
-        out_lengths = feat_extract_output_lengths(lengths, config)
-        mask = mask_from_lengths(out_lengths, features.shape[1])
     return encoder(model, hidden, mask, config)
-

@@ -29,6 +29,7 @@ launch the kernels or raise. The design, and why it does not copy the
 TPU's per-tile chain, is in the CUDA source.
 """
 
+import collections
 import os
 
 import torch
@@ -272,7 +273,8 @@ def conv_gelu(x, w, k, s, first=None):
     (B, S), and this conv's input is bf16(gelu(GroupNorm(conv 0))), which
     ``conv0_gelu`` writes first (1.68 GB at 64 x 8 s, as the library path
     stores it too). ``conv_gelu.first`` counts the launches of that
-    form."""
+    form, ``conv_gelu.strides`` the launches by s (the 100 Hz trunk's
+    conv 6 takes s = 1)."""
     if x.device.type == 'cpu':
         return conv_gelu_reference(x, w, k, s, first)
     if first is not None:
@@ -292,6 +294,7 @@ def conv_gelu(x, w, k, s, first=None):
                    s, plan['T_out'], B, plan['tiles'], plan['blocks'],
                    out.data_ptr(), device=dev)
     conv_gelu.launches += 1
+    conv_gelu.strides[s] += 1
     if first is not None:
         conv_gelu.first += 1
     return out
@@ -299,6 +302,7 @@ def conv_gelu(x, w, k, s, first=None):
 
 conv_gelu.launches = 0
 conv_gelu.first = 0
+conv_gelu.strides = collections.Counter()   # launches by stride
 
 
 def _stack(audio, taps, w0, gn_scale, gn_bias, kernel, stride, ops):

@@ -20,13 +20,30 @@ Here the keep bit of an element is a pure function of
 The flat index is the row-major index of the element in the array the
 site drops from, batch first, so a mask does not depend on how a kernel
 tiles the work, and the leading rows of a batch draw the same bits
-whatever the batch size. Sites number the dropout points of one forward
-pass (``site``): 0 is the positional encoding, layer i owns
-1 + 4i (attention probabilities), 2 + 4i (attention output),
-3 + 4i (FFN hidden) and 4 + 4i (FFN output). The whole-layer kernel and
-the per-layer path use the same sites, so both drop the same elements;
-so do the CUDA kernels (``kernels/csrc/philox.cuh``) and the plain
-version here, which carries the uint32 arithmetic in int64.
+whatever the batch size. Sites number the random draws of one forward
+pass. The PPG transformer's (``site``): 0 is the positional encoding,
+layer i owns 1 + 4i (attention probabilities), 2 + 4i (attention
+output), 3 + 4i (FFN hidden) and 4 + 4i (FFN output). The whole-layer
+kernel and the per-layer path use the same sites, so both drop the same
+elements; so do the CUDA kernels (``kernels/csrc/philox.cuh``) and the
+plain version here, which carries the uint32 arithmetic in int64.
+
+wav2vec2's train mode (``w2v2_site``, the JAX package's
+``jax.random.split`` streams of ``ppgs_tpu/models/w2v2.py:374-536``)
+numbers its sites from ``W2V2_SITES`` = 2^20 on:
+
+    2^20 + 0        the feature projection's output (feat_proj_dropout)
+    2^20 + 1        spec-augment's span starts (B x num draws, row-major)
+    2^20 + 2        the hidden state after the positional conv
+    2^20 + 3 + 5i   layer i's attention probabilities
+    2^20 + 4 + 5i   layer i's attention output
+    2^20 + 5 + 5i   layer i's activation (the FFN hidden)
+    2^20 + 6 + 5i   layer i's FFN output
+    2^20 + 7 + 5i   layer i's LayerDrop draw (one element)
+
+A span start is ``(bits * hi) >> 32`` for the row's ``hi`` valid starts,
+and a layer is kept when its one draw is at least ``threshold(layerdrop)``
+(JAX's ``uniform >= layerdrop``).
 """
 
 from typing import NamedTuple
@@ -47,6 +64,21 @@ def site(layer, kind):
 
 
 PE_SITE = 0
+
+W2V2_SITES = 1 << 20
+_W2V2_GLOBAL = ('projection', 'spec_augment', 'pos_conv')
+_W2V2_LAYER = ('probs', 'attention', 'activation', 'output', 'layerdrop')
+
+
+def w2v2_site(kind, layer=None):
+    """The site number of wav2vec2's draw ``kind``: 'projection',
+    'spec_augment' or 'pos_conv', or with ``layer`` one of encoder layer
+    ``layer``'s: 'probs', 'attention', 'activation', 'output' or
+    'layerdrop'."""
+    if layer is None:
+        return W2V2_SITES + _W2V2_GLOBAL.index(kind)
+    return W2V2_SITES + len(_W2V2_GLOBAL) + len(_W2V2_LAYER) * layer + (
+        _W2V2_LAYER.index(kind))
 
 
 def threshold(rate):
@@ -87,24 +119,38 @@ def philox(counter, key):
     return c0, c1, c2, c3
 
 
-def bits(numel, seed, site_id, device=None):
-    """The uint32 draws (int64 tensor) of the flat indices 0..numel-1."""
+def bits(numel, seed, site_id, device=None, first=0):
+    """The uint32 draws (int64 tensor) of the flat indices first ..
+    first + numel - 1 (``first`` a multiple of 4)."""
+    if first % 4:
+        raise ValueError(f'first must be a multiple of 4, got {first}')
     groups = (numel + 3) // 4
-    g = torch.arange(groups, dtype=torch.int64, device=device)
+    g = torch.arange(first // 4, first // 4 + groups, dtype=torch.int64,
+                     device=device)
     lo, hi = seed_words(seed)
     words = philox((g & _U32, g >> 32, torch.full_like(g, int(site_id)),
                     torch.zeros_like(g)), (lo, hi))
     return torch.stack(words, dim=1).reshape(-1)[:numel]
 
 
+KEEP_CHUNK = 1 << 26    # elements a pass of keep_mask draws at most
+
+
 def keep_mask(shape, seed, site_id, rate, device=None):
-    """Bool keep-mask of ``shape``: True where the element is kept."""
+    """Bool keep-mask of ``shape``: True where the element is kept. The
+    draws are made ``KEEP_CHUNK`` elements at a time, so that the int64
+    words of a large mask (wav2vec2's B x 12 x T x T probabilities) never
+    exist at once."""
     shape = tuple(shape)
     numel = 1
     for n in shape:
         numel *= n
-    return (bits(numel, seed, site_id, device) >= threshold(rate)).reshape(
-        shape)
+    keep = torch.empty(numel, dtype=torch.bool, device=device)
+    for first in range(0, numel, KEEP_CHUNK):
+        n = min(KEEP_CHUNK, numel - first)
+        keep[first:first + n] = bits(n, seed, site_id, device,
+                                     first) >= threshold(rate)
+    return keep.reshape(shape)
 
 
 class Drop(NamedTuple):

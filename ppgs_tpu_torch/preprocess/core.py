@@ -35,6 +35,16 @@ def save_masked(array, file, length):
             if array.dtype == np.float32 else array)
 
 
+def _valid_length(representation, samples, hopsize):
+    """Valid trailing extent of a cached feature for one utterance: frames
+    for 100 Hz latents, padded samples for the raw-audio passthrough."""
+    if representation in ('w2v2ft', 'wav'):
+        from . import w2v2ft
+
+        return int(samples) + 2 * w2v2ft.PAD
+    return int(samples) // hopsize
+
+
 def from_audios(audio, lengths, representation=None, config=None,
                 device=None):
     """Preprocess a batch of audio into the requested representation on
@@ -86,7 +96,8 @@ def from_dataloader(dataloader, output_prefixes, representations=None,
                 for i, audio_file in enumerate(batch_files):
                     out = Path(f'{output_prefixes[str(audio_file)]}'
                                f'-{representation}.npy')
-                    valid = min(int(lengths[i]) // config.hopsize,
+                    valid = min(_valid_length(representation, lengths[i],
+                                              config.hopsize),
                                 host.shape[-1])
                     pending.append(
                         pool.submit(save_masked, host[i], out, valid))

@@ -3,7 +3,7 @@
 
 A checkpoint is ``{step:08d}.npz`` holding the flat keys ``params.*``,
 ``opt_state.count``, ``opt_state.mu.*`` and ``opt_state.nu.*`` (the JAX
-parameter layout, ``convert.params_to_jax``), with ``{step:08d}.json``
+parameter layout, ``convert.model_params_to_jax``), with ``{step:08d}.json``
 ({step, epoch}) beside it, so a checkpoint of either package resumes in the
 other. The orbax backend is not ported.
 """

@@ -7,9 +7,13 @@ JAX package's layout, scalar logs, and the loop with evaluation,
 checkpointing and save-on-interrupt. bf16 products replace the
 reference's fp16 GradScaler (bf16 needs no loss scaling).
 
-The train step's forward is ``models.transformer.forward(..., train=True,
-seed=...)``: the train kernels on the card, their plain versions on the
-CPU, with dropout drawn from the Philox stream of a per-step seed.
+The train step's forward is the model's own (``models.get(config)``) with
+``train=True, seed=...``: the transformer's runs the train kernels on the
+card and their plain versions on the CPU; the W2V2 model's
+(``config='w2v2ft'``) is plain PyTorch, as the JAX package's reaches no
+kernel, with its feature encoder frozen. Dropout (and wav2vec2's
+spec-augment and LayerDrop) is drawn from the Philox stream of a per-step
+seed.
 
 Without a ``loader_fn`` the batches come from the data loader over the
 dataset's cached features (``data/loader.py``, the JAX package's batches
@@ -105,16 +109,25 @@ def make_train_step(model, config, optimizer, class_weights=None):
 
     ``step(features, targets, lengths, seed, with_stats=False)`` returns
     (loss, stats): the full gradient statistics only when ``with_stats``
-    (logging steps); clipping reuses them then, as the JAX step does."""
+    (logging steps); clipping reuses them then, as the JAX step does.
+
+    A parameter that the step gives no gradient (the frozen feature
+    convs, a layer that LayerDrop skipped) gets zeros, as in JAX's
+    gradient tree: they count in the statistics, and Adam updates its
+    moments with them, which leaves a frozen weight bit for bit as it
+    was."""
     clip_l2 = config.gradient_clip_threshold_l2
     clip_inf = config.gradient_clip_threshold_inf
-    params = [p for p in model.parameters() if p.requires_grad]
+    params = list(model.parameters())
 
     def step(features, targets, lengths, seed, with_stats=False):
         optimizer.zero_grad(set_to_none=True)
         logits = model(features, lengths, train=True, seed=seed)
         train_loss = loss(logits, targets, config, class_weights)
         train_loss.backward()
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         grads = [p.grad for p in params]
         stats = gradient_stats(grads) if with_stats else {}
         with torch.no_grad():
@@ -156,8 +169,8 @@ def checkpoint_state(directory, step, epoch, model, optimizer,
     """Save a training checkpoint, {step:08d}.npz in the JAX layout."""
     _check_backend(backend)
     adam = convert.adam_state_to_jax(model, optimizer)
-    flat = {f'params.{k}': v for k, v in
-            convert.params_to_jax(model.state_dict()).items()}
+    flat = {f'params.{k}': v for k, v in convert.model_params_to_jax(
+        model.config, model.state_dict()).items()}
     flat['opt_state.count'] = adam['count']
     for moment in ('mu', 'nu'):
         flat.update({f'opt_state.{moment}.{k}': v
@@ -181,10 +194,11 @@ def load_checkpoint(path, model, optimizer, backend='npz'):
         return {k[len(prefix):]: v for k, v in flat.items()
                 if k.startswith(prefix)}
 
-    state = convert.params_from_jax(part('params.'))
+    state = convert.model_params_from_jax(model.config, part('params.'))
     with torch.no_grad():
         for name, param in model.named_parameters():
             param.copy_(state[name])
+    convert.prepare_model(model)
     convert.adam_state_from_jax(model, optimizer,
                                 int(flat['opt_state.count']),
                                 part('opt_state.mu.'), part('opt_state.nu.'))
@@ -239,15 +253,18 @@ class ScalarWriter:
 
 
 def init_model(config, device, generator=None):
-    """A Transformer for ``config`` with the init's random parameters on
-    ``device``, drawn from ``generator`` (seeded by config.random_seed when
-    None)."""
+    """config.model's module (``models.build``) with its init's random
+    parameters on ``device``, drawn from ``generator`` (seeded by
+    config.random_seed when None), its compute-dtype copies prepared (the
+    W2V2 model's conv-stack weights among them: its feature convs are
+    frozen)."""
     if generator is None:
         generator = torch.Generator().manual_seed(config.random_seed)
-    params = models.transformer.init(config, generator)
-    model = models.transformer.Transformer(config)
-    model.load_state_dict(convert.params_from_jax(
-        load_mod.flatten_params(params)))
+    params = models.get(config)[0](config, generator)
+    model = models.build(config)
+    model.load_state_dict(convert.model_params_from_jax(
+        config, load_mod.flatten_params(params)))
+    convert.prepare_model(model)
     return model.to(device)
 
 
@@ -279,8 +296,9 @@ def train(dataset=None, directory=None, config=None, max_steps=None,
     config = config_mod.get(config)
     config_mod.require_no_frontend(config)
     device = devices.resolve(device)
-    # raises for a width the card's train kernels do not take yet
-    models.transformer.use_kernels(config, device)
+    if config.model == 'transformer':
+        # raises for a width the card's train kernels do not take yet
+        models.transformer.use_kernels(config, device)
     _check_backend(config.checkpoint_backend)
     directory = Path(directory or config_mod.RUNS_DIR / config.config)
     directory.mkdir(parents=True, exist_ok=True)
@@ -363,17 +381,18 @@ def train(dataset=None, directory=None, config=None, max_steps=None,
 def evaluate_partition(writer, step, model, config, loader_fn, partition,
                        evaluation_steps=None):
     """Evaluation pass writing metric scalars (reference
-    train/core.py:288-365): the inference forward on ``model``'s current
-    parameters (``convert.prepare`` rebuilds its prepared weights first:
-    they are a snapshot, stale after any optimizer step). Scalars only:
-    the figures wait for the plotting module (ROADMAP.md A13)."""
+    train/core.py:288-365): the model's inference forward on its current
+    parameters (``convert.prepare_model`` rebuilds its prepared weights
+    first: they are a snapshot, stale after any optimizer step). Scalars
+    only: the figures wait for the plotting module (ROADMAP.md A13)."""
     config_mod.require_no_frontend(config)
     device = next(model.parameters()).device
-    convert.prepare(model)
+    convert.prepare_model(model)
     metrics = Metrics(config=config, device=device)
     for i, batch in enumerate(loader_fn(partition)):
         features, targets, lengths = _to_device(batch, device)
-        logits = models.transformer.forward(model, features, lengths)
+        with torch.no_grad():
+            logits = model(features, lengths)
         metrics.update(logits, targets)
         if evaluation_steps is not None and i + 1 == evaluation_steps:
             break

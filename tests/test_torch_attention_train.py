@@ -276,3 +276,36 @@ def test_train_fwd_args_refuse_what_the_kernel_does_not_take(args, heads,
     launched (the checks need no card)."""
     with pytest.raises(ValueError, match=match):
         fa._train_fwd_args(*args, heads)
+
+
+def _dkdv_keep_word_reads(T, guarded):
+    """The keep words that attention_train_bwd's dk/dv pass at d_head 128
+    (``dkdv_kernel``) reads in a query row, as word indices within the
+    row: blocks of 128 keys, warpgroup c of each over keys 64 c .. 64 c +
+    63, warp w of it reading the word of its 16 keys (``warp_key / 32``),
+    every warp of a block that holds a valid key (T keys, all valid here);
+    with ``guarded``, only the words within the row's 2 ceil(T / 64)."""
+    words = 2 * -(-T // 64)
+    reads = set()
+    for k0b in range(0, T, 128):
+        for c, w in np.ndindex(2, 4):
+            index = (k0b + 64 * c + 16 * w) // 32
+            if not guarded or index < words:
+                reads.add(index)
+    return reads, words
+
+
+@pytest.mark.parametrize('T', (1, 63, 64, 65, 128, 129, 192, 500, 1000,
+                               1024))
+def test_dkdv_keep_word_reads_stay_in_their_row(T):
+    """The dk/dv pass at d_head 128 reads the keep words of its warps'
+    keys: where ceil(T / 64) is odd, the last block's second warpgroup
+    holds keys past the row's words (none valid), and unguarded it read
+    the words past the row, past the buffer for its last row (an illegal
+    address on the card, when the buffer ended a mapping). Guarded, every
+    read lies in the row, and every valid key's word is read."""
+    reads, words = _dkdv_keep_word_reads(T, guarded=True)
+    assert max(reads) < words
+    assert {key // 32 for key in range(T)} <= reads
+    unguarded, _ = _dkdv_keep_word_reads(T, guarded=False)
+    assert (max(unguarded) >= words) == (-(-T // 64) % 2 == 1)

@@ -20,14 +20,15 @@ REPO = Path(__file__).resolve().parents[1]
 
 
 def test_import_leaves_jax_and_ppgs_tpu_out():
-    """In a fresh interpreter that refuses to import jax or ppgs_tpu, the
-    port imports, and neither is loaded afterwards."""
+    """In a fresh interpreter that refuses to import jax, ppgs_tpu or
+    transformers (which only ``convert.w2v2_params_from_pretrained`` imports,
+    when it is called), the port imports, and none is loaded afterwards."""
     script = '\n'.join([
         'import importlib.abc, sys',
         'class Refuse(importlib.abc.MetaPathFinder):',
         '    def find_spec(self, name, path=None, target=None):',
         "        top = name.split('.')[0]",
-        "        if top in ('jax', 'jaxlib', 'ppgs_tpu'):",
+        "        if top in ('jax', 'jaxlib', 'ppgs_tpu', 'transformers'):",
         "            raise ImportError('refused: ' + name)",
         'for name in list(sys.modules):',
         "    if name.split('.')[0] in ('jax', 'jaxlib', 'ppgs_tpu'):",
@@ -35,7 +36,7 @@ def test_import_leaves_jax_and_ppgs_tpu_out():
         'sys.meta_path.insert(0, Refuse())',
         'import ppgs_tpu_torch, ppgs_tpu_torch.train, ppgs_tpu_torch.evaluate',
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'ppgs_tpu')]",
+        "('jax', 'jaxlib', 'ppgs_tpu', 'transformers')]",
         'assert not bad, bad',
         "print('ok')",
     ])
@@ -177,20 +178,24 @@ def test_unported_width_raises_on_the_card(monkeypatch):
 
 
 def test_only_the_transformer_is_ported():
-    """The transformer and convolution models and the mel, w2v2fb,
-    bottleneck and spectrogram frontends are ported; another model (the
-    wav2vec2 ones) or representation raises, naming ROADMAP.md."""
-    for name in ('w2v2fc-pretrained', 'w2v2ft'):
+    """Every model of the JAX package is ported (the transformer, the
+    convolution model, W2V2 and W2V2FC), and every frontend but the codec
+    ones (encodec, dac), which raise naming ROADMAP.md; another
+    representation ('wav', the w2v2ft config's) raises as the JAX package
+    does."""
+    models = ppgs_tpu_torch.models
+    for name, forward in (('convolution', models.convolution.forward),
+                          ('w2v2ft', models.w2v2_ppg.forward),
+                          ('w2v2fc-pretrained', models.w2v2_ppg.fc_forward)):
+        assert models.get(ppgs_tpu_torch.config.get(name))[1] is forward
+    for name in ('mel', 'w2v2fb', 'w2v2fc', 'w2v2ft', 'spectrogram',
+                 'bottleneck'):
+        assert (ppgs_tpu_torch.preprocess.get(name)
+                is getattr(ppgs_tpu_torch.preprocess, name))
+        assert ppgs_tpu.preprocess.get(name).__name__.endswith(name)
+    for name in ('encodec', 'dac'):
         with pytest.raises(ValueError, match='ROADMAP.md'):
-            ppgs_tpu_torch.models.get(ppgs_tpu_torch.config.get(name))
-    assert ppgs_tpu_torch.models.get(
-        ppgs_tpu_torch.config.get('convolution'))[1] is (
-        ppgs_tpu_torch.models.convolution.forward)
-    assert (ppgs_tpu_torch.preprocess.get('w2v2fb')
-            is ppgs_tpu_torch.preprocess.w2v2fb)
-    assert (ppgs_tpu_torch.preprocess.get('spectrogram')
-            is ppgs_tpu_torch.preprocess.spectrogram)
-    assert (ppgs_tpu_torch.preprocess.get('bottleneck')
-            is ppgs_tpu_torch.preprocess.bottleneck)
-    with pytest.raises(ValueError, match='ROADMAP.md'):
-        ppgs_tpu_torch.preprocess.get('w2v2fc')
+            ppgs_tpu_torch.preprocess.get(name)
+    for package in (ppgs_tpu, ppgs_tpu_torch):
+        with pytest.raises(ValueError, match='Unknown representation wav'):
+            package.preprocess.get('wav')
