@@ -257,15 +257,43 @@ any failure exits non-zero before the result line:
    from one seed bit for bit (cuDNN deterministic); then
    ``preprocess.datasets(w2v2fc)`` on a seeded 40-file corpus and 2 steps
    of ``train(config='w2v2fc')`` from the caches, each step's launches
-   exact.
+   exact;
+27. the codec slice (the encodec and dac heads at the mel head's width,
+   input channels 128 and 96), on seeded codebooks at the published shapes
+   (EnCodec's 32 levels of 1024 x 128, summed; DAC's 12 of 1024 x 8,
+   concatenated) saved as npz in a temporary directory that
+   ``frontend.CODEBOOK_DIR`` points at and read through ``frontend._load``:
+   ``decode_codes`` on the card against the CPU (concat bit for bit, sum
+   at rtol 1e-6) and timed; ``from_features(config='encodec')`` and
+   ``'dac'`` on 64 x 800 frames of seeded codes with ragged lengths and
+   seeded head weights: shape, softmax columns, exactly 5 launches of each
+   of K1-K4 (one batch of 128 windows of 500), 4 rows against
+   ``device='cpu'`` at the bf16 gates (``agree_decided``), audio-s/s (the
+   median of 5) and a profile with its idle share;
+28. a seeded corpus of 40 wav files and TextGrids with an int32 code
+   cache per codec beside each (``save_masked``); 3 steps of
+   ``train(config='encodec')`` and of ``'dac'`` from the caches, each
+   step's launches exact; one step at every rate 0 in fp32 on 2 rows
+   against ``device='cpu'`` (loss, gradients, the parameters after Adam)
+   for each codec; ``evaluate.datasets(config='encodec')`` on the card
+   against ``device='cpu'`` in fp32 and bf16 (K1-K4 launched), its JSON
+   files and tensors.npz written, and its figures where matplotlib
+   imports;
+29. ``plot.from_files_to_files`` from 4 seeded wav files with seeded mel
+   head weights: K1-K4 launched 5 times a file, each plotted PPG
+   ``from_file``'s on the card bit for bit, and where PIL imports each
+   PNG's cells that PPG's pixels; ``utils.profiling.trace`` around one
+   ``from_audio`` call (8 x 8 s), its Chrome trace naming K1-K4's kernels
+   and the annotated region; ``python -m ppgs_tpu_torch.plot.accuracy``
+   on phase 28's JSONs where matplotlib imports.
 
 At the end of every run the sha256 of every file under
 ``ppgs_tpu/assets/`` is the one read before phase 1.
 
 ``--slices`` (default
-``mel,train,w2v2fb,bottleneck,api,data,head_train,w2v2``) runs a subset:
-phases 3-5, 6-8, 9-11, 12-14, 15-17, 18-20, 21-23 and 24-26
-respectively. Each phase prints its
+``mel,train,w2v2fb,bottleneck,api,data,head_train,w2v2,codec``) runs a
+subset: phases 3-5, 6-8, 9-11, 12-14, 15-17, 18-20, 21-23, 24-26 and
+27-29 respectively. Each phase prints its
 seconds. Before the last line it prints one JSON
 object with a record per kernel;
 the last line is {"ok": true, "device": {...}}. Imports nothing of JAX or
@@ -519,18 +547,25 @@ def library_encoder(layers, C, H, Fh, dev, activation='relu'):
     return encoder.to(torch.bfloat16).eval().requires_grad_(False)
 
 
+# The host range that profile_call marks around the profiled call: its span
+# on the profiler's own clock is the wall time that the device events,
+# converted to that clock, are measured against
+PROFILE_WINDOW = 'chip_smoke.profiled_call'
+
+
 def profile_call(label, fn, card):
     """Device time by kernel in one call of ``fn`` (torch.profiler), and
     the share of the call's wall time in which the card ran no kernel;
     returns the device milliseconds by kernel name."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         start = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
+        with record_function(PROFILE_WINDOW):
+            fn()
+            torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - start) * 1e3
     return report_profile(label, prof, wall_ms, card)
 
@@ -2365,10 +2400,27 @@ def report_profile(label, prof, wall_ms, card):
     of the wall time in which the card ran no kernel: busy time is the
     union of the device events' intervals (events listed twice count once,
     events that overlap on other streams count once), and raises if it
-    exceeds the wall time."""
+    exceeds the wall time.
+
+    Busy and wall time are read on one clock, the profiler's: the wall is
+    the span of profile_call's host range (``PROFILE_WINDOW``), and the
+    device events are clipped to it. The host's ``perf_counter`` wall
+    (``wall_ms``) is printed beside it: it is another clock than the one
+    the device timestamps are converted to, so a card busy through the
+    whole call can show more busy time than that wall. The device time
+    outside the range is printed."""
+    window = [(e.time_range.start, e.time_range.end) for e in prof.events()
+              if e.name == PROFILE_WINDOW
+              and e.device_type != torch.autograd.DeviceType.CUDA]
+    if len(window) != 1:
+        raise AssertionError(f'{label}: {len(window)} host ranges named '
+                             f'{PROFILE_WINDOW} in the trace, not 1')
+    (lo, hi), = window
     events = {}
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and e.name != PROFILE_WINDOW
+                and not getattr(e, 'is_user_annotation', False)):
             events[(e.name, e.thread, e.time_range.start,
                     e.time_range.end)] = e
     if not events:
@@ -2379,17 +2431,24 @@ def report_profile(label, prof, wall_ms, card):
     for (name, _, start, end) in events:
         by_name[name] = by_name.get(name, 0.0) + (end - start) / 1e3
     summed = sum(by_name.values())
-    busy = busy_ms((start, end) for (_, _, start, end) in events)
+    inside = [(max(start, lo), min(end, hi))
+              for (_, _, start, end) in events if end > lo and start < hi]
+    busy = busy_ms(inside)
+    outside = summed - sum(end - start for start, end in inside) / 1e3
+    span = (hi - lo) / 1e3
     streams = len({thread for (_, thread, _, _) in events})
     listed = sum(1 for e in prof.events()
                  if e.device_type == torch.autograd.DeviceType.CUDA)
-    print(f'profiled {label}: wall {wall_ms:.3f} ms, device busy '
+    print(f'profiled {label}: wall {span:.3f} ms on the profiler\'s clock '
+          f'({wall_ms:.3f} ms by the host\'s perf_counter), device busy '
           f'{busy:.3f} ms (union of {len(events)} device events on '
-          f'{streams} streams; {listed} listed; their durations sum to '
-          f'{summed:.3f} ms), idle share {1 - busy / wall_ms:.4f} [{card}]')
-    if busy > wall_ms:
+          f'{streams} streams, clipped to the call\'s host range; {listed} '
+          f'listed; their durations sum to {summed:.3f} ms, '
+          f'{outside:.3f} ms of it outside the range), idle share '
+          f'{1 - busy / span:.4f} [{card}]')
+    if busy > span:
         raise AssertionError(f'{label}: device busy time {busy:.3f} ms '
-                             f'exceeds the wall time {wall_ms:.3f} ms')
+                             f'exceeds the wall time {span:.3f} ms')
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:14]:
         print(f'  {ms:9.3f} ms  {ms / summed:6.1%}  {name[:90]}')
     # Where the summed durations exceed the union: each event's span that
@@ -5954,13 +6013,466 @@ def w2v2_phases(port, workdir, dev, card):
     return records
 
 
+# The codec slice (phases 27-29): the encodec and dac heads at the mel
+# head's width (C = 256, 2 heads of 128, FFN 2048, 5 layers; input channels
+# 128 and 96) on seeded codebooks at the published shapes: EnCodec-24 kHz's
+# 32 RVQ levels of 1024 x 128 (summed; every level that
+# scripts/convert_codebooks.py extracts) and DAC-16 kHz's 12 levels of
+# 1024 x 8 (concatenated to 96)
+CODEC_BOOKS = {'encodec': (32, 1024, 128, 'sum'),
+               'dac': (12, 1024, 8, 'concat')}
+CODEC_BATCH, CODEC_FRAMES = 64, 800     # 128 windows of 500 frames
+CODEC_CPU_ROWS = 4
+CODEC_FILES, CODEC_STEPS = 40, 3
+CODEC_FT_ROWS, CODEC_FT_T = 2, 500
+# The rate-0 step against the CPU: phase 26's limits, but the share of the
+# parameters that may move 2 lr apart after Adam holds the key biases (1280
+# of the head's 6.8 M): softmax ignores them, so their gradient is rounding
+# noise whose sign Adam's first step takes. Gradients whose norm on the CPU
+# is below CODEC_NOISE_NORM of the largest are such noise, held to that
+# reach in absolute terms
+CODEC_PARAM_SHARE, CODEC_NOISE_NORM = 1e-3, 1e-5
+# evaluate.datasets(config='encodec') on the card against device='cpu': the
+# target counts equal; in fp32 (plain PyTorch on both) the loss and JSD
+# sums within rtol 1e-5 and the true positives within CODEC_EVAL_FLIPS of
+# the frames (argmax ties); in bf16 (K1-K4 against their plain versions)
+# the loss and JSD within CODEC_EVAL_BF16_RTOL and the true positives
+# within EVAL_BF16_FLIPS of the frames
+CODEC_EVAL_FLIPS, CODEC_EVAL_BF16_RTOL = 1e-3, 1e-2
+PLOT_SECONDS = (2.3, 3.7, 5.2, 6.8)
+PROFILE_BATCH = 8
+
+
+def codec_setup(port, workdir):
+    """Seeded codebooks at the published shapes as npz files in a temporary
+    directory that ``frontend.CODEBOOK_DIR`` points at (nothing is written
+    under ppgs_tpu/assets/), read back through ``frontend._load``; seeded
+    head weights for each codec and the mel head in temporary npz files.
+    Returns {name: head npz}."""
+    frontend = port.frontend
+    books_dir = Path(workdir) / 'codebooks'
+    books_dir.mkdir()
+    frontend.CODEBOOK_DIR = books_dir
+    rng = np.random.default_rng(SEED + 27)
+    paths = {}
+    for i, (name, (Q, V, D, mode)) in enumerate(CODEC_BOOKS.items()):
+        # unit-variance latents: a sum of Q levels is scaled by 1/sqrt(Q)
+        scale = 1 / math.sqrt(Q) if mode == 'sum' else 1.0
+        books = (scale * rng.standard_normal((Q, V, D))).astype(np.float32)
+        np.savez(books_dir / f'{name}.npz', codebooks=books, mode=mode)
+        frontend.unregister(name)
+        loaded, loaded_mode = frontend._load(name)
+        if (loaded_mode != mode or loaded.device.type != 'cpu'
+                or not np.array_equal(loaded.numpy(), books)):
+            raise AssertionError(f'{name}: _load did not read the npz back')
+        config = port.config.get(name)
+        width = D if mode == 'sum' else Q * D
+        if config.input_channels != width:
+            raise AssertionError(f'{name}: {width} latent channels, the '
+                                 f'config takes {config.input_channels}')
+        paths[name] = Path(workdir) / f'{name}-head.npz'
+        port.load.save_params(paths[name],
+                              random_params(port, config, SEED + 27 + i))
+        print(f'{name}: codebooks ({Q}, {V}, {D}) \'{mode}\' -> '
+              f'{config.input_channels} channels, read through _load from '
+              f'{books_dir}', flush=True)
+    paths['mel'] = Path(workdir) / 'mel-head-29.npz'
+    port.load.save_params(paths['mel'], random_params(
+        port, port.config.get('mel'), SEED + 29))
+    return paths
+
+
+def codec_batch(config, B, T, gen, dev):
+    """Seeded int32 codes (B, Q, T) on the card with ragged lengths (the
+    first row whole), zero past each row's length as the collate pads
+    them; and the lengths."""
+    Q, V = CODEC_BOOKS[config.frontend][:2]
+    codes = torch.randint(0, V, (B, Q, T), generator=gen, device=dev,
+                          dtype=torch.int32)
+    lengths = T - torch.randint(0, T // 2, (B,), generator=gen, device=dev)
+    lengths[0] = T
+    codes *= (torch.arange(T, device=dev) < lengths[:, None])[:, None]
+    return codes, lengths.cpu().numpy()
+
+
+def codec_inference(port, paths, dev, gen, card):
+    """Phase 27: decode_codes on the card against the CPU; then
+    from_features under each codec config at 64 x 800 frames: exact K1-K4
+    launches, the PPGs against device='cpu', audio-s/s and a profile."""
+    counters = inference_counters()
+    want = {name: 5 for name in counters}
+    want_widths = {'qkv_proj': {256: 5}, 'attention': {128: 5},
+                   'out_proj_residual_ln': {256: 5},
+                   'ffn_residual_ln': {256: 5}}
+    for name in CODEC_BOOKS:
+        config = port.config.get(name)
+        codes, lengths = codec_batch(config, CODEC_BATCH, CODEC_FRAMES, gen,
+                                     dev)
+        books, mode = port.frontend._load(name)
+        got = port.frontend.decode_codes(codes, books.to(dev), mode)
+        host = port.frontend.decode_codes(codes.cpu(), books, mode)
+        if mode == 'concat':
+            if not torch.equal(got.cpu(), host):
+                raise AssertionError(f'{name} decode_codes: the card\'s '
+                                     f'latents are not the CPU\'s')
+            print(f'{name} decode_codes ({mode}) {tuple(got.shape)}: the '
+                  f'card\'s bit for bit the CPU\'s', flush=True)
+        else:
+            check(f'{name} decode_codes ({mode}) {tuple(got.shape)}, card '
+                  f'against CPU', got.cpu(), host, atol=0.0, rtol=1e-6)
+        decode_ms = time_ms(lambda: port.frontend.decode_codes(
+            codes, books.to(dev), mode), reps=10)
+        print(f'{name} decode_codes on the card: {decode_ms:.4f} ms (median '
+              f'of 10, CUDA events) [{card}]', flush=True)
+        del got, host
+
+        call = dict(config=config, checkpoint=paths[name])
+
+        def from_features(c=codes, n=lengths, **kw):
+            return port.from_features(c, n, **{**call, **kw})
+
+        set_counts(counters)
+        ppg = from_features()
+        launches, widths = read_counts(counters)
+        print(f'launches in one {name} from_features call ({CODEC_BATCH} x '
+              f'{CODEC_FRAMES} frames): {launches}, by width: {widths}',
+              flush=True)
+        if launches != want or widths != want_widths:
+            raise AssertionError(f'{name} launches {launches} {widths}, not '
+                                 f'{want} {want_widths}')
+        check_ppg(f'{name} from_features', ppg, codes,
+                  (CODEC_BATCH, 40, CODEC_FRAMES))
+        rows, n = codes[:CODEC_CPU_ROWS].cpu(), lengths[:CODEC_CPU_ROWS]
+        fp32 = config.replace(compute_dtype='float32')
+        agree_decided(f'{name} from_features, {CODEC_CPU_ROWS} x '
+                      f'{CODEC_FRAMES} frames, against device=cpu',
+                      ppg[:CODEC_CPU_ROWS],
+                      from_features(rows, n, device='cpu'),
+                      from_features(rows, n, device='cpu', config=fp32),
+                      card)
+        del ppg
+        path_metrics(f'{name} from_features {CODEC_BATCH} x {CODEC_FRAMES} '
+                     f'frames ({CODEC_BATCH * CODEC_FRAMES // 100} audio-s)',
+                     from_features, CODEC_BATCH * CODEC_FRAMES / 100, card)
+
+
+def codec_corpus(port, root, card):
+    """Phase 28's data: phase 18's recipe for CODEC_FILES wav files and
+    TextGrids, the partitions, and beside each TextGrid a cache of seeded
+    int32 codes per codec, (Q, frames), written by save_masked."""
+    config = port.config.get('mel')
+    cache = root / 'cache' / 'commonvoice'
+    samples = data_corpus(port, config, cache, CODEC_FILES)
+    port.partition.datasets(['commonvoice'])
+    rng = np.random.default_rng(SEED + 28)
+    for stem, n in samples.items():
+        frames = n // config.hopsize
+        for name, (Q, V, _, _) in CODEC_BOOKS.items():
+            codes = rng.integers(0, V, (Q, frames + 3)).astype(np.int32)
+            port.preprocess.save_masked(codes, cache / f'{stem}-{name}.npy',
+                                        frames)
+    cached = np.load(cache / f'{stem}-dac.npy')
+    if cached.dtype != np.int32 or cached.shape != (12, frames):
+        raise AssertionError(f'save_masked wrote {cached.dtype} '
+                             f'{cached.shape}, not int32 (12, {frames})')
+    print(f'corpus: {len(samples)} wav files, TextGrids and int32 code '
+          f'caches per codec ({sum(samples.values()) / 16000:.1f} audio-s)',
+          flush=True)
+
+
+def codec_cpu_step(port, name, dev, card):
+    """One step at every rate 0 in fp32 on CODEC_FT_ROWS rows of codes, on
+    the card and with device='cpu' from the same weights: the loss, every
+    gradient and the parameters after Adam (phase 26's limits)."""
+    config = port.config.get(name).replace(compute_dtype='float32',
+                                           dropout=0.0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 28)
+    codes, lengths = codec_batch(config, CODEC_FT_ROWS, CODEC_FT_T, gen, dev)
+    targets = torch.randint(0, 40, (CODEC_FT_ROWS, CODEC_FT_T),
+                            generator=gen, device=dev)
+    targets = targets.masked_fill(torch.arange(CODEC_FT_T, device=dev)
+                                  >= torch.as_tensor(lengths, device=dev)
+                                  [:, None], -100)
+    results = []
+    core = port.train.core
+    for device in (dev, torch.device('cpu')):
+        model = core.init_model(config, device,
+                                torch.Generator().manual_seed(SEED + 28))
+        optimizer = core.make_optimizer(model.parameters(), config)
+        step = core.make_train_step(model, config, optimizer)
+        grads, original = {}, optimizer.step
+
+        def keep_grads(*a, **k):
+            grads.update({n: p.grad.detach().cpu().clone()
+                          for n, p in model.named_parameters()})
+            return original(*a, **k)
+
+        optimizer.step = keep_grads
+        batch = core._to_device((codes, targets, lengths), device)
+        loss, _ = step(*batch, seed=5)
+        results.append((float(loss), grads, {
+            n: p.detach().cpu() for n, p in model.named_parameters()}))
+    (loss, grads, params), (loss_cpu, grads_cpu, params_cpu) = results
+    norms = {n: grads_cpu[n].norm().item() for n in grads}
+    floor = CODEC_NOISE_NORM * max(norms.values())
+    noise = sorted(n for n in grads if norms[n] < floor)
+    apart = {n: (grads[n] - grads_cpu[n]).norm().item() for n in grads}
+    worst, worst_name = max((apart[n] / norms[n], n) for n in grads
+                            if n not in noise)
+    noise_worst = max((apart[n] / floor for n in noise), default=0.0)
+    lr = config.learning_rate
+    diff = check(f'{name} rate-0 step: the parameters after Adam',
+                 torch.cat([params[n].flatten() for n in params]),
+                 torch.cat([params_cpu[n].flatten() for n in params]),
+                 FT_CPU_PARAM_ATOL, share=CODEC_PARAM_SHARE,
+                 outlier=2 * lr + 1e-6, quiet=True)
+    print(f'{name} step at rate 0, fp32, {CODEC_FT_ROWS} x {CODEC_FT_T} '
+          f'frames of codes, card against device=cpu: loss {loss:.6f} / '
+          f'{loss_cpu:.6f}, gradients within relative L2 {worst:.3g} '
+          f'({worst_name}; <= {FT_CPU_GRAD_REL}; {len(noise)} tensors of '
+          f'rounding noise '
+          f'{noise[:3]}... apart by {noise_worst:.3g} of {CODEC_NOISE_NORM} '
+          f'of the largest norm, <= 1), '
+          f'parameters after Adam max |diff| {diff:.3g} (atol '
+          f'{FT_CPU_PARAM_ATOL}, at most {CODEC_PARAM_SHARE} of them within '
+          f'2 lr) [{card}]', flush=True)
+    if not abs(loss - loss_cpu) <= 1e-4 * abs(loss_cpu):
+        raise AssertionError(f'{name} rate-0 step: loss {loss} on the card, '
+                             f'{loss_cpu} on the cpu')
+    if worst > FT_CPU_GRAD_REL or noise_worst > 1:
+        raise AssertionError(f'{name} rate-0 step: a gradient {worst:.3g} '
+                             f'apart (relative L2), or noise {noise_worst:.3g}')
+
+
+def codec_evaluate(port, checkpoint, card):
+    """evaluate.datasets(config='encodec') on the test partition, on the
+    card against device='cpu', in fp32 and bf16 (K1-K4 launched); the
+    figures written where matplotlib imports."""
+    counters = inference_counters()
+    config = port.config.get('encodec')
+    for dtype, flips, rtol in (
+            ('float32', CODEC_EVAL_FLIPS, 1e-5),
+            ('bfloat16', EVAL_BF16_FLIPS, CODEC_EVAL_BF16_RTOL)):
+        run = config.replace(compute_dtype=dtype)
+        set_counts(counters)
+        start = time.perf_counter()
+        card_results = port.evaluate.datasets(['commonvoice'],
+                                              checkpoint=checkpoint,
+                                              config=run)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        launches, _ = read_counts(counters)
+        if dtype == 'bfloat16' and min(launches.values()) == 0:
+            raise AssertionError(f'evaluate.datasets(encodec): a kernel '
+                                 f'never launched: {launches}')
+        cpu_results = port.evaluate.datasets(['commonvoice'],
+                                             checkpoint=checkpoint,
+                                             config=run, device='cpu')
+        frames = sum(v for k, v in cpu_results['aggregate'].items()
+                     if k.startswith('Count/'))
+        for key in ('commonvoice', 'aggregate'):
+            worst, moved = eval_apart(f'encodec {dtype} {key}',
+                                      card_results[key], cpu_results[key],
+                                      False, rtol)
+            if moved > flips * frames:
+                raise AssertionError(f'encodec {dtype} {key}: {moved} true '
+                                     f'positives moved (<= {flips * frames})')
+        print(f'evaluate.datasets(config=encodec, {dtype}) on the card: '
+              f'{wall:.3f} s wall, launches {launches}; against '
+              f'device=cpu on {frames:.0f} frames: target counts equal, '
+              f'{moved:.0f} true positives moved (<= {flips * frames:.0f}), '
+              f'loss and JSD within {worst:.3g} relative (<= {rtol}); '
+              f'accuracy '
+              f'{card_results["aggregate"]["Accuracy"]:.4f} [{card}]',
+              flush=True)
+    eval_dir = port.config.EVAL_DIR / 'encodec'
+    wanted = [eval_dir / 'commonvoice.json', eval_dir / 'overall.json',
+              eval_dir / 'commonvoice' / 'tensors.npz']
+    drawn = port.evaluate.metrics.figures_available()
+    if drawn:
+        wanted += [eval_dir / 'commonvoice' / f'{figure}.{suffix}'
+                   for figure in ('ConfusionMatrix', 'DistanceMatrix')
+                   for suffix in ('jpg', 'pdf')]
+    missing = [str(p) for p in wanted if not p.exists()]
+    if missing:
+        raise AssertionError(f'evaluate.datasets did not write {missing}')
+    print(f'the JSON files and tensors.npz written'
+          f'{", and the four figure files" if drawn else "; matplotlib is absent: no figure drawn (host work, held by the CPU tests)"}',
+          flush=True)
+
+
+def codec_training(port, paths, root, dev, card):
+    """Phase 28: the code corpus; train(config=encodec) and (config=dac)
+    from its caches, each step's path and launches exact; the rate-0 step
+    against the CPU; evaluate.datasets(config='encodec') against the CPU."""
+    codec_corpus(port, root, card)
+    counters = train_counters()
+    core = port.train.core
+    checkpoints = {}
+    for name in CODEC_BOOKS:
+        config = port.config.get(name)
+        steps = []
+        set_counts(counters)
+        original = recording_steps(core, steps, counters)
+        try:
+            start = time.perf_counter()
+            port.train.train('commonvoice', root / 'runs' / name,
+                             config=config, max_steps=CODEC_STEPS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - start
+        finally:
+            core.make_train_step = original
+        launches, _ = read_counts(counters)
+        print(f'train(\'commonvoice\', config={name!r}) from the code '
+              f'caches: {len(steps)} steps with the step-0 evaluation, '
+              f'{wall:.3f} s [{card}]', flush=True)
+        if len(steps) != CODEC_STEPS:
+            raise AssertionError(f'the run took {len(steps)} steps')
+        check_data_steps(port, config, name, steps)
+        print(f'the train kernels\' launches in the run: {launches}',
+              flush=True)
+        checkpoints[name] = core.latest_checkpoint(root / 'runs' / name)
+        codec_cpu_step(port, name, dev, card)
+    codec_evaluate(port, checkpoints['encodec'], card)
+
+
+def codec_plots(port, paths, root, dev, gen, card):
+    """Phase 29: plot.from_files_to_files from seeded wavs with the mel
+    head (K1-K4 launched; each plotted PPG from_file's on the card bit for
+    bit; the PNG's cells its pixels where PIL imports); profiling.trace
+    around one from_audio call (K1-K4 named in the Chrome trace); python -m
+    ppgs_tpu_torch.plot.accuracy on phase 28's JSONs where matplotlib
+    imports."""
+    import importlib.util
+
+    plot_core = port.plot.core
+    config = port.config.get('mel')
+    folder = root / 'plots'
+    folder.mkdir()
+    rng = np.random.default_rng(SEED + 29)
+    wavs = []
+    for i, seconds in enumerate(PLOT_SECONDS):
+        wavs.append(folder / f'p{i}.wav')
+        port.data.audio.save_wav(wavs[-1], (0.1 * rng.standard_normal(
+            (1, int(seconds * 16000)))).astype(np.float32))
+    outs = [folder / f'p{i}.png' for i in range(len(wavs))]
+    pil = importlib.util.find_spec('PIL') is not None
+    plotted, draw = [], plot_core.from_ppg_to_image_file
+
+    def recording(ppg, output_file, *args, **kwargs):
+        plotted.append(np.array(ppg))
+        if pil:
+            draw(ppg, output_file, *args, **kwargs)
+
+    counters = inference_counters()
+    plot_core.from_ppg_to_image_file = recording
+    try:
+        set_counts(counters)
+        start = time.perf_counter()
+        port.plot.from_files_to_files(outs, audio_files=wavs,
+                                      checkpoint=paths['mel'])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        launches, _ = read_counts(counters)
+    finally:
+        plot_core.from_ppg_to_image_file = draw
+    print(f'plot.from_files_to_files from {len(wavs)} wav files '
+          f'({sum(PLOT_SECONDS):.1f} audio-s) with the mel head: {wall:.3f} s '
+          f'wall, launches {launches} [{card}]', flush=True)
+    if launches != {name: 5 * len(wavs) for name in counters}:
+        raise AssertionError(f'plot launches {launches}, not 5 a file')
+    for wav, out, ppg in zip(wavs, outs, plotted):
+        want = port.from_file(wav, checkpoint=paths['mel']).cpu().numpy()
+        if not np.array_equal(ppg, want):
+            raise AssertionError(f'{wav.name}: the plotted PPG is not '
+                                 f'from_file\'s on the card')
+        if pil:
+            from PIL import Image
+
+            with Image.open(out) as image:
+                pixels = np.asarray(image.convert('RGB'))
+            cells = pixels[::plot_core.CELL_HEIGHT,
+                           plot_core.LABEL_WIDTH::plot_core.CELL_WIDTH, 0]
+            if not np.array_equal(cells, plot_core._ppg_to_pixels(want)):
+                raise AssertionError(f'{out.name}: its cells are not the '
+                                     f'PPG\'s pixels')
+    print(f'each plotted PPG from_file\'s on the card bit for bit'
+          f'{", each PNG" + chr(39) + "s cells its pixels" if pil else "; PIL is absent: no PNG drawn (drawing is host work, held by the CPU tests)"}',
+          flush=True)
+
+    audio = 0.1 * torch.randn(PROFILE_BATCH, 1, SECONDS * 16000,
+                              generator=gen, device=dev)
+    with port.utils.profiling.trace(root / 'trace') as log_dir:
+        with port.utils.profiling.annotate('from_audio'):
+            port.from_audio(audio, 16000, checkpoint=paths['mel'])
+    path = port.utils.profiling.trace.path
+    events = json.loads(path.read_text())['traceEvents']
+    kernels = [e['name'] for e in events if e.get('cat') == 'kernel']
+    named = {key: sum(key in k for k in kernels) for key in (
+        'qkv_proj_kernel', 'attention_kernel<', 'out_proj_ln_kernel',
+        'ffn_fused_kernel')}
+    print(f'profiling.trace around from_audio ({PROFILE_BATCH} x {SECONDS} '
+          f's): {path.name} in {log_dir}, {path.stat().st_size:,} bytes, '
+          f'{len(events)} events, {len(kernels)} kernel events; K1-K4 '
+          f'named: {named}', flush=True)
+    if min(named.values()) == 0 or not any(
+            e.get('name') == 'from_audio' for e in events):
+        raise AssertionError('the trace does not name K1-K4 and the '
+                             'annotated region')
+
+    if importlib.util.find_spec('matplotlib') is None:
+        print('matplotlib is absent: python -m ppgs_tpu_torch.plot.accuracy '
+              'not run (host work, held by the CPU tests)', flush=True)
+        return
+    chart = root / 'eval' / 'accuracy.png'
+    start = time.perf_counter()
+    subprocess.run([sys.executable, '-m', 'ppgs_tpu_torch.plot.accuracy',
+                    '--output_file', str(chart), '--datasets', 'commonvoice',
+                    '--representations', *CODEC_BOOKS],
+                   cwd=Path(__file__).resolve().parent, check=True,
+                   env={**os.environ, 'PPGS_ROOT_DIR': str(root)})
+    if not chart.exists() or not chart.stat().st_size:
+        raise AssertionError('the accuracy chart was not written')
+    print(f'python -m ppgs_tpu_torch.plot.accuracy on phase 28\'s JSONs: '
+          f'{chart.name}, {chart.stat().st_size:,} bytes, '
+          f'{time.perf_counter() - start:.1f} s', flush=True)
+
+
+def codec_phases(port, workdir, dev, card):
+    """Phases 27-29: the codec slice (no kernel of its own: the codec heads
+    run K1-K4 and the train kernels at the mel head's width)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 27)
+    root = Path(workdir) / 'codec'
+    books_dir = port.frontend.CODEBOOK_DIR
+    saved = point_data_dirs(port, root)
+    try:
+        phase(f'27 the codec heads\' inference: decode_codes and '
+              f'from_features(config=encodec, dac) on {CODEC_BATCH} x '
+              f'{CODEC_FRAMES} frames of codes (main path)')
+        paths = codec_setup(port, workdir)
+        codec_inference(port, paths, dev, gen, card)
+        torch.cuda.empty_cache()
+        phase(f'28 train(config=encodec, dac) from {CODEC_FILES} code caches '
+              f'and evaluate.datasets(config=encodec)')
+        codec_training(port, paths, root, dev, card)
+        phase('29 plot.from_files_to_files, profiling.trace and python -m '
+              'ppgs_tpu_torch.plot.accuracy')
+        codec_plots(port, paths, root, dev, gen, card)
+    finally:
+        for name, value in saved.items():
+            setattr(port.config, name, value)
+        port.frontend.CODEBOOK_DIR = books_dir
+        for name in CODEC_BOOKS:
+            port.frontend.unregister(name)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('--slices',
                         default='mel,train,w2v2fb,bottleneck,api,data,'
-                        'head_train,w2v2',
+                        'head_train,w2v2,codec',
                         help='comma-separated subset of mel,train,w2v2fb,'
-                        'bottleneck,api,data,head_train,w2v2')
+                        'bottleneck,api,data,head_train,w2v2,codec')
     slices = set(parser.parse_args().slices.split(','))
     if not torch.cuda.is_available():
         sys.exit('chip_smoke.py needs a CUDA device; none is available')
@@ -6013,6 +6525,8 @@ def main():
         records += head_train_phases(port, workdir.name, dev, card)
     if 'w2v2' in slices:
         records += w2v2_phases(port, workdir.name, dev, card)
+    if 'codec' in slices:
+        codec_phases(port, workdir.name, dev, card)
     phase()
     if assets_digest() != digest:
         raise AssertionError('a file under ppgs_tpu/assets/ changed')

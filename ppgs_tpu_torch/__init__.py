@@ -1,15 +1,17 @@
 """ppgs_tpu_torch: the PyTorch/CUDA port of ppgs_tpu for NVIDIA Hopper.
 
 Phonetic posteriorgrams on an H100: the mel, w2v2fb (wav2vec2-base),
-bottleneck (ESPnet conformer) and spectrogram frontends, the transformer
-and convolution models, the inference API and its CLI (``python -m
-ppgs_tpu_torch``), PPG algebra and editing, the data pipeline (datasets,
-samplers, the loader, partitions, feature caching), single-device training
-and evaluation,
-with every TPU kernel of the JAX package rewritten by hand in CUDA C++
-(``kernels/csrc``). The JAX package ``ppgs_tpu`` is the
-reference this package is tested against; this package never imports it
-(nor JAX). What is ported so far, and what is still to come, is listed in
+w2v2fc (Charsiu), bottleneck (ESPnet conformer), spectrogram and codec
+(encodec, dac: int codes and their codebook frontend) frontends, the
+transformer, convolution and wav2vec2 models, the inference API and its
+CLI (``python -m ppgs_tpu_torch``), PPG algebra and editing, the data
+pipeline (datasets, samplers, the loader, partitions, feature caching),
+single-device training and evaluation with their figures, plotting
+(``plot``, ``python -m ppgs_tpu_torch.plot``) and profiling
+(``utils.profiling``), with every TPU kernel of the JAX package rewritten
+by hand in CUDA C++ (``kernels/csrc``). The JAX package ``ppgs_tpu`` is
+the reference this package is tested against; this package never imports
+it (nor JAX). What is still to come (the parallel layer) is listed in
 ROADMAP.md.
 """
 
@@ -31,10 +33,12 @@ from . import edit
 from . import convert
 from . import data
 from . import evaluate
+from . import frontend
 from . import kernels
 from . import load
 from . import native
 from . import partition
+from . import plot
 from . import preprocess
 from . import train
 from .core import (

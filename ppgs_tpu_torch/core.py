@@ -29,6 +29,7 @@ import torch
 
 from . import config as config_mod
 from . import devices
+from . import frontend as frontend_mod
 from . import load as load_mod
 from . import preprocess
 from .models import transformer as transformer_model
@@ -74,10 +75,17 @@ def infer(features, lengths, representation='mel', checkpoint=None,
     base_config = config_mod.get(config)
     if base_config.representation_kind == 'latents':
         return features
-    config_mod.require_no_frontend(base_config)
     model, config = _get_model(representation, checkpoint, base_config,
                                device)
 
+    if (config.frontend is not None
+            and representation == config.representation):
+        # Codebook FRONTEND: encodec / dac features are cached int codes,
+        # dequantized to latents on the device before the extent mask
+        # (reference ppgs/core.py:105-115). Padded code frames inside the
+        # extent decode to the sum of each level's code 0, as in JAX
+        features = frontend_mod.make_frontend(config.frontend)(
+            torch.as_tensor(features).to(device))
     features = torch.as_tensor(features).to(device, torch.float32)
     lengths = torch.as_tensor(np.asarray(lengths), dtype=torch.int64,
                               device=device)

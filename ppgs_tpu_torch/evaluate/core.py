@@ -5,10 +5,10 @@ ppgs/evaluate/core.py:16-107); the counterpart of
 Runs each dataset's test loader through the inference stack
 (``from_features``, logits) on the device and accumulates per-dataset and
 aggregate metrics; writes ``EVAL_DIR/<config>/<name>.json``,
-``overall.json`` and each one's ``tensors.npz`` (the metric accumulators).
-Not ported yet: the confusion and distance figures (the plotting module,
-ROADMAP.md A13) and the cross-process aggregation (A14; one process holds
-every batch).
+``overall.json`` and, under ``<name>/``, the confusion and distance figures
+(``.jpg`` and ``.pdf``, where matplotlib imports) beside ``tensors.npz``
+(the metric accumulators). Not ported yet: the cross-process aggregation
+(ROADMAP.md A14; one process holds every batch and draws the figures).
 """
 
 import json
@@ -19,7 +19,7 @@ import numpy as np
 from .. import config as config_mod
 from .. import devices
 from ..utils import notify as _notify_mod
-from .metrics import Metrics
+from .metrics import Metrics, close_figures, figures_available
 
 
 @_notify_mod.notify('evaluate')
@@ -28,7 +28,8 @@ def datasets(names=None, checkpoint=None, config=None, max_batches=None,
     """Evaluate on datasets' test partitions; returns the results dict
     ({name: scalars, 'aggregate': scalars}). ``device``: None means the
     card, raising without one before any file is read; the metrics
-    accumulate there too. No figure is written."""
+    accumulate there too. The figures are drawn where matplotlib imports
+    (``metrics.figures_available``)."""
     from ..core import from_features
     from ..data import loader as data_loader
 
@@ -36,13 +37,16 @@ def datasets(names=None, checkpoint=None, config=None, max_batches=None,
     config = config_mod.get(config)
     names = names or list(config.datasets)
 
-    aggregate = Metrics(config=config, device=device)
+    figures = figures_available()
+    aggregate = Metrics(include_figures=figures, config=config,
+                        device=device)
     results = {}
     eval_dir = config_mod.EVAL_DIR / config.config
     eval_dir.mkdir(parents=True, exist_ok=True)
 
     for name in names:
-        metrics = Metrics(config=config, device=device)
+        metrics = Metrics(include_figures=figures, config=config,
+                          device=device)
         loader = data_loader(
             name, 'test',
             features=[config.representation, 'phonemes', 'length'],
@@ -57,14 +61,22 @@ def datasets(names=None, checkpoint=None, config=None, max_batches=None,
                 break
         aggregate.state = {key: aggregate.state[key] + value
                            for key, value in metrics.state.items()}
-        results[name] = metrics()
+        full = metrics()
+        results[name] = scalars_of(full)
         save(results[name], eval_dir / f'{name}.json')
-        save_artifacts(metrics.state, name, eval_dir)
+        save_artifacts(full, metrics.state, name, eval_dir)
 
-    results['aggregate'] = aggregate()
+    full = aggregate()
+    results['aggregate'] = scalars_of(full)
     save(results['aggregate'], eval_dir / 'overall.json')
-    save_artifacts(aggregate.state, 'overall', eval_dir)
+    save_artifacts(full, aggregate.state, 'overall', eval_dir)
     return results
+
+
+def scalars_of(results):
+    """The scalars of a Metrics result (its figures left out)."""
+    return {key: value for key, value in results.items()
+            if isinstance(value, (int, float))}
 
 
 def save(scalars, path):
@@ -72,12 +84,21 @@ def save(scalars, path):
         json.dump(scalars, file, indent=2, sort_keys=True)
 
 
-def save_artifacts(state, name, directory):
-    """Save the accumulated metric tensors as {directory}/{name}/
-    tensors.npz (reference ppgs/evaluate/core.py:77-107 saves them as
-    .pt beside the figures)."""
+def save_artifacts(results, state, name, directory):
+    """Save the confusion and distance figures of ``results`` (jpg + pdf,
+    closed after) and the accumulated metric tensors (tensors.npz) under
+    {directory}/{name}/, under the JAX package's names (reference
+    ppgs/evaluate/core.py:77-107 saves the tensors as .pt)."""
     out_dir = Path(directory) / name
     out_dir.mkdir(parents=True, exist_ok=True)
+    figures = [(metric, value) for metric, value in results.items()
+               if not isinstance(value, (int, float))]
+    for metric, figure in figures:
+        stem = metric.replace('/', '-')
+        for suffix in ('jpg', 'pdf'):
+            figure.savefig(out_dir / f'{stem}.{suffix}', bbox_inches='tight',
+                           pad_inches=0)
+    close_figures(figure for _, figure in figures)
     tensors = {key: value.cpu().numpy() for key, value in state.items()
                if value.ndim >= 1}
     np.savez(out_dir / 'tensors.npz', **tensors)

@@ -3,12 +3,13 @@
 Counterpart of the accumulators of ``ppgs_tpu/evaluate/metrics.py``: the
 metric state is a dict of sums (``init_state``), ``_update`` adds one
 batch's contribution to every metric at once, and ``Metrics`` turns the
-sums into the reference's scalars. The figures (confusion and distance
-matrices) wait for the plotting module (ROADMAP.md A13): asking for them
-raises.
+sums into the reference's scalars and, with ``include_figures``, its
+confusion and distance figures (matplotlib, imported only when a figure is
+drawn, with the Agg backend).
 """
 
 import functools
+import importlib.util
 
 import numpy as np
 import torch
@@ -128,10 +129,7 @@ class Metrics:
     """Stateful wrapper with the reference's dict-of-scalars interface."""
 
     def __init__(self, include_figures=False, config=None, device=None):
-        if include_figures:
-            raise NotImplementedError(
-                'Metrics figures need the plotting module, which is not '
-                'ported to ppgs_tpu_torch yet (ROADMAP.md A13)')
+        self.include_figures = include_figures
         self.config = config_mod.get(config)
         self.device = torch.device('cpu' if device is None else device)
         self.similarity = torch.from_numpy(similarity_matrix()).to(
@@ -176,4 +174,77 @@ class Metrics:
                 s['class_totals'][i]) / denom
             results[f'Total/{phoneme}'] = float(s['class_totals'][i])
             results[f'Count/{phoneme}'] = float(s['class_counts'][i])
+        if self.include_figures:
+            results['ConfusionMatrix'] = self.confusion_figure(
+                s['prob_confusion'])
+            results['DistanceMatrix'] = self.distance_figure(
+                s['distance_matrix'])
         return results
+
+    @staticmethod
+    def confusion_figure(confusion):
+        """Probability-mass confusion figure (reference
+        metrics.py:255-270)."""
+        plt = _pyplot()
+        row_sums = confusion.sum(axis=1, keepdims=True)
+        normalized = confusion / np.maximum(row_sums, 1e-12)
+        figure, axis = plt.subplots(figsize=(6, 6), dpi=200)
+        axis.matshow(normalized)
+        axis.set_xticks(range(len(PHONEMES)))
+        axis.set_yticks(range(len(PHONEMES)))
+        axis.set_xticklabels(PHONEMES, rotation='vertical', fontsize=5)
+        axis.set_yticklabels(PHONEMES, fontsize=5)
+        axis.set_ylabel('Ground Truth Phoneme')
+        axis.set_xlabel('Model Predicted Probabilities')
+        return figure
+
+    @staticmethod
+    def distance_figure(matrix):
+        """Weighted distance-matrix figure with a PowerNorm render and
+        f/v, s/z, sh/zh highlight boxes (reference metrics.py:301-364)."""
+        plt = _pyplot()
+        from matplotlib.colors import PowerNorm
+
+        row_sums = matrix.sum(axis=1, keepdims=True)
+        normalized = matrix / np.maximum(row_sums, 1e-12)
+        figure, axis = plt.subplots(figsize=(6, 6), dpi=200)
+        image = axis.matshow(normalized, norm=PowerNorm(gamma=1 / 3))
+        axis.set_xticks(range(len(PHONEMES)))
+        axis.set_yticks(range(len(PHONEMES)))
+        axis.set_xticklabels(PHONEMES, rotation='vertical', fontsize=5)
+        axis.set_yticklabels(PHONEMES, fontsize=5)
+        figure.colorbar(image, ax=axis, fraction=0.046)
+
+        padding = 0.7
+        for phone0, phone1 in [('f', 'v'), ('s', 'z'), ('sh', 'zh')]:
+            idx0, idx1 = PHONEMES.index(phone0), PHONEMES.index(phone1)
+            for cx, cy in [(idx0, idx1), (idx1, idx0)]:
+                axis.add_patch(plt.Rectangle(
+                    (cx - padding, cy - padding), 2 * padding, 2 * padding,
+                    facecolor='none', edgecolor='red', linewidth=0.5))
+        return figure
+
+
+def _pyplot():
+    """matplotlib's pyplot on the Agg backend (no display)."""
+    import matplotlib
+
+    matplotlib.use('Agg')
+    from matplotlib import pyplot
+
+    return pyplot
+
+
+def figures_available():
+    """Whether the figures can be drawn: matplotlib imports. Where it
+    does not, the evaluation writes its scalars and tensors only."""
+    return importlib.util.find_spec('matplotlib') is not None
+
+
+def close_figures(figures):
+    """Close matplotlib figures once they are written."""
+    figures = list(figures)
+    if figures:
+        plt = _pyplot()
+        for figure in figures:
+            plt.close(figure)

@@ -3,8 +3,9 @@
 Counterpart of ``ppgs_tpu/train/core.py``: the masked cross-entropy loss,
 Adam (``torch.optim.Adam``, whose update is optax.adam's), a train step
 with the reference's conditional gradient clipping, npz checkpoints in the
-JAX package's layout, scalar logs, and the loop with evaluation,
-checkpointing and save-on-interrupt. bf16 products replace the
+JAX package's layout, scalar logs (and the evaluation's figures in
+tensorboard), and the loop with evaluation, checkpointing and
+save-on-interrupt. bf16 products replace the
 reference's fp16 GradScaler (bf16 needs no loss scaling).
 
 The train step's forward is the model's own (``models.get(config)``) with
@@ -13,14 +14,14 @@ card and their plain versions on the CPU; the W2V2 model's
 (``config='w2v2ft'``) is plain PyTorch, as the JAX package's reaches no
 kernel, with its feature encoder frozen. Dropout (and wav2vec2's
 spec-augment and LayerDrop) is drawn from the Philox stream of a per-step
-seed.
+seed. The encodec and dac configs' int codes are dequantized to latents
+inside the step and the evaluation pass (``frontend.py``).
 
 Without a ``loader_fn`` the batches come from the data loader over the
 dataset's cached features (``data/loader.py``, the JAX package's batches
 index for index, the sampler re-seeded each epoch). Not ported here
-(ROADMAP.md): meshes and multi-device parallelism (A14), the orbax backend
-(A8), the codebook frontend inside the step (A12) and the figures of the
-evaluation pass (A13).
+(ROADMAP.md): meshes and multi-device parallelism (A14) and the orbax
+backend (A8).
 """
 
 import json
@@ -34,9 +35,10 @@ import torch.nn.functional as F
 from .. import config as config_mod
 from .. import convert
 from .. import devices
+from .. import frontend as frontend_mod
 from .. import load as load_mod
 from .. import models
-from ..evaluate.metrics import Metrics
+from ..evaluate.metrics import Metrics, close_figures, figures_available
 from ..utils import notify as _notify_mod
 from . import checkpoint as ckpt
 
@@ -119,8 +121,15 @@ def make_train_step(model, config, optimizer, class_weights=None):
     clip_l2 = config.gradient_clip_threshold_l2
     clip_inf = config.gradient_clip_threshold_inf
     params = list(model.parameters())
+    # Codebook FRONTEND: encodec / dac batches are int codes (cast to fp32
+    # by _to_device), dequantized inside the step (reference
+    # ppgs/train/core.py:115-119); the codebooks are constants
+    codebook_frontend = frontend_mod.maybe_frontend(config)
 
     def step(features, targets, lengths, seed, with_stats=False):
+        if codebook_frontend is not None:
+            with torch.no_grad():
+                features = codebook_frontend(features)
         optimizer.zero_grad(set_to_none=True)
         logits = model(features, lengths, train=True, seed=seed)
         train_loss = loss(logits, targets, config, class_weights)
@@ -232,7 +241,9 @@ class ScalarWriter:
                 f'({type(error).__name__}: {error}); metrics are still '
                 'written to metrics.jsonl')
 
-    def update(self, step, scalars):
+    def update(self, step, scalars, figures=None):
+        """Append the scalars to metrics.jsonl; mirror them and the
+        matplotlib ``figures`` ({tag: figure}) to tensorboard."""
         record = {'step': int(step), 'time': time.time()}
         record.update({k: float(v) for k, v in scalars.items()})
         with open(self.path, 'a') as file:
@@ -240,6 +251,8 @@ class ScalarWriter:
         if self._tb is not None:
             for key, value in scalars.items():
                 self._tb.add_scalar(key, float(value), int(step))
+            for key, figure in (figures or {}).items():
+                self._tb.add_figure(key, figure, int(step))
             self._tb.flush()
 
     def close(self):
@@ -294,7 +307,6 @@ def train(dataset=None, directory=None, config=None, max_steps=None,
     loss and the gradient statistics are logged every ``LOG_INTERVAL``
     steps, as in the JAX package."""
     config = config_mod.get(config)
-    config_mod.require_no_frontend(config)
     device = devices.resolve(device)
     if config.model == 'transformer':
         # raises for a width the card's train kernels do not take yet
@@ -380,23 +392,33 @@ def train(dataset=None, directory=None, config=None, max_steps=None,
 
 def evaluate_partition(writer, step, model, config, loader_fn, partition,
                        evaluation_steps=None):
-    """Evaluation pass writing metric scalars (reference
+    """Evaluation pass writing metric scalars and figures (reference
     train/core.py:288-365): the model's inference forward on its current
     parameters (``convert.prepare_model`` rebuilds its prepared weights
-    first: they are a snapshot, stale after any optimizer step). Scalars
-    only: the figures wait for the plotting module (ROADMAP.md A13)."""
-    config_mod.require_no_frontend(config)
+    first: they are a snapshot, stale after any optimizer step), after the
+    codebook frontend for the encodec and dac configs. The confusion and
+    distance figures go to tensorboard beside the scalars, as the JAX
+    package's do, where matplotlib imports, and are closed after use."""
     device = next(model.parameters()).device
     convert.prepare_model(model)
-    metrics = Metrics(config=config, device=device)
+    codebook_frontend = frontend_mod.maybe_frontend(config)
+    metrics = Metrics(include_figures=figures_available(), config=config,
+                      device=device)
     for i, batch in enumerate(loader_fn(partition)):
         features, targets, lengths = _to_device(batch, device)
         with torch.no_grad():
+            if codebook_frontend is not None:
+                features = codebook_frontend(features)
             logits = model(features, lengths)
         metrics.update(logits, targets)
         if evaluation_steps is not None and i + 1 == evaluation_steps:
             break
-    scalars = {f'{partition}/{k}': v for k, v in metrics().items()}
+    results = metrics()
+    scalars = {f'{partition}/{k}': v for k, v in results.items()
+               if isinstance(v, (int, float))}
+    figures = {f'{partition}/{k}': v for k, v in results.items()
+               if not isinstance(v, (int, float))}
     if writer is not None:
-        writer.update(step, scalars)
+        writer.update(step, scalars, figures)
+    close_figures(figures.values())
     return scalars

@@ -1,1 +1,1 @@
-from . import notify
+from . import notify, profiling

@@ -19,6 +19,8 @@ import torch
 
 import jax.numpy as jnp
 
+import torch_threads  # noqa: F401  (cores shared among xdist workers)
+
 import ppgs_tpu_torch
 from ppgs_tpu.ops import algebra as jax_algebra
 from ppgs_tpu_torch.ops import algebra

@@ -19,6 +19,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (cores shared among xdist workers)
+
 import ppgs_tpu
 import ppgs_tpu_torch
 import ppgs_tpu_torch.__main__ as port_cli

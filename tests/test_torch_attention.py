@@ -15,6 +15,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (cores shared among xdist workers)
+
 from ppgs_tpu.ops import flash_attention as jax_fa
 
 from ppgs_tpu_torch.ops import flash_attention as fa

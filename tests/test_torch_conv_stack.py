@@ -26,6 +26,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (cores shared among xdist workers)
+
 from ppgs_tpu.ops import conv_stack as jax_conv_stack
 
 from ppgs_tpu_torch.ops import conv_stack

@@ -10,6 +10,8 @@ import csv
 import numpy as np
 import pytest
 
+import torch_threads  # noqa: F401  (cores shared among xdist workers)
+
 import ppgs_tpu
 import ppgs_tpu_torch
 from ppgs_tpu.data import datasets as jax_datasets

@@ -15,6 +15,8 @@ import torch
 
 import jax.numpy as jnp
 
+import torch_threads  # noqa: F401  (cores shared among xdist workers)
+
 import ppgs_tpu
 import ppgs_tpu_torch
 from ppgs_tpu.data import textgrid as jax_textgrid

@@ -16,6 +16,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (cores shared among xdist workers)
+
 from ppgs_tpu_torch.ops import dropout, fused_ffn
 
 C = 256

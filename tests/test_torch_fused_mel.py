@@ -8,6 +8,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (cores shared among xdist workers)
+
 import ppgs_tpu_torch
 from ppgs_tpu.ops import stft as jax_stft
 from ppgs_tpu_torch.ops import stft

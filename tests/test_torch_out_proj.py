@@ -22,6 +22,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (cores shared among xdist workers)
+
 from ppgs_tpu.ops import encoder_layer_kernel as jax_elk
 
 from ppgs_tpu_torch import kernels

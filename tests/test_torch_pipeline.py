@@ -22,6 +22,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (cores shared among xdist workers)
+
 import ppgs_tpu
 import ppgs_tpu_torch
 from ppgs_tpu.models import transformer as jax_transformer
@@ -299,7 +301,8 @@ def assert_results_match(got, want):
 @pytest.mark.parametrize('batched', [True, False])
 def test_evaluate_matches_jax(tinyset, checkpoint, batched):
     """evaluate.datasets on the test partition: the results dict, the JSON
-    files and tensors.npz; batched and batch-1 evaluation agree."""
+    files, tensors.npz and the figure files; batched and batch-1
+    evaluation agree."""
     jax_config, port_config = configs(datasets=('tinyset',),
                                       batched_test_eval=batched)
     ppgs_tpu.core._MODEL_CACHE.clear()
@@ -310,6 +313,8 @@ def test_evaluate_matches_jax(tinyset, checkpoint, batched):
                   for p in eval_dir.glob('*.json')}
     want_tensors = {name: dict(np.load(eval_dir / name / 'tensors.npz'))
                     for name in ('tinyset', 'overall')}
+    want_figures = sorted(str(p.relative_to(eval_dir))
+                          for p in eval_dir.rglob('*Matrix.*'))
     shutil.rmtree(eval_dir)
     got = ppgs_tpu_torch.evaluate.datasets(
         ['tinyset'], checkpoint=checkpoint, config=port_config, device='cpu')
@@ -327,7 +332,10 @@ def test_evaluate_matches_jax(tinyset, checkpoint, batched):
                                        atol=1e-5, err_msg=key)
         np.testing.assert_array_equal(saved['confusion'],
                                       tensors['confusion'])
-    assert not list(eval_dir.rglob('*.jpg'))
+    # The figures, under the JAX package's names (jpg and pdf of each)
+    assert sorted(str(p.relative_to(eval_dir))
+                  for p in eval_dir.rglob('*Matrix.*')) == want_figures
+    assert len(want_figures) == 8
     other = ppgs_tpu_torch.evaluate.datasets(
         ['tinyset'], checkpoint=checkpoint, device='cpu',
         config=port_config.replace(batched_test_eval=not batched))

@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (cores shared among xdist workers)
+
 import ppgs_tpu
 import ppgs_tpu_torch
 from ppgs_tpu.models import transformer as jax_transformer
@@ -179,23 +181,21 @@ def test_unported_width_raises_on_the_card(monkeypatch):
 
 def test_only_the_transformer_is_ported():
     """Every model of the JAX package is ported (the transformer, the
-    convolution model, W2V2 and W2V2FC), and every frontend but the codec
-    ones (encodec, dac), which raise naming ROADMAP.md; another
-    representation ('wav', the w2v2ft config's) raises as the JAX package
-    does."""
+    convolution model, W2V2 and W2V2FC), and every frontend, the codec
+    ones (encodec, dac) among them; another representation ('wav', the
+    w2v2ft config's) raises as the JAX package does."""
     models = ppgs_tpu_torch.models
     for name, forward in (('convolution', models.convolution.forward),
                           ('w2v2ft', models.w2v2_ppg.forward),
                           ('w2v2fc-pretrained', models.w2v2_ppg.fc_forward)):
         assert models.get(ppgs_tpu_torch.config.get(name))[1] is forward
     for name in ('mel', 'w2v2fb', 'w2v2fc', 'w2v2ft', 'spectrogram',
-                 'bottleneck'):
+                 'bottleneck', 'encodec', 'dac'):
         assert (ppgs_tpu_torch.preprocess.get(name)
                 is getattr(ppgs_tpu_torch.preprocess, name))
+        assert ppgs_tpu_torch.preprocess.get(name).__name__ == (
+            f'ppgs_tpu_torch.preprocess.{name}')
         assert ppgs_tpu.preprocess.get(name).__name__.endswith(name)
-    for name in ('encodec', 'dac'):
-        with pytest.raises(ValueError, match='ROADMAP.md'):
-            ppgs_tpu_torch.preprocess.get(name)
     for package in (ppgs_tpu, ppgs_tpu_torch):
         with pytest.raises(ValueError, match='Unknown representation wav'):
             package.preprocess.get('wav')

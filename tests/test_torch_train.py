@@ -14,6 +14,8 @@ import optax
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (cores shared among xdist workers)
+
 import ppgs_tpu
 from ppgs_tpu import load as jax_load
 from ppgs_tpu.evaluate.metrics import Metrics as JaxMetrics
@@ -573,5 +575,14 @@ def test_metrics_match_jax(balanced):
             assert value == want[key], key          # counts: exact
         else:
             assert value == pytest.approx(want[key], rel=1e-5), key
-    with pytest.raises(NotImplementedError, match='A13'):
-        Metrics(include_figures=True)
+    # With the figures: the same scalars, and the JAX package's two figures
+    drawn = Metrics(include_figures=True, config=_port_config(config))
+    drawn.state = pm.state
+    results = drawn()
+    figures = {k for k, v in results.items() if not isinstance(v, float)}
+    assert figures == {'ConfusionMatrix', 'DistanceMatrix'}
+    assert {k: v for k, v in results.items() if k not in figures} == got
+    import matplotlib.pyplot as plt
+    for key in figures:
+        assert isinstance(results[key], plt.Figure)
+        plt.close(results[key])

@@ -20,6 +20,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (cores shared among xdist workers)
+
 import ppgs_tpu
 from ppgs_tpu.models import transformer as jax_transformer
 from ppgs_tpu.ops import encoder_layer_train as jax_elt

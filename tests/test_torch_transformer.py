@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (cores shared among xdist workers)
+
 import ppgs_tpu
 import ppgs_tpu_torch
 from ppgs_tpu.models import transformer as jax_transformer
