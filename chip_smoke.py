@@ -285,15 +285,39 @@ any failure exits non-zero before the result line:
    PNG's cells that PPG's pixels; ``utils.profiling.trace`` around one
    ``from_audio`` call (8 x 8 s), its Chrome trace naming K1-K4's kernels
    and the annotated region; ``python -m ppgs_tpu_torch.plot.accuracy``
-   on phase 28's JSONs where matplotlib imports.
+   on phase 28's JSONs where matplotlib imports;
+30. a one-rank NCCL group (PPGS_COORDINATOR, PPGS_NUM_PROCESSES=1,
+   PPGS_PROCESS_ID=0): ``train(config='mel')`` for 4 steps at 256 x 512
+   twice without a group and once in the group (cuDNN asked for
+   deterministic algorithms), the parameters bit for bit, B4's
+   kernels and one NCCL gradient all_reduce each step, the all_reduce's
+   share of a profiled grouped step; one ``from_dataloader`` batch (one 8 s
+   file) through the data-parallel branch, ``from_file``'s PPGs bit for
+   bit;
+31. two ranks sharing the card over gloo (this script with
+   ``--parallel-rank``, after the build), each against one process on
+   the card: DP, 2 steps of mel on a global 256 x 512 batch (128 rows a
+   rank, rank 1's last 16 rows -100) at dropout 0 from seeded weights, the
+   losses within rtol 1e-4 and each parameter within relative L2 2^-8; CP, ``infer`` with a
+   'seq' axis of 2 on 8 x 60 s (6,000 frames padded to 6,400), K1-K4
+   launched on each rank, the bf16 gates (``agree_decided``); TP,
+   ``from_audio(config='w2v2fb')`` and the conformer on 16 x 8 s with a
+   'model' axis of 2, each rank holding half of the split tensors' bytes,
+   the outputs bit for bit;
+32. PP: the mel width cut to 4 layers over 2 stages (mel's 5 do not
+   divide over 2), 4 microbatches of 32 x 500: one forward (K2 and K4 on
+   each stage, once a layer a tick) and one train step at dropout 0 (B5
+   and B6) against the sequential per-layer path in one process, the PPGs
+   at the bf16 gates and each gradient within relative L2 2^-8; then K1-K4
+   at a CP rank's windows against their plain versions, timed.
 
 At the end of every run the sha256 of every file under
 ``ppgs_tpu/assets/`` is the one read before phase 1.
 
 ``--slices`` (default
-``mel,train,w2v2fb,bottleneck,api,data,head_train,w2v2,codec``) runs a
-subset: phases 3-5, 6-8, 9-11, 12-14, 15-17, 18-20, 21-23, 24-26 and
-27-29 respectively. Each phase prints its
+``mel,train,w2v2fb,bottleneck,api,data,head_train,w2v2,codec,parallel``)
+runs a subset: phases 3-5, 6-8, 9-11, 12-14, 15-17, 18-20, 21-23, 24-26,
+27-29 and 30-32 respectively. Each phase prints its
 seconds. Before the last line it prints one JSON
 object with a record per kernel;
 the last line is {"ok": true, "device": {...}}. Imports nothing of JAX or
@@ -6466,16 +6490,683 @@ def codec_phases(port, workdir, dev, card):
             port.frontend.unregister(name)
 
 
+###############################################################################
+# The parallel slice (phases 30-32)
+###############################################################################
+
+
+# Phase 30: the one-rank NCCL group, the train slice's batch geometry;
+# one file of 8 s (a multiple of the loader's 16,000-sample quantum, so
+# that its batch is from_file's geometry) through from_dataloader
+PAR_FILE_SECONDS = 8
+# Phase 31: two ranks sharing the card over gloo. DP: 2 steps on a global
+# 256 x 512 batch, 128 rows a rank, rank 1's last PAR_PAD_ROWS rows -100
+# padding; CP: 8 x 60 s (6,000 frames, padded to 6,400: 8 windows an
+# utterance a rank); TP: 16 x 8 s
+PAR_DP_STEPS, PAR_PAD_ROWS = 2, 16
+PAR_CP_BATCH, PAR_CP_SECONDS = 8, 60
+PAR_TP_BATCH, PAR_TP_SECONDS = 16, 8
+# Phase 32: the mel width (C = 256, d_head 128) with its depth cut to 4
+# layers, since mel's 5 do not divide over 2 stages; 4 microbatches of
+# 32 x 500 (the per-layer path: T % 8 != 0)
+PP_LAYERS, PP_MICRO, PP_ROWS, PP_T = 4, 4, 32, 500
+# DP on the card: each parameter within relative L2 2^-8 of one process's
+# (the sums run in another order); PP's gradients likewise
+PAR_REL = 2.0 ** -8
+RANK_TIMEOUT = 600
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(('127.0.0.1', 0))
+        return sock.getsockname()[1]
+
+
+def group_env(ranks, rank, port):
+    return {'PPGS_COORDINATOR': f'127.0.0.1:{port}',
+            'PPGS_NUM_PROCESSES': str(ranks), 'PPGS_PROCESS_ID': str(rank)}
+
+
+def run_ranks(mode, workdir, card, ranks=2):
+    """Run ``mode`` of ``parallel_rank`` in ``ranks`` processes of one gloo
+    group sharing the card (this script, --parallel-rank); raise if a
+    rank fails or outlives RANK_TIMEOUT. Returns each rank's results."""
+    port = free_port()
+    procs = []
+    for rank in range(ranks):
+        env = dict(os.environ, **group_env(ranks, rank, port))
+        procs.append(subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()),
+             '--parallel-rank', mode, str(workdir)], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+    deadline = time.time() + RANK_TIMEOUT
+    outputs = []
+    try:
+        for proc in procs:
+            out, _ = proc.communicate(timeout=max(1, deadline - time.time()))
+            outputs.append(out.decode(errors='replace'))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for rank, (proc, out) in enumerate(zip(procs, outputs)):
+        for line in out.splitlines():
+            if line.startswith('rank '):
+                print(line, flush=True)
+        if proc.returncode != 0:
+            print(out[-8000:], flush=True)
+            raise AssertionError(f'{mode}: rank {rank} failed '
+                                 f'(rc {proc.returncode})')
+    found = []
+    for rank in range(ranks):
+        data = torch.load(Path(workdir) / f'{mode}-rank{rank}.pt',
+                          weights_only=True)
+        found.append(data)
+    return found
+
+
+def parallel_setup(port, workdir):
+    """Seeded weights of the slice's models in npz files: the mel model,
+    its 4-layer cut for the pipeline, the w2v2fb trunk and head, the
+    conformer; returns their paths."""
+    config = port.config.get()
+    paths = {name: Path(workdir) / f'parallel-{name}.npz' for name in (
+        'mel', 'pipe', 'trunk', 'w2v2fb', 'conformer')}
+    port.load.save_params(paths['mel'], random_params(port, config,
+                                                      SEED + 30))
+    port.load.save_params(paths['pipe'], random_params(
+        port, config.replace(num_hidden_layers=PP_LAYERS), SEED + 31))
+    port.load.save_params(paths['trunk'], random_w2v2_params(port, SEED + 32))
+    port.load.save_params(paths['w2v2fb'], random_params(
+        port, port.config.get('w2v2fb'), SEED + 33))
+    port.load.save_params(paths['conformer'],
+                          random_conformer_params(port, SEED + 34))
+    return paths
+
+
+def parallel_configs(port):
+    """The mel config of the DP comparison (dropout 0: a data rank draws
+    its own Philox stream, so only at rate 0 is DP training the single
+    process's function), its CP and TP meshes, and the pipeline's."""
+    mel = port.config.get()
+    return {'dp': mel.replace(dropout=0.0, evaluation_interval=10 ** 9,
+                              checkpoint_interval=10 ** 9),
+            'cp': mel.replace(mesh_shape=(2,), mesh_axis_names=('seq',)),
+            'tp': port.config.get('w2v2fb').replace(
+                mesh_shape=(2,), mesh_axis_names=('model',)),
+            'tp_bn': port.config.get('bottleneck').replace(
+                mesh_shape=(2,), mesh_axis_names=('model',)),
+            'pipe': mel.replace(num_hidden_layers=PP_LAYERS, dropout=0.0,
+                                mesh_shape=(2,), mesh_axis_names=('pipe',))}
+
+
+def point_frontends(port, paths):
+    port.preprocess.w2v2fb.W2V2FB_CHECKPOINT = paths['trunk']
+    port.preprocess.bottleneck.BOTTLENECK_CHECKPOINT = paths['conformer']
+
+
+def seeded_audio(B, seconds, seed, dev):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return 0.1 * torch.randn(B, 1, int(seconds * 16000), generator=gen,
+                             device=dev)
+
+
+def dp_batch(config, dev):
+    """The global batch of the DP steps: the train slice's geometry, rank
+    1's last PAR_PAD_ROWS rows all -100."""
+    features, targets, lengths = train_batch(config, TRAIN_B, TRAIN_T,
+                                             SEED + 35, dev)
+    targets = targets.clone()
+    targets[-PAR_PAD_ROWS:] = -100
+    return features, targets, lengths
+
+
+def seed_run(port, config, directory):
+    """A step-0 checkpoint of seeded weights (biases and norms drawn too)
+    and a fresh Adam state in ``directory``, for ``train`` to resume from:
+    from the init's zero biases two Adam steps leave tensors of about 2
+    lr, whose relative error rounding-flipped signs dominate."""
+    params = port.load.flatten_params(random_params(port, config,
+                                                    SEED + 44))
+    flat = {f'params.{k}': v for k, v in params.items()}
+    flat['opt_state.count'] = np.asarray(0, np.int32)
+    for moment in ('mu', 'nu'):
+        flat.update({f'opt_state.{moment}.{k}': np.zeros_like(v)
+                     for k, v in params.items()})
+    port.train.core.ckpt.npz_save(directory, 0, 0, flat)
+
+
+def dp_train(port, config, directory, dev, counters=None):
+    """PAR_DP_STEPS steps of ``train`` on ``dp_batch`` from ``seed_run``'s
+    weights: (the model, the losses, each step's launches of
+    ``counters``)."""
+    seed_run(port, config, directory)
+    batch = dp_batch(config, dev)
+    valid = [train_batch(config, 64, TRAIN_T, SEED + 36, dev)]
+    snapshots, losses = [], []
+
+    def loader_fn(partition):
+        if partition != 'train':
+            yield from valid
+            return
+        while True:
+            if counters is not None:
+                torch.cuda.synchronize()
+                snapshots.append({n: f.launches for n, f in counters.items()})
+            yield batch
+
+    core = port.train.core
+    original = recording_losses(core, losses)
+    try:
+        model = port.train.train(directory=directory, config=config,
+                                 max_steps=PAR_DP_STEPS, loader_fn=loader_fn,
+                                 device=dev)
+    finally:
+        core.make_train_step = original
+    torch.cuda.synchronize()
+    if counters is not None:
+        snapshots.append({n: f.launches for n, f in counters.items()})
+    steps = [{n: b[n] - a[n] for n in a}
+             for a, b in zip(snapshots[:-1], snapshots[1:])]
+    return model, losses, steps
+
+
+def without_key_bias(name, *grads):
+    """The gradients of ``name`` with the key bias's third of a fused QKV
+    bias zeroed: softmax ignores a shift of a row's scores, so that
+    gradient is 0 up to rounding noise, which no relative error bounds."""
+    if not name.endswith('attn.bqkv'):
+        return grads
+    out = []
+    for g in grads:
+        g = g.clone()
+        C = g.shape[0] // 3
+        g[C:2 * C] = 0
+        out.append(g)
+    return out
+
+
+def pipeline_batch(config, dev):
+    return train_batch(config, PP_MICRO * PP_ROWS, PP_T, SEED + 37, dev)
+
+
+def pipeline_counters():
+    from ppgs_tpu_torch.ops import flash_attention as fa
+    from ppgs_tpu_torch.ops import fused_ffn
+
+    return {'attention': fa.attention,
+            'ffn_residual_ln': fused_ffn.ffn_residual_ln,
+            'attention_train_fwd': fa.attention_train_fwd,
+            'attention_train_bwd': fa.attention_train_bwd,
+            'row_dot': fa.row_dot,
+            'ffn_train_fwd': fused_ffn.ffn_train_fwd,
+            'ffn_train_bwd': fused_ffn.ffn_train_bwd}
+
+
+def parallel_rank(mode, workdir):
+    """One rank of phase 31 ('p31') or 32 ('p32'), on the card, in a gloo
+    group: its results into ``workdir``/``mode``-rank{r}.pt."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import ppgs_tpu_torch as port
+    from ppgs_tpu_torch.parallel import comm, multihost
+
+    dev = torch.device('cuda')
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    multihost.initialize(backend='gloo', device=dev)
+    rank = multihost.process_index()
+    workdir = Path(workdir)
+    paths = {p.stem.split('-', 1)[1]: p
+             for p in workdir.glob('parallel-*.npz')}
+    configs = parallel_configs(port)
+    out = {}
+    if mode == 'p31':
+        start = time.perf_counter()
+        model, losses, steps = dp_train(port, configs['dp'], workdir /
+                                        f'dp{rank}', dev, train_counters())
+        out['dp_losses'] = torch.tensor(losses)
+        out['dp_steps'] = steps
+        out['dp_counts'] = dict(comm.counts)
+        if rank == 0:
+            out['dp_params'] = {n: p.detach().cpu()
+                                for n, p in model.named_parameters()}
+        del model
+        dp_s = time.perf_counter() - start
+
+        start = time.perf_counter()
+        audio = seeded_audio(PAR_CP_BATCH, PAR_CP_SECONDS, SEED + 38, dev)
+        features = port.preprocess.mel.from_audios(audio, None, device=dev)
+        counters = inference_counters()
+        set_counts(counters)
+        ppg = port.infer(features, [features.shape[-1]] * PAR_CP_BATCH,
+                         checkpoint=paths['mel'], config=configs['cp'],
+                         device=dev)
+        out['cp_launches'] = read_counts(counters)[0]
+        out['cp_ppg'] = ppg.cpu()
+        out['cp_halo'] = comm.counts[('halo', 'gloo')]
+        cp_s = time.perf_counter() - start
+
+        start = time.perf_counter()
+        point_frontends(port, paths)
+        audio = seeded_audio(PAR_TP_BATCH, PAR_TP_SECONDS, SEED + 39, dev)
+        counters = inference_counters()
+        set_counts(counters)
+        out['tp_ppg'] = port.from_audio(
+            audio, checkpoint=paths['w2v2fb'], config=configs['tp'],
+            device=dev).cpu()
+        out['tp_launches'], out['tp_widths'] = read_counts(counters)
+        from ppgs_tpu_torch.ops import flash_attention as fa
+
+        fa.rel_attention.launches = 0
+        out['tp_bn'] = port.preprocess.bottleneck.from_audios(
+            audio, None, config=configs['tp_bn'], device=dev).cpu()
+        torch.cuda.synchronize()
+        out['tp_bn_b8'] = fa.rel_attention.launches
+        out['tp_bytes'] = {
+            key[0]: [port.parallel.local_bytes(p.model.module,
+                                               set(p.model._dims)),
+                     port.parallel.local_bytes(p.model.module)]
+            for key, p in port.parallel._FRONTEND_TP_CACHE.items()}
+        tp_s = time.perf_counter() - start
+        print(f'rank {rank}: DP {dp_s:.1f} s, CP {cp_s:.1f} s, TP '
+              f'{tp_s:.1f} s; collectives {dict(comm.counts)}', flush=True)
+    else:
+        config = configs['pipe']
+        mesh = port.parallel.make_mesh(config.mesh_shape,
+                                       config.mesh_axis_names)
+        net = port.load.model(checkpoint=paths['pipe'], config=config,
+                              device=dev)[0]
+        features, targets, lengths = pipeline_batch(config, dev)
+        counters = pipeline_counters()
+        set_counts(counters)
+        out['pp_logits'] = port.parallel.pipeline_forward(
+            net, features, lengths, mesh, num_microbatches=PP_MICRO).cpu()
+        out['pp_infer_launches'] = read_counts(counters)[0]
+        net.requires_grad_(True)
+        set_counts(counters)
+        logits = port.parallel.pipeline_forward(
+            net, features, lengths, mesh, num_microbatches=PP_MICRO,
+            train=True, seed=0)
+        loss = port.train.loss(logits, targets)
+        (loss / mesh.shape['pipe']).backward()
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in net.parameters()]
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        comm.all_reduce_sum(flat, mesh.group('pipe'), 'gradients')
+        out['pp_train_launches'] = read_counts(counters)[0]
+        out['pp_train_logits'] = logits.detach().cpu()
+        if rank == 0:
+            offset, named = 0, {}
+            for (name, p) in net.named_parameters():
+                named[name] = flat[offset:offset + p.numel()].view_as(
+                    p).cpu()
+                offset += p.numel()
+            out['pp_grads'] = named
+        print(f'rank {rank}: stage {mesh.index("pipe")}, inference '
+              f'{out["pp_infer_launches"]}, training '
+              f'{out["pp_train_launches"]}; collectives '
+              f'{dict(comm.counts)}', flush=True)
+    torch.save(out, workdir / f'{mode}-rank{rank}.pt')
+    multihost.shutdown()
+
+
+def one_rank_group(port, workdir, dev, card):
+    """Phase 30: ``train(config='mel')`` without a group and in a one-rank
+    NCCL group (PPGS_* set), bit for bit; B4's kernels and one NCCL
+    gradient all_reduce each step; then one from_dataloader batch through
+    the data-parallel branch against from_file."""
+    from ppgs_tpu_torch.parallel import comm, multihost
+
+    config = port.config.get().replace(checkpoint_interval=2)
+    counters = train_counters()
+    batch = train_batch(config, TRAIN_B, TRAIN_T, SEED + 40, dev)
+    valid = [train_batch(config, 64, TRAIN_T, SEED + 41, dev)]
+
+    def run(name):
+        snapshots = []
+
+        def loader_fn(partition):
+            if partition != 'train':
+                yield from valid
+                return
+            while True:
+                torch.cuda.synchronize()
+                snapshots.append({n: f.launches for n, f in counters.items()})
+                yield batch
+
+        start = time.perf_counter()
+        model = port.train.train(directory=Path(workdir) / name,
+                                 config=config, max_steps=TRAIN_STEPS,
+                                 loader_fn=loader_fn, device=dev)
+        torch.cuda.synchronize()
+        snapshots.append({n: f.launches for n, f in counters.items()})
+        print(f'{name}: {TRAIN_STEPS} steps at {TRAIN_B} x {TRAIN_T}, '
+              f'{time.perf_counter() - start:.1f} s [{card}]', flush=True)
+        return model, [{n: b[n] - a[n] for n in a}
+                       for a, b in zip(snapshots[:-1], snapshots[1:])]
+
+    # cuDNN's fp32 weight gradient of the input conv may pick an
+    # algorithm that sums with atomics; the comparison needs a step that
+    # repeats itself, so this phase asks cuDNN for deterministic ones and
+    # shows first that the ungrouped run repeats bit for bit
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    alone, _ = run('ungrouped')
+    again, _ = run('ungrouped-again')
+    if not all(torch.equal(a, b) for a, b in zip(alone.parameters(),
+                                                 again.parameters())):
+        raise AssertionError('two ungrouped runs differ: the steps do not '
+                             'repeat bit for bit')
+    del again
+    os.environ.update(group_env(1, 0, free_port()))
+    comm.counts.clear()
+    try:
+        grouped, steps = run('one-rank-nccl')
+        backend = multihost.initialize(device=dev)
+        counts = dict(comm.counts)
+        print(f'the group: {backend}, {multihost.process_count()} rank; '
+              f'collectives {counts}', flush=True)
+        if backend != 'nccl' or counts.get(('gradients', 'nccl')) != \
+                TRAIN_STEPS:
+            raise AssertionError(f'not one NCCL gradient all_reduce a step: '
+                                 f'{counts}')
+        L = config.num_hidden_layers
+        for i, step in enumerate(steps):
+            for name, per_layer in B4_PER_LAYER.items():
+                if step[name] < L * per_layer:
+                    raise AssertionError(f'grouped step {i}: {name} '
+                                         f'launched {step[name]} times')
+        print(f'grouped step 1 launches: {steps[1]}', flush=True)
+        different = [n for (n, a), b in zip(alone.named_parameters(),
+                                            grouped.parameters())
+                     if not torch.equal(a, b)]
+        if different:
+            raise AssertionError(f'the one-rank group\'s parameters differ '
+                                 f'from the ungrouped run\'s: {different}')
+        print(f'parameters after {TRAIN_STEPS} steps: the one-rank NCCL '
+              f'group\'s equal the ungrouped run\'s bit for bit '
+              f'({len(list(alone.parameters()))} tensors) [{card}]',
+              flush=True)
+
+        # The NCCL all_reduce's share of a grouped step's device time
+        mesh = port.parallel.make_mesh(config.mesh_shape,
+                                       config.mesh_axis_names)
+        optimizer = port.train.make_optimizer(grouped.parameters(), config)
+        step = port.train.make_train_step(grouped, config, optimizer,
+                                          mesh=mesh)
+        step(*batch, 1)
+        by_name = profile_call('one-rank NCCL train step', lambda: step(
+            *batch, 2), card)
+        nccl = sum(ms for name, ms in by_name.items()
+                   if 'nccl' in name.lower())
+        total = sum(by_name.values())
+        share = f'{nccl / total:.5f}' if total else 'not measured'
+        print(f'NCCL all_reduce in the grouped step: {nccl:.4f} ms of '
+              f'{total:.3f} ms device time ({share}) [{card}]', flush=True)
+        del alone, grouped, optimizer, step
+
+        # One from_dataloader batch through the data-parallel branch
+        from ppgs_tpu_torch.data import loader as data_loader
+
+        wav = Path(workdir) / 'parallel-file.wav'
+        port.data.audio.save_wav(wav, seeded_audio(
+            1, PAR_FILE_SECONDS, SEED + 42, dev)[0].cpu().numpy())
+        npz = Path(workdir) / 'parallel-file-model.npz'
+        port.load.save_params(npz, random_params(port, port.config.get(),
+                                                 SEED + 43))
+        out = Path(workdir) / 'parallel-file.npy'
+        counters = inference_counters()
+        set_counts(counters)
+        port.from_dataloader(
+            data_loader([wav], features=['audio', 'length', 'audio_file'],
+                        num_workers=1, config=port.config.get()),
+            {str(wav): out}, checkpoint=npz, device=dev)
+        launches = read_counts(counters)[0]
+        want = port.from_file(wav, checkpoint=npz, device=dev).cpu().numpy()
+        got = np.load(out)
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError('the data-parallel branch\'s PPGs differ '
+                                 'from from_file\'s')
+        print(f'from_dataloader through the data-parallel branch (one '
+              f'rank): {got.shape}, from_file\'s bit for bit; launches '
+              f'{launches} [{card}]', flush=True)
+        if min(launches.values()) < 1:
+            raise AssertionError(f'a kernel was not launched: {launches}')
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        multihost.shutdown()
+        for name in group_env(1, 0, 0):
+            os.environ.pop(name, None)
+
+
+def two_ranks(port, workdir, paths, dev, card):
+    """Phase 31: DP, CP and TP over two ranks that share the card (gloo),
+    each against one process on the card."""
+    configs = parallel_configs(port)
+    torch.cuda.empty_cache()
+    found = run_ranks('p31', workdir, card)
+
+    # DP: the loss and every parameter against one process's steps
+    model, losses, _ = dp_train(port, configs['dp'], Path(workdir) / 'dp',
+                                dev)
+    for rank, data in enumerate(found):
+        got = data['dp_losses'].tolist()
+        print(f'DP rank {rank}: losses {got}, one process {losses}; '
+              f'collectives {data["dp_counts"]}', flush=True)
+        if not np.allclose(got, losses, rtol=1e-4, atol=0):
+            raise AssertionError('the DP loss is not the one process\'s')
+        for i, step in enumerate(data['dp_steps']):
+            for name, per_layer in B4_PER_LAYER.items():
+                if step[name] < configs['dp'].num_hidden_layers * per_layer:
+                    raise AssertionError(f'DP rank {rank} step {i}: {name} '
+                                         f'launched {step[name]} times')
+    worst, name = max((relative_l2(found[0]['dp_params'][n].to(dev),
+                                   p.detach()), n)
+                      for n, p in model.named_parameters())
+    print(f'DP parameters after {PAR_DP_STEPS} steps: the largest relative '
+          f'L2 error of a tensor {worst:.3g} (<= 2^-8, {name}) [{card}]',
+          flush=True)
+    if not worst <= PAR_REL:
+        raise AssertionError('a DP parameter left 2^-8')
+    del model
+
+    # CP: the bf16 PPGs against one process's, fp32 beside them
+    audio = seeded_audio(PAR_CP_BATCH, PAR_CP_SECONDS, SEED + 38, dev)
+    features = port.preprocess.mel.from_audios(audio, None, device=dev)
+    lengths = [features.shape[-1]] * PAR_CP_BATCH
+    want = port.infer(features, lengths, checkpoint=paths['mel'], device=dev)
+    want32 = port.infer(features, lengths, checkpoint=paths['mel'],
+                        config=port.config.get().replace(
+                            config='mel-fp32', compute_dtype='float32'),
+                        device=dev)
+    for rank, data in enumerate(found):
+        print(f'CP rank {rank}: launches {data["cp_launches"]}, '
+              f'{data["cp_halo"]} halo exchange', flush=True)
+        if data['cp_launches'] != {n: 5 for n in data['cp_launches']}:
+            raise AssertionError('CP: K1-K4 not launched 5 times a rank')
+        agree_decided(f'CP rank {rank}, {PAR_CP_BATCH} x {PAR_CP_SECONDS} s',
+                      data['cp_ppg'], want, want32, card)
+    del want, want32
+
+    # TP: the w2v2fb PPGs and the conformer's features bit for bit
+    point_frontends(port, paths)
+    audio = seeded_audio(PAR_TP_BATCH, PAR_TP_SECONDS, SEED + 39, dev)
+    want = port.from_audio(audio, checkpoint=paths['w2v2fb'],
+                           config='w2v2fb', device=dev).cpu()
+    want_bn = port.preprocess.bottleneck.from_audios(
+        audio, None, config='bottleneck', device=dev).cpu()
+    whole = {'w2v2_module_dims': port.preprocess.w2v2fb._trunk(
+        dataclasses.replace(port.models.w2v2.BASE,
+                            compute_dtype='bfloat16'), 'cpu'),
+             'conformer_module_dims': port.preprocess.bottleneck._encoder(
+        dataclasses.replace(port.models.conformer.BOTTLENECK,
+                            compute_dtype='bfloat16'), 'cpu')}
+    for rank, data in enumerate(found):
+        for rule, full in whole.items():
+            dims = getattr(port.parallel, rule)(full)
+            split = port.parallel.local_bytes(full, set(dims))
+            local_split, local_whole = data['tp_bytes'][rule]
+            print(f'TP rank {rank}, {rule}: {local_split} of the {split} '
+                  f'bytes of the split parameters, {local_whole} of '
+                  f'{port.parallel.local_bytes(full)} in all', flush=True)
+            if 2 * local_split != split:
+                raise AssertionError('TP: a rank does not hold half')
+        print(f'TP rank {rank}: w2v2fb launches {data["tp_launches"]} by '
+              f'width {data["tp_widths"]}; the conformer launched B8 '
+              f'{data["tp_bn_b8"]} times', flush=True)
+        if not (torch.equal(data['tp_ppg'], want)
+                and torch.equal(data['tp_bn'], want_bn)):
+            raise AssertionError('TP: the outputs are not one process\'s')
+        if data['tp_bn_b8'] != 16 or data['tp_launches']['qkv_proj'] != 17:
+            raise AssertionError('TP: B7 / B8 not launched as one process')
+    print(f'TP: w2v2fb PPGs {tuple(want.shape)} and the conformer\'s '
+          f'features {tuple(want_bn.shape)} one process\'s bit for bit on '
+          f'both ranks [{card}]', flush=True)
+
+
+def pipeline_on_card(port, workdir, paths, dev, card):
+    """Phase 32: the pipeline over two ranks against the sequential
+    per-layer path in one process."""
+    from ppgs_tpu_torch.models import transformer
+
+    configs = parallel_configs(port)
+    torch.cuda.empty_cache()
+    found = run_ranks('p32', workdir, card)
+    config = configs['pipe']
+    net = port.load.model(checkpoint=paths['pipe'], config=config,
+                          device=dev)[0]
+    features, targets, lengths = pipeline_batch(config, dev)
+    with torch.no_grad():
+        # the sequential per-layer path: the stage body's, whole batch
+        T = features.shape[-1]
+        mask = port.ops.masking.mask_from_lengths(lengths, T)
+        x = transformer.conv1d_same(features, net.input_conv.weight,
+                                    net.input_conv.bias)
+        x = (x.transpose(1, 2) * mask[..., None] + net.pe[:T]).contiguous()
+        for layer in net.layers:
+            x = transformer._encoder_layer(
+                x, layer, mask, False, config.attention_heads,
+                torch.bfloat16, True)
+        x = transformer.conv1d_same(x.transpose(1, 2),
+                                    net.output_conv.weight,
+                                    net.output_conv.bias)
+        want = (x * mask[:, None, :]).float()
+    net.requires_grad_(True)
+    logits = transformer.forward(net, features, lengths, train=True, seed=0)
+    port.train.loss(logits, targets).backward()
+    stage_layers = PP_LAYERS // 2
+    ticks = PP_MICRO + 1
+    for rank, data in enumerate(found):
+        inf, tr = data['pp_infer_launches'], data['pp_train_launches']
+        print(f'PP rank {rank}: inference launches {inf}, training '
+              f'{tr}', flush=True)
+        if (inf['attention'] != stage_layers * ticks
+                or inf['ffn_residual_ln'] != stage_layers * ticks
+                or tr['attention_train_fwd'] != stage_layers * ticks
+                or tr['attention_train_bwd'] != stage_layers * ticks):
+            raise AssertionError('PP: a stage did not launch K2 / K4 / B5 '
+                                 'once a layer a tick')
+        for name, got, ref in (('inference', data['pp_logits'], want),
+                               ('training', data['pp_train_logits'],
+                                logits.detach())):
+            ppg, ref_ppg = (torch.softmax(t.float().to(dev), 1)
+                            for t in (got, ref))
+            diff = (ppg - ref_ppg).abs().max().item()
+            agree_rate = (ppg.argmax(1) == ref_ppg.argmax(1))[
+                mask].float().mean().item()
+            print(f'PP rank {rank} {name}: PPGs max |diff| {diff:.3g} (atol '
+                  f'2e-2), argmax agreement {agree_rate:.5f} (>= 0.995) '
+                  f'[{card}]', flush=True)
+            if diff > 2e-2 or agree_rate < 0.995:
+                raise AssertionError(f'PP {name}: outside the bf16 envelope')
+    worst, name = max((relative_l2(*without_key_bias(
+        n, found[0]['pp_grads'][n].to(dev), p.grad)), n)
+        for n, p in net.named_parameters())
+    print(f'PP gradients: the largest relative L2 error of a tensor '
+          f'{worst:.3g} (<= 2^-8, {name}; the key biases\' thirds left '
+          f'out) [{card}]', flush=True)
+    if not worst <= PAR_REL:
+        raise AssertionError('a PP gradient left 2^-8')
+    return found[0]['pp_infer_launches'], found[0]['pp_train_launches']
+
+
+@torch.no_grad()
+def parallel_records(port, paths, launches, dev, gen, card):
+    """The slice's kernel records: K1-K4 at a CP rank's windows (8
+    utterances x 8 windows of 500 frames), held against their plain
+    versions and timed; the launches are a rank's in phases 31 and 32."""
+    model = port.load.model(checkpoint=paths['mel'],
+                            config=port.config.get(), device=dev)[0]
+    layer = model.layers[0]
+    rows = PAR_CP_BATCH * 8
+    x = torch.randn(rows, 500, 256, generator=gen, device=dev)
+    mask = torch.ones(rows, 500, dtype=torch.bool, device=dev)
+    mask[-1, 310:] = False
+    err, inputs = {}, {}
+    layer_kernel_checks('parallel_cp', x, mask, layer_weights(layer), 2,
+                        'relu', err, inputs)
+    per_tag = {name: {'parallel_cp': count}
+               for name, count in launches.items()}
+    records = layer_records('parallel_cp', inputs['parallel_cp'], err,
+                            per_tag, 'ppgs_tpu/ops/encoder_layer_kernel.py'
+                            ':269', card)
+    for record in records:
+        record['name'] = f'parallel/{record["name"]}'
+    return records
+
+
+def parallel_phases(port, workdir, dev, card):
+    """Phases 30-32: the parallel slice (no kernel of its own: its paths
+    run K1-K4, B4, B5, B6, B7 and B8)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+    saved = (port.preprocess.w2v2fb.W2V2FB_CHECKPOINT,
+             port.preprocess.bottleneck.BOTTLENECK_CHECKPOINT)
+    try:
+        phase('30 a one-rank NCCL group: train(config=mel) against the '
+              'ungrouped run, from_dataloader\'s data-parallel branch')
+        one_rank_group(port, workdir, dev, card)
+        torch.cuda.empty_cache()
+        phase('31 two ranks sharing the card over gloo: DP training, CP '
+              'inference, TP w2v2fb and conformer')
+        paths = parallel_setup(port, workdir)
+        two_ranks(port, workdir, paths, dev, card)
+        torch.cuda.empty_cache()
+        phase(f'32 PP: the mel width cut to {PP_LAYERS} layers over 2 '
+              f'stages, {PP_MICRO} microbatches of {PP_ROWS} x {PP_T}')
+        inference, training = pipeline_on_card(port, workdir, paths, dev,
+                                               card)
+        found = torch.load(Path(workdir) / 'p31-rank0.pt', weights_only=True)
+        launches = dict(found['cp_launches'])
+        launches['attention'] += inference['attention']
+        launches['ffn_residual_ln'] += inference['ffn_residual_ln']
+        records = parallel_records(port, paths, launches, dev, gen, card)
+    finally:
+        (port.preprocess.w2v2fb.W2V2FB_CHECKPOINT,
+         port.preprocess.bottleneck.BOTTLENECK_CHECKPOINT) = saved
+    return records
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('--slices',
                         default='mel,train,w2v2fb,bottleneck,api,data,'
-                        'head_train,w2v2,codec',
+                        'head_train,w2v2,codec,parallel',
                         help='comma-separated subset of mel,train,w2v2fb,'
-                        'bottleneck,api,data,head_train,w2v2,codec')
-    slices = set(parser.parse_args().slices.split(','))
+                        'bottleneck,api,data,head_train,w2v2,codec,'
+                        'parallel')
+    parser.add_argument('--parallel-rank', nargs=2, metavar=('MODE', 'DIR'),
+                        help=argparse.SUPPRESS)
+    args = parser.parse_args()
+    slices = set(args.slices.split(','))
     if not torch.cuda.is_available():
         sys.exit('chip_smoke.py needs a CUDA device; none is available')
+    if args.parallel_rank:
+        # one rank of the parallel slice (phases 31-32), started by it
+        parallel_rank(*args.parallel_rank)
+        return
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     import ppgs_tpu_torch as port
     from ppgs_tpu_torch import kernels
@@ -6527,6 +7218,8 @@ def main():
         records += w2v2_phases(port, workdir.name, dev, card)
     if 'codec' in slices:
         codec_phases(port, workdir.name, dev, card)
+    if 'parallel' in slices:
+        records += parallel_phases(port, workdir.name, dev, card)
     phase()
     if assets_digest() != digest:
         raise AssertionError('a file under ppgs_tpu/assets/ changed')

@@ -6,13 +6,13 @@ w2v2fc (Charsiu), bottleneck (ESPnet conformer), spectrogram and codec
 transformer, convolution and wav2vec2 models, the inference API and its
 CLI (``python -m ppgs_tpu_torch``), PPG algebra and editing, the data
 pipeline (datasets, samplers, the loader, partitions, feature caching),
-single-device training and evaluation with their figures, plotting
-(``plot``, ``python -m ppgs_tpu_torch.plot``) and profiling
-(``utils.profiling``), with every TPU kernel of the JAX package rewritten
-by hand in CUDA C++ (``kernels/csrc``). The JAX package ``ppgs_tpu`` is
-the reference this package is tested against; this package never imports
-it (nor JAX). What is still to come (the parallel layer) is listed in
-ROADMAP.md.
+training and evaluation with their figures, plotting (``plot``,
+``python -m ppgs_tpu_torch.plot``) and profiling (``utils.profiling``),
+and the parallel layer (``parallel``: data, tensor, context and pipeline
+parallelism over ``torch.distributed``), with every TPU kernel of the JAX
+package rewritten by hand in CUDA C++ (``kernels/csrc``). The JAX package
+``ppgs_tpu`` is the reference this package is tested against; this
+package never imports it (nor JAX).
 """
 
 from . import config
@@ -37,6 +37,7 @@ from . import frontend
 from . import kernels
 from . import load
 from . import native
+from . import parallel
 from . import partition
 from . import plot
 from . import preprocess

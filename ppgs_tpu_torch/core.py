@@ -15,12 +15,18 @@ File batches (``from_files_to_files(num_workers > 0)``,
 ``from_dataloader``) go through the data loader (``data/loader.py``): its
 thread reads and collates numpy batches, the card runs the frontend and
 the model on the main thread, one copy to the host a batch, and a thread
-pool saves the outputs. Not ported yet (ROADMAP.md A14): the context- and
-data-parallel branches (on one card the data-parallel branch is the
-identity).
+pool saves the outputs.
+
+The parallel branches take the config's mesh (``config.mesh_shape`` /
+``mesh_axis_names``) over the process group of ``parallel.multihost``:
+``infer`` splits a chunked input's time over a > 1 'seq' axis (context
+parallelism, ``parallel/context.py``) and gathers the PPGs;
+``from_dataloader`` pads each batch to the 'data' axis, runs each rank's
+rows on its device and saves each rank's own files.
 """
 
 import concurrent.futures
+import inspect
 from pathlib import Path
 from typing import Dict, Union
 
@@ -31,6 +37,7 @@ from . import config as config_mod
 from . import devices
 from . import frontend as frontend_mod
 from . import load as load_mod
+from . import parallel
 from . import preprocess
 from .models import transformer as transformer_model
 
@@ -100,13 +107,31 @@ def infer(features, lengths, representation='mel', checkpoint=None,
         # are: no chunking (ppgs_tpu/core.py:121-125)
         logits = model(features, lengths)
     elif not legacy_mode and T > config.chunk_length:
-        logits = transformer_model.chunked_forward(
-            model, features, lengths, true_frames=phys)
+        logits = _chunked(model, features, lengths, phys, config)
     else:
         logits = transformer_model.forward(
             model, features, lengths,
             phys_lengths=torch.full((B,), phys, device=device))
     return torch.softmax(logits, dim=1) if softmax else logits
+
+
+def _chunked(model, features, lengths, phys, config):
+    """The chunked forward; with a > 1 'seq' axis on the config's mesh, its
+    context-parallel form: each rank runs its slice of the time windows
+    (``parallel/context.py``), and the logits are gathered."""
+    if 'seq' in config.mesh_axis_names:
+        mesh = parallel.make_mesh(config.mesh_shape, config.mesh_axis_names)
+        n_seq = mesh.shape.get('seq', 1)
+        if n_seq > 1:
+            padded, _ = parallel.pad_frames_for_context(features, config,
+                                                        n_seq)
+            local = parallel.context.shard_frames(padded, mesh, 'seq')
+            logits = parallel.context_parallel_chunked_forward(
+                model, local, lengths, mesh, 'seq', true_frames=phys)
+            logits = parallel.context.gather_frames(logits, mesh, 'seq')
+            return logits[..., :features.shape[-1]]
+    return transformer_model.chunked_forward(model, features, lengths,
+                                             true_frames=phys)
 
 
 def from_audio(audio, sample_rate: Union[int, float] = None,
@@ -251,26 +276,52 @@ def from_dataloader(dataloader, output_files: Dict,
     card, raising without one) on the padded batch, with the batch's
     longest true frame count as the model's extent, as in the JAX package;
     the PPGs come to the host once a batch, and a pool of ``save_workers``
-    threads writes each row truncated to its frames."""
+    threads writes each row truncated to its frames.
+
+    Data-parallel branch: in a process group (``parallel.multihost``),
+    every rank walks the same batches, pads each to the config mesh's
+    'data' axis and runs its own rows (the extent stays the whole batch's)
+    and saves their files; the padded rows have none."""
     device = devices.resolve(device)
     config = config_mod.get(config)
     representation = representation or config.representation
     frontend = preprocess.get(representation)
+    mesh = None
+    if ('data' in config.mesh_axis_names
+            and torch.distributed.is_initialized()):
+        mesh = parallel.make_mesh(config.mesh_shape, config.mesh_axis_names)
+
+    def extra(whole):
+        # a rank's rows keep the whole batch's end reflection (mel,
+        # spectrogram: the batch's longest row)
+        if mesh is not None and 'valid_samples' in inspect.signature(
+                frontend.from_audios).parameters:
+            return {'valid_samples': int(np.max(whole))}
+        return {}
 
     pending = []
     with concurrent.futures.ThreadPoolExecutor(max(1, save_workers)) as pool:
         for audios, lengths, batch_files in dataloader:
-            lengths = np.asarray(lengths)
+            audios, lengths = np.asarray(audios), np.asarray(lengths)
+            whole = lengths
+            if mesh is not None:
+                audios, lengths = parallel.shard_batch(
+                    mesh, parallel.pad_batch_to_multiple(
+                        (audios, lengths), mesh.shape.get('data', 1)),
+                    'data')
+                first = mesh.index('data') * audios.shape[0]
+                batch_files = list(batch_files)[first:first + len(audios)]
             features = frontend.from_audios(
-                torch.from_numpy(np.asarray(audios)).to(device), lengths,
-                config=config, device=device)
+                torch.from_numpy(audios).to(device), lengths,
+                config=config, device=device, **extra(whole))
             feat_lengths = np.minimum(lengths // config.hopsize,
                                       features.shape[-1])
+            extent = int(np.max(np.minimum(whole // config.hopsize,
+                                           features.shape[-1])))
             result = from_features(
                 features, feat_lengths, representation=representation,
                 checkpoint=checkpoint, legacy_mode=legacy_mode,
-                config=config, extent=int(np.max(feat_lengths)),
-                device=device)
+                config=config, extent=extent, device=device)
             host = result.cpu().numpy()
             for i, audio_file in enumerate(batch_files):
                 outs = output_files[str(audio_file)]

@@ -7,8 +7,12 @@ Runs each dataset's test loader through the inference stack
 aggregate metrics; writes ``EVAL_DIR/<config>/<name>.json``,
 ``overall.json`` and, under ``<name>/``, the confusion and distance figures
 (``.jpg`` and ``.pdf``, where matplotlib imports) beside ``tensors.npz``
-(the metric accumulators). Not ported yet: the cross-process aggregation
-(ROADMAP.md A14; one process holds every batch and draws the figures).
+(the metric accumulators).
+
+In a process group (``parallel.multihost``) each process evaluates every
+process_count-th batch of the stream, the metric sums are summed across
+processes (exact for any split), and the primary process alone draws the
+figures and writes the files.
 """
 
 import json
@@ -18,6 +22,7 @@ import numpy as np
 
 from .. import config as config_mod
 from .. import devices
+from ..parallel import multihost
 from ..utils import notify as _notify_mod
 from .metrics import Metrics, close_figures, figures_available
 
@@ -34,10 +39,12 @@ def datasets(names=None, checkpoint=None, config=None, max_batches=None,
     from ..data import loader as data_loader
 
     device = devices.resolve(device)
+    multihost.initialize(device=device)
     config = config_mod.get(config)
     names = names or list(config.datasets)
 
-    figures = figures_available()
+    primary = multihost.is_primary()
+    figures = figures_available() and primary
     aggregate = Metrics(include_figures=figures, config=config,
                         device=device)
     results = {}
@@ -51,7 +58,7 @@ def datasets(names=None, checkpoint=None, config=None, max_batches=None,
             name, 'test',
             features=[config.representation, 'phonemes', 'length'],
             config=config)
-        for i, batch in enumerate(loader):
+        for i, batch in enumerate(multihost.shard_iterator(loader)):
             features, indices, lengths = batch[:3]
             logits = from_features(features, lengths, checkpoint=checkpoint,
                                    softmax=False, config=config,
@@ -59,17 +66,20 @@ def datasets(names=None, checkpoint=None, config=None, max_batches=None,
             metrics.update(logits, indices)
             if max_batches is not None and i + 1 >= max_batches:
                 break
+        metrics.state = multihost.aggregate_across_processes(metrics.state)
         aggregate.state = {key: aggregate.state[key] + value
                            for key, value in metrics.state.items()}
         full = metrics()
         results[name] = scalars_of(full)
-        save(results[name], eval_dir / f'{name}.json')
-        save_artifacts(full, metrics.state, name, eval_dir)
+        if primary:
+            save(results[name], eval_dir / f'{name}.json')
+            save_artifacts(full, metrics.state, name, eval_dir)
 
     full = aggregate()
     results['aggregate'] = scalars_of(full)
-    save(results['aggregate'], eval_dir / 'overall.json')
-    save_artifacts(full, aggregate.state, 'overall', eval_dir)
+    if primary:
+        save(results['aggregate'], eval_dir / 'overall.json')
+        save_artifacts(full, aggregate.state, 'overall', eval_dir)
     return results
 
 

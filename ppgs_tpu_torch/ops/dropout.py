@@ -41,6 +41,11 @@ numbers its sites from ``W2V2_SITES`` = 2^20 on:
     2^20 + 6 + 5i   layer i's FFN output
     2^20 + 7 + 5i   layer i's LayerDrop draw (one element)
 
+The pipeline's stage bodies (``parallel/pipeline.py``) key a layer's four
+sites by the global (layer, microbatch) from ``PIPELINE_SITES`` = 2^22 on
+(``pipeline_site``): 2^22 + 4 (layer M + microbatch) + 0 ... 3 for M
+microbatches, so that the masks do not depend on the stage count.
+
 A span start is ``(bits * hi) >> 32`` for the row's ``hi`` valid starts,
 and a layer is kept when its one draw is at least ``threshold(layerdrop)``
 (JAX's ``uniform >= layerdrop``).
@@ -64,6 +69,15 @@ def site(layer, kind):
 
 
 PE_SITE = 0
+
+PIPELINE_SITES = 1 << 22
+
+
+def pipeline_site(layer, microbatch, microbatches):
+    """The first of layer ``layer``'s four sites (probabilities,
+    attention output, FFN hidden, FFN output) for microbatch
+    ``microbatch`` of ``microbatches`` in a pipelined forward."""
+    return PIPELINE_SITES + 4 * (layer * microbatches + microbatch)
 
 W2V2_SITES = 1 << 20
 _W2V2_GLOBAL = ('projection', 'spec_augment', 'pos_conv')

@@ -16,9 +16,11 @@ and its variance sum includes the -mean of the padded frames.
 The weights are the JAX package's converted npz (``BOTTLENECK_CHECKPOINT``,
 made from the published ``24epoch.pth`` by its scripts/convert_conformer.py,
 which needs the network; ``convert.conformer_params_from_checkpoint``
-converts it without JAX). Not ported: ``frontend_tp_placement``, the
-conformer's tensor parallelism, which belongs to the parallel layer
-(ROADMAP.md A14).
+converts it without JAX). With a > 1 'model' axis on the config's mesh
+over several ranks the conformer is tensor-parallel
+(``parallel.frontend_tp_placement`` with the conformer rule): each rank
+holds its slices of the blocks' split tensors, and B8 runs on each block's
+gathered weights.
 """
 
 import dataclasses
@@ -32,6 +34,7 @@ from .. import config as config_mod
 from .. import convert
 from .. import devices
 from .. import load as load_mod
+from .. import parallel
 from ..models import conformer
 from ..ops import filterbank
 from ..ops import stft as stft_ops
@@ -151,7 +154,15 @@ def from_audios(audio, lengths=None, config=None, device=None):
     feats = utterance_mvn(feats, olens)
     ccfg = dataclasses.replace(conformer.BOTTLENECK,
                                compute_dtype=config.compute_dtype)
-    out = conformer.forward(_encoder(ccfg, device), feats, olens)
+    placement = None
+    if 'model' in config.mesh_axis_names and parallel.world()[0] > 1:
+        placement = parallel.frontend_tp_placement(
+            _encoder(ccfg, 'cpu'), config, parallel.conformer_module_dims,
+            device)
+    if placement is None:
+        out = conformer.forward(_encoder(ccfg, device), feats, olens)
+    else:
+        out = placement.run(conformer.forward, feats, olens)
     return out.transpose(1, 2)                            # (B, 144, T)
 
 

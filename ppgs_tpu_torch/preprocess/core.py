@@ -7,9 +7,9 @@ batch comes to the host once, and a thread pool writes one
 ``{prefix}-{representation}.npy`` per utterance, truncated to its frames,
 float32 features stored as float16 (reference mel.py:19), with
 backpressure so that pending saves stay bounded. Train's default loader and
-``evaluate.datasets`` read these caches. The multi-host split of
-``datasets`` waits for the parallel layer (ROADMAP.md A14): one process
-caches every file.
+``evaluate.datasets`` read these caches. In a process group
+(``parallel.multihost``) ``datasets`` caches every process_count-th file on
+each process: the work is per utterance.
 """
 
 import concurrent.futures
@@ -141,14 +141,18 @@ def datasets(names=None, representations=None, config=None, partition=None,
     audio in ``config.CACHE_DIR/<name>`` (reference:
     ppgs/preprocess/core.py:17-104)."""
     from ..data import Dataset
+    from ..parallel import multihost
 
     device = devices.resolve(device)
+    multihost.initialize(device=device)
     config = config_mod.get(config)
     for name in names or list(config.datasets):
         dataset = Dataset(name, partition=partition,
                           features=['audio', 'length', 'audio_file'],
                           config=config)
-        prefixes = [dataset.cache / stem for stem in dataset.stems]
-        from_files_to_files(dataset.audio_files, prefixes, representations,
-                            config=config, num_workers=num_workers,
-                            device=device)
+        pairs = list(multihost.shard_iterator(
+            zip(dataset.audio_files, dataset.stems)))
+        from_files_to_files([f for f, _ in pairs],
+                            [dataset.cache / stem for _, stem in pairs],
+                            representations, config=config,
+                            num_workers=num_workers, device=device)

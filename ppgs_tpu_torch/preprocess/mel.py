@@ -24,16 +24,22 @@ def use_fused_mel(config) -> bool:
             and os.environ.get('PPGS_TPU_FUSED_MEL', '0') == '1')
 
 
-def from_audios(audio, lengths=None, config=None, device=None):
+def from_audios(audio, lengths=None, config=None, device=None,
+                valid_samples=None):
     """(B, 1, S) audio -> (B, num_mels, T) float32 log-mel on ``device``
     (None: the card, raising without one).
 
     ``lengths``: per-row valid sample counts; the end reflection lands at
-    their maximum (the true batch end), not at the padded S.
+    their maximum (the true batch end), not at the padded S, or at
+    ``valid_samples`` when given: the whole batch's, where these rows are
+    one rank's share of it (``core.from_dataloader``'s data-parallel
+    branch).
     """
     device = devices.resolve(device)
     config = config_mod.get(config)
-    valid = int(np.max(np.asarray(lengths))) if lengths is not None else None
+    valid = valid_samples
+    if valid is None and lengths is not None:
+        valid = int(np.max(np.asarray(lengths)))
     spectrogram = (stft_ops.fused_log_mel_spectrogram if use_fused_mel(config)
                    else stft_ops.log_mel_spectrogram)
     return spectrogram(

@@ -13,16 +13,22 @@ from .. import devices
 from ..ops import stft as stft_ops
 
 
-def from_audios(audio, lengths=None, config=None, device=None):
+def from_audios(audio, lengths=None, config=None, device=None,
+                valid_samples=None):
     """(B, 1, S) audio -> (B, num_fft // 2 + 1, T) float32 magnitudes on
     ``device`` (None: the card, raising without one).
 
     ``lengths``: per-row valid sample counts; the end reflection lands at
-    their maximum (the true batch end), not at the padded S.
+    their maximum (the true batch end), not at the padded S, or at
+    ``valid_samples`` when given: the whole batch's, where these rows are
+    one rank's share of it (``core.from_dataloader``'s data-parallel
+    branch).
     """
     device = devices.resolve(device)
     config = config_mod.get(config)
-    valid = int(np.max(np.asarray(lengths))) if lengths is not None else None
+    valid = valid_samples
+    if valid is None and lengths is not None:
+        valid = int(np.max(np.asarray(lengths)))
     return stft_ops.magnitude_spectrogram(
         torch.as_tensor(audio).to(device), config.num_fft, config.hopsize,
         config.window_size, valid_samples=valid)

@@ -6,6 +6,11 @@ facebook/wav2vec2-base's last hidden state at 50 Hz, nearest-upsampled x2
 to 100 Hz. The weights are the JAX package's converted npz
 (``W2V2FB_CHECKPOINT``, made once by its scripts/convert_w2v2.py, which
 needs the network), read through ``convert.w2v2_params_from_jax``.
+
+With a > 1 'model' axis on the config's mesh over several ranks the trunk
+is tensor-parallel (``tp_placement``): each rank holds its slices of the
+tensors that the w2v2 rule splits, and the trunk's kernels (B7) run on
+each layer's gathered weights.
 """
 
 import dataclasses
@@ -18,6 +23,7 @@ from .. import config as config_mod
 from .. import convert
 from .. import devices
 from .. import load as load_mod
+from .. import parallel
 from ..models import w2v2
 
 # pad = window//2 - hop//2 (reference w2v2fb/core.py:24-25,60)
@@ -48,6 +54,15 @@ def _trunk(config: w2v2.W2V2Config, device):
                                    config)
 
 
+def tp_placement(wcfg: w2v2.W2V2Config, config, device):
+    """The trunk's TP placement (``parallel.frontend_tp_placement`` with the
+    w2v2 rule, sharded from the host's copy), or None."""
+    if 'model' not in config.mesh_axis_names or parallel.world()[0] < 2:
+        return None
+    return parallel.frontend_tp_placement(
+        _trunk(wcfg, 'cpu'), config, parallel.w2v2_module_dims, device)
+
+
 def nearest_upsample_indices(in_size: int, out_size: int):
     """torch F.interpolate(mode='nearest') index map: floor(i*in/out)."""
     return (np.arange(out_size) * in_size // out_size).astype(np.int64)
@@ -70,8 +85,14 @@ def from_audios(audio, lengths=None, config=None, device=None):
     out_frames = S // config.hopsize
     wcfg = dataclasses.replace(w2v2.BASE, compute_dtype=config.compute_dtype)
     padded = F.pad(audio.float(), (PAD, PAD)).reshape(B, S + 2 * PAD)
-    hidden = w2v2.forward(_trunk(wcfg, device), padded, lengths + 2 * PAD,
-                          wcfg)
+    placement = tp_placement(wcfg, config, device)
+    if placement is None:
+        hidden = w2v2.forward(_trunk(wcfg, device), padded,
+                              lengths + 2 * PAD, wcfg)
+    else:
+        hidden = placement.run(
+            lambda trunk, a, n: w2v2.forward(trunk, a, n, wcfg), padded,
+            lengths + 2 * PAD)
     hidden = hidden.transpose(1, 2)                       # (B, 768, T50)
     idx = torch.from_numpy(nearest_upsample_indices(
         hidden.shape[-1], out_frames)).to(device)

@@ -199,3 +199,30 @@ def test_only_the_transformer_is_ported():
     for package in (ppgs_tpu, ppgs_tpu_torch):
         with pytest.raises(ValueError, match='Unknown representation wav'):
             package.preprocess.get('wav')
+
+
+# JAX modules that are glue with no counterpart in the port: the
+# jax-version shim of shard_map, whose place the per-rank bodies of
+# ppgs_tpu_torch/parallel/context.py and pipeline.py take
+NO_COUNTERPART = {'parallel/_shard_map.py'}
+
+
+def test_every_jax_module_has_a_counterpart():
+    """The two trees' .py file lists compared: each module of the JAX
+    package has one of the same path in the port, or its package is one
+    module there (``convert/`` is ``convert.py``), except the glue in
+    ``NO_COUNTERPART``. A module that a later change leaves unported is
+    named in the failure."""
+    def files(root):
+        return {p.relative_to(root).as_posix() for p in root.rglob('*.py')
+                if 'build' not in p.parts}
+
+    jax_files = files(REPO / 'ppgs_tpu')
+    port_files = files(REPO / 'ppgs_tpu_torch')
+    missing = sorted(
+        f for f in jax_files - NO_COUNTERPART
+        if f not in port_files and not (
+            '/' in f and f.rsplit('/', 1)[0] + '.py' in port_files))
+    assert not missing, f'JAX modules without a port counterpart: {missing}'
+    assert NO_COUNTERPART <= jax_files
+    assert 'parallel/__init__.py' in port_files

@@ -547,8 +547,12 @@ def test_train_writes_logs_and_checkpoints_and_resumes(tmp_path,
 
 
 def test_orbax_backend_is_not_ported(tmp_path):
+    """The orbax backend is the port's own step directories (orbax's
+    on-disk format is not ported): an empty run directory has no latest
+    step, and a backend that neither package has raises."""
+    assert train_core.latest_checkpoint(tmp_path, backend='orbax') is None
     with pytest.raises(NotImplementedError, match='npz'):
-        train_core.latest_checkpoint(tmp_path, backend='orbax')
+        train_core.latest_checkpoint(tmp_path, backend='zarr')
 
 
 ###############################################################################
