@@ -309,15 +309,41 @@ any failure exits non-zero before the result line:
    each stage, once a layer a tick) and one train step at dropout 0 (B5
    and B6) against the sequential per-layer path in one process, the PPGs
    at the bf16 gates and each gradient within relative L2 2^-8; then K1-K4
-   at a CP rank's windows against their plain versions, timed.
+   at a CP rank's windows against their plain versions, timed;
+33. the widths slice (the transformer at the (C, d_head) pairs of
+   ``models.transformer.KERNEL_WIDTHS`` that no registered config has:
+   (256, 256), (512, 128), (768, 128), (768, 256)): the C = 768 kernel
+   instances against their plain versions at odd shapes (K4 with ReLU in
+   its LayerNorm forms, round_input 0 and 1, and its two train forms,
+   dropout off and 0.1, the hidden's keep words Philox's bits;
+   ffn_train_bwd in both forms; ln_dropout_bwd), K2 at those pairs' head
+   counts (1, 4, 6, 3) at phase 3's odd shapes, and K2, the train
+   attention and row_dot at those head counts and at 2 bit for bit against
+   the one-head kernels on the heads folded into the batch (T 1 ... 512,
+   holed, wholly masked and full windows, causal, dropout off and 0.1);
+34. at each pair, 5 layers, F = 2048, seeded weights from a temporary
+   npz: ``from_audio`` on 64 x 8 s (K1-K4 exactly 5 times each at the
+   pair's widths; the first 4 rows against ``device='cpu'`` at the bf16
+   gates, ``agree_decided``), at C = 768 ``legacy_mode`` on 12 s (the
+   per-layer path: K2 and K4 5 times each); a 256 x 512 train step (B4)
+   at each pair and a 256 x 500 one (B5 + B6) at C = 768, each step's
+   launches exactly phase 8's per-layer counts, its loss and gradients
+   against the plain path's fed the same Philox masks (relative L2 5e-2);
+   at C = 768 both steps timed with their peak memory;
+35. the new instances at the main paths' shapes against their plain
+   versions (K4 at 128 x 500 rows; the train kernels at 256 x 512, dropout
+   0.1), each timed by CUDA events and device time beside its plain
+   version, its library route and its bound: K4 (768, ReLU) in both
+   inference forms, its two train forms, ffn_train_bwd, ln_dropout_bwd,
+   and K2, attention_train_fwd and attention_train_bwd at each pair.
 
 At the end of every run the sha256 of every file under
 ``ppgs_tpu/assets/`` is the one read before phase 1.
 
 ``--slices`` (default
-``mel,train,w2v2fb,bottleneck,api,data,head_train,w2v2,codec,parallel``)
-runs a subset: phases 3-5, 6-8, 9-11, 12-14, 15-17, 18-20, 21-23, 24-26,
-27-29 and 30-32 respectively. Each phase prints its
+``mel,train,w2v2fb,bottleneck,api,data,head_train,w2v2,codec,parallel,
+widths``) runs a subset: phases 3-5, 6-8, 9-11, 12-14, 15-17, 18-20,
+21-23, 24-26, 27-29, 30-32 and 33-35 respectively. Each phase prints its
 seconds. Before the last line it prints one JSON
 object with a record per kernel;
 the last line is {"ok": true, "device": {...}}. Imports nothing of JAX or
@@ -7149,14 +7175,662 @@ def parallel_phases(port, workdir, dev, card):
     return records
 
 
+# The widths slice: the PPG transformer at the (C, d_head) pairs of
+# models.transformer.KERNEL_WIDTHS that no registered config has (the mel
+# model is (256, 128), the w2v2fb and w2v2fc heads (512, 256)), at full
+# width and the mel model's depth (5 layers, F = 2048) with seeded weights:
+# from_audio on WIDTH_BATCH x WIDTH_SECONDS, its first WIDTH_CPU_ROWS rows
+# against device='cpu'; a whole-layer train step (256 x 512) at each pair
+# and a per-layer one (256 x 500) at C = 768, the width whose FFN kernels
+# are new
+WIDTH_PAIRS = ((256, 256), (512, 128), (768, 128), (768, 256))
+WIDTH_NEW_C, WIDTH_F = 768, 2048
+WIDTH_BATCH, WIDTH_SECONDS, WIDTH_CPU_ROWS = 64, 8, 4
+WIDTH_STEP_REPS = 3
+# A whole 5-layer step's gradients, the kernels against the plain path fed
+# the same Philox masks, per tensor by relative L2: card_against_cpu's
+# limit for the same comparison (bf16 products summed in other orders
+# through 5 layers); the loss within 1e-2 of the plain path's
+WIDTH_GRAD_REL = 5e-2
+# The inference shape of the times: from_audio's 64 x 8 s is 128 windows
+# of 500 frames
+WIDTH_WINDOWS, WIDTH_T = 128, 500
+
+
+def width_config(port, C, D):
+    """The mel model at width C with heads of D (no registered config)."""
+    return port.config.get('mel').replace(
+        config=f'mel-c{C}-d{D}', hidden_channels=C, attention_heads=C // D,
+        ffn_channels=WIDTH_F)
+
+
+# The head-fold checks' windows: T about the 64-key tiles and 128-row
+# blocks, and the per-layer and whole-layer train windows
+FOLD_T = (1, 63, 65, 129, 500, 512)
+
+
+@torch.no_grad()
+def head_fold_checks(D, H, dev):
+    """K2, attention_train_fwd, row_dot and attention_train_bwd with H
+    heads of D against the same kernels with one head, on the heads folded
+    into the batch (window b's head h as window b H + h), bit for bit: the
+    dropout's Philox index of (window, head, row, key) is the same on both
+    sides, so every output must be equal, the keep words and lse too. At
+    ``FOLD_T``, 4 windows (ragged, holed, wholly masked, full), causal off
+    and on, dropout off and 0.1. With H = 2, the head count phases 6 and 21
+    hold against the plain versions, this ties the one-head kernels to
+    them; with H = 1, 3, 4, 6 the new head counts to the one-head kernels:
+    a grid, a stride or a Philox index that went wrong at a head count
+    would differ."""
+    from ppgs_tpu_torch.ops import dropout
+    from ppgs_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 73)
+    bf16, C = torch.bfloat16, H * D
+    sl, sm = fa.LOG2E / math.sqrt(D), 1 / math.sqrt(D)
+
+    def fold(t):
+        """(B, T, H D) -> (B H, T, D), head h of window b at b H + h."""
+        B, T = t.shape[:2]
+        return t.reshape(B, T, H, D).transpose(1, 2).reshape(B * H, T, D)
+
+    def folded_views(qkv):
+        one = torch.cat([fold(qkv[..., i * C:(i + 1) * C]) for i in range(3)],
+                        dim=-1).contiguous()
+        return one[..., :D], one[..., D:2 * D], one[..., 2 * D:]
+
+    def same(name, got, want):
+        if not torch.equal(got, want):
+            raise AssertionError(f'{name}: the {H}-head call is not the '
+                                 f'one-head call on its folded heads')
+
+    cases = 0
+    for T in FOLD_T:
+        qkv = torch.randn(4, T, 3 * C, generator=gen, device=dev).to(bf16)
+        do32 = torch.randn(4, T, C, generator=gen, device=dev)
+        q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
+        q1, k1, v1 = folded_views(qkv)
+        do16 = do32.to(bf16)
+        keys = torch.arange(T, device=dev)
+        mask = torch.stack([keys < max(1, 2 * T // 3),
+                            torch.rand(T, generator=gen, device=dev) < 0.6,
+                            torch.zeros(T, dtype=torch.bool, device=dev),
+                            torch.ones(T, dtype=torch.bool, device=dev)])
+        mask[1, 64:128] = False
+        mask1 = mask.repeat_interleave(H, dim=0)
+        for causal, rate in itertools.product((False, True), (0.0, DROPOUT)):
+            name = (f'd_head {D}, {H} heads, T={T} causal={causal} '
+                    f'rate={rate}')
+            drop = dropout.Drop(SEED + 19, dropout.site(1, 'probs'), rate)
+            if not rate:
+                same(f'K2 {name}', fold(fa.attention(q, k, v, mask, H, sl,
+                                                     causal)),
+                     fa.attention(q1, k1, v1, mask1, 1, sl, causal))
+            o16, o32, lse, keep = fa.attention_train_fwd(
+                q, k, v, mask, H, sl, causal, drop, want_f32=True)
+            a16, a32, alse, akeep = fa.attention_train_fwd(
+                q1, k1, v1, mask1, 1, sl, causal, drop, want_f32=True)
+            same(f'attention_train_fwd o {name}', fold(o16), a16)
+            same(f'attention_train_fwd o32 {name}', fold(o32), a32)
+            same(f'attention_train_fwd lse {name}',
+                 lse.reshape(4 * H, 1, T), alse)
+            if rate:
+                check_keep_words(name, keep, drop, mask, causal)
+                same(f'attention_train_fwd keep words {name}',
+                     keep.reshape(akeep.shape), akeep)
+            d_row = fa.row_dot(do32, o32, H)
+            a_row = fa.row_dot(fold(do32).contiguous(), a32, 1)
+            same(f'row_dot {name}', d_row.reshape(4 * H, 1, T), a_row)
+            d16, d32 = fa.attention_train_bwd(
+                q, k, v, mask, lse, keep, do16, d_row, H, sl, sm, causal,
+                drop, want32=True)
+            b16, b32 = fa.attention_train_bwd(
+                q1, k1, v1, mask1, alse, akeep, fold(do16).contiguous(),
+                a_row, 1, sl, sm, causal, drop, want32=True)
+            for i, part in enumerate(('dq', 'dk', 'dv')):
+                cols, one = slice(i * C, (i + 1) * C), slice(i * D,
+                                                             (i + 1) * D)
+                same(f'attention_train_bwd {part} {name}',
+                     fold(d32[..., cols]), b32[..., one])
+                same(f'attention_train_bwd {part} (bf16) {name}',
+                     fold(d16[..., cols]), b16[..., one])
+            cases += 1
+    print(f'd_head {D}, {H} heads: K2, attention_train_fwd (o, fp32 o, lse, '
+          f'keep words), row_dot and attention_train_bwd (bf16 and fp32) '
+          f'equal bit for bit to the one-head kernels on the folded heads in '
+          f'{cases} cases (T = {FOLD_T}, 4 windows, causal off and on, '
+          f'dropout off and {DROPOUT}; the keep words Philox\'s bits)',
+          flush=True)
+
+
+def widths_odd_shapes(dev):
+    """Phase 33: the new kernel instances at C = 768 (K4 with ReLU in its
+    inference form and its two train forms, ffn_train_bwd, ln_dropout_bwd)
+    against their plain versions at odd shapes; K2 at the new pairs' head
+    counts (1, 4, 6, 3) against its plain version at phase 3's odd shapes,
+    and the attention kernels at those head counts and at 2 against the
+    one-head kernels on the folded heads (``head_fold_checks``)."""
+    C = WIDTH_NEW_C
+    for form in ('ln', 'train_ln', 'y_out'):
+        k4_odd_shape_checks(form, C, 'relu', WIDTH_F, dev)
+    ffn_bwd_odd_shape_checks(dev, C)
+    ln_dropout_bwd_odd_shape_checks(C, dev)
+    for C, D in WIDTH_PAIRS:
+        k2_odd_shape_checks(D, C // D, dev)
+    for D, H in sorted({(D, 2) for _, D in WIDTH_PAIRS}
+                       | {(D, C // D) for C, D in WIDTH_PAIRS}):
+        head_fold_checks(D, H, dev)
+
+
+class plain_train_path:
+    """Within it, the train forward's three kernel chains (B4, B5, B6) are
+    their plain versions, which draw the same Philox masks."""
+
+    def __init__(self, port):
+        tr = port.models.transformer
+        self.slots = ((tr.elt, 'encoder_layer_train'),
+                      (tr.fa, 'flash_attention_train'),
+                      (tr.fused_ffn, 'ffn_train'))
+
+    def __enter__(self):
+        self.saved = [getattr(m, n) for m, n in self.slots]
+        for m, n in self.slots:
+            setattr(m, n, getattr(m, f'{n}_reference'))
+
+    def __exit__(self, *exc):
+        for (m, n), fn in zip(self.slots, self.saved):
+            setattr(m, n, fn)
+
+
+def width_step(port, model, batch, seed):
+    """One train step's loss and gradients (fp32, by parameter name)."""
+    features, targets, lengths = batch
+    model.zero_grad(set_to_none=True)
+    loss = port.train.loss(model(features, lengths, train=True, seed=seed),
+                           targets)
+    loss.backward()
+    grads = {n: p.grad.float() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return loss.item(), grads
+
+
+def width_train(port, config, params, dev, launches, card):
+    """Phase 34's steps at one pair: a 256 x 512 step (B4) and at C = 768
+    a 256 x 500 one (B5 + B6), each with its exact launches and its loss
+    and gradients against the plain path's with the same seed; at C = 768
+    each step timed through make_train_step with its peak memory."""
+    C, H, L = (config.hidden_channels, config.attention_heads,
+               config.num_hidden_layers)
+    D = C // H
+    model = port.train.core.init_model(config, dev)
+    model.load_state_dict(port.convert.params_from_jax(
+        port.load.flatten_params(params)))
+    counters = train_counters()
+    Ts = (TRAIN_T, SPLIT_T) if C == WIDTH_NEW_C else (TRAIN_T,)
+    for T in Ts:
+        batch = train_batch(config, TRAIN_B, T, SEED + 5, dev)
+        set_counts(counters)
+        loss, grads = width_step(port, model, batch, 700 + T)
+        got, _ = read_counts(counters)
+        per_layer = B4_PER_LAYER if T == TRAIN_T else SPLIT_PER_LAYER
+        want = {name: L * per_layer[name] for name in counters}
+        print(f'(C, d_head) = ({C}, {D}), {H} heads: launches in one '
+              f'{TRAIN_B} x {T} step: {got}', flush=True)
+        if got != want:
+            raise AssertionError(f'({C}, {D}) T={T}: launches {got}, not '
+                                 f'{want}')
+        form = 'b4' if T == TRAIN_T else 'split'
+        launches[f'attention_train_fwd_d{D}_h{H}'] += got[
+            'attention_train_fwd']
+        launches[f'attention_train_bwd_d{D}_h{H}'] += got[
+            'attention_train_bwd']
+        if C == WIDTH_NEW_C:
+            launches[f'ffn_train_fwd_{form}_c{C}'] += got['ffn_train_fwd']
+            launches[f'ffn_train_bwd_c{C}'] += got['ffn_train_bwd']
+            launches[f'ln_dropout_bwd_c{C}'] += got['ln_dropout_bwd']
+        with plain_train_path(port):
+            plain_loss, plain = width_step(port, model, batch, 700 + T)
+        errors = {n: relative_l2(grads[n], plain[n]) for n in plain}
+        worst = max(errors, key=errors.get)
+        print(f'({C}, {D}) {TRAIN_B} x {T} step, kernels against the plain '
+              f'path (the same Philox masks): loss {loss:.6f} vs '
+              f'{plain_loss:.6f}, per-tensor relative gradient error median '
+              f'{statistics.median(errors.values()):.3g}, worst '
+              f'{errors[worst]:.3g} ({worst}; <= {WIDTH_GRAD_REL}) [{card}]',
+              flush=True)
+        if (abs(loss - plain_loss) > 1e-2 * abs(plain_loss)
+                or errors[worst] > WIDTH_GRAD_REL):
+            raise AssertionError(f'({C}, {D}) T={T}: the kernels\' step '
+                                 f'disagrees with the plain path\'s')
+        del grads, plain
+    if C != WIDTH_NEW_C:
+        return
+    optimizer = port.train.make_optimizer(model.parameters(), config)
+    step = port.train.make_train_step(model, config, optimizer)
+    frame_s = config.hopsize / config.sample_rate
+    for T in Ts:
+        batch = train_batch(config, TRAIN_B, T, SEED + 5, dev)
+        step(*batch, seed=100)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        seconds = median_seconds(lambda: step(*batch, seed=200),
+                                 WIDTH_STEP_REPS)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f'({C}, {D}) train step {TRAIN_B} x {T} '
+              f'({"B4" if T == TRAIN_T else "B5 + B6"}): {seconds * 1e3:.3f} '
+              f'ms (median of {WIDTH_STEP_REPS}), '
+              f'{TRAIN_B * T * frame_s / seconds:.1f} audio-s/s, peak device '
+              f'memory {peak:.3f} GiB [{card}]', flush=True)
+
+
+def widths_main_paths(port, workdir, dev, gen, card):
+    """Phase 34: each new pair's from_audio on 64 x 8 s (K1-K4 5 times a
+    call at its widths, the first rows against device='cpu' at the bf16
+    gates), at C = 768 a legacy_mode call on 12 s (the per-layer path: K2
+    and K4 5 times), and its train steps (``width_train``); returns the
+    launches of the slice's kernel records in these runs."""
+    from ppgs_tpu_torch.ops import encoder_layer_kernel as elk
+    from ppgs_tpu_torch.ops import flash_attention as fa
+    from ppgs_tpu_torch.ops import fused_ffn
+
+    counters = {'qkv_proj': elk.qkv_proj, 'attention': fa.attention,
+                'out_proj_residual_ln': elk.out_proj_residual_ln,
+                'ffn_residual_ln': fused_ffn.ffn_residual_ln}
+    launches = collections.Counter()
+    for C, D in WIDTH_PAIRS:
+        config = width_config(port, C, D)
+        H, L = C // D, config.num_hidden_layers
+        samples = WIDTH_SECONDS * config.sample_rate
+        audio = 0.1 * torch.randn(WIDTH_BATCH, 1, samples, generator=gen,
+                                  device=dev)
+        params = random_params(port, config, SEED + C + D)
+        path = Path(workdir) / f'{config.config}.npz'
+        port.load.save_params(path, params)
+        set_counts(counters)
+        ppg = port.from_audio(audio, config=config, checkpoint=path)
+        got, widths = read_counts(counters)
+        print(f'(C, d_head) = ({C}, {D}), {H} heads: launches in one '
+              f'from_audio call on {WIDTH_BATCH} x {WIDTH_SECONDS} s: {got}, '
+              f'by width: {widths}', flush=True)
+        want_widths = {'qkv_proj': {C: L}, 'attention': {D: L},
+                       'out_proj_residual_ln': {C: L},
+                       'ffn_residual_ln': {C: L}}
+        if got != {name: L for name in counters} or widths != want_widths:
+            raise AssertionError(f'({C}, {D}): launches {got} {widths}, not '
+                                 f'{L} of each at {want_widths}')
+        launches[f'attention_d{D}_h{H}'] += got['attention']
+        if C == WIDTH_NEW_C:
+            launches[f'ffn_residual_ln_c{C}_relu'] += got['ffn_residual_ln']
+        check_ppg(f'({C}, {D}) from_audio', ppg, audio,
+                  (WIDTH_BATCH, config.output_channels,
+                   samples // config.hopsize))
+        rows = audio[:WIDTH_CPU_ROWS].cpu()
+        agree_decided(
+            f'({C}, {D}) from_audio, the first {WIDTH_CPU_ROWS} rows, against '
+            f'device=cpu', ppg[:WIDTH_CPU_ROWS],
+            port.from_audio(rows, config=config, checkpoint=path,
+                            device='cpu'),
+            port.from_audio(rows, config=config.replace(
+                compute_dtype='float32'), checkpoint=path, device='cpu'),
+            card)
+        del ppg, audio
+        if C == WIDTH_NEW_C:
+            # legacy_mode past 1024 frames: the per-layer path, K2 and K4's
+            # per-layer form (round_input 1) a layer
+            legacy = 0.1 * torch.randn(1, 1, LEGACY_SECONDS
+                                       * config.sample_rate, generator=gen,
+                                       device=dev)
+            set_counts(counters)
+            ppg = port.from_audio(legacy, config=config, checkpoint=path,
+                                  legacy_mode=True)
+            got, widths = read_counts(counters)
+            print(f'({C}, {D}) launches in one legacy_mode call on 1 x '
+                  f'{LEGACY_SECONDS} s: {got}, by width: {widths}', flush=True)
+            if got != {'qkv_proj': 0, 'attention': L,
+                       'out_proj_residual_ln': 0, 'ffn_residual_ln': L}:
+                raise AssertionError(f'({C}, {D}) legacy_mode launches {got}')
+            launches[f'attention_d{D}_h{H}'] += got['attention']
+            launches[f'ffn_residual_layernorm_c{C}'] += got['ffn_residual_ln']
+            agree_decided(
+                f'({C}, {D}) from_audio legacy_mode, 1 x {LEGACY_SECONDS} s, '
+                f'against device=cpu', ppg,
+                port.from_audio(legacy.cpu(), config=config, checkpoint=path,
+                                legacy_mode=True, device='cpu'),
+                port.from_audio(legacy.cpu(), config=config.replace(
+                    compute_dtype='float32'), checkpoint=path,
+                    legacy_mode=True, device='cpu'),
+                card)
+            del ppg, legacy
+        width_train(port, config, params, dev, launches, card)
+        torch.cuda.empty_cache()
+    print(f'the slice\'s launches by record: {dict(launches)}', flush=True)
+    return launches
+
+
+def width_record(name, src, replaces, fns, verify, work, launches, card,
+                 library_label, plain_reps=TRAIN_REPS):
+    """One record of the slice: the kernel held against its plain version
+    on the same inputs by ``verify(got, want)``, which raises beyond its
+    limits and returns the max |kernel - plain|; both timed by CUDA events
+    with the library call, the bound from ``work``, and the kernel's
+    device time per call (``device_times``)."""
+    kernel_fn, plain_fn, library_fn = fns
+    err = verify(kernel_fn(), plain_fn())
+    ms = time_ms(kernel_fn, TRAIN_REPS, 2)
+    plain_ms = time_ms(plain_fn, plain_reps, 1)
+    library_ms = time_ms(library_fn, TRAIN_REPS, 2)
+    bound_ms, bound_by = bound(*work)
+    record = {'name': f'widths/{name}', 'route': 'cuda',
+              'source': f'ppgs_tpu_torch/kernels/csrc/{src}',
+              'replaces': replaces, 'launches': launches[name],
+              'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
+              'bound_ms': bound_ms, 'bound_by': bound_by,
+              'library_ms': library_ms}
+    print(f'{name}: max |kernel - plain| {err:.3g}, plain {plain_ms:.4f} '
+          f'ms', flush=True)
+    device_times(name, record, kernel_fn, library_label, card)
+    if not launches[name]:
+        raise AssertionError(f'{name} was not launched on the main path')
+    return record
+
+
+@torch.no_grad()
+def widths_ffn_times(port, launches, dev, card):
+    """Phase 35's records of the C = 768 FFN kernels: K4 with ReLU (the
+    inference LayerNorm forms, the stack's and the per-layer path's, at the
+    main path's 128 x 500 rows) and, at the
+    training shape (256 x 512 rows, dropout 0.1), K4's two train forms,
+    ffn_train_bwd (fp32 x with the residual) and ln_dropout_bwd (LN2 with
+    keep_y). The weights are layer 0's of phase 34's (768, 128) model (the
+    init's scale, as phase 22 takes its layer's); the activations N(0, 1),
+    the LayerNorm'd rows' scale."""
+    from ppgs_tpu_torch.ops import backward, dropout, fused_ffn
+
+    bf16 = torch.bfloat16
+    C, Fh = WIDTH_NEW_C, WIDTH_F
+    gen = torch.Generator(device=dev).manual_seed(SEED + 67)
+
+    def rnd(*shape, scale=1.0, base=0.0):
+        return base + scale * torch.randn(*shape, generator=gen, device=dev)
+
+    D = WIDTH_PAIRS[2][1]
+    layer = random_params(port, width_config(port, C, D),
+                          SEED + C + D)['layers'][0]
+    w1, b1, w2, b2 = (torch.from_numpy(layer['ffn'][n]).to(dev)
+                      for n in ('w1', 'b1', 'w2', 'b2'))
+    w1, w2 = w1.to(bf16), w2.to(bf16)
+    g2, be2 = (torch.from_numpy(layer['norm2'][n]).to(dev)
+               for n in ('scale', 'bias'))
+    w1t, w2t, b1c, b2c = w1.T, w2.T, b1.to(bf16), b2.to(bf16)
+    records = []
+
+    M = WIDTH_WINDOWS * WIDTH_T
+    x = rnd(M, C)
+    ln = (x, w1, b1, w2, b2, g2, be2)
+    records.append(width_record(
+        f'ffn_residual_ln_c{C}_relu', 'ffn_ln.cu',
+        'ppgs_tpu/ops/encoder_layer_kernel.py:330',
+        (lambda: fused_ffn.ffn_residual_ln(*ln),
+         lambda: fused_ffn.ffn_residual_ln_reference(*ln),
+         lambda: F.layer_norm(x + F.linear(F.relu(F.linear(
+             x.to(bf16), w1t, b1c)), w2t, b2c).float(), (C,), g2, be2)),
+        lambda got, want: check(f'K4 C={C} relu M={M}', got, want, 1e-2),
+        (4 * M * C * Fh, 2 * M * C * 4 + 2 * C * Fh * 2 + (Fh + 3 * C) * 4),
+        launches, card, 'addmm + ReLU + addmm + layer_norm', REPS))
+    # the per-layer path's form (round_input 1: x rounded to bf16 first)
+    records.append(width_record(
+        f'ffn_residual_layernorm_c{C}', 'ffn_ln.cu',
+        'ppgs_tpu/ops/fused_ffn.py:70',
+        (lambda: fused_ffn.ffn_residual_layernorm(*ln),
+         lambda: fused_ffn.ffn_residual_layernorm_reference(*ln),
+         lambda: F.layer_norm(x.to(bf16).float() + F.linear(F.relu(F.linear(
+             x.to(bf16), w1t, b1c)), w2t, b2c).float(), (C,), g2, be2)),
+        lambda got, want: check(f'K4 C={C} relu round_input 1 M={M}', got,
+                                want, 1e-2),
+        (4 * M * C * Fh, 2 * M * C * 4 + 2 * C * Fh * 2 + (Fh + 3 * C) * 4),
+        launches, card, 'addmm + ReLU + addmm + layer_norm', REPS))
+    del x, ln
+
+    M = TRAIN_B * TRAIN_T
+    drop_h = dropout.Drop(SEED + 37, dropout.site(0, 'hidden'), DROPOUT)
+    drop_y = drop_h.at(drop_h.site + 1)
+    r = rnd(M, C)
+    r16 = r.to(bf16)
+    b4 = (r, w1, b1, w2, b2, drop_h, drop_y, (g2, be2))
+    y_out = (r16, w1, b1, w2, b2, drop_h, drop_y)
+
+    def b4_chain(xs):
+        h = F.dropout(F.relu(F.linear(xs, w1t, b1c)), DROPOUT)
+        y = F.dropout(F.linear(h, w2t, b2c), DROPOUT)
+        return F.layer_norm(xs.float() + y.float(), (C,), g2, be2)
+
+    def y_chain():
+        h = F.dropout(F.relu(F.linear(r16, w1t, b1c)), DROPOUT)
+        return F.dropout(F.linear(h, w2t, b2c), DROPOUT)
+
+    def train_fwd_verify(form, limit):
+        """K4's train form as phase 33 holds it: relative L2 of the outputs
+        within ``limit``, the hidden's keep words Philox's bits."""
+        def verify(got, want):
+            check_hidden_words(form, got[3], drop_h)
+            pairs = [(a, b) for a, b in zip(got[:3], want[:3])
+                     if b is not None]
+            rels = [relative_l2(a, b) for a, b in pairs]
+            print(f'{form} M={M}: relative L2 errors {rels} (<= {limit}); '
+                  f'the keep words Philox\'s bits', flush=True)
+            if max(rels) > limit:
+                raise AssertionError(f'{form}: relative L2 {rels} > {limit}')
+            return max((a.float() - b.float()).abs().max().item()
+                       for a, b in pairs)
+        return verify
+
+    # x, the weights and biases in; out, the normalised rows, 1/std and the
+    # hidden's keep words out
+    records.append(width_record(
+        f'ffn_train_fwd_b4_c{C}', 'ffn_ln.cu',
+        'ppgs_tpu/ops/encoder_layer_train.py:471',
+        (lambda: fused_ffn.ffn_train_fwd(*b4),
+         lambda: fused_ffn.ffn_train_fwd_reference(*b4),
+         lambda: b4_chain(r16)),
+        train_fwd_verify(f'ffn_train_fwd B4 C={C}', 1e-3),
+        (4 * M * C * Fh, M * C * 4 + 2 * C * Fh * 2 + (Fh + 3 * C) * 4
+         + 2 * M * C * 4 + M * 4 + M * Fh // 8),
+        launches, card, 'its library route'))
+    records.append(width_record(
+        f'ffn_train_fwd_split_c{C}', 'ffn_ln.cu',
+        'ppgs_tpu/ops/fused_ffn.py:256',
+        (lambda: fused_ffn.ffn_train_fwd(*y_out),
+         lambda: fused_ffn.ffn_train_fwd_reference(*y_out), y_chain),
+        train_fwd_verify(f'ffn_train_fwd B6 C={C}', 1e-2),
+        (4 * M * C * Fh, 2 * M * C * 2 + 2 * C * Fh * 2 + (Fh + C) * 4
+         + M * Fh // 8),
+        launches, card, 'its library route'))
+    _, _, _, keep = fused_ffn.ffn_train_fwd(*b4)
+    dy, residual = rnd(M, C).to(bf16), rnd(M, C)
+    bwd = (r, dy, w1, b1, w2, drop_h, keep, residual)
+    leaf = r16.detach().requires_grad_()
+    with torch.enable_grad():
+        chain_out = b4_chain(leaf)
+    chain_cot = torch.randn_like(chain_out)
+
+    def bwd_verify(got, want):
+        """FFN_BWD_LIMITS at C = 768, the relu' flips carried over."""
+        want = with_relu_flips(want, got, w1)
+        return max(
+            check(f'ffn_train_bwd C={C} M={M} {name}', a, b, atol, rtol,
+                  share=flip_share(share, C), **bound_on)
+            for name, a, b in zip(('dx (fp32 + residual)', 'hd', 'dh',
+                                   'db1 partial sums'), got, want)
+            for atol, rtol, share, bound_on in [FFN_BWD_LIMITS[name]])
+    # x, dy, the residual, the weights, b1 and the keep words in; dx, hd,
+    # dh and the db1 partial rows out
+    records.append(width_record(
+        f'ffn_train_bwd_c{C}', 'ffn_train.cu', 'ppgs_tpu/ops/fused_ffn.py:294',
+        (lambda: fused_ffn.ffn_train_bwd(*bwd),
+         lambda: fused_ffn.ffn_train_bwd_reference(*bwd),
+         lambda: torch.autograd.grad(chain_out, leaf, chain_cot,
+                                     retain_graph=True)),
+        bwd_verify,
+        (6 * M * C * Fh, M * C * 4 + M * C * 2 + M * C * 4 + 2 * C * Fh * 2
+         + Fh * 4 + M * Fh // 8 + M * C * 4 + 2 * M * Fh * 2
+         + -(-M // 64) * Fh * 4),
+        launches, card, 'its library route'))
+    del bwd, keep, chain_out, leaf, b4, y_out
+
+    g = rnd(M, C)
+    n = rnd(M, C)
+    rstd = torch.rand(M, generator=gen, device=dev) + 0.5
+    ln_args = (g, n, rstd, g2, drop_y, bf16)
+    zero_mean = torch.zeros(M, 1, device=dev)
+
+    def ln_verify(got, want):
+        """Phase 33's limits; the dropped elements 0."""
+        name = f'ln_dropout_bwd C={C} M={M}'
+        if got[1][~drop_y.keep((M, C), dev)].any():
+            raise AssertionError(f'{name}: a dropped element is not 0')
+        return max(check(f'{name} dz', got[0], want[0], 1e-5, 1e-5),
+                   check(f'{name} partial sums', got[2], want[2], 1e-3,
+                         1e-4),
+                   check(f'{name} masked (bf16)', got[1], want[1], 1e-5,
+                         1e-2, share=1e-6, outlier=3.2e-2))
+    records.append(width_record(
+        f'ln_dropout_bwd_c{C}', 'layer_train.cu',
+        'ppgs_tpu/ops/encoder_layer_train.py:531',
+        (lambda: backward.ln_dropout_bwd(*ln_args),
+         lambda: backward.ln_dropout_bwd_reference(*ln_args),
+         lambda: torch.ops.aten.native_layer_norm_backward(
+             g, n / rstd[:, None], [C], zero_mean, rstd[:, None], g2, be2,
+             [True, True, True])),
+        ln_verify,
+        (8 * M * C, 3 * M * C * 4 + M * 4 + C * 4 + M * C * 2
+         + (M // 64) * 3 * C * 4),
+        launches, card, 'native_layer_norm_backward'))
+    return records
+
+
+@torch.no_grad()
+def widths_attention_times(launches, dev, card):
+    """Phase 35's records of the attention kernels at the new head counts:
+    K2 at the main path's 128 windows of 500 frames, and
+    attention_train_fwd and attention_train_bwd at the training shape (256
+    x 512, ragged windows, one wholly masked, dropout 0.1)."""
+    from ppgs_tpu_torch.ops import dropout
+    from ppgs_tpu_torch.ops import flash_attention as fa
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED + 71)
+    records = []
+    for C, D in WIDTH_PAIRS:
+        H = C // D
+        sl, sm = fa.LOG2E / math.sqrt(D), 1 / math.sqrt(D)
+
+        def heads(t, B, T):
+            return t.reshape(B, T, H, D).transpose(1, 2)
+
+        B, T = WIDTH_WINDOWS, WIDTH_T
+        qkv = torch.randn(B, T, 3 * C, generator=gen, device=dev).to(bf16)
+        q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
+        mask = torch.ones(B, T, dtype=torch.bool, device=dev)
+        att = (q, k, v, mask, H, sl)
+        records.append(width_record(
+            f'attention_d{D}_h{H}', 'attention.cu',
+            'ppgs_tpu/ops/flash_attention.py:192',
+            (lambda: fa.attention(*att), lambda: fa.attention_reference(*att),
+             lambda: F.scaled_dot_product_attention(
+                 heads(q, B, T), heads(k, B, T), heads(v, B, T))),
+            lambda got, want: check(f'K2 d_head {D} ({H} heads) {B} x {T}',
+                                    got, want, 5e-3, 2 ** -7),
+            (4 * B * H * T * T * D, 4 * B * T * C * 2 + B * T),
+            launches, card, 'SDPA', REPS))
+        del qkv, q, k, v, att
+
+        B, T = TRAIN_B, TRAIN_T
+        lengths = T - torch.randint(0, T // 2, (B,), generator=gen,
+                                    device=dev)
+        lengths[0], lengths[-1] = T, 0
+        mask = torch.arange(T, device=dev)[None] < lengths[:, None]
+        pairs = H * T * lengths.double().sum().item()
+        M = B * T
+        qkv = torch.randn(B, T, 3 * C, generator=gen, device=dev).to(bf16)
+        q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
+        do = torch.randn(B, T, C, generator=gen, device=dev).to(bf16)
+        drop = dropout.Drop(SEED + 19, dropout.site(0, 'probs'), DROPOUT)
+        att = (q, k, v, mask, H, sl, False, drop)
+        sdpa_mask = mask[:, None, None, :]
+        records.append(width_record(
+            f'attention_train_fwd_d{D}_h{H}', 'attention_train.cu',
+            'ppgs_tpu/ops/flash_attention.py:576',
+            (lambda: fa.attention_train_fwd(*att, want_f32=True),
+             lambda: fa.attention_train_fwd_reference(*att, want_f32=True),
+             lambda: F.scaled_dot_product_attention(
+                 heads(q, B, T), heads(k, B, T), heads(v, B, T),
+                 attn_mask=sdpa_mask, dropout_p=DROPOUT)),
+            lambda got, want: max(
+                check(f'attention_train_fwd d_head {D} ({H} heads) o',
+                      got[0], want[0], 1e-3, 1e-2, share=1e-6, outlier=8e-3),
+                check(f'attention_train_fwd d_head {D} o32', got[1], want[1],
+                      2e-3, 1e-2, share=1e-6, outlier=8e-3),
+                check(f'attention_train_fwd d_head {D} lse', got[2], want[2],
+                      1e-4)),
+            (4 * pairs * D, 3 * M * C * 2 + M + M * C * 6 + M * H * 4
+             + 4 * math.prod(fa.keep_words_shape(B, H, T))),
+            launches, card, 'SDPA with dropout'))
+        _, o32, lse, keep = fa.attention_train_fwd(*att, want_f32=True)
+        d_row = fa.row_dot(do.float(), o32, H)
+        bwd = (q, k, v, mask, lse, keep, do, d_row, H, sl, sm, False, drop)
+        qs, ks, vs = (heads(t, B, T).detach().requires_grad_()
+                      for t in (q, k, v))
+        with torch.enable_grad():
+            sdpa_out = F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=sdpa_mask, dropout_p=DROPOUT)
+        records.append(width_record(
+            f'attention_train_bwd_d{D}_h{H}', 'attention_train_bwd.cu',
+            'ppgs_tpu/ops/flash_attention.py:625',
+            (lambda: fa.attention_train_bwd(*bwd, want32=True),
+             lambda: fa.attention_train_bwd_reference(*bwd, want32=True),
+             lambda: torch.autograd.grad(sdpa_out, (qs, ks, vs),
+                                         heads(do, B, T),
+                                         retain_graph=True)),
+            lambda got, want: max(
+                check(f'attention_train_bwd d_head {D} ({H} heads) fp32',
+                      got[1], want[1], 2e-3, 1e-2),
+                check(f'attention_train_bwd d_head {D} bf16', got[0],
+                      want[0], 1e-3, 1e-2, share=1e-6, outlier=8e-3)),
+            (10 * pairs * D, 4 * M * C * 2 + 2 * M * H * 4 + M
+             + M * 3 * C * 6),
+            launches, card, 'SDPA backward'))
+        del qkv, q, k, v, do, att, bwd, sdpa_out, o32, lse, keep
+        torch.cuda.empty_cache()
+    return records
+
+
+def widths_phases(port, workdir, dev, gen, card):
+    """Phases 33-35: the transformer at the new (C, d_head) pairs; returns
+    the slice's JSON records."""
+    phase(f'33 the new kernel instances (C = {WIDTH_NEW_C}: K4 with ReLU, '
+          f'its train forms, ffn_train_bwd, ln_dropout_bwd) against their '
+          f'plain versions at odd shapes, and the attention kernels at '
+          f'{len(WIDTH_PAIRS)} new head counts')
+    widths_odd_shapes(dev)
+    phase(f'34 from_audio ({WIDTH_BATCH} x {WIDTH_SECONDS} s) and train steps '
+          f'({TRAIN_B} x {TRAIN_T}, and {TRAIN_B} x {SPLIT_T} at C = '
+          f'{WIDTH_NEW_C}) at (C, d_head) = {WIDTH_PAIRS} (main path)')
+    launches = widths_main_paths(port, workdir, dev, gen, card)
+    phase(f'35 the new instances\' times on {card} (CUDA events, device time, '
+          f'plain, library, bound)')
+    records = widths_ffn_times(port, launches, dev, card)
+    records += widths_attention_times(launches, dev, card)
+    return records
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('--slices',
                         default='mel,train,w2v2fb,bottleneck,api,data,'
-                        'head_train,w2v2,codec,parallel',
+                        'head_train,w2v2,codec,parallel,widths',
                         help='comma-separated subset of mel,train,w2v2fb,'
                         'bottleneck,api,data,head_train,w2v2,codec,'
-                        'parallel')
+                        'parallel,widths')
     parser.add_argument('--parallel-rank', nargs=2, metavar=('MODE', 'DIR'),
                         help=argparse.SUPPRESS)
     args = parser.parse_args()
@@ -7220,6 +7894,8 @@ def main():
         codec_phases(port, workdir.name, dev, card)
     if 'parallel' in slices:
         records += parallel_phases(port, workdir.name, dev, card)
+    if 'widths' in slices:
+        records += widths_phases(port, workdir.name, dev, gen, card)
     phase()
     if assets_digest() != digest:
         raise AssertionError('a file under ppgs_tpu/assets/ changed')

@@ -59,11 +59,11 @@ SIGNATURES = {
         _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, *_DROP, _P)),
     # in, R, N, splits, chunk, scratch, out, round_bf16, stream
     'ppgs_colsum': ('layer_train.cu', (_P, _L, _L, _I, _L, _P, _P, _I, _P)),
-    # x, x_is_f32, dy, w1t, b1, w2, words, residual, dx32, dx16, hd_out,
-    # dh_out, db1_partial, mask, M, F, C, scale, stream
+    # x, x_is_f32, dy, w1t, b1, w2, w1, w2t, words, residual, dx32, dx16,
+    # hd_out, dh_out, db1_partial, mask, M, F, C, scale, stream
     'ppgs_ffn_train_bwd': ('ffn_train.cu', (
-        _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-        _F, _P)),
+        _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+        _I, _I, _F, _P)),
     # a, a_is_f32, ta, lda, b, tb, ldb, out32, out16, residual, ldc, M, N,
     # K, splits, stream
     'ppgs_gemm': ('gemm.cu', (_P, _I, _I, _L, _P, _I, _L, _P, _P, _P, _L,

@@ -1,20 +1,21 @@
 // K4 ffn_residual_ln: out = LN2(res + drop_y(drop_h(act(bf16(x) @ W1 + b1))
-// @ W2 + b2)), C = 256, 512 or 768, any F % 128 == 0, act ReLU or the
-// tanh-approximate GELU; and, for an FFN that ends without the LayerNorm
-// (C = 256 or 512, ReLU), y = drop_y(drop_h(relu(x @ W1 + b1)) @ W2 + b2) in
-// bf16.
+// @ W2 + b2)), C = 256, 512 or 768 with ReLU and C = 768 with the
+// tanh-approximate GELU, any F % 128 == 0; and, for an FFN that ends
+// without the LayerNorm (C = 256, 512 or 768, ReLU), y = drop_y(drop_h(
+// relu(x @ W1 + b1)) @ W2 + b2) in bf16.
 //
 // Replaces four TPU kernels' FFNs, which differ in their rounding points:
 // - the FFN half of ppgs_tpu/ops/encoder_layer_kernel.py _layer_body
 //   (round_input = 0): h = act(bf16(bf16(x@W1) + bf16(b1))), and the
 //   residual res is the fp32 x; act is ReLU for the PPG transformer
-//   (encoder_stack; C = 256 mel, C = 512 w2v2fb) and GELU for the
-//   wav2vec2 trunk (encoder_stack_streamed, activation='gelu', C = 768,
-//   F = 3072);
+//   (encoder_stack; C = 256 mel, C = 512 w2v2fb, and C = 768, a width the
+//   JAX package's kernels take that no registered config has) and GELU
+//   for the wav2vec2 trunk (encoder_stack_streamed, activation='gelu', C
+//   = 768, F = 3072);
 // - ppgs_tpu/ops/fused_ffn.py _kernel (ffn_residual_layernorm,
 //   round_input = 1): h = bf16(relu(x@W1 + b1)) in fp32, and the residual
 //   is x rounded to bf16, since that kernel takes a bf16 x (the per-layer
-//   path past 1024 frames: C = 256 mel, C = 512 w2v2fb);
+//   path past 1024 frames: C = 256 mel, C = 512 w2v2fb, C = 768);
 // - the FFN half of ppgs_tpu/ops/encoder_layer_train.py _fwd_compute
 //   (round_input = 0, the dropout sites on): hd = keep_h ? bf16(h *
 //   bf16(1 / (1 - rate))) : 0, y0 = fp32 dot + fp32 b2, out = LN2(x +
@@ -32,7 +33,9 @@
 // C = 256, F = 2048) 134 GFLOP, ~0.136 ms; the w2v2fb head (C = 512) 268
 // GFLOP, ~0.27 ms; the wav2vec2 trunk (M = 25,600, C = 768, F = 3072) 242
 // GFLOP, ~0.24 ms; the training shape (M = 131,072) 275 GFLOP, ~0.28 ms,
-// and at the w2v2fb head's width (C = 512) 550 GFLOP, ~0.56 ms.
+// and at the w2v2fb head's width (C = 512) 550 GFLOP, ~0.56 ms; C = 768
+// with ReLU (F = 2048) 403 GFLOP at the mel shape, ~0.41 ms, and 825 GFLOP
+// at the training shape, ~0.83 ms.
 //
 // Design, on the wgmma + TMA building blocks of hopper.cuh (as gemm.cu): a
 // producer (a warpgroup of its own, or at C = 256 one consumer thread)
@@ -77,12 +80,17 @@
 // group for two rows (g and g + 8), so lanes t and t ^ 1 share a group:
 // each draws the group of its own row (g for even t, g + 8 for odd) and
 // they trade the two words the other needs, one draw per 4 elements. The
-// train forms (C = 256 in the fused kernel, C = 512 in the hidden's
-// launch) also write the hidden's keep bits for the backward
+// train forms (C = 256 in the fused kernel, C = 512 and 768 in the
+// hidden's launch) also write the hidden's keep bits for the backward
 // (ffn_train.cu), which then draws none: int32 words of shape (M, F / 32),
-// bit k of word w for column 32 w + k; in the fused kernel a quad's four
-// lanes OR their bits into a row's words and each stores one (its WORDS
-// instances; the inference instances are compiled without it).
+// bit k of word w for column 32 w + k; in the fused kernel and in
+// ffn_hidden_kernel a quad's four lanes OR their bits into a row's words
+// and each stores one (their WORDS instances; the inference instances are
+// compiled without it). At C = 768 the train forms' hidden launch is
+// ffn_hidden_kernel, the inference instance's form with the words
+// written: the persistent hidden_train_kernel below holds a row block's x
+// resident, 192 KB at 768 of a block's 227, which would leave no room for
+// its ring; a right-first form, not yet timed against another.
 //
 // The C = 512 train forms' hidden launch (hidden_train_kernel; fp32 x with
 // the LayerNorm's launch after it, B4's form, or bf16 x with the y_out
@@ -291,14 +299,17 @@ __device__ __forceinline__ void store_y_out(const float (&acc)[128],
 }
 
 // C = 512 and 768, launch 1 of the inference forms (and of the train
-// forms at rate 0): h (M, F) bf16 = drop_h(act(x W1 + b1)), a BM x BN tile
-// a block; X_F32: x fp32 (rounded in the RS form), else bf16
-template <int BN, int ACT, bool ROUND, bool X_F32>
+// forms at rate 0, and at C = 768 at any rate): h (M, F) bf16 =
+// drop_h(act(x W1 + b1)), a BM x BN tile a block; X_F32: x fp32 (rounded
+// in the RS form), else bf16; WORDS: the hidden's keep words written to
+// `words` too
+template <int BN, int ACT, bool ROUND, bool X_F32, bool WORDS = false>
 __global__ void __launch_bounds__(THREADS, 1)
 ffn_hidden_kernel(const __grid_constant__ CUtensorMap map_x,
                   const __grid_constant__ CUtensorMap map_w1,
-                  const float* __restrict__ b1, bf16* __restrict__ h, int M,
-                  int F, int C, ppgs::Dropout drop) {
+                  const float* __restrict__ b1, bf16* __restrict__ h,
+                  uint32_t* __restrict__ words, int M, int F, int C,
+                  ppgs::Dropout drop) {
   using R = Ring<X_F32, BN>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ring = aligned_ring(smem_raw);
@@ -323,7 +334,8 @@ ffn_hidden_kernel(const __grid_constant__ CUtensorMap map_x,
   // 8j + 2t + e % 2 of the tile
   const int g = lane >> 2, t = lane & 3;
   const long long r0 = m0 + 64 * c + 16 * warp + g, r1 = r0 + 8;
-  // b1 in batches of 8 groups, loaded together ahead of their use
+  // b1 in batches of 8 groups (a 64-column chunk: two keep words a row),
+  // loaded together ahead of their use
 #pragma unroll
   for (int j0 = 0; j0 < BN / 8; j0 += 8) {
     float2 bias[8];
@@ -331,6 +343,7 @@ ffn_hidden_kernel(const __grid_constant__ CUtensorMap map_x,
     for (int i = 0; i < 8; ++i)
       bias[i] = *reinterpret_cast<const float2*>(b1 + n0 + 8 * (j0 + i) +
                                                  2 * t);
+    uint32_t w[2][2] = {{0u, 0u}, {0u, 0u}};
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const int j = j0 + i;
@@ -340,8 +353,11 @@ ffn_hidden_kernel(const __grid_constant__ CUtensorMap map_x,
       if (drop.threshold) keep4(drop, r0, r1, F, n0 + 8 * j, t, keep);
       uint32_t p0, p1;
       hidden4<ACT, ROUND>(p0, p1, v, bias[i], keep, drop);
+      if constexpr (WORDS) add_keep_bits(w, i, t, keep);
       store_bf16(h, F, r0, r1, n0 + 8 * j + 2 * t, t, p0, p1, M);
     }
+    if constexpr (WORDS)
+      store_keep_words(w, words, r0, r1, M, F, (n0 + 8 * j0) / 32, t);
   }
 }
 
@@ -973,17 +989,17 @@ ffn_fused_kernel(const __grid_constant__ CUtensorMap map_w1,
   }
 }
 
-template <int ACT, bool ROUND, bool X_F32 = true>
+template <int ACT, bool ROUND, bool X_F32 = true, bool WORDS = false>
 int launch_hidden(const CUtensorMap& mx, const CUtensorMap& mw1,
-                  const float* b1, bf16* h, int M, int F, int C,
-                  ppgs::Dropout dh, int m_tiles, cudaStream_t s) {
+                  const float* b1, bf16* h, uint32_t* words, int M, int F,
+                  int C, ppgs::Dropout dh, int m_tiles, cudaStream_t s) {
   if (F % 256 == 0)
-    return launch(ffn_hidden_kernel<256, ACT, ROUND, X_F32>, THREADS,
+    return launch(ffn_hidden_kernel<256, ACT, ROUND, X_F32, WORDS>, THREADS,
                   Ring<X_F32, 256>::SMEM, dim3(F / 256, m_tiles), 1, s, mx,
-                  mw1, b1, h, M, F, C, dh);
-  return launch(ffn_hidden_kernel<128, ACT, ROUND, X_F32>, THREADS,
+                  mw1, b1, h, words, M, F, C, dh);
+  return launch(ffn_hidden_kernel<128, ACT, ROUND, X_F32, WORDS>, THREADS,
                 Ring<X_F32, 128>::SMEM, dim3(F / 128, m_tiles), 1, s, mx,
-                mw1, b1, h, M, F, C, dh);
+                mw1, b1, h, words, M, F, C, dh);
 }
 
 template <bool LN, bool ROUND, bool WORDS = false>
@@ -1004,10 +1020,10 @@ int launch_fused(const CUtensorMap& mw1, const CUtensorMap& mw2,
 // (M, F) bf16 scratch for the hidden at C = 512 and 768 (unused, may be
 // null, at C = 256); F % 128 == 0; act 0 = ReLU, 1 = tanh-GELU. With y_out
 // null: x fp32, gamma/beta (C) fp32 -> out (M, C) fp32, and n_out (M, C)
-// and rstd (M) fp32 unless null; (C, act) is (256, ReLU), (512, ReLU) or
-// (768, GELU), the widths of the models. With y_out (C = 256 or 512,
-// ReLU, round_input 0): x bf16 -> y_out (M, C) bf16 (gamma, beta, out,
-// n_out and rstd unused). The hidden's dropout site is (seed, site_h), the
+// and rstd (M) fp32 unless null; (C, act) is (256, ReLU), (512, ReLU),
+// (768, ReLU) or (768, GELU). With y_out (C = 256, 512 or 768, ReLU,
+// round_input 0): x bf16 -> y_out (M, C) bf16 (gamma, beta, out, n_out and
+// rstd unused). The hidden's dropout site is (seed, site_h), the
 // output's (seed, site_y); threshold 0 turns both off. keep_out (M, F /
 // 32) int32, or null: the hidden's keep words (the train forms: ReLU,
 // round_input 0, threshold != 0). One kernel at C = 256, two on the
@@ -1023,10 +1039,10 @@ extern "C" int ppgs_ffn_ln(const void* x, const void* w1, const void* b1,
                            unsigned site_h, unsigned site_y,
                            unsigned threshold, float scale, void* stream) {
   const bool ln = y_out == nullptr, fused = C == FUSED_C;
+  const bool relu_width = C == 256 || C == 512 || C == 768;
   const bool width_ok =
-      ln ? (C == 256 && act == RELU) || (C == 512 && act == RELU) ||
-               (C == 768 && act == GELU)
-         : (C == 256 || C == 512) && act == RELU && !round_input;
+      ln ? (relu_width && act == RELU) || (C == 768 && act == GELU)
+         : relu_width && act == RELU && !round_input;
   const int m_tiles = (M + BM - 1) / BM;
   if (!width_ok || F <= 0 || F % 128 || m_tiles > 65535 || (!fused && !h) ||
       reinterpret_cast<uintptr_t>(b1) % 16 ||
@@ -1082,28 +1098,37 @@ extern "C" int ppgs_ffn_ln(const void* x, const void* w1, const void* b1,
     return static_cast<int>(cudaErrorInvalidValue);
   bf16* hb = static_cast<bf16*>(h);
   uint32_t* words = static_cast<uint32_t*>(keep_out);
-  CUtensorMap mhs;     // h in boxes of 64 rows, for the train forms' stores
-  if (words && (C != TRAIN_C || !encode(&mhs, h, false, M, F, F, 64, 64)))
+  // The train forms' hidden launch: persistent at C = 512 (h stored by TMA
+  // in boxes of 64 rows), the inference form's at 768 with its words
+  const bool persistent = words && C == TRAIN_C;
+  CUtensorMap mhs;
+  if (persistent && !encode(&mhs, h, false, M, F, F, 64, 64))
     return static_cast<int>(cudaErrorInvalidValue);
   int err;
-  if (words)
+  if (persistent)
     err = ln ? launch_hidden_train<true>(mw1, mx, mhs, b1f, words, M, F,
                                          dh, s)
              : launch_hidden_train<false>(mw1, mx, mhs, b1f, words, M, F, dh,
                                           s);
+  else if (words)
+    err = ln ? launch_hidden<RELU, false, true, true>(mx, mw1, b1f, hb, words,
+                                                      M, F, C, dh, m_tiles, s)
+             : launch_hidden<RELU, false, false, true>(mx, mw1, b1f, hb,
+                                                       words, M, F, C, dh,
+                                                       m_tiles, s);
   else if (!ln)
-    err = launch_hidden<RELU, false, false>(mx, mw1, b1f, hb, M, F, C, dh,
-                                            m_tiles, s);
+    err = launch_hidden<RELU, false, false>(mx, mw1, b1f, hb, nullptr, M, F,
+                                            C, dh, m_tiles, s);
   else if (act == GELU)
-    err = round_input ? launch_hidden<GELU, true>(mx, mw1, b1f, hb, M, F, C,
-                                                  dh, m_tiles, s)
-                      : launch_hidden<GELU, false>(mx, mw1, b1f, hb, M, F, C,
-                                                   dh, m_tiles, s);
+    err = round_input ? launch_hidden<GELU, true>(mx, mw1, b1f, hb, nullptr,
+                                                  M, F, C, dh, m_tiles, s)
+                      : launch_hidden<GELU, false>(mx, mw1, b1f, hb, nullptr,
+                                                   M, F, C, dh, m_tiles, s);
   else
-    err = round_input ? launch_hidden<RELU, true>(mx, mw1, b1f, hb, M, F, C,
-                                                  dh, m_tiles, s)
-                      : launch_hidden<RELU, false>(mx, mw1, b1f, hb, M, F, C,
-                                                   dh, m_tiles, s);
+    err = round_input ? launch_hidden<RELU, true>(mx, mw1, b1f, hb, nullptr,
+                                                  M, F, C, dh, m_tiles, s)
+                      : launch_hidden<RELU, false>(mx, mw1, b1f, hb, nullptr,
+                                                   M, F, C, dh, m_tiles, s);
   if (err) return err;
   const float* xf = static_cast<const float*>(x);
   bf16* yb = static_cast<bf16*>(y_out);

@@ -1,6 +1,6 @@
-// The FFN's training backward up to its input, C = 256 (the mel model) or
-// 512 (the w2v2fb and w2v2fc heads), any F % 128 == 0, any M; the forward
-// is K4 (ffn_ln.cu) with its dropout sites on.
+// The FFN's training backward up to its input, C = 256 (the mel model),
+// 512 (the w2v2fb and w2v2fc heads) or 768, any F % 128 == 0, any M; the
+// forward is K4 (ffn_ln.cu) with its dropout sites on.
 //
 // Replaces: the backward of ppgs_tpu/ops/fused_ffn.py ffn_train
 // (_ffn_train_bwd_kernel) and the FFN half of the backward of
@@ -128,9 +128,34 @@
 // dx pass in 128 x 128 tiles two blocks an SM (+25%) or with its residual
 // prefetched into L2 (+35%); the blocks walking the chunks from chunk b %
 // (F / 64) on, so as not to read the same slices at once (no faster).
+//
+// C = 768 takes three launches too, right first and not yet tuned. A
+// resident 128-row tile of x or dy is 192 KB at this width, which leaves
+// no room for the C = 512 passes' rings, so the two hidden passes are
+// plain tiled products with their elementwise work as epilogues, on the
+// (A, B) TMA ring of residual_ln.cuh that K4's hidden launch uses: 128 x
+// 256 tiles of the (M, F) hidden (128 x 128 where F % 256 != 0), a
+// producer warpgroup and two consumer warpgroups of 64 rows, depth C in
+// 64-deep stages (an fp32 x rounded to bf16 as its fragments are read,
+// the RS form), B MN-major: W1 as stored and W2^T, (C, F) both.
+// - The hd pass (wide_pass_kernel<..., 0>): h = x W1, hp =
+//   relu(bf16(bf16(h) + bf16(b1))), hd from the keep words.
+// - The dh pass (wide_pass_kernel<..., 1>): dhd = dy W2^T, and dh from it
+//   and the mask, which it reads from the hd just written: hd > 0 exactly
+//   where hp > 0 and the unit is kept (hd = bf16(hp * s), s =
+//   bf16(1 / (1 - rate)) >= 1, so no positive hp rounds to 0), so no mask
+//   crosses between the passes; bf16(dh) stored and db1's partial rows
+//   (each warp's 16 rows summed by shuffles, the 4 warps' sums added in
+//   order through shared memory).
+// - The dx pass: dx_kernel at C = 768 (three 256-column tiles a row block).
+// Bound (the training shape, M = 131,072, F = 2048): the same 6 M C F =
+// 1.24 TFLOP, 1.25 ms; bytes: x (fp32), dy, the residual, the words and
+// the weights in; hd written and read back, dh written and read back, dx
+// and the partials out, 3.8 GB, 1.1 ms: bound by the operations.
 
 #include "common.cuh"
 #include "hopper.cuh"
+#include "residual_ln.cuh"
 
 using ppgs::bf16;
 using namespace ppgs::hopper;
@@ -793,8 +818,9 @@ hidden_kernel(const __grid_constant__ CUtensorMap map_w,
   if (lane == 0) bulk_wait_read();   // the staging outlives its stores
 }
 
-// Pass 2 at C = 512: dx = bf16(dh) W1^T (+ the residual, or rounded to
-// bf16), 128 x 256 tiles over depth F, gemm.cu's warp-specialised form
+// Pass 2 at C = 512 and pass 3 at 768: dx = bf16(dh) W1^T (+ the
+// residual, or rounded to bf16), 128 x 256 tiles over depth F, gemm.cu's
+// warp-specialised form
 constexpr int DX_BM = 128, DX_BN = 256, DX_STAGES = 4;
 constexpr int DX_A = DX_BM * 128;               // 128 rows x 64 depth
 constexpr int DX_B = 64 * DX_BN * 2;            // 64 depth rows x 256
@@ -802,7 +828,7 @@ constexpr int DX_STAGE = DX_A + DX_B;
 constexpr int DX_SMEM = DX_STAGES * DX_STAGE + 2 * DX_STAGES * 8 + 1024;
 static_assert(DX_SMEM <= 232448, "more shared memory than a block may have");
 
-template <bool RESIDUAL>
+template <int C, bool RESIDUAL>
 __global__ void __launch_bounds__(384, 1)
 dx_kernel(const __grid_constant__ CUtensorMap map_dh,
           const __grid_constant__ CUtensorMap map_w1t,
@@ -880,11 +906,11 @@ dx_kernel(const __grid_constant__ CUtensorMap map_dh,
       float2 v = make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
       if constexpr (RESIDUAL) {
         const float2 res =
-            *reinterpret_cast<const float2*>(residual + row * WC + col);
+            *reinterpret_cast<const float2*>(residual + row * C + col);
         v.x += res.x, v.y += res.y;
-        *reinterpret_cast<float2*>(dx32 + row * WC + col) = v;
+        *reinterpret_cast<float2*>(dx32 + row * C + col) = v;
       } else {
-        *reinterpret_cast<uint32_t*>(dx16 + row * WC + col) =
+        *reinterpret_cast<uint32_t*>(dx16 + row * C + col) =
             pack_bf16(v.x, v.y);
       }
     }
@@ -907,7 +933,7 @@ int launch_wide(const void* x, const void* dy, const void* w1t,
     return static_cast<int>(cudaErrorInvalidValue);
   auto hd_pass = hidden_kernel<TX, 0>;
   auto dh_pass = hidden_kernel<bf16, 1>;
-  auto dx_pass = dx_kernel<RESIDUAL>;
+  auto dx_pass = dx_kernel<WC, RESIDUAL>;
   static const cudaError_t attr[3] = {
       cudaFuncSetAttribute(hd_pass,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -984,29 +1010,237 @@ int launch_width(const void* x, int x_is_f32, const void* dy,
                                       F, scale, s);
 }
 
+
+// ----------------------------------------------------------- C = 768
+
+namespace rl = ppgs::residual_ln;
+
+constexpr int NC = 768;          // the width
+constexpr int PASS_THREADS = 384;   // a producer warpgroup, two consumers
+
+// A hidden pass's shared memory: the ring of rl::Ring (its LayerNorm row
+// sums unused) and, for the dh side, each warpgroup's column sums by warp
+template <bool X_F32, int BN, int SIDE>
+struct Pass {
+  using R = rl::Ring<X_F32, BN>;
+  static constexpr int SUMS = SIDE == 1 ? 2 * 4 * BN * 4 : 0;
+  static constexpr int SMEM = R::SMEM + SUMS;
+  static_assert(SMEM <= 232448, "more shared memory than a block may have");
+};
+
+// One hidden pass at C = 768 on a 128 x BN tile of the (M, F) hidden: acc
+// = A B over depth 768 (A = x for SIDE 0, dy for SIDE 1; B = W1 or W2^T,
+// (768, F) MN-major), then SIDE 0 writes hd (keep words `words`, null at
+// rate 0) and SIDE 1 writes bf16(dh) from hd (`hd_in`) and db1's partial
+// rows. Register 4j + e of acc: row g + 8 (e / 2) of the warp's 16, column
+// 8j + 2t + e % 2 of the tile.
+template <int BN, bool X_F32, int SIDE>
+__global__ void __launch_bounds__(PASS_THREADS, 1)
+wide_pass_kernel(const __grid_constant__ CUtensorMap map_a,
+                 const __grid_constant__ CUtensorMap map_b,
+                 const float* __restrict__ b1,
+                 const uint32_t* __restrict__ words,
+                 const bf16* __restrict__ hd_in, bf16* __restrict__ out,
+                 float* __restrict__ db1_partial, int M, int F, int dropped,
+                 float scale) {
+  using R = rl::Ring<X_F32, BN>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = rl::aligned_ring(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + R::STAGES * R::STAGE);
+  uint64_t* empty = full + R::STAGES;
+  float* sums = reinterpret_cast<float*>(empty + R::STAGES);  // [2][4][BN]
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * rl::BM;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) mbar_init_ring(full, empty, R::STAGES, 8);
+  __syncthreads();
+  if (wg == 0) {
+    if (threadIdx.x == 0)
+      rl::produce<X_F32, BN>(&map_a, &map_b, ring, full, empty, NC / rl::BK,
+                             m0, n0);
+    return;
+  }
+  const int c = wg - 1, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  float acc[BN / 2];
+  rl::consume<X_F32, BN>(acc, ring, full, empty, NC / rl::BK, c, warp, lane);
+  const int g = lane >> 2, t = lane & 3;
+  const long long r0 = m0 + 64 * c + 16 * warp + g, r1 = r0 + 8;
+
+  if constexpr (SIDE == 0) {
+    // hd = keep ? bf16(hp * bf16(scale)) : 0, hp in bf16x2 as the C = 512
+    // hd pass computes it; a keep word covers 4 groups (32 columns)
+    const int wpr = F / 32;
+    const float sc16 = ppgs::round_bf16(scale);
+    const __nv_bfloat162 zero = __floats2bfloat162_rn(0.f, 0.f);
+#pragma unroll
+    for (int j0 = 0; j0 < BN / 8; j0 += 4) {
+      const int word = (n0 + 8 * j0) / 32;
+      const uint32_t kw[2] = {
+          words && r0 < M ? words[r0 * wpr + word] : ~0u,
+          words && r1 < M ? words[r1 * wpr + word] : ~0u};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int j = j0 + i, col = n0 + 8 * j + 2 * t, bit = 8 * i + 2 * t;
+        const float2 bias = *reinterpret_cast<const float2*>(b1 + col);
+        const __nv_bfloat162 b = __floats2bfloat162_rn(bias.x, bias.y);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const long long row = r ? r1 : r0;
+          __nv_bfloat162 hp = __hmax2(
+              __hadd2(__floats2bfloat162_rn(acc[4 * j + 2 * r],
+                                            acc[4 * j + 2 * r + 1]),
+                      b),
+              zero);
+          uint32_t bits = *reinterpret_cast<const uint32_t*>(&hp);
+          if (words) {
+            const bool k0 = (kw[r] >> bit) & 1u;
+            const bool k1 = (kw[r] >> (bit + 1)) & 1u;
+            const __nv_bfloat162 sv =
+                __hmul2(hp, __floats2bfloat162_rn(sc16, sc16));
+            bits = *reinterpret_cast<const uint32_t*>(&sv) &
+                   ((k0 ? 0x0000FFFFu : 0u) | (k1 ? 0xFFFF0000u : 0u));
+          }
+          if (row < M)
+            *reinterpret_cast<uint32_t*>(out + row * F + col) = bits;
+        }
+      }
+    }
+  } else {
+    // dh = hd > 0 ? (dropped ? dhd / (1 - rate) : dhd) : 0, bf16(dh)
+    // stored; its column sums over the warp's 16 rows by a butterfly of
+    // shuffles (every lane ends with the sum), written by the lanes of g =
+    // 0 into the warp's row of `sums`
+    float* wsums = sums + (c * 4 + warp) * BN;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = n0 + 8 * j + 2 * t;
+      float dh[4];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const long long row = r ? r1 : r0;
+        const uint32_t hbits =
+            row < M ? *reinterpret_cast<const uint32_t*>(hd_in + row * F + col)
+                    : 0u;
+        const float2 hv = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&hbits));
+        float v0 = acc[4 * j + 2 * r], v1 = acc[4 * j + 2 * r + 1];
+        if (dropped) v0 *= scale, v1 *= scale;
+        dh[2 * r] = hv.x > 0.f ? v0 : 0.f;
+        dh[2 * r + 1] = hv.y > 0.f ? v1 : 0.f;
+        if (row < M)
+          *reinterpret_cast<uint32_t*>(out + row * F + col) =
+              pack_bf16(dh[2 * r], dh[2 * r + 1]);
+      }
+      float s0 = dh[0] + dh[2], s1 = dh[1] + dh[3];
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        s0 += __shfl_xor_sync(0xffffffffu, s0, off);
+        s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+      }
+      if (g == 0)
+        *reinterpret_cast<float2*>(wsums + 8 * j + 2 * t) =
+            make_float2(s0, s1);
+    }
+    // The warpgroup's four warps meet; each thread adds their sums of its
+    // columns in warp order and writes the 64-row block's partial row
+    bar_sync(1 + c, 128);
+    const float* wg_sums = sums + c * 4 * BN;
+    const long long prow = 2ll * blockIdx.y + c;
+    if (m0 + 64 * c < M) {
+      for (int col = threadIdx.x % 128; col < BN; col += 128)
+        db1_partial[prow * F + n0 + col] =
+            wg_sums[col] + wg_sums[BN + col] + wg_sums[2 * BN + col] +
+            wg_sums[3 * BN + col];
+    }
+  }
+}
+
+template <int BN, bool X_F32, int SIDE>
+int launch_pass(const CUtensorMap& ma, const CUtensorMap& mb, const void* b1,
+                const void* words, const void* hd_in, void* out,
+                void* partial, int M, int F, int dropped, float scale,
+                cudaStream_t s) {
+  return rl::launch(wide_pass_kernel<BN, X_F32, SIDE>, PASS_THREADS,
+                    Pass<X_F32, BN, SIDE>::SMEM,
+                    dim3(F / BN, (M + rl::BM - 1) / rl::BM), 1, s, ma, mb,
+                    static_cast<const float*>(b1),
+                    static_cast<const uint32_t*>(words),
+                    static_cast<const bf16*>(hd_in), static_cast<bf16*>(out),
+                    static_cast<float*>(partial), M, F, dropped, scale);
+}
+
+template <bool X_F32>
+int launch_768(const void* x, const void* dy, const void* w1t,
+               const void* b1, const void* w1, const void* w2t,
+               const void* words, const void* residual, void* dx32,
+               void* dx16, void* hd_out, void* dh_out, void* db1_partial,
+               int M, int F, float scale, cudaStream_t s) {
+  CUtensorMap mx, mdy, mw1, mw2t, mdh_in, mw1t_mn;
+  if (!encode(&mx, x, X_F32, M, NC, NC, X_F32 ? 32 : 64, rl::BM) ||
+      !encode(&mdy, dy, false, M, NC, NC, 64, rl::BM) ||
+      !encode(&mw1, w1, false, NC, F, F, 64, rl::BK) ||
+      !encode(&mw2t, w2t, false, NC, F, F, 64, rl::BK) ||
+      !encode(&mdh_in, dh_out, false, M, F, F, 64, DX_BM) ||
+      !encode(&mw1t_mn, w1t, false, F, NC, NC, 64, 64))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int dropped = words != nullptr;
+  const bool wide = F % 256 == 0;
+  int err = wide ? launch_pass<256, X_F32, 0>(mx, mw1, b1, words, nullptr,
+                                              hd_out, nullptr, M, F, dropped,
+                                              scale, s)
+                 : launch_pass<128, X_F32, 0>(mx, mw1, b1, words, nullptr,
+                                              hd_out, nullptr, M, F, dropped,
+                                              scale, s);
+  if (err) return err;
+  err = wide ? launch_pass<256, false, 1>(mdy, mw2t, b1, nullptr, hd_out,
+                                          dh_out, db1_partial, M, F, dropped,
+                                          scale, s)
+             : launch_pass<128, false, 1>(mdy, mw2t, b1, nullptr, hd_out,
+                                          dh_out, db1_partial, M, F, dropped,
+                                          scale, s);
+  if (err) return err;
+  return rl::launch(dx_kernel<NC, X_F32>, 384, DX_SMEM,
+                    dim3(NC / DX_BN, (M + DX_BM - 1) / DX_BM), 1, s, mdh_in,
+                    mw1t_mn, static_cast<const float*>(residual),
+                    static_cast<float*>(dx32), static_cast<bf16*>(dx16), M,
+                    F);
+}
+
 }  // namespace
 
-// x (M, C), C = 256 (one launch) or 512 (three): fp32 (x_is_f32 = 1,
+// x (M, C), C = 256 (one launch), 512 or 768 (three): fp32 (x_is_f32 = 1,
 // rounded to bf16 as staged) with residual (M, C) fp32 and dx32 (M, C)
 // fp32 = dx + residual; or bf16 with dx16 (M, C) bf16 (residual and dx32
 // null). dy (M, C) bf16, masked and rounded; w1t (F, C) bf16, W1
-// transposed; b1 (F) fp32, 16-byte aligned; w2 (F, C) bf16. words (M, F /
+// transposed; b1 (F) fp32, 16-byte aligned; w2 (F, C) bf16; w1 and w2t
+// (C, F) bf16, W1 as stored and W2 transposed, at C = 768 (null, unused,
+// at the others). words (M, F /
 // 32) int32, the hidden's keep words from K4's train form, or null for no
 // dropout; scale 1 / (1 - rate). hd_out, dh_out (M, F) bf16; db1_partial
 // (ceil(M / 64), F) fp32. mask: at C = 512 the hidden passes' scratch,
-// ceil(M / 128) x F / 64 x 256 uint32 words; unused at 256. F % 128 == 0;
-// anything else returns cudaErrorInvalidValue.
+// ceil(M / 128) x F / 64 x 256 uint32 words; unused at 256 and 768. F %
+// 128 == 0; anything else returns cudaErrorInvalidValue.
 extern "C" int ppgs_ffn_train_bwd(
     const void* x, int x_is_f32, const void* dy, const void* w1t,
-    const void* b1, const void* w2, const void* words, const void* residual,
-    void* dx32, void* dx16, void* hd_out, void* dh_out, void* db1_partial,
-    void* mask, int M, int F, int C, float scale, void* stream) {
-  if (F <= 0 || F % 128 || (C != 256 && C != 512) || (C == 512 && !mask) ||
+    const void* b1, const void* w2, const void* w1, const void* w2t,
+    const void* words, const void* residual, void* dx32, void* dx16,
+    void* hd_out, void* dh_out, void* db1_partial, void* mask, int M, int F,
+    int C, float scale, void* stream) {
+  if (F <= 0 || F % 128 || (C != 256 && C != 512 && C != NC) ||
+      (C == 512 && !mask) ||
+      (C == NC && (!w1 || !w2t || (M + rl::BM - 1) / rl::BM > 65535)) ||
       reinterpret_cast<uintptr_t>(b1) % 16 ||
       (x_is_f32 ? !residual || !dx32 : !dx16))
     return static_cast<int>(cudaErrorInvalidValue);
   if (M <= 0) return static_cast<int>(cudaGetLastError());
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (C == NC)
+    return x_is_f32 ? launch_768<true>(x, dy, w1t, b1, w1, w2t, words,
+                                       residual, dx32, nullptr, hd_out,
+                                       dh_out, db1_partial, M, F, scale, s)
+                    : launch_768<false>(x, dy, w1t, b1, w1, w2t, words,
+                                        nullptr, nullptr, dx16, hd_out,
+                                        dh_out, db1_partial, M, F, scale, s);
   if (C == 512)
     return x_is_f32 ? launch_wide<float, true>(x, dy, w1t, b1, w2, words,
                                                residual, dx32, nullptr, hd_out,

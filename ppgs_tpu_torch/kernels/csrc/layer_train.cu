@@ -1,6 +1,6 @@
 // The row-wise pieces of the training layer's backward: the LayerNorm
-// backward with a dropout epilogue at C = 256 or 512 (a template instance
-// each), and a deterministic column sum. (The forward's out-projection +
+// backward with a dropout epilogue at C = 256, 512 or 768 (a template
+// instance each), and a deterministic column sum. (The forward's out-projection +
 // dropout + LN1 is K3, out_proj_ln.cu.)
 //
 // Replaces, in ppgs_tpu/ops/encoder_layer_train.py: the LN2 and LN1
@@ -19,7 +19,9 @@
 // at 512); the designs read each input once. ln_dropout_bwd at C = 512: a
 // lane takes 16 columns of a row, 128 registers a thread and 48 KB of
 // static shared memory for the block's partial sums (at 256: 94-100 and
-// 24 KB), no spills.
+// 24 KB), no spills. At C = 768 a lane takes 24 columns, and the block's
+// three partial sums (72 KB at once, past the 48 KB a block may declare
+// statically) meet in 24 KB one after another.
 // colsum's largest launch, dbqkv's (M, 768) fp32 (403 MB), is 0.120 ms at
 // 3.35 TB/s. So that the loads keep the memory busy, its first pass splits
 // the rows into enough ranges that the blocks fill one wave of 132 SMs x 8
@@ -76,7 +78,10 @@ ln_dropout_bwd_kernel(const TG* __restrict__ g, const float* __restrict__ n,
                       float* __restrict__ dz_out, bf16* __restrict__ masked_out,
                       float* __restrict__ partial, int M, ppgs::Dropout drop) {
   constexpr int H = C / 256, V = 8 * H;   // a lane's pieces and columns
-  __shared__ float s_part[THREADS / 32][3 * C];
+  // The warps' partial sums meet in shared memory, all three at once up to
+  // C = 512, one at a time past it (static shared memory is 48 KB a block)
+  constexpr int ROUNDS = C > 512 ? 3 : 1, PER = 3 / ROUNDS;
+  __shared__ float s_part[THREADS / 32][PER * C];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, c0 = lane * 8;
   float acc_gn[V] = {}, acc_g[V] = {}, acc_m[V] = {};
   ppgs::KeepStream stream(drop);
@@ -135,18 +140,23 @@ ln_dropout_bwd_kernel(const TG* __restrict__ g, const float* __restrict__ n,
     }
   }
 #pragma unroll
-  for (int e = 0; e < V; ++e) {
-    const int col = c0 + 256 * (e / 8) + e % 8;
-    s_part[warp][col] = acc_gn[e];
-    s_part[warp][C + col] = acc_g[e];
-    s_part[warp][2 * C + col] = acc_m[e];
-  }
-  __syncthreads();
-  for (int j = threadIdx.x; j < 3 * C; j += THREADS) {
-    float s = 0.f;
+  for (int round = 0; round < ROUNDS; ++round) {
+    if (round) __syncthreads();   // the last round's sums are read
 #pragma unroll
-    for (int w = 0; w < THREADS / 32; ++w) s += s_part[w][j];
-    partial[(long long)blockIdx.x * 3 * C + j] = s;
+    for (int e = 0; e < V; ++e) {
+      const int col = c0 + 256 * (e / 8) + e % 8;
+      const float sums[3] = {acc_gn[e], acc_g[e], acc_m[e]};
+#pragma unroll
+      for (int q = 0; q < 3; ++q)
+        if (q / PER == round) s_part[warp][(q % PER) * C + col] = sums[q];
+    }
+    __syncthreads();
+    for (int j = threadIdx.x; j < PER * C; j += THREADS) {
+      float s = 0.f;
+#pragma unroll
+      for (int w = 0; w < THREADS / 32; ++w) s += s_part[w][j];
+      partial[(long long)blockIdx.x * 3 * C + round * PER * C + j] = s;
+    }
   }
 }
 
@@ -282,8 +292,8 @@ void launch_ln_dropout_bwd(const void* g, int g_is_bf16, const void* n,
 
 }  // namespace
 
-// g (M, C) fp32 (g_is_bf16 = 0) or bf16, C = 256 or 512; n (M, C) and rstd
-// (M) fp32, or n = null for no LayerNorm; gamma (C). dz_out (M, C) fp32 or
+// g (M, C) fp32 (g_is_bf16 = 0) or bf16, C = 256, 512 or 768; n (M, C) and
+// rstd (M) fp32, or n = null for no LayerNorm; gamma (C). dz_out (M, C) fp32 or
 // null, masked_out (M, C) bf16 or null; partial (ceil(M/64), 3, C) fp32.
 // Any other C returns cudaErrorInvalidValue.
 extern "C" int ppgs_ln_dropout_bwd(
@@ -291,12 +301,16 @@ extern "C" int ppgs_ln_dropout_bwd(
     const void* gamma, void* dz_out, void* masked_out, void* partial, int M,
     int C, unsigned seed_lo, unsigned seed_hi, unsigned site,
     unsigned threshold, float scale, void* stream) {
-  if (C != 256 && C != 512) return static_cast<int>(cudaErrorInvalidValue);
+  if (C != 256 && C != 512 && C != 768)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (M > 0) {
     const ppgs::Dropout d =
         ppgs::make_dropout(seed_lo, seed_hi, site, threshold, scale);
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (C == 512)
+    if (C == 768)
+      launch_ln_dropout_bwd<768>(g, g_is_bf16, n, rstd, gamma, dz_out,
+                                 masked_out, partial, M, d, s);
+    else if (C == 512)
       launch_ln_dropout_bwd<512>(g, g_is_bf16, n, rstd, gamma, dz_out,
                                  masked_out, partial, M, d, s);
     else

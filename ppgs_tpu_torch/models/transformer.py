@@ -32,17 +32,34 @@ import torch.utils.checkpoint
 from torch import nn
 
 from ..config import Config
-from ..ops import dropout
+from ..ops import backward, dropout
 from ..ops import encoder_layer_kernel as elk
 from ..ops import encoder_layer_train as elt
 from ..ops import flash_attention as fa
 from ..ops import fused_ffn
 from ..ops.masking import mask_from_lengths
 
+
+def kernel_widths():
+    """The (C, d_head) pairs that every kernel on the inference and the
+    training paths takes, read from the kernels' own tables: K1's (C, 3C),
+    K3's and the train backward's C, K4's (C, ReLU) in both of its forms,
+    and the head widths of the inference and train attention."""
+    widths = (
+        {k for k, n in elk.QKV_WIDTHS if n == 3 * k}
+        & set(elk.OUT_PROJ_WIDTHS)
+        & {c for c, act in fused_ffn.LN_WIDTHS if act == 'relu'}
+        & {c for c, act in fused_ffn.Y_OUT_WIDTHS if act == 'relu'}
+        & set(fused_ffn.TRAIN_BWD_WIDTHS) & set(backward.LN_BWD_WIDTHS))
+    d_heads = set(fa.D_HEADS) & set(fa.TRAIN_D_HEADS)
+    return tuple(sorted((c, d) for c in widths for d in d_heads
+                        if c % d == 0))
+
+
 # (C, d_head) of the PPG transformers whose layers the card's kernels take,
-# in inference and in training: the mel model, and the w2v2fb and w2v2fc
-# heads
-KERNEL_WIDTHS = ((256, 128), (512, 256))
+# in inference and in training: C = 256, 512 and 768 with d_head 128 or 256
+# (the mel model, and the w2v2fb and w2v2fc heads, among them)
+KERNEL_WIDTHS = kernel_widths()
 
 # Longest window of the train kernels (the JAX package's
 # TRAIN_KERNEL_MAX_T): the whole-layer kernel takes T % 8 == 0 up to it,
@@ -255,10 +272,10 @@ def use_kernels(config: Config, device) -> bool:
     The fp32 config (the strict-parity path) and bf16 at other head widths
     run plain torch, on the card too, as the JAX package runs XLA there:
     a static choice from the config, not a fallback. The card's kernels
-    take the models' widths in inference and in training
-    (``KERNEL_WIDTHS``: the mel model's C = 256 with d_head = 128, and the
-    w2v2fb and w2v2fc heads' C = 512 with d_head = 256); another width that
-    the rule sends to a kernel raises on a CUDA device."""
+    take ``KERNEL_WIDTHS`` in inference and in training (C = 256, 512 and
+    768 with d_head 128 or 256: the mel model's (256, 128) and the w2v2fb
+    and w2v2fc heads' (512, 256) among them); another width that the rule
+    sends to a kernel raises on a CUDA device."""
     C, heads = config.hidden_channels, config.attention_heads
     d_head = C // heads
     kernel = config.compute_dtype == 'bfloat16' and d_head % 128 == 0

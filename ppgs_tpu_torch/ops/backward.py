@@ -273,7 +273,7 @@ def ln_dropout_bwd_reference(g, n, rstd, gamma, drop, cd, want_dz=True):
 
 
 # The LayerNorm backward kernel's widths (kernels/csrc/layer_train.cu)
-LN_BWD_WIDTHS = (256, 512)
+LN_BWD_WIDTHS = (256, 512, 768)
 
 
 def ln_dropout_bwd(g, n, rstd, gamma, drop, cd, want_dz=True):

@@ -17,8 +17,8 @@ kernels, and the fp32 residual goes through device memory between them:
                              statistics it is also the training layer's,
                              ops/encoder_layer_train.py)
     K4 ffn_residual_ln       x   = LN2(r + act(r @ W1 + b1) @ W2 + b2)
-                             (ops/fused_ffn.py; ReLU at C = 256 and 512,
-                             tanh-GELU at C = 768)
+                             (ops/fused_ffn.py; ReLU at C = 256, 512
+                             and 768, tanh-GELU at C = 768)
 
 As in ``encoder_stack_streamed``, the input is widened to fp32 once, the
 residual stays fp32 across all layers, and the caller rounds the output
@@ -214,8 +214,8 @@ def encoder_stack(x, mask, layers, heads, compute_dtype=torch.bfloat16,
     (B, T), True = valid key. ``activation``: the FFN's, 'relu' (the PPG
     transformer) or 'gelu' (wav2vec2: ``encoder_stack_streamed``'s
     ``activation='gelu'``). On the card the kernels take bf16 only, at
-    C = 256 or 512 with ReLU (d_head 128 or 256) and C = 768 with GELU
-    (d_head 64); they raise on anything else."""
+    C = 256, 512 or 768 with ReLU (d_head 128 or 256) and C = 768 with
+    GELU (d_head 64); they raise on anything else."""
     return _stack(x, mask, layers, heads, compute_dtype, causal, activation,
                   (qkv_proj, attention, out_proj_residual_ln,
                    ffn_residual_ln))

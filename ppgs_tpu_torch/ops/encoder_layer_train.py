@@ -197,9 +197,8 @@ def encoder_layer_train(x, mask, layer, heads, dropout_rate=0.0, seed=0,
     optimizer step is seen at once (the model's ``prepared`` buffers are
     not read). mask: (B, T), True = valid key. The dropout sites are
     ``site`` .. ``site + 3`` of the Philox stream of ``seed``. On the card
-    the kernels take bf16 with (C, d_head) = (256, 128) (the mel model) or
-    (512, 256) (the w2v2fb and w2v2fc heads) and raise on anything
-    else."""
+    the kernels take bf16 with C = 256, 512 or 768 and d_head 128 or 256
+    (``models.transformer.KERNEL_WIDTHS``) and raise on anything else."""
     return _layer(x, mask, layer, heads, dropout_rate, seed, causal, site,
                   compute_dtype, KERNELS)
 

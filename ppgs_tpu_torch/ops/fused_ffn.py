@@ -2,7 +2,7 @@
 
     out = LN(res + act(x @ w1 + b1) @ w2 + b2)
 
-at C = 256 (mel) and 512 (the w2v2fb head) with ReLU and C = 768 (the
+at C = 256 (mel), 512 (the w2v2fb head) and 768 with ReLU and C = 768 (the
 wav2vec2 trunk) with the tanh-approximate GELU, on a wgmma + TMA mainloop:
 at C = 256 one kernel that keeps the (M, F) hidden on the SM; at 512 and
 768 two launches, the hidden's (bias, activation and dropout on its
@@ -36,12 +36,13 @@ from .. import kernels
 from . import backward, dropout
 
 LN_EPS = 1e-5
-# (C, activation) of each K4 instance with the LayerNorm epilogue: the
-# models' widths; and those of its bf16-output form (ffn_train's forward)
-LN_WIDTHS = ((256, 'relu'), (512, 'relu'), (768, 'gelu'))
-Y_OUT_WIDTHS = ((256, 'relu'), (512, 'relu'))
+# (C, activation) of each K4 instance with the LayerNorm epilogue: the PPG
+# transformer's widths with ReLU and the wav2vec2 trunk's with GELU; and
+# those of its bf16-output form (ffn_train's forward)
+LN_WIDTHS = ((256, 'relu'), (512, 'relu'), (768, 'relu'), (768, 'gelu'))
+Y_OUT_WIDTHS = ((256, 'relu'), (512, 'relu'), (768, 'relu'))
 # The FFN backward kernel's widths (kernels/csrc/ffn_train.cu)
-TRAIN_BWD_WIDTHS = (256, 512)
+TRAIN_BWD_WIDTHS = (256, 512, 768)
 # The width whose hidden stays on chip (one kernel); the others take two
 # launches through an (M, F) bf16 hidden (kernels/csrc/ffn_ln.cu's note)
 FUSED_WIDTH = 256
@@ -209,7 +210,9 @@ def bwd_mask_words(M, F, C):
     its hd pass hands the dh pass a bit for each hidden element of each
     128-row block, two words a thread of the warpgroup that takes a chunk
     of 64 columns (bit 4j + e of word u: its accumulator register 4j + e
-    of row tile u, kept and relu'd on); none at 256 (one launch)."""
+    of row tile u, kept and relu'd on); none at 256 (one launch) and 768
+    (whose dh pass reads the mask from hd: hd > 0 exactly where the unit is
+    kept and relu'd on)."""
     return -(-M // 128) * 128 * F // 32 if C == 512 else 0
 
 
@@ -379,7 +382,8 @@ def ffn_train_bwd_reference(x, dy, w1, b1, w2, drop_h, keep,
 def ffn_train_bwd(x, dy, w1, b1, w2, drop_h, keep, residual=None):
     """The FFN's backward up to its input (``kernels/csrc/ffn_train.cu``:
     one launch at C = 256, three at 512, which hand a mask over through a
-    scratch of ``bwd_mask_words``): x as the forward took it, C in
+    scratch of ``bwd_mask_words``, and three at 768, whose hidden passes
+    read W1 as stored and W2 transposed): x as the forward took it, C in
     ``TRAIN_BWD_WIDTHS``, dy (..., C) bf16 the gradient of the dropped
     output, already masked, keep the forward's keep words (None at rate 0);
     recomputes the hidden. Returns (dx: fp32 plus ``residual`` for an fp32
@@ -419,11 +423,14 @@ def ffn_train_bwd(x, dy, w1, b1, w2, drop_h, keep, residual=None):
     words = bwd_mask_words(M, F, C)
     mask = torch.empty(words, dtype=torch.int32, device=dev) if words else None
     # W1 transposed: its (F, C) rows are the operand form of both of the
-    # kernel's products with it (the source's note)
+    # kernel's products with it (the source's note); at C = 768 the hidden
+    # passes take W1 as stored and W2 transposed, (C, F) both
     w1t = w1.t().contiguous()
+    w2t = w2.t().contiguous() if C == 768 else None
     kernels.launch('ppgs_ffn_train_bwd', x.data_ptr(), int(x_f32),
                    dy.data_ptr(), w1t.data_ptr(), b1.data_ptr(),
-                   w2.data_ptr(), kernels.ptr(keep if drop_h.on else None),
+                   w2.data_ptr(), w1.data_ptr() if C == 768 else None,
+                   kernels.ptr(w2t), kernels.ptr(keep if drop_h.on else None),
                    kernels.ptr(residual), dx.data_ptr() if x_f32 else None,
                    None if x_f32 else dx.data_ptr(), hd.data_ptr(),
                    dh.data_ptr(), partial.data_ptr(), kernels.ptr(mask), M,

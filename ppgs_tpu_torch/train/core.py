@@ -4,7 +4,8 @@ Counterpart of ``ppgs_tpu/train/core.py``: the masked cross-entropy loss,
 Adam (``torch.optim.Adam``, whose update is optax.adam's), a train step
 with the reference's conditional gradient clipping, checkpoints in the JAX
 package's layout (npz, or the orbax backend's asynchronous collective step
-directories), scalar logs (and the evaluation's figures in tensorboard),
+directories; any other ``checkpoint_backend`` is npz, as in the JAX
+package), scalar logs (and the evaluation's figures in tensorboard),
 and the loop with evaluation, checkpointing and save-on-interrupt. bf16
 products replace the reference's fp16 GradScaler (bf16 needs no loss
 scaling).
@@ -286,16 +287,6 @@ def make_train_step(model, config, optimizer, class_weights=None,
 ###############################################################################
 
 
-BACKENDS = ('npz', 'orbax')
-
-
-def _check_backend(backend):
-    if backend not in BACKENDS:
-        raise NotImplementedError(
-            f'checkpoint backend {backend!r}: the backends are npz and '
-            f'orbax')
-
-
 def _full_tensors(module, tensors, dims, group):
     """{parameter name: whole tensor} from ``tensors`` ({name: this rank's
     tensor}), the TP shards in ``dims`` gathered over ``group``
@@ -336,10 +327,10 @@ def _flat_state(model, optimizer, dims=None, group=None):
 
 def checkpoint_state(directory, step, epoch, model, optimizer,
                      backend='npz'):
-    """Save a training checkpoint in the JAX layout: {step:08d}.npz, or the
-    orbax backend's step directory {step}/ (collective, written off this
-    thread: ``checkpoint.wait_until_finished``)."""
-    _check_backend(backend)
+    """Save a training checkpoint in the JAX layout: the orbax backend's
+    step directory {step}/ (collective, written off this thread:
+    ``checkpoint.wait_until_finished``), or for any other backend
+    {step:08d}.npz, as the JAX package does."""
     flat = _flat_state(model, optimizer)
     if backend == 'orbax':
         return ckpt.orbax_save(directory, step, epoch, flat)
@@ -347,14 +338,12 @@ def checkpoint_state(directory, step, epoch, model, optimizer,
 
 
 def latest_checkpoint(directory, backend='npz'):
-    _check_backend(backend)
     if backend == 'orbax':
         return ckpt.orbax_latest(directory)
     return ckpt.npz_latest(directory)
 
 
 def _restore(path, backend):
-    _check_backend(backend)
     if backend == 'orbax':
         ckpt.wait_until_finished(Path(path).parent)
         return ckpt.orbax_restore(path)
@@ -509,7 +498,6 @@ def train(dataset=None, directory=None, config=None, max_steps=None,
         # raises for a width the card's train kernels do not take yet
         models.transformer.use_kernels(config, device)
     backend = config.checkpoint_backend
-    _check_backend(backend)
     multihost.initialize(device=device)
     if mesh is None:
         mesh = multihost.make_hybrid_mesh(config.mesh_shape,

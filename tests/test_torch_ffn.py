@@ -175,14 +175,15 @@ LN = (torch.ones(C), torch.zeros(C))
     (_operands(), dict(ln=LN, activation='gelu'), 'activation'),
     (_operands(F_=200), dict(ln=LN), r'F%128'),
     (_operands(x_dtype=torch.bfloat16), dict(ln=LN), 'x: expected'),
-    (_operands(C_=768), dict(), 'activation'),
+    (_operands(C_=768, x_dtype=torch.bfloat16), dict(activation='gelu'),
+     'activation'),
     (_operands(), dict(), 'x: expected'),
 ])
 def test_launch_ffn_refuses_what_the_kernel_does_not_take(operands, kwargs,
                                                           match):
     """The widths, activations, hidden sizes and dtypes that K4 does not
     take raise before anything is launched: (C, activation) in LN_WIDTHS
-    with the LayerNorm, Y_OUT_WIDTHS ((256 or 512, ReLU)) for the bf16
+    with the LayerNorm, Y_OUT_WIDTHS ((256, 512 or 768, ReLU)) for the bf16
     output form; F % 128."""
     with pytest.raises(ValueError, match=match):
         fused_ffn._launch_ffn(*operands, **kwargs)

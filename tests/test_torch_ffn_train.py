@@ -6,8 +6,9 @@ The kernels run only on a card (chip_smoke.py holds K4's words to Philox's
 bits there, and the backward kernel to its plain version); here the plain
 versions: the packing against ``Drop.keep`` bit for bit, and the plain
 backward given the words against the same function drawing them, bit for
-bit, in both of its forms (fp32 x with the residual, bf16 x), at both
-train widths (C = 256: the mel model; 512: the w2v2fb and w2v2fc heads).
+bit, in both of its forms (fp32 x with the residual, bf16 x), at every
+train width (C = 256: the mel model; 512: the w2v2fb and w2v2fc heads;
+768).
 """
 
 import math
@@ -148,8 +149,10 @@ def test_bwd_mask_scratch_holds_a_bit_for_every_hidden_element(M, F):
     """``bwd_mask_words`` sizes the scratch that the hd pass hands the dh
     pass at C = 512: 256 words a block of 128 rows a chunk of 64 hidden
     columns, one bit for each (row, column) of every block's rows (rows past
-    M included: the passes' zero rows), none at C = 256 (one launch)."""
+    M included: the passes' zero rows), none at C = 256 (one launch) and
+    768 (its dh pass reads the mask from hd)."""
     assert fused_ffn.bwd_mask_words(M, F, 256) == 0
+    assert fused_ffn.bwd_mask_words(M, F, 768) == 0
     words = fused_ffn.bwd_mask_words(M, F, 512)
     blocks = -(-M // 128)
     assert words == blocks * (F // 64) * 256
@@ -202,7 +205,8 @@ def test_hidden_train_plan_fits_a_block(x_f32):
 @pytest.mark.parametrize('C', [256, 768, 1024])
 def test_hidden_train_plan_refuses_other_widths(C):
     """The persistent hidden launch is built for C = 512 alone (C = 256 is
-    the fused kernel's; 768 has no train form)."""
+    the fused kernel's; 768's train forms take the inference form's hidden
+    launch with the keep words written)."""
     with pytest.raises(ValueError):
         fused_ffn.hidden_train_plan(True, C)
 
@@ -219,14 +223,14 @@ def _train_operands(M, C, F, x_dtype=torch.float32):
     (512, 200, True, torch.float32, 'F%128'),
     (512, 2048, True, torch.bfloat16, 'x: expected'),
     (512, 2048, False, torch.float32, 'x: expected'),
-    (768, 3072, False, torch.bfloat16, 'ffn_ln kernel takes'),
+    (1024, 3072, False, torch.bfloat16, 'ffn_ln kernel takes'),
     (384, 2048, True, torch.float32, 'ffn_ln kernel takes')])
 def test_train_launch_refuses_what_the_kernels_do_not_take(C, F, ln, x_dtype,
                                                           match):
     """K4's train forms refuse, before any launch, a hidden width that is
     not a multiple of 128, an x of the other form's type (B4's fp32, B6's
-    bf16), and a width without a train instance (768 has no bf16 output,
-    384 no instance at all)."""
+    bf16), and a width without a train instance (1024 and 384 have no
+    instance at all)."""
     x, w1, b1, w2, b2 = _train_operands(3, C, F, x_dtype)
     ln_args = (torch.ones(C), torch.zeros(C)) if ln else None
     drop = dropout.Drop(1, 3, 0.1)

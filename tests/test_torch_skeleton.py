@@ -179,7 +179,7 @@ def test_unported_width_raises_on_the_card(monkeypatch):
             device='cuda')
 
 
-def test_only_the_transformer_is_ported():
+def test_every_model_and_frontend_is_ported():
     """Every model of the JAX package is ported (the transformer, the
     convolution model, W2V2 and W2V2FC), and every frontend, the codec
     ones (encodec, dac) among them; another representation ('wav', the

@@ -546,13 +546,47 @@ def test_train_writes_logs_and_checkpoints_and_resumes(tmp_path,
     assert meta['step'] == 5
 
 
-def test_orbax_backend_is_not_ported(tmp_path):
+def test_unknown_backend_is_npz_in_both_packages(tmp_path):
     """The orbax backend is the port's own step directories (orbax's
     on-disk format is not ported): an empty run directory has no latest
-    step, and a backend that neither package has raises."""
+    step. A backend that neither package has ('zarr') saves, finds and
+    restores npz in both, as the JAX package's dispatch sends every value
+    but 'orbax' to npz: the same files, each package's checkpoint restored
+    by the other to the same state."""
     assert train_core.latest_checkpoint(tmp_path, backend='orbax') is None
-    with pytest.raises(NotImplementedError, match='npz'):
-        train_core.latest_checkpoint(tmp_path, backend='zarr')
+    assert train_core.latest_checkpoint(tmp_path, backend='zarr') is None
+    assert jax_train.latest_checkpoint(tmp_path, backend='zarr') is None
+    jax_optimizer, params, opt_state = _jax_state_after_one_step(TINY)
+    jax_dir, port_dir = tmp_path / 'jax', tmp_path / 'port'
+    jax_path = jax_train.checkpoint_state(jax_dir, 7, 2, params, opt_state,
+                                          backend='zarr')
+    config = _port_config(TINY)
+    model = port_transformer.Transformer(config)
+    optimizer = train_core.make_optimizer(model.parameters(), config)
+    assert train_core.latest_checkpoint(jax_dir, backend='zarr') == jax_path
+    assert train_core.load_checkpoint(jax_path, model, optimizer,
+                                      backend='zarr') == (7, 2)
+    port_path = train_core.checkpoint_state(port_dir, 7, 2, model, optimizer,
+                                            backend='zarr')
+    assert ([p.name for p in sorted(port_dir.iterdir())]
+            == [p.name for p in sorted(jax_dir.iterdir())]
+            == ['00000007.json', '00000007.npz'])
+    assert jax_train.latest_checkpoint(port_dir, backend='zarr') == port_path
+    with np.load(jax_path) as want, np.load(port_path) as got:
+        assert sorted(got.files) == sorted(want.files)
+        for key in want.files:
+            np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    got_params, got_state, step, epoch = jax_train.load_checkpoint(
+        port_path, jax_optimizer, jax_transformer.init(
+            jax.random.PRNGKey(5), TINY), backend='zarr')
+    assert (step, epoch) == (7, 2)
+    _assert_flat_close(convert.params_to_jax(model.state_dict()), got_params,
+                       rtol=0, atol=0)
+    _assert_flat_close(convert.params_to_jax(model.state_dict()), params,
+                       rtol=0, atol=0)
+    assert int(got_state[0].count) == int(opt_state[0].count)
+    _assert_flat_close(convert.adam_state_to_jax(model, optimizer)['mu'],
+                       got_state[0].mu, rtol=0, atol=0)
 
 
 ###############################################################################
