@@ -335,15 +335,42 @@ any failure exits non-zero before the result line:
    0.1), each timed by CUDA events and device time beside its plain
    version, its library route and its bound: K4 (768, ReLU) in both
    inference forms, its two train forms, ffn_train_bwd, ln_dropout_bwd,
-   and K2, attention_train_fwd and attention_train_bwd at each pair.
+   and K2, attention_train_fwd and attention_train_bwd at each pair;
+36. the any_width slice (K1, K3 and K4 at the widths of their inference
+   rule, C % 128 == 0 up to 2048, that no registered config has): K1 at
+   C = 128, 384, 640, 1024, 1280, 2048 and 1408 (its three forms), K3 at
+   the first six, K4 at those with ReLU and GELU, round_input 0 and 1, F =
+   128, 384 and 4 C, against their plain versions at rows 1 ... 1000; K2
+   at d_head 64 x 16 heads, 128 x 1, 3, 8 and 256 x 4 at phase 3's odd
+   shapes;
+37. wav2vec2-large's trunk (24 layers, C = 1024, 16 heads of 64, F =
+   4096, base's feature encoder; seeded weights through a temporary npz)
+   through ``models.w2v2.forward`` on 64 x 8 s (T = 400): K1-K4 exactly
+   24 times each at C = 1024 and d_head 64, its wall and profile; its
+   24-layer stack against the plain stack (relative L2 within the base
+   trunk's 1e-2 scaled by C / 768 and the square root of the depth) and
+   K1-K4 of its first layer against theirs; then mel's shape (5 layers,
+   F = 2048) at (C, d_head) = (128, 128), (384, 128), (1024, 128) and
+   (1024, 256): ``from_audio`` on 64 x 8 s (K1-K4 5 times each at the
+   pair's widths; the first 2 rows against ``device='cpu'`` at the bf16
+   gates, ``agree_decided``), timed end to end but at (128, 128); at
+   (1024, 128) ``legacy_mode`` on 12 s (K2 and K4's round_input 1 form 5
+   times each) against the CPU;
+38. the new instances at their main paths' shapes against their plain
+   versions, timed by CUDA events and device time beside their bounds and
+   library calls: K1-K4 of the large trunk's first layer, K1-K4 at (384,
+   128) and (1024, 128) and K2 at (1024, 256) on 128 x 500, K4's
+   round_input 1 form at 1024; the 24-layer stack whole against its plain
+   version and ``nn.TransformerEncoder`` (1024, 16, 4096, GELU) x 24, with
+   its device time by kernel.
 
 At the end of every run the sha256 of every file under
 ``ppgs_tpu/assets/`` is the one read before phase 1.
 
 ``--slices`` (default
 ``mel,train,w2v2fb,bottleneck,api,data,head_train,w2v2,codec,parallel,
-widths``) runs a subset: phases 3-5, 6-8, 9-11, 12-14, 15-17, 18-20,
-21-23, 24-26, 27-29, 30-32 and 33-35 respectively. Each phase prints its
+widths,any_width``) runs a subset: phases 3-5, 6-8, 9-11, 12-14, 15-17,
+18-20, 21-23, 24-26, 27-29, 30-32, 33-35 and 36-38 respectively. Each phase prints its
 seconds. Before the last line it prints one JSON
 object with a record per kernel;
 the last line is {"ok": true, "device": {...}}. Imports nothing of JAX or
@@ -555,12 +582,12 @@ def random_params(port, config, seed):
     return params
 
 
-def random_w2v2_params(port, seed):
-    """Seeded wav2vec2-base weights in the JAX package's layout: the
-    trunk's init, with each encoder layer's biases and norms drawn at
-    random too."""
+def random_w2v2_params(port, seed, config=None):
+    """Seeded wav2vec2 weights (``config``'s shapes; wav2vec2-base's by
+    default) in the JAX package's layout: the trunk's init, with each
+    encoder layer's biases and norms drawn at random too."""
     gen = torch.Generator().manual_seed(seed)
-    params = port.models.w2v2.init(port.models.w2v2.BASE, gen)
+    params = port.models.w2v2.init(config or port.models.w2v2.BASE, gen)
     for layer in params['encoder']['layers']:
         jitter(layer, gen)
     return params
@@ -3022,9 +3049,13 @@ def layer_weights(layer):
 
 
 @torch.no_grad()
-def layer_kernel_checks(tag, x, mask, w, H, activation, err, inputs):
+def layer_kernel_checks(tag, x, mask, w, H, activation, err, inputs,
+                        k1_share=0.0):
     """K1-K4 of one layer against their plain versions on (B, T, C) x;
-    fills ``err`` and ``inputs`` under ``tag``."""
+    fills ``err`` and ``inputs`` under ``tag``. ``k1_share``: the share of
+    K1's outputs that may flip by a bf16 ulp of a product in [4, 8) (the
+    train shape's check, phase 6), for the widths whose deeper sums flip
+    more often than the registered ones'."""
     from ppgs_tpu_torch.ops import encoder_layer_kernel as elk
     from ppgs_tpu_torch.ops import flash_attention as fa
     from ppgs_tpu_torch.ops import fused_ffn
@@ -3035,7 +3066,7 @@ def layer_kernel_checks(tag, x, mask, w, H, activation, err, inputs):
     err[f'qkv_proj_{tag}'] = check(
         f'K1 qkv_proj ({tag}, {C} -> {3 * C})', qkv,
         elk.qkv_proj_reference(x, w['wqkv'], w['bqkv']), atol=1e-2,
-        rtol=1e-2)
+        rtol=1e-2, share=k1_share, outlier=6.25e-2 if k1_share else None)
     q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
     a = fa.attention(q, k, v, mask, H, 1.0)
     err[f'attention_d{D}'] = check(
@@ -7508,7 +7539,7 @@ def widths_main_paths(port, workdir, dev, gen, card):
 
 
 def width_record(name, src, replaces, fns, verify, work, launches, card,
-                 library_label, plain_reps=TRAIN_REPS):
+                 library_label, plain_reps=TRAIN_REPS, slice_name='widths'):
     """One record of the slice: the kernel held against its plain version
     on the same inputs by ``verify(got, want)``, which raises beyond its
     limits and returns the max |kernel - plain|; both timed by CUDA events
@@ -7520,7 +7551,7 @@ def width_record(name, src, replaces, fns, verify, work, launches, card,
     plain_ms = time_ms(plain_fn, plain_reps, 1)
     library_ms = time_ms(library_fn, TRAIN_REPS, 2)
     bound_ms, bound_by = bound(*work)
-    record = {'name': f'widths/{name}', 'route': 'cuda',
+    record = {'name': f'{slice_name}/{name}', 'route': 'cuda',
               'source': f'ppgs_tpu_torch/kernels/csrc/{src}',
               'replaces': replaces, 'launches': launches[name],
               'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
@@ -7823,14 +7854,378 @@ def widths_phases(port, workdir, dev, gen, card):
     return records
 
 
+# The any_width slice: K1, K3 and K4 at widths of their inference rule (C %
+# 128 == 0 up to 2048) that no registered config has. Odd shapes at
+# ANY_C first (K1 also at 1408, its Stream form's first width), then two
+# main paths: wav2vec2-large's trunk (facebook/wav2vec2-large: hidden
+# 1024, 24 layers, 16 heads of 64, intermediate 4096; base's feature
+# encoder) on 64 x 8 s of audio (T = 400), and the PPG transformer at
+# mel's shape (5 layers, F = 2048) at ANY_PAIRS through from_audio on 64 x
+# 8 s, timed, and at ANY_CHECKED checked, not timed; legacy_mode on 12 s at
+# C = 1024
+ANY_C = (128, 384, 640, 1024, 1280, 2048)
+ANY_K1_C = ANY_C + (1408,)
+ANY_PAIRS = ((384, 128), (1024, 128), (1024, 256))
+ANY_CHECKED = ((128, 128),)
+ANY_LEGACY = (1024, 128)
+ANY_CPU_ROWS = 2
+# K2's new head counts: the large trunk's 16 heads of 64, and the pairs'
+ANY_HEADS = ((64, 16), (128, 1), (128, 3), (128, 8), (256, 4))
+LARGE_TRUNK = dict(hidden_size=1024, num_layers=24, num_heads=16,
+                   intermediate_size=4096)
+# The 24-layer stack against its plain version, relative L2: the base
+# trunk's limit (phase 9: 1e-2 at C = 768, 12 layers) scaled by the width
+# (a branch of N(0, 0.02) weights grows with C beside the residual, and
+# its bf16 roundings with it) and by the square root of the depth
+LARGE_REL = round(1e-2 * (1024 / 768) * math.sqrt(24 / 12), 4)
+# K1's share of rounding flips at the main shapes, phase 6's at C = 256
+# (flip_share scales it by C / 256): an H100 read one flip in 1.97e8
+# outputs at (1024, 128), 128 x 500, where the limit had no share
+K1_FLIP_SHARE = 2e-8
+
+
+@torch.no_grad()
+def any_width_odd_shapes(dev):
+    """Phase 36: K1 at ``ANY_K1_C``, K3 at ``ANY_C`` and K4 at ``ANY_C``
+    (ReLU and GELU, round_input 0 and 1, F = 128, 384 and 4 C) against
+    their plain versions at odd rows (1 ... 1000), and K2 at the new head
+    counts (``ANY_HEADS``) at phase 3's odd shapes."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 53)
+    for C in ANY_K1_C:
+        wqkv = (C ** -0.5 * torch.randn(C, 3 * C, generator=gen, device=dev)
+                ).to(torch.bfloat16)
+        bqkv = 0.1 * torch.randn(3 * C, generator=gen, device=dev)
+        k1_odd_shape_checks(f'C = {C}', wqkv, bqkv, dev)
+    k3_odd_shape_checks(ANY_C, 0, dev)
+    for C in ANY_C:
+        for act in ('relu', 'gelu'):
+            k4_odd_shape_checks('ln', C, act, 4 * C, dev)
+    for D, H in ANY_HEADS:
+        k2_odd_shape_checks(D, H, dev)
+
+
+def large_trunk(port, workdir, dev):
+    """wav2vec2-large's trunk with seeded weights (``random_w2v2_params``
+    at its shapes, through a temporary npz), prepared on the card in bf16."""
+    import dataclasses
+
+    wcfg = dataclasses.replace(port.models.w2v2.BASE, **LARGE_TRUNK,
+                               compute_dtype='bfloat16')
+    path = Path(workdir) / 'wav2vec2-large.npz'
+    port.load.save_params(path, random_w2v2_params(port, SEED + 101, wcfg))
+    trunk = port.load.prepared_model(port.preprocess.w2v2fb._build, path,
+                                     dev, wcfg)
+    path.unlink()
+    return trunk
+
+
+def layer_counters():
+    from ppgs_tpu_torch.ops import encoder_layer_kernel as elk
+    from ppgs_tpu_torch.ops import flash_attention as fa
+    from ppgs_tpu_torch.ops import fused_ffn
+
+    return {'qkv_proj': elk.qkv_proj, 'attention': fa.attention,
+            'out_proj_residual_ln': elk.out_proj_residual_ln,
+            'ffn_residual_ln': fused_ffn.ffn_residual_ln}
+
+
+@torch.no_grad()
+def large_trunk_path(port, trunk, dev, gen, launches, card):
+    """Phase 37's trunk: ``models.w2v2.forward`` on 64 x 8 s of padded
+    audio (T = 400) with its exact launches (24 of each of K1-K4 at C =
+    1024 and d_head 64), then the 24-layer stack against its plain version
+    on the same seeded (64, 400, 1024) input, the last window wholly
+    masked (``LARGE_REL``), and K1-K4 of its first layer against theirs;
+    returns (the max errors, the inputs for phase 38)."""
+    from ppgs_tpu_torch.ops import encoder_layer_kernel as elk
+
+    wcfg = trunk.config
+    C, H, L = wcfg.hidden_size, wcfg.num_heads, wcfg.num_layers
+    S = W2V2_SECONDS * 16_000 + 2 * port.preprocess.w2v2fb.PAD
+    T = int(port.models.w2v2.feat_extract_output_lengths(S, wcfg))
+    audio = 0.1 * torch.randn(W2V2_BATCH, S, generator=gen, device=dev)
+    counters = layer_counters()
+    set_counts(counters)
+    hidden = port.models.w2v2.forward(trunk, audio)
+    got, widths = read_counts(counters)
+    print(f'wav2vec2-large trunk ({L} layers, C = {C}, {H} heads): launches '
+          f'in one models.w2v2.forward call on {W2V2_BATCH} x '
+          f'{W2V2_SECONDS} s: {got}, by width: {widths}', flush=True)
+    want_widths = {'qkv_proj': {C: L}, 'attention': {C // H: L},
+                   'out_proj_residual_ln': {C: L}, 'ffn_residual_ln': {C: L}}
+    if got != {name: L for name in counters} or widths != want_widths:
+        raise AssertionError(f'the large trunk: launches {got} {widths}, not '
+                             f'{L} of each at {want_widths}')
+    for name in ('qkv_proj', 'out_proj_residual_ln'):
+        launches[f'large/{name}_c{C}'] += L
+    launches[f'large/ffn_residual_ln_c{C}_gelu'] += L
+    launches[f'large/attention_d{C // H}_h{H}'] += L
+    if (tuple(hidden.shape) != (W2V2_BATCH, T, C)
+            or not torch.isfinite(hidden).all()):
+        raise AssertionError(f'the large trunk\'s output: shape '
+                             f'{tuple(hidden.shape)}, or not finite')
+    seconds = W2V2_BATCH * W2V2_SECONDS
+    wall = median_seconds(lambda: port.models.w2v2.forward(trunk, audio))
+    print(f'wav2vec2-large trunk forward, {W2V2_BATCH} x {W2V2_SECONDS} s: '
+          f'{wall * 1e3:.3f} ms (median of 5), {seconds / wall:.1f} '
+          f'audio-s/s [{card}]', flush=True)
+    report_groups('wav2vec2-large trunk forward', profile_call(
+        'wav2vec2-large trunk forward',
+        lambda: port.models.w2v2.forward(trunk, audio), card), card)
+    del hidden, audio
+
+    x = torch.randn(W2V2_BATCH, T, C, generator=gen, device=dev)
+    mask = torch.ones(W2V2_BATCH, T, dtype=torch.bool, device=dev)
+    mask[-1] = False
+    x16 = x.to(torch.bfloat16)
+    layers = trunk.encoder.layers
+    got = elk.encoder_stack(x16, mask, layers, H, activation='gelu')
+    want = elk.encoder_stack_reference(x16, mask, layers, H,
+                                       activation='gelu')
+    err = {'stack': check_rel(
+        f'B7 the {L}-layer GELU stack at wav2vec2-large\'s widths (valid '
+        f'rows)', got[mask], want[mask], LARGE_REL)}
+    del got, want
+    inputs = {'stack': dict(x16=x16, mask=mask)}
+    layer_kernel_checks('large', x, mask, layer_weights(layers[0]), H,
+                        'gelu', err, inputs, flip_share(K1_FLIP_SHARE, C))
+    return err, inputs
+
+
+def any_width_ppg_paths(port, workdir, dev, gen, launches, card):
+    """Phase 37's PPG transformer: at each pair of ``ANY_PAIRS`` and
+    ``ANY_CHECKED``, mel's shape at that width with seeded weights:
+    ``from_audio`` on 64 x 8 s (K1-K4 5 times each at the pair's widths,
+    the first ``ANY_CPU_ROWS`` rows against device='cpu' at the bf16 gates,
+    ``agree_decided``), timed end to end at ``ANY_PAIRS``; at
+    ``ANY_LEGACY`` ``legacy_mode`` on 12 s (K2 and K4's round_input 1 form
+    5 times each) against the CPU."""
+    counters = layer_counters()
+    for C, D in ANY_CHECKED + ANY_PAIRS:
+        config = width_config(port, C, D)
+        H, L = C // D, config.num_hidden_layers
+        samples = WIDTH_SECONDS * config.sample_rate
+        audio = 0.1 * torch.randn(WIDTH_BATCH, 1, samples, generator=gen,
+                                  device=dev)
+        path = Path(workdir) / f'{config.config}.npz'
+        port.load.save_params(path, random_params(port, config,
+                                                  SEED + C + D))
+        set_counts(counters)
+        ppg = port.from_audio(audio, config=config, checkpoint=path)
+        got, widths = read_counts(counters)
+        print(f'(C, d_head) = ({C}, {D}), {H} heads: launches in one '
+              f'from_audio call on {WIDTH_BATCH} x {WIDTH_SECONDS} s: {got}, '
+              f'by width: {widths}', flush=True)
+        want_widths = {'qkv_proj': {C: L}, 'attention': {D: L},
+                       'out_proj_residual_ln': {C: L},
+                       'ffn_residual_ln': {C: L}}
+        if got != {name: L for name in counters} or widths != want_widths:
+            raise AssertionError(f'({C}, {D}): launches {got} {widths}, not '
+                                 f'{L} of each at {want_widths}')
+        for name in ('qkv_proj', 'out_proj_residual_ln'):
+            launches[f'{name}_c{C}'] += L
+        launches[f'ffn_residual_ln_c{C}_relu'] += L
+        launches[f'attention_d{D}_h{H}'] += L
+        check_ppg(f'({C}, {D}) from_audio', ppg, audio,
+                  (WIDTH_BATCH, config.output_channels,
+                   samples // config.hopsize))
+        rows = audio[:ANY_CPU_ROWS].cpu()
+        agree_decided(
+            f'({C}, {D}) from_audio, the first {ANY_CPU_ROWS} rows, against '
+            f'device=cpu', ppg[:ANY_CPU_ROWS],
+            port.from_audio(rows, config=config, checkpoint=path,
+                            device='cpu'),
+            port.from_audio(rows, config=config.replace(
+                compute_dtype='float32'), checkpoint=path, device='cpu'),
+            card)
+        del ppg
+        if (C, D) in ANY_PAIRS:
+            path_metrics(f'({C}, {D}) from_audio, {WIDTH_BATCH} x '
+                         f'{WIDTH_SECONDS} s',
+                         lambda: port.from_audio(audio, config=config,
+                                                 checkpoint=path),
+                         WIDTH_BATCH * WIDTH_SECONDS, card)
+        del audio
+        if (C, D) == ANY_LEGACY:
+            legacy = 0.1 * torch.randn(1, 1, LEGACY_SECONDS
+                                       * config.sample_rate, generator=gen,
+                                       device=dev)
+            set_counts(counters)
+            ppg = port.from_audio(legacy, config=config, checkpoint=path,
+                                  legacy_mode=True)
+            got, widths = read_counts(counters)
+            print(f'({C}, {D}) launches in one legacy_mode call on 1 x '
+                  f'{LEGACY_SECONDS} s: {got}, by width: {widths}', flush=True)
+            if got != {'qkv_proj': 0, 'attention': L,
+                       'out_proj_residual_ln': 0, 'ffn_residual_ln': L}:
+                raise AssertionError(f'({C}, {D}) legacy_mode launches {got}')
+            launches[f'attention_d{D}_h{H}'] += L
+            launches[f'ffn_residual_layernorm_c{C}'] += L
+            agree_decided(
+                f'({C}, {D}) from_audio legacy_mode, 1 x {LEGACY_SECONDS} s, '
+                f'against device=cpu', ppg,
+                port.from_audio(legacy.cpu(), config=config, checkpoint=path,
+                                legacy_mode=True, device='cpu'),
+                port.from_audio(legacy.cpu(), config=config.replace(
+                    compute_dtype='float32'), checkpoint=path,
+                    legacy_mode=True, device='cpu'),
+                card)
+            del ppg, legacy
+        torch.cuda.empty_cache()
+
+
+@torch.no_grad()
+def any_width_times(port, trunk, err, inputs, launches, workdir, dev, gen,
+                    card):
+    """Phase 38: each new instance at its main path's shape against its
+    plain version, timed by CUDA events and device time beside its bound
+    and library call: K1-K4 of the large trunk's first layer (64 x 400;
+    records 'any_width/large/...'), K1-K4 at (384, 128) and (1024, 128)
+    and K2 at (1024, 256) on layer 0 of phase 37's weights (128 windows x
+    500, the last 50 frames of every second window masked), K4's
+    round_input 1 form at 1024; then the 24-layer stack whole against its
+    plain version and ``nn.TransformerEncoder``, printed with its device
+    time by kernel."""
+    from ppgs_tpu_torch.ops import encoder_layer_kernel as elk
+    from ppgs_tpu_torch.ops import fused_ffn
+
+    def tagged(records, tag, C, H, prefix=''):
+        """The records of ``layer_records`` renamed by instance, with
+        their launches on the slice's main paths."""
+        for record in records:
+            kind = record['name']
+            name = {'qkv_proj': f'qkv_proj_c{C}',
+                    'attention': f'attention_d{C // H}_h{H}',
+                    'out_proj_residual_ln': f'out_proj_residual_ln_c{C}',
+                    'ffn_residual_ln': f'ffn_residual_ln_c{C}_'
+                    + inputs[tag]['activation']}[
+                        next(k for k in ('qkv_proj', 'attention',
+                                         'out_proj_residual_ln',
+                                         'ffn_residual_ln')
+                             if kind.startswith(k))]
+            record['name'] = f'any_width/{prefix}{name}'
+            record['launches'] = launches[prefix + name]
+        return records
+
+    def per_tag(tag):
+        return {k: {tag: None} for k in ('qkv_proj', 'attention',
+                                         'out_proj_residual_ln',
+                                         'ffn_residual_ln')}
+
+    replaces = 'ppgs_tpu/ops/encoder_layer_kernel.py:330'
+    records = tagged(layer_records(
+        'large', inputs['large'], err, per_tag('large'),
+        'ppgs_tpu/ops/encoder_layer_kernel.py:496', card), 'large',
+        trunk.config.hidden_size, trunk.config.num_heads, 'large/')
+
+    T, B = WIDTH_T, WIDTH_WINDOWS
+    mask = torch.ones(B, T, dtype=torch.bool, device=dev)
+    mask[1::2, T - 50:] = False
+    for C, D in ANY_PAIRS:
+        config = width_config(port, C, D)
+        model, _ = port.load.model(
+            checkpoint=Path(workdir) / f'{config.config}.npz', config=config,
+            device=dev)
+        tag, H = f'c{C}_d{D}', C // D
+        x = torch.randn(B, T, C, generator=gen, device=dev)
+        w = layer_weights(model.layers[0])
+        layer_kernel_checks(tag, x, mask, w, H, 'relu', err, inputs,
+                            flip_share(K1_FLIP_SHARE, C))
+        got = tagged(layer_records(tag, inputs[tag], err, per_tag(tag),
+                                   replaces, card), tag, C, H)
+        # at d_head 256 the layer's K1, K3 and K4 are the d_head 128 pair's
+        records += got if D == 128 else got[1:2]
+        if (C, D) == ANY_LEGACY:
+            r = inputs[tag]['r']
+            ffn = (w['w1'], w['b1'], w['w2'], w['b2'], w['g2'], w['be2'])
+            M, Fh, bf16 = B * T, w['w1'].shape[1], torch.bfloat16
+            w1t, w2t = w['w1'].T, w['w2'].T
+            records.append(width_record(
+                f'ffn_residual_layernorm_c{C}', 'ffn_ln.cu',
+                'ppgs_tpu/ops/fused_ffn.py:70',
+                (lambda: fused_ffn.ffn_residual_layernorm(r, *ffn),
+                 lambda: fused_ffn.ffn_residual_layernorm_reference(r, *ffn),
+                 lambda: F.layer_norm(r.to(bf16).float() + F.linear(F.relu(
+                     F.linear(r.to(bf16), w1t, w['b1'].to(bf16))), w2t,
+                     w['b2'].to(bf16)).float(), (C,), w['g2'], w['be2'])),
+                lambda got, want: check(f'K4 C={C} relu round_input 1 '
+                                        f'M={M}', got, want, 1e-2),
+                (4 * M * C * Fh, 2 * M * C * 4 + 2 * C * Fh * 2
+                 + (Fh + 3 * C) * 4),
+                launches, card, 'addmm + ReLU + addmm + layer_norm', REPS,
+                slice_name='any_width'))
+        del model, x
+        inputs.pop(tag)
+        torch.cuda.empty_cache()
+
+    # The large trunk's 24-layer stack, whole: printed, with its device
+    # time by kernel (PERF.md's breakdown), not a record of its own
+    wcfg = trunk.config
+    C, H, L = wcfg.hidden_size, wcfg.num_heads, wcfg.num_layers
+    Fh = wcfg.intermediate_size
+    x16, smask = inputs['stack']['x16'], inputs['stack']['mask']
+    layers = trunk.encoder.layers
+    Bt, Tt = smask.shape
+    M, pairs = Bt * Tt, smask.sum(dim=1).double().sum().item() * Tt
+    whole_bound = L * sum(bound(flops, nbytes)[0] for flops, nbytes in (
+        (2 * M * C * 3 * C, M * C * 4 + 3 * C * C * 2 + M * 3 * C * 2),
+        (4 * pairs * C, M * 3 * C * 2 + M + M * C * 2),
+        (2 * M * C * C, M * C * 2 + 2 * M * C * 4 + C * C * 2),
+        (4 * M * C * Fh, 2 * M * C * 4 + 2 * C * Fh * 2)))
+
+    def stack():
+        return elk.encoder_stack(x16, smask, layers, H, activation='gelu')
+
+    ms = time_ms(stack, REPS, 2)
+    plain_ms = time_ms(lambda: elk.encoder_stack_reference(
+        x16, smask, layers, H, activation='gelu'), HEAVY_REPS, 1)
+    library = library_encoder(layers, C, H, Fh, dev, 'gelu')
+    library_ms = time_ms(lambda: library(x16, src_key_padding_mask=~smask),
+                         REPS, 2)
+    del library
+    print(f'B7 at wav2vec2-large\'s widths, {L} layers whole ({Bt} x {Tt}): '
+          f'{ms:.4f} ms, bound {whole_bound:.4f} ms ({L} x the four '
+          f'kernels\'), plain {plain_ms:.4f} ms, nn.TransformerEncoder '
+          f'(1024, 16, 4096, gelu) x {L} {library_ms:.4f} ms: '
+          f'{ms / library_ms:.2f}x [{card}]', flush=True)
+    kernel_device_ms('B7 at wav2vec2-large\'s widths', stack, card)
+    return records
+
+
+def any_width_phases(port, workdir, dev, gen, card):
+    """Phases 36-38: K1, K3 and K4 at the widths of their inference rule
+    that no registered config has; returns the slice's JSON records."""
+    phase(f'36 K1, K3 and K4 at C = {ANY_C} (K1 also at 1408; K4 ReLU and '
+          f'GELU, round_input 0 and 1) and K2 at {ANY_HEADS} (d_head, '
+          f'heads) against their plain versions at odd shapes')
+    any_width_odd_shapes(dev)
+    phase(f'37 wav2vec2-large\'s trunk ({W2V2_BATCH} x {W2V2_SECONDS} s) and '
+          f'from_audio ({WIDTH_BATCH} x {WIDTH_SECONDS} s) at (C, d_head) = '
+          f'{ANY_CHECKED + ANY_PAIRS} (main paths)')
+    launches = collections.Counter()
+    trunk = large_trunk(port, workdir, dev)
+    err, inputs = large_trunk_path(port, trunk, dev, gen, launches, card)
+    any_width_ppg_paths(port, workdir, dev, gen, launches, card)
+    print(f'the slice\'s launches by record: {dict(launches)}', flush=True)
+    phase(f'38 the new instances\' times on {card} (CUDA events, device time, '
+          f'plain, library, bound)')
+    records = any_width_times(port, trunk, err, inputs, launches, workdir,
+                              dev, gen, card)
+    for record in records:
+        if not record['launches']:
+            raise AssertionError(f'{record["name"]} was not launched on a '
+                                 f'main path')
+    return records
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('--slices',
                         default='mel,train,w2v2fb,bottleneck,api,data,'
-                        'head_train,w2v2,codec,parallel,widths',
+                        'head_train,w2v2,codec,parallel,widths,any_width',
                         help='comma-separated subset of mel,train,w2v2fb,'
                         'bottleneck,api,data,head_train,w2v2,codec,'
-                        'parallel,widths')
+                        'parallel,widths,any_width')
     parser.add_argument('--parallel-rank', nargs=2, metavar=('MODE', 'DIR'),
                         help=argparse.SUPPRESS)
     args = parser.parse_args()
@@ -7896,6 +8291,8 @@ def main():
         records += parallel_phases(port, workdir.name, dev, card)
     if 'widths' in slices:
         records += widths_phases(port, workdir.name, dev, gen, card)
+    if 'any_width' in slices:
+        records += any_width_phases(port, workdir.name, dev, gen, card)
     phase()
     if assets_digest() != digest:
         raise AssertionError('a file under ppgs_tpu/assets/ changed')

@@ -1,8 +1,9 @@
 // K4 ffn_residual_ln: out = LN2(res + drop_y(drop_h(act(bf16(x) @ W1 + b1))
-// @ W2 + b2)), C = 256, 512 or 768 with ReLU and C = 768 with the
-// tanh-approximate GELU, any F % 128 == 0; and, for an FFN that ends
-// without the LayerNorm (C = 256, 512 or 768, ReLU), y = drop_y(drop_h(
-// relu(x @ W1 + b1)) @ W2 + b2) in bf16.
+// @ W2 + b2)), with ReLU or the tanh-approximate GELU at any C % 128 == 0
+// from 128 to 2048 and any F % 128 == 0 (the train forms, with the
+// dropout on or the normalised rows saved, at C = 256, 512 and 768 with
+// ReLU); and, for an FFN that ends without the LayerNorm (C = 256, 512 or
+// 768, ReLU), y = drop_y(drop_h(relu(x @ W1 + b1)) @ W2 + b2) in bf16.
 //
 // Replaces four TPU kernels' FFNs, which differ in their rounding points:
 // - the FFN half of ppgs_tpu/ops/encoder_layer_kernel.py _layer_body
@@ -35,7 +36,8 @@
 // GFLOP, ~0.24 ms; the training shape (M = 131,072) 275 GFLOP, ~0.28 ms,
 // and at the w2v2fb head's width (C = 512) 550 GFLOP, ~0.56 ms; C = 768
 // with ReLU (F = 2048) 403 GFLOP at the mel shape, ~0.41 ms, and 825 GFLOP
-// at the training shape, ~0.83 ms.
+// at the training shape, ~0.83 ms; wav2vec2-large's trunk (M = 25,600, C =
+// 1024, F = 4096, GELU) 429 GFLOP, ~0.43 ms.
 //
 // Design, on the wgmma + TMA building blocks of hopper.cuh (as gemm.cu): a
 // producer (a warpgroup of its own, or at C = 256 one consumer thread)
@@ -45,12 +47,14 @@
 // What decides the form is the (rows x C) fp32
 // sum of the second product, which a kernel that keeps the hidden on chip
 // holds in registers for its whole walk over F:
-// - C = 256, one kernel (ffn_fused_kernel): 128 rows fit, 128 accumulator
-//   registers a consumer thread, beside the hidden chunk's 32 and its 16
-//   bf16 fragments; see the kernel's note. Every weight byte brought on
-//   chip serves the block's 128 rows, and the hidden never leaves the SM.
-// - C = 512 and 768, two launches: 128 rows would need 256 KB or 384 KB of
-//   sum against the SM's 256 KB of registers, so a fused block could own
+// - C = 256 with ReLU, one kernel (ffn_fused_kernel): 128 rows fit, 128
+//   accumulator registers a consumer thread, beside the hidden chunk's 32
+//   and its 16 bf16 fragments; see the kernel's note. Every weight byte
+//   brought on chip serves the block's 128 rows, and the hidden never
+//   leaves the SM.
+// - every other (C, act), C = 128 and 384 to 2048, two launches: 128 rows
+//   of C = 512 or 768 would need 256 KB or 384 KB of sum against the SM's
+//   256 KB of registers, so a fused block could own
 //   only 64 rows (a weight byte serving 64 rows unless a cluster
 //   multicast each stage) and would have to share each hidden chunk
 //   between warpgroups through shared memory. Instead:
@@ -60,17 +64,24 @@
 //      from the swizzled tile and rounds it to bf16 (the RS form); a bf16
 //      x (ffn_train's form) is the SS form's K-major A; W1 as stored
 //      (MN-major). Bias, activation, dropout and the rounding are applied
-//      to the accumulators in registers. The train forms at C = 512 (the
-//      hidden's keep words written) take hidden_train_kernel instead,
-//      below.
+//      to the accumulators in registers. x streams through the ring with
+//      W1 (C / 64 depth steps), so no C is too wide for it; at C = 2048 a
+//      tile re-reads its 128 rows of x from L2 once for each 256 columns
+//      of F. The train forms at C = 512 (the hidden's keep words written)
+//      take hidden_train_kernel instead, below.
 //   2. ffn_out_kernel: y = h W2 + b2 on 128 x 256 tiles (h K-major, W2
 //      MN-major), then either ffn_train's bf16 y (y_out, no LayerNorm: a
 //      block a tile) or the residual, drop_y and the LayerNorm from the
-//      accumulators. A row spans C / 256 blocks: they are one
+//      accumulators. A row spans ceil(C / 256) blocks: they are one
 //      thread-block cluster along C and trade each row's partial sums
 //      (the sum, then the centred sum of squares) through distributed
 //      shared memory, each adding the ranks' sums in rank order, so that
-//      every block normalises with the same mean and 1/std.
+//      every block normalises with the same mean and 1/std. Where C % 256
+//      == 128 the last block's tile has 128 columns (residual_ln.cuh: W2's
+//      two boxes past C are not loaded, their sums kept at 0 and
+//      unstored). At C = 128 the cluster is that one block: the fused
+//      kernel's 256 columns are its template's (and its activation ReLU),
+//      and the two launches take any C.
 //   Both launches use 128-row tiles, so every weight byte brought on chip
 //   serves 128 rows; the hidden's round trip through memory costs 2 M F x
 //   2 bytes, 0.16 ms at the w2v2fb head's shape and 0.09 ms at the
@@ -298,7 +309,7 @@ __device__ __forceinline__ void store_y_out(const float (&acc)[128],
   }
 }
 
-// C = 512 and 768, launch 1 of the inference forms (and of the train
+// Every C but 256, launch 1 of the inference forms (and of the train
 // forms at rate 0, and at C = 768 at any rate): h (M, F) bf16 =
 // drop_h(act(x W1 + b1)), a BM x BN tile a block; X_F32: x fp32 (rounded
 // in the RS form), else bf16; WORDS: the hidden's keep words written to
@@ -361,11 +372,13 @@ ffn_hidden_kernel(const __grid_constant__ CUtensorMap map_x,
   }
 }
 
-// C = 512 and 768, launch 2: y = h W2 + b2 on a BM x 256 tile a block, then
-// (LN) out = LN2(res + drop_y(y)) over the cluster's C / 256 blocks, with
-// the normalised rows and 1/std where n_out and rstd are not null, or (!LN,
-// one block a cluster) ffn_train's y_out = drop_y(bf16(bf16(y) + bf16(b2)))
-template <bool LN>
+// Every C but 256, launch 2: y = h W2 + b2 on a BM x 256 tile a block (the
+// last 128 x 128 where C % 256 == 128: the NARROW instance), then (LN) out
+// = LN2(res + drop_y(y)) over the cluster's ceil(C / 256) blocks, with the
+// normalised rows and 1/std where n_out and rstd are not null, or (!LN,
+// one block a cluster, C = 512 or 768) ffn_train's y_out =
+// drop_y(bf16(bf16(y) + bf16(b2)))
+template <bool LN, bool NARROW = false>
 __global__ void __launch_bounds__(THREADS, 1)
 ffn_out_kernel(const __grid_constant__ CUtensorMap map_h,
                const __grid_constant__ CUtensorMap map_w2,
@@ -394,7 +407,7 @@ ffn_out_kernel(const __grid_constant__ CUtensorMap map_h,
   if (wg == 0) {
     if (threadIdx.x == 0)
       produce<false, OUT_BN>(&map_h, &map_w2, ring, full, empty, F / BK, m0,
-                             n0);
+                             n0, ln_groups(C, n0) / 8);
     if constexpr (!LN) return;
   } else {
     consume<false, OUT_BN>(acc, ring, full, empty, F / BK, c, warp, lane);
@@ -407,10 +420,23 @@ ffn_out_kernel(const __grid_constant__ CUtensorMap map_h,
   __syncwarp();   // the producer's warp meets the cluster barriers whole
 
   // Every thread of every block of the cluster takes part in the
-  // epilogue's barriers; the producer warpgroup has nothing else to do
-  if constexpr (EPILOGUE)
-    residual_ln(acc, wg != 0, sums, x, b2, gamma, beta, out, n_out, rstd, M,
-                C, n0, lr0, r0, t, round_input, drop, blockIdx.x == 0);
+  // epilogue's barriers; the producer warpgroup has nothing else to do. A
+  // block of 256 columns, or in the NARROW instance the last of 128, each
+  // copy with its column count known to the compiler; such a C is an
+  // inference width (the train forms take 256, 512 and 768), so the narrow
+  // copy is compiled without the dropout and the saved rows. The second
+  // copy cost the first 18% (scripts/torch_layer_width_probe.py), so only
+  // the widths C % 256 == 128 take the instance that has it
+  if constexpr (EPILOGUE) {
+    if (!NARROW || ln_groups(C, n0) == OUT_BN / 8)
+      residual_ln(acc, wg != 0, sums, x, b2, gamma, beta, out, n_out, rstd,
+                  M, C, n0, lr0, r0, t, round_input, drop, blockIdx.x == 0,
+                  OUT_BN / 8);
+    else
+      residual_ln(acc, wg != 0, sums, x, b2, gamma, beta, out, nullptr,
+                  nullptr, M, C, n0, lr0, r0, t, round_input,
+                  ppgs::Dropout{}, blockIdx.x == 0, OUT_BN / 16);
+  }
   cg::this_cluster().sync();   // no block leaves while a peer reads its sums
 }
 
@@ -1017,18 +1043,19 @@ int launch_fused(const CUtensorMap& mw1, const CUtensorMap& mw2,
 }  // namespace
 
 // x (M, C), w1 (C, F) bf16, b1 (F) fp32, w2 (F, C) bf16, b2 (C) fp32, h
-// (M, F) bf16 scratch for the hidden at C = 512 and 768 (unused, may be
+// (M, F) bf16 scratch for the hidden at every C but 256 (unused, may be
 // null, at C = 256); F % 128 == 0; act 0 = ReLU, 1 = tanh-GELU. With y_out
 // null: x fp32, gamma/beta (C) fp32 -> out (M, C) fp32, and n_out (M, C)
-// and rstd (M) fp32 unless null; (C, act) is (256, ReLU), (512, ReLU),
-// (768, ReLU) or (768, GELU). With y_out (C = 256, 512 or 768, ReLU,
+// and rstd (M) fp32 unless null; C % 128 == 0 and 128 <= C <= 2048, and
+// for the train forms (n_out, rstd, keep_out or the dropout on) C = 256,
+// 512 or 768 with ReLU. With y_out (C = 256, 512 or 768, ReLU,
 // round_input 0): x bf16 -> y_out (M, C) bf16 (gamma, beta, out, n_out and
 // rstd unused). The hidden's dropout site is (seed, site_h), the
 // output's (seed, site_y); threshold 0 turns both off. keep_out (M, F /
 // 32) int32, or null: the hidden's keep words (the train forms: ReLU,
 // round_input 0, threshold != 0). One kernel at C = 256, two on the
-// stream (the hidden's, then the output's) at 512 and 768. Any other (C,
-// act), or keep_out where it cannot be written, returns
+// stream (the hidden's, then the output's) at every other C. Any other
+// (C, act), or keep_out where it cannot be written, returns
 // cudaErrorInvalidValue.
 extern "C" int ppgs_ffn_ln(const void* x, const void* w1, const void* b1,
                            const void* w2, const void* b2, const void* gamma,
@@ -1038,11 +1065,15 @@ extern "C" int ppgs_ffn_ln(const void* x, const void* w1, const void* b1,
                            unsigned seed_lo, unsigned seed_hi,
                            unsigned site_h, unsigned site_y,
                            unsigned threshold, float scale, void* stream) {
-  const bool ln = y_out == nullptr, fused = C == FUSED_C;
-  const bool relu_width = C == 256 || C == 512 || C == 768;
+  // the fused kernel is ReLU's; GELU at C = 256 takes the two launches
+  const bool ln = y_out == nullptr, fused = C == FUSED_C && act == RELU;
+  const bool train_width = C == 256 || C == 512 || C == 768;
+  const bool train = n_out || rstd || keep_out || threshold;
   const bool width_ok =
-      ln ? (relu_width && act == RELU) || (C == 768 && act == GELU)
-         : relu_width && act == RELU && !round_input;
+      ln ? C % 128 == 0 && C >= 128 && C <= MAX_C &&
+               (act == RELU || act == GELU) &&
+               (!train || (train_width && act == RELU))
+         : train_width && act == RELU && !round_input;
   const int m_tiles = (M + BM - 1) / BM;
   if (!width_ok || F <= 0 || F % 128 || m_tiles > 65535 || (!fused && !h) ||
       reinterpret_cast<uintptr_t>(b1) % 16 ||
@@ -1136,7 +1167,9 @@ extern "C" int ppgs_ffn_ln(const void* x, const void* w1, const void* b1,
     return launch(ffn_out_kernel<false>, THREADS, Ring<false, OUT_BN>::SMEM,
                   dim3(C / OUT_BN, m_tiles), 1, s, mh, mw2, xf, b2f, g, be,
                   o, n, rs, yb, M, F, C, round_input, dy);
-  return launch(ffn_out_kernel<true>, THREADS, Ring<false, OUT_BN>::SMEM,
-                dim3(C / OUT_BN, m_tiles), C / OUT_BN, s, mh, mw2, xf, b2f, g,
-                be, o, n, rs, yb, M, F, C, round_input, dy);
+  return launch(C % OUT_BN ? ffn_out_kernel<true, true>
+                           : ffn_out_kernel<true>,
+                THREADS, Ring<false, OUT_BN>::SMEM, dim3(ln_ranks(C), m_tiles),
+                ln_ranks(C), s, mh, mw2, xf, b2f, g, be, o, n, rs, yb, M, F, C,
+                round_input, dy);
 }

@@ -1,6 +1,6 @@
 // K1 qkv_proj: out = bf16(bf16(bf16(x) @ W) + bf16(b)), the fused QKV
-// projection of one encoder layer, at (K, N) = (256, 768), (512, 1536) and
-// (768, 2304) (one template instance each).
+// projection of one encoder layer, at (K, N = 3K) for any K % 128 == 0 from
+// 128 to 2048: three forms, each taking K at run time (see "Forms" below).
 //
 // Replaces: the QKV product inside ppgs_tpu/ops/encoder_layer_kernel.py
 // _layer_body (`qkv = dot_cd(xc, wqkv, bqkv)`), run per layer by
@@ -22,6 +22,7 @@
 // ms by bytes; the training shape (M = 131,072, K = 256) 336 MB, 0.100 ms
 // by bytes; the w2v2fb head (64,000, 512) 101 GFLOP, 0.102 ms by
 // operations; the wav2vec2 trunk (25,600, 768) 91 GFLOP, 0.092 ms by
+// operations; wav2vec2-large's trunk (25,600, 1024) 161 GFLOP, 0.163 ms by
 // operations.
 //
 // Design (Hopper: wgmma + TMA on the blocks of hopper.cuh). A tile that
@@ -52,14 +53,27 @@
 //   64-column boxes and writes them by TMA stores that clip at M,
 //   asynchronously (stores from registers stalled the mainloop under the
 //   memory's back-pressure and cost up to half the kernel's time).
-// Shared memory sets the plan: x takes K / 64 slabs of 128 x 64 bf16 (64
-// and 128 KB at K = 256 and 512: blocks of 128 rows, two warpgroups, and 8
-// and 4 ring slots). At K = 768, 128 rows of x (192 KB) would leave two
-// slots and no boxes, and the W stream stalled; so a block holds 64 rows
-// (96 KB, one warpgroup, 7 slots) and a cluster of two blocks shares each
-// W item, each block loading one of its two boxes by TMA multicast into
-// both: W crosses L2 once per 128 rows, as at the other widths.
-// What holds it back: the W stream's round trip through the ring (its
+// Forms. Shared memory sets them: x takes K / 64 slabs of its rows x 64
+// bf16, and the ring of 16 KB slots what is left (at most 16). A form
+// holds x resident while the ring keeps three slots or more:
+// - K <= 512, Wide: blocks of 128 rows, two warpgroups (x 32-128 KB, 10-4
+//   slots);
+// - 640 <= K <= 1280, Pair: 128 rows of x would leave two slots or none
+//   (at K = 768, 192 KB: the W stream stalled), so a block holds 64 rows
+//   (one warpgroup; x 80-160 KB, 8-3 slots) and a cluster of two blocks
+//   shares each W item, each block loading one of its two boxes by TMA
+//   multicast into both: W crosses L2 once per 128 rows, as in Wide;
+// - K >= 1408, Stream (qkv_stream_kernel): 64 rows of x would leave two
+//   slots or none (192 KB at 1536), so nothing is resident: a block a 128
+//   x 128 output tile, x (fp32) and W streaming through residual_ln.cuh's
+//   ring (four 48 KB stages, a producer thread), the consumer warpgroups
+//   rounding their m64k16 fragments of x from the stage (the RS form, as
+//   K4's hidden launch) and storing the bias-added pairs from registers.
+//   Each tile re-reads its rows of x (fp32) from L2, 3K / 128 times a row
+//   block: a right-first walk for widths no registered config has.
+// The three forms round each x value to bf16 once and sum the same
+// m64n128k16 products in depth order.
+// What holds the resident forms back: the W stream's round trip through the ring (its
 // slots in flight, not L2's rate, set its pace), most at K = 768; a
 // block's first unit of each row block waits on its x, a step at a time;
 // the warpgroups' epilogues idle the tensor cores (at K = 768 the block's
@@ -69,8 +83,10 @@
 #include <cooperative_groups.h>
 
 #include "hopper.cuh"
+#include "residual_ln.cuh"
 
 namespace cg = cooperative_groups;
+namespace rl = ppgs::residual_ln;
 using ppgs::bf16;
 using namespace ppgs::hopper;
 
@@ -81,66 +97,71 @@ constexpr int BK = 64;                 // depth of a W item
 constexpr int SLOT = BK * BN * 2;      // a ring slot: a W item, or x in fp32
 constexpr int BOX = 64 * 128;          // a 64 x 64 bf16 output box, 8 KB
 constexpr int SMEM_MAX = 232448;
+constexpr int MAX_K = 2048;
+// The widest K of each resident form (see the note's "Forms")
+constexpr int WIDE_MAX_K = 512, PAIR_MAX_K = 1280;
 
-// Per width: a block's rows of each unit, and the blocks of a cluster that
-// share each W item (each loads a part and multicasts it to all)
-template <int K>
-struct Plan;
-template <>
-struct Plan<256> {
-  static constexpr int BM = 128, CLUSTER = 1;
-};
-template <>
-struct Plan<512> {
-  static constexpr int BM = 128, CLUSTER = 1;
-};
-template <>
-struct Plan<768> {
-  static constexpr int BM = 64, CLUSTER = 2;
-};
-
-template <int K>
-struct Layout {
-  static constexpr int BM = Plan<K>::BM, CLUSTER = Plan<K>::CLUSTER;
+// A resident form: a block's rows of each unit, and the blocks of a
+// cluster that share each W item (each loads a part and multicasts it to
+// all)
+template <int BM_, int CLUSTER_>
+struct Form {
+  static constexpr int BM = BM_, CLUSTER = CLUSTER_;
   static_assert(BM * CLUSTER == UM, "a unit's rows are its blocks' rows");
   static constexpr int WGS = BM / 64;               // consumer warpgroups
   static constexpr int THREADS = 128 * WGS + 32;    // and a producer warp
-  static constexpr int N = 3 * K, NT = N / BN, STEPS = K / BK;
   static constexpr int SLAB = BM * 128;   // 64 columns of x in bf16
   static constexpr int X_BOX = BM * 128;  // 32 columns of x in fp32
   static constexpr int XBOXES = SLOT / X_BOX;       // x boxes a slot
   static constexpr int XPER = 2 / XBOXES;           // x slots a W item
-  static constexpr int X_BYTES = STEPS * SLAB;
   static constexpr int OUT_BYTES = WGS * 2 * BOX;   // two boxes a warpgroup
-  // the ring takes what is left, less 1024 bytes of alignment slack and
-  // 256 for its barriers
-  static constexpr int STAGES =
-      (SMEM_MAX - 1280 - X_BYTES - OUT_BYTES) / SLOT;
-  static constexpr int SMEM = X_BYTES + OUT_BYTES + STAGES * (SLOT + 16) +
-                              1024;
-  static_assert(STAGES >= 2 && STAGES * 16 <= 256 && SMEM <= SMEM_MAX,
-                "the plan does not fit a block's shared memory");
+};
+using Wide = Form<128, 1>;
+using Pair = Form<64, 2>;
+
+// A width's plan in a resident form: depth steps, column tiles, x's bytes,
+// the ring's slots (what is left less 1024 bytes of alignment slack and
+// 256 for its barriers: at most 16) and the shared memory
+template <typename P>
+struct Plan {
+  int steps, nt, x_bytes, stages, smem;
+  __host__ __device__ explicit Plan(int K)
+      : steps(K / BK), nt(3 * K / BN), x_bytes(K / BK * P::SLAB),
+        stages((SMEM_MAX - 1280 - x_bytes - P::OUT_BYTES) / SLOT),
+        smem(0) {
+    if (stages > 16) stages = 16;
+    smem = x_bytes + P::OUT_BYTES + stages * (SLOT + 16) + 1024;
+  }
 };
 
 // The cluster's units [u0, u1), walked forwards by even clusters and
-// backwards by odd ones; unit u is row block u / NT, column tile u % NT
-template <int K>
+// backwards by odd ones; unit u is row block u / nt, column tile u % nt
+template <typename P>
 struct Walk {
-  int u0, u1;
+  int u0, u1, nt;
   bool back;
-  __device__ explicit Walk(int units) {
-    constexpr int C = Layout<K>::CLUSTER;
-    const long long b = blockIdx.x / C, g = gridDim.x / C;
+  __device__ Walk(int units, int nt_) : nt(nt_) {
+    const long long b = blockIdx.x / P::CLUSTER, g = gridDim.x / P::CLUSTER;
     u0 = static_cast<int>(b * units / g);
     u1 = static_cast<int>((b + 1) * units / g);
     back = (b & 1) != 0;
   }
   __device__ int count() const { return u1 - u0; }
   __device__ int at(int i) const { return back ? u1 - 1 - i : u0 + i; }
-  __device__ int row(int i) const { return at(i) / Layout<K>::NT; }
-  __device__ int col(int i) const { return at(i) % Layout<K>::NT * BN; }
+  __device__ int row(int i) const { return at(i) / nt; }
+  __device__ int col(int i) const { return at(i) % nt * BN; }
   // the unit starts a row block: its x comes through the ring too
   __device__ bool first(int i) const { return i == 0 || row(i) != row(i - 1); }
+};
+
+// A walk's place in the ring: the slot and the parity of its round, kept
+// by increments (the ring's size is known only at run time, and a
+// division a slot cost the walk)
+struct RingPos {
+  int slot = 0, phase = 0;
+  __device__ __forceinline__ void next(int stages) {
+    if (++slot == stages) slot = 0, phase ^= 1;
+  }
 };
 
 __device__ __forceinline__ uint32_t pack(float a, float b) {
@@ -180,15 +201,15 @@ __device__ __forceinline__ void convert(const unsigned char* box,
 
 // Free a slot: each consumer warp tells its block's barrier and, in a
 // cluster, the other blocks' (whose producers load into this block too)
-template <int K>
+template <typename P>
 __device__ __forceinline__ void release(uint64_t* empty, int s, int lane) {
   if (lane != 0) return;
   const uint32_t bar = smem_addr(empty + s);
   mbar_arrive(bar);
-  if constexpr (Layout<K>::CLUSTER > 1) {
+  if constexpr (P::CLUSTER > 1) {
     const uint32_t me = cg::this_cluster().block_rank();
 #pragma unroll
-    for (uint32_t r = 0; r < Layout<K>::CLUSTER; ++r)
+    for (uint32_t r = 0; r < P::CLUSTER; ++r)
       if (r != me) mbar_arrive_remote(bar, r);
   }
 }
@@ -196,42 +217,41 @@ __device__ __forceinline__ void release(uint64_t* empty, int s, int lane) {
 // Consumer warpgroup c's products of one unit into acc; FIRST: the unit
 // starts a row block, and the 64 columns of x of each depth step arrive
 // just before its W item
-template <int K, bool FIRST>
+template <typename P, bool FIRST>
 __device__ __forceinline__ void mainloop(float (&acc)[BN / 2],
                                          unsigned char* xs,
                                          unsigned char* ring, uint64_t* full,
-                                         uint64_t* empty, int& it, int c,
-                                         int lane) {
-  using L = Layout<K>;
+                                         uint64_t* empty, RingPos& it, int c,
+                                         int lane, const Plan<P>& plan) {
   const uint32_t x_addr = smem_addr(xs) + c * 64 * 128;
+  const int stages = plan.stages;
 #pragma unroll
   for (int e = 0; e < BN / 2; ++e) acc[e] = 0.f;
   int prev = 0;
-#pragma unroll
-  for (int k = 0; k < L::STEPS; ++k) {
+  for (int k = 0; k < plan.steps; ++k) {
     if constexpr (FIRST) {
       // Free the last W item first and each x slot as soon as it is read:
       // a ring of two slots holds one item at a time here
       if (k > 0) {
         wgmma_wait<0>();
         fence_regs(acc);
-        release<K>(empty, prev, lane);
+        release<P>(empty, prev, lane);
       }
 #pragma unroll
-      for (int h = 0; h < L::XPER; ++h, ++it) {
-        const int s = it % L::STAGES;
-        mbar_wait(smem_addr(full + s), (it / L::STAGES) & 1);
+      for (int h = 0; h < P::XPER; ++h, it.next(stages)) {
+        const int s = it.slot;
+        mbar_wait(smem_addr(full + s), it.phase);
 #pragma unroll
-        for (int b = 0; b < L::XBOXES; ++b)
-          convert(ring + s * SLOT + b * L::X_BOX, xs + k * L::SLAB,
-                  h * L::XBOXES + b, c);
+        for (int b = 0; b < P::XBOXES; ++b)
+          convert(ring + s * SLOT + b * P::X_BOX, xs + k * P::SLAB,
+                  h * P::XBOXES + b, c);
         fence_async_smem();     // the writes, for wgmma's reads
         bar_sync(1 + c, 128);
-        release<K>(empty, s, lane);
+        release<P>(empty, s, lane);
       }
     }
-    const int s = it % L::STAGES;
-    mbar_wait(smem_addr(full + s), (it / L::STAGES) & 1);
+    const int s = it.slot;
+    mbar_wait(smem_addr(full + s), it.phase);
     const uint32_t b_addr = smem_addr(ring + s * SLOT);
     fence_regs(acc);
     wgmma_fence();
@@ -241,85 +261,89 @@ __device__ __forceinline__ void mainloop(float (&acc)[BN / 2],
       // (16 depth rows of 128 bytes a step, the two 64-column boxes SLOT
       // / 2 apart)
       wgmma_ss<BN, 0, 1>(acc,
-                         sw128_desc(x_addr + k * L::SLAB + kk * 32, 16, 1024),
+                         sw128_desc(x_addr + k * P::SLAB + kk * 32, 16, 1024),
                          sw128_desc(b_addr + kk * 2048, SLOT / 2, 1024));
     wgmma_commit();
     if constexpr (!FIRST) {
       wgmma_wait<1>();          // the previous step's products are done
       fence_regs(acc);
-      if (k > 0) release<K>(empty, prev, lane);
+      if (k > 0) release<P>(empty, prev, lane);
     }
     prev = s;
-    ++it;
+    it.next(stages);
   }
   wgmma_wait<0>();
   fence_regs(acc);
-  release<K>(empty, prev, lane);
+  release<P>(empty, prev, lane);
 }
 
-template <int K>
-__global__ void __launch_bounds__(Layout<K>::THREADS, 1)
+template <typename P>
+__global__ void __launch_bounds__(P::THREADS, 1)
 qkv_proj_kernel(const __grid_constant__ CUtensorMap map_w,
                 const __grid_constant__ CUtensorMap map_x,
                 const __grid_constant__ CUtensorMap map_out,
-                const float* __restrict__ bias, int M) {
-  using L = Layout<K>;
+                const float* __restrict__ bias, int M, int K) {
+  const Plan<P> plan(K);
   extern __shared__ unsigned char smem_raw[];
   unsigned char* xs = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  unsigned char* staging = xs + L::X_BYTES;
-  unsigned char* ring = staging + L::OUT_BYTES;
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + L::STAGES * SLOT);
-  uint64_t* empty = full + L::STAGES;
+  unsigned char* staging = xs + plan.x_bytes;
+  unsigned char* ring = staging + P::OUT_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + plan.stages * SLOT);
+  uint64_t* empty = full + plan.stages;
 
-  const Walk<K> walk((M + UM - 1) / UM * L::NT);
-  const int rank = L::CLUSTER > 1 ? cg::this_cluster().block_rank() : 0;
+  const Walk<P> walk((M + UM - 1) / UM * plan.nt, plan.nt);
+  const int rank = P::CLUSTER > 1 ? cg::this_cluster().block_rank() : 0;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const auto sync_all = [] {
-    if constexpr (L::CLUSTER > 1)
+    if constexpr (P::CLUSTER > 1)
       cg::this_cluster().sync();
     else
       __syncthreads();
   };
 
   if (threadIdx.x == 0)   // every consumer warp of the cluster frees a slot
-    mbar_init_ring(full, empty, L::STAGES, 4 * L::WGS * L::CLUSTER);
+    mbar_init_ring(full, empty, plan.stages, 4 * P::WGS * P::CLUSTER);
   sync_all();
 
-  if (warp == 4 * L::WGS) {
+  if (warp == 4 * P::WGS) {
     if (lane == 0) {
       // Producer: the ring's items in the order the consumers walk them;
       // in a cluster, this block's 64 columns of each W item go to every
       // block (and the others' to this one)
-      int it = 0;
+      // the slot's barrier of the round before: empty's parity is the
+      // round's, less one
+      RingPos it;
+      bool first_round = true;
       auto slot = [&]() {
-        const int s = it % L::STAGES, round = it / L::STAGES;
-        if (round > 0) mbar_wait(smem_addr(empty + s), (round - 1) & 1);
+        const int s = it.slot;
+        if (!first_round) mbar_wait(smem_addr(empty + s), it.phase ^ 1);
         mbar_expect_tx(smem_addr(full + s), SLOT);
-        ++it;
+        it.next(plan.stages);
+        if (it.slot == 0) first_round = false;
         return s;
       };
       for (int i = 0; i < walk.count(); ++i) {
-        const int m0 = walk.row(i) * UM + rank * L::BM, n0 = walk.col(i);
+        const int m0 = walk.row(i) * UM + rank * P::BM, n0 = walk.col(i);
         const bool first = walk.first(i);
-        for (int k = 0; k < L::STEPS; ++k) {
+        for (int k = 0; k < plan.steps; ++k) {
           if (first) {
 #pragma unroll
-            for (int h = 0; h < L::XPER; ++h) {
+            for (int h = 0; h < P::XPER; ++h) {
               const int s = slot();
 #pragma unroll
-              for (int b = 0; b < L::XBOXES; ++b)
-                tma_load(ring + s * SLOT + b * L::X_BOX, &map_x,
-                         ((k * L::XPER + h) * L::XBOXES + b) * 32, m0,
+              for (int b = 0; b < P::XBOXES; ++b)
+                tma_load(ring + s * SLOT + b * P::X_BOX, &map_x,
+                         ((k * P::XPER + h) * P::XBOXES + b) * 32, m0,
                          smem_addr(full + s));
             }
           }
           const int s = slot();
           unsigned char* dst = ring + s * SLOT;
-          if constexpr (L::CLUSTER > 1) {
+          if constexpr (P::CLUSTER > 1) {
             tma_load_multicast(dst + rank * (SLOT / 2), &map_w,
                                n0 + 64 * rank, k * BK, smem_addr(full + s),
-                               (1u << L::CLUSTER) - 1);
+                               (1u << P::CLUSTER) - 1);
           } else {
             tma_load(dst, &map_w, n0, k * BK, smem_addr(full + s));
             tma_load(dst + SLOT / 2, &map_w, n0 + 64, k * BK,
@@ -337,13 +361,13 @@ qkv_proj_kernel(const __grid_constant__ CUtensorMap map_w,
     const bool lead = threadIdx.x % 128 == 0;
     unsigned char* stg = staging + c * 2 * BOX;
     float acc[BN / 2];
-    int it = 0;
+    RingPos it;
     for (int i = 0; i < walk.count(); ++i) {
       const int n0 = walk.col(i);
       if (walk.first(i))
-        mainloop<K, true>(acc, xs, ring, full, empty, it, c, lane);
+        mainloop<P, true>(acc, xs, ring, full, empty, it, c, lane, plan);
       else
-        mainloop<K, false>(acc, xs, ring, full, empty, it, c, lane);
+        mainloop<P, false>(acc, xs, ring, full, empty, it, c, lane, plan);
       // Epilogue: bf16(bf16(acc) + bf16(b)) into the warpgroup's two
       // boxes, swizzled as TMA reads them (the 16-byte chunk q of row r at
       // q ^ (r & 7): conflict-free), then a TMA store a box, which writes
@@ -364,7 +388,7 @@ qkv_proj_kernel(const __grid_constant__ CUtensorMap map_w,
       }
       fence_async_smem();
       bar_sync(1 + c, 128);
-      const int wg_row = walk.row(i) * UM + rank * L::BM + 64 * c;
+      const int wg_row = walk.row(i) * UM + rank * P::BM + 64 * c;
       if (lead && wg_row < M) {
         tma_store(&map_out, n0, wg_row, stg);
         tma_store(&map_out, n0 + 64, wg_row, stg + BOX);
@@ -379,61 +403,127 @@ qkv_proj_kernel(const __grid_constant__ CUtensorMap map_w,
   sync_all();
 }
 
-template <int K>
+template <typename P>
 int launch(const void* x, const void* w, const void* b, void* out, int M,
-           cudaStream_t stream) {
-  using L = Layout<K>;
+           int K, cudaStream_t stream) {
   static const cudaError_t attr = cudaFuncSetAttribute(
-      qkv_proj_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      L::SMEM);
+      qkv_proj_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_MAX);
   if (attr != cudaSuccess) return static_cast<int>(attr);
+  const Plan<P> plan(K);
+  const int N = 3 * K;
   CUtensorMap map_w, map_x, map_out;
-  if (!encode(&map_w, w, false, K, L::N, L::N, 64, BK) ||
-      !encode(&map_x, x, true, M, K, K, 32, L::BM) ||
-      !encode(&map_out, out, false, M, L::N, L::N, 64, 64))
+  if (!encode(&map_w, w, false, K, N, N, 64, BK) ||
+      !encode(&map_x, x, true, M, K, K, 32, P::BM) ||
+      !encode(&map_out, out, false, M, N, N, 64, 64))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaLaunchConfig_t cfg = {};
-  cfg.blockDim = dim3(L::THREADS);
-  cfg.dynamicSmemBytes = L::SMEM;
+  cfg.blockDim = dim3(P::THREADS);
+  cfg.dynamicSmemBytes = plan.smem;
   cfg.stream = stream;
   cudaLaunchAttribute cluster[1];
   cluster[0].id = cudaLaunchAttributeClusterDimension;
-  cluster[0].val.clusterDim.x = L::CLUSTER;
+  cluster[0].val.clusterDim.x = P::CLUSTER;
   cluster[0].val.clusterDim.y = 1;
   cluster[0].val.clusterDim.z = 1;
   cfg.attrs = cluster;
   cfg.numAttrs = 1;
-  // A persistent grid: as many clusters as the card holds at once
-  cfg.gridDim = dim3(L::CLUSTER);
+  // A persistent grid: as many clusters as the card holds at once (one
+  // block an SM at every K: the ring fills what x leaves)
+  cfg.gridDim = dim3(P::CLUSTER);
   static int clusters = 0;
   if (clusters <= 0) {
     const cudaError_t err = cudaOccupancyMaxActiveClusters(
-        &clusters, qkv_proj_kernel<K>, &cfg);
+        &clusters, qkv_proj_kernel<P>, &cfg);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (clusters <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
   }
-  const int units = (M + UM - 1) / UM * L::NT;
-  cfg.gridDim = dim3((units < clusters ? units : clusters) * L::CLUSTER);
+  const int units = (M + UM - 1) / UM * plan.nt;
+  cfg.gridDim = dim3((units < clusters ? units : clusters) * P::CLUSTER);
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, qkv_proj_kernel<K>, map_w, map_x, map_out,
-      static_cast<const float*>(b), M);
+      &cfg, qkv_proj_kernel<P>, map_w, map_x, map_out,
+      static_cast<const float*>(b), M, K);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The Stream form (K >= 1408): a 128 x 128 tile of out a block, x (fp32,
+// two 32-column boxes of 128 rows) and W (two 64-column boxes) through
+// residual_ln.cuh's ring, filled by thread 0 of the first warpgroup; the
+// other two warpgroups own 64 rows each and round their fragments of x to
+// bf16 as they read them (residual_ln::consume's RS form)
+using StreamRing = rl::Ring<true, BN>;
+constexpr int STREAM_THREADS = 384;
+
+__global__ void __launch_bounds__(STREAM_THREADS, 1)
+qkv_stream_kernel(const __grid_constant__ CUtensorMap map_x,
+                  const __grid_constant__ CUtensorMap map_w,
+                  const float* __restrict__ bias, bf16* __restrict__ out,
+                  int M, int K) {
+  using R = StreamRing;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = rl::aligned_ring(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + R::STAGES * R::STAGE);
+  uint64_t* empty = full + R::STAGES;
+  const int N = 3 * K, n0 = blockIdx.x * BN, m0 = blockIdx.y * UM;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) mbar_init_ring(full, empty, R::STAGES, 8);
+  __syncthreads();
+  if (wg == 0) {
+    if (threadIdx.x == 0)
+      rl::produce<true, BN>(&map_x, &map_w, ring, full, empty, K / BK, m0,
+                            n0);
+    return;
+  }
+  const int c = wg - 1, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  float acc[BN / 2];
+  rl::consume<true, BN>(acc, ring, full, empty, K / BK, c, warp, lane);
+  // Register 4j + e holds row g + 8 (e / 2) of the warp's 16, column 8j +
+  // 2t + e % 2 of the tile
+  const int g = lane >> 2, t = lane & 3;
+  const long long r0 = m0 + 64 * c + 16 * warp + g, r1 = r0 + 8;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = n0 + 8 * j + 2 * t;
+    const float2 b = __ldg(reinterpret_cast<const float2*>(bias + col));
+    const uint32_t bb = pack(b.x, b.y);
+    if (r0 < M)
+      *reinterpret_cast<uint32_t*>(out + r0 * N + col) =
+          add_bias(acc[4 * j], acc[4 * j + 1], bb);
+    if (r1 < M)
+      *reinterpret_cast<uint32_t*>(out + r1 * N + col) =
+          add_bias(acc[4 * j + 2], acc[4 * j + 3], bb);
+  }
+}
+
+int launch_stream(const void* x, const void* w, const void* b, void* out,
+                  int M, int K, cudaStream_t stream) {
+  const int N = 3 * K;
+  CUtensorMap map_x, map_w;
+  if ((M + UM - 1) / UM > 65535 ||            // the grid's rows of tiles
+      !encode(&map_x, x, true, M, K, K, 32, UM) ||
+      !encode(&map_w, w, false, K, N, N, 64, BK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return rl::launch(qkv_stream_kernel, STREAM_THREADS, StreamRing::SMEM,
+                    dim3(N / BN, (M + UM - 1) / UM), 1, stream, map_x, map_w,
+                    static_cast<const float*>(b), static_cast<bf16*>(out), M,
+                    K);
 }
 
 }  // namespace
 
 // x (M, K) fp32, w (K, N) bf16, b (N) fp32 -> out (M, N) bf16, all
-// contiguous and 16-byte aligned; (K, N) = (256, 768), (512, 1536) or
-// (768, 2304), else cudaErrorInvalidValue (the Python wrapper checks the
-// same before it launches).
+// contiguous and 16-byte aligned; K % 128 == 0, 128 <= K <= 2048 and N =
+// 3K, else cudaErrorInvalidValue (the Python wrapper checks the same
+// before it launches). The form follows K (the note's "Forms").
 extern "C" int ppgs_qkv_proj(const void* x, const void* w, const void* b,
                              void* out, int M, int K, int N, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (N != 3 * K || (K != 256 && K != 512 && K != 768))
+  if (N != 3 * K || K % 128 || K < 128 || K > MAX_K)
     return static_cast<int>(cudaErrorInvalidValue);
   if (M <= 0) return static_cast<int>(cudaGetLastError());
-  if (K == 256) return launch<256>(x, w, b, out, M, s);
-  if (K == 512) return launch<512>(x, w, b, out, M, s);
-  return launch<768>(x, w, b, out, M, s);
+  if (K <= WIDE_MAX_K) return launch<Wide>(x, w, b, out, M, K, s);
+  if (K <= PAIR_MAX_K) return launch<Pair>(x, w, b, out, M, K, s);
+  return launch_stream(x, w, b, out, M, K, s);
 }

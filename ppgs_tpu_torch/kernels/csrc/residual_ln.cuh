@@ -2,9 +2,14 @@
 // K4's output launch (ffn_ln.cu ffn_out_kernel) share: a TMA ring of
 // (A, B) stages for consumer warpgroups of 64 rows each, its producer and
 // consumers, and the epilogue out = LN(res + drop(acc + bias)) on tiles of
-// up to 128 rows x 256 columns whose rows a thread-block cluster of C / 256
-// blocks holds together, trading each row's partial sums through
-// distributed shared memory. Header-only; sm_90a.
+// up to 128 rows x 256 columns whose rows a thread-block cluster of
+// ceil(C / 256) blocks holds together, trading each row's partial sums
+// through distributed shared memory. Any C % 128 == 0 up to 2048: where C %
+// 256 == 128 the last block's tile holds 128 columns, the others 256; its
+// other 128 are masked (its W boxes past C are not loaded, and the
+// epilogue keeps them at 0, out of the sums, and unstored). Eight ranks of
+// 256 columns are the portable cluster's most, so 2048 is the widest C.
+// Header-only; sm_90a.
 //
 // An m64n256 accumulator holds, in register 4j + e, row g + 8 (e / 2) of
 // the warp's 16 rows and column 8j + 2t + e % 2 (lane = 4g + t).
@@ -26,6 +31,16 @@ constexpr int BM = 128, BK = 64;          // block tile rows, depth step
 constexpr int RING_BYTES = 192 * 1024;    // the stages' shared memory
 constexpr int BOX_BYTES = 8192;           // 64 rows of 128 bytes
 constexpr int OUT_BN = 256;               // a LayerNorm tile's columns
+constexpr int MAX_C = 8 * OUT_BN;         // the cluster's 8 ranks
+
+// The blocks of a row's cluster, and the 8-column groups of rank n0 / 256's
+// tile that fall inside C (32, or 16 in a last tile of 128 columns)
+__host__ __device__ __forceinline__ int ln_ranks(int C) {
+  return (C + OUT_BN - 1) / OUT_BN;
+}
+__host__ __device__ __forceinline__ int ln_groups(int C, int n0) {
+  return (C - n0 < OUT_BN ? C - n0 : OUT_BN) / 8;
+}
 // The products of `consume` (a probe's loads-only walk sets it false)
 constexpr bool RING_LIVE = true;
 
@@ -51,19 +66,20 @@ __device__ __forceinline__ unsigned char* aligned_ring(unsigned char* raw) {
 }
 
 // Producer (one thread): keep the ring full for `steps` depth steps of the
-// (m0, n0) tile
+// (m0, n0) tile, B's first `b_boxes` boxes of 64 columns (the others, past
+// the array's last column, are left unloaded)
 template <bool A_F32, int BN>
 __device__ __forceinline__ void produce(const CUtensorMap* map_a,
                                         const CUtensorMap* map_b,
                                         unsigned char* ring, uint64_t* full,
                                         uint64_t* empty, int steps, int m0,
-                                        int n0) {
+                                        int n0, int b_boxes = BN / 64) {
   using R = Ring<A_F32, BN>;
   for (int i = 0; i < steps; ++i) {
     const int s = i % R::STAGES, round = i / R::STAGES;
     if (round > 0) mbar_wait(smem_addr(empty + s), (round - 1) & 1);
     const uint32_t bar = smem_addr(full + s);
-    mbar_expect_tx(bar, R::STAGE);
+    mbar_expect_tx(bar, R::A_BYTES + b_boxes * BOX_BYTES);
     unsigned char* sa = ring + s * R::STAGE;
     unsigned char* sb = sa + R::A_BYTES;
     const int k = i * BK;
@@ -71,7 +87,7 @@ __device__ __forceinline__ void produce(const CUtensorMap* map_a,
     if (A_F32) tma_load(sa + BM * 128, map_a, k + 32, m0, bar);
 #pragma unroll
     for (int j = 0; j < BN / 64; ++j)
-      tma_load(sb + j * BOX_BYTES, map_b, n0 + j * 64, k, bar);
+      if (j < b_boxes) tma_load(sb + j * BOX_BYTES, map_b, n0 + j * 64, k, bar);
   }
 }
 
@@ -202,18 +218,25 @@ __device__ __forceinline__ void keep4(const ppgs::Dropout& d, long long r0,
 
 // The LayerNorm epilogue on a thread's 64 x 256 accumulators (rows r0,
 // r1; columns n0 + 8j + 2t + e % 2 of the (M, C) output), in three steps
-// around the reduction of the row sums:
+// around the reduction of the row sums; only the tile's first `groups`
+// 8-column groups lie inside C (ln_groups), the others are kept at 0 and
+// never stored:
 // acc := res + drop(acc + bias), res(j) the residual's (r0, col), (r0,
 // col + 1), (r1, col), (r1, col + 1), col = n0 + 8j + 2t; returns the row
-// sums over the 256 columns
+// sums over the tile's columns
 template <typename Res>
 __device__ __forceinline__ void residual_sums(
     float (&acc)[128], Res res, const float* bias, int C, int n0,
     long long r0, long long r1, int t, int round_input,
-    const ppgs::Dropout& drop, float& s0, float& s1) {
+    const ppgs::Dropout& drop, float& s0, float& s1, int groups = 32) {
   s0 = 0.f, s1 = 0.f;
 #pragma unroll
   for (int j = 0; j < 32; ++j) {
+    if (j >= groups) {       // past C: a warp-uniform branch
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[4 * j + e] = 0.f;
+      continue;
+    }
     const float2 b = *reinterpret_cast<const float2*>(bias + n0 + 8 * j +
                                                       2 * t);
     const float4 r = res(j);
@@ -240,7 +263,7 @@ __device__ __forceinline__ void residual_sums(
 __device__ __forceinline__ void residual_rows(
     float (&acc)[128], const float* x, const float* bias, int M, int C,
     int n0, long long r0, long long r1, int t, int round_input,
-    const ppgs::Dropout& drop, float& s0, float& s1) {
+    const ppgs::Dropout& drop, float& s0, float& s1, int groups = 32) {
   const auto res = [&](int j) {
     const int col = n0 + 8 * j + 2 * t;
     float2 x0 = make_float2(0.f, 0.f), x1 = x0;
@@ -249,16 +272,18 @@ __device__ __forceinline__ void residual_rows(
     return make_float4(x0.x, x0.y, x1.x, x1.y);
   };
   residual_sums(acc, res, bias, C, n0, r0, r1, t, round_input, drop, s0,
-                s1);
+                s1, groups);
 }
 
-// acc -= the row's mean; returns the centred rows' sums of squares
+// acc -= the row's mean in the first `groups` 8-column groups (the others
+// stay 0); returns the centred rows' sums of squares
 __device__ __forceinline__ void center_rows(float (&acc)[128], float mean0,
                                             float mean1, float& q0,
-                                            float& q1) {
+                                            float& q1, int groups = 32) {
   q0 = 0.f, q1 = 0.f;
 #pragma unroll
   for (int j = 0; j < 32; ++j) {
+    if (j >= groups) continue;
     acc[4 * j] -= mean0, acc[4 * j + 1] -= mean0;
     acc[4 * j + 2] -= mean1, acc[4 * j + 3] -= mean1;
     q0 += acc[4 * j] * acc[4 * j] + acc[4 * j + 1] * acc[4 * j + 1];
@@ -268,14 +293,17 @@ __device__ __forceinline__ void center_rows(float (&acc)[128], float mean0,
   q1 = quad_sum(q1);
 }
 
-// out = acc / std * gamma + beta, and n_out = acc / std unless null
+// out = acc / std * gamma + beta, and n_out = acc / std unless null, in
+// the first `groups` 8-column groups
 __device__ __forceinline__ void store_ln(const float (&acc)[128], float inv0,
                                          float inv1, const float* gamma,
                                          const float* beta, float* out,
                                          float* n_out, int M, int C, int n0,
-                                         long long r0, long long r1, int t) {
+                                         long long r0, long long r1, int t,
+                                         int groups = 32) {
 #pragma unroll
   for (int j = 0; j < 32; ++j) {
+    if (j >= groups) continue;
     const int col = n0 + 8 * j + 2 * t;
     const float2 gm = *reinterpret_cast<const float2*>(gamma + col);
     const float2 bt = *reinterpret_cast<const float2*>(beta + col);
@@ -296,7 +324,8 @@ __device__ __forceinline__ void store_ln(const float (&acc)[128], float inv0,
 }
 
 // The LayerNorm statistics of the tile's rows, whose C columns the
-// cluster's C / 256 blocks hold 256 each: residual(s0, s1) turns acc into
+// cluster's ln_ranks(C) blocks hold, 256 each (the last 128 where C % 256
+// == 128; its `groups` say so): residual(s0, s1) turns acc into
 // the residual sums and returns the sums of rows lr0 and lr0 + 8 of the
 // tile over this block's columns (run in the first barrier's block: apart
 // from it, K4's output launch spilled at its 168 registers); then acc is
@@ -311,9 +340,9 @@ template <typename Residual, typename Done>
 __device__ __forceinline__ void layer_norm_rows(float (&acc)[128],
                                                 bool active, float* sums,
                                                 int C, int lr0, int t,
-                                                Residual residual,
-                                                Done done) {
-  const int ranks = C / OUT_BN;
+                                                Residual residual, Done done,
+                                                int groups = 32) {
+  const int ranks = ln_ranks(C);
   const float inv_c = 1.f / C;
   const auto sync = [ranks] {
     if (ranks > 1)
@@ -337,7 +366,7 @@ __device__ __forceinline__ void layer_norm_rows(float (&acc)[128],
       mean1 += peer(r)[lr0 + 8];
     }
     float q0, q1;
-    center_rows(acc, mean0 * inv_c, mean1 * inv_c, q0, q1);
+    center_rows(acc, mean0 * inv_c, mean1 * inv_c, q0, q1, groups);
     if (t == 0) sums[BM + lr0] = q0, sums[BM + lr0 + 8] = q1;
   }
   sync();
@@ -355,26 +384,32 @@ __device__ __forceinline__ void layer_norm_rows(float (&acc)[128],
 // out = LN(res + drop(acc + bias)) * gamma + beta on the tile's rows r0
 // and r0 + 8, res read from x in global memory (residual_rows); with
 // n_out and rstd not null, the normalised rows and 1/std too (rstd by the
-// block with `rank_zero`); as layer_norm_rows
+// block with `rank_zero`); as layer_norm_rows. `groups` is ln_groups(C,
+// n0): a caller at a thread's register cap passes it as a literal in each
+// branch of a test, so that each inlined copy knows its columns (a value
+// known only at run time cost K4's output launch 1.4 KB of spills a
+// thread)
 __device__ __forceinline__ void residual_ln(
     float (&acc)[128], bool active, float* sums, const float* x,
     const float* bias, const float* gamma, const float* beta, float* out,
     float* n_out, float* rstd, int M, int C, int n0, int lr0, long long r0,
-    int t, int round_input, const ppgs::Dropout& drop, bool rank_zero) {
+    int t, int round_input, const ppgs::Dropout& drop, bool rank_zero,
+    int groups) {
   const long long r1 = r0 + 8;
   layer_norm_rows(acc, active, sums, C, lr0, t,
                   [&](float& s0, float& s1) {
                     residual_rows(acc, x, bias, M, C, n0, r0, r1, t,
-                                  round_input, drop, s0, s1);
+                                  round_input, drop, s0, s1, groups);
                   },
                   [&](float inv0, float inv1) {
                     store_ln(acc, inv0, inv1, gamma, beta, out, n_out, M, C,
-                             n0, r0, r1, t);
+                             n0, r0, r1, t, groups);
                     if (rstd && rank_zero && t == 0) {
                       if (r0 < M) rstd[r0] = inv0;
                       if (r1 < M) rstd[r1] = inv1;
                     }
-                  });
+                  },
+                  groups);
 }
 
 // Launch `kernel` on a grid of clusters of `cluster` blocks (along x)

@@ -41,14 +41,13 @@ from ..ops.masking import mask_from_lengths
 
 
 def kernel_widths():
-    """The (C, d_head) pairs that every kernel on the inference and the
-    training paths takes, read from the kernels' own tables: K1's (C, 3C),
-    K3's and the train backward's C, K4's (C, ReLU) in both of its forms,
-    and the head widths of the inference and train attention."""
+    """The (C, d_head) pairs that every kernel on the training path takes,
+    read from the kernels' own tables: K3's train form, K4's train forms
+    with ReLU (the LayerNorm and the bf16 output), the train backward's C,
+    and the head widths of the inference and train attention (K1 takes
+    every C of the inference rule)."""
     widths = (
-        {k for k, n in elk.QKV_WIDTHS if n == 3 * k}
-        & set(elk.OUT_PROJ_WIDTHS)
-        & {c for c, act in fused_ffn.LN_WIDTHS if act == 'relu'}
+        set(elk.OUT_PROJ_TRAIN_WIDTHS) & set(fused_ffn.TRAIN_LN_WIDTHS)
         & {c for c, act in fused_ffn.Y_OUT_WIDTHS if act == 'relu'}
         & set(fused_ffn.TRAIN_BWD_WIDTHS) & set(backward.LN_BWD_WIDTHS))
     d_heads = set(fa.D_HEADS) & set(fa.TRAIN_D_HEADS)
@@ -56,10 +55,19 @@ def kernel_widths():
                         if c % d == 0))
 
 
-# (C, d_head) of the PPG transformers whose layers the card's kernels take,
-# in inference and in training: C = 256, 512 and 768 with d_head 128 or 256
-# (the mel model, and the w2v2fb and w2v2fc heads, among them)
+# (C, d_head) of the PPG transformers whose layers the card's kernels take
+# in training: C = 256, 512 and 768 with d_head 128 or 256 (the mel model,
+# and the w2v2fb and w2v2fc heads, among them)
 KERNEL_WIDTHS = kernel_widths()
+
+
+def inference_width_ok(C, d_head):
+    """Whether the card's inference kernels take a PPG transformer of
+    width C with heads of d_head: K1, K3 and K4's width rule
+    (``fused_ffn.width_ok``: C % 128 == 0 up to 2048) and K2's head widths
+    that the JAX rule sends to the kernels (d_head % 128 == 0: 128, 256)."""
+    return (fused_ffn.width_ok(C) and d_head in fa.D_HEADS
+            and d_head % 128 == 0 and C % d_head == 0)
 
 # Longest window of the train kernels (the JAX package's
 # TRAIN_KERNEL_MAX_T): the whole-layer kernel takes T % 8 == 0 up to it,
@@ -264,25 +272,34 @@ def _encoder_layer(x, layer, key_mask, causal, heads, compute_dtype, kernel):
     return _layer_norm(x + h, layer.norm2.scale, layer.norm2.bias)
 
 
-def use_kernels(config: Config, device) -> bool:
+def use_kernels(config: Config, device, train=False) -> bool:
     """Whether the encoder runs through the kernel wrappers: the JAX
     package's rule (``ppgs_tpu/models/transformer.py:70-76, :446-448``),
     bf16 compute with d_head a multiple of 128.
 
     The fp32 config (the strict-parity path) and bf16 at other head widths
     run plain torch, on the card too, as the JAX package runs XLA there:
-    a static choice from the config, not a fallback. The card's kernels
-    take ``KERNEL_WIDTHS`` in inference and in training (C = 256, 512 and
-    768 with d_head 128 or 256: the mel model's (256, 128) and the w2v2fb
-    and w2v2fc heads' (512, 256) among them); another width that the rule
-    sends to a kernel raises on a CUDA device."""
+    a static choice from the config, not a fallback. Two gates on a CUDA
+    device: in inference the card's kernels take every width of the JAX
+    rule up to C = 2048 with d_head 128 or 256 (``inference_width_ok``);
+    in training (``train``) the pairs of ``KERNEL_WIDTHS`` (C = 256, 512
+    and 768 with d_head 128 or 256: the mel model's (256, 128) and the
+    w2v2fb and w2v2fc heads' (512, 256) among them). Another width that
+    the rule sends to a kernel raises there, naming ROADMAP.md."""
     C, heads = config.hidden_channels, config.attention_heads
     d_head = C // heads
     kernel = config.compute_dtype == 'bfloat16' and d_head % 128 == 0
-    if (kernel and torch.device(device).type == 'cuda'
-            and (C, d_head) not in KERNEL_WIDTHS):
+    if not kernel or torch.device(device).type != 'cuda':
+        return kernel
+    if train and (C, d_head) not in KERNEL_WIDTHS:
         raise NotImplementedError(
-            f'The CUDA kernels take (C, d_head) in {KERNEL_WIDTHS}; config '
+            f'The CUDA train kernels take (C, d_head) in {KERNEL_WIDTHS}; '
+            f'config {config.config!r} has C = {C} with d_head = {d_head}, '
+            f'whose training is not ported to the card (ROADMAP.md)')
+    if not inference_width_ok(C, d_head):
+        raise NotImplementedError(
+            f'The CUDA kernels take C % 128 == 0 up to '
+            f'{fused_ffn.MAX_WIDTH} with d_head 128 or 256; config '
             f'{config.config!r} has C = {C} with d_head = {d_head}, which is '
             f'not ported to the card (ROADMAP.md)')
     return kernel
@@ -374,7 +391,7 @@ def _train_forward(model, features, lengths, seed, phys_lengths=None):
     x = (x + model.pe[:T]).contiguous()
     x = dropout.dropout(x, seed, dropout.PE_SITE, rate)
 
-    kernel = use_kernels(config, x.device)
+    kernel = use_kernels(config, x.device, train=True)
     for i, layer in enumerate(model.layers):
         drop = dropout.Drop(seed, dropout.site(i, 'probs'), rate)
         args = (x, layer, mask, config.is_causal, heads, cd, kernel, drop)

@@ -287,22 +287,29 @@ def _pos_conv(x, p, config: W2V2Config):
     return _gelu(out.transpose(1, 2))
 
 
+# The trunk's head widths on the card: K2's that divide 128 (the JAX
+# rule's packed heads); 32 is not ported
+STACK_D_HEADS = (64, 128)
+
+
 def use_stack(config: W2V2Config, T, device) -> bool:
     """Whether the encoder runs as the four-kernel stack: the JAX package's
     rule (``ppgs_tpu/models/w2v2.py:302-314, :413-420``: bf16, d_head
     dividing 128 with whole 128-lane head groups, T <= 1024). On the card
-    the kernels take wav2vec2-base's C = 768 with d_head = 64; another
+    the kernels take any C of K1, K3 and K4's width rule
+    (``fused_ffn.width_ok``: C % 128 == 0 up to 2048; wav2vec2-base's 768
+    and -large's 1024 among them) with d_head in ``STACK_D_HEADS``; another
     width the rule sends to them raises NotImplementedError there."""
     C, heads = config.hidden_size, config.num_heads
     d_head = C // heads
     stack = (config.compute_dtype == 'bfloat16' and 128 % d_head == 0
              and heads % (128 // d_head) == 0 and T <= elk.MAX_SEQ)
     if (stack and torch.device(device).type == 'cuda'
-            and (C, d_head) != (768, 64)):
+            and not (fused_ffn.width_ok(C) and d_head in STACK_D_HEADS)):
         raise NotImplementedError(
-            f'The CUDA kernels take the wav2vec2 trunk at C = 768 with '
-            f'd_head = 64; this one has C = {C} with d_head = {d_head} '
-            f'(ROADMAP.md)')
+            f'The CUDA kernels take the wav2vec2 trunk at C % 128 == 0 up '
+            f'to {fused_ffn.MAX_WIDTH} with d_head in {STACK_D_HEADS}; this '
+            f'one has C = {C} with d_head = {d_head} (ROADMAP.md)')
     return stack
 
 

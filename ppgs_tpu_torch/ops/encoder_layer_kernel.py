@@ -13,12 +13,15 @@ kernels, and the fp32 residual goes through device memory between them:
     K2 attention             a   = softmax(mask(q k^T)) v per head
                              (ops/flash_attention.py; d_head 64, 128, 256)
     K3 out_proj_residual_ln  r   = LN1(x + a @ Wo + bo)              (here;
-                             C = 256, 512, 768; with dropout and saved LN
-                             statistics it is also the training layer's,
-                             ops/encoder_layer_train.py)
+                             with dropout and saved LN statistics, at C =
+                             256, 512 and 768, it is also the training
+                             layer's, ops/encoder_layer_train.py)
     K4 ffn_residual_ln       x   = LN2(r + act(r @ W1 + b1) @ W2 + b2)
-                             (ops/fused_ffn.py; ReLU at C = 256, 512
-                             and 768, tanh-GELU at C = 768)
+                             (ops/fused_ffn.py; ReLU or tanh-GELU)
+
+K1, K3 and K4 take every width of the JAX kernels' rule up to 2048
+(``width_ok``: C % 128 == 0, 128 <= C <= ``MAX_WIDTH``), and their C entry
+points check the same rule.
 
 As in ``encoder_stack_streamed``, the input is widened to fp32 once, the
 residual stays fp32 across all layers, and the caller rounds the output
@@ -41,14 +44,13 @@ import torch
 from .. import kernels
 from . import dropout
 from .flash_attention import attention, attention_reference
-from .fused_ffn import (ffn_residual_ln, ffn_residual_ln_reference,
-                        layer_norm, matmul)
+from .fused_ffn import (MAX_WIDTH, ffn_residual_ln,
+                        ffn_residual_ln_reference, layer_norm, matmul,
+                        width_ok)
 
 MAX_SEQ = 1024      # windows up to this length take the stack (as on the TPU)
-# K1's (K, N) and K3's C: mel and the bottleneck head, the w2v2fb head,
-# the wav2vec2 trunk
-QKV_WIDTHS = ((256, 768), (512, 1536), (768, 2304))
-OUT_PROJ_WIDTHS = (256, 512, 768)
+# K3's train form (dropout, the normalised rows and 1/std saved)
+OUT_PROJ_TRAIN_WIDTHS = (256, 512, 768)
 
 
 def qkv_proj_reference(x, wqkv, bqkv):
@@ -59,14 +61,16 @@ def qkv_proj_reference(x, wqkv, bqkv):
 
 def qkv_proj_args(x, wqkv, bqkv):
     """Check K1's operands and return its row count; raise ValueError on
-    what the kernel does not take, before anything is launched: a (K, N)
-    not in ``QKV_WIDTHS``, x not fp32 with last dim K, wqkv not bf16,
-    bqkv not fp32 of shape (N,), any of them on another device than x or
-    not contiguous, or one not 16-byte aligned (TMA and the kernel's
-    16-byte loads)."""
-    if wqkv.dim() != 2 or tuple(wqkv.shape) not in QKV_WIDTHS:
-        raise ValueError(f'qkv_proj kernel takes wqkv (K, N) in '
-                         f'{QKV_WIDTHS}; got {tuple(wqkv.shape)}')
+    what the kernel does not take, before anything is launched: wqkv not
+    (K, 3K) with K under the width rule (``width_ok``), x not fp32 with
+    last dim K, wqkv not bf16, bqkv not fp32 of shape (N,), any of them on
+    another device than x or not contiguous, or one not 16-byte aligned
+    (TMA and the kernel's 16-byte loads)."""
+    if (wqkv.dim() != 2 or wqkv.shape[1] != 3 * wqkv.shape[0]
+            or not width_ok(wqkv.shape[0])):
+        raise ValueError(f'qkv_proj kernel takes wqkv (K, 3K) with K % 128 '
+                         f'== 0, 128 <= K <= {MAX_WIDTH}; got '
+                         f'{tuple(wqkv.shape)}')
     K, N = wqkv.shape
     dev = x.device
     kernels.require(x, 'x', torch.float32, dev)
@@ -81,8 +85,8 @@ def qkv_proj_args(x, wqkv, bqkv):
 
 
 def qkv_proj(x, wqkv, bqkv):
-    """K1 (``kernels/csrc/qkv_proj.cu``): x (..., K) fp32, wqkv (K, N)
-    bf16, bqkv (N,) fp32 -> (..., N) bf16, (K, N) in ``QKV_WIDTHS``.
+    """K1 (``kernels/csrc/qkv_proj.cu``): x (..., K) fp32, wqkv (K, 3K)
+    bf16, bqkv (3K,) fp32 -> (..., 3K) bf16, K under ``width_ok``.
     ``qkv_proj.widths`` counts the launches per K."""
     if x.device.type == 'cpu':
         return qkv_proj_reference(x, wqkv, bqkv)
@@ -107,17 +111,22 @@ def out_proj_residual_ln_reference(a, wo, bo, x, scale, bias):
                       scale.float(), bias.float())
 
 
-def out_proj_ln_args(a, wo, bo, x, gamma, beta):
+def out_proj_ln_args(a, wo, bo, x, gamma, beta, train=False):
     """Check K3's operands and return its row count; raise ValueError on
-    what the kernel does not take, before anything is launched: a C not in
-    ``OUT_PROJ_WIDTHS``, a not bf16 with last dim C, x not fp32 of a's
-    shape, wo not bf16 (C, C), bo, gamma or beta not fp32 (C,), any of
-    them on another device than a or not contiguous, or one not 16-byte
-    aligned (TMA and the kernel's vector loads)."""
-    C = wo.shape[0] if wo.dim() == 2 else None
-    if C not in OUT_PROJ_WIDTHS:
-        raise ValueError(f'out_proj_ln kernel takes C in {OUT_PROJ_WIDTHS}; '
-                         f'got wo {tuple(wo.shape)}')
+    what the kernel does not take, before anything is launched: a C not
+    under the width rule (``width_ok``; ``OUT_PROJ_TRAIN_WIDTHS`` for the
+    ``train`` form), a not bf16 with last dim C, x not fp32 of a's shape,
+    wo not bf16 (C, C), bo, gamma or beta not fp32 (C,), any of them on
+    another device than a or not contiguous, or one not 16-byte aligned
+    (TMA and the kernel's vector loads)."""
+    C = wo.shape[0] if wo.dim() == 2 else 0
+    if train and C not in OUT_PROJ_TRAIN_WIDTHS:
+        raise ValueError(f'out_proj_ln kernel takes C in '
+                         f'{OUT_PROJ_TRAIN_WIDTHS} in its train form; got wo '
+                         f'{tuple(wo.shape)}')
+    if not width_ok(C):
+        raise ValueError(f'out_proj_ln kernel takes C % 128 == 0, 128 <= C '
+                         f'<= {MAX_WIDTH}; got wo {tuple(wo.shape)}')
     dev = a.device
     kernels.require(a, 'a', torch.bfloat16, dev)
     if a.shape[-1] != C:
@@ -134,11 +143,11 @@ def out_proj_ln_args(a, wo, bo, x, gamma, beta):
 
 
 def out_proj_ln_plan(M, C):
-    """K3's launch plan: (the kernel's instance (its C), blocks of a
-    cluster (C / 256, each a 256-column slice of the rows), row tiles of
-    128, clusters in the grid: one a tile)."""
+    """K3's launch plan: (its width C, blocks of a cluster (ceil(C / 256),
+    each a 256-column slice of the rows, the last 128 columns where C % 256
+    == 128), row tiles of 128, clusters in the grid: one a tile)."""
     tiles = -(-M // 128)
-    return C, C // 256, tiles, tiles
+    return C, -(-C // 256), tiles, tiles
 
 
 def launch_out_proj_ln(a, wo, bo, x, gamma, beta, drop=dropout.OFF,
@@ -148,7 +157,8 @@ def launch_out_proj_ln(a, wo, bo, x, gamma, beta, drop=dropout.OFF,
     LN1(x + drop(a @ wo + bo)) with a (..., C) bf16, x (..., C) fp32 on
     the card, ``drop`` a ``dropout.Drop``. Returns (out fp32, and with
     ``stats`` the normalised rows and 1/std (M,), else None, None)."""
-    M = out_proj_ln_args(a, wo, bo, x, gamma, beta)
+    M = out_proj_ln_args(a, wo, bo, x, gamma, beta,
+                         train=stats or drop.on)
     dev = a.device
     C, _, _, clusters = out_proj_ln_plan(M, wo.shape[0])
     out = torch.empty_like(x)
@@ -214,8 +224,8 @@ def encoder_stack(x, mask, layers, heads, compute_dtype=torch.bfloat16,
     (B, T), True = valid key. ``activation``: the FFN's, 'relu' (the PPG
     transformer) or 'gelu' (wav2vec2: ``encoder_stack_streamed``'s
     ``activation='gelu'``). On the card the kernels take bf16 only, at
-    C = 256, 512 or 768 with ReLU (d_head 128 or 256) and C = 768 with
-    GELU (d_head 64); they raise on anything else."""
+    any C % 128 == 0 from 128 to 2048 (``width_ok``) with ReLU or GELU and
+    d_head 64, 128 or 256 (K2's); they raise on anything else."""
     return _stack(x, mask, layers, heads, compute_dtype, causal, activation,
                   (qkv_proj, attention, out_proj_residual_ln,
                    ffn_residual_ln))

@@ -2,12 +2,14 @@
 
     out = LN(res + act(x @ w1 + b1) @ w2 + b2)
 
-at C = 256 (mel), 512 (the w2v2fb head) and 768 with ReLU and C = 768 (the
-wav2vec2 trunk) with the tanh-approximate GELU, on a wgmma + TMA mainloop:
-at C = 256 one kernel that keeps the (M, F) hidden on the SM; at 512 and
-768 two launches, the hidden's (bias, activation and dropout on its
-accumulators, stored as bf16 in a scratch buffer) and the output's (the
-residual and the LayerNorm on its accumulators). One entry point serves
+with ReLU or the tanh-approximate GELU at every width the JAX kernels take
+up to 2048 (``width_ok``: C % 128 == 0; mel's 256, the w2v2fb head's 512,
+the wav2vec2 trunks' 768 and 1024 among them), on a wgmma + TMA mainloop:
+at C = 256 with ReLU one kernel that keeps the (M, F) hidden on the SM;
+at every other (C, activation) two launches, the hidden's (bias,
+activation and dropout on its accumulators, stored as bf16 in a scratch
+buffer) and the output's (the residual and the LayerNorm on its
+accumulators, over a cluster of ceil(C / 256) blocks). One entry point serves
 two TPU kernels that round in one place differently (``round_input``):
 
 - ``round_input=False``: the FFN half of
@@ -36,22 +38,33 @@ from .. import kernels
 from . import backward, dropout
 
 LN_EPS = 1e-5
-# (C, activation) of each K4 instance with the LayerNorm epilogue: the PPG
-# transformer's widths with ReLU and the wav2vec2 trunk's with GELU; and
-# those of its bf16-output form (ffn_train's forward)
-LN_WIDTHS = ((256, 'relu'), (512, 'relu'), (768, 'relu'), (768, 'gelu'))
+# The widest C of the layer kernels (K1's K, K3's and K4's C): the cluster
+# LayerNorm's 8 ranks of 256 columns, the portable cluster's most
+# (kernels/csrc/residual_ln.cuh)
+MAX_WIDTH = 2048
+ACTIVATIONS = ('relu', 'gelu')
+# The train forms' widths: K4 with its dropout sites or the normalised
+# rows saved (ReLU), its bf16-output form (ffn_train's forward), and the
+# FFN backward kernel (kernels/csrc/ffn_train.cu)
+TRAIN_LN_WIDTHS = (256, 512, 768)
 Y_OUT_WIDTHS = ((256, 'relu'), (512, 'relu'), (768, 'relu'))
-# The FFN backward kernel's widths (kernels/csrc/ffn_train.cu)
 TRAIN_BWD_WIDTHS = (256, 512, 768)
-# The width whose hidden stays on chip (one kernel); the others take two
-# launches through an (M, F) bf16 hidden (kernels/csrc/ffn_ln.cu's note)
+# The width whose hidden stays on chip (one kernel, ReLU); the others take
+# two launches through an (M, F) bf16 hidden (kernels/csrc/ffn_ln.cu's note)
 FUSED_WIDTH = 256
 
 
-def hidden_scratch(M, F, C, device):
+def width_ok(C):
+    """The inference width rule of K1, K3 and K4, which their C entry
+    points check too: the JAX kernels' C % 128 == 0, from 128 to
+    ``MAX_WIDTH``."""
+    return C % 128 == 0 and 128 <= C <= MAX_WIDTH
+
+
+def hidden_scratch(M, F, C, device, activation='relu'):
     """The (M, F) bf16 buffer that K4's two launches pass the hidden
-    through at C != FUSED_WIDTH; None at FUSED_WIDTH."""
-    if C == FUSED_WIDTH:
+    through; None for the one kernel (``FUSED_WIDTH`` with ReLU)."""
+    if C == FUSED_WIDTH and activation == 'relu':
         return None
     return torch.empty((M, F), dtype=torch.bfloat16, device=device)
 
@@ -102,19 +115,29 @@ def _launch_ffn(x, w1, b1, w2, b2, ln=None, round_input=False,
                 drop_h=dropout.OFF, drop_y=dropout.OFF, stats=False,
                 activation='relu'):
     """Check the operands and launch K4 (``kernels/csrc/ffn_ln.cu``) on the
-    card: one kernel at C = 256, two (through ``hidden_scratch``) at 512
-    and 768. ``ln`` = (gamma, beta): x (..., C) fp32 with (C, activation)
-    in ``LN_WIDTHS``, returns (LN(...) fp32, and with ``stats`` the
-    normalised rows and 1/std (M,), else None, None). ``ln`` None: x
-    (..., C) bf16 with (C, activation) in ``Y_OUT_WIDTHS``, returns (the
-    bf16 output, None, None). Last, the
-    hidden's keep words (``keep_words_shape`` int32) where ``drop_h`` drops
-    it (the train forms), else None."""
+    card: one kernel at C = 256 with ReLU, two (through ``hidden_scratch``)
+    at every other width. ``ln`` = (gamma, beta): x (..., C) fp32 with C
+    under the width rule (``width_ok``) and ReLU or GELU, or, for the train
+    forms (``stats``, or a dropout site on), C in ``TRAIN_LN_WIDTHS`` with
+    ReLU; returns (LN(...) fp32, and with ``stats`` the normalised rows and
+    1/std (M,), else None, None). ``ln`` None: x (..., C) bf16 with (C,
+    activation) in ``Y_OUT_WIDTHS``, returns (the bf16 output, None,
+    None). Last, the hidden's keep words (``keep_words_shape`` int32) where
+    ``drop_h`` drops it (the train forms), else None."""
     C, F = w1.shape
-    widths = LN_WIDTHS if ln else Y_OUT_WIDTHS
-    if (C, activation) not in widths or F % 128:
-        raise ValueError(f'ffn_ln kernel takes (C, activation) in {widths} '
-                         f'and F%128==0; got C={C}, {activation}, F={F}')
+    train = stats or drop_h.on or drop_y.on
+    if not ln:
+        taken, rule = (C, activation) in Y_OUT_WIDTHS, f'in {Y_OUT_WIDTHS}'
+    elif train:
+        taken = C in TRAIN_LN_WIDTHS and activation == 'relu'
+        rule = f'(C, relu), C in {TRAIN_LN_WIDTHS}, in its train forms'
+    else:
+        taken = width_ok(C) and activation in ACTIVATIONS
+        rule = (f'C % 128 == 0, 128 <= C <= {MAX_WIDTH}, activation in '
+                f'{ACTIVATIONS}')
+    if not taken or F % 128:
+        raise ValueError(f'ffn_ln kernel takes (C, activation) {rule} and '
+                         f'F%128==0; got C={C}, {activation}, F={F}')
     dev = x.device
     kernels.require(x, 'x', torch.float32 if ln else torch.bfloat16, dev)
     if x.shape[-1] != C:
@@ -134,7 +157,7 @@ def _launch_ffn(x, w1, b1, w2, b2, ln=None, round_input=False,
             rstd = torch.empty(M, dtype=torch.float32, device=dev)
     else:
         y = torch.empty_like(x)
-    hidden = hidden_scratch(M, F, C, dev)
+    hidden = hidden_scratch(M, F, C, dev, activation)
     keep = (torch.empty(keep_words_shape(M, F), dtype=torch.int32,
                         device=dev) if drop_h.on else None)
     lo, hi, site_h, threshold, scale = drop_h.c_args()

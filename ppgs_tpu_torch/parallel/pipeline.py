@@ -148,7 +148,7 @@ def _schedule(model, features, lengths, mesh, stage, group, n, M,
     owned = xm[stage::n]
     per_stage = num_layers // n
     layers = [model.layers[stage * per_stage + j] for j in range(per_stage)]
-    kernel = transformer.use_kernels(config, x.device)
+    kernel = transformer.use_kernels(config, x.device, train=train)
     heads, causal = config.attention_heads, config.is_causal
 
     def run_layers(h, key_mask, microbatch):

@@ -496,7 +496,7 @@ def train(dataset=None, directory=None, config=None, max_steps=None,
     device = devices.resolve(device)
     if config.model == 'transformer':
         # raises for a width the card's train kernels do not take yet
-        models.transformer.use_kernels(config, device)
+        models.transformer.use_kernels(config, device, train=True)
     backend = config.checkpoint_backend
     multihost.initialize(device=device)
     if mesh is None:

@@ -1,0 +1,190 @@
+#!/usr/bin/env python3
+"""Time the port's layer kernels K1, K3 and K4 at the registered widths on
+one CUDA card, beside another checkout's.
+
+    python3 scripts/torch_layer_width_probe.py [--root DIR] [--reps N]
+        [--variants ...]
+
+Builds this checkout's kernels and, with ``--root``, the ``qkv_proj.cu``,
+``out_proj_ln.cu`` and ``ffn_ln.cu`` of another checkout with the same
+entry points (e.g. ``git archive <commit> ppgs_tpu_torch`` unpacked under
+``runs/``; nvcc into ``runs/layer_width_probe/``, gitignored, ptxas's
+registers and spills printed), and runs both through this checkout's
+wrappers at chip_smoke.py's main-path shapes of the registered widths: K1
+at mel (64,000 x 256), the w2v2fb head (64,000 x 512), the wav2vec2-base
+trunk (25,600 x 768) and the training shape (131,072 x 256); K3 at the
+first three; K4 at mel (ReLU, F = 2048), the head (ReLU, F = 2048), the
+trunk (GELU, F = 3072) and C = 768 with ReLU (64,000 rows, F = 2048). It
+prints whether the root's outputs equal this checkout's bit for bit, then
+times both in turns (this, root, root, this): CUDA-event medians of
+``--reps`` runs and the profiler's device time per call by kernel. Prints
+the card's name and power limit, then one JSON line. ``--variants``
+builds text-substituted copies of this checkout's sources beside it and
+times their kernel through them too: K4's output launch with only its
+256-column epilogue compiled (``wide_only``), and that with every W2 box
+loaded (``wide_only_all_boxes``); K1's walk over the depth unrolled by 2
+or 4 (``k1_unroll2``, ``k1_unroll4``). Imports nothing of JAX.
+"""
+
+import argparse
+import ctypes
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+SYMBOLS = ('ppgs_qkv_proj', 'ppgs_out_proj_ln', 'ppgs_ffn_ln')
+# (label, rows, C) of K1 and K3; (label, rows, C, activation, F) of K4
+K1_CASES = (('mel', 64_000, 256), ('head', 64_000, 512),
+            ('trunk', 25_600, 768), ('train', 131_072, 256))
+K3_CASES = K1_CASES[:3]
+# Text substitutions of this checkout's sources: name -> (C entry point,
+# substitutions)
+WIDE_ONLY = ('    if (!NARROW || ln_groups(C, n0) == OUT_BN / 8)',
+             '    if (true)')
+K1_LOOP = '\n  for (int k = 0; k < plan.steps; ++k) {'   # the consumers'
+VARIANTS = {
+    'wide_only': ('ppgs_ffn_ln', (WIDE_ONLY,)),
+    'wide_only_all_boxes': ('ppgs_ffn_ln', (WIDE_ONLY, (
+        '                             n0, ln_groups(C, n0) / 8);',
+        '                             n0);'))),
+    'k1_unroll2': ('ppgs_qkv_proj',
+                   ((K1_LOOP, '\n#pragma unroll 2' + K1_LOOP),)),
+    'k1_unroll4': ('ppgs_qkv_proj',
+                   ((K1_LOOP, '\n#pragma unroll 4' + K1_LOOP),)),
+}
+K4_CASES = (('mel', 64_000, 256, 'relu', 2048),
+            ('head', 64_000, 512, 'relu', 2048),
+            ('trunk', 25_600, 768, 'gelu', 3072),
+            ('c768', 64_000, 768, 'relu', 2048))
+
+
+def build(jobs, out_dir):
+    """nvcc each {(build, symbol): (source text, include dir)}, all at
+    once; {build: {symbol: C function}}."""
+    from ppgs_tpu_torch import kernels
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for (name, symbol), (text, include) in jobs.items():
+        cu = out_dir / f'{name}_{symbol}.cu'
+        cu.write_text(text)
+        so = cu.with_suffix('.so')
+        procs[name, symbol] = (so, subprocess.Popen(
+            [kernels._nvcc(), *kernels.NVCC_FLAGS, '-I', str(include), '-o',
+             str(so), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    functions = {}
+    for (name, symbol), (so, proc) in procs.items():
+        log, _ = proc.communicate()
+        for line in log.splitlines():
+            if 'Used' in line or 'spill' in line or 'error' in line:
+                print(f'  {so.stem}: {line.strip()[:160]}', flush=True)
+        if proc.returncode:
+            raise SystemExit(f'{so.stem}: nvcc failed:\n{log}')
+        fn = getattr(ctypes.CDLL(str(so)), symbol)
+        fn.argtypes = kernels.SIGNATURES[symbol][1]
+        fn.restype = ctypes.c_int
+        functions.setdefault(name, {})[symbol] = fn
+    return functions
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument('--root', default=None,
+                        help='a checkout whose K1, K3 and K4 are checked and '
+                        'timed beside this one\'s')
+    parser.add_argument('--reps', type=int, default=20)
+    parser.add_argument('--variants', default='',
+                        help='comma-separated subset of ' + ','.join(VARIANTS)
+                        + ', timed too')
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit('torch_layer_width_probe.py needs a CUDA device')
+    sys.path.insert(0, str(REPO))
+    import chip_smoke as cs
+    from ppgs_tpu_torch import kernels
+    from ppgs_tpu_torch.ops import encoder_layer_kernel as elk
+    from ppgs_tpu_torch.ops import fused_ffn
+
+    card = cs.card_line()
+    print(card, flush=True)
+    kernels.build_all()
+    builds = {'this': {s: kernels.function(s) for s in SYMBOLS}}
+    jobs = {}
+    for name in filter(None, args.variants.split(',')):
+        symbol, subs = VARIANTS[name]
+        src = kernels.SIGNATURES[symbol][0]
+        text = (kernels.CSRC / src).read_text()
+        for old, new in subs:
+            if old not in text:
+                raise SystemExit(f'{name}: {old!r} is not in {src}')
+            text = text.replace(old, new)
+        jobs[name, symbol] = (text, kernels.CSRC)
+    if args.root:
+        csrc = Path(args.root).resolve() / 'ppgs_tpu_torch' / 'kernels'
+        for symbol in SYMBOLS:
+            src = csrc / 'csrc' / kernels.SIGNATURES[symbol][0]
+            jobs['root', symbol] = (src.read_text(), csrc / 'csrc')
+    builds.update(build(jobs, REPO / 'runs' / 'layer_width_probe'))
+    dev, bf16 = torch.device('cuda'), torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED + 59)
+
+    def rnd(*shape, scale=1.0, base=0.0):
+        return base + scale * torch.randn(*shape, generator=gen, device=dev)
+
+    cases = []
+    for label, M, C in K1_CASES:
+        args_k1 = (rnd(M, C), rnd(C, 3 * C, scale=C ** -0.5).to(bf16),
+                   rnd(3 * C, scale=0.1))
+        cases.append((f'K1 {label} {M} x {C}', 'ppgs_qkv_proj',
+                      lambda a=args_k1: elk.qkv_proj(*a)))
+    for label, M, C in K3_CASES:
+        args_k3 = (rnd(M, C, scale=0.5).to(bf16),
+                   rnd(C, C, scale=C ** -0.5).to(bf16), rnd(C, scale=0.1),
+                   rnd(M, C), rnd(C, scale=0.1, base=1.0), rnd(C, scale=0.1))
+        cases.append((f'K3 {label} {M} x {C}', 'ppgs_out_proj_ln',
+                      lambda a=args_k3: elk.out_proj_residual_ln(*a)))
+    for label, M, C, act, Fh in K4_CASES:
+        args_k4 = (rnd(M, C), rnd(C, Fh, scale=C ** -0.5).to(bf16),
+                   rnd(Fh, scale=0.1), rnd(Fh, C, scale=Fh ** -0.5).to(bf16),
+                   rnd(C, scale=0.1), rnd(C, scale=0.1, base=1.0),
+                   rnd(C, scale=0.1))
+        cases.append((f'K4 {label} {M} x {C} {act} F={Fh}', 'ppgs_ffn_ln',
+                      lambda a=args_k4, act=act: fused_ffn.ffn_residual_ln(
+                          *a, activation=act)))
+
+    result = {'card': card, 'equal': {}, 'event_ms': {}, 'device_ms': {}}
+    with torch.no_grad():
+        for label, symbol, fn in cases:
+            # this, the variants of its source, root
+            order = [name for name in builds if symbol in builds[name]]
+
+            def run(name):
+                kernels._functions[symbol] = builds[name][symbol]
+                return fn()
+
+            for name in order[1:]:
+                equal = torch.equal(run(name), run('this'))
+                result['equal'][f'{label} {name}'] = equal
+                print(f'{label}: {name}\'s output equals this build\'s bit '
+                      f'for bit: {equal}', flush=True)
+            for name in order + order[::-1]:
+                result['event_ms'].setdefault(f'{label} {name}', []).append(
+                    cs.time_ms(lambda: run(name), args.reps, 2))
+            for name in order:
+                result['device_ms'][f'{label} {name}'] = cs.kernel_device_ms(
+                    f'{label} {name}', lambda: run(name), card)
+            kernels._functions[symbol] = builds['this'][symbol]
+            for name in order:
+                key = f'{label} {name}'
+                print(f'{key}: event {result["event_ms"][key]} ms, device '
+                      f'{result["device_ms"][key]} ms [{card}]', flush=True)
+    print(json.dumps(result), flush=True)
+
+
+if __name__ == '__main__':
+    main()

@@ -170,32 +170,40 @@ LN = (torch.ones(C), torch.zeros(C))
 
 
 @pytest.mark.parametrize('operands,kwargs,match', [
-    (_operands(C_=384), dict(ln=(torch.ones(384), torch.zeros(384))),
-     'activation'),
-    (_operands(), dict(ln=LN, activation='gelu'), 'activation'),
+    (_operands(C_=2176), dict(ln=(torch.ones(2176), torch.zeros(2176))),
+     'activation'),                                   # past 2048
+    (_operands(), dict(ln=LN, activation='tanh'), 'activation'),
     (_operands(F_=200), dict(ln=LN), r'F%128'),
     (_operands(x_dtype=torch.bfloat16), dict(ln=LN), 'x: expected'),
     (_operands(C_=768, x_dtype=torch.bfloat16), dict(activation='gelu'),
      'activation'),
     (_operands(), dict(), 'x: expected'),
+    (_operands(C_=320), dict(ln=(torch.ones(320), torch.zeros(320))),
+     'activation'),                                   # C % 128 != 0
+    (_operands(C_=384), dict(ln=(torch.ones(384), torch.zeros(384)),
+                             stats=True), 'train forms'),
 ])
 def test_launch_ffn_refuses_what_the_kernel_does_not_take(operands, kwargs,
                                                           match):
     """The widths, activations, hidden sizes and dtypes that K4 does not
-    take raise before anything is launched: (C, activation) in LN_WIDTHS
-    with the LayerNorm, Y_OUT_WIDTHS ((256, 512 or 768, ReLU)) for the bf16
-    output form; F % 128."""
+    take raise before anything is launched: with the LayerNorm, C under the
+    width rule (C % 128 == 0 up to 2048) with ReLU or GELU, and for the
+    train forms C in TRAIN_LN_WIDTHS with ReLU; Y_OUT_WIDTHS ((256, 512 or
+    768, ReLU)) for the bf16 output form; F % 128."""
     with pytest.raises(ValueError, match=match):
         fused_ffn._launch_ffn(*operands, **kwargs)
 
 
 @pytest.mark.parametrize('C', [256, 512, 768])
 def test_hidden_scratch_only_for_the_two_launch_widths(C):
-    """At C = 256 the hidden stays on chip (no scratch); at 512 and 768 it
-    goes through an (M, F) bf16 buffer between K4's two launches."""
-    got = fused_ffn.hidden_scratch(70, 384, C, torch.device('cpu'))
-    if C == fused_ffn.FUSED_WIDTH:
-        assert got is None
-    else:
-        assert got.shape == (70, 384) and got.dtype == torch.bfloat16
-    assert {w for w, _ in fused_ffn.LN_WIDTHS} >= {fused_ffn.FUSED_WIDTH, C}
+    """At C = 256 with ReLU the hidden stays on chip (no scratch); at 512
+    and 768, and with GELU at 256, it goes through an (M, F) bf16 buffer
+    between K4's two launches."""
+    for activation in ('relu', 'gelu'):
+        got = fused_ffn.hidden_scratch(70, 384, C, torch.device('cpu'),
+                                       activation)
+        if C == fused_ffn.FUSED_WIDTH and activation == 'relu':
+            assert got is None
+        else:
+            assert got.shape == (70, 384) and got.dtype == torch.bfloat16
+    assert fused_ffn.width_ok(fused_ffn.FUSED_WIDTH) and fused_ffn.width_ok(C)

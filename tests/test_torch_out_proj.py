@@ -31,7 +31,11 @@ from ppgs_tpu_torch.ops import dropout
 from ppgs_tpu_torch.ops import encoder_layer_kernel as elk
 from ppgs_tpu_torch.ops import encoder_layer_train as elt
 
-WIDTHS = elk.OUT_PROJ_WIDTHS
+# The registered configs' widths (tests/test_torch_any_width.py takes the
+# others of the width rule); the plan also at widths of one rank, of a
+# last rank of 128 columns, and of eight ranks
+WIDTHS = (256, 512, 768)
+PLAN_WIDTHS = WIDTHS + (128, 384, 640, 1024, 1920, 2048)
 EDGE_ROWS = (1, 63, 64, 65, 127, 128, 129, 1000)
 
 
@@ -102,19 +106,25 @@ def _operands(M, C):
     return a, wo, bo, x, gamma, beta
 
 
-@pytest.mark.parametrize('M', (0,) + EDGE_ROWS + (25_600, 64_000, 131_072,
-                                                 128 * 70_000 + 1))
-@pytest.mark.parametrize('C', WIDTHS)
+PLAN_ROWS = (0,) + EDGE_ROWS + (25_600, 64_000, 131_072)
+
+
+# The registered widths also at 70,000 tiles and a row (x's pages never
+# touched), the others up to the training shape's rows
+@pytest.mark.parametrize('C,M', [
+    (C, M) for C in PLAN_WIDTHS
+    for M in PLAN_ROWS + ((128 * 70_000 + 1,) if C in WIDTHS else ())])
 def test_out_proj_wrapper_launches_the_plan(C, M, monkeypatch):
-    """The wrapper hands the kernel the instance (C), the rows and the
-    plan's grid: one cluster of C / 256 blocks a 128-row tile."""
+    """The wrapper hands the kernel the width (C), the rows and the plan's
+    grid: one cluster of ceil(C / 256) blocks a 128-row tile (the train
+    form at the widths it takes)."""
     tiles = -(-M // 128)
-    assert elk.out_proj_ln_plan(M, C) == (C, C // 256, tiles, tiles)
+    assert elk.out_proj_ln_plan(M, C) == (C, -(-C // 256), tiles, tiles)
     calls = []
     monkeypatch.setattr(kernels, 'launch',
                         lambda symbol, *args, device: calls.append(
                             (symbol, args)))
-    for stats in (False, True):
+    for stats in (False, True)[:1 + (C in elk.OUT_PROJ_TRAIN_WIDTHS)]:
         out, n, rstd = elk.launch_out_proj_ln(*_operands(M, C),
                                               stats=stats)
         symbol, args = calls.pop()
@@ -134,12 +144,12 @@ def _unaligned(t):
 @pytest.mark.parametrize('case', [
     'width', 'a-fp32', 'x-bf16', 'wo-fp32', 'bo-bf16', 'x-shape',
     'a-last-dim', 'a-strided', 'a-unaligned', 'x-unaligned',
-    'gamma-unaligned'])
+    'gamma-unaligned', 'past-2048', 'train-width'])
 def test_out_proj_wrapper_refuses_what_the_kernel_does_not_take(
         case, monkeypatch):
     monkeypatch.setattr(kernels, 'launch', lambda *a, **k: pytest.fail(
         'launched'))
-    C = 384 if case == 'width' else 256
+    C = {'width': 320, 'past-2048': 2176, 'train-width': 384}.get(case, 256)
     a, wo, bo, x, gamma, beta = _operands(65, C)
     if case == 'a-fp32':
         a = a.float()
@@ -162,4 +172,5 @@ def test_out_proj_wrapper_refuses_what_the_kernel_does_not_take(
     elif case == 'gamma-unaligned':
         gamma = _unaligned(gamma)
     with pytest.raises(ValueError):
-        elk.launch_out_proj_ln(a, wo, bo, x, gamma, beta)
+        elk.launch_out_proj_ln(a, wo, bo, x, gamma, beta,
+                               stats=case == 'train-width')

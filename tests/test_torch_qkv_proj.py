@@ -1,9 +1,10 @@
 """K1's plain version (``ppgs_tpu_torch/ops/encoder_layer_kernel.py``
 ``qkv_proj_reference``) against the JAX package's QKV product, on the CPU,
-at every width the kernel takes ((K, N) = (256, 768), (512, 1536), (768,
-2304)); a one-layer stack at C = 256 against ``encoder_stack`` in
-interpret mode; and the wrapper's argument checks, which run before
-anything is launched.
+at the registered configs' widths ((K, N) = (256, 768), (512, 1536),
+(768, 2304); tests/test_torch_any_width.py takes the others of the width
+rule); a one-layer stack at C = 256 against ``encoder_stack`` in interpret
+mode; and the wrapper's argument checks, which run before anything is
+launched.
 
 The oracle is ``dot_cd`` of ``ppgs_tpu/ops/encoder_layer_kernel.py``
 ``_layer_body``: ``jax.lax.dot(xc, w, preferred_element_type=f32)
@@ -33,7 +34,9 @@ from ppgs_tpu.ops import encoder_layer_kernel as jax_elk
 import ppgs_tpu_torch
 from ppgs_tpu_torch.ops import encoder_layer_kernel as elk
 
-WIDTHS = elk.QKV_WIDTHS
+# The registered configs' widths: mel and the bottleneck head, the w2v2fb
+# head, the wav2vec2 trunk
+WIDTHS = ((256, 768), (512, 1536), (768, 2304))
 EDGE_ROWS = (1, 63, 64, 65, 127, 128, 129, 1000)
 DTYPES = [('float32', 1e-4), ('bfloat16', 2e-2)]
 
@@ -121,8 +124,8 @@ def _with(i, t):
 
 @pytest.mark.parametrize('operands,match', [
     (_operands(K=256, N=512), 'takes wqkv'),
-    (_operands(K=128, N=384), 'takes wqkv'),
-    (_operands(K=1024, N=3072), 'takes wqkv'),
+    (_operands(K=192, N=576), 'takes wqkv'),         # K % 128 != 0
+    (_operands(K=2176, N=6528), 'takes wqkv'),       # past 2048
     (_with(1, torch.zeros(2, 256, 768, dtype=torch.bfloat16)), 'takes wqkv'),
     (_with(0, torch.zeros(70, 256, dtype=torch.bfloat16)),
      'x: expected torch.float32'),
@@ -152,7 +155,8 @@ def test_qkv_proj_args_refuse_what_the_kernel_does_not_take(operands, match):
 
 @pytest.mark.parametrize('K,N', WIDTHS)
 def test_qkv_proj_args_take_every_width_and_leading_shape(K, N):
-    """The three widths, with x as (B, T, K): the row count is B T."""
+    """The registered widths, with x as (B, T, K): the row count is B
+    T."""
     x = torch.zeros(3, 50, K)
     assert elk.qkv_proj_args(x, torch.zeros(K, N, dtype=torch.bfloat16),
                              torch.zeros(N)) == 150

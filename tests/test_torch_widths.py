@@ -12,9 +12,10 @@ interpret mode. At C = 768, the width whose FFN kernels are new, the
 plain versions of K4 with ReLU (its LayerNorm form),
 of its two train forms and of ``ffn_train_bwd`` (through ``ffn_train``)
 against the JAX kernels in interpret mode, and ``ln_dropout_bwd``'s against
-autograd. Last the gate: ``KERNEL_WIDTHS`` is the intersection of the
-kernels' own tables, and a width outside it that the JAX rule sends to its
-kernels raises on the card, naming ROADMAP.md.
+autograd. Last the two gates: the training gate ``KERNEL_WIDTHS`` is the
+intersection of the train kernels' own tables, the inference gate the
+layer kernels' width rule, and a width outside a gate that the JAX rule
+sends to its kernels raises on the card, naming ROADMAP.md.
 
 The CUDA kernels run only on a card: ``chip_smoke.py --slices widths``
 holds each against these plain versions there.
@@ -308,13 +309,13 @@ def test_ln_dropout_bwd_768_matches_autograd(rate):
 
 
 def test_gate_is_the_intersection_of_the_kernel_tables():
-    """``KERNEL_WIDTHS`` is every (C, d_head) that each kernel on both paths
-    takes, read from their tables: the six pairs of C = 256, 512, 768 and
-    d_head 128, 256; the JAX rule takes each of them to the kernels, and on
-    the card the gate does too."""
-    widths = ({k for k, n in elk.QKV_WIDTHS if n == 3 * k}
-              & set(elk.OUT_PROJ_WIDTHS)
-              & {c for c, a in fused_ffn.LN_WIDTHS if a == 'relu'}
+    """The training gate: ``KERNEL_WIDTHS`` is every (C, d_head) that each
+    kernel on the training path takes, read from their tables:
+    the six pairs of C = 256, 512, 768 and d_head 128, 256; the JAX rule
+    takes each of them to the kernels, and on the card the training gate
+    does too."""
+    widths = (set(elk.OUT_PROJ_TRAIN_WIDTHS)
+              & set(fused_ffn.TRAIN_LN_WIDTHS)
               & {c for c, a in fused_ffn.Y_OUT_WIDTHS if a == 'relu'}
               & set(fused_ffn.TRAIN_BWD_WIDTHS)
               & set(backward.LN_BWD_WIDTHS))
@@ -326,17 +327,44 @@ def test_gate_is_the_intersection_of_the_kernel_tables():
     mel = ppgs_tpu_torch.config.get('mel')
     for C, D in transformer.KERNEL_WIDTHS:
         config = mel.replace(hidden_channels=C, attention_heads=C // D)
-        assert transformer.use_kernels(config, 'cuda') is True
+        assert transformer.use_kernels(config, 'cuda', train=True) is True
+
+
+def test_inference_gate_is_the_width_rule():
+    """The inference gate: every (C, d_head) of the layer kernels' width
+    rule (C % 128 == 0 up to 2048) with K2's head widths that the JAX rule
+    sends to the kernels (128, 256) runs on the card, the six training
+    pairs among them; the rule is ``fused_ffn.width_ok``, which K1's and
+    K3's wrappers check too."""
+    mel = ppgs_tpu_torch.config.get('mel')
+    admitted = set()
+    for C in range(128, 2049, 128):
+        assert fused_ffn.width_ok(C) and elk.width_ok(C)
+        for D in (128, 256):
+            if C % D:
+                continue
+            config = mel.replace(hidden_channels=C, attention_heads=C // D)
+            assert transformer.use_kernels(config, 'cuda') is True
+            admitted.add((C, D))
+    assert set(transformer.KERNEL_WIDTHS) < admitted
+    assert len(admitted) == 16 + 8
+    assert not any(fused_ffn.width_ok(C) for C in (0, 64, 192, 320, 2176))
 
 
 @pytest.mark.parametrize('C,heads', [(1024, 2), (384, 3)])
 def test_gate_still_raises_outside_the_tables(C, heads):
     """A width that the JAX rule sends to its kernels and the card's do not
-    take (C = 1024 with d_head 512; C = 384 with d_head 128) raises on the
-    card, naming ROADMAP.md, and takes the plain path on the CPU."""
+    take raises on the card, naming ROADMAP.md, and takes the plain path on
+    the CPU: C = 1024 with d_head 512 in inference and training; C = 384
+    with d_head 128 in training (the inference gate takes it)."""
     config = ppgs_tpu_torch.config.get('mel').replace(
         hidden_channels=C, attention_heads=heads)
     assert (C // heads) % 128 == 0
     with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-        transformer.use_kernels(config, 'cuda')
-    assert transformer.use_kernels(config, 'cpu') is True
+        transformer.use_kernels(config, 'cuda', train=True)
+    if C // heads > 256:
+        with pytest.raises(NotImplementedError, match='ROADMAP.md'):
+            transformer.use_kernels(config, 'cuda')
+    else:
+        assert transformer.use_kernels(config, 'cuda') is True
+    assert transformer.use_kernels(config, 'cpu', train=True) is True
