@@ -311,7 +311,8 @@ any failure exits non-zero before the result line:
    at the bf16 gates and each gradient within relative L2 2^-8; then K1-K4
    at a CP rank's windows against their plain versions, timed;
 33. the widths slice (the transformer at the (C, d_head) pairs of
-   ``models.transformer.KERNEL_WIDTHS`` that no registered config has:
+   C = 256, 512 and 768 with d_head 128 or 256 that no registered config
+   has:
    (256, 256), (512, 128), (768, 128), (768, 256)): the C = 768 kernel
    instances against their plain versions at odd shapes (K4 with ReLU in
    its LayerNorm forms, round_input 0 and 1, and its two train forms,
@@ -362,15 +363,41 @@ any failure exits non-zero before the result line:
    128) and (1024, 128) and K2 at (1024, 256) on 128 x 500, K4's
    round_input 1 form at 1024; the 24-layer stack whole against its plain
    version and ``nn.TransformerEncoder`` (1024, 16, 4096, GELU) x 24, with
-   its device time by kernel.
+   its device time by kernel;
+39. the train_any_width slice (the transformer's training at widths of
+   the layer kernels' rule, C % 128 == 0 up to 2048 with d_head 128 or
+   256, that no registered config has): at C = 128, 384, 640, 1024, 1280
+   and 2048, K3's train form, K4's LayerNorm and y_out train forms (F =
+   128, 384 and 2048; the keep words Philox's bits), ffn_train_bwd (fp32
+   and bf16 x) and ln_dropout_bwd (fp32 and bf16 g) against their plain
+   versions at rows 1 ... 1000, dropout off and 0.1, the relative limits
+   scaled by ``flip_rel`` and the shares by ``flip_share``; colsum at the
+   step's shapes (dbqkv 3 C columns); the train attention at 8 and 16
+   heads of 128 and 4 and 8 heads of 256 bit for bit against the one-head
+   kernels on the folded heads;
+40. mel's shape (5 layers, F = 2048) at (C, d_head) = (384, 128), (1024,
+   128) and (1024, 256), seeded weights through a temporary npz: a 256 x
+   512 train step (B4) at each and a 256 x 500 one (B5 + B6) at the first
+   two, each step's launches exactly phase 8's per layer, its loss and
+   gradients against the plain path fed the same Philox masks (relative
+   L2 5e-2); both steps at (1024, 128) timed with their peak memory; then
+   ``train()`` at (1024, 128) from the caches of 40 seeded files (phase
+   23's recipe: 3 steps with an evaluation and a checkpoint, a resume for
+   2 from it, 8 length buckets), K3's and K4's train forms launched;
+41. the new instances at the step's shapes (256 x 512 rows, dropout 0.1)
+   at C = 384 and 1024 against their plain versions, each timed by CUDA
+   events and device time beside its plain version, library route and
+   bound: K3's train form, K4's two train forms, ffn_train_bwd and
+   ln_dropout_bwd.
 
 At the end of every run the sha256 of every file under
 ``ppgs_tpu/assets/`` is the one read before phase 1.
 
 ``--slices`` (default
 ``mel,train,w2v2fb,bottleneck,api,data,head_train,w2v2,codec,parallel,
-widths,any_width``) runs a subset: phases 3-5, 6-8, 9-11, 12-14, 15-17,
-18-20, 21-23, 24-26, 27-29, 30-32, 33-35 and 36-38 respectively. Each phase prints its
+widths,any_width,train_any_width``) runs a subset: phases 3-5, 6-8, 9-11,
+12-14, 15-17, 18-20, 21-23, 24-26, 27-29, 30-32, 33-35, 36-38 and 39-41
+respectively. Each phase prints its
 seconds. Before the last line it prints one JSON
 object with a record per kernel;
 the last line is {"ok": true, "device": {...}}. Imports nothing of JAX or
@@ -854,7 +881,7 @@ def relative_l2(got, want):
 
 
 @torch.no_grad()
-def k4_odd_shape_checks(form, C, act, model_F, dev):
+def k4_odd_shape_checks(form, C, act, model_F, dev, scaled=False):
     """K4 in one form against its plain version at ``K4_ODD_M`` rows (and
     ``K4_WALK_M`` for the train forms at C = 512) and ``K4_ODD_F`` +
     (model_F,) hidden widths, on seeded random weights; prints the max
@@ -867,7 +894,9 @@ def k4_odd_shape_checks(form, C, act, model_F, dev):
     and 1/std) or 1e-2 (the bf16 y), and y 0 wherever the plain version's
     output mask drops; with the dropout on, the hidden's keep words equal
     to Philox's bits on every row (``check_hidden_words``), none at rate
-    0; two calls of a train form equal bit for bit."""
+    0; two calls of a train form equal bit for bit. ``scaled``: those
+    relative limits by ``flip_rel`` at C (the train forms past the widths
+    where they were read)."""
     from ppgs_tpu_torch.ops import dropout, fused_ffn
 
     bf16 = torch.bfloat16
@@ -916,6 +945,8 @@ def k4_odd_shape_checks(form, C, act, model_F, dev):
                     raise AssertionError(f'{name}: keep words at rate 0')
                 pairs = list(zip(got, want))[:3 if form == 'train_ln' else 1]
                 limit = 1e-3 if form == 'train_ln' else 1e-2
+                if scaled:
+                    limit = flip_rel(limit, C)
                 rels = [relative_l2(a, b) for a, b in pairs]
                 if max(rels) > limit:
                     raise AssertionError(f'{name}: relative L2 errors {rels} '
@@ -5244,12 +5275,14 @@ def head_corpus_caches(port, config, root, card, files=HEAD_FILES):
     return samples
 
 
-def head_train_run(port, config, root, card):
-    """Phase 23's training: train('commonvoice') of the head from its
-    caches with the default loaders, a resume, and a run in length buckets
-    (the per-layer path); each step's path and launches exact. Returns (the
-    first run's last checkpoint, the train kernels' launches in the three
-    runs, the gemm forms' counter)."""
+def head_train_run(port, config, root, card, first=HEAD_STEPS,
+                   resume=HEAD_RESUME):
+    """Phase 23's training (and phase 40's): train('commonvoice') of
+    ``config`` from its caches with the default loaders for ``first``
+    steps, a resume for ``resume`` more, and a run in length buckets (the
+    per-layer path); each step's path and launches exact. Returns (the first run's last checkpoint, the train kernels'
+    launches in the three runs, the gemm forms' counter, those launches by
+    path: {'whole-layer': ..., 'per-layer': ...})."""
     counters = train_counters()
     core, steps = port.train.core, []
     run = root / 'runs' / config.config
@@ -5259,8 +5292,8 @@ def head_train_run(port, config, root, card):
     try:
         walls = []
         for directory, run_config, max_steps in (
-                (run, config, HEAD_STEPS),
-                (run, config, HEAD_STEPS + HEAD_RESUME),
+                (run, config, first),
+                (run, config, first + resume),
                 (root / 'runs' / 'buckets',
                  config.replace(buckets=HEAD_BUCKETS), HEAD_BUCKET_STEPS)):
             start = time.perf_counter()
@@ -5273,19 +5306,17 @@ def head_train_run(port, config, root, card):
     launches, _ = read_counts(counters)
     forms = dict(counters['gemm'].forms)
 
-    runs = {'run': steps[:HEAD_STEPS], 'resume': steps[HEAD_STEPS:
-                                                      HEAD_STEPS + HEAD_RESUME],
-            'buckets': steps[HEAD_STEPS + HEAD_RESUME:]}
+    runs = {'run': steps[:first], 'resume': steps[first:first + resume],
+            'buckets': steps[first + resume:]}
     frames = sum(sum(lengths) for _, lengths, _, _ in steps)
     print(f'train(\'commonvoice\', config={config.config!r}) from the '
           f'{config.representation} caches, budget '
-          f'{config.max_training_frames:,} frames: {HEAD_STEPS} steps with '
+          f'{config.max_training_frames:,} frames: {first} steps with '
           f'an evaluation at step 0 and a checkpoint {walls[0]:.3f} s, the '
-          f'resume ({HEAD_RESUME} steps) {walls[1]:.3f} s, {HEAD_BUCKETS} '
+          f'resume ({resume} steps) {walls[1]:.3f} s, {HEAD_BUCKETS} '
           f'buckets ({HEAD_BUCKET_STEPS} steps) {walls[2]:.3f} s; '
           f'{len(steps)} steps, {frames:,} frames [{card}]', flush=True)
-    if [len(v) for v in runs.values()] != [HEAD_STEPS, HEAD_RESUME,
-                                          HEAD_BUCKET_STEPS]:
+    if [len(v) for v in runs.values()] != [first, resume, HEAD_BUCKET_STEPS]:
         raise AssertionError(f'the runs took {[len(v) for v in runs.values()]}'
                              f' steps')
     total = {'whole-layer': 0, 'per-layer': 0}
@@ -5298,13 +5329,18 @@ def head_train_run(port, config, root, card):
         raise AssertionError(f'a train path took no step: {total}')
     if min(launches.values()) == 0:
         raise AssertionError(f'a train kernel never launched: {launches}')
-    meta = json.loads((run / f'{HEAD_STEPS + HEAD_RESUME:08d}.json')
-                      .read_text())
-    if meta['step'] != HEAD_STEPS + HEAD_RESUME:
+    meta = json.loads((run / f'{first + resume:08d}.json').read_text())
+    if meta['step'] != first + resume:
         raise AssertionError(f'the resumed run ended at step {meta["step"]}')
-    print(f'resumed from {HEAD_STEPS:08d}.npz and checkpointed at step '
+    print(f'resumed from {first:08d}.npz and checkpointed at step '
           f'{meta["step"]}', flush=True)
-    return core.latest_checkpoint(run), launches, forms
+    longest = port.models.transformer.TRAIN_KERNEL_MAX_T
+    by_path = {'whole-layer': collections.Counter(),
+               'per-layer': collections.Counter()}
+    for T, _, step_launches, _ in steps:
+        by_path['whole-layer' if T % 8 == 0 and T <= longest
+                else 'per-layer'].update(step_launches)
+    return core.latest_checkpoint(run), launches, forms, by_path
 
 
 def head_train_phases(port, workdir, dev, card):
@@ -5362,7 +5398,8 @@ def head_train_phases(port, workdir, dev, card):
         port.load.save_params(trunk_path, random_w2v2_params(port, SEED + 7))
         w2v2fb.W2V2FB_CHECKPOINT = trunk_path
         head_corpus_caches(port, config, root, card)
-        checkpoint, launches, forms = head_train_run(port, config, root, card)
+        checkpoint, launches, forms, _ = head_train_run(port, config, root,
+                                                        card)
         data_evaluate(port, config, checkpoint, card)
     finally:
         for name, value in saved.items():
@@ -7206,14 +7243,14 @@ def parallel_phases(port, workdir, dev, card):
     return records
 
 
-# The widths slice: the PPG transformer at the (C, d_head) pairs of
-# models.transformer.KERNEL_WIDTHS that no registered config has (the mel
-# model is (256, 128), the w2v2fb and w2v2fc heads (512, 256)), at full
-# width and the mel model's depth (5 layers, F = 2048) with seeded weights:
-# from_audio on WIDTH_BATCH x WIDTH_SECONDS, its first WIDTH_CPU_ROWS rows
-# against device='cpu'; a whole-layer train step (256 x 512) at each pair
-# and a per-layer one (256 x 500) at C = 768, the width whose FFN kernels
-# are new
+# The widths slice: the PPG transformer at the (C, d_head) pairs of C =
+# 256, 512 and 768 with d_head 128 or 256 that no registered config has
+# (the mel model is (256, 128), the w2v2fb and w2v2fc heads (512, 256)),
+# at full width and the mel model's depth (5 layers, F = 2048) with seeded
+# weights: from_audio on WIDTH_BATCH x WIDTH_SECONDS, its first
+# WIDTH_CPU_ROWS rows against device='cpu'; a whole-layer train step (256
+# x 512) at each pair and a per-layer one (256 x 500) at C = 768, the
+# width whose FFN kernels are new
 WIDTH_PAIRS = ((256, 256), (512, 128), (768, 128), (768, 256))
 WIDTH_NEW_C, WIDTH_F = 768, 2048
 WIDTH_BATCH, WIDTH_SECONDS, WIDTH_CPU_ROWS = 64, 8, 4
@@ -7385,19 +7422,23 @@ def width_step(port, model, batch, seed):
     return loss.item(), grads
 
 
-def width_train(port, config, params, dev, launches, card):
-    """Phase 34's steps at one pair: a 256 x 512 step (B4) and at C = 768
-    a 256 x 500 one (B5 + B6), each with its exact launches and its loss
-    and gradients against the plain path's with the same seed; at C = 768
-    each step timed through make_train_step with its peak memory."""
+def width_train(port, config, params, dev, launches, card, split=None,
+                timed=None):
+    """Phase 34's steps at one pair (and phase 40's): a 256 x 512 step
+    (B4) and with ``split`` a 256 x 500 one (B5 + B6), each with its exact
+    launches and its loss and gradients against the plain path's with the
+    same seed; with ``timed`` each step timed through make_train_step with
+    its peak memory. Both default to C == 768, phase 34's new width."""
     C, H, L = (config.hidden_channels, config.attention_heads,
                config.num_hidden_layers)
     D = C // H
+    split = C == WIDTH_NEW_C if split is None else split
+    timed = C == WIDTH_NEW_C if timed is None else timed
     model = port.train.core.init_model(config, dev)
     model.load_state_dict(port.convert.params_from_jax(
         port.load.flatten_params(params)))
     counters = train_counters()
-    Ts = (TRAIN_T, SPLIT_T) if C == WIDTH_NEW_C else (TRAIN_T,)
+    Ts = (TRAIN_T, SPLIT_T) if split else (TRAIN_T,)
     for T in Ts:
         batch = train_batch(config, TRAIN_B, T, SEED + 5, dev)
         set_counts(counters)
@@ -7415,10 +7456,10 @@ def width_train(port, config, params, dev, launches, card):
             'attention_train_fwd']
         launches[f'attention_train_bwd_d{D}_h{H}'] += got[
             'attention_train_bwd']
-        if C == WIDTH_NEW_C:
-            launches[f'ffn_train_fwd_{form}_c{C}'] += got['ffn_train_fwd']
-            launches[f'ffn_train_bwd_c{C}'] += got['ffn_train_bwd']
-            launches[f'ln_dropout_bwd_c{C}'] += got['ln_dropout_bwd']
+        launches[f'out_proj_ln_train_c{C}'] += got['out_proj_ln_train']
+        launches[f'ffn_train_fwd_{form}_c{C}'] += got['ffn_train_fwd']
+        launches[f'ffn_train_bwd_c{C}'] += got['ffn_train_bwd']
+        launches[f'ln_dropout_bwd_c{C}'] += got['ln_dropout_bwd']
         with plain_train_path(port):
             plain_loss, plain = width_step(port, model, batch, 700 + T)
         errors = {n: relative_l2(grads[n], plain[n]) for n in plain}
@@ -7434,7 +7475,7 @@ def width_train(port, config, params, dev, launches, card):
             raise AssertionError(f'({C}, {D}) T={T}: the kernels\' step '
                                  f'disagrees with the plain path\'s')
         del grads, plain
-    if C != WIDTH_NEW_C:
+    if not timed:
         return
     optimizer = port.train.make_optimizer(model.parameters(), config)
     step = port.train.make_train_step(model, config, optimizer)
@@ -7575,7 +7616,7 @@ def widths_ffn_times(port, launches, dev, card):
     keep_y). The weights are layer 0's of phase 34's (768, 128) model (the
     init's scale, as phase 22 takes its layer's); the activations N(0, 1),
     the LayerNorm'd rows' scale."""
-    from ppgs_tpu_torch.ops import backward, dropout, fused_ffn
+    from ppgs_tpu_torch.ops import fused_ffn
 
     bf16 = torch.bfloat16
     C, Fh = WIDTH_NEW_C, WIDTH_F
@@ -7621,6 +7662,40 @@ def widths_ffn_times(port, launches, dev, card):
         (4 * M * C * Fh, 2 * M * C * 4 + 2 * C * Fh * 2 + (Fh + 3 * C) * 4),
         launches, card, 'addmm + ReLU + addmm + layer_norm', REPS))
     del x, ln
+    return records + train_ffn_records(layer, C, gen, launches, dev, card)
+
+
+@torch.no_grad()
+def train_ffn_records(layer, C, gen, launches, dev, card, slice_name='widths',
+                      scaled=False):
+    """The records of the FFN's train kernels at width C, on ``layer``'s
+    weights (the JAX layout) at the training shape (256 x 512 rows,
+    dropout 0.1): K4's two train forms, ffn_train_bwd (fp32 x with the
+    residual) and ln_dropout_bwd (LN2 with keep_y), the activations N(0,
+    1) from ``gen``. ``scaled``: the relative L2 limits of K4's forms and
+    ffn_train_bwd's outlier bounds by ``flip_rel`` at C (phase 41's; phase
+    35 holds C = 768 to them as they were read)."""
+    from ppgs_tpu_torch.ops import backward, dropout, fused_ffn
+
+    bf16 = torch.bfloat16
+    Fh = layer['ffn']['w1'].shape[1]
+
+    def rnd(*shape, scale=1.0, base=0.0):
+        return base + scale * torch.randn(*shape, generator=gen, device=dev)
+
+    w1, b1, w2, b2 = (torch.from_numpy(layer['ffn'][n]).to(dev)
+                      for n in ('w1', 'b1', 'w2', 'b2'))
+    w1, w2 = w1.to(bf16), w2.to(bf16)
+    g2, be2 = (torch.from_numpy(layer['norm2'][n]).to(dev)
+               for n in ('scale', 'bias'))
+    w1t, w2t, b1c, b2c = w1.T, w2.T, b1.to(bf16), b2.to(bf16)
+    records = []
+
+    def record(*args, **kwargs):
+        records.append(width_record(*args, **kwargs, slice_name=slice_name))
+
+    def rel_limit(value):
+        return flip_rel(value, C) if scaled else value
 
     M = TRAIN_B * TRAIN_T
     drop_h = dropout.Drop(SEED + 37, dropout.site(0, 'hidden'), DROPOUT)
@@ -7657,25 +7732,25 @@ def widths_ffn_times(port, launches, dev, card):
 
     # x, the weights and biases in; out, the normalised rows, 1/std and the
     # hidden's keep words out
-    records.append(width_record(
+    record(
         f'ffn_train_fwd_b4_c{C}', 'ffn_ln.cu',
         'ppgs_tpu/ops/encoder_layer_train.py:471',
         (lambda: fused_ffn.ffn_train_fwd(*b4),
          lambda: fused_ffn.ffn_train_fwd_reference(*b4),
          lambda: b4_chain(r16)),
-        train_fwd_verify(f'ffn_train_fwd B4 C={C}', 1e-3),
+        train_fwd_verify(f'ffn_train_fwd B4 C={C}', rel_limit(1e-3)),
         (4 * M * C * Fh, M * C * 4 + 2 * C * Fh * 2 + (Fh + 3 * C) * 4
          + 2 * M * C * 4 + M * 4 + M * Fh // 8),
-        launches, card, 'its library route'))
-    records.append(width_record(
+        launches, card, 'its library route')
+    record(
         f'ffn_train_fwd_split_c{C}', 'ffn_ln.cu',
         'ppgs_tpu/ops/fused_ffn.py:256',
         (lambda: fused_ffn.ffn_train_fwd(*y_out),
          lambda: fused_ffn.ffn_train_fwd_reference(*y_out), y_chain),
-        train_fwd_verify(f'ffn_train_fwd B6 C={C}', 1e-2),
+        train_fwd_verify(f'ffn_train_fwd B6 C={C}', rel_limit(1e-2)),
         (4 * M * C * Fh, 2 * M * C * 2 + 2 * C * Fh * 2 + (Fh + C) * 4
          + M * Fh // 8),
-        launches, card, 'its library route'))
+        launches, card, 'its library route')
     _, _, _, keep = fused_ffn.ffn_train_fwd(*b4)
     dy, residual = rnd(M, C).to(bf16), rnd(M, C)
     bwd = (r, dy, w1, b1, w2, drop_h, keep, residual)
@@ -7684,18 +7759,30 @@ def widths_ffn_times(port, launches, dev, card):
         chain_out = b4_chain(leaf)
     chain_cot = torch.randn_like(chain_out)
 
+    def outlier_bound(bound_on):
+        """A flip's outlier bound at C: ``scaled``, by ``flip_rel``. A
+        flip moves an element by a few ulps of its value, and at the init's
+        scale x W1's spread grows with C (its weights' std is sqrt(2 / (C +
+        F)), so about sqrt(2 C / (C + F)): 0.47 at C = 256, 0.82 at 1024),
+        and the ulps of its tail with it: an H100 read an hd flip of
+        0.0469 at C = 1024 (1.5 ulps of a value in [4, 8)) against
+        C = 256's bound of 0.032."""
+        if not scaled or 'outlier' not in bound_on:
+            return bound_on
+        return dict(bound_on, outlier=flip_rel(bound_on['outlier'], C))
+
     def bwd_verify(got, want):
-        """FFN_BWD_LIMITS at C = 768, the relu' flips carried over."""
+        """FFN_BWD_LIMITS at C, the relu' flips carried over."""
         want = with_relu_flips(want, got, w1)
         return max(
             check(f'ffn_train_bwd C={C} M={M} {name}', a, b, atol, rtol,
-                  share=flip_share(share, C), **bound_on)
+                  share=flip_share(share, C), **outlier_bound(bound_on))
             for name, a, b in zip(('dx (fp32 + residual)', 'hd', 'dh',
                                    'db1 partial sums'), got, want)
             for atol, rtol, share, bound_on in [FFN_BWD_LIMITS[name]])
     # x, dy, the residual, the weights, b1 and the keep words in; dx, hd,
     # dh and the db1 partial rows out
-    records.append(width_record(
+    record(
         f'ffn_train_bwd_c{C}', 'ffn_train.cu', 'ppgs_tpu/ops/fused_ffn.py:294',
         (lambda: fused_ffn.ffn_train_bwd(*bwd),
          lambda: fused_ffn.ffn_train_bwd_reference(*bwd),
@@ -7705,7 +7792,7 @@ def widths_ffn_times(port, launches, dev, card):
         (6 * M * C * Fh, M * C * 4 + M * C * 2 + M * C * 4 + 2 * C * Fh * 2
          + Fh * 4 + M * Fh // 8 + M * C * 4 + 2 * M * Fh * 2
          + -(-M // 64) * Fh * 4),
-        launches, card, 'its library route'))
+        launches, card, 'its library route')
     del bwd, keep, chain_out, leaf, b4, y_out
 
     g = rnd(M, C)
@@ -7724,7 +7811,7 @@ def widths_ffn_times(port, launches, dev, card):
                          1e-4),
                    check(f'{name} masked (bf16)', got[1], want[1], 1e-5,
                          1e-2, share=1e-6, outlier=3.2e-2))
-    records.append(width_record(
+    record(
         f'ln_dropout_bwd_c{C}', 'layer_train.cu',
         'ppgs_tpu/ops/encoder_layer_train.py:531',
         (lambda: backward.ln_dropout_bwd(*ln_args),
@@ -7735,7 +7822,7 @@ def widths_ffn_times(port, launches, dev, card):
         ln_verify,
         (8 * M * C, 3 * M * C * 4 + M * 4 + C * 4 + M * C * 2
          + (M // 64) * 3 * C * 4),
-        launches, card, 'native_layer_norm_backward'))
+        launches, card, 'native_layer_norm_backward')
     return records
 
 
@@ -8218,14 +8305,199 @@ def any_width_phases(port, workdir, dev, gen, card):
     return records
 
 
+# The train_any_width slice (phases 39-41): the PPG transformer's training
+# at widths of the layer kernels' rule (C % 128 == 0 up to 2048, d_head 128
+# or 256) that no registered config has. First the four train kernels whose
+# widths the training gate once was (K3's train form, K4's two train forms,
+# ffn_train_bwd, ln_dropout_bwd) and colsum at ANY_C, at odd shapes, and
+# the train attention at TRAIN_ANY_HEADS against the one-head kernels on
+# the folded heads; then mel's shape (5 layers, F = 2048) at
+# TRAIN_ANY_PAIRS: a whole-layer step (256 x 512) at each, a per-layer one
+# (256 x 500) at TRAIN_ANY_SPLIT, both timed at TRAIN_ANY_TIMED, and
+# train() there from TRAIN_ANY_FILES seeded mel caches; last the new
+# instances at the step's shapes at TRAIN_ANY_C, timed
+TRAIN_ANY_PAIRS = ((384, 128), (1024, 128), (1024, 256))
+TRAIN_ANY_SPLIT = ((384, 128), (1024, 128))
+TRAIN_ANY_TIMED = (1024, 128)
+TRAIN_ANY_C = (384, 1024)
+# The train attention's new head counts, (d_head, heads): C = 1024 and
+# 2048 at both head widths
+TRAIN_ANY_HEADS = ((128, 8), (128, 16), (256, 4), (256, 8))
+# train() at TRAIN_ANY_TIMED: phase 18's corpus cut to 40 files, steps
+# before the resume and in it (and phase 23's 8 buckets)
+TRAIN_ANY_FILES, TRAIN_ANY_STEPS, TRAIN_ANY_RESUME = 40, 3, 2
+
+
+@torch.no_grad()
+def train_any_width_odd_shapes(port, dev):
+    """Phase 39: at each C of ``ANY_C``, K3's train form, K4's two train
+    forms (F = 128, 384 and 2048; relative limits by ``flip_rel``),
+    ffn_train_bwd (fp32 and bf16 x; shares by ``flip_share``) and
+    ln_dropout_bwd (fp32 and bf16 g) against their plain versions at odd
+    rows (1 ... 1000), dropout off and 0.1, the keep words and masks
+    Philox's bits; colsum at the step's shapes (dbqkv's 3 C columns among
+    them); then the train attention at ``TRAIN_ANY_HEADS`` against the
+    one-head kernels on the folded heads, bit for bit."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 79)
+    for C in ANY_C:
+        k3_odd_shape_checks((), C, dev)
+        for form in ('train_ln', 'y_out'):
+            k4_odd_shape_checks(form, C, 'relu', WIDTH_F, dev, scaled=True)
+        ffn_bwd_odd_shape_checks(dev, C)
+        ln_dropout_bwd_odd_shape_checks(C, dev)
+        M = TRAIN_B * TRAIN_T
+        colsum_step_checks(width_config(port, C, 128), M, torch.randn(
+            M, 3 * C, generator=gen, device=dev), dev)
+        torch.cuda.empty_cache()
+    for D, H in TRAIN_ANY_HEADS:
+        head_fold_checks(D, H, dev)
+
+
+def train_any_width_main_paths(port, workdir, dev, card):
+    """Phase 40: at each pair of ``TRAIN_ANY_PAIRS``, mel's shape with
+    seeded weights through a temporary npz: a 256 x 512 train step (B4)
+    and at ``TRAIN_ANY_SPLIT`` a 256 x 500 one (B5 + B6), each with phase
+    8's launches a layer exactly and its loss and gradients against the
+    plain path's fed the same Philox masks (``width_train``), both timed
+    with their peak memory at ``TRAIN_ANY_TIMED``; then train() at
+    ``TRAIN_ANY_TIMED`` from the caches of ``TRAIN_ANY_FILES`` seeded files
+    (phase 23's recipe: a run, its resume from the checkpoint, and a run in
+    length buckets), K3's and K4's train forms among its launches. Returns
+    the launches of the slice's records in these runs."""
+    launches = collections.Counter()
+    for C, D in TRAIN_ANY_PAIRS:
+        config = width_config(port, C, D)
+        path = Path(workdir) / f'{config.config}-train.npz'
+        port.load.save_params(path, random_params(port, config,
+                                                  SEED + C + D + 1))
+        width_train(port, config, port.load.load_params(path), dev, launches,
+                    card, split=(C, D) in TRAIN_ANY_SPLIT,
+                    timed=(C, D) == TRAIN_ANY_TIMED)
+        path.unlink()
+        torch.cuda.empty_cache()
+
+    C, D = TRAIN_ANY_TIMED
+    config = width_config(port, C, D)
+    root = Path(workdir) / 'train_any_width'
+    saved = point_data_dirs(port, root)
+    try:
+        root.mkdir(parents=True)
+        head_corpus_caches(port, config, root, card, TRAIN_ANY_FILES)
+        _, got, _, by_path = head_train_run(port, config, root, card,
+                                            TRAIN_ANY_STEPS, TRAIN_ANY_RESUME)
+    finally:
+        for name, value in saved.items():
+            setattr(port.config, name, value)
+    for name in ('out_proj_ln_train', 'ffn_train_fwd'):
+        if not by_path['whole-layer'][name]:
+            raise AssertionError(f'train() at ({C}, {D}) never launched '
+                                 f'{name} on the whole-layer path')
+    launches[f'out_proj_ln_train_c{C}'] += got['out_proj_ln_train']
+    launches[f'ffn_train_fwd_b4_c{C}'] += by_path['whole-layer'][
+        'ffn_train_fwd']
+    launches[f'ffn_train_fwd_split_c{C}'] += by_path['per-layer'][
+        'ffn_train_fwd']
+    launches[f'ffn_train_bwd_c{C}'] += got['ffn_train_bwd']
+    launches[f'ln_dropout_bwd_c{C}'] += got['ln_dropout_bwd']
+    print(f'the slice\'s launches by record: {dict(launches)}', flush=True)
+    return launches
+
+
+@torch.no_grad()
+def out_proj_train_record(layer, C, gen, launches, dev, card):
+    """Phase 41's record of K3's train form at width C, on ``layer``'s
+    weights at the training shape (256 x 512 rows, dropout 0.1): r, the
+    normalised rows and 1/std against the plain version's (phase 8's
+    limits: atol 1e-4, 1/std atol and rtol 1e-5), its mask the plain
+    one's bit for bit."""
+    from ppgs_tpu_torch.ops import dropout
+    from ppgs_tpu_torch.ops import encoder_layer_train as elt
+
+    bf16, M = torch.bfloat16, TRAIN_B * TRAIN_T
+    wo = torch.from_numpy(layer['attn']['wo']).to(dev).to(bf16)
+    bo = torch.from_numpy(layer['attn']['bo']).to(dev)
+    g1, be1 = (torch.from_numpy(layer['norm1'][n]).to(dev)
+               for n in ('scale', 'bias'))
+    a16 = (0.5 * torch.randn(M, C, generator=gen, device=dev)).to(bf16)
+    x = torch.randn(M, C, generator=gen, device=dev)
+    drop = dropout.Drop(SEED + 17, dropout.site(0, 'attention'), DROPOUT)
+    args = (a16, wo, bo, x, g1, be1, drop)
+    name = f'out_proj_ln_train C={C} M={M}'
+
+    def verify(got, want):
+        check_k3_mask(name, M, C, drop, dev)
+        return max(check(f'{name} r', got[0], want[0], atol=1e-4),
+                   check(f'{name} n', got[1], want[1], atol=1e-4),
+                   check(f'{name} rstd', got[2], want[2], atol=1e-5,
+                         rtol=1e-5))
+    return width_record(
+        f'out_proj_ln_train_c{C}', 'out_proj_ln.cu',
+        'ppgs_tpu/ops/encoder_layer_train.py:471',
+        (lambda: elt.out_proj_ln_train(*args),
+         lambda: elt.out_proj_ln_train_reference(*args),
+         # addmm + dropout + layer_norm (it keeps no statistics)
+         lambda: F.layer_norm(x + F.dropout(torch.addmm(
+             bo.to(bf16), a16, wo), DROPOUT), (C,), g1, be1)),
+        verify,
+        (2 * M * C * C, M * C * 2 + M * C * 4 + C * C * 2 + 3 * C * 4
+         + 2 * M * C * 4 + M * 4),
+        launches, card, 'its library route', slice_name='train_any_width')
+
+
+def train_any_width_times(port, launches, dev, card):
+    """Phase 41: at each C of ``TRAIN_ANY_C``, on layer 0 of the (C, 128)
+    model's seeded weights, the new instances at the step's shapes (256 x
+    512 rows, dropout 0.1) against their plain versions, each timed by
+    CUDA events and device time beside its plain version, its library
+    route and its bound: K3's train form, K4's two train forms,
+    ffn_train_bwd and ln_dropout_bwd (K4's relative limits by
+    ``flip_rel``, ffn_train_bwd's shares by ``flip_share``)."""
+    records = []
+    for C in TRAIN_ANY_C:
+        layer = random_params(port, width_config(port, C, 128),
+                              SEED + C + 129)['layers'][0]
+        gen = torch.Generator(device=dev).manual_seed(SEED + 83 + C)
+        records.append(out_proj_train_record(layer, C, gen, launches, dev,
+                                             card))
+        records += train_ffn_records(layer, C, gen, launches, dev, card,
+                                     slice_name='train_any_width',
+                                     scaled=True)
+        torch.cuda.empty_cache()
+    return records
+
+
+def train_any_width_phases(port, workdir, dev, card):
+    """Phases 39-41: the transformer's training at widths of the rule that
+    no registered config has; returns the slice's JSON records."""
+    phase(f'39 the train kernels (K3\'s and K4\'s train forms, '
+          f'ffn_train_bwd, ln_dropout_bwd, colsum) at C = {ANY_C} against '
+          f'their plain versions at odd shapes, and the train attention at '
+          f'{TRAIN_ANY_HEADS} (d_head, heads)')
+    train_any_width_odd_shapes(port, dev)
+    phase(f'40 train steps ({TRAIN_B} x {TRAIN_T}, and {TRAIN_B} x {SPLIT_T} '
+          f'at {TRAIN_ANY_SPLIT}) at (C, d_head) = {TRAIN_ANY_PAIRS}, and '
+          f'train() at {TRAIN_ANY_TIMED} from {TRAIN_ANY_FILES} seeded mel '
+          f'caches (main paths)')
+    launches = train_any_width_main_paths(port, workdir, dev, card)
+    phase(f'41 the new instances\' times at C = {TRAIN_ANY_C} on {card} '
+          f'(CUDA events, device time, plain, library, bound)')
+    records = train_any_width_times(port, launches, dev, card)
+    for record in records:
+        if not record['launches']:
+            raise AssertionError(f'{record["name"]} was not launched on a '
+                                 f'main path')
+    return records
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('--slices',
                         default='mel,train,w2v2fb,bottleneck,api,data,'
-                        'head_train,w2v2,codec,parallel,widths,any_width',
+                        'head_train,w2v2,codec,parallel,widths,any_width,'
+                        'train_any_width',
                         help='comma-separated subset of mel,train,w2v2fb,'
                         'bottleneck,api,data,head_train,w2v2,codec,'
-                        'parallel,widths,any_width')
+                        'parallel,widths,any_width,train_any_width')
     parser.add_argument('--parallel-rank', nargs=2, metavar=('MODE', 'DIR'),
                         help=argparse.SUPPRESS)
     args = parser.parse_args()
@@ -8293,6 +8565,8 @@ def main():
         records += widths_phases(port, workdir.name, dev, gen, card)
     if 'any_width' in slices:
         records += any_width_phases(port, workdir.name, dev, gen, card)
+    if 'train_any_width' in slices:
+        records += train_any_width_phases(port, workdir.name, dev, card)
     phase()
     if assets_digest() != digest:
         raise AssertionError('a file under ppgs_tpu/assets/ changed')

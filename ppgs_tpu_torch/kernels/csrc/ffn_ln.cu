@@ -1,9 +1,9 @@
 // K4 ffn_residual_ln: out = LN2(res + drop_y(drop_h(act(bf16(x) @ W1 + b1))
 // @ W2 + b2)), with ReLU or the tanh-approximate GELU at any C % 128 == 0
 // from 128 to 2048 and any F % 128 == 0 (the train forms, with the
-// dropout on or the normalised rows saved, at C = 256, 512 and 768 with
-// ReLU); and, for an FFN that ends without the LayerNorm (C = 256, 512 or
-// 768, ReLU), y = drop_y(drop_h(relu(x @ W1 + b1)) @ W2 + b2) in bf16.
+// dropout on or the normalised rows saved, at every such C with ReLU);
+// and, for an FFN that ends without the LayerNorm (the same widths, ReLU),
+// y = drop_y(drop_h(relu(x @ W1 + b1)) @ W2 + b2) in bf16.
 //
 // Replaces four TPU kernels' FFNs, which differ in their rounding points:
 // - the FFN half of ppgs_tpu/ops/encoder_layer_kernel.py _layer_body
@@ -71,7 +71,8 @@
 //      take hidden_train_kernel instead, below.
 //   2. ffn_out_kernel: y = h W2 + b2 on 128 x 256 tiles (h K-major, W2
 //      MN-major), then either ffn_train's bf16 y (y_out, no LayerNorm: a
-//      block a tile) or the residual, drop_y and the LayerNorm from the
+//      block a tile, the last 128 columns wide where C % 256 == 128) or
+//      the residual, drop_y and the LayerNorm from the
 //      accumulators. A row spans ceil(C / 256) blocks: they are one
 //      thread-block cluster along C and trade each row's partial sums
 //      (the sum, then the centred sum of squares) through distributed
@@ -79,7 +80,10 @@
 //      every block normalises with the same mean and 1/std. Where C % 256
 //      == 128 the last block's tile has 128 columns (residual_ln.cuh: W2's
 //      two boxes past C are not loaded, their sums kept at 0 and
-//      unstored). At C = 128 the cluster is that one block: the fused
+//      unstored), in instances of their own (NARROW for inference and
+//      y_out, NARROW_TRAIN with the dropout and the saved rows in that
+//      tile's copy of the epilogue).
+//      At C = 128 the cluster is that one block: the fused
 //      kernel's 256 columns are its template's (and its activation ReLU),
 //      and the two launches take any C.
 //   Both launches use 128-row tiles, so every weight byte brought on chip
@@ -91,17 +95,18 @@
 // group for two rows (g and g + 8), so lanes t and t ^ 1 share a group:
 // each draws the group of its own row (g for even t, g + 8 for odd) and
 // they trade the two words the other needs, one draw per 4 elements. The
-// train forms (C = 256 in the fused kernel, C = 512 and 768 in the
+// train forms (C = 256 in the fused kernel, every other C in the
 // hidden's launch) also write the hidden's keep bits for the backward
 // (ffn_train.cu), which then draws none: int32 words of shape (M, F / 32),
 // bit k of word w for column 32 w + k; in the fused kernel and in
 // ffn_hidden_kernel a quad's four lanes OR their bits into a row's words
 // and each stores one (their WORDS instances; the inference instances are
-// compiled without it). At C = 768 the train forms' hidden launch is
-// ffn_hidden_kernel, the inference instance's form with the words
-// written: the persistent hidden_train_kernel below holds a row block's x
-// resident, 192 KB at 768 of a block's 227, which would leave no room for
-// its ring; a right-first form, not yet timed against another.
+// compiled without it). At every C but 256 and 512 the train forms'
+// hidden launch is ffn_hidden_kernel, the inference instance's form with
+// the words written, x streamed over C / 64 depth steps: the persistent
+// hidden_train_kernel below holds a row block's x resident, 192 KB at 768
+// of a block's 227, which would leave no room for its ring; a right-first
+// form, not yet timed against another.
 //
 // The C = 512 train forms' hidden launch (hidden_train_kernel; fp32 x with
 // the LayerNorm's launch after it, B4's form, or bf16 x with the y_out
@@ -284,15 +289,18 @@ __device__ __forceinline__ void store_keep_words(uint32_t (&w)[2][2],
 }
 
 // The y_out form's epilogue: drop_y(bf16(bf16(acc) + bf16(b2))) in bf16
-// (a bf16x2 add of the rounded pairs; the dropout scale in bf16x2)
+// (a bf16x2 add of the rounded pairs; the dropout scale in bf16x2), on the
+// tile's first `groups` 8-column groups (a literal in each caller's copy)
 __device__ __forceinline__ void store_y_out(const float (&acc)[128],
                                             const float* b2, bf16* y_out,
                                             int M, int C, int n0,
                                             long long r0, long long r1, int t,
-                                            const ppgs::Dropout& drop) {
+                                            const ppgs::Dropout& drop,
+                                            int groups = 32) {
   const float sc = ppgs::round_bf16(drop.scale);
 #pragma unroll
   for (int j = 0; j < 32; ++j) {
+    if (j >= groups) continue;
     const int col = n0 + 8 * j + 2 * t;
     const float2 bias = *reinterpret_cast<const float2*>(b2 + col);
     const __nv_bfloat162 b = pair(bias.x, bias.y);
@@ -310,7 +318,7 @@ __device__ __forceinline__ void store_y_out(const float (&acc)[128],
 }
 
 // Every C but 256, launch 1 of the inference forms (and of the train
-// forms at rate 0, and at C = 768 at any rate): h (M, F) bf16 =
+// forms at rate 0, and at every C but 512 at any rate): h (M, F) bf16 =
 // drop_h(act(x W1 + b1)), a BM x BN tile a block; X_F32: x fp32 (rounded
 // in the RS form), else bf16; WORDS: the hidden's keep words written to
 // `words` too
@@ -373,12 +381,14 @@ ffn_hidden_kernel(const __grid_constant__ CUtensorMap map_x,
 }
 
 // Every C but 256, launch 2: y = h W2 + b2 on a BM x 256 tile a block (the
-// last 128 x 128 where C % 256 == 128: the NARROW instance), then (LN) out
-// = LN2(res + drop_y(y)) over the cluster's ceil(C / 256) blocks, with the
-// normalised rows and 1/std where n_out and rstd are not null, or (!LN,
-// one block a cluster, C = 512 or 768) ffn_train's y_out =
+// last 128 x 128 where C % 256 == 128: the NARROW and NARROW_TRAIN
+// instances), then (LN) out = LN2(res + drop_y(y)) over the cluster's
+// ceil(C / 256) blocks, with the normalised rows and 1/std where n_out and
+// rstd are not null, or (!LN, one block a cluster) ffn_train's y_out =
 // drop_y(bf16(bf16(y) + bf16(b2)))
-template <bool LN, bool NARROW = false>
+enum Tiles { WIDE = 0, NARROW = 1, NARROW_TRAIN = 2 };
+
+template <bool LN, int TILES = WIDE>
 __global__ void __launch_bounds__(THREADS, 1)
 ffn_out_kernel(const __grid_constant__ CUtensorMap map_h,
                const __grid_constant__ CUtensorMap map_w2,
@@ -413,25 +423,33 @@ ffn_out_kernel(const __grid_constant__ CUtensorMap map_h,
     consume<false, OUT_BN>(acc, ring, full, empty, F / BK, c, warp, lane);
   }
   if constexpr (!LN) {
-    if constexpr (EPILOGUE)
-      store_y_out(acc, b2, y_out, M, C, n0, r0, r0 + 8, t, drop);
+    if constexpr (EPILOGUE) {
+      if (TILES == WIDE || ln_groups(C, n0) == OUT_BN / 8)
+        store_y_out(acc, b2, y_out, M, C, n0, r0, r0 + 8, t, drop);
+      else
+        store_y_out(acc, b2, y_out, M, C, n0, r0, r0 + 8, t, drop,
+                    OUT_BN / 16);
+    }
     return;
   }
   __syncwarp();   // the producer's warp meets the cluster barriers whole
 
   // Every thread of every block of the cluster takes part in the
   // epilogue's barriers; the producer warpgroup has nothing else to do. A
-  // block of 256 columns, or in the NARROW instance the last of 128, each
-  // copy with its column count known to the compiler; such a C is an
-  // inference width (the train forms take 256, 512 and 768), so the narrow
-  // copy is compiled without the dropout and the saved rows. The second
-  // copy cost the first 18% (scripts/torch_layer_width_probe.py), so only
-  // the widths C % 256 == 128 take the instance that has it
+  // block of 256 columns, or in the NARROW instances the last of 128, each
+  // copy with its column count known to the compiler. The second copy cost
+  // the first 18% (scripts/torch_layer_width_probe.py), so only the widths
+  // C % 256 == 128 take the instances that have it, and the inference one
+  // compiles the narrow copy without the dropout and the saved rows
   if constexpr (EPILOGUE) {
-    if (!NARROW || ln_groups(C, n0) == OUT_BN / 8)
+    if (TILES == WIDE || ln_groups(C, n0) == OUT_BN / 8)
       residual_ln(acc, wg != 0, sums, x, b2, gamma, beta, out, n_out, rstd,
                   M, C, n0, lr0, r0, t, round_input, drop, blockIdx.x == 0,
                   OUT_BN / 8);
+    else if constexpr (TILES == NARROW_TRAIN)
+      residual_ln(acc, wg != 0, sums, x, b2, gamma, beta, out, n_out, rstd,
+                  M, C, n0, lr0, r0, t, round_input, drop, blockIdx.x == 0,
+                  OUT_BN / 16);
     else
       residual_ln(acc, wg != 0, sums, x, b2, gamma, beta, out, nullptr,
                   nullptr, M, C, n0, lr0, r0, t, round_input,
@@ -1046,11 +1064,10 @@ int launch_fused(const CUtensorMap& mw1, const CUtensorMap& mw2,
 // (M, F) bf16 scratch for the hidden at every C but 256 (unused, may be
 // null, at C = 256); F % 128 == 0; act 0 = ReLU, 1 = tanh-GELU. With y_out
 // null: x fp32, gamma/beta (C) fp32 -> out (M, C) fp32, and n_out (M, C)
-// and rstd (M) fp32 unless null; C % 128 == 0 and 128 <= C <= 2048, and
-// for the train forms (n_out, rstd, keep_out or the dropout on) C = 256,
-// 512 or 768 with ReLU. With y_out (C = 256, 512 or 768, ReLU,
-// round_input 0): x bf16 -> y_out (M, C) bf16 (gamma, beta, out, n_out and
-// rstd unused). The hidden's dropout site is (seed, site_h), the
+// and rstd (M) fp32 unless null; C % 128 == 0 and 128 <= C <= 2048, with
+// ReLU for the train forms (n_out, rstd, keep_out or the dropout on). With
+// y_out (the same C, ReLU, round_input 0): x bf16 -> y_out (M, C) bf16
+// (gamma, beta, out, n_out and rstd unused). The hidden's dropout site is (seed, site_h), the
 // output's (seed, site_y); threshold 0 turns both off. keep_out (M, F /
 // 32) int32, or null: the hidden's keep words (the train forms: ReLU,
 // round_input 0, threshold != 0). One kernel at C = 256, two on the
@@ -1067,13 +1084,11 @@ extern "C" int ppgs_ffn_ln(const void* x, const void* w1, const void* b1,
                            unsigned threshold, float scale, void* stream) {
   // the fused kernel is ReLU's; GELU at C = 256 takes the two launches
   const bool ln = y_out == nullptr, fused = C == FUSED_C && act == RELU;
-  const bool train_width = C == 256 || C == 512 || C == 768;
   const bool train = n_out || rstd || keep_out || threshold;
   const bool width_ok =
-      ln ? C % 128 == 0 && C >= 128 && C <= MAX_C &&
-               (act == RELU || act == GELU) &&
-               (!train || (train_width && act == RELU))
-         : train_width && act == RELU && !round_input;
+      C % 128 == 0 && C >= 128 && C <= MAX_C &&
+      (ln ? (act == RELU || act == GELU) && (!train || act == RELU)
+          : act == RELU && !round_input);
   const int m_tiles = (M + BM - 1) / BM;
   if (!width_ok || F <= 0 || F % 128 || m_tiles > 65535 || (!fused && !h) ||
       reinterpret_cast<uintptr_t>(b1) % 16 ||
@@ -1130,7 +1145,7 @@ extern "C" int ppgs_ffn_ln(const void* x, const void* w1, const void* b1,
   bf16* hb = static_cast<bf16*>(h);
   uint32_t* words = static_cast<uint32_t*>(keep_out);
   // The train forms' hidden launch: persistent at C = 512 (h stored by TMA
-  // in boxes of 64 rows), the inference form's at 768 with its words
+  // in boxes of 64 rows), the inference form's at the others with its words
   const bool persistent = words && C == TRAIN_C;
   CUtensorMap mhs;
   if (persistent && !encode(&mhs, h, false, M, F, F, 64, 64))
@@ -1164,12 +1179,15 @@ extern "C" int ppgs_ffn_ln(const void* x, const void* w1, const void* b1,
   const float* xf = static_cast<const float*>(x);
   bf16* yb = static_cast<bf16*>(y_out);
   if (!ln)
-    return launch(ffn_out_kernel<false>, THREADS, Ring<false, OUT_BN>::SMEM,
-                  dim3(C / OUT_BN, m_tiles), 1, s, mh, mw2, xf, b2f, g, be,
+    return launch(C % OUT_BN ? ffn_out_kernel<false, NARROW>
+                             : ffn_out_kernel<false>,
+                  THREADS, Ring<false, OUT_BN>::SMEM,
+                  dim3(ln_ranks(C), m_tiles), 1, s, mh, mw2, xf, b2f, g, be,
                   o, n, rs, yb, M, F, C, round_input, dy);
-  return launch(C % OUT_BN ? ffn_out_kernel<true, true>
-                           : ffn_out_kernel<true>,
-                THREADS, Ring<false, OUT_BN>::SMEM, dim3(ln_ranks(C), m_tiles),
-                ln_ranks(C), s, mh, mw2, xf, b2f, g, be, o, n, rs, yb, M, F, C,
-                round_input, dy);
+  const auto out_kernel = C % OUT_BN == 0 ? ffn_out_kernel<true>
+                          : train         ? ffn_out_kernel<true, NARROW_TRAIN>
+                                          : ffn_out_kernel<true, NARROW>;
+  return launch(out_kernel, THREADS, Ring<false, OUT_BN>::SMEM,
+                dim3(ln_ranks(C), m_tiles), ln_ranks(C), s, mh, mw2, xf, b2f,
+                g, be, o, n, rs, yb, M, F, C, round_input, dy);
 }

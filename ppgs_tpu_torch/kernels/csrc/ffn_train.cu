@@ -1,6 +1,8 @@
-// The FFN's training backward up to its input, C = 256 (the mel model),
-// 512 (the w2v2fb and w2v2fc heads) or 768, any F % 128 == 0, any M; the
-// forward is K4 (ffn_ln.cu) with its dropout sites on.
+// The FFN's training backward up to its input at any C % 128 == 0 from
+// 128 to 2048 (C = 256 the mel model, 512 the w2v2fb and w2v2fc heads, each
+// with a form of its own; every other C on one route with C known at run
+// time), any F % 128 == 0, any M; the forward is K4 (ffn_ln.cu) with its
+// dropout sites on.
 //
 // Replaces: the backward of ppgs_tpu/ops/fused_ffn.py ffn_train
 // (_ffn_train_bwd_kernel) and the FFN half of the backward of
@@ -129,9 +131,11 @@
 // prefetched into L2 (+35%); the blocks walking the chunks from chunk b %
 // (F / 64) on, so as not to read the same slices at once (no faster).
 //
-// C = 768 takes three launches too, right first and not yet tuned. A
-// resident 128-row tile of x or dy is 192 KB at this width, which leaves
-// no room for the C = 512 passes' rings, so the two hidden passes are
+// Every other C (128, 384, 640, 768, ..., 2048) takes three launches too,
+// on one route with C passed at run time, right first and not yet tuned.
+// A resident 128-row tile of x or dy is 192 KB at C = 768, which leaves
+// no room for the C = 512 passes' rings (and at 384 already x and dy no
+// longer fit beside the C = 256 form's ring), so the two hidden passes are
 // plain tiled products with their elementwise work as epilogues, on the
 // (A, B) TMA ring of residual_ln.cuh that K4's hidden launch uses: 128 x
 // 256 tiles of the (M, F) hidden (128 x 128 where F % 256 != 0), a
@@ -147,11 +151,17 @@
 //   crosses between the passes; bf16(dh) stored and db1's partial rows
 //   (each warp's 16 rows summed by shuffles, the 4 warps' sums added in
 //   order through shared memory).
-// - The dx pass: dx_kernel at C = 768 (three 256-column tiles a row block).
-// Bound (the training shape, M = 131,072, F = 2048): the same 6 M C F =
-// 1.24 TFLOP, 1.25 ms; bytes: x (fp32), dy, the residual, the words and
-// the weights in; hd written and read back, dh written and read back, dx
-// and the partials out, 3.8 GB, 1.1 ms: bound by the operations.
+// - The dx pass: dx_kernel with C at run time, ceil(C / 256) tiles a row
+//   block, the last one 128 columns wide where C % 256 == 128 (its W1^T
+//   boxes past C not loaded, its columns past C not stored).
+// The depth C streams through the ring in C / 64 steps, so no C up to
+// 2048 is too wide for it; the loops' trip counts are read at run time, as
+// the C = 768 instances' were by their producers and consumers.
+// Bound (the training shape, M = 131,072, F = 2048): 6 M C F, 1.25 ms at
+// C = 768 (1.24 TFLOP), 0.625 ms at 384 and 1.668 ms at 1024; bytes: x
+// (fp32), dy, the residual, the words and the weights in; hd written and
+// read back, dh written and read back, dx and the partials out, 3.8 GB at
+// 768, 1.1 ms: bound by the operations.
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -818,9 +828,13 @@ hidden_kernel(const __grid_constant__ CUtensorMap map_w,
   if (lane == 0) bulk_wait_read();   // the staging outlives its stores
 }
 
-// Pass 2 at C = 512 and pass 3 at 768: dx = bf16(dh) W1^T (+ the
-// residual, or rounded to bf16), 128 x 256 tiles over depth F, gemm.cu's
-// warp-specialised form
+// Pass 2 at C = 512 and pass 3 on the run-time route: dx = bf16(dh) W1^T
+// (+ the residual, or rounded to bf16), 128 x 256 tiles over depth F,
+// gemm.cu's warp-specialised form. WIDTH: C known to the compiler (512),
+// or 0 for C passed at run time (ldc); NARROW: the instance whose last
+// block's tile has 128 columns (C % 256 == 128), which loads two of its
+// four W1^T boxes and stores its first 128 columns (the wgmma still runs
+// 256 wide: its other columns are never stored)
 constexpr int DX_BM = 128, DX_BN = 256, DX_STAGES = 4;
 constexpr int DX_A = DX_BM * 128;               // 128 rows x 64 depth
 constexpr int DX_B = 64 * DX_BN * 2;            // 64 depth rows x 256
@@ -828,12 +842,13 @@ constexpr int DX_STAGE = DX_A + DX_B;
 constexpr int DX_SMEM = DX_STAGES * DX_STAGE + 2 * DX_STAGES * 8 + 1024;
 static_assert(DX_SMEM <= 232448, "more shared memory than a block may have");
 
-template <int C, bool RESIDUAL>
+template <int WIDTH, bool RESIDUAL, bool NARROW = false>
 __global__ void __launch_bounds__(384, 1)
 dx_kernel(const __grid_constant__ CUtensorMap map_dh,
           const __grid_constant__ CUtensorMap map_w1t,
           const float* __restrict__ residual, float* __restrict__ dx32,
-          bf16* __restrict__ dx16, int M, int F) {
+          bf16* __restrict__ dx16, int M, int F, int ldc) {
+  const int C = WIDTH ? WIDTH : ldc;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ring = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -841,6 +856,8 @@ dx_kernel(const __grid_constant__ CUtensorMap map_dh,
   uint64_t* empty = full + DX_STAGES;
   const int n0 = blockIdx.x * DX_BN, m0 = blockIdx.y * DX_BM;
   const int steps = F / 64, wg = threadIdx.x / 128;
+  // the tile's 64-column boxes inside C (4, or 2 in a last narrow tile)
+  const int boxes = NARROW ? min(C - n0, DX_BN) / 64 : DX_BN / 64;
 
   if (threadIdx.x == 0) mbar_init_ring(full, empty, DX_STAGES, 8);
   __syncthreads();
@@ -853,12 +870,14 @@ dx_kernel(const __grid_constant__ CUtensorMap map_dh,
       const int s = i % DX_STAGES, round = i / DX_STAGES;
       if (round > 0) mbar_wait(smem_addr(empty + s), (round - 1) & 1);
       const uint32_t bar = smem_addr(full + s);
-      mbar_expect_tx(bar, DX_STAGE);
+      mbar_expect_tx(bar, NARROW ? DX_A + boxes * 8192 : DX_STAGE);
       unsigned char* sa = ring + s * DX_STAGE;
       tma_load(sa, &map_dh, i * 64, m0, bar);          // K-major rows
 #pragma unroll
       for (int j = 0; j < DX_BN / 64; ++j)              // MN-major boxes
-        tma_load(sa + DX_A + j * 8192, &map_w1t, n0 + j * 64, i * 64, bar);
+        if (!NARROW || j < boxes)
+          tma_load(sa + DX_A + j * 8192, &map_w1t, n0 + j * 64, i * 64,
+                   bar);
     }
     return;
   }
@@ -898,6 +917,7 @@ dx_kernel(const __grid_constant__ CUtensorMap map_dh,
   const long long row0 = m0 + 64 * c + 16 * warp + g;
 #pragma unroll
   for (int j = 0; j < DX_BN / 8; ++j) {
+    if (NARROW && j >= 8 * boxes) continue;     // past C
     const int col = n0 + 8 * j + 2 * t;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -963,7 +983,7 @@ int launch_wide(const void* x, const void* dy, const void* w1t,
   if (err != cudaSuccess) return static_cast<int>(err);
   dx_pass<<<dim3(WC / DX_BN, (M + DX_BM - 1) / DX_BM), 384, DX_SMEM, s>>>(
       mdh_in, mw1t_mn, static_cast<const float*>(residual),
-      static_cast<float*>(dx32), static_cast<bf16*>(dx16), M, F);
+      static_cast<float*>(dx32), static_cast<bf16*>(dx16), M, F, WC);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1011,11 +1031,10 @@ int launch_width(const void* x, int x_is_f32, const void* dy,
 }
 
 
-// ----------------------------------------------------------- C = 768
+// ------------------------------------------- every other C, at run time
 
 namespace rl = ppgs::residual_ln;
 
-constexpr int NC = 768;          // the width
 constexpr int PASS_THREADS = 384;   // a producer warpgroup, two consumers
 
 // A hidden pass's shared memory: the ring of rl::Ring (its LayerNorm row
@@ -1028,9 +1047,9 @@ struct Pass {
   static_assert(SMEM <= 232448, "more shared memory than a block may have");
 };
 
-// One hidden pass at C = 768 on a 128 x BN tile of the (M, F) hidden: acc
-// = A B over depth 768 (A = x for SIDE 0, dy for SIDE 1; B = W1 or W2^T,
-// (768, F) MN-major), then SIDE 0 writes hd (keep words `words`, null at
+// One hidden pass on a 128 x BN tile of the (M, F) hidden: acc = A B over
+// depth C (A = x for SIDE 0, dy for SIDE 1; B = W1 or W2^T, (C, F)
+// MN-major), then SIDE 0 writes hd (keep words `words`, null at
 // rate 0) and SIDE 1 writes bf16(dh) from hd (`hd_in`) and db1's partial
 // rows. Register 4j + e of acc: row g + 8 (e / 2) of the warp's 16, column
 // 8j + 2t + e % 2 of the tile.
@@ -1041,8 +1060,8 @@ wide_pass_kernel(const __grid_constant__ CUtensorMap map_a,
                  const float* __restrict__ b1,
                  const uint32_t* __restrict__ words,
                  const bf16* __restrict__ hd_in, bf16* __restrict__ out,
-                 float* __restrict__ db1_partial, int M, int F, int dropped,
-                 float scale) {
+                 float* __restrict__ db1_partial, int M, int F, int C,
+                 int dropped, float scale) {
   using R = rl::Ring<X_F32, BN>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ring = rl::aligned_ring(smem_raw);
@@ -1056,13 +1075,13 @@ wide_pass_kernel(const __grid_constant__ CUtensorMap map_a,
   __syncthreads();
   if (wg == 0) {
     if (threadIdx.x == 0)
-      rl::produce<X_F32, BN>(&map_a, &map_b, ring, full, empty, NC / rl::BK,
+      rl::produce<X_F32, BN>(&map_a, &map_b, ring, full, empty, C / rl::BK,
                              m0, n0);
     return;
   }
   const int c = wg - 1, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
   float acc[BN / 2];
-  rl::consume<X_F32, BN>(acc, ring, full, empty, NC / rl::BK, c, warp, lane);
+  rl::consume<X_F32, BN>(acc, ring, full, empty, C / rl::BK, c, warp, lane);
   const int g = lane >> 2, t = lane & 3;
   const long long r0 = m0 + 64 * c + 16 * warp + g, r1 = r0 + 8;
 
@@ -1158,7 +1177,7 @@ wide_pass_kernel(const __grid_constant__ CUtensorMap map_a,
 template <int BN, bool X_F32, int SIDE>
 int launch_pass(const CUtensorMap& ma, const CUtensorMap& mb, const void* b1,
                 const void* words, const void* hd_in, void* out,
-                void* partial, int M, int F, int dropped, float scale,
+                void* partial, int M, int F, int C, int dropped, float scale,
                 cudaStream_t s) {
   return rl::launch(wide_pass_kernel<BN, X_F32, SIDE>, PASS_THREADS,
                     Pass<X_F32, BN, SIDE>::SMEM,
@@ -1166,59 +1185,61 @@ int launch_pass(const CUtensorMap& ma, const CUtensorMap& mb, const void* b1,
                     static_cast<const float*>(b1),
                     static_cast<const uint32_t*>(words),
                     static_cast<const bf16*>(hd_in), static_cast<bf16*>(out),
-                    static_cast<float*>(partial), M, F, dropped, scale);
+                    static_cast<float*>(partial), M, F, C, dropped, scale);
 }
 
 template <bool X_F32>
-int launch_768(const void* x, const void* dy, const void* w1t,
+int launch_any(const void* x, const void* dy, const void* w1t,
                const void* b1, const void* w1, const void* w2t,
                const void* words, const void* residual, void* dx32,
                void* dx16, void* hd_out, void* dh_out, void* db1_partial,
-               int M, int F, float scale, cudaStream_t s) {
+               int M, int F, int C, float scale, cudaStream_t s) {
   CUtensorMap mx, mdy, mw1, mw2t, mdh_in, mw1t_mn;
-  if (!encode(&mx, x, X_F32, M, NC, NC, X_F32 ? 32 : 64, rl::BM) ||
-      !encode(&mdy, dy, false, M, NC, NC, 64, rl::BM) ||
-      !encode(&mw1, w1, false, NC, F, F, 64, rl::BK) ||
-      !encode(&mw2t, w2t, false, NC, F, F, 64, rl::BK) ||
+  if (!encode(&mx, x, X_F32, M, C, C, X_F32 ? 32 : 64, rl::BM) ||
+      !encode(&mdy, dy, false, M, C, C, 64, rl::BM) ||
+      !encode(&mw1, w1, false, C, F, F, 64, rl::BK) ||
+      !encode(&mw2t, w2t, false, C, F, F, 64, rl::BK) ||
       !encode(&mdh_in, dh_out, false, M, F, F, 64, DX_BM) ||
-      !encode(&mw1t_mn, w1t, false, F, NC, NC, 64, 64))
+      !encode(&mw1t_mn, w1t, false, F, C, C, 64, 64))
     return static_cast<int>(cudaErrorInvalidValue);
   const int dropped = words != nullptr;
   const bool wide = F % 256 == 0;
   int err = wide ? launch_pass<256, X_F32, 0>(mx, mw1, b1, words, nullptr,
-                                              hd_out, nullptr, M, F, dropped,
-                                              scale, s)
+                                              hd_out, nullptr, M, F, C,
+                                              dropped, scale, s)
                  : launch_pass<128, X_F32, 0>(mx, mw1, b1, words, nullptr,
-                                              hd_out, nullptr, M, F, dropped,
-                                              scale, s);
+                                              hd_out, nullptr, M, F, C,
+                                              dropped, scale, s);
   if (err) return err;
   err = wide ? launch_pass<256, false, 1>(mdy, mw2t, b1, nullptr, hd_out,
-                                          dh_out, db1_partial, M, F, dropped,
-                                          scale, s)
+                                          dh_out, db1_partial, M, F, C,
+                                          dropped, scale, s)
              : launch_pass<128, false, 1>(mdy, mw2t, b1, nullptr, hd_out,
-                                          dh_out, db1_partial, M, F, dropped,
-                                          scale, s);
+                                          dh_out, db1_partial, M, F, C,
+                                          dropped, scale, s);
   if (err) return err;
-  return rl::launch(dx_kernel<NC, X_F32>, 384, DX_SMEM,
-                    dim3(NC / DX_BN, (M + DX_BM - 1) / DX_BM), 1, s, mdh_in,
-                    mw1t_mn, static_cast<const float*>(residual),
-                    static_cast<float*>(dx32), static_cast<bf16*>(dx16), M,
-                    F);
+  return rl::launch(C % DX_BN ? dx_kernel<0, X_F32, true>
+                              : dx_kernel<0, X_F32>,
+                    384, DX_SMEM,
+                    dim3((C + DX_BN - 1) / DX_BN, (M + DX_BM - 1) / DX_BM), 1,
+                    s, mdh_in, mw1t_mn, static_cast<const float*>(residual),
+                    static_cast<float*>(dx32), static_cast<bf16*>(dx16), M, F,
+                    C);
 }
 
 }  // namespace
 
-// x (M, C), C = 256 (one launch), 512 or 768 (three): fp32 (x_is_f32 = 1,
-// rounded to bf16 as staged) with residual (M, C) fp32 and dx32 (M, C)
-// fp32 = dx + residual; or bf16 with dx16 (M, C) bf16 (residual and dx32
-// null). dy (M, C) bf16, masked and rounded; w1t (F, C) bf16, W1
-// transposed; b1 (F) fp32, 16-byte aligned; w2 (F, C) bf16; w1 and w2t
-// (C, F) bf16, W1 as stored and W2 transposed, at C = 768 (null, unused,
-// at the others). words (M, F /
+// x (M, C), C % 128 == 0 and 128 <= C <= 2048: one launch at 256, three
+// at the others. fp32 (x_is_f32 = 1, rounded to bf16 as staged) with
+// residual (M, C) fp32 and dx32 (M, C) fp32 = dx + residual; or bf16 with
+// dx16 (M, C) bf16 (residual and dx32 null). dy (M, C) bf16, masked and
+// rounded; w1t (F, C) bf16, W1 transposed; b1 (F) fp32, 16-byte aligned;
+// w2 (F, C) bf16; w1 and w2t (C, F) bf16, W1 as stored and W2 transposed,
+// at every C but 256 and 512 (null, unused, at those). words (M, F /
 // 32) int32, the hidden's keep words from K4's train form, or null for no
 // dropout; scale 1 / (1 - rate). hd_out, dh_out (M, F) bf16; db1_partial
 // (ceil(M / 64), F) fp32. mask: at C = 512 the hidden passes' scratch,
-// ceil(M / 128) x F / 64 x 256 uint32 words; unused at 256 and 768. F %
+// ceil(M / 128) x F / 64 x 256 uint32 words; unused at the others. F %
 // 128 == 0; anything else returns cudaErrorInvalidValue.
 extern "C" int ppgs_ffn_train_bwd(
     const void* x, int x_is_f32, const void* dy, const void* w1t,
@@ -1226,21 +1247,23 @@ extern "C" int ppgs_ffn_train_bwd(
     const void* words, const void* residual, void* dx32, void* dx16,
     void* hd_out, void* dh_out, void* db1_partial, void* mask, int M, int F,
     int C, float scale, void* stream) {
-  if (F <= 0 || F % 128 || (C != 256 && C != 512 && C != NC) ||
+  const bool any = C != 256 && C != 512;     // the run-time route
+  if (F <= 0 || F % 128 || C % 128 || C < 128 || C > rl::MAX_C ||
       (C == 512 && !mask) ||
-      (C == NC && (!w1 || !w2t || (M + rl::BM - 1) / rl::BM > 65535)) ||
+      (any && (!w1 || !w2t || (M + rl::BM - 1) / rl::BM > 65535)) ||
       reinterpret_cast<uintptr_t>(b1) % 16 ||
       (x_is_f32 ? !residual || !dx32 : !dx16))
     return static_cast<int>(cudaErrorInvalidValue);
   if (M <= 0) return static_cast<int>(cudaGetLastError());
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (C == NC)
-    return x_is_f32 ? launch_768<true>(x, dy, w1t, b1, w1, w2t, words,
+  if (any)
+    return x_is_f32 ? launch_any<true>(x, dy, w1t, b1, w1, w2t, words,
                                        residual, dx32, nullptr, hd_out,
-                                       dh_out, db1_partial, M, F, scale, s)
-                    : launch_768<false>(x, dy, w1t, b1, w1, w2t, words,
+                                       dh_out, db1_partial, M, F, C, scale, s)
+                    : launch_any<false>(x, dy, w1t, b1, w1, w2t, words,
                                         nullptr, nullptr, dx16, hd_out,
-                                        dh_out, db1_partial, M, F, scale, s);
+                                        dh_out, db1_partial, M, F, C, scale,
+                                        s);
   if (C == 512)
     return x_is_f32 ? launch_wide<float, true>(x, dy, w1t, b1, w2, words,
                                                residual, dx32, nullptr, hd_out,

@@ -1,7 +1,9 @@
 // The row-wise pieces of the training layer's backward: the LayerNorm
-// backward with a dropout epilogue at C = 256, 512 or 768 (a template
-// instance each), and a deterministic column sum. (The forward's out-projection +
-// dropout + LN1 is K3, out_proj_ln.cu.)
+// backward with a dropout epilogue at any C % 128 == 0 from 128 to 2048 (a
+// template instance each at C = 256, 512 and 768, where a warp takes a row;
+// one kernel with the row split over warps at the others), and a
+// deterministic column sum. (The forward's out-projection + dropout + LN1
+// is K3, out_proj_ln.cu.)
 //
 // Replaces, in ppgs_tpu/ops/encoder_layer_train.py: the LN2 and LN1
 // backward of _bwd_kernel (`_ln_bwd`, dgamma, dbeta) with the dropout
@@ -22,6 +24,17 @@
 // 24 KB), no spills. At C = 768 a lane takes 24 columns, and the block's
 // three partial sums (72 KB at once, past the 48 KB a block may declare
 // statically) meet in 24 KB one after another.
+// At the other widths (128, 384, 640, 896, 1024, ..., 2048) a lane holding
+// C / 32 columns of a row would need 4 C / 32 registers for the row and 3
+// C / 32 for the sums (448 at 2048), so the row is split over warps
+// instead (ln_dropout_bwd_split_kernel): pieces of 128 columns, 4 a lane,
+// P = C / 128 of them; a block of 8 warps takes R = max(1, 8 / P) rows at
+// once, W = 8 / R warps a row, each warp the same one or two pieces of
+// every row it takes (so that its column sums stay in 24 registers at
+// most); the row's two sums meet in shared memory, added in warp order,
+// behind one barrier a round of rows (double-buffered). Right first, not
+// yet timed against another split; bound by bytes as the others are
+// (0.1423 ms at C = 256 on the training shape, x C / 256).
 // colsum's largest launch, dbqkv's (M, 768) fp32 (403 MB), is 0.120 ms at
 // 3.35 TB/s. So that the loads keep the memory busy, its first pass splits
 // the rows into enough ranges that the blocks fill one wave of 132 SMs x 8
@@ -160,6 +173,155 @@ ln_dropout_bwd_kernel(const TG* __restrict__ g, const float* __restrict__ n,
   }
 }
 
+// The same function at every other C (the note at the top): pieces of 128
+// columns (4 a lane: element 4 i + e of a lane is column 128 piece_i + 4
+// lane + e), W warps a row, R rows a round; PPW, the pieces a warp takes
+// (1, or 2 past C = 1024)
+constexpr int SPLIT_MAX_C = 2048;
+
+template <typename TG>
+__device__ __forceinline__ void load4(const TG* p, float v[4]);
+
+template <>
+__device__ __forceinline__ void load4<float>(const float* p, float v[4]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+}
+
+template <>
+__device__ __forceinline__ void load4<bf16>(const bf16* p, float v[4]) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const bf16* h = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) v[e] = __bfloat162float(h[e]);
+}
+
+template <typename TG, int PPW>
+__global__ void __launch_bounds__(THREADS)
+ln_dropout_bwd_split_kernel(const TG* __restrict__ g,
+                            const float* __restrict__ n,
+                            const float* __restrict__ rstd,
+                            const float* __restrict__ gamma,
+                            float* __restrict__ dz_out,
+                            bf16* __restrict__ masked_out,
+                            float* __restrict__ partial, int M, int C,
+                            ppgs::Dropout drop) {
+  constexpr int V = 4 * PPW, WARPS = THREADS / 32;
+  const int P = C / 128;
+  const int R = P >= WARPS ? 1 : WARPS / P;       // rows a round
+  const int W = WARPS / R;                        // warps a row
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int slot = warp / W, wr = warp % W;       // the row, the warp in it
+  const bool active = slot < R;                   // R W may be under 8
+  // the warp's pieces: wr, wr + W (the second only past P = W)
+  int col[PPW];
+  bool own[PPW];
+#pragma unroll
+  for (int i = 0; i < PPW; ++i) {
+    const int piece = wr + i * W;
+    own[i] = active && piece < P;
+    col[i] = 128 * piece + 4 * lane;
+  }
+  // [2 buffers][R rows][W warps][2 sums], and the column sums by row slot
+  __shared__ float s_row[2][WARPS][2];
+  __shared__ float s_part[3 * SPLIT_MAX_C];
+  float acc_gn[V] = {}, acc_g[V] = {}, acc_m[V] = {};
+  const int row0 = blockIdx.x * LB_ROWS;
+  const int rounds = LB_ROWS / R;
+  for (int k = 0; k < rounds; ++k) {
+    const int r = row0 + k * R + slot;
+    const bool live = active && r < M;
+    const long long base = static_cast<long long>(r) * C;
+    float gv[V], nv[V], dyg[V];
+#pragma unroll
+    for (int i = 0; i < PPW; ++i) {
+      if (!(live && own[i])) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) gv[4 * i + e] = nv[4 * i + e] = 0.f;
+        continue;
+      }
+      load4<TG>(g + base + col[i], gv + 4 * i);
+      if (n) load4<float>(n + base + col[i], nv + 4 * i);
+    }
+    float s1 = 0.f, s2 = 0.f;
+    if (n) {
+#pragma unroll
+      for (int i = 0; i < PPW; ++i) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = 4 * i + e;
+          dyg[j] = own[i] ? gv[j] * gamma[col[i] + e] : 0.f;
+          s1 += dyg[j];
+          s2 += dyg[j] * nv[j];
+        }
+      }
+      s1 = ppgs::warp_sum(s1);
+      s2 = ppgs::warp_sum(s2);
+      float* sums = s_row[k & 1][warp];
+      if (lane == 0) sums[0] = s1, sums[1] = s2;
+      __syncthreads();    // a round's sums; the buffer is reused two on
+      s1 = s2 = 0.f;
+      for (int w = 0; w < W && active; ++w) {
+        s1 += s_row[k & 1][slot * W + w][0];
+        s2 += s_row[k & 1][slot * W + w][1];
+      }
+    }
+    if (!live) continue;
+    const float m1 = s1 * (1.f / C), m2 = s2 * (1.f / C);
+    const float inv = n ? rstd[r] : 0.f;
+    ppgs::KeepStream stream(drop);
+#pragma unroll
+    for (int i = 0; i < PPW; ++i) {
+      if (!own[i]) continue;
+      float dz[4], m[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = 4 * i + e;
+        dz[e] = n ? (dyg[j] - m1 - nv[j] * m2) * inv : gv[j];
+        if (n) acc_gn[j] += gv[j] * nv[j];
+        acc_g[j] += gv[j];
+        m[e] = drop.threshold
+                   ? (stream.keep(base + col[i] + e) ? dz[e] * drop.scale
+                                                     : 0.f)
+                   : dz[e];
+        acc_m[j] += m[e];
+      }
+      if (dz_out)
+        *reinterpret_cast<float4*>(dz_out + base + col[i]) =
+            make_float4(dz[0], dz[1], dz[2], dz[3]);
+      if (masked_out) {
+        __align__(8) bf16 mc[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mc[e] = __float2bfloat16(m[e]);
+        *reinterpret_cast<uint2*>(masked_out + base + col[i]) =
+            *reinterpret_cast<const uint2*>(mc);
+      }
+    }
+  }
+  // The block's partial sums [g n | g | masked], R row slots added in slot
+  // order, one slot at a time through s_part
+  for (int q = 0; q < R; ++q) {
+    __syncthreads();
+    if (slot == q && active) {
+#pragma unroll
+      for (int i = 0; i < PPW; ++i) {
+        if (!own[i]) continue;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = 4 * i + e, c = col[i] + e;
+          const float sums[3] = {acc_gn[j], acc_g[j], acc_m[j]};
+#pragma unroll
+          for (int u = 0; u < 3; ++u)
+            s_part[u * C + c] = q ? s_part[u * C + c] + sums[u] : sums[u];
+        }
+      }
+    }
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < 3 * C; j += THREADS)
+    partial[static_cast<long long>(blockIdx.x) * 3 * C + j] = s_part[j];
+}
+
 // ------------------------------------------------------------ colsum
 
 // out[col0 ..] = column sums of rows r0 <= r < r1 of in (R, N), r0 = y
@@ -290,18 +452,39 @@ void launch_ln_dropout_bwd(const void* g, int g_is_bf16, const void* n,
         static_cast<const float*>(g), nf, rf, gf, dz, mo, p, M, d);
 }
 
+template <int PPW>
+void launch_ln_dropout_bwd_split(const void* g, int g_is_bf16, const void* n,
+                                 const void* rstd, const void* gamma,
+                                 void* dz_out, void* masked_out,
+                                 void* partial, int M, int C,
+                                 const ppgs::Dropout& d, cudaStream_t s) {
+  const unsigned blocks = (M + LB_ROWS - 1) / LB_ROWS;
+  const float* nf = static_cast<const float*>(n);
+  const float* rf = static_cast<const float*>(rstd);
+  const float* gf = static_cast<const float*>(gamma);
+  float* dz = static_cast<float*>(dz_out);
+  bf16* mo = static_cast<bf16*>(masked_out);
+  float* p = static_cast<float*>(partial);
+  if (g_is_bf16)
+    ln_dropout_bwd_split_kernel<bf16, PPW><<<blocks, THREADS, 0, s>>>(
+        static_cast<const bf16*>(g), nf, rf, gf, dz, mo, p, M, C, d);
+  else
+    ln_dropout_bwd_split_kernel<float, PPW><<<blocks, THREADS, 0, s>>>(
+        static_cast<const float*>(g), nf, rf, gf, dz, mo, p, M, C, d);
+}
+
 }  // namespace
 
-// g (M, C) fp32 (g_is_bf16 = 0) or bf16, C = 256, 512 or 768; n (M, C) and
-// rstd (M) fp32, or n = null for no LayerNorm; gamma (C). dz_out (M, C) fp32 or
-// null, masked_out (M, C) bf16 or null; partial (ceil(M/64), 3, C) fp32.
-// Any other C returns cudaErrorInvalidValue.
+// g (M, C) fp32 (g_is_bf16 = 0) or bf16, C % 128 == 0 from 128 to 2048; n
+// (M, C) and rstd (M) fp32, or n = null for no LayerNorm; gamma (C). dz_out
+// (M, C) fp32 or null, masked_out (M, C) bf16 or null; partial
+// (ceil(M/64), 3, C) fp32. Any other C returns cudaErrorInvalidValue.
 extern "C" int ppgs_ln_dropout_bwd(
     const void* g, int g_is_bf16, const void* n, const void* rstd,
     const void* gamma, void* dz_out, void* masked_out, void* partial, int M,
     int C, unsigned seed_lo, unsigned seed_hi, unsigned site,
     unsigned threshold, float scale, void* stream) {
-  if (C != 256 && C != 512 && C != 768)
+  if (C % 128 || C < 128 || C > SPLIT_MAX_C)
     return static_cast<int>(cudaErrorInvalidValue);
   if (M > 0) {
     const ppgs::Dropout d =
@@ -313,9 +496,15 @@ extern "C" int ppgs_ln_dropout_bwd(
     else if (C == 512)
       launch_ln_dropout_bwd<512>(g, g_is_bf16, n, rstd, gamma, dz_out,
                                  masked_out, partial, M, d, s);
-    else
+    else if (C == 256)
       launch_ln_dropout_bwd<256>(g, g_is_bf16, n, rstd, gamma, dz_out,
                                  masked_out, partial, M, d, s);
+    else if (C <= 1024)      // P <= 8 pieces: one a warp
+      launch_ln_dropout_bwd_split<1>(g, g_is_bf16, n, rstd, gamma, dz_out,
+                                     masked_out, partial, M, C, d, s);
+    else
+      launch_ln_dropout_bwd_split<2>(g, g_is_bf16, n, rstd, gamma, dz_out,
+                                     masked_out, partial, M, C, d, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

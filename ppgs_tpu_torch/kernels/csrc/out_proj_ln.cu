@@ -1,6 +1,7 @@
 // K3 out_proj_residual_ln: out = LN1(x + drop(a @ Wo + bo)) at any C % 128
-// == 0 from 128 to 2048 (one kernel, C passed at run time); its train form
-// (dropout, the normalised rows and 1/std) at C = 256, 512 and 768.
+// == 0 from 128 to 2048 (one kernel, C passed at run time), in its
+// inference form and its train form (dropout, the normalised rows and
+// 1/std).
 //
 // Replaces: the per-head output projection and the first LayerNorm inside
 // ppgs_tpu/ops/encoder_layer_kernel.py _layer_body
@@ -38,7 +39,13 @@
 // 128 (384, 640, ...) the last block's tile is 128 columns wide in the
 // same 256-column layout: it loads two of its four Wo boxes and four of
 // its eight x boxes, its other 128 accumulators are kept at 0 and out of
-// the sums (residual_ln.cuh), and it stores four boxes. Eight ranks, the
+// the sums (residual_ln.cuh), and it stores four boxes. Such widths take
+// an instance of their own, with the epilogue compiled twice (the 256-
+// and the 128-column copy), and their train form a third, whose 128-column
+// copy has the dropout and the saved rows too: a second copy slowed the
+// first by 18% (scripts/torch_layer_width_probe.py), so C % 256 == 0 keeps
+// the instance that has one, and inference the narrow copy without the
+// train form's work. Eight ranks, the
 // portable cluster's most, cap C at 2048. The products are a few
 // microseconds a tile; the time goes to moving x in and out (and n) out,
 // fp32, and to the epilogue, which the products cannot hide. So:
@@ -93,9 +100,12 @@ constexpr int SMEM = X_BYTES + STAGES * R::STAGE + (2 * STAGES + 1) * 8 +
                      2 * BM * 4 + 1024;
 static_assert(SMEM <= 232448, "more shared memory than a block may have");
 
-// NARROW: the instance for C % 256 == 128, whose last block's tile has
-// 128 columns (its epilogue a copy of its own)
-template <bool NARROW>
+// The instances by the last block's tile: C % 256 == 0 (WIDE), or 128
+// columns with the epilogue copied for them, without the train form's
+// dropout and saved rows (NARROW) or with them (NARROW_TRAIN)
+enum Tiles { WIDE = 0, NARROW = 1, NARROW_TRAIN = 2 };
+
+template <int TILES>
 __global__ void __launch_bounds__(THREADS, 1)
 out_proj_ln_kernel(const __grid_constant__ CUtensorMap map_a,
                    const __grid_constant__ CUtensorMap map_w,
@@ -202,9 +212,9 @@ out_proj_ln_kernel(const __grid_constant__ CUtensorMap map_a,
   // The epilogue, for a block of `groups` 8-column groups: 32, or 16 in a
   // last tile of 128 columns. Each block takes the copy of its width, so
   // that the count is a constant in each (the residual reads then batch as
-  // they did at the fixed widths); a last tile of 128 columns is an
-  // inference width's (the train form takes 256, 512 and 768), so its copy
-  // is compiled without the dropout and the saved rows
+  // they did at the fixed widths); the NARROW instance's 128-column copy
+  // is compiled without the dropout and the saved rows, NARROW_TRAIN's
+  // with them
   const auto epilogue = [&](auto width, const ppgs::Dropout& dropped,
                             bool save_rows) {
     constexpr int G = decltype(width)::value;
@@ -262,8 +272,10 @@ out_proj_ln_kernel(const __grid_constant__ CUtensorMap map_a,
     // No block leaves while a peer reads its sums
     if (ranks > 1) cg::this_cluster().sync();
   };
-  if (!NARROW || groups == OUT_BN / 8)
+  if (TILES == WIDE || groups == OUT_BN / 8)
     epilogue(std::integral_constant<int, OUT_BN / 8>{}, drop, stats);
+  else if constexpr (TILES == NARROW_TRAIN)
+    epilogue(std::integral_constant<int, OUT_BN / 16>{}, drop, stats);
   else
     epilogue(std::integral_constant<int, OUT_BN / 16>{}, ppgs::Dropout{},
              false);
@@ -272,7 +284,8 @@ out_proj_ln_kernel(const __grid_constant__ CUtensorMap map_a,
 int launch_width(const void* a, const void* w, const void* bias,
                  const void* x, const void* gamma, const void* beta,
                  void* out, void* n_out, void* rstd, int M, int C,
-                 int clusters, ppgs::Dropout drop, cudaStream_t s) {
+                 int clusters, bool train, ppgs::Dropout drop,
+                 cudaStream_t s) {
   // x, out and n in boxes of 32 fp32 columns of a tile's rows
   CUtensorMap map_a, map_w, map_x, map_out, map_n;
   if (!encode(&map_a, a, false, M, C, C, 64, BM) ||
@@ -282,8 +295,10 @@ int launch_width(const void* a, const void* w, const void* bias,
       (n_out && !encode(&map_n, n_out, true, M, C, C, 32, BM)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (!n_out) map_n = map_out;        // not read
-  return launch(C % OUT_BN ? out_proj_ln_kernel<true>
-                           : out_proj_ln_kernel<false>, THREADS, SMEM,
+  const auto kernel = C % OUT_BN == 0 ? out_proj_ln_kernel<WIDE>
+                      : train          ? out_proj_ln_kernel<NARROW_TRAIN>
+                                       : out_proj_ln_kernel<NARROW>;
+  return launch(kernel, THREADS, SMEM,
                 dim3(clusters * ln_ranks(C)), ln_ranks(C), s, map_a, map_w,
                 map_x, map_out, map_n, static_cast<const float*>(bias),
                 static_cast<const float*>(gamma),
@@ -295,8 +310,8 @@ int launch_width(const void* a, const void* w, const void* bias,
 
 // a (M, C) bf16, w (C, C) bf16, bias/gamma/beta (C) fp32, x (M, C) fp32 ->
 // out (M, C) fp32, and n_out (M, C) and rstd (M) fp32 unless null; every
-// array but rstd 16-byte aligned; C % 128 == 0, 128 <= C <= 2048, and C =
-// 256, 512 or 768 for the train form (n_out, or the dropout on);
+// array but rstd 16-byte aligned; C % 128 == 0, 128 <= C <= 2048, in
+// both forms (the train form: n_out, rstd or the dropout on);
 // `clusters`, the grid's clusters of ceil(C / 256) blocks, one a 128-row
 // tile (the wrapper's plan). The dropout site (threshold 0: off) drops a @
 // w + bias. Anything else returns cudaErrorInvalidValue (the Python
@@ -313,8 +328,7 @@ extern "C" int ppgs_out_proj_ln(const void* a, const void* w, const void* bias,
   for (const void* p : arrays)
     aligned = aligned && reinterpret_cast<uintptr_t>(p) % 16 == 0;
   const bool train = n_out || rstd || threshold;
-  if (C % 128 || C < 128 || C > MAX_C || M < 0 || !aligned ||
-      (train && C != 256 && C != 512 && C != 768))
+  if (C % 128 || C < 128 || C > MAX_C || M < 0 || !aligned)
     return static_cast<int>(cudaErrorInvalidValue);
   if (clusters != (M + BM - 1) / BM)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -323,5 +337,5 @@ extern "C" int ppgs_out_proj_ln(const void* a, const void* w, const void* bias,
       ppgs::make_dropout(seed_lo, seed_hi, site, threshold, scale);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return launch_width(a, w, bias, x, gamma, beta, out, n_out, rstd, M, C,
-                      clusters, drop, s);
+                      clusters, train, drop, s);
 }

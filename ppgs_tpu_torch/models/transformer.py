@@ -32,7 +32,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from ..config import Config
-from ..ops import backward, dropout
+from ..ops import dropout
 from ..ops import encoder_layer_kernel as elk
 from ..ops import encoder_layer_train as elt
 from ..ops import flash_attention as fa
@@ -40,34 +40,17 @@ from ..ops import fused_ffn
 from ..ops.masking import mask_from_lengths
 
 
-def kernel_widths():
-    """The (C, d_head) pairs that every kernel on the training path takes,
-    read from the kernels' own tables: K3's train form, K4's train forms
-    with ReLU (the LayerNorm and the bf16 output), the train backward's C,
-    and the head widths of the inference and train attention (K1 takes
-    every C of the inference rule)."""
-    widths = (
-        set(elk.OUT_PROJ_TRAIN_WIDTHS) & set(fused_ffn.TRAIN_LN_WIDTHS)
-        & {c for c, act in fused_ffn.Y_OUT_WIDTHS if act == 'relu'}
-        & set(fused_ffn.TRAIN_BWD_WIDTHS) & set(backward.LN_BWD_WIDTHS))
-    d_heads = set(fa.D_HEADS) & set(fa.TRAIN_D_HEADS)
-    return tuple(sorted((c, d) for c in widths for d in d_heads
-                        if c % d == 0))
-
-
-# (C, d_head) of the PPG transformers whose layers the card's kernels take
-# in training: C = 256, 512 and 768 with d_head 128 or 256 (the mel model,
-# and the w2v2fb and w2v2fc heads, among them)
-KERNEL_WIDTHS = kernel_widths()
-
-
 def inference_width_ok(C, d_head):
-    """Whether the card's inference kernels take a PPG transformer of
-    width C with heads of d_head: K1, K3 and K4's width rule
-    (``fused_ffn.width_ok``: C % 128 == 0 up to 2048) and K2's head widths
-    that the JAX rule sends to the kernels (d_head % 128 == 0: 128, 256)."""
+    """Whether the card's kernels take a PPG transformer of width C with
+    heads of d_head, in inference and in training: the layer kernels' width
+    rule (``fused_ffn.width_ok``: C % 128 == 0 up to 2048; K1, K3 and K4
+    in their inference and train forms, ``ffn_train_bwd`` and
+    ``ln_dropout_bwd``) and the head widths that the JAX rule sends to the
+    kernels (d_head % 128 == 0: 128 and 256, which K2 and the train
+    attention both take)."""
     return (fused_ffn.width_ok(C) and d_head in fa.D_HEADS
-            and d_head % 128 == 0 and C % d_head == 0)
+            and d_head in fa.TRAIN_D_HEADS and d_head % 128 == 0
+            and C % d_head == 0)
 
 # Longest window of the train kernels (the JAX package's
 # TRAIN_KERNEL_MAX_T): the whole-layer kernel takes T % 8 == 0 up to it,
@@ -279,29 +262,24 @@ def use_kernels(config: Config, device, train=False) -> bool:
 
     The fp32 config (the strict-parity path) and bf16 at other head widths
     run plain torch, on the card too, as the JAX package runs XLA there:
-    a static choice from the config, not a fallback. Two gates on a CUDA
-    device: in inference the card's kernels take every width of the JAX
-    rule up to C = 2048 with d_head 128 or 256 (``inference_width_ok``);
-    in training (``train``) the pairs of ``KERNEL_WIDTHS`` (C = 256, 512
-    and 768 with d_head 128 or 256: the mel model's (256, 128) and the
-    w2v2fb and w2v2fc heads' (512, 256) among them). Another width that
-    the rule sends to a kernel raises there, naming ROADMAP.md."""
+    a static choice from the config, not a fallback. One gate on a CUDA
+    device, the same in inference and in training (``train``, which the
+    train forward, ``train()`` and a PP train step pass): the card's
+    kernels take every width of the JAX rule up to C = 2048 with d_head
+    128 or 256 (``inference_width_ok``). Another width that the rule sends
+    to a kernel (past 2048, d_head 384 or more) raises there, naming
+    ROADMAP.md."""
     C, heads = config.hidden_channels, config.attention_heads
     d_head = C // heads
     kernel = config.compute_dtype == 'bfloat16' and d_head % 128 == 0
     if not kernel or torch.device(device).type != 'cuda':
         return kernel
-    if train and (C, d_head) not in KERNEL_WIDTHS:
-        raise NotImplementedError(
-            f'The CUDA train kernels take (C, d_head) in {KERNEL_WIDTHS}; '
-            f'config {config.config!r} has C = {C} with d_head = {d_head}, '
-            f'whose training is not ported to the card (ROADMAP.md)')
     if not inference_width_ok(C, d_head):
         raise NotImplementedError(
             f'The CUDA kernels take C % 128 == 0 up to '
-            f'{fused_ffn.MAX_WIDTH} with d_head 128 or 256; config '
-            f'{config.config!r} has C = {C} with d_head = {d_head}, which is '
-            f'not ported to the card (ROADMAP.md)')
+            f'{fused_ffn.MAX_WIDTH} with d_head 128 or 256 in inference and '
+            f'training; config {config.config!r} has C = {C} with d_head = '
+            f'{d_head}, which is not ported to the card (ROADMAP.md)')
     return kernel
 
 

@@ -272,12 +272,13 @@ def ln_dropout_bwd_reference(g, n, rstd, gamma, drop, cd, want_dz=True):
             masked.to(cd).reshape(g.shape), partial)
 
 
-# The LayerNorm backward kernel's widths (kernels/csrc/layer_train.cu)
-LN_BWD_WIDTHS = (256, 512, 768)
+# The widest C of the LayerNorm backward kernel (kernels/csrc/layer_train.cu)
+LN_BWD_MAX_WIDTH = 2048
 
 
 def ln_dropout_bwd(g, n, rstd, gamma, drop, cd, want_dz=True):
-    """Per row of g (..., C), C in ``LN_BWD_WIDTHS``: dz = the LayerNorm
+    """Per row of g (..., C), C % 128 == 0 from 128 to
+    ``LN_BWD_MAX_WIDTH`` (the layer kernels' width rule): dz = the LayerNorm
     backward of g given the normalised rows n and 1/std rstd (dz = g when n
     is None), and
     masked = keep ? dz / (1 - rate) : 0 for the Drop ``drop``. Returns
@@ -286,9 +287,11 @@ def ln_dropout_bwd(g, n, rstd, gamma, drop, cd, want_dz=True):
     if g.device.type == 'cpu':
         return ln_dropout_bwd_reference(g, n, rstd, gamma, drop, cd, want_dz)
     C = g.shape[-1]
-    if C not in LN_BWD_WIDTHS or cd != torch.bfloat16:
-        raise ValueError(f'ln_dropout_bwd kernel takes C in {LN_BWD_WIDTHS} '
-                         f'and bf16; got C={C}, {cd}')
+    if (C % 128 or not 128 <= C <= LN_BWD_MAX_WIDTH
+            or cd != torch.bfloat16):
+        raise ValueError(f'ln_dropout_bwd kernel takes C % 128 == 0, 128 <= '
+                         f'C <= {LN_BWD_MAX_WIDTH}, and bf16; got C={C}, '
+                         f'{cd}')
     dev = g.device
     if g.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f'g: expected fp32 or bf16, got {g.dtype}')

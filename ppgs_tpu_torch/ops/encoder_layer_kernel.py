@@ -13,15 +13,15 @@ kernels, and the fp32 residual goes through device memory between them:
     K2 attention             a   = softmax(mask(q k^T)) v per head
                              (ops/flash_attention.py; d_head 64, 128, 256)
     K3 out_proj_residual_ln  r   = LN1(x + a @ Wo + bo)              (here;
-                             with dropout and saved LN statistics, at C =
-                             256, 512 and 768, it is also the training
-                             layer's, ops/encoder_layer_train.py)
+                             with dropout and saved LN statistics it is
+                             also the training layer's,
+                             ops/encoder_layer_train.py)
     K4 ffn_residual_ln       x   = LN2(r + act(r @ W1 + b1) @ W2 + b2)
                              (ops/fused_ffn.py; ReLU or tanh-GELU)
 
 K1, K3 and K4 take every width of the JAX kernels' rule up to 2048
-(``width_ok``: C % 128 == 0, 128 <= C <= ``MAX_WIDTH``), and their C entry
-points check the same rule.
+(``width_ok``: C % 128 == 0, 128 <= C <= ``MAX_WIDTH``), K3 and K4 in their
+train forms too, and their C entry points check the same rule.
 
 As in ``encoder_stack_streamed``, the input is widened to fp32 once, the
 residual stays fp32 across all layers, and the caller rounds the output
@@ -49,8 +49,6 @@ from .fused_ffn import (MAX_WIDTH, ffn_residual_ln,
                         width_ok)
 
 MAX_SEQ = 1024      # windows up to this length take the stack (as on the TPU)
-# K3's train form (dropout, the normalised rows and 1/std saved)
-OUT_PROJ_TRAIN_WIDTHS = (256, 512, 768)
 
 
 def qkv_proj_reference(x, wqkv, bqkv):
@@ -111,19 +109,14 @@ def out_proj_residual_ln_reference(a, wo, bo, x, scale, bias):
                       scale.float(), bias.float())
 
 
-def out_proj_ln_args(a, wo, bo, x, gamma, beta, train=False):
+def out_proj_ln_args(a, wo, bo, x, gamma, beta):
     """Check K3's operands and return its row count; raise ValueError on
-    what the kernel does not take, before anything is launched: a C not
-    under the width rule (``width_ok``; ``OUT_PROJ_TRAIN_WIDTHS`` for the
-    ``train`` form), a not bf16 with last dim C, x not fp32 of a's shape,
-    wo not bf16 (C, C), bo, gamma or beta not fp32 (C,), any of them on
-    another device than a or not contiguous, or one not 16-byte aligned
-    (TMA and the kernel's vector loads)."""
+    what the kernel does not take, before anything is launched, in either
+    form: a C not under the width rule (``width_ok``), a not bf16 with last
+    dim C, x not fp32 of a's shape, wo not bf16 (C, C), bo, gamma or beta
+    not fp32 (C,), any of them on another device than a or not contiguous,
+    or one not 16-byte aligned (TMA and the kernel's vector loads)."""
     C = wo.shape[0] if wo.dim() == 2 else 0
-    if train and C not in OUT_PROJ_TRAIN_WIDTHS:
-        raise ValueError(f'out_proj_ln kernel takes C in '
-                         f'{OUT_PROJ_TRAIN_WIDTHS} in its train form; got wo '
-                         f'{tuple(wo.shape)}')
     if not width_ok(C):
         raise ValueError(f'out_proj_ln kernel takes C % 128 == 0, 128 <= C '
                          f'<= {MAX_WIDTH}; got wo {tuple(wo.shape)}')
@@ -157,8 +150,7 @@ def launch_out_proj_ln(a, wo, bo, x, gamma, beta, drop=dropout.OFF,
     LN1(x + drop(a @ wo + bo)) with a (..., C) bf16, x (..., C) fp32 on
     the card, ``drop`` a ``dropout.Drop``. Returns (out fp32, and with
     ``stats`` the normalised rows and 1/std (M,), else None, None)."""
-    M = out_proj_ln_args(a, wo, bo, x, gamma, beta,
-                         train=stats or drop.on)
+    M = out_proj_ln_args(a, wo, bo, x, gamma, beta)
     dev = a.device
     C, _, _, clusters = out_proj_ln_plan(M, wo.shape[0])
     out = torch.empty_like(x)

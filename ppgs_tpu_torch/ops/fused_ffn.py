@@ -27,7 +27,8 @@ are in the CUDA source.
 The training FFN with dropout (``ffn_train``, the TPU's ``ffn_train``, and
 the FFN half of the whole-layer train kernel) is at the end of this module:
 its forward is K4 with the dropout sites on, its backward a kernel of its
-own (``kernels/csrc/ffn_train.cu``).
+own (``kernels/csrc/ffn_train.cu``); both take every width of the rule with
+ReLU.
 """
 
 import collections
@@ -43,21 +44,15 @@ LN_EPS = 1e-5
 # (kernels/csrc/residual_ln.cuh)
 MAX_WIDTH = 2048
 ACTIVATIONS = ('relu', 'gelu')
-# The train forms' widths: K4 with its dropout sites or the normalised
-# rows saved (ReLU), its bf16-output form (ffn_train's forward), and the
-# FFN backward kernel (kernels/csrc/ffn_train.cu)
-TRAIN_LN_WIDTHS = (256, 512, 768)
-Y_OUT_WIDTHS = ((256, 'relu'), (512, 'relu'), (768, 'relu'))
-TRAIN_BWD_WIDTHS = (256, 512, 768)
 # The width whose hidden stays on chip (one kernel, ReLU); the others take
 # two launches through an (M, F) bf16 hidden (kernels/csrc/ffn_ln.cu's note)
 FUSED_WIDTH = 256
 
 
 def width_ok(C):
-    """The inference width rule of K1, K3 and K4, which their C entry
-    points check too: the JAX kernels' C % 128 == 0, from 128 to
-    ``MAX_WIDTH``."""
+    """The width rule of K1, K3 and K4 (their train forms too) and of the
+    train backward kernels, which their C entry points check too: the JAX
+    kernels' C % 128 == 0, from 128 to ``MAX_WIDTH``."""
     return C % 128 == 0 and 128 <= C <= MAX_WIDTH
 
 
@@ -116,25 +111,20 @@ def _launch_ffn(x, w1, b1, w2, b2, ln=None, round_input=False,
                 activation='relu'):
     """Check the operands and launch K4 (``kernels/csrc/ffn_ln.cu``) on the
     card: one kernel at C = 256 with ReLU, two (through ``hidden_scratch``)
-    at every other width. ``ln`` = (gamma, beta): x (..., C) fp32 with C
-    under the width rule (``width_ok``) and ReLU or GELU, or, for the train
-    forms (``stats``, or a dropout site on), C in ``TRAIN_LN_WIDTHS`` with
-    ReLU; returns (LN(...) fp32, and with ``stats`` the normalised rows and
-    1/std (M,), else None, None). ``ln`` None: x (..., C) bf16 with (C,
-    activation) in ``Y_OUT_WIDTHS``, returns (the bf16 output, None,
-    None). Last, the hidden's keep words (``keep_words_shape`` int32) where
-    ``drop_h`` drops it (the train forms), else None."""
+    at every other width; C under the width rule (``width_ok``) in every
+    form. ``ln`` = (gamma, beta): x (..., C) fp32 with ReLU or GELU, or
+    ReLU for the train forms (``stats``, or a dropout site on); returns
+    (LN(...) fp32, and with ``stats`` the normalised rows and 1/std (M,),
+    else None, None). ``ln`` None: x (..., C) bf16 with ReLU, returns (the
+    bf16 output, None, None). Last, the hidden's keep words
+    (``keep_words_shape`` int32) where ``drop_h`` drops it (the train
+    forms), else None."""
     C, F = w1.shape
-    train = stats or drop_h.on or drop_y.on
-    if not ln:
-        taken, rule = (C, activation) in Y_OUT_WIDTHS, f'in {Y_OUT_WIDTHS}'
-    elif train:
-        taken = C in TRAIN_LN_WIDTHS and activation == 'relu'
-        rule = f'(C, relu), C in {TRAIN_LN_WIDTHS}, in its train forms'
-    else:
-        taken = width_ok(C) and activation in ACTIVATIONS
-        rule = (f'C % 128 == 0, 128 <= C <= {MAX_WIDTH}, activation in '
-                f'{ACTIVATIONS}')
+    train = not ln or stats or drop_h.on or drop_y.on
+    activations = ('relu',) if train else ACTIVATIONS
+    taken = width_ok(C) and activation in activations
+    rule = (f'C % 128 == 0, 128 <= C <= {MAX_WIDTH}, activation in '
+            f'{activations}')
     if not taken or F % 128:
         raise ValueError(f'ffn_ln kernel takes (C, activation) {rule} and '
                          f'F%128==0; got C={C}, {activation}, F={F}')
@@ -233,9 +223,9 @@ def bwd_mask_words(M, F, C):
     its hd pass hands the dh pass a bit for each hidden element of each
     128-row block, two words a thread of the warpgroup that takes a chunk
     of 64 columns (bit 4j + e of word u: its accumulator register 4j + e
-    of row tile u, kept and relu'd on); none at 256 (one launch) and 768
-    (whose dh pass reads the mask from hd: hd > 0 exactly where the unit is
-    kept and relu'd on)."""
+    of row tile u, kept and relu'd on); none at 256 (one launch) and at the
+    others (the run-time route, whose dh pass reads the mask from hd: hd >
+    0 exactly where the unit is kept and relu'd on)."""
     return -(-M // 128) * 128 * F // 32 if C == 512 else 0
 
 
@@ -405,9 +395,9 @@ def ffn_train_bwd_reference(x, dy, w1, b1, w2, drop_h, keep,
 def ffn_train_bwd(x, dy, w1, b1, w2, drop_h, keep, residual=None):
     """The FFN's backward up to its input (``kernels/csrc/ffn_train.cu``:
     one launch at C = 256, three at 512, which hand a mask over through a
-    scratch of ``bwd_mask_words``, and three at 768, whose hidden passes
-    read W1 as stored and W2 transposed): x as the forward took it, C in
-    ``TRAIN_BWD_WIDTHS``, dy (..., C) bf16 the gradient of the dropped
+    scratch of ``bwd_mask_words``, and three at every other C, whose hidden
+    passes read W1 as stored and W2 transposed): x as the forward took it,
+    C under ``width_ok``, dy (..., C) bf16 the gradient of the dropped
     output, already masked, keep the forward's keep words (None at rate 0);
     recomputes the hidden. Returns (dx: fp32 plus ``residual`` for an fp32
     x, bf16 for a bf16 x; hd and bf16(dh), (M, F) bf16; db1 partial sums
@@ -416,9 +406,9 @@ def ffn_train_bwd(x, dy, w1, b1, w2, drop_h, keep, residual=None):
         return ffn_train_bwd_reference(x, dy, w1, b1, w2, drop_h, keep,
                                        residual)
     C, F = w1.shape
-    if C not in TRAIN_BWD_WIDTHS or F % 128:
-        raise ValueError(f'ffn_train kernel takes C in {TRAIN_BWD_WIDTHS}, '
-                         f'F%128==0; got C={C}, F={F}')
+    if not width_ok(C) or F % 128:
+        raise ValueError(f'ffn_train kernel takes C % 128 == 0, 128 <= C <= '
+                         f'{MAX_WIDTH}, F%128==0; got C={C}, F={F}')
     dev = x.device
     x_f32 = x.dtype == torch.float32
     if x_f32 != (residual is not None):
@@ -446,13 +436,15 @@ def ffn_train_bwd(x, dy, w1, b1, w2, drop_h, keep, residual=None):
     words = bwd_mask_words(M, F, C)
     mask = torch.empty(words, dtype=torch.int32, device=dev) if words else None
     # W1 transposed: its (F, C) rows are the operand form of both of the
-    # kernel's products with it (the source's note); at C = 768 the hidden
-    # passes take W1 as stored and W2 transposed, (C, F) both
+    # kernel's products with it (the source's note); on the run-time route
+    # (every C but 256 and 512) the hidden passes take W1 as stored and W2
+    # transposed, (C, F) both
+    any_route = C not in (256, 512)
     w1t = w1.t().contiguous()
-    w2t = w2.t().contiguous() if C == 768 else None
+    w2t = w2.t().contiguous() if any_route else None
     kernels.launch('ppgs_ffn_train_bwd', x.data_ptr(), int(x_f32),
                    dy.data_ptr(), w1t.data_ptr(), b1.data_ptr(),
-                   w2.data_ptr(), w1.data_ptr() if C == 768 else None,
+                   w2.data_ptr(), w1.data_ptr() if any_route else None,
                    kernels.ptr(w2t), kernels.ptr(keep if drop_h.on else None),
                    kernels.ptr(residual), dx.data_ptr() if x_f32 else None,
                    None if x_f32 else dx.data_ptr(), hd.data_ptr(),

@@ -23,8 +23,8 @@ process group (``comm.py``):
   slices, and returns a ``TPView``: the module as the model code reads
   it, whose sharded tensors are all-gathered when a layer reads them, just
   before its fused kernel runs on the whole weight, and dropped with the
-  layer. The kernels take fixed widths (``models.transformer
-  .KERNEL_WIDTHS``; K3 and K4 fuse the row-parallel product with the
+  layer. The kernels take whole widths (``models.transformer
+  .inference_width_ok``; K3 and K4 fuse the row-parallel product with the
   residual and the LayerNorm, which cannot be split across an all-reduce),
   so TP keeps the weights (and Adam's moments) sharded and computes on the
   whole weight: what XLA's partitioner does around a Pallas call that it

@@ -495,7 +495,8 @@ def train(dataset=None, directory=None, config=None, max_steps=None,
     config = config_mod.get(config)
     device = devices.resolve(device)
     if config.model == 'transformer':
-        # raises for a width the card's train kernels do not take yet
+        # raises for a width the card's kernels do not take (past 2048,
+        # d_head 384 or more), before anything runs
         models.transformer.use_kernels(config, device, train=True)
     backend = config.checkpoint_backend
     multihost.initialize(device=device)

@@ -1,21 +1,26 @@
 #!/usr/bin/env python3
-"""Time the port's layer kernels K1, K3 and K4 at the registered widths on
-one CUDA card, beside another checkout's.
+"""Time the port's layer kernels K1, K3 and K4 and the train kernels at the
+registered widths on one CUDA card, beside another checkout's.
 
     python3 scripts/torch_layer_width_probe.py [--root DIR] [--reps N]
         [--variants ...]
 
 Builds this checkout's kernels and, with ``--root``, the ``qkv_proj.cu``,
-``out_proj_ln.cu`` and ``ffn_ln.cu`` of another checkout with the same
-entry points (e.g. ``git archive <commit> ppgs_tpu_torch`` unpacked under
+``out_proj_ln.cu``, ``ffn_ln.cu``, ``ffn_train.cu`` and ``layer_train.cu``
+of another checkout with the same entry points (e.g. ``git archive
+<commit> ppgs_tpu_torch`` unpacked under
 ``runs/``; nvcc into ``runs/layer_width_probe/``, gitignored, ptxas's
 registers and spills printed), and runs both through this checkout's
 wrappers at chip_smoke.py's main-path shapes of the registered widths: K1
 at mel (64,000 x 256), the w2v2fb head (64,000 x 512), the wav2vec2-base
 trunk (25,600 x 768) and the training shape (131,072 x 256); K3 at the
 first three; K4 at mel (ReLU, F = 2048), the head (ReLU, F = 2048), the
-trunk (GELU, F = 3072) and C = 768 with ReLU (64,000 rows, F = 2048). It
-prints whether the root's outputs equal this checkout's bit for bit, then
+trunk (GELU, F = 3072) and C = 768 with ReLU (64,000 rows, F = 2048); and
+the train forms at C = 256, 512 and 768 on the training shape (131,072
+rows, F = 2048, dropout 0.1): K3's, K4's LayerNorm and y_out forms,
+ffn_train_bwd (fp32 x) and ln_dropout_bwd. It prints whether the root's
+outputs (every output of a train form) equal this checkout's bit for bit,
+then
 times both in turns (this, root, root, this): CUDA-event medians of
 ``--reps`` runs and the profiler's device time per call by kernel. Prints
 the card's name and power limit, then one JSON line. ``--variants``
@@ -36,15 +41,17 @@ from pathlib import Path
 import torch
 
 REPO = Path(__file__).resolve().parents[1]
-SYMBOLS = ('ppgs_qkv_proj', 'ppgs_out_proj_ln', 'ppgs_ffn_ln')
+SYMBOLS = ('ppgs_qkv_proj', 'ppgs_out_proj_ln', 'ppgs_ffn_ln',
+           'ppgs_ffn_train_bwd', 'ppgs_ln_dropout_bwd')
 # (label, rows, C) of K1 and K3; (label, rows, C, activation, F) of K4
 K1_CASES = (('mel', 64_000, 256), ('head', 64_000, 512),
             ('trunk', 25_600, 768), ('train', 131_072, 256))
 K3_CASES = K1_CASES[:3]
 # Text substitutions of this checkout's sources: name -> (C entry point,
 # substitutions)
-WIDE_ONLY = ('    if (!NARROW || ln_groups(C, n0) == OUT_BN / 8)',
-             '    if (true)')
+WIDE_ONLY = ('    if (TILES == WIDE || ln_groups(C, n0) == OUT_BN / 8)\n'
+             '      residual_ln(',
+             '    if (true)\n      residual_ln(')
 K1_LOOP = '\n  for (int k = 0; k < plan.steps; ++k) {'   # the consumers'
 VARIANTS = {
     'wide_only': ('ppgs_ffn_ln', (WIDE_ONLY,)),
@@ -60,6 +67,8 @@ K4_CASES = (('mel', 64_000, 256, 'relu', 2048),
             ('head', 64_000, 512, 'relu', 2048),
             ('trunk', 25_600, 768, 'gelu', 3072),
             ('c768', 64_000, 768, 'relu', 2048))
+# The train forms: the registered widths at the training shape
+TRAIN_C, TRAIN_M, TRAIN_F, TRAIN_RATE = (256, 512, 768), 131_072, 2048, 0.1
 
 
 def build(jobs, out_dir):
@@ -107,7 +116,9 @@ def main():
     sys.path.insert(0, str(REPO))
     import chip_smoke as cs
     from ppgs_tpu_torch import kernels
+    from ppgs_tpu_torch.ops import backward, dropout
     from ppgs_tpu_torch.ops import encoder_layer_kernel as elk
+    from ppgs_tpu_torch.ops import encoder_layer_train as elt
     from ppgs_tpu_torch.ops import fused_ffn
 
     card = cs.card_line()
@@ -156,6 +167,43 @@ def main():
         cases.append((f'K4 {label} {M} x {C} {act} F={Fh}', 'ppgs_ffn_ln',
                       lambda a=args_k4, act=act: fused_ffn.ffn_residual_ln(
                           *a, activation=act)))
+    M, Fh = TRAIN_M, TRAIN_F
+    drop = dropout.Drop(cs.SEED + 37, 3, TRAIN_RATE)
+    for C in TRAIN_C:
+        k3 = (rnd(M, C, scale=0.5).to(bf16),
+              rnd(C, C, scale=C ** -0.5).to(bf16), rnd(C, scale=0.1),
+              rnd(M, C), rnd(C, scale=0.1, base=1.0), rnd(C, scale=0.1),
+              drop.at(5))
+        cases.append((f'K3 train {M} x {C}', 'ppgs_out_proj_ln',
+                      lambda a=k3: elt.out_proj_ln_train(*a)))
+        x, w1, b1 = (rnd(M, C), rnd(C, Fh, scale=C ** -0.5).to(bf16),
+                     rnd(Fh, scale=0.1))
+        w2, b2 = rnd(Fh, C, scale=Fh ** -0.5).to(bf16), rnd(C, scale=0.1)
+        ln = (rnd(C, scale=0.1, base=1.0), rnd(C, scale=0.1))
+        b4 = (x, w1, b1, w2, b2, drop, drop.at(4), ln)
+        cases.append((f'K4 train B4 {M} x {C} F={Fh}', 'ppgs_ffn_ln',
+                      lambda a=b4: fused_ffn.ffn_train_fwd(*a)))
+        b6 = (x.to(bf16), w1, b1, w2, b2, drop, drop.at(4))
+        cases.append((f'K4 train y_out {M} x {C} F={Fh}', 'ppgs_ffn_ln',
+                      lambda a=b6: fused_ffn.ffn_train_fwd(*a)))
+        keep = fused_ffn.keep_words_reference(drop, M, Fh, dev)
+        bwd = (x, rnd(M, C).to(bf16), w1, b1, w2, drop, keep, rnd(M, C))
+        cases.append((f'ffn_train_bwd {M} x {C} F={Fh}',
+                      'ppgs_ffn_train_bwd',
+                      lambda a=bwd: fused_ffn.ffn_train_bwd(*a)))
+        lnb = (rnd(M, C), rnd(M, C), torch.rand(M, generator=gen,
+                                                device=dev) + 0.5,
+               ln[0], drop.at(6), bf16)
+        cases.append((f'ln_dropout_bwd {M} x {C}', 'ppgs_ln_dropout_bwd',
+                      lambda a=lnb: backward.ln_dropout_bwd(*a)))
+
+    def same(a, b):
+        """Every output equal bit for bit (a train form's tuple too)."""
+        if isinstance(a, tuple):
+            return all(x is y or (x is not None and y is not None
+                                  and torch.equal(x, y))
+                       for x, y in zip(a, b))
+        return torch.equal(a, b)
 
     result = {'card': card, 'equal': {}, 'event_ms': {}, 'device_ms': {}}
     with torch.no_grad():
@@ -168,7 +216,7 @@ def main():
                 return fn()
 
             for name in order[1:]:
-                equal = torch.equal(run(name), run('this'))
+                equal = same(run(name), run('this'))
                 result['equal'][f'{label} {name}'] = equal
                 print(f'{label}: {name}\'s output equals this build\'s bit '
                       f'for bit: {equal}', flush=True)

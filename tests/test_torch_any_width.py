@@ -16,8 +16,10 @@ and npz weights.
   distance from fp32 (the test's note says why not B7's C = 128 limits);
 - the two gates, called for 'cuda' (they need no card): the inference
   gate takes every C % 128 up to 2048 at d_head 128 / 256 and the trunk at
-  d_head 64 / 128; the training gate stays the six pairs; past 2048, d_head
-  512 and a trunk d_head of 32 raise, naming ROADMAP.md.
+  d_head 64 / 128; the training gate is the same rule
+  (tests/test_torch_train_any_width.py holds the train kernels' plain
+  versions there); past 2048, d_head 512 and a trunk d_head of 32 raise,
+  naming ROADMAP.md.
 
 The CUDA kernels run only on a card: ``chip_smoke.py --slices any_width``
 holds each against these plain versions there.
@@ -41,7 +43,7 @@ from ppgs_tpu.ops import encoder_layer_kernel as jax_elk
 from ppgs_tpu.ops import fused_ffn as jax_ffn
 
 import ppgs_tpu_torch
-from ppgs_tpu_torch import convert
+from ppgs_tpu_torch import convert, kernels
 from ppgs_tpu_torch.models import transformer, w2v2
 from ppgs_tpu_torch.ops import encoder_layer_kernel as elk
 from ppgs_tpu_torch.ops import fused_ffn
@@ -267,18 +269,15 @@ def test_inference_gate_takes_every_width_up_to_2048(C):
     assert fused_ffn.width_ok(C)
 
 
-def test_training_gate_stays_the_six_pairs():
-    """The training gate takes the six pairs of C = 256, 512, 768 and
-    d_head 128, 256 and raises at every new width, naming ROADMAP.md."""
-    assert set(transformer.KERNEL_WIDTHS) == {
-        (256, 128), (256, 256), (512, 128), (512, 256), (768, 128),
-        (768, 256)}
+def test_training_gate_takes_the_new_pairs():
+    """The training gate is the inference rule: it takes every new pair
+    here (C = 128, 384, 1024 with d_head 128 or 256) on the card, and the
+    plain path on the CPU."""
     mel = ppgs_tpu_torch.config.get('mel')
     for C, D in PAIRS:
         config = mel.replace(hidden_channels=C, attention_heads=C // D)
         assert transformer.use_kernels(config, 'cuda') is True
-        with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-            transformer.use_kernels(config, 'cuda', train=True)
+        assert transformer.use_kernels(config, 'cuda', train=True) is True
         assert transformer.use_kernels(config, 'cpu', train=True) is True
 
 
@@ -309,9 +308,10 @@ def test_gates_raise_outside_the_rule(C, heads, trunk):
 
 
 @pytest.mark.parametrize('C', (2176, 320))
-def test_wrappers_refuse_widths_outside_the_rule(C):
+def test_wrappers_refuse_widths_outside_the_rule(C, monkeypatch):
     """K1, K3 and K4 refuse a C past 2048 or not a multiple of 128 before
-    anything is launched; K3's and K4's train forms refuse a new width."""
+    anything is launched, in their train forms too; at a new width of the
+    rule (384) K3's and K4's train forms are taken."""
     bf16 = torch.bfloat16
     x, vec = torch.zeros(3, C), torch.zeros(C)
     with pytest.raises(ValueError, match='takes wqkv'):
@@ -325,12 +325,21 @@ def test_wrappers_refuse_widths_outside_the_rule(C):
                               torch.zeros(256),
                               torch.zeros(256, C, dtype=bf16), vec,
                               ln=(vec, vec))
-    x, vec = torch.zeros(3, 384), torch.zeros(384)
-    with pytest.raises(ValueError, match='train form'):
-        elk.out_proj_ln_args(x.to(bf16), torch.zeros(384, 384, dtype=bf16),
-                             vec, x, vec, vec, train=True)
-    with pytest.raises(ValueError, match='train forms'):
-        fused_ffn._launch_ffn(x, torch.zeros(384, 256, dtype=bf16),
+    with pytest.raises(ValueError, match='out_proj_ln kernel'):
+        elk.launch_out_proj_ln(x.to(bf16), torch.zeros(C, C, dtype=bf16),
+                               vec, x, vec, vec, stats=True)
+    with pytest.raises(ValueError, match='ffn_ln kernel'):
+        fused_ffn._launch_ffn(x, torch.zeros(C, 256, dtype=bf16),
                               torch.zeros(256),
-                              torch.zeros(256, 384, dtype=bf16), vec,
+                              torch.zeros(256, C, dtype=bf16), vec,
                               ln=(vec, vec), stats=True)
+    calls = []
+    monkeypatch.setattr(kernels, 'launch', lambda symbol, *args, device:
+                        calls.append(symbol))
+    x, vec = torch.zeros(3, 384), torch.zeros(384)
+    elk.launch_out_proj_ln(x.to(bf16), torch.zeros(384, 384, dtype=bf16),
+                           vec, x, vec, vec, stats=True)
+    fused_ffn._launch_ffn(x, torch.zeros(384, 256, dtype=bf16),
+                          torch.zeros(256), torch.zeros(256, 384, dtype=bf16),
+                          vec, ln=(vec, vec), stats=True)
+    assert calls == ['ppgs_out_proj_ln', 'ppgs_ffn_ln']

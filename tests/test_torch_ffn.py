@@ -27,6 +27,7 @@ from ppgs_tpu.ops import encoder_layer_kernel as jax_elk
 from ppgs_tpu.ops import fused_ffn as jax_ffn
 
 import ppgs_tpu_torch
+from ppgs_tpu_torch import kernels
 from ppgs_tpu_torch.ops import dropout
 from ppgs_tpu_torch.ops import encoder_layer_kernel as elk
 from ppgs_tpu_torch.ops import fused_ffn
@@ -181,17 +182,26 @@ LN = (torch.ones(C), torch.zeros(C))
     (_operands(C_=320), dict(ln=(torch.ones(320), torch.zeros(320))),
      'activation'),                                   # C % 128 != 0
     (_operands(C_=384), dict(ln=(torch.ones(384), torch.zeros(384)),
-                             stats=True), 'train forms'),
+                             stats=True), None),
 ])
 def test_launch_ffn_refuses_what_the_kernel_does_not_take(operands, kwargs,
-                                                          match):
+                                                          match, monkeypatch):
     """The widths, activations, hidden sizes and dtypes that K4 does not
-    take raise before anything is launched: with the LayerNorm, C under the
-    width rule (C % 128 == 0 up to 2048) with ReLU or GELU, and for the
-    train forms C in TRAIN_LN_WIDTHS with ReLU; Y_OUT_WIDTHS ((256, 512 or
-    768, ReLU)) for the bf16 output form; F % 128."""
+    take raise before anything is launched: C under the width rule (C %
+    128 == 0 up to 2048) in every form, with ReLU or GELU in the inference
+    LayerNorm form and ReLU in the train forms and the bf16 output form; F
+    % 128. A train form at a new width of the rule (384; ``match`` None) is
+    launched."""
+    calls = []
+    monkeypatch.setattr(kernels, 'launch', lambda symbol, *args, device:
+                        calls.append(symbol))
+    if match is None:
+        fused_ffn._launch_ffn(*operands, **kwargs)
+        assert calls == ['ppgs_ffn_ln']
+        return
     with pytest.raises(ValueError, match=match):
         fused_ffn._launch_ffn(*operands, **kwargs)
+    assert not calls
 
 
 @pytest.mark.parametrize('C', [256, 512, 768])

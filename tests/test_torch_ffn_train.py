@@ -19,11 +19,16 @@ import torch
 
 import torch_threads  # noqa: F401  (cores shared among xdist workers)
 
+from ppgs_tpu_torch import kernels
 from ppgs_tpu_torch.ops import dropout, fused_ffn
 
 C = 256
 DROP = dropout.Drop(11, 3, 0.1)
 ODD_M = (1, 63, 65, 129)
+# The registered widths, each with a backward form of its own or (768) the
+# run-time route's first width; tests/test_torch_train_any_width.py holds
+# the others
+TRAIN_WIDTHS = (256, 512, 768)
 
 
 def _widths(*cases):
@@ -31,7 +36,7 @@ def _widths(*cases):
     C = 512 cases' ids end in -C512."""
     return [pytest.param(*case, width, id='-'.join(map(str, case)) + (
         '' if width == C else f'-C{width}'))
-            for width in fused_ffn.TRAIN_BWD_WIDTHS for case in cases]
+            for width in TRAIN_WIDTHS for case in cases]
 
 
 def _operands(M, F, seed=0, C=C):
@@ -223,17 +228,29 @@ def _train_operands(M, C, F, x_dtype=torch.float32):
     (512, 200, True, torch.float32, 'F%128'),
     (512, 2048, True, torch.bfloat16, 'x: expected'),
     (512, 2048, False, torch.float32, 'x: expected'),
-    (1024, 3072, False, torch.bfloat16, 'ffn_ln kernel takes'),
-    (384, 2048, True, torch.float32, 'ffn_ln kernel takes')])
+    (1024, 3072, False, torch.bfloat16, None),
+    (384, 2048, True, torch.float32, None)])
 def test_train_launch_refuses_what_the_kernels_do_not_take(C, F, ln, x_dtype,
-                                                          match):
+                                                          match,
+                                                          monkeypatch):
     """K4's train forms refuse, before any launch, a hidden width that is
-    not a multiple of 128, an x of the other form's type (B4's fp32, B6's
-    bf16), and a width without a train instance (1024 and 384 have no
-    instance at all)."""
+    not a multiple of 128 and an x of the other form's type (B4's fp32,
+    B6's bf16); the widths that had no train instance before the train
+    forms took every width of the rule (1024's y_out form, 384's LayerNorm
+    form; ``match`` None) are launched."""
     x, w1, b1, w2, b2 = _train_operands(3, C, F, x_dtype)
     ln_args = (torch.ones(C), torch.zeros(C)) if ln else None
     drop = dropout.Drop(1, 3, 0.1)
+    calls = []
+    monkeypatch.setattr(kernels, 'launch', lambda symbol, *args, device:
+                        calls.append(args[13:16]))
+    launch = (lambda: fused_ffn._launch_ffn(x, w1, b1, w2, b2, ln_args,
+                                            False, drop, drop.at(4),
+                                            stats=True))
+    if match is None:
+        launch()
+        assert calls == [(3, F, C)]
+        return
     with pytest.raises(ValueError, match=match):
-        fused_ffn._launch_ffn(x, w1, b1, w2, b2, ln_args, False, drop,
-                              drop.at(4), stats=True)
+        launch()
+    assert not calls

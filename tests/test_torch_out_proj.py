@@ -117,14 +117,14 @@ PLAN_ROWS = (0,) + EDGE_ROWS + (25_600, 64_000, 131_072)
 def test_out_proj_wrapper_launches_the_plan(C, M, monkeypatch):
     """The wrapper hands the kernel the width (C), the rows and the plan's
     grid: one cluster of ceil(C / 256) blocks a 128-row tile (the train
-    form at the widths it takes)."""
+    form too, at every width)."""
     tiles = -(-M // 128)
     assert elk.out_proj_ln_plan(M, C) == (C, -(-C // 256), tiles, tiles)
     calls = []
     monkeypatch.setattr(kernels, 'launch',
                         lambda symbol, *args, device: calls.append(
                             (symbol, args)))
-    for stats in (False, True)[:1 + (C in elk.OUT_PROJ_TRAIN_WIDTHS)]:
+    for stats in (False, True):
         out, n, rstd = elk.launch_out_proj_ln(*_operands(M, C),
                                               stats=stats)
         symbol, args = calls.pop()
@@ -171,6 +171,14 @@ def test_out_proj_wrapper_refuses_what_the_kernel_does_not_take(
         x = _unaligned(x)
     elif case == 'gamma-unaligned':
         gamma = _unaligned(gamma)
+    elif case == 'train-width':
+        # a width the train form refused before it took every width of the
+        # rule: now launched
+        calls = []
+        monkeypatch.setattr(kernels, 'launch', lambda symbol, *args, device:
+                            calls.append(args[9:11]))
+        elk.launch_out_proj_ln(a, wo, bo, x, gamma, beta, stats=True)
+        assert calls == [(65, C)]
+        return
     with pytest.raises(ValueError):
-        elk.launch_out_proj_ln(a, wo, bo, x, gamma, beta,
-                               stats=case == 'train-width')
+        elk.launch_out_proj_ln(a, wo, bo, x, gamma, beta)

@@ -12,10 +12,11 @@ interpret mode. At C = 768, the width whose FFN kernels are new, the
 plain versions of K4 with ReLU (its LayerNorm form),
 of its two train forms and of ``ffn_train_bwd`` (through ``ffn_train``)
 against the JAX kernels in interpret mode, and ``ln_dropout_bwd``'s against
-autograd. Last the two gates: the training gate ``KERNEL_WIDTHS`` is the
-intersection of the train kernels' own tables, the inference gate the
-layer kernels' width rule, and a width outside a gate that the JAX rule
-sends to its kernels raises on the card, naming ROADMAP.md.
+autograd. Last the gates: the training gate is the intersection of the
+train kernels' own rules (the layer kernels' width rule and the head
+widths of K2 and the train attention), the inference gate the same rule,
+and a width outside it that the JAX rule sends to its kernels raises on
+the card, naming ROADMAP.md.
 
 The CUDA kernels run only on a card: ``chip_smoke.py --slices widths``
 holds each against these plain versions there.
@@ -309,24 +310,24 @@ def test_ln_dropout_bwd_768_matches_autograd(rate):
 
 
 def test_gate_is_the_intersection_of_the_kernel_tables():
-    """The training gate: ``KERNEL_WIDTHS`` is every (C, d_head) that each
-    kernel on the training path takes, read from their tables:
-    the six pairs of C = 256, 512, 768 and d_head 128, 256; the JAX rule
-    takes each of them to the kernels, and on the card the training gate
-    does too."""
-    widths = (set(elk.OUT_PROJ_TRAIN_WIDTHS)
-              & set(fused_ffn.TRAIN_LN_WIDTHS)
-              & {c for c, a in fused_ffn.Y_OUT_WIDTHS if a == 'relu'}
-              & set(fused_ffn.TRAIN_BWD_WIDTHS)
-              & set(backward.LN_BWD_WIDTHS))
-    d_heads = set(fa.D_HEADS) & set(fa.TRAIN_D_HEADS)
-    want = {(c, d) for c in widths for d in d_heads if c % d == 0}
-    assert set(transformer.KERNEL_WIDTHS) == want == {
+    """The training gate takes every (C, d_head) that each kernel on the
+    training path takes, read from their rules: the layer kernels' width
+    rule (``fused_ffn.width_ok``: K1, K3's and K4's train forms,
+    ``ffn_train_bwd``, and ``ln_dropout_bwd`` up to its
+    ``LN_BWD_MAX_WIDTH``) and the head widths of K2 and the train attention
+    that the JAX rule sends to the kernels: 24 pairs, the six pairs of C =
+    256, 512, 768 and d_head 128, 256 among them."""
+    d_heads = {d for d in set(fa.D_HEADS) & set(fa.TRAIN_D_HEADS)
+               if d % 128 == 0}
+    want = {(c, d) for c in range(128, backward.LN_BWD_MAX_WIDTH + 1, 128)
+            for d in d_heads if fused_ffn.width_ok(c) and c % d == 0}
+    assert len(want) == 24 and want > {
         (256, 128), (256, 256), (512, 128), (512, 256), (768, 128),
         (768, 256)}
     mel = ppgs_tpu_torch.config.get('mel')
-    for C, D in transformer.KERNEL_WIDTHS:
+    for C, D in want:
         config = mel.replace(hidden_channels=C, attention_heads=C // D)
+        assert transformer.inference_width_ok(C, D)
         assert transformer.use_kernels(config, 'cuda', train=True) is True
 
 
@@ -334,8 +335,8 @@ def test_inference_gate_is_the_width_rule():
     """The inference gate: every (C, d_head) of the layer kernels' width
     rule (C % 128 == 0 up to 2048) with K2's head widths that the JAX rule
     sends to the kernels (128, 256) runs on the card, the six training
-    pairs among them; the rule is ``fused_ffn.width_ok``, which K1's and
-    K3's wrappers check too."""
+    pairs among them, as in training; the rule is ``fused_ffn.width_ok``,
+    which K1's and K3's wrappers check too."""
     mel = ppgs_tpu_torch.config.get('mel')
     admitted = set()
     for C in range(128, 2049, 128):
@@ -345,8 +346,8 @@ def test_inference_gate_is_the_width_rule():
                 continue
             config = mel.replace(hidden_channels=C, attention_heads=C // D)
             assert transformer.use_kernels(config, 'cuda') is True
+            assert transformer.use_kernels(config, 'cuda', train=True)
             admitted.add((C, D))
-    assert set(transformer.KERNEL_WIDTHS) < admitted
     assert len(admitted) == 16 + 8
     assert not any(fused_ffn.width_ok(C) for C in (0, 64, 192, 320, 2176))
 
@@ -355,16 +356,17 @@ def test_inference_gate_is_the_width_rule():
 def test_gate_still_raises_outside_the_tables(C, heads):
     """A width that the JAX rule sends to its kernels and the card's do not
     take raises on the card, naming ROADMAP.md, and takes the plain path on
-    the CPU: C = 1024 with d_head 512 in inference and training; C = 384
-    with d_head 128 in training (the inference gate takes it)."""
+    the CPU: C = 1024 with d_head 512 in inference and training. C = 384
+    with d_head 128, which the training gate refused before the train
+    kernels took every width of the rule, is taken in both."""
     config = ppgs_tpu_torch.config.get('mel').replace(
         hidden_channels=C, attention_heads=heads)
     assert (C // heads) % 128 == 0
-    with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-        transformer.use_kernels(config, 'cuda', train=True)
-    if C // heads > 256:
-        with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-            transformer.use_kernels(config, 'cuda')
-    else:
-        assert transformer.use_kernels(config, 'cuda') is True
+    for train in (False, True):
+        if C // heads > 256:
+            with pytest.raises(NotImplementedError, match='ROADMAP.md'):
+                transformer.use_kernels(config, 'cuda', train=train)
+        else:
+            assert transformer.use_kernels(config, 'cuda',
+                                           train=train) is True
     assert transformer.use_kernels(config, 'cpu', train=True) is True
