@@ -1,14 +1,15 @@
 // K2 attention: masked multi-head attention with an online softmax, read in
-// place from the model's (B, T, C) activation layout, d_head = 64, 128 or
-// 256 (one template instance each).
+// place from the model's (B, T, C) activation layout, d_head = 16, 32, 64,
+// 128 or 256 (one template instance each), and any d_head % 128 == 0 from
+// 384 to 2048 through the wide route (wide_kernel, below).
 //
 // Replaces: ppgs_tpu/ops/flash_attention.py _fused_kernel (T <= 1024) and
-// _flash_kernel (T > 1024) for d_head = 128 and 256, _fused_kernel_packed
-// (d_head < 128: wav2vec2's 12 heads of 64, which the TPU packs two to a
-// 128-lane block; here each head is a block of its own, so nothing needs
-// packing), and the per-head attention inside
+// _flash_kernel (T > 1024) for d_head % 128 == 0, _fused_kernel_packed
+// (d_head < 128: wav2vec2's 12 heads of 64, which the TPU packs 128 /
+// d_head to a 128-lane block; here each head is a block of its own, so
+// nothing needs packing), and the per-head attention inside
 // ppgs_tpu/ops/encoder_layer_kernel.py _layer_body (encoder_stack, and
-// encoder_stack_streamed's 12 x 64 trunk layers).
+// encoder_stack_streamed's trunk layers at d_head 16, 32, 64 or 128).
 //
 // The function: S = Q K^T in fp32; the key mask (and the causal mask)
 // applied BEFORE the row max, as flash_attention and the XLA path do;
@@ -88,7 +89,31 @@
 // serialized ... in divergent path"), and that form ran slower than this
 // one at every width; the two warpgroups of a block already overlap one's
 // softmax with the other's products.
+//
+// d_head 32 and 16 (a wav2vec2 trunk re-headed to 24 or 48 heads; the JAX
+// rule takes any 128 % d_head == 0): the same kernel on operand rows of 64
+// or 32 bytes, TMA boxes and wgmma descriptors with the 64- or 32-byte
+// swizzle (an atom is then the head's own width), one or two k16 steps of
+// S and an m64n32 or m64n16 PV product. d_head 8 and less would need rows
+// narrower than a TMA box's 16 bytes: not ported (ROADMAP.md).
+//
+// d_head 384 to 2048 (the PPG transformer widened with its default two
+// heads: C = 768 to 2048 give d_head 384 to 1024): the wide route of
+// attention_wide.cuh. A block owns 128 query rows and a slice of DS = 256
+// output columns (128 where d_head % 256 != 0); per 64-key tile its ring
+// brings d_head / 64 items of one 64-column atom of the block's Q rows and
+// the tile's K rows (24 KB), over which each warpgroup forms S by the
+// same m64n64k16 steps as above, then one item of the tile's V columns of
+// the slice for O += P V (m64n256k16 or m64n128k16, O 64 x DS fp32 in
+// registers: 128 or 64 a thread). The softmax is the instances' own
+// (softmax_tile), so each slice of a row sees the same p; the slices of a
+// head each form S again: d_head / DS times the score products (2x at
+// 512, 4x at 1024, 8x at 2048), and Q is read from L2 once per key tile.
+// A ring of six 32 KB slots (one block an SM) at DS = 256, four 24 KB
+// slots (two blocks) at 128; O is staged in the idle ring at the end and
+// written by TMA stores.
 
+#include "attention_wide.cuh"
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -98,15 +123,22 @@ namespace {
 
 constexpr int BQ = 128, BKV = 64;   // query rows a block, keys a tile
 constexpr int THREADS = 256;        // two consumer warpgroups
-constexpr int ATOM = 64;            // bf16 columns of a 128-byte swizzle atom
 
 // The shared-memory plan of the instance for head width D
 template <int D>
 struct Plan {
-  static constexpr int STAGES = D == 64 ? 3 : 2;
+  // Bytes a row of a swizzle atom holds: 128 (64 columns) from d_head 64,
+  // the head's own 64 or 32 bytes at d_head 32 or 16
+  static constexpr int SW = D >= 64 ? 128 : 2 * D;
+  static constexpr int ATOM_COLS = SW / 2, ATOMS = D / ATOM_COLS;
+  static constexpr CUtensorMapSwizzle SWIZZLE =
+      SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                : SW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                           : CU_TENSOR_MAP_SWIZZLE_32B;
+  static constexpr int STAGES = D == 64 ? 3 : D < 64 ? 4 : 2;
   static constexpr int BLOCKS = D == 256 ? 1 : 2;  // blocks an SM holds
-  static constexpr int Q_BYTES = BQ * D * 2;       // D / 64 atoms of BQ rows
-  static constexpr int KV_BYTES = BKV * D * 2;     // D / 64 atoms of BKV rows
+  static constexpr int Q_BYTES = BQ * D * 2;       // ATOMS atoms of BQ rows
+  static constexpr int KV_BYTES = BKV * D * 2;     // ATOMS atoms of BKV rows
   static constexpr int STAGE = 2 * KV_BYTES;       // K, then V
   static constexpr int BARS = Q_BYTES + STAGES * STAGE;
   // Q, the ring, full[], empty[], the Q barrier, the release counters, and
@@ -119,6 +151,74 @@ struct Plan {
 
 constexpr float MINUS_INF = -__builtin_huge_valf();
 
+// The masks and the online softmax of one 64-key tile at k0 on S's
+// accumulator (a thread's rows r0 = warp_row + g and r1 = r0 + 8): the key
+// mask `valid` (bit k for key k0 + k) and the causal one where the tile
+// reaches past the diagonal of one of the warp's rows, masked scores -inf;
+// then the row max m and sum l (m in the log2-scaled units of the scores),
+// p = exp2(s scale_log2 - m) packed as bf16 into P's A fragments (a[k]
+// holds keys 16k..16k+15, groups j = 2k in registers 0, 1 and 2k + 1 in
+// 2, 3), and O's correction exp2(m_old - m_new) per row
+__device__ __forceinline__ void softmax_tile(
+    float (&sc)[BKV / 2], uint32_t (&a)[BKV / 16][4], uint64_t valid, int k0,
+    int warp_row, int r0, int r1, int t, int causal, float scale_log2,
+    float& m0, float& m1, float& l0, float& l1, float& corr0,
+    float& corr1) {
+  if (valid != ~0ull || (causal && k0 + BKV - 1 > warp_row)) {
+    const uint64_t bits = valid >> (2 * t);
+#pragma unroll
+    for (int j = 0; j < BKV / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = k0 + 8 * j + 2 * t + e;
+        const bool ok = (bits >> (8 * j + e)) & 1u;
+        if (!ok || (causal && key > r0)) sc[4 * j + e] = MINUS_INF;
+        if (!ok || (causal && key > r1)) sc[4 * j + 2 + e] = MINUS_INF;
+      }
+    }
+  }
+  float x0 = MINUS_INF, x1 = MINUS_INF;
+#pragma unroll
+  for (int j = 0; j < BKV / 8; ++j) {
+    x0 = fmaxf(x0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+    x1 = fmaxf(x1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+  }
+  const float n0 = fmaxf(m0, quad_max(x0) * scale_log2);
+  const float n1 = fmaxf(m1, quad_max(x1) * scale_log2);
+  // A row with no valid key yet keeps m = -inf: subtract 0 instead, so
+  // that its p and its correction are exp2(-inf) = 0, not NaN
+  const float u0 = n0 == MINUS_INF ? 0.f : n0;
+  const float u1 = n1 == MINUS_INF ? 0.f : n1;
+  corr0 = exp2_approx(m0 - u0), corr1 = exp2_approx(m1 - u1);
+  m0 = n0, m1 = n1;
+  // p in fp32 for the row sums, its bf16 pairs as P's A fragments
+  float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < BKV / 8; ++j) {
+    const float p0 = exp2_approx(fmaf(sc[4 * j], scale_log2, -u0));
+    const float p1 = exp2_approx(fmaf(sc[4 * j + 1], scale_log2, -u0));
+    const float p2 = exp2_approx(fmaf(sc[4 * j + 2], scale_log2, -u1));
+    const float p3 = exp2_approx(fmaf(sc[4 * j + 3], scale_log2, -u1));
+    ps0 += p0 + p1;
+    ps1 += p2 + p3;
+    a[j / 2][2 * (j % 2)] = pack_bf16(p0, p1);
+    a[j / 2][2 * (j % 2) + 1] = pack_bf16(p2, p3);
+  }
+  l0 = l0 * corr0 + ps0;
+  l1 = l1 * corr1 + ps1;
+}
+
+// O (64 x N fp32, N / 2 a thread) rescaled by its rows' corrections
+template <int N>
+__device__ __forceinline__ void rescale(float (&o)[N / 2], float corr0,
+                                        float corr1) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    o[4 * j] *= corr0, o[4 * j + 1] *= corr0;
+    o[4 * j + 2] *= corr1, o[4 * j + 3] *= corr1;
+  }
+}
+
 template <int D>
 __global__ void __launch_bounds__(THREADS, Plan<D>::BLOCKS)
 attention_kernel(const __grid_constant__ CUtensorMap map_q,
@@ -128,7 +228,8 @@ attention_kernel(const __grid_constant__ CUtensorMap map_q,
                  const uint8_t* __restrict__ mask, int T, float scale_log2,
                  int causal) {
   using P = Plan<D>;
-  constexpr int STAGES = P::STAGES, ATOMS = D / ATOM;
+  constexpr int STAGES = P::STAGES, ATOMS = P::ATOMS, SW = P::SW;
+  constexpr int AC = P::ATOM_COLS, KPA = SW / 32;   // k16 steps an atom
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sq = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -151,9 +252,9 @@ attention_kernel(const __grid_constant__ CUtensorMap map_q,
     unsigned char* ks = ring + s * P::STAGE;
 #pragma unroll
     for (int j = 0; j < ATOMS; ++j) {
-      tma_load_3d(ks + j * BKV * 128, &map_k, col0 + j * ATOM, i * BKV, b,
+      tma_load_3d(ks + j * BKV * SW, &map_k, col0 + j * AC, i * BKV, b,
                   bar);
-      tma_load_3d(ks + P::KV_BYTES + j * BKV * 128, &map_v, col0 + j * ATOM,
+      tma_load_3d(ks + P::KV_BYTES + j * BKV * SW, &map_v, col0 + j * AC,
                   i * BKV, b, bar);
     }
   };
@@ -165,7 +266,7 @@ attention_kernel(const __grid_constant__ CUtensorMap map_q,
     mbar_expect_tx(qb, P::Q_BYTES);
 #pragma unroll
     for (int j = 0; j < ATOMS; ++j)
-      tma_load_3d(sq + j * BQ * 128, &map_q, col0 + j * ATOM, q0, b, qb);
+      tma_load_3d(sq + j * BQ * SW, &map_q, col0 + j * AC, q0, b, qb);
     for (int i = 0; i < STAGES && i < tiles; ++i) load(i);
   }
   __syncthreads();
@@ -178,7 +279,7 @@ attention_kernel(const __grid_constant__ CUtensorMap map_q,
   const int wg_row = q0 + 64 * c, warp_row = wg_row + 16 * warp;
   const int r0 = warp_row + g, r1 = r0 + 8;
   const uint8_t* mrow = mask + static_cast<long long>(b) * T;
-  const uint32_t q_addr = smem_addr(sq) + c * 64 * 128;
+  const uint32_t q_addr = smem_addr(sq) + c * 64 * SW;
   const uint32_t ring_addr = smem_addr(ring);
 
   float o[D / 2];
@@ -210,7 +311,7 @@ attention_kernel(const __grid_constant__ CUtensorMap map_q,
     if (live) {
       const uint32_t k_addr = ring_addr + s * P::STAGE;
       const uint32_t v_addr = k_addr + P::KV_BYTES;
-      // S = Q K^T: both K-major, 32 bytes of a 128-byte row a step
+      // S = Q K^T: both K-major, 32 bytes of an SW-byte row a step
       float sc[BKV / 2];
 #pragma unroll
       for (int e = 0; e < BKV / 2; ++e) sc[e] = 0.f;
@@ -220,79 +321,30 @@ attention_kernel(const __grid_constant__ CUtensorMap map_q,
       for (int kk = 0; kk < D / 16; ++kk)
         wgmma_ss<BKV, 0, 0>(
             sc,
-            sw128_desc(q_addr + (kk / 4) * (BQ * 128) + (kk % 4) * 32, 16,
-                       1024),
-            sw128_desc(k_addr + (kk / 4) * (BKV * 128) + (kk % 4) * 32, 16,
-                       1024));
+            sw_desc<SW>(q_addr + (kk / KPA) * (BQ * SW) + (kk % KPA) * 32, 16,
+                        8 * SW),
+            sw_desc<SW>(k_addr + (kk / KPA) * (BKV * SW) + (kk % KPA) * 32,
+                        16, 8 * SW));
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(sc);
 
-      // The key mask, and the causal one where the tile reaches past the
-      // diagonal of one of the warp's rows: masked scores are -inf
-      if (valid != ~0ull || (causal && k0 + BKV - 1 > warp_row)) {
-        const uint64_t bits = valid >> (2 * t);
-#pragma unroll
-        for (int j = 0; j < BKV / 8; ++j) {
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int key = k0 + 8 * j + 2 * t + e;
-            const bool ok = (bits >> (8 * j + e)) & 1u;
-            if (!ok || (causal && key > r0)) sc[4 * j + e] = MINUS_INF;
-            if (!ok || (causal && key > r1)) sc[4 * j + 2 + e] = MINUS_INF;
-          }
-        }
-      }
-
-      // The online softmax of rows r0 (registers 4j, 4j + 1) and r1 (4j +
-      // 2, 4j + 3); m in the log2-scaled units of the scores
-      float x0 = MINUS_INF, x1 = MINUS_INF;
-#pragma unroll
-      for (int j = 0; j < BKV / 8; ++j) {
-        x0 = fmaxf(x0, fmaxf(sc[4 * j], sc[4 * j + 1]));
-        x1 = fmaxf(x1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
-      }
-      const float n0 = fmaxf(m0, quad_max(x0) * scale_log2);
-      const float n1 = fmaxf(m1, quad_max(x1) * scale_log2);
-      // A row with no valid key yet keeps m = -inf: subtract 0 instead, so
-      // that its p and its correction are exp2(-inf) = 0, not NaN
-      const float u0 = n0 == MINUS_INF ? 0.f : n0;
-      const float u1 = n1 == MINUS_INF ? 0.f : n1;
-      const float corr0 = exp2_approx(m0 - u0), corr1 = exp2_approx(m1 - u1);
-      m0 = n0, m1 = n1;
-      // p in fp32 for the row sums, its bf16 pairs as P's A fragments:
-      // a[k] holds keys 16k..16k+15, groups j = 2k (registers 0, 1) and
-      // 2k + 1 (2, 3)
       uint32_t a[BKV / 16][4];
-      float ps0 = 0.f, ps1 = 0.f;
-#pragma unroll
-      for (int j = 0; j < BKV / 8; ++j) {
-        const float p0 = exp2_approx(fmaf(sc[4 * j], scale_log2, -u0));
-        const float p1 = exp2_approx(fmaf(sc[4 * j + 1], scale_log2, -u0));
-        const float p2 = exp2_approx(fmaf(sc[4 * j + 2], scale_log2, -u1));
-        const float p3 = exp2_approx(fmaf(sc[4 * j + 3], scale_log2, -u1));
-        ps0 += p0 + p1;
-        ps1 += p2 + p3;
-        a[j / 2][2 * (j % 2)] = pack_bf16(p0, p1);
-        a[j / 2][2 * (j % 2) + 1] = pack_bf16(p2, p3);
-      }
-      l0 = l0 * corr0 + ps0;
-      l1 = l1 * corr1 + ps1;
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        o[4 * j] *= corr0, o[4 * j + 1] *= corr0;
-        o[4 * j + 2] *= corr1, o[4 * j + 3] *= corr1;
-      }
+      float corr0, corr1;
+      softmax_tile(sc, a, valid, k0, warp_row, r0, r1, t, causal,
+                   scale_log2, m0, m1, l0, l1, corr0, corr1);
+      rescale<D>(o, corr0, corr1);
 
-      // O += P V: V MN-major, 16 key rows of 128 bytes a step, the next
-      // 64 columns one atom (BKV x 128 bytes) on
+      // O += P V: V MN-major, 16 key rows of SW bytes a step, the next
+      // atom (BKV x SW bytes) on
 #pragma unroll
       for (int k = 0; k < BKV / 16; ++k) fence_regs(a[k]);
       fence_regs(o);
       wgmma_fence();
 #pragma unroll
       for (int k = 0; k < BKV / 16; ++k)
-        wgmma_rs<D>(o, a[k], sw128_desc(v_addr + k * 2048, BKV * 128, 1024));
+        wgmma_rs<D>(o, a[k],
+                    sw_desc<SW>(v_addr + k * 16 * SW, BKV * SW, 8 * SW));
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(o);
@@ -314,21 +366,24 @@ attention_kernel(const __grid_constant__ CUtensorMap map_q,
 
   // O / l in bf16 into the warpgroup's own rows of the Q tile (its last
   // product is done, and the other warpgroup reads only its rows), swizzled
-  // as TMA reads them (the 16-byte chunk q of row r at q ^ (r & 7):
-  // conflict-free), then one TMA store per 64-column atom, which writes no
-  // row past T
+  // as TMA reads them (the 16-byte chunk q of row r at q ^ (r & 7) in a
+  // 128-byte row, q ^ ((r >> 1) & 3) in a 64-byte one, q ^ ((r >> 2) & 1)
+  // in a 32-byte one: conflict-free), then one TMA store per atom, which
+  // writes no row past T
+  constexpr int CH = SW / 16, SH = SW == 128 ? 0 : SW == 64 ? 1 : 2;
   l0 = quad_sum(l0), l1 = quad_sum(l1);
   const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;
   const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
-  unsigned char* so = sq + c * 64 * 128;
+  unsigned char* so = sq + c * 64 * SW;
   const int lr0 = 16 * warp + g;            // row of the warpgroup's 64
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
-    unsigned char* row0 = so + (j / 8) * (BQ * 128) + lr0 * 128 + 4 * t;
-    const int chunk = ((j % 8) ^ g) << 4;   // (lr0 + 8) & 7 is g too
+    unsigned char* row0 = so + (j / CH) * (BQ * SW) + lr0 * SW + 4 * t;
+    // lr0 + 8 has the same swizzle bits as lr0
+    const int chunk = ((j % CH) ^ ((g >> SH) & (CH - 1))) << 4;
     *reinterpret_cast<uint32_t*>(row0 + chunk) =
         pack_bf16(o[4 * j] * inv0, o[4 * j + 1] * inv0);
-    *reinterpret_cast<uint32_t*>(row0 + 8 * 128 + chunk) =
+    *reinterpret_cast<uint32_t*>(row0 + 8 * SW + chunk) =
         pack_bf16(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
   }
   fence_async_smem();
@@ -336,8 +391,7 @@ attention_kernel(const __grid_constant__ CUtensorMap map_q,
   if (threadIdx.x % 128 == 0 && wg_row < T) {
 #pragma unroll
     for (int j = 0; j < ATOMS; ++j)
-      tma_store_3d(&map_out, col0 + j * ATOM, wg_row, b,
-                   so + j * (BQ * 128));
+      tma_store_3d(&map_out, col0 + j * AC, wg_row, b, so + j * (BQ * SW));
     bulk_commit();
     bulk_wait_read();
   }
@@ -357,15 +411,188 @@ int launch(const void* q, const void* k, const void* v, long long rs,
   // (columns, T, window) views of q, k, v (rows rs apart, windows T rs)
   // and of out (rows out_stride apart)
   const long long cols = static_cast<long long>(H) * D, ld2 = T * rs;
+  constexpr int AC = P::ATOM_COLS;
+  constexpr CUtensorMapSwizzle SWZ = P::SWIZZLE;
   CUtensorMap mq, mk, mv, mo;
-  if (!encode_3d(&mq, q, cols, T, B, rs, ld2, ATOM, BQ) ||
-      !encode_3d(&mk, k, cols, T, B, rs, ld2, ATOM, BKV) ||
-      !encode_3d(&mv, v, cols, T, B, rs, ld2, ATOM, BKV) ||
-      !encode_3d(&mo, out, cols, T, B, out_stride, T * out_stride, ATOM, 64))
+  if (!encode_3d(&mq, q, cols, T, B, rs, ld2, AC, BQ, false, SWZ) ||
+      !encode_3d(&mk, k, cols, T, B, rs, ld2, AC, BKV, false, SWZ) ||
+      !encode_3d(&mv, v, cols, T, B, rs, ld2, AC, BKV, false, SWZ) ||
+      !encode_3d(&mo, out, cols, T, B, out_stride, T * out_stride, AC, 64,
+                 false, SWZ))
     return static_cast<int>(cudaErrorInvalidValue);
   dim3 grid((T + BQ - 1) / BQ, H, B);
   attention_kernel<D><<<grid, THREADS, P::SMEM, stream>>>(
       mq, mk, mv, mo, static_cast<const uint8_t*>(mask), T, scale_log2,
+      causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ------------------------------------------------------------ wide route
+
+namespace wide = ppgs::wide;
+
+// The wide route's plan for output slices of DS columns: a ring slot
+// holds an S item (a 64-column atom of 128 Q rows and of 64 K rows, 24
+// KB) or a V item (the tile's 64 keys x DS columns)
+template <int DS>
+struct WidePlan {
+  static constexpr int STAGE = DS == 256 ? 32768 : 24576;
+  static constexpr int STAGES = DS == 256 ? 6 : 4;
+  static constexpr int BLOCKS = DS == 256 ? 1 : 2;   // blocks an SM holds
+  static constexpr int RING = STAGES * STAGE;
+  // the ring, full[], empty[], the release counters, slack to align
+  static constexpr int SMEM = RING + 2 * STAGES * 8 + STAGES * 4 + 1024;
+  static_assert(BLOCKS * (SMEM + 1024) <= 233472,
+                "the blocks an SM should hold do not fit its shared memory");
+  static_assert(2 * DS * BKV * 2 <= RING, "O's staging does not fit");
+};
+
+template <int DS>
+__global__ void __launch_bounds__(THREADS, WidePlan<DS>::BLOCKS)
+wide_kernel(const __grid_constant__ CUtensorMap map_q,
+            const __grid_constant__ CUtensorMap map_k,
+            const __grid_constant__ CUtensorMap map_v,
+            const __grid_constant__ CUtensorMap map_out,
+            const uint8_t* __restrict__ mask, int T, int D,
+            float scale_log2, int causal) {
+  using P = WidePlan<DS>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = wide::aligned_smem(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + P::RING);
+  wide::Ring ring{base, full, full + P::STAGES,
+                  reinterpret_cast<int*>(full + 2 * P::STAGES), P::STAGES,
+                  P::STAGE, 0};
+
+  // Block (q tile, head h's slice, window b): its output columns col_o ..
+  // col_o + DS - 1 of the head's col_h .. col_h + D - 1
+  const int NC = D / wide::ATOM, slices = D / DS;
+  const int q0 = blockIdx.x * BQ, b = blockIdx.z;
+  const int col_h = (blockIdx.y / slices) * D;
+  const int col_o = col_h + (blockIdx.y % slices) * DS;
+  int tiles = (T + BKV - 1) / BKV;
+  if (causal) tiles = min(tiles, (min(q0 + BQ, T) - 1) / BKV + 1);
+  // Per key tile, NC S items, then its V item
+  const int per_tile = NC + 1;
+  ring.items = tiles * per_tile;
+  auto load = [&](int n) {
+    const int i = n / per_tile, j = n % per_tile;
+    unsigned char* slot = ring.at(n);
+    const uint32_t bar = ring.bar(n);
+    if (j < NC) {
+      mbar_expect_tx(bar, wide::ROW_CHUNK + wide::TILE_CHUNK);
+      tma_load_3d(slot, &map_q, col_h + j * wide::ATOM, q0, b, bar);
+      tma_load_3d(slot + wide::ROW_CHUNK, &map_k, col_h + j * wide::ATOM,
+                  i * BKV, b, bar);
+    } else {
+      mbar_expect_tx(bar, DS * BKV * 2);
+#pragma unroll
+      for (int a = 0; a < DS / wide::ATOM; ++a)
+        tma_load_3d(slot + a * wide::TILE_CHUNK, &map_v,
+                    col_o + a * wide::ATOM, i * BKV, b, bar);
+    }
+  };
+  if (threadIdx.x == 0) {
+    ring.init();
+    for (int n = 0; n < P::STAGES && n < ring.items; ++n) load(n);
+  }
+  __syncthreads();
+
+  // Warpgroup c owns the tile's rows 64c..64c+63, as in attention_kernel
+  const int c = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+  const int wg_row = q0 + 64 * c, warp_row = wg_row + 16 * warp;
+  const int r0 = warp_row + g, r1 = r0 + 8;
+  const uint8_t* mrow = mask + static_cast<long long>(b) * T;
+
+  float o[DS / 2];
+#pragma unroll
+  for (int i = 0; i < DS / 2; ++i) o[i] = 0.f;
+  float m0 = MINUS_INF, m1 = MINUS_INF, l0 = 0.f, l1 = 0.f;
+  int nb0, nb1;
+  auto fetch = [&](int i) {
+    const int key = i * BKV + lane;
+    nb0 = key < T ? mrow[key] : 0;
+    nb1 = key + 32 < T ? mrow[key + 32] : 0;
+  };
+  fetch(0);
+
+  for (int i = 0; i < tiles; ++i) {
+    const int k0 = i * BKV, n0 = i * per_tile;
+    const uint64_t valid =
+        __ballot_sync(0xffffffffu, nb0 != 0) |
+        (static_cast<uint64_t>(__ballot_sync(0xffffffffu, nb1 != 0)) << 32);
+    if (i + 1 < tiles) fetch(i + 1);
+    const bool live =
+        valid != 0 && wg_row < T && !(causal && k0 > wg_row + 63);
+    float sc[BKV / 2];
+    wide::scores(sc, ring, n0, NC, c * 64 * 128, wide::ROW_CHUNK, live, lane,
+                 load);
+    uint32_t a[BKV / 16][4];
+    if (live) {
+      float corr0, corr1;
+      softmax_tile(sc, a, valid, k0, warp_row, r0, r1, t, causal,
+                   scale_log2, m0, m1, l0, l1, corr0, corr1);
+      rescale<DS>(o, corr0, corr1);
+    }
+    ring.wait(n0 + NC);
+    if (live) {
+      // O += P V over the slice: V MN-major, DS / 64 atoms of 64 keys
+      const uint32_t v_addr = smem_addr(ring.at(n0 + NC));
+#pragma unroll
+      for (int k = 0; k < BKV / 16; ++k) fence_regs(a[k]);
+      fence_regs(o);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < BKV / 16; ++k)
+        wgmma_rs<DS>(o, a[k],
+                     sw128_desc(v_addr + k * 2048, BKV * 128, 1024));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+#pragma unroll
+      for (int k = 0; k < BKV / 16; ++k) fence_regs(a[k]);
+    }
+    ring.release(n0 + NC, lane, load);
+  }
+
+  // O / l, staged in bf16 in the ring (every item is consumed once both
+  // warpgroups are here) and written by TMA stores, none past T
+  l0 = quad_sum(l0), l1 = quad_sum(l1);
+  const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;
+  const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
+  rescale<DS>(o, inv0, inv1);
+  __syncthreads();
+  auto box = [&](int n) {
+    return base + (c * (DS / wide::ATOM) + n) * wide::TILE_CHUNK;
+  };
+  stage_bf16<DS>(o, box, warp, g, t);
+  store_boxes(&map_out, DS / wide::ATOM, wide::ATOM, box, col_o, wg_row, b,
+              c, threadIdx.x % 128 == 0, T);
+}
+
+template <int DS>
+int launch_wide(const void* q, const void* k, const void* v, long long rs,
+                const void* mask, void* out, long long out_stride, int B,
+                int T, int H, int D, float scale_log2, int causal,
+                cudaStream_t stream) {
+  using P = WidePlan<DS>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      wide_kernel<DS>, cudaFuncAttributeMaxDynamicSharedMemorySize, P::SMEM);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  if (B <= 0 || T <= 0) return static_cast<int>(cudaGetLastError());
+  // q and k in boxes of one 64-column atom of 128 and 64 rows, v and out
+  // of 64 rows
+  const long long cols = static_cast<long long>(H) * D, ld2 = T * rs;
+  CUtensorMap mq, mk, mv, mo;
+  if (!encode_3d(&mq, q, cols, T, B, rs, ld2, wide::ATOM, BQ) ||
+      !encode_3d(&mk, k, cols, T, B, rs, ld2, wide::ATOM, BKV) ||
+      !encode_3d(&mv, v, cols, T, B, rs, ld2, wide::ATOM, BKV) ||
+      !encode_3d(&mo, out, cols, T, B, out_stride, T * out_stride,
+                 wide::ATOM, 64))
+    return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid((T + BQ - 1) / BQ, H * (D / DS), B);
+  wide_kernel<DS><<<grid, THREADS, P::SMEM, stream>>>(
+      mq, mk, mv, mo, static_cast<const uint8_t*>(mask), T, D, scale_log2,
       causal);
   return static_cast<int>(cudaGetLastError());
 }
@@ -377,7 +604,8 @@ int launch(const void* q, const void* k, const void* v, long long rs,
 // mask (B, T) bytes, nonzero = valid key; out (B, T, ...) bf16 with row
 // stride out_stride (16-byte aligned, out_stride % 8 == 0). scale_log2
 // multiplies the fp32 scores before exp2 (1 when the scale is folded into
-// q). d_head is 64, 128 or 256; any other returns cudaErrorInvalidValue.
+// q). d_head is 16, 32, 64, 128 or 256, or d_head % 128 == 0 from 384 to
+// 2048 (the wide route); any other returns cudaErrorInvalidValue.
 extern "C" int ppgs_attention(const void* q, const void* k, const void* v,
                               long long rs, const void* mask, void* out,
                               long long out_stride, int B, int T, int H,
@@ -394,7 +622,18 @@ extern "C" int ppgs_attention(const void* q, const void* k, const void* v,
     case 256:
       return launch<256>(q, k, v, rs, mask, out, out_stride, B, T, H,
                          scale_log2, causal, s);
+    case 32:
+      return launch<32>(q, k, v, rs, mask, out, out_stride, B, T, H,
+                        scale_log2, causal, s);
+    case 16:
+      return launch<16>(q, k, v, rs, mask, out, out_stride, B, T, H,
+                        scale_log2, causal, s);
     default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      if (!wide::takes(d_head)) return static_cast<int>(cudaErrorInvalidValue);
+      return d_head % 256 == 0
+                 ? launch_wide<256>(q, k, v, rs, mask, out, out_stride, B, T,
+                                    H, d_head, scale_log2, causal, s)
+                 : launch_wide<128>(q, k, v, rs, mask, out, out_stride, B, T,
+                                    H, d_head, scale_log2, causal, s);
   }
 }

@@ -2,7 +2,9 @@
 // normalised probabilities (the forward), and the row products its
 // backward needs (row_dot); read in place from (B, T, C) layouts, d_head =
 // 128 (the mel model) or 256 (the w2v2fb and w2v2fc heads), one template
-// instance each. The backward itself is attention_train_bwd.cu.
+// instance each, and any d_head % 128 == 0 from 384 to 2048 through the
+// wide route (fwd_wide_kernel, below). The backward itself is
+// attention_train_bwd.cu.
 //
 // Replaces: ppgs_tpu/ops/flash_attention.py flash_attention_train
 // (_train_fwd_kernel, pallas_call at :576) and the attention forward
@@ -113,6 +115,7 @@
 // pipelined and pass 2 issuing tile i + 1's scores before tile i's PV
 // (1.056 with the dropout, 0.593 without against 0.484).
 
+#include "attention_wide.cuh"
 #include "common.cuh"
 #include "hopper.cuh"
 #include "philox.cuh"
@@ -246,6 +249,113 @@ __device__ __forceinline__ void scores(float (&sc)[BKV / 2], uint32_t q_addr,
                    1024));
 }
 
+// The keep bits of key tile i into rows r0, r1's words (keep0[i],
+// keep1[i], by lanes t = 0 and 1 of the quad): the valid pairs only
+template <bool ALIGNED>
+__device__ __forceinline__ void draw_keep(const ppgs::Dropout& d,
+                                          unsigned long long base0,
+                                          unsigned long long base1, int r0,
+                                          int r1, int t, int causal, int i,
+                                          uint64_t valid, uint2* keep0,
+                                          uint2* keep1) {
+  const int k0 = i * BKV;
+  uint32_t b0, b1;
+  keep_bits<ALIGNED>(d, base0, base1, k0, t, b0, b1);
+  const uint64_t w0 = quad_word(b0, t) & valid &
+                      (causal ? below_diagonal(r0, k0) : ~0ull);
+  const uint64_t w1 = quad_word(b1, t) & valid &
+                      (causal ? below_diagonal(r1, k0) : ~0ull);
+  if (t == 0) keep0[i] = make_uint2(static_cast<uint32_t>(w0),
+                                    static_cast<uint32_t>(w0 >> 32));
+  if (t == 1) keep1[i] = make_uint2(static_cast<uint32_t>(w1),
+                                    static_cast<uint32_t>(w1 >> 32));
+}
+
+// Pass 1 on one tile's S (64 x 64 fp32, a thread's rows r0 and r1 = r0 +
+// 8 of the warp's 16 from warp_row): the key mask `valid` (bit k for key
+// k0 + k) and the causal one where the tile reaches past the diagonal of
+// one of the warp's rows, masked scores -inf; then the row max m and the
+// sum l of exp2(s - m), online over the tiles
+__device__ __forceinline__ void row_stats(float (&sc)[BKV / 2],
+                                          uint64_t valid, int k0,
+                                          int warp_row, int r0, int r1,
+                                          int t, int causal,
+                                          float scale_log2, float& m0,
+                                          float& m1, float& l0, float& l1) {
+  if (valid != ~0ull || (causal && k0 + BKV - 1 > warp_row)) {
+    const uint64_t bits = valid >> (2 * t);
+#pragma unroll
+    for (int j = 0; j < BKV / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = k0 + 8 * j + 2 * t + e;
+        const bool ok = (bits >> (8 * j + e)) & 1u;
+        if (!ok || (causal && key > r0)) sc[4 * j + e] = MINUS_INF;
+        if (!ok || (causal && key > r1)) sc[4 * j + 2 + e] = MINUS_INF;
+      }
+  }
+  float x0 = MINUS_INF, x1 = MINUS_INF;
+#pragma unroll
+  for (int j = 0; j < BKV / 8; ++j) {
+    x0 = fmaxf(x0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+    x1 = fmaxf(x1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+  }
+  const float n0 = fmaxf(m0, quad_max(x0) * scale_log2);
+  const float n1 = fmaxf(m1, quad_max(x1) * scale_log2);
+  // A row with no valid key yet keeps m = -inf: subtract 0 instead, so
+  // that its terms and its correction are exp2(-inf) = 0, not NaN
+  const float u0 = n0 == MINUS_INF ? 0.f : n0;
+  const float u1 = n1 == MINUS_INF ? 0.f : n1;
+  float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < BKV / 8; ++j) {
+    ps0 += exp2_approx(fmaf(sc[4 * j], scale_log2, -u0)) +
+           exp2_approx(fmaf(sc[4 * j + 1], scale_log2, -u0));
+    ps1 += exp2_approx(fmaf(sc[4 * j + 2], scale_log2, -u1)) +
+           exp2_approx(fmaf(sc[4 * j + 3], scale_log2, -u1));
+  }
+  l0 = l0 * exp2_approx(m0 - u0) + ps0;
+  l1 = l1 * exp2_approx(m1 - u1) + ps1;
+  m0 = n0, m1 = n1;
+}
+
+// Pass 2's pd of one tile, packed into the A fragments of O += Pd V: a[k]
+// holds keys 16k .. 16k + 15, groups j = 2k (registers 0, 1) and 2k + 1
+// (2, 3). DROP: kw0 and kw1 are rows r0 and r1's keep words of the tile,
+// shifted to this lane's keys (they hold the masks too)
+template <bool DROP>
+__device__ __forceinline__ void pd_frags(
+    const float (&sc)[BKV / 2], uint32_t (&a)[BKV / 16][4], uint64_t valid,
+    int k0, int warp_row, int r0, int r1, int t, int causal,
+    float scale_log2, float lse0, float lse1, uint64_t kw0, uint64_t kw1,
+    float drop_scale) {
+  const bool full_tile =
+      valid == ~0ull && !(causal && k0 + BKV - 1 > warp_row);
+  const uint64_t bits = valid >> (2 * t);
+#pragma unroll
+  for (int j = 0; j < BKV / 8; ++j) {
+    float p[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float pn = exp2_approx(
+          fmaf(sc[4 * j + e], scale_log2, e < 2 ? -lse0 : -lse1));
+      const int shift = 8 * j + e % 2;
+      if constexpr (DROP) {
+        const bool keep = ((e < 2 ? kw0 : kw1) >> shift) & 1u;
+        p[e] = keep ? pn * drop_scale : 0.f;
+      } else {
+        const int key = k0 + 8 * j + 2 * t + e % 2;
+        const int row = e < 2 ? r0 : r1;
+        const bool ok = full_tile || (((bits >> shift) & 1u) &&
+                                      !(causal && key > row));
+        p[e] = ok ? pn : 0.f;
+      }
+    }
+    a[j / 2][2 * (j % 2)] = pack_bf16(p[0], p[1]);
+    a[j / 2][2 * (j % 2) + 1] = pack_bf16(p[2], p[3]);
+  }
+}
+
 // DROP: dropout on (threshold != 0), keep_out its words; ALIGNED: T % 4 ==
 // 0 (see keep_bits)
 template <int D, bool DROP, bool ALIGNED>
@@ -370,17 +480,8 @@ fwd_kernel(const __grid_constant__ CUtensorMap map_q,
 
   // The keep bits of tile i into rows r0, r1's words: the valid pairs only
   auto draw = [&](int i, uint64_t valid) {
-    const int k0 = i * BKV;
-    uint32_t b0, b1;
-    keep_bits<ALIGNED>(drop, base0, base1, k0, t, b0, b1);
-    const uint64_t w0 = quad_word(b0, t) & valid &
-                        (causal ? below_diagonal(r0, k0) : ~0ull);
-    const uint64_t w1 = quad_word(b1, t) & valid &
-                        (causal ? below_diagonal(r1, k0) : ~0ull);
-    if (t == 0) keep0[i] = make_uint2(static_cast<uint32_t>(w0),
-                                      static_cast<uint32_t>(w0 >> 32));
-    if (t == 1) keep1[i] = make_uint2(static_cast<uint32_t>(w1),
-                                      static_cast<uint32_t>(w1 >> 32));
+    draw_keep<ALIGNED>(drop, base0, base1, r0, r1, t, causal, i, valid,
+                       keep0, keep1);
   };
 
   if (tiles > 0) mbar_wait(smem_addr(q_bar), 0);
@@ -401,44 +502,8 @@ fwd_kernel(const __grid_constant__ CUtensorMap map_q,
     if constexpr (DROP && !P::DRAW2) draw(i, valid);
     wgmma_wait<0>();
     fence_regs(sc);
-
-    // The key mask, and the causal one where the tile reaches past the
-    // diagonal of one of the warp's rows: masked scores are -inf
-    if (valid != ~0ull || (causal && k0 + BKV - 1 > warp_row)) {
-      const uint64_t bits = valid >> (2 * t);
-#pragma unroll
-      for (int j = 0; j < BKV / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int key = k0 + 8 * j + 2 * t + e;
-          const bool ok = (bits >> (8 * j + e)) & 1u;
-          if (!ok || (causal && key > r0)) sc[4 * j + e] = MINUS_INF;
-          if (!ok || (causal && key > r1)) sc[4 * j + 2 + e] = MINUS_INF;
-        }
-    }
-    float x0 = MINUS_INF, x1 = MINUS_INF;
-#pragma unroll
-    for (int j = 0; j < BKV / 8; ++j) {
-      x0 = fmaxf(x0, fmaxf(sc[4 * j], sc[4 * j + 1]));
-      x1 = fmaxf(x1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
-    }
-    const float n0 = fmaxf(m0, quad_max(x0) * scale_log2);
-    const float n1 = fmaxf(m1, quad_max(x1) * scale_log2);
-    // A row with no valid key yet keeps m = -inf: subtract 0 instead, so
-    // that its terms and its correction are exp2(-inf) = 0, not NaN
-    const float u0 = n0 == MINUS_INF ? 0.f : n0;
-    const float u1 = n1 == MINUS_INF ? 0.f : n1;
-    float ps0 = 0.f, ps1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < BKV / 8; ++j) {
-      ps0 += exp2_approx(fmaf(sc[4 * j], scale_log2, -u0)) +
-             exp2_approx(fmaf(sc[4 * j + 1], scale_log2, -u0));
-      ps1 += exp2_approx(fmaf(sc[4 * j + 2], scale_log2, -u1)) +
-             exp2_approx(fmaf(sc[4 * j + 3], scale_log2, -u1));
-    }
-    l0 = l0 * exp2_approx(m0 - u0) + ps0;
-    l1 = l1 * exp2_approx(m1 - u1) + ps1;
-    m0 = n0, m1 = n1;
+    row_stats(sc, valid, k0, warp_row, r0, r1, t, causal, scale_log2, m0,
+              m1, l0, l1);
   };
   for (int n = 0; n < groups; ++n) {
     const int s = n % STAGES;
@@ -483,35 +548,9 @@ fwd_kernel(const __grid_constant__ CUtensorMap map_q,
       }
       wgmma_wait<0>();
       fence_regs(sc);
-
-      // pd packed into the A fragments of O += Pd V: a[k] holds keys 16k ..
-      // 16k + 15, groups j = 2k (registers 0, 1) and 2k + 1 (2, 3). With
-      // the dropout on, the keep words hold the masks too
-      const bool full_tile =
-          valid == ~0ull && !(causal && k0 + BKV - 1 > warp_row);
-      const uint64_t bits = valid >> (2 * t);
       uint32_t a[BKV / 16][4];
-#pragma unroll
-      for (int j = 0; j < BKV / 8; ++j) {
-        float p[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float pn = exp2_approx(
-              fmaf(sc[4 * j + e], scale_log2, e < 2 ? -lse0 : -lse1));
-          const int shift = 8 * j + e % 2;
-          if constexpr (DROP) {
-            const bool keep = ((e < 2 ? kw0 : kw1) >> shift) & 1u;
-            p[e] = keep ? pn * drop.scale : 0.f;
-          } else {
-            const int key = k0 + 8 * j + 2 * t + e % 2;
-            const bool ok = full_tile || (((bits >> shift) & 1u) &&
-                                          !(causal && key > (e < 2 ? r0 : r1)));
-            p[e] = ok ? pn : 0.f;
-          }
-        }
-        a[j / 2][2 * (j % 2)] = pack_bf16(p[0], p[1]);
-        a[j / 2][2 * (j % 2) + 1] = pack_bf16(p[2], p[3]);
-      }
+      pd_frags<DROP>(sc, a, valid, k0, warp_row, r0, r1, t, causal,
+                     scale_log2, lse0, lse1, kw0, kw1, drop.scale);
 
 #pragma unroll
       for (int k = 0; k < BKV / 16; ++k) fence_regs(a[k]);
@@ -576,10 +615,242 @@ int launch_fwd(const CUtensorMap* maps, const void* mask, void* lse,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------------------------ wide route
+
+namespace wide = ppgs::wide;
+
+// The forward at d_head % 128 == 0 from 384 to 2048 (attention_wide.cuh): a
+// block owns 128 query rows and a slice of WIDE_DS = 128 output columns of
+// a head, over which its ring brings, per key tile, d_head / 64 S items (a
+// 64-column atom of the block's Q rows and of the tile's K rows, 24 KB) in
+// pass 1, the same S items and the tile's V columns of the slice (16 KB)
+// in pass 2. The slices of a head each form S twice, as the instances do,
+// and each draws the keep bits it needs (the same Philox bits: the index
+// does not depend on the slice); slice 0 writes lse and the keep words.
+// O is 64 x 128 fp32 a warpgroup in registers; it is staged in the idle
+// ring at the end. Eight 24 KB slots and the keep words: one block an SM.
+constexpr int WIDE_DS = 128;
+struct WidePlan {
+  static constexpr int STAGE = wide::ROW_CHUNK + wide::TILE_CHUNK;
+  static constexpr int STAGES = 8;
+  static constexpr int RING = STAGES * STAGE;
+  static constexpr int VALID = RING;
+  static constexpr int BARS = VALID + MAX_TILES * 8;
+  static constexpr int KEEP = BARS + (2 * STAGES * 8 + STAGES * 4 + 15)
+                                         / 16 * 16;
+  static constexpr int smem(int words) { return KEEP + BQ * words * 4 + 1024; }
+  static_assert(WIDE_DS * BKV * 2 <= STAGE, "a V item does not fit a slot");
+  static_assert(2 * 64 * WIDE_DS * 4 <= RING, "O's staging does not fit");
+};
+static_assert(WidePlan::smem(2 * MAX_TILES) <= 232448,
+              "more shared memory than a block may have");
+
+template <bool DROP, bool ALIGNED>
+__global__ void __launch_bounds__(THREADS, 1)
+fwd_wide_kernel(const __grid_constant__ CUtensorMap map_q,
+                const __grid_constant__ CUtensorMap map_k,
+                const __grid_constant__ CUtensorMap map_v,
+                const __grid_constant__ CUtensorMap map_o16,
+                const __grid_constant__ CUtensorMap map_o32,
+                const uint8_t* __restrict__ mask, float* __restrict__ lse,
+                uint32_t* __restrict__ keep_out, int T, int H, int D,
+                float scale_log2, int causal, ppgs::Dropout drop,
+                int want32) {
+  using P = WidePlan;
+  constexpr int DS = WIDE_DS;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = wide::aligned_smem(smem_raw);
+  uint64_t* tile_valid = reinterpret_cast<uint64_t*>(base + P::VALID);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + P::BARS);
+  wide::Ring ring{base, full, full + P::STAGES,
+                  reinterpret_cast<int*>(full + 2 * P::STAGES), P::STAGES,
+                  P::STAGE, 0};
+  uint32_t* skeep = reinterpret_cast<uint32_t*>(base + P::KEEP);
+
+  const int NC = D / wide::ATOM, slices = D / DS;
+  const int q0 = blockIdx.x * BQ, b = blockIdx.z;
+  const int h = blockIdx.y / slices, slice = blockIdx.y % slices;
+  const int col_h = h * D, col_o = col_h + slice * DS;
+  const long long row_base = static_cast<long long>(b * H + h) * T;
+  const int key_tiles = (T + BKV - 1) / BKV, words = 2 * key_tiles;
+  const int warp_id = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const uint8_t* mrow = mask + static_cast<long long>(b) * T;
+
+  // The window's valid keys, a word a key tile, and the keep words zeroed
+  for (int i = warp_id; i < key_tiles; i += WARPS) {
+    const int key = i * BKV + lane;
+    const uint64_t bits =
+        __ballot_sync(0xffffffffu, key < T && mrow[key] != 0) |
+        static_cast<uint64_t>(
+            __ballot_sync(0xffffffffu, key + 32 < T && mrow[key + 32] != 0))
+            << 32;
+    if (lane == 0) tile_valid[i] = bits;
+  }
+  if constexpr (DROP)
+    for (int i = threadIdx.x; i < BQ * words; i += THREADS) skeep[i] = 0u;
+  if (threadIdx.x == 0) ring.init();
+  __syncthreads();
+  int tiles = 0;
+  for (int i = 0; i < key_tiles; ++i)
+    if (tile_valid[i]) tiles = i + 1;
+  if (causal) tiles = min(tiles, (min(q0 + BQ, T) - 1) / BKV + 1);
+  // Pass 1: NC S items a tile; pass 2 from item p1 on: NC S items and the
+  // V item a tile
+  const int p1 = tiles * NC, per_tile = NC + 1;
+  ring.items = p1 + tiles * per_tile;
+  auto load = [&](int n) {
+    const int i = n < p1 ? n / NC : (n - p1) / per_tile;
+    const int j = n < p1 ? n % NC : (n - p1) % per_tile;
+    unsigned char* slot = ring.at(n);
+    const uint32_t bar = ring.bar(n);
+    if (j < NC) {
+      mbar_expect_tx(bar, wide::ROW_CHUNK + wide::TILE_CHUNK);
+      tma_load_3d(slot, &map_q, col_h + j * wide::ATOM, q0, b, bar);
+      tma_load_3d(slot + wide::ROW_CHUNK, &map_k, col_h + j * wide::ATOM,
+                  i * BKV, b, bar);
+    } else {
+      mbar_expect_tx(bar, DS * BKV * 2);
+#pragma unroll
+      for (int a = 0; a < DS / wide::ATOM; ++a)
+        tma_load_3d(slot + a * wide::TILE_CHUNK, &map_v,
+                    col_o + a * wide::ATOM, i * BKV, b, bar);
+    }
+  };
+  if (threadIdx.x == 0)
+    for (int n = 0; n < P::STAGES && n < ring.items; ++n) load(n);
+
+  const int c = threadIdx.x / 128, warp = warp_id % 4;
+  const int g = lane >> 2, t = lane & 3;
+  const int wg_row = q0 + 64 * c, warp_row = wg_row + 16 * warp;
+  const int r0 = warp_row + g, r1 = r0 + 8;
+  const int wg_tiles =
+      wg_row >= T ? 0 : causal ? min(tiles, (wg_row + 63) / BKV + 1) : tiles;
+  const uint32_t a_off = c * 64 * 128;
+  const unsigned long long base0 =
+      static_cast<unsigned long long>(row_base + r0) * T;
+  const unsigned long long base1 = base0 + 8ull * T;
+  uint2* keep0 = reinterpret_cast<uint2*>(skeep + (r0 - q0) * words);
+  uint2* keep1 = reinterpret_cast<uint2*>(skeep + (r1 - q0) * words);
+  auto draw = [&](int i, uint64_t valid) {
+    draw_keep<ALIGNED>(drop, base0, base1, r0, r1, t, causal, i, valid,
+                       keep0, keep1);
+  };
+
+  // Pass 1: the row max m and sum l, online over the tiles
+  float m0 = MINUS_INF, m1 = MINUS_INF, l0 = 0.f, l1 = 0.f;
+  for (int i = 0; i < tiles; ++i) {
+    const int k0 = i * BKV;
+    const uint64_t valid = tile_valid[i];
+    const bool live = i < wg_tiles && valid != 0;
+    float sc[BKV / 2];
+    wide::scores(sc, ring, i * NC, NC, a_off, wide::ROW_CHUNK, live, lane,
+                 load);
+    if (live)
+      row_stats(sc, valid, k0, warp_row, r0, r1, t, causal, scale_log2, m0,
+                m1, l0, l1);
+  }
+  l0 = quad_sum(l0), l1 = quad_sum(l1);
+  const float lse0 = l0 > 0.f ? m0 + log2f(l0) : 0.f;
+  const float lse1 = l1 > 0.f ? m1 + log2f(l1) : 0.f;
+
+  // Pass 2: o = sum over keys of bf16(keep ? exp2(s - lse) / (1 - rate) :
+  // 0) v, over the slice's columns
+  float o[DS / 2];
+#pragma unroll
+  for (int e = 0; e < DS / 2; ++e) o[e] = 0.f;
+  for (int i = 0; i < tiles; ++i) {
+    const int n0 = p1 + i * per_tile, k0 = i * BKV;
+    const uint64_t valid = tile_valid[i];
+    const bool live = i < wg_tiles && valid != 0;
+    float sc[BKV / 2];
+    wide::scores(sc, ring, n0, NC, a_off, wide::ROW_CHUNK, live, lane, load);
+    uint32_t a[BKV / 16][4];
+    if (live) {
+      uint64_t kw0 = ~0ull, kw1 = ~0ull;
+      if constexpr (DROP) {
+        draw(i, valid);
+        __syncwarp();
+        const uint2 a0 = keep0[i], a1 = keep1[i];
+        kw0 = (a0.x | static_cast<uint64_t>(a0.y) << 32) >> (2 * t);
+        kw1 = (a1.x | static_cast<uint64_t>(a1.y) << 32) >> (2 * t);
+      }
+      pd_frags<DROP>(sc, a, valid, k0, warp_row, r0, r1, t, causal,
+                     scale_log2, lse0, lse1, kw0, kw1, drop.scale);
+    }
+    ring.wait(n0 + NC);
+    if (live) {
+      const uint32_t v_addr = smem_addr(ring.at(n0 + NC));
+#pragma unroll
+      for (int k = 0; k < BKV / 16; ++k) fence_regs(a[k]);
+      fence_regs(o);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < BKV / 16; ++k)
+        wgmma_rs<DS>(o, a[k], sw128_desc(v_addr + k * 2048, BKV * 128, 1024));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+#pragma unroll
+      for (int k = 0; k < BKV / 16; ++k) fence_regs(a[k]);
+    }
+    ring.release(n0 + NC, lane, load);
+  }
+
+  // The epilogue: slice 0 writes lse and the keep words; o leaves through
+  // the idle ring (both warpgroups past their last item)
+  if (slice == 0 && t == 0) {
+    if (r0 < T) lse[row_base + r0] = lse0;
+    if (r1 < T) lse[row_base + r1] = lse1;
+  }
+  if constexpr (DROP) {
+    if (slice == 0) {
+      bar_sync(1 + c, 128);
+      const int n = max(0, min(64, T - wg_row)) * words / 2;
+      const uint2* src =
+          reinterpret_cast<const uint2*>(skeep + 64 * c * words);
+      uint2* dst = reinterpret_cast<uint2*>(keep_out + (row_base + wg_row) *
+                                                           words);
+      for (int e = threadIdx.x % 128; e < n; e += 128) dst[e] = src[e];
+    }
+  }
+  __syncthreads();
+  auto box = [&](int n) { return base + c * 32768 + n * wide::TILE_CHUNK; };
+  const bool lead = threadIdx.x % 128 == 0;
+  if (want32) {
+    stage_f32<DS>(o, box, warp, g, t);
+    store_boxes(&map_o32, DS / 32, 32, box, col_o, wg_row, b, c, lead, T);
+  }
+  stage_bf16<DS>(o, box, warp, g, t);
+  store_boxes(&map_o16, DS / wide::ATOM, wide::ATOM, box, col_o, wg_row, b, c,
+              lead, T);
+}
+
+template <bool DROP, bool ALIGNED>
+int launch_fwd_wide(const CUtensorMap* maps, const void* mask, void* lse,
+                    void* keep, int B, int T, int H, int D, float scale_log2,
+                    int causal, const ppgs::Dropout& drop, int want32,
+                    cudaStream_t stream) {
+  using P = WidePlan;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      fwd_wide_kernel<DROP, ALIGNED>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, P::smem(2 * MAX_TILES));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int smem = P::smem(DROP ? 2 * ((T + BKV - 1) / BKV) : 0);
+  const dim3 grid((T + BQ - 1) / BQ, H * (D / WIDE_DS), B);
+  fwd_wide_kernel<DROP, ALIGNED><<<grid, THREADS, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4],
+      static_cast<const uint8_t*>(mask), static_cast<float*>(lse),
+      static_cast<uint32_t*>(keep), T, H, D, scale_log2, causal, drop,
+      want32);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // ------------------------------------------------------------- row_dot
 
 // out[(b*H + h)*T + t] = sum_d x[row, h*D + d] y[row, h*D + d]: one warp
-// per (row, head), D / 32 columns per lane.
+// per (row, head); D = 256: eight contiguous columns a lane; D = 0: d
+// given at run time, four columns a lane 128 apart (coalesced at any
+// width; at d = 128 a lane's four are contiguous)
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(bf16 v) { return __bfloat162float(v); }
 
@@ -587,18 +858,29 @@ template <typename T_, int D>
 __global__ void __launch_bounds__(256)
 row_dot_kernel(const T_* __restrict__ x, long long ldx,
                const T_* __restrict__ y, long long ldy,
-               float* __restrict__ out, long long rows, int T, int H) {
-  constexpr int PER_LANE = D / 32;
+               float* __restrict__ out, long long rows, int T, int H,
+               int d) {
   const long long pair = (long long)blockIdx.x * 8 + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (pair >= rows * H) return;
   const long long r = pair / H;
   const int h = static_cast<int>(pair % H);
-  const T_* xr = x + r * ldx + h * D + lane * PER_LANE;
-  const T_* yr = y + r * ldy + h * D + lane * PER_LANE;
   float s = 0.f;
+  if constexpr (D == 0) {
+    const T_* xr = x + r * ldx + h * d;
+    const T_* yr = y + r * ldy + h * d;
+    for (int c = 4 * lane; c < d; c += 128)
 #pragma unroll
-  for (int e = 0; e < PER_LANE; ++e) s += to_float(xr[e]) * to_float(yr[e]);
+      for (int e = 0; e < 4; ++e)
+        s += to_float(xr[c + e]) * to_float(yr[c + e]);
+  } else {
+    constexpr int PER_LANE = D / 32;
+    const T_* xr = x + r * ldx + h * D + lane * PER_LANE;
+    const T_* yr = y + r * ldy + h * D + lane * PER_LANE;
+#pragma unroll
+    for (int e = 0; e < PER_LANE; ++e)
+      s += to_float(xr[e]) * to_float(yr[e]);
+  }
   s = ppgs::warp_sum(s);
   if (lane == 0) {
     const long long b = r / T, t = r % T;
@@ -616,22 +898,23 @@ cudaError_t launch_row_dot(const void* x, long long ldx, const void* y,
   float* o = static_cast<float*>(out);
   if (d == 256)
     row_dot_kernel<T_, 256><<<blocks, 256, 0, s>>>(xs, ldx, ys, ldy, o, rows,
-                                                   T, H);
+                                                   T, H, d);
   else
-    row_dot_kernel<T_, 128><<<blocks, 256, 0, s>>>(xs, ldx, ys, ldy, o, rows,
-                                                   T, H);
+    row_dot_kernel<T_, 0><<<blocks, 256, 0, s>>>(xs, ldx, ys, ldy, o, rows,
+                                                 T, H, d);
   return cudaGetLastError();
 }
 
+// D: the instance (128 or 256), or 0 for the wide route at d
 template <int D>
 int launch_width(const void* q, const void* k, const void* v, long long rs,
                  const void* mask, void* out, void* out32, long long os,
-                 void* lse, void* keep, int B, int T, int H,
+                 void* lse, void* keep, int B, int T, int H, int d,
                  float scale_log2, int causal, const ppgs::Dropout& drop,
                  cudaStream_t s) {
   // (columns, T, window) views: q in boxes of 128 rows, k and v of 64, the
   // outputs in boxes of 64 rows of 128 bytes
-  const long long cols = static_cast<long long>(H) * D;
+  const long long cols = static_cast<long long>(H) * d;
   CUtensorMap maps[5] = {};
   if (!encode_3d(&maps[0], q, cols, T, B, rs, T * rs, ATOM, BQ) ||
       !encode_3d(&maps[1], k, cols, T, B, rs, T * rs, ATOM, BKV) ||
@@ -641,26 +924,39 @@ int launch_width(const void* q, const void* k, const void* v, long long rs,
                            true)))
     return static_cast<int>(cudaErrorInvalidValue);
   const int want32 = out32 != nullptr;
-  if (!drop.threshold)
-    return launch_fwd<D, false, true>(maps, mask, lse, keep, B, T, H,
+  if constexpr (D == 0) {
+    if (!drop.threshold)
+      return launch_fwd_wide<false, true>(maps, mask, lse, keep, B, T, H, d,
+                                          scale_log2, causal, drop, want32,
+                                          s);
+    if (T % 4 == 0)
+      return launch_fwd_wide<true, true>(maps, mask, lse, keep, B, T, H, d,
+                                         scale_log2, causal, drop, want32, s);
+    return launch_fwd_wide<true, false>(maps, mask, lse, keep, B, T, H, d,
+                                        scale_log2, causal, drop, want32, s);
+  } else {
+    if (!drop.threshold)
+      return launch_fwd<D, false, true>(maps, mask, lse, keep, B, T, H,
+                                        scale_log2, causal, drop, want32, s);
+    if (T % 4 == 0)
+      return launch_fwd<D, true, true>(maps, mask, lse, keep, B, T, H,
+                                       scale_log2, causal, drop, want32, s);
+    return launch_fwd<D, true, false>(maps, mask, lse, keep, B, T, H,
                                       scale_log2, causal, drop, want32, s);
-  if (T % 4 == 0)
-    return launch_fwd<D, true, true>(maps, mask, lse, keep, B, T, H,
-                                     scale_log2, causal, drop, want32, s);
-  return launch_fwd<D, true, false>(maps, mask, lse, keep, B, T, H,
-                                    scale_log2, causal, drop, want32, s);
+  }
 }
 
 }  // namespace
 
 // q, k, v: bf16 (B, T, H*d) views with row stride rs, d = d_head 128 or
-// 256; mask (B, T) bytes, nonzero = valid key; out (B, T, H*d) bf16 and
+// 256, or d % 128 == 0 from 384 to 2048 (the wide route); mask (B, T)
+// bytes, nonzero = valid key; out (B, T, H*d) bf16 and
 // out32 (the same layout in fp32, or null) with row stride out_stride; lse
 // (B, H, T) fp32; keep (B, H, T, 2 ceil(T / 64)) uint32, the keep bits for
 // the backward (bit k of word w of a query row: key 32 w + k valid and
 // kept), needed when the dropout is on (threshold != 0). scale_log2 =
 // log2(e)/sqrt(d). TMA: 16-byte aligned bases, rs and out_stride
-// multiples of 8 elements. T <= 1024 and d 128 or 256; any other returns
+// multiples of 8 elements. T <= 1024 and d as above; any other returns
 // cudaErrorInvalidValue.
 extern "C" int ppgs_attention_train_fwd(
     const void* q, const void* k, const void* v, long long rs,
@@ -670,25 +966,29 @@ extern "C" int ppgs_attention_train_fwd(
     unsigned threshold, float scale, void* stream) {
   const ppgs::Dropout drop =
       ppgs::make_dropout(seed_lo, seed_hi, site, threshold, scale);
-  if (T > MAX_T || (drop.threshold && !keep) || (d != 128 && d != 256))
+  if (T > MAX_T || (drop.threshold && !keep) ||
+      (d != 128 && d != 256 && !wide::takes(d)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0 || T <= 0) return static_cast<int>(cudaGetLastError());
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return d == 256
-             ? launch_width<256>(q, k, v, rs, mask, out, out32, out_stride,
-                                 lse, keep, B, T, H, scale_log2, causal, drop,
-                                 s)
-             : launch_width<128>(q, k, v, rs, mask, out, out32, out_stride,
-                                 lse, keep, B, T, H, scale_log2, causal, drop,
-                                 s);
+  if (d == 256)
+    return launch_width<256>(q, k, v, rs, mask, out, out32, out_stride, lse,
+                             keep, B, T, H, d, scale_log2, causal, drop, s);
+  if (d == 128)
+    return launch_width<128>(q, k, v, rs, mask, out, out32, out_stride, lse,
+                             keep, B, T, H, d, scale_log2, causal, drop, s);
+  return launch_width<0>(q, k, v, rs, mask, out, out32, out_stride, lse,
+                         keep, B, T, H, d, scale_log2, causal, drop, s);
 }
 
 // out (B, H, T) fp32 = per-head row sums of x * y over (B*T, H*d) rows
-// with strides ldx, ldy, d = 128 or 256; is_f32: both fp32, else both bf16.
+// with strides ldx, ldy, d % 128 == 0 up to 2048; is_f32: both fp32, else
+// both bf16.
 extern "C" int ppgs_row_dot(const void* x, long long ldx, const void* y,
                             long long ldy, void* out, int B, int T, int H,
                             int d, int is_f32, void* stream) {
-  if (d != 128 && d != 256) return static_cast<int>(cudaErrorInvalidValue);
+  if (d % 128 || d <= 0 || d > wide::MAX_D)
+    return static_cast<int>(cudaErrorInvalidValue);
   const long long rows = (long long)B * T;
   if (rows <= 0) return static_cast<int>(cudaGetLastError());
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -2,7 +2,9 @@
 // dropout on the normalised probabilities), read in place from (B, T, C)
 // layouts: two deterministic kernels, a dq pass and a dk/dv pass, on
 // wgmma + TMA (the blocks of hopper.cuh). d_head = 128 (the mel model) or
-// 256 (the w2v2fb and w2v2fc heads), one template instance each.
+// 256 (the w2v2fb and w2v2fc heads), one template instance each, and any
+// d_head % 128 == 0 from 384 to 2048 through the wide route
+// (dq_wide_kernel and dkdv_wide_kernel, below).
 //
 // Replaces: ppgs_tpu/ops/flash_attention.py _train_bwd_kernel (the
 // backward of flash_attention_train, pallas_call at :625) and the
@@ -102,6 +104,7 @@
 //   whole 128-byte rows (none past T): fp32 in boxes of 32 columns, bf16 in
 //   boxes of 64, one output at a time where they do not fit together.
 
+#include "attention_wide.cuh"
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -270,6 +273,107 @@ __device__ __forceinline__ void frag_by_tile(float (&acc)[D / 2],
     wgmma_rs<D>(acc, frag[k], sw128_desc(b + k * 2048, TILE * 128, 1024));
 }
 
+// ds = pn (gp - d_row), rounded to bf16 with sm_scale, of one key tile at
+// k0 in the dq pass, packed from S's and dP's accumulators into the A
+// fragments of dQ += dS K: a[k] holds keys 16k..16k+15, groups j = 2k
+// (registers 0, 1) and 2k + 1 (2, 3). A thread's rows r0 and r1 = r0 + 8
+// of the warp's 16 from warp_row, their lse and d_row; the tile's valid
+// keys `valid` (bit k for key k0 + k); DROP: kw0 and kw1 the rows' two
+// keep words of the tile
+template <bool DROP>
+struct DsFrags {
+  int r0, r1, t, warp_row, T, causal;
+  float scale_log2, sm_scale, drop_scale, lse0, lse1, drow0, drow1;
+
+  __device__ __forceinline__ void operator()(
+      const float (&sc)[TILE / 2], const float (&dp)[TILE / 2],
+      uint32_t (&a)[TILE / 16][4], uint64_t valid, int k0, uint2 kw0,
+      uint2 kw1) const {
+    const bool full_tile = valid == ~0ull && r1 < T &&
+                           !(causal && k0 + TILE - 1 > warp_row);
+    const uint64_t bits = valid >> (2 * t);
+#pragma unroll
+    for (int j = 0; j < TILE / 8; ++j) {
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = e < 2 ? r0 : r1, key = k0 + 8 * j + 2 * t + e % 2;
+        const bool ok = full_tile ||
+                        (((bits >> (8 * j + e % 2)) & 1u) && row < T &&
+                         !(causal && key > row));
+        const float pn =
+            ok ? exp2_approx(fmaf(sc[4 * j + e], scale_log2,
+                                  e < 2 ? -lse0 : -lse1))
+               : 0.f;
+        float gp = dp[4 * j + e];
+        if constexpr (DROP) {
+          const uint2 w = e < 2 ? kw0 : kw1;
+          const bool keep =
+              ((j < 4 ? w.x : w.y) >> (8 * (j % 4) + 2 * t + e % 2)) & 1u;
+          gp = keep ? gp * drop_scale : 0.f;
+        }
+        v[e] = pn * (gp - (e < 2 ? drow0 : drow1)) * sm_scale;
+      }
+      a[j / 2][2 * (j % 2)] = pack_bf16(v[0], v[1]);
+      a[j / 2][2 * (j % 2) + 1] = pack_bf16(v[2], v[3]);
+    }
+  }
+};
+
+// pd and ds of one query tile at q0 in the dk/dv pass, packed from S^T's
+// and dP^T's accumulators into the A fragments of dV += Pd^T dO (apd) and
+// dK += dS^T Q (ads). A thread's key rows kr0 and kr1 = kr0 + 8 (valid:
+// kv0, kv1) of the warp's 16 from warp_key; the tile's lse, d_row and,
+// with DROP, keep words from the warp's slot
+template <bool DROP>
+struct DkdvFrags {
+  int kr0, kr1, warp_key, t, keep_shift, T, causal;
+  bool kv0, kv1;
+  float scale_log2, sm_scale, drop_scale;
+
+  __device__ __forceinline__ void operator()(
+      const float (&sc)[TILE / 2], const float (&dp)[TILE / 2],
+      uint32_t (&apd)[TILE / 16][4], uint32_t (&ads)[TILE / 16][4],
+      const float* slot, const uint32_t* slot_keep, int q0) const {
+    const bool full_tile = kv0 && kv1 && q0 + TILE <= T &&
+                           !(causal && warp_key + 15 > q0);
+#pragma unroll
+    for (int j = 0; j < TILE / 8; ++j) {
+      const float2 l2 =
+          *reinterpret_cast<const float2*>(slot + 8 * j + 2 * t);
+      const float2 d2 =
+          *reinterpret_cast<const float2*>(slot + TILE + 8 * j + 2 * t);
+      uint2 k2 = make_uint2(~0u, ~0u);
+      if constexpr (DROP)
+        k2 = *reinterpret_cast<const uint2*>(slot_keep + 8 * j + 2 * t);
+      float pv[4], sv[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qi = q0 + 8 * j + 2 * t + e % 2;
+        const int key = e < 2 ? kr0 : kr1;
+        const bool ok = full_tile || ((e < 2 ? kv0 : kv1) && qi < T &&
+                                      !(causal && key > qi));
+        const float l = e % 2 ? l2.y : l2.x, dr = e % 2 ? d2.y : d2.x;
+        const float pn =
+            ok ? exp2_approx(fmaf(sc[4 * j + e], scale_log2, -l)) : 0.f;
+        float gp = dp[4 * j + e], pd = pn;
+        if constexpr (DROP) {
+          const bool keep =
+              ((e % 2 ? k2.y : k2.x) >> (keep_shift + 8 * (e / 2))) & 1u;
+          gp = keep ? gp * drop_scale : 0.f;
+          pd = keep ? pn * drop_scale : 0.f;
+        }
+        pv[e] = pd;
+        sv[e] = pn * (gp - dr) * sm_scale;
+      }
+      apd[j / 2][2 * (j % 2)] = pack_bf16(pv[0], pv[1]);
+      apd[j / 2][2 * (j % 2) + 1] = pack_bf16(pv[2], pv[3]);
+      ads[j / 2][2 * (j % 2)] = pack_bf16(sv[0], sv[1]);
+      ads[j / 2][2 * (j % 2) + 1] = pack_bf16(sv[2], sv[3]);
+    }
+  }
+};
+
 // --------------------------------------------------------------- dq pass
 
 // DROP: apply the forward's keep bits, keep_in (rows of 2 ceil(T / 64)
@@ -364,41 +468,9 @@ dq_kernel(const __grid_constant__ CUtensorMap map_q,
     mbar_wait(smem_addr(blk.res_bar), 0);
   }
 
-  // ds = pn (gp - d_row), rounded with sm_scale into the A fragments of
-  // dQ += dS K from the tile's S and dP: a[k] holds keys 16k..16k+15,
-  // groups j = 2k (registers 0, 1) and 2k + 1 (2, 3)
-  auto ds_frags = [&](const float (&sc)[TILE / 2],
-                      const float (&dp)[TILE / 2], uint32_t (&a)[TILE / 16][4],
-                      uint64_t valid, int k0, uint2 kw0, uint2 kw1) {
-    const bool full_tile = valid == ~0ull && r1 < T &&
-                           !(causal && k0 + TILE - 1 > wg_row + 16 * warp);
-    const uint64_t bits = valid >> (2 * t);
-#pragma unroll
-    for (int j = 0; j < TILE / 8; ++j) {
-      float v[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = e < 2 ? r0 : r1, key = k0 + 8 * j + 2 * t + e % 2;
-        const bool ok = full_tile ||
-                        (((bits >> (8 * j + e % 2)) & 1u) && row < T &&
-                         !(causal && key > row));
-        const float pn =
-            ok ? exp2_approx(fmaf(sc[4 * j + e], scale_log2,
-                                  e < 2 ? -lse0 : -lse1))
-               : 0.f;
-        float gp = dp[4 * j + e];
-        if constexpr (DROP) {
-          const uint2 w = e < 2 ? kw0 : kw1;
-          const bool keep =
-              ((j < 4 ? w.x : w.y) >> (8 * (j % 4) + 2 * t + e % 2)) & 1u;
-          gp = keep ? gp * drop_scale : 0.f;
-        }
-        v[e] = pn * (gp - (e < 2 ? drow0 : drow1)) * sm_scale;
-      }
-      a[j / 2][2 * (j % 2)] = pack_bf16(v[0], v[1]);
-      a[j / 2][2 * (j % 2) + 1] = pack_bf16(v[2], v[3]);
-    }
-  };
+  const DsFrags<DROP> ds_frags{r0, r1, t, wg_row + 16 * warp, T, causal,
+                               scale_log2, sm_scale, drop_scale, lse0, lse1,
+                               drow0, drow1};
   // dQ += dS K (K the tile at k_addr)
   auto dq_product = [&](uint32_t (&a)[TILE / 16][4], uint32_t k_addr) {
 #pragma unroll
@@ -581,6 +653,8 @@ dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
   uint32_t* slot_keep = reinterpret_cast<uint32_t*>(slot + 2 * TILE);
   const int keep_words = 2 * ((T + TILE - 1) / TILE);
   const int keep_shift = (warp_key & 16) + g;
+  const DkdvFrags<DROP> frags{kr0, kr1, warp_key, t, keep_shift, T, causal,
+                              kv0, kv1, scale_log2, sm_scale, drop_scale};
 
   float dk[D / 2], dv[D / 2];
 #pragma unroll
@@ -638,44 +712,8 @@ dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
       fence_regs(sc);
       fence_regs(dp);
 
-      // pd and ds into the A fragments of dV += Pd^T dO and dK += dS^T Q
-      const bool full_tile = kv0 && kv1 && q0 + TILE <= T &&
-                             !(causal && warp_key + 15 > q0);
       uint32_t apd[TILE / 16][4], ads[TILE / 16][4];
-#pragma unroll
-      for (int j = 0; j < TILE / 8; ++j) {
-        const float2 l2 =
-            *reinterpret_cast<const float2*>(slot + 8 * j + 2 * t);
-        const float2 d2 =
-            *reinterpret_cast<const float2*>(slot + TILE + 8 * j + 2 * t);
-        uint2 k2 = make_uint2(~0u, ~0u);
-        if constexpr (DROP)
-          k2 = *reinterpret_cast<const uint2*>(slot_keep + 8 * j + 2 * t);
-        float pv[4], sv[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qi = q0 + 8 * j + 2 * t + e % 2;
-          const int key = e < 2 ? kr0 : kr1;
-          const bool ok = full_tile || ((e < 2 ? kv0 : kv1) && qi < T &&
-                                        !(causal && key > qi));
-          const float l = e % 2 ? l2.y : l2.x, dr = e % 2 ? d2.y : d2.x;
-          const float pn =
-              ok ? exp2_approx(fmaf(sc[4 * j + e], scale_log2, -l)) : 0.f;
-          float gp = dp[4 * j + e], pd = pn;
-          if constexpr (DROP) {
-            const bool keep =
-                ((e % 2 ? k2.y : k2.x) >> (keep_shift + 8 * (e / 2))) & 1u;
-            gp = keep ? gp * drop_scale : 0.f;
-            pd = keep ? pn * drop_scale : 0.f;
-          }
-          pv[e] = pd;
-          sv[e] = pn * (gp - dr) * sm_scale;
-        }
-        apd[j / 2][2 * (j % 2)] = pack_bf16(pv[0], pv[1]);
-        apd[j / 2][2 * (j % 2) + 1] = pack_bf16(pv[2], pv[3]);
-        ads[j / 2][2 * (j % 2)] = pack_bf16(sv[0], sv[1]);
-        ads[j / 2][2 * (j % 2) + 1] = pack_bf16(sv[2], sv[3]);
-      }
+      frags(sc, dp, apd, ads, slot, slot_keep, q0);
 
 #pragma unroll
       for (int k = 0; k < TILE / 16; ++k) {
@@ -1064,16 +1102,415 @@ int launch(const CUtensorMap* in, const CUtensorMap* out, const void* mask,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------------------------ wide route
+
+namespace wide = ppgs::wide;
+
+// Both passes at d_head % 128 == 0 from 384 to 2048 (attention_wide.cuh):
+// a block owns 128 rows (queries in the dq pass, keys in the dk/dv pass)
+// and a slice of WIDE_DS = 128 output columns of a head. Per streamed
+// 64-row tile its ring brings d_head / 64 items for S (a 64-column atom of
+// the block's 128 rows of Q, or K, and of the tile's 64 rows of K, or Q),
+// d_head / 64 for dP (dO and V, or V and dO), then the slice's columns of
+// the tile for the output products (K's in the dq pass, 16 KB; Q's and
+// dO's in the dk/dv pass, 32 KB). So S and dP are formed over the whole
+// head by every slice: d_head / 128 times the score products. The
+// accumulators are those of the d_head 128 instances (dq 64 x 128 fp32,
+// or dk and dv), staged in the idle ring at the end. No atomics: two calls
+// give the same bits.
+constexpr int WIDE_DS = 128;
+struct WideDq {
+  static constexpr int STAGE = wide::ROW_CHUNK + wide::TILE_CHUNK;   // 24 KB
+  static constexpr int STAGES = 8;
+  static constexpr int RING = STAGES * STAGE;
+  static constexpr int SMEM = RING + 2 * STAGES * 8 + STAGES * 4 + 8 + 1024;
+  static_assert(SMEM <= 232448, "more shared memory than a block may have");
+};
+struct WideDkdv {
+  static constexpr int STAGE = 2 * WIDE_DS * TILE * 2;              // 32 KB
+  static constexpr int STAGES = 6;
+  static constexpr int RING = STAGES * STAGE;
+  static constexpr int ROWV = RING;                  // 8 warps' slots
+  static constexpr int BARS = ROWV + 8 * 3 * TILE * 4;
+  static constexpr int SMEM = BARS + 2 * STAGES * 8 + STAGES * 4 + 1024;
+  static_assert(SMEM <= 232448, "more shared memory than a block may have");
+};
+
+// Item n of the ring: one 64-column atom of a_map's 128 rows from row0
+// and of b_map's 64 rows from tile_row (an S or dP item)
+__device__ __forceinline__ void load_pair(const wide::Ring& ring, int n,
+                                          const CUtensorMap* a_map,
+                                          const CUtensorMap* b_map, int col,
+                                          int row0, int tile_row,
+                                          int window) {
+  unsigned char* slot = ring.at(n);
+  const uint32_t bar = ring.bar(n);
+  mbar_expect_tx(bar, wide::ROW_CHUNK + wide::TILE_CHUNK);
+  tma_load_3d(slot, a_map, col, row0, window, bar);
+  tma_load_3d(slot + wide::TILE_CHUNK, a_map, col, row0 + TILE, window, bar);
+  tma_load_3d(slot + wide::ROW_CHUNK, b_map, col, tile_row, window, bar);
+}
+
+// The slice's WIDE_DS columns of 64 rows of each of `count` maps, one
+// after the other in the slot
+__device__ __forceinline__ void load_slice(const wide::Ring& ring, int n,
+                                           const CUtensorMap* map0,
+                                           const CUtensorMap* map1,
+                                           int count, int col, int row,
+                                           int window) {
+  unsigned char* slot = ring.at(n);
+  const uint32_t bar = ring.bar(n);
+  mbar_expect_tx(bar, count * WIDE_DS * TILE * 2);
+  for (int m = 0; m < count; ++m)
+#pragma unroll
+    for (int a = 0; a < WIDE_DS / wide::ATOM; ++a)
+      tma_load_3d(slot + (m * WIDE_DS / wide::ATOM + a) * wide::TILE_CHUNK,
+                  m ? map1 : map0, col + a * wide::ATOM, row, window, bar);
+}
+
+template <bool DROP>
+__global__ void __launch_bounds__(THREADS, 1)
+dq_wide_kernel(const __grid_constant__ CUtensorMap map_q,
+               const __grid_constant__ CUtensorMap map_k,
+               const __grid_constant__ CUtensorMap map_v,
+               const __grid_constant__ CUtensorMap map_do,
+               const __grid_constant__ CUtensorMap map_dq16,
+               const __grid_constant__ CUtensorMap map_dq32,
+               const uint8_t* __restrict__ mask, const float* __restrict__ lse,
+               const float* __restrict__ d_row,
+               const uint32_t* __restrict__ keep_in, int T, int H, int D,
+               float scale_log2, float sm_scale, int causal,
+               float drop_scale, int want16, int want32) {
+  using P = WideDq;
+  constexpr int DS = WIDE_DS;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = wide::aligned_smem(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + P::RING);
+  int* released = reinterpret_cast<int*>(full + 2 * P::STAGES);
+  int* last_key = released + P::STAGES;
+  wide::Ring ring{base, full, full + P::STAGES, released, P::STAGES,
+                  P::STAGE, 0};
+  const int NC = D / wide::ATOM, slices = D / DS;
+  const int q0 = blockIdx.x * ROWS, b = blockIdx.z;
+  const int h = blockIdx.y / slices, bh = b * H + h;
+  const int col_h = h * D, col_o = col_h + (blockIdx.y % slices) * DS;
+  const uint8_t* mrow = mask + static_cast<long long>(b) * T;
+
+  // The window's last valid key: the tiles past it are not loaded
+  if (threadIdx.x == 0) {
+    ring.init();
+    *last_key = -1;
+  }
+  __syncthreads();
+  int last = -1;
+  for (int i = threadIdx.x; i < T; i += THREADS)
+    if (mrow[i]) last = i;
+  last = __reduce_max_sync(0xffffffffu, last);
+  if (threadIdx.x % 32 == 0 && last >= 0) atomicMax(last_key, last);
+  __syncthreads();
+  int tiles = (*last_key + TILE) / TILE;
+  if (causal) tiles = min(tiles, (min(q0 + ROWS, T) - 1) / TILE + 1);
+  // Per key tile: NC S items, NC dP items, then the slice's K columns
+  const int per_tile = 2 * NC + 1;
+  ring.items = tiles * per_tile;
+  auto load = [&](int n) {
+    const int i = n / per_tile, j = n % per_tile;
+    if (j < NC)
+      load_pair(ring, n, &map_q, &map_k, col_h + j * wide::ATOM, q0,
+                i * TILE, b);
+    else if (j < 2 * NC)
+      load_pair(ring, n, &map_do, &map_v, col_h + (j - NC) * wide::ATOM, q0,
+                i * TILE, b);
+    else
+      load_slice(ring, n, &map_k, &map_k, 1, col_o, i * TILE, b);
+  };
+  if (threadIdx.x == 0)
+    for (int n = 0; n < P::STAGES && n < ring.items; ++n) load(n);
+
+  const int c = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+  const int wg_row = q0 + 64 * c;
+  const int r0 = wg_row + 16 * warp + g, r1 = r0 + 8;
+  const long long row_base = static_cast<long long>(bh) * T;
+  const int keep_words = 2 * ((T + TILE - 1) / TILE);
+  const float lse0 = r0 < T ? lse[row_base + r0] : 0.f;
+  const float lse1 = r1 < T ? lse[row_base + r1] : 0.f;
+  const float drow0 = r0 < T ? d_row[row_base + r0] : 0.f;
+  const float drow1 = r1 < T ? d_row[row_base + r1] : 0.f;
+  const uint32_t a_off = c * 64 * 128;
+  const DsFrags<DROP> ds_frags{r0, r1, t, wg_row + 16 * warp, T, causal,
+                               scale_log2, sm_scale, drop_scale, lse0, lse1,
+                               drow0, drow1};
+
+  float dq[DS / 2];
+#pragma unroll
+  for (int i = 0; i < DS / 2; ++i) dq[i] = 0.f;
+
+  int nb0 = 0, nb1 = 0;
+  uint2 nk0 = make_uint2(0u, 0u), nk1 = nk0;
+  auto fetch = [&](int i) {
+    const int key = i * TILE + lane;
+    nb0 = key < T ? mrow[key] : 0;
+    nb1 = key + 32 < T ? mrow[key + 32] : 0;
+    if constexpr (DROP) {
+      const uint2* kw = reinterpret_cast<const uint2*>(
+          keep_in + (row_base + r0) * keep_words) + i;
+      nk0 = r0 < T ? kw[0] : make_uint2(0u, 0u);
+      nk1 = r1 < T ? kw[4 * keep_words] : make_uint2(0u, 0u);
+    }
+  };
+  if (tiles > 0) fetch(0);
+
+  for (int i = 0; i < tiles; ++i) {
+    const int k0 = i * TILE, n0 = i * per_tile;
+    const uint64_t valid =
+        __ballot_sync(0xffffffffu, nb0 != 0) |
+        (static_cast<uint64_t>(__ballot_sync(0xffffffffu, nb1 != 0)) << 32);
+    const uint2 kw0 = nk0, kw1 = nk1;
+    if (i + 1 < tiles) fetch(i + 1);
+    const bool live =
+        valid != 0 && wg_row < T && !(causal && k0 > wg_row + 63);
+    float sc[TILE / 2], dp[TILE / 2];
+    wide::scores(sc, ring, n0, NC, a_off, wide::ROW_CHUNK, live, lane, load);
+    wide::scores(dp, ring, n0 + NC, NC, a_off, wide::ROW_CHUNK, live, lane,
+                 load);
+    uint32_t a[TILE / 16][4];
+    if (live) ds_frags(sc, dp, a, valid, k0, kw0, kw1);
+    const int n_out = n0 + 2 * NC;
+    ring.wait(n_out);
+    if (live) {
+      // dQ += dS K over the slice's columns of K
+#pragma unroll
+      for (int k = 0; k < TILE / 16; ++k) fence_regs(a[k]);
+      fence_regs(dq);
+      wgmma_fence();
+      frag_by_tile<DS>(dq, a, smem_addr(ring.at(n_out)));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dq);
+#pragma unroll
+      for (int k = 0; k < TILE / 16; ++k) fence_regs(a[k]);
+    }
+    ring.release(n_out, lane, load);
+  }
+
+  __syncthreads();
+  auto box = [&](int n) { return base + c * 32768 + n * wide::TILE_CHUNK; };
+  const bool lead = threadIdx.x % 128 == 0;
+  if (want32) {
+    stage_f32<DS>(dq, box, warp, g, t);
+    store_boxes(&map_dq32, DS / 32, 32, box, col_o, wg_row, b, c, lead, T);
+  }
+  if (want16) {
+    stage_bf16<DS>(dq, box, warp, g, t);
+    store_boxes(&map_dq16, DS / 64, 64, box, col_o, wg_row, b, c, lead, T);
+  }
+}
+
+template <bool DROP>
+__global__ void __launch_bounds__(THREADS, 1)
+dkdv_wide_kernel(const __grid_constant__ CUtensorMap map_q,
+                 const __grid_constant__ CUtensorMap map_k,
+                 const __grid_constant__ CUtensorMap map_v,
+                 const __grid_constant__ CUtensorMap map_do,
+                 const __grid_constant__ CUtensorMap map_dk16,
+                 const __grid_constant__ CUtensorMap map_dk32,
+                 const __grid_constant__ CUtensorMap map_dv16,
+                 const __grid_constant__ CUtensorMap map_dv32,
+                 const uint8_t* __restrict__ mask,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ d_row,
+                 const uint32_t* __restrict__ keep_in, int T, int H, int D,
+                 float scale_log2, float sm_scale, int causal,
+                 float drop_scale, int want16, int want32) {
+  using P = WideDkdv;
+  constexpr int DS = WIDE_DS;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = wide::aligned_smem(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + P::BARS);
+  wide::Ring ring{base, full, full + P::STAGES,
+                  reinterpret_cast<int*>(full + 2 * P::STAGES), P::STAGES,
+                  P::STAGE, 0};
+  const int NC = D / wide::ATOM, slices = D / DS;
+  const int k0b = blockIdx.x * ROWS, b = blockIdx.z;
+  const int h = blockIdx.y / slices, bh = b * H + h;
+  const int col_h = h * D, col_o = col_h + (blockIdx.y % slices) * DS;
+  const uint8_t* mrow = mask + static_cast<long long>(b) * T;
+
+  // Warpgroup c owns keys wg_key..wg_key+63, as in dkdv_kernel
+  const int c = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+  const int wg_key = k0b + 64 * c, warp_key = wg_key + 16 * warp;
+  const int kr0 = warp_key + g, kr1 = kr0 + 8;
+  const int m0 = wg_key + lane, m1 = m0 + 32;
+  const uint64_t kvalid =
+      __ballot_sync(0xffffffffu, m0 < T && mrow[m0] != 0) |
+      (static_cast<uint64_t>(
+           __ballot_sync(0xffffffffu, m1 < T && mrow[m1] != 0))
+       << 32);
+  const bool kv0 = (kvalid >> (16 * warp + g)) & 1u;
+  const bool kv1 = (kvalid >> (16 * warp + g + 8)) & 1u;
+
+  if (threadIdx.x == 0) ring.init();
+  // A block with no valid key loads nothing and writes zeros
+  const int first = causal ? k0b / TILE : 0;
+  const int tiles =
+      __syncthreads_or(kvalid != 0) ? (T + TILE - 1) / TILE - first : 0;
+  // Per query tile: NC S^T items, NC dP^T items, then the slice's Q and
+  // dO columns
+  const int per_tile = 2 * NC + 1;
+  ring.items = tiles * per_tile;
+  auto load = [&](int n) {
+    const int q_row = (first + n / per_tile) * TILE, j = n % per_tile;
+    if (j < NC)
+      load_pair(ring, n, &map_k, &map_q, col_h + j * wide::ATOM, k0b, q_row,
+                b);
+    else if (j < 2 * NC)
+      load_pair(ring, n, &map_v, &map_do, col_h + (j - NC) * wide::ATOM, k0b,
+                q_row, b);
+    else
+      load_slice(ring, n, &map_q, &map_do, 2, col_o, q_row, b);
+  };
+  if (threadIdx.x == 0)
+    for (int n = 0; n < P::STAGES && n < ring.items; ++n) load(n);
+
+  const long long row_base = static_cast<long long>(bh) * T;
+  float* slot = reinterpret_cast<float*>(base + P::ROWV) +
+                (threadIdx.x / 32) * 3 * TILE;
+  uint32_t* slot_keep = reinterpret_cast<uint32_t*>(slot + 2 * TILE);
+  const int keep_words = 2 * ((T + TILE - 1) / TILE);
+  const int keep_shift = (warp_key & 16) + g;
+  const uint32_t a_off = c * 64 * 128;
+  const DkdvFrags<DROP> frags{kr0, kr1, warp_key, t, keep_shift, T, causal,
+                              kv0, kv1, scale_log2, sm_scale, drop_scale};
+
+  float dk[DS / 2], dv[DS / 2];
+#pragma unroll
+  for (int i = 0; i < DS / 2; ++i) dk[i] = 0.f, dv[i] = 0.f;
+
+  // lse, d_row and the keep words of a tile, as dkdv_kernel reads them
+  const bool keys_in_row = warp_key / 32 < keep_words;
+  float nl0 = 0.f, nl1 = 0.f, nd0 = 0.f, nd1 = 0.f;
+  uint32_t nk0 = 0u, nk1 = 0u;
+  auto fetch = [&](int i) {
+    const int qi = (first + i) * TILE + 2 * lane;
+    nl0 = qi < T ? lse[row_base + qi] : 0.f;
+    nd0 = qi < T ? d_row[row_base + qi] : 0.f;
+    nl1 = qi + 1 < T ? lse[row_base + qi + 1] : 0.f;
+    nd1 = qi + 1 < T ? d_row[row_base + qi + 1] : 0.f;
+    if constexpr (DROP) {
+      const uint32_t* kw = keep_in + (row_base + qi) * keep_words +
+                           warp_key / 32;
+      nk0 = keys_in_row && qi < T ? kw[0] : 0u;
+      nk1 = keys_in_row && qi + 1 < T ? kw[keep_words] : 0u;
+    }
+  };
+  if (tiles > 0) fetch(0);
+
+  for (int i = 0; i < tiles; ++i) {
+    const int q0 = (first + i) * TILE, n0 = i * per_tile;
+    *reinterpret_cast<float2*>(slot + 2 * lane) = make_float2(nl0, nl1);
+    *reinterpret_cast<float2*>(slot + TILE + 2 * lane) =
+        make_float2(nd0, nd1);
+    if constexpr (DROP)
+      *reinterpret_cast<uint2*>(slot_keep + 2 * lane) = make_uint2(nk0, nk1);
+    __syncwarp();
+    if (i + 1 < tiles) fetch(i + 1);
+    const bool live = kvalid != 0 && !(causal && q0 + TILE - 1 < wg_key);
+    float sc[TILE / 2], dp[TILE / 2];
+    wide::scores(sc, ring, n0, NC, a_off, wide::ROW_CHUNK, live, lane, load);
+    wide::scores(dp, ring, n0 + NC, NC, a_off, wide::ROW_CHUNK, live, lane,
+                 load);
+    uint32_t apd[TILE / 16][4], ads[TILE / 16][4];
+    if (live) frags(sc, dp, apd, ads, slot, slot_keep, q0);
+    const int n_out = n0 + 2 * NC;
+    ring.wait(n_out);
+    if (live) {
+      // The slot holds the tile's Q columns of the slice, then dO's
+      const uint32_t q_addr = smem_addr(ring.at(n_out));
+      const uint32_t do_addr = q_addr + DS * TILE * 2;
+#pragma unroll
+      for (int k = 0; k < TILE / 16; ++k) {
+        fence_regs(apd[k]);
+        fence_regs(ads[k]);
+      }
+      fence_regs(dv);
+      fence_regs(dk);
+      wgmma_fence();
+      frag_by_tile<DS>(dv, apd, do_addr);
+      frag_by_tile<DS>(dk, ads, q_addr);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dv);
+      fence_regs(dk);
+#pragma unroll
+      for (int k = 0; k < TILE / 16; ++k) {
+        fence_regs(apd[k]);
+        fence_regs(ads[k]);
+      }
+    }
+    ring.release(n_out, lane, load);
+  }
+
+  // dk and dv out through the idle ring, one output at a time
+  __syncthreads();
+  auto box = [&](int n) { return base + c * 32768 + n * wide::TILE_CHUNK; };
+  const bool lead = threadIdx.x % 128 == 0;
+  if (want32) {
+    stage_f32<DS>(dk, box, warp, g, t);
+    store_boxes(&map_dk32, DS / 32, 32, box, col_o, wg_key, b, c, lead, T);
+    stage_f32<DS>(dv, box, warp, g, t);
+    store_boxes(&map_dv32, DS / 32, 32, box, col_o, wg_key, b, c, lead, T);
+  }
+  if (want16) {
+    stage_bf16<DS>(dk, box, warp, g, t);
+    store_boxes(&map_dk16, DS / 64, 64, box, col_o, wg_key, b, c, lead, T);
+    stage_bf16<DS>(dv, box, warp, g, t);
+    store_boxes(&map_dv16, DS / 64, 64, box, col_o, wg_key, b, c, lead, T);
+  }
+}
+
+template <bool DROP>
+int launch_wide(const CUtensorMap* in, const CUtensorMap* out,
+                const void* mask, const void* lse, const void* keep,
+                const void* d_row, int B, int T, int H, int D,
+                float scale_log2, float sm_scale, int causal,
+                float drop_scale, int want16, int want32,
+                cudaStream_t stream) {
+  static const cudaError_t attr_q =
+      allow_smem(dq_wide_kernel<DROP>, WideDq::SMEM);
+  if (attr_q != cudaSuccess) return static_cast<int>(attr_q);
+  static const cudaError_t attr_k =
+      allow_smem(dkdv_wide_kernel<DROP>, WideDkdv::SMEM);
+  if (attr_k != cudaSuccess) return static_cast<int>(attr_k);
+  const dim3 grid((T + ROWS - 1) / ROWS, H * (D / WIDE_DS), B);
+  const uint8_t* m = static_cast<const uint8_t*>(mask);
+  const float* l = static_cast<const float*>(lse);
+  const float* d = static_cast<const float*>(d_row);
+  const uint32_t* bits = static_cast<const uint32_t*>(keep);
+  dq_wide_kernel<DROP><<<grid, THREADS, WideDq::SMEM, stream>>>(
+      in[0], in[1], in[2], in[3], out[0], out[1], m, l, d, bits, T, H, D,
+      scale_log2, sm_scale, causal, drop_scale, want16, want32);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dkdv_wide_kernel<DROP><<<grid, THREADS, WideDkdv::SMEM, stream>>>(
+      in[0], in[1], in[2], in[3], out[2], out[3], out[4], out[5], m, l, d,
+      bits, T, H, D, scale_log2, sm_scale, causal, drop_scale, want16,
+      want32);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// D: the instance (128 or 256), or 0 for the wide route at d
 template <int D>
 int launch_width(const void* q, const void* k, const void* v, long long rs,
                  const void* mask, const void* lse, const void* keep,
                  const void* dout, long long do_stride, const void* d_row,
                  void* const (&outs)[6], long long d_stride, int B, int T,
-                 int H, float scale_log2, float sm_scale, int causal,
+                 int H, int d, float scale_log2, float sm_scale, int causal,
                  float drop_scale, cudaStream_t s) {
   // (columns, T, window) views: the inputs in 64 x 64 boxes, the outputs
   // in boxes of 64 rows of 128 bytes
-  const long long cols = static_cast<long long>(H) * D;
+  const long long cols = static_cast<long long>(H) * d;
   CUtensorMap in[4], out[6] = {};
   const void* bases[4] = {q, k, v, dout};
   for (int i = 0; i < 4; ++i) {
@@ -1088,19 +1525,30 @@ int launch_width(const void* q, const void* k, const void* v, long long rs,
       return static_cast<int>(cudaErrorInvalidValue);
   }
   const int want16 = outs[0] != nullptr, want32 = outs[1] != nullptr;
-  if (keep)
-    return launch<D, true>(in, out, mask, lse, keep, d_row, B, T, H,
-                           scale_log2, sm_scale, causal, drop_scale, want16,
-                           want32, s);
-  return launch<D, false>(in, out, mask, lse, keep, d_row, B, T, H,
-                          scale_log2, sm_scale, causal, drop_scale, want16,
-                          want32, s);
+  if constexpr (D == 0) {
+    if (keep)
+      return launch_wide<true>(in, out, mask, lse, keep, d_row, B, T, H, d,
+                               scale_log2, sm_scale, causal, drop_scale,
+                               want16, want32, s);
+    return launch_wide<false>(in, out, mask, lse, keep, d_row, B, T, H, d,
+                              scale_log2, sm_scale, causal, drop_scale,
+                              want16, want32, s);
+  } else {
+    if (keep)
+      return launch<D, true>(in, out, mask, lse, keep, d_row, B, T, H,
+                             scale_log2, sm_scale, causal, drop_scale, want16,
+                             want32, s);
+    return launch<D, false>(in, out, mask, lse, keep, d_row, B, T, H,
+                            scale_log2, sm_scale, causal, drop_scale, want16,
+                            want32, s);
+  }
 }
 
 }  // namespace
 
 // q, k, v: bf16 (B, T, H*d) views with row stride rs, d = d_head 128 or
-// 256; mask (B, T) bytes, nonzero = valid key; lse and d_row (B, H, T)
+// 256, or d % 128 == 0 from 384 to 2048 (the wide route); mask (B, T)
+// bytes, nonzero = valid key; lse and d_row (B, H, T)
 // fp32; keep: the forward's keep bits, B x H x T x 2 ceil(T / 64) uint32
 // (ppgs_attention_train_fwd), or null when the dropout is off; drop_scale
 // = 1 / (1 - rate); dout (B, T, H*d) bf16 with row stride do_stride; dq,
@@ -1115,7 +1563,8 @@ extern "C" int ppgs_attention_train_bwd(
     void* dk16, void* dk32, void* dv16, void* dv32, long long d_stride,
     int B, int T, int H, int d, float scale_log2, float sm_scale,
     int causal, float drop_scale, void* stream) {
-  if (d != 128 && d != 256) return static_cast<int>(cudaErrorInvalidValue);
+  if (d != 128 && d != 256 && !wide::takes(d))
+    return static_cast<int>(cudaErrorInvalidValue);
   void* const outs[6] = {dq16, dq32, dk16, dk32, dv16, dv32};
   const bool want16 = dq16 != nullptr, want32 = dq32 != nullptr;
   if ((dk16 != nullptr) != want16 || (dv16 != nullptr) != want16 ||
@@ -1123,11 +1572,15 @@ extern "C" int ppgs_attention_train_bwd(
     return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0 || T <= 0) return static_cast<int>(cudaGetLastError());
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return d == 256
-             ? launch_width<256>(q, k, v, rs, mask, lse, keep, dout,
-                                 do_stride, d_row, outs, d_stride, B, T, H,
-                                 scale_log2, sm_scale, causal, drop_scale, s)
-             : launch_width<128>(q, k, v, rs, mask, lse, keep, dout,
-                                 do_stride, d_row, outs, d_stride, B, T, H,
-                                 scale_log2, sm_scale, causal, drop_scale, s);
+  if (d == 256)
+    return launch_width<256>(q, k, v, rs, mask, lse, keep, dout, do_stride,
+                             d_row, outs, d_stride, B, T, H, d, scale_log2,
+                             sm_scale, causal, drop_scale, s);
+  if (d == 128)
+    return launch_width<128>(q, k, v, rs, mask, lse, keep, dout, do_stride,
+                             d_row, outs, d_stride, B, T, H, d, scale_log2,
+                             sm_scale, causal, drop_scale, s);
+  return launch_width<0>(q, k, v, rs, mask, lse, keep, dout, do_stride,
+                         d_row, outs, d_stride, B, T, H, d, scale_log2,
+                         sm_scale, causal, drop_scale, s);
 }

@@ -1,9 +1,11 @@
 // Hopper building blocks shared by the kernels that feed the tensor cores
 // with TMA and wgmma (gemm.cu, ffn_ln.cu, attention.cu, qkv_proj.cu,
 // attention_train.cu, attention_train_bwd.cu, ffn_train.cu, conv_stack.cu,
-// fused_mel.cu, and out_proj_ln.cu through residual_ln.cuh):
+// fused_mel.cu, out_proj_ln.cu through residual_ln.cuh, and the
+// attention kernels' wide routes through attention_wide.cuh):
 // mbarrier waits that trap rather than hang, TMA tile loads and stores
-// (2-D and 3-D), the 128-byte-swizzle shared-memory descriptor, the
+// (2-D and 3-D), the swizzled shared-memory descriptors (128-byte, and
+// 64- or 32-byte for rows that narrow), the
 // wgmma.mma_async wrappers (A from shared memory or from registers), the
 // staging of rows as a swizzled bf16 operand tile, the attention kernels'
 // quad reductions and swizzled output staging, and the host-side encoding
@@ -176,6 +178,19 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
          (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
 }
 
+// The same with a SW-byte swizzle (128, 64 or 32: a row of the atom holds
+// SW bytes, the 16-byte chunk q of row r at q ^ ((r >> log2(128 / SW)) &
+// (SW / 16 - 1))); the atoms start 8 SW bytes aligned
+template <int SW>
+__device__ __forceinline__ uint64_t sw_desc(uint32_t addr, uint32_t lbo,
+                                            uint32_t sbo) {
+  static_assert(SW == 128 || SW == 64 || SW == 32, "swizzle 128, 64 or 32");
+  constexpr uint64_t layout = SW == 128 ? 1 : SW == 64 ? 2 : 3;
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (layout << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 }
@@ -216,6 +231,7 @@ __device__ __forceinline__ void bar_arrive(int id, int count) {
   asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(count) : "memory");
 }
 
+#define PPGS_R8 "%0, %1, %2, %3, %4, %5, %6, %7"
 #define PPGS_R16                                                            \
   "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
 #define PPGS_R24                                                            \
@@ -295,7 +311,8 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[BN / 2], uint64_t da,
 // The same with A's m64k16 fragment in registers; TB: B is MN-major (as
 // stored row-major (K, N)), else K-major; accumulate false: d = A B, its
 // old value ignored. BN 80 is for the mel product of fused_mel.cu (80 mel
-// bands), BN 48 for rel_attention.cu's PV (a head of 36 at column 0 or 4)
+// bands), BN 48 for rel_attention.cu's PV (a head of 36 at column 0 or 4),
+// BN 32 and 16 for attention.cu's PV at those head widths
 template <int BN, int TB = 1>
 __device__ __forceinline__ void wgmma_rs(float (&d)[BN / 2],
                                          const uint32_t (&a)[4], uint64_t db,
@@ -333,8 +350,25 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[BN / 2],
         : PPGS_F24
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
           "n"(TB));
+  } else if constexpr (BN == 32) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %21, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{" PPGS_R16 "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+        : PPGS_F16
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+          "n"(TB));
+  } else if constexpr (BN == 16) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %13, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{" PPGS_R8 "}, {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+        : PPGS_F8(0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+          "n"(TB));
   } else {
-    static_assert(BN == 64, "wgmma_rs takes BN 48, 64, 80, 128 or 256");
+    static_assert(BN == 64,
+                  "wgmma_rs takes BN 16, 32, 48, 64, 80, 128 or 256");
     asm volatile(
         "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
         " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
@@ -345,6 +379,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[BN / 2],
   }
 }
 
+#undef PPGS_R8
 #undef PPGS_R16
 #undef PPGS_R24
 #undef PPGS_R32
@@ -535,11 +570,13 @@ inline bool encode(CUtensorMap* map, const void* base, bool f32,
 
 // A 3-D bf16 (or, with f32, fp32) tensor of n2 slabs of n1 rows of n0
 // elements (rows ld1 elements apart, slabs ld2), loaded in boxes of box0 x
-// box1 x 1 (box0 x element = 128 bytes) with the 128-byte swizzle; zeros
-// past its edges
+// box1 x 1 (box0 x element = 128 bytes) with the 128-byte swizzle, or the
+// width of another swizzle; zeros past its edges
 inline bool encode_3d(CUtensorMap* map, const void* base, long long n0,
                       long long n1, long long n2, long long ld1,
-                      long long ld2, int box0, int box1, bool f32 = false) {
+                      long long ld2, int box0, int box1, bool f32 = false,
+                      CUtensorMapSwizzle swizzle =
+                          CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiled fn = encode_tiled();
   if (!fn) return false;
   const cuuint64_t size = f32 ? 4 : 2;
@@ -556,7 +593,7 @@ inline bool encode_3d(CUtensorMap* map, const void* base, long long n0,
                 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
             3, const_cast<void*>(base),
             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

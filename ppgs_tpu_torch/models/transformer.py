@@ -46,11 +46,9 @@ def inference_width_ok(C, d_head):
     rule (``fused_ffn.width_ok``: C % 128 == 0 up to 2048; K1, K3 and K4
     in their inference and train forms, ``ffn_train_bwd`` and
     ``ln_dropout_bwd``) and the head widths that the JAX rule sends to the
-    kernels (d_head % 128 == 0: 128 and 256, which K2 and the train
-    attention both take)."""
-    return (fused_ffn.width_ok(C) and d_head in fa.D_HEADS
-            and d_head in fa.TRAIN_D_HEADS and d_head % 128 == 0
-            and C % d_head == 0)
+    kernels (d_head % 128 == 0, which K2 and the train attention take up
+    to 2048): the JAX rule at C <= 2048."""
+    return fused_ffn.width_ok(C) and d_head % 128 == 0 and C % d_head == 0
 
 # Longest window of the train kernels (the JAX package's
 # TRAIN_KERNEL_MAX_T): the whole-layer kernel takes T % 8 == 0 up to it,
@@ -265,10 +263,9 @@ def use_kernels(config: Config, device, train=False) -> bool:
     a static choice from the config, not a fallback. One gate on a CUDA
     device, the same in inference and in training (``train``, which the
     train forward, ``train()`` and a PP train step pass): the card's
-    kernels take every width of the JAX rule up to C = 2048 with d_head
-    128 or 256 (``inference_width_ok``). Another width that the rule sends
-    to a kernel (past 2048, d_head 384 or more) raises there, naming
-    ROADMAP.md."""
+    kernels take every width of the JAX rule up to C = 2048
+    (``inference_width_ok``). A width past 2048, which the rule sends to a
+    kernel, raises there, naming ROADMAP.md."""
     C, heads = config.hidden_channels, config.attention_heads
     d_head = C // heads
     kernel = config.compute_dtype == 'bfloat16' and d_head % 128 == 0
@@ -277,7 +274,7 @@ def use_kernels(config: Config, device, train=False) -> bool:
     if not inference_width_ok(C, d_head):
         raise NotImplementedError(
             f'The CUDA kernels take C % 128 == 0 up to '
-            f'{fused_ffn.MAX_WIDTH} with d_head 128 or 256 in inference and '
+            f'{fused_ffn.MAX_WIDTH} with d_head % 128 == 0 in inference and '
             f'training; config {config.config!r} has C = {C} with d_head = '
             f'{d_head}, which is not ported to the card (ROADMAP.md)')
     return kernel

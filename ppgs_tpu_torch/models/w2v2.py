@@ -288,8 +288,9 @@ def _pos_conv(x, p, config: W2V2Config):
 
 
 # The trunk's head widths on the card: K2's that divide 128 (the JAX
-# rule's packed heads); 32 is not ported
-STACK_D_HEADS = (64, 128)
+# rule's packed heads); 8 and less are not ported (a TMA box is at least
+# 16 bytes wide: they need a packed form, ROADMAP.md)
+STACK_D_HEADS = (16, 32, 64, 128)
 
 
 def use_stack(config: W2V2Config, T, device) -> bool:

@@ -11,7 +11,8 @@ kernels, and the fp32 residual goes through device memory between them:
 
     K1 qkv_proj              qkv = bf16(bf16(x) @ Wqkv + bqkv)       (here)
     K2 attention             a   = softmax(mask(q k^T)) v per head
-                             (ops/flash_attention.py; d_head 64, 128, 256)
+                             (ops/flash_attention.py; d_head 16, 32, 64,
+                             or d_head % 128 == 0 up to 2048)
     K3 out_proj_residual_ln  r   = LN1(x + a @ Wo + bo)              (here;
                              with dropout and saved LN statistics it is
                              also the training layer's,
@@ -217,7 +218,8 @@ def encoder_stack(x, mask, layers, heads, compute_dtype=torch.bfloat16,
     transformer) or 'gelu' (wav2vec2: ``encoder_stack_streamed``'s
     ``activation='gelu'``). On the card the kernels take bf16 only, at
     any C % 128 == 0 from 128 to 2048 (``width_ok``) with ReLU or GELU and
-    d_head 64, 128 or 256 (K2's); they raise on anything else."""
+    the head widths K2 takes (``flash_attention.d_head_ok``: 16, 32, 64,
+    or d_head % 128 == 0 up to 2048); they raise on anything else."""
     return _stack(x, mask, layers, heads, compute_dtype, causal, activation,
                   (qkv_proj, attention, out_proj_residual_ln,
                    ffn_residual_ln))

@@ -197,9 +197,9 @@ def encoder_layer_train(x, mask, layer, heads, dropout_rate=0.0, seed=0,
     optimizer step is seen at once (the model's ``prepared`` buffers are
     not read). mask: (B, T), True = valid key. The dropout sites are
     ``site`` .. ``site + 3`` of the Philox stream of ``seed``. On the card
-    the kernels take bf16 at any C % 128 == 0 from 128 to 2048 with d_head
-    128 or 256 (``models.transformer.inference_width_ok``) and raise on
-    anything else."""
+    the kernels take bf16 at any C % 128 == 0 from 128 to 2048 with
+    d_head % 128 == 0 (``models.transformer.inference_width_ok``) and
+    raise on anything else."""
     return _layer(x, mask, layer, heads, dropout_rate, seed, causal, site,
                   compute_dtype, KERNELS)
 

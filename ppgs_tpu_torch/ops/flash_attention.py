@@ -2,13 +2,15 @@
 ``kernels/csrc/attention.cu``).
 
 One CUDA kernel (wgmma + TMA: S, P and O stay in registers), with an
-online softmax over 64-key tiles and one instance per head width (64, 128,
-256), serves the places the JAX package runs attention in a TPU kernel:
-``ppgs_tpu/ops/flash_attention.py``
+online softmax over 64-key tiles and one instance per head width (16, 32,
+64, 128, 256), and a wide route for any d_head % 128 == 0 from 384 to
+2048 (the output's columns split over the grid, S formed over the whole
+head by each slice), serves the places the JAX package runs attention in
+a TPU kernel: ``ppgs_tpu/ops/flash_attention.py``
 ``_fused_kernel`` (T <= 1024), ``_flash_kernel`` (T > 1024) and
 ``_fused_kernel_packed`` (d_head < 128: wav2vec2's 12 heads of 64, which
-the TPU packs two to a 128-lane block and the card runs one head to a
-block), and the attention inside
+the TPU packs 128 / d_head to a 128-lane block and the card runs one head
+to a block), and the attention inside
 ``ppgs_tpu/ops/encoder_layer_kernel.py::_layer_body`` (``encoder_stack``
 and ``encoder_stack_streamed``). q, k and v are read in place through a
 row stride, so the fused (B, T, 3C) QKV buffer needs no split and no head
@@ -34,9 +36,23 @@ from . import dropout
 
 LOG2E = 1.4426950408889634
 NEG_INF = -1e30
-D_HEADS = (64, 128, 256)    # the inference kernel's head widths
-TRAIN_D_HEADS = (128, 256)  # the train kernels' head widths
+MAX_D_HEAD = 2048           # the widest head of the kernels' wide routes
 TRAIN_MAX_T = 1024          # the train forward kernel's longest window
+
+
+def d_head_ok(d):
+    """Whether K2 takes heads of width d: 16, 32 and 64 (the heads a
+    128-lane block packs, an instance each), and every d % 128 == 0 up to
+    ``MAX_D_HEAD`` (128 and 256 an instance each, 384 on the wide
+    route)."""
+    return d in (16, 32, 64) or train_d_head_ok(d)
+
+
+def train_d_head_ok(d):
+    """Whether the train kernels take heads of width d: every d % 128 ==
+    0 up to ``MAX_D_HEAD`` (the JAX train kernels' rule, D % 128 == 0, at
+    the port's widest head)."""
+    return d % 128 == 0 and 0 < d <= MAX_D_HEAD
 
 
 def attention_reference(q, k, v, mask, heads, scale_log2, causal=False):
@@ -84,15 +100,16 @@ def _row_stride(t, T):
 def _attention_args(q, k, v, mask, heads):
     """Check K2's operands and return (d_head, row stride); raise
     ValueError on what the kernel does not take, before anything is
-    launched: a d_head not in ``D_HEADS``, q, k or v not bf16 of q's shape
-    and device, views the kernel cannot read in place (``_row_stride``) or
-    of different row strides, a mask that is not a contiguous (B, T)
-    bool."""
+    launched: a d_head that ``d_head_ok`` refuses, q, k or v not bf16 of
+    q's shape and device, views the kernel cannot read in place
+    (``_row_stride``) or of different row strides, a mask that is not a
+    contiguous (B, T) bool."""
     B, T, C = q.shape
     d_head = C // heads
-    if C != heads * d_head or d_head not in D_HEADS:
-        raise ValueError(f'attention kernel takes d_head in {D_HEADS}; got '
-                         f'C={C} with {heads} heads')
+    if C != heads * d_head or not d_head_ok(d_head):
+        raise ValueError(f'attention kernel takes d_head in (16, 32, 64) or '
+                         f'd_head % 128 == 0 up to {MAX_D_HEAD}; got C={C} '
+                         f'with {heads} heads')
     dev = q.device
     for name, t in (('q', q), ('k', k), ('v', v)):
         if t.dtype != torch.bfloat16 or t.device != dev:
@@ -109,8 +126,9 @@ def _attention_args(q, k, v, mask, heads):
 
 
 def attention(q, k, v, mask, heads, scale_log2, causal=False):
-    """K2: q, k, v (B, T, H*d_head) bf16 with d_head 64, 128 or 256 (views
-    of one buffer are fine), mask (B, T) bool, True = valid key. Returns a
+    """K2: q, k, v (B, T, H*d_head) bf16 with d_head 16, 32, 64 or d_head
+    % 128 == 0 up to 2048 (views of one buffer are fine), mask (B, T) bool,
+    True = valid key. Returns a
     new (B, T, C) bf16 tensor. ``scale_log2`` multiplies the fp32 scores
     before exp2: log2(e)/sqrt(d) for raw q, 1 when that factor is folded
     into q's weights. ``attention.widths`` counts the launches per d_head."""
@@ -361,17 +379,17 @@ def keep_words_reference(drop, B, heads, T, device=None):
 def train_d_head(C, heads):
     """The head width of (B, T, C) train operands with ``heads`` heads;
     raise ValueError unless the train kernels take it
-    (``TRAIN_D_HEADS``)."""
+    (``train_d_head_ok``)."""
     d = C // heads
-    if C != heads * d or d not in TRAIN_D_HEADS:
-        raise ValueError(f'attention train kernels take d_head in '
-                         f'{TRAIN_D_HEADS}; got C={C} with {heads} heads')
+    if C != heads * d or not train_d_head_ok(d):
+        raise ValueError(f'attention train kernels take d_head % 128 == 0 '
+                         f'up to {MAX_D_HEAD}; got C={C} with {heads} heads')
     return d
 
 
 def _attention_views(q, k, v, heads, dtype):
-    """Check q, k, v (B, T, H*d) views of one row layout, d in
-    ``TRAIN_D_HEADS``, and return their row stride."""
+    """Check q, k, v (B, T, H*d) views of one row layout, d taken by
+    ``train_d_head_ok``, and return their row stride."""
     B, T, C = q.shape
     train_d_head(C, heads)
     dev = q.device
@@ -391,10 +409,10 @@ def _attention_views(q, k, v, heads, dtype):
 def _train_fwd_args(q, k, v, mask, heads):
     """Check ``attention_train_fwd``'s operands and return the row stride of
     q, k and v; raise ValueError on what the kernel does not take, before
-    anything is launched: a d_head not in ``TRAIN_D_HEADS``, q, k or v not
-    bf16 of q's shape and device, views its TMA maps cannot read in place
-    (``_row_stride``) or of different row strides, a mask that is not a
-    contiguous (B, T) bool, T past ``TRAIN_MAX_T``."""
+    anything is launched: a d_head that ``train_d_head_ok`` refuses, q, k
+    or v not bf16 of q's shape and device, views its TMA maps cannot read
+    in place (``_row_stride``) or of different row strides, a mask that is
+    not a contiguous (B, T) bool, T past ``TRAIN_MAX_T``."""
     B, T, C = q.shape
     rs = _attention_views(q, k, v, heads, torch.bfloat16)
     kernels.require(mask, 'mask', torch.bool, q.device, (B, T))
@@ -407,12 +425,11 @@ def _train_fwd_args(q, k, v, mask, heads):
 def attention_train_fwd(q, k, v, mask, heads, scale_log2, causal, drop,
                         want_f32=False):
     """Attention with dropout on the normalised probabilities
-    (``kernels/csrc/attention_train.cu``): q, k, v (B, T, H*d) bf16 views, d
-    in ``TRAIN_D_HEADS``,
-    T <= ``TRAIN_MAX_T``, mask (B, T) bool, ``drop`` the probabilities'
-    Drop. Returns (o bf16, o fp32 or None, lse (B, H, T) fp32, the keep
-    words for the backward (``keep_words_shape`` int32) or None when the
-    dropout is off)."""
+    (``kernels/csrc/attention_train.cu``): q, k, v (B, T, H*d) bf16 views,
+    d % 128 == 0 up to ``MAX_D_HEAD``, T <= ``TRAIN_MAX_T``, mask (B, T)
+    bool, ``drop`` the probabilities' Drop. Returns (o bf16, o fp32 or
+    None, lse (B, H, T) fp32, the keep words for the backward
+    (``keep_words_shape`` int32) or None when the dropout is off)."""
     if q.device.type == 'cpu':
         return attention_train_fwd_reference(q, k, v, mask, heads,
                                              scale_log2, causal, drop,
@@ -447,8 +464,8 @@ def row_dot_reference(x, y, heads):
 
 def row_dot(x, y, heads):
     """Per-head row sums of x * y over (B, T, H*d) views of one dtype (fp32
-    or bf16), d in ``TRAIN_D_HEADS`` -> (B, H, T) fp32: the backward's
-    d_row."""
+    or bf16), d % 128 == 0 up to ``MAX_D_HEAD`` -> (B, H, T) fp32: the
+    backward's d_row."""
     if x.device.type == 'cpu':
         return row_dot_reference(x, y, heads)
     B, T, C = x.shape
@@ -498,12 +515,13 @@ def attention_train_bwd_reference(q, k, v, mask, lse, keep, dout, d_row,
 def _train_bwd_args(q, k, v, mask, lse, keep, dout, d_row, heads, drop):
     """Check ``attention_train_bwd``'s operands and return (the row stride
     of q, k and v, dout's); raise ValueError on what the kernel does not
-    take, before anything is launched: a d_head not in ``TRAIN_D_HEADS``,
-    q, k, v or dout not bf16 of q's shape and device, views the kernel's TMA maps
-    cannot read in place (``_row_stride``), q, k and v of different row
-    strides, a mask that is not a contiguous (B, T) bool, lse or d_row not
-    contiguous (B, H, T) fp32, with the dropout on keep words that are not
-    the forward's contiguous ``keep_words_shape`` int32."""
+    take, before anything is launched: a d_head that ``train_d_head_ok``
+    refuses, q, k, v or dout not bf16 of q's shape and device, views the
+    kernel's TMA maps cannot read in place (``_row_stride``), q, k and v of
+    different row strides, a mask that is not a contiguous (B, T) bool,
+    lse or d_row not contiguous (B, H, T) fp32, with the dropout on keep
+    words that are not the forward's contiguous ``keep_words_shape``
+    int32."""
     B, T, C = q.shape
     dev = q.device
     rs = _attention_views(q, k, v, heads, torch.bfloat16)

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Time the port's layer kernels K1, K3 and K4 and the train kernels at the
-registered widths on one CUDA card, beside another checkout's.
+"""Time the port's layer kernels K1, K3 and K4, the train kernels and the
+attention kernels at the registered widths on one CUDA card, beside
+another checkout's.
 
     python3 scripts/torch_layer_width_probe.py [--root DIR] [--reps N]
-        [--variants ...]
+        [--variants ...] [--only PREFIXES]
 
 Builds this checkout's kernels and, with ``--root``, the ``qkv_proj.cu``,
 ``out_proj_ln.cu``, ``ffn_ln.cu``, ``ffn_train.cu`` and ``layer_train.cu``
@@ -18,9 +19,14 @@ first three; K4 at mel (ReLU, F = 2048), the head (ReLU, F = 2048), the
 trunk (GELU, F = 3072) and C = 768 with ReLU (64,000 rows, F = 2048); and
 the train forms at C = 256, 512 and 768 on the training shape (131,072
 rows, F = 2048, dropout 0.1): K3's, K4's LayerNorm and y_out forms,
-ffn_train_bwd (fp32 x) and ln_dropout_bwd. It prints whether the root's
-outputs (every output of a train form) equal this checkout's bit for bit,
-then
+ffn_train_bwd (fp32 x) and ln_dropout_bwd; K2 at mel (128 x 500, 2 heads
+of 128), the head (2 heads of 256) and the trunk (64 x 400, 12 heads of
+64), and attention_train_fwd (fp32 o too), row_dot and
+attention_train_bwd (bf16 and fp32) at d_head 128 and 256 on the training
+shape (256 x 512, ragged windows, dropout 0.1); K2's wide route at 2
+heads of 512 and of 1024 (128 x 500), where the root is not run. It
+prints whether the root's outputs (every output of a train form) equal
+this checkout's bit for bit, then
 times both in turns (this, root, root, this): CUDA-event medians of
 ``--reps`` runs and the profiler's device time per call by kernel. Prints
 the card's name and power limit, then one JSON line. ``--variants``
@@ -28,7 +34,12 @@ builds text-substituted copies of this checkout's sources beside it and
 times their kernel through them too: K4's output launch with only its
 256-column epilogue compiled (``wide_only``), and that with every W2 box
 loaded (``wide_only_all_boxes``); K1's walk over the depth unrolled by 2
-or 4 (``k1_unroll2``, ``k1_unroll4``). Imports nothing of JAX.
+or 4 (``k1_unroll2``, ``k1_unroll4``); K2's wide route at 128-column
+output slices at every d_head (``k2_ds128``, on the wide cases only).
+``--only`` keeps the cases whose label starts with one of its
+comma-separated prefixes (e.g. ``K2,attn_row_dot``), so that a call
+checks one kernel against the root in a minute or two. Imports nothing of
+JAX.
 """
 
 import argparse
@@ -42,26 +53,31 @@ import torch
 
 REPO = Path(__file__).resolve().parents[1]
 SYMBOLS = ('ppgs_qkv_proj', 'ppgs_out_proj_ln', 'ppgs_ffn_ln',
-           'ppgs_ffn_train_bwd', 'ppgs_ln_dropout_bwd')
+           'ppgs_ffn_train_bwd', 'ppgs_ln_dropout_bwd', 'ppgs_attention',
+           'ppgs_attention_train_fwd', 'ppgs_row_dot',
+           'ppgs_attention_train_bwd')
 # (label, rows, C) of K1 and K3; (label, rows, C, activation, F) of K4
 K1_CASES = (('mel', 64_000, 256), ('head', 64_000, 512),
             ('trunk', 25_600, 768), ('train', 131_072, 256))
 K3_CASES = K1_CASES[:3]
 # Text substitutions of this checkout's sources: name -> (C entry point,
-# substitutions)
+# substitutions, the label prefix of the cases they run on or '' for all)
 WIDE_ONLY = ('    if (TILES == WIDE || ln_groups(C, n0) == OUT_BN / 8)\n'
              '      residual_ln(',
              '    if (true)\n      residual_ln(')
 K1_LOOP = '\n  for (int k = 0; k < plan.steps; ++k) {'   # the consumers'
 VARIANTS = {
-    'wide_only': ('ppgs_ffn_ln', (WIDE_ONLY,)),
+    'wide_only': ('ppgs_ffn_ln', (WIDE_ONLY,), ''),
     'wide_only_all_boxes': ('ppgs_ffn_ln', (WIDE_ONLY, (
         '                             n0, ln_groups(C, n0) / 8);',
-        '                             n0);'))),
+        '                             n0);')), ''),
     'k1_unroll2': ('ppgs_qkv_proj',
-                   ((K1_LOOP, '\n#pragma unroll 2' + K1_LOOP),)),
+                   ((K1_LOOP, '\n#pragma unroll 2' + K1_LOOP),), ''),
     'k1_unroll4': ('ppgs_qkv_proj',
-                   ((K1_LOOP, '\n#pragma unroll 4' + K1_LOOP),)),
+                   ((K1_LOOP, '\n#pragma unroll 4' + K1_LOOP),), ''),
+    'k2_ds128': ('ppgs_attention',
+                 (('return d_head % 256 == 0\n', 'return false\n'),),
+                 'K2 wide'),
 }
 K4_CASES = (('mel', 64_000, 256, 'relu', 2048),
             ('head', 64_000, 512, 'relu', 2048),
@@ -69,6 +85,14 @@ K4_CASES = (('mel', 64_000, 256, 'relu', 2048),
             ('c768', 64_000, 768, 'relu', 2048))
 # The train forms: the registered widths at the training shape
 TRAIN_C, TRAIN_M, TRAIN_F, TRAIN_RATE = (256, 512, 768), 131_072, 2048, 0.1
+# (label, windows, T, heads, d_head) of K2; the train attention's d_head at
+# the training shape (256 windows of 512 frames)
+K2_CASES = (('mel', 128, 500, 2, 128), ('head', 128, 500, 2, 256),
+            ('trunk', 64, 400, 12, 64), ('wide512', 128, 500, 2, 512),
+            ('wide1024', 128, 500, 2, 1024))
+# Cases at widths that the root's sources need not take
+ROOT_SKIPS = ('K2 wide',)
+ATTN_TRAIN_D, ATTN_B, ATTN_T = (128, 256), 256, 512
 
 
 def build(jobs, out_dir):
@@ -110,6 +134,9 @@ def main():
     parser.add_argument('--variants', default='',
                         help='comma-separated subset of ' + ','.join(VARIANTS)
                         + ', timed too')
+    parser.add_argument('--only', default='',
+                        help='comma-separated label prefixes of the cases '
+                        'kept (all by default)')
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit('torch_layer_width_probe.py needs a CUDA device')
@@ -119,6 +146,7 @@ def main():
     from ppgs_tpu_torch.ops import backward, dropout
     from ppgs_tpu_torch.ops import encoder_layer_kernel as elk
     from ppgs_tpu_torch.ops import encoder_layer_train as elt
+    from ppgs_tpu_torch.ops import flash_attention as fa
     from ppgs_tpu_torch.ops import fused_ffn
 
     card = cs.card_line()
@@ -127,7 +155,7 @@ def main():
     builds = {'this': {s: kernels.function(s) for s in SYMBOLS}}
     jobs = {}
     for name in filter(None, args.variants.split(',')):
-        symbol, subs = VARIANTS[name]
+        symbol, subs, _ = VARIANTS[name]
         src = kernels.SIGNATURES[symbol][0]
         text = (kernels.CSRC / src).read_text()
         for old, new in subs:
@@ -196,6 +224,44 @@ def main():
                ln[0], drop.at(6), bf16)
         cases.append((f'ln_dropout_bwd {M} x {C}', 'ppgs_ln_dropout_bwd',
                       lambda a=lnb: backward.ln_dropout_bwd(*a)))
+    for label, Bw, Tw, H, D in K2_CASES:
+        C = H * D
+        qkv = rnd(Bw, Tw, 3 * C).to(bf16)
+        mask = torch.ones(Bw, Tw, dtype=torch.bool, device=dev)
+        mask[1::2, Tw - 50:] = False
+        k2 = (qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:], mask, H,
+              1.0)
+        cases.append((f'K2 {label} {Bw} x {Tw} {H} x {D}', 'ppgs_attention',
+                      lambda a=k2: fa.attention(*a)))
+    lengths = ATTN_T - torch.randint(0, ATTN_T // 2, (ATTN_B,),
+                                     generator=gen, device=dev)
+    lengths[0], lengths[-1] = ATTN_T, 0
+    mask = torch.arange(ATTN_T, device=dev)[None] < lengths[:, None]
+    for D in ATTN_TRAIN_D:
+        H, C = 2, 2 * D
+        qkv = rnd(ATTN_B, ATTN_T, 3 * C).to(bf16)
+        q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
+        do = rnd(ATTN_B, ATTN_T, C).to(bf16)
+        sl, sm = fa.LOG2E / D ** 0.5, D ** -0.5
+        fwd = (q, k, v, mask, H, sl, False, drop.at(1))
+        cases.append((f'attn_train_fwd {ATTN_B} x {ATTN_T} 2 x {D}',
+                      'ppgs_attention_train_fwd',
+                      lambda a=fwd: fa.attention_train_fwd(*a,
+                                                           want_f32=True)))
+        _, o32, lse, keep = fa.attention_train_fwd(*fwd, want_f32=True)
+        do32 = do.float()
+        cases.append((f'attn_row_dot {ATTN_B} x {ATTN_T} 2 x {D}',
+                      'ppgs_row_dot',
+                      lambda a=(do32, o32, H): fa.row_dot(*a)))
+        bwd = (q, k, v, mask, lse, keep, do, fa.row_dot(do32, o32, H), H,
+               sl, sm, False, drop.at(1))
+        cases.append((f'attn_train_bwd {ATTN_B} x {ATTN_T} 2 x {D}',
+                      'ppgs_attention_train_bwd',
+                      lambda a=bwd: fa.attention_train_bwd(*a,
+                                                           want32=True)))
+    if args.only:
+        prefixes = tuple(args.only.split(','))
+        cases = [case for case in cases if case[0].startswith(prefixes)]
 
     def same(a, b):
         """Every output equal bit for bit (a train form's tuple too)."""
@@ -209,7 +275,11 @@ def main():
     with torch.no_grad():
         for label, symbol, fn in cases:
             # this, the variants of its source, root
-            order = [name for name in builds if symbol in builds[name]]
+            order = [name for name in builds if symbol in builds[name]
+                     and label.startswith(VARIANTS[name][2]
+                                          if name in VARIANTS else '')
+                     and not (name == 'root'
+                              and label.startswith(ROOT_SKIPS))]
 
             def run(name):
                 kernels._functions[symbol] = builds[name][symbol]

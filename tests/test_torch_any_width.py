@@ -18,8 +18,9 @@ and npz weights.
   gate takes every C % 128 up to 2048 at d_head 128 / 256 and the trunk at
   d_head 64 / 128; the training gate is the same rule
   (tests/test_torch_train_any_width.py holds the train kernels' plain
-  versions there); past 2048, d_head 512 and a trunk d_head of 32 raise,
-  naming ROADMAP.md.
+  versions there); past 2048 and a trunk d_head of 8 raise, naming
+  ROADMAP.md (tests/test_torch_wide_heads.py holds the other head widths:
+  d_head % 128 == 0 up to 2048, a trunk's 16 and 32).
 
 The CUDA kernels run only on a card: ``chip_smoke.py --slices any_width``
 holds each against these plain versions there.
@@ -283,9 +284,9 @@ def test_training_gate_takes_the_new_pairs():
 
 @pytest.mark.parametrize('C,heads,trunk', [
     (2176, 17, False),       # past 2048, d_head 128
-    (1024, 2, False),        # d_head 512
+    (2304, 6, False),        # past 2048, d_head 384
     (2176, 34, True),        # a trunk past 2048, d_head 64
-    (1024, 32, True),        # a trunk at d_head 32
+    (1024, 128, True),       # a trunk at d_head 8
 ])
 def test_gates_raise_outside_the_rule(C, heads, trunk):
     """Widths the JAX rule sends to its kernels and the card's do not take

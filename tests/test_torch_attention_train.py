@@ -43,7 +43,7 @@ def _cases():
     train head widths; the d_head 256 cases' ids end in -d256."""
     return [pytest.param(T, causal, d, id=f'{T}-{causal}' +
                          ('' if d == D else f'-d{d}'))
-            for d in fa.TRAIN_D_HEADS for causal in (False, True)
+            for d in (128, 256) for causal in (False, True)
             for T in T_EDGES]
 
 
@@ -177,8 +177,8 @@ _keep = _a[5]
 
 
 @pytest.mark.parametrize('args,heads,match', [
-    (_args(heads=4), 4, r'd_head in \(128, 256\)'),        # d_head 64
-    (_args(heads=8), 8, r'd_head in \(128, 256\)'),        # d_head 32
+    (_args(heads=4), 4, 'd_head % 128 == 0'),             # d_head 64
+    (_args(heads=8), 8, 'd_head % 128 == 0'),             # d_head 32
     (_args(dtype=torch.float32), H, 'q: expected torch.bfloat16'),
     (_replace(_a, 1, _a[1].float()), H, 'k: expected torch.bfloat16'),
     (_replace(_a, 2, _a[2][:, :69]), H, 'v: expected shape'),
@@ -252,8 +252,8 @@ def _fwd(args):
 
 
 @pytest.mark.parametrize('args,heads,match', [
-    (_fwd(_a), 4, r'd_head in \(128, 256\)'),              # d_head 64
-    (_fwd(_a), 8, r'd_head in \(128, 256\)'),              # d_head 32
+    (_fwd(_a), 4, 'd_head % 128 == 0'),                   # d_head 64
+    (_fwd(_a), 8, 'd_head % 128 == 0'),                   # d_head 32
     (_fwd(_args(dtype=torch.float32)), H, 'q: expected torch.bfloat16'),
     (_fwd(_replace(_a, 1, _a[1].float())), H, 'k: expected torch.bfloat16'),
     (_fwd(_replace(_a, 2, _a[2][:, :69])), H, 'v: expected shape'),

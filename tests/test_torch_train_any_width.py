@@ -95,6 +95,12 @@ def test_encoder_layer_train_matches_jax_kernel(C, D):
     elementwise (tests/test_encoder_layer_train.py's envelope; the key
     bias by its elementwise bound alone: softmax is shift-invariant in it,
     so its true gradient is ~0)."""
+    layer_against_jax(C, D)
+
+
+def layer_against_jax(C, D):
+    """``test_encoder_layer_train_matches_jax_kernel``'s check at (C,
+    d_head)."""
     H = C // D
     jax_layer, port = _layer_pair(seed=C + D, C=C, F=F)
     rng = np.random.default_rng(C + D)
@@ -241,8 +247,14 @@ def test_train_step_matches_jax_at_384(monkeypatch):
     elements more than lr / 100 apart (measured <= 1.3%); the key biases,
     whose whole gradient is rounding noise (softmax is shift-invariant in
     them), by the first bound alone."""
+    step_against_jax(monkeypatch, 384, 3)
+
+
+def step_against_jax(monkeypatch, C, heads):
+    """``test_train_step_matches_jax_at_384``'s check at width C with
+    ``heads`` heads."""
     config = ppgs_tpu.config.get('mel').replace(
-        num_hidden_layers=2, hidden_channels=384, attention_heads=3,
+        num_hidden_layers=2, hidden_channels=C, attention_heads=heads,
         ffn_channels=F, dropout=0.0)
     params = jax_transformer.init(jax.random.PRNGKey(3), config)
     zero = {key for key, value in ppgs_tpu_torch.load.flatten_params(
@@ -360,8 +372,8 @@ def test_train_wrappers_launch_every_width_of_the_rule(C, monkeypatch):
 def test_training_gate_takes_every_pair_of_the_rule():
     """``use_kernels(config, 'cuda', train=True)`` is True for every (C,
     d_head) with C % 128 == 0 from 128 to 2048, d_head 128 or 256 and C %
-    d_head == 0 (24 pairs), as in inference; past 2048 and at d_head 512 it
-    raises, naming ROADMAP.md; on the CPU it takes the plain path."""
+    d_head == 0 (24 pairs), as in inference; past 2048 it raises, naming
+    ROADMAP.md; on the CPU it takes the plain path."""
     mel = ppgs_tpu_torch.config.get('mel')
     taken = set()
     for C in range(128, 2049, 128):
@@ -374,7 +386,7 @@ def test_training_gate_takes_every_pair_of_the_rule():
             assert transformer.use_kernels(config, 'cpu', train=True) is True
             taken.add((C, D))
     assert len(taken) == 24
-    for C, heads in ((2176, 17), (1024, 2), (2304, 9)):
+    for C, heads in ((2176, 17), (2560, 2), (2304, 9)):
         config = mel.replace(hidden_channels=C, attention_heads=heads)
         with pytest.raises(NotImplementedError, match='ROADMAP.md'):
             transformer.use_kernels(config, 'cuda', train=True)

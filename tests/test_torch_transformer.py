@@ -119,14 +119,14 @@ def test_bf16_per_layer_path_matches_jax(tmp_path):
     ('mel', dict(hidden_channels=64), 'cuda', False),       # d_head = 32
     ('w2v2fb', {}, 'cpu', True),                            # d_head = 256
     ('w2v2fb', {}, 'cuda', True),
-    ('w2v2fb', dict(hidden_channels=1024), 'cuda',           # d_head = 512
+    ('w2v2fb', dict(hidden_channels=2304), 'cuda',           # C > 2048
      NotImplementedError),
     ('w2v2fc', dict(compute_dtype='float32'), 'cuda', False),
 ])
 def test_kernel_gate_follows_the_jax_rule(name, fields, device, want):
     """bf16 with d_head % 128 == 0 takes the kernels, as JAX's _use_flash
-    does; on the card, such a width the kernels do not take (here
-    d_head = 512) raises."""
+    does; on the card, such a width the kernels do not take (here C =
+    2304, past 2048, with d_head = 1152) raises."""
     config = ppgs_tpu_torch.config.get(name).replace(**fields)
     d_head = config.hidden_channels // config.attention_heads
     jax_rule = config.compute_dtype == 'bfloat16' and d_head % 128 == 0
@@ -141,12 +141,12 @@ def test_kernel_gate_follows_the_jax_rule(name, fields, device, want):
 def test_train_gate_keeps_the_mel_width():
     """The train kernels take the mel model's width and the w2v2fb and
     w2v2fc heads' (C = 512, d_head = 256) on the card; a width still not
-    ported (C = 1024 with 2 heads: d_head = 512) raises, naming
+    ported (C = 2304 with 2 heads: past 2048) raises, naming
     ROADMAP.md."""
     for name in ('mel', 'w2v2fb', 'w2v2fc'):
         assert transformer.use_kernels(ppgs_tpu_torch.config.get(name),
                                        'cuda')
-    wide = ppgs_tpu_torch.config.get('w2v2fb').replace(hidden_channels=1024)
+    wide = ppgs_tpu_torch.config.get('w2v2fb').replace(hidden_channels=2304)
     with pytest.raises(NotImplementedError, match='ROADMAP.md'):
         transformer.use_kernels(wide, 'cuda')
 

@@ -315,13 +315,13 @@ def test_gate_is_the_intersection_of_the_kernel_tables():
     rule (``fused_ffn.width_ok``: K1, K3's and K4's train forms,
     ``ffn_train_bwd``, and ``ln_dropout_bwd`` up to its
     ``LN_BWD_MAX_WIDTH``) and the head widths of K2 and the train attention
-    that the JAX rule sends to the kernels: 24 pairs, the six pairs of C =
-    256, 512, 768 and d_head 128, 256 among them."""
-    d_heads = {d for d in set(fa.D_HEADS) & set(fa.TRAIN_D_HEADS)
-               if d % 128 == 0}
+    that the JAX rule sends to the kernels (d_head % 128 == 0): 50 pairs,
+    the six pairs of C = 256, 512, 768 and d_head 128, 256 among them."""
+    d_heads = {d for d in range(128, backward.LN_BWD_MAX_WIDTH + 1, 128)
+               if fa.d_head_ok(d) and fa.train_d_head_ok(d)}
     want = {(c, d) for c in range(128, backward.LN_BWD_MAX_WIDTH + 1, 128)
             for d in d_heads if fused_ffn.width_ok(c) and c % d == 0}
-    assert len(want) == 24 and want > {
+    assert len(want) == 50 and want > {
         (256, 128), (256, 256), (512, 128), (512, 256), (768, 128),
         (768, 256)}
     mel = ppgs_tpu_torch.config.get('mel')
@@ -352,18 +352,19 @@ def test_inference_gate_is_the_width_rule():
     assert not any(fused_ffn.width_ok(C) for C in (0, 64, 192, 320, 2176))
 
 
-@pytest.mark.parametrize('C,heads', [(1024, 2), (384, 3)])
+@pytest.mark.parametrize('C,heads', [(2304, 2), (384, 3)])
 def test_gate_still_raises_outside_the_tables(C, heads):
     """A width that the JAX rule sends to its kernels and the card's do not
     take raises on the card, naming ROADMAP.md, and takes the plain path on
-    the CPU: C = 1024 with d_head 512 in inference and training. C = 384
-    with d_head 128, which the training gate refused before the train
-    kernels took every width of the rule, is taken in both."""
+    the CPU: C = 2304 (past 2048) with d_head 1152 in inference and
+    training. C = 384 with d_head 128, which the training gate refused
+    before the train kernels took every width of the rule, is taken in
+    both."""
     config = ppgs_tpu_torch.config.get('mel').replace(
         hidden_channels=C, attention_heads=heads)
     assert (C // heads) % 128 == 0
     for train in (False, True):
-        if C // heads > 256:
+        if C > 2048:
             with pytest.raises(NotImplementedError, match='ROADMAP.md'):
                 transformer.use_kernels(config, 'cuda', train=train)
         else:
