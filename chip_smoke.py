@@ -389,15 +389,24 @@ any failure exits non-zero before the result line:
    events and device time beside its plain version, library route and
    bound: K3's train form, K4's two train forms, ffn_train_bwd and
    ln_dropout_bwd.
+42-44. the attention at every head width (``wide_heads``): K2 at d_head
+   16, 32 and on its wide route (a thread-block cluster that forms S once
+   a head) at 384 ... 2048, the train attention on its wide routes,
+   against their plain versions at odd shapes and on folded heads; mel's
+   shape at the default two heads widened to (C, d_head) = (1024, 512),
+   (768, 384), (2048, 1024) and one head of 2048 (``from_audio``, train
+   steps, ``legacy_mode``, ``train()``), the trunk at 24 heads of 32; the
+   new instances timed beside SDPA, and B4 at (1024, 512) beside its bound
+   and ``nn.TransformerEncoderLayer``.
 
 At the end of every run the sha256 of every file under
 ``ppgs_tpu/assets/`` is the one read before phase 1.
 
 ``--slices`` (default
 ``mel,train,w2v2fb,bottleneck,api,data,head_train,w2v2,codec,parallel,
-widths,any_width,train_any_width``) runs a subset: phases 3-5, 6-8, 9-11,
-12-14, 15-17, 18-20, 21-23, 24-26, 27-29, 30-32, 33-35, 36-38 and 39-41
-respectively. Each phase prints its
+widths,any_width,train_any_width,wide_heads``) runs a subset: phases 3-5,
+6-8, 9-11, 12-14, 15-17, 18-20, 21-23, 24-26, 27-29, 30-32, 33-35,
+36-38, 39-41 and 42-44 respectively. Each phase prints its
 seconds. Before the last line it prints one JSON
 object with a record per kernel;
 the last line is {"ok": true, "device": {...}}. Imports nothing of JAX or
@@ -2384,23 +2393,23 @@ def gemm_form_launches(inp, forms, any_rows=False):
     return launches
 
 
-def composite_times(port, config, layer, inp, dev, gen, card):
-    """B4, B5 and B6 as wholes, forward and backward: the kernels, the plain
-    versions and a library yardstick (nn.TransformerEncoderLayer in train
-    mode, scaled_dot_product_attention with dropout, an autograd
-    addmm/relu/dropout chain); the port never calls the library."""
+def b4_times(config, layer, H, x, mask, lengths, cot, card, plain=True):
+    """B4 as a whole, forward and backward, on x (B, T, C) with its
+    windows (``mask``, ``lengths``) and the output's cotangent ``cot``:
+    the kernels, the plain version (with ``plain``) and
+    nn.TransformerEncoderLayer(C, H, F) in train mode in bf16 (the library
+    yardstick; the port never calls it), beside the layer's bound: three
+    times the forward's products (the forward and the two gradients' of
+    each) and 14 operations a valid (query, key) pair and column, six fp32
+    tensors of x's size moved."""
     from ppgs_tpu_torch.ops import encoder_layer_train as elt
-    from ppgs_tpu_torch.ops import flash_attention as fa
-    from ppgs_tpu_torch.ops import fused_ffn
 
     bf16 = torch.bfloat16
-    C, H, B, T, M = (inp[k] for k in 'CHBTM')
-    D, Fh = C // H, config.ffn_channels
-    mask = inp['mask']
-    x = inp['x'].detach().clone().requires_grad_()
-    cot = torch.randn(B, T, C, generator=gen, device=dev)
+    B, T, C = x.shape
+    D, Fh, M = C // H, config.ffn_channels, B * T
+    x = x.detach().clone().requires_grad_()
     params = list(layer.parameters())
-    pairs = H * T * inp['lengths'].double().sum().item()
+    pairs = H * T * lengths.double().sum().item()
     matmul = 2 * M * C * (3 * C + C + 2 * Fh)
     b4_bound = bound(3 * matmul + 14 * pairs * D, 6 * M * C * 4)
 
@@ -2409,7 +2418,8 @@ def composite_times(port, config, layer, inp, dev, gen, card):
         return torch.autograd.grad(out, [x] + params, cot)
 
     torch_layer = torch.nn.TransformerEncoderLayer(
-        C, H, Fh, dropout=DROPOUT, batch_first=True).to(dev).to(bf16).train()
+        C, H, Fh, dropout=DROPOUT, batch_first=True).to(x.device).to(
+            bf16).train()
     xl = x.detach().to(bf16).requires_grad_()
     pad = ~mask
 
@@ -2418,14 +2428,34 @@ def composite_times(port, config, layer, inp, dev, gen, card):
         return torch.autograd.grad(out, [xl, *torch_layer.parameters()],
                                    cot.to(bf16))
 
-    times = [time_ms(fn, TRAIN_REPS, 2) for fn in (
-        lambda: b4(elt.encoder_layer_train),
-        lambda: b4(elt.encoder_layer_train_reference), library_b4)]
-    print(f'B4 encoder_layer_train forward + backward ({B} x {T}): kernels '
-          f'{times[0]:.4f} ms, bound {b4_bound[0]:.4f} ms ({b4_bound[1]}), '
-          f'plain {times[1]:.4f} ms, library {times[2]:.4f} ms '
-          f'(nn.TransformerEncoderLayer, train) [{card}]', flush=True)
-    del torch_layer
+    fns = {'kernels': lambda: b4(elt.encoder_layer_train),
+           'plain': lambda: b4(elt.encoder_layer_train_reference),
+           'library': library_b4}
+    if not plain:
+        del fns['plain']
+    times = {name: time_ms(fn, TRAIN_REPS, 2) for name, fn in fns.items()}
+    plain_part = f'plain {times["plain"]:.4f} ms, ' if plain else ''
+    print(f'B4 encoder_layer_train forward + backward at (C, d_head) = '
+          f'({C}, {D}) ({B} x {T}): kernels {times["kernels"]:.4f} ms, bound '
+          f'{b4_bound[0]:.4f} ms ({b4_bound[1]}), {plain_part}library '
+          f'{times["library"]:.4f} ms (nn.TransformerEncoderLayer({C}, {H}, '
+          f'{Fh}), train) [{card}]', flush=True)
+
+
+def composite_times(port, config, layer, inp, dev, gen, card):
+    """B4, B5 and B6 as wholes, forward and backward: the kernels, the plain
+    versions and a library yardstick (nn.TransformerEncoderLayer in train
+    mode, scaled_dot_product_attention with dropout, an autograd
+    addmm/relu/dropout chain); the port never calls the library."""
+    from ppgs_tpu_torch.ops import flash_attention as fa
+    from ppgs_tpu_torch.ops import fused_ffn
+
+    bf16 = torch.bfloat16
+    C, H, B, T = (inp[k] for k in 'CHBT')
+    D, Fh = C // H, config.ffn_channels
+    cot = torch.randn(B, T, C, generator=gen, device=dev)
+    b4_times(config, layer, H, inp['x'], inp['mask'], inp['lengths'], cot,
+             card)
 
     T5 = SPLIT_T
     mask5 = torch.ones(B, T5, dtype=torch.bool, device=dev)
@@ -2614,7 +2644,7 @@ def report_profile(label, prof, wall_ms, card):
 # Kernel-name fragments of the port's own kernels and of the libraries'
 KERNEL_GROUPS = (
     ('B8 rel_attention', ('rel_attention_kernel',)),
-    ('K1-K4', ('qkv_proj_kernel', 'attention_kernel<', '::wide_kernel<',
+    ('K1-K4', ('qkv_proj_kernel', 'attention_kernel<', '::wide_kernel(',
                'out_proj_ln_kernel', 'ffn_fused_kernel', 'ffn_hidden_kernel',
                'ffn_out_kernel')),
     ('B10 conv stack', ('conv_stats_kernel', 'conv0_gelu_kernel',
@@ -7888,7 +7918,7 @@ def widths_attention_times(launches, dev, card, pairs=WIDTH_PAIRS,
     0.1); SDPA beside each, its backend named. ``wide``: phase 44's form,
     row_dot (on the forward's fp32 o) recorded too, and phase 42's limits
     at the wide head widths: the train kernels' flip shares by
-    ``flip_share`` at C, their bounds ``WIDE_FLIPS``' at d_head, the
+    ``flip_share`` at C, their bounds ``wide_flips``' at d_head, the
     backward's fp32 output pooled too."""
     from ppgs_tpu_torch.ops import dropout
     from ppgs_tpu_torch.ops import flash_attention as fa
@@ -7900,7 +7930,7 @@ def widths_attention_times(launches, dev, card, pairs=WIDTH_PAIRS,
         H = C // D
         sl, sm = fa.LOG2E / math.sqrt(D), 1 / math.sqrt(D)
         share = flip_share(1e-6, C) if wide else 1e-6
-        bound16, bound32 = WIDE_FLIPS[D] if wide else (8e-3, 8e-3)
+        bound16, bound32 = wide_flips(D) if wide else (8e-3, 8e-3)
 
         def heads(t, B, T):
             return t.reshape(B, T, H, D).transpose(1, 2)
@@ -8593,17 +8623,27 @@ def train_any_width_phases(port, workdir, dev, card):
 # versions and on folded heads against the one-head kernels; then mel's
 # shape with the default two heads widened to WIDE_PAIRS (from_audio and
 # the train steps), the timed pair WIDE_TIMED through train() too, and
-# the wav2vec2 trunk's shape at 24 heads of 32
-WIDE_K2_D = (16, 32, 384, 512, 768, 1024, 2048)
-WIDE_TRAIN_D = (384, 512, 1024, 2048)
-# The train attention's flip bounds (bf16, fp32) at WIDE_TRAIN_D: about
-# twice the largest flip an H100 read at each width in phases 42 and 44
-# (bf16 0.0039, 0.0039, 0.0078, 0.0156; fp32 0.0030, 0.0033, 0.0053,
-# 0.0071). A flipped p or ds moves each of a row's outputs by its ulp
-# times one value of v, q or k, which does not grow with d_head; the
-# number of outputs moved does, and so, slowly, the largest of them
+# the wav2vec2 trunk's shape at 24 heads of 32. Phase 42 takes every wide
+# width: each count of ranks of the forwards' clusters (2 to 8), with
+# even and uneven shares of the cluster sum's slots, and a last rank of
+# 128 columns at every count (384, 640, ... 1920)
+WIDE_D = tuple(range(384, 2049, 128))
+WIDE_K2_D = (16, 32) + WIDE_D
+WIDE_TRAIN_D = WIDE_D
+# The train attention's flip bounds (bf16, fp32) at 384, 512, 1024 and
+# 2048: about twice the largest flip an H100 read at each width in phases
+# 42 and 44 (bf16 0.0039, 0.0039, 0.0078, 0.0156; fp32 0.0030, 0.0033,
+# 0.0053, 0.0071). A flipped p or ds moves each of a row's outputs by its
+# ulp times one value of v, q or k, which does not grow with d_head; the
+# number of outputs moved does, and so, slowly, the largest of them: a
+# width between two of these takes the bounds of the wider (wide_flips)
 WIDE_FLIPS = {384: (8e-3, 6e-3), 512: (8e-3, 7e-3), 1024: (1.6e-2, 1.1e-2),
               2048: (3.2e-2, 1.5e-2)}
+
+
+def wide_flips(D):
+    """``WIDE_FLIPS``' bounds at the least of its widths >= D."""
+    return WIDE_FLIPS[min(w for w in WIDE_FLIPS if w >= D)]
 # K2's heads at d_head 16 and 32 in the odd-shape checks: the wav2vec2
 # trunk's C = 768 re-headed
 WIDE_NARROW_HEADS = {16: 48, 32: 24}
@@ -8619,15 +8659,16 @@ def wide_heads_odd_shapes(dev):
     1 ... 1024, dropout off and 0.1, causal off and on; in bf16 and fp32
     the flips' share by ``flip_share`` at C = 2 d_head, since a p or a ds
     rounded the other way moves a row's d_head outputs, and their bounds
-    ``WIDE_FLIPS``' at d_head); and the two-head kernels against the
+    ``wide_flips``' at d_head); and the two-head kernels against the
     one-head kernels on the folded heads, bit for bit
     (``head_fold_checks``)."""
     for D in WIDE_K2_D:
         k2_odd_shape_checks(D, WIDE_NARROW_HEADS.get(D, 2), dev)
     for D in WIDE_TRAIN_D:
         share = flip_share(1e-6, 2 * D)
-        attention_train_odd_shape_checks(dev, D, share, WIDE_FLIPS[D][0],
-                                         (share, WIDE_FLIPS[D][1]))
+        bound16, bound32 = wide_flips(D)
+        attention_train_odd_shape_checks(dev, D, share, bound16,
+                                         (share, bound32))
         head_fold_checks(D, 2, dev)
         torch.cuda.empty_cache()
 
@@ -8785,13 +8826,34 @@ def wide_trunk_record(port, launches, dev, card):
         slice_name='wide_heads')
 
 
+def wide_b4_times(port, dev, card):
+    """Phase 44's B4 at ``WIDE_TIMED`` (``b4_times``, without the plain
+    version): one layer's forward and backward on the training shape
+    (TRAIN_B x TRAIN_T, ragged windows, dropout) with seeded weights."""
+    C, D = WIDE_TIMED
+    config = width_config(port, C, D)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 83)
+    model = port.train.core.init_model(config, dev)
+    model.load_state_dict(port.convert.params_from_jax(
+        port.load.flatten_params(random_params(port, config, SEED + 83))))
+    B, T = TRAIN_B, TRAIN_T
+    lengths = T - torch.randint(0, T // 2, (B,), generator=gen, device=dev)
+    lengths[0] = T
+    mask = torch.arange(T, device=dev)[None] < lengths[:, None]
+    x = torch.randn(B, T, C, generator=gen, device=dev)
+    cot = torch.randn(B, T, C, generator=gen, device=dev)
+    b4_times(config, model.layers[0], C // D, x, mask, lengths, cot, card,
+             plain=False)
+
+
 def wide_heads_phases(port, workdir, dev, gen, card):
     """Phases 42-44: the PPG transformer at the default two heads at
     every width, and the trunk's K2 at d_head 32 and 16; returns the
     slice's JSON records."""
-    phase(f'42 K2 at d_head {WIDE_K2_D} and the train attention at '
-          f'{WIDE_TRAIN_D} against their plain versions at odd shapes, and '
-          f'on folded heads against the one-head kernels')
+    phase(f'42 K2 at d_head 16, 32 and every d_head % 128 == 0 from '
+          f'{WIDE_D[0]} to {WIDE_D[-1]}, and the train attention at the '
+          f'latter, against their plain versions at odd shapes, and on '
+          f'folded heads against the one-head kernels')
     wide_heads_odd_shapes(dev)
     phase(f'43 from_audio ({WIDTH_BATCH} x {WIDTH_SECONDS} s) and train steps '
           f'({TRAIN_B} x {TRAIN_T}, and {TRAIN_B} x {SPLIT_T} at '
@@ -8801,10 +8863,12 @@ def wide_heads_phases(port, workdir, dev, gen, card):
           f'{768 // WIDE_TRUNK_HEADS} (main paths)')
     launches = wide_heads_main_paths(port, workdir, dev, gen, card)
     phase(f'44 the new instances\' times on {card} (CUDA events, device time, '
-          f'plain, SDPA, bound)')
+          f'plain, SDPA, bound), and B4 at {WIDE_TIMED} beside its bound and '
+          f'nn.TransformerEncoderLayer')
     records = widths_attention_times(launches, dev, card, WIDE_RECORDED,
                                      'wide_heads', wide=True)
     records.append(wide_trunk_record(port, launches, dev, card))
+    wide_b4_times(port, dev, card)
     for record in records:
         if not record['launches']:
             raise AssertionError(f'{record["name"]} was not launched on a '
@@ -8856,8 +8920,8 @@ def main():
     for src, log in sorted(kernels.build_log.items()):
         for line in log.splitlines():
             if 'Function properties for' in line:
-                # the kernel's mangled name, its template arguments first
-                print(f'  {src}: {line.split(" for ", 1)[1].strip()[:72]}')
+                # the kernel's mangled name to its template arguments
+                print(f'  {src}: {line.split(" for ", 1)[1].strip()[:96]}')
             elif 'Used' in line or 'spill' in line:
                 print(f'  {src}: {line.strip()}')
 

@@ -99,23 +99,26 @@
 //
 // d_head 384 to 2048 (the PPG transformer widened with its default two
 // heads: C = 768 to 2048 give d_head 384 to 1024): the wide route of
-// attention_wide.cuh. A block owns 128 query rows and a slice of DS = 256
-// output columns (128 where d_head % 256 != 0); per 64-key tile its ring
-// brings d_head / 64 items of one 64-column atom of the block's Q rows and
-// the tile's K rows (24 KB), over which each warpgroup forms S by the
-// same m64n64k16 steps as above, then one item of the tile's V columns of
-// the slice for O += P V (m64n256k16 or m64n128k16, O 64 x DS fp32 in
-// registers: 128 or 64 a thread). The softmax is the instances' own
-// (softmax_tile), so each slice of a row sees the same p; the slices of a
-// head each form S again: d_head / DS times the score products (2x at
-// 512, 4x at 1024, 8x at 2048), and Q is read from L2 once per key tile.
-// A ring of six 32 KB slots (one block an SM) at DS = 256, four 24 KB
-// slots (two blocks) at 128; O is staged in the idle ring at the end and
-// written by TMA stores.
+// attention_wide.cuh, which forms S once a head. A cluster of ceil(d_head
+// / 256) blocks owns 128 query rows of a head, rank r the head's columns
+// from 256 r on (128 in a last rank where d_head % 256 == 128). A rank
+// keeps its Q columns of the block's rows in shared memory (64 KB) and
+// streams the key tiles' K and V columns (32 KB items); per tile each
+// warpgroup forms its partial S by the same m64n64k16 steps as above, the
+// ranks' partials add up through distributed shared memory
+// (wide::Exchange), so every rank holds the same S and the instances' own
+// softmax (softmax_tile) gives each the same p, and O += P V on the
+// rank's V columns (m64n256k16, O 64 x 256 fp32 in registers: 128 a
+// thread) runs during the next tile's cluster sum. Each of the head's Q,
+// K and V columns is read by one rank. Q, a K item, two V items and the
+// two 32 KB exchange buffers: one block an SM. O is staged over Q at the
+// end and written by TMA stores. (A block per output slice would form S
+// again in every slice: d_head / 256 times the score products.)
 
 #include "attention_wide.cuh"
 #include "common.cuh"
 #include "hopper.cuh"
+#include "residual_ln.cuh"
 
 using namespace ppgs::hopper;
 
@@ -431,69 +434,78 @@ int launch(const void* q, const void* k, const void* v, long long rs,
 
 namespace wide = ppgs::wide;
 
-// The wide route's plan for output slices of DS columns: a ring slot
-// holds an S item (a 64-column atom of 128 Q rows and of 64 K rows, 24
-// KB) or a V item (the tile's 64 keys x DS columns)
-template <int DS>
+// The wide route's shared memory: the rank's Q columns of the block's
+// 128 rows (NA atoms, resident), a ring of one K item (the key tile's
+// rank columns, NA atoms of 64 rows) and a ring of two V items (the
+// same of V: a tile's P V is done during the next tile's cluster sum),
+// the cluster sum's two buffers, each ring's full[], empty[] and release
+// counters, the Q barrier, and slack to align
 struct WidePlan {
-  static constexpr int STAGE = DS == 256 ? 32768 : 24576;
-  static constexpr int STAGES = DS == 256 ? 6 : 4;
-  static constexpr int BLOCKS = DS == 256 ? 1 : 2;   // blocks an SM holds
-  static constexpr int RING = STAGES * STAGE;
-  // the ring, full[], empty[], the release counters, slack to align
-  static constexpr int SMEM = RING + 2 * STAGES * 8 + STAGES * 4 + 1024;
-  static_assert(BLOCKS * (SMEM + 1024) <= 233472,
-                "the blocks an SM should hold do not fit its shared memory");
-  static_assert(2 * DS * BKV * 2 <= RING, "O's staging does not fit");
+  static constexpr int Q_BYTES = BQ * wide::RANK_COLS * 2;
+  static constexpr int ITEM = BKV * wide::RANK_COLS * 2;
+  static constexpr int K_STAGES = 1, V_STAGES = 2;
+  static constexpr int K_RING = Q_BYTES, V_RING = K_RING + K_STAGES * ITEM;
+  static constexpr int PARTIALS = V_RING + V_STAGES * ITEM;
+  static constexpr int BARS = PARTIALS + 2 * wide::PARTIAL;
+  static constexpr int V_BARS = BARS + wide::Ring::bytes(K_STAGES);
+  static constexpr int Q_BAR = V_BARS + wide::Ring::bytes(V_STAGES);
+  static constexpr int SMEM = Q_BAR + 8 + 1024;
+  static_assert(SMEM <= 232448, "more shared memory than a block may have");
+  static_assert(2 * 64 * wide::RANK_COLS * 2 <= Q_BYTES,
+                "O's staging does not fit");
 };
 
-template <int DS>
-__global__ void __launch_bounds__(THREADS, WidePlan<DS>::BLOCKS)
+__global__ void __launch_bounds__(THREADS, 1)
 wide_kernel(const __grid_constant__ CUtensorMap map_q,
             const __grid_constant__ CUtensorMap map_k,
             const __grid_constant__ CUtensorMap map_v,
             const __grid_constant__ CUtensorMap map_out,
             const uint8_t* __restrict__ mask, int T, int D,
             float scale_log2, int causal) {
-  using P = WidePlan<DS>;
+  using P = WidePlan;
+  constexpr int RC = wide::RANK_COLS;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = wide::aligned_smem(smem_raw);
-  uint64_t* full = reinterpret_cast<uint64_t*>(base + P::RING);
-  wide::Ring ring{base, full, full + P::STAGES,
-                  reinterpret_cast<int*>(full + 2 * P::STAGES), P::STAGES,
-                  P::STAGE, 0};
+  wide::Ring kring =
+      wide::Ring::make(base, P::K_RING, P::BARS, P::K_STAGES, P::ITEM);
+  wide::Ring vring =
+      wide::Ring::make(base, P::V_RING, P::V_BARS, P::V_STAGES, P::ITEM);
+  uint64_t* q_bar = reinterpret_cast<uint64_t*>(base + P::Q_BAR);
 
-  // Block (q tile, head h's slice, window b): its output columns col_o ..
-  // col_o + DS - 1 of the head's col_h .. col_h + D - 1
-  const int NC = D / wide::ATOM, slices = D / DS;
-  const int q0 = blockIdx.x * BQ, b = blockIdx.z;
-  const int col_h = (blockIdx.y / slices) * D;
-  const int col_o = col_h + (blockIdx.y % slices) * DS;
+  // Block `rank` of the cluster of (q tile, head, window b) along x: its
+  // columns col_r .. col_r + W - 1 of the head's col_h .. col_h + D - 1
+  const int ranks = wide::ranks(D), rank = blockIdx.x % ranks;
+  const wide::Exchange ex{base + P::PARTIALS, ranks, rank};
+  const int W = wide::rank_cols(D, rank), NA = W / wide::ATOM;
+  const int q0 = (blockIdx.x / ranks) * BQ, b = blockIdx.z;
+  const int col_r = blockIdx.y * D + rank * RC;
   int tiles = (T + BKV - 1) / BKV;
   if (causal) tiles = min(tiles, (min(q0 + BQ, T) - 1) / BKV + 1);
-  // Per key tile, NC S items, then its V item
-  const int per_tile = NC + 1;
-  ring.items = tiles * per_tile;
-  auto load = [&](int n) {
-    const int i = n / per_tile, j = n % per_tile;
-    unsigned char* slot = ring.at(n);
-    const uint32_t bar = ring.bar(n);
-    if (j < NC) {
-      mbar_expect_tx(bar, wide::ROW_CHUNK + wide::TILE_CHUNK);
-      tma_load_3d(slot, &map_q, col_h + j * wide::ATOM, q0, b, bar);
-      tma_load_3d(slot + wide::ROW_CHUNK, &map_k, col_h + j * wide::ATOM,
-                  i * BKV, b, bar);
-    } else {
-      mbar_expect_tx(bar, DS * BKV * 2);
-#pragma unroll
-      for (int a = 0; a < DS / wide::ATOM; ++a)
-        tma_load_3d(slot + a * wide::TILE_CHUNK, &map_v,
-                    col_o + a * wide::ATOM, i * BKV, b, bar);
-    }
+  kring.items = vring.items = tiles;
+  // Key tile i's K (or V) columns of the rank into item i of a ring
+  auto tile_loader = [&](const wide::Ring& ring, const CUtensorMap* map) {
+    return [&ring, map, W, NA, col_r, b](int i) {
+      unsigned char* slot = ring.at(i);
+      const uint32_t bar = ring.bar(i);
+      mbar_expect_tx(bar, W * BKV * 2);
+      for (int a = 0; a < NA; ++a)
+        tma_load_3d(slot + a * wide::TILE_CHUNK, map, col_r + a * wide::ATOM,
+                    i * BKV, b, bar);
+    };
   };
+  auto load_k = tile_loader(kring, &map_k);
+  auto load_v = tile_loader(vring, &map_v);
   if (threadIdx.x == 0) {
-    ring.init();
-    for (int n = 0; n < P::STAGES && n < ring.items; ++n) load(n);
+    mbar_init(q_bar, 1);      // published by the rings' init fence
+    kring.init();
+    vring.init();
+    const uint32_t qb = smem_addr(q_bar);
+    mbar_expect_tx(qb, NA * wide::ROW_CHUNK);
+    for (int a = 0; a < NA; ++a)
+      tma_load_3d(base + a * wide::ROW_CHUNK, &map_q, col_r + a * wide::ATOM,
+                  q0, b, qb);
+    for (int i = 0; i < P::K_STAGES && i < tiles; ++i) load_k(i);
+    for (int i = 0; i < P::V_STAGES && i < tiles; ++i) load_v(i);
   }
   __syncthreads();
 
@@ -503,10 +515,13 @@ wide_kernel(const __grid_constant__ CUtensorMap map_q,
   const int wg_row = q0 + 64 * c, warp_row = wg_row + 16 * warp;
   const int r0 = warp_row + g, r1 = r0 + 8;
   const uint8_t* mrow = mask + static_cast<long long>(b) * T;
+  const uint32_t q_addr = smem_addr(base) + c * 64 * 128;
 
-  float o[DS / 2];
+  // O over the rank's columns; where it has 128, the other 128 of the
+  // m64n256 product read stale bytes of the V slot and are not stored
+  float o[RC / 2];
 #pragma unroll
-  for (int i = 0; i < DS / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < RC / 2; ++i) o[i] = 0.f;
   float m0 = MINUS_INF, m1 = MINUS_INF, l0 = 0.f, l1 = 0.f;
   int nb0, nb1;
   auto fetch = [&](int i) {
@@ -515,70 +530,86 @@ wide_kernel(const __grid_constant__ CUtensorMap map_q,
     nb1 = key + 32 < T ? mrow[key + 32] : 0;
   };
   fetch(0);
+  mbar_wait(smem_addr(q_bar), 0);
 
+  // O += P V of a tile over the rank's columns, its V item at v_addr (MN-
+  // major, atoms of 64 keys): issued, then waited for
+  uint32_t a[BKV / 16][4];
+  auto pv_issue = [&](uint32_t v_addr) {
+#pragma unroll
+    for (int k = 0; k < BKV / 16; ++k) fence_regs(a[k]);
+    fence_regs(o);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < BKV / 16; ++k)
+      wgmma_rs<RC>(o, a[k], sw128_desc(v_addr + k * 2048, BKV * 128, 1024));
+    wgmma_commit();
+  };
+  auto pv_finish = [&] {
+    wgmma_wait<0>();
+    fence_regs(o);
+#pragma unroll
+    for (int k = 0; k < BKV / 16; ++k) fence_regs(a[k]);
+  };
+
+  // Tile i's P V is done in tile i + 1, while the cluster sums its S
+  bool pending = false;
   for (int i = 0; i < tiles; ++i) {
-    const int k0 = i * BKV, n0 = i * per_tile;
+    const int k0 = i * BKV;
     const uint64_t valid =
         __ballot_sync(0xffffffffu, nb0 != 0) |
         (static_cast<uint64_t>(__ballot_sync(0xffffffffu, nb1 != 0)) << 32);
     if (i + 1 < tiles) fetch(i + 1);
+    // The same in every rank of the cluster
     const bool live =
         valid != 0 && wg_row < T && !(causal && k0 > wg_row + 63);
+    // The rank's partial S, then S over the head
     float sc[BKV / 2];
-    wide::scores(sc, ring, n0, NC, c * 64 * 128, wide::ROW_CHUNK, live, lane,
-                 load);
-    uint32_t a[BKV / 16][4];
+    wide::scores_resident(sc, q_addr, kring, i, NA, live, lane, load_k);
+    ex.put(sc, i, live);
+    if (i > 0) vring.wait(i - 1);
+    if (pending) pv_issue(smem_addr(vring.at(i - 1)));
+    ex.get(sc, i, live);
+    if (pending) pv_finish();
+    if (i > 0) vring.release(i - 1, lane, load_v);
     if (live) {
       float corr0, corr1;
       softmax_tile(sc, a, valid, k0, warp_row, r0, r1, t, causal,
                    scale_log2, m0, m1, l0, l1, corr0, corr1);
-      rescale<DS>(o, corr0, corr1);
+      rescale<RC>(o, corr0, corr1);
     }
-    ring.wait(n0 + NC);
-    if (live) {
-      // O += P V over the slice: V MN-major, DS / 64 atoms of 64 keys
-      const uint32_t v_addr = smem_addr(ring.at(n0 + NC));
-#pragma unroll
-      for (int k = 0; k < BKV / 16; ++k) fence_regs(a[k]);
-      fence_regs(o);
-      wgmma_fence();
-#pragma unroll
-      for (int k = 0; k < BKV / 16; ++k)
-        wgmma_rs<DS>(o, a[k],
-                     sw128_desc(v_addr + k * 2048, BKV * 128, 1024));
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(o);
-#pragma unroll
-      for (int k = 0; k < BKV / 16; ++k) fence_regs(a[k]);
-    }
-    ring.release(n0 + NC, lane, load);
+    pending = live;
   }
+  if (tiles > 0) {
+    vring.wait(tiles - 1);
+    if (pending) {
+      pv_issue(smem_addr(vring.at(tiles - 1)));
+      pv_finish();
+    }
+    vring.release(tiles - 1, lane, load_v);
+  }
+  // Every item is consumed once both warpgroups are here, and no peer
+  // reads this block's buffers once the cluster is
+  wide::cluster_sync();
 
-  // O / l, staged in bf16 in the ring (every item is consumed once both
-  // warpgroups are here) and written by TMA stores, none past T
+  // O / l, staged in bf16 over the resident Q and written by TMA stores of
+  // the rank's W columns, none past T
   l0 = quad_sum(l0), l1 = quad_sum(l1);
   const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;
   const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
-  rescale<DS>(o, inv0, inv1);
-  __syncthreads();
+  rescale<RC>(o, inv0, inv1);
   auto box = [&](int n) {
-    return base + (c * (DS / wide::ATOM) + n) * wide::TILE_CHUNK;
+    return base + (c * (RC / wide::ATOM) + n) * wide::TILE_CHUNK;
   };
-  stage_bf16<DS>(o, box, warp, g, t);
-  store_boxes(&map_out, DS / wide::ATOM, wide::ATOM, box, col_o, wg_row, b,
-              c, threadIdx.x % 128 == 0, T);
+  stage_bf16<RC>(o, box, warp, g, t);
+  store_boxes(&map_out, NA, wide::ATOM, box, col_r, wg_row, b, c,
+              threadIdx.x % 128 == 0, T);
 }
 
-template <int DS>
 int launch_wide(const void* q, const void* k, const void* v, long long rs,
                 const void* mask, void* out, long long out_stride, int B,
                 int T, int H, int D, float scale_log2, int causal,
                 cudaStream_t stream) {
-  using P = WidePlan<DS>;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      wide_kernel<DS>, cudaFuncAttributeMaxDynamicSharedMemorySize, P::SMEM);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
   if (B <= 0 || T <= 0) return static_cast<int>(cudaGetLastError());
   // q and k in boxes of one 64-column atom of 128 and 64 rows, v and out
   // of 64 rows
@@ -590,11 +621,12 @@ int launch_wide(const void* q, const void* k, const void* v, long long rs,
       !encode_3d(&mo, out, cols, T, B, out_stride, T * out_stride,
                  wide::ATOM, 64))
     return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid((T + BQ - 1) / BQ, H * (D / DS), B);
-  wide_kernel<DS><<<grid, THREADS, P::SMEM, stream>>>(
-      mq, mk, mv, mo, static_cast<const uint8_t*>(mask), T, D, scale_log2,
-      causal);
-  return static_cast<int>(cudaGetLastError());
+  const int ranks = wide::ranks(D);
+  const dim3 grid(ranks * ((T + BQ - 1) / BQ), H, B);
+  return ppgs::residual_ln::launch(wide_kernel, THREADS, WidePlan::SMEM, grid,
+                                   ranks, stream, mq, mk, mv, mo,
+                                   static_cast<const uint8_t*>(mask), T, D,
+                                   scale_log2, causal);
 }
 
 }  // namespace
@@ -630,10 +662,7 @@ extern "C" int ppgs_attention(const void* q, const void* k, const void* v,
                         scale_log2, causal, s);
     default:
       if (!wide::takes(d_head)) return static_cast<int>(cudaErrorInvalidValue);
-      return d_head % 256 == 0
-                 ? launch_wide<256>(q, k, v, rs, mask, out, out_stride, B, T,
-                                    H, d_head, scale_log2, causal, s)
-                 : launch_wide<128>(q, k, v, rs, mask, out, out_stride, B, T,
-                                    H, d_head, scale_log2, causal, s);
+      return launch_wide(q, k, v, rs, mask, out, out_stride, B, T, H, d_head,
+                         scale_log2, causal, s);
   }
 }

@@ -119,6 +119,7 @@
 #include "common.cuh"
 #include "hopper.cuh"
 #include "philox.cuh"
+#include "residual_ln.cuh"
 
 using namespace ppgs::hopper;
 using ppgs::bf16;
@@ -319,40 +320,66 @@ __device__ __forceinline__ void row_stats(float (&sc)[BKV / 2],
   m0 = n0, m1 = n1;
 }
 
+// Pass 2's pd of group j of a tile (an accumulator's registers 4j .. 4j
+// + 3, s: keys 8j + 2t and 8j + 2t + 1 of row r0, then of row r1) as two
+// bf16 pairs, row r0's then row r1's. full_tile: no key of the tile is
+// masked for the warp's rows; bits: the tile's valid keys shifted to this
+// lane's. DROP: kw0 and kw1 are rows r0 and r1's keep words of the tile,
+// shifted to this lane's keys (they hold the masks too)
+template <bool DROP>
+__device__ __forceinline__ uint2 pd_group(float4 s, int j, bool full_tile,
+                                          uint64_t bits, int k0, int r0,
+                                          int r1, int t, int causal,
+                                          float scale_log2, float lse0,
+                                          float lse1, uint64_t kw0,
+                                          uint64_t kw1, float drop_scale) {
+  const float sv[4] = {s.x, s.y, s.z, s.w};
+  float p[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float pn =
+        exp2_approx(fmaf(sv[e], scale_log2, e < 2 ? -lse0 : -lse1));
+    const int shift = 8 * j + e % 2;
+    if constexpr (DROP) {
+      const bool keep = ((e < 2 ? kw0 : kw1) >> shift) & 1u;
+      p[e] = keep ? pn * drop_scale : 0.f;
+    } else {
+      const int key = k0 + 8 * j + 2 * t + e % 2;
+      const int row = e < 2 ? r0 : r1;
+      const bool ok = full_tile || (((bits >> shift) & 1u) &&
+                                    !(causal && key > row));
+      p[e] = ok ? pn : 0.f;
+    }
+  }
+  return make_uint2(pack_bf16(p[0], p[1]), pack_bf16(p[2], p[3]));
+}
+
+// Whether a tile at k0 has no masked key for the warp's rows (from
+// warp_row), and its valid keys shifted to this lane's (pd_group's)
+__device__ __forceinline__ bool full_tile_of(uint64_t valid, int k0,
+                                             int warp_row, int causal) {
+  return valid == ~0ull && !(causal && k0 + BKV - 1 > warp_row);
+}
+
 // Pass 2's pd of one tile, packed into the A fragments of O += Pd V: a[k]
 // holds keys 16k .. 16k + 15, groups j = 2k (registers 0, 1) and 2k + 1
-// (2, 3). DROP: kw0 and kw1 are rows r0 and r1's keep words of the tile,
-// shifted to this lane's keys (they hold the masks too)
+// (2, 3); as pd_group
 template <bool DROP>
 __device__ __forceinline__ void pd_frags(
     const float (&sc)[BKV / 2], uint32_t (&a)[BKV / 16][4], uint64_t valid,
     int k0, int warp_row, int r0, int r1, int t, int causal,
     float scale_log2, float lse0, float lse1, uint64_t kw0, uint64_t kw1,
     float drop_scale) {
-  const bool full_tile =
-      valid == ~0ull && !(causal && k0 + BKV - 1 > warp_row);
+  const bool full_tile = full_tile_of(valid, k0, warp_row, causal);
   const uint64_t bits = valid >> (2 * t);
 #pragma unroll
   for (int j = 0; j < BKV / 8; ++j) {
-    float p[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float pn = exp2_approx(
-          fmaf(sc[4 * j + e], scale_log2, e < 2 ? -lse0 : -lse1));
-      const int shift = 8 * j + e % 2;
-      if constexpr (DROP) {
-        const bool keep = ((e < 2 ? kw0 : kw1) >> shift) & 1u;
-        p[e] = keep ? pn * drop_scale : 0.f;
-      } else {
-        const int key = k0 + 8 * j + 2 * t + e % 2;
-        const int row = e < 2 ? r0 : r1;
-        const bool ok = full_tile || (((bits >> shift) & 1u) &&
-                                      !(causal && key > row));
-        p[e] = ok ? pn : 0.f;
-      }
-    }
-    a[j / 2][2 * (j % 2)] = pack_bf16(p[0], p[1]);
-    a[j / 2][2 * (j % 2) + 1] = pack_bf16(p[2], p[3]);
+    const uint2 u = pd_group<DROP>(
+        make_float4(sc[4 * j], sc[4 * j + 1], sc[4 * j + 2], sc[4 * j + 3]),
+        j, full_tile, bits, k0, r0, r1, t, causal, scale_log2, lse0, lse1,
+        kw0, kw1, drop_scale);
+    a[j / 2][2 * (j % 2)] = u.x;
+    a[j / 2][2 * (j % 2) + 1] = u.y;
   }
 }
 
@@ -619,28 +646,34 @@ int launch_fwd(const CUtensorMap* maps, const void* mask, void* lse,
 
 namespace wide = ppgs::wide;
 
-// The forward at d_head % 128 == 0 from 384 to 2048 (attention_wide.cuh): a
-// block owns 128 query rows and a slice of WIDE_DS = 128 output columns of
-// a head, over which its ring brings, per key tile, d_head / 64 S items (a
-// 64-column atom of the block's Q rows and of the tile's K rows, 24 KB) in
-// pass 1, the same S items and the tile's V columns of the slice (16 KB)
-// in pass 2. The slices of a head each form S twice, as the instances do,
-// and each draws the keep bits it needs (the same Philox bits: the index
-// does not depend on the slice); slice 0 writes lse and the keep words.
-// O is 64 x 128 fp32 a warpgroup in registers; it is staged in the idle
-// ring at the end. Eight 24 KB slots and the keep words: one block an SM.
-constexpr int WIDE_DS = 128;
+// The forward at d_head % 128 == 0 from 384 to 2048 (attention_wide.cuh):
+// a cluster of wide::ranks(d) blocks owns 128 query rows of a head, rank
+// r the head's columns from 256 r on (256, or 128 in a last rank). The
+// rank's Q columns of the block's rows stay in shared memory; a ring of
+// one K item (the key tile's rank columns) serves both passes, and one of
+// one V item pass 2; the ranks' partial S add up through the cluster sum
+// once a tile and pass, so S's products are done twice a head, as the
+// instances do. Every rank draws the keep bits of its 128 rows (the same
+// Philox bits: the index does not depend on the rank) in pass 1, while
+// its peers' partials come in and before O takes its registers; in pass
+// 2 the owner of each slot of S turns its sums into pd (pd_group) and the
+// ranks gather pd in bf16 (Exchange::get_packed). Rank 0 writes lse and
+// the keep words. O is 64 x 256 fp32 a warpgroup in registers, staged at
+// the end over the resident Q. Q, the two items, the two 32 KB exchange
+// buffers and the keep words (16 KB at T = 1024): one block an SM.
 struct WidePlan {
-  static constexpr int STAGE = wide::ROW_CHUNK + wide::TILE_CHUNK;
-  static constexpr int STAGES = 8;
-  static constexpr int RING = STAGES * STAGE;
-  static constexpr int VALID = RING;
+  static constexpr int Q_BYTES = BQ * wide::RANK_COLS * 2;
+  static constexpr int ITEM = BKV * wide::RANK_COLS * 2;
+  static constexpr int K_RING = Q_BYTES, V_RING = K_RING + ITEM;
+  static constexpr int PARTIALS = V_RING + ITEM;
+  static constexpr int VALID = PARTIALS + 2 * wide::PARTIAL;
   static constexpr int BARS = VALID + MAX_TILES * 8;
-  static constexpr int KEEP = BARS + (2 * STAGES * 8 + STAGES * 4 + 15)
-                                         / 16 * 16;
+  static constexpr int V_BARS = BARS + wide::Ring::bytes(1);
+  static constexpr int Q_BAR = V_BARS + wide::Ring::bytes(1);
+  static constexpr int KEEP = (Q_BAR + 8 + 15) / 16 * 16;
   static constexpr int smem(int words) { return KEEP + BQ * words * 4 + 1024; }
-  static_assert(WIDE_DS * BKV * 2 <= STAGE, "a V item does not fit a slot");
-  static_assert(2 * 64 * WIDE_DS * 4 <= RING, "O's staging does not fit");
+  static_assert(2 * 64 * wide::RANK_COLS * 2 <= Q_BYTES,
+                "O's staging does not fit");
 };
 static_assert(WidePlan::smem(2 * MAX_TILES) <= 232448,
               "more shared memory than a block may have");
@@ -657,20 +690,22 @@ fwd_wide_kernel(const __grid_constant__ CUtensorMap map_q,
                 float scale_log2, int causal, ppgs::Dropout drop,
                 int want32) {
   using P = WidePlan;
-  constexpr int DS = WIDE_DS;
+  constexpr int RC = wide::RANK_COLS, SLOTS = wide::SLOTS;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = wide::aligned_smem(smem_raw);
   uint64_t* tile_valid = reinterpret_cast<uint64_t*>(base + P::VALID);
-  uint64_t* full = reinterpret_cast<uint64_t*>(base + P::BARS);
-  wide::Ring ring{base, full, full + P::STAGES,
-                  reinterpret_cast<int*>(full + 2 * P::STAGES), P::STAGES,
-                  P::STAGE, 0};
+  wide::Ring kring = wide::Ring::make(base, P::K_RING, P::BARS, 1, P::ITEM);
+  wide::Ring vring = wide::Ring::make(base, P::V_RING, P::V_BARS, 1, P::ITEM);
+  uint64_t* q_bar = reinterpret_cast<uint64_t*>(base + P::Q_BAR);
   uint32_t* skeep = reinterpret_cast<uint32_t*>(base + P::KEEP);
 
-  const int NC = D / wide::ATOM, slices = D / DS;
-  const int q0 = blockIdx.x * BQ, b = blockIdx.z;
-  const int h = blockIdx.y / slices, slice = blockIdx.y % slices;
-  const int col_h = h * D, col_o = col_h + slice * DS;
+  // Block `rank` of the cluster of (q tile, head h, window b) along x: its
+  // columns col_r .. col_r + W - 1 of the head's
+  const int ranks = wide::ranks(D), rank = blockIdx.x % ranks;
+  const wide::Exchange ex{base + P::PARTIALS, ranks, rank};
+  const int W = wide::rank_cols(D, rank), NA = W / wide::ATOM;
+  const int q0 = (blockIdx.x / ranks) * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int col_r = h * D + rank * RC;
   const long long row_base = static_cast<long long>(b * H + h) * T;
   const int key_tiles = (T + BKV - 1) / BKV, words = 2 * key_tiles;
   const int warp_id = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -688,36 +723,44 @@ fwd_wide_kernel(const __grid_constant__ CUtensorMap map_q,
   }
   if constexpr (DROP)
     for (int i = threadIdx.x; i < BQ * words; i += THREADS) skeep[i] = 0u;
-  if (threadIdx.x == 0) ring.init();
+  if (threadIdx.x == 0) {
+    mbar_init(q_bar, 1);      // published by the rings' init fence
+    kring.init();
+    vring.init();
+  }
   __syncthreads();
+  // The key tiles walked, the same in every rank of the cluster: K items
+  // 0 .. tiles - 1 in pass 1 and tiles .. 2 tiles - 1 in pass 2, V items
+  // 0 .. tiles - 1
   int tiles = 0;
   for (int i = 0; i < key_tiles; ++i)
     if (tile_valid[i]) tiles = i + 1;
   if (causal) tiles = min(tiles, (min(q0 + BQ, T) - 1) / BKV + 1);
-  // Pass 1: NC S items a tile; pass 2 from item p1 on: NC S items and the
-  // V item a tile
-  const int p1 = tiles * NC, per_tile = NC + 1;
-  ring.items = p1 + tiles * per_tile;
-  auto load = [&](int n) {
-    const int i = n < p1 ? n / NC : (n - p1) / per_tile;
-    const int j = n < p1 ? n % NC : (n - p1) % per_tile;
-    unsigned char* slot = ring.at(n);
-    const uint32_t bar = ring.bar(n);
-    if (j < NC) {
-      mbar_expect_tx(bar, wide::ROW_CHUNK + wide::TILE_CHUNK);
-      tma_load_3d(slot, &map_q, col_h + j * wide::ATOM, q0, b, bar);
-      tma_load_3d(slot + wide::ROW_CHUNK, &map_k, col_h + j * wide::ATOM,
-                  i * BKV, b, bar);
-    } else {
-      mbar_expect_tx(bar, DS * BKV * 2);
-#pragma unroll
-      for (int a = 0; a < DS / wide::ATOM; ++a)
-        tma_load_3d(slot + a * wide::TILE_CHUNK, &map_v,
-                    col_o + a * wide::ATOM, i * BKV, b, bar);
-    }
+  kring.items = 2 * tiles;
+  vring.items = tiles;
+  // Key tile i's K (or V) columns of the rank into item n of a ring
+  auto loader = [&](const wide::Ring& ring, const CUtensorMap* map) {
+    return [&ring, map, W, NA, col_r, b, tiles](int n) {
+      const int i = n < tiles ? n : n - tiles;
+      unsigned char* slot = ring.at(n);
+      const uint32_t bar = ring.bar(n);
+      mbar_expect_tx(bar, W * BKV * 2);
+      for (int a = 0; a < NA; ++a)
+        tma_load_3d(slot + a * wide::TILE_CHUNK, map, col_r + a * wide::ATOM,
+                    i * BKV, b, bar);
+    };
   };
-  if (threadIdx.x == 0)
-    for (int n = 0; n < P::STAGES && n < ring.items; ++n) load(n);
+  auto load_k = loader(kring, &map_k);
+  auto load_v = loader(vring, &map_v);
+  if (threadIdx.x == 0 && tiles > 0) {
+    const uint32_t qb = smem_addr(q_bar);
+    mbar_expect_tx(qb, NA * wide::ROW_CHUNK);
+    for (int a = 0; a < NA; ++a)
+      tma_load_3d(base + a * wide::ROW_CHUNK, &map_q, col_r + a * wide::ATOM,
+                  q0, b, qb);
+    load_k(0);
+    load_v(0);
+  }
 
   const int c = threadIdx.x / 128, warp = warp_id % 4;
   const int g = lane >> 2, t = lane & 3;
@@ -725,26 +768,28 @@ fwd_wide_kernel(const __grid_constant__ CUtensorMap map_q,
   const int r0 = warp_row + g, r1 = r0 + 8;
   const int wg_tiles =
       wg_row >= T ? 0 : causal ? min(tiles, (wg_row + 63) / BKV + 1) : tiles;
-  const uint32_t a_off = c * 64 * 128;
+  const uint32_t q_addr = smem_addr(base) + c * 64 * 128;
   const unsigned long long base0 =
       static_cast<unsigned long long>(row_base + r0) * T;
   const unsigned long long base1 = base0 + 8ull * T;
   uint2* keep0 = reinterpret_cast<uint2*>(skeep + (r0 - q0) * words);
   uint2* keep1 = reinterpret_cast<uint2*>(skeep + (r1 - q0) * words);
-  auto draw = [&](int i, uint64_t valid) {
-    draw_keep<ALIGNED>(drop, base0, base1, r0, r1, t, causal, i, valid,
-                       keep0, keep1);
-  };
+  if (tiles > 0) mbar_wait(smem_addr(q_bar), 0);
 
-  // Pass 1: the row max m and sum l, online over the tiles
+  // Pass 1: the row max m and sum l, online over the tiles; the keep bits
+  // drawn while the peers' partials come in
   float m0 = MINUS_INF, m1 = MINUS_INF, l0 = 0.f, l1 = 0.f;
   for (int i = 0; i < tiles; ++i) {
     const int k0 = i * BKV;
     const uint64_t valid = tile_valid[i];
     const bool live = i < wg_tiles && valid != 0;
     float sc[BKV / 2];
-    wide::scores(sc, ring, i * NC, NC, a_off, wide::ROW_CHUNK, live, lane,
-                 load);
+    wide::scores_resident(sc, q_addr, kring, i, NA, live, lane, load_k);
+    ex.put(sc, i, live);
+    if (DROP && live)
+      draw_keep<ALIGNED>(drop, base0, base1, r0, r1, t, causal, i, valid,
+                         keep0, keep1);
+    ex.get(sc, i, live);
     if (live)
       row_stats(sc, valid, k0, warp_row, r0, r1, t, causal, scale_log2, m0,
                 m1, l0, l1);
@@ -752,77 +797,90 @@ fwd_wide_kernel(const __grid_constant__ CUtensorMap map_q,
   l0 = quad_sum(l0), l1 = quad_sum(l1);
   const float lse0 = l0 > 0.f ? m0 + log2f(l0) : 0.f;
   const float lse1 = l1 > 0.f ? m1 + log2f(l1) : 0.f;
+  __syncwarp();   // the quads' keep words of pass 1, read in pass 2
 
   // Pass 2: o = sum over keys of bf16(keep ? exp2(s - lse) / (1 - rate) :
-  // 0) v, over the slice's columns
-  float o[DS / 2];
+  // 0) v, over the rank's columns (where it has 128, the other 128 of the
+  // m64n256 product read stale bytes of the V slot and are not stored)
+  float o[RC / 2];
 #pragma unroll
-  for (int e = 0; e < DS / 2; ++e) o[e] = 0.f;
+  for (int e = 0; e < RC / 2; ++e) o[e] = 0.f;
   for (int i = 0; i < tiles; ++i) {
-    const int n0 = p1 + i * per_tile, k0 = i * BKV;
+    const int k0 = i * BKV;
     const uint64_t valid = tile_valid[i];
     const bool live = i < wg_tiles && valid != 0;
     float sc[BKV / 2];
-    wide::scores(sc, ring, n0, NC, a_off, wide::ROW_CHUNK, live, lane, load);
-    uint32_t a[BKV / 16][4];
-    if (live) {
-      uint64_t kw0 = ~0ull, kw1 = ~0ull;
-      if constexpr (DROP) {
-        draw(i, valid);
-        __syncwarp();
-        const uint2 a0 = keep0[i], a1 = keep1[i];
-        kw0 = (a0.x | static_cast<uint64_t>(a0.y) << 32) >> (2 * t);
-        kw1 = (a1.x | static_cast<uint64_t>(a1.y) << 32) >> (2 * t);
-      }
-      pd_frags<DROP>(sc, a, valid, k0, warp_row, r0, r1, t, causal,
-                     scale_log2, lse0, lse1, kw0, kw1, drop.scale);
+    wide::scores_resident(sc, q_addr, kring, tiles + i, NA, live, lane,
+                          load_k);
+    // rows r0, r1's keep bits of the tile, shifted to this lane's keys
+    uint64_t kw0 = ~0ull, kw1 = ~0ull;
+    if constexpr (DROP) {
+      const uint2 a0 = keep0[i], a1 = keep1[i];
+      kw0 = (a0.x | static_cast<uint64_t>(a0.y) << 32) >> (2 * t);
+      kw1 = (a1.x | static_cast<uint64_t>(a1.y) << 32) >> (2 * t);
     }
-    ring.wait(n0 + NC);
+    const bool full_tile = full_tile_of(valid, k0, warp_row, causal);
+    const uint64_t bits = valid >> (2 * t);
+    uint2 u[SLOTS];
+    ex.put(sc, tiles + i, live);
+    ex.get_packed(u, tiles + i, live, [&](int j, float4 s) {
+      return pd_group<DROP>(s, j, full_tile, bits, k0, r0, r1, t, causal,
+                            scale_log2, lse0, lse1, kw0, kw1, drop.scale);
+    });
+    uint32_t a[BKV / 16][4];
+#pragma unroll
+    for (int j = 0; j < SLOTS; ++j) {
+      a[j / 2][2 * (j % 2)] = u[j].x;
+      a[j / 2][2 * (j % 2) + 1] = u[j].y;
+    }
+    vring.wait(i);
     if (live) {
-      const uint32_t v_addr = smem_addr(ring.at(n0 + NC));
+      const uint32_t v_addr = smem_addr(vring.at(i));
 #pragma unroll
       for (int k = 0; k < BKV / 16; ++k) fence_regs(a[k]);
       fence_regs(o);
       wgmma_fence();
 #pragma unroll
       for (int k = 0; k < BKV / 16; ++k)
-        wgmma_rs<DS>(o, a[k], sw128_desc(v_addr + k * 2048, BKV * 128, 1024));
+        wgmma_rs<RC>(o, a[k], sw128_desc(v_addr + k * 2048, BKV * 128, 1024));
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(o);
 #pragma unroll
       for (int k = 0; k < BKV / 16; ++k) fence_regs(a[k]);
     }
-    ring.release(n0 + NC, lane, load);
+    vring.release(i, lane, load_v);
   }
+  // Every item is consumed once both warpgroups are here, and no peer
+  // reads this block's buffers once the cluster is
+  wide::cluster_sync();
 
-  // The epilogue: slice 0 writes lse and the keep words; o leaves through
-  // the idle ring (both warpgroups past their last item)
-  if (slice == 0 && t == 0) {
+  // The epilogue: rank 0 writes lse and the keep words; o leaves through
+  // the resident Q's space, the rank's W columns
+  if (rank == 0 && t == 0) {
     if (r0 < T) lse[row_base + r0] = lse0;
     if (r1 < T) lse[row_base + r1] = lse1;
   }
-  if constexpr (DROP) {
-    if (slice == 0) {
-      bar_sync(1 + c, 128);
-      const int n = max(0, min(64, T - wg_row)) * words / 2;
-      const uint2* src =
-          reinterpret_cast<const uint2*>(skeep + 64 * c * words);
-      uint2* dst = reinterpret_cast<uint2*>(keep_out + (row_base + wg_row) *
-                                                           words);
-      for (int e = threadIdx.x % 128; e < n; e += 128) dst[e] = src[e];
-    }
+  if (DROP && rank == 0) {
+    const int n = max(0, min(64, T - wg_row)) * words / 2;
+    const uint2* src = reinterpret_cast<const uint2*>(skeep + 64 * c * words);
+    uint2* dst =
+        reinterpret_cast<uint2*>(keep_out + (row_base + wg_row) * words);
+    for (int e = threadIdx.x % 128; e < n; e += 128) dst[e] = src[e];
   }
-  __syncthreads();
   auto box = [&](int n) { return base + c * 32768 + n * wide::TILE_CHUNK; };
   const bool lead = threadIdx.x % 128 == 0;
   if (want32) {
-    stage_f32<DS>(o, box, warp, g, t);
-    store_boxes(&map_o32, DS / 32, 32, box, col_o, wg_row, b, c, lead, T);
+    stage_f32<RC, 0, RC / 16>(o, box, warp, g, t);
+    store_boxes(&map_o32, 4, 32, box, col_r, wg_row, b, c, lead, T);
+    if (W == RC) {
+      stage_f32<RC, RC / 16, RC / 8>(o, box, warp, g, t);
+      store_boxes(&map_o32, 4, 32, box, col_r + RC / 2, wg_row, b, c, lead,
+                  T);
+    }
   }
-  stage_bf16<DS>(o, box, warp, g, t);
-  store_boxes(&map_o16, DS / wide::ATOM, wide::ATOM, box, col_o, wg_row, b, c,
-              lead, T);
+  stage_bf16<RC>(o, box, warp, g, t);
+  store_boxes(&map_o16, NA, wide::ATOM, box, col_r, wg_row, b, c, lead, T);
 }
 
 template <bool DROP, bool ALIGNED>
@@ -830,19 +888,15 @@ int launch_fwd_wide(const CUtensorMap* maps, const void* mask, void* lse,
                     void* keep, int B, int T, int H, int D, float scale_log2,
                     int causal, const ppgs::Dropout& drop, int want32,
                     cudaStream_t stream) {
-  using P = WidePlan;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      fwd_wide_kernel<DROP, ALIGNED>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, P::smem(2 * MAX_TILES));
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  const int smem = P::smem(DROP ? 2 * ((T + BKV - 1) / BKV) : 0);
-  const dim3 grid((T + BQ - 1) / BQ, H * (D / WIDE_DS), B);
-  fwd_wide_kernel<DROP, ALIGNED><<<grid, THREADS, smem, stream>>>(
+  const int smem = WidePlan::smem(DROP ? 2 * ((T + BKV - 1) / BKV) : 0);
+  const int ranks = wide::ranks(D);
+  const dim3 grid(ranks * ((T + BQ - 1) / BQ), H, B);
+  return ppgs::residual_ln::launch(
+      fwd_wide_kernel<DROP, ALIGNED>, THREADS, smem, grid, ranks, stream,
       maps[0], maps[1], maps[2], maps[3], maps[4],
       static_cast<const uint8_t*>(mask), static_cast<float*>(lse),
       static_cast<uint32_t*>(keep), T, H, D, scale_log2, causal, drop,
       want32);
-  return static_cast<int>(cudaGetLastError());
 }
 
 // ------------------------------------------------------------- row_dot

@@ -16,6 +16,7 @@
 #pragma once
 
 #include <cooperative_groups.h>
+#include <mutex>
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -412,7 +413,46 @@ __device__ __forceinline__ void residual_ln(
                   groups);
 }
 
-// Launch `kernel` on a grid of clusters of `cluster` blocks (along x)
+// Whether the card can hold a cluster of `cfg` at all
+// (cudaOccupancyMaxActiveClusters): cudaSuccess, or
+// cudaErrorLaunchOutOfResources. The answer is kept for each kernel,
+// block size and cluster size, as the most shared memory at which one fit
+// (so a kernel whose shared memory grows with T asks again only above it)
+inline cudaError_t cluster_fits(const void* kernel,
+                                const cudaLaunchConfig_t& cfg) {
+  struct Fit {
+    const void* kernel;
+    unsigned threads, cluster;
+    size_t smem;
+  };
+  static std::mutex lock;
+  static Fit fits[64];
+  static int known = 0;
+  const unsigned threads = cfg.blockDim.x;
+  const unsigned cluster = cfg.attrs[0].val.clusterDim.x;
+  std::lock_guard<std::mutex> hold(lock);
+  Fit* fit = nullptr;
+  for (int i = 0; i < known; ++i)
+    if (fits[i].kernel == kernel && fits[i].threads == threads &&
+        fits[i].cluster == cluster)
+      fit = fits + i;
+  if (fit && cfg.dynamicSmemBytes <= fit->smem) return cudaSuccess;
+  int clusters = 0;
+  const cudaError_t err =
+      cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  if (err != cudaSuccess) return err;
+  if (clusters < 1) return cudaErrorLaunchOutOfResources;
+  if (!fit && known < 64) {
+    fit = fits + known++;
+    *fit = Fit{kernel, threads, cluster, 0};
+  }
+  if (fit) fit->smem = cfg.dynamicSmemBytes;
+  return cudaSuccess;
+}
+
+// Launch `kernel` on a grid of clusters of `cluster` blocks (along x); a
+// cluster the card cannot hold returns cudaErrorLaunchOutOfResources, the
+// launch not made
 template <typename... Params, typename... Args>
 int launch(void (*kernel)(Params...), int threads, int smem, dim3 grid,
            unsigned cluster, cudaStream_t s, Args... args) {
@@ -432,6 +472,8 @@ int launch(void (*kernel)(Params...), int threads, int smem, dim3 grid,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
+  err = cluster_fits(reinterpret_cast<const void*>(kernel), cfg);
+  if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

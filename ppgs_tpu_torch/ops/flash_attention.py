@@ -4,8 +4,9 @@
 One CUDA kernel (wgmma + TMA: S, P and O stay in registers), with an
 online softmax over 64-key tiles and one instance per head width (16, 32,
 64, 128, 256), and a wide route for any d_head % 128 == 0 from 384 to
-2048 (the output's columns split over the grid, S formed over the whole
-head by each slice), serves the places the JAX package runs attention in
+2048 (a cluster of blocks splits a head's columns and forms S once, its
+ranks' partial scores added through distributed shared memory in
+rank order), serves the places the JAX package runs attention in
 a TPU kernel: ``ppgs_tpu/ops/flash_attention.py``
 ``_fused_kernel`` (T <= 1024), ``_flash_kernel`` (T > 1024) and
 ``_fused_kernel_packed`` (d_head < 128: wav2vec2's 12 heads of 64, which

@@ -23,19 +23,24 @@ ffn_train_bwd (fp32 x) and ln_dropout_bwd; K2 at mel (128 x 500, 2 heads
 of 128), the head (2 heads of 256) and the trunk (64 x 400, 12 heads of
 64), and attention_train_fwd (fp32 o too), row_dot and
 attention_train_bwd (bf16 and fp32) at d_head 128 and 256 on the training
-shape (256 x 512, ragged windows, dropout 0.1); K2's wide route at 2
-heads of 512 and of 1024 (128 x 500), where the root is not run. It
-prints whether the root's outputs (every output of a train form) equal
-this checkout's bit for bit, then
-times both in turns (this, root, root, this): CUDA-event medians of
-``--reps`` runs and the profiler's device time per call by kernel. Prints
-the card's name and power limit, then one JSON line. ``--variants``
-builds text-substituted copies of this checkout's sources beside it and
-times their kernel through them too: K4's output launch with only its
-256-column epilogue compiled (``wide_only``), and that with every W2 box
-loaded (``wide_only_all_boxes``); K1's walk over the depth unrolled by 2
-or 4 (``k1_unroll2``, ``k1_unroll4``); K2's wide route at 128-column
-output slices at every d_head (``k2_ds128``, on the wide cases only).
+shape (256 x 512, ragged windows, dropout 0.1); the wide routes at 2
+heads of 512 and of 1024: K2 at 128 x 500, attention_train_fwd on the
+training shape. It prints whether the root's outputs (every output of a
+train form) equal this checkout's bit for bit, or, on the wide routes,
+whose S the root may sum in another order, how far they differ (each
+output's largest difference and the share of its elements that differ;
+the keep words must still be equal), then times both in turns (this,
+root, root, this): CUDA-event medians of ``--reps`` runs and the
+profiler's device time per call by kernel. Prints the card's name and
+power limit, then one JSON line. ``--variants`` builds text-substituted
+copies of this checkout's sources beside it and times their kernel
+through them too: K4's output launch with only its 256-column epilogue
+compiled (``wide_only``), and that with every W2 box loaded
+(``wide_only_all_boxes``); K1's walk over the depth unrolled by 2 or 4
+(``k1_unroll2``, ``k1_unroll4``); the wide routes of K2 and of the train
+forward walking their items only (``k2_loads_only``, ``fwd_loads_only``)
+and those with the cluster sum of zero partials too
+(``k2_exchange_only``, ``fwd_exchange_only``), on the wide cases only.
 ``--only`` keeps the cases whose label starts with one of its
 comma-separated prefixes (e.g. ``K2,attn_row_dot``), so that a call
 checks one kernel against the root in a minute or two. Imports nothing of
@@ -75,10 +80,49 @@ VARIANTS = {
                    ((K1_LOOP, '\n#pragma unroll 2' + K1_LOOP),), ''),
     'k1_unroll4': ('ppgs_qkv_proj',
                    ((K1_LOOP, '\n#pragma unroll 4' + K1_LOOP),), ''),
-    'k2_ds128': ('ppgs_attention',
-                 (('return d_head % 256 == 0\n', 'return false\n'),),
-                 'K2 wide'),
 }
+# The wide routes' walks, which compute nothing to compare, as
+# substitutions of the call sites in the kernels' tile loops: loads_only
+# waits for and releases the items (no product, no cluster sum, no
+# softmax, no keep bits, no P V: scores_resident's `live` false skips the
+# products); exchange_only adds the cluster sum of zero partials (pass 2's
+# pd at the owners too), its sums read into l0 so that none is dropped
+def off(text):
+    return text.replace('live', 'false')
+
+
+SCORES = 'wide::scores_resident(sc, q_addr, kring, i, NA, live, lane, load_k);'
+SCORES2 = ('wide::scores_resident(sc, q_addr, kring, tiles + i, NA, live, '
+           'lane,\n                          load_k);')
+ZERO = '\n    zero(sc);'
+PUT, GET = '    ex.put(sc, i, live);\n', '    ex.get(sc, i, live);\n'
+PACKED = '    ex.put(sc, tiles + i, live);\n    ex.get_packed('
+SOFTMAX = '    if (live) {\n      float corr0, corr1;'
+PENDING = '    pending = live;'
+DRAW = '    if (DROP && live)\n      draw_keep'
+ROW_STATS = '    if (live)\n      row_stats('
+PV = '    vring.wait(i);\n    if (live) {'
+SUM_SC = '    if (live)\n      for (int e = 0; e < BKV / 2; ++e) l0 += sc[e];\n'
+SUM_PD = ('    if (live)\n      for (int k = 0; k < BKV / 16; ++k) '
+          'l0 += __uint_as_float(a[k][0]);\n')
+WALKS = {
+    'k2_loads_only': ('ppgs_attention', (
+        (SCORES, off(SCORES)), (PUT, ''), (GET, ''),
+        (SOFTMAX, off(SOFTMAX)), (PENDING, off(PENDING))), 'K2 wide'),
+    'k2_exchange_only': ('ppgs_attention', (
+        (SCORES, off(SCORES) + ZERO), (SOFTMAX, SUM_SC + off(SOFTMAX)),
+        (PENDING, off(PENDING))), 'K2 wide'),
+    'fwd_loads_only': ('ppgs_attention_train_fwd', (
+        (SCORES, off(SCORES)), (SCORES2, off(SCORES2)), (PUT, ''),
+        (GET, ''), (PACKED, '    if (false) ex.get_packed('),
+        (DRAW, off(DRAW)), (ROW_STATS, off(ROW_STATS)), (PV, off(PV))),
+        'attn_train_fwd wide'),
+    'fwd_exchange_only': ('ppgs_attention_train_fwd', (
+        (SCORES, off(SCORES) + ZERO), (SCORES2, off(SCORES2) + ZERO),
+        (DRAW, off(DRAW)), (ROW_STATS, SUM_SC + off(ROW_STATS)),
+        (PV, SUM_PD + off(PV))), 'attn_train_fwd wide'),
+}
+VARIANTS.update(WALKS)
 K4_CASES = (('mel', 64_000, 256, 'relu', 2048),
             ('head', 64_000, 512, 'relu', 2048),
             ('trunk', 25_600, 768, 'gelu', 3072),
@@ -90,9 +134,11 @@ TRAIN_C, TRAIN_M, TRAIN_F, TRAIN_RATE = (256, 512, 768), 131_072, 2048, 0.1
 K2_CASES = (('mel', 128, 500, 2, 128), ('head', 128, 500, 2, 256),
             ('trunk', 64, 400, 12, 64), ('wide512', 128, 500, 2, 512),
             ('wide1024', 128, 500, 2, 1024))
-# Cases at widths that the root's sources need not take
-ROOT_SKIPS = ('K2 wide',)
+# Cases whose S the root may sum in another order: compared by difference
+SUM_ORDER = ('K2 wide', 'attn_train_fwd wide')
 ATTN_TRAIN_D, ATTN_B, ATTN_T = (128, 256), 256, 512
+# The train forward's wide route on the training shape: 2 heads of these
+ATTN_WIDE_D = (512, 1024)
 
 
 def build(jobs, out_dir):
@@ -114,7 +160,9 @@ def build(jobs, out_dir):
     for (name, symbol), (so, proc) in procs.items():
         log, _ = proc.communicate()
         for line in log.splitlines():
-            if 'Used' in line or 'spill' in line or 'error' in line:
+            if 'Function properties for' in line:
+                print(f'  {so.stem}: {line.split(" for ", 1)[1][:96]}')
+            elif 'Used' in line or 'spill' in line or 'error' in line:
                 print(f'  {so.stem}: {line.strip()[:160]}', flush=True)
         if proc.returncode:
             raise SystemExit(f'{so.stem}: nvcc failed:\n{log}')
@@ -159,8 +207,8 @@ def main():
         src = kernels.SIGNATURES[symbol][0]
         text = (kernels.CSRC / src).read_text()
         for old, new in subs:
-            if old not in text:
-                raise SystemExit(f'{name}: {old!r} is not in {src}')
+            if text.count(old) != 1:
+                raise SystemExit(f'{name}: {old!r} is not in {src} once')
             text = text.replace(old, new)
         jobs[name, symbol] = (text, kernels.CSRC)
     if args.root:
@@ -259,6 +307,15 @@ def main():
                       'ppgs_attention_train_bwd',
                       lambda a=bwd: fa.attention_train_bwd(*a,
                                                            want32=True)))
+    for D in ATTN_WIDE_D:
+        H, C = 2, 2 * D
+        qkv = rnd(ATTN_B, ATTN_T, 3 * C).to(bf16)
+        fwd = (qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:], mask, H,
+               fa.LOG2E / D ** 0.5, False, drop.at(1))
+        cases.append((f'attn_train_fwd wide{D} {ATTN_B} x {ATTN_T} 2 x {D}',
+                      'ppgs_attention_train_fwd',
+                      lambda a=fwd: fa.attention_train_fwd(*a,
+                                                           want_f32=True)))
     if args.only:
         prefixes = tuple(args.only.split(','))
         cases = [case for case in cases if case[0].startswith(prefixes)]
@@ -271,22 +328,45 @@ def main():
                        for x, y in zip(a, b))
         return torch.equal(a, b)
 
+    def difference(a, b):
+        """Each floating output's largest difference and the share of its
+        elements that differ; the integer ones (keep words) equal or not."""
+        out = []
+        for x, y in zip(a if isinstance(a, tuple) else (a,),
+                        b if isinstance(b, tuple) else (b,)):
+            if x is None or y is None:
+                continue
+            if not x.is_floating_point():
+                out.append({'equal': torch.equal(x, y)})
+                continue
+            x, y = x.float(), y.float()
+            out.append({'max_abs': (x - y).abs().max().item(),
+                        'share': (x != y).double().mean().item()})
+        return out
+
     result = {'card': card, 'equal': {}, 'event_ms': {}, 'device_ms': {}}
     with torch.no_grad():
         for label, symbol, fn in cases:
             # this, the variants of its source, root
             order = [name for name in builds if symbol in builds[name]
                      and label.startswith(VARIANTS[name][2]
-                                          if name in VARIANTS else '')
-                     and not (name == 'root'
-                              and label.startswith(ROOT_SKIPS))]
+                                          if name in VARIANTS else '')]
 
             def run(name):
                 kernels._functions[symbol] = builds[name][symbol]
                 return fn()
 
             for name in order[1:]:
-                equal = same(run(name), run('this'))
+                if name in WALKS:
+                    continue
+                got, want = run(name), run('this')
+                if label.startswith(SUM_ORDER):
+                    diff = difference(got, want)
+                    result['equal'][f'{label} {name}'] = diff
+                    print(f'{label}: {name}\'s outputs against this '
+                          f'build\'s: {diff}', flush=True)
+                    continue
+                equal = same(got, want)
                 result['equal'][f'{label} {name}'] = equal
                 print(f'{label}: {name}\'s output equals this build\'s bit '
                       f'for bit: {equal}', flush=True)

@@ -11,6 +11,10 @@ against the JAX package on the same seeded numpy inputs and npz weights:
 - the train attention's plain versions at d_head 512 against
   ``flash_attention_train`` in interpret mode, forward and gradients at
   rate 0;
+- the wide routes' cluster: its rank plan at every d_head % 128 == 0 from
+  384 to 2048, and a model of its arithmetic (S summed over the ranks'
+  partials in rank order) against the plain versions and the JAX kernels
+  at d_head 384 and 1024;
 - B4's plain chain at (1024, 2 heads) in fp32 against
   ``encoder_layer_train`` in interpret mode, and a 2-layer bf16 train step
   at (768, 2 heads) against JAX's (tests/test_torch_train_any_width.py's
@@ -29,6 +33,7 @@ holds each against these plain versions there.
 
 import dataclasses
 import math
+import re
 
 import jax
 import jax.numpy as jnp
@@ -189,6 +194,108 @@ def test_train_references_match_jax_kernel_at_512(T, causal):
         np.testing.assert_allclose(a.numpy(), b, rtol=1e-4, atol=1e-4,
                                    err_msg=name)
     assert not d32[2].any() and not o[2].any()
+
+
+###############################################################################
+# The wide routes' cluster: the rank plan and its arithmetic
+###############################################################################
+
+
+def _wide_constant(name):
+    """``constexpr int name = value;`` of ``attention_wide.cuh``."""
+    text = (kernels.CSRC / 'attention_wide.cuh').read_text()
+    return int(re.search(rf'constexpr int {name} = (\d+);', text).group(1))
+
+
+def _wide_ranks(d):
+    """A model of the wide routes' rank plan at head width d
+    (``wide::ranks`` and ``wide::rank_cols`` in ``attention_wide.cuh``,
+    whose RANK_COLS it reads): the (first column, columns) of each block
+    of a head's cluster, in rank order, RANK_COLS columns each but the
+    last, which has the rest. K2 and the train forward add the ranks'
+    partial scores in this order. The kernels' own plan is checked on the
+    card (chip_smoke.py's phase 42 runs every wide width)."""
+    cols = _wide_constant('RANK_COLS')
+    return [(c, min(cols, d - c)) for c in range(0, d, cols)]
+
+
+@pytest.mark.parametrize('D', range(384, 2049, 128))
+def test_wide_rank_plan_covers_the_head(D):
+    """K2's and the train forward's cluster at d_head D, up to the
+    header's MAX_D: at most 8 ranks (the portable cluster), in rank order,
+    disjoint ranges of 256 columns that cover the head, the last of 128
+    where D % 256 == 128."""
+    assert D <= _wide_constant('MAX_D')
+    plan = _wide_ranks(D)
+    assert 2 <= len(plan) <= 8
+    assert [c for c, _ in plan] == [256 * r for r in range(len(plan))]
+    widths = [w for _, w in plan]
+    assert sum(widths) == D
+    assert widths[:-1] == [256] * (len(plan) - 1)
+    assert widths[-1] == (128 if D % 256 == 128 else 256)
+
+
+def _cluster_model(q, k, v, mask, heads, scale_log2, causal, train):
+    """The wide routes' arithmetic, in q's dtype: S the sum of the ranks'
+    partials Q_r K_r^T in rank order (``_wide_ranks``), the key and causal
+    masks, the softmax (K2's: p = exp2(s - max), 1/l after the product; or,
+    with ``train``, the train forward's at rate 0: p = exp2(s - lse) before
+    it), then P V_r for each rank and the ranks' columns joined."""
+    B, T, C = q.shape
+    plan = _wide_ranks(C // heads)
+    q4, k4, v4 = (fa._heads_first(t, heads) for t in (q, k, v))
+    s = 0
+    for c, w in plan:
+        s = s + q4[..., c:c + w] @ k4[..., c:c + w].transpose(-1, -2)
+    valid = fa._valid(mask, T, causal)
+    s = (s * scale_log2).masked_fill(~valid, fa.NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp2(s - m).masked_fill(~valid, 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    if train:
+        lse = torch.where(l > 0, m + torch.log2(l.clamp_min(1e-30)), 0.0)
+        p, l = torch.exp2(s - lse).masked_fill(~valid, 0.0), 1.0
+    o = torch.cat([p.to(q.dtype).float() @ v4[..., c:c + w]
+                   for c, w in plan], dim=-1)
+    return fa._heads_last(o / torch.as_tensor(l).clamp_min(1e-30)).to(
+        q.dtype)
+
+
+@pytest.mark.parametrize('causal', [False, True])
+@pytest.mark.parametrize('T', T_EDGES)
+@pytest.mark.parametrize('D', (384, 1024))
+def test_cluster_model_matches_the_references_and_jax(D, T, causal):
+    """The cluster's arithmetic at two heads of D in fp32 (K2's softmax,
+    and the train forward's at rate 0): within 1e-5 of the plain versions
+    (``attention_reference``, ``attention_train_fwd_reference``), which
+    sum S in one product, and against ``flash_attention`` and
+    ``flash_attention_train`` in interpret mode at their tests' tolerances
+    (rtol 1e-4 and atol 1e-5; rtol = atol = 1e-4); the wholly masked
+    window 0."""
+    H = 2
+    q, k, v, _, mask = _inputs(D + T + 3, T, H * D)
+    wide, wide_mask = _padded((q, k, v), mask)
+    tq, tk, tv, tm = (torch.from_numpy(a) for a in (q, k, v, mask))
+    sl = fa.LOG2E / math.sqrt(D)
+    got = _cluster_model(tq, tk, tv, tm, H, sl, causal, train=False)
+    np.testing.assert_allclose(
+        got.numpy(), fa.attention_reference(tq, tk, tv, tm, H, sl,
+                                            causal).numpy(),
+        rtol=1e-5, atol=1e-5)
+    want = np.asarray(jax_fa.flash_attention(
+        *wide, wide_mask, num_heads=H, block_q=8, block_k=8, causal=causal,
+        interpret=True))[:, :T]
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
+    assert not got[2].any()
+    got = _cluster_model(tq, tk, tv, tm, H, sl, causal, train=True)
+    o, _, _, _ = fa.attention_train_fwd_reference(
+        tq, tk, tv, tm, H, sl, causal, dropout.Drop(0, 1, 0.0))
+    np.testing.assert_allclose(got.numpy(), o.numpy(), rtol=1e-5, atol=1e-5)
+    want = np.asarray(jax_fa.flash_attention_train(
+        *wide, wide_mask, H, dropout_rate=0.0, causal=causal,
+        interpret=True))[:, :T]
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+    assert not got[2].any()
 
 
 ###############################################################################
